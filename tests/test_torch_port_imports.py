@@ -1,0 +1,53 @@
+"""The port imports torch and never jax: importing every module of
+gvfdiffusion_torch in a fresh interpreter leaves jax (and flax, and the JAX
+package) out of sys.modules, and builds no kernel."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import gvfdiffusion_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE_MODULES = [
+    "gvfdiffusion_torch._ext",
+    "gvfdiffusion_torch.ops.fused_sublayer",
+    "gvfdiffusion_torch.ops.fps",
+    "gvfdiffusion_torch.nn.embedders",
+    "gvfdiffusion_torch.nn.attention",
+    "gvfdiffusion_torch.nn.transformer",
+    "gvfdiffusion_torch.models.dit",
+    "gvfdiffusion_torch.models.motion_vae",
+    "gvfdiffusion_torch.diffusion.gaussian_diffusion",
+    "gvfdiffusion_torch.diffusion.dpm_solver",
+    "gvfdiffusion_torch.pipelines.video_to_4d",
+    "gvfdiffusion_torch.utils.weights",
+]
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        gvfdiffusion_torch.__path__, "gvfdiffusion_torch."))
+
+
+def test_every_slice_module_exists():
+    assert set(SLICE_MODULES) <= set(_all_modules())
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_all_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'gvfdiffusion_tpu'))\n"
+        "assert not bad, bad\n"
+        "from gvfdiffusion_torch import _ext\n"
+        "assert _ext._lib is None  # no build at import time\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
