@@ -10,10 +10,12 @@ Phases, each printed on its own lines:
   2. each fused DiT sublayer kernel (K1-K4) against its plain torch version
      on the card, at the DiT's full shapes in bf16, with both times;
   3. one full 12x512 DiT forward, kernels against impl="plain";
-  4. VideoTo4DPipeline.run at full width with seeded random weights: FPS,
-     KV cache, a 32-step DPM-Solver++ denoise at guidance 1.0/1.0, and the
-     motion-VAE decode of 131072 Gaussians; then 4 steps at guidance 2.0/5.0
-     (the 3-way CFG batch B*T = 96).
+  4. the pipeline at full width with seeded random weights: FPS, KV cache,
+     a 32-step DPM-Solver++ denoise at guidance 1.0/1.0, and the motion-VAE
+     decode of 131072 Gaussians, timed stage by stage; then the same through
+     VideoTo4DPipeline.run, the public entry point, whose kernel launches are
+     counted and whose outputs must equal the staged ones; then both again
+     for 4 steps at guidance 2.0/5.0 (the 3-way CFG batch B*T = 96).
 Then one JSON line of per-kernel results and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without a CUDA device, or without
@@ -39,9 +41,15 @@ KERNELS = [
     ("fused_mlp_sublayer", "gvfdiffusion_tpu/ops/fused_sublayer.py:881", "mlp"),
 ]
 SOURCE = "gvfdiffusion_torch/csrc/fused_sublayer.cu"
-KERNEL_REL_BOUND = 1e-2    # rel L2 of the sublayer output y
-UPDATE_REL_BOUND = 5e-2    # rel L2 of the update y - x
-DIT_REL_BOUND = 3e-2       # rel L2 of the whole 12-block DiT output
+# Kernel vs plain version at the full shapes, per sublayer: (rel L2 of the
+# output y, rel L2 of the update y - x). Each is 3-6x the error measured on
+# an H100 80GB HBM3 (700 W) with these seeds, which four runs reproduced to
+# every digit: y 6.2e-4 / 9.0e-4 / 1.0e-3 / 9.9e-5 and update 6.0e-3 /
+# 7.8e-3 / 6.2e-3 / 5.1e-4 for self / temporal / cross / MLP.
+BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
+          "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3)}
+DIT_REL_BOUND = 3e-2       # rel L2 of the whole 12-block DiT output (9.6e-3)
+RUN_REL_BOUND = 1e-6       # run() against the same stages called one by one
 
 
 def log(msg: str) -> None:
@@ -96,18 +104,17 @@ def sublayer_cases(dev, g):
 
     def cross_p():
         return ((1.0 + 0.1 * rnd(C)).to(bf), rnd(C, scale=0.1), w(C, C),
-                rnd(C, scale=0.1), torch.ones(C, device=dev, dtype=bf), w(C, C),
-                rnd(C, scale=0.1))
+                rnd(C, scale=0.1), w(C, C), rnd(C, scale=0.1))
 
     kv_img = (rnd(B * T, 1370, C), rnd(B * T, 1370, C))
     kv_st = (rnd(B * T, N, C), rnd(B * T, N, C))
     return {
         "self": (x3, dict(args=(x3, mod(B), mod(B), mod(B), *self_w()),
-                          kw=dict(num_heads=H, rms=True, mod_repeat=T))),
+                          kw=dict(num_heads=H, mod_repeat=T))),
         "temporal": (x4, dict(args=(x4, mod(B), mod(B), mod(B), *self_w()),
-                              kw=dict(num_heads=H, rms=True))),
+                              kw=dict(num_heads=H))),
         "cross": (x3, dict(args=(x3, cross_p(), kv_img, cross_p(), kv_st),
-                           kw=dict(num_heads=H, rms=False))),
+                           kw=dict(num_heads=H))),
         "mlp": (x3, dict(args=(x3, mod(B), mod(B), mod(B), w(C, M),
                                rnd(M, scale=0.1), w(M, C), rnd(C, scale=0.1)),
                          kw=dict(mod_repeat=T))),
@@ -136,11 +143,12 @@ def phase_kernels(dev):
         finite = bool(torch.isfinite(y).all())
         ms = time_ms(lambda: fn(*case["args"], **case["kw"]))
         plain_ms = time_ms(lambda: fn(*case["args"], **case["kw"], impl="plain"))
+        y_bound, upd_bound = BOUNDS[key]
         log(f"[kernel] {name}: shape {tuple(x.shape)} max_abs_err {mae:.4g} "
-            f"rel_l2 {err:.3e} (bound {KERNEL_REL_BOUND:g}) update_rel_l2 "
-            f"{upd:.3e} (bound {UPDATE_REL_BOUND:g}) kernel {ms:.3f} ms "
+            f"rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 "
+            f"{upd:.3e} (bound {upd_bound:g}) kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms")
-        if not (finite and err <= KERNEL_REL_BOUND and upd <= UPDATE_REL_BOUND):
+        if not (finite and err <= y_bound and upd <= upd_bound):
             raise AssertionError(f"{name} disagrees with its plain version")
         results[key] = dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, max_abs_err=mae, ms=ms,
@@ -197,7 +205,7 @@ def pipeline_inputs(dev):
 
 
 def run_stages(pipe, gs, valid, ci, seed):
-    """The steps of VideoTo4DPipeline.run, timed one by one."""
+    """The steps of VideoTo4DPipeline.run, called one by one and timed."""
     import torch
 
     stages = {}
@@ -219,6 +227,21 @@ def run_stages(pipe, gs, valid, ci, seed):
     return {"latent": latent, "deltas": deltas, "anchors": anchors}, stages
 
 
+def run_entry_point(pipe, gs, valid, ci, seed):
+    """VideoTo4DPipeline.run itself, with its launch counts and wall time."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    g = torch.Generator(device=gs.device).manual_seed(seed)
+    torch.cuda.synchronize()
+    fsl.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(gs, valid, ci, generator=g)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, dict(fsl.launch_counts), wall_ms
+
+
 def check_outputs(out, B, T, G):
     import torch
 
@@ -233,43 +256,62 @@ def check_outputs(out, B, T, G):
         raise AssertionError("deltas are all zero")
 
 
+def check_same(out, staged, what):
+    """run() must give what its stages give when called one by one."""
+    errs = {k: rel_l2(out[k], staged[k]) for k in ("anchors", "latent",
+                                                   "deltas")}
+    log(f"[pipeline] {what}: run() vs staged rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound {RUN_REL_BOUND:g})")
+    if max(errs.values()) > RUN_REL_BOUND:
+        raise AssertionError(f"{what}: run() disagrees with its stages")
+
+
 def phase_pipeline(dit, vae, dev, card):
     import torch
-    from gvfdiffusion_torch.ops import fused_sublayer as fsl
     from gvfdiffusion_torch.pipelines.video_to_4d import (
         VideoTo4DConfig, VideoTo4DPipeline)
 
     gs, valid, ci = pipeline_inputs(dev)
     B, T, G = 1, 32, gs.shape[1]
-    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=4, order=2))
-    run_stages(pipe, gs, valid, ci, seed=4)  # warm-up
+    warm = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=4, order=2))
+    run_stages(warm, gs, valid, ci, seed=4)
 
-    # the main path: kernel launch counts are read from this run only
-    pipe.cfg = VideoTo4DConfig(steps=32, order=2)
-    torch.cuda.reset_peak_memory_stats()
-    fsl.reset_launch_counts()
-    out, stages = run_stages(pipe, gs, valid, ci, seed=5)
-    launches = dict(fsl.launch_counts)
-    check_outputs(out, B, T, G)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[pipeline] guidance 1.0/1.0, 32 steps, G={G}: "
+    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=32, order=2))
+    staged, stages = run_stages(pipe, gs, valid, ci, seed=5)
+    check_outputs(staged, B, T, G)
+    log(f"[pipeline] guidance 1.0/1.0, 32 steps, G={G}, stage by stage: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
-        + f"; peak {peak:.2f} GiB; launches {launches}; {card}")
+        + f"; {card}")
+
+    # the main path, through the public entry point: the kernel launch
+    # counts are read from this run only
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, wall_ms = run_entry_point(pipe, gs, valid, ci, seed=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_outputs(out, B, T, G)
+    log(f"[pipeline] guidance 1.0/1.0, 32 steps: run() {wall_ms:.1f} ms; "
+        f"peak {peak:.2f} GiB; launches {launches}; {card}")
     log(f"[pipeline] latent |mean| {float(out['latent'].abs().mean()):.4g}, "
         f"deltas |mean| {float(out['deltas'].abs().mean()):.4g}, finite")
+    check_same(out, staged, "guidance 1.0/1.0")
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing} kernel")
 
-    pipe.cfg = VideoTo4DConfig(steps=4, order=2, guidance_scale=2.0,
-                               guidance_scale2=5.0)
+    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+        steps=4, order=2, guidance_scale=2.0, guidance_scale2=5.0))
+    staged, stages = run_stages(pipe, gs, valid, ci, seed=6)
+    check_outputs(staged, B, T, G)
     torch.cuda.reset_peak_memory_stats()
-    out, stages = run_stages(pipe, gs, valid, ci, seed=6)
-    check_outputs(out, B, T, G)
+    out, cfg_launches, wall_ms = run_entry_point(pipe, gs, valid, ci, seed=6)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[pipeline] guidance 2.0/5.0 (3-way CFG, B*T = 96), 4 steps: "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
-        + f"; peak {peak:.2f} GiB; finite; {card}")
+    check_outputs(out, B, T, G)
+    log(f"[pipeline] guidance 2.0/5.0 (3-way CFG, B*T = 96), 4 steps, stage "
+        f"by stage: " + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+        + f"; run() {wall_ms:.1f} ms; peak {peak:.2f} GiB; launches "
+        f"{cfg_launches}; finite; {card}")
+    check_same(out, staged, "guidance 2.0/5.0")
     return launches
 
 

@@ -28,9 +28,9 @@ _I = ctypes.c_int
 
 # argument types of each C entry point (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    "gvf_self_sublayer": [_P] * 14 + [_I] * 6 + [_P],
-    "gvf_temporal_sublayer": [_P] * 14 + [_I] * 6 + [_P],
-    "gvf_cross_sublayer": [_P, _I] + ([_P] * 9 + [_I]) * 2 + [_P] * 5
+    "gvf_self_sublayer": [_P] * 14 + [_I] * 5 + [_P],
+    "gvf_temporal_sublayer": [_P] * 14 + [_I] * 5 + [_P],
+    "gvf_cross_sublayer": [_P] + ([_P] * 8 + [_I]) * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_mlp_sublayer": [_P] * 11 + [_I] * 5 + [_P],
 }

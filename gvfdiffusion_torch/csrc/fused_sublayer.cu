@@ -399,13 +399,9 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias,
 template <typename TQ, typename TKV>
 cudaError_t launch_attn(const AttnParams& p, int H, long long nb1, int D,
                         cudaStream_t s) {
+  if (D != 32) return cudaErrorInvalidValue;  // the DiT's head width
   dim3 grid(cdiv(p.Lq, ABQ), H, (unsigned)(nb1 * p.nb2));
-  if (D == 32)
-    attn_kernel<32, TQ, TKV><<<grid, 128, 0, s>>>(p);
-  else if (D == 64)
-    attn_kernel<64, TQ, TKV><<<grid, 128, 0, s>>>(p);
-  else
-    return cudaErrorInvalidValue;
+  attn_kernel<32, TQ, TKV><<<grid, 128, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -424,13 +420,13 @@ const char* gvf_error_string(int err) {
 }
 
 // K1. x, y [B, L, C]; sh/sc/gate [B / mod_repeat, C]; wqkv [3C, C];
-// wo [C, C]; qg/kg [C] (ignored unless rms). Scratch: h [B*L, C] bf16,
+// wo [C, C]; qg/kg [C], the q/k RMS-norm gammas. Scratch: h [B*L, C] bf16,
 // qkv [B*L, 3C] fp32, attn [B*L, C] bf16.
 int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
                       const void* gate, const void* wqkv, const void* bqkv,
                       const void* qg, const void* kg, const void* wo,
                       const void* bo, void* y, void* h, void* qkv, void* attn,
-                      int B, int L, int C, int H, int rms, int mod_repeat,
+                      int B, int L, int C, int H, int mod_repeat,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L, rpm = (long long)L * mod_repeat;
@@ -445,8 +441,8 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
   p.q_si = p.k_sj = 3 * C;
   p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
   p.nb2 = 1; p.Lq = p.Lk = L;
-  p.qg = rms ? (const bf16*)qg : nullptr;
-  p.kg = rms ? (const bf16*)kg : nullptr;
+  p.qg = (const bf16*)qg;
+  p.kg = (const bf16*)kg;
   p.scale = (float)(1.0 / sqrt((double)D));
   GVF_CHECK((launch_attn<float, float>(p, H, B, D, s)));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
@@ -461,7 +457,7 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
                           const void* qg, const void* kg, const void* wo,
                           const void* bo, void* y, void* h, void* qkv,
                           void* attn, int B, int T, int N, int C, int H,
-                          int rms, void* stream) {
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * T * N, rpm = (long long)T * N;
   const int D = C / H;
@@ -475,8 +471,8 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
   p.q_si = p.k_sj = (long long)N * 3 * C;
   p.o_s1 = (long long)T * N * C; p.o_s2 = C; p.o_si = (long long)N * C;
   p.nb2 = N; p.Lq = p.Lk = T;
-  p.qg = rms ? (const bf16*)qg : nullptr;
-  p.kg = rms ? (const bf16*)kg : nullptr;
+  p.qg = (const bf16*)qg;
+  p.kg = (const bf16*)kg;
   p.scale = (float)(1.0 / sqrt((double)D));
   GVF_CHECK((launch_attn<float, float>(p, H, B, D, s)));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
@@ -484,49 +480,43 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
   return 0;
 }
 
-// K3. x, y [B, L, C]; per context i (n_ctx = 1 or 2): affine LN (ns, nb [C]),
-// wq [C, C], bq, qg (null: no RMS norm), wo [C, C], bo, and the cached
-// k, v [B, Lk_i, C]. Scratch: h bf16, q fp32, attn bf16, mid fp32 (the fp32
-// residual between the two contexts), each [B*L, C].
-int gvf_cross_sublayer(const void* x, int n_ctx,
+// K3. x, y [B, L, C]; per context i (image, then static): affine LN
+// (ns, nb [C]), wq [C, C], bq, wo [C, C], bo, and the cached k, v
+// [B, Lk_i, C]; no RMS norm. Scratch: h bf16, q fp32, attn bf16, mid fp32
+// (the fp32 residual between the two contexts), each [B*L, C].
+int gvf_cross_sublayer(const void* x,
                        const void* ns1, const void* nb1, const void* wq1,
-                       const void* bq1, const void* qg1, const void* wo1,
-                       const void* bo1, const void* k1, const void* v1, int lk1,
+                       const void* bq1, const void* wo1, const void* bo1,
+                       const void* k1, const void* v1, int lk1,
                        const void* ns2, const void* nb2, const void* wq2,
-                       const void* bq2, const void* qg2, const void* wo2,
-                       const void* bo2, const void* k2, const void* v2, int lk2,
+                       const void* bq2, const void* wo2, const void* bo2,
+                       const void* k2, const void* v2, int lk2,
                        void* y, void* h, void* q, void* attn, void* mid, int B,
                        int L, int C, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
   const int D = C / H;
-  auto attend = [&](const void* qg, const void* k, const void* v,
-                    int lk) -> cudaError_t {
+  auto attend = [&](const void* k, const void* v, int lk) -> cudaError_t {
     AttnParams p;
     p.q = q; p.k = k; p.v = v; p.o = (bf16*)attn;
     p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
     p.k_s1 = (long long)lk * C; p.k_s2 = 0; p.k_sj = C;
     p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
     p.nb2 = 1; p.Lq = L; p.Lk = lk;
-    p.qg = (const bf16*)qg; p.kg = nullptr;
+    p.qg = nullptr; p.kg = nullptr;
     p.scale = (float)(1.0 / sqrt((double)D));
     return launch_attn<float, bf16>(p, H, B, D, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,
                                                  (float*)q, R, C, C, 1, s)));
-  GVF_CHECK(attend(qg1, k1, v1, lk1));
-  if (n_ctx == 1) {
-    GVF_CHECK((launch_gemm<EPI_RESID, bf16, bf16>(attn, wo1, bo1, (const bf16*)x,
-                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
-    return 0;
-  }
+  GVF_CHECK(attend(k1, v1, lk1));
   GVF_CHECK((launch_gemm<EPI_RESID, bf16, float>(attn, wo1, bo1, (const bf16*)x,
                                                  nullptr, (float*)mid, R, C, C, 1, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq2, bq2, nullptr, nullptr,
                                                  (float*)q, R, C, C, 1, s)));
-  GVF_CHECK(attend(qg2, k2, v2, lk2));
+  GVF_CHECK(attend(k2, v2, lk2));
   GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
   return 0;

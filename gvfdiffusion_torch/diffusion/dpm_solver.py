@@ -1,7 +1,9 @@
 """DPM-Solver++ multistep sampling (port of gvfdiffusion_tpu/diffusion/
 dpm_solver.py: NoiseScheduleVP, model_wrapper, DPMSolver multistep orders
 1-3 on the time-uniform grid from T to 1/N). The JAX `lax.scan` over steps
-is a Python loop here.
+is a Python loop here. Only what the pipeline runs is ported: a
+v-prediction model, classifier-free (single-pass or dual-scale) guidance
+and the data-prediction (DPM-Solver++) updates.
 
 Schedule values are float32 tensors. Solver scalars (times, alphas, sigmas)
 stay 0-d CPU tensors, which combine with CUDA tensors without a device sync;
@@ -12,7 +14,7 @@ Solver math follows Lu et al., "DPM-Solver++" (arXiv:2211.01095).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -93,76 +95,43 @@ class NoiseScheduleVP:
 def model_wrapper(
     model: Callable,
     noise_schedule: NoiseScheduleVP,
-    model_type: str = "noise",  # "noise" | "x_start" | "v" | "score"
-    model_kwargs: Optional[Dict[str, Any]] = None,
-    guidance_type: str = "uncond",  # "uncond" | "classifier-free"
-    condition: Optional[Dict[str, torch.Tensor]] = None,
+    condition: Dict[str, torch.Tensor],
     unconditional_condition: Optional[Dict[str, torch.Tensor]] = None,
     guidance_scale: float = 1.0,
     guidance_scale2: float = 1.0,
-    zero_uncond_keys: tuple = ("static_latent",),
     cross_kv=None,
 ) -> Callable:
-    """Wrap a discrete-time model into a continuous-time noise predictor
-    model_fn(x, t_continuous), with optional dual-scale CFG (CAT4D):
+    """Wrap a discrete-time v-prediction model into a continuous-time noise
+    predictor model_fn(x, t_continuous). At guidance 1.0/1.0 (or without an
+    unconditional condition) it is one conditional pass; otherwise the
+    dual-scale CFG of CAT4D,
         eps = e_full_uncond + s1 * (e_static_uncond - e_full_uncond)
-              + s2 * (e_cond - e_static_uncond)
-    in ONE 3-way-batched model call; the full-uncond branch additionally
-    zeroes `zero_uncond_keys`."""
-    model_kwargs = model_kwargs or {}
+              + s2 * (e_cond - e_static_uncond),
+    in ONE 3-way-batched model call, the conditions concatenated in the
+    order (unconditional, unconditional, conditional). The JAX wrapper
+    zeroes `static_latent` in the first branch; the port's caller builds
+    that branch into `cross_kv` instead (pipelines/video_to_4d.py)."""
 
-    def get_model_input_time(t_continuous):
-        return (t_continuous - 1.0 / noise_schedule.total_N) * 1000.0
-
-    def noise_pred_fn(x, t_continuous, cond=None):
+    def noise_pred_fn(x, t_continuous, cond):
         t_continuous = _f32(t_continuous).to(x.device).expand(x.shape[0])
-        t_input = get_model_input_time(t_continuous)
-        kwargs = dict(model_kwargs)
-        if cond is not None:
-            kwargs.update(cond)
-        if cross_kv is not None:
-            kwargs["cross_kv"] = cross_kv
-        output = model(x, t_input, **kwargs)
+        t_input = (t_continuous - 1.0 / noise_schedule.total_N) * 1000.0
+        output = model(x, t_input, **cond, cross_kv=cross_kv)
+        shape = (-1,) + (1,) * (x.ndim - 1)
+        alpha_t = noise_schedule.marginal_alpha(t_continuous).reshape(shape)
+        sigma_t = noise_schedule.marginal_std(t_continuous).reshape(shape)
+        return alpha_t * output + sigma_t * x
 
-        def ed(v):  # [B] -> [B, 1, ...]
-            return v.reshape(v.shape + (1,) * (x.ndim - 1))
-
-        if model_type == "noise":
-            return output
-        if model_type == "x_start":
-            alpha_t = ed(noise_schedule.marginal_alpha(t_continuous))
-            sigma_t = ed(noise_schedule.marginal_std(t_continuous))
-            return (x - alpha_t * output) / sigma_t
-        if model_type == "v":
-            alpha_t = ed(noise_schedule.marginal_alpha(t_continuous))
-            sigma_t = ed(noise_schedule.marginal_std(t_continuous))
-            return alpha_t * output + sigma_t * x
-        if model_type == "score":
-            sigma_t = ed(noise_schedule.marginal_std(t_continuous))
-            return -sigma_t * output
-        raise NotImplementedError(model_type)
-
-    if guidance_type == "uncond":
-        return lambda x, t: noise_pred_fn(x, t, cond=condition)
-
-    if guidance_type != "classifier-free":
-        raise ValueError(f"unknown guidance_type {guidance_type!r}")
     if ((guidance_scale == 1.0 and guidance_scale2 == 1.0)
             or unconditional_condition is None):
-        return lambda x, t: noise_pred_fn(x, t, cond=condition)
+        return lambda x, t: noise_pred_fn(x, t, condition)
 
     def model_fn(x, t_continuous):
         x_in = torch.cat([x] * 3)
         t = _f32(t_continuous).reshape(-1)
         t_in = torch.cat([t.expand(x.shape[0])] * 3)
-        full_uncond = dict(unconditional_condition)
-        for k in zero_uncond_keys:
-            if k in full_uncond:
-                full_uncond[k] = torch.zeros_like(full_uncond[k])
-        c_in = {k: torch.cat([full_uncond[k], unconditional_condition[k],
-                              condition[k]]) for k in condition}
-        noise = noise_pred_fn(x_in, t_in, cond=c_in)
-        e_fu, e_u, e_c = noise.chunk(3)
+        u = unconditional_condition
+        c_in = {k: torch.cat([u[k], u[k], condition[k]]) for k in condition}
+        e_fu, e_u, e_c = noise_pred_fn(x_in, t_in, c_in).chunk(3)
         return (e_fu + guidance_scale * (e_u - e_fu)
                 + guidance_scale2 * (e_c - e_u))
 
@@ -170,38 +139,25 @@ def model_wrapper(
 
 
 class DPMSolver:
-    """DPM-Solver / DPM-Solver++ (data-prediction) multistep sampler.
+    """DPM-Solver++ (data-prediction) multistep sampler.
 
     model_fn(x, t_continuous) -> noise prediction."""
 
-    def __init__(self, model_fn: Callable, noise_schedule: NoiseScheduleVP,
-                 algorithm_type: str = "dpmsolver++"):
-        if algorithm_type not in ("dpmsolver", "dpmsolver++"):
-            raise ValueError(f"unknown algorithm_type {algorithm_type!r}")
+    def __init__(self, model_fn: Callable, noise_schedule: NoiseScheduleVP):
         self.model_fn_raw = model_fn
         self.ns = noise_schedule
-        self.algorithm_type = algorithm_type
 
     def model_fn(self, x, t):
-        """Data prediction for dpmsolver++, noise prediction otherwise."""
+        """The data prediction x0 = (x - sigma_t * eps) / alpha_t."""
         noise = self.model_fn_raw(x, t)
-        if self.algorithm_type == "dpmsolver++":
-            alpha_t = self.ns.marginal_alpha(t)
-            sigma_t = self.ns.marginal_std(t)
-            return (x - sigma_t * noise) / alpha_t
-        return noise
+        return (x - self.ns.marginal_std(t) * noise) / self.ns.marginal_alpha(t)
 
     def first_update(self, x, s, t, model_s):
         ns = self.ns
         h = ns.marginal_lambda(t) - ns.marginal_lambda(s)
-        if self.algorithm_type == "dpmsolver++":
-            phi_1 = torch.expm1(-h)
-            return ((ns.marginal_std(t) / ns.marginal_std(s)) * x
-                    - (ns.marginal_alpha(t) * phi_1) * model_s)
-        phi_1 = torch.expm1(h)
-        return (torch.exp(ns.marginal_log_mean_coeff(t)
-                          - ns.marginal_log_mean_coeff(s)) * x
-                - ns.marginal_std(t) * phi_1 * model_s)
+        phi_1 = torch.expm1(-h)
+        return ((ns.marginal_std(t) / ns.marginal_std(s)) * x
+                - (ns.marginal_alpha(t) * phi_1) * model_s)
 
     def multistep_second_update(self, x, m_prev, t_prev, t):
         """m_prev = (model[-2], model[-1]); t_prev = (t[-2], t[-1])."""
@@ -213,16 +169,10 @@ class DPMSolver:
         h0, h = lam0 - lam1, lam_t - lam0
         r0 = h0 / h
         d1_0 = (1.0 / r0) * (m0 - m1)
-        if self.algorithm_type == "dpmsolver++":
-            phi_1 = torch.expm1(-h)
-            return ((ns.marginal_std(t) / ns.marginal_std(t0)) * x
-                    - ns.marginal_alpha(t) * phi_1 * m0
-                    - 0.5 * ns.marginal_alpha(t) * phi_1 * d1_0)
-        phi_1 = torch.expm1(h)
-        log_a = ns.marginal_log_mean_coeff
-        return (torch.exp(log_a(t) - log_a(t0)) * x
-                - ns.marginal_std(t) * phi_1 * m0
-                - 0.5 * ns.marginal_std(t) * phi_1 * d1_0)
+        phi_1 = torch.expm1(-h)
+        return ((ns.marginal_std(t) / ns.marginal_std(t0)) * x
+                - ns.marginal_alpha(t) * phi_1 * m0
+                - 0.5 * ns.marginal_alpha(t) * phi_1 * d1_0)
 
     def multistep_third_update(self, x, m_prev, t_prev, t):
         ns = self.ns
@@ -237,20 +187,12 @@ class DPMSolver:
         d1_1 = (1.0 / r1) * (m1 - m2)
         d1 = d1_0 + (r0 / (r0 + r1)) * (d1_0 - d1_1)
         d2 = (1.0 / (r0 + r1)) * (d1_0 - d1_1)
-        if self.algorithm_type == "dpmsolver++":
-            phi_1 = torch.expm1(-h)
-            phi_2 = phi_1 / h + 1.0
-            phi_3 = phi_2 / h - 0.5
-            a_t = ns.marginal_alpha(t)
-            return ((ns.marginal_std(t) / ns.marginal_std(t0)) * x
-                    - a_t * phi_1 * m0 + a_t * phi_2 * d1 - a_t * phi_3 * d2)
-        phi_1 = torch.expm1(h)
-        phi_2 = phi_1 / h - 1.0
+        phi_1 = torch.expm1(-h)
+        phi_2 = phi_1 / h + 1.0
         phi_3 = phi_2 / h - 0.5
-        log_a = ns.marginal_log_mean_coeff
-        s_t = ns.marginal_std(t)
-        return (torch.exp(log_a(t) - log_a(t0)) * x
-                - s_t * phi_1 * m0 - s_t * phi_2 * d1 - s_t * phi_3 * d2)
+        a_t = ns.marginal_alpha(t)
+        return ((ns.marginal_std(t) / ns.marginal_std(t0)) * x
+                - a_t * phi_1 * m0 + a_t * phi_2 * d1 - a_t * phi_3 * d2)
 
     def multistep_update(self, x, m_hist, t_hist, t, order: int):
         """Update of the given order from the most recent history entries."""

@@ -4,8 +4,9 @@ gvfdiffusion_tpu/nn/attention.py:73-85, 135-254).
 The DiT runs its attention inside the fused sublayer kernels, so
 `MultiHeadAttention` here holds the parameters under the reference's names
 and computes only what the JAX package computes outside any kernel: the
-loop-invariant cross-attention K/V (`kv`). The DiT's cross attention has no
-RMS norm (`qk_rms_norm_cross=False`), so `kv` applies none.
+loop-invariant cross-attention K/V (`kv`). As in the shipped DiT, self
+attention carries q/k RMS norms and cross attention none
+(`qk_rms_norm_cross=False`), so `kv` applies none.
 """
 
 from __future__ import annotations
@@ -32,11 +33,10 @@ class MultiHeadRMSNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self ("to_qkv") or cross ("to_q", "to_kv") attention parameters, an
-    output projection "to_out", and optional q/k RMS norms."""
+    """Self ("to_qkv", q/k RMS norms) or cross ("to_q", "to_kv") attention
+    parameters, and an output projection "to_out"."""
 
-    def __init__(self, channels: int, num_heads: int, attn_type: str = "self",
-                 qk_rms_norm: bool = False):
+    def __init__(self, channels: int, num_heads: int, attn_type: str = "self"):
         super().__init__()
         if channels % num_heads or attn_type not in ("self", "cross"):
             raise ValueError(f"bad attention config: {channels} channels, "
@@ -44,23 +44,19 @@ class MultiHeadAttention(nn.Module):
         self.channels = channels
         self.num_heads = num_heads
         self.head_dim = channels // num_heads
-        self.qk_rms_norm = qk_rms_norm
         if attn_type == "self":
             self.to_qkv = nn.Linear(channels, 3 * channels)
         else:
             self.to_q = nn.Linear(channels, channels)
             self.to_kv = nn.Linear(channels, 2 * channels)
         self.to_out = nn.Linear(channels, channels)
-        if qk_rms_norm:
+        if attn_type == "self":
             self.q_rms_norm = MultiHeadRMSNorm(self.head_dim, num_heads)
             self.k_rms_norm = MultiHeadRMSNorm(self.head_dim, num_heads)
 
     def gammas(self):
-        """(q, k) lane gammas for the kernels; ones without the RMS norm."""
-        if self.qk_rms_norm:
-            return self.q_rms_norm.lane_gamma(), self.k_rms_norm.lane_gamma()
-        ones = self.to_out.weight.new_ones(self.channels)
-        return ones, ones
+        """(q, k) lane gammas of a self attention, as the kernels take them."""
+        return self.q_rms_norm.lane_gamma(), self.k_rms_norm.lane_gamma()
 
     def kv(self, context: torch.Tensor, dtype: torch.dtype):
         """Cross-attention K/V of context [B, Lk, C] -> (k, v), each

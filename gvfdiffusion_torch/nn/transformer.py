@@ -51,10 +51,8 @@ class ModulatedTransformerCrossBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(C, 6 * C))
         self.adaLN_modulation_temporal = nn.Sequential(
             nn.SiLU(), nn.Linear(C, 3 * C))
-        self.spatial_self_attn = MultiHeadAttention(
-            C, num_heads, "self", qk_rms_norm=True)
-        self.temporal_self_attn = MultiHeadAttention(
-            C, num_heads, "self", qk_rms_norm=True)
+        self.spatial_self_attn = MultiHeadAttention(C, num_heads, "self")
+        self.temporal_self_attn = MultiHeadAttention(C, num_heads, "self")
         # norm1/norm2/norm5 are affine-free (no parameters); norm3/norm4 affine
         self.norm3 = nn.LayerNorm(C, eps=1e-6)
         self.image_cross_attn = MultiHeadAttention(C, num_heads, "cross")
@@ -93,18 +91,17 @@ class ModulatedTransformerCrossBlock(nn.Module):
 
         x = fsl.fused_self_sublayer(
             x.reshape(B * T, N, C), w(sh_s), w(sc_s), w(g_s),
-            *self_args(self.spatial_self_attn), num_heads=H, rms=True,
+            *self_args(self.spatial_self_attn), num_heads=H,
             compute_dtype=dt, mod_repeat=T, impl=impl,
         ).reshape(B, T, N, C)
 
         x = fsl.fused_temporal_sublayer(
             x, w(sh_t), w(sc_t), w(g_t), *self_args(self.temporal_self_attn),
-            num_heads=H, rms=True, compute_dtype=dt, impl=impl)
+            num_heads=H, compute_dtype=dt, impl=impl)
 
         def cross_args(norm: nn.LayerNorm, attn: MultiHeadAttention):
-            qg = attn.gammas()[0]
             return (w(norm.weight), w(norm.bias), w(attn.to_q.weight.t()),
-                    w(attn.to_q.bias), w(qg), w(attn.to_out.weight.t()),
+                    w(attn.to_q.bias), w(attn.to_out.weight.t()),
                     w(attn.to_out.bias))
 
         img_kv, static_kv = cross_kv
@@ -114,7 +111,7 @@ class ModulatedTransformerCrossBlock(nn.Module):
             tuple(w(a) for a in img_kv),
             cross_args(self.norm4, self.static_cross_attn),
             tuple(w(a) for a in static_kv),
-            num_heads=H, rms=False, compute_dtype=dt, impl=impl)
+            num_heads=H, compute_dtype=dt, impl=impl)
 
         l1, l2 = self.mlp.mlp[0], self.mlp.mlp[2]
         x = fsl.fused_mlp_sublayer(

@@ -10,6 +10,10 @@ Each sublayer has two versions:
     a CPU tensor runs the plain version. `impl="plain"` forces the plain
     version on any device, for comparing the two on the card.
 
+Only the configuration the DiT runs is ported: heads of width 32, q/k RMS
+norms on the self and temporal sublayers, none on the cross sublayer, and
+two chained cross contexts (image, then static).
+
 Weights come in the JAX layout ([in, out]); an `nn.Linear(...).weight.t()`
 view passes to the kernel with no copy.
 
@@ -61,8 +65,7 @@ def _rms(a: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                            num_heads: int, rms: bool,
-                            compute_dtype=torch.bfloat16):
+                            num_heads: int, compute_dtype=torch.bfloat16):
     """x [B, L, C]; sh/sc/gate [B, C]; wqkv [C, 3C]; wo [C, C]; qg/kg [C]."""
     B, L, C = x.shape
     D = C // num_heads
@@ -71,9 +74,8 @@ def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     h = _layernorm_f32(xf) * (1.0 + _f(sc)[:, None]) + _f(sh)[:, None]
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    if rms:
-        q = _rms(q, qg, num_heads)
-        k = _rms(k, kg, num_heads)
+    q = _rms(q, qg, num_heads)
+    k = _rms(k, kg, num_heads)
     qh, kh, vh = (_rd(a, dt).reshape(B, L, num_heads, D) for a in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * D ** -0.5
     p = torch.softmax(s, dim=-1)
@@ -83,8 +85,7 @@ def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
 
 
 def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                                num_heads: int, rms: bool,
-                                compute_dtype=torch.bfloat16):
+                                num_heads: int, compute_dtype=torch.bfloat16):
     """x [B, T, N, C]; sh/sc/gate [B, C]; attention over T per (b, n, h)."""
     B, T, N, C = x.shape
     D = C // num_heads
@@ -94,9 +95,8 @@ def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
         + _f(sh)[:, None, None]
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    if rms:
-        q = _rms(q, qg, num_heads)
-        k = _rms(k, kg, num_heads)
+    q = _rms(q, qg, num_heads)
+    k = _rms(k, kg, num_heads)
     qh, kh, vh = (_rd(a, dt).reshape(B, T, N, num_heads, D)
                   for a in (q, k, v))
     s = torch.einsum("btnhd,bsnhd->bnhts", qh, kh) * D ** -0.5
@@ -106,23 +106,20 @@ def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     return (xf + out * _f(gate)[:, None, None]).to(x.dtype)
 
 
-def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
-                             num_heads: int, rms: bool,
+def cross_sublayer_reference(x, p1, kv1, p2, kv2, *, num_heads: int,
                              compute_dtype=torch.bfloat16):
-    """One or two chained un-gated cross-attention sublayers, the residual
-    kept in fp32 between them. p_i = (norm_scale, norm_bias, wq [C, C], bq,
-    qg, wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or [B, Lk_i, H, D])."""
+    """Two chained un-gated cross-attention sublayers, the residual kept in
+    fp32 between them. p_i = (norm_scale, norm_bias, wq [C, C], bq,
+    wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or [B, Lk_i, H, D])."""
     B, L, C = x.shape
     D = C // num_heads
     dt = compute_dtype
 
     def one(xf, p, kv):
-        ns, nb, wq, bq, qg, wo, bo = p
+        ns, nb, wq, bq, wo, bo = p
         k, v = kv
         h = _layernorm_f32(xf) * _f(ns) + _f(nb)
         q = _rd(h, dt) @ _rd(wq, dt) + _f(bq)
-        if rms:
-            q = _rms(q, qg, num_heads)
         qh = _rd(q, dt).reshape(B, L, num_heads, D)
         kh = _rd(k, dt).reshape(B, -1, num_heads, D)
         vh = _rd(v, dt).reshape(B, -1, num_heads, D)
@@ -132,10 +129,7 @@ def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
         out = _rd(attn.reshape(B, L, C), dt) @ _rd(wo, dt)
         return xf + out + _f(bo)
 
-    xf = one(_f(x), p1, kv1)
-    if p2 is not None:
-        xf = one(xf, p2, kv2)
-    return xf.to(x.dtype)
+    return one(one(_f(x), p1, kv1), p2, kv2).to(x.dtype)
 
 
 def mlp_sublayer_reference(x, sh, sc, gate, w1, b1, w2, b2,
@@ -161,8 +155,8 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     return x.is_cuda
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def _ptr(t: torch.Tensor):
+    return t.data_ptr()
 
 
 def _vec(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -192,21 +186,18 @@ def _mod_rows(B: int, mod_repeat: int) -> int:
 def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
                 row_blocks: int, *tensors: torch.Tensor) -> None:
     """What the kernels take: bf16 CUDA tensors, C a multiple of 8, heads
-    of width 32 or 64, at most 65535 attention row blocks (a grid limit)."""
+    of width 32, at most 65535 attention row blocks (a grid limit)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA sublayer kernels compute in bfloat16 only; "
                         f"got compute_dtype={compute_dtype}")
     for t in tensors:
-        if t is None:
-            continue
         if not t.is_cuda or t.dtype != torch.bfloat16:
             raise TypeError("the CUDA sublayer kernels take bfloat16 CUDA "
                             f"tensors; got {t.dtype} on {t.device}")
     if C % 8:
         raise ValueError(f"channels must be a multiple of 8, got {C}")
-    if num_heads is not None and (C % num_heads
-                                  or C // num_heads not in (32, 64)):
-        raise ValueError(f"head width must be 32 or 64, got {C}/{num_heads}")
+    if num_heads is not None and C != 32 * num_heads:
+        raise ValueError(f"head width must be 32, got {C}/{num_heads}")
     if row_blocks > 65535:
         raise ValueError(f"{row_blocks} attention row blocks exceed 65535")
 
@@ -216,9 +207,8 @@ def _rep(a: torch.Tensor, mod_repeat: int) -> torch.Tensor:
 
 
 def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
-                        num_heads: int, rms: bool = True,
-                        compute_dtype=torch.bfloat16, mod_repeat: int = 1,
-                        impl: Optional[str] = None):
+                        num_heads: int, compute_dtype=torch.bfloat16,
+                        mod_repeat: int = 1, impl: Optional[str] = None):
     """Modulated self-attention sublayer over L. x [B, L, C];
     sh/sc/gate [B // mod_repeat, C]: row block i reads modulation row
     i // mod_repeat (the frames of one sample share a timestep)."""
@@ -226,7 +216,7 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
         return self_sublayer_reference(
             x, _rep(sh, mod_repeat), _rep(sc, mod_repeat),
             _rep(gate, mod_repeat), wqkv, bqkv, qg, kg, wo, bo,
-            num_heads=num_heads, rms=rms, compute_dtype=compute_dtype)
+            num_heads=num_heads, compute_dtype=compute_dtype)
     from .. import _ext
 
     B, L, C = x.shape
@@ -242,22 +232,20 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     qkv = torch.empty(B * L, 3 * C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
     _ext.call("gvf_self_sublayer", _ptr(x), *map(_ptr, args), _ptr(y),
-              _ptr(h), _ptr(qkv), _ptr(attn), B, L, C, num_heads, int(rms),
-              mod_repeat)
+              _ptr(h), _ptr(qkv), _ptr(attn), B, L, C, num_heads, mod_repeat)
     launch_counts["self"] += 1
     return y
 
 
 def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
-                            num_heads: int, rms: bool = True,
-                            compute_dtype=torch.bfloat16,
+                            num_heads: int, compute_dtype=torch.bfloat16,
                             impl: Optional[str] = None):
     """Modulated self-attention over T on the native [B, T, N, C] layout;
     sh/sc/gate [B, C]."""
     if not _use_kernel(x, impl):
         return temporal_sublayer_reference(
             x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads=num_heads,
-            rms=rms, compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype)
     from .. import _ext
 
     B, T, N, C = x.shape
@@ -273,8 +261,7 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     qkv = torch.empty(R, 3 * C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
     _ext.call("gvf_temporal_sublayer", _ptr(x), *map(_ptr, args), _ptr(y),
-              _ptr(h), _ptr(qkv), _ptr(attn), B, T, N, C, num_heads,
-              int(rms))
+              _ptr(h), _ptr(qkv), _ptr(attn), B, T, N, C, num_heads)
     launch_counts["temporal"] += 1
     return y
 
@@ -283,46 +270,37 @@ CrossParams = Tuple[torch.Tensor, ...]
 
 
 def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
-                         p2: Optional[CrossParams] = None,
-                         kv2: Optional[Sequence[torch.Tensor]] = None, *,
-                         num_heads: int, rms: bool = False,
-                         compute_dtype=torch.bfloat16,
+                         p2: CrossParams, kv2: Sequence[torch.Tensor], *,
+                         num_heads: int, compute_dtype=torch.bfloat16,
                          impl: Optional[str] = None):
-    """One or two chained un-gated cross-attention sublayers with affine
-    pre-norms (the DiT's image then static-GS conditioning), against the
-    cached float KV. x [B, L, C]; see cross_sublayer_reference."""
+    """Two chained un-gated cross-attention sublayers with affine pre-norms
+    (the DiT's image then static-GS conditioning), against the cached float
+    KV. x [B, L, C]; see cross_sublayer_reference."""
     if not _use_kernel(x, impl):
         return cross_sublayer_reference(
-            x, p1, kv1, p2, kv2, num_heads=num_heads, rms=rms,
+            x, p1, kv1, p2, kv2, num_heads=num_heads,
             compute_dtype=compute_dtype)
     from .. import _ext
 
     B, L, C = x.shape
-    groups = [(p1, kv1)] + ([(p2, kv2)] if p2 is not None else [])
+    groups = ((p1, kv1), (p2, kv2))
     _check_cuda(compute_dtype, num_heads, C, B, x,
                 *[t for p, kv in groups for t in (*p, *kv)])
     x = x.contiguous()
-    flat = []
-    for p, (k, v) in groups:
-        ns, nb, wq, bq, qg, wo, bo = p
+    ctx_args = []
+    for (ns, nb, wq, bq, wo, bo), (k, v) in groups:
         lk = k.shape[1]
-        kk = k.reshape(B, lk, C).contiguous()
-        vv = v.reshape(B, lk, C).contiguous()
-        flat.append(([_vec(ns, C), _vec(nb, C), _weight(wq, C, C),
-                      _vec(bq, C), _vec(qg, C) if rms else None,
-                      _weight(wo, C, C), _vec(bo, C), kk, vv], lk))
-    if len(flat) == 1:
-        flat.append(([None] * 9, 0))
+        ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
+              _weight(wo, C, C), _vec(bo, C), k.reshape(B, lk, C).contiguous(),
+              v.reshape(B, lk, C).contiguous())
+        ctx_args += [*map(_ptr, ts), lk]
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
     q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
-    mid = torch.empty_like(q) if len(groups) == 2 else None
-    ctx_args = []
-    for ts, lk in flat:
-        ctx_args += [*map(_ptr, ts), lk]
-    _ext.call("gvf_cross_sublayer", _ptr(x), len(groups), *ctx_args, _ptr(y),
-              _ptr(h), _ptr(q), _ptr(attn), _ptr(mid), B, L, C, num_heads)
+    mid = torch.empty_like(q)
+    _ext.call("gvf_cross_sublayer", _ptr(x), *ctx_args, _ptr(y), _ptr(h),
+              _ptr(q), _ptr(attn), _ptr(mid), B, L, C, num_heads)
     launch_counts["cross"] += 1
     return y
 

@@ -106,11 +106,10 @@ class VideoTo4DPipeline:
             return self.dit(x, t, positions=positions, cross_kv=cross_kv)
 
         model_fn = model_wrapper(
-            raw_model, self.ns, model_type="v",
-            guidance_type="classifier-free", condition=cond,
-            unconditional_condition=cond, guidance_scale=cfg.guidance_scale,
+            raw_model, self.ns, condition=cond, unconditional_condition=cond,
+            guidance_scale=cfg.guidance_scale,
             guidance_scale2=cfg.guidance_scale2, cross_kv=cross_kv)
-        solver = DPMSolver(model_fn, self.ns, algorithm_type="dpmsolver++")
+        solver = DPMSolver(model_fn, self.ns)
         if noise is None:
             noise = torch.randn(
                 (B, T, cfg.num_latents, cfg.latent_dim),

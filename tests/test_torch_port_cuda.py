@@ -1,14 +1,15 @@
 """The hand-written CUDA sublayer kernels against their plain torch versions
 on the card (bf16), at small and ragged shapes: query lengths that are not
-multiples of the 64-row tile, key lengths 37 and 20, head widths 32 and 64,
-one and two cross contexts. Every test here needs a CUDA device and skips
+multiples of the 64-row tile, frame counts 8 to 70, and cross key lengths
+37, 20, 130 and 1370. Every test here needs a CUDA device and skips
 without one; run them on the GPU with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda -q
 
-Tolerance: rel L2 <= 1e-2 per sublayer output and on the sublayer's update
-y - x <= 5e-2 (bf16 rounding of the intermediates in another order);
-3e-2 for a 2-block DiT forward.
+Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
+the error measured on an H100 at the DiT's full shapes): rel L2 of the
+output y and of the update y - x, <= (3e-3, 3e-2) for the attention
+sublayers and (5e-4, 3e-3) for the MLP; 3e-2 for a 2-block DiT forward.
 """
 
 import numpy as np
@@ -20,6 +21,10 @@ from gvfdiffusion_torch.ops import fused_sublayer as pt
 from gvfdiffusion_torch.utils.weights import init_random_
 
 pytestmark = pytest.mark.cuda
+
+# (rel L2 of y, rel L2 of y - x) per sublayer
+BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
+          "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3)}
 
 
 @pytest.fixture
@@ -57,56 +62,57 @@ class _Draw:
         C = self.C
         p = (self(C, shift=1.0, scale=0.1), self(C, scale=0.1),
              self(C, C, scale=C ** -0.5), self(C, scale=0.1),
-             self(C, shift=1.0, scale=0.1), self(C, C, scale=C ** -0.5),
-             self(C, scale=0.1))
+             self(C, C, scale=C ** -0.5), self(C, scale=0.1))
         return p, (self(B, lk, C), self(B, lk, C))
 
 
-def _check(fn, x, args, kw):
+def _check(key, fn, x, args, kw):
     with torch.no_grad():
         y = fn(*args, **kw)
         ref = fn(*args, **kw, impl="plain")
     torch.cuda.synchronize()
     assert y.shape == ref.shape and y.dtype == torch.bfloat16
     assert bool(torch.isfinite(y).all())
-    assert _rel(y, ref) <= 1e-2, _rel(y, ref)
+    err = _rel(y, ref)
     upd = _rel(y.float() - x.float(), ref.float() - x.float())
-    assert upd <= 5e-2, upd
+    print(f"{key} {tuple(x.shape)}: rel_l2 {err:.3e} update_rel_l2 {upd:.3e}")
+    y_bound, upd_bound = BOUNDS[key]
+    assert err <= y_bound, err
+    assert upd <= upd_bound, upd
 
 
-@pytest.mark.parametrize("heads", [4, 2], ids=["d32", "d64"])
-@pytest.mark.parametrize("rms", [True, False])
 @pytest.mark.parametrize("L", [100, 128])
-def test_self_kernel(dev, heads, rms, L):
+@pytest.mark.parametrize("mod_repeat", [1, 2])
+def test_self_kernel(dev, L, mod_repeat):
     d = _Draw(dev, 0, 128)
     x = d(4, L, 128)
-    _check(pt.fused_self_sublayer, x, (x, *d.mods(2), *d.self_weights()),
-           dict(num_heads=heads, rms=rms, mod_repeat=2))
+    _check("self", pt.fused_self_sublayer, x,
+           (x, *d.mods(4 // mod_repeat), *d.self_weights()),
+           dict(num_heads=4, mod_repeat=mod_repeat))
 
 
 @pytest.mark.parametrize("T", [8, 32, 70])
 def test_temporal_kernel(dev, T):
     d = _Draw(dev, 1, 128)
     x = d(2, T, 24, 128)
-    _check(pt.fused_temporal_sublayer, x, (x, *d.mods(2), *d.self_weights()),
-           dict(num_heads=4, rms=True))
+    _check("temporal", pt.fused_temporal_sublayer, x,
+           (x, *d.mods(2), *d.self_weights()), dict(num_heads=4))
 
 
-@pytest.mark.parametrize("rms", [True, False])
-@pytest.mark.parametrize("lks", [(37, 20), (130,)], ids=["two_ctx", "one_ctx"])
-def test_cross_kernel(dev, rms, lks):
+@pytest.mark.parametrize("lks", [(37, 20), (130, 1370)])
+def test_cross_kernel(dev, lks):
     d = _Draw(dev, 2, 128)
     x = d(4, 100, 128)
     args = [x]
     for lk in lks:
         args += list(d.cross(4, lk))
-    _check(pt.fused_cross_sublayer, x, args, dict(num_heads=4, rms=rms))
+    _check("cross", pt.fused_cross_sublayer, x, args, dict(num_heads=4))
 
 
 def test_mlp_kernel(dev):
     d = _Draw(dev, 3, 128)
     x = d(4, 100, 128)
-    _check(pt.fused_mlp_sublayer, x,
+    _check("mlp", pt.fused_mlp_sublayer, x,
            (x, *d.mods(2), d(128, 264, scale=128 ** -0.5), d(264, scale=0.1),
             d(264, 128, scale=264 ** -0.5), d(128, scale=0.1)),
            dict(mod_repeat=2))
@@ -123,6 +129,8 @@ def test_launch_counts_and_dtype_check(dev):
     assert pt.launch_counts == {"self": 1, "temporal": 0, "cross": 0, "mlp": 0}
     with pytest.raises(TypeError):
         pt.fused_self_sublayer(x.float(), *args[1:], num_heads=4)
+    with pytest.raises(ValueError):  # heads of 64: not the DiT's width
+        pt.fused_self_sublayer(*args, num_heads=2)
 
 
 def test_dit_kernels_match_plain(dev):
