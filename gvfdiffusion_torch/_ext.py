@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in `csrc/` have a plain C interface (no PyTorch headers), so one
-`nvcc -shared` call builds them in seconds. The library lands in
+The sources in `csrc/` have a plain C interface (no PyTorch headers): one
+`nvcc -c` per source, all run at once, then one `nvcc -shared` link build
+them in seconds. The library lands in
 `.torch_ext_build/` at the repository root, named by a hash of the sources:
 the first call after a change builds, later calls load. Tensors go in as
 `data_ptr()`s and the stream as `torch.cuda.current_stream().cuda_stream`.
@@ -25,14 +26,18 @@ _ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
-# argument types of each C entry point (pointers and the stream as c_void_p)
+# argument types of each C entry point (pointers and the stream as c_void_p,
+# element strides as c_longlong)
 _SIGNATURES = {
     "gvf_self_sublayer": [_P] * 14 + [_I] * 5 + [_P],
     "gvf_temporal_sublayer": [_P] * 14 + [_I] * 5 + [_P],
     "gvf_cross_sublayer": [_P] + ([_P] * 8 + [_I]) * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_mlp_sublayer": [_P] * 11 + [_I] * 5 + [_P],
+    "gvf_attention": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_F, _P],
 }
 
 _lib = None
@@ -60,17 +65,35 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libgvf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands at once; raise with the output of any that fails
+    (every one is waited for)."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    failed = []
+    for c, p in procs:
+        output = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)} ({p.returncode}):\n{output}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def _build(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stdout}\n"
-            f"{r.stderr}")
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in srcs]
+    nvcc = [_nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3"]
+    try:
+        _run([[*nvcc, "-c", "-Xcompiler", "-fPIC", "-o", str(o), str(p)]
+              for p, o in zip(srcs, objs)])
+        _run([[*nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
 
 

@@ -16,7 +16,8 @@
 //   gemm_kernel    bf16 x bf16 -> fp32 on tensor cores (WMMA 16x16x16), with
 //                  fused epilogues: +bias, +bias -> gelu_tanh,
 //                  x + gate * (acc + bias), x + (acc + bias).
-//   attn_kernel    softmax attention for one (query tile, head, row block):
+//   attn_kernel    (attention.cuh) softmax attention for one (query tile,
+//                  head, row block):
 //                  per-head RMS norm of q/k in the prologue, online softmax
 //                  with a true running maximum, fp32 accumulation, masking of
 //                  keys past Lk, and strided addressing so the temporal
@@ -34,27 +35,11 @@
 // The TPU kernel's lane-packing of 32-wide heads onto 128-lane tiles has no
 // counterpart here; a 32-wide head maps straight onto 16x16 tensor-core tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <math.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "attention.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+using namespace gvf;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -201,179 +186,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// Attention: one CTA (4 warps) per (64-query tile, head, row block z).
-// Row block z splits as (z / nb2, z % nb2) with strides s1 / s2, rows within
-// a block step by si (queries) or sj (keys / values). Offsets in elements.
-
-struct AttnParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  bf16* o;
-  long long q_s1, q_s2, q_si;
-  long long k_s1, k_s2, k_sj;  // shared by k and v
-  long long o_s1, o_s2, o_si;
-  int nb2, Lq, Lk;
-  const bf16* qg;  // [C] gamma * sqrt(D), or null: no RMS norm on q
-  const bf16* kg;  // likewise for k
-  float scale;
-};
-
-constexpr int ABQ = 64, ABK = 64;
-
-// Loads one row half (D/2 values) of a q or k row, RMS-normalizes it across
-// the thread pair that holds the row, and stores it as bf16.
-template <int D, typename T>
-__device__ __forceinline__ void load_row_half(const T* src, bool valid,
-                                              const bf16* gamma, bf16* dst) {
-  float vals[D / 2];
-  float ss = 0.f;
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) {
-    vals[d] = valid ? to_f(src[d]) : 0.f;
-    ss += vals[d] * vals[d];
-  }
-  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-  const float f = gamma ? rsqrtf(ss + 1e-12f) : 1.f;
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) {
-    const float g = gamma ? to_f(gamma[d]) : 1.f;
-    dst[d] = __float2bfloat16(vals[d] * f * g);
-  }
-}
-
-template <int D, typename TQ, typename TKV>
-__global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
-  __shared__ __align__(128) bf16 sQ[ABQ * D];
-  __shared__ __align__(128) bf16 sK[ABK * D];
-  __shared__ __align__(128) bf16 sV[ABK * D];
-  __shared__ __align__(128) float sS[4][16 * ABK];  // scores, then the PV tile
-  __shared__ __align__(128) bf16 sP[4][16 * ABK];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y;
-  const long long z1 = blockIdx.z / p.nb2, z2 = blockIdx.z % p.nb2;
-  const TQ* qb = (const TQ*)p.q + z1 * p.q_s1 + z2 * p.q_s2 + h * D;
-  const TKV* kb = (const TKV*)p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
-  const TKV* vb = (const TKV*)p.v + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
-  bf16* ob = p.o + z1 * p.o_s1 + z2 * p.o_s2 + h * D;
-  const int q0 = blockIdx.x * ABQ;
-
-  // prologue: Q tile, two threads per row
-  const int lr = tid >> 1, lh = (tid & 1) * (D / 2);
-  {
-    const int qi = q0 + lr;
-    load_row_half<D>(qb + (long long)qi * p.q_si + lh, qi < p.Lq,
-                     p.qg ? p.qg + h * D + lh : nullptr, sQ + lr * D + lh);
-  }
-
-  // softmax state: lanes (2r, 2r+1) of a warp own query row r of its 16
-  const int r = lane >> 1, half = lane & 1;
-  float m_run = neg_inf(), l_run = 0.f;
-  float o_acc[D / 2];
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) o_acc[d] = 0.f;
-  float* sSw = sS[warp];
-  bf16* sPw = sP[warp];
-
-  for (int j0 = 0; j0 < p.Lk; j0 += ABK) {
-    __syncthreads();  // the previous tile's K/V are no longer read
-    {
-      const int kj = j0 + lr;
-      const bool ok = kj < p.Lk;
-      load_row_half<D>(kb + (long long)kj * p.k_sj + lh, ok,
-                       p.kg ? p.kg + h * D + lh : nullptr, sK + lr * D + lh);
-      const TKV* vr = vb + (long long)kj * p.k_sj + lh;
-#pragma unroll
-      for (int d = 0; d < D / 2; ++d)
-        sV[lr * D + lh + d] = __float2bfloat16(ok ? to_f(vr[d]) : 0.f);
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 query rows
-#pragma unroll
-    for (int j = 0; j < ABK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * D + kk, D);
-        wmma::load_matrix_sync(fb, sK + j * 16 * D + kk, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sSw + j * 16, acc, ABK, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: each lane takes 32 keys of its row
-    float sv[32];
-    float mx = neg_inf();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int j = j0 + half * 32 + c;
-      const float s = j < p.Lk ? sSw[r * ABK + half * 32 + c] * p.scale : neg_inf();
-      sv[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float alpha = 1.f, psum = 0.f;
-    if (m_new == neg_inf()) {
-#pragma unroll
-      for (int c = 0; c < 32; ++c) sv[c] = 0.f;
-    } else {
-      alpha = expf(m_run - m_new);
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        sv[c] = expf(sv[c] - m_new);
-        psum += sv[c];
-      }
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-#pragma unroll
-    for (int c = 0; c < 32; ++c)
-      sPw[r * ABK + half * 32 + c] = __float2bfloat16(sv[c]);
-    __syncwarp();
-
-    // P V into the (now free) score area as [16, D]
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < ABK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sPw + kk, ABK);
-        wmma::load_matrix_sync(fb, sV + kk * D + dj * 16, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sSw + dj * 16, acc, D, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d)
-      o_acc[d] = o_acc[d] * alpha + sSw[r * D + half * (D / 2) + d];
-    __syncwarp();
-  }
-
-  const int qi = q0 + warp * 16 + r;
-  if (qi < p.Lq) {
-    const float inv = l_run > 0.f ? 1.f / l_run : 0.f;  // fully masked row -> 0
-    bf16* orow = ob + (long long)qi * p.o_si + half * (D / 2);
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] * inv);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launch helpers
-
-inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
 
 template <typename TIn, int MODE>
 cudaError_t launch_ln(const TIn* x, const void* p0, const void* p1, void* out,
@@ -396,13 +209,12 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias,
   return cudaGetLastError();
 }
 
+// the DiT's head width
 template <typename TQ, typename TKV>
-cudaError_t launch_attn(const AttnParams& p, int H, long long nb1, int D,
-                        cudaStream_t s) {
-  if (D != 32) return cudaErrorInvalidValue;  // the DiT's head width
-  dim3 grid(cdiv(p.Lq, ABQ), H, (unsigned)(nb1 * p.nb2));
-  attn_kernel<32, TQ, TKV><<<grid, 128, 0, s>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_attn32(const AttnParams& p, int H, long long nb1, int D,
+                          cudaStream_t s) {
+  if (D != 32) return cudaErrorInvalidValue;
+  return launch_attn<32, TQ, TKV>(p, H, nb1, s);
 }
 
 #define GVF_CHECK(call)                  \
@@ -444,7 +256,7 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
   p.qg = (const bf16*)qg;
   p.kg = (const bf16*)kg;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn<float, float>(p, H, B, D, s)));
+  GVF_CHECK((launch_attn32<float, float>(p, H, B, D, s)));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
                                                 (bf16*)y, R, C, C, rpm, s)));
   return 0;
@@ -474,7 +286,7 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
   p.qg = (const bf16*)qg;
   p.kg = (const bf16*)kg;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn<float, float>(p, H, B, D, s)));
+  GVF_CHECK((launch_attn32<float, float>(p, H, B, D, s)));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
                                                 (bf16*)y, R, C, C, rpm, s)));
   return 0;
@@ -505,7 +317,7 @@ int gvf_cross_sublayer(const void* x,
     p.nb2 = 1; p.Lq = L; p.Lk = lk;
     p.qg = nullptr; p.kg = nullptr;
     p.scale = (float)(1.0 / sqrt((double)D));
-    return launch_attn<float, bf16>(p, H, B, D, s);
+    return launch_attn32<float, bf16>(p, H, B, D, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,

@@ -1,1 +1,1 @@
-"""The DiT denoiser and the motion VAE decoder."""
+"""The DiT denoiser, the motion VAE decoder and the DINOv2 encoder."""

@@ -1,19 +1,24 @@
-"""Attention parameters and the cross-attention KV projection (port of
-gvfdiffusion_tpu/nn/attention.py:73-85, 135-254).
+"""Multi-head attention (port of gvfdiffusion_tpu/nn/attention.py:73-85,
+135-254).
 
-The DiT runs its attention inside the fused sublayer kernels, so
-`MultiHeadAttention` here holds the parameters under the reference's names
-and computes only what the JAX package computes outside any kernel: the
-loop-invariant cross-attention K/V (`kv`). As in the shipped DiT, self
-attention carries q/k RMS norms and cross attention none
-(`qk_rms_norm_cross=False`), so `kv` applies none.
+`MultiHeadAttention` holds the parameters under the reference's names. The
+DiT runs its attention inside the fused sublayer kernels, so for it this
+module computes only what the JAX package computes outside any kernel: the
+loop-invariant cross-attention K/V (`kv`). Its self-attentions carry q/k
+RMS norms (`qk_rms_norm=True`, which the sublayer kernels apply) and its
+cross-attentions none, so `kv` applies none. `forward` is the self branch
+without RoPE or RMS norm, as DINOv2 runs it: the qkv projection, K5
+(ops/fused_attention.py) on its q/k/v views, the output projection.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from ..ops.fused_attention import fused_attention
 from .misc import dense
 
 
@@ -33,26 +38,52 @@ class MultiHeadRMSNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self ("to_qkv", q/k RMS norms) or cross ("to_q", "to_kv") attention
-    parameters, and an output projection "to_out"."""
+    """Self ("to_qkv") or cross ("to_q", "to_kv") attention parameters, an
+    output projection "to_out", and with `qk_rms_norm` the q/k RMS norms
+    (self attention only). A subclass may name the self branch's two
+    projections otherwise (`qkv_name`, `out_name`), as DINOv2 keeps the
+    torch hub's names."""
 
-    def __init__(self, channels: int, num_heads: int, attn_type: str = "self"):
+    qkv_name = "to_qkv"
+    out_name = "to_out"
+
+    def __init__(self, channels: int, num_heads: int, attn_type: str = "self",
+                 qk_rms_norm: bool = False):
         super().__init__()
-        if channels % num_heads or attn_type not in ("self", "cross"):
+        if (channels % num_heads or attn_type not in ("self", "cross")
+                or (qk_rms_norm and attn_type != "self")):
             raise ValueError(f"bad attention config: {channels} channels, "
-                             f"{num_heads} heads, {attn_type!r}")
+                             f"{num_heads} heads, {attn_type!r}, "
+                             f"qk_rms_norm={qk_rms_norm}")
         self.channels = channels
         self.num_heads = num_heads
         self.head_dim = channels // num_heads
+        self.attn_type = attn_type
+        self.qk_rms_norm = qk_rms_norm
         if attn_type == "self":
-            self.to_qkv = nn.Linear(channels, 3 * channels)
+            setattr(self, self.qkv_name, nn.Linear(channels, 3 * channels))
+            setattr(self, self.out_name, nn.Linear(channels, channels))
         else:
             self.to_q = nn.Linear(channels, channels)
             self.to_kv = nn.Linear(channels, 2 * channels)
-        self.to_out = nn.Linear(channels, channels)
-        if attn_type == "self":
+            self.to_out = nn.Linear(channels, channels)
+        if qk_rms_norm:
             self.q_rms_norm = MultiHeadRMSNorm(self.head_dim, num_heads)
             self.k_rms_norm = MultiHeadRMSNorm(self.head_dim, num_heads)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """Self-attention over L of x [B, L, C] -> [B, L, C] in `dtype`
+        (flax Dense semantics; K5 computes in `dtype`)."""
+        if self.attn_type != "self" or self.qk_rms_norm:
+            raise NotImplementedError(
+                "only the self branch without q/k RMS norm is ported")
+        B, L, C = x.shape
+        qkv = dense(x, getattr(self, self.qkv_name), dtype).reshape(
+            B, L, 3, self.num_heads, self.head_dim)
+        o = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                            self.head_dim ** -0.5, dtype, impl=impl)
+        return dense(o.reshape(B, L, C), getattr(self, self.out_name), dtype)
 
     def gammas(self):
         """(q, k) lane gammas of a self attention, as the kernels take them."""

@@ -51,8 +51,10 @@ class ModulatedTransformerCrossBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(C, 6 * C))
         self.adaLN_modulation_temporal = nn.Sequential(
             nn.SiLU(), nn.Linear(C, 3 * C))
-        self.spatial_self_attn = MultiHeadAttention(C, num_heads, "self")
-        self.temporal_self_attn = MultiHeadAttention(C, num_heads, "self")
+        self.spatial_self_attn = MultiHeadAttention(C, num_heads, "self",
+                                                    qk_rms_norm=True)
+        self.temporal_self_attn = MultiHeadAttention(C, num_heads, "self",
+                                                     qk_rms_norm=True)
         # norm1/norm2/norm5 are affine-free (no parameters); norm3/norm4 affine
         self.norm3 = nn.LayerNorm(C, eps=1e-6)
         self.image_cross_attn = MultiHeadAttention(C, num_heads, "cross")

@@ -1,1 +1,2 @@
-"""Ops with hand-written CUDA kernels beside their plain torch versions."""
+"""Ops: hand-written CUDA kernels beside their plain torch versions, and
+the plain torch math around them."""

@@ -1,15 +1,18 @@
-"""Video -> 4D pipeline: denoise and decode (port of
-gvfdiffusion_tpu/pipelines/video_to_4d.py without the render stage).
+"""Video -> 4D pipeline (port of gvfdiffusion_tpu/pipelines/video_to_4d.py).
 
 Given DINOv2 video tokens and a canonical static GS, FPS-sample the DiT's
 anchors, sample the Gaussian-Variation-Field latent with a CFG-wrapped
-DPM-Solver++ (multistep), and decode per-frame per-Gaussian deltas with the
-motion VAE.
+DPM-Solver++ (multistep), decode per-frame per-Gaussian deltas with the
+motion VAE (`run`), and render orbit sweeps of the animated splat
+(`render_4d`).
 
 The cross-attention KV is always hoisted out of the sampling loop, in both
 guidance modes, so the DiT has one structure: the four fused sublayers. At
 guidance 1.0/1.0 this computes the same function as the JAX pipeline, which
 there projects the conditioning inside every step.
+
+The pipeline runs on `device`, "cuda" unless the caller asks for the CPU,
+and moves its modules there; without a CUDA device it raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ from ..diffusion.gaussian_diffusion import get_named_beta_schedule
 from ..models.dit import DiT
 from ..models.motion_vae import MotionVAE
 from ..ops.fps import fps_masked
+from ..render.renderer import GaussianRenderer, RenderOptions
+from ..representations.camera import orbit_camera
+from ..representations.gaussians import GaussianSplat
+from ..utils.device import resolve_device
 
 # Gaussians per query chunk of the motion-VAE decode, as bench.py decodes
 DECODE_CHUNK = 8192
@@ -45,17 +52,23 @@ class VideoTo4DConfig:
 
 
 class VideoTo4DPipeline:
-    """Holds the DiT and the motion VAE (with their weights loaded)."""
+    """Holds the DiT and the motion VAE (with their weights loaded), moved
+    to `device`, and the renderer."""
 
     def __init__(self, dit: DiT, motion_vae: MotionVAE,
                  config: Optional[VideoTo4DConfig] = None,
                  latent_mean: Optional[torch.Tensor] = None,
-                 latent_std: Optional[torch.Tensor] = None):
-        self.dit = dit
-        self.vae = motion_vae
+                 latent_std: Optional[torch.Tensor] = None,
+                 render_options: Optional[RenderOptions] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.dit = dit.to(self.device)
+        self.vae = motion_vae.to(self.device)
         self.cfg = config or VideoTo4DConfig()
-        self.latent_mean = latent_mean
-        self.latent_std = latent_std
+        self.latent_mean, self.latent_std = (
+            None if a is None else a.to(self.device)
+            for a in (latent_mean, latent_std))
+        self.renderer = GaussianRenderer(render_options)
         betas = get_named_beta_schedule(self.cfg.noise_schedule,
                                         self.cfg.diffusion_steps)
         self.ns = NoiseScheduleVP.from_betas(betas)
@@ -135,7 +148,13 @@ class VideoTo4DPipeline:
             generator: Optional[torch.Generator] = None,
             noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """canonical_gs_activated [B, G, 14] padded, gs_valid [B, G],
-        cond_images [B, T, L, 1024] -> latent, deltas [B, T, G, 14], anchors."""
+        cond_images [B, T, L, 1024] -> latent, deltas [B, T, G, 14], anchors,
+        on the pipeline's device (the inputs move there)."""
+        canonical_gs_activated, gs_valid, cond_images = (
+            a.to(self.device)
+            for a in (canonical_gs_activated, gs_valid, cond_images))
+        if noise is not None:
+            noise = noise.to(self.device)
         anchors = self.prepare_static_conditioning(canonical_gs_activated,
                                                    gs_valid)
         latent = self.sample_deformation_latent(
@@ -143,3 +162,21 @@ class VideoTo4DPipeline:
             noise=noise)
         deltas = self.decode_deltas(latent, canonical_gs_activated)
         return {"latent": latent, "deltas": deltas, "anchors": anchors}
+
+    @torch.no_grad()
+    def render_4d(self, gs: GaussianSplat, deltas: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None, num_views: int = 128,
+                  resolution: int = 512) -> torch.Tensor:
+        """Frame t of deltas [T, G, 14] rendered from each of `num_views`
+        orbit views (pitch 20 degrees, radius 2) -> [T, V, H, W, 3] float
+        frames, on the splat's device."""
+        cams = [orbit_camera(360.0 * v / num_views, 20.0, radius=2.0,
+                             height=resolution, width=resolution)
+                for v in range(num_views)]
+        world_views = torch.stack([c.world_view for c in cams])
+        intrinsics = torch.stack([c.intrinsics for c in cams])
+        return torch.stack([
+            self.renderer.render_views(
+                gs, world_views, intrinsics, resolution, resolution,
+                delta=d, valid=valid)["render"]
+            for d in deltas])

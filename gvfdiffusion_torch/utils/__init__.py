@@ -1,1 +1,1 @@
-"""Weight conversion between the JAX package and the port."""
+"""Weight conversion between the JAX package and the port; device choice."""

@@ -1,16 +1,19 @@
 """Carry the JAX package's parameters over to the port.
 
-`dit_state_dict_from_flax` and `motion_vae_state_dict_from_flax` are the
-inverses of `convert_dit` and `convert_motion_vae` in
+`dit_state_dict_from_flax`, `motion_vae_state_dict_from_flax` and
+`dinov2_state_dict_from_flax` are the inverses of `convert_dit`,
+`convert_motion_vae` and `convert_dinov2` in
 gvfdiffusion_tpu/utils/weight_convert.py: they take a flax parameter tree
 (numpy or any array convertible with np.asarray) and return the torch state
-dict under the reference's names, which the port's modules use. A flax Dense
-kernel [in, out] becomes a Linear weight [out, in]; a LayerNorm scale
-becomes its weight.
+dict under the reference's names (the torch hub's for DINOv2), which the
+port's modules use. A flax Dense kernel [in, out] becomes a Linear weight
+[out, in]; a Conv kernel [kh, kw, in, out] a Conv2d weight [out, in, kh, kw];
+a LayerNorm scale becomes its weight.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List
 
 import numpy as np
@@ -23,8 +26,12 @@ def init_random_(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
     The modules' own zero inits (adaLN, the DiT final layer, the VAE output)
     make every block the identity and every output 0, which would hide any
-    fault. Linear weights get N(0, 1/fan_in); biases N(0, 0.1^2); LayerNorm
-    weights and RMS gammas 1 + N(0, 0.1^2). Drawn on the CPU from one
+    fault. Linear and conv weights get N(0, 1/fan_in), fan_in the product
+    of every dimension after the first (in * kh * kw for a conv); biases
+    N(0, 0.1^2); LayerNorm weights, RMS gammas and layer scales 1 + N(0,
+    0.1^2) (DINOv2's layer-scale init of 1e-5 would make every block nearly
+    the identity); DINOv2's tokens and position embedding N(0, 1), the scale
+    of the patch embedding they join. Drawn on the CPU from one
     torch.Generator, so the values do not depend on the device."""
     g = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
@@ -33,8 +40,10 @@ def init_random_(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             r = 1.0 + 0.1 * r
         elif p.ndim == 1:
             r = 0.1 * r
+        elif name.endswith(("token", "tokens", "pos_embed")):
+            pass
         else:
-            r = r / p.shape[1] ** 0.5
+            r = r / math.prod(p.shape[1:]) ** 0.5
         p.copy_(r)
     return module
 
@@ -136,4 +145,32 @@ def motion_vae_state_dict_from_flax(
     for n in ("to_q", "to_kv", "to_out"):
         _linear(sd, p, f"decoder_cross_attn.fn.{n}", ["dec_cross", n])
     _linear(sd, p, "to_outputs", ["to_outputs"])
+    return sd
+
+
+def dinov2_state_dict_from_flax(params: Dict[str, Any],
+                                depth: int = 24) -> Dict[str, torch.Tensor]:
+    """JAX DinoV2 params -> the port's DinoV2 state dict, under the torch
+    hub's `dinov2_vitl14_reg` names (`blocks.N.attn.qkv`,
+    `blocks.N.ls1.gamma`, `patch_embed.proj`, `register_tokens`, ...)."""
+    p = _params(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for n in ("cls_token", "pos_embed", "register_tokens"):
+        if n in p:
+            sd[n] = _tensor(p[n])
+    proj = p["patch_embed"]["proj"]
+    sd["patch_embed.proj.weight"] = _tensor(
+        np.transpose(np.asarray(proj["kernel"]), (3, 2, 0, 1)))
+    sd["patch_embed.proj.bias"] = _tensor(proj["bias"])
+    for i in range(depth):
+        b, fp = f"blocks.{i}", [f"blocks_{i}"]
+        _layernorm(sd, p, f"{b}.norm1", fp + ["norm1"])
+        _layernorm(sd, p, f"{b}.norm2", fp + ["norm2"])
+        _linear(sd, p, f"{b}.attn.qkv", fp + ["attn", "to_qkv"])
+        _linear(sd, p, f"{b}.attn.proj", fp + ["attn", "to_out"])
+        sd[f"{b}.ls1.gamma"] = _tensor(_node(p, fp + ["ls1_gamma"]))
+        sd[f"{b}.ls2.gamma"] = _tensor(_node(p, fp + ["ls2_gamma"]))
+        _linear(sd, p, f"{b}.mlp.fc1", fp + ["mlp", "fc1"])
+        _linear(sd, p, f"{b}.mlp.fc2", fp + ["mlp", "fc2"])
+    _layernorm(sd, p, "norm", ["norm"])
     return sd

@@ -1,22 +1,28 @@
-"""The hand-written CUDA sublayer kernels against their plain torch versions
-on the card (bf16), at small and ragged shapes: query lengths that are not
-multiples of the 64-row tile, frame counts 8 to 70, and cross key lengths
-37, 20, 130 and 1370. Every test here needs a CUDA device and skips
+"""The hand-written CUDA kernels against their plain torch versions on the
+card (bf16), at small and ragged shapes: for the sublayers (K1-K4) query
+lengths that are not multiples of the 64-row tile, frame counts 8 to 70,
+and cross key lengths 37, 20, 130 and 1374; for the attention kernel (K5)
+lengths 1 to 1374 around the 64-key tile, q/k/v read in place from a qkv
+projection or from separate tensors, and logits far beyond the TPU
+kernel's fixed shift. Every test here needs a CUDA device and skips
 without one; run them on the GPU with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda -q
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
-the error measured on an H100 at the DiT's full shapes): rel L2 of the
-output y and of the update y - x, <= (3e-3, 3e-2) for the attention
-sublayers and (5e-4, 3e-3) for the MLP; 3e-2 for a 2-block DiT forward.
+the error measured on an H100 at the full shapes): rel L2 of the output y
+and of the update y - x, <= (3e-3, 3e-2) for the attention sublayers and
+(5e-4, 3e-3) for the MLP; 3e-2 for a 2-block DiT forward; ATTN_BOUND for
+K5's output and DINO_BOUND for a 2-block DINOv2's tokens.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gvfdiffusion_torch.models.dinov2 import DinoV2, encode_image
 from gvfdiffusion_torch.models.dit import DiT
+from gvfdiffusion_torch.ops import fused_attention as fa
 from gvfdiffusion_torch.ops import fused_sublayer as pt
 from gvfdiffusion_torch.utils.weights import init_random_
 
@@ -25,6 +31,8 @@ pytestmark = pytest.mark.cuda
 # (rel L2 of y, rel L2 of y - x) per sublayer
 BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
           "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3)}
+ATTN_BOUND = 1e-2
+DINO_BOUND = 2e-2
 
 
 @pytest.fixture
@@ -99,7 +107,7 @@ def test_temporal_kernel(dev, T):
            (x, *d.mods(2), *d.self_weights()), dict(num_heads=4))
 
 
-@pytest.mark.parametrize("lks", [(37, 20), (130, 1370)])
+@pytest.mark.parametrize("lks", [(37, 20), (130, 1374)])
 def test_cross_kernel(dev, lks):
     d = _Draw(dev, 2, 128)
     x = d(4, 100, 128)
@@ -150,3 +158,69 @@ def test_dit_kernels_match_plain(dev):
     assert _rel(y, ref) <= 3e-2, _rel(y, ref)
     with pytest.raises(TypeError):
         DiT(num_blocks=1).to(dev)(x, t, ci, st, pos)
+
+
+def _attend(dev, L, layout, B=2, H=3, scale=1.0, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "qkv":  # views of one [B, L, 3, H, 64] projection
+        qkv = (torch.randn(B, L, 3, H, 64, generator=g, device=dev)
+               * scale).bfloat16()
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return [(torch.randn(B, L, H, 64, generator=g, device=dev)
+             * scale).bfloat16() for _ in range(3)]
+
+
+@pytest.mark.parametrize("layout", ["qkv", "separate"])
+@pytest.mark.parametrize("L", [1, 30, 64, 65, 130, 173, 1374])
+def test_attention_kernel(dev, L, layout):
+    q, k, v = _attend(dev, L, layout)
+    y = fa.fused_attention(q, k, v, 0.125)
+    ref = fa.fused_attention(q, k, v, 0.125, impl="plain")
+    torch.cuda.synchronize()
+    assert y.shape == q.shape and y.dtype == torch.bfloat16
+    assert y.is_contiguous() and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"attention L={L} {layout}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+def test_attention_kernel_large_logits(dev):
+    """Scaled logits of several hundred: past the TPU kernel's exp2 shift of
+    30 (safe to about +-90); the running maximum keeps the kernel exact."""
+    q, k, v = _attend(dev, 200, "qkv", scale=12.0)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 0.125
+    assert float(s.abs().max()) > 300
+    y = fa.fused_attention(q, k, v, 0.125)
+    ref = fa.fused_attention(q, k, v, 0.125, impl="plain")
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, ref) <= ATTN_BOUND, _rel(y, ref)
+
+
+def test_attention_launch_counts_and_checks(dev):
+    q, k, v = _attend(dev, 70, "qkv")
+    fa.reset_launch_counts()
+    fa.fused_attention(q, k, v, 0.125)
+    fa.fused_attention(q, k, v, 0.125, impl="plain")
+    assert fa.launch_counts == {"attention": 1}
+    with pytest.raises(TypeError):  # fp32
+        fa.fused_attention(q.float(), k.float(), v.float(), 0.125)
+    with pytest.raises(ValueError):  # heads of 32
+        fa.fused_attention(*(a[..., :32] for a in (q, k, v)), 0.125)
+    with pytest.raises(ValueError):  # Lq != Lk: not self-attention
+        fa.fused_attention(q[:, :10], k, v, 0.125)
+
+
+def test_dinov2_kernels_match_plain(dev):
+    dino = init_random_(DinoV2(img_size=56, embed_dim=128, depth=2,
+                               num_heads=2, dtype=torch.bfloat16),
+                        seed=8).to(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand(3, 56, 56, 3, generator=g, device=dev)
+    fa.reset_launch_counts()
+    y = encode_image(dino, x)
+    assert fa.launch_counts == {"attention": 2}
+    ref = encode_image(dino, x, impl="plain")
+    assert y.shape == (3, 21, 128)
+    assert _rel(y, ref) <= DINO_BOUND, _rel(y, ref)
+    with pytest.raises(TypeError):  # fp32 model on the card
+        DinoV2(img_size=56, embed_dim=128, depth=1, num_heads=2).to(dev)(x)

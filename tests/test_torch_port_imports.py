@@ -24,6 +24,18 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.diffusion.dpm_solver",
     "gvfdiffusion_torch.pipelines.video_to_4d",
     "gvfdiffusion_torch.utils.weights",
+    "gvfdiffusion_torch.utils.device",
+    "gvfdiffusion_torch.ops.fused_attention",
+    "gvfdiffusion_torch.models.dinov2",
+    "gvfdiffusion_torch.scripts.process_video",
+    "gvfdiffusion_torch.ops.quaternion",
+    "gvfdiffusion_torch.ops.sh",
+    "gvfdiffusion_torch.representations.gaussians",
+    "gvfdiffusion_torch.representations.camera",
+    "gvfdiffusion_torch.render.reference_renderer",
+    "gvfdiffusion_torch.ops.rasterize.binning",
+    "gvfdiffusion_torch.ops.rasterize.xla_blend",
+    "gvfdiffusion_torch.render.renderer",
 ]
 
 

@@ -9,7 +9,11 @@ Tolerances, each with its reason:
   * fps_masked: indices exactly;
   * motion-VAE decode: rel L2 <= 1e-4;
   * the tiny pipeline (sizes of tests/test_pipelines.py:97, GVF_FUSED=off):
-    rel L2 <= 1e-3 on the latent and on the deltas.
+    rel L2 <= 1e-3 on the latent and on the deltas;
+  * the tiny frames -> DINOv2 -> run -> render_4d chain: rel L2 <= 1e-5 on
+    the tokens (test_torch_port_dinov2.py), 1e-3 on the latent and deltas
+    (as above), and max abs <= 1e-4 on the rendered frames (reading 5e-7:
+    the deltas, scaled by 0.1, carry their differences into the Gaussians).
 """
 
 import jax
@@ -19,6 +23,7 @@ import pytest
 import torch
 
 from gvfdiffusion_torch.diffusion import dpm_solver as pdpm
+from gvfdiffusion_torch.models.dinov2 import DinoV2
 from gvfdiffusion_torch.diffusion.gaussian_diffusion import (
     get_named_beta_schedule as p_betas)
 from gvfdiffusion_torch.models.dit import DiT
@@ -26,18 +31,26 @@ from gvfdiffusion_torch.models.motion_vae import MotionVAE
 from gvfdiffusion_torch.ops.fps import fps_masked
 from gvfdiffusion_torch.pipelines.video_to_4d import (
     VideoTo4DConfig, VideoTo4DPipeline)
+from gvfdiffusion_torch.representations.gaussians import from_activated
+from gvfdiffusion_torch.scripts.process_video import encode_video
 from gvfdiffusion_torch.utils.weights import (
-    dit_state_dict_from_flax, init_random_, motion_vae_state_dict_from_flax)
+    dinov2_state_dict_from_flax, dit_state_dict_from_flax, init_random_,
+    motion_vae_state_dict_from_flax)
 from gvfdiffusion_tpu.diffusion import dpm_solver as jdpm
 from gvfdiffusion_tpu.diffusion.gaussian_diffusion import (
     get_named_beta_schedule as j_betas)
+from gvfdiffusion_tpu.models import dinov2 as jdino
 from gvfdiffusion_tpu.models.dit import DiT as JaxDiT
 from gvfdiffusion_tpu.models.motion_vae import MotionVAE as JaxMotionVAE
 from gvfdiffusion_tpu.models.motion_vae import pad_static_gs
 from gvfdiffusion_tpu.ops.fps import fps_masked as j_fps_masked
 from gvfdiffusion_tpu.pipelines import video_to_4d as jpipe
+from gvfdiffusion_tpu.representations.gaussians import (
+    from_activated as j_from_activated)
+from gvfdiffusion_tpu.scripts.process_video import (
+    normalize_frame as j_normalize_frame)
 from gvfdiffusion_tpu.utils.weight_convert import (
-    convert_dit, convert_motion_vae)
+    convert_dinov2, convert_dit, convert_motion_vae)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -243,7 +256,7 @@ def test_video_to_4d_pipeline(scales, monkeypatch):
 
     pp = VideoTo4DPipeline(port_dit.eval(), port_vae, VideoTo4DConfig(**cfg),
                            latent_mean=torch.from_numpy(mean),
-                           latent_std=torch.from_numpy(std))
+                           latent_std=torch.from_numpy(std), device="cpu")
     got = pp.run(torch.from_numpy(np.array(static_gs)),
                  torch.from_numpy(np.array(valid)),
                  torch.from_numpy(cond_images), noise=torch.from_numpy(noise))
@@ -254,3 +267,75 @@ def test_video_to_4d_pipeline(scales, monkeypatch):
     assert float(np.abs(np.asarray(want["deltas"])).mean()) > 0.01
     assert _rel(got["latent"], want["latent"]) <= 1e-3
     assert _rel(got["deltas"], want["deltas"]) <= 1e-3
+
+
+def test_frames_to_rendered_frames_chain(monkeypatch):
+    """The port's main path at a tiny size against the JAX chain: frames ->
+    normalize_frame -> resize -> DINOv2 encode_image -> VideoTo4DPipeline.run
+    -> render_4d (2 orbit views at 32^2, one 32-px tile, K = 256)."""
+    monkeypatch.setenv("GVF_FUSED", "off")
+    T, G, N_lat, C_lat, size = 2, 64, 8, 4, 56
+    dino_kw = dict(img_size=size, patch_size=14, embed_dim=128, depth=2,
+                   num_heads=2, num_register_tokens=4)
+    port_dino = init_random_(DinoV2(**dino_kw), seed=12).eval()
+    dino_params = convert_dinov2(
+        {k: v.numpy().copy() for k, v in port_dino.state_dict().items()},
+        depth=2)
+    port_dino.load_state_dict(dinov2_state_dict_from_flax(dino_params, 2))
+    dit_kw = dict(in_channels=C_lat, model_channels=32,
+                  static_cond_channels=14, image_cond_channels=128,
+                  out_channels=C_lat, num_blocks=1, num_heads=4)
+    port_dit = init_random_(DiT(**dit_kw), seed=13)
+    dit_params = convert_dit(
+        {k: v.numpy().copy() for k, v in port_dit.state_dict().items()},
+        num_blocks=1)
+    port_dit.load_state_dict(dit_state_dict_from_flax(dit_params, 1))
+    vae_params, port_vae = _vae_pair(14)
+
+    r = np.random.default_rng(15)
+    frames = (r.uniform(size=(T, 48, 40, 3)) * 255).astype(np.uint8)
+    q = r.standard_normal((G - 6, 4))
+    gs_act = np.concatenate([
+        r.uniform(-0.4, 0.4, (G - 6, 3)), r.uniform(0.03, 0.1, (G - 6, 3)),
+        q / np.linalg.norm(q, axis=-1, keepdims=True),
+        r.standard_normal((G - 6, 3)) * 0.5, r.uniform(0.3, 0.9, (G - 6, 1))],
+        -1).astype(np.float32)
+    static_gs, valid = pad_static_gs([gs_act], pad_to=G)
+    cfg = dict(steps=4, order=2, num_latents=N_lat, latent_dim=C_lat)
+    rng = jax.random.PRNGKey(1)
+    noise = np.array(jax.random.normal(rng, (1, T, N_lat, C_lat)))
+    view = dict(num_views=2, resolution=32)
+
+    jdm = jdino.DinoV2(**dino_kw)
+    canv = np.stack([np.asarray(jax.image.resize(
+        jnp.asarray(j_normalize_frame(f)), (size, size, 3), "bilinear"))
+        for f in frames])
+    j_tokens = jdino.encode_image(jdm, dino_params, jnp.asarray(canv))
+    jp = jpipe.VideoTo4DPipeline(
+        JaxDiT(resolution=N_lat, **dit_kw, pe_mode="ape", qk_rms_norm=True),
+        dit_params,
+        JaxMotionVAE(num_inputs=G, num_latents=N_lat, knn_k=4, **VAE_KW),
+        vae_params, jpipe.VideoTo4DConfig(**cfg, num_frames=T))
+    want = jp.run(static_gs, valid, j_tokens[None], rng)
+    want_frames = jp.render_4d(j_from_activated(static_gs[0]),
+                               want["deltas"][0] * 0.1, valid[0], **view)
+
+    tokens = encode_video(frames, port_dino, image_size=size, device="cpu")
+    pp = VideoTo4DPipeline(port_dit.eval(), port_vae, VideoTo4DConfig(**cfg),
+                           device="cpu")
+    got = pp.run(torch.from_numpy(np.array(static_gs)),
+                 torch.from_numpy(np.array(valid)), tokens[None],
+                 noise=torch.from_numpy(noise))
+    frames_out = pp.render_4d(
+        from_activated(torch.from_numpy(np.array(static_gs[0]))),
+        got["deltas"][0] * 0.1, torch.from_numpy(np.array(valid[0])), **view)
+
+    assert _rel(tokens, j_tokens) <= 1e-5
+    assert _rel(got["latent"], want["latent"]) <= 1e-3
+    assert _rel(got["deltas"], want["deltas"]) <= 1e-3
+    assert frames_out.shape == (T, 2, 32, 32, 3) == want_frames.shape
+    assert float((want_frames < 0.98).mean()) > 0.05  # the splat shows
+    assert np.abs(want_frames[1] - want_frames[0]).max() > 0.01  # and moves
+    err = np.abs(frames_out.numpy() - want_frames).max()
+    print(f"rendered frames: max abs {err:.3e}")
+    assert err <= 1e-4, err
