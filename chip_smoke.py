@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
-    python3 chip_smoke.py --profile  # build + a profiled denoise and encode
+    python3 chip_smoke.py --profile  # build + profiled denoise, encode and
+                                     # TRELLIS flow forwards and decode
 
 Phases, each printed on its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -11,9 +12,14 @@ Phases, each printed on its own lines:
      on the card, at the DiT's full shapes in bf16, with both times, the
      time of a library composition of the same sublayer (LayerNorm, cuBLAS
      bf16 matmuls, scaled_dot_product_attention, the residual) and the
-     bound; then K5 (the attention kernel) the same way at DINOv2's
-     [32 frames, 1374 tokens, 16 heads, 64] from a qkv projection, with
-     scaled_dot_product_attention as its library call;
+     bound; K3's single-context form at the SLat torso's shape ([1, 4096,
+     1024] fp32 residual, 16 heads of 64, 1374 image tokens) the same way;
+     then K5 (the attention kernel) in each form its callers run: DINOv2's
+     [32 frames, 1374 tokens, 16 heads, 64] from a qkv projection, the
+     sparse-structure flow's self [1, 512] and cross [1, 512] x [1, 1374]
+     attention, and the SLat torso's [1, 4096] self-attention with a -inf
+     kv_bias on the padding keys, with scaled_dot_product_attention as the
+     library call;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -24,7 +30,18 @@ Phases, each printed on its own lines:
      orbit view at 512^2), timed stage by stage and whole; the kernel
      launches of K1-K5 are counted in this run only. Then run()'s stages
      called one by one must give what run() gave, and both again for
-     4 steps at guidance 2.0/5.0 (the 3-way CFG batch B*T = 96).
+     4 steps at guidance 2.0/5.0 (the 3-way CFG batch B*T = 96);
+  5. the TRELLIS image -> 3D front end at full width (DINOv2, the 24x1024
+     sparse-structure flow, the occupancy decoder, the 24x1024 SLat flow
+     with its torso compacted to 4096 slots, the 12x768 Gaussian decoder;
+     16384 voxel slots): a seeded 768^2 RGBA image -> preprocess_image ->
+     the stages one by one (timed, launches counted per stage), then
+     TrellisImageTo3DPipeline.run (the launches of K5's forms and of K3's
+     single-context form are counted in this run only; it must give what
+     the stages gave); the kernels against impl="plain" in two parts (the
+     sparse-structure latent and the occupancy flips, then the SLat and
+     the Gaussians on the kernel run's structure); then the splat through
+     VideoTo4DPipeline.run and render_4d with the video's tokens.
 Then one JSON line of per-kernel results and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without a CUDA device, or without
@@ -46,7 +63,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# (name, TPU kernel body replaced, source, key)
+# (name, TPU kernel body replaced, source, key). K5's self form without
+# bias has one launch counter: the DINOv2 entry reads it in the video main
+# path, the TRELLIS self entry in TrellisImageTo3DPipeline.run (DINOv2 on
+# the image and the sparse-structure flow) and is timed at the flow's shape.
 KERNELS = [
     ("fused_self_sublayer", "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
      "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self"),
@@ -56,17 +76,38 @@ KERNELS = [
      "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross"),
     ("fused_mlp_sublayer", "gvfdiffusion_tpu/ops/fused_sublayer.py:881",
      "gvfdiffusion_torch/csrc/fused_sublayer.cu", "mlp"),
-    ("fused_attention", "gvfdiffusion_tpu/ops/fused_attention.py:108",
+    ("fused_cross_sublayer[single context]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single"),
+    ("fused_attention[DINOv2 self]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
      "gvfdiffusion_torch/csrc/fused_attention.cu", "attention"),
+    ("fused_attention[TRELLIS self: DINOv2 + ss flow]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_ss_self"),
+    ("fused_attention[ss cross]", "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_cross"),
+    ("fused_attention[torso kv_bias]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_bias"),
 ]
+SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
 # Kernel vs plain version at the full shapes, per sublayer: (rel L2 of the
 # output y, rel L2 of the update y - x). Each is 3-6x the error measured on
 # an H100 80GB HBM3 (700 W) with these seeds, which four runs reproduced to
 # every digit: y 6.2e-4 / 9.0e-4 / 1.0e-3 / 9.9e-5 and update 6.0e-3 /
-# 7.8e-3 / 6.2e-3 / 5.1e-4 for self / temporal / cross / MLP.
+# 7.8e-3 / 6.2e-3 / 5.1e-4 for self / temporal / cross / MLP. The single-
+# context cross sublayer runs the torso's fp32 residual, hence its tighter
+# bounds.
 BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
-          "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3)}
-ATTN_REL_BOUND = 1e-2      # K5 output rel L2 (reading 2.3e-3)
+          "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3),
+          "cross_single": (5e-4, 5e-3)}  # readings 1.4e-4, 1.3e-3
+ATTN_REL_BOUND = 1e-2      # K5 output rel L2, every form (2.1e-3-2.4e-3)
+# TRELLIS, kernels vs impl="plain": rel L2 of the sparse-structure latent
+# (same tokens and noise), occupancy flips / occupied voxels, rel L2 of the
+# SLat and of the activated Gaussians on the kernel run's structure
+TRELLIS_BOUNDS = {"ss_latent": 2e-2, "flips": 0.1, "slat": 1e-2,
+                  "gaussians": 1.5e-2}  # readings 4.7e-3, 2.1e-2, 2.6e-3, 3.5e-3
 DINO_REL_BOUND = 2e-2      # encode_image tokens, kernels vs plain (3.9e-3)
 DIT_REL_BOUND = 3e-2       # rel L2 of the whole 12-block DiT output (9.6e-3)
 RUN_REL_BOUND = 1e-6       # run() against the same stages called one by one
@@ -76,6 +117,13 @@ PEAK_BYTES = 3.35e12       # HBM3, H100 SXM datasheet (assumed)
 B, T, N, C, H, M = 1, 32, 512, 512, 16, 2048   # the DiT at full width
 L_IMG = 1374               # DINOv2 tokens at 518^2: 1 + 4 registers + 37^2
 G = 131072                 # Gaussians: 16384 voxels x 8
+VOXELS = 16384             # TRELLIS voxel slots (bench.py's L_VOX)
+TORSO = 4096               # the SLat torso's compacted capacity
+L_TORSO_VALID = 3500       # valid keys of the kernel phase's kv_bias case
+# occupied voxels to aim at, largest first: with random weights the
+# occupancy is not spatially coherent, so nearly every voxel has a parent
+# of its own and only about 4000 fit the torso
+OCC_TARGETS = (12000, 8000, 6000, 4500, 4000, 3500, 3000)
 RENDER_DELTA_SCALE = 0.01  # random-weight deltas, scaled as bench.py:395
 
 
@@ -155,7 +203,17 @@ def sublayer_cases(dev, g):
 
     kv_img = (rnd(B * T, L_IMG, C), rnd(B * T, L_IMG, C))
     kv_st = (rnd(B * T, N, C), rnd(B * T, N, C))
+    # the SLat torso: fp32 residual [1, 4096, 1024], 16 heads of 64, k/v the
+    # halves of the [1, 1374, 2048] projection of the image tokens
+    Ct = 1024
+    xt = torch.randn(1, TORSO, Ct, generator=g, device=dev)
+    pt = ((1.0 + 0.1 * rnd(Ct)).to(bf), rnd(Ct, scale=0.1),
+          rnd(Ct, Ct, scale=Ct ** -0.5), rnd(Ct, scale=0.1),
+          rnd(Ct, Ct, scale=Ct ** -0.5), rnd(Ct, scale=0.1))
+    kvt = rnd(1, L_IMG, 2 * Ct)
     return {
+        "cross_single": (xt, dict(args=(xt, pt, (kvt[..., :Ct], kvt[..., Ct:])),
+                                  kw=dict(num_heads=16))),
         "self": (x3, dict(args=(x3, mod(B), mod(B), mod(B), *self_w()),
                           kw=dict(num_heads=H, mod_repeat=T))),
         "temporal": (x4, dict(args=(x4, mod(B), mod(B), mod(B), *self_w()),
@@ -169,6 +227,8 @@ def sublayer_cases(dev, g):
 
 
 def sublayer_flops(key: str) -> float:
+    if key == "cross_single":
+        return 2 * (2 * TORSO * 1024 * 1024) + 4 * TORSO * L_IMG * 1024
     R, D = B * T * N, C // H
     proj = 2 * R * C * 3 * C + 2 * R * C * C  # qkv and output projections
     if key == "self":
@@ -243,6 +303,20 @@ def library_cross(x, p1, kv1, p2, kv2, num_heads):
     return one(one(x.float(), p1, kv1), p2, kv2).bfloat16()
 
 
+def library_cross_single(x, p, kv, num_heads):
+    import torch.nn.functional as F
+
+    ns, nb, wq, bq, wo, bo = p
+    Bx, L, Cx = x.shape
+    h = F.layer_norm(x.float(), (Cx,), ns.float(), nb.float(), eps=1e-6)
+    q = (h.bfloat16() @ wq + bq).view(Bx, L, num_heads, -1).transpose(1, 2)
+    k, v = (a.reshape(Bx, a.shape[1], num_heads, -1).transpose(1, 2)
+            for a in kv)
+    o = F.scaled_dot_product_attention(q, k, v)
+    out = o.transpose(1, 2).reshape(Bx, L, Cx) @ wo + bo
+    return x + out.to(x.dtype)
+
+
 def library_mlp(x, sh, sc, gate, w1, b1, w2, b2, mod_repeat=1):
     import torch.nn.functional as F
 
@@ -257,13 +331,17 @@ def phase_kernels(dev):
 
     fns = {"self": fsl.fused_self_sublayer,
            "temporal": fsl.fused_temporal_sublayer,
-           "cross": fsl.fused_cross_sublayer, "mlp": fsl.fused_mlp_sublayer}
+           "cross": fsl.fused_cross_sublayer, "mlp": fsl.fused_mlp_sublayer,
+           "cross_single": fsl.fused_cross_sublayer}
     libs = {"self": library_self, "temporal": library_temporal,
-            "cross": library_cross, "mlp": library_mlp}
+            "cross": library_cross, "mlp": library_mlp,
+            "cross_single": library_cross_single}
     g = torch.Generator(device=dev).manual_seed(1)
     cases = sublayer_cases(dev, g)
     results = {}
-    for name, replaces, source, key in KERNELS[:4]:
+    for name, replaces, source, key in KERNELS:
+        if key not in SUBLAYERS:
+            continue
         x, case = cases[key]
         fn, lib = fns[key], libs[key]
         args, kw = case["args"], case["kw"]
@@ -292,39 +370,70 @@ def phase_kernels(dev):
                             replaces=replaces, max_abs_err=mae, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms)
-    results["attention"] = phase_attention(dev)
+    for name, replaces, source, key in KERNELS:
+        if key not in SUBLAYERS:
+            results[key] = phase_attention(dev, name, replaces, source, key)
     return results
 
 
-def phase_attention(dev):
-    """K5 at DINOv2's shape, q/k/v read in place from a qkv projection."""
+def attention_case(dev, key):
+    """(q, k, v, kv_bias, what) for a K5 form at its caller's shape: the
+    views of a qkv projection (DINOv2), separate RMS-normed q/k with a
+    contiguous v (the sparse-structure flow's self, the torso), the k/v
+    halves of a kv projection (cross); the torso's bias keeps the first
+    L_TORSO_VALID keys (a compaction packs the valid voxels first)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()
+    if key == "attention":
+        qkv = rnd(T, L_IMG, 3, 16, 64)
+        return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None,
+                f"views of qkv {tuple(qkv.shape)}")
+    if key == "attention_cross":
+        kv = rnd(1, L_IMG, 2, 16, 64)
+        return rnd(1, N, 16, 64), kv[:, :, 0], kv[:, :, 1], None, \
+            f"k/v views of kv {tuple(kv.shape)}"
+    L = N if key == "attention_ss_self" else TORSO
+    bias = None
+    if key == "attention_bias":
+        bias = torch.zeros(1, L, device=dev)
+        bias[:, L_TORSO_VALID:] = float("-inf")
+    return (rnd(1, L, 16, 64), rnd(1, L, 16, 64), rnd(1, L, 16, 64), bias,
+            "separate q/k/v" + ("" if bias is None else
+                                f", {L_TORSO_VALID} of {L} keys valid"))
+
+
+def phase_attention(dev, name, replaces, source, key):
+    """K5 in one form against its plain version and SDPA (the bias as a
+    float mask)."""
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import fused_attention as fa
 
-    name, replaces, source, _ = KERNELS[4]
-    Bv, L, Hv, D = T, L_IMG, 16, 64
-    g = torch.Generator(device=dev).manual_seed(8)
-    qkv = torch.randn(Bv, L, 3, Hv, D, generator=g, device=dev).bfloat16()
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    scale = D ** -0.5
-    y = fa.fused_attention(q, k, v, scale)
+    q, k, v, bias, what = attention_case(dev, key)
+    scale = 64 ** -0.5
+    y = fa.fused_attention(q, k, v, scale, kv_bias=bias)
     torch.cuda.synchronize()
-    ref = fa.fused_attention(q, k, v, scale, impl="plain")
+    ref = fa.fused_attention(q, k, v, scale, kv_bias=bias, impl="plain")
     err = rel_l2(y, ref)
     mae = float((y.float() - ref.float()).abs().max())
     finite = bool(torch.isfinite(y).all())
+    mask = None if bias is None else bias[:, None, None, :].bfloat16()
     sdpa = lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask)
     lib_err = rel_l2(sdpa().transpose(1, 2), ref)
-    ms = time_ms(lambda: fa.fused_attention(q, k, v, scale))
-    plain_ms = time_ms(lambda: fa.fused_attention(q, k, v, scale,
-                                                  impl="plain"), iters=3)
+    ms = time_ms(lambda: fa.fused_attention(q, k, v, scale, kv_bias=bias))
+    plain_ms = time_ms(lambda: fa.fused_attention(
+        q, k, v, scale, kv_bias=bias, impl="plain"), iters=3)
     lib_ms = time_ms(sdpa)
-    flops = 4 * Bv * Hv * L * L * D
-    b_ms, b_by = bound(flops, nbytes(q, k, v, y))
-    log(f"[kernel] {name}: q/k/v {tuple(q.shape)} bf16 (views of qkv "
-        f"{tuple(qkv.shape)}) max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+    Bq, Lq, Hq, D = q.shape
+    lk = k.shape[1] if bias is None else int(torch.isfinite(bias[0]).sum())
+    flops = 4 * Bq * Hq * Lq * lk * D  # the valid keys only
+    b_ms, b_by = bound(flops, nbytes(q, k, v, y, bias))
+    log(f"[kernel] {name}: q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+        f"({what}) max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
         f"{ATTN_REL_BOUND:g}) kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
         f"TFLOP/s) plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms (its rel_l2 "
         f"{lib_err:.3e}) bound {b_ms:.4f} ms ({b_by})")
@@ -575,7 +684,8 @@ def phase_pipeline(dino, dit, vae, dev, card):
         f"{float(out['latent'].abs().mean()):.4g}, deltas |mean| "
         f"{float(out['deltas'].abs().mean()):.4g}, finite")
     check_video(video)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("self", "temporal", "cross", "mlp", "attention")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing} kernel")
     if launches["attention"] != 24:
@@ -609,15 +719,247 @@ def phase_pipeline(dino, dit, vae, dev, card):
         + f"; run() {wall_ms:.1f} ms; peak {peak:.2f} GiB; launches "
         f"{cfg_launches}; finite; {card}")
     check_same(out, staged, "guidance 2.0/5.0")
-    return launches
+    return launches, ci
+
+
+# -- the TRELLIS front end ------------------------------------------------------
+
+
+def build_trellis(dino, dev):
+    """The TRELLIS-image-large configuration at full width with seeded
+    random weights (bench.py:216-326, tests/test_fullsize_golden.py:214-240):
+    the 24x1024 sparse-structure flow (16 heads of 64, patch 2, q/k RMS
+    norm), the (512, 128, 32) occupancy decoder, the 24x1024 SLat flow (io
+    channels 128, torso compacted to 4096 slots), the 12x768 Gaussian
+    decoder (swin window 8); 16384 voxel slots."""
+    import torch
+    from gvfdiffusion_torch.models.trellis.slat_decoders import (
+        SLatGaussianDecoder)
+    from gvfdiffusion_torch.models.trellis.slat_flow import SLatFlowModel
+    from gvfdiffusion_torch.models.trellis.ss_flow import (
+        SparseStructureFlowModel)
+    from gvfdiffusion_torch.models.trellis.ss_vae import (
+        SparseStructureDecoder)
+    from gvfdiffusion_torch.pipelines.trellis_image_to_3d import (
+        TrellisConfig, TrellisImageTo3DPipeline)
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(24)
+    return TrellisImageTo3DPipeline(
+        dino,
+        init_random_(SparseStructureFlowModel(qk_rms_norm=True, dtype=bf), 20),
+        init_random_(SparseStructureDecoder(dtype=bf), 21),
+        init_random_(SLatFlowModel(qk_rms_norm=True, torso_capacity=TORSO,
+                                   dtype=bf), 22),
+        init_random_(SLatGaussianDecoder(dtype=bf), 23),
+        TrellisConfig(voxel_capacity=VOXELS),
+        slat_mean=torch.randn(8, generator=g) * 0.3,
+        slat_std=torch.rand(8, generator=g) + 0.5, device=dev)
+
+
+def seeded_image():
+    """A 768^2 RGBA image: seeded colours, an elliptic alpha blob."""
+    import numpy as np
+
+    r = np.random.default_rng(12)
+    yy, xx = np.mgrid[:768, :768]
+    alpha = ((yy - 400) / 260.0) ** 2 + ((xx - 370) / 210.0) ** 2 < 1.0
+    rgb = r.uniform(0.2, 0.9, (768, 768, 3))
+    return (np.concatenate([rgb, alpha[..., None]], -1) * 255).astype(
+        np.uint8)
+
+
+def _parents(occ):
+    """Distinct 2x-downsampled cells of the occupied 64^3 cells."""
+    import torch
+
+    c = torch.nonzero(occ) // 2
+    return int(torch.unique(c[:, 0] * 1024 + c[:, 1] * 32 + c[:, 2]).numel())
+
+
+def calibrate_occupancy(pipe, z):
+    """Random weights make the occupancy arbitrary. Shift the decoder's
+    output bias to the middle of the largest logit gap near a target count
+    (tests/test_fullsize_golden.py:259-270), the largest target in
+    OCC_TARGETS whose 2x parents fit the torso's slots, so that no
+    borderline voxel decides the structure and nothing is truncated."""
+    import torch
+
+    with torch.no_grad():
+        logits = pipe.ss_decoder(z)[0, ..., 0]
+    v = torch.sort(logits.flatten(), descending=True).values
+    for target in OCC_TARGETS:
+        gaps = v[target - 500:target + 500] - v[target - 499:target + 501]
+        k = target - 499 + int(torch.argmax(gaps))
+        thr = 0.5 * (v[k - 1] + v[k])
+        parents = _parents(logits > thr)
+        if parents <= TORSO:
+            break
+    with torch.no_grad():
+        pipe.ss_decoder.out_layer[2].bias -= thr
+    return k, float(gaps.max()), parents
+
+
+def _voxel_set(sv):
+    return {tuple(c) for c in sv.coords[0][sv.valid[0]].tolist()}
+
+
+def trellis_stages(pipe, pre, seed, card, calibrate=False):
+    """TrellisImageTo3DPipeline's stages one by one, with the noise drawn
+    as run() draws it: timed, and the launches counted per stage."""
+    import torch
+
+    g = torch.Generator(device=pipe.device).manual_seed(seed)
+    times, counts, out = {}, {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        counts[name] = {k: n for k, n in read_counts().items() if n}
+        return r
+
+    out["cond"] = stage("encode", lambda: pipe.encode_image(pre))
+    out["z"] = stage("ss_flow", lambda: pipe.sample_ss_latent(out["cond"], g))
+    if calibrate:
+        k, gap, parents = calibrate_occupancy(pipe, out["z"])
+        log(f"[trellis] occupancy bias set at rank {k} (largest logit gap "
+            f"{gap:.4g}): {parents} parents at 32^3 for a {TORSO}-slot torso")
+    out["structure"] = stage("ss_decode",
+                             lambda: pipe.decode_structure(out["z"]))
+    out["slat"] = stage("slat_flow", lambda: pipe.sample_slat(
+        out["structure"], out["cond"], g))
+    out["gs"], out["valid"] = stage("gs_decode",
+                                    lambda: pipe.decode_slat(out["slat"]))
+    log("[trellis] stages: " + ", ".join(f"{k} {v:.1f} ms"
+                                         for k, v in times.items())
+        + f"; launches by stage {counts}; {card}")
+    return out
+
+
+def phase_trellis(dino, dit, vae, ci, dev, card):
+    """The TRELLIS main path, its agreement with the plain versions, and the
+    splat through the video -> 4D path. Returns the launches of K5's forms
+    and K3's single-context form in run(), keyed as in KERNELS."""
+    import torch
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+    from gvfdiffusion_torch.representations.gaussians import GaussianSplat
+
+    pipe = build_trellis(dino, dev)
+    image = seeded_image()
+    t0 = time.perf_counter()
+    pre = torch.from_numpy(pipe.preprocess_image(image))[None]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    staged = trellis_stages(pipe, pre, 31, card, calibrate=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(image, torch.Generator(device=dev).manual_seed(31))
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st, gs, valid = out["structure"], out["gaussians"], out["valid"]
+    n_occ = int(st.valid.sum())
+    parents = _parents(st.to_dense()[0, ..., 0] != 0) if n_occ else 0
+    act = gs.to_activated_tensor()
+    log(f"[trellis] run(): 768^2 RGBA -> preprocess_image ({host_ms:.1f} ms "
+        f"on the host) -> {run_ms:.1f} ms; n_occ {n_occ}, parents {parents},"
+        f" dropped {max(parents - TORSO, 0)}, valid Gaussians "
+        f"{int(valid.sum())} of {valid.shape[1]}; peak {peak:.2f} GiB; "
+        f"launches {launches}; {card}")
+    if not (0 < n_occ <= VOXELS and parents <= TORSO
+            and tuple(act.shape) == (1, G, 14)
+            and bool(torch.isfinite(act).all())):
+        raise AssertionError("TRELLIS run: empty or truncated structure, or "
+                             "non-finite Gaussians")
+    same = (_voxel_set(st) == _voxel_set(staged["structure"])
+            and rel_l2(out["slat"].feats, staged["slat"].feats) <= RUN_REL_BOUND
+            and rel_l2(act, staged["gs"].to_activated_tensor())
+            <= RUN_REL_BOUND)
+    if not same:
+        raise AssertionError("TRELLIS run() disagrees with its stages")
+    # K5's self form without bias serves DINOv2 on the image (24 blocks)
+    # and the sparse-structure flow (24 Euler forwards x 24 blocks): one
+    # counter, so one entry of the kernels line
+    want = {"attention": 24 + 576, "attention_cross": 576,
+            "attention_bias": 528, "cross_single": 528}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"TRELLIS launches {got}, expected {want}")
+
+    # kernels against the plain versions, in two parts: the latent and the
+    # occupancy flips; then the SLat and the Gaussians on the kernel run's
+    # structure, with the same noise
+    g = torch.Generator(device=dev).manual_seed(31)
+    n1 = torch.randn(staged["z"].shape, generator=g, device=dev)
+    n2 = torch.randn((1, VOXELS, 8), generator=g, device=dev)
+    cond_p = pipe.encode_image(pre, impl="plain")
+    z_p = pipe.sample_ss_latent(staged["cond"], noise=n1, impl="plain")
+    flips = len(_voxel_set(pipe.decode_structure(z_p))
+                ^ _voxel_set(staged["structure"])) / n_occ
+    slat_p = pipe.sample_slat(staged["structure"], staged["cond"],
+                              noise_feats=n2, impl="plain")
+    gs_p, _ = pipe.decode_slat(slat_p, impl="plain")
+    m = staged["valid"][0]
+    errs = {"cond": rel_l2(staged["cond"], cond_p),
+            "ss_latent": rel_l2(staged["z"], z_p), "flips": flips,
+            "slat": rel_l2(staged["slat"].feats, slat_p.feats),
+            "gaussians": rel_l2(staged["gs"].to_activated_tensor()[0][m],
+                                gs_p.to_activated_tensor()[0][m])}
+    log("[trellis] kernels vs plain: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bounds {TRELLIS_BOUNDS}, cond {DINO_REL_BOUND:g}); valid "
+        f"Gaussians |xyz| max {float(act[0, :, :3][valid[0]].abs().max()):.3f}")
+    if errs["cond"] > DINO_REL_BOUND or any(
+            errs[k] > b for k, b in TRELLIS_BOUNDS.items()):
+        raise AssertionError("TRELLIS kernels disagree with the plain path")
+
+    # the splat through the video -> 4D path and the renderer
+    pipe4d = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=32, order=2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe4d.run(act, valid, ci, generator=torch.Generator(
+        device=dev).manual_seed(32))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gs0 = GaussianSplat(
+        gs._xyz[0], gs._features_dc[0], gs._scaling[0], gs._rotation[0],
+        gs._opacity[0], gs.aabb, gs.scaling_bias, gs.opacity_bias,
+        gs.scaling_activation, gs.mininum_kernel_size)
+    video = pipe4d.render_4d(gs0, res["deltas"][0] * RENDER_DELTA_SCALE,
+                             valid[0], num_views=1, resolution=512)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_outputs(res, B, T, G)
+    log(f"[trellis] the splat -> VideoTo4DPipeline.run ({T} frames, 32 "
+        f"steps) {(t1 - t0) * 1e3:.1f} ms -> render_4d "
+        f"{(t2 - t1) * 1e3:.1f} ms; {card}")
+    check_video(video)
+    return {"attention_ss_self": got["attention"],
+            **{k: got[k] for k in ("attention_cross", "attention_bias",
+                                   "cross_single")}}
 
 
 def _kernel_group(name: str) -> str:
     for k in ("attn_kernel", "gemm_kernel", "ln_kernel"):
         if k in name:
             return k
+    if any(k in name for k in ("fmha", "flash", "attention")):
+        return "SDPA"
+    if "conv" in name.lower():
+        return "cuDNN conv"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
         return "cuBLAS GEMM"
+    if any(k in name for k in ("gather", "scatter", "index", "Sort", "sort")):
+        return "gather/scatter/sort"
     return "other"
 
 
@@ -662,8 +1004,11 @@ def _profile(fn, what: str, trace: str, card: str) -> None:
 
 def phase_profile(dino, dit, vae, dev, card):
     """Where the time goes, at full width: a 4-step denoise (guidance
-    1.0/1.0, KV hoisted; trace denoise_trace.json) and the DINOv2
-    encode_image of 32 frames (trace encode_trace.json)."""
+    1.0/1.0, KV hoisted; trace denoise_trace.json), the DINOv2
+    encode_image of 32 frames (trace encode_trace.json), and one forward
+    of each TRELLIS flow and the Gaussian decode on the main path's
+    structure (ss_flow_trace.json, slat_flow_trace.json,
+    gs_decode_trace.json)."""
     import torch
     from gvfdiffusion_torch.models.dinov2 import encode_image
     from gvfdiffusion_torch.pipelines.video_to_4d import (
@@ -683,6 +1028,26 @@ def phase_profile(dino, dit, vae, dev, card):
     _profile(lambda: encode_image(dino, images),
              f"DINOv2 encode_image ({T} frames, 518^2)", "encode_trace.json",
              card)
+
+    # TRELLIS: one forward of each flow (the samplers repeat it 24 and 22
+    # times) on the main path's structure, and the Gaussian decode
+    pipe = build_trellis(dino, dev)
+    pre = torch.from_numpy(pipe.preprocess_image(seeded_image()))[None]
+    staged = trellis_stages(pipe, pre, 31, card, calibrate=True)
+    cond, st = staged["cond"], staged["structure"]
+    t = torch.tensor([1000.0], device=dev)
+    x = torch.randn(1, 16, 16, 16, 8, generator=g, device=dev)
+    xs = st.replace_feats(torch.randn(1, VOXELS, 8, generator=g, device=dev))
+    with torch.no_grad():
+        _profile(lambda: pipe.ss_flow(x, t, cond),
+                 "sparse-structure flow forward (24 x 1024, [1, 512] tokens)",
+                 "ss_flow_trace.json", card)
+        _profile(lambda: pipe.slat_flow(xs, t, cond),
+                 f"SLat flow forward ({int(st.valid.sum())} voxels, torso "
+                 f"{TORSO} slots)", "slat_flow_trace.json", card)
+        _profile(lambda: pipe.decode_slat(staged["slat"]),
+                 f"SLat Gaussian decode ({VOXELS} slots)",
+                 "gs_decode_trace.json", card)
 
 
 def main(argv) -> int:
@@ -729,9 +1094,14 @@ def main(argv) -> int:
     dino, dit, vae = build_models(dev)
     phase_dinov2(dino, dev, card)
     phase_dit(dit, dev)
-    launches = phase_pipeline(dino, dit, vae, dev, card)
+    launches, ci = phase_pipeline(dino, dit, vae, dev, card)
+    trellis = phase_trellis(dino, dit, vae, ci, dev, card)
+    # each entry's count comes from one run: the TRELLIS forms from
+    # TrellisImageTo3DPipeline.run, the others (K1-K4, K5 in DINOv2's
+    # video encode) from the video main path
+    counts = {**launches, **trellis}
     for key, r in results.items():
-        r["launches"] = launches[key]
+        r["launches"] = counts[key]
     log(json.dumps({"kernels": [results[k] for *_, k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,9 @@ _SIGNATURES = {
     "gvf_cross_sublayer": [_P] + ([_P] * 8 + [_I]) * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_mlp_sublayer": [_P] * 11 + [_I] * 5 + [_P],
-    "gvf_attention": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_F, _P],
+    "gvf_cross_sublayer1": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 4 + [_I] * 5
+    + [_P],
+    "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _P],
 }
 
 _lib = None

@@ -7,8 +7,10 @@
 // 16x16x16, bf16 in, fp32 out), an online softmax with a true running
 // maximum (fp32), P rounded to bf16 for the P V product, whose fp32 result
 // rescales into a register accumulator. The row sum is taken from the fp32
-// P, as the TPU kernels take it. Keys past Lk are masked; a row with no key
-// returns 0. Optional per-head RMS norm of q/k in the load (the DiT's
+// P, as the TPU kernels take it. Keys past Lk are masked; an optional fp32
+// additive logit bias per key (-inf masks the key) is read from device
+// memory by the softmax step; a row with no visible key returns 0, never
+// NaN. Optional per-head RMS norm of q/k in the load (the DiT's
 // self/temporal sublayers).
 
 #pragma once
@@ -51,6 +53,8 @@ struct AttnParams {
   int nb2, Lq, Lk;
   const bf16* qg;  // [C] gamma * sqrt(D), or null: no RMS norm on q
   const bf16* kg;  // likewise for k
+  const float* bias = nullptr;  // [row block z1][Lk] logit bias, or null
+  long long bias_s1 = 0;
   float scale;
 };
 
@@ -94,6 +98,7 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   const TKV* kb = (const TKV*)p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
   const TKV* vb = (const TKV*)p.v + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
   bf16* ob = p.o + z1 * p.o_s1 + z2 * p.o_s2 + h * D;
+  const float* bb = p.bias ? p.bias + z1 * p.bias_s1 : nullptr;
   const int q0 = blockIdx.x * ABQ;
 
   // prologue: Q tile, two threads per row
@@ -144,13 +149,19 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
     }
     __syncwarp();
 
-    // online softmax: each lane takes 32 keys of its row
+    // online softmax: each lane takes 32 keys of its row. A tile whose keys
+    // are all masked leaves m_new at -inf: the branch below then adds
+    // nothing, so exp(-inf - -inf) is never formed.
     float sv[32];
     float mx = neg_inf();
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int j = j0 + half * 32 + c;
-      const float s = j < p.Lk ? sSw[r * ABK + half * 32 + c] * p.scale : neg_inf();
+      float s = neg_inf();
+      if (j < p.Lk) {
+        s = sSw[r * ABK + half * 32 + c] * p.scale;
+        if (bb) s += bb[j];
+      }
       sv[c] = s;
       mx = fmaxf(mx, s);
     }

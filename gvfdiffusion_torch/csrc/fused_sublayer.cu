@@ -3,7 +3,10 @@
 // Replaces the Pallas TPU kernels of gvfdiffusion_tpu/ops/fused_sublayer.py:
 //   gvf_self_sublayer      <- _self_sublayer_kernel     (fused_self_sublayer)
 //   gvf_temporal_sublayer  <- _temporal_sublayer_kernel (fused_temporal_sublayer)
-//   gvf_cross_sublayer     <- _cross_sublayer_kernel    (fused_cross_sublayer)
+//   gvf_cross_sublayer     <- _cross_sublayer_kernel    (fused_cross_sublayer,
+//                                                        two contexts: the DiT)
+//   gvf_cross_sublayer1    <- _cross_sublayer_kernel    (one context: the SLat
+//                                                        flow torso, heads of 64)
 //   gvf_mlp_sublayer       <- _mlp_sublayer_kernel      (fused_mlp_sublayer)
 //
 // Each entry point launches a short fixed chain of the kernels below on the
@@ -34,6 +37,10 @@
 // cp.async pipelining: it is written to be right first.
 // The TPU kernel's lane-packing of 32-wide heads onto 128-lane tiles has no
 // counterpart here; a 32-wide head maps straight onto 16x16 tensor-core tiles.
+// The single-context entry runs the same chain at the SLat torso's shape
+// (L = 4096, C = 1024, 16 heads of 64, Lk = 1374): 40.2 GFLOP against
+// 27 MB of traffic, so the tensor cores bound it too. The TPU's lq_block /
+// kv_buffers sized its VMEM residency and have no counterpart here.
 
 #include "attention.cuh"
 
@@ -217,6 +224,14 @@ cudaError_t launch_attn32(const AttnParams& p, int H, long long nb1, int D,
   return launch_attn<32, TQ, TKV>(p, H, nb1, s);
 }
 
+// the SLat torso's head width
+template <typename TQ, typename TKV>
+cudaError_t launch_attn64(const AttnParams& p, int H, long long nb1, int D,
+                          cudaStream_t s) {
+  if (D != 64) return cudaErrorInvalidValue;
+  return launch_attn<64, TQ, TKV>(p, H, nb1, s);
+}
+
 #define GVF_CHECK(call)                  \
   do {                                   \
     cudaError_t err_ = (call);           \
@@ -331,6 +346,46 @@ int gvf_cross_sublayer(const void* x,
   GVF_CHECK(attend(k2, v2, lk2));
   GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
+  return 0;
+}
+
+// K3, one context (the SLat torso's image cross-attention). x, y [B, L, C],
+// both bf16 or, with x_f32, both fp32 (the SLat torso's residual stream is
+// fp32, as in the JAX package); affine LN (ns, nb [C]), wq [C, C], bq,
+// wo [C, C], bo; the cached k, v rows with heads of 64, element (b, j, c)
+// at b * kv_sb + j * kv_sl + c (the k/v halves of one [B, Lk, 2C]
+// projection go in place); no RMS norm; the residual un-gated. Scratch:
+// h bf16, q fp32, attn bf16, each [B*L, C].
+int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
+                        const void* wq, const void* bq, const void* wo,
+                        const void* bo, const void* k, const void* v, int lk,
+                        long long kv_sb, long long kv_sl, void* y, void* h,
+                        void* q, void* attn, int B, int L, int C, int H,
+                        int x_f32, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long R = (long long)B * L;
+  const int D = C / H;
+  if (x_f32)
+    GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
+  else
+    GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns, nb, h, R, C, 1, s)));
+  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq, bq, nullptr, nullptr,
+                                                 (float*)q, R, C, C, 1, s)));
+  AttnParams p;
+  p.q = q; p.k = k; p.v = v; p.o = (bf16*)attn;
+  p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
+  p.k_s1 = kv_sb; p.k_s2 = 0; p.k_sj = kv_sl;
+  p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
+  p.nb2 = 1; p.Lq = L; p.Lk = lk;
+  p.qg = nullptr; p.kg = nullptr;
+  p.scale = (float)(1.0 / sqrt((double)D));
+  GVF_CHECK((launch_attn64<float, bf16>(p, H, B, D, s)));
+  if (x_f32)
+    GVF_CHECK((launch_gemm<EPI_RESID, float, float>(attn, wo, bo, (const float*)x,
+                                                    nullptr, (float*)y, R, C, C, 1, s)));
+  else
+    GVF_CHECK((launch_gemm<EPI_RESID, bf16, bf16>(attn, wo, bo, (const bf16*)x,
+                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
   return 0;
 }
 

@@ -1,14 +1,19 @@
-"""Multi-head attention (port of gvfdiffusion_tpu/nn/attention.py:73-85,
+"""Multi-head attention (port of gvfdiffusion_tpu/nn/attention.py:36-85,
 135-254).
 
-`MultiHeadAttention` holds the parameters under the reference's names. The
-DiT runs its attention inside the fused sublayer kernels, so for it this
-module computes only what the JAX package computes outside any kernel: the
-loop-invariant cross-attention K/V (`kv`). Its self-attentions carry q/k
-RMS norms (`qk_rms_norm=True`, which the sublayer kernels apply) and its
-cross-attentions none, so `kv` applies none. `forward` is the self branch
-without RoPE or RMS norm, as DINOv2 runs it: the qkv projection, K5
-(ops/fused_attention.py) on its q/k/v views, the output projection.
+`MultiHeadAttention` holds the parameters under the reference's names.
+`forward` is the composed self or cross branch: the qkv (self) or the q
+and kv (cross) projections, the optional q/k RMS norms, the attention and
+the output projection; RoPE and the `temporal_4d` layout are not ported.
+The DiT runs its attention inside the fused sublayer kernels, so for it
+this module computes only what the JAX package computes outside any
+kernel: the loop-invariant cross-attention K/V (`kv`).
+
+`scaled_dot_product_attention` takes the JAX package's dispatch rule
+(`ops/fused_attention.supports`: Lq >= 128, 128 <= Lk <= 4096). On a CUDA
+tensor a call inside the rule runs K5 (ops/fused_attention.py), and a call
+outside it raises: on the TPU those shapes take XLA's attention, which has
+no port yet. On the CPU every call runs K5's plain version.
 """
 
 from __future__ import annotations
@@ -18,14 +23,26 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.fused_attention import fused_attention
+from ..ops.fused_attention import fused_attention, supports
 from .misc import dense
+
+
+def scaled_dot_product_attention(q, k, v, dtype: torch.dtype,
+                                 impl: Optional[str] = None) -> torch.Tensor:
+    """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D] in `dtype` (the
+    attention computes in `dtype`)."""
+    if q.is_cuda and impl != "plain" and not supports(q.shape, k.shape):
+        raise NotImplementedError(
+            f"attention of q {tuple(q.shape)} over k {tuple(k.shape)} is "
+            "outside K5's rule (Lq >= 128, 128 <= Lk <= 4096); the JAX "
+            "package's XLA attention for such shapes is not ported")
+    return fused_attention(q, k, v, q.shape[-1] ** -0.5, dtype, impl=impl)
 
 
 class MultiHeadRMSNorm(nn.Module):
     """Per-head RMS norm over the head dim, scaled by gamma * sqrt(dim):
-    x * rsqrt(sum(x^2) + 1e-12) * gamma * sqrt(dim). The sublayer kernels
-    apply it; this module holds gamma."""
+    x * rsqrt(sum(x^2) + 1e-12) * gamma * sqrt(dim), in fp32, returned in
+    x's dtype. The DiT's sublayer kernels apply it from `lane_gamma`."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -36,25 +53,28 @@ class MultiHeadRMSNorm(nn.Module):
         """[heads * dim] = gamma.flatten() * sqrt(dim), as the kernels take it."""
         return self.gamma.reshape(-1) * self.dim ** 0.5
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., heads, dim]."""
+        xf = x.float()
+        normed = xf * torch.rsqrt(xf.square().sum(-1, keepdim=True) + 1e-12)
+        return (normed * self.gamma.float() * self.dim ** 0.5).to(x.dtype)
+
 
 class MultiHeadAttention(nn.Module):
     """Self ("to_qkv") or cross ("to_q", "to_kv") attention parameters, an
-    output projection "to_out", and with `qk_rms_norm` the q/k RMS norms
-    (self attention only). A subclass may name the self branch's two
-    projections otherwise (`qkv_name`, `out_name`), as DINOv2 keeps the
-    torch hub's names."""
+    output projection "to_out", and with `qk_rms_norm` the q/k RMS norms.
+    A subclass may name the self branch's two projections otherwise
+    (`qkv_name`, `out_name`), as DINOv2 keeps the torch hub's names."""
 
     qkv_name = "to_qkv"
     out_name = "to_out"
 
     def __init__(self, channels: int, num_heads: int, attn_type: str = "self",
-                 qk_rms_norm: bool = False):
+                 qk_rms_norm: bool = False, ctx_channels: Optional[int] = None):
         super().__init__()
-        if (channels % num_heads or attn_type not in ("self", "cross")
-                or (qk_rms_norm and attn_type != "self")):
+        if channels % num_heads or attn_type not in ("self", "cross"):
             raise ValueError(f"bad attention config: {channels} channels, "
-                             f"{num_heads} heads, {attn_type!r}, "
-                             f"qk_rms_norm={qk_rms_norm}")
+                             f"{num_heads} heads, {attn_type!r}")
         self.channels = channels
         self.num_heads = num_heads
         self.head_dim = channels // num_heads
@@ -65,24 +85,44 @@ class MultiHeadAttention(nn.Module):
             setattr(self, self.out_name, nn.Linear(channels, channels))
         else:
             self.to_q = nn.Linear(channels, channels)
-            self.to_kv = nn.Linear(channels, 2 * channels)
+            self.to_kv = nn.Linear(ctx_channels or channels, 2 * channels)
             self.to_out = nn.Linear(channels, channels)
         if qk_rms_norm:
             self.q_rms_norm = MultiHeadRMSNorm(self.head_dim, num_heads)
             self.k_rms_norm = MultiHeadRMSNorm(self.head_dim, num_heads)
 
+    def project(self, x: torch.Tensor, dtype: torch.dtype,
+                context: Optional[torch.Tensor] = None):
+        """q [B, L, H, D] and k, v [B, Lk, H, D] in `dtype`, RMS-normed when
+        the module has the norms; without them, views of the projections."""
+        B, L, _ = x.shape
+        H, D = self.num_heads, self.head_dim
+        if self.attn_type == "self":
+            qkv = dense(x, getattr(self, self.qkv_name), dtype).reshape(
+                B, L, 3, H, D)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            if context is None:
+                raise ValueError("cross attention requires context")
+            q = dense(x, self.to_q, dtype).reshape(B, L, H, D)
+            kv = dense(context, self.to_kv, dtype).reshape(
+                B, context.shape[1], 2, H, D)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        if self.qk_rms_norm:
+            # the normed q/k are new tensors; v joins k's strides, as K5
+            # reads k and v on shared strides
+            q, k, v = self.q_rms_norm(q), self.k_rms_norm(k), v.contiguous()
+        return q, k, v
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                context: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
-        """Self-attention over L of x [B, L, C] -> [B, L, C] in `dtype`
-        (flax Dense semantics; K5 computes in `dtype`)."""
-        if self.attn_type != "self" or self.qk_rms_norm:
-            raise NotImplementedError(
-                "only the self branch without q/k RMS norm is ported")
+        """x [B, L, C] (and context [B, Lk, C_ctx] for cross) -> [B, L, C]
+        in `dtype` (flax Dense semantics; the attention computes in
+        `dtype`)."""
         B, L, C = x.shape
-        qkv = dense(x, getattr(self, self.qkv_name), dtype).reshape(
-            B, L, 3, self.num_heads, self.head_dim)
-        o = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                            self.head_dim ** -0.5, dtype, impl=impl)
+        q, k, v = self.project(x, dtype, context)
+        o = scaled_dot_product_attention(q, k, v, dtype, impl=impl)
         return dense(o.reshape(B, L, C), getattr(self, self.out_name), dtype)
 
     def gammas(self):
@@ -91,7 +131,8 @@ class MultiHeadAttention(nn.Module):
 
     def kv(self, context: torch.Tensor, dtype: torch.dtype):
         """Cross-attention K/V of context [B, Lk, C] -> (k, v), each
-        [B, Lk, heads, head_dim]."""
+        [B, Lk, heads, head_dim] (the DiT's cache: its cross-attentions
+        carry no RMS norm)."""
         B, Lk = context.shape[:2]
         kv = dense(context, self.to_kv, dtype).reshape(
             B, Lk, 2, self.num_heads, self.head_dim)

@@ -1,9 +1,13 @@
-"""The DiT block and final layer (port of gvfdiffusion_tpu/nn/transformer.py
-:172-290, 379-474, 535-555).
+"""Transformer blocks (port of gvfdiffusion_tpu/nn/transformer.py:138-164,
+172-290, 379-555).
 
-The block always takes the fused four-sublayer structure of the JAX
+The DiT block always takes the fused four-sublayer structure of the JAX
 package's `_fused_call`: spatial self, temporal self, dual cross (against
 the hoisted KV cache) and MLP, each one call of ops/fused_sublayer.py.
+`ModulatedCrossBlock` is the single-context composed block of the
+sparse-structure flow: its attentions go through
+`nn/attention.MultiHeadAttention` (K5), its LayerNorms run in fp32 as the
+JAX `_ln` does, and `share_mod` is not ported.
 """
 
 from __future__ import annotations
@@ -20,14 +24,59 @@ from .misc import dense, layer_norm
 
 
 class FeedForwardNet(nn.Module):
-    """Linear -> GELU(tanh) -> Linear (hidden 4C); the block feeds its
-    weights to the fused MLP sublayer."""
+    """Linear -> GELU(tanh) -> Linear (hidden mlp_ratio * C); the DiT block
+    feeds its weights to the fused MLP sublayer."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, mlp_ratio: float = 4.0):
         super().__init__()
+        hidden = int(channels * mlp_ratio)
         self.mlp = nn.Sequential(
-            nn.Linear(channels, 4 * channels), nn.GELU(approximate="tanh"),
-            nn.Linear(4 * channels, channels))
+            nn.Linear(channels, hidden), nn.GELU(approximate="tanh"),
+            nn.Linear(hidden, channels))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h = F.gelu(dense(x, self.mlp[0], dtype), approximate="tanh")
+        return dense(h, self.mlp[2], dtype)
+
+
+def affine_layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.LayerNorm(dtype=float32)` with scale and bias: fp32 out."""
+    return layer_norm(x, norm.eps) * norm.weight.float() + norm.bias.float()
+
+
+class ModulatedCrossBlock(nn.Module):
+    """Single-context block: self-attn + cross-attn + MLP with adaLN-Zero
+    modulation. x [B, L, C]; mod [B, C]; context [B, Lc, C_ctx]. norm1 and
+    norm3 are affine-free (no parameters), norm2 affine."""
+
+    def __init__(self, channels: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qk_rms_norm: bool = False, qk_rms_norm_cross: bool = False,
+                 ctx_channels: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        C = channels
+        self.dtype = dtype
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(C, 6 * C))
+        self.norm2 = nn.LayerNorm(C, eps=1e-6)
+        self.self_attn = MultiHeadAttention(C, num_heads, "self",
+                                            qk_rms_norm=qk_rms_norm)
+        self.cross_attn = MultiHeadAttention(
+            C, num_heads, "cross", qk_rms_norm=qk_rms_norm_cross,
+            ctx_channels=ctx_channels)
+        self.mlp = FeedForwardNet(C, mlp_ratio)
+
+    def forward(self, x: torch.Tensor, mod: torch.Tensor,
+                context: torch.Tensor,
+                impl: Optional[str] = None) -> torch.Tensor:
+        dt = self.dtype
+        m = dense(F.silu(mod), self.adaLN_modulation[1], dt)
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = (a[:, None] for a in m.chunk(6, -1))
+        h = layer_norm(x, 1e-6) * (1.0 + sc_a) + sh_a
+        x = x + self.self_attn(h, dt, impl=impl) * g_a
+        h = affine_layer_norm(self.norm2, x)
+        x = x + self.cross_attn(h, dt, context, impl=impl)
+        h = layer_norm(x, 1e-6) * (1.0 + sc_m) + sh_m
+        return x + self.mlp(h, dt) * g_m
 
 
 class ModulatedTransformerCrossBlock(nn.Module):

@@ -10,15 +10,20 @@ Each sublayer has two versions:
     a CPU tensor runs the plain version. `impl="plain"` forces the plain
     version on any device, for comparing the two on the card.
 
-Only the configuration the DiT runs is ported: heads of width 32, q/k RMS
-norms on the self and temporal sublayers, none on the cross sublayer, and
-two chained cross contexts (image, then static).
+Only the configurations the port's models run are ported: heads of width
+32, q/k RMS norms on the self and temporal sublayers, none on the cross
+sublayer, and two chained cross contexts (image, then static) for the DiT;
+one cross context at heads of 64, without RMS norm, for the SLat flow
+torso. The JAX kernel's `lq_block` and `kv_buffers` sized its VMEM
+residency on the TPU and have no counterpart here; its int8 `quant` is not
+ported.
 
 Weights come in the JAX layout ([in, out]); an `nn.Linear(...).weight.t()`
 view passes to the kernel with no copy.
 
 `launch_counts` counts kernel launches per sublayer (one per launched
-chain); the plain version never counts.
+chain; "cross" for the two-context form, "cross_single" for the single);
+the plain version never counts.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch
 _LN_EPS = 1e-6
 _RMS_EPS = 1e-12
 
-launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0}
+launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
+                 "cross_single": 0}
 
 
 def reset_launch_counts() -> None:
@@ -106,10 +112,10 @@ def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     return (xf + out * _f(gate)[:, None, None]).to(x.dtype)
 
 
-def cross_sublayer_reference(x, p1, kv1, p2, kv2, *, num_heads: int,
-                             compute_dtype=torch.bfloat16):
-    """Two chained un-gated cross-attention sublayers, the residual kept in
-    fp32 between them. p_i = (norm_scale, norm_bias, wq [C, C], bq,
+def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
+                             num_heads: int, compute_dtype=torch.bfloat16):
+    """One, or two chained, un-gated cross-attention sublayers, the residual
+    kept in fp32 between them. p_i = (norm_scale, norm_bias, wq [C, C], bq,
     wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or [B, Lk_i, H, D])."""
     B, L, C = x.shape
     D = C // num_heads
@@ -129,7 +135,10 @@ def cross_sublayer_reference(x, p1, kv1, p2, kv2, *, num_heads: int,
         out = _rd(attn.reshape(B, L, C), dt) @ _rd(wo, dt)
         return xf + out + _f(bo)
 
-    return one(one(_f(x), p1, kv1), p2, kv2).to(x.dtype)
+    xf = one(_f(x), p1, kv1)
+    if p2 is not None:
+        xf = one(xf, p2, kv2)
+    return xf.to(x.dtype)
 
 
 def mlp_sublayer_reference(x, sh, sc, gate, w1, b1, w2, b2,
@@ -184,9 +193,11 @@ def _mod_rows(B: int, mod_repeat: int) -> int:
 
 
 def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
-                row_blocks: int, *tensors: torch.Tensor) -> None:
+                row_blocks: int, *tensors: torch.Tensor,
+                head_width: int = 32) -> None:
     """What the kernels take: bf16 CUDA tensors, C a multiple of 8, heads
-    of width 32, at most 65535 attention row blocks (a grid limit)."""
+    of width `head_width`, at most 65535 attention row blocks (a grid
+    limit)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA sublayer kernels compute in bfloat16 only; "
                         f"got compute_dtype={compute_dtype}")
@@ -196,8 +207,9 @@ def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
                             f"tensors; got {t.dtype} on {t.device}")
     if C % 8:
         raise ValueError(f"channels must be a multiple of 8, got {C}")
-    if num_heads is not None and C != 32 * num_heads:
-        raise ValueError(f"head width must be 32, got {C}/{num_heads}")
+    if num_heads is not None and C != head_width * num_heads:
+        raise ValueError(f"head width must be {head_width}, got "
+                         f"{C}/{num_heads}")
     if row_blocks > 65535:
         raise ValueError(f"{row_blocks} attention row blocks exceed 65535")
 
@@ -270,16 +282,21 @@ CrossParams = Tuple[torch.Tensor, ...]
 
 
 def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
-                         p2: CrossParams, kv2: Sequence[torch.Tensor], *,
+                         p2: Optional[CrossParams] = None,
+                         kv2: Optional[Sequence[torch.Tensor]] = None, *,
                          num_heads: int, compute_dtype=torch.bfloat16,
                          impl: Optional[str] = None):
-    """Two chained un-gated cross-attention sublayers with affine pre-norms
-    (the DiT's image then static-GS conditioning), against the cached float
-    KV. x [B, L, C]; see cross_sublayer_reference."""
+    """Un-gated cross-attention sublayers with affine pre-norms against the
+    cached float KV: two chained (the DiT's image then static-GS
+    conditioning, heads of 32) or one (p2 = kv2 = None: the SLat torso's
+    image conditioning, heads of 64). x [B, L, C]; see
+    cross_sublayer_reference."""
     if not _use_kernel(x, impl):
         return cross_sublayer_reference(
             x, p1, kv1, p2, kv2, num_heads=num_heads,
             compute_dtype=compute_dtype)
+    if p2 is None:
+        return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype)
     from .. import _ext
 
     B, L, C = x.shape
@@ -302,6 +319,40 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
     _ext.call("gvf_cross_sublayer", _ptr(x), *ctx_args, _ptr(y), _ptr(h),
               _ptr(q), _ptr(attn), _ptr(mid), B, L, C, num_heads)
     launch_counts["cross"] += 1
+    return y
+
+
+def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
+    """The single-context chain on the card. x is bf16 or fp32 (the SLat
+    torso's residual stream is fp32) and y comes back in x's dtype; k and v
+    may be the halves of one [B, Lk, 2C] projection: they are read in
+    place, with their shared batch and row strides."""
+    from .. import _ext
+
+    B, L, C = x.shape
+    k, v = (a.reshape(B, a.shape[1], C) for a in kv)
+    x_f32 = x.dtype == torch.float32
+    if not x.is_cuda or not (x_f32 or x.dtype == torch.bfloat16):
+        raise TypeError("the single-context cross kernel takes a bf16 or "
+                        f"fp32 CUDA x; got {x.dtype} on {x.device}")
+    _check_cuda(compute_dtype, num_heads, C, B, *p, k, v, head_width=64)
+    if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
+            or v.stride(2) != 1:
+        raise ValueError("k and v must share batch and row strides, with "
+                         f"channels contiguous; got {k.stride()}, "
+                         f"{v.stride()}")
+    ns, nb, wq, bq, wo, bo = p
+    x = x.contiguous()
+    args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
+            _weight(wo, C, C), _vec(bo, C))
+    y = torch.empty_like(x)
+    h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
+    q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
+    attn = torch.empty_like(h)
+    _ext.call("gvf_cross_sublayer1", _ptr(x), *map(_ptr, args), _ptr(k),
+              _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
+              _ptr(q), _ptr(attn), B, L, C, num_heads, int(x_f32))
+    launch_counts["cross_single"] += 1
     return y
 
 

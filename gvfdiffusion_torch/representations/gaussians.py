@@ -6,11 +6,13 @@ Raw parameters with activation biases, the aabb denormalization, and the
 VAE's deltas animate the canonical Gaussians: delta[..., 0:3] xyz, 3:6
 scale, 6:10 rotation, 10:13 SH DC, 13:14 opacity.
 
-Only the configuration the pipeline uses is ported: exp scaling with a
-bias of 0.01, an opacity bias of 0.1, no mip 3-D filter (minimum kernel
-size 0). The softplus activation, other biases and kernel sizes, and
-`detach_static` (the port runs no gradients through the renderer yet) are
-not.
+The activation config of the JAX splat is ported: exp (the default: a
+scaling bias of 0.01, as the canonical splats of the video path) or
+softplus scaling (the SLat Gaussian decoder's: a bias of 0.004), the
+opacity bias, and the mip 3-D filter sqrt(s^2 + mininum_kernel_size^2)
+(the reference's spelling), applied where the kernel size is not 0.
+`detach_static` is not ported (the port runs no gradients through the
+renderer yet).
 """
 
 from __future__ import annotations
@@ -21,8 +23,23 @@ import math
 import torch
 
 _ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
-_SCALE_BIAS_RAW = math.log(0.01)  # exp activation of a 0.01 scaling bias
-_OPACITY_BIAS_RAW = math.log(0.1 / (1.0 - 0.1))  # inverse sigmoid of 0.1
+
+
+def inverse_sigmoid(x: float) -> float:
+    return math.log(x / (1.0 - x))
+
+
+def inverse_softplus(x: float) -> float:
+    """log(e^x - 1), in the stable form x + log(1 - e^-x)."""
+    return x + math.log(-math.expm1(-x))
+
+
+def _scale_bias_raw(activation: str, bias: float) -> float:
+    if activation == "exp":
+        return math.log(bias)
+    if activation == "softplus":
+        return inverse_softplus(bias)
+    raise ValueError(activation)
 
 
 @dataclasses.dataclass
@@ -30,7 +47,7 @@ class GaussianSplat:
     """Per-Gaussian raw parameters, leading dims arbitrary:
     _xyz [..., N, 3] in [0, 1] grid space; _features_dc [..., N, F, 3];
     _scaling [..., N, 3]; _rotation [..., N, 4] (wxyz); _opacity [..., N, 1];
-    aabb [6] (x0, y0, z0, sx, sy, sz)."""
+    aabb [6] (x0, y0, z0, sx, sy, sz); and the activation config."""
 
     _xyz: torch.Tensor
     _features_dc: torch.Tensor
@@ -38,6 +55,25 @@ class GaussianSplat:
     _rotation: torch.Tensor
     _opacity: torch.Tensor
     aabb: torch.Tensor
+    scaling_bias: float = 0.01
+    opacity_bias: float = 0.1
+    scaling_activation: str = "exp"
+    mininum_kernel_size: float = 0.0
+
+    def _scale_raw(self, delta=0.0) -> torch.Tensor:
+        """Raw scaling + the bias (+ a delta), in the JAX order of sums."""
+        return self._scaling + _scale_bias_raw(
+            self.scaling_activation, self.scaling_bias) + delta
+
+    def _opacity_raw(self, delta=0.0) -> torch.Tensor:
+        return self._opacity + inverse_sigmoid(self.opacity_bias) + delta
+
+    def _activate_scaling(self, raw: torch.Tensor) -> torch.Tensor:
+        s = torch.exp(raw) if self.scaling_activation == "exp" else \
+            torch.nn.functional.softplus(raw)
+        if self.mininum_kernel_size:  # the mip 3-D filter
+            s = torch.sqrt(s.square() + self.mininum_kernel_size ** 2)
+        return s
 
     def _rots_bias(self) -> torch.Tensor:
         return self._rotation.new_tensor(_ROT_BIAS)
@@ -54,7 +90,7 @@ class GaussianSplat:
 
     @property
     def get_scaling(self) -> torch.Tensor:
-        return torch.exp(self._scaling + _SCALE_BIAS_RAW)
+        return self._activate_scaling(self._scale_raw())
 
     @property
     def get_rotation(self) -> torch.Tensor:
@@ -62,7 +98,7 @@ class GaussianSplat:
 
     @property
     def get_opacity(self) -> torch.Tensor:
-        return torch.sigmoid(self._opacity + _OPACITY_BIAS_RAW)
+        return torch.sigmoid(self._opacity_raw())
 
     @property
     def get_features(self) -> torch.Tensor:
@@ -79,13 +115,11 @@ class GaussianSplat:
         dict(xyz, scaling, rotation, features [..., N, 1, 3], opacity)."""
         return dict(
             xyz=self.get_xyz + delta[..., 0:3],
-            scaling=torch.exp(
-                self._scaling + _SCALE_BIAS_RAW + delta[..., 3:6]),
+            scaling=self._activate_scaling(self._scale_raw(delta[..., 3:6])),
             rotation=self._unit(
                 self._rotation + self._rots_bias() + delta[..., 6:10]),
             features=self._features_dc + delta[..., None, 10:13],
-            opacity=torch.sigmoid(
-                self._opacity + _OPACITY_BIAS_RAW + delta[..., 13:14]),
+            opacity=torch.sigmoid(self._opacity_raw(delta[..., 13:14])),
         )
 
     def to_activated_tensor(self) -> torch.Tensor:
@@ -96,18 +130,28 @@ class GaussianSplat:
 
 
 def from_activated(tensor: torch.Tensor,
-                   aabb=(-0.5, -0.5, -0.5, 1.0, 1.0, 1.0)) -> GaussianSplat:
-    """Invert the activations of a [..., N, 14] activated tensor. Scales
-    clamp at 1e-10 and opacities into [1e-6, 1 - 1e-6], as the reference
-    clamps them."""
+                   aabb=(-0.5, -0.5, -0.5, 1.0, 1.0, 1.0),
+                   scaling_bias: float = 0.01, opacity_bias: float = 0.1,
+                   scaling_activation: str = "exp",
+                   mininum_kernel_size: float = 0.0) -> GaussianSplat:
+    """Invert the activations of a [..., N, 14] activated tensor (the mip
+    filter is not inverted, as in the reference). Scales clamp at 1e-10
+    (exp) or 1e-6 (softplus) and opacities into [1e-6, 1 - 1e-6], as the
+    reference clamps them."""
     aabb = torch.as_tensor(aabb, dtype=torch.float32, device=tensor.device)
-    scaling = torch.clamp(tensor[..., 3:6], min=1e-10)
+    bias_raw = _scale_bias_raw(scaling_activation, scaling_bias)
+    if scaling_activation == "exp":
+        raw_s = torch.log(torch.clamp(tensor[..., 3:6], min=1e-10)) - bias_raw
+    else:
+        s = torch.clamp(tensor[..., 3:6], min=1e-6)
+        raw_s = s + torch.log(-torch.expm1(-s)) - bias_raw
     op = torch.clamp(tensor[..., 13:14], 1e-6, 1 - 1e-6)
     return GaussianSplat(
         _xyz=(tensor[..., 0:3] - aabb[:3]) / aabb[3:],
         _features_dc=tensor[..., None, 10:13],
-        _scaling=torch.log(scaling) - _SCALE_BIAS_RAW,
+        _scaling=raw_s,
         _rotation=tensor[..., 6:10] - tensor.new_tensor(_ROT_BIAS),
-        _opacity=torch.log(op / (1 - op)) - _OPACITY_BIAS_RAW,
-        aabb=aabb,
-    )
+        _opacity=torch.log(op / (1 - op)) - inverse_sigmoid(opacity_bias),
+        aabb=aabb, scaling_bias=scaling_bias, opacity_bias=opacity_bias,
+        scaling_activation=scaling_activation,
+        mininum_kernel_size=mininum_kernel_size)

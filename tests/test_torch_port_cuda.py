@@ -3,8 +3,12 @@ card (bf16), at small and ragged shapes: for the sublayers (K1-K4) query
 lengths that are not multiples of the 64-row tile, frame counts 8 to 70,
 and cross key lengths 37, 20, 130 and 1374; for the attention kernel (K5)
 lengths 1 to 1374 around the 64-key tile, q/k/v read in place from a qkv
-projection or from separate tensors, and logits far beyond the TPU
-kernel's fixed shift. Every test here needs a CUDA device and skips
+projection or from separate tensors, logits far beyond the TPU kernel's
+fixed shift, the cross form (Lq != Lk, k/v the halves of a kv projection)
+and the kv_bias form (a fully masked row, valid counts off the 64-key
+tile); for the single-context cross sublayer (K3 at heads of 64) query
+counts 100 and 128, key lengths 37 and 1374, bf16 and fp32 residual
+streams. Every test here needs a CUDA device and skips
 without one; run them on the GPU with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda -q
@@ -30,7 +34,8 @@ pytestmark = pytest.mark.cuda
 
 # (rel L2 of y, rel L2 of y - x) per sublayer
 BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
-          "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3)}
+          "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3),
+          "cross_single": (3e-3, 3e-2)}
 ATTN_BOUND = 1e-2
 DINO_BOUND = 2e-2
 
@@ -134,7 +139,8 @@ def test_launch_counts_and_dtype_check(dev):
     with torch.no_grad():
         pt.fused_self_sublayer(*args, num_heads=4)
         pt.fused_self_sublayer(*args, num_heads=4, impl="plain")
-    assert pt.launch_counts == {"self": 1, "temporal": 0, "cross": 0, "mlp": 0}
+    assert pt.launch_counts == {"self": 1, "temporal": 0, "cross": 0,
+                                "mlp": 0, "cross_single": 0}
     with pytest.raises(TypeError):
         pt.fused_self_sublayer(x.float(), *args[1:], num_heads=4)
     with pytest.raises(ValueError):  # heads of 64: not the DiT's width
@@ -201,26 +207,115 @@ def test_attention_launch_counts_and_checks(dev):
     fa.reset_launch_counts()
     fa.fused_attention(q, k, v, 0.125)
     fa.fused_attention(q, k, v, 0.125, impl="plain")
-    assert fa.launch_counts == {"attention": 1}
+    fa.fused_attention(q[:, :10], k, v, 0.125)
+    fa.fused_attention(q, k, v, 0.125,
+                       kv_bias=torch.zeros(2, 70, device=dev))
+    assert fa.launch_counts == {"attention": 1, "attention_cross": 1,
+                                "attention_bias": 1}
     with pytest.raises(TypeError):  # fp32
         fa.fused_attention(q.float(), k.float(), v.float(), 0.125)
     with pytest.raises(ValueError):  # heads of 32
         fa.fused_attention(*(a[..., :32] for a in (q, k, v)), 0.125)
-    with pytest.raises(ValueError):  # Lq != Lk: not self-attention
-        fa.fused_attention(q[:, :10], k, v, 0.125)
+    with pytest.raises(ValueError):  # k's batch is not q's
+        fa.fused_attention(q[:1], k, v, 0.125)
+    with pytest.raises(TypeError):  # a bf16 bias
+        fa.fused_attention(q, k, v, 0.125, kv_bias=torch.zeros(
+            2, 70, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1, 30), (65, 64), (173, 130),
+                                   (512, 1374)])
+def test_attention_kernel_cross(dev, Lq, Lk):
+    """q from its own projection, k/v the halves of one [B, Lk, 2, H, 64]
+    kv projection (read in place)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn(2, Lq, 3, 64, generator=g, device=dev).bfloat16()
+    kv = torch.randn(2, Lk, 2, 3, 64, generator=g, device=dev).bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    y = fa.fused_attention(q, k, v, 0.125)
+    ref = fa.fused_attention(q, k, v, 0.125, impl="plain")
+    torch.cuda.synchronize()
+    assert y.shape == q.shape and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"attention cross Lq={Lq} Lk={Lk}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("L", [70, 173, 1374, 4096])
+def test_attention_kernel_kv_bias(dev, L):
+    """-inf on masked keys: row 0 keeps 101 keys (off the 64-key tile),
+    row 1 none (its output must be exactly 0), row 2 a random half with a
+    finite bias on the rest."""
+    q, k, v = _attend(dev, L, "qkv", B=3)
+    g = torch.Generator(device=dev).manual_seed(11)
+    keep = torch.rand(3, L, generator=g, device=dev) < 0.5
+    keep[0] = False
+    keep[0, torch.randperm(L, generator=g, device=dev)[:min(101, L)]] = True
+    keep[1] = False
+    bias = torch.where(keep, 0.5 * torch.randn(3, L, generator=g, device=dev),
+                       float("-inf"))
+    y = fa.fused_attention(q, k, v, 0.125, kv_bias=bias)
+    ref = fa.fused_attention(q, k, v, 0.125, kv_bias=bias, impl="plain")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and not bool(y[1].any())
+    err = _rel(y, ref)
+    print(f"attention kv_bias L={L}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("L,lk", [(100, 37), (128, 1374)])
+def test_cross_single_kernel(dev, L, lk, x_dtype):
+    """K3's single-context form at heads of 64 (C = 128, 2 heads); k and v
+    are the halves of one [B, lk, 2C] projection."""
+    d = _Draw(dev, 12, 128)
+    x = d(3, L, 128).to(getattr(torch, x_dtype))
+    p, _ = d.cross(3, lk)
+    kv = d(3, lk, 256)
+    args = (x, p, (kv[..., :128], kv[..., 128:]))
+    with torch.no_grad():
+        y = pt.fused_cross_sublayer(*args, num_heads=2)
+        ref = pt.fused_cross_sublayer(*args, num_heads=2, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    upd = _rel(y.float() - x.float(), ref.float() - x.float())
+    print(f"cross_single L={L} lk={lk} {x_dtype}: rel_l2 {err:.3e} "
+          f"update_rel_l2 {upd:.3e}")
+    y_bound, upd_bound = BOUNDS["cross_single"]
+    assert err <= y_bound and upd <= upd_bound, (err, upd)
 
 
 def test_dinov2_kernels_match_plain(dev):
-    dino = init_random_(DinoV2(img_size=56, embed_dim=128, depth=2,
+    """182^2: 13^2 patches + 5 tokens = 174, inside K5's rule (Lq >= 128)."""
+    dino = init_random_(DinoV2(img_size=182, embed_dim=128, depth=2,
                                num_heads=2, dtype=torch.bfloat16),
                         seed=8).to(dev)
     g = torch.Generator(device=dev).manual_seed(9)
-    x = torch.rand(3, 56, 56, 3, generator=g, device=dev)
+    x = torch.rand(3, 182, 182, 3, generator=g, device=dev)
     fa.reset_launch_counts()
     y = encode_image(dino, x)
-    assert fa.launch_counts == {"attention": 2}
+    assert fa.launch_counts["attention"] == 2
     ref = encode_image(dino, x, impl="plain")
-    assert y.shape == (3, 21, 128)
+    assert y.shape == (3, 174, 128)
     assert _rel(y, ref) <= DINO_BOUND, _rel(y, ref)
     with pytest.raises(TypeError):  # fp32 model on the card
-        DinoV2(img_size=56, embed_dim=128, depth=1, num_heads=2).to(dev)(x)
+        DinoV2(img_size=182, embed_dim=128, depth=1, num_heads=2).to(dev)(x)
+
+
+def test_attention_outside_the_kernels_raises(dev):
+    """On the card, attention outside K5's rule raises (the JAX package's
+    XLA attention there has no port), and so does full sparse attention
+    over more than 4096 keys (the flash kernel K7 is not ported); neither
+    falls back to another path."""
+    from gvfdiffusion_torch.nn.attention import scaled_dot_product_attention
+    from gvfdiffusion_torch.sparse.attention import full_sparse_attention
+
+    q, k, v = _attend(dev, 100, "separate")
+    with pytest.raises(NotImplementedError):
+        scaled_dot_product_attention(q, k, v, torch.bfloat16)
+    q, k, v = (torch.zeros(1, L, 1, 64, device=dev, dtype=torch.bfloat16)
+               for L in (4096, 4100, 4100))
+    valid = torch.ones(1, 4100, dtype=torch.bool, device=dev)
+    with pytest.raises(NotImplementedError):
+        full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)

@@ -1,6 +1,6 @@
 """The port imports torch and never jax: importing every module of
-gvfdiffusion_torch in a fresh interpreter leaves jax (and flax, and the JAX
-package) out of sys.modules, and builds no kernel."""
+gvfdiffusion_torch, and chip_smoke.py, in a fresh interpreter leaves jax
+(and flax, and the JAX package) out of sys.modules, and builds no kernel."""
 
 import os
 import pkgutil
@@ -36,6 +36,18 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.ops.rasterize.binning",
     "gvfdiffusion_torch.ops.rasterize.xla_blend",
     "gvfdiffusion_torch.render.renderer",
+    "gvfdiffusion_torch.sparse.tensor",
+    "gvfdiffusion_torch.sparse.ops",
+    "gvfdiffusion_torch.sparse.conv",
+    "gvfdiffusion_torch.sparse.attention",
+    "gvfdiffusion_torch.models.static_vae",
+    "gvfdiffusion_torch.models.sparse_vae",
+    "gvfdiffusion_torch.models.trellis.ss_flow",
+    "gvfdiffusion_torch.models.trellis.ss_vae",
+    "gvfdiffusion_torch.models.trellis.slat_flow",
+    "gvfdiffusion_torch.models.trellis.slat_decoders",
+    "gvfdiffusion_torch.diffusion.flow_euler",
+    "gvfdiffusion_torch.pipelines.trellis_image_to_3d",
 ]
 
 
@@ -51,7 +63,7 @@ def test_every_slice_module_exists():
 def test_port_never_imports_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {_all_modules()!r}:\n"
+        f"for m in {_all_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'gvfdiffusion_tpu'))\n"

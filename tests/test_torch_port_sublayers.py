@@ -5,8 +5,9 @@ mode and against its `*_reference` functions, at fp32 on the CPU.
 Tolerance: 2e-4 abs / rel, the JAX suite's own (tests/test_fused_sublayer.py).
 In bf16 each plain version is also held against the JAX reference: mean
 |diff| < 1e-4, max |diff| <= 2^-5 (one bf16 ulp at |y| ~ 4-8).
-Only the DiT's configuration is covered, as the port has only that: q/k RMS
-norms on self and temporal, none on cross, two cross contexts.
+The configurations covered are the port's: the DiT's (heads of 32, q/k RMS
+norms on self and temporal, none on cross, two cross contexts) and the
+SLat torso's single-context cross sublayer (heads of 64, no RMS norm).
 The CUDA kernels are checked against the plain versions on the card by
 tests/test_torch_port_cuda.py.
 """
@@ -148,6 +149,26 @@ def test_cross_sublayer(lks):
     _close(port, jax_ref)
 
 
+@pytest.mark.parametrize("lk", [37, 130])
+def test_cross_sublayer_single_context(lk):
+    """The SLat torso's form: one context, heads of 64 (C = 128, 2 heads),
+    key lengths that are not multiples of 128."""
+    r = _rng(6)
+    B, L = 2, 128
+    x = _arr(r, B, L, C)
+    groups = [_cross_group(r, B, lk)]
+    jax_args = _jax_cross_args(x, groups)
+    kw = dict(num_heads=2, rms=False, compute_dtype=jnp.float32)
+    jax_kernel = fs.fused_cross_sublayer(*jax_args, **kw, interpret=True)
+    jax_ref = fs.cross_sublayer_reference(*jax_args, None, None, **kw)
+    t_args = [torch.from_numpy(x)] + [_to_torch(a) for a in groups[0]]
+    with torch.no_grad():
+        port = pt.fused_cross_sublayer(*t_args, num_heads=2,
+                                       compute_dtype=torch.float32)
+    _close(port, jax_kernel)
+    _close(port, jax_ref)
+
+
 @pytest.mark.parametrize("mod_repeat", [1, 2])
 def test_mlp_sublayer(mod_repeat):
     r = _rng(3)
@@ -175,15 +196,19 @@ def _bf16_case(name, r):
     """(JAX reference output, port plain output), both in bf16."""
     jb = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
     tb = lambda a: torch.from_numpy(a).bfloat16()
-    if name == "cross":
+    if name in ("cross", "cross_single"):
         B, L = 2, 64
         x = _arr(r, B, L, C)
-        groups = [_cross_group(r, B, lk) for lk in (37, 20)]
-        want = fs.cross_sublayer_reference(
-            *_jax_cross_args(x, groups, jnp.bfloat16), num_heads=H, rms=False)
+        lks, heads = ((37, 20), H) if name == "cross" else ((37,), 2)
+        groups = [_cross_group(r, B, lk) for lk in lks]
+        jargs = _jax_cross_args(x, groups, jnp.bfloat16)
+        if name == "cross_single":
+            jargs += [None, None]
+        want = fs.cross_sublayer_reference(*jargs, num_heads=heads,
+                                           rms=False)
         got = pt.cross_sublayer_reference(
             tb(x), *[tuple(tb(a) for a in t) for g in groups for t in g],
-            num_heads=H)
+            num_heads=heads)
         return want, got
     if name == "temporal":
         args = (_arr(r, 2, 8, 32, C), *_mods(r, 2), *_self_weights(r))
@@ -202,7 +227,8 @@ def _bf16_case(name, r):
     return want, got
 
 
-@pytest.mark.parametrize("name", ["self", "temporal", "cross", "mlp"])
+@pytest.mark.parametrize("name", ["self", "temporal", "cross", "mlp",
+                                  "cross_single"])
 def test_bf16_rounding_points_match_jax(name):
     """In bf16 each plain version rounds where the JAX reference rounds:
     the two agree far inside the distance between bf16 neighbours."""
