@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
-    python3 chip_smoke.py --profile  # build + profiled denoise, encode and
-                                     # TRELLIS flow forwards and decode
+    python3 chip_smoke.py --profile  # build + profiled denoise, encode,
+                                     # TRELLIS flow forwards and decode,
+                                     # one training micro-step
 
 Phases, each printed on its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -19,7 +20,12 @@ Phases, each printed on its own lines:
      sparse-structure flow's self [1, 512] and cross [1, 512] x [1, 1374]
      attention, and the SLat torso's [1, 4096] self-attention with a -inf
      kv_bias on the padding keys, with scaled_dot_product_attention as the
-     library call;
+     library call; and the DiT training path's forms in fp32 (K5 at heads
+     of 32: self [48, 512, 16, 32], cross to the 1374 image tokens and to
+     the 512 static latents; K6 [2, 24, 512, 16, 32]), forward against the
+     plain version and the gradient through each autograd Function against
+     autograd of the plain version, with scaled_dot_product_attention (for
+     K6 with its transposes) as the library call;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -41,7 +47,16 @@ Phases, each printed on its own lines:
      the stages gave); the kernels against impl="plain" in two parts (the
      sparse-structure latent and the occupancy flips, then the SLat and
      the Gaussians on the kernel run's structure); then the splat through
-     VideoTo4DPipeline.run and render_4d with the video's tokens.
+     VideoTo4DPipeline.run and render_4d with the video's tokens;
+  6. the DiT's training at full width through cli/main_latent.main on
+     configs/diffusion.yml (12 x 512, batch 2 x 24 frames, grad_accum 2,
+     fp32) and a seeded synthetic dataset in LatentDataset's layout: 3
+     micro-steps (the launches of K5's heads-of-32 forms and K6 are counted
+     in this run only; one update, at lr 0, leaves the weights as drawn),
+     a resume from its checkpoint to 5 (a second update moves weights and
+     EMA); one micro-step from the saved state with the kernels and with
+     impl="plain" (loss, gradients, updated parameters); the micro-step's
+     time, samples/s and peak memory.
 Then one JSON line of per-kernel results and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without a CUDA device, or without
@@ -56,6 +71,7 @@ once) over the memory rate, at the H100 SXM datasheet's 989 TFLOP/s and
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,8 +106,17 @@ KERNELS = [
     ("fused_attention[torso kv_bias]",
      "gvfdiffusion_tpu/ops/fused_attention.py:108",
      "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_bias"),
+    ("fused_attention[DiT training self, heads of 32, fp32]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_d32"),
+    ("fused_attention[DiT training cross, heads of 32, fp32: image 1374 + "
+     "static 512]", "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_cross_d32"),
+    ("temporal_attention", "gvfdiffusion_tpu/ops/fused_attention.py:427",
+     "gvfdiffusion_torch/csrc/temporal_attention.cu", "temporal_attention"),
 ]
 SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
+TRAIN_KERNELS = ("attention_d32", "attention_cross_d32", "temporal_attention")
 # Kernel vs plain version at the full shapes, per sublayer: (rel L2 of the
 # output y, rel L2 of the update y - x). Each is 3-6x the error measured on
 # an H100 80GB HBM3 (700 W) with these seeds, which four runs reproduced to
@@ -111,6 +136,15 @@ TRELLIS_BOUNDS = {"ss_latent": 2e-2, "flips": 0.1, "slat": 1e-2,
 DINO_REL_BOUND = 2e-2      # encode_image tokens, kernels vs plain (3.9e-3)
 DIT_REL_BOUND = 3e-2       # rel L2 of the whole 12-block DiT output (9.6e-3)
 RUN_REL_BOUND = 1e-6       # run() against the same stages called one by one
+# the DiT's training path (kernels vs plain): K5 at heads of 32 and K6
+# forward rel L2, their gradients (the Functions' fp32 backward against
+# autograd through the bf16-rounded plain forward), and one micro-step:
+# loss (relative), gradients, updated parameters, the update itself
+TRAIN_ATTN_BOUND = 1.5e-4  # readings 2.6e-5-3.1e-5
+TRAIN_GRAD_BOUND = 2e-2    # readings 4.1e-3-4.5e-3
+TRAIN_BOUNDS = {"loss": 1e-5, "grads": 1.5e-3, "params": 6e-8,
+                "update": 4e-2}  # readings 2.0e-6, 2.6e-4, 1.1e-8, 7.7e-3
+TRAIN_B, TRAIN_T = 2, 24   # configs/diffusion.yml: batch_size, sample_timesteps
 PEAK_FLOPS = 989e12        # dense bf16, H100 SXM datasheet (assumed)
 PEAK_BYTES = 3.35e12       # HBM3, H100 SXM datasheet (assumed)
 
@@ -371,7 +405,10 @@ def phase_kernels(dev):
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms)
     for name, replaces, source, key in KERNELS:
-        if key not in SUBLAYERS:
+        if key in TRAIN_KERNELS:
+            results[key] = phase_train_kernel(dev, name, replaces, source,
+                                              key)
+        elif key not in SUBLAYERS:
             results[key] = phase_attention(dev, name, replaces, source, key)
     return results
 
@@ -442,6 +479,365 @@ def phase_attention(dev, name, replaces, source, key):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+# -- the DiT's training path: K5 at heads of 32 and K6 (fp32 in and out) --------
+
+
+def train_attention_case(dev, key):
+    """(fn(impl) -> output, inputs, what, flops, library fn) for a form of
+    the training path at configs/diffusion.yml's shapes: batch 2 x 24
+    frames of 512 latents, 16 heads of 32. Self: RMS-normed q/k and a
+    contiguous v, [48, 512, 16, 32]; cross: q apart, k/v the halves of the
+    [48, Lk, 2, 16, 32] kv projection (image Lk 1374, static 512); K6: q/k
+    [2, 24, 512, 16, 32] and v the view of the [.., 3, 16, 32] qkv."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    BT, D = TRAIN_B * TRAIN_T, C // H
+    scale = D ** -0.5
+    if key == "temporal_attention":
+        qkv = rnd(TRAIN_B, TRAIN_T, N, 3, H, D)
+        q, k, v = rnd(TRAIN_B, TRAIN_T, N, H, D), rnd(
+            TRAIN_B, TRAIN_T, N, H, D), qkv[..., 2, :, :]
+        flops = 4 * TRAIN_B * N * H * TRAIN_T * TRAIN_T * D
+
+        def lib():
+            o = F.scaled_dot_product_attention(
+                *(a.permute(0, 2, 3, 1, 4) for a in (q, k, v)))
+            return o.permute(0, 3, 1, 2, 4).contiguous()
+
+        return (lambda a, impl=None: fa.temporal_attention(*a, scale,
+                                                           impl=impl),
+                (q, k, v), "q/k [2, 24, 512, 16, 32], v a qkv view", flops,
+                lib)
+    lk = {"attention_d32": N, "attention_cross_d32": L_IMG,
+          "attention_cross_d32_static": N}[key]
+    q = rnd(BT, N, H, D)
+    if key == "attention_d32":
+        k, v, what = rnd(BT, N, H, D), rnd(BT, N, H, D), "separate q/k/v"
+    else:
+        kv = rnd(BT, lk, 2, H, D)
+        k, v, what = kv[:, :, 0], kv[:, :, 1], f"k/v views of kv {tuple(kv.shape)}"
+    cross = key != "attention_d32"
+    lib = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(
+            1, 2)
+    return (lambda a, impl=None: fa.fused_attention(*a, scale, cross=cross,
+                                                    impl=impl),
+            (q, k, v), what, 4 * BT * H * N * lk * D, lib)
+
+
+def _with_grads(fn, inputs, g, impl=None):
+    import torch
+
+    ins = [a.detach().requires_grad_(True) for a in inputs]
+    out = fn(ins, impl)
+    return out.detach(), torch.autograd.grad(out, ins, g)
+
+
+def phase_train_kernel(dev, name, replaces, source, key):
+    """A training-path form against its plain version, forward and the
+    gradient through the autograd Function against autograd of the plain
+    version; times of the forward (kernel, plain, library), of forward +
+    backward, and the bound. The cross entry is timed at the image
+    context's 1374 keys; the static context's 512 is checked and printed
+    beside it."""
+    import torch
+
+    out = None
+    for k in ((key, "attention_cross_d32_static")
+              if key == "attention_cross_d32" else (key,)):
+        fn, ins, what, flops, lib = train_attention_case(dev, k)
+        with torch.no_grad():
+            y = fn(ins)
+            torch.cuda.synchronize()
+            ref = fn(ins, "plain")
+            err = rel_l2(y, ref)
+            mae = float((y - ref).abs().max())
+            lib_err = rel_l2(lib(), ref)
+            ms = time_ms(lambda: fn(ins))
+            plain_ms = time_ms(lambda: fn(ins, "plain"), iters=3)
+            lib_ms = time_ms(lib)
+        go = torch.randn(y.shape, generator=torch.Generator(
+            device=dev).manual_seed(20), device=dev)
+        _, grads = _with_grads(fn, ins, go)
+        _, grads_p = _with_grads(fn, ins, go, "plain")
+        gerr = max(rel_l2(a, b) for a, b in zip(grads, grads_p))
+        fb_ms = time_ms(lambda: _with_grads(fn, ins, go), iters=3)
+        b_ms, b_by = bound(flops, nbytes(*ins, y))
+        log(f"[kernel] {name} [{k}]: q {tuple(ins[0].shape)} k/v "
+            f"{tuple(ins[1].shape)} fp32 ({what}) max_abs_err {mae:.4g} "
+            f"rel_l2 {err:.3e} (bound {TRAIN_ATTN_BOUND:g}) gradients vs "
+            f"autograd of plain rel_l2 {gerr:.3e} (bound "
+            f"{TRAIN_GRAD_BOUND:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} "
+            f"ms sdpa {lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) forward + "
+            f"backward {fb_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+        if not (bool(torch.isfinite(y).all()) and err <= TRAIN_ATTN_BOUND
+                and gerr <= TRAIN_GRAD_BOUND):
+            raise AssertionError(f"{name} [{k}] disagrees with its plain "
+                                 "version")
+        if out is None:
+            out = dict(name=name, route="cuda", source=source,
+                       replaces=replaces, max_abs_err=mae, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms)
+    return out
+
+
+def write_latent_dataset(root, items: int, seed: int) -> None:
+    """`items` objects in LatentDataset's layout, from a seed:
+    deformation_latent.pt (latent_mean / latent_std [32, 512, 16],
+    fps_sampled_gs_1024 [1024, 14]) and dinov2_features.npz [32, 1374,
+    1024]."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    for i in range(items):
+        d = os.path.join(root, f"obj{i:02d}")
+        os.makedirs(d)
+        torch.save({
+            "latent_mean": torch.from_numpy(r.standard_normal(
+                (T, N, 16), dtype=np.float32)),
+            "latent_std": torch.from_numpy(r.uniform(
+                0.05, 0.3, (T, N, 16)).astype(np.float32)),
+            "fps_sampled_gs_1024": torch.from_numpy(np.concatenate([
+                r.uniform(-0.5, 0.5, (1024, 3)),
+                r.standard_normal((1024, 11))], 1).astype(np.float32)),
+        }, os.path.join(d, "deformation_latent.pt"))
+        np.savez(os.path.join(d, "dinov2_features.npz"),
+                 features=r.standard_normal((T, L_IMG, 1024),
+                                            dtype=np.float32))
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_main_latent(args):
+    """cli/main_latent.main(args) with its log kept: (rc, log, wall ms)."""
+    import contextlib
+
+    import torch
+    from gvfdiffusion_torch.cli import main_latent
+
+    tee = _Tee()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = main_latent.main(args)
+    torch.cuda.synchronize()
+    return rc, tee.text(), (time.perf_counter() - t0) * 1e3
+
+
+def _losses(text):
+    import re
+
+    return [float(m) for m in re.findall(r"step \d+ loss (\S+)", text)]
+
+
+def _step_times(text):
+    import re
+
+    return [float(m) for m in re.findall(r"step_time (\S+) s", text)]
+
+
+def phase_training(dev, card):
+    """The DiT's training main path, through cli/main_latent.main on
+    configs/diffusion.yml at full width (12 x 512, 16 heads of 32, batch 2
+    x 24 frames, grad_accum 2) on a seeded synthetic dataset: 3 micro-steps
+    (its launches counted in this run only; one update, at lr 0), then a
+    resume to 5 (a second update). Then one micro-step from the saved
+    optimizer state with seeded random weights, with kernels and with
+    impl="plain", and the micro-step's time, samples/s and peak memory.
+    Returns the launches of the first run."""
+    import shutil
+    import tempfile
+
+    import torch
+    from gvfdiffusion_torch.cli.main_latent import build_model, to_device
+    from gvfdiffusion_torch.data.dataset_latent import (LatentDataset,
+                                                        load_data)
+    from gvfdiffusion_torch.diffusion.gaussian_diffusion import (
+        create_diffusion)
+    from gvfdiffusion_torch.train.diffusion_trainer import (loss_and_grads,
+                                                            make_train_step)
+    from gvfdiffusion_torch.train.train_state import (create_train_state,
+                                                      make_optimizer)
+    from gvfdiffusion_torch.utils.checkpoint import CheckpointManager
+    from gvfdiffusion_torch.utils.config import load_config
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    work = tempfile.mkdtemp(prefix="gvf_train_smoke_")
+    try:
+        data, exp = os.path.join(work, "data"), os.path.join(work, "exp")
+        t0 = time.perf_counter()
+        write_latent_dataset(data, items=2, seed=21)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        config = os.path.join(REPO, "configs", "diffusion.yml")
+        args = ["--config", config, f"--data_dir={data}", f"--exp_dir={exp}",
+                "--train.log_interval=1", "--train.save_interval=1000000"]
+        cfg = load_config(config, args[2:])
+        ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rc, text_a, wall_a = run_main_latent(args + ["--train.total_steps=3"])
+        launches = read_counts()
+        peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {"attention_d32": 3 * 12, "attention_cross_d32": 3 * 24,
+                "temporal_attention": 3 * 12}
+        got = {k: n for k, n in launches.items() if n}
+        losses = _losses(text_a)
+        log(f"[train] main_latent.main, 3 micro-steps (synthetic data "
+            f"written in {write_ms:.0f} ms): rc {rc}, {wall_a:.1f} ms whole "
+            f"(model build, data, steps, checkpoint), losses {losses}, peak "
+            f"{peak_a:.2f} GiB, launches {got}; {card}")
+        if rc != 0 or got != want or len(losses) != 3 or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"training run: rc {rc}, launches {got} "
+                                 f"(want {want}), losses {losses}")
+        model = build_model(cfg)
+        model.init_weights_(torch.Generator().manual_seed(cfg.train.seed))
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        first = torch.load(os.path.join(ckpt.ckpt_dir, "ckpt_00000003.pt"),
+                           map_location="cpu", weights_only=True)
+        same = all(torch.equal(first["params"][k], v) for k, v in init.items())
+        if not (first["step"] == 3 and first["opt_state"]["count"] == 1
+                and same):
+            raise AssertionError("after one update (at lr 0) the weights "
+                                 "must equal their initial values")
+
+        rc, text, wall_b = run_main_latent(args + ["--train.total_steps=5"])
+        second = torch.load(os.path.join(ckpt.ckpt_dir, "ckpt_00000005.pt"),
+                            map_location="cpu", weights_only=True)
+        moved = sum(int((second["params"][k] != v).sum())
+                    for k, v in init.items())
+        ema_w = second["ema_params"]["final_layer.linear.weight"]
+        ema_moved = sum(int((second["ema_params"][k] != v).sum())
+                        for k, v in init.items())
+        losses = _losses(text)
+        log(f"[train] resumed: rc {rc}, {wall_b:.1f} ms, 'auto-resumed from "
+            f"step 3' {'auto-resumed from step 3' in text}, losses {losses}; "
+            f"after 2 updates {moved} of {sum(v.numel() for v in init.values())}"
+            f" weights moved, EMA: {ema_moved} moved, final layer (zero at "
+            f"init) |max| {float(ema_w.abs().max()):.3g}")
+        if not (rc == 0 and "auto-resumed from step 3" in text
+                and second["step"] == 5 and second["opt_state"]["count"] == 2
+                and moved > 0 and float(ema_w.abs().max()) > 0
+                and len(losses) == 2
+                and all(math.isfinite(v) for v in losses)):
+            raise AssertionError("the resumed run did not continue from its "
+                                 "checkpoint, or nothing moved")
+
+        # one micro-step, kernels against impl="plain", from one state: the
+        # saved optimizer state (its update fires: mini-step 1 of 2) with
+        # seeded random weights, as every comparison here uses (at flax's
+        # initial weights the zero adaLN gates and final layer hide the
+        # attentions from the loss). The plain attention keeps its
+        # [48, 16, 512, 1374] fp32 scores for the backward pass, which at
+        # 12 blocks passes 80 GB: both runs recompute every block in the
+        # backward pass (remat_blocks = 12; the same values, bit for bit)
+        model.to(dev)
+        model.remat_blocks = len(model.blocks)
+        weights = {k: v.detach().clone() for k, v in init_random_(
+            build_model(cfg), seed=25).to(dev).named_parameters()}
+        diffusion = create_diffusion(
+            schedule=cfg.diffusion.noise_schedule, steps=cfg.diffusion.steps,
+            mean_type=cfg.diffusion.predict_type,
+            rescale_timesteps=cfg.diffusion.rescale_timesteps).to(dev)
+        tx = make_optimizer(lr=cfg.train.lr,
+                            warmup_steps=cfg.train.warmup_steps,
+                            grad_clip=cfg.train.grad_clip,
+                            grad_accum=cfg.train.grad_accum)
+        ema_rate = cfg.train.ema_rate ** (1.0 / cfg.train.grad_accum)
+        state = create_train_state(model, tx)
+        step = make_train_step(model, diffusion, tx, ema_rate)
+        dataset = LatentDataset(data, num_frames=cfg.train.sample_timesteps,
+                                uncond_p=0.0, seed=22)
+        batch = to_device(next(load_data(dataset, cfg.train.batch_size)), dev)
+        g = torch.Generator(device=dev).manual_seed(23)
+        t = torch.tensor([437, 12], device=dev)
+        noise = torch.randn(batch["latent"].shape, generator=g, device=dev)
+        runs = {}
+        for impl in (None, "plain"):
+            ckpt.restore(state, 5)
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(weights[k])
+                    state.ema_params[k].copy_(weights[k])
+            before = {k: p.detach().clone() for k, p in state.params.items()}
+            loss, _, grads = loss_and_grads(model, diffusion, batch, t, noise,
+                                            impl=impl)
+            grads = torch.cat([v.flatten() for v in grads.values()])
+            state, metrics = step(state, batch, g, t=t, noise=noise,
+                                  impl=impl)
+            params = torch.cat([p.detach().flatten()
+                                for p in state.params.values()])
+            update = params - torch.cat([v.flatten()
+                                         for v in before.values()])
+            runs[impl] = (float(loss), grads, params, update, metrics)
+        (lk, gk, pk, uk, mk), (lp, gp, pp, up, _) = runs[None], runs["plain"]
+        errs = {"loss": abs(lk - lp) / abs(lp), "grads": rel_l2(gk, gp),
+                "params": rel_l2(pk, pp), "update": rel_l2(uk, up)}
+        log(f"[train] one micro-step from the step-5 optimizer state (its "
+            f"update fires) with random weights (remat_blocks 12), kernels vs "
+            f"impl=\"plain\": loss {lk:.6g} vs {lp:.6g}, "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (bounds {TRAIN_BOUNDS}); grad_norm "
+            f"{float(mk['grad_norm']):.4g}, |update| max "
+            f"{float(uk.abs().max()):.3g}")
+        if not (math.isfinite(lk) and all(errs[k] <= b
+                                          for k, b in TRAIN_BOUNDS.items())):
+            raise AssertionError("the training micro-step disagrees with "
+                                 "its plain version")
+
+        # the micro-step's device time, samples/s and peak memory: the
+        # kernels at the configured remat_blocks, the plain version at 12
+        times = {}
+        for impl, n in ((None, 3), ("plain", 2)):
+            model.remat_blocks = (cfg.model.remat_blocks if impl is None
+                                  else len(model.blocks))
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, g, impl=impl)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[impl] = (ms, torch.cuda.max_memory_allocated() / 2 ** 30)
+        (ms_k, peak_k), (ms_p, peak_p) = times[None], times["plain"]
+        step_ms = sum(ms_k[1:]) / len(ms_k[1:])
+        log(f"[train] micro-step (batch {cfg.train.batch_size} x "
+            f"{cfg.train.sample_timesteps} frames, fp32, remat_blocks "
+            f"{cfg.model.remat_blocks}): {step_ms:.1f} ms with the kernels "
+            f"(runs {', '.join(f'{v:.1f}' for v in ms_k)}), "
+            f"{cfg.train.batch_size / step_ms * 1e3:.3f} samples/s, peak "
+            f"{peak_k:.2f} GiB; impl=\"plain\" (remat_blocks 12) "
+            f"{ms_p[-1]:.1f} ms, peak "
+            f"{peak_p:.2f} GiB; main()'s logged step times "
+            f"{_step_times(text_a)} s (data loading included); {card}")
+        return {k: launches[k] for k in TRAIN_KERNELS}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def build_models(dev):
@@ -949,7 +1345,7 @@ def phase_trellis(dino, dit, vae, ci, dev, card):
 
 
 def _kernel_group(name: str) -> str:
-    for k in ("attn_kernel", "gemm_kernel", "ln_kernel"):
+    for k in ("attn_kernel", "temporal_kernel", "gemm_kernel", "ln_kernel"):
         if k in name:
             return k
     if any(k in name for k in ("fmha", "flash", "attention")):
@@ -1048,6 +1444,40 @@ def phase_profile(dino, dit, vae, dev, card):
         _profile(lambda: pipe.decode_slat(staged["slat"]),
                  f"SLat Gaussian decode ({VOXELS} slots)",
                  "gs_decode_trace.json", card)
+    del pipe, staged, dino, dit, vae
+    torch.cuda.empty_cache()
+    phase_profile_training(dev, card)
+
+
+def phase_profile_training(dev, card):
+    """One training micro-step of the full-width DiT (configs/diffusion.yml,
+    batch 2 x 24 frames, fp32, flax's initial weights) on a seeded batch
+    already on the card (trace train_step_trace.json)."""
+    import torch
+    from gvfdiffusion_torch.cli.main_latent import build_model
+    from gvfdiffusion_torch.diffusion.gaussian_diffusion import (
+        create_diffusion)
+    from gvfdiffusion_torch.train.diffusion_trainer import make_train_step
+    from gvfdiffusion_torch.train.train_state import (create_train_state,
+                                                      make_optimizer)
+    from gvfdiffusion_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "diffusion.yml"))
+    model = build_model(cfg).init_weights_(
+        torch.Generator().manual_seed(0)).to(dev)
+    diffusion = create_diffusion(mean_type="v", rescale_timesteps=True).to(dev)
+    tx = make_optimizer(grad_accum=cfg.train.grad_accum)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, diffusion, tx)
+    g = torch.Generator(device=dev).manual_seed(24)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    batch = {"latent": rnd(TRAIN_B, TRAIN_T, N, 16),
+             "cond_images": rnd(TRAIN_B, TRAIN_T, L_IMG, 1024),
+             "static_latent": rnd(TRAIN_B, N, 14),
+             "positions": rnd(TRAIN_B, N, 3) * 0.3}
+    _profile(lambda: step(state, batch, g),
+             f"one training micro-step (12 x 512 DiT, batch {TRAIN_B} x "
+             f"{TRAIN_T} frames, fp32)", "train_step_trace.json", card)
 
 
 def main(argv) -> int:
@@ -1096,10 +1526,14 @@ def main(argv) -> int:
     phase_dit(dit, dev)
     launches, ci = phase_pipeline(dino, dit, vae, dev, card)
     trellis = phase_trellis(dino, dit, vae, ci, dev, card)
+    del dino, dit, vae, ci
+    torch.cuda.empty_cache()
+    train = phase_training(dev, card)
     # each entry's count comes from one run: the TRELLIS forms from
-    # TrellisImageTo3DPipeline.run, the others (K1-K4, K5 in DINOv2's
-    # video encode) from the video main path
-    counts = {**launches, **trellis}
+    # TrellisImageTo3DPipeline.run, the training forms (K5 at heads of 32,
+    # K6) from main_latent.main's first run, the others (K1-K4, K5 in
+    # DINOv2's video encode) from the video main path
+    counts = {**launches, **trellis, **train}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(json.dumps({"kernels": [results[k] for *_, k in KERNELS]}))

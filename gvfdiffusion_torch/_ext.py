@@ -39,7 +39,8 @@ _SIGNATURES = {
     "gvf_mlp_sublayer": [_P] * 11 + [_I] * 5 + [_P],
     "gvf_cross_sublayer1": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 4 + [_I] * 5
     + [_P],
-    "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _P],
+    "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _I, _P],
+    "gvf_temporal_attention": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
 }
 
 _lib = None

@@ -1,17 +1,20 @@
 // Softmax attention tile kernel for Hopper (sm_90a), shared by the fused DiT
-// sublayers (fused_sublayer.cu, heads of 32) and K5 (fused_attention.cu,
-// heads of 64).
+// sublayers (fused_sublayer.cu, heads of 32 and 64) and K5
+// (fused_attention.cu, heads of 32 and 64).
 //
 // attn_kernel: one CTA (4 warps) per (64-query tile, head, row block z).
 // Per 64-key tile staged in shared memory: S = Q K^T on tensor cores (WMMA
-// 16x16x16, bf16 in, fp32 out), an online softmax with a true running
-// maximum (fp32), P rounded to bf16 for the P V product, whose fp32 result
-// rescales into a register accumulator. The row sum is taken from the fp32
-// P, as the TPU kernels take it. Keys past Lk are masked; an optional fp32
-// additive logit bias per key (-inf masks the key) is read from device
-// memory by the softmax step; a row with no visible key returns 0, never
-// NaN. Optional per-head RMS norm of q/k in the load (the DiT's
-// self/temporal sublayers).
+// 16x16x16, bf16 in, fp32 out), a softmax in fp32, P rounded to bf16 for the
+// P V product, whose fp32 result adds into a register accumulator. The row
+// sum is taken from the fp32 P, as the TPU kernels take it. The softmax is
+// either online with a true running maximum, or (FIXED) the TPU kernels'
+// fixed shift: P = exp2(S * scale * log2(e) - 30), which needs no maximum
+// and no rescale. Keys past Lk are masked; an optional fp32 additive logit
+// bias per key (-inf masks the key) is read from device memory by the
+// softmax step; a row with no visible key returns 0, never NaN. Optional
+// per-head RMS norm of q/k in the load (the DiT's self/temporal sublayers).
+// q/k/v are read as bf16 or fp32 and rounded to bf16; the output is written
+// as TO (bf16 or fp32).
 
 #pragma once
 
@@ -46,7 +49,7 @@ struct AttnParams {
   const void* q;
   const void* k;
   const void* v;
-  bf16* o;
+  void* o;  // TO
   long long q_s1, q_s2, q_si;
   long long k_s1, k_s2, k_sj;  // shared by k and v
   long long o_s1, o_s2, o_si;
@@ -56,9 +59,12 @@ struct AttnParams {
   const float* bias = nullptr;  // [row block z1][Lk] logit bias, or null
   long long bias_s1 = 0;
   float scale;
+  float scale_log2 = 0.f;  // FIXED only: scale * log2(e), rounded once
 };
 
 constexpr int ABQ = 64, ABK = 64;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float EXP2_SHIFT = 30.f;  // the TPU kernels' fixed exp2 shift
 
 // Loads one row half (D/2 values) of a q or k row, RMS-normalizes it across
 // the thread pair that holds the row, and stores it as bf16.
@@ -83,7 +89,7 @@ __device__ __forceinline__ void load_row_half(const T* src, bool valid,
 
 // Static shared memory: (3 * 64 * D) bf16 + 4 * 16 * 64 (fp32 + bf16), i.e.
 // 36 KB at D = 32 and 48 KB, the static limit, at D = 64.
-template <int D, typename TQ, typename TKV>
+template <int D, typename TQ, typename TKV, typename TO, bool FIXED>
 __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   __shared__ __align__(128) bf16 sQ[ABQ * D];
   __shared__ __align__(128) bf16 sK[ABK * D];
@@ -97,7 +103,7 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   const TQ* qb = (const TQ*)p.q + z1 * p.q_s1 + z2 * p.q_s2 + h * D;
   const TKV* kb = (const TKV*)p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
   const TKV* vb = (const TKV*)p.v + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
-  bf16* ob = p.o + z1 * p.o_s1 + z2 * p.o_s2 + h * D;
+  TO* ob = (TO*)p.o + z1 * p.o_s1 + z2 * p.o_s2 + h * D;
   const float* bb = p.bias ? p.bias + z1 * p.bias_s1 : nullptr;
   const int q0 = blockIdx.x * ABQ;
 
@@ -149,39 +155,55 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
     }
     __syncwarp();
 
-    // online softmax: each lane takes 32 keys of its row. A tile whose keys
-    // are all masked leaves m_new at -inf: the branch below then adds
-    // nothing, so exp(-inf - -inf) is never formed.
+    // softmax: each lane takes 32 keys of its row
     float sv[32];
-    float mx = neg_inf();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int j = j0 + half * 32 + c;
-      float s = neg_inf();
-      if (j < p.Lk) {
-        s = sSw[r * ABK + half * 32 + c] * p.scale;
-        if (bb) s += bb[j];
-      }
-      sv[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
     float alpha = 1.f, psum = 0.f;
-    if (m_new == neg_inf()) {
-#pragma unroll
-      for (int c = 0; c < 32; ++c) sv[c] = 0.f;
-    } else {
-      alpha = expf(m_run - m_new);
+    if (FIXED) {
+      // exp2(s * scale * log2 e - (30 - bias * log2 e)), the TPU kernels'
+      // rounding points: no maximum, so nothing rescales (alpha = 1)
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
-        sv[c] = expf(sv[c] - m_new);
-        psum += sv[c];
+        const int j = j0 + half * 32 + c;
+        float e = 0.f;
+        if (j < p.Lk) {
+          const float b = bb ? EXP2_SHIFT - bb[j] * LOG2E : EXP2_SHIFT;
+          e = exp2f(sSw[r * ABK + half * 32 + c] * p.scale_log2 - b);
+        }
+        sv[c] = e;
+        psum += e;
       }
+    } else {
+      // online: a tile whose keys are all masked leaves m_new at -inf; the
+      // branch below then adds nothing, so exp(-inf - -inf) is never formed
+      float mx = neg_inf();
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int j = j0 + half * 32 + c;
+        float s = neg_inf();
+        if (j < p.Lk) {
+          s = sSw[r * ABK + half * 32 + c] * p.scale;
+          if (bb) s += bb[j];
+        }
+        sv[c] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_new = fmaxf(m_run, mx);
+      if (m_new == neg_inf()) {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) sv[c] = 0.f;
+      } else {
+        alpha = expf(m_run - m_new);
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          sv[c] = expf(sv[c] - m_new);
+          psum += sv[c];
+        }
+      }
+      m_run = m_new;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l_run = l_run * alpha + psum;
-    m_run = m_new;
 #pragma unroll
     for (int c = 0; c < 32; ++c)
       sPw[r * ABK + half * 32 + c] = __float2bfloat16(sv[c]);
@@ -212,18 +234,19 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   const int qi = q0 + warp * 16 + r;
   if (qi < p.Lq) {
     const float inv = l_run > 0.f ? 1.f / l_run : 0.f;  // fully masked row -> 0
-    bf16* orow = ob + (long long)qi * p.o_si + half * (D / 2);
+    TO* orow = ob + (long long)qi * p.o_si + half * (D / 2);
 #pragma unroll
-    for (int d = 0; d < D / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] * inv);
+    for (int d = 0; d < D / 2; ++d) orow[d] = from_f<TO>(o_acc[d] * inv);
   }
 }
 
 // grid: (query tiles, heads, row blocks)
-template <int D, typename TQ, typename TKV>
+template <int D, typename TQ, typename TKV, typename TO = bf16,
+          bool FIXED = false>
 cudaError_t launch_attn(const AttnParams& p, int H, long long nb1,
                         cudaStream_t s) {
   dim3 grid(cdiv(p.Lq, ABQ), H, (unsigned)(nb1 * p.nb2));
-  attn_kernel<D, TQ, TKV><<<grid, 128, 0, s>>>(p);
+  attn_kernel<D, TQ, TKV, TO, FIXED><<<grid, 128, 0, s>>>(p);
   return cudaGetLastError();
 }
 

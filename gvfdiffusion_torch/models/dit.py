@@ -1,7 +1,7 @@
 """Temporal-aware DiT denoiser for the Gaussian Variation Field latent (port of
 gvfdiffusion_tpu/models/dit.py in its shipped configuration: APE positions,
 per-block adaLN, spatial + temporal attention with q/k RMS norms, cross
-attention without, MLP ratio 4, fused sublayers).
+attention without, MLP ratio 4).
 
 Inputs (reference shapes):
   x              (B, T, N=512, C_in=16)   noisy variation-field latent
@@ -9,33 +9,48 @@ Inputs (reference shapes):
   cond_images    (B, T, L, 1024)          DINOv2 video tokens
   static_latent  (B, Ns, 14)              canonical-GS conditioning
   positions      (B, N, 3)                FPS-anchor xyz for the APE
+
+Two paths, as in JAX: with a hoisted cross-attention KV cache (`cross_kv`,
+the sampler's) each block runs the fused sublayer kernels K1-K4, in bf16 on
+CUDA; without one (the trainer's) the DiT projects the conditioning itself
+and each block runs the composed path (K5, K6, torch elsewhere), in any
+dtype, under autograd.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.embedders import AbsolutePositionEmbedder, TimestepEmbedder
 from ..nn.misc import dense
 from ..nn.transformer import FinalLayer, ModulatedTransformerCrossBlock
 
+# flax's truncated normal draws from N(0, 1) cut at +-2 and rescales by
+# this factor, so that the lecun-normal variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
 
 class DiT(nn.Module):
     """`dtype` is the compute dtype (flax's `dtype`): parameters stay as
     stored and are cast at use. The timestep embedder computes in fp32. On
-    CUDA the DiT runs the bf16 sublayer kernels, so `dtype` must be bf16."""
+    CUDA the fused path runs the bf16 sublayer kernels, so with `cross_kv`
+    `dtype` must be bf16. `remat_blocks` leading blocks are recomputed in
+    the backward pass (`torch.utils.checkpoint`, JAX's `nn.remat`)."""
 
     def __init__(self, in_channels: int = 16, model_channels: int = 512,
                  static_cond_channels: int = 14,
                  image_cond_channels: int = 1024, out_channels: int = 16,
                  num_blocks: int = 12, num_heads: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 remat_blocks: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         C = model_channels
         self.model_channels = C
+        self.remat_blocks = remat_blocks
         self.dtype = dtype
         self.input_layer = nn.Linear(in_channels, C)
         self.t_embedder = TimestepEmbedder(C)
@@ -47,23 +62,61 @@ class DiT(nn.Module):
             for _ in range(num_blocks))
         self.final_layer = FinalLayer(C, out_channels, dtype=dtype)
 
-    def _check_device(self, x: torch.Tensor) -> None:
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator) -> "DiT":
+        """Draw the initial parameters from the JAX DiT's flax initializers,
+        in place: lecun-normal Dense kernels (a normal cut at +-2 sigma) with
+        zero biases, xavier-uniform for `input_layer`, normal(0.02) for the
+        timestep MLP and the two conditioning projections, zeros for every
+        adaLN modulation and the final layer, ones for RMS gammas and
+        LayerNorm scales. Drawn on the CPU from `generator` (a CPU
+        generator), in parameter order, so the values do not depend on the
+        device."""
+        normal02 = ("t_embedder.", "image_cond_proj.", "static_cond_proj.")
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                r = torch.zeros(p.shape)
+            elif "adaLN_modulation" in name or name.startswith(
+                    "final_layer."):
+                r = torch.zeros(p.shape)
+            elif name.endswith("gamma") or p.ndim == 1:  # RMS and LN scales
+                r = torch.ones(p.shape)
+            elif name.startswith(normal02):
+                r = torch.randn(p.shape, generator=generator) * 0.02
+            elif name.startswith("input_layer."):
+                fan_out, fan_in = p.shape
+                lim = math.sqrt(6.0 / (fan_in + fan_out))
+                r = (torch.rand(p.shape, generator=generator) * 2 - 1) * lim
+            else:  # lecun normal over the Linear's fan-in
+                std = p.shape[1] ** -0.5 / _TRUNC_STD
+                r = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0,
+                                          -2.0, 2.0, generator=generator)
+                r = r * std
+            p.copy_(r)
+        return self
+
+    def _check_fused(self, x: torch.Tensor) -> None:
         if x.is_cuda and self.dtype != torch.bfloat16:
             raise TypeError(
-                "on CUDA the DiT runs the bf16 sublayer kernels: build it "
-                f"with dtype=torch.bfloat16 (got {self.dtype})")
+                "with a hoisted KV cache the DiT runs the bf16 sublayer "
+                f"kernels on CUDA: build it with dtype=torch.bfloat16 (got "
+                f"{self.dtype})")
 
     def kv_cache(self, cond_images: torch.Tensor,
                  static_latent: torch.Tensor):
         """Per-block cross-attention KV (constant across sampler steps):
         a tuple over blocks of ((img_k, img_v), (static_k, static_v))."""
-        self._check_device(cond_images)
+        self._check_fused(cond_images)
+        image_emb, static_emb = self._conditioning(cond_images, static_latent)
+        return tuple(b.kv(image_emb, static_emb) for b in self.blocks)
+
+    def _conditioning(self, cond_images, static_latent):
+        """The projected conditioning: image tokens [B, T, L, C] and the
+        static latent broadcast over frames, [B, T, Ns, C]."""
         T = cond_images.shape[1]
         image_emb = dense(cond_images, self.image_cond_proj, self.dtype)
         static_emb = dense(static_latent, self.static_cond_proj, self.dtype)
-        static_emb = static_emb[:, None].expand(
-            -1, T, -1, -1)  # broadcast over frames: (B, T, Ns, C)
-        return tuple(b.kv(image_emb, static_emb) for b in self.blocks)
+        return image_emb, static_emb[:, None].expand(-1, T, -1, -1)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cond_images: Optional[torch.Tensor] = None,
@@ -72,18 +125,26 @@ class DiT(nn.Module):
                 kv_only: bool = False, impl: Optional[str] = None):
         """With kv_only=True returns `kv_cache(cond_images, static_latent)`;
         otherwise the predicted output [B, T, N, out_channels] in fp32. A
-        given cross_kv replaces cond_images and static_latent.
-        `impl="plain"` runs the sublayers' plain torch versions."""
-        if kv_only or cross_kv is None:
-            cache = self.kv_cache(cond_images, static_latent)
-            if kv_only:
-                return cache
-            cross_kv = cache
-        self._check_device(x)
+        given cross_kv replaces cond_images and static_latent and runs the
+        fused path; without it the composed path runs. `impl="plain"` runs
+        the kernels' plain torch versions."""
+        if kv_only:
+            return self.kv_cache(cond_images, static_latent)
+        image_emb = static_emb = None
+        if cross_kv is None:
+            image_emb, static_emb = self._conditioning(cond_images,
+                                                       static_latent)
+            cross_kv = (None,) * len(self.blocks)
+        else:
+            self._check_fused(x)
         h = dense(x, self.input_layer, self.dtype)
         t_emb = self.t_embedder(t)
         pe = self.pos_embedder(positions)
         h = h + pe[:, None].to(h.dtype)  # broadcast over T
-        for block, kv in zip(self.blocks, cross_kv):
-            h = block(h, t_emb, kv, impl=impl)
+        for i, (block, kv) in enumerate(zip(self.blocks, cross_kv)):
+            args = (h, t_emb, kv, image_emb, static_emb, impl)
+            if i < self.remat_blocks and torch.is_grad_enabled():
+                h = checkpoint(block, *args, use_reentrant=False)
+            else:
+                h = block(*args)
         return self.final_layer(h, t_emb).float()

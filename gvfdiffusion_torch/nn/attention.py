@@ -4,16 +4,19 @@
 `MultiHeadAttention` holds the parameters under the reference's names.
 `forward` is the composed self or cross branch: the qkv (self) or the q
 and kv (cross) projections, the optional q/k RMS norms, the attention and
-the output projection; RoPE and the `temporal_4d` layout are not ported.
-The DiT runs its attention inside the fused sublayer kernels, so for it
-this module computes only what the JAX package computes outside any
-kernel: the loop-invariant cross-attention K/V (`kv`).
+the output projection. `temporal` is the `temporal_4d=True` branch: the
+same self-attention parameters, attention over axis T of [B, T, N, C]
+through K6. RoPE and `temporal_layout="transpose"` are not ported. The
+DiT's inference path runs its attention inside the fused sublayer kernels
+and takes from this module only the loop-invariant cross-attention K/V
+(`kv`); its training path (no hoisted KV) runs `forward` and `temporal`.
 
 `scaled_dot_product_attention` takes the JAX package's dispatch rule
-(`ops/fused_attention.supports`: Lq >= 128, 128 <= Lk <= 4096). On a CUDA
-tensor a call inside the rule runs K5 (ops/fused_attention.py), and a call
-outside it raises: on the TPU those shapes take XLA's attention, which has
-no port yet. On the CPU every call runs K5's plain version.
+(`ops/fused_attention.supports`: Lq >= 128, 128 <= Lk <= 4096), and
+`temporal` the rule `temporal_supports`. On a CUDA tensor a call inside
+the rule runs K5 or K6, and a call outside it raises: on the TPU those
+shapes take XLA's attention, which has no port yet. On the CPU every call
+runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -23,20 +26,24 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.fused_attention import fused_attention, supports
+from ..ops.fused_attention import (fused_attention, supports,
+                                  temporal_attention, temporal_supports)
 from .misc import dense
 
 
 def scaled_dot_product_attention(q, k, v, dtype: torch.dtype,
-                                 impl: Optional[str] = None) -> torch.Tensor:
-    """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D] in `dtype` (the
-    attention computes in `dtype`)."""
+                                 impl: Optional[str] = None,
+                                 cross: bool = False) -> torch.Tensor:
+    """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D] in q's dtype, the
+    attention computing in `dtype`; `cross` names the form for K5's launch
+    count."""
     if q.is_cuda and impl != "plain" and not supports(q.shape, k.shape):
         raise NotImplementedError(
             f"attention of q {tuple(q.shape)} over k {tuple(k.shape)} is "
             "outside K5's rule (Lq >= 128, 128 <= Lk <= 4096); the JAX "
             "package's XLA attention for such shapes is not ported")
-    return fused_attention(q, k, v, q.shape[-1] ** -0.5, dtype, impl=impl)
+    return fused_attention(q, k, v, q.shape[-1] ** -0.5, dtype, cross=cross,
+                           impl=impl)
 
 
 class MultiHeadRMSNorm(nn.Module):
@@ -116,14 +123,40 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 context: Optional[torch.Tensor] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None,
+                attn_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """x [B, L, C] (and context [B, Lk, C_ctx] for cross) -> [B, L, C]
-        in `dtype` (flax Dense semantics; the attention computes in
-        `dtype`)."""
+        in `dtype` (flax Dense semantics); the attention computes in
+        `attn_dtype`, by default `dtype`."""
         B, L, C = x.shape
         q, k, v = self.project(x, dtype, context)
-        o = scaled_dot_product_attention(q, k, v, dtype, impl=impl)
+        o = scaled_dot_product_attention(q, k, v, attn_dtype or dtype,
+                                         impl=impl,
+                                         cross=self.attn_type == "cross")
         return dense(o.reshape(B, L, C), getattr(self, self.out_name), dtype)
+
+    def temporal(self, x: torch.Tensor, dtype: torch.dtype,
+                 impl: Optional[str] = None) -> torch.Tensor:
+        """The `temporal_4d` branch of a self attention: x [B, T, N, C] ->
+        [B, T, N, C] in `dtype`, attention over T for each (b, n, head)
+        through K6 in the native layout (no transposes), computing in bf16
+        (the JAX kernel's default)."""
+        if self.attn_type != "self":
+            raise ValueError("temporal attention is a self attention")
+        B, T, N, C = x.shape
+        H, D = self.num_heads, self.head_dim
+        qkv = dense(x, getattr(self, self.qkv_name), dtype).reshape(
+            B, T, N, 3, H, D)
+        q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        if self.qk_rms_norm:
+            q, k = self.q_rms_norm(q), self.k_rms_norm(k)
+        if q.is_cuda and impl != "plain" and not temporal_supports(q.shape):
+            raise NotImplementedError(
+                f"temporal attention of {tuple(q.shape)} is outside K6's "
+                "rule; the JAX package's einsum form is not ported")
+        o = temporal_attention(q, k, v, D ** -0.5, impl=impl)
+        return dense(o.reshape(B, T, N, C), getattr(self, self.out_name),
+                     dtype)
 
     def gammas(self):
         """(q, k) lane gammas of a self attention, as the kernels take them."""

@@ -1,9 +1,13 @@
 """Transformer blocks (port of gvfdiffusion_tpu/nn/transformer.py:138-164,
-172-290, 379-555).
+167-474, 477-555).
 
-The DiT block always takes the fused four-sublayer structure of the JAX
-package's `_fused_call`: spatial self, temporal self, dual cross (against
-the hoisted KV cache) and MLP, each one call of ops/fused_sublayer.py.
+The DiT block has the JAX block's two paths. With a hoisted KV cache
+(inference) it takes the fused four-sublayer structure of `_fused_call`:
+spatial self, temporal self, dual cross (against the cache) and MLP, each
+one call of ops/fused_sublayer.py. Without one (training) it takes the
+composed path (JAX :291-376): fp32 LayerNorms, `modulate`, the attentions
+of nn/attention.py (K5 for spatial self and both cross-attentions, K6 for
+the temporal one) and the gated MLP, all under torch's autograd.
 `ModulatedCrossBlock` is the single-context composed block of the
 sparse-structure flow: its attentions go through
 `nn/attention.MultiHeadAttention` (K5), its LayerNorms run in fp32 as the
@@ -37,6 +41,12 @@ class FeedForwardNet(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         h = F.gelu(dense(x, self.mlp[0], dtype), approximate="tanh")
         return dense(h, self.mlp[2], dtype)
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    """x [B, T, N, C]; shift/scale [B, C] broadcast over T and N."""
+    return x * (1.0 + scale[:, None, None, :]) + shift[:, None, None, :]
 
 
 def affine_layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -83,11 +93,13 @@ class ModulatedTransformerCrossBlock(nn.Module):
     """DiT block: spatial self-attn over N, temporal self-attn over T, image
     cross-attn, static-GS cross-attn, MLP, with adaLN-Zero modulation.
 
-    x [B, T, N, C]; mod [B, C] (the timestep embedding); cross_kv =
+    x [B, T, N, C]; mod [B, C] (the timestep embedding); either cross_kv =
     ((img_k, img_v), (static_k, static_v)), each [B*T, Lk, heads, head_dim],
-    from `kv`. Parameter names follow the reference's torch state dict.
-    The self-attentions carry q/k RMS norms, the cross-attentions none (the
-    shipped DiT configuration).
+    from `kv` (the fused path), or the projected conditioning cond_images
+    [B, T, L, C] and static_latent [B, T, Ns, C] (the composed path).
+    Parameter names follow the reference's torch state dict, shared by both
+    paths. The self-attentions carry q/k RMS norms, the cross-attentions
+    none (the shipped DiT configuration).
     """
 
     def __init__(self, channels: int, num_heads: int,
@@ -121,19 +133,54 @@ class ModulatedTransformerCrossBlock(nn.Module):
             static_latent.reshape(-1, static_latent.shape[2], C), self.dtype)
         return img, static
 
-    def forward(self, x: torch.Tensor, mod: torch.Tensor, cross_kv,
+    def forward(self, x: torch.Tensor, mod: torch.Tensor, cross_kv=None,
+                cond_images: Optional[torch.Tensor] = None,
+                static_latent: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
-        C, H, dt = self.channels, self.num_heads, self.dtype
-        B, T, N, _ = x.shape
-
-        def w(a):
-            return a.to(dt)
-
+        dt = self.dtype
         m = dense(F.silu(mod), self.adaLN_modulation[1], dt).chunk(6, dim=-1)
         mt = dense(F.silu(mod), self.adaLN_modulation_temporal[1],
                    dt).chunk(3, dim=-1)
-        (sh_s, sc_s, g_s, sh_t, sc_t, g_t, sh_m, sc_m, g_m) = (
-            m[:3] + mt + m[3:])
+        chunks = m[:3] + mt + m[3:]
+        if cross_kv is None:
+            return self._composed(x, chunks, cond_images, static_latent, impl)
+        return self._fused(x, chunks, cross_kv, impl)
+
+    def _composed(self, x, chunks, cond_images, static_latent, impl):
+        """JAX :291-376: LayerNorms in fp32, the attentions computing in bf16
+        (the JAX kernels' default), everything differentiable."""
+        C, dt, at = self.channels, self.dtype, torch.bfloat16
+        B, T, N, _ = x.shape
+        (sh_s, sc_s, g_s, sh_t, sc_t, g_t, sh_m, sc_m, g_m) = chunks
+
+        h = modulate(layer_norm(x, 1e-6), sh_s, sc_s)
+        h = self.spatial_self_attn(h.reshape(B * T, N, C), dt, impl=impl,
+                                   attn_dtype=at).reshape(B, T, N, C)
+        x = x + h * g_s[:, None, None, :]
+
+        h = modulate(layer_norm(x, 1e-6), sh_t, sc_t)
+        h = self.temporal_self_attn.temporal(h, dt, impl=impl)
+        x = x + h * g_t[:, None, None, :]
+
+        # the two cross-attentions: un-gated, affine pre-norms
+        for norm, attn, ctx in (
+                (self.norm3, self.image_cross_attn, cond_images),
+                (self.norm4, self.static_cross_attn, static_latent)):
+            h = attn(affine_layer_norm(norm, x).reshape(B * T, N, C), dt,
+                     ctx.reshape(B * T, ctx.shape[2], C), impl=impl,
+                     attn_dtype=at)
+            x = x + h.reshape(B, T, N, C)
+
+        h = modulate(layer_norm(x, 1e-6), sh_m, sc_m)
+        return x + self.mlp(h, dt) * g_m[:, None, None, :]
+
+    def _fused(self, x, chunks, cross_kv, impl):
+        C, H, dt = self.channels, self.num_heads, self.dtype
+        B, T, N, _ = x.shape
+        (sh_s, sc_s, g_s, sh_t, sc_t, g_t, sh_m, sc_m, g_m) = chunks
+
+        def w(a):
+            return a.to(dt)
 
         def self_args(attn: MultiHeadAttention):
             qg, kg = attn.gammas()

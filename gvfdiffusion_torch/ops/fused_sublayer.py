@@ -24,6 +24,11 @@ view passes to the kernel with no copy.
 `launch_counts` counts kernel launches per sublayer (one per launched
 chain; "cross" for the two-context form, "cross_single" for the single);
 the plain version never counts.
+
+The kernels have no backward pass yet (the JAX custom_vjps recompute
+through einsums or the oracle): on CUDA a wrapper raises when grad mode is
+on and any tensor input requires grad, rather than return an output with
+no gradient. The plain versions differentiate as any torch code does.
 """
 
 from __future__ import annotations
@@ -164,6 +169,19 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     return x.is_cuda
 
 
+def _no_grad_inputs(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through the kernel `name`:
+    its output comes from raw pointers and has no grad_fn."""
+    flat = []
+    for t in tensors:
+        flat.extend(t if isinstance(t, (tuple, list)) else (t,))
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass; run it under "
+            "torch.no_grad() or pass impl='plain' to differentiate")
+
+
 def _ptr(t: torch.Tensor):
     return t.data_ptr()
 
@@ -231,6 +249,8 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
             num_heads=num_heads, compute_dtype=compute_dtype)
     from .. import _ext
 
+    _no_grad_inputs("fused_self_sublayer", x, sh, sc, gate, wqkv, bqkv, qg,
+                    kg, wo, bo)
     B, L, C = x.shape
     Bm = _mod_rows(B, mod_repeat)
     _check_cuda(compute_dtype, num_heads, C, B, x, sh, sc, gate, wqkv, bqkv,
@@ -260,6 +280,8 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
             compute_dtype=compute_dtype)
     from .. import _ext
 
+    _no_grad_inputs("fused_temporal_sublayer", x, sh, sc, gate, wqkv, bqkv,
+                    qg, kg, wo, bo)
     B, T, N, C = x.shape
     _check_cuda(compute_dtype, num_heads, C, B * N, x, sh, sc, gate, wqkv,
                 bqkv, qg, kg, wo, bo)
@@ -295,6 +317,7 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
         return cross_sublayer_reference(
             x, p1, kv1, p2, kv2, num_heads=num_heads,
             compute_dtype=compute_dtype)
+    _no_grad_inputs("fused_cross_sublayer", x, p1, kv1, p2, kv2)
     if p2 is None:
         return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype)
     from .. import _ext
@@ -368,6 +391,7 @@ def fused_mlp_sublayer(x, sh, sc, gate, w1, b1, w2, b2, *,
             compute_dtype=compute_dtype)
     from .. import _ext
 
+    _no_grad_inputs("fused_mlp_sublayer", x, sh, sc, gate, w1, b1, w2, b2)
     B, L, C = x.shape
     M = w1.shape[1]
     Bm = _mod_rows(B, mod_repeat)

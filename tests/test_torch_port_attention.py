@@ -143,7 +143,8 @@ def test_strided_qkv_views_and_cpu_dispatch():
     want = pfa.attention_reference(q.contiguous(), k.contiguous(),
                                    v.contiguous(), 0.125, torch.float32)
     assert torch.equal(got, want)
-    assert pfa.launch_counts == {"attention": 0, "attention_cross": 0,
-                                 "attention_bias": 0}
+    assert set(pfa.launch_counts) >= {"attention", "attention_cross",
+                                      "attention_bias"}
+    assert not any(pfa.launch_counts.values())
     with pytest.raises(ValueError):
         pfa.fused_attention(q, k, v, 0.125, impl="kernel")

@@ -17,7 +17,10 @@ Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
 and of the update y - x, <= (3e-3, 3e-2) for the attention sublayers and
 (5e-4, 3e-3) for the MLP; 3e-2 for a 2-block DiT forward; ATTN_BOUND for
-K5's output and DINO_BOUND for a 2-block DINOv2's tokens.
+K5's output and DINO_BOUND for a 2-block DINOv2's tokens; GRAD_BOUND for
+the gradients of K5 and K6 (the Functions' fp32 backward against autograd
+through the bf16-rounded plain forward), COMPOSED_BOUNDS for the composed
+DiT.
 """
 
 import numpy as np
@@ -38,6 +41,8 @@ BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
           "cross_single": (3e-3, 3e-2)}
 ATTN_BOUND = 1e-2
 DINO_BOUND = 2e-2
+GRAD_BOUND = 2e-2  # readings 3.2e-3-4.5e-3
+COMPOSED_BOUNDS = {"loss": 1e-5, "grads": 2e-3}  # readings 2.2e-6, 3.5e-4
 
 
 @pytest.fixture
@@ -162,8 +167,9 @@ def test_dit_kernels_match_plain(dev):
         y = dit(x, t, positions=pos, cross_kv=kv)
         ref = dit(x, t, positions=pos, cross_kv=kv, impl="plain")
     assert _rel(y, ref) <= 3e-2, _rel(y, ref)
-    with pytest.raises(TypeError):
-        DiT(num_blocks=1).to(dev)(x, t, ci, st, pos)
+    with pytest.raises(TypeError):  # the fused path of an fp32 DiT
+        DiT(num_blocks=1, model_channels=128, num_heads=4).to(dev)(
+            x, t, positions=pos, cross_kv=kv[:1])
 
 
 def _attend(dev, L, layout, B=2, H=3, scale=1.0, seed=7):
@@ -207,15 +213,18 @@ def test_attention_launch_counts_and_checks(dev):
     fa.reset_launch_counts()
     fa.fused_attention(q, k, v, 0.125)
     fa.fused_attention(q, k, v, 0.125, impl="plain")
-    fa.fused_attention(q[:, :10], k, v, 0.125)
+    fa.fused_attention(q[:, :10], k, v, 0.125, cross=True)
     fa.fused_attention(q, k, v, 0.125,
                        kv_bias=torch.zeros(2, 70, device=dev))
-    assert fa.launch_counts == {"attention": 1, "attention_cross": 1,
-                                "attention_bias": 1}
-    with pytest.raises(TypeError):  # fp32
-        fa.fused_attention(q.float(), k.float(), v.float(), 0.125)
-    with pytest.raises(ValueError):  # heads of 32
-        fa.fused_attention(*(a[..., :32] for a in (q, k, v)), 0.125)
+    fa.fused_attention(q, k, v, 0.125, cross=True)  # Lq = Lk, yet cross
+    fa.fused_attention(*(a[..., :32].float() for a in (q, k, v)), 0.125)
+    assert {k: n for k, n in fa.launch_counts.items() if n} == {
+        "attention": 1, "attention_cross": 2, "attention_bias": 1,
+        "attention_d32": 1}
+    with pytest.raises(TypeError):  # q fp32, k/v bf16
+        fa.fused_attention(q.float(), k, v, 0.125)
+    with pytest.raises(ValueError):  # heads of 16
+        fa.fused_attention(*(a[..., :16] for a in (q, k, v)), 0.125)
     with pytest.raises(ValueError):  # k's batch is not q's
         fa.fused_attention(q[:1], k, v, 0.125)
     with pytest.raises(TypeError):  # a bf16 bias
@@ -319,3 +328,151 @@ def test_attention_outside_the_kernels_raises(dev):
     valid = torch.ones(1, 4100, dtype=torch.bool, device=dev)
     with pytest.raises(NotImplementedError):
         full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)
+    from gvfdiffusion_torch.nn.attention import MultiHeadAttention
+
+    attn = MultiHeadAttention(96, 3, qk_rms_norm=True).to(dev)  # 96 lanes
+    with pytest.raises(NotImplementedError):
+        attn.temporal(torch.zeros(1, 8, 16, 96, device=dev), torch.float32)
+
+
+# -- the DiT's training path: K5 at heads of 32, K6, the composed DiT ---------
+
+
+def _grads(fn, inputs, g):
+    ins = [a.detach().clone().requires_grad_(True) for a in inputs]
+    out = fn(*ins)
+    out.backward(g)
+    return out.detach(), [a.grad for a in ins]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Lq,Lk", [(130, 130), (512, 1374), (200, 70)])
+def test_attention_kernel_d32(dev, Lq, Lk, dtype):
+    """K5 at heads of 32 (fixed exp2 shift), q apart, k/v the halves of a
+    kv projection; output in q's dtype."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    dt = getattr(torch, dtype)
+    q = torch.randn(3, Lq, 4, 32, generator=g, device=dev).to(dt)
+    kv = torch.randn(3, Lk, 2, 4, 32, generator=g, device=dev).to(dt)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    y = fa.fused_attention(q, k, v, 32 ** -0.5, cross=True)
+    ref = fa.fused_attention(q, k, v, 32 ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == dt and y.shape == q.shape
+    assert bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"attention d32 {dtype} Lq={Lq} Lk={Lk}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_d32_kv_bias(dev, dtype):
+    """K5 at heads of 32 with a key bias (the fixed shift takes 30 - bias
+    * log2 e): row 0 keeps 101 keys, row 1 none (exactly 0), row 2 a
+    random half with a finite bias."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(3, L, 4, 32, generator=g, device=dev).to(dt)
+               for L in (130, 200, 200))
+    keep = torch.rand(3, 200, generator=g, device=dev) < 0.5
+    keep[0] = False
+    keep[0, torch.randperm(200, generator=g, device=dev)[:101]] = True
+    keep[1] = False
+    bias = torch.where(keep, 0.5 * torch.randn(3, 200, generator=g,
+                                               device=dev), float("-inf"))
+    fa.reset_launch_counts()
+    y = fa.fused_attention(q, k, v, 32 ** -0.5, kv_bias=bias)
+    assert fa.launch_counts["attention_bias_d32"] == 1
+    ref = fa.fused_attention(q, k, v, 32 ** -0.5, kv_bias=bias, impl="plain")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and not bool(y[1].any())
+    err = _rel(y, ref)
+    print(f"attention d32 kv_bias {dtype}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+def test_attention_d32_gradients(dev):
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v, go = (torch.randn(4, L, 4, 32, generator=g, device=dev)
+                   for L in (512, 1374, 1374, 512))
+    scale = 32 ** -0.5
+    y, grads = _grads(lambda *a: fa.fused_attention(*a, scale), (q, k, v), go)
+    yp, grads_p = _grads(lambda *a: fa.fused_attention(*a, scale,
+                                                       impl="plain"),
+                         (q, k, v), go)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= ATTN_BOUND
+    errs = [_rel(a, b) for a, b in zip(grads, grads_p)]
+    print(f"attention d32 gradients rel_l2 {errs}")
+    assert max(errs) <= GRAD_BOUND, errs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [24, 32, 23, 70])
+def test_temporal_attention_kernel(dev, T, dtype):
+    """K6 on [2, T, 8, 4, 32]; q apart, k/v views of a qkv projection (row
+    stride 3 * H * D)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(2, T, 8, 3, 4, 32, generator=g, device=dev).to(dt)
+    q = torch.randn(2, T, 8, 4, 32, generator=g, device=dev).to(dt)
+    k, v = qkv[..., 1, :, :], qkv[..., 2, :, :]
+    fa.reset_launch_counts()
+    y = fa.temporal_attention(q, k, v, 32 ** -0.5)
+    assert fa.launch_counts["temporal_attention"] == 1
+    ref = fa.temporal_attention(q, k, v, 32 ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == dt and y.shape == q.shape and y.is_contiguous()
+    assert bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"temporal attention {dtype} T={T}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+def test_temporal_attention_gradients(dev):
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, go = (torch.randn(2, 24, 64, 4, 32, generator=g, device=dev)
+                   for _ in range(4))
+    scale = 32 ** -0.5
+    y, grads = _grads(lambda *a: fa.temporal_attention(*a, scale), (q, k, v),
+                      go)
+    yp, grads_p = _grads(lambda *a: fa.temporal_attention(*a, scale,
+                                                          impl="plain"),
+                         (q, k, v), go)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= ATTN_BOUND
+    errs = [_rel(a, b) for a, b in zip(grads, grads_p)]
+    print(f"temporal attention gradients rel_l2 {errs}")
+    assert max(errs) <= GRAD_BOUND, errs
+
+
+def test_composed_dit_kernels_match_plain(dev):
+    """A 2-block fp32 DiT (C = 128, heads of 32) without a hoisted KV: the
+    composed path's loss and gradients, kernels against impl="plain"."""
+    dit = init_random_(DiT(model_channels=128, image_cond_channels=64,
+                           num_blocks=2, num_heads=4), seed=17).to(dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(2, 8, 128, 16, generator=g, device=dev)
+    t = torch.tensor([300.0, 20.0], device=dev)
+    ci = torch.randn(2, 8, 130, 64, generator=g, device=dev)
+    st = torch.randn(2, 128, 14, generator=g, device=dev)
+    pos = torch.rand(2, 128, 3, generator=g, device=dev)
+
+    def run(impl):
+        dit.zero_grad(set_to_none=True)
+        loss = dit(x, t, ci, st, pos, impl=impl).square().mean()
+        loss.backward()
+        return float(loss.detach()), torch.cat([p.grad.flatten()
+                                       for p in dit.parameters()])
+
+    fa.reset_launch_counts()
+    loss, grads = run(None)
+    assert fa.launch_counts["attention_d32"] == 2
+    assert fa.launch_counts["attention_cross_d32"] == 4
+    assert fa.launch_counts["temporal_attention"] == 2
+    loss_p, grads_p = run("plain")
+    torch.cuda.synchronize()
+    errs = {"loss": abs(loss - loss_p) / abs(loss_p),
+            "grads": _rel(grads, grads_p)}
+    print(f"composed DiT kernels vs plain: {errs}")
+    assert all(errs[k] <= b for k, b in COMPOSED_BOUNDS.items()), errs

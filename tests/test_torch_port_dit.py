@@ -17,6 +17,8 @@ from gvfdiffusion_torch.models.motion_vae import MotionVAE
 from gvfdiffusion_torch.utils.weights import (
     dit_state_dict_from_flax, init_random_, motion_vae_state_dict_from_flax)
 from gvfdiffusion_tpu.models.dit import DiT as JaxDiT
+from gvfdiffusion_tpu.nn import attention as j_attention_mod
+from gvfdiffusion_tpu.ops import fused_attention as j_fa
 from gvfdiffusion_tpu.utils.weight_convert import (
     convert_dit, convert_motion_vae)
 
@@ -31,6 +33,7 @@ def _one_thread():
     torch.set_num_threads(n)
 
 REL = 1e-4
+COMPOSED_REL = 2e-3
 B, T, N, C, H, L, CI, BLOCKS = 1, 8, 128, 128, 4, 20, 64, 2
 DIT_KW = dict(in_channels=16, model_channels=C, image_cond_channels=CI,
               num_blocks=BLOCKS, num_heads=H)
@@ -106,15 +109,38 @@ def test_dit_matches_jax(dit_pair, dit_inputs, fused, monkeypatch):
                 assert _rel(pa, ja) <= REL, _rel(pa, ja)
 
 
-def test_dit_without_hoisted_kv_is_the_same_function(dit_pair, dit_inputs):
-    """Without cross_kv the port builds the cache itself: same output."""
-    _, port = dit_pair
-    args = [torch.from_numpy(dit_inputs[k]) for k in
+def test_dit_without_hoisted_kv_is_the_same_function(dit_pair, dit_inputs,
+                                                      monkeypatch):
+    """Without cross_kv the port runs the composed path, JAX's at
+    GVF_FUSED=off: the DiT projects the conditioning itself, and its
+    attentions are K5 (heads of 32) and K6 (over T), computing in bf16 as
+    the JAX kernels do on the TPU. JAX's kernels run here in interpret
+    mode; the image tokens are 130 long, inside K5's rule (Lk >= 128) as
+    the reference's 1374 are. Tolerance rel L2 <= COMPOSED_REL: both sides
+    round q/k/v and P to bf16 at the same points, and ulp-level differences
+    in the fp32 scores flip a few of P's bf16 roundings."""
+    monkeypatch.setenv("GVF_FUSED", "off")
+    monkeypatch.setattr(j_attention_mod, "_on_tpu", lambda: True)
+    fused, temporal = j_fa.fused_attention, j_fa.temporal_attention
+    monkeypatch.setattr(
+        j_fa, "fused_attention",
+        lambda q, k, v, scale, cd=jnp.bfloat16: fused(q, k, v, scale, cd,
+                                                      True))
+    monkeypatch.setattr(
+        j_fa, "temporal_attention",
+        lambda q, k, v, scale, cd=jnp.bfloat16: temporal(q, k, v, scale, cd,
+                                                         True))
+    flax_params, port = dit_pair
+    inp = dict(dit_inputs, cond_images=np.random.default_rng(4).standard_normal(
+        (B, T, 130, CI)).astype(np.float32))
+    _, jout = _jax_run(flax_params, inp, hoist_kv=False)
+    args = [torch.from_numpy(inp[k]) for k in
             ("x", "t", "cond_images", "static_latent", "positions")]
     with torch.no_grad():
-        direct = port(*args)
-    _, hoisted = _port_run(port, dit_inputs)
-    assert torch.equal(direct, hoisted)
+        pout = port(*args)
+    err = _rel(pout, jout)
+    print(f"composed DiT vs JAX: rel L2 {err:.3e}")
+    assert err <= COMPOSED_REL, err
 
 
 def test_dit_weight_bridge_round_trip():

@@ -48,6 +48,13 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.models.trellis.slat_decoders",
     "gvfdiffusion_torch.diffusion.flow_euler",
     "gvfdiffusion_torch.pipelines.trellis_image_to_3d",
+    "gvfdiffusion_torch.diffusion.resample",
+    "gvfdiffusion_torch.train.train_state",
+    "gvfdiffusion_torch.train.diffusion_trainer",
+    "gvfdiffusion_torch.data.dataset_latent",
+    "gvfdiffusion_torch.utils.config",
+    "gvfdiffusion_torch.utils.checkpoint",
+    "gvfdiffusion_torch.cli.main_latent",
 ]
 
 
