@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
-    python3 chip_smoke.py --profile  # build + profiled denoise, encode,
-                                     # TRELLIS flow forwards and decode,
-                                     # one training micro-step
+    python3 chip_smoke.py --profile  # build + profiled denoise (float and
+                                     # int8 cache), encode, TRELLIS flow
+                                     # forwards (also at the defaults)
+                                     # and decode, one training micro-step
 
 Phases, each printed on its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -25,7 +26,13 @@ Phases, each printed on its own lines:
      the 512 static latents; K6 [2, 24, 512, 16, 32]), forward against the
      plain version and the gradient through each autograd Function against
      autograd of the plain version, with scaled_dot_product_attention (for
-     K6 with its transposes) as the library call;
+     K6 with its transposes) as the library call; K3's int8 form at the
+     DiT's shapes on an int8 cache of the same K/V (against its plain int8
+     version, and against the float K3 on the dequantized cache); K7 at the
+     uncompacted SLat torso's [1, 32768, 16, 64] with 3700 valid keys, as
+     a prefix (as the downsample packs parents) and scattered, with
+     scaled_dot_product_attention under the boolean key mask as the
+     library call;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -36,7 +43,11 @@ Phases, each printed on its own lines:
      orbit view at 512^2), timed stage by stage and whole; the kernel
      launches of K1-K5 are counted in this run only. Then run()'s stages
      called one by one must give what run() gave, and both again for
-     4 steps at guidance 2.0/5.0 (the 3-way CFG batch B*T = 96);
+     4 steps at guidance 2.0/5.0 (the 3-way CFG batch B*T = 96); then
+     both guidance modes again on bench.py's int8 KV cache
+     (VideoTo4DConfig(kv_quant="int8"): K3's int8 form, its launches
+     counted in the 32-step run() alone), held against their stages and
+     against the float runs;
   5. the TRELLIS image -> 3D front end at full width (DINOv2, the 24x1024
      sparse-structure flow, the occupancy decoder, the 24x1024 SLat flow
      with its torso compacted to 4096 slots, the 12x768 Gaussian decoder;
@@ -48,6 +59,13 @@ Phases, each printed on its own lines:
      sparse-structure latent and the occupancy flips, then the SLat and
      the Gaussians on the kernel run's structure); then the splat through
      VideoTo4DPipeline.run and render_4d with the video's tokens;
+  5b. TRELLIS at its defaults (path A): SLatFlowModel(torso_capacity=None)
+     and TrellisConfig() (32768 voxel slots), so the torso's full
+     self-attention runs K7 over 32768 slots: the same calibration, one
+     timed run() (the launches of K7 and K3's single-context form counted
+     in it), one SLat forward with the kernels against impl="plain", and
+     run()'s SLat against the compacted torso's (torso_capacity=4096, K5)
+     on the same structure and noise;
   6. the DiT's training at full width through cli/main_latent.main on
      configs/diffusion.yml (12 x 512, batch 2 x 24 frames, grad_accum 2,
      fp32) and a seeded synthetic dataset in LatentDataset's layout: 3
@@ -114,8 +132,25 @@ KERNELS = [
      "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_cross_d32"),
     ("temporal_attention", "gvfdiffusion_tpu/ops/fused_attention.py:427",
      "gvfdiffusion_torch/csrc/temporal_attention.cu", "temporal_attention"),
+    ("fused_cross_sublayer[int8 KV]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_q8"),
+    ("flash_attention[uncompacted SLat torso]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention"),
 ]
 SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
+# K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3)
+FLASH_REL_BOUND = 1e-2
+# K3's int8 form vs its plain int8 version at the DiT's shapes: (rel L2 of
+# y, of the update y - x); readings 6.2e-4, 3.7e-3
+Q8_BOUNDS = (3e-3, 2e-2)
+Q8_FLOAT_BOUND = 5e-2      # its update vs the float K3's on the same K/V (1.1e-2)
+# the video main path on the int8 cache against the float run (same noise):
+# rel L2 of the latent and of the deltas, at guidance 1.0/1.0 and 32 steps
+# (readings 1.0e-3, 2.4e-3) and at 2.0/5.0 and 4 steps (6.7e-3, 2.9e-3)
+INT8_RUN_BOUNDS = {"latent": 5e-3, "deltas": 1e-2}
+INT8_CFG_BOUNDS = {"latent": 3e-2, "deltas": 1.5e-2}
 TRAIN_KERNELS = ("attention_d32", "attention_cross_d32", "temporal_attention")
 # Kernel vs plain version at the full shapes, per sublayer: (rel L2 of the
 # output y, rel L2 of the update y - x). Each is 3-6x the error measured on
@@ -128,6 +163,10 @@ BOUNDS = {"self": (3e-3, 3e-2), "temporal": (3e-3, 3e-2),
           "cross": (3e-3, 3e-2), "mlp": (5e-4, 3e-3),
           "cross_single": (5e-4, 5e-3)}  # readings 1.4e-4, 1.3e-3
 ATTN_REL_BOUND = 1e-2      # K5 output rel L2, every form (2.1e-3-2.4e-3)
+# TRELLIS at its defaults (32768 slots, K7): rel L2 on the valid voxels of
+# one SLat forward, kernels vs plain, and of run()'s SLat vs the compacted
+# torso's
+TRELLIS32K_BOUNDS = {"forward": 3e-2, "compacted": 1e-2}  # 7.4e-3, 2.5e-3
 # TRELLIS, kernels vs impl="plain": rel L2 of the sparse-structure latent
 # (same tokens and noise), occupancy flips / occupied voxels, rel L2 of the
 # SLat and of the activated Gaussians on the kernel run's structure
@@ -154,6 +193,9 @@ G = 131072                 # Gaussians: 16384 voxels x 8
 VOXELS = 16384             # TRELLIS voxel slots (bench.py's L_VOX)
 TORSO = 4096               # the SLat torso's compacted capacity
 L_TORSO_VALID = 3500       # valid keys of the kernel phase's kv_bias case
+SLOTS = 32768              # TrellisConfig().voxel_capacity: the default torso
+L_FLASH_VALID = 3700       # valid keys of the kernel phase's K7 case
+PEAK_INT8 = 1979e12        # dense int8, H100 SXM datasheet (assumed)
 # occupied voxels to aim at, largest first: with random weights the
 # occupancy is not spatially coherent, so nearly every voxel has a parent
 # of its own and only about 4000 fit the torso
@@ -408,9 +450,135 @@ def phase_kernels(dev):
         if key in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
                                               key)
+        elif key == "cross_q8":
+            results[key] = phase_cross_q8(dev, name, replaces, source,
+                                          cases["cross"])
+        elif key == "flash_attention":
+            results[key] = phase_flash(dev, name, replaces, source)
         elif key not in SUBLAYERS:
             results[key] = phase_attention(dev, name, replaces, source, key)
     return results
+
+
+def phase_cross_q8(dev, name, replaces, source, case):
+    """K3's int8 form at the DiT's shapes: the float case's K/V quantized
+    (quantize_kv, k scales transposed), against its plain int8 version and
+    against the float K3 on the dequantized cache; the library composition
+    (library_cross) runs on the cache it dequantizes itself."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    x, c = case
+    _, p1, kv1, p2, kv2 = c["args"]
+
+    def q8(kv):
+        kq, ks = fsl.quantize_kv(kv[0], H)
+        vq, vs = fsl.quantize_kv(kv[1], H)
+        return kq, vq, ks.transpose(1, 2).contiguous(), vs
+
+    c1, c2 = q8(kv1), q8(kv2)
+    args = (x, p1, c1, p2, c2)
+    kw = dict(num_heads=H, quant=True)
+    deq = lambda c_: tuple(fsl.dequantize_kv(a, s_).bfloat16() for a, s_ in
+                           ((c_[0], c_[2].transpose(1, 2)), (c_[1], c_[3])))
+    y = fsl.fused_cross_sublayer(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fsl.fused_cross_sublayer(*args, **kw, impl="plain")
+    y_f = fsl.fused_cross_sublayer(x, p1, deq(c1), p2, deq(c2), num_heads=H)
+    err = rel_l2(y, ref)
+    upd = rel_l2(y.float() - x.float(), ref.float() - x.float())
+    f_upd = rel_l2(y.float() - x.float(), y_f.float() - x.float())
+    mae = float((y.float() - ref.float()).abs().max())
+    lib = lambda: library_cross(x, p1, deq(c1), p2, deq(c2), H)
+    ms = time_ms(lambda: fsl.fused_cross_sublayer(*args, **kw))
+    float_ms = time_ms(lambda: fsl.fused_cross_sublayer(
+        x, p1, kv1, p2, kv2, num_heads=H))
+    plain_ms = time_ms(lambda: fsl.fused_cross_sublayer(*args, **kw,
+                                                        impl="plain"))
+    lib_ms = time_ms(lib)
+    # the QK products at the int8 rate, the projections and P V at bf16's
+    R, D = B * T * N, C // H
+    qk = 2 * B * T * H * N * (L_IMG + N) * D
+    t_ops = (sublayer_flops("cross") - qk) / PEAK_FLOPS * 1e3 \
+        + qk / PEAK_INT8 * 1e3
+    t_bytes = nbytes(args, y) / PEAK_BYTES * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                 "bytes")
+    y_bound, upd_bound = Q8_BOUNDS
+    log(f"[kernel] {name}: x {tuple(x.shape)} bf16, int8 image KV "
+        f"{tuple(c1[0].shape)} + static {tuple(c2[0].shape)} (from the float "
+        f"case's K/V) max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+        f"{y_bound:g}) update_rel_l2 {upd:.3e} (bound {upd_bound:g}); update "
+        f"vs the float K3 on the dequantized cache rel_l2 {f_upd:.3e} (bound "
+        f"{Q8_FLOAT_BOUND:g}); kernel {ms:.3f} ms (float K3 on the float "
+        f"cache {float_ms:.3f} ms) plain {plain_ms:.3f} ms library "
+        f"{lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+    if not (bool(torch.isfinite(y).all()) and err <= y_bound
+            and upd <= upd_bound and f_upd <= Q8_FLOAT_BOUND):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_flash(dev, name, replaces, source):
+    """K7 at the uncompacted torso's [1, 32768, 16, 64] bf16 (q/k RMS-normed
+    apart, v the view of a [.., 3, 16, 64] projection) with 3700 valid
+    keys: as a prefix (the main path's layout: the downsample packs the
+    parents first), timed for the kernels line, and scattered; against the
+    plain version on every row, and SDPA with the boolean key mask."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    rnd = lambda *s_: torch.randn(*s_, generator=g, device=dev).bfloat16()
+    q, k = rnd(1, SLOTS, 16, 64), rnd(1, SLOTS, 16, 64)
+    v = rnd(1, SLOTS, 3, 16, 64)[:, :, 2]
+    scale = 64 ** -0.5
+    out = None
+    for layout in ("prefix", "scattered"):
+        valid = torch.zeros(1, SLOTS, dtype=torch.bool, device=dev)
+        if layout == "prefix":
+            valid[:, :L_FLASH_VALID] = True
+        else:
+            valid[0, torch.randperm(SLOTS, generator=g, device=dev)[
+                :L_FLASH_VALID]] = True
+        y = fl.flash_attention(q, k, v, valid, scale)
+        torch.cuda.synchronize()
+        ref = fl.flash_attention(q, k, v, valid, scale, impl="plain")
+        err = rel_l2(y, ref)
+        mae = float((y.float() - ref.float()).abs().max())
+        mask = valid[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask)
+        lib_err = rel_l2(sdpa().transpose(1, 2), ref)
+        iters = 10 if layout == "prefix" else 3
+        ms = time_ms(lambda: fl.flash_attention(q, k, v, valid, scale),
+                     iters=iters)
+        plain_ms = time_ms(lambda: fl.flash_attention(
+            q, k, v, valid, scale, impl="plain"), iters=1)
+        lib_ms = time_ms(sdpa, iters=iters)
+        tiles = int((valid.view(1, -1, 64).any(-1)).sum())
+        flops = 4 * SLOTS * L_FLASH_VALID * 16 * 64  # the valid keys only
+        b_ms, b_by = bound(flops, nbytes(q, k, v, y, valid))
+        log(f"[kernel] {name} [{layout}]: q/k/v {tuple(q.shape)} bf16 (v a "
+            f"qkv view), {L_FLASH_VALID} of {SLOTS} keys valid, {tiles} of "
+            f"{SLOTS // 64} key tiles visited; max_abs_err {mae:.4g} rel_l2 "
+            f"{err:.3e} (bound {FLASH_REL_BOUND:g}) kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms sdpa "
+            f"(boolean key mask) {lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        if not (bool(torch.isfinite(y).all()) and err <= FLASH_REL_BOUND):
+            raise AssertionError(f"{name} [{layout}] disagrees with its "
+                                 "plain version")
+        if out is None:
+            out = dict(name=name, route="cuda", source=source,
+                       replaces=replaces, max_abs_err=mae, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms)
+    return out
 
 
 def attention_case(dev, key):
@@ -959,18 +1127,21 @@ def run_stages(pipe, gs, valid, ci, seed):
 
 
 def reset_counts():
+    from gvfdiffusion_torch.ops import flash_attention as fl
     from gvfdiffusion_torch.ops import fused_attention as fa
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
 
     fsl.reset_launch_counts()
     fa.reset_launch_counts()
+    fl.reset_launch_counts()
 
 
 def read_counts():
+    from gvfdiffusion_torch.ops import flash_attention as fl
     from gvfdiffusion_torch.ops import fused_attention as fa
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
 
-    return {**fsl.launch_counts, **fa.launch_counts}
+    return {**fsl.launch_counts, **fa.launch_counts, **fl.launch_counts}
 
 
 def main_path(dino, pipe, frames, gs, valid, seed):
@@ -1064,6 +1235,7 @@ def phase_pipeline(dino, dit, vae, dev, card):
     torch.cuda.reset_peak_memory_stats()
     tokens, out, video, launches, stages = main_path(
         dino, pipe, frames, gs, valid, seed=5)
+    main_out = out
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ci = tokens[None]
     if tuple(ci.shape) != (B, T, L_IMG, 1024) or not bool(
@@ -1115,19 +1287,86 @@ def phase_pipeline(dino, dit, vae, dev, card):
         + f"; run() {wall_ms:.1f} ms; peak {peak:.2f} GiB; launches "
         f"{cfg_launches}; finite; {card}")
     check_same(out, staged, "guidance 2.0/5.0")
+    launches["cross_q8"] = phase_int8_cache(dit, vae, gs, valid, ci, dev,
+                                            card, main_out, out)
     return launches, ci
+
+
+def phase_int8_cache(dit, vae, gs, valid, ci, dev, card, float_out,
+                     float_cfg_out):
+    """The video main path on bench.py's int8 KV cache
+    (VideoTo4DConfig(kv_quant="int8"), K3's int8 form): run() at guidance
+    1.0/1.0 and 32 steps with the noise of the float main run, timed, its
+    launches counted; its stages one by one must give what run() gave; its
+    latent and deltas against the float run's. Then 4 steps at guidance
+    2.0/5.0 (B*T = 96: q scales per half cell), against its stages and the
+    float CFG run. Returns the K3 int8 launches of the 32-step run()."""
+    import torch
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+
+    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=32, order=2,
+                                                       kv_quant="int8"))
+    g = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(gs, valid, ci, generator=g)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: n for k, n in read_counts().items() if n}
+    check_outputs(out, B, T, G)
+    errs = {k: rel_l2(out[k], float_out[k]) for k in INT8_RUN_BOUNDS}
+    log(f"[int8] run() on the int8 KV cache (guidance 1.0/1.0, 32 steps, "
+        f"G={G}): {wall_ms:.1f} ms; launches {launches}; vs the float run "
+        "(same noise) rel_l2 " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in errs.items())
+        + f" (bounds {INT8_RUN_BOUNDS}); {card}")
+    want = {"self": 384, "temporal": 384, "cross_q8": 384, "mlp": 384}
+    if launches != want:
+        raise AssertionError(f"int8 run launches {launches}, expected {want}")
+    if any(errs[k] > b for k, b in INT8_RUN_BOUNDS.items()):
+        raise AssertionError("the int8 run strays from the float run")
+    staged, st = run_stages(pipe, gs, valid, ci, seed=5)
+    log("[int8] run()'s stages one by one: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in st.items()) + f"; {card}")
+    check_same(out, staged, "int8 cache, guidance 1.0/1.0")
+
+    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+        steps=4, order=2, guidance_scale=2.0, guidance_scale2=5.0,
+        kv_quant="int8"))
+    staged, st = run_stages(pipe, gs, valid, ci, seed=6)
+    reset_counts()
+    out = pipe.run(gs, valid, ci,
+                   generator=torch.Generator(device=dev).manual_seed(6))
+    torch.cuda.synchronize()
+    cfg_launches = {k: n for k, n in read_counts().items() if n}
+    check_outputs(out, B, T, G)
+    errs = {k: rel_l2(out[k], float_cfg_out[k]) for k in INT8_CFG_BOUNDS}
+    log(f"[int8] guidance 2.0/5.0 (B*T = 96, q scales per half cell), 4 "
+        "steps, stage by stage: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in st.items())
+        + f"; launches {cfg_launches}; vs the float CFG run rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bounds {INT8_CFG_BOUNDS}); {card}")
+    check_same(out, staged, "int8 cache, guidance 2.0/5.0")
+    if cfg_launches.get("cross_q8") != 48 or any(
+            errs[k] > b for k, b in INT8_CFG_BOUNDS.items()):
+        raise AssertionError("the int8 CFG run: launches or agreement")
+    return launches["cross_q8"]
 
 
 # -- the TRELLIS front end ------------------------------------------------------
 
 
-def build_trellis(dino, dev):
+def build_trellis(dino, dev, torso=TORSO, voxels=VOXELS):
     """The TRELLIS-image-large configuration at full width with seeded
     random weights (bench.py:216-326, tests/test_fullsize_golden.py:214-240):
     the 24x1024 sparse-structure flow (16 heads of 64, patch 2, q/k RMS
     norm), the (512, 128, 32) occupancy decoder, the 24x1024 SLat flow (io
-    channels 128, torso compacted to 4096 slots), the 12x768 Gaussian
-    decoder (swin window 8); 16384 voxel slots."""
+    channels 128, torso compacted to `torso` slots, or not at all with
+    None), the 12x768 Gaussian decoder (swin window 8); `voxels` voxel
+    slots."""
     import torch
     from gvfdiffusion_torch.models.trellis.slat_decoders import (
         SLatGaussianDecoder)
@@ -1146,10 +1385,10 @@ def build_trellis(dino, dev):
         dino,
         init_random_(SparseStructureFlowModel(qk_rms_norm=True, dtype=bf), 20),
         init_random_(SparseStructureDecoder(dtype=bf), 21),
-        init_random_(SLatFlowModel(qk_rms_norm=True, torso_capacity=TORSO,
+        init_random_(SLatFlowModel(qk_rms_norm=True, torso_capacity=torso,
                                    dtype=bf), 22),
         init_random_(SLatGaussianDecoder(dtype=bf), 23),
-        TrellisConfig(voxel_capacity=VOXELS),
+        TrellisConfig(voxel_capacity=voxels),
         slat_mean=torch.randn(8, generator=g) * 0.3,
         slat_std=torch.rand(8, generator=g) + 0.5, device=dev)
 
@@ -1344,8 +1583,108 @@ def phase_trellis(dino, dit, vae, ci, dev, card):
                                    "cross_single")}}
 
 
+def phase_trellis_defaults(dino, dev, card):
+    """TRELLIS at its defaults: SLatFlowModel(torso_capacity=None) and
+    TrellisConfig() (32768 voxel slots), the seeded weights of
+    phase_trellis, so the torso's full self-attention takes K7 over all
+    32768 slots. The occupancy is calibrated as there (parents <= 4096,
+    about a trained model's torso count). One timed run() with its launches
+    counted; one SLat forward, kernels vs impl="plain", on run()'s
+    structure; run()'s SLat against the compacted torso's (4096 slots, K5)
+    on the same structure, conditioning and noise: the same function on
+    the valid voxels. Returns K7's launches in run()."""
+    import torch
+    from gvfdiffusion_torch.models.trellis.slat_flow import SLatFlowModel
+    from gvfdiffusion_torch.pipelines.trellis_image_to_3d import TrellisConfig
+
+    if TrellisConfig().voxel_capacity != SLOTS:
+        raise AssertionError("TrellisConfig's default voxel capacity moved")
+    pipe = build_trellis(dino, dev, torso=None, voxels=SLOTS)
+    image = seeded_image()
+    pre = torch.from_numpy(pipe.preprocess_image(image))[None]
+    g = torch.Generator(device=dev).manual_seed(31)
+    z = pipe.sample_ss_latent(pipe.encode_image(pre), g)
+    k, gap, parents = calibrate_occupancy(pipe, z)
+    log(f"[trellis32k] occupancy bias set at rank {k} (largest logit gap "
+        f"{gap:.4g}): {parents} parents at 32^3")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(image, torch.Generator(device=dev).manual_seed(31))
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k_: n for k_, n in read_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st, cond, gs, valid = (out[k_] for k_ in ("structure", "cond",
+                                              "gaussians", "valid"))
+    n_occ = int(st.valid.sum())
+    act = gs.to_activated_tensor()
+    log(f"[trellis32k] run() at the defaults (torso_capacity=None, "
+        f"{SLOTS} voxel slots): {run_ms:.1f} ms; n_occ {n_occ}, valid "
+        f"Gaussians {int(valid.sum())} of {valid.shape[1]}; peak "
+        f"{peak:.2f} GiB; launches {launches}; {card}")
+    want = {"attention": 24 + 576, "attention_cross": 576,
+            "flash_attention": 528, "cross_single": 528}
+    if launches != want:
+        raise AssertionError(f"TRELLIS defaults launches {launches}, "
+                             f"expected {want}")
+    if not (0 < n_occ <= SLOTS and tuple(act.shape) == (1, SLOTS * 8, 14)
+            and bool(torch.isfinite(act).all())):
+        raise AssertionError("TRELLIS defaults: empty structure or "
+                             "non-finite Gaussians")
+
+    # one SLat forward, kernels vs plain, on run()'s structure
+    m = st.valid[0]
+    ch = pipe.slat_flow.in_channels
+    xs = st.replace_feats(torch.randn(1, SLOTS, ch, generator=g, device=dev)
+                          * st.valid[..., None])
+    t = torch.tensor([1000.0], device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipe.slat_flow(xs, t, cond).feats
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        y_p = pipe.slat_flow(xs, t, cond, impl="plain").feats
+    fwd_err = rel_l2(y[0][m], y_p[0][m])
+
+    # run()'s SLat against the compacted torso's, with run()'s noise
+    gen = torch.Generator(device=dev).manual_seed(31)
+    torch.randn(z.shape, generator=gen, device=dev)  # the ss noise
+    n2 = torch.randn((1, SLOTS, ch), generator=gen, device=dev)
+    compacted = SLatFlowModel(qk_rms_norm=True, torso_capacity=TORSO,
+                              dtype=torch.bfloat16).to(dev)
+    compacted.load_state_dict(pipe.slat_flow.state_dict())
+    uncompacted, pipe.slat_flow = pipe.slat_flow, compacted
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slat_c = pipe.sample_slat(st, cond, noise_feats=n2)
+    torch.cuda.synchronize()
+    comp_ms = (time.perf_counter() - t0) * 1e3
+    comp_launches = {k_: n for k_, n in read_counts().items() if n}
+    pipe.slat_flow = uncompacted
+    slat_err = rel_l2(out["slat"].feats[0][m], slat_c.feats[0][m])
+    log(f"[trellis32k] one SLat forward ({n_occ} voxels in {SLOTS} slots) "
+        f"{fwd_ms:.1f} ms, kernels vs plain rel_l2 {fwd_err:.3e} (bound "
+        f"{TRELLIS32K_BOUNDS['forward']:g}); run()'s SLat vs the compacted "
+        f"torso's ({TORSO} slots, K5; sample_slat {comp_ms:.1f} ms, launches "
+        f"{comp_launches}) rel_l2 {slat_err:.3e} (bound "
+        f"{TRELLIS32K_BOUNDS['compacted']:g}); {card}")
+    if not (fwd_err <= TRELLIS32K_BOUNDS["forward"]
+            and slat_err <= TRELLIS32K_BOUNDS["compacted"]
+            and comp_launches.get("attention_bias") == 528):
+        raise AssertionError("TRELLIS defaults disagree with the plain path "
+                             "or with the compacted torso")
+    return launches["flash_attention"]
+
+
 def _kernel_group(name: str) -> str:
-    for k in ("attn_kernel", "temporal_kernel", "gemm_kernel", "ln_kernel"):
+    for k in ("attn_kernel", "temporal_kernel", "gemm_kernel", "ln_kernel",
+              "flash_kernel", "tile_count_kernel", "attn_q8_kernel",
+              "q8_kernel"):
         if k in name:
             return k
     if any(k in name for k in ("fmha", "flash", "attention")):
@@ -1400,11 +1739,12 @@ def _profile(fn, what: str, trace: str, card: str) -> None:
 
 def phase_profile(dino, dit, vae, dev, card):
     """Where the time goes, at full width: a 4-step denoise (guidance
-    1.0/1.0, KV hoisted; trace denoise_trace.json), the DINOv2
-    encode_image of 32 frames (trace encode_trace.json), and one forward
-    of each TRELLIS flow and the Gaussian decode on the main path's
-    structure (ss_flow_trace.json, slat_flow_trace.json,
-    gs_decode_trace.json)."""
+    1.0/1.0, KV hoisted; trace denoise_trace.json) and the same on the int8
+    cache (denoise_int8_trace.json), the DINOv2 encode_image of 32 frames
+    (trace encode_trace.json), one forward of each TRELLIS flow and the
+    Gaussian decode on the main path's structure (ss_flow_trace.json,
+    slat_flow_trace.json, gs_decode_trace.json), and one SLat forward at
+    the defaults, 32768 slots with K7 (slat_flow_32k_trace.json)."""
     import torch
     from gvfdiffusion_torch.models.dinov2 import encode_image
     from gvfdiffusion_torch.pipelines.video_to_4d import (
@@ -1420,6 +1760,13 @@ def phase_profile(dino, dit, vae, dev, card):
         ci, anchors, anchors[..., :3], generator=g, cross_kv=kv),
         "4-step denoise (4 DiT forwards, B*T = 32)", "denoise_trace.json",
         card)
+    pipe8 = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=4, order=2,
+                                                        kv_quant="int8"))
+    kv8 = pipe8.cross_kv(ci, anchors)
+    _profile(lambda: pipe8.sample_deformation_latent(
+        ci, anchors, anchors[..., :3], generator=g, cross_kv=kv8),
+        "4-step denoise on the int8 KV cache (4 DiT forwards, B*T = 32)",
+        "denoise_int8_trace.json", card)
     images = torch.rand(T, 518, 518, 3, generator=g, device=dev)
     _profile(lambda: encode_image(dino, images),
              f"DINOv2 encode_image ({T} frames, 518^2)", "encode_trace.json",
@@ -1444,7 +1791,20 @@ def phase_profile(dino, dit, vae, dev, card):
         _profile(lambda: pipe.decode_slat(staged["slat"]),
                  f"SLat Gaussian decode ({VOXELS} slots)",
                  "gs_decode_trace.json", card)
-    del pipe, staged, dino, dit, vae
+    # TRELLIS at its defaults: one SLat forward over 32768 slots (K7)
+    pipe32 = build_trellis(dino, dev, torso=None, voxels=SLOTS)
+    z = pipe32.sample_ss_latent(cond, torch.Generator(
+        device=dev).manual_seed(31))
+    calibrate_occupancy(pipe32, z)
+    st32 = pipe32.decode_structure(z)
+    xs32 = st32.replace_feats(torch.randn(1, SLOTS, 8, generator=g,
+                                          device=dev) * st32.valid[..., None])
+    with torch.no_grad():
+        _profile(lambda: pipe32.slat_flow(xs32, t, cond),
+                 f"SLat flow forward at the defaults ({int(st32.valid.sum())}"
+                 f" voxels, torso uncompacted: {SLOTS} slots)",
+                 "slat_flow_32k_trace.json", card)
+    del pipe, pipe32, staged, dino, dit, vae
     torch.cuda.empty_cache()
     phase_profile_training(dev, card)
 
@@ -1526,13 +1886,17 @@ def main(argv) -> int:
     phase_dit(dit, dev)
     launches, ci = phase_pipeline(dino, dit, vae, dev, card)
     trellis = phase_trellis(dino, dit, vae, ci, dev, card)
-    del dino, dit, vae, ci
+    del dit, vae, ci
+    torch.cuda.empty_cache()
+    trellis["flash_attention"] = phase_trellis_defaults(dino, dev, card)
+    del dino
     torch.cuda.empty_cache()
     train = phase_training(dev, card)
     # each entry's count comes from one run: the TRELLIS forms from
-    # TrellisImageTo3DPipeline.run, the training forms (K5 at heads of 32,
-    # K6) from main_latent.main's first run, the others (K1-K4, K5 in
-    # DINOv2's video encode) from the video main path
+    # TrellisImageTo3DPipeline.run (K7 from the run at the defaults), the
+    # training forms (K5 at heads of 32, K6) from main_latent.main's first
+    # run, K3's int8 form from run() on the int8 cache, the others (K1-K4,
+    # K5 in DINOv2's video encode) from the video main path
     counts = {**launches, **trellis, **train}
     for key, r in results.items():
         r["launches"] = counts[key]

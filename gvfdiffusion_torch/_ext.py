@@ -41,6 +41,9 @@ _SIGNATURES = {
     + [_P],
     "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _I, _P],
     "gvf_temporal_attention": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
+    "gvf_cross_sublayer_q8": [_P] + ([_P] * 10 + [_I]) * 2 + [_P] * 7
+    + [_I] * 5 + [_P],
+    "gvf_flash_attention": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P],
 }
 
 _lib = None

@@ -1,0 +1,245 @@
+// K7: streaming flash attention over key validity for Hopper (sm_90a), the
+// full sparse self-attention of the SLat flow's uncompacted torso: q/k/v
+// [1, 32768, 16, 64] bf16, with a few thousand valid slots.
+//
+// Replaces the stock Pallas TPU flash attention that
+// gvfdiffusion_tpu/sparse/attention.py:57 `_flash_full_attention` calls
+// with the key validity as segment ids (every query in segment 1). Its
+// arithmetic, kept here: scores q . k in fp32 from the bf16 inputs, times
+// the scale, plus -0.7 * FLT_MAX on an invalid key (not -inf); an online
+// softmax over key blocks with the row sum from the fp32 P and P rounded
+// to bf16 for P V; every query row computed, valid or not. A batch row with
+// no valid key gives, on the TPU, the mean of V over the key count padded
+// to 512 (every score equals the mask value, so P is 1 on every padded key,
+// and the padding's V is 0): here the same, sum(V) / lk_pad.
+//
+// The kernel skips every 64-key tile that holds no valid key. That is exact:
+// such a tile adds exp(-0.7 * FLT_MAX - m) = 0 to a row that has a valid key,
+// and a tile with a valid key sets every row's running maximum to a real
+// score before any rounding matters. It is also what makes the torso
+// affordable: its valid slots are a prefix (the downsample packs parents in
+// code order), so ~3700 valid keys of 32768 visit 58 of 512 tiles. A first
+// kernel counts the valid keys of each (batch row, tile) once per call; the
+// attention kernel reads those counts to skip tiles and to find a batch row
+// with none.
+//
+// What bounds it on the H100: the tensor cores, 4 * Lq * n_valid * H * D
+// operations (0.50 TFLOP at 3700 valid keys, 0.50 ms at the datasheet's 989
+// TFLOP/s) against ~13 MB of traffic. This first version is far from that
+// bound: one CTA (4 warps) per (64-query tile, head, batch row), K/V tiles
+// staged through shared memory with 16-byte loads, WMMA 16x16x16 bf16
+// products whose S and P V results round-trip through shared memory, the
+// softmax on CUDA cores, no wgmma, TMA or cp.async pipelining. It is
+// written to be right first.
+
+#include <float.h>
+
+#include "attention.cuh"
+
+namespace {
+
+using namespace gvf;
+
+constexpr int FQ = 64, FK = 64, FD = 64;
+constexpr float MASK_VALUE = -0.7f * FLT_MAX;
+
+// counts[b * tiles + t] = valid keys in key tile t of batch row b
+__global__ void __launch_bounds__(FK)
+tile_count_kernel(const unsigned char* __restrict__ valid, int* __restrict__ counts,
+                  int Lk, int tiles) {
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int j = t * FK + threadIdx.x;
+  const int ok = j < Lk && valid[(long long)b * Lk + j];
+  const int n = __syncthreads_count(ok);
+  if (threadIdx.x == 0) counts[(long long)b * tiles + t] = n;
+}
+
+struct FlashParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const unsigned char* valid;  // [B, Lk]
+  const int* counts;           // [B, tiles]
+  bf16* o;                     // [B, Lq, H, D] contiguous
+  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
+  int Lq, Lk, H, tiles, lk_pad;
+  float scale;
+};
+
+// 64 rows of 64 bf16 (128 bytes each) from src rows strided by `sl`
+// elements into dst [64][64]; rows past n are zero
+__device__ __forceinline__ void load_tile(const bf16* src, long long sl, int n,
+                                          bf16* dst) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int idx = threadIdx.x + it * 128;  // 512 chunks of 8 bf16
+    const int r = idx >> 3, c = (idx & 7) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n) val = *reinterpret_cast<const uint4*>(src + r * sl + c);
+    *reinterpret_cast<uint4*>(dst + r * FD + c) = val;
+  }
+}
+
+// Static shared memory: 3 * 8 KB (Q, K, V) + 16 KB (S, then P V) + 8 KB (P).
+__global__ void __launch_bounds__(128) flash_kernel(FlashParams p) {
+  __shared__ __align__(128) bf16 sQ[FQ * FD];
+  __shared__ __align__(128) bf16 sK[FK * FD];
+  __shared__ __align__(128) bf16 sV[FK * FD];
+  __shared__ __align__(128) float sS[4][16 * FK];
+  __shared__ __align__(128) bf16 sP[4][16 * FK];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * FQ;
+  const int* cnt = p.counts + (long long)b * p.tiles;
+  const unsigned char* vb = p.valid + (long long)b * p.Lk;
+
+  // a batch row with no valid key takes every key, each with P = 1
+  int any = 0;
+  for (int t = tid; t < p.tiles; t += 128) any |= cnt[t];
+  const bool uniform = !__syncthreads_or(any);
+
+  load_tile(p.q + b * p.q_sb + (long long)q0 * p.q_sl + h * FD, p.q_sl,
+            p.Lq - q0, sQ);
+
+  // lanes (2r, 2r+1) of a warp own query row r of its 16, 32 keys each
+  const int r = lane >> 1, half = lane & 1;
+  float m_run = neg_inf(), l_run = 0.f;
+  float o_acc[FD / 2];
+#pragma unroll
+  for (int d = 0; d < FD / 2; ++d) o_acc[d] = 0.f;
+  float* sSw = sS[warp];
+  bf16* sPw = sP[warp];
+
+  for (int t = 0; t < p.tiles; ++t) {
+    if (!uniform && cnt[t] == 0) continue;  // uniform across the CTA
+    const int j0 = t * FK;
+    __syncthreads();  // the previous tile's K/V are no longer read
+    load_tile(p.k + b * p.k_sb + (long long)j0 * p.k_sl + h * FD, p.k_sl,
+              p.Lk - j0, sK);
+    load_tile(p.v + b * p.v_sb + (long long)j0 * p.v_sl + h * FD, p.v_sl,
+              p.Lk - j0, sV);
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 query rows
+#pragma unroll
+    for (int j = 0; j < FK / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < FD; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fa, sQ + warp * 16 * FD + kk, FD);
+        wmma::load_matrix_sync(fb, sK + j * 16 * FD + kk, FD);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(sSw + j * 16, acc, FK, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // online softmax: s = q.k * scale (+ the mask value on an invalid key);
+    // keys past Lk get P = 0
+    float sv[32];
+    float mx = neg_inf();
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int j = j0 + half * 32 + c;
+      float s = neg_inf();
+      if (j < p.Lk) {
+        if (uniform) {
+          s = 0.f;
+        } else {
+          s = sSw[r * FK + half * 32 + c] * p.scale;
+          if (!vb[j]) s += MASK_VALUE;
+        }
+      }
+      sv[c] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    // every visited tile holds a key below Lk, so m_new is finite
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      sv[c] = expf(sv[c] - m_new);
+      psum += sv[c];
+    }
+    m_run = m_new;
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    l_run = l_run * alpha + psum;
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      sPw[r * FK + half * 32 + c] = __float2bfloat16(sv[c]);
+    __syncwarp();
+
+    // P V into the (now free) score area as [16, D]
+#pragma unroll
+    for (int dj = 0; dj < FD / 16; ++dj) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < FK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, sPw + kk, FK);
+        wmma::load_matrix_sync(fb, sV + kk * FD + dj * 16, FD);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(sSw + dj * 16, acc, FD, wmma::mem_row_major);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int d = 0; d < FD / 2; ++d)
+      o_acc[d] = o_acc[d] * alpha + sSw[r * FD + half * (FD / 2) + d];
+    __syncwarp();
+  }
+
+  const int qi = q0 + warp * 16 + r;
+  if (qi < p.Lq) {
+    const float inv = 1.f / (uniform ? (float)p.lk_pad : l_run);
+    bf16* orow = p.o + ((long long)b * p.Lq + qi) * p.H * FD + h * FD +
+                 half * (FD / 2);
+#pragma unroll
+    for (int d = 0; d < FD / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] * inv);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: element (b, i, h, d) at b * q_sb + i * q_sl + h * 64 + d, likewise k
+// and v with their own strides; all bf16, rows 16-byte aligned; valid:
+// bool [B, Lk]; counts: int32 scratch [B, ceil(Lk / 64)]; o: bf16
+// [B, Lq, H, 64] contiguous; lk_pad: Lk padded to the TPU kernel's 512.
+int gvf_flash_attention(const void* q, const void* k, const void* v,
+                        const void* valid, void* counts, void* o, int B,
+                        int Lq, int Lk, int H, int D, long long q_sb,
+                        long long q_sl, long long k_sb, long long k_sl,
+                        long long v_sb, long long v_sl, float scale,
+                        int lk_pad, void* stream) {
+  if (D != FD || B < 1 || B > 65535 || Lq < 1 || Lk < 1 || H < 1 ||
+      H > 65535 || lk_pad < Lk)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = (int)cdiv(Lk, FK);
+  tile_count_kernel<<<dim3(tiles, B), FK, 0, s>>>(
+      (const unsigned char*)valid, (int*)counts, Lk, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  FlashParams p;
+  p.q = (const bf16*)q; p.k = (const bf16*)k; p.v = (const bf16*)v;
+  p.valid = (const unsigned char*)valid; p.counts = (const int*)counts;
+  p.o = (bf16*)o;
+  p.q_sb = q_sb; p.q_sl = q_sl; p.k_sb = k_sb; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sl = v_sl;
+  p.Lq = Lq; p.Lk = Lk; p.H = H; p.tiles = tiles; p.lk_pad = lk_pad;
+  p.scale = scale;
+  flash_kernel<<<dim3(cdiv(Lq, FQ), H, B), 128, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

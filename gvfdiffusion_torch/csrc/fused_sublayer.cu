@@ -8,6 +8,9 @@
 //   gvf_cross_sublayer1    <- _cross_sublayer_kernel    (one context: the SLat
 //                                                        flow torso, heads of 64)
 //   gvf_mlp_sublayer       <- _mlp_sublayer_kernel      (fused_mlp_sublayer)
+//   gvf_cross_sublayer_q8  <- _cross_sublayer_kernel    (quant=True: the DiT's
+//                                                        two contexts against an
+//                                                        int8 KV cache)
 //
 // Each entry point launches a short fixed chain of the kernels below on the
 // caller's stream and allocates nothing: the Python wrapper hands in every
@@ -41,6 +44,19 @@
 // (L = 4096, C = 1024, 16 heads of 64, Lk = 1374): 40.2 GFLOP against
 // 27 MB of traffic, so the tensor cores bound it too. The TPU's lq_block /
 // kv_buffers sized its VMEM residency and have no counterpart here.
+//
+// The int8 entry keeps the TPU kernel's int8 arithmetic (_packed_attention's
+// k_int8 branch): q8_kernel quantizes the fp32 q per (cell, head) with
+// qs = max |q| over the cell's rows and the head's lanes (floored at 1e-8),
+// qi = round(q * (127 / qs)), where a cell is one TPU grid instance (all L
+// rows of a batch row, or the q_block rows the JAX DiT grids at the 3-way
+// CFG batch); attn_q8_kernel takes the scores int8 x int8 -> int32 on the
+// tensor cores (WMMA 16x16x16 s8), s = si * (ks_j * (qs * scale * log2 e /
+// 127)) - 30 and P = exp2(s) (the fixed shift: no running maximum), V
+// dequantized to bf16 as bf16(v * vs) on its way into shared memory, P
+// rounded to bf16 for P V and the output divided by the fp32 row sum. At
+// the DiT's shapes it reads half the cache's bytes of the float form; its
+// QK products run at the int8 rate (1,979 TOP/s on the datasheet).
 
 #include "attention.cuh"
 
@@ -232,6 +248,193 @@ cudaError_t launch_attn64(const AttnParams& p, int H, long long nb1, int D,
   return launch_attn<64, TQ, TKV>(p, H, nb1, s);
 }
 
+// ---------------------------------------------------------------------------
+// K3's int8 form (heads of 32).
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One block per (cell, head): qs = max(max |q|, 1e-8) over the cell's rows
+// and the head's D lanes, qi = round(q * (127 / qs)) (half to even).
+template <int D>
+__global__ void __launch_bounds__(256)
+q8_kernel(const float* __restrict__ q, signed char* __restrict__ qi,
+          float* __restrict__ qs, int rows_per_cell, int C, int H) {
+  __shared__ float red[8];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long off = (long long)blockIdx.x * rows_per_cell * C + blockIdx.y * D;
+  const float* src = q + off;
+  const int n = rows_per_cell * D;
+  float mx = 0.f;
+  for (int e = tid; e < n; e += 256)
+    mx = fmaxf(mx, fabsf(src[(long long)(e / D) * C + e % D]));
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    float v = lane < 8 ? red[lane] : 0.f;
+    v = warp_max(v);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float s = fmaxf(red[0], 1e-8f);
+  const float r = 127.f / s;
+  signed char* dst = qi + off;
+  for (int e = tid; e < n; e += 256) {
+    const long long o = (long long)(e / D) * C + e % D;
+    dst[o] = (signed char)__float2int_rn(src[o] * r);
+  }
+  if (tid == 0) qs[(long long)blockIdx.x * H + blockIdx.y] = s;
+}
+
+constexpr int QD = 32;  // the DiT's head width
+
+struct Q8Params {
+  const signed char* qi;  // [B * L, C]
+  const float* qs;        // [B * L / q_block, H]
+  const signed char* k;   // [B, Lk, C]
+  const signed char* v;   // [B, Lk, C]
+  const bf16* ks_t;       // [B, H, Lk]
+  const bf16* vs;         // [B, Lk, H]
+  bf16* o;                // [B * L, C]
+  int L, Lk, C, H, q_block;
+  float scale;
+};
+
+// One CTA (4 warps) per (64-query tile, head, batch row), 64-key tiles. The
+// int8 tiles sit in shared memory as two 16-lane panels, so that every WMMA
+// s8 fragment starts on a 32-byte boundary. Static shared memory ~33 KB.
+__global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
+  __shared__ __align__(128) signed char sQ[2][64 * 16];
+  __shared__ __align__(128) signed char sK[2][64 * 16];
+  __shared__ __align__(128) bf16 sV[64 * QD];
+  __shared__ __align__(128) int sS[4][16 * 64];  // int scores, then fp32 P V
+  __shared__ __align__(128) bf16 sP[4][16 * 64];
+  __shared__ float sKs[64];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * 64;
+  const long long row0 = (long long)b * p.L;
+  const int lr = tid >> 1, lh = tid & 1;  // loader: row, 16-lane panel
+  {
+    const int qi = q0 + lr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (qi < p.L)
+      val = *reinterpret_cast<const uint4*>(p.qi + (row0 + qi) * p.C + h * QD + lh * 16);
+    *reinterpret_cast<uint4*>(sQ[lh] + lr * 16) = val;
+  }
+
+  // lanes (2r, 2r+1) of a warp own query row r of its 16, 32 keys each;
+  // f = qs * scale * log2(e) / 127 of the row's cell, rounded as the TPU's
+  const int r = lane >> 1, half = lane & 1;
+  const int qrow = q0 + warp * 16 + r;
+  float f = 0.f;
+  if (qrow < p.L) {
+    const long long cell = (row0 + qrow) / p.q_block;
+    f = __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[cell * p.H + h], p.scale), LOG2E), 127.f);
+  }
+  float l_run = 0.f;
+  float o_acc[QD / 2];
+#pragma unroll
+  for (int d = 0; d < QD / 2; ++d) o_acc[d] = 0.f;
+  int* sSw = sS[warp];
+  float* sOw = reinterpret_cast<float*>(sS[warp]);
+  bf16* sPw = sP[warp];
+  const signed char* kb = p.k + (long long)b * p.Lk * p.C + h * QD + lh * 16;
+  const signed char* vb = p.v + (long long)b * p.Lk * p.C + h * QD + lh * 16;
+  const bf16* ksb = p.ks_t + ((long long)b * p.H + h) * p.Lk;
+  const bf16* vsb = p.vs + (long long)b * p.Lk * p.H + h;
+
+  for (int j0 = 0; j0 < p.Lk; j0 += 64) {
+    __syncthreads();  // the previous tile is no longer read
+    {
+      const int kj = j0 + lr;
+      const bool ok = kj < p.Lk;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (ok) {
+        kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.C);
+        vv = *reinterpret_cast<const uint4*>(vb + (long long)kj * p.C);
+      }
+      *reinterpret_cast<uint4*>(sK[lh] + lr * 16) = kv;
+      const float vsc = ok ? to_f(vsb[(long long)kj * p.H]) : 0.f;
+      const signed char* vc = reinterpret_cast<const signed char*>(&vv);
+#pragma unroll
+      for (int d = 0; d < 16; ++d)
+        sV[lr * QD + lh * 16 + d] = __float2bfloat16(__fmul_rn((float)vc[d], vsc));
+      if (tid < 64) sKs[tid] = j0 + tid < p.Lk ? to_f(ksb[j0 + tid]) : 0.f;
+    }
+    __syncthreads();
+
+    // S = Qi Ki^T in int32 for this warp's 16 query rows
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
+      wmma::fill_fragment(acc, 0);
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb;
+        wmma::load_matrix_sync(fa, sQ[kh] + warp * 16 * 16, 16);
+        wmma::load_matrix_sync(fb, sK[kh] + j * 16 * 16, 16);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(sSw + j * 16, acc, 64, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // P = exp2(si * (ks * f) - 30); keys past Lk get P = 0
+    float sv[32];
+    float psum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int jj = half * 32 + c;
+      float e = 0.f;
+      if (j0 + jj < p.Lk) {
+        const float cf = __fmul_rn(sKs[jj], f);
+        e = exp2f(__fsub_rn(__fmul_rn((float)sSw[r * 64 + jj], cf), EXP2_SHIFT));
+      }
+      sv[c] = e;
+      psum += e;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    l_run += psum;
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      sPw[r * 64 + half * 32 + c] = __float2bfloat16(sv[c]);
+    __syncwarp();
+
+    // P V into the (now free) score area as fp32 [16, D]
+#pragma unroll
+    for (int dj = 0; dj < QD / 16; ++dj) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < 64; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, sPw + kk, 64);
+        wmma::load_matrix_sync(fb, sV + kk * QD + dj * 16, QD);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(sOw + dj * 16, acc, QD, wmma::mem_row_major);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int d = 0; d < QD / 2; ++d) o_acc[d] += sOw[r * QD + half * (QD / 2) + d];
+    __syncwarp();
+  }
+
+  if (qrow < p.L) {
+    const float den = fmaxf(l_run, 1e-30f);
+    bf16* orow = p.o + (row0 + qrow) * p.C + h * QD + half * (QD / 2);
+#pragma unroll
+    for (int d = 0; d < QD / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] / den);
+  }
+}
+
 #define GVF_CHECK(call)                  \
   do {                                   \
     cudaError_t err_ = (call);           \
@@ -386,6 +589,57 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   else
     GVF_CHECK((launch_gemm<EPI_RESID, bf16, bf16>(attn, wo, bo, (const bf16*)x,
                                                   nullptr, (bf16*)y, R, C, C, 1, s)));
+  return 0;
+}
+
+// K3, int8 form (quant=True). As gvf_cross_sublayer, with per context the
+// int8 cache: k, v [B, Lk_i, C] int8, ks_t [B, H, Lk_i] and vs [B, Lk_i, H]
+// bf16 scales; heads of 32; q quantized per (cell of q_block rows, head).
+// Scratch: h bf16, q fp32, qi int8, attn bf16, mid fp32, each [B*L, C], and
+// qs fp32 [B*L / q_block, H].
+int gvf_cross_sublayer_q8(const void* x,
+                          const void* ns1, const void* nb1, const void* wq1,
+                          const void* bq1, const void* wo1, const void* bo1,
+                          const void* k1, const void* v1, const void* ks1,
+                          const void* vs1, int lk1,
+                          const void* ns2, const void* nb2, const void* wq2,
+                          const void* bq2, const void* wo2, const void* bo2,
+                          const void* k2, const void* v2, const void* ks2,
+                          const void* vs2, int lk2,
+                          void* y, void* h, void* q, void* qi, void* qs,
+                          void* attn, void* mid, int B, int L, int C, int H,
+                          int q_block, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long R = (long long)B * L;
+  if (H < 1 || C != QD * H || C % 16 || q_block < 1 || L % q_block || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto attend = [&](const void* k, const void* v, const void* ks,
+                    const void* vs, int lk) -> cudaError_t {
+    q8_kernel<QD><<<dim3((unsigned)(R / q_block), H), 256, 0, s>>>(
+        (const float*)q, (signed char*)qi, (float*)qs, q_block, C, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    Q8Params p;
+    p.qi = (const signed char*)qi; p.qs = (const float*)qs;
+    p.k = (const signed char*)k; p.v = (const signed char*)v;
+    p.ks_t = (const bf16*)ks; p.vs = (const bf16*)vs; p.o = (bf16*)attn;
+    p.L = L; p.Lk = lk; p.C = C; p.H = H; p.q_block = q_block;
+    p.scale = (float)(1.0 / sqrt((double)QD));
+    attn_q8_kernel<<<dim3(cdiv(L, 64), H, B), 128, 0, s>>>(p);
+    return cudaGetLastError();
+  };
+  GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
+  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,
+                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK(attend(k1, v1, ks1, vs1, lk1));
+  GVF_CHECK((launch_gemm<EPI_RESID, bf16, float>(attn, wo1, bo1, (const bf16*)x,
+                                                 nullptr, (float*)mid, R, C, C, 1, s)));
+  GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
+  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq2, bq2, nullptr, nullptr,
+                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK(attend(k2, v2, ks2, vs2, lk2));
+  GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
+                                                 nullptr, (bf16*)y, R, C, C, 1, s)));
   return 0;
 }
 

@@ -35,6 +35,12 @@ from ..nn.transformer import FinalLayer, ModulatedTransformerCrossBlock
 _TRUNC_STD = 0.87962566103423978
 
 
+def check_kv_quant(kv_quant: Optional[str]) -> None:
+    """The KV cache's storage: None (float) or "int8"."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+
+
 class DiT(nn.Module):
     """`dtype` is the compute dtype (flax's `dtype`): parameters stay as
     stored and are cast at use. The timestep embedder computes in fp32. On
@@ -103,12 +109,18 @@ class DiT(nn.Module):
                 f"{self.dtype})")
 
     def kv_cache(self, cond_images: torch.Tensor,
-                 static_latent: torch.Tensor):
+                 static_latent: torch.Tensor,
+                 kv_quant: Optional[str] = None):
         """Per-block cross-attention KV (constant across sampler steps):
-        a tuple over blocks of ((img_k, img_v), (static_k, static_v))."""
+        a tuple over blocks of ((img_k, img_v), (static_k, static_v)).
+        kv_quant="int8" stores it as int8 with per-(token, head) scales
+        (JAX's GVF_KV_QUANT=int8, bench.py's setting), and the blocks then
+        run K3's int8 form; None keeps it float."""
+        check_kv_quant(kv_quant)
         self._check_fused(cond_images)
         image_emb, static_emb = self._conditioning(cond_images, static_latent)
-        return tuple(b.kv(image_emb, static_emb) for b in self.blocks)
+        return tuple(b.kv(image_emb, static_emb, quant=kv_quant == "int8")
+                     for b in self.blocks)
 
     def _conditioning(self, cond_images, static_latent):
         """The projected conditioning: image tokens [B, T, L, C] and the

@@ -9,11 +9,14 @@ paired upsample. The deepest downsample compacts the parents to
 `torso_capacity` slots before its conv body, so the body and the torso run
 at that capacity.
 
-In the torso the self-attention is K5 with the key validity as a -inf
-logit bias (sparse/attention.full_sparse_attention), and the cross
-sublayer is always K3 in its single-context form (ops/fused_sublayer.py;
-on the card it takes heads of 64 and raises otherwise). The cross q/k RMS
-norm (`qk_rms_norm_cross`), which the released model leaves off, the
+In the torso the self-attention follows sparse/attention.
+full_sparse_attention's dispatch: K5 with the key validity as a -inf logit
+bias up to 4096 slots (a compacted torso), past that K7, the streaming
+flash kernel over key validity (the default `torso_capacity=None` at 32768
+voxel slots). The cross sublayer is always K3 in its single-context form
+(ops/fused_sublayer.py; on the card it takes heads of 64 and raises
+otherwise), at any slot count. The cross q/k RMS norm
+(`qk_rms_norm_cross`), which the released model leaves off, the
 measurement-only `ablate` fields and `share_mod` are not ported.
 """
 

@@ -95,8 +95,9 @@ class ModulatedTransformerCrossBlock(nn.Module):
 
     x [B, T, N, C]; mod [B, C] (the timestep embedding); either cross_kv =
     ((img_k, img_v), (static_k, static_v)), each [B*T, Lk, heads, head_dim],
-    from `kv` (the fused path), or the projected conditioning cond_images
-    [B, T, L, C] and static_latent [B, T, Ns, C] (the composed path).
+    or its int8 form, from `kv` (the fused path), or the projected
+    conditioning cond_images [B, T, L, C] and static_latent [B, T, Ns, C]
+    (the composed path).
     Parameter names follow the reference's torch state dict, shared by both
     paths. The self-attentions carry q/k RMS norms, the cross-attentions
     none (the shipped DiT configuration).
@@ -123,15 +124,27 @@ class ModulatedTransformerCrossBlock(nn.Module):
         self.static_cross_attn = MultiHeadAttention(C, num_heads, "cross")
         self.mlp = FeedForwardNet(C)
 
-    def kv(self, cond_images: torch.Tensor, static_latent: torch.Tensor):
+    def kv(self, cond_images: torch.Tensor, static_latent: torch.Tensor,
+           quant: bool = False):
         """The loop-invariant cross-attention KV: cond_images [B, T, L, C],
-        static_latent [B, T, Ns, C] (both already projected to C)."""
+        static_latent [B, T, Ns, C] (both already projected to C). With
+        quant=True each context's cache is quantized once (JAX :234-250):
+        (k int8, v int8, k scales [B*T, H, Lk], v scales [B*T, Lk, H])."""
         C = self.channels
         img = self.image_cross_attn.kv(
             cond_images.reshape(-1, cond_images.shape[2], C), self.dtype)
         static = self.static_cross_attn.kv(
             static_latent.reshape(-1, static_latent.shape[2], C), self.dtype)
-        return img, static
+        if not quant:
+            return img, static
+
+        def q8(kv):
+            k, v = (a.reshape(a.shape[0], a.shape[1], C) for a in kv)
+            kq, ks = fsl.quantize_kv(k, self.num_heads)
+            vq, vs = fsl.quantize_kv(v, self.num_heads)
+            return kq, vq, ks.transpose(1, 2).contiguous(), vs
+
+        return q8(img), q8(static)
 
     def forward(self, x: torch.Tensor, mod: torch.Tensor, cross_kv=None,
                 cond_images: Optional[torch.Tensor] = None,
@@ -203,13 +216,19 @@ class ModulatedTransformerCrossBlock(nn.Module):
                     w(attn.to_out.bias))
 
         img_kv, static_kv = cross_kv
+        # an int8 cache goes in as stored; its q scales cover a cell of N
+        # rows, or half of one where the JAX DiT grids the rows at the
+        # 3-way CFG batch (JAX :455-458)
+        quant = len(img_kv) == 4
+        kv_in = (lambda kv: kv) if quant else (
+            lambda kv: tuple(w(a) for a in kv))
+        q_block = N // 2 if quant and B * T > 64 and N % 2 == 0 else N
         x = fsl.fused_cross_sublayer(
             x.reshape(B * T, N, C),
-            cross_args(self.norm3, self.image_cross_attn),
-            tuple(w(a) for a in img_kv),
-            cross_args(self.norm4, self.static_cross_attn),
-            tuple(w(a) for a in static_kv),
-            num_heads=H, compute_dtype=dt, impl=impl)
+            cross_args(self.norm3, self.image_cross_attn), kv_in(img_kv),
+            cross_args(self.norm4, self.static_cross_attn), kv_in(static_kv),
+            num_heads=H, compute_dtype=dt, quant=quant, q_block=q_block,
+            impl=impl)
 
         l1, l2 = self.mlp.mlp[0], self.mlp.mlp[2]
         x = fsl.fused_mlp_sublayer(

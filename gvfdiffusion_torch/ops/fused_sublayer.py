@@ -14,16 +14,23 @@ Only the configurations the port's models run are ported: heads of width
 32, q/k RMS norms on the self and temporal sublayers, none on the cross
 sublayer, and two chained cross contexts (image, then static) for the DiT;
 one cross context at heads of 64, without RMS norm, for the SLat flow
-torso. The JAX kernel's `lq_block` and `kv_buffers` sized its VMEM
-residency on the TPU and have no counterpart here; its int8 `quant` is not
-ported.
+torso. The JAX kernel's `kv_buffers` sized its VMEM residency on the TPU
+and has no counterpart here. Its int8 `quant` form (the DiT's two contexts
+against an int8 KV cache from `quantize_kv`) is ported with its arithmetic:
+`cross_sublayer_q8_reference` is its plain version, and
+`cross_sublayer_reference(quant=True)` the JAX package's oracle on the
+dequantized cache. That form quantizes q per (cell, head), where a cell is
+one TPU grid instance: all L rows of a batch row, or `lq_block` of them
+where the JAX DiT grids the rows (halves at the 3-way CFG batch); the
+wrappers take that domain as `q_block`. The self kernels' `quant_qk` and
+K1's `seg` are not ported yet.
 
 Weights come in the JAX layout ([in, out]); an `nn.Linear(...).weight.t()`
 view passes to the kernel with no copy.
 
 `launch_counts` counts kernel launches per sublayer (one per launched
-chain; "cross" for the two-context form, "cross_single" for the single);
-the plain version never counts.
+chain; "cross" for the two-context form, "cross_single" for the single,
+"cross_q8" for the int8 form); the plain version never counts.
 
 The kernels have no backward pass yet (the JAX custom_vjps recompute
 through einsums or the oracle): on CUDA a wrapper raises when grad mode is
@@ -40,8 +47,11 @@ import torch
 _LN_EPS = 1e-6
 _RMS_EPS = 1e-12
 
+_LOG2E = 1.4426950408889634
+_SHIFT = 30.0  # the TPU kernels' fixed exp2 shift
+
 launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
-                 "cross_single": 0}
+                 "cross_single": 0, "cross_q8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -117,14 +127,49 @@ def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     return (xf + out * _f(gate)[:, None, None]).to(x.dtype)
 
 
+def quantize_kv(k: torch.Tensor, num_heads: int):
+    """[B, Lk, C] -> (int8 values [B, Lk, C], bf16 scales [B, Lk, H]):
+    symmetric per-(token, head) max-abs / 127, the scale rounded to bf16
+    before the division so that dequantization multiplies by exactly the
+    value quantization divided by (JAX `quantize_kv`)."""
+    B, Lk, C = k.shape
+    kh = k.float().reshape(B, Lk, num_heads, C // num_heads)
+    scale = (kh.abs().amax(-1) / 127.0).clamp_min(1e-8).to(torch.bfloat16)
+    q = torch.round(kh / scale.float()[..., None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(B, Lk, C), scale
+
+
+def dequantize_kv(kq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The inverse of quantize_kv: int8 [B, Lk, C] x scales [B, Lk, H] ->
+    fp32 [B, Lk, C]."""
+    B, Lk, C = kq.shape
+    H = scale.shape[-1]
+    kh = kq.float().reshape(B, Lk, H, C // H)
+    return (kh * scale.float()[..., None]).reshape(B, Lk, C)
+
+
+def _dequantize_pair(kv, dt):
+    """An int8 cache (k, v, k scales [B, H, Lk], v scales [B, Lk, H]) ->
+    (k, v) in dt."""
+    kq, vq, ks_t, vs = kv
+    return (dequantize_kv(kq, ks_t.transpose(1, 2)).to(dt),
+            dequantize_kv(vq, vs).to(dt))
+
+
 def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
-                             num_heads: int, compute_dtype=torch.bfloat16):
+                             num_heads: int, compute_dtype=torch.bfloat16,
+                             quant: bool = False):
     """One, or two chained, un-gated cross-attention sublayers, the residual
     kept in fp32 between them. p_i = (norm_scale, norm_bias, wq [C, C], bq,
-    wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or [B, Lk_i, H, D])."""
+    wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or [B, Lk_i, H, D]);
+    with quant=True kv_i is an int8 cache (k, v, ks_t [B, H, Lk],
+    vs [B, Lk, H]) that this oracle dequantizes first, as the JAX one."""
     B, L, C = x.shape
     D = C // num_heads
     dt = compute_dtype
+    if quant:
+        kv1 = _dequantize_pair(kv1, dt)
+        kv2 = None if kv2 is None else _dequantize_pair(kv2, dt)
 
     def one(xf, p, kv):
         ns, nb, wq, bq, wo, bo = p
@@ -139,6 +184,54 @@ def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
         attn = torch.einsum("bhqk,bkhd->bqhd", _rd(p_, dt), vh)
         out = _rd(attn.reshape(B, L, C), dt) @ _rd(wo, dt)
         return xf + out + _f(bo)
+
+    xf = one(_f(x), p1, kv1)
+    if p2 is not None:
+        xf = one(xf, p2, kv2)
+    return xf.to(x.dtype)
+
+
+def cross_sublayer_q8_reference(x, p1, kv1, p2=None, kv2=None, *,
+                                num_heads: int, compute_dtype=torch.bfloat16,
+                                q_block: int = 0):
+    """The int8 form's own arithmetic (JAX `_packed_attention`'s int8 branch
+    in `_cross_sublayer_kernel`): per context, q (fp32) is quantized per
+    (cell of `q_block` rows, 0 = all L, head) as round(q * (127 / qs)) with
+    qs = max|q| floored at 1e-8; the scores are int8 x int8 sums (exact in
+    fp32), s = si * (ks * (qs * scale * log2 e / 127)) - 30 and P =
+    exp2(s); V is dequantized in compute_dtype as v * vs, P is rounded to
+    compute_dtype for P V, and the output divides by the fp32 row sum.
+    kv_i = (k int8 [B, Lk, C], v int8, ks_t bf16 [B, H, Lk], vs bf16
+    [B, Lk, H])."""
+    B, L, C = x.shape
+    H, D = num_heads, C // num_heads
+    dt = compute_dtype
+    qb = q_block or L
+    if L % qb:
+        raise ValueError(f"q_block {qb} does not divide {L} rows")
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    scale, log2e, n127 = f32(D ** -0.5), f32(_LOG2E), f32(127.0)
+
+    def one(xf, p, kv):
+        ns, nb, wq, bq, wo, bo = p
+        k8, v8, ks_t, vs = kv
+        lk = k8.shape[1]
+        h = _layernorm_f32(xf) * _f(ns) + _f(nb)
+        q = (_rd(h, dt) @ _rd(wq, dt) + _f(bq)).reshape(B, L // qb, qb, H, D)
+        qs = q.abs().amax((2, 4), keepdim=True).clamp_min(1e-8)
+        qi = torch.round(q * (n127 / qs)).reshape(B, L, H, D)
+        si = torch.einsum("bqhd,bkhd->bhqk", qi,
+                          k8.float().reshape(B, lk, H, D))
+        f = (qs * scale * log2e / n127).reshape(B, L // qb, H)
+        f = f.repeat_interleave(qb, 1).transpose(1, 2)[..., None]  # [B,H,L,1]
+        s = si * (ks_t.float()[:, :, None, :] * f) - _SHIFT
+        p_ = torch.exp2(s)
+        del s, si
+        denom = p_.sum(-1).transpose(1, 2)[..., None]  # [B, L, H, 1]
+        vh = (v8.reshape(B, lk, H, D).to(dt) * vs.to(dt)[..., None]).float()
+        o = torch.einsum("bhqk,bkhd->bqhd", _rd(p_, dt), vh)
+        attn = (o / denom.clamp_min(1e-30)).reshape(B, L, C)
+        return xf + (_rd(attn, dt) @ _rd(wo, dt) + _f(bo))
 
     xf = one(_f(x), p1, kv1)
     if p2 is not None:
@@ -307,17 +400,28 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
                          p2: Optional[CrossParams] = None,
                          kv2: Optional[Sequence[torch.Tensor]] = None, *,
                          num_heads: int, compute_dtype=torch.bfloat16,
+                         quant: bool = False, q_block: int = 0,
                          impl: Optional[str] = None):
     """Un-gated cross-attention sublayers with affine pre-norms against the
-    cached float KV: two chained (the DiT's image then static-GS
-    conditioning, heads of 32) or one (p2 = kv2 = None: the SLat torso's
-    image conditioning, heads of 64). x [B, L, C]; see
-    cross_sublayer_reference."""
+    cached KV: two chained (the DiT's image then static-GS conditioning,
+    heads of 32) or one (p2 = kv2 = None: the SLat torso's image
+    conditioning, heads of 64). x [B, L, C]; see cross_sublayer_reference.
+    quant=True: the DiT's two contexts against an int8 cache, kv_i = (k,
+    v, ks_t, vs) from quantize_kv with the k scales transposed to
+    [B, H, Lk], q quantized per `q_block` rows (0: all L); see
+    cross_sublayer_q8_reference."""
     if not _use_kernel(x, impl):
+        if quant:
+            return cross_sublayer_q8_reference(
+                x, p1, kv1, p2, kv2, num_heads=num_heads,
+                compute_dtype=compute_dtype, q_block=q_block)
         return cross_sublayer_reference(
             x, p1, kv1, p2, kv2, num_heads=num_heads,
             compute_dtype=compute_dtype)
     _no_grad_inputs("fused_cross_sublayer", x, p1, kv1, p2, kv2)
+    if quant:
+        return _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads,
+                                compute_dtype, q_block)
     if p2 is None:
         return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype)
     from .. import _ext
@@ -327,12 +431,14 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
     _check_cuda(compute_dtype, num_heads, C, B, x,
                 *[t for p, kv in groups for t in (*p, *kv)])
     x = x.contiguous()
-    ctx_args = []
+    # the kernel reads the copies made here: keep them alive until it runs
+    kept, ctx_args = [], []
     for (ns, nb, wq, bq, wo, bo), (k, v) in groups:
         lk = k.shape[1]
         ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
               _weight(wo, C, C), _vec(bo, C), k.reshape(B, lk, C).contiguous(),
               v.reshape(B, lk, C).contiguous())
+        kept += ts
         ctx_args += [*map(_ptr, ts), lk]
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
@@ -376,6 +482,57 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
               _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
               _ptr(q), _ptr(attn), B, L, C, num_heads, int(x_f32))
     launch_counts["cross_single"] += 1
+    return y
+
+
+def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, compute_dtype,
+                     q_block: int):
+    """The int8 form on the card: the DiT's two contexts, heads of 32."""
+    from .. import _ext
+
+    if p2 is None:
+        raise NotImplementedError("the int8 cross kernel takes the DiT's two "
+                                  "contexts; the single-context int8 form "
+                                  "has no caller")
+    B, L, C = x.shape
+    H = num_heads
+    qb = q_block or L
+    _check_cuda(compute_dtype, num_heads, C, B, x, *p1, *p2)
+    if L % qb:
+        raise ValueError(f"q_block {qb} does not divide {L} rows")
+    if C % 16:
+        raise ValueError(f"channels must be a multiple of 16, got {C}")
+    x = x.contiguous()
+    # the kernel reads the copies made here: keep them alive until it runs
+    kept, ctx_args = [], []
+    for (ns, nb, wq, bq, wo, bo), (kq, vq, ks_t, vs) in ((p1, kv1),
+                                                         (p2, kv2)):
+        lk = kq.shape[1]
+        for t, dtype, shape in ((kq, torch.int8, (B, lk, C)),
+                                (vq, torch.int8, (B, lk, C)),
+                                (ks_t, torch.bfloat16, (B, H, lk)),
+                                (vs, torch.bfloat16, (B, lk, H))):
+            if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != shape:
+                raise TypeError(f"int8 cache entry must be {dtype} CUDA "
+                                f"{shape}; got {t.dtype} {tuple(t.shape)} "
+                                f"on {t.device}")
+        ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
+              _weight(wo, C, C), _vec(bo, C), kq.contiguous(),
+              vq.contiguous(), ks_t.contiguous(), vs.contiguous())
+        kept += ts
+        ctx_args += [*map(_ptr, ts), lk]
+    R = B * L
+    y = torch.empty_like(x)
+    h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
+    q = torch.empty(R, C, device=x.device, dtype=torch.float32)
+    qi = torch.empty(R, C, device=x.device, dtype=torch.int8)
+    qs = torch.empty(R // qb, H, device=x.device, dtype=torch.float32)
+    attn = torch.empty_like(h)
+    mid = torch.empty_like(q)
+    _ext.call("gvf_cross_sublayer_q8", _ptr(x), *ctx_args, _ptr(y), _ptr(h),
+              _ptr(q), _ptr(qi), _ptr(qs), _ptr(attn), _ptr(mid), B, L, C, H,
+              qb)
+    launch_counts["cross_q8"] += 1
     return y
 
 

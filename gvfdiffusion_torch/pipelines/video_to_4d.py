@@ -9,7 +9,9 @@ motion VAE (`run`), and render orbit sweeps of the animated splat
 The cross-attention KV is always hoisted out of the sampling loop, in both
 guidance modes, so the DiT has one structure: the four fused sublayers. At
 guidance 1.0/1.0 this computes the same function as the JAX pipeline, which
-there projects the conditioning inside every step.
+there projects the conditioning inside every step. With
+`VideoTo4DConfig(kv_quant="int8")` the cache is stored int8 and the cross
+sublayer runs its int8 form.
 
 The pipeline runs on `device`, "cuda" unless the caller asks for the CPU,
 and moves its modules there; without a CUDA device it raises.
@@ -24,7 +26,7 @@ import torch
 
 from ..diffusion.dpm_solver import DPMSolver, NoiseScheduleVP, model_wrapper
 from ..diffusion.gaussian_diffusion import get_named_beta_schedule
-from ..models.dit import DiT
+from ..models.dit import DiT, check_kv_quant
 from ..models.motion_vae import MotionVAE
 from ..ops.fps import fps_masked
 from ..render.renderer import GaussianRenderer, RenderOptions
@@ -39,7 +41,10 @@ DECODE_CHUNK = 8192
 @dataclasses.dataclass
 class VideoTo4DConfig:
     """The JAX config's fields, less those the multistep-only port does not
-    read (method, num_frames, fps_anchor_points)."""
+    read (method, num_frames, fps_anchor_points). `kv_quant` is the storage
+    of the DiT's hoisted cross-attention KV: None (float, the JAX default
+    with GVF_KV_QUANT unset) or "int8" (JAX's GVF_KV_QUANT=int8, which
+    bench.py sets): an explicit field here, not an environment variable."""
     steps: int = 100
     order: int = 2
     # 1.0/1.0 selects the single-conditional-pass CFG branch
@@ -49,6 +54,10 @@ class VideoTo4DConfig:
     diffusion_steps: int = 1000
     num_latents: int = 512
     latent_dim: int = 16
+    kv_quant: Optional[str] = None
+
+    def __post_init__(self):
+        check_kv_quant(self.kv_quant)
 
 
 class VideoTo4DPipeline:
@@ -91,12 +100,12 @@ class VideoTo4DPipeline:
         model_wrapper's order (full-uncond / uncond / cond)."""
         cfg = self.cfg
         if cfg.guidance_scale == 1.0 and cfg.guidance_scale2 == 1.0:
-            return self.dit.kv_cache(cond_images, static_latent)
+            return self.dit.kv_cache(cond_images, static_latent, cfg.kv_quant)
         zeros = torch.zeros_like(cond_images)
         c3 = torch.cat([zeros, zeros, cond_images])
         s3 = torch.cat([torch.zeros_like(static_latent), static_latent,
                         static_latent])
-        return self.dit.kv_cache(c3, s3)
+        return self.dit.kv_cache(c3, s3, cfg.kv_quant)
 
     @torch.no_grad()
     def sample_deformation_latent(self, cond_images: torch.Tensor,

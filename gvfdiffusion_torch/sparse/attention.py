@@ -2,14 +2,14 @@
 gvfdiffusion_tpu/sparse/attention.py:34-204, 237-305).
 
 `full_sparse_attention` keeps the JAX dispatch. Where the JAX package
-takes the fused kernel K5 (Lq * Lk >= 1M inside K5's rule, the SLat
-torso), the port takes K5 with the key validity as a -inf logit bias. Where
-it takes the stock Pallas flash kernel K7 (Lq * Lk >= 4096^2 past K5's
-rule: full attention over more than 4096 keys), the port raises on the
-card, since K7 is not ported yet; on the CPU it computes the same function
-by the masked path. Everything else takes the masked path, which in JAX is
-`jax.nn.dot_product_attention` outside any Pallas kernel and here
-`F.scaled_dot_product_attention` with a boolean mask.
+takes the fused kernel K5 (Lq * Lk >= 1M inside K5's rule, the compacted
+SLat torso), the port takes K5 with the key validity as a -inf logit bias.
+Where it takes the stock Pallas flash kernel K7 (Lq * Lk >= 4096^2 past
+K5's rule: full attention over more than 4096 keys, the uncompacted
+torso), the port takes K7 (ops/flash_attention.py), on the CPU its plain
+version, as K5's branch does. Everything else takes the masked path, which
+in JAX is `jax.nn.dot_product_attention` outside any Pallas kernel and
+here `F.scaled_dot_product_attention` with a boolean mask.
 
 The windowed mode sorts voxels by 3-D window id (a stable sort, as the JAX
 `argsort`) and runs banded chunked attention: each chunk of queries
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..nn.attention import MultiHeadAttention
 from ..nn.misc import dense
+from ..ops import flash_attention as fl
 from ..ops import fused_attention as fa
 from .tensor import SparseVoxels
 
@@ -56,11 +57,9 @@ def full_sparse_attention(q, k, v, q_valid, kv_valid, dtype: torch.dtype,
         bias = torch.where(kv_valid, 0.0, float("-inf")).float()
         return fa.fused_attention(q, k, v, q.shape[-1] ** -0.5, dtype,
                                   kv_bias=bias, impl=impl)
-    if q.is_cuda and lq * lk >= FLASH_SCORE_ELEMENTS and q.shape[-1] % 8 == 0:
-        raise NotImplementedError(
-            f"full sparse attention over {lk} keys takes the streaming flash "
-            "kernel K7 (gvfdiffusion_tpu/sparse/attention.py:57), which is "
-            "not ported yet")
+    if lq * lk >= FLASH_SCORE_ELEMENTS and q.shape[-1] % 8 == 0:
+        return fl.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype),
+                                  kv_valid, q.shape[-1] ** -0.5, impl=impl)
     mask = q_valid[:, None, :, None] & kv_valid[:, None, None, :]
     return _masked_attention(q.to(dtype), k.to(dtype), v.to(dtype), mask)
 

@@ -13,6 +13,10 @@ without one; run them on the GPU with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda -q
 
+K7 (the flash attention over key validity, heads of 64) runs at key
+lengths 70, 4097 and 32768 with prefix, scattered and empty validity;
+K3's int8 form at the DiT's heads of 32 with both q-scale domains.
+
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
 and of the update y - x, <= (3e-3, 3e-2) for the attention sublayers and
@@ -145,7 +149,7 @@ def test_launch_counts_and_dtype_check(dev):
         pt.fused_self_sublayer(*args, num_heads=4)
         pt.fused_self_sublayer(*args, num_heads=4, impl="plain")
     assert pt.launch_counts == {"self": 1, "temporal": 0, "cross": 0,
-                                "mlp": 0, "cross_single": 0}
+                                "mlp": 0, "cross_single": 0, "cross_q8": 0}
     with pytest.raises(TypeError):
         pt.fused_self_sublayer(x.float(), *args[1:], num_heads=4)
     with pytest.raises(ValueError):  # heads of 64: not the DiT's width
@@ -314,10 +318,11 @@ def test_dinov2_kernels_match_plain(dev):
 
 def test_attention_outside_the_kernels_raises(dev):
     """On the card, attention outside K5's rule raises (the JAX package's
-    XLA attention there has no port), and so does full sparse attention
-    over more than 4096 keys (the flash kernel K7 is not ported); neither
-    falls back to another path."""
+    XLA attention there has no port) and does not fall back to another
+    path; full sparse attention over more than 4096 keys takes the flash
+    kernel K7, which raises for heads it does not take."""
     from gvfdiffusion_torch.nn.attention import scaled_dot_product_attention
+    from gvfdiffusion_torch.ops import flash_attention as fl
     from gvfdiffusion_torch.sparse.attention import full_sparse_attention
 
     q, k, v = _attend(dev, 100, "separate")
@@ -326,8 +331,12 @@ def test_attention_outside_the_kernels_raises(dev):
     q, k, v = (torch.zeros(1, L, 1, 64, device=dev, dtype=torch.bfloat16)
                for L in (4096, 4100, 4100))
     valid = torch.ones(1, 4100, dtype=torch.bool, device=dev)
-    with pytest.raises(NotImplementedError):
-        full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)
+    fl.reset_launch_counts()
+    full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)
+    assert fl.launch_counts["flash_attention"] == 1
+    with pytest.raises(ValueError):  # heads of 32: K7 takes 64
+        full_sparse_attention(*(a[..., :32] for a in (q, k, v)),
+                              valid[:, :4096], valid, torch.bfloat16)
     from gvfdiffusion_torch.nn.attention import MultiHeadAttention
 
     attn = MultiHeadAttention(96, 3, qk_rms_norm=True).to(dev)  # 96 lanes
@@ -476,3 +485,136 @@ def test_composed_dit_kernels_match_plain(dev):
             "grads": _rel(grads, grads_p)}
     print(f"composed DiT kernels vs plain: {errs}")
     assert all(errs[k] <= b for k, b in COMPOSED_BOUNDS.items()), errs
+
+
+# -- K7 and K3's int8 form ------------------------------------------------------
+
+
+FLASH_BOUND = 1e-2  # as K5's running-maximum form (ATTN_BOUND)
+
+
+def _flash_validity(dev, kind, B, Lk, g):
+    """Prefix (as the downsample packs parents), scattered, or empty (batch
+    row 0 has no valid key)."""
+    valid = torch.zeros(B, Lk, dtype=torch.bool, device=dev)
+    if kind == "prefix":
+        valid[0, :max(1, Lk // 9)] = True
+        valid[1:, :Lk - 3] = True
+    elif kind == "scattered":
+        valid = torch.rand(B, Lk, generator=g, device=dev) < 0.12
+        valid[:, 0] = True
+    else:
+        valid[1:] = torch.rand(B - 1, Lk, generator=g, device=dev) < 0.5
+    return valid
+
+
+@pytest.mark.parametrize("kind", ["prefix", "scattered", "empty"])
+@pytest.mark.parametrize("Lq,Lk", [(130, 70), (200, 4097), (1024, 32768)])
+def test_flash_attention_kernel(dev, Lq, Lk, kind):
+    """K7 against its plain version on every query row; v read in place as
+    the view of a [B, Lk, 3, H, 64] projection, as the torso passes it."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, H = 2, 3
+    q = torch.randn(B, Lq, H, 64, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, Lk, H, 64, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Lk, 3, H, 64, generator=g,
+                    device=dev).bfloat16()[:, :, 2]
+    valid = _flash_validity(dev, kind, B, Lk, g)
+    y = fl.flash_attention(q, k, v, valid, 0.125)
+    ref = fl.flash_attention(q, k, v, valid, 0.125, impl="plain")
+    torch.cuda.synchronize()
+    assert y.shape == q.shape and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"flash Lq={Lq} Lk={Lk} {kind}: rel_l2 {err:.3e}")
+    assert err <= FLASH_BOUND, err
+    if kind == "empty":  # sum(V) / Lk padded to 512, in every row
+        want = v[0].float().sum(0) / fl.padded_keys(Lk)
+        assert _rel(y[0], want.expand_as(y[0])) <= FLASH_BOUND
+
+
+def test_flash_attention_counts_and_checks(dev):
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    q, k, v = _attend(dev, 70, "separate")
+    valid = torch.ones(2, 70, dtype=torch.bool, device=dev)
+    fl.reset_launch_counts()
+    fl.flash_attention(q, k, v, valid, 0.125)
+    fl.flash_attention(q, k, v, valid, 0.125, impl="plain")
+    assert fl.launch_counts == {"flash_attention": 1}
+    with pytest.raises(TypeError):  # fp32: the kernel takes bf16
+        fl.flash_attention(q.float(), k.float(), v.float(), valid, 0.125)
+    with pytest.raises(ValueError):  # heads of 32
+        fl.flash_attention(*(a[..., :32] for a in (q, k, v)), valid, 0.125)
+    with pytest.raises(TypeError):  # a float validity
+        fl.flash_attention(q, k, v, valid.float(), 0.125)
+    with pytest.raises(RuntimeError):  # no backward: raises under grad
+        fl.flash_attention(q.requires_grad_(), k, v, valid, 0.125)
+
+
+def _q8_case(dev, B, L, lks, seed):
+    d = _Draw(dev, seed, 128)
+    x = d(B, L, 128)
+    args = [x]
+    for lk in lks:
+        p, (k, v) = d.cross(B, lk)
+        kq, ks = pt.quantize_kv(k, 4)
+        vq, vs = pt.quantize_kv(v, 4)
+        args += [p, (kq, vq, ks.transpose(1, 2).contiguous(), vs)]
+    return x, args
+
+
+@pytest.mark.parametrize("L,lks,q_block", [(128, (37, 20), 0),
+                                           (128, (37, 20), 64),
+                                           (100, (130, 1374), 0)])
+def test_cross_q8_kernel(dev, L, lks, q_block):
+    """K3's int8 form (heads of 32) against its plain int8 version; q_block
+    64 gives two q-scale cells per batch row of 128."""
+    x, args = _q8_case(dev, 4, L, lks, seed=22)
+    _check("cross", pt.fused_cross_sublayer, x, args,
+           dict(num_heads=4, quant=True, q_block=q_block))
+
+
+def test_cross_q8_counts_and_checks(dev):
+    x, args = _q8_case(dev, 2, 64, (37, 20), seed=23)
+    pt.reset_launch_counts()
+    with torch.no_grad():
+        pt.fused_cross_sublayer(*args, num_heads=4, quant=True)
+        pt.fused_cross_sublayer(*args, num_heads=4, quant=True, impl="plain")
+    assert {k: n for k, n in pt.launch_counts.items() if n} == {"cross_q8": 1}
+    with torch.no_grad():
+        with pytest.raises(TypeError):  # a bf16 k where the cache is int8
+            bad = list(args)
+            kq, vq, ks, vs = bad[2]
+            bad[2] = (kq.bfloat16(), vq, ks, vs)
+            pt.fused_cross_sublayer(*bad, num_heads=4, quant=True)
+        with pytest.raises(ValueError):  # q_block does not divide L
+            pt.fused_cross_sublayer(*args, num_heads=4, quant=True,
+                                    q_block=48)
+        with pytest.raises(NotImplementedError):  # one context
+            pt.fused_cross_sublayer(*args[:3], num_heads=4, quant=True)
+
+
+def test_dit_int8_cache_kernels_match_plain(dev):
+    """A 2-block DiT on an int8 cache, kernels vs impl="plain", at B*T 8
+    (whole-cell q scales) and 72 (halves, as at the 3-way CFG batch)."""
+    dit = init_random_(DiT(model_channels=128, image_cond_channels=64,
+                           num_blocks=2, num_heads=4, dtype=torch.bfloat16),
+                       seed=5).to(dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    for Bx, Tx in ((1, 8), (3, 24)):
+        x = torch.randn(Bx, Tx, 128, 16, generator=g, device=dev)
+        t = torch.full((Bx,), 300.0, device=dev)
+        ci = torch.randn(Bx, Tx, 20, 64, generator=g, device=dev)
+        st = torch.randn(Bx, 128, 14, generator=g, device=dev)
+        pos = torch.rand(Bx, 128, 3, generator=g, device=dev)
+        pt.reset_launch_counts()
+        with torch.no_grad():
+            kv = dit.kv_cache(ci, st, kv_quant="int8")
+            y = dit(x, t, positions=pos, cross_kv=kv)
+            ref = dit(x, t, positions=pos, cross_kv=kv, impl="plain")
+        assert pt.launch_counts["cross_q8"] == 2
+        assert pt.launch_counts["cross"] == 0
+        assert _rel(y, ref) <= 3e-2, _rel(y, ref)

@@ -55,6 +55,7 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.utils.config",
     "gvfdiffusion_torch.utils.checkpoint",
     "gvfdiffusion_torch.cli.main_latent",
+    "gvfdiffusion_torch.ops.flash_attention",
 ]
 
 
