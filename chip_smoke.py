@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
-    python3 chip_smoke.py --profile  # build + profiled denoise (float and
-                                     # int8 cache), encode, TRELLIS flow
-                                     # forwards (also at the defaults)
-                                     # and decode, one training micro-step
+    python3 chip_smoke.py --profile  # build + profiled denoise (float,
+                                     # int8 cache, int8 QK), encode,
+                                     # TRELLIS flow forwards (also at the
+                                     # defaults) and decode, one training
+                                     # micro-step
 
 Phases, each printed on its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -32,7 +33,8 @@ Phases, each printed on its own lines:
      uncompacted SLat torso's [1, 32768, 16, 64] with 3700 valid keys, as
      a prefix (as the downsample packs parents) and scattered, with
      scaled_dot_product_attention under the boolean key mask as the
-     library call;
+     library call; K1 and K2 with int8 QK (quant_qk) at the DiT's shapes,
+     against their plain int8-QK versions and against the float kernels;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -47,7 +49,9 @@ Phases, each printed on its own lines:
      both guidance modes again on bench.py's int8 KV cache
      (VideoTo4DConfig(kv_quant="int8"): K3's int8 form, its launches
      counted in the 32-step run() alone), held against their stages and
-     against the float runs;
+     against the float runs; and both again with the DiT's self and
+     temporal QK in int8 on that cache (self_quant="int8": K1 and K2
+     with int8 QK, their launches counted in the 32-step run() alone);
   5. the TRELLIS image -> 3D front end at full width (DINOv2, the 24x1024
      sparse-structure flow, the occupancy decoder, the 24x1024 SLat flow
      with its torso compacted to 4096 slots, the 12x768 Gaussian decoder;
@@ -59,6 +63,13 @@ Phases, each printed on its own lines:
      sparse-structure latent and the occupancy flips, then the SLat and
      the Gaussians on the kernel run's structure); then the splat through
      VideoTo4DPipeline.run and render_4d with the video's tokens;
+  5a. the in-the-wild entry point: InTheWildPipeline.run on the seeded
+     image and the frames' tokens (that TRELLIS, the alignment over 360
+     angles through bench.py's early-exit multi-round rasterizer, the
+     denoise with int8 KV and int8 QK), whole and stage by stage under
+     bench.py's stage keys; the alignment's recovery of a known azimuth
+     from the splat's own render; the 24-frame sweep at 512^2 against the
+     scan form and one round of K = 256;
   5b. TRELLIS at its defaults (path A): SLatFlowModel(torso_capacity=None)
      and TrellisConfig() (32768 voxel slots), so the torso's full
      self-attention runs K7 over 32768 slots: the same calibration, one
@@ -88,6 +99,7 @@ once) over the memory rate, at the H100 SXM datasheet's 989 TFLOP/s and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -138,7 +150,14 @@ KERNELS = [
     ("flash_attention[uncompacted SLat torso]",
      "gvfdiffusion_tpu/sparse/attention.py:57",
      "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention"),
+    ("fused_self_sublayer[int8 QK]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_q8"),
+    ("fused_temporal_sublayer[int8 QK]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:373",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "temporal_q8"),
 ]
+QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3)
 FLASH_REL_BOUND = 1e-2
@@ -151,6 +170,31 @@ Q8_FLOAT_BOUND = 5e-2      # its update vs the float K3's on the same K/V (1.1e-
 # (readings 1.0e-3, 2.4e-3) and at 2.0/5.0 and 4 steps (6.7e-3, 2.9e-3)
 INT8_RUN_BOUNDS = {"latent": 5e-3, "deltas": 1e-2}
 INT8_CFG_BOUNDS = {"latent": 3e-2, "deltas": 1.5e-2}
+# K1 / K2 with int8 QK vs their plain int8-QK versions at the DiT's shapes:
+# (rel L2 of y, of the update y - x), the same for both (readings K1 2.1e-4,
+# 1.9e-3; K2 1.7e-4, 1.4e-3); their update vs the float kernel's (9.8e-3,
+# 1.4e-2)
+QK8_BOUNDS = (8e-4, 8e-3)
+QK8_FLOAT_BOUND = 5e-2
+# run() with self_quant="int8" on the int8 cache against the float run
+# (same noise): rel L2 of the latent and the deltas, at 1.0/1.0 x 32 steps
+# (readings 1.030e-3, 2.382e-3) and 2.0/5.0 x 4 steps (6.695e-3, 2.919e-3)
+SELFQ8_RUN_BOUNDS = {"latent": 5e-3, "deltas": 1e-2}
+SELFQ8_CFG_BOUNDS = {"latent": 3e-2, "deltas": 1.5e-2}
+# the in-the-wild phase: the azimuth (degrees) and the scale recovered from
+# a render of the splat at WILD_AZIMUTH (readings 137.00, 1.0000); the
+# 24-frame sweep through the early-exit multi-round blend against the same
+# without early exit (reading 0: no tile of the translucent random-weight
+# splat saturates, so early exit stops nothing) and against one round of
+# K = 256 (reading 3.5e-8), rel L2
+WILD_AZIMUTH = 137
+WILD_ANGLE_TOL, WILD_SCALE_TOL = 1.0, 0.02
+SWEEP_BOUNDS = {"no_early_exit": 1e-6, "one_round_256": 2e-7}
+# early exit where tiles saturate: the canonical splat made opaque, 8
+# views through the early-exit blend against its scan form, rel L2 > 0 (a
+# tile stopped) and within the bound (reading 4.7e-8 on the H100)
+OPAQUE_LOGIT, OPAQUE_SCALE, OPAQUE_SWEEP_BOUND = 6.0, 4.0, 2.5e-7
+RENDER_FRAMES = 24
 TRAIN_KERNELS = ("attention_d32", "attention_cross_d32", "temporal_attention")
 # Kernel vs plain version at the full shapes, per sublayer: (rel L2 of the
 # output y, rel L2 of the update y - x). Each is 3-6x the error measured on
@@ -455,6 +499,9 @@ def phase_kernels(dev):
                                           cases["cross"])
         elif key == "flash_attention":
             results[key] = phase_flash(dev, name, replaces, source)
+        elif key in QK8:
+            results[key] = phase_qk8(dev, name, replaces, source, key,
+                                     cases[QK8[key]])
         elif key not in SUBLAYERS:
             results[key] = phase_attention(dev, name, replaces, source, key)
     return results
@@ -515,6 +562,54 @@ def phase_cross_q8(dev, name, replaces, source, case):
         f"{lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
     if not (bool(torch.isfinite(y).all()) and err <= y_bound
             and upd <= upd_bound and f_upd <= Q8_FLOAT_BOUND):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_qk8(dev, name, replaces, source, key, case):
+    """K1 or K2 with int8 QK at the DiT's shapes, on the float case's
+    inputs: against its plain int8-QK version, and against the float
+    kernel (the drift the quantization adds); the library composition is
+    the float one (library_self / library_temporal). The bound counts the
+    QK products at the int8 rate, the projections and P V at bf16's."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    x, c = case
+    fn = {"self_q8": fsl.fused_self_sublayer,
+          "temporal_q8": fsl.fused_temporal_sublayer}[key]
+    lib = {"self_q8": library_self, "temporal_q8": library_temporal}[key]
+    args, kw = c["args"], dict(c["kw"], quant_qk=True)
+    y = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fn(*args, **kw, impl="plain")
+    y_f = fn(*args, **c["kw"])
+    err = rel_l2(y, ref)
+    upd = rel_l2(y.float() - x.float(), ref.float() - x.float())
+    f_upd = rel_l2(y.float() - x.float(), y_f.float() - x.float())
+    mae = float((y.float() - ref.float()).abs().max())
+    ms = time_ms(lambda: fn(*args, **kw))
+    float_ms = time_ms(lambda: fn(*args, **c["kw"]))
+    plain_ms = time_ms(lambda: fn(*args, **kw, impl="plain"))
+    lib_ms = time_ms(lambda: lib(*args, **c["kw"]))
+    D = C // H
+    qk = 2 * B * T * H * N * (N if key == "self_q8" else T) * D
+    t_ops = (sublayer_flops(QK8[key]) - qk) / PEAK_FLOPS * 1e3 \
+        + qk / PEAK_INT8 * 1e3
+    t_bytes = nbytes(args, y) / PEAK_BYTES * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                 "bytes")
+    y_bound, upd_bound = QK8_BOUNDS
+    log(f"[kernel] {name}: shape {tuple(x.shape)} bf16 max_abs_err {mae:.4g} "
+        f"rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 {upd:.3e} "
+        f"(bound {upd_bound:g}); update vs the float kernel rel_l2 "
+        f"{f_upd:.3e} (bound {QK8_FLOAT_BOUND:g}); kernel {ms:.3f} ms "
+        f"(float kernel {float_ms:.3f} ms) plain {plain_ms:.3f} ms library "
+        f"{lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+    if not (bool(torch.isfinite(y).all()) and err <= y_bound
+            and upd <= upd_bound and f_upd <= QK8_FLOAT_BOUND):
         raise AssertionError(f"{name} disagrees with its plain version")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1287,8 +1382,10 @@ def phase_pipeline(dino, dit, vae, dev, card):
         + f"; run() {wall_ms:.1f} ms; peak {peak:.2f} GiB; launches "
         f"{cfg_launches}; finite; {card}")
     check_same(out, staged, "guidance 2.0/5.0")
-    launches["cross_q8"] = phase_int8_cache(dit, vae, gs, valid, ci, dev,
-                                            card, main_out, out)
+    launches["cross_q8"], int8_out = phase_int8_cache(
+        dit, vae, gs, valid, ci, dev, card, main_out, out)
+    launches.update(phase_self_q8(dit, vae, gs, valid, ci, dev, card,
+                                  main_out, out, int8_out))
     return launches, ci
 
 
@@ -1316,6 +1413,7 @@ def phase_int8_cache(dit, vae, gs, valid, ci, dev, card, float_out,
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: n for k, n in read_counts().items() if n}
     check_outputs(out, B, T, G)
+    int8_out = out
     errs = {k: rel_l2(out[k], float_out[k]) for k in INT8_RUN_BOUNDS}
     log(f"[int8] run() on the int8 KV cache (guidance 1.0/1.0, 32 steps, "
         f"G={G}): {wall_ms:.1f} ms; launches {launches}; vs the float run "
@@ -1353,7 +1451,80 @@ def phase_int8_cache(dit, vae, gs, valid, ci, dev, card, float_out,
     if cfg_launches.get("cross_q8") != 48 or any(
             errs[k] > b for k, b in INT8_CFG_BOUNDS.items()):
         raise AssertionError("the int8 CFG run: launches or agreement")
-    return launches["cross_q8"]
+    return launches["cross_q8"], int8_out
+
+
+def phase_self_q8(dit, vae, gs, valid, ci, dev, card, float_out,
+                  float_cfg_out, int8_out):
+    """The video main path with the DiT's self and temporal QK in int8 on
+    the int8 KV cache (VideoTo4DConfig(kv_quant="int8", self_quant="int8"):
+    K1 and K2 with int8 QK, K3's int8 form): run() at guidance 1.0/1.0 and
+    32 steps with the noise of the float main run, timed, its launches
+    counted (exactly 384 of K1 q8, K2 q8, K3 int8 and K4); its stages one
+    by one must give what run() gave; its latent and deltas against the
+    float run's, and against the int8-cache run's (the int8 QK's own
+    share). Then 4 steps at guidance 2.0/5.0 against its stages and the
+    float CFG run. Returns the K1 q8 and K2 q8 launches of the 32-step
+    run()."""
+    import torch
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+
+    q8 = dict(kv_quant="int8", self_quant="int8")
+    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=32, order=2,
+                                                       **q8))
+    g = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(gs, valid, ci, generator=g)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: n for k, n in read_counts().items() if n}
+    check_outputs(out, B, T, G)
+    errs = {k: rel_l2(out[k], float_out[k]) for k in SELFQ8_RUN_BOUNDS}
+    own = {k: rel_l2(out[k], int8_out[k]) for k in SELFQ8_RUN_BOUNDS}
+    staged, st = run_stages(pipe, gs, valid, ci, seed=5)
+    log(f"[selfq8] run() with self_quant=\"int8\" on the int8 KV cache "
+        f"(guidance 1.0/1.0, 32 steps, G={G}): {wall_ms:.1f} ms; stages one "
+        "by one: " + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
+        + f"; launches {launches}; vs the float run (same noise) rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bounds {SELFQ8_RUN_BOUNDS}); vs the int8-cache run without "
+        "int8 QK rel_l2 " + ", ".join(f"{k} {v:.3e}" for k, v in own.items())
+        + f"; {card}")
+    want = {"self_q8": 384, "temporal_q8": 384, "cross_q8": 384, "mlp": 384}
+    if launches != want:
+        raise AssertionError(f"self_quant run launches {launches}, "
+                             f"expected {want}")
+    if any(errs[k] > b for k, b in SELFQ8_RUN_BOUNDS.items()):
+        raise AssertionError("the self_quant run strays from the float run")
+    check_same(out, staged, "self_quant int8, guidance 1.0/1.0")
+
+    pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+        steps=4, order=2, guidance_scale=2.0, guidance_scale2=5.0, **q8))
+    staged, st = run_stages(pipe, gs, valid, ci, seed=6)
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg_out = pipe.run(gs, valid, ci,
+                       generator=torch.Generator(device=dev).manual_seed(6))
+    torch.cuda.synchronize()
+    cfg_ms = (time.perf_counter() - t0) * 1e3
+    cfg_launches = {k: n for k, n in read_counts().items() if n}
+    check_outputs(cfg_out, B, T, G)
+    errs = {k: rel_l2(cfg_out[k], float_cfg_out[k])
+            for k in SELFQ8_CFG_BOUNDS}
+    log(f"[selfq8] guidance 2.0/5.0 (B*T = 96), 4 steps: run() "
+        f"{cfg_ms:.1f} ms; stages: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in st.items())
+        + f"; launches {cfg_launches}; vs the float CFG run rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bounds {SELFQ8_CFG_BOUNDS}); {card}")
+    check_same(cfg_out, staged, "self_quant int8, guidance 2.0/5.0")
+    if cfg_launches != {k: 48 for k in want} or any(
+            errs[k] > b for k, b in SELFQ8_CFG_BOUNDS.items()):
+        raise AssertionError("the self_quant CFG run: launches or agreement")
+    return {k: launches[k] for k in QK8}
 
 
 # -- the TRELLIS front end ------------------------------------------------------
@@ -1580,7 +1751,192 @@ def phase_trellis(dino, dit, vae, ci, dev, card):
     check_video(video)
     return {"attention_ss_self": got["attention"],
             **{k: got[k] for k in ("attention_cross", "attention_bias",
-                                   "cross_single")}}
+                                   "cross_single")}}, pipe
+
+
+def bench_render_options():
+    """bench.py's inference rasterizer (bench.py:383-397): the early-exit
+    multi-round blend, tiles of 64, 128 Gaussians per round, 2 rounds."""
+    from gvfdiffusion_torch.render.renderer import RenderOptions
+
+    return RenderOptions(near=0.1, far=10.0, bg_color=(1.0, 1.0, 1.0),
+                         use_mip=True, backend="binned", max_per_tile=128,
+                         rounds=2, early_exit=True, tile=64)
+
+
+def phase_wild(tpipe, dit, vae, ci, dev, card):
+    """The whole in-the-wild entry point: InTheWildPipeline.run on the
+    seeded 768^2 RGBA image and the 32 seeded frames' DINOv2 tokens, with
+    the TRELLIS of phase_trellis (compacted torso, its calibrated
+    occupancy), the alignment over 360 angles through bench.py's inference
+    rasterizer, and the video pipeline on the int8 KV cache with int8 QK
+    (bench.py's settings plus self_quant); timed whole, and stage by stage
+    under bench.py's keys. run()'s target is the preprocessed image itself,
+    so the alignment's recovery is checked apart: the TRELLIS splat
+    rendered at WILD_AZIMUTH degrees (with its alpha) is the canonical
+    frame, and align_gaussian_to_canonical must find that azimuth within
+    1 degree and a scale within 2% of 1. Then the 24-frame sweep of the
+    aligned splat at 512^2 (bench.py's render_24f) through the early-exit
+    multi-round blend, against the same without early exit and against one
+    round of K = 256."""
+    import torch
+    from gvfdiffusion_torch.pipelines.in_the_wild import (InTheWildConfig,
+                                                          InTheWildPipeline)
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+    from gvfdiffusion_torch.render.renderer import GaussianRenderer
+    from gvfdiffusion_torch.representations.camera import orbit_camera
+    from gvfdiffusion_torch.scripts.process_video import resize_bilinear
+    from gvfdiffusion_torch.utils.inference_utils import (
+        align_gaussian_to_canonical, render_sweep, rotate_gaussians_z)
+
+    opts = bench_render_options()
+    renderer = GaussianRenderer(opts)
+    v4d = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+        steps=32, order=2, kv_quant="int8", self_quant="int8"))
+    wild = InTheWildPipeline(tpipe, v4d, InTheWildConfig(align_n_angles=360),
+                             render_options=opts)
+    image, tokens = seeded_image(), ci[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # the stages one by one, with run()'s generator draws
+    g = torch.Generator(device=dev).manual_seed(31)
+    stages = {}
+    tout, stages["trellis_run"] = timed(lambda: tpipe.run(image, g))
+    gs, valid = tout["gaussians"].select(0), tout["valid"][0]
+    target = resize_bilinear(torch.from_numpy(tpipe.preprocess_image(image)),
+                             (512, 512))
+    (gs_al, angle, scale), stages["alignment_360"] = timed(
+        lambda: align_gaussian_to_canonical(gs, target, valid=valid,
+                                            n_angles=360, renderer=renderer))
+    act = gs_al.to_activated_tensor()[None]
+    anchors, stages["fps"] = timed(
+        lambda: v4d.prepare_static_conditioning(act, valid[None]))
+    kv, stages["kv_cache"] = timed(lambda: v4d.cross_kv(tokens[None], anchors))
+    latent, stages["dpm_denoise_32"] = timed(
+        lambda: v4d.sample_deformation_latent(
+            tokens[None], anchors, anchors[..., :3], generator=g,
+            cross_kv=kv))
+    deltas, stages["vae_decode"] = timed(lambda: v4d.decode_deltas(latent,
+                                                                   act))
+    sweep_deltas = deltas[0, :RENDER_FRAMES] * RENDER_DELTA_SCALE
+    frames, stages["render_24f"] = timed(lambda: render_sweep(
+        renderer, gs_al, sweep_deltas, valid, num_views=1, resolution=512,
+        pitch_deg=0.0))
+
+    # run() whole, its launches counted
+    reset_counts()
+    out, run_ms = timed(lambda: wild.run(
+        image, tokens, generator=torch.Generator(device=dev).manual_seed(31)))
+    launches = {k: n for k, n in read_counts().items() if n}
+    check_outputs(out, B, T, G)
+    errs = {"latent": rel_l2(out["latent"], latent),
+            "deltas": rel_l2(out["deltas"], deltas)}
+    log("[wild] stages (bench.py's keys where they match): " + json.dumps(
+        {k: round(v, 1) for k, v in stages.items()}) + f"; run() "
+        f"{run_ms:.1f} ms; {card}")
+    log(f"[wild] InTheWildPipeline.run: 768^2 RGBA + tokens "
+        f"{tuple(tokens.shape)} -> angle {math.degrees(out['align_angle']):.1f}"
+        f" deg, scale {out['align_scale']:.4g}, valid Gaussians "
+        f"{int(out['valid'].sum())} of {G}, deltas |mean| "
+        f"{float(out['deltas'].abs().mean()):.4g}; vs its stages rel_l2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound {RUN_REL_BOUND:g}); launches {launches}")
+    if not (out["align_angle"] == angle and out["align_scale"] == scale
+            and max(errs.values()) <= RUN_REL_BOUND):
+        raise AssertionError("InTheWildPipeline.run disagrees with its stages")
+    want = {"attention": 24 + 576, "attention_cross": 576,
+            "attention_bias": 528, "cross_single": 528, "self_q8": 384,
+            "temporal_q8": 384, "cross_q8": 384, "mlp": 384}
+    if launches != want:
+        raise AssertionError(f"wild run launches {launches}, expected {want}")
+
+    # the alignment recovers a known azimuth
+    cam = orbit_camera(0.0, 0.0, height=512, width=512)
+    shown = renderer.render(rotate_gaussians_z(
+        gs, math.radians(WILD_AZIMUTH)), cam, valid=valid)
+    (_, rec, rec_scale), rec_ms = timed(lambda: align_gaussian_to_canonical(
+        gs, shown["render"], shown["alpha"], valid=valid, n_angles=360,
+        renderer=renderer))
+    coverage = float((shown["alpha"] > 0.5).float().mean())
+    log(f"[wild] alignment to the splat's own render at {WILD_AZIMUTH} deg "
+        f"(alpha > 0.5 on {coverage:.3f} of the frame): found "
+        f"{math.degrees(rec):.2f} deg, scale {rec_scale:.4f} (bounds "
+        f"{WILD_ANGLE_TOL:g} deg, {WILD_SCALE_TOL:g}) in {rec_ms:.1f} ms")
+    if not (abs(math.degrees(rec) - WILD_AZIMUTH) <= WILD_ANGLE_TOL
+            and abs(rec_scale - 1.0) <= WILD_SCALE_TOL):
+        raise AssertionError("the alignment missed the known azimuth")
+
+    # the sweep against the scan form and against one round of K = 256
+    others = {}
+    for key, o in (("no_early_exit", dict(early_exit=False)),
+                   ("one_round_256", dict(rounds=1, max_per_tile=256))):
+        r = GaussianRenderer(dataclasses.replace(opts, **o))
+        f, ms = timed(lambda: render_sweep(
+            r, gs_al, sweep_deltas, valid, num_views=1, resolution=512,
+            pitch_deg=0.0))
+        others[key] = (rel_l2(frames, f), ms)
+    coverage = float((frames < 1.0 - 1e-3).any(-1).float().mean())
+    log(f"[wild] render_sweep {tuple(frames.shape)} (deltas x "
+        f"{RENDER_DELTA_SCALE:g}): early exit {stages['render_24f']:.1f} ms, "
+        f"coverage {coverage:.4f}; " + ", ".join(
+            f"{k} {ms:.1f} ms, rel_l2 {e:.3e} (bound {SWEEP_BOUNDS[k]:g})"
+            for k, (e, ms) in others.items()) + f"; {card}")
+    if not (bool(torch.isfinite(frames).all()) and coverage > 0
+            and all(e <= SWEEP_BOUNDS[k] for k, (e, _) in others.items())):
+        raise AssertionError("the early-exit sweep disagrees")
+
+    return stages, run_ms
+
+
+def phase_early_exit(dev, card):
+    """Early exit where tiles saturate, which the random-weight TRELLIS
+    splat's tiles do not: the seeded canonical splat with its opacity
+    logits raised by OPAQUE_LOGIT and its scales times OPAQUE_SCALE, so
+    that the first round's 128 Gaussians cover every pixel of a 64^2 tile.
+    Eight orbit views at 512^2 in one render_views batch through bench.py's
+    rasterizer, against its scan form: they must differ (a tile stopped)
+    by no more than the bound."""
+    import torch
+    from gvfdiffusion_torch.render.renderer import GaussianRenderer
+    from gvfdiffusion_torch.representations.gaussians import from_activated
+    from gvfdiffusion_torch.utils.inference_utils import render_sweep
+
+    act, valid = canonical_splat(dev)
+    gs = from_activated(act[0])
+    gs = dataclasses.replace(
+        gs, _opacity=gs._opacity + OPAQUE_LOGIT,
+        _scaling=gs._scaling + math.log(OPAQUE_SCALE))
+    opts = bench_render_options()
+    frames, ms = {}, {}
+    for key, ee in (("early_exit", True), ("no_early_exit", False)):
+        r = GaussianRenderer(dataclasses.replace(opts, early_exit=ee))
+        sweep = lambda: render_sweep(r, gs, None, valid[0], num_views=8,
+                                     resolution=512)
+        sweep()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames[key] = sweep()
+        torch.cuda.synchronize()
+        ms[key] = (time.perf_counter() - t0) * 1e3
+    err = rel_l2(frames["early_exit"], frames["no_early_exit"])
+    coverage = float((frames["early_exit"] < 1.0 - 1e-3).any(-1).float()
+                     .mean())
+    log(f"[early_exit] opaque splat (opacity logits + {OPAQUE_LOGIT:g}, "
+        f"scales x {OPAQUE_SCALE:g}), 8 views at 512^2, coverage "
+        f"{coverage:.4f}: early exit {ms['early_exit']:.1f} ms, "
+        f"no_early_exit {ms['no_early_exit']:.1f} ms, rel_l2 {err:.3e} "
+        f"(bounds (0, {OPAQUE_SWEEP_BOUND:g}]); {card}")
+    if not (bool(torch.isfinite(frames["early_exit"]).all())
+            and 0 < err <= OPAQUE_SWEEP_BOUND):
+        raise AssertionError("early exit on the opaque splat: stopped no tile "
+                             "or disagrees")
 
 
 def phase_trellis_defaults(dino, dev, card):
@@ -1683,8 +2039,8 @@ def phase_trellis_defaults(dino, dev, card):
 
 def _kernel_group(name: str) -> str:
     for k in ("attn_kernel", "temporal_kernel", "gemm_kernel", "ln_kernel",
-              "flash_kernel", "tile_count_kernel", "attn_q8_kernel",
-              "q8_kernel"):
+              "flash_kernel", "tile_count_kernel", "attn_q8_kernel<true>",
+              "attn_q8_kernel<false>", "q8_kernel"):
         if k in name:
             return k
     if any(k in name for k in ("fmha", "flash", "attention")):
@@ -1739,8 +2095,9 @@ def _profile(fn, what: str, trace: str, card: str) -> None:
 
 def phase_profile(dino, dit, vae, dev, card):
     """Where the time goes, at full width: a 4-step denoise (guidance
-    1.0/1.0, KV hoisted; trace denoise_trace.json) and the same on the int8
-    cache (denoise_int8_trace.json), the DINOv2 encode_image of 32 frames
+    1.0/1.0, KV hoisted; trace denoise_trace.json), the same on the int8
+    cache (denoise_int8_trace.json) and with int8 QK on it
+    (denoise_selfq8_trace.json), the DINOv2 encode_image of 32 frames
     (trace encode_trace.json), one forward of each TRELLIS flow and the
     Gaussian decode on the main path's structure (ss_flow_trace.json,
     slat_flow_trace.json, gs_decode_trace.json), and one SLat forward at
@@ -1767,6 +2124,12 @@ def phase_profile(dino, dit, vae, dev, card):
         ci, anchors, anchors[..., :3], generator=g, cross_kv=kv8),
         "4-step denoise on the int8 KV cache (4 DiT forwards, B*T = 32)",
         "denoise_int8_trace.json", card)
+    pipe8q = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+        steps=4, order=2, kv_quant="int8", self_quant="int8"))
+    _profile(lambda: pipe8q.sample_deformation_latent(
+        ci, anchors, anchors[..., :3], generator=g, cross_kv=kv8),
+        "4-step denoise with int8 QK on the int8 KV cache (4 DiT forwards, "
+        "B*T = 32)", "denoise_selfq8_trace.json", card)
     images = torch.rand(T, 518, 518, 3, generator=g, device=dev)
     _profile(lambda: encode_image(dino, images),
              f"DINOv2 encode_image ({T} frames, 518^2)", "encode_trace.json",
@@ -1858,6 +2221,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     quick = "--quick" in argv
+    t_start = time.perf_counter()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1885,8 +2249,10 @@ def main(argv) -> int:
     phase_dinov2(dino, dev, card)
     phase_dit(dit, dev)
     launches, ci = phase_pipeline(dino, dit, vae, dev, card)
-    trellis = phase_trellis(dino, dit, vae, ci, dev, card)
-    del dit, vae, ci
+    trellis, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
+    phase_wild(tpipe, dit, vae, ci, dev, card)
+    phase_early_exit(dev, card)
+    del dit, vae, ci, tpipe
     torch.cuda.empty_cache()
     trellis["flash_attention"] = phase_trellis_defaults(dino, dev, card)
     del dino
@@ -1895,11 +2261,13 @@ def main(argv) -> int:
     # each entry's count comes from one run: the TRELLIS forms from
     # TrellisImageTo3DPipeline.run (K7 from the run at the defaults), the
     # training forms (K5 at heads of 32, K6) from main_latent.main's first
-    # run, K3's int8 form from run() on the int8 cache, the others (K1-K4,
-    # K5 in DINOv2's video encode) from the video main path
+    # run, K3's int8 form from run() on the int8 cache, K1 and K2 with int8
+    # QK from run() with self_quant, the others (K1-K4, K5 in DINOv2's video
+    # encode) from the video main path
     counts = {**launches, **trellis, **train}
     for key, r in results.items():
         r["launches"] = counts[key]
+    log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [results[k] for *_, k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

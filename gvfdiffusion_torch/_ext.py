@@ -44,6 +44,8 @@ _SIGNATURES = {
     "gvf_cross_sublayer_q8": [_P] + ([_P] * 10 + [_I]) * 2 + [_P] * 7
     + [_I] * 5 + [_P],
     "gvf_flash_attention": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P],
+    "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],
+    "gvf_temporal_sublayer_q8": [_P] * 18 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -11,6 +11,8 @@
 //   gvf_cross_sublayer_q8  <- _cross_sublayer_kernel    (quant=True: the DiT's
 //                                                        two contexts against an
 //                                                        int8 KV cache)
+//   gvf_self_sublayer_q8   <- _self_sublayer_kernel     (quant_qk=True)
+//   gvf_temporal_sublayer_q8 <- _temporal_sublayer_kernel (quant_qk=True)
 //
 // Each entry point launches a short fixed chain of the kernels below on the
 // caller's stream and allocates nothing: the Python wrapper hands in every
@@ -45,18 +47,24 @@
 // 27 MB of traffic, so the tensor cores bound it too. The TPU's lq_block /
 // kv_buffers sized its VMEM residency and have no counterpart here.
 //
-// The int8 entry keeps the TPU kernel's int8 arithmetic (_packed_attention's
-// k_int8 branch): q8_kernel quantizes the fp32 q per (cell, head) with
-// qs = max |q| over the cell's rows and the head's lanes (floored at 1e-8),
-// qi = round(q * (127 / qs)), where a cell is one TPU grid instance (all L
-// rows of a batch row, or the q_block rows the JAX DiT grids at the 3-way
-// CFG batch); attn_q8_kernel takes the scores int8 x int8 -> int32 on the
-// tensor cores (WMMA 16x16x16 s8), s = si * (ks_j * (qs * scale * log2 e /
-// 127)) - 30 and P = exp2(s) (the fixed shift: no running maximum), V
-// dequantized to bf16 as bf16(v * vs) on its way into shared memory, P
-// rounded to bf16 for P V and the output divided by the fp32 row sum. At
-// the DiT's shapes it reads half the cache's bytes of the float form; its
-// QK products run at the int8 rate (1,979 TOP/s on the datasheet).
+// The int8 entries keep the TPU kernels' int8 arithmetic (_packed_attention's
+// k_int8 and quant_qk branches). q8_kernel quantizes fp32 rows per (cell,
+// head) with s = max |q| over the cell's rows and the head's lanes (floored
+// at 1e-8), qi = round(q * (127 / s)), where a cell is one TPU grid
+// instance: for K3, all L rows of a batch row or the q_block rows the JAX DiT
+// grids at the 3-way CFG batch; for K1, one frame; for K2, one batch row x
+// 16 voxels x all T frames. For K1/K2 it first RMS-normalizes q and k in
+// place (the TPU kernel quantizes the normalized fp32 values) and
+// quantizes both. attn_q8_kernel takes the scores int8 x int8 -> int32 on
+// the tensor cores (WMMA 16x16x16 s8) and P = exp2(s - 30) with the fixed
+// shift (no running maximum): for K3 s = si * (ks_j * (qs * scale * log2 e /
+// 127)) with a per-key k scale and V dequantized to bf16 as bf16(v * vs);
+// for K1/K2 s = si * (qs * ks * scale * log2 e / 127^2) with one scalar per
+// (cell, head) and V the fp32 projection rounded to bf16. P is rounded to
+// bf16 for P V and the output divided by the fp32 row sum. K3's int8 form
+// reads half the cache's bytes of the float form; all QK products run at
+// the int8 rate (1,979 TOP/s on the datasheet). K2's attention spans T = 32
+// keys, half a 64-key tile: the simple form leaves the rest masked.
 
 #include "attention.cuh"
 
@@ -256,23 +264,54 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One block per (cell, head): qs = max(max |q|, 1e-8) over the cell's rows
-// and the head's D lanes, qi = round(q * (127 / qs)) (half to even).
-template <int D>
-__global__ void __launch_bounds__(256)
-q8_kernel(const float* __restrict__ q, signed char* __restrict__ qi,
-          float* __restrict__ qs, int rows_per_cell, int C, int H) {
+// One block per (cell, head, tensor): qs = max(max |q|, 1e-8) over the
+// cell's rows and the head's D = 32 lanes, qi = round(q * (127 / qs)) (half
+// to even). q is fp32 with a row stride (read in place from the [rows, 3C]
+// qkv buffer of the self sublayers); with a gamma it is first RMS-normalized
+// per (row, head) in place, q * rsqrt(sum q^2 + 1e-12) * gamma, as the TPU
+// kernel does before it quantizes. Cell c covers the rows
+//   (c / cells2) * s1 + (c % cells2) * s2 + t * s_outer + i,
+//   t < n_outer, i < n_inner:
+// one frame of L rows (K1), 16 voxels x T frames of [B, T, N] (K2), or
+// q_block consecutive rows (K3's int8 form). grid.z picks the tensor: q, or
+// k with its own gamma, output and scales.
+struct QuantParams {
+  float* src[2];           // fp32 rows, src_stride apart
+  const bf16* gamma[2];    // [C] gamma * sqrt(D), or null: no RMS norm
+  signed char* dst[2];     // int8 rows, dst_stride apart
+  float* scale[2];         // [cells, H]
+  long long src_stride, dst_stride, s1, s2, s_outer;
+  int cells2, n_outer, n_inner, H;
+};
+
+__global__ void __launch_bounds__(256) q8_kernel(QuantParams p) {
+  constexpr int D = 32;  // one warp per (row, head)
   __shared__ float red[8];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long off = (long long)blockIdx.x * rows_per_cell * C + blockIdx.y * D;
-  const float* src = q + off;
-  const int n = rows_per_cell * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cell = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
+  const long long base = (long long)(cell / p.cells2) * p.s1 +
+                         (long long)(cell % p.cells2) * p.s2;
+  const int rows = p.n_outer * p.n_inner;
+  float* src = p.src[z] + h * D + lane;
+  const bf16* gamma = p.gamma[z];
+  const float g = gamma ? to_f(gamma[h * D + lane]) : 1.f;
+  auto row_of = [&](int r) {
+    return base + (long long)(r / p.n_inner) * p.s_outer + r % p.n_inner;
+  };
   float mx = 0.f;
-  for (int e = tid; e < n; e += 256)
-    mx = fmaxf(mx, fabsf(src[(long long)(e / D) * C + e % D]));
+  for (int r = warp; r < rows; r += 8) {
+    float* e = src + row_of(r) * p.src_stride;
+    float v = *e;
+    if (gamma) {
+      const float ss = warp_sum(__fmul_rn(v, v));
+      v = __fmul_rn(__fmul_rn(v, rsqrtf(ss + 1e-12f)), g);
+      *e = v;
+    }
+    mx = fmaxf(mx, fabsf(v));
+  }
   mx = warp_max(mx);
   if (lane == 0) red[warp] = mx;
-  __syncthreads();
+  __syncthreads();  // also orders the normalized rows before their re-read
   if (warp == 0) {
     float v = lane < 8 ? red[lane] : 0.f;
     v = warp_max(v);
@@ -280,32 +319,51 @@ q8_kernel(const float* __restrict__ q, signed char* __restrict__ qi,
   }
   __syncthreads();
   const float s = fmaxf(red[0], 1e-8f);
-  const float r = 127.f / s;
-  signed char* dst = qi + off;
-  for (int e = tid; e < n; e += 256) {
-    const long long o = (long long)(e / D) * C + e % D;
-    dst[o] = (signed char)__float2int_rn(src[o] * r);
+  const float rcp = __fdiv_rn(127.f, s);
+  signed char* dst = p.dst[z] + h * D + lane;
+  for (int r = warp; r < rows; r += 8) {
+    const long long row = row_of(r);
+    dst[row * p.dst_stride] = (signed char)__float2int_rn(
+        __fmul_rn(src[row * p.src_stride], rcp));
   }
-  if (tid == 0) qs[(long long)blockIdx.x * H + blockIdx.y] = s;
+  if (threadIdx.x == 0) p.scale[z][(long long)cell * p.H + h] = s;
+}
+
+cudaError_t launch_q8(const QuantParams& p, int cells, int tensors,
+                      cudaStream_t s) {
+  q8_kernel<<<dim3((unsigned)cells, p.H, tensors), 256, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 constexpr int QD = 32;  // the DiT's head width
 
+// Row block z (grid.z) splits as (z / nb2, z % nb2) with strides s1 / s2;
+// rows within it step by si (queries) or sj (keys / values), in elements.
+// Query row i of block z lies in the scale cell (z * L + i) / q_block.
 struct Q8Params {
-  const signed char* qi;  // [B * L, C]
-  const float* qs;        // [B * L / q_block, H]
-  const signed char* k;   // [B, Lk, C]
-  const signed char* v;   // [B, Lk, C]
-  const bf16* ks_t;       // [B, H, Lk]
-  const bf16* vs;         // [B, Lk, H]
-  bf16* o;                // [B * L, C]
-  int L, Lk, C, H, q_block;
+  const signed char* qi;  // int8 q rows
+  const float* qs;        // [cells, H] q scales
+  const signed char* k;   // int8 k rows
+  const void* v;          // int8 v rows (cross) or fp32 (self)
+  const bf16* ks_t;       // cross: [B, H, Lk] per-key k scales
+  const bf16* vs;         // cross: [B, Lk, H] per-key v scales
+  const float* ks;        // self: [cells, H] k scales, per cell as qs
+  bf16* o;
+  long long q_s1, q_s2, q_si, k_s1, k_s2, k_sj, v_s1, v_s2, v_sj;
+  long long o_s1, o_s2, o_si;
+  int nb2, L, Lk, H, q_block;
   float scale;
 };
 
-// One CTA (4 warps) per (64-query tile, head, batch row), 64-key tiles. The
+// One CTA (4 warps) per (64-query tile, head, row block), 64-key tiles. The
 // int8 tiles sit in shared memory as two 16-lane panels, so that every WMMA
 // s8 fragment starts on a 32-byte boundary. Static shared memory ~33 KB.
+// SELF = false: K3's int8 form, s = si * (ks_j * (qs * scale * log2 e /
+// 127)) - 30 with a per-key k scale, V = bf16(v * vs). SELF = true: K1/K2's
+// int8 QK, s = si * (qs * ks * scale * log2 e / 127^2) - 30 with one k scale
+// per (cell, head), V the fp32 projection rounded to bf16. The scalar
+// products keep the TPU kernel's order and roundings.
+template <bool SELF>
 __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   __shared__ __align__(128) signed char sQ[2][64 * 16];
   __shared__ __align__(128) signed char sK[2][64 * 16];
@@ -315,26 +373,29 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   __shared__ float sKs[64];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y;
+  const long long z = blockIdx.z, z1 = z / p.nb2, z2 = z % p.nb2;
   const int q0 = blockIdx.x * 64;
-  const long long row0 = (long long)b * p.L;
+  const signed char* qb = p.qi + z1 * p.q_s1 + z2 * p.q_s2 + h * QD;
   const int lr = tid >> 1, lh = tid & 1;  // loader: row, 16-lane panel
   {
     const int qi = q0 + lr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (qi < p.L)
-      val = *reinterpret_cast<const uint4*>(p.qi + (row0 + qi) * p.C + h * QD + lh * 16);
+      val = *reinterpret_cast<const uint4*>(qb + (long long)qi * p.q_si + lh * 16);
     *reinterpret_cast<uint4*>(sQ[lh] + lr * 16) = val;
   }
 
   // lanes (2r, 2r+1) of a warp own query row r of its 16, 32 keys each;
-  // f = qs * scale * log2(e) / 127 of the row's cell, rounded as the TPU's
+  // f: the row's scalar score factor, rounded as the TPU's
   const int r = lane >> 1, half = lane & 1;
   const int qrow = q0 + warp * 16 + r;
   float f = 0.f;
   if (qrow < p.L) {
-    const long long cell = (row0 + qrow) / p.q_block;
-    f = __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[cell * p.H + h], p.scale), LOG2E), 127.f);
+    const long long c = ((z * p.L + qrow) / p.q_block) * p.H + h;
+    f = SELF ? __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(p.qs[c], p.ks[c]), p.scale),
+                                   LOG2E), 16129.f)
+             : __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[c], p.scale), LOG2E), 127.f);
   }
   float l_run = 0.f;
   float o_acc[QD / 2];
@@ -343,28 +404,43 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   int* sSw = sS[warp];
   float* sOw = reinterpret_cast<float*>(sS[warp]);
   bf16* sPw = sP[warp];
-  const signed char* kb = p.k + (long long)b * p.Lk * p.C + h * QD + lh * 16;
-  const signed char* vb = p.v + (long long)b * p.Lk * p.C + h * QD + lh * 16;
-  const bf16* ksb = p.ks_t + ((long long)b * p.H + h) * p.Lk;
-  const bf16* vsb = p.vs + (long long)b * p.Lk * p.H + h;
+  const signed char* kb = p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * QD + lh * 16;
+  const long long v_off = z1 * p.v_s1 + z2 * p.v_s2 + h * QD + lh * 16;
+  const bf16* ksb = SELF ? nullptr : p.ks_t + (z1 * p.H + h) * p.Lk;
+  const bf16* vsb = SELF ? nullptr : p.vs + z1 * p.Lk * p.H + h;
 
   for (int j0 = 0; j0 < p.Lk; j0 += 64) {
     __syncthreads();  // the previous tile is no longer read
     {
       const int kj = j0 + lr;
       const bool ok = kj < p.Lk;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (ok) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.C);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)kj * p.C);
-      }
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.k_sj);
       *reinterpret_cast<uint4*>(sK[lh] + lr * 16) = kv;
-      const float vsc = ok ? to_f(vsb[(long long)kj * p.H]) : 0.f;
-      const signed char* vc = reinterpret_cast<const signed char*>(&vv);
+      bf16* dv = sV + lr * QD + lh * 16;
+      if (SELF) {
+        const float4* vr = reinterpret_cast<const float4*>(
+            (const float*)p.v + v_off + (long long)kj * p.v_sj);
 #pragma unroll
-      for (int d = 0; d < 16; ++d)
-        sV[lr * QD + lh * 16 + d] = __float2bfloat16(__fmul_rn((float)vc[d], vsc));
-      if (tid < 64) sKs[tid] = j0 + tid < p.Lk ? to_f(ksb[j0 + tid]) : 0.f;
+        for (int d = 0; d < 4; ++d) {
+          const float4 a = ok ? vr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
+          dv[4 * d] = __float2bfloat16(a.x);
+          dv[4 * d + 1] = __float2bfloat16(a.y);
+          dv[4 * d + 2] = __float2bfloat16(a.z);
+          dv[4 * d + 3] = __float2bfloat16(a.w);
+        }
+      } else {
+        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+        if (ok)
+          vv = *reinterpret_cast<const uint4*>((const signed char*)p.v + v_off +
+                                               (long long)kj * p.v_sj);
+        const float vsc = ok ? to_f(vsb[(long long)kj * p.H]) : 0.f;
+        const signed char* vc = reinterpret_cast<const signed char*>(&vv);
+#pragma unroll
+        for (int d = 0; d < 16; ++d)
+          dv[d] = __float2bfloat16(__fmul_rn((float)vc[d], vsc));
+        if (tid < 64) sKs[tid] = j0 + tid < p.Lk ? to_f(ksb[j0 + tid]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -385,7 +461,7 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
     }
     __syncwarp();
 
-    // P = exp2(si * (ks * f) - 30); keys past Lk get P = 0
+    // P = exp2(si * factor - 30); keys past Lk get P = 0
     float sv[32];
     float psum = 0.f;
 #pragma unroll
@@ -393,7 +469,7 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
       const int jj = half * 32 + c;
       float e = 0.f;
       if (j0 + jj < p.Lk) {
-        const float cf = __fmul_rn(sKs[jj], f);
+        const float cf = SELF ? f : __fmul_rn(sKs[jj], f);
         e = exp2f(__fsub_rn(__fmul_rn((float)sSw[r * 64 + jj], cf), EXP2_SHIFT));
       }
       sv[c] = e;
@@ -429,10 +505,17 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
 
   if (qrow < p.L) {
     const float den = fmaxf(l_run, 1e-30f);
-    bf16* orow = p.o + (row0 + qrow) * p.C + h * QD + half * (QD / 2);
+    bf16* orow = p.o + z1 * p.o_s1 + z2 * p.o_s2 + (long long)qrow * p.o_si + h * QD +
+                 half * (QD / 2);
 #pragma unroll
     for (int d = 0; d < QD / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] / den);
   }
+}
+
+template <bool SELF>
+cudaError_t launch_attn_q8(const Q8Params& p, long long blocks, cudaStream_t s) {
+  attn_q8_kernel<SELF><<<dim3(cdiv(p.L, 64), p.H, (unsigned)blocks), 128, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 #define GVF_CHECK(call)                  \
@@ -440,6 +523,40 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
     cudaError_t err_ = (call);           \
     if (err_ != cudaSuccess) return err_; \
   } while (0)
+
+// K1 and K2 with int8 QK (quant_qk): the self chains below, with q and k
+// RMS-normalized and quantized in place of the attention prologue's norm:
+// one scale per (cell, head) each, q8_kernel over the cells of `qp`, then
+// attn_q8_kernel<true> with V read from the fp32 qkv. Scratch as K1/K2, plus
+// qi, ki int8 [rows, C] and qs, ks fp32 [cells, H].
+int self_q8_chain(const void* x, const void* sh, const void* sc,
+                  const void* gate, const void* wqkv, const void* bqkv,
+                  const void* qg, const void* kg, const void* wo,
+                  const void* bo, void* y, void* h, void* qkv, void* qi,
+                  void* ki, void* qs, void* ks, void* attn, long long R, int C,
+                  int H, long long rpm, QuantParams qp, int cells, Q8Params p,
+                  long long blocks, cudaStream_t s) {
+  if (H < 1 || C != QD * H || C % 16 || blocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
+  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
+                                                 (float*)qkv, R, 3 * C, C, 1, s)));
+  float* q = (float*)qkv;
+  qp.src[0] = q; qp.src[1] = q + C;
+  qp.gamma[0] = (const bf16*)qg; qp.gamma[1] = (const bf16*)kg;
+  qp.dst[0] = (signed char*)qi; qp.dst[1] = (signed char*)ki;
+  qp.scale[0] = (float*)qs; qp.scale[1] = (float*)ks;
+  qp.src_stride = 3 * C; qp.dst_stride = C; qp.H = H;
+  GVF_CHECK(launch_q8(qp, cells, 2, s));
+  p.qi = (const signed char*)qi; p.qs = (const float*)qs;
+  p.k = (const signed char*)ki; p.ks = (const float*)ks;
+  p.v = q + 2 * C; p.o = (bf16*)attn; p.H = H;
+  p.scale = (float)(1.0 / sqrt((double)QD));
+  GVF_CHECK(launch_attn_q8<true>(p, blocks, s));
+  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
+                                                (bf16*)y, R, C, C, rpm, s)));
+  return 0;
+}
 
 }  // namespace
 
@@ -508,6 +625,51 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
                                                 (bf16*)y, R, C, C, rpm, s)));
   return 0;
+}
+
+// K1 quant_qk: as gvf_self_sublayer; the cell is one row block (frame) of L.
+int gvf_self_sublayer_q8(const void* x, const void* sh, const void* sc,
+                         const void* gate, const void* wqkv, const void* bqkv,
+                         const void* qg, const void* kg, const void* wo,
+                         const void* bo, void* y, void* h, void* qkv, void* qi,
+                         void* ki, void* qs, void* ks, void* attn, int B, int L,
+                         int C, int H, int mod_repeat, void* stream) {
+  QuantParams qp = {};
+  qp.s1 = L; qp.s_outer = 1; qp.cells2 = 1; qp.n_outer = L; qp.n_inner = 1;
+  Q8Params p = {};
+  p.q_s1 = p.k_s1 = p.o_s1 = (long long)L * C; p.q_si = p.k_sj = p.o_si = C;
+  p.v_s1 = (long long)L * 3 * C; p.v_sj = 3 * C;
+  p.nb2 = 1; p.L = p.Lk = L; p.q_block = L;
+  return self_q8_chain(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, y, h, qkv,
+                       qi, ki, qs, ks, attn, (long long)B * L, C, H,
+                       (long long)L * mod_repeat, qp, B, p, B,
+                       (cudaStream_t)stream);
+}
+
+// K2 quant_qk: as gvf_temporal_sublayer; a cell is one batch row x `nc`
+// voxels x all T frames (the TPU grid instance), while attention couples
+// only the T rows of one voxel.
+int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
+                             const void* gate, const void* wqkv,
+                             const void* bqkv, const void* qg, const void* kg,
+                             const void* wo, const void* bo, void* y, void* h,
+                             void* qkv, void* qi, void* ki, void* qs, void* ks,
+                             void* attn, int B, int T, int N, int C, int H,
+                             int nc, void* stream) {
+  if (nc < 1 || N % nc) return (int)cudaErrorInvalidValue;
+  QuantParams qp = {};
+  qp.s1 = (long long)T * N; qp.s2 = nc; qp.s_outer = N;
+  qp.cells2 = N / nc; qp.n_outer = T; qp.n_inner = nc;
+  Q8Params p = {};
+  p.q_s1 = p.k_s1 = p.o_s1 = (long long)T * N * C;
+  p.q_s2 = p.k_s2 = p.o_s2 = C;
+  p.q_si = p.k_sj = p.o_si = (long long)N * C;
+  p.v_s1 = (long long)T * N * 3 * C; p.v_s2 = 3 * C; p.v_sj = (long long)N * 3 * C;
+  p.nb2 = N; p.L = p.Lk = T; p.q_block = nc * T;
+  return self_q8_chain(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, y, h, qkv,
+                       qi, ki, qs, ks, attn, (long long)B * T * N, C, H,
+                       (long long)T * N, qp, B * (N / nc), p, (long long)B * N,
+                       (cudaStream_t)stream);
 }
 
 // K3. x, y [B, L, C]; per context i (image, then static): affine LN
@@ -615,18 +777,22 @@ int gvf_cross_sublayer_q8(const void* x,
     return (int)cudaErrorInvalidValue;
   auto attend = [&](const void* k, const void* v, const void* ks,
                     const void* vs, int lk) -> cudaError_t {
-    q8_kernel<QD><<<dim3((unsigned)(R / q_block), H), 256, 0, s>>>(
-        (const float*)q, (signed char*)qi, (float*)qs, q_block, C, H);
-    cudaError_t err = cudaGetLastError();
+    QuantParams qp = {};
+    qp.src[0] = (float*)q; qp.dst[0] = (signed char*)qi; qp.scale[0] = (float*)qs;
+    qp.src_stride = qp.dst_stride = C;
+    qp.s1 = q_block; qp.s_outer = 1;
+    qp.cells2 = 1; qp.n_outer = q_block; qp.n_inner = 1; qp.H = H;
+    cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, s);
     if (err != cudaSuccess) return err;
-    Q8Params p;
+    Q8Params p = {};
     p.qi = (const signed char*)qi; p.qs = (const float*)qs;
-    p.k = (const signed char*)k; p.v = (const signed char*)v;
+    p.k = (const signed char*)k; p.v = v;
     p.ks_t = (const bf16*)ks; p.vs = (const bf16*)vs; p.o = (bf16*)attn;
-    p.L = L; p.Lk = lk; p.C = C; p.H = H; p.q_block = q_block;
+    p.q_s1 = p.o_s1 = (long long)L * C; p.q_si = p.o_si = C;
+    p.k_s1 = p.v_s1 = (long long)lk * C; p.k_sj = p.v_sj = C;
+    p.nb2 = 1; p.L = L; p.Lk = lk; p.H = H; p.q_block = q_block;
     p.scale = (float)(1.0 / sqrt((double)QD));
-    attn_q8_kernel<<<dim3(cdiv(L, 64), H, B), 128, 0, s>>>(p);
-    return cudaGetLastError();
+    return launch_attn_q8<false>(p, B, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,

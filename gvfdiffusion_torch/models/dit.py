@@ -35,10 +35,12 @@ from ..nn.transformer import FinalLayer, ModulatedTransformerCrossBlock
 _TRUNC_STD = 0.87962566103423978
 
 
-def check_kv_quant(kv_quant: Optional[str]) -> None:
-    """The KV cache's storage: None (float) or "int8"."""
-    if kv_quant not in (None, "int8"):
-        raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+def check_quant(name: str, mode: Optional[str]) -> None:
+    """An int8 switch of the fused path: None (float) or "int8". `kv_quant`
+    stores the KV cache int8; `self_quant` runs the self and temporal
+    sublayers' QK products in int8."""
+    if mode not in (None, "int8"):
+        raise ValueError(f"{name} must be None or 'int8', got {mode!r}")
 
 
 class DiT(nn.Module):
@@ -116,7 +118,7 @@ class DiT(nn.Module):
         kv_quant="int8" stores it as int8 with per-(token, head) scales
         (JAX's GVF_KV_QUANT=int8, bench.py's setting), and the blocks then
         run K3's int8 form; None keeps it float."""
-        check_kv_quant(kv_quant)
+        check_quant("kv_quant", kv_quant)
         self._check_fused(cond_images)
         image_emb, static_emb = self._conditioning(cond_images, static_latent)
         return tuple(b.kv(image_emb, static_emb, quant=kv_quant == "int8")
@@ -134,12 +136,16 @@ class DiT(nn.Module):
                 cond_images: Optional[torch.Tensor] = None,
                 static_latent: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None, cross_kv=None,
-                kv_only: bool = False, impl: Optional[str] = None):
+                kv_only: bool = False, impl: Optional[str] = None,
+                self_quant: Optional[str] = None):
         """With kv_only=True returns `kv_cache(cond_images, static_latent)`;
         otherwise the predicted output [B, T, N, out_channels] in fp32. A
         given cross_kv replaces cond_images and static_latent and runs the
         fused path; without it the composed path runs. `impl="plain"` runs
-        the kernels' plain torch versions."""
+        the kernels' plain torch versions. self_quant="int8" (JAX's
+        GVF_SELF_QUANT=int8) takes the self and temporal sublayers' QK in
+        int8 on the fused path; the composed path ignores it, as in JAX."""
+        check_quant("self_quant", self_quant)
         if kv_only:
             return self.kv_cache(cond_images, static_latent)
         image_emb = static_emb = None
@@ -154,7 +160,7 @@ class DiT(nn.Module):
         pe = self.pos_embedder(positions)
         h = h + pe[:, None].to(h.dtype)  # broadcast over T
         for i, (block, kv) in enumerate(zip(self.blocks, cross_kv)):
-            args = (h, t_emb, kv, image_emb, static_emb, impl)
+            args = (h, t_emb, kv, image_emb, static_emb, impl, self_quant)
             if i < self.remat_blocks and torch.is_grad_enabled():
                 h = checkpoint(block, *args, use_reentrant=False)
             else:

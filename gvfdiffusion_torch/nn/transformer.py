@@ -149,7 +149,11 @@ class ModulatedTransformerCrossBlock(nn.Module):
     def forward(self, x: torch.Tensor, mod: torch.Tensor, cross_kv=None,
                 cond_images: Optional[torch.Tensor] = None,
                 static_latent: Optional[torch.Tensor] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None,
+                self_quant: Optional[str] = None) -> torch.Tensor:
+        """self_quant="int8": the fused path's self and temporal sublayers
+        take their QK in int8 (JAX :397-424); the composed path ignores
+        it."""
         dt = self.dtype
         m = dense(F.silu(mod), self.adaLN_modulation[1], dt).chunk(6, dim=-1)
         mt = dense(F.silu(mod), self.adaLN_modulation_temporal[1],
@@ -157,7 +161,7 @@ class ModulatedTransformerCrossBlock(nn.Module):
         chunks = m[:3] + mt + m[3:]
         if cross_kv is None:
             return self._composed(x, chunks, cond_images, static_latent, impl)
-        return self._fused(x, chunks, cross_kv, impl)
+        return self._fused(x, chunks, cross_kv, impl, self_quant == "int8")
 
     def _composed(self, x, chunks, cond_images, static_latent, impl):
         """JAX :291-376: LayerNorms in fp32, the attentions computing in bf16
@@ -187,7 +191,7 @@ class ModulatedTransformerCrossBlock(nn.Module):
         h = modulate(layer_norm(x, 1e-6), sh_m, sc_m)
         return x + self.mlp(h, dt) * g_m[:, None, None, :]
 
-    def _fused(self, x, chunks, cross_kv, impl):
+    def _fused(self, x, chunks, cross_kv, impl, quant_qk: bool):
         C, H, dt = self.channels, self.num_heads, self.dtype
         B, T, N, _ = x.shape
         (sh_s, sc_s, g_s, sh_t, sc_t, g_t, sh_m, sc_m, g_m) = chunks
@@ -203,12 +207,12 @@ class ModulatedTransformerCrossBlock(nn.Module):
         x = fsl.fused_self_sublayer(
             x.reshape(B * T, N, C), w(sh_s), w(sc_s), w(g_s),
             *self_args(self.spatial_self_attn), num_heads=H,
-            compute_dtype=dt, mod_repeat=T, impl=impl,
+            compute_dtype=dt, mod_repeat=T, quant_qk=quant_qk, impl=impl,
         ).reshape(B, T, N, C)
 
         x = fsl.fused_temporal_sublayer(
             x, w(sh_t), w(sc_t), w(g_t), *self_args(self.temporal_self_attn),
-            num_heads=H, compute_dtype=dt, impl=impl)
+            num_heads=H, compute_dtype=dt, quant_qk=quant_qk, impl=impl)
 
         def cross_args(norm: nn.LayerNorm, attn: MultiHeadAttention):
             return (w(norm.weight), w(norm.bias), w(attn.to_q.weight.t()),

@@ -22,15 +22,23 @@ against an int8 KV cache from `quantize_kv`) is ported with its arithmetic:
 dequantized cache. That form quantizes q per (cell, head), where a cell is
 one TPU grid instance: all L rows of a batch row, or `lq_block` of them
 where the JAX DiT grids the rows (halves at the 3-way CFG batch); the
-wrappers take that domain as `q_block`. The self kernels' `quant_qk` and
-K1's `seg` are not ported yet.
+wrappers take that domain as `q_block`. The self kernels' int8-QK form
+(`quant_qk=True`, JAX's GVF_SELF_QUANT=int8) is ported too: q and k, in
+fp32 after their RMS norms, each take one max-abs scale per (cell, head),
+where the cell is one frame for the self sublayer and one batch row x
+`voxel_group` voxels x all T frames for the temporal one (the TPU grid
+instance; attention still couples only the T rows of one voxel). JAX has
+no oracle for it: `self_sublayer_qk8_reference` and
+`temporal_sublayer_qk8_reference` are its plain versions. K1's `seg` is
+not ported.
 
 Weights come in the JAX layout ([in, out]); an `nn.Linear(...).weight.t()`
 view passes to the kernel with no copy.
 
 `launch_counts` counts kernel launches per sublayer (one per launched
 chain; "cross" for the two-context form, "cross_single" for the single,
-"cross_q8" for the int8 form); the plain version never counts.
+"cross_q8" for the int8 form, "self_q8" and "temporal_q8" for the int8-QK
+self forms); the plain version never counts.
 
 The kernels have no backward pass yet (the JAX custom_vjps recompute
 through einsums or the oracle): on CUDA a wrapper raises when grad mode is
@@ -51,7 +59,11 @@ _LOG2E = 1.4426950408889634
 _SHIFT = 30.0  # the TPU kernels' fixed exp2 shift
 
 launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
-                 "cross_single": 0, "cross_q8": 0}
+                 "cross_single": 0, "cross_q8": 0, "self_q8": 0,
+                 "temporal_q8": 0}
+# voxels per cell of the temporal sublayer (JAX `_TEMPORAL_NC`), halved
+# until it divides N
+_TEMPORAL_NC = 16
 
 
 def reset_launch_counts() -> None:
@@ -124,6 +136,91 @@ def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     p = torch.softmax(s, dim=-1)
     attn = torch.einsum("bnhts,bsnhd->btnhd", _rd(p, dt), vh)
     out = _rd(attn.reshape(B, T, N, C), dt) @ _rd(wo, dt) + _f(bo)
+    return (xf + out * _f(gate)[:, None, None]).to(x.dtype)
+
+
+def temporal_voxel_group(n: int) -> int:
+    """Voxels per cell of the temporal sublayer at N = n, as the JAX kernel
+    grids them: 16, halved while it does not divide n."""
+    nc = _TEMPORAL_NC
+    while n % nc:
+        nc //= 2
+    return nc
+
+
+def _qk8_attention(q, qs, k, ks, v, dt, scale):
+    """The int8-QK attention of one row block per leading index, in the
+    kernels' arithmetic (JAX `_packed_attention`, quant_qk): q, k [..., Lq |
+    Lk, H, D] fp32 after the RMS norms, their max-abs scales qs, ks
+    [..., H] (each floored at 1e-8) taken beforehand over the cell; v fp32.
+    qi = round(q * (127 / qs)) (half to even), si the int8 x int8 sums
+    (exact in fp32), s = si * (qs * ks * scale * log2 e / 127^2) - 30,
+    P = exp2(s); the row sum from the fp32 P, P V with P and V rounded to
+    dt. -> [..., Lq, H, D]."""
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    n127 = f32(127.0)
+    qi = torch.round(q * (n127 / qs)[..., None, :, None])
+    ki = torch.round(k * (n127 / ks)[..., None, :, None])
+    si = torch.einsum("...qhd,...khd->...hqk", qi, ki)
+    f = qs * ks * f32(scale) * f32(_LOG2E) / f32(127.0 * 127.0)
+    p_ = torch.exp2(si * f[..., None, None] - _SHIFT)
+    del si
+    denom = p_.sum(-1).transpose(-1, -2)[..., None]  # [..., Lq, H, 1]
+    o = torch.einsum("...hqk,...khd->...qhd", _rd(p_, dt), _rd(v, dt))
+    return o / denom.clamp_min(1e-30)
+
+
+def self_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
+                                num_heads: int,
+                                compute_dtype=torch.bfloat16):
+    """The int8-QK self sublayer's own arithmetic (JAX
+    `_self_sublayer_kernel` with quant_qk=True): as
+    self_sublayer_reference, with q and k (fp32, RMS-normalized) quantized
+    per (frame, head); see _qk8_attention."""
+    B, L, C = x.shape
+    H, D = num_heads, C // num_heads
+    dt = compute_dtype
+    xf = _f(x)
+    h = _layernorm_f32(xf) * (1.0 + _f(sc)[:, None]) + _f(sh)[:, None]
+    qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
+    q, k, v = (a.reshape(B, L, H, D) for a in (
+        _rms(qkv[..., :C], qg, H), _rms(qkv[..., C:2 * C], kg, H),
+        qkv[..., 2 * C:]))
+    qs, ks = (a.abs().amax((1, 3)).clamp_min(1e-8) for a in (q, k))  # [B, H]
+    attn = _qk8_attention(q, qs, k, ks, v, dt, D ** -0.5).reshape(B, L, C)
+    out = _rd(attn, dt) @ _rd(wo, dt) + _f(bo)
+    return (xf + out * _f(gate)[:, None]).to(x.dtype)
+
+
+def temporal_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo,
+                                    bo, num_heads: int,
+                                    compute_dtype=torch.bfloat16,
+                                    voxel_group: Optional[int] = None):
+    """The int8-QK temporal sublayer's own arithmetic (JAX
+    `_temporal_sublayer_kernel` with quant_qk=True): as
+    temporal_sublayer_reference, with q and k (fp32, RMS-normalized)
+    quantized per (batch row, group of `voxel_group` voxels, head) over all
+    T frames (default: temporal_voxel_group(N)); attention over T per
+    voxel."""
+    B, T, N, C = x.shape
+    H, D = num_heads, C // num_heads
+    nc = voxel_group or temporal_voxel_group(N)
+    if N % nc:
+        raise ValueError(f"voxel group {nc} does not divide {N} voxels")
+    dt = compute_dtype
+    xf = _f(x)
+    h = _layernorm_f32(xf) * (1.0 + _f(sc)[:, None, None]) \
+        + _f(sh)[:, None, None]
+    qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
+    # [B, N, T, H, D]: one row block per voxel
+    q, k, v = (a.reshape(B, T, N, H, D).transpose(1, 2) for a in (
+        _rms(qkv[..., :C], qg, H), _rms(qkv[..., C:2 * C], kg, H),
+        qkv[..., 2 * C:]))
+    qs, ks = (a.reshape(B, N // nc, nc, T, H, D).abs().amax((2, 3, 5))
+              .clamp_min(1e-8).repeat_interleave(nc, 1) for a in (q, k))
+    attn = _qk8_attention(q, qs, k, ks, v, dt, D ** -0.5)
+    attn = attn.transpose(1, 2).reshape(B, T, N, C)
+    out = _rd(attn, dt) @ _rd(wo, dt) + _f(bo)
     return (xf + out * _f(gate)[:, None, None]).to(x.dtype)
 
 
@@ -331,15 +428,19 @@ def _rep(a: torch.Tensor, mod_repeat: int) -> torch.Tensor:
 
 def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
                         num_heads: int, compute_dtype=torch.bfloat16,
-                        mod_repeat: int = 1, impl: Optional[str] = None):
+                        mod_repeat: int = 1, quant_qk: bool = False,
+                        impl: Optional[str] = None):
     """Modulated self-attention sublayer over L. x [B, L, C];
     sh/sc/gate [B // mod_repeat, C]: row block i reads modulation row
-    i // mod_repeat (the frames of one sample share a timestep)."""
+    i // mod_repeat (the frames of one sample share a timestep).
+    quant_qk=True: int8 QK with per-(frame, head) scales; see
+    self_sublayer_qk8_reference."""
     if not _use_kernel(x, impl):
-        return self_sublayer_reference(
-            x, _rep(sh, mod_repeat), _rep(sc, mod_repeat),
-            _rep(gate, mod_repeat), wqkv, bqkv, qg, kg, wo, bo,
-            num_heads=num_heads, compute_dtype=compute_dtype)
+        ref = self_sublayer_qk8_reference if quant_qk else \
+            self_sublayer_reference
+        return ref(x, _rep(sh, mod_repeat), _rep(sc, mod_repeat),
+                   _rep(gate, mod_repeat), wqkv, bqkv, qg, kg, wo, bo,
+                   num_heads=num_heads, compute_dtype=compute_dtype)
     from .. import _ext
 
     _no_grad_inputs("fused_self_sublayer", x, sh, sc, gate, wqkv, bqkv, qg,
@@ -356,18 +457,41 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
     qkv = torch.empty(B * L, 3 * C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
+    if quant_qk:
+        q8 = _qk8_scratch(B * L, B, C, num_heads, x.device)
+        _ext.call("gvf_self_sublayer_q8", _ptr(x), *map(_ptr, args), _ptr(y),
+                  _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, L, C,
+                  num_heads, mod_repeat)
+        launch_counts["self_q8"] += 1
+        return y
     _ext.call("gvf_self_sublayer", _ptr(x), *map(_ptr, args), _ptr(y),
               _ptr(h), _ptr(qkv), _ptr(attn), B, L, C, num_heads, mod_repeat)
     launch_counts["self"] += 1
     return y
 
 
+def _qk8_scratch(rows: int, cells: int, C: int, H: int, device):
+    """int8 q and k [rows, C] and their fp32 scales [cells, H]."""
+    i8 = lambda: torch.empty(rows, C, device=device, dtype=torch.int8)
+    f32 = lambda: torch.empty(cells, H, device=device, dtype=torch.float32)
+    return i8(), i8(), f32(), f32()
+
+
 def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
                             num_heads: int, compute_dtype=torch.bfloat16,
+                            quant_qk: bool = False,
+                            voxel_group: Optional[int] = None,
                             impl: Optional[str] = None):
     """Modulated self-attention over T on the native [B, T, N, C] layout;
-    sh/sc/gate [B, C]."""
+    sh/sc/gate [B, C]. quant_qk=True: int8 QK with scales per (batch row,
+    group of `voxel_group` voxels, head), the group defaulting to
+    temporal_voxel_group(N); see temporal_sublayer_qk8_reference."""
     if not _use_kernel(x, impl):
+        if quant_qk:
+            return temporal_sublayer_qk8_reference(
+                x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
+                num_heads=num_heads, compute_dtype=compute_dtype,
+                voxel_group=voxel_group)
         return temporal_sublayer_reference(
             x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads=num_heads,
             compute_dtype=compute_dtype)
@@ -387,6 +511,16 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
     qkv = torch.empty(R, 3 * C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
+    if quant_qk:
+        nc = voxel_group or temporal_voxel_group(N)
+        if N % nc:
+            raise ValueError(f"voxel group {nc} does not divide {N} voxels")
+        q8 = _qk8_scratch(R, B * (N // nc), C, num_heads, x.device)
+        _ext.call("gvf_temporal_sublayer_q8", _ptr(x), *map(_ptr, args),
+                  _ptr(y), _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B,
+                  T, N, C, num_heads, nc)
+        launch_counts["temporal_q8"] += 1
+        return y
     _ext.call("gvf_temporal_sublayer", _ptr(x), *map(_ptr, args), _ptr(y),
               _ptr(h), _ptr(qkv), _ptr(attn), B, T, N, C, num_heads)
     launch_counts["temporal"] += 1

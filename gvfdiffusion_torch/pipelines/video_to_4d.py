@@ -11,7 +11,8 @@ guidance modes, so the DiT has one structure: the four fused sublayers. At
 guidance 1.0/1.0 this computes the same function as the JAX pipeline, which
 there projects the conditioning inside every step. With
 `VideoTo4DConfig(kv_quant="int8")` the cache is stored int8 and the cross
-sublayer runs its int8 form.
+sublayer runs its int8 form; with `self_quant="int8"` the self and
+temporal sublayers take their QK products in int8.
 
 The pipeline runs on `device`, "cuda" unless the caller asks for the CPU,
 and moves its modules there; without a CUDA device it raises.
@@ -26,13 +27,12 @@ import torch
 
 from ..diffusion.dpm_solver import DPMSolver, NoiseScheduleVP, model_wrapper
 from ..diffusion.gaussian_diffusion import get_named_beta_schedule
-from ..models.dit import DiT, check_kv_quant
+from ..models.dit import DiT, check_quant
 from ..models.motion_vae import MotionVAE
-from ..ops.fps import fps_masked
 from ..render.renderer import GaussianRenderer, RenderOptions
-from ..representations.camera import orbit_camera
 from ..representations.gaussians import GaussianSplat
 from ..utils.device import resolve_device
+from ..utils.inference_utils import orbit_renders, sample_gs
 
 # Gaussians per query chunk of the motion-VAE decode, as bench.py decodes
 DECODE_CHUNK = 8192
@@ -44,7 +44,9 @@ class VideoTo4DConfig:
     read (method, num_frames, fps_anchor_points). `kv_quant` is the storage
     of the DiT's hoisted cross-attention KV: None (float, the JAX default
     with GVF_KV_QUANT unset) or "int8" (JAX's GVF_KV_QUANT=int8, which
-    bench.py sets): an explicit field here, not an environment variable."""
+    bench.py sets). `self_quant` is the DiT's self and temporal QK: None
+    (bf16) or "int8" (JAX's GVF_SELF_QUANT=int8). Both are explicit fields
+    here, not environment variables."""
     steps: int = 100
     order: int = 2
     # 1.0/1.0 selects the single-conditional-pass CFG branch
@@ -55,9 +57,11 @@ class VideoTo4DConfig:
     num_latents: int = 512
     latent_dim: int = 16
     kv_quant: Optional[str] = None
+    self_quant: Optional[str] = None
 
     def __post_init__(self):
-        check_kv_quant(self.kv_quant)
+        check_quant("kv_quant", self.kv_quant)
+        check_quant("self_quant", self.self_quant)
 
 
 class VideoTo4DPipeline:
@@ -86,11 +90,7 @@ class VideoTo4DPipeline:
     def prepare_static_conditioning(self, static_gs_activated: torch.Tensor,
                                     valid: torch.Tensor) -> torch.Tensor:
         """FPS-sample `num_latents` anchors [B, num_latents, 14]."""
-        idx = fps_masked(static_gs_activated[..., :3], valid,
-                         self.cfg.num_latents)
-        return torch.gather(
-            static_gs_activated, 1,
-            idx[..., None].expand(-1, -1, static_gs_activated.shape[-1]))
+        return sample_gs(static_gs_activated, valid, self.cfg.num_latents)
 
     @torch.no_grad()
     def cross_kv(self, cond_images: torch.Tensor,
@@ -125,7 +125,8 @@ class VideoTo4DPipeline:
         cond = dict(positions=positions)
 
         def raw_model(x, t, positions, cross_kv):
-            return self.dit(x, t, positions=positions, cross_kv=cross_kv)
+            return self.dit(x, t, positions=positions, cross_kv=cross_kv,
+                            self_quant=cfg.self_quant)
 
         model_fn = model_wrapper(
             raw_model, self.ns, condition=cond, unconditional_condition=cond,
@@ -175,17 +176,12 @@ class VideoTo4DPipeline:
     @torch.no_grad()
     def render_4d(self, gs: GaussianSplat, deltas: torch.Tensor,
                   valid: Optional[torch.Tensor] = None, num_views: int = 128,
-                  resolution: int = 512) -> torch.Tensor:
+                  resolution: int = 512, pitch_deg: float = 20.0,
+                  radius: float = 2.0) -> torch.Tensor:
         """Frame t of deltas [T, G, 14] rendered from each of `num_views`
-        orbit views (pitch 20 degrees, radius 2) -> [T, V, H, W, 3] float
-        frames, on the splat's device."""
-        cams = [orbit_camera(360.0 * v / num_views, 20.0, radius=2.0,
-                             height=resolution, width=resolution)
-                for v in range(num_views)]
-        world_views = torch.stack([c.world_view for c in cams])
-        intrinsics = torch.stack([c.intrinsics for c in cams])
-        return torch.stack([
-            self.renderer.render_views(
-                gs, world_views, intrinsics, resolution, resolution,
-                delta=d, valid=valid)["render"]
-            for d in deltas])
+        orbit views at `pitch_deg` and `radius` -> [T, V, H, W, 3] float
+        frames as a tensor on the splat's device (JAX returns a numpy
+        array); see utils/inference_utils.orbit_renders."""
+        return torch.stack(list(orbit_renders(
+            self.renderer, gs, deltas, valid, num_views, resolution,
+            pitch_deg, radius)))

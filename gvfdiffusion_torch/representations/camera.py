@@ -1,6 +1,6 @@
 """Cameras: OpenCV-normalized intrinsics, COLMAP world-to-view extrinsics,
 OpenGL projection (port of gvfdiffusion_tpu/representations/camera.py
-:16-125). Matrices are float32 tensors on the CPU; the renderer moves them
+:16-130). Matrices are float32 tensors on the CPU; the renderer moves them
 to the Gaussians' device."""
 
 from __future__ import annotations
@@ -102,3 +102,9 @@ def orbit_camera(yaw_deg: float, pitch_deg: float, radius: float = 2.0,
     return Camera(world_view=torch.from_numpy(lookat_extrinsics(eye, target)),
                   intrinsics=torch.from_numpy(fov_intrinsics(fov_deg)),
                   height=height, width=width)
+
+
+def orbit_cameras(num: int, pitch_deg: float = 20.0, **kw) -> tuple:
+    """`num` orbit cameras at yaws 360 * i / num."""
+    return tuple(orbit_camera(360.0 * i / num, pitch_deg, **kw)
+                 for i in range(num))

@@ -23,6 +23,7 @@ import math
 import torch
 
 _ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
+_PER_GAUSSIAN = ("_xyz", "_features_dc", "_scaling", "_rotation", "_opacity")
 
 
 def inverse_sigmoid(x: float) -> float:
@@ -103,6 +104,13 @@ class GaussianSplat:
     @property
     def get_features(self) -> torch.Tensor:
         return self._features_dc
+
+    def select(self, index) -> "GaussianSplat":
+        """Each per-Gaussian field indexed by `index`: a batch row of a
+        [B, N, ...] splat, or a subset of the Gaussians of an [N, ...] one;
+        the aabb and the activation config are kept."""
+        return dataclasses.replace(self, **{k: getattr(self, k)[index]
+                                            for k in _PER_GAUSSIAN})
 
     @property
     def num_gaussians(self) -> int:

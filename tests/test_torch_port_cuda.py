@@ -15,7 +15,10 @@ without one; run them on the GPU with
 
 K7 (the flash attention over key validity, heads of 64) runs at key
 lengths 70, 4097 and 32768 with prefix, scattered and empty validity;
-K3's int8 form at the DiT's heads of 32 with both q-scale domains.
+K3's int8 form at the DiT's heads of 32 with both q-scale domains; K1 and
+K2 with int8 QK (`quant_qk`) at several frames, N of 100, 128 and 512 and
+T of 24 and 32 over 24 and 48 voxels (voxel groups of 8 and 16); the
+multi-round, early-exit tile blend on the card against the CPU.
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
@@ -148,8 +151,7 @@ def test_launch_counts_and_dtype_check(dev):
     with torch.no_grad():
         pt.fused_self_sublayer(*args, num_heads=4)
         pt.fused_self_sublayer(*args, num_heads=4, impl="plain")
-    assert pt.launch_counts == {"self": 1, "temporal": 0, "cross": 0,
-                                "mlp": 0, "cross_single": 0, "cross_q8": 0}
+    assert {k: n for k, n in pt.launch_counts.items() if n} == {"self": 1}
     with pytest.raises(TypeError):
         pt.fused_self_sublayer(x.float(), *args[1:], num_heads=4)
     with pytest.raises(ValueError):  # heads of 64: not the DiT's width
@@ -618,3 +620,158 @@ def test_dit_int8_cache_kernels_match_plain(dev):
         assert pt.launch_counts["cross_q8"] == 2
         assert pt.launch_counts["cross"] == 0
         assert _rel(y, ref) <= 3e-2, _rel(y, ref)
+
+
+@pytest.mark.parametrize("L", [100, 128, 512])
+@pytest.mark.parametrize("mod_repeat", [1, 2])
+def test_self_q8_kernel(dev, L, mod_repeat):
+    """K1 with int8 QK: one q and one k scale per (frame, head)."""
+    d = _Draw(dev, 25, 128)
+    x = d(4, L, 128)
+    _check("self", pt.fused_self_sublayer, x,
+           (x, *d.mods(4 // mod_repeat), *d.self_weights()),
+           dict(num_heads=4, mod_repeat=mod_repeat, quant_qk=True))
+
+
+@pytest.mark.parametrize("T", [24, 32])
+@pytest.mark.parametrize("N", [24, 48])
+def test_temporal_q8_kernel(dev, T, N):
+    """K2 with int8 QK: scales per (batch row, group of 8 or 16 voxels,
+    head), attention over T per voxel."""
+    d = _Draw(dev, 26, 128)
+    x = d(2, T, N, 128)
+    _check("temporal", pt.fused_temporal_sublayer, x,
+           (x, *d.mods(2), *d.self_weights()),
+           dict(num_heads=4, quant_qk=True))
+
+
+def test_qk8_counts_and_checks(dev):
+    d = _Draw(dev, 27, 128)
+    x = d(2, 8, 32, 128)
+    args = (x, *d.mods(2), *d.self_weights())
+    pt.reset_launch_counts()
+    with torch.no_grad():
+        pt.fused_temporal_sublayer(*args, num_heads=4, quant_qk=True)
+        pt.fused_temporal_sublayer(*args, num_heads=4, quant_qk=True,
+                                   impl="plain")
+        pt.fused_self_sublayer(x[0], *args[1:], num_heads=4, quant_qk=True,
+                               mod_repeat=4)
+    assert {k: n for k, n in pt.launch_counts.items() if n} == {
+        "self_q8": 1, "temporal_q8": 1}
+    with torch.no_grad(), pytest.raises(ValueError):  # 24 voxels in 16s
+        pt.fused_temporal_sublayer(d(1, 8, 24, 128), *d.mods(1),
+                                   *d.self_weights(), num_heads=4,
+                                   quant_qk=True, voxel_group=16)
+    with pytest.raises(RuntimeError):  # no backward: raises under grad
+        pt.fused_self_sublayer(x[0].detach().requires_grad_(), *args[1:],
+                               num_heads=4, quant_qk=True, mod_repeat=4)
+
+
+def test_dit_self_quant_kernels_match_plain(dev):
+    """A 2-block DiT with self_quant="int8" on an int8 cache, kernels vs
+    impl="plain": K1 q8 and K2 q8 launch once per block."""
+    dit = init_random_(DiT(model_channels=128, image_cond_channels=64,
+                           num_blocks=2, num_heads=4, dtype=torch.bfloat16),
+                       seed=6).to(dev)
+    g = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn(1, 24, 128, 16, generator=g, device=dev)
+    t = torch.full((1,), 300.0, device=dev)
+    ci = torch.randn(1, 24, 20, 64, generator=g, device=dev)
+    st = torch.randn(1, 128, 14, generator=g, device=dev)
+    pos = torch.rand(1, 128, 3, generator=g, device=dev)
+    pt.reset_launch_counts()
+    with torch.no_grad():
+        kv = dit.kv_cache(ci, st, kv_quant="int8")
+        y = dit(x, t, positions=pos, cross_kv=kv, self_quant="int8")
+        ref = dit(x, t, positions=pos, cross_kv=kv, impl="plain",
+                  self_quant="int8")
+    assert {k: n for k, n in pt.launch_counts.items() if n} == {
+        "self_q8": 2, "temporal_q8": 2, "cross_q8": 2, "mlp": 2}
+    assert _rel(y, ref) <= 3e-2, _rel(y, ref)
+
+
+@pytest.mark.parametrize("early_exit", [False, True])
+def test_multiround_blend_on_the_card_matches_the_cpu(dev, early_exit):
+    """The plain-torch multi-round blend (no kernel of its own) on the card
+    against the same call on the CPU: 3000 Gaussians at 128^2, tiles of
+    64, 128 per round, 2 rounds. Four broad Gaussians of opacity 0.95 in
+    front leave every pixel's transmittance under 1e-4 after the first
+    round, so early exit stops every tile there; skipping the second round
+    moves the frames by ~3e-5 (on the CPU), past the 1e-5 bound, so the
+    card must stop the same tiles as the CPU."""
+    from gvfdiffusion_torch.ops.rasterize.xla_blend import (
+        blend_tiles_multiround)
+
+    r = np.random.default_rng(29)
+    n, m = 3000, 4
+    a = r.uniform(-0.5, 0.5, (n, 2, 2)) * 8.0
+    cov = a @ a.transpose(0, 2, 1) + 2.0 * np.eye(2)
+    ins = [r.uniform(0, 128, (n, 2)), cov, r.uniform(0, 1, (n, 3)),
+           r.uniform(0.05, 0.95, n), r.uniform(1, 3, n)]
+    ins[0][:m] = r.uniform(48, 80, (m, 2))
+    ins[1][:m] = 300.0 ** 2 * np.eye(2)
+    ins[3][:m] = 0.95
+    ins[4][:m] = r.uniform(0.5, 0.9, m)
+    ins = [torch.tensor(v, dtype=torch.float32) for v in ins]
+    ins.append(torch.from_numpy(r.uniform(size=n) > 0.05))
+    ins[5][:m] = True
+    bg = torch.ones(3)
+    kw = dict(tile=64, per_round=128, rounds=2, early_exit=early_exit)
+    want = blend_tiles_multiround(*ins, 128, 128, bg, **kw)
+    got = blend_tiles_multiround(*(v.to(dev) for v in ins), 128, 128,
+                                 bg.to(dev), **kw)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, atol=1e-5, rtol=1e-5)
+    if early_exit:  # it stopped early, and that shows on the card too
+        scan = blend_tiles_multiround(*(v.to(dev) for v in ins), 128, 128,
+                                      bg.to(dev), **dict(kw, early_exit=False))
+        assert (scan[1] - got[1]).abs().max() > 1e-5
+
+
+@pytest.mark.parametrize("N", [32, 24])
+def test_temporal_q8_scales_span_the_voxel_group(dev, monkeypatch, N):
+    """K2 with int8 QK, its own q and k scales read back from its scratch:
+    one per (batch row, group of 16 voxels (8 at N = 24), head) over all T
+    frames, as the TPU grid's cell. They equal the group max-abs of the
+    plain arithmetic's RMS-normalized q and k to rtol 1e-3 (the two qkv
+    products round apart), while a per-voxel max-abs sits a median of
+    12-17% below it (plain arithmetic, these draws); in each group the int8 values reach 127 in
+    one voxel, not in every voxel as per-voxel scales would give."""
+    B, T, C, H = 2, 24, 128, 4
+    D = C // H
+    d = _Draw(dev, 31, C)
+    x = d(B, T, N, C)
+    sh, sc, gate = d.mods(B)
+    weights = d.self_weights()
+    seen = []
+    real = pt._qk8_scratch
+
+    def keep(*a):
+        seen.append(real(*a))
+        return seen[-1]
+
+    monkeypatch.setattr(pt, "_qk8_scratch", keep)
+    with torch.no_grad():
+        pt.fused_temporal_sublayer(x, sh, sc, gate, *weights, num_heads=H,
+                                   quant_qk=True)
+    torch.cuda.synchronize()
+    qi, ki, qs, ks = seen[0]
+    nc = pt.temporal_voxel_group(N)
+    G = N // nc
+    assert qs.shape == ks.shape == (B * G, H)
+    wqkv, bqkv, qg, kg = weights[:4]
+    bf = torch.bfloat16
+    h = (pt._layernorm_f32(x.float()) * (1.0 + sc.float()[:, None, None])
+         + sh.float()[:, None, None])
+    qkv = pt._rd(h, bf) @ pt._rd(wqkv, bf) + bqkv.float()
+    for a, g, s, i8 in ((qkv[..., :C], qg, qs, qi),
+                        (qkv[..., C:2 * C], kg, ks, ki)):
+        a = pt._rms(a, g, H).abs().reshape(B, T, G, nc, H, D)
+        grp = a.amax((1, 3, 5))  # [B, G, H]
+        vox = a.amax((1, 5))     # [B, G, nc, H]
+        torch.testing.assert_close(s.reshape(B, G, H),
+                                   grp.clamp_min(1e-8), rtol=1e-3, atol=0)
+        assert float((1.0 - vox / grp[:, :, None]).median()) > 1e-2
+        top = i8.reshape(B, T, G, nc, H, D).abs().amax((1, 5)) == 127
+        assert bool(top.any(2).all())  # every (row, group, head) reaches 127
+        assert float(top.float().mean()) < 0.5

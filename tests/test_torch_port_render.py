@@ -193,7 +193,42 @@ def test_renderer_matches_jax():
         assert torch.equal(multi["render"][v], one["render"])
 
 
+@pytest.mark.parametrize("opt", [
+    dict(OPT),
+    dict(OPT, rounds=2, max_per_tile=32, early_exit=True),
+], ids=["one_round", "two_rounds_early_exit"])
+def test_render_views_chunks_match_jax_and_each_view(opt):
+    """Five views through render_views, `chunk` at a time (1, 2 and 8: a
+    partial last chunk, and all five in one): the frames do not depend on
+    the chunk, equal each view's own render, and match JAX's
+    render_views."""
+    act, delta = _splat(6)
+    gs = from_activated(_t(act))
+    cams = pcam.orbit_cameras(5, 25.0, height=RES, width=RES)
+    wvs = torch.stack([c.world_view for c in cams])
+    pren = GaussianRenderer(RenderOptions(**opt))
+    outs = [pren.render_views(gs, wvs, cams[0].intrinsics, RES, RES,
+                              delta=_t(delta), chunk=c) for c in (1, 2, 8)]
+    for o in outs[1:]:
+        for k in o:
+            assert torch.equal(o[k], outs[0][k]), k
+    for v, c in enumerate(cams):
+        one = pren.render(gs, c, delta=_t(delta))
+        assert torch.equal(outs[0]["render"][v], one["render"])
+    jren = jr.GaussianRenderer(jr.RenderOptions(**opt))
+    want = jren.render_views(jg.from_activated(jnp.asarray(act)),
+                             jnp.asarray(wvs.numpy()),
+                             jnp.asarray(cams[0].intrinsics.numpy()), RES,
+                             RES, delta=jnp.asarray(delta), chunk=2)
+    assert float(np.asarray(want["alpha"]).mean()) > 0.2
+    np.testing.assert_allclose(outs[0]["render"].numpy(),
+                               np.asarray(want["render"]), atol=1e-4)
+
+
 def test_unported_options_raise():
-    for kw in (dict(rounds=2), dict(backend="reference"), dict(ssaa=2)):
+    for kw in (dict(backend="reference"), dict(ssaa=2),
+               dict(rounds=2, early_exit=True, ssaa=2)):
         with pytest.raises(NotImplementedError):
             GaussianRenderer(RenderOptions(**kw))
+    # several rounds with early exit are ported
+    GaussianRenderer(RenderOptions(rounds=2, early_exit=True))
