@@ -35,6 +35,15 @@ Phases, each printed on its own lines:
      scaled_dot_product_attention under the boolean key mask as the
      library call; K1 and K2 with int8 QK (quant_qk) at the DiT's shapes,
      against their plain int8-QK versions and against the float kernels;
+     then the forms of the DiT's other configurations, each at the shapes
+     of the configuration that runs it: K1 / K2 without the q/k RMS norm
+     and K3 with the q norm (float and int8), K1-K3 at heads of 64 (8
+     heads; float and int8), K4 at M = 1024, K6 at heads of 64 (with
+     ptxas's register and spill count of each K6 kernel), and K5 at heads
+     of 64 in fp32 (the 8-head DiT's training: self [48, 512, 8, 64],
+     cross to 1374 and 512 keys; forward and gradients as at heads of
+     32) and at heads of 32 in bf16 (dit-rope's composed inference: self
+     [32, 512, 16, 32], cross to 1374 and 512 keys);
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -52,6 +61,15 @@ Phases, each printed on its own lines:
      against the float runs; and both again with the DiT's self and
      temporal QK in int8 on that cache (self_quant="int8": K1 and K2
      with int8 QK, their launches counted in the 32-step run() alone);
+  4a. the DiT's other configurations (configs/diffusion.yml at full width
+     with DIT_CONFIGS's fields changed: q/k RMS norms off on self and on
+     cross, 8 heads of 64, RoPE with share_mod, no temporal attention with
+     a learnable PE and MLP ratio 2): for each, one DiT forward against
+     impl="plain", then VideoTo4DPipeline.run on the frames' tokens, on the
+     float cache and on the int8 cache with int8 QK (32 steps for the two
+     that reach new kernel forms, 4 for the others), timed, its launches
+     counted and checked, its stages one by one, and the int8 run against
+     the float run;
   5. the TRELLIS image -> 3D front end at full width (DINOv2, the 24x1024
      sparse-structure flow, the occupancy decoder, the 24x1024 SLat flow
      with its torso compacted to 4096 slots, the 12x768 Gaussian decoder;
@@ -85,7 +103,15 @@ Phases, each printed on its own lines:
      a resume from its checkpoint to 5 (a second update moves weights and
      EMA); one micro-step from the saved state with the kernels and with
      impl="plain" (loss, gradients, updated parameters); the micro-step's
-     time, samples/s and peak memory.
+     time, samples/s and peak memory; then main_latent.main for 3
+     micro-steps at two of the other configurations (8 heads of 64: K5 and
+     K6 at heads of 64; RoPE with share_mod: K5 at heads of 32 and the
+     library attention over T), each from a YAML written from
+     configs/diffusion.yml, with losses, step times, peak memory and
+     launches (the launches of K5 and K6 at heads of 64 counted in the
+     8-head run), and one micro-step of each on seeded random weights,
+     kernels against impl="plain" (main()'s losses are the same at every
+     configuration: flax's zero final layer makes the output 0).
 Then one JSON line of per-kernel results and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without a CUDA device, or without
@@ -156,9 +182,66 @@ KERNELS = [
     ("fused_temporal_sublayer[int8 QK]",
      "gvfdiffusion_tpu/ops/fused_sublayer.py:373",
      "gvfdiffusion_torch/csrc/fused_sublayer.cu", "temporal_q8"),
+    # the forms of the DiT's other configurations ([dit-config], [train])
+    ("fused_self_sublayer[rms=False]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_norms_off"),
+    ("fused_temporal_sublayer[rms=False]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:373",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "temporal_norms_off"),
+    ("fused_cross_sublayer[q RMS norm]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_rms"),
+    ("fused_self_sublayer[int8 QK, rms=False]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_q8_norms_off"),
+    ("fused_temporal_sublayer[int8 QK, rms=False]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:373",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "temporal_q8_norms_off"),
+    ("fused_cross_sublayer[int8 KV, q RMS norm]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_q8_rms"),
+    ("fused_self_sublayer[heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_d64"),
+    ("fused_temporal_sublayer[heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:373",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "temporal_d64"),
+    ("fused_cross_sublayer[heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_d64"),
+    ("fused_self_sublayer[int8 QK, heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_q8_d64"),
+    ("fused_temporal_sublayer[int8 QK, heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:373",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "temporal_q8_d64"),
+    ("fused_cross_sublayer[int8 KV, heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_q8_d64"),
+    ("fused_mlp_sublayer[M = 1024]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:881",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "mlp_m1024"),
+    ("temporal_attention[heads of 64]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:427",
+     "gvfdiffusion_torch/csrc/temporal_attention.cu",
+     "temporal_attention_d64"),
+    ("fused_attention[dit-rope self, heads of 32, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "rope_attention_d32"),
+    ("fused_attention[dit-rope cross, heads of 32, bf16: image 1374 + "
+     "static 512]", "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu",
+     "rope_attention_cross_d32"),
+    ("fused_attention[DiT training self, heads of 64, fp32]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "train_attention_d64"),
+    ("fused_attention[DiT training cross, heads of 64, fp32: image 1374 + "
+     "static 512]", "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu",
+     "train_attention_cross_d64"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
-SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3)
 FLASH_REL_BOUND = 1e-2
 # K3's int8 form vs its plain int8 version at the DiT's shapes: (rel L2 of
@@ -245,6 +328,107 @@ PEAK_INT8 = 1979e12        # dense int8, H100 SXM datasheet (assumed)
 # of its own and only about 4000 fit the torso
 OCC_TARGETS = (12000, 8000, 6000, 4500, 4000, 3500, 3000)
 RENDER_DELTA_SCALE = 0.01  # random-weight deltas, scaled as bench.py:395
+# The forms of the DiT's other configurations: key -> (the form whose
+# checks it takes, its case: heads, q/k RMS norms on the self sublayers, q
+# RMS norm on the cross sublayer, MLP width). Each is checked at the
+# main-path shape of the configuration that runs it.
+FORMS = {
+    "self_norms_off": ("self", (H, False, True, M)),
+    "temporal_norms_off": ("temporal", (H, False, True, M)),
+    "cross_rms": ("cross", (H, False, True, M)),
+    "self_q8_norms_off": ("self_q8", (H, False, True, M)),
+    "temporal_q8_norms_off": ("temporal_q8", (H, False, True, M)),
+    "cross_q8_rms": ("cross_q8", (H, False, True, M)),
+    "self_d64": ("self", (8, True, False, M)),
+    "temporal_d64": ("temporal", (8, True, False, M)),
+    "cross_d64": ("cross", (8, True, False, M)),
+    "self_q8_d64": ("self_q8", (8, True, False, M)),
+    "temporal_q8_d64": ("temporal_q8", (8, True, False, M)),
+    "cross_q8_d64": ("cross_q8", (8, True, False, M)),
+    "mlp_m1024": ("mlp", (H, True, False, 1024)),
+    "temporal_attention_d64": ("temporal_attention", None),
+    "train_attention_d64": ("attention_d32", None),
+    "train_attention_cross_d64": ("attention_cross_d32", None),
+}
+# each new form's bounds: (rel L2 of y, of the update), 3-6x the readings
+# on an H100 80GB HBM3 (700 W), in the comments; K5 and K6 at heads of 64
+# in fp32 (training): their forward and their gradients (as
+# TRAIN_ATTN_BOUND / TRAIN_GRAD_BOUND); K5 in bf16 at heads of 32
+# (dit-rope's inference): its output. K5 at heads of 64 takes an online
+# softmax (P rounded to bf16 under a running maximum) where its plain
+# version takes the row maximum, hence its forward's larger error than at
+# heads of 32, whose fixed shift both share
+FORM_BOUNDS = {
+    "self_norms_off": (3e-3, 3e-2),         # 6.7e-4, 6.0e-3
+    "temporal_norms_off": (3e-3, 3e-2),     # 9.8e-4, 7.3e-3
+    "cross_rms": (4e-3, 3e-2),              # 1.0e-3, 6.0e-3
+    "self_d64": (3e-3, 3e-2),               # 6.5e-4, 5.9e-3
+    "temporal_d64": (3e-3, 3e-2),           # 9.3e-4, 7.4e-3
+    "cross_d64": (4e-3, 3e-2),              # 1.0e-3, 6.1e-3
+    "mlp_m1024": (5e-4, 2e-3),              # 9.1e-5, 4.1e-4
+    "self_q8_norms_off": (8e-4, 8e-3),      # 2.5e-4, 2.2e-3
+    "temporal_q8_norms_off": (8e-4, 8e-3),  # 2.2e-4, 1.6e-3
+    "self_q8_d64": (8e-4, 8e-3),            # 2.3e-4, 2.1e-3
+    "temporal_q8_d64": (8e-4, 8e-3),        # 1.8e-4, 1.5e-3
+    "cross_q8_rms": (2e-3, 1.2e-2),         # 4.1e-4, 2.4e-3
+    "cross_q8_d64": (3e-3, 2e-2),           # 6.3e-4, 3.8e-3
+    "temporal_attention_d64": (1.2e-4, 2e-2),  # 2.4e-5, 4.1e-3
+    "rope_attention_d32": (4e-4,),              # 7.1e-5
+    "rope_attention_cross_d32": (4e-4,),        # 8.5e-5 / 7.1e-5
+    "train_attention_d64": (6e-3, 2e-2),        # 1.3e-3, 4.7e-3
+    "train_attention_cross_d64": (6e-3, 2e-2),  # 1.5e-3 / 1.3e-3, 4.8e-3
+}
+SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
+# The DiT's other configurations (configs/diffusion.yml at full width with
+# these fields changed), the steps of their run() (the two that reach new
+# kernel forms run the main path's 32; the others 4), and the int8 run
+# (int8 cache + int8 QK; dit-rope composes on the dequantized cache) against
+# the float run, rel L2 of the latent and the deltas, 3-6x the readings on
+# an H100 80GB HBM3 (700 W) in the comments
+DIT_CONFIGS = {
+    "dit-rms-cross": dict(qk_rms_norm=False, qk_rms_norm_cross=True),
+    "dit-d64": dict(num_heads=8),
+    "dit-rope": dict(pe_mode="rope", share_mod=True),
+    "dit-notemporal": dict(no_temporal_attn=True, pe_mode="learnable",
+                           mlp_ratio=2.0),
+}
+CONFIG_STEPS = {"dit-rms-cross": 32, "dit-d64": 32, "dit-rope": 4,
+                "dit-notemporal": 4}
+CONFIG_INT8_BOUNDS = {
+    "dit-rms-cross": {"latent": 5e-3, "deltas": 1.5e-2},   # 1.1e-3, 3.1e-3
+    "dit-d64": {"latent": 5e-3, "deltas": 1e-2},           # 1.3e-3, 2.6e-3
+    "dit-rope": {"latent": 1.5e-2, "deltas": 1.2e-2},      # 3.5e-3, 2.8e-3
+    "dit-notemporal": {"latent": 1.5e-2, "deltas": 1.5e-2},  # 3.4e-3, 3.1e-3
+}
+# where each new form's launches are read: (configuration, int8 run, counter)
+FORM_RUNS = {
+    "self_norms_off": ("dit-rms-cross", None, "self"),
+    "temporal_norms_off": ("dit-rms-cross", None, "temporal"),
+    "cross_rms": ("dit-rms-cross", None, "cross"),
+    "self_q8_norms_off": ("dit-rms-cross", "int8", "self_q8"),
+    "temporal_q8_norms_off": ("dit-rms-cross", "int8", "temporal_q8"),
+    "cross_q8_rms": ("dit-rms-cross", "int8", "cross_q8"),
+    "self_d64": ("dit-d64", None, "self"),
+    "temporal_d64": ("dit-d64", None, "temporal"),
+    "cross_d64": ("dit-d64", None, "cross"),
+    "self_q8_d64": ("dit-d64", "int8", "self_q8"),
+    "temporal_q8_d64": ("dit-d64", "int8", "temporal_q8"),
+    "cross_q8_d64": ("dit-d64", "int8", "cross_q8"),
+    "mlp_m1024": ("dit-notemporal", None, "mlp"),
+    "rope_attention_d32": ("dit-rope", None, "attention_d32"),
+    "rope_attention_cross_d32": ("dit-rope", None, "attention_cross_d32"),
+}
+# the trainer at two of them: main_latent.main, 3 micro-steps each, with
+# the launches it must make; then one micro-step on seeded random weights,
+# kernels against impl="plain": (loss, relative; gradients, rel L2), 3-6x
+# the readings on an H100 80GB HBM3 (700 W) in the comments
+CONFIG_TRAIN_BOUNDS = {"dit-d64": (1e-5, 1.2e-3),    # 2.7e-6, 2.4e-4
+                       "dit-rope": (6e-6, 1.2e-3)}   # 1.4e-6, 2.4e-4
+TRAIN_CONFIGS = {
+    "dit-d64": {"attention": 36, "attention_cross": 72,
+                "temporal_attention": 36},
+    "dit-rope": {"attention_d32": 36, "attention_cross_d32": 72},
+}
 
 
 def log(msg: str) -> None:
@@ -292,9 +476,11 @@ def bound(flops: float, moved: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sublayer_cases(dev, g):
+def sublayer_cases(dev, g, heads=H, rms=True, rms_cross=False, mlp=M):
     """Inputs at the DiT's full shapes: B*T = 32 frames of N = 512 tokens,
-    C = 512, 16 heads of 32, MLP 2048, image KV 1374, static KV 512."""
+    C = 512, `heads` heads (16 of 32 as shipped), MLP `mlp` (2048), image
+    KV 1374, static KV 512; `rms` the self sublayers' q/k norms, `rms_cross`
+    the cross sublayer's q norm (its gamma joins the parameters)."""
     import torch
 
     bf = torch.bfloat16
@@ -310,7 +496,7 @@ def sublayer_cases(dev, g):
 
     def gam():
         return (1.0 + 0.1 * torch.randn(C, generator=g, device=dev)).to(bf) \
-            * (C // H) ** 0.5
+            * (C // heads) ** 0.5
 
     self_w = lambda: (w(C, 3 * C), rnd(3 * C, scale=0.1), gam(), gam(),
                       w(C, C), rnd(C, scale=0.1))
@@ -318,8 +504,9 @@ def sublayer_cases(dev, g):
     x4 = rnd(B, T, N, C)
 
     def cross_p():
+        qg = (gam(),) if rms_cross else ()
         return ((1.0 + 0.1 * rnd(C)).to(bf), rnd(C, scale=0.1), w(C, C),
-                rnd(C, scale=0.1), w(C, C), rnd(C, scale=0.1))
+                rnd(C, scale=0.1), *qg, w(C, C), rnd(C, scale=0.1))
 
     kv_img = (rnd(B * T, L_IMG, C), rnd(B * T, L_IMG, C))
     kv_st = (rnd(B * T, N, C), rnd(B * T, N, C))
@@ -335,29 +522,32 @@ def sublayer_cases(dev, g):
         "cross_single": (xt, dict(args=(xt, pt, (kvt[..., :Ct], kvt[..., Ct:])),
                                   kw=dict(num_heads=16))),
         "self": (x3, dict(args=(x3, mod(B), mod(B), mod(B), *self_w()),
-                          kw=dict(num_heads=H, mod_repeat=T))),
+                          kw=dict(num_heads=heads, rms=rms, mod_repeat=T))),
         "temporal": (x4, dict(args=(x4, mod(B), mod(B), mod(B), *self_w()),
-                              kw=dict(num_heads=H))),
+                              kw=dict(num_heads=heads, rms=rms))),
         "cross": (x3, dict(args=(x3, cross_p(), kv_img, cross_p(), kv_st),
-                           kw=dict(num_heads=H))),
-        "mlp": (x3, dict(args=(x3, mod(B), mod(B), mod(B), w(C, M),
-                               rnd(M, scale=0.1), w(M, C), rnd(C, scale=0.1)),
+                           kw=dict(num_heads=heads, rms=rms_cross))),
+        "mlp": (x3, dict(args=(x3, mod(B), mod(B), mod(B), w(C, mlp),
+                               rnd(mlp, scale=0.1), w(mlp, C),
+                               rnd(C, scale=0.1)),
                          kw=dict(mod_repeat=T))),
     }
 
 
-def sublayer_flops(key: str) -> float:
+def sublayer_flops(key: str, mlp: int = M) -> float:
+    """Operations of a sublayer at the DiT's shapes (the same at every head
+    width: H * D = C)."""
     if key == "cross_single":
         return 2 * (2 * TORSO * 1024 * 1024) + 4 * TORSO * L_IMG * 1024
-    R, D = B * T * N, C // H
+    R = B * T * N
     proj = 2 * R * C * 3 * C + 2 * R * C * C  # qkv and output projections
     if key == "self":
-        return proj + 4 * B * T * H * N * N * D
+        return proj + 4 * B * T * N * N * C
     if key == "temporal":
-        return proj + 4 * B * N * H * T * T * D
+        return proj + 4 * B * N * T * T * C
     if key == "cross":
-        return 2 * 2 * (2 * R * C * C) + 4 * B * T * H * N * (L_IMG + N) * D
-    return 2 * 2 * R * C * M
+        return 2 * 2 * (2 * R * C * C) + 4 * B * T * N * (L_IMG + N) * C
+    return 2 * 2 * R * C * mlp
 
 
 # -- library compositions of K1-K4: a yardstick timed here, never used by
@@ -376,17 +566,19 @@ def _ln_mod(x, sh, sc, rep):
 def _rms(a, g):
     af = a.float()
     return (af * (af.square().sum(-1, keepdim=True) + 1e-12).rsqrt()
-            * g.float().view(H, -1)).bfloat16()
+            * g.float().view(a.shape[-2], -1)).bfloat16()
 
 
 def library_self(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads,
-                 mod_repeat=1):
+                 mod_repeat=1, rms=True):
     import torch.nn.functional as F
 
     Bx, L, _ = x.shape
     qkv = (_ln_mod(x, sh, sc, mod_repeat) @ wqkv + bqkv).view(
-        Bx, L, 3, H, -1)
-    q, k = _rms(qkv[:, :, 0], qg), _rms(qkv[:, :, 1], kg)
+        Bx, L, 3, num_heads, -1)
+    q, k = qkv[:, :, 0], qkv[:, :, 1]
+    if rms:
+        q, k = _rms(q, qg), _rms(k, kg)
     o = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), qkv[:, :, 2].transpose(1, 2))
     out = o.transpose(1, 2).reshape(Bx, L, C) @ wo + bo
@@ -394,30 +586,36 @@ def library_self(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads,
     return (x.float() + out.float() * g.float()).bfloat16()
 
 
-def library_temporal(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads):
+def library_temporal(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads,
+                     rms=True):
     import torch.nn.functional as F
 
     Bx, Tx, Nx, _ = x.shape
-    qkv = (_ln_mod(x, sh, sc, 1) @ wqkv + bqkv).view(Bx, Tx, Nx, 3, H, -1)
-    q, k = _rms(qkv[..., 0, :, :], qg), _rms(qkv[..., 1, :, :], kg)
-    v = qkv[..., 2, :, :]
+    qkv = (_ln_mod(x, sh, sc, 1) @ wqkv + bqkv).view(Bx, Tx, Nx, 3,
+                                                     num_heads, -1)
+    q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+    if rms:
+        q, k = _rms(q, qg), _rms(k, kg)
     o = F.scaled_dot_product_attention(  # [B, N, H, T, D]
         *(a.permute(0, 2, 3, 1, 4) for a in (q, k, v)))
     out = o.permute(0, 3, 1, 2, 4).reshape(Bx, Tx, Nx, C) @ wo + bo
     return (x.float() + out.float() * gate.float()[:, None, None]).bfloat16()
 
 
-def library_cross(x, p1, kv1, p2, kv2, num_heads):
+def library_cross(x, p1, kv1, p2, kv2, num_heads, rms=False):
     import torch.nn.functional as F
 
     Bx, L, _ = x.shape
 
     def one(xf, p, kv):
-        ns, nb, wq, bq, wo, bo = p
+        ns, nb, wq, bq, *qg, wo, bo = p
         h = F.layer_norm(xf, (C,), ns.float(), nb.float(), eps=1e-6)
-        q = (h.bfloat16() @ wq + bq).view(Bx, L, H, -1).transpose(1, 2)
-        k, v = (a.view(Bx, a.shape[1], H, -1).transpose(1, 2) for a in kv)
-        o = F.scaled_dot_product_attention(q, k, v)
+        q = (h.bfloat16() @ wq + bq).view(Bx, L, num_heads, -1)
+        if rms:
+            q = _rms(q, qg[0])
+        k, v = (a.view(Bx, a.shape[1], num_heads, -1).transpose(1, 2)
+                for a in kv)
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k, v)
         return xf + (o.transpose(1, 2).reshape(Bx, L, C) @ wo + bo).float()
 
     return one(one(x.float(), p1, kv1), p2, kv2).bfloat16()
@@ -456,14 +654,23 @@ def phase_kernels(dev):
     libs = {"self": library_self, "temporal": library_temporal,
             "cross": library_cross, "mlp": library_mlp,
             "cross_single": library_cross_single}
-    g = torch.Generator(device=dev).manual_seed(1)
-    cases = sublayer_cases(dev, g)
+    shipped = (H, True, False, M)
+    case_sets = {}
+
+    def cases_of(variant):
+        """The sublayer cases of one configuration, drawn from one seed."""
+        if variant not in case_sets:
+            g = torch.Generator(device=dev).manual_seed(1)
+            case_sets[variant] = sublayer_cases(dev, g, *variant)
+        return case_sets[variant]
+
     results = {}
     for name, replaces, source, key in KERNELS:
-        if key not in SUBLAYERS:
+        base, variant = FORMS.get(key, (key, shipped))
+        if base not in SUBLAYERS:
             continue
-        x, case = cases[key]
-        fn, lib = fns[key], libs[key]
+        x, case = cases_of(variant)[base]
+        fn, lib = fns[base], libs[base]
         args, kw = case["args"], case["kw"]
         y = fn(*args, **kw)
         torch.cuda.synchronize()
@@ -477,10 +684,10 @@ def phase_kernels(dev):
         ms = time_ms(lambda: fn(*args, **kw))
         plain_ms = time_ms(lambda: fn(*args, **kw, impl="plain"))
         lib_ms = time_ms(lambda: lib(*args, **kw))
-        b_ms, b_by = bound(sublayer_flops(key), nbytes(args, y))
-        y_bound, upd_bound = BOUNDS[key]
-        log(f"[kernel] {name}: shape {tuple(x.shape)} max_abs_err {mae:.4g} "
-            f"rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 "
+        b_ms, b_by = bound(sublayer_flops(base, variant[3]), nbytes(args, y))
+        y_bound, upd_bound = FORM_BOUNDS.get(key) or BOUNDS[key]
+        log(f"[kernel] {name}: shape {tuple(x.shape)} {kw} max_abs_err "
+            f"{mae:.4g} rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 "
             f"{upd:.3e} (bound {upd_bound:g}) kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms library {lib_ms:.3f} ms (its update "
             f"rel_l2 {lib_upd:.3e}) bound {b_ms:.4f} ms ({b_by})")
@@ -491,68 +698,70 @@ def phase_kernels(dev):
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms)
     for name, replaces, source, key in KERNELS:
-        if key in TRAIN_KERNELS:
+        base, variant = FORMS.get(key, (key, shipped))
+        if base in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
                                               key)
-        elif key == "cross_q8":
+        elif base == "cross_q8":
             results[key] = phase_cross_q8(dev, name, replaces, source,
-                                          cases["cross"])
+                                          cases_of(variant)["cross"], key)
         elif key == "flash_attention":
             results[key] = phase_flash(dev, name, replaces, source)
-        elif key in QK8:
+        elif base in QK8:
             results[key] = phase_qk8(dev, name, replaces, source, key,
-                                     cases[QK8[key]])
-        elif key not in SUBLAYERS:
+                                     base, cases_of(variant)[QK8[base]])
+        elif base not in SUBLAYERS:
             results[key] = phase_attention(dev, name, replaces, source, key)
     return results
 
 
-def phase_cross_q8(dev, name, replaces, source, case):
+def phase_cross_q8(dev, name, replaces, source, case, key):
     """K3's int8 form at the DiT's shapes: the float case's K/V quantized
     (quantize_kv, k scales transposed), against its plain int8 version and
     against the float K3 on the dequantized cache; the library composition
-    (library_cross) runs on the cache it dequantizes itself."""
+    (library_cross) runs on the cache it dequantizes itself. The case's
+    heads and q RMS norm are the form's."""
     import torch
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
 
     x, c = case
     _, p1, kv1, p2, kv2 = c["args"]
+    heads = c["kw"]["num_heads"]
 
     def q8(kv):
-        kq, ks = fsl.quantize_kv(kv[0], H)
-        vq, vs = fsl.quantize_kv(kv[1], H)
+        kq, ks = fsl.quantize_kv(kv[0], heads)
+        vq, vs = fsl.quantize_kv(kv[1], heads)
         return kq, vq, ks.transpose(1, 2).contiguous(), vs
 
     c1, c2 = q8(kv1), q8(kv2)
     args = (x, p1, c1, p2, c2)
-    kw = dict(num_heads=H, quant=True)
+    kw = dict(c["kw"], quant=True)
     deq = lambda c_: tuple(fsl.dequantize_kv(a, s_).bfloat16() for a, s_ in
                            ((c_[0], c_[2].transpose(1, 2)), (c_[1], c_[3])))
     y = fsl.fused_cross_sublayer(*args, **kw)
     torch.cuda.synchronize()
     ref = fsl.fused_cross_sublayer(*args, **kw, impl="plain")
-    y_f = fsl.fused_cross_sublayer(x, p1, deq(c1), p2, deq(c2), num_heads=H)
+    y_f = fsl.fused_cross_sublayer(x, p1, deq(c1), p2, deq(c2), **c["kw"])
     err = rel_l2(y, ref)
     upd = rel_l2(y.float() - x.float(), ref.float() - x.float())
     f_upd = rel_l2(y.float() - x.float(), y_f.float() - x.float())
     mae = float((y.float() - ref.float()).abs().max())
-    lib = lambda: library_cross(x, p1, deq(c1), p2, deq(c2), H)
+    lib = lambda: library_cross(x, p1, deq(c1), p2, deq(c2), **c["kw"])
     ms = time_ms(lambda: fsl.fused_cross_sublayer(*args, **kw))
     float_ms = time_ms(lambda: fsl.fused_cross_sublayer(
-        x, p1, kv1, p2, kv2, num_heads=H))
+        x, p1, kv1, p2, kv2, **c["kw"]))
     plain_ms = time_ms(lambda: fsl.fused_cross_sublayer(*args, **kw,
                                                         impl="plain"))
     lib_ms = time_ms(lib)
     # the QK products at the int8 rate, the projections and P V at bf16's
-    R, D = B * T * N, C // H
-    qk = 2 * B * T * H * N * (L_IMG + N) * D
+    qk = 2 * B * T * N * (L_IMG + N) * C
     t_ops = (sublayer_flops("cross") - qk) / PEAK_FLOPS * 1e3 \
         + qk / PEAK_INT8 * 1e3
     t_bytes = nbytes(args, y) / PEAK_BYTES * 1e3
     b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                  "bytes")
-    y_bound, upd_bound = Q8_BOUNDS
-    log(f"[kernel] {name}: x {tuple(x.shape)} bf16, int8 image KV "
+    y_bound, upd_bound = FORM_BOUNDS.get(key, Q8_BOUNDS)
+    log(f"[kernel] {name}: x {tuple(x.shape)} bf16 {c['kw']}, int8 image KV "
         f"{tuple(c1[0].shape)} + static {tuple(c2[0].shape)} (from the float "
         f"case's K/V) max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
         f"{y_bound:g}) update_rel_l2 {upd:.3e} (bound {upd_bound:g}); update "
@@ -568,7 +777,7 @@ def phase_cross_q8(dev, name, replaces, source, case):
                 bound_by=b_by, library_ms=lib_ms)
 
 
-def phase_qk8(dev, name, replaces, source, key, case):
+def phase_qk8(dev, name, replaces, source, key, base, case):
     """K1 or K2 with int8 QK at the DiT's shapes, on the float case's
     inputs: against its plain int8-QK version, and against the float
     kernel (the drift the quantization adds); the library composition is
@@ -579,8 +788,8 @@ def phase_qk8(dev, name, replaces, source, key, case):
 
     x, c = case
     fn = {"self_q8": fsl.fused_self_sublayer,
-          "temporal_q8": fsl.fused_temporal_sublayer}[key]
-    lib = {"self_q8": library_self, "temporal_q8": library_temporal}[key]
+          "temporal_q8": fsl.fused_temporal_sublayer}[base]
+    lib = {"self_q8": library_self, "temporal_q8": library_temporal}[base]
     args, kw = c["args"], dict(c["kw"], quant_qk=True)
     y = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -594,15 +803,15 @@ def phase_qk8(dev, name, replaces, source, key, case):
     float_ms = time_ms(lambda: fn(*args, **c["kw"]))
     plain_ms = time_ms(lambda: fn(*args, **kw, impl="plain"))
     lib_ms = time_ms(lambda: lib(*args, **c["kw"]))
-    D = C // H
-    qk = 2 * B * T * H * N * (N if key == "self_q8" else T) * D
-    t_ops = (sublayer_flops(QK8[key]) - qk) / PEAK_FLOPS * 1e3 \
+    qk = 2 * B * T * N * (N if base == "self_q8" else T) * C
+    t_ops = (sublayer_flops(QK8[base]) - qk) / PEAK_FLOPS * 1e3 \
         + qk / PEAK_INT8 * 1e3
     t_bytes = nbytes(args, y) / PEAK_BYTES * 1e3
     b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                  "bytes")
-    y_bound, upd_bound = QK8_BOUNDS
-    log(f"[kernel] {name}: shape {tuple(x.shape)} bf16 max_abs_err {mae:.4g} "
+    y_bound, upd_bound = FORM_BOUNDS.get(key, QK8_BOUNDS)
+    log(f"[kernel] {name}: shape {tuple(x.shape)} bf16 {c['kw']} "
+        f"max_abs_err {mae:.4g} "
         f"rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 {upd:.3e} "
         f"(bound {upd_bound:g}); update vs the float kernel rel_l2 "
         f"{f_upd:.3e} (bound {QK8_FLOAT_BOUND:g}); kernel {ms:.3f} ms "
@@ -681,11 +890,22 @@ def attention_case(dev, key):
     views of a qkv projection (DINOv2), separate RMS-normed q/k with a
     contiguous v (the sparse-structure flow's self, the torso), the k/v
     halves of a kv projection (cross); the torso's bias keeps the first
-    L_TORSO_VALID keys (a compaction packs the valid voxels first)."""
+    L_TORSO_VALID keys (a compaction packs the valid voxels first).
+    dit-rope's composed inference, 32 frames at 16 heads of 32: self with
+    separate q/k/v (RoPE and the RMS norm make q and k, and v joins k's
+    strides); cross with the hoisted cache's contiguous k/v, image 1374
+    keys or the "_static" key's 512."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(8)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()
+    if key == "rope_attention_d32":
+        return (rnd(T, N, H, C // H), rnd(T, N, H, C // H),
+                rnd(T, N, H, C // H), None, "separate q/k/v")
+    if key.startswith("rope_attention_cross_d32"):
+        lk = N if key.endswith("_static") else L_IMG
+        return (rnd(T, N, H, C // H), rnd(T, lk, H, C // H),
+                rnd(T, lk, H, C // H), None, "the cache's contiguous k/v")
     if key == "attention":
         qkv = rnd(T, L_IMG, 3, 16, 64)
         return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None,
@@ -706,13 +926,27 @@ def attention_case(dev, key):
 
 def phase_attention(dev, name, replaces, source, key):
     """K5 in one form against its plain version and SDPA (the bias as a
-    float mask)."""
+    float mask). dit-rope's cross entry is timed at the image context's
+    1374 keys; the static context's 512 is checked and printed beside
+    it."""
+    out = None
+    for case in ((key, key + "_static") if key == "rope_attention_cross_d32"
+                 else (key,)):
+        r = _attention_entry(dev, name if case == key else
+                             f"{name} [{case}]", case,
+                             FORM_BOUNDS.get(key, (ATTN_REL_BOUND,))[0])
+        out = out or dict(name=name, route="cuda", source=source,
+                          replaces=replaces, **r)
+    return out
+
+
+def _attention_entry(dev, name, key, rel_bound):
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import fused_attention as fa
 
     q, k, v, bias, what = attention_case(dev, key)
-    scale = 64 ** -0.5
+    scale = q.shape[-1] ** -0.5
     y = fa.fused_attention(q, k, v, scale, kv_bias=bias)
     torch.cuda.synchronize()
     ref = fa.fused_attention(q, k, v, scale, kv_bias=bias, impl="plain")
@@ -734,13 +968,12 @@ def phase_attention(dev, name, replaces, source, key):
     b_ms, b_by = bound(flops, nbytes(q, k, v, y, bias))
     log(f"[kernel] {name}: q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
         f"({what}) max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
-        f"{ATTN_REL_BOUND:g}) kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+        f"{rel_bound:g}) kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
         f"TFLOP/s) plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms (its rel_l2 "
         f"{lib_err:.3e}) bound {b_ms:.4f} ms ({b_by})")
-    if not (finite and err <= ATTN_REL_BOUND):
+    if not (finite and err <= rel_bound):
         raise AssertionError(f"{name} disagrees with its plain version")
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    return dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
 
@@ -750,23 +983,25 @@ def phase_attention(dev, name, replaces, source, key):
 def train_attention_case(dev, key):
     """(fn(impl) -> output, inputs, what, flops, library fn) for a form of
     the training path at configs/diffusion.yml's shapes: batch 2 x 24
-    frames of 512 latents, 16 heads of 32. Self: RMS-normed q/k and a
-    contiguous v, [48, 512, 16, 32]; cross: q apart, k/v the halves of the
-    [48, Lk, 2, 16, 32] kv projection (image Lk 1374, static 512); K6: q/k
-    [2, 24, 512, 16, 32] and v the view of the [.., 3, 16, 32] qkv."""
+    frames of 512 latents, 16 heads of 32, or 8 heads of 64 (dit-d64) for
+    the keys with "d64". Self: RMS-normed q/k and a contiguous v, [48, 512,
+    16, 32]; cross: q apart, k/v the halves of the [48, Lk, 2, 16, 32] kv
+    projection (image Lk 1374, the "_static" key 512); K6: q/k [2, 24,
+    512, 16, 32] and v the view of the [.., 3, 16, 32] qkv."""
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import fused_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(19)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
-    BT, D = TRAIN_B * TRAIN_T, C // H
+    BT, Hh = TRAIN_B * TRAIN_T, 8 if "_d64" in key else H
+    D = C // Hh
     scale = D ** -0.5
-    if key == "temporal_attention":
-        qkv = rnd(TRAIN_B, TRAIN_T, N, 3, H, D)
-        q, k, v = rnd(TRAIN_B, TRAIN_T, N, H, D), rnd(
-            TRAIN_B, TRAIN_T, N, H, D), qkv[..., 2, :, :]
-        flops = 4 * TRAIN_B * N * H * TRAIN_T * TRAIN_T * D
+    if key in ("temporal_attention", "temporal_attention_d64"):
+        qkv = rnd(TRAIN_B, TRAIN_T, N, 3, Hh, D)
+        q, k, v = rnd(TRAIN_B, TRAIN_T, N, Hh, D), rnd(
+            TRAIN_B, TRAIN_T, N, Hh, D), qkv[..., 2, :, :]
+        flops = 4 * TRAIN_B * N * TRAIN_T * TRAIN_T * C
 
         def lib():
             o = F.scaled_dot_product_attention(
@@ -775,23 +1010,22 @@ def train_attention_case(dev, key):
 
         return (lambda a, impl=None: fa.temporal_attention(*a, scale,
                                                            impl=impl),
-                (q, k, v), "q/k [2, 24, 512, 16, 32], v a qkv view", flops,
+                (q, k, v), f"q/k {tuple(q.shape)}, v a qkv view", flops,
                 lib)
-    lk = {"attention_d32": N, "attention_cross_d32": L_IMG,
-          "attention_cross_d32_static": N}[key]
-    q = rnd(BT, N, H, D)
-    if key == "attention_d32":
-        k, v, what = rnd(BT, N, H, D), rnd(BT, N, H, D), "separate q/k/v"
+    cross = "cross" in key
+    lk = L_IMG if cross and not key.endswith("_static") else N
+    q = rnd(BT, N, Hh, D)
+    if not cross:
+        k, v, what = rnd(BT, N, Hh, D), rnd(BT, N, Hh, D), "separate q/k/v"
     else:
-        kv = rnd(BT, lk, 2, H, D)
+        kv = rnd(BT, lk, 2, Hh, D)
         k, v, what = kv[:, :, 0], kv[:, :, 1], f"k/v views of kv {tuple(kv.shape)}"
-    cross = key != "attention_d32"
     lib = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(
             1, 2)
     return (lambda a, impl=None: fa.fused_attention(*a, scale, cross=cross,
                                                     impl=impl),
-            (q, k, v), what, 4 * BT * H * N * lk * D, lib)
+            (q, k, v), what, 4 * BT * Hh * N * lk * D, lib)
 
 
 def _with_grads(fn, inputs, g, impl=None):
@@ -810,10 +1044,18 @@ def phase_train_kernel(dev, name, replaces, source, key):
     context's 1374 keys; the static context's 512 is checked and printed
     beside it."""
     import torch
+    from gvfdiffusion_torch import _ext
 
+    if key == "temporal_attention_d64":  # registers and spills, per kernel
+        report = _ext.ptxas_report("temporal_attention.cu")
+        for line in report.splitlines():
+            if "temporal_kernel" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[ptxas] {line.strip()}")
+    attn_bound, grad_bound = FORM_BOUNDS.get(
+        key, (TRAIN_ATTN_BOUND, TRAIN_GRAD_BOUND))
     out = None
-    for k in ((key, "attention_cross_d32_static")
-              if key == "attention_cross_d32" else (key,)):
+    for k in (key, key + "_static") if "cross" in key else (key,):
         fn, ins, what, flops, lib = train_attention_case(dev, k)
         with torch.no_grad():
             y = fn(ins)
@@ -834,13 +1076,13 @@ def phase_train_kernel(dev, name, replaces, source, key):
         b_ms, b_by = bound(flops, nbytes(*ins, y))
         log(f"[kernel] {name} [{k}]: q {tuple(ins[0].shape)} k/v "
             f"{tuple(ins[1].shape)} fp32 ({what}) max_abs_err {mae:.4g} "
-            f"rel_l2 {err:.3e} (bound {TRAIN_ATTN_BOUND:g}) gradients vs "
+            f"rel_l2 {err:.3e} (bound {attn_bound:g}) gradients vs "
             f"autograd of plain rel_l2 {gerr:.3e} (bound "
-            f"{TRAIN_GRAD_BOUND:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} "
+            f"{grad_bound:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} "
             f"ms sdpa {lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) forward + "
             f"backward {fb_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
-        if not (bool(torch.isfinite(y).all()) and err <= TRAIN_ATTN_BOUND
-                and gerr <= TRAIN_GRAD_BOUND):
+        if not (bool(torch.isfinite(y).all()) and err <= attn_bound
+                and gerr <= grad_bound):
             raise AssertionError(f"{name} [{k}] disagrees with its plain "
                                  "version")
         if out is None:
@@ -935,11 +1177,7 @@ def phase_training(dev, card):
     import tempfile
 
     import torch
-    from gvfdiffusion_torch.cli.main_latent import build_model, to_device
-    from gvfdiffusion_torch.data.dataset_latent import (LatentDataset,
-                                                        load_data)
-    from gvfdiffusion_torch.diffusion.gaussian_diffusion import (
-        create_diffusion)
+    from gvfdiffusion_torch.cli.main_latent import build_model
     from gvfdiffusion_torch.train.diffusion_trainer import (loss_and_grads,
                                                             make_train_step)
     from gvfdiffusion_torch.train.train_state import (create_train_state,
@@ -1022,10 +1260,7 @@ def phase_training(dev, card):
         model.remat_blocks = len(model.blocks)
         weights = {k: v.detach().clone() for k, v in init_random_(
             build_model(cfg), seed=25).to(dev).named_parameters()}
-        diffusion = create_diffusion(
-            schedule=cfg.diffusion.noise_schedule, steps=cfg.diffusion.steps,
-            mean_type=cfg.diffusion.predict_type,
-            rescale_timesteps=cfg.diffusion.rescale_timesteps).to(dev)
+        diffusion, batch, g, t, noise = train_inputs(cfg, data, dev)
         tx = make_optimizer(lr=cfg.train.lr,
                             warmup_steps=cfg.train.warmup_steps,
                             grad_clip=cfg.train.grad_clip,
@@ -1033,12 +1268,6 @@ def phase_training(dev, card):
         ema_rate = cfg.train.ema_rate ** (1.0 / cfg.train.grad_accum)
         state = create_train_state(model, tx)
         step = make_train_step(model, diffusion, tx, ema_rate)
-        dataset = LatentDataset(data, num_frames=cfg.train.sample_timesteps,
-                                uncond_p=0.0, seed=22)
-        batch = to_device(next(load_data(dataset, cfg.train.batch_size)), dev)
-        g = torch.Generator(device=dev).manual_seed(23)
-        t = torch.tensor([437, 12], device=dev)
-        noise = torch.randn(batch["latent"].shape, generator=g, device=dev)
         runs = {}
         for impl in (None, "plain"):
             ckpt.restore(state, 5)
@@ -1098,9 +1327,111 @@ def phase_training(dev, card):
             f"{ms_p[-1]:.1f} ms, peak "
             f"{peak_p:.2f} GiB; main()'s logged step times "
             f"{_step_times(text_a)} s (data loading included); {card}")
-        return {k: launches[k] for k in TRAIN_KERNELS}
+        counts = {k: launches[k] for k in TRAIN_KERNELS}
+        del model, state, step, weights
+        torch.cuda.empty_cache()
+        d64 = train_configs(work, data, dev, card)["dit-d64"]
+        counts.update(temporal_attention_d64=d64["temporal_attention"],
+                      train_attention_d64=d64["attention"],
+                      train_attention_cross_d64=d64["attention_cross"])
+        return counts
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def train_inputs(cfg, data, dev):
+    """(diffusion, batch, generator, t, noise) of a kernels-vs-plain
+    micro-step: the config's diffusion, one batch of the synthetic dataset
+    at `data`, two timesteps and noise from seeds."""
+    import torch
+    from gvfdiffusion_torch.cli.main_latent import to_device
+    from gvfdiffusion_torch.data.dataset_latent import (LatentDataset,
+                                                        load_data)
+    from gvfdiffusion_torch.diffusion.gaussian_diffusion import (
+        create_diffusion)
+
+    diffusion = create_diffusion(
+        schedule=cfg.diffusion.noise_schedule, steps=cfg.diffusion.steps,
+        mean_type=cfg.diffusion.predict_type,
+        rescale_timesteps=cfg.diffusion.rescale_timesteps).to(dev)
+    dataset = LatentDataset(data, num_frames=cfg.train.sample_timesteps,
+                            uncond_p=0.0, seed=22)
+    batch = to_device(next(load_data(dataset, cfg.train.batch_size)), dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    t = torch.tensor([437, 12], device=dev)
+    noise = torch.randn(batch["latent"].shape, generator=g, device=dev)
+    return diffusion, batch, g, t, noise
+
+
+def train_configs(work, data, dev, card):
+    """main_latent.main at two of the DiT's other configurations, each a
+    YAML written from configs/diffusion.yml with its fields changed: 3
+    micro-steps on the synthetic dataset at `data` (fp32, batch 2 x 24,
+    grad_accum 2), with their launches (checked), losses (finite), step
+    times and peak memory. main()'s losses cannot tell the configurations
+    apart: at flax's initial weights the zero final layer makes the output
+    0 whatever the blocks do. So each configuration then takes one
+    micro-step's loss and gradients on seeded random weights, kernels
+    against impl="plain" (every block recomputed in the backward pass, as
+    for the shipped one). Returns the launches of each run."""
+    import torch
+    from gvfdiffusion_torch.cli.main_latent import build_model
+    from gvfdiffusion_torch.train.diffusion_trainer import loss_and_grads
+    from gvfdiffusion_torch.utils.config import (load_config, read_yaml,
+                                                 write_yaml)
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    out = {}
+    for cfg, want in TRAIN_CONFIGS.items():
+        conf = read_yaml(os.path.join(REPO, "configs", "diffusion.yml"))
+        conf["model"].update(DIT_CONFIGS[cfg])
+        path = os.path.join(work, f"{cfg}.yml")
+        write_yaml(conf, path)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rc, text, wall = run_main_latent([
+            "--config", path, f"--data_dir={data}",
+            f"--exp_dir={os.path.join(work, 'exp_' + cfg)}",
+            "--train.log_interval=1", "--train.save_interval=1000000",
+            "--train.total_steps=3"])
+        launches = {k: n for k, n in read_counts().items() if n}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = _losses(text)
+        log(f"[train] {cfg} {DIT_CONFIGS[cfg]}: main_latent.main, 3 "
+            f"micro-steps: rc {rc}, {wall:.1f} ms whole, losses {losses}, "
+            f"step times {_step_times(text)} s (the first with the warm-up; "
+            f"data loading included), peak {peak:.2f} GiB, launches "
+            f"{launches}; {card}")
+        if rc != 0 or launches != want or len(losses) != 3 or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"{cfg} training run: rc {rc}, launches "
+                                 f"{launches} (want {want}), losses {losses}")
+        out[cfg] = launches
+
+        conf = load_config(path)
+        model = init_random_(build_model(conf), seed=25).to(dev)
+        model.remat_blocks = len(model.blocks)
+        diffusion, batch, _, t, noise = train_inputs(conf, data, dev)
+        runs = {}
+        for impl in (None, "plain"):
+            loss, _, grads = loss_and_grads(model, diffusion, batch, t, noise,
+                                            impl=impl)
+            runs[impl] = float(loss), torch.cat(
+                [v.flatten() for v in grads.values()])
+        (lk, gk), (lp, gp) = runs[None], runs["plain"]
+        errs = (abs(lk - lp) / abs(lp), rel_l2(gk, gp))
+        bounds = CONFIG_TRAIN_BOUNDS[cfg]
+        log(f"[train] {cfg}: one micro-step on random weights, kernels vs "
+            f"impl=\"plain\": loss {lk:.6g} vs {lp:.6g} ({errs[0]:.3e}, "
+            f"bound {bounds[0]:g}), gradients rel_l2 {errs[1]:.3e} (bound "
+            f"{bounds[1]:g})")
+        if not (math.isfinite(lk) and errs[0] <= bounds[0]
+                and errs[1] <= bounds[1]):
+            raise AssertionError(f"{cfg}'s micro-step disagrees with its "
+                                 "plain version")
+        del model, runs, gk, gp
+        torch.cuda.empty_cache()
+    return out
 
 
 def build_models(dev):
@@ -1155,7 +1486,8 @@ def phase_dinov2(dino, dev, card):
         raise AssertionError("DINOv2 disagrees with its plain version")
 
 
-def phase_dit(dit, dev):
+def phase_dit(dit, dev, what="12x512"):
+    """One full DiT forward on a hoisted cache, kernels vs impl="plain"."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1170,12 +1502,98 @@ def phase_dit(dit, dev):
         ref = dit(x, t, positions=pos, cross_kv=kv, impl="plain")
     torch.cuda.synchronize()
     err = rel_l2(y, ref)
-    log(f"[dit] 12x512 forward [1, 32, 512, 16]: kernels vs plain rel_l2 "
+    log(f"[dit] {what} forward [1, 32, 512, 16]: kernels vs plain rel_l2 "
         f"{err:.3e} (bound {DIT_REL_BOUND:g}), max_abs_err "
         f"{float((y - ref).abs().max()):.4g}, |ref| mean "
         f"{float(ref.abs().mean()):.4g}")
     if not (bool(torch.isfinite(y).all()) and err <= DIT_REL_BOUND):
         raise AssertionError("DiT forward disagrees with its plain version")
+
+
+def config_launches(cfg, steps, quant):
+    """The launches one run() of `cfg` must make: the fused sublayers per
+    block and step, or for dit-rope (composed on the cache) K5's self and
+    two cross forms; no temporal sublayer without temporal attention."""
+    n = 12 * steps
+    if cfg == "dit-rope":
+        return {"attention_d32": n, "attention_cross_d32": 2 * n}
+    q8 = "_q8" if quant else ""
+    want = {"self" + q8: n, "temporal" + q8: n, "cross" + q8: n, "mlp": n}
+    if DIT_CONFIGS[cfg].get("no_temporal_attn"):
+        del want["temporal" + q8]
+    return want
+
+
+def phase_dit_configs(vae, ci, dev, card):
+    """The DiT's other configurations at full width (12 x 512, seeded
+    random weights), each through VideoTo4DPipeline.run on the frames'
+    tokens and the canonical splat: its DiT forward against impl="plain"
+    (DIT_REL_BOUND); run() on the float cache and on the int8 cache (with
+    int8 QK), timed, its launches counted and checked, its stages one by
+    one (which must give what run() gave); the int8 run against the float
+    run. Returns the launches of each new kernel form, read from the run of
+    the configuration that sends it."""
+    import torch
+    from gvfdiffusion_torch.models.dit import DiT
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    gs, valid = canonical_splat(dev)
+    counts = {}
+    for cfg, fields in DIT_CONFIGS.items():
+        t0 = time.perf_counter()
+        dit = init_random_(DiT(dtype=torch.bfloat16, **fields),
+                           seed=30).to(dev).eval()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        phase_dit(dit, dev, f"{cfg} {fields}")
+        steps = CONFIG_STEPS[cfg]
+        VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=2, order=2)).run(
+            gs, valid, ci, generator=torch.Generator(device=dev).manual_seed(
+                4))  # warm-up
+        outs = {}
+        for quant in (None, "int8"):
+            pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+                steps=steps, order=2, kv_quant=quant, self_quant=quant))
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            g = torch.Generator(device=dev).manual_seed(5)
+            out = pipe.run(gs, valid, ci, generator=g)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: n for k, n in read_counts().items() if n}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_outputs(out, B, T, G)
+            staged, st = run_stages(pipe, gs, valid, ci, seed=5)
+            mode = "int8 cache + int8 QK" if quant else "float cache"
+            log(f"[dit-config] {cfg} ({mode}, guidance 1.0/1.0, {steps} "
+                f"steps, G={G}): run() {wall_ms:.1f} ms, stages " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in st.items())
+                + f"; peak {peak:.2f} GiB; launches {launches}; DiT built in "
+                f"{build_ms:.0f} ms; {card}")
+            check_same(out, staged, f"{cfg}, {mode}")
+            want = config_launches(cfg, steps, quant)
+            if launches != want:
+                raise AssertionError(f"{cfg} {mode}: launches {launches}, "
+                                     f"expected {want}")
+            outs[quant] = out
+            for key, (run_cfg, run_quant, counter) in FORM_RUNS.items():
+                if run_cfg == cfg and run_quant == quant:
+                    counts[key] = launches[counter]
+        bounds = CONFIG_INT8_BOUNDS[cfg]
+        errs = {k: rel_l2(outs["int8"][k], outs[None][k]) for k in bounds}
+        log(f"[dit-config] {cfg}: the int8 run vs the float run (same "
+            "noise) rel_l2 " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                           errs.items())
+            + f" (bounds {bounds})")
+        if any(errs[k] > b for k, b in bounds.items()):
+            raise AssertionError(f"{cfg}: the int8 run strays from the float "
+                                 "run")
+        del dit, outs
+        torch.cuda.empty_cache()
+    return counts
 
 
 def canonical_splat(dev):
@@ -2249,6 +2667,7 @@ def main(argv) -> int:
     phase_dinov2(dino, dev, card)
     phase_dit(dit, dev)
     launches, ci = phase_pipeline(dino, dit, vae, dev, card)
+    configs = phase_dit_configs(vae, ci, dev, card)
     trellis, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
     phase_wild(tpipe, dit, vae, ci, dev, card)
     phase_early_exit(dev, card)
@@ -2261,10 +2680,12 @@ def main(argv) -> int:
     # each entry's count comes from one run: the TRELLIS forms from
     # TrellisImageTo3DPipeline.run (K7 from the run at the defaults), the
     # training forms (K5 at heads of 32, K6) from main_latent.main's first
-    # run, K3's int8 form from run() on the int8 cache, K1 and K2 with int8
-    # QK from run() with self_quant, the others (K1-K4, K5 in DINOv2's video
-    # encode) from the video main path
-    counts = {**launches, **trellis, **train}
+    # run (K6 at heads of 64 from its dit-d64 run), K3's int8 form from
+    # run() on the int8 cache, K1 and K2 with int8 QK from run() with
+    # self_quant, the forms of the DiT's other configurations from the
+    # run() of the configuration that sends them (FORM_RUNS), the others
+    # (K1-K4, K5 in DINOv2's video encode) from the video main path
+    counts = {**launches, **configs, **trellis, **train}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")

@@ -34,14 +34,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gvf_self_sublayer": [_P] * 14 + [_I] * 5 + [_P],
     "gvf_temporal_sublayer": [_P] * 14 + [_I] * 5 + [_P],
-    "gvf_cross_sublayer": [_P] + ([_P] * 8 + [_I]) * 2 + [_P] * 5
+    "gvf_cross_sublayer": [_P] + ([_P] * 9 + [_I]) * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_mlp_sublayer": [_P] * 11 + [_I] * 5 + [_P],
     "gvf_cross_sublayer1": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 4 + [_I] * 5
     + [_P],
     "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _I, _P],
     "gvf_temporal_attention": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
-    "gvf_cross_sublayer_q8": [_P] + ([_P] * 10 + [_I]) * 2 + [_P] * 7
+    "gvf_cross_sublayer_q8": [_P] + ([_P] * 11 + [_I]) * 2 + [_P] * 7
     + [_I] * 5 + [_P],
     "gvf_flash_attention": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P],
     "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],
@@ -103,6 +103,24 @@ def _build(out: Path) -> None:
         for o in objs:
             o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+
+
+def ptxas_report(source: str) -> str:
+    """What ptxas reports for one source of `csrc/` (registers, shared
+    memory and spills of each kernel): one `nvcc -c -Xptxas=-v` to a
+    scratch object, apart from the library's build."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = _BUILD_DIR / f"ptxas.{os.getpid()}.o"
+    cmd = [_nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas=-v", "-c",
+           "-o", str(obj), str(_CSRC / source)]
+    try:
+        out = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({out.returncode}):\n{out.stdout}")
+    return out.stdout
 
 
 def load():

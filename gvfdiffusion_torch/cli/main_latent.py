@@ -39,21 +39,27 @@ def log(msg: str) -> None:
 
 
 def build_model(cfg: Config) -> DiT:
-    """The DiT of `cfg.model` in fp32 (the JAX DiT's default dtype). The
-    port's DiT is the shipped configuration: APE positions, per-block
-    adaLN, q/k RMS norm on self-attention and temporal attention; others
-    raise."""
+    """The DiT of `cfg.model` in fp32 (the JAX DiT's default dtype), every
+    field of the config passed on; the DiT's others (qk_rms_norm_cross,
+    temporal_layout) keep their defaults, as in the JAX trainer.
+    `model.remat_blocks` leading blocks are recomputed in the backward
+    pass; left at 0, `train.mem_ratio` < 1 sets them through the
+    reference's mapping (`DiT.mem_ratio_to_remat_blocks`)."""
     m = cfg.model
-    if (m.pe_mode != "ape" or not m.qk_rms_norm or m.no_temporal_attn
-            or m.share_mod or m.mlp_ratio != 4.0):
-        raise NotImplementedError(
-            "the port's DiT is the shipped configuration (pe_mode ape, "
-            "qk_rms_norm, temporal attention, no share_mod, mlp_ratio 4)")
-    return DiT(in_channels=m.in_channels, model_channels=m.model_channels,
-               static_cond_channels=m.static_cond_channels,
-               image_cond_channels=m.image_cond_channels,
-               out_channels=m.out_channels, num_blocks=m.num_blocks,
-               num_heads=m.num_heads, remat_blocks=m.remat_blocks)
+    model = DiT(resolution=m.resolution, in_channels=m.in_channels,
+                model_channels=m.model_channels,
+                static_cond_channels=m.static_cond_channels,
+                image_cond_channels=m.image_cond_channels,
+                out_channels=m.out_channels, num_blocks=m.num_blocks,
+                num_heads=m.num_heads, mlp_ratio=m.mlp_ratio,
+                pe_mode=m.pe_mode, share_mod=m.share_mod,
+                qk_rms_norm=m.qk_rms_norm,
+                no_temporal_attn=m.no_temporal_attn,
+                remat_blocks=m.remat_blocks)
+    if not model.remat_blocks:
+        model.remat_blocks = model.mem_ratio_to_remat_blocks(
+            cfg.train.mem_ratio)
+    return model
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -26,10 +26,17 @@
 //                  x + gate * (acc + bias), x + (acc + bias).
 //   attn_kernel    (attention.cuh) softmax attention for one (query tile,
 //                  head, row block):
-//                  per-head RMS norm of q/k in the prologue, online softmax
-//                  with a true running maximum, fp32 accumulation, masking of
-//                  keys past Lk, and strided addressing so the temporal
-//                  sublayer attends over T straight in [B, T, N, C].
+//                  per-head RMS norm of q/k in the prologue (a null gamma
+//                  skips it), online softmax with a true running maximum,
+//                  fp32 accumulation, masking of keys past Lk, and strided
+//                  addressing so the temporal sublayer attends over T
+//                  straight in [B, T, N, C].
+//
+// Head widths: 32 (the DiT's 16 heads, as shipped) and 64 (its 8-head
+// configuration, and the SLat torso's single-context cross form). The q/k
+// RMS norm is the JAX kernels' `rms` flag: K1/K2 norm q and k when their
+// gammas are given, K3 norms q alone (its cached k was normed when the
+// cache was built), and a null gamma means no norm.
 //
 // What bounds it on the H100: at the DiT's shapes the projections are
 // tensor-core work (~2 TFLOP per 12-block forward at B*T = 32) and the
@@ -40,8 +47,9 @@
 // version keeps every intermediate (q/k/v, attention output, MLP hidden) in
 // device memory between the kernels of a chain and uses no wgmma, TMA or
 // cp.async pipelining: it is written to be right first.
-// The TPU kernel's lane-packing of 32-wide heads onto 128-lane tiles has no
-// counterpart here; a 32-wide head maps straight onto 16x16 tensor-core tiles.
+// The TPU kernel's lane-packing of narrow heads onto 128-lane tiles has no
+// counterpart here; a 32- or 64-wide head maps straight onto 16x16
+// tensor-core tiles.
 // The single-context entry runs the same chain at the SLat torso's shape
 // (L = 4096, C = 1024, 16 heads of 64, Lk = 1374): 40.2 GFLOP against
 // 27 MB of traffic, so the tensor cores bound it too. The TPU's lq_block /
@@ -53,18 +61,19 @@
 // at 1e-8), qi = round(q * (127 / s)), where a cell is one TPU grid
 // instance: for K3, all L rows of a batch row or the q_block rows the JAX DiT
 // grids at the 3-way CFG batch; for K1, one frame; for K2, one batch row x
-// 16 voxels x all T frames. For K1/K2 it first RMS-normalizes q and k in
-// place (the TPU kernel quantizes the normalized fp32 values) and
-// quantizes both. attn_q8_kernel takes the scores int8 x int8 -> int32 on
-// the tensor cores (WMMA 16x16x16 s8) and P = exp2(s - 30) with the fixed
-// shift (no running maximum): for K3 s = si * (ks_j * (qs * scale * log2 e /
-// 127)) with a per-key k scale and V dequantized to bf16 as bf16(v * vs);
-// for K1/K2 s = si * (qs * ks * scale * log2 e / 127^2) with one scalar per
-// (cell, head) and V the fp32 projection rounded to bf16. P is rounded to
-// bf16 for P V and the output divided by the fp32 row sum. K3's int8 form
-// reads half the cache's bytes of the float form; all QK products run at
-// the int8 rate (1,979 TOP/s on the datasheet). K2's attention spans T = 32
-// keys, half a 64-key tile: the simple form leaves the rest masked.
+// 16 voxels x all T frames. Given a gamma it first RMS-normalizes the rows
+// in place (the TPU kernel quantizes the normalized fp32 values): q and k
+// for K1/K2, q alone for K3. attn_q8_kernel takes the scores int8 x int8 ->
+// int32 on the tensor cores (WMMA 16x16x16 s8, D / 16 steps) and P =
+// exp2(s - 30) with the fixed shift (no running maximum): for K3 s = si *
+// (ks_j * (qs * scale * log2 e / 127)) with a per-key k scale and V
+// dequantized to bf16 as bf16(v * vs); for K1/K2 s = si * (qs * ks * scale *
+// log2 e / 127^2) with one scalar per (cell, head) and V the fp32 projection
+// rounded to bf16. P is rounded to bf16 for P V and the output divided by the
+// fp32 row sum. K3's int8 form reads half the cache's bytes of the float
+// form; all QK products run at the int8 rate (1,979 TOP/s on the
+// datasheet). K2's attention spans T = 32 keys, half a 64-key tile: the
+// simple form leaves the rest masked.
 
 #include "attention.cuh"
 
@@ -240,24 +249,18 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias,
   return cudaGetLastError();
 }
 
-// the DiT's head width
+// heads of 32 (the DiT as shipped) or 64 (its 8-head configuration, the SLat
+// torso)
 template <typename TQ, typename TKV>
-cudaError_t launch_attn32(const AttnParams& p, int H, long long nb1, int D,
+cudaError_t launch_attn_d(const AttnParams& p, int H, long long nb1, int D,
                           cudaStream_t s) {
-  if (D != 32) return cudaErrorInvalidValue;
-  return launch_attn<32, TQ, TKV>(p, H, nb1, s);
-}
-
-// the SLat torso's head width
-template <typename TQ, typename TKV>
-cudaError_t launch_attn64(const AttnParams& p, int H, long long nb1, int D,
-                          cudaStream_t s) {
-  if (D != 64) return cudaErrorInvalidValue;
-  return launch_attn<64, TQ, TKV>(p, H, nb1, s);
+  if (D == 32) return launch_attn<32, TQ, TKV>(p, H, nb1, s);
+  if (D == 64) return launch_attn<64, TQ, TKV>(p, H, nb1, s);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// K3's int8 form (heads of 32).
+// The int8 forms: K3's int8 cache and K1/K2's int8 QK (heads of 32 or 64).
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -265,8 +268,8 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One block per (cell, head, tensor): qs = max(max |q|, 1e-8) over the
-// cell's rows and the head's D = 32 lanes, qi = round(q * (127 / qs)) (half
-// to even). q is fp32 with a row stride (read in place from the [rows, 3C]
+// cell's rows and the head's D lanes, qi = round(q * (127 / qs)) (half to
+// even). q is fp32 with a row stride (read in place from the [rows, 3C]
 // qkv buffer of the self sublayers); with a gamma it is first RMS-normalized
 // per (row, head) in place, q * rsqrt(sum q^2 + 1e-12) * gamma, as the TPU
 // kernel does before it quantizes. Cell c covers the rows
@@ -284,8 +287,10 @@ struct QuantParams {
   int cells2, n_outer, n_inner, H;
 };
 
+// One warp per (row, head); lane l holds the head's lanes l, l + 32, ...
+template <int D>
 __global__ void __launch_bounds__(256) q8_kernel(QuantParams p) {
-  constexpr int D = 32;  // one warp per (row, head)
+  constexpr int E = D / 32;
   __shared__ float red[8];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int cell = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
@@ -294,20 +299,31 @@ __global__ void __launch_bounds__(256) q8_kernel(QuantParams p) {
   const int rows = p.n_outer * p.n_inner;
   float* src = p.src[z] + h * D + lane;
   const bf16* gamma = p.gamma[z];
-  const float g = gamma ? to_f(gamma[h * D + lane]) : 1.f;
+  float g[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) g[e] = gamma ? to_f(gamma[h * D + lane + 32 * e]) : 1.f;
   auto row_of = [&](int r) {
     return base + (long long)(r / p.n_inner) * p.s_outer + r % p.n_inner;
   };
   float mx = 0.f;
   for (int r = warp; r < rows; r += 8) {
-    float* e = src + row_of(r) * p.src_stride;
-    float v = *e;
+    float* row = src + row_of(r) * p.src_stride;
+    float v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = row[32 * e];
     if (gamma) {
-      const float ss = warp_sum(__fmul_rn(v, v));
-      v = __fmul_rn(__fmul_rn(v, rsqrtf(ss + 1e-12f)), g);
-      *e = v;
+      float ss = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) ss += __fmul_rn(v[e], v[e]);
+      const float f = rsqrtf(warp_sum(ss) + 1e-12f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        v[e] = __fmul_rn(__fmul_rn(v[e], f), g[e]);
+        row[32 * e] = v[e];
+      }
     }
-    mx = fmaxf(mx, fabsf(v));
+#pragma unroll
+    for (int e = 0; e < E; ++e) mx = fmaxf(mx, fabsf(v[e]));
   }
   mx = warp_max(mx);
   if (lane == 0) red[warp] = mx;
@@ -323,19 +339,25 @@ __global__ void __launch_bounds__(256) q8_kernel(QuantParams p) {
   signed char* dst = p.dst[z] + h * D + lane;
   for (int r = warp; r < rows; r += 8) {
     const long long row = row_of(r);
-    dst[row * p.dst_stride] = (signed char)__float2int_rn(
-        __fmul_rn(src[row * p.src_stride], rcp));
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      dst[row * p.dst_stride + 32 * e] = (signed char)__float2int_rn(
+          __fmul_rn(src[row * p.src_stride + 32 * e], rcp));
   }
   if (threadIdx.x == 0) p.scale[z][(long long)cell * p.H + h] = s;
 }
 
-cudaError_t launch_q8(const QuantParams& p, int cells, int tensors,
+cudaError_t launch_q8(const QuantParams& p, int cells, int tensors, int D,
                       cudaStream_t s) {
-  q8_kernel<<<dim3((unsigned)cells, p.H, tensors), 256, 0, s>>>(p);
+  const dim3 grid((unsigned)cells, p.H, tensors);
+  if (D == 32)
+    q8_kernel<32><<<grid, 256, 0, s>>>(p);
+  else if (D == 64)
+    q8_kernel<64><<<grid, 256, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
-
-constexpr int QD = 32;  // the DiT's head width
 
 // Row block z (grid.z) splits as (z / nb2, z % nb2) with strides s1 / s2;
 // rows within it step by si (queries) or sj (keys / values), in elements.
@@ -356,18 +378,20 @@ struct Q8Params {
 };
 
 // One CTA (4 warps) per (64-query tile, head, row block), 64-key tiles. The
-// int8 tiles sit in shared memory as two 16-lane panels, so that every WMMA
-// s8 fragment starts on a 32-byte boundary. Static shared memory ~33 KB.
+// int8 tiles sit in shared memory as D / 16 panels of 16 lanes, so that
+// every WMMA s8 fragment starts on a 32-byte boundary. Static shared memory
+// ~33 KB at D = 32, ~40 KB at D = 64.
 // SELF = false: K3's int8 form, s = si * (ks_j * (qs * scale * log2 e /
 // 127)) - 30 with a per-key k scale, V = bf16(v * vs). SELF = true: K1/K2's
 // int8 QK, s = si * (qs * ks * scale * log2 e / 127^2) - 30 with one k scale
 // per (cell, head), V the fp32 projection rounded to bf16. The scalar
 // products keep the TPU kernel's order and roundings.
-template <bool SELF>
+template <bool SELF, int D>
 __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
-  __shared__ __align__(128) signed char sQ[2][64 * 16];
-  __shared__ __align__(128) signed char sK[2][64 * 16];
-  __shared__ __align__(128) bf16 sV[64 * QD];
+  constexpr int NP = D / 16;  // 16-lane panels of a row
+  __shared__ __align__(128) signed char sQ[NP][64 * 16];
+  __shared__ __align__(128) signed char sK[NP][64 * 16];
+  __shared__ __align__(128) bf16 sV[64 * D];
   __shared__ __align__(128) int sS[4][16 * 64];  // int scores, then fp32 P V
   __shared__ __align__(128) bf16 sP[4][16 * 64];
   __shared__ float sKs[64];
@@ -376,14 +400,14 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   const int h = blockIdx.y;
   const long long z = blockIdx.z, z1 = z / p.nb2, z2 = z % p.nb2;
   const int q0 = blockIdx.x * 64;
-  const signed char* qb = p.qi + z1 * p.q_s1 + z2 * p.q_s2 + h * QD;
-  const int lr = tid >> 1, lh = tid & 1;  // loader: row, 16-lane panel
-  {
-    const int qi = q0 + lr;
+  const signed char* qb = p.qi + z1 * p.q_s1 + z2 * p.q_s2 + h * D;
+  // loader: element i of 64 * NP is (row i / NP, panel i % NP)
+  for (int i = tid; i < 64 * NP; i += 128) {
+    const int lr = i / NP, pn = i % NP, qi = q0 + lr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (qi < p.L)
-      val = *reinterpret_cast<const uint4*>(qb + (long long)qi * p.q_si + lh * 16);
-    *reinterpret_cast<uint4*>(sQ[lh] + lr * 16) = val;
+      val = *reinterpret_cast<const uint4*>(qb + (long long)qi * p.q_si + pn * 16);
+    *reinterpret_cast<uint4*>(sQ[pn] + lr * 16) = val;
   }
 
   // lanes (2r, 2r+1) of a warp own query row r of its 16, 32 keys each;
@@ -398,29 +422,29 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
              : __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[c], p.scale), LOG2E), 127.f);
   }
   float l_run = 0.f;
-  float o_acc[QD / 2];
+  float o_acc[D / 2];
 #pragma unroll
-  for (int d = 0; d < QD / 2; ++d) o_acc[d] = 0.f;
+  for (int d = 0; d < D / 2; ++d) o_acc[d] = 0.f;
   int* sSw = sS[warp];
   float* sOw = reinterpret_cast<float*>(sS[warp]);
   bf16* sPw = sP[warp];
-  const signed char* kb = p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * QD + lh * 16;
-  const long long v_off = z1 * p.v_s1 + z2 * p.v_s2 + h * QD + lh * 16;
+  const signed char* kb = p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
+  const long long v_off = z1 * p.v_s1 + z2 * p.v_s2 + h * D;
   const bf16* ksb = SELF ? nullptr : p.ks_t + (z1 * p.H + h) * p.Lk;
   const bf16* vsb = SELF ? nullptr : p.vs + z1 * p.Lk * p.H + h;
 
   for (int j0 = 0; j0 < p.Lk; j0 += 64) {
     __syncthreads();  // the previous tile is no longer read
-    {
-      const int kj = j0 + lr;
+    for (int i = tid; i < 64 * NP; i += 128) {
+      const int lr = i / NP, pn = i % NP, kj = j0 + lr;
       const bool ok = kj < p.Lk;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.k_sj);
-      *reinterpret_cast<uint4*>(sK[lh] + lr * 16) = kv;
-      bf16* dv = sV + lr * QD + lh * 16;
+      if (ok) kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.k_sj + pn * 16);
+      *reinterpret_cast<uint4*>(sK[pn] + lr * 16) = kv;
+      bf16* dv = sV + lr * D + pn * 16;
       if (SELF) {
         const float4* vr = reinterpret_cast<const float4*>(
-            (const float*)p.v + v_off + (long long)kj * p.v_sj);
+            (const float*)p.v + v_off + (long long)kj * p.v_sj + pn * 16);
 #pragma unroll
         for (int d = 0; d < 4; ++d) {
           const float4 a = ok ? vr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -433,15 +457,15 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
         uint4 vv = make_uint4(0u, 0u, 0u, 0u);
         if (ok)
           vv = *reinterpret_cast<const uint4*>((const signed char*)p.v + v_off +
-                                               (long long)kj * p.v_sj);
+                                               (long long)kj * p.v_sj + pn * 16);
         const float vsc = ok ? to_f(vsb[(long long)kj * p.H]) : 0.f;
         const signed char* vc = reinterpret_cast<const signed char*>(&vv);
 #pragma unroll
         for (int d = 0; d < 16; ++d)
           dv[d] = __float2bfloat16(__fmul_rn((float)vc[d], vsc));
-        if (tid < 64) sKs[tid] = j0 + tid < p.Lk ? to_f(ksb[j0 + tid]) : 0.f;
       }
     }
+    if (!SELF && tid < 64) sKs[tid] = j0 + tid < p.Lk ? to_f(ksb[j0 + tid]) : 0.f;
     __syncthreads();
 
     // S = Qi Ki^T in int32 for this warp's 16 query rows
@@ -450,7 +474,7 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
       wmma::fill_fragment(acc, 0);
 #pragma unroll
-      for (int kh = 0; kh < 2; ++kh) {
+      for (int kh = 0; kh < NP; ++kh) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb;
         wmma::load_matrix_sync(fa, sQ[kh] + warp * 16 * 16, 16);
@@ -484,7 +508,7 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
 
     // P V into the (now free) score area as fp32 [16, D]
 #pragma unroll
-    for (int dj = 0; dj < QD / 16; ++dj) {
+    for (int dj = 0; dj < D / 16; ++dj) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -492,30 +516,42 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
         wmma::load_matrix_sync(fa, sPw + kk, 64);
-        wmma::load_matrix_sync(fb, sV + kk * QD + dj * 16, QD);
+        wmma::load_matrix_sync(fb, sV + kk * D + dj * 16, D);
         wmma::mma_sync(acc, fa, fb, acc);
       }
-      wmma::store_matrix_sync(sOw + dj * 16, acc, QD, wmma::mem_row_major);
+      wmma::store_matrix_sync(sOw + dj * 16, acc, D, wmma::mem_row_major);
     }
     __syncwarp();
 #pragma unroll
-    for (int d = 0; d < QD / 2; ++d) o_acc[d] += sOw[r * QD + half * (QD / 2) + d];
+    for (int d = 0; d < D / 2; ++d) o_acc[d] += sOw[r * D + half * (D / 2) + d];
     __syncwarp();
   }
 
   if (qrow < p.L) {
     const float den = fmaxf(l_run, 1e-30f);
-    bf16* orow = p.o + z1 * p.o_s1 + z2 * p.o_s2 + (long long)qrow * p.o_si + h * QD +
-                 half * (QD / 2);
+    bf16* orow = p.o + z1 * p.o_s1 + z2 * p.o_s2 + (long long)qrow * p.o_si + h * D +
+                 half * (D / 2);
 #pragma unroll
-    for (int d = 0; d < QD / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] / den);
+    for (int d = 0; d < D / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] / den);
   }
 }
 
 template <bool SELF>
-cudaError_t launch_attn_q8(const Q8Params& p, long long blocks, cudaStream_t s) {
-  attn_q8_kernel<SELF><<<dim3(cdiv(p.L, 64), p.H, (unsigned)blocks), 128, 0, s>>>(p);
+cudaError_t launch_attn_q8(const Q8Params& p, long long blocks, int D,
+                           cudaStream_t s) {
+  const dim3 grid(cdiv(p.L, 64), p.H, (unsigned)blocks);
+  if (D == 32)
+    attn_q8_kernel<SELF, 32><<<grid, 128, 0, s>>>(p);
+  else if (D == 64)
+    attn_q8_kernel<SELF, 64><<<grid, 128, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+// heads of 32 or 64, C a multiple of 16 (the int8 rows' 16-byte panels)
+inline bool q8_heads_ok(int C, int H) {
+  return H >= 1 && C % H == 0 && (C / H == 32 || C / H == 64) && C % 16 == 0;
 }
 
 #define GVF_CHECK(call)                  \
@@ -525,10 +561,11 @@ cudaError_t launch_attn_q8(const Q8Params& p, long long blocks, cudaStream_t s) 
   } while (0)
 
 // K1 and K2 with int8 QK (quant_qk): the self chains below, with q and k
-// RMS-normalized and quantized in place of the attention prologue's norm:
-// one scale per (cell, head) each, q8_kernel over the cells of `qp`, then
-// attn_q8_kernel<true> with V read from the fp32 qkv. Scratch as K1/K2, plus
-// qi, ki int8 [rows, C] and qs, ks fp32 [cells, H].
+// (RMS-normalized first when qg / kg are given) quantized in place of the
+// attention prologue's norm: one scale per (cell, head) each, q8_kernel over
+// the cells of `qp`, then attn_q8_kernel<true> with V read from the fp32
+// qkv. Scratch as K1/K2, plus qi, ki int8 [rows, C] and qs, ks fp32
+// [cells, H].
 int self_q8_chain(const void* x, const void* sh, const void* sc,
                   const void* gate, const void* wqkv, const void* bqkv,
                   const void* qg, const void* kg, const void* wo,
@@ -536,8 +573,8 @@ int self_q8_chain(const void* x, const void* sh, const void* sc,
                   void* ki, void* qs, void* ks, void* attn, long long R, int C,
                   int H, long long rpm, QuantParams qp, int cells, Q8Params p,
                   long long blocks, cudaStream_t s) {
-  if (H < 1 || C != QD * H || C % 16 || blocks > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!q8_heads_ok(C, H) || blocks > 65535) return (int)cudaErrorInvalidValue;
+  const int D = C / H;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
                                                  (float*)qkv, R, 3 * C, C, 1, s)));
@@ -547,12 +584,12 @@ int self_q8_chain(const void* x, const void* sh, const void* sc,
   qp.dst[0] = (signed char*)qi; qp.dst[1] = (signed char*)ki;
   qp.scale[0] = (float*)qs; qp.scale[1] = (float*)ks;
   qp.src_stride = 3 * C; qp.dst_stride = C; qp.H = H;
-  GVF_CHECK(launch_q8(qp, cells, 2, s));
+  GVF_CHECK(launch_q8(qp, cells, 2, D, s));
   p.qi = (const signed char*)qi; p.qs = (const float*)qs;
   p.k = (const signed char*)ki; p.ks = (const float*)ks;
   p.v = q + 2 * C; p.o = (bf16*)attn; p.H = H;
-  p.scale = (float)(1.0 / sqrt((double)QD));
-  GVF_CHECK(launch_attn_q8<true>(p, blocks, s));
+  p.scale = (float)(1.0 / sqrt((double)D));
+  GVF_CHECK(launch_attn_q8<true>(p, blocks, D, s));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
                                                 (bf16*)y, R, C, C, rpm, s)));
   return 0;
@@ -567,8 +604,9 @@ const char* gvf_error_string(int err) {
 }
 
 // K1. x, y [B, L, C]; sh/sc/gate [B / mod_repeat, C]; wqkv [3C, C];
-// wo [C, C]; qg/kg [C], the q/k RMS-norm gammas. Scratch: h [B*L, C] bf16,
-// qkv [B*L, 3C] fp32, attn [B*L, C] bf16.
+// wo [C, C]; qg/kg [C], the q/k RMS-norm gammas, or both null (rms=False);
+// heads of 32 or 64. Scratch: h [B*L, C] bf16, qkv [B*L, 3C] fp32, attn
+// [B*L, C] bf16.
 int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
                       const void* gate, const void* wqkv, const void* bqkv,
                       const void* qg, const void* kg, const void* wo,
@@ -591,14 +629,14 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
   p.qg = (const bf16*)qg;
   p.kg = (const bf16*)kg;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn32<float, float>(p, H, B, D, s)));
+  GVF_CHECK((launch_attn_d<float, float>(p, H, B, D, s)));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
                                                 (bf16*)y, R, C, C, rpm, s)));
   return 0;
 }
 
 // K2. x, y [B, T, N, C]; sh/sc/gate [B, C]; attention over T for each (b, n),
-// read and written in place in the [B, T, N, C] layout.
+// read and written in place in the [B, T, N, C] layout; gammas as K1.
 int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
                           const void* gate, const void* wqkv, const void* bqkv,
                           const void* qg, const void* kg, const void* wo,
@@ -621,7 +659,7 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
   p.qg = (const bf16*)qg;
   p.kg = (const bf16*)kg;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn32<float, float>(p, H, B, D, s)));
+  GVF_CHECK((launch_attn_d<float, float>(p, H, B, D, s)));
   GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
                                                 (bf16*)y, R, C, C, rpm, s)));
   return 0;
@@ -673,42 +711,44 @@ int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
 }
 
 // K3. x, y [B, L, C]; per context i (image, then static): affine LN
-// (ns, nb [C]), wq [C, C], bq, wo [C, C], bo, and the cached k, v
-// [B, Lk_i, C]; no RMS norm. Scratch: h bf16, q fp32, attn bf16, mid fp32
-// (the fp32 residual between the two contexts), each [B*L, C].
+// (ns, nb [C]), wq [C, C], bq, qg [C] the q RMS-norm gamma or null (no
+// norm; the cached k carries its own), wo [C, C], bo, and the cached k, v
+// [B, Lk_i, C]; heads of 32 or 64. Scratch: h bf16, q fp32, attn bf16, mid
+// fp32 (the fp32 residual between the two contexts), each [B*L, C].
 int gvf_cross_sublayer(const void* x,
                        const void* ns1, const void* nb1, const void* wq1,
-                       const void* bq1, const void* wo1, const void* bo1,
-                       const void* k1, const void* v1, int lk1,
+                       const void* bq1, const void* qg1, const void* wo1,
+                       const void* bo1, const void* k1, const void* v1, int lk1,
                        const void* ns2, const void* nb2, const void* wq2,
-                       const void* bq2, const void* wo2, const void* bo2,
-                       const void* k2, const void* v2, int lk2,
+                       const void* bq2, const void* qg2, const void* wo2,
+                       const void* bo2, const void* k2, const void* v2, int lk2,
                        void* y, void* h, void* q, void* attn, void* mid, int B,
                        int L, int C, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
   const int D = C / H;
-  auto attend = [&](const void* k, const void* v, int lk) -> cudaError_t {
+  auto attend = [&](const void* k, const void* v, int lk,
+                    const void* qg) -> cudaError_t {
     AttnParams p;
     p.q = q; p.k = k; p.v = v; p.o = (bf16*)attn;
     p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
     p.k_s1 = (long long)lk * C; p.k_s2 = 0; p.k_sj = C;
     p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
     p.nb2 = 1; p.Lq = L; p.Lk = lk;
-    p.qg = nullptr; p.kg = nullptr;
+    p.qg = (const bf16*)qg; p.kg = nullptr;
     p.scale = (float)(1.0 / sqrt((double)D));
-    return launch_attn32<float, bf16>(p, H, B, D, s);
+    return launch_attn_d<float, bf16>(p, H, B, D, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,
                                                  (float*)q, R, C, C, 1, s)));
-  GVF_CHECK(attend(k1, v1, lk1));
+  GVF_CHECK(attend(k1, v1, lk1, qg1));
   GVF_CHECK((launch_gemm<EPI_RESID, bf16, float>(attn, wo1, bo1, (const bf16*)x,
                                                  nullptr, (float*)mid, R, C, C, 1, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq2, bq2, nullptr, nullptr,
                                                  (float*)q, R, C, C, 1, s)));
-  GVF_CHECK(attend(k2, v2, lk2));
+  GVF_CHECK(attend(k2, v2, lk2, qg2));
   GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
   return 0;
@@ -730,6 +770,7 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
   const int D = C / H;
+  if (D != 64) return (int)cudaErrorInvalidValue;
   if (x_f32)
     GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
   else
@@ -744,7 +785,7 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
   p.qg = nullptr; p.kg = nullptr;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn64<float, bf16>(p, H, B, D, s)));
+  GVF_CHECK((launch_attn_d<float, bf16>(p, H, B, D, s)));
   if (x_f32)
     GVF_CHECK((launch_gemm<EPI_RESID, float, float>(attn, wo, bo, (const float*)x,
                                                     nullptr, (float*)y, R, C, C, 1, s)));
@@ -756,33 +797,36 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
 
 // K3, int8 form (quant=True). As gvf_cross_sublayer, with per context the
 // int8 cache: k, v [B, Lk_i, C] int8, ks_t [B, H, Lk_i] and vs [B, Lk_i, H]
-// bf16 scales; heads of 32; q quantized per (cell of q_block rows, head).
-// Scratch: h bf16, q fp32, qi int8, attn bf16, mid fp32, each [B*L, C], and
-// qs fp32 [B*L / q_block, H].
+// bf16 scales; heads of 32 or 64; q RMS-normalized with qg (or not, null)
+// and then quantized per (cell of q_block rows, head). Scratch: h bf16, q
+// fp32, qi int8, attn bf16, mid fp32, each [B*L, C], and qs fp32
+// [B*L / q_block, H].
 int gvf_cross_sublayer_q8(const void* x,
                           const void* ns1, const void* nb1, const void* wq1,
-                          const void* bq1, const void* wo1, const void* bo1,
-                          const void* k1, const void* v1, const void* ks1,
-                          const void* vs1, int lk1,
+                          const void* bq1, const void* qg1, const void* wo1,
+                          const void* bo1, const void* k1, const void* v1,
+                          const void* ks1, const void* vs1, int lk1,
                           const void* ns2, const void* nb2, const void* wq2,
-                          const void* bq2, const void* wo2, const void* bo2,
-                          const void* k2, const void* v2, const void* ks2,
-                          const void* vs2, int lk2,
+                          const void* bq2, const void* qg2, const void* wo2,
+                          const void* bo2, const void* k2, const void* v2,
+                          const void* ks2, const void* vs2, int lk2,
                           void* y, void* h, void* q, void* qi, void* qs,
                           void* attn, void* mid, int B, int L, int C, int H,
                           int q_block, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
-  if (H < 1 || C != QD * H || C % 16 || q_block < 1 || L % q_block || B > 65535)
+  if (!q8_heads_ok(C, H) || q_block < 1 || L % q_block || B > 65535)
     return (int)cudaErrorInvalidValue;
+  const int D = C / H;
   auto attend = [&](const void* k, const void* v, const void* ks,
-                    const void* vs, int lk) -> cudaError_t {
+                    const void* vs, int lk, const void* qg) -> cudaError_t {
     QuantParams qp = {};
     qp.src[0] = (float*)q; qp.dst[0] = (signed char*)qi; qp.scale[0] = (float*)qs;
+    qp.gamma[0] = (const bf16*)qg;
     qp.src_stride = qp.dst_stride = C;
     qp.s1 = q_block; qp.s_outer = 1;
     qp.cells2 = 1; qp.n_outer = q_block; qp.n_inner = 1; qp.H = H;
-    cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, s);
+    cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, D, s);
     if (err != cudaSuccess) return err;
     Q8Params p = {};
     p.qi = (const signed char*)qi; p.qs = (const float*)qs;
@@ -791,19 +835,19 @@ int gvf_cross_sublayer_q8(const void* x,
     p.q_s1 = p.o_s1 = (long long)L * C; p.q_si = p.o_si = C;
     p.k_s1 = p.v_s1 = (long long)lk * C; p.k_sj = p.v_sj = C;
     p.nb2 = 1; p.L = L; p.Lk = lk; p.H = H; p.q_block = q_block;
-    p.scale = (float)(1.0 / sqrt((double)QD));
-    return launch_attn_q8<false>(p, B, s);
+    p.scale = (float)(1.0 / sqrt((double)D));
+    return launch_attn_q8<false>(p, B, D, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,
                                                  (float*)q, R, C, C, 1, s)));
-  GVF_CHECK(attend(k1, v1, ks1, vs1, lk1));
+  GVF_CHECK(attend(k1, v1, ks1, vs1, lk1, qg1));
   GVF_CHECK((launch_gemm<EPI_RESID, bf16, float>(attn, wo1, bo1, (const bf16*)x,
                                                  nullptr, (float*)mid, R, C, C, 1, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
   GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq2, bq2, nullptr, nullptr,
                                                  (float*)q, R, C, C, 1, s)));
-  GVF_CHECK(attend(k2, v2, ks2, vs2, lk2));
+  GVF_CHECK(attend(k2, v2, ks2, vs2, lk2, qg2));
   GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
   return 0;

@@ -1,6 +1,7 @@
 // K6: attention over T for each (b, n, h) in the native [B, T, N, H, D]
 // layout, for Hopper (sm_90a): the DiT's composed temporal branch,
-// [2, 24, 512, 16, 32] in fp32 on the training path.
+// [2, 24, 512, 16, 32] (or [2, 24, 512, 8, 64] for the DiT's 8-head
+// configuration) in fp32 on the training path.
 //
 // Replaces the Pallas TPU kernel of gvfdiffusion_tpu/ops/fused_attention.py
 // `temporal_attention` (body `_temporal_kernel`), with its rounding points:
@@ -13,12 +14,14 @@
 // The TPU kernel packs 16 voxels of [T, C] into one [16 T, 16 T] masked
 // matmul to fill the 128x128 MXU; nothing here needs that. One warp owns one
 // (b, n, h): the k/v rows of that head are staged in shared memory 32 keys
-// at a time (lane d loads element d of a row: 128-byte coalesced reads at
-// D = 32 in fp32), and each lane owns one query row, whose q it holds in
-// registers (read through shared memory, so the loads stay coalesced) with
-// its fp32 output accumulator. Query rows past 32 (T > 32) take further
-// passes; keys past T are skipped. The output rows go back through shared
-// memory as coalesced 128-byte writes.
+// at a time (lane l loads elements l, l + 32, ... of a row: 128-byte
+// coalesced reads in fp32), and each lane owns one query row, whose q it
+// holds in registers (read through shared memory, so the loads stay
+// coalesced) with its fp32 output accumulator: 2 D registers a lane, 128 at
+// D = 64, where a block holds 2 warps instead of 4 to keep the static shared
+// memory under 48 KB. Query rows past 32 (T > 32) take further passes; keys
+// past T are skipped. The output rows go back through shared memory as
+// coalesced writes.
 //
 // What bounds it on the H100: the bytes. At [2, 24, 512, 16, 32] fp32 it
 // reads q, k, v and writes o once, 201 MB (0.060 ms at 3.35 TB/s), against
@@ -32,17 +35,16 @@ namespace {
 
 using namespace gvf;
 
-constexpr int TD = 32;  // head width
-constexpr int TW = 4;   // warps per block, one (b, n, h) each
-constexpr int TR = 32;  // query rows per pass, keys per staged chunk
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+constexpr int TR = 32;  // query rows per pass, keys per staged chunk
+
 // q, k, v: row (b, t, n) starts at ((b * T + t) * N + n) * rs, head h at
-// h * TD within it; o contiguous [B, T, N, H, TD].
-template <typename T>
+// h * TD within it; o contiguous [B, T, N, H, TD]. TW warps per block, one
+// (b, n, h) each.
+template <typename T, int TD, int TW>
 __global__ void __launch_bounds__(TW * 32)
 temporal_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o, long long G,
@@ -69,10 +71,13 @@ temporal_kernel(const T* __restrict__ q, const T* __restrict__ k,
   bf16(*sv)[TD] = sV[warp];
 
   for (int i0 = 0; i0 < Tn; i0 += TR) {
-    // this pass's query rows, lane d reading element d of each row
+    // this pass's query rows, lane l reading elements l, l + 32, ...
     for (int r = 0; r < TR; ++r) {
       const int t = i0 + r;
-      sq[r][lane] = t < Tn ? round_bf16(to_f(qb[t * qt + lane])) : 0.f;
+#pragma unroll
+      for (int e = 0; e < TD / 32; ++e)
+        sq[r][lane + 32 * e] =
+            t < Tn ? round_bf16(to_f(qb[t * qt + lane + 32 * e])) : 0.f;
     }
     __syncwarp();
     float qr[TD], acc[TD];
@@ -87,8 +92,12 @@ temporal_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int nk = min(TR, Tn - j0);
       for (int r = 0; r < nk; ++r) {
         const int t = j0 + r;
-        sk[r][lane] = __float2bfloat16(to_f(kb[t * kt + lane]));
-        sv[r][lane] = __float2bfloat16(to_f(vb[t * vt + lane]));
+#pragma unroll
+        for (int e = 0; e < TD / 32; ++e) {
+          const int d = lane + 32 * e;
+          sk[r][d] = __float2bfloat16(to_f(kb[t * kt + d]));
+          sv[r][d] = __float2bfloat16(to_f(vb[t * vt + d]));
+        }
       }
       __syncwarp();
       for (int j = 0; j < nk; ++j) {
@@ -107,10 +116,26 @@ temporal_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < TD; ++d) sq[lane][d] = acc[d] / l;
     __syncwarp();
-    for (int r = 0; r < TR && i0 + r < Tn; ++r)
-      ob[(i0 + r) * ot + lane] = from_f<T>(sq[r][lane]);
+    for (int r = 0; r < TR && i0 + r < Tn; ++r) {
+#pragma unroll
+      for (int e = 0; e < TD / 32; ++e)
+        ob[(i0 + r) * ot + lane + 32 * e] = from_f<T>(sq[r][lane + 32 * e]);
+    }
     __syncwarp();  // before the next pass overwrites sq
   }
+}
+
+template <typename T, int TD, int TW>
+cudaError_t launch_temporal(const void* q, const void* k, const void* v,
+                            void* o, long long G, int Tn, int N, int H,
+                            long long q_rs, long long k_rs, long long v_rs,
+                            float scale_log2, cudaStream_t s) {
+  const long long blocks = (G + TW - 1) / TW;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  temporal_kernel<T, TD, TW><<<(unsigned)blocks, TW * 32, 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, G, Tn, N, H, q_rs, k_rs,
+      v_rs, scale_log2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -120,26 +145,20 @@ extern "C" {
 // q, k, v: [B, T, N, H, D] with heads contiguous in a row and (b, t, n)
 // rows rs elements apart (rs = H * D for a contiguous tensor, 3 * H * D for
 // a view of a [B, T, N, 3, H, D] qkv projection); o contiguous. All bf16,
-// or all fp32 (io_f32). D = 32. scale_log2 = scale * log2(e).
+// or all fp32 (io_f32). D = 32 or 64. scale_log2 = scale * log2(e).
 int gvf_temporal_attention(const void* q, const void* k, const void* v,
                            void* o, int B, int T, int N, int H, int D,
                            long long q_rs, long long k_rs, long long v_rs,
                            float scale_log2, int io_f32, void* stream) {
-  if (D != TD || B < 1 || T < 1 || N < 1 || H < 1)
+  if ((D != 32 && D != 64) || B < 1 || T < 1 || N < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const long long G = (long long)B * N * H;
-  const long long blocks = (G + TW - 1) / TW;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (io_f32)
-    temporal_kernel<float><<<(unsigned)blocks, TW * 32, 0, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, G, T,
-        N, H, q_rs, k_rs, v_rs, scale_log2);
-  else
-    temporal_kernel<bf16><<<(unsigned)blocks, TW * 32, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, G, T, N,
-        H, q_rs, k_rs, v_rs, scale_log2);
-  return (int)cudaGetLastError();
+  // 4 warps a block at D = 32, 2 at D = 64 (static shared memory < 48 KB)
+  const auto launch =
+      D == 32 ? (io_f32 ? &launch_temporal<float, 32, 4> : &launch_temporal<bf16, 32, 4>)
+              : (io_f32 ? &launch_temporal<float, 64, 2> : &launch_temporal<bf16, 64, 2>);
+  return (int)launch(q, k, v, o, G, T, N, H, q_rs, k_rs, v_rs, scale_log2, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Temporal-aware DiT denoiser for the Gaussian Variation Field latent (port of
-gvfdiffusion_tpu/models/dit.py in its shipped configuration: APE positions,
-per-block adaLN, spatial + temporal attention with q/k RMS norms, cross
-attention without, MLP ratio 4).
+gvfdiffusion_tpu/models/dit.py with its configuration fields: `mlp_ratio`,
+`pe_mode` ("ape", "rope", "learnable" or "none"), `share_mod`, the q/k RMS
+norms on the self (`qk_rms_norm`) and cross (`qk_rms_norm_cross`)
+attentions, `no_temporal_attn` and `temporal_layout`; the defaults are the
+shipped configuration. JAX's measurement-only `ablate` is not ported).
 
 Inputs (reference shapes):
   x              (B, T, N=512, C_in=16)   noisy variation-field latent
@@ -12,9 +14,10 @@ Inputs (reference shapes):
 
 Two paths, as in JAX: with a hoisted cross-attention KV cache (`cross_kv`,
 the sampler's) each block runs the fused sublayer kernels K1-K4, in bf16 on
-CUDA; without one (the trainer's) the DiT projects the conditioning itself
-and each block runs the composed path (K5, K6, torch elsewhere), in any
-dtype, under autograd.
+CUDA, unless its gate closes (RoPE, or a shape outside a kernel's rule;
+see nn/transformer.py) and it composes on the cache; without one (the
+trainer's) the DiT projects the conditioning itself and each block runs the
+composed path (K5, K6, torch elsewhere), in any dtype, under autograd.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -46,29 +50,64 @@ def check_quant(name: str, mode: Optional[str]) -> None:
 class DiT(nn.Module):
     """`dtype` is the compute dtype (flax's `dtype`): parameters stay as
     stored and are cast at use. The timestep embedder computes in fp32. On
-    CUDA the fused path runs the bf16 sublayer kernels, so with `cross_kv`
-    `dtype` must be bf16. `remat_blocks` leading blocks are recomputed in
-    the backward pass (`torch.utils.checkpoint`, JAX's `nn.remat`)."""
+    CUDA the fused path runs the bf16 sublayer kernels, so a block that
+    takes it needs `dtype` bf16. `remat_blocks` leading blocks are
+    recomputed in the backward pass (`torch.utils.checkpoint`, JAX's
+    `nn.remat`)."""
 
-    def __init__(self, in_channels: int = 16, model_channels: int = 512,
-                 static_cond_channels: int = 14,
+    def __init__(self, resolution: int = 512, in_channels: int = 16,
+                 model_channels: int = 512, static_cond_channels: int = 14,
                  image_cond_channels: int = 1024, out_channels: int = 16,
                  num_blocks: int = 12, num_heads: int = 16,
-                 remat_blocks: int = 0, dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float = 4.0, pe_mode: str = "ape",
+                 share_mod: bool = False, qk_rms_norm: bool = True,
+                 qk_rms_norm_cross: bool = False,
+                 no_temporal_attn: bool = False,
+                 temporal_layout: str = "einsum", remat_blocks: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if pe_mode not in ("ape", "rope", "learnable", "none"):
+            raise ValueError(f"pe_mode must be ape, rope, learnable or none; "
+                             f"got {pe_mode!r}")
         C = model_channels
+        self.resolution = resolution
         self.model_channels = C
+        self.num_blocks = num_blocks
+        self.pe_mode = pe_mode
+        self.share_mod = share_mod
         self.remat_blocks = remat_blocks
         self.dtype = dtype
         self.input_layer = nn.Linear(in_channels, C)
         self.t_embedder = TimestepEmbedder(C)
         self.image_cond_proj = nn.Linear(image_cond_channels, C)
         self.static_cond_proj = nn.Linear(static_cond_channels, C)
-        self.pos_embedder = AbsolutePositionEmbedder(C)
+        mod_channels = (6 if no_temporal_attn else 9) * C
+        if share_mod:
+            self.adaLN_modulation = nn.Sequential(
+                nn.SiLU(), nn.Linear(C, mod_channels))
+        if pe_mode == "ape":
+            self.pos_embedder = AbsolutePositionEmbedder(C)
+        elif pe_mode == "learnable":  # flax's `pos_emb`
+            self.pos_embedder = nn.Parameter(torch.zeros(1, resolution, C))
         self.blocks = nn.ModuleList(
-            ModulatedTransformerCrossBlock(C, num_heads, dtype=dtype)
+            ModulatedTransformerCrossBlock(
+                C, num_heads, mlp_ratio=mlp_ratio,
+                use_rope=pe_mode == "rope", qk_rms_norm=qk_rms_norm,
+                qk_rms_norm_cross=qk_rms_norm_cross, share_mod=share_mod,
+                no_temporal_attn=no_temporal_attn,
+                temporal_layout=temporal_layout, dtype=dtype)
             for _ in range(num_blocks))
-        self.final_layer = FinalLayer(C, out_channels, dtype=dtype)
+        self.final_layer = FinalLayer(
+            C, out_channels, dtype=dtype,
+            cond_channels=mod_channels if share_mod else C)
+
+    def mem_ratio_to_remat_blocks(self, mem_ratio: float) -> int:
+        """The reference's mapping: recompute the first ceil((1 - r) * n) + 1
+        blocks (JAX models/dit.py:52-58)."""
+        if mem_ratio >= 1.0:
+            return 0
+        return min(math.ceil((1 - mem_ratio) * self.num_blocks) + 1,
+                   self.num_blocks)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> "DiT":
@@ -77,9 +116,9 @@ class DiT(nn.Module):
         zero biases, xavier-uniform for `input_layer`, normal(0.02) for the
         timestep MLP and the two conditioning projections, zeros for every
         adaLN modulation and the final layer, ones for RMS gammas and
-        LayerNorm scales. Drawn on the CPU from `generator` (a CPU
-        generator), in parameter order, so the values do not depend on the
-        device."""
+        LayerNorm scales, normal(1.0) for the learnable position
+        embedding. Drawn on the CPU from `generator` (a CPU generator), in
+        parameter order, so the values do not depend on the device."""
         normal02 = ("t_embedder.", "image_cond_proj.", "static_cond_proj.")
         for name, p in self.named_parameters():
             if name.endswith("bias"):
@@ -89,6 +128,8 @@ class DiT(nn.Module):
                 r = torch.zeros(p.shape)
             elif name.endswith("gamma") or p.ndim == 1:  # RMS and LN scales
                 r = torch.ones(p.shape)
+            elif name == "pos_embedder":
+                r = torch.randn(p.shape, generator=generator)
             elif name.startswith(normal02):
                 r = torch.randn(p.shape, generator=generator) * 0.02
             elif name.startswith("input_layer."):
@@ -103,13 +144,6 @@ class DiT(nn.Module):
             p.copy_(r)
         return self
 
-    def _check_fused(self, x: torch.Tensor) -> None:
-        if x.is_cuda and self.dtype != torch.bfloat16:
-            raise TypeError(
-                "with a hoisted KV cache the DiT runs the bf16 sublayer "
-                f"kernels on CUDA: build it with dtype=torch.bfloat16 (got "
-                f"{self.dtype})")
-
     def kv_cache(self, cond_images: torch.Tensor,
                  static_latent: torch.Tensor,
                  kv_quant: Optional[str] = None):
@@ -119,7 +153,6 @@ class DiT(nn.Module):
         (JAX's GVF_KV_QUANT=int8, bench.py's setting), and the blocks then
         run K3's int8 form; None keeps it float."""
         check_quant("kv_quant", kv_quant)
-        self._check_fused(cond_images)
         image_emb, static_emb = self._conditioning(cond_images, static_latent)
         return tuple(b.kv(image_emb, static_emb, quant=kv_quant == "int8")
                      for b in self.blocks)
@@ -141,7 +174,9 @@ class DiT(nn.Module):
         """With kv_only=True returns `kv_cache(cond_images, static_latent)`;
         otherwise the predicted output [B, T, N, out_channels] in fp32. A
         given cross_kv replaces cond_images and static_latent and runs the
-        fused path; without it the composed path runs. `impl="plain"` runs
+        fused path where each block's gate allows (else the composed path on
+        the cache); without it the composed path runs. `positions` feed the
+        APE (pe_mode "ape") and are unread otherwise. `impl="plain"` runs
         the kernels' plain torch versions. self_quant="int8" (JAX's
         GVF_SELF_QUANT=int8) takes the self and temporal sublayers' QK in
         int8 on the fused path; the composed path ignores it, as in JAX."""
@@ -153,16 +188,21 @@ class DiT(nn.Module):
             image_emb, static_emb = self._conditioning(cond_images,
                                                        static_latent)
             cross_kv = (None,) * len(self.blocks)
-        else:
-            self._check_fused(x)
         h = dense(x, self.input_layer, self.dtype)
-        t_emb = self.t_embedder(t)
-        pe = self.pos_embedder(positions)
-        h = h + pe[:, None].to(h.dtype)  # broadcast over T
+        mod = self.t_embedder(t)
+        if self.share_mod:  # one modulation for every block (JAX :124-130)
+            mod = dense(F.silu(mod), self.adaLN_modulation[1], self.dtype)
+        if self.pe_mode == "ape":
+            if positions is None:
+                raise ValueError("pe_mode 'ape' needs positions")
+            pe = self.pos_embedder(positions)
+            h = h + pe[:, None].to(h.dtype)  # broadcast over T
+        elif self.pe_mode == "learnable":
+            h = h + self.pos_embedder[None].to(h.dtype)
         for i, (block, kv) in enumerate(zip(self.blocks, cross_kv)):
-            args = (h, t_emb, kv, image_emb, static_emb, impl, self_quant)
+            args = (h, mod, kv, image_emb, static_emb, impl, self_quant)
             if i < self.remat_blocks and torch.is_grad_enabled():
                 h = checkpoint(block, *args, use_reentrant=False)
             else:
                 h = block(*args)
-        return self.final_layer(h, t_emb).float()
+        return self.final_layer(h, mod).float()

@@ -27,10 +27,11 @@ Each has two versions:
 K5 serves heads of 64 in bf16 (DINOv2, the TRELLIS flows: self, cross with
 Lq != Lk, and self with a [B, Lk] fp32 `kv_bias` whose -inf entries mask
 keys) and heads of 32 in fp32 or bf16 (the DiT's composed path: spatial
-self and the image and static cross-attentions). `kv_bias` gets no
-gradient. K6 serves heads of 32 in fp32 or bf16. `segment_size` and
-`quant` are not ported. The kernels read q and k/v with their own strides,
-so the views of a qkv or kv projection go in without copies.
+self and the image and static cross-attentions; heads of 64 in fp32 in the
+DiT's 8-head configuration). `kv_bias` gets no gradient. K6 serves heads
+of 32 or 64 in fp32 or bf16. `segment_size` and `quant` are not ported.
+The kernels read q and k/v with their own strides, so the views of a qkv
+or kv projection go in without copies.
 
 `launch_counts` counts kernel launches by the form the caller runs and the
 head width: "attention", "attention_cross" and "attention_bias" at heads
@@ -273,8 +274,8 @@ def fused_attention(q, k, v, scale: float, compute_dtype=torch.bfloat16, *,
 
 
 def _check_temporal_cuda(q, k, v, compute_dtype) -> None:
-    """What K6 takes: CUDA [B, T, N, H, 32], all bf16 or all fp32, heads
-    contiguous in a row, the (b, t, n) rows evenly strided."""
+    """What K6 takes: CUDA [B, T, N, H, D], D = 32 or 64, all bf16 or all
+    fp32, heads contiguous in a row, the (b, t, n) rows evenly strided."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA temporal attention kernel computes in "
                         f"bfloat16 only; got compute_dtype={compute_dtype}")
@@ -294,8 +295,8 @@ def _check_temporal_cuda(q, k, v, compute_dtype) -> None:
             raise ValueError("q/k/v must have heads contiguous in a row and "
                              "evenly strided (b, t, n) rows; got strides "
                              f"{t.stride()}")
-    if q.shape[-1] != 32:
-        raise ValueError(f"head width must be 32, got {q.shape[-1]}")
+    if q.shape[-1] not in (32, 64):
+        raise ValueError(f"head width must be 32 or 64, got {q.shape[-1]}")
 
 
 def _temporal_forward(q, k, v, scale, compute_dtype):

@@ -10,35 +10,45 @@ Each sublayer has two versions:
     a CPU tensor runs the plain version. `impl="plain"` forces the plain
     version on any device, for comparing the two on the card.
 
-Only the configurations the port's models run are ported: heads of width
-32, q/k RMS norms on the self and temporal sublayers, none on the cross
-sublayer, and two chained cross contexts (image, then static) for the DiT;
-one cross context at heads of 64, without RMS norm, for the SLat flow
-torso. The JAX kernel's `kv_buffers` sized its VMEM residency on the TPU
-and has no counterpart here. Its int8 `quant` form (the DiT's two contexts
-against an int8 KV cache from `quantize_kv`) is ported with its arithmetic:
-`cross_sublayer_q8_reference` is its plain version, and
+The JAX kernels' configurations that a path of the system reaches are
+ported: heads of 32 or 64 for the self, temporal and two-context cross
+sublayers, and their `rms` flag with JAX's defaults (q/k RMS norms on the
+self and temporal sublayers unless `rms=False`; on the cross sublayer,
+`rms=True` norms q, the cached k having been normed when the cache was
+built); one cross context at heads of 64, without RMS norm, for the SLat
+flow torso. The JAX kernel's `kv_buffers` sized its VMEM residency on the
+TPU and has no counterpart here. Its int8 `quant` form (the DiT's two
+contexts against an int8 KV cache from `quantize_kv`) is ported with its
+arithmetic: `cross_sublayer_q8_reference` is its plain version, and
 `cross_sublayer_reference(quant=True)` the JAX package's oracle on the
-dequantized cache. That form quantizes q per (cell, head), where a cell is
-one TPU grid instance: all L rows of a batch row, or `lq_block` of them
-where the JAX DiT grids the rows (halves at the 3-way CFG batch); the
-wrappers take that domain as `q_block`. The self kernels' int8-QK form
-(`quant_qk=True`, JAX's GVF_SELF_QUANT=int8) is ported too: q and k, in
-fp32 after their RMS norms, each take one max-abs scale per (cell, head),
-where the cell is one frame for the self sublayer and one batch row x
-`voxel_group` voxels x all T frames for the temporal one (the TPU grid
-instance; attention still couples only the T rows of one voxel). JAX has
-no oracle for it: `self_sublayer_qk8_reference` and
-`temporal_sublayer_qk8_reference` are its plain versions. K1's `seg` is
-not ported.
+dequantized cache. That form quantizes q (after its RMS norm, with `rms`)
+per (cell, head), where a cell is one TPU grid instance: all L rows of a
+batch row, or `lq_block` of them where the JAX DiT grids the rows (halves
+at the 3-way CFG batch); the wrappers take that domain as `q_block`. The
+self kernels' int8-QK form (`quant_qk=True`, JAX's GVF_SELF_QUANT=int8) is
+ported too: q and k, in fp32 after their RMS norms (if any), each take one
+max-abs scale per (cell, head), where the cell is one frame for the self
+sublayer and one batch row x `voxel_group` voxels x all T frames for the
+temporal one (the TPU grid instance; attention still couples only the T
+rows of one voxel). JAX has no oracle for it:
+`self_sublayer_qk8_reference` and `temporal_sublayer_qk8_reference` are
+its plain versions. K1's `seg` is not ported.
 
-Weights come in the JAX layout ([in, out]); an `nn.Linear(...).weight.t()`
-view passes to the kernel with no copy.
+Cross parameters p_i are (norm_scale, norm_bias, wq, bq, wo, bo), or with
+`rms=True` (norm_scale, norm_bias, wq, bq, qg, wo, bo), JAX's order, where
+qg is the q norm's lane gamma. Weights come in the JAX layout ([in, out]);
+an `nn.Linear(...).weight.t()` view passes to the kernel with no copy.
+
+`*_sublayer_supports` are the JAX package's shape rules for the DiT
+block's gate to the fused path, less their `vmem_est` terms: those size
+the TPU kernel's VMEM residency and have no counterpart on Hopper.
 
 `launch_counts` counts kernel launches per sublayer (one per launched
 chain; "cross" for the two-context form, "cross_single" for the single,
 "cross_q8" for the int8 form, "self_q8" and "temporal_q8" for the int8-QK
-self forms); the plain version never counts.
+self forms); the plain version never counts. A counter covers every head
+width and `rms` setting of its form: a run's configuration tells them
+apart.
 
 The kernels have no backward pass yet (the JAX custom_vjps recompute
 through einsums or the oracle): on CUDA a wrapper raises when grad mode is
@@ -97,18 +107,28 @@ def _rms(a: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
     return (ah * torch.rsqrt(ss + _RMS_EPS)).flatten(-2) * _f(g)
 
 
+def _qkv(qkv, qg, kg, num_heads: int, rms: bool):
+    """q, k, v of an fp32 [..., 3C] projection, q and k RMS-normed with
+    `rms`."""
+    C = qkv.shape[-1] // 3
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if rms:
+        q, k = _rms(q, qg, num_heads), _rms(k, kg, num_heads)
+    return q, k, v
+
+
 def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                            num_heads: int, compute_dtype=torch.bfloat16):
-    """x [B, L, C]; sh/sc/gate [B, C]; wqkv [C, 3C]; wo [C, C]; qg/kg [C]."""
+                            num_heads: int, rms: bool = True,
+                            compute_dtype=torch.bfloat16):
+    """x [B, L, C]; sh/sc/gate [B, C]; wqkv [C, 3C]; wo [C, C]; qg/kg [C]
+    (read with rms=True)."""
     B, L, C = x.shape
     D = C // num_heads
     dt = compute_dtype
     xf = _f(x)
     h = _layernorm_f32(xf) * (1.0 + _f(sc)[:, None]) + _f(sh)[:, None]
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
-    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    q = _rms(q, qg, num_heads)
-    k = _rms(k, kg, num_heads)
+    q, k, v = _qkv(qkv, qg, kg, num_heads, rms)
     qh, kh, vh = (_rd(a, dt).reshape(B, L, num_heads, D) for a in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * D ** -0.5
     p = torch.softmax(s, dim=-1)
@@ -118,7 +138,8 @@ def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
 
 
 def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                                num_heads: int, compute_dtype=torch.bfloat16):
+                                num_heads: int, rms: bool = True,
+                                compute_dtype=torch.bfloat16):
     """x [B, T, N, C]; sh/sc/gate [B, C]; attention over T per (b, n, h)."""
     B, T, N, C = x.shape
     D = C // num_heads
@@ -127,9 +148,7 @@ def temporal_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     h = _layernorm_f32(xf) * (1.0 + _f(sc)[:, None, None]) \
         + _f(sh)[:, None, None]
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
-    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    q = _rms(q, qg, num_heads)
-    k = _rms(k, kg, num_heads)
+    q, k, v = _qkv(qkv, qg, kg, num_heads, rms)
     qh, kh, vh = (_rd(a, dt).reshape(B, T, N, num_heads, D)
                   for a in (q, k, v))
     s = torch.einsum("btnhd,bsnhd->bnhts", qh, kh) * D ** -0.5
@@ -171,21 +190,19 @@ def _qk8_attention(q, qs, k, ks, v, dt, scale):
 
 
 def self_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                                num_heads: int,
+                                num_heads: int, rms: bool = True,
                                 compute_dtype=torch.bfloat16):
     """The int8-QK self sublayer's own arithmetic (JAX
     `_self_sublayer_kernel` with quant_qk=True): as
-    self_sublayer_reference, with q and k (fp32, RMS-normalized) quantized
-    per (frame, head); see _qk8_attention."""
+    self_sublayer_reference, with q and k (fp32, RMS-normalized with `rms`)
+    quantized per (frame, head); see _qk8_attention."""
     B, L, C = x.shape
     H, D = num_heads, C // num_heads
     dt = compute_dtype
     xf = _f(x)
     h = _layernorm_f32(xf) * (1.0 + _f(sc)[:, None]) + _f(sh)[:, None]
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
-    q, k, v = (a.reshape(B, L, H, D) for a in (
-        _rms(qkv[..., :C], qg, H), _rms(qkv[..., C:2 * C], kg, H),
-        qkv[..., 2 * C:]))
+    q, k, v = (a.reshape(B, L, H, D) for a in _qkv(qkv, qg, kg, H, rms))
     qs, ks = (a.abs().amax((1, 3)).clamp_min(1e-8) for a in (q, k))  # [B, H]
     attn = _qk8_attention(q, qs, k, ks, v, dt, D ** -0.5).reshape(B, L, C)
     out = _rd(attn, dt) @ _rd(wo, dt) + _f(bo)
@@ -193,15 +210,15 @@ def self_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
 
 
 def temporal_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo,
-                                    bo, num_heads: int,
+                                    bo, num_heads: int, rms: bool = True,
                                     compute_dtype=torch.bfloat16,
                                     voxel_group: Optional[int] = None):
     """The int8-QK temporal sublayer's own arithmetic (JAX
     `_temporal_sublayer_kernel` with quant_qk=True): as
-    temporal_sublayer_reference, with q and k (fp32, RMS-normalized)
-    quantized per (batch row, group of `voxel_group` voxels, head) over all
-    T frames (default: temporal_voxel_group(N)); attention over T per
-    voxel."""
+    temporal_sublayer_reference, with q and k (fp32, RMS-normalized with
+    `rms`) quantized per (batch row, group of `voxel_group` voxels, head)
+    over all T frames (default: temporal_voxel_group(N)); attention over T
+    per voxel."""
     B, T, N, C = x.shape
     H, D = num_heads, C // num_heads
     nc = voxel_group or temporal_voxel_group(N)
@@ -213,9 +230,8 @@ def temporal_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo,
         + _f(sh)[:, None, None]
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
     # [B, N, T, H, D]: one row block per voxel
-    q, k, v = (a.reshape(B, T, N, H, D).transpose(1, 2) for a in (
-        _rms(qkv[..., :C], qg, H), _rms(qkv[..., C:2 * C], kg, H),
-        qkv[..., 2 * C:]))
+    q, k, v = (a.reshape(B, T, N, H, D).transpose(1, 2)
+               for a in _qkv(qkv, qg, kg, H, rms))
     qs, ks = (a.reshape(B, N // nc, nc, T, H, D).abs().amax((2, 3, 5))
               .clamp_min(1e-8).repeat_interleave(nc, 1) for a in (q, k))
     attn = _qk8_attention(q, qs, k, ks, v, dt, D ** -0.5)
@@ -253,14 +269,28 @@ def _dequantize_pair(kv, dt):
             dequantize_kv(vq, vs).to(dt))
 
 
+def _cross_params(p, rms: bool):
+    """p_i as (ns, nb, wq, bq, qg, wo, bo), qg None without rms."""
+    if len(p) == 7:
+        ns, nb, wq, bq, qg, wo, bo = p
+    elif len(p) == 6 and not rms:
+        (ns, nb, wq, bq, wo, bo), qg = p, None
+    else:
+        raise ValueError(f"cross parameters: expected 7 (with the q gamma) "
+                         f"or, without rms, 6 tensors; got {len(p)}")
+    return ns, nb, wq, bq, qg if rms else None, wo, bo
+
+
 def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
-                             num_heads: int, compute_dtype=torch.bfloat16,
+                             num_heads: int, rms: bool = False,
+                             compute_dtype=torch.bfloat16,
                              quant: bool = False):
     """One, or two chained, un-gated cross-attention sublayers, the residual
     kept in fp32 between them. p_i = (norm_scale, norm_bias, wq [C, C], bq,
-    wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or [B, Lk_i, H, D]);
-    with quant=True kv_i is an int8 cache (k, v, ks_t [B, H, Lk],
-    vs [B, Lk, H]) that this oracle dequantizes first, as the JAX one."""
+    [qg,] wo [C, C], bo); kv_i = (k, v), each [B, Lk_i, C] (or
+    [B, Lk_i, H, D]); with quant=True kv_i is an int8 cache (k, v, ks_t
+    [B, H, Lk], vs [B, Lk, H]) that this oracle dequantizes first, as the
+    JAX one. rms=True RMS-normalizes q (fp32) with qg before it rounds."""
     B, L, C = x.shape
     D = C // num_heads
     dt = compute_dtype
@@ -269,10 +299,12 @@ def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
         kv2 = None if kv2 is None else _dequantize_pair(kv2, dt)
 
     def one(xf, p, kv):
-        ns, nb, wq, bq, wo, bo = p
+        ns, nb, wq, bq, qg, wo, bo = _cross_params(p, rms)
         k, v = kv
         h = _layernorm_f32(xf) * _f(ns) + _f(nb)
         q = _rd(h, dt) @ _rd(wq, dt) + _f(bq)
+        if rms:
+            q = _rms(q, qg, num_heads)
         qh = _rd(q, dt).reshape(B, L, num_heads, D)
         kh = _rd(k, dt).reshape(B, -1, num_heads, D)
         vh = _rd(v, dt).reshape(B, -1, num_heads, D)
@@ -289,10 +321,12 @@ def cross_sublayer_reference(x, p1, kv1, p2=None, kv2=None, *,
 
 
 def cross_sublayer_q8_reference(x, p1, kv1, p2=None, kv2=None, *,
-                                num_heads: int, compute_dtype=torch.bfloat16,
+                                num_heads: int, rms: bool = False,
+                                compute_dtype=torch.bfloat16,
                                 q_block: int = 0):
     """The int8 form's own arithmetic (JAX `_packed_attention`'s int8 branch
-    in `_cross_sublayer_kernel`): per context, q (fp32) is quantized per
+    in `_cross_sublayer_kernel`): per context, q (fp32, RMS-normalized with
+    `rms` first, as `_rms_norm_lanes` precedes it) is quantized per
     (cell of `q_block` rows, 0 = all L, head) as round(q * (127 / qs)) with
     qs = max|q| floored at 1e-8; the scores are int8 x int8 sums (exact in
     fp32), s = si * (ks * (qs * scale * log2 e / 127)) - 30 and P =
@@ -310,11 +344,14 @@ def cross_sublayer_q8_reference(x, p1, kv1, p2=None, kv2=None, *,
     scale, log2e, n127 = f32(D ** -0.5), f32(_LOG2E), f32(127.0)
 
     def one(xf, p, kv):
-        ns, nb, wq, bq, wo, bo = p
+        ns, nb, wq, bq, qg, wo, bo = _cross_params(p, rms)
         k8, v8, ks_t, vs = kv
         lk = k8.shape[1]
         h = _layernorm_f32(xf) * _f(ns) + _f(nb)
-        q = (_rd(h, dt) @ _rd(wq, dt) + _f(bq)).reshape(B, L // qb, qb, H, D)
+        q = _rd(h, dt) @ _rd(wq, dt) + _f(bq)
+        if rms:
+            q = _rms(q, qg, H)
+        q = q.reshape(B, L // qb, qb, H, D)
         qs = q.abs().amax((2, 4), keepdim=True).clamp_min(1e-8)
         qi = torch.round(q * (n127 / qs)).reshape(B, L, H, D)
         si = torch.einsum("bqhd,bkhd->bhqk", qi,
@@ -402,9 +439,9 @@ def _mod_rows(B: int, mod_repeat: int) -> int:
 
 def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
                 row_blocks: int, *tensors: torch.Tensor,
-                head_width: int = 32) -> None:
+                head_widths: Tuple[int, ...] = (32, 64)) -> None:
     """What the kernels take: bf16 CUDA tensors, C a multiple of 8, heads
-    of width `head_width`, at most 65535 attention row blocks (a grid
+    of a width in `head_widths`, at most 65535 attention row blocks (a grid
     limit)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA sublayer kernels compute in bfloat16 only; "
@@ -415,8 +452,9 @@ def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
                             f"tensors; got {t.dtype} on {t.device}")
     if C % 8:
         raise ValueError(f"channels must be a multiple of 8, got {C}")
-    if num_heads is not None and C != head_width * num_heads:
-        raise ValueError(f"head width must be {head_width}, got "
+    if num_heads is not None and (C % num_heads
+                                  or C // num_heads not in head_widths):
+        raise ValueError(f"head width must be one of {head_widths}, got "
                          f"{C}/{num_heads}")
     if row_blocks > 65535:
         raise ValueError(f"{row_blocks} attention row blocks exceed 65535")
@@ -426,13 +464,24 @@ def _rep(a: torch.Tensor, mod_repeat: int) -> torch.Tensor:
     return a.repeat_interleave(mod_repeat, 0) if mod_repeat > 1 else a
 
 
+def _gammas(qg, kg, C: int, rms: bool):
+    """The kernels' q/k gamma arguments: the [C] lane gammas, or with
+    rms=False none (a null pointer skips the norm)."""
+    return (_vec(qg, C), _vec(kg, C)) if rms else (None, None)
+
+
+def _ptr_or_null(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
-                        num_heads: int, compute_dtype=torch.bfloat16,
-                        mod_repeat: int = 1, quant_qk: bool = False,
-                        impl: Optional[str] = None):
+                        num_heads: int, rms: bool = True,
+                        compute_dtype=torch.bfloat16, mod_repeat: int = 1,
+                        quant_qk: bool = False, impl: Optional[str] = None):
     """Modulated self-attention sublayer over L. x [B, L, C];
     sh/sc/gate [B // mod_repeat, C]: row block i reads modulation row
-    i // mod_repeat (the frames of one sample share a timestep).
+    i // mod_repeat (the frames of one sample share a timestep). rms: the
+    q/k RMS norms with the lane gammas qg/kg (unread without it).
     quant_qk=True: int8 QK with per-(frame, head) scales; see
     self_sublayer_qk8_reference."""
     if not _use_kernel(x, impl):
@@ -440,7 +489,7 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
             self_sublayer_reference
         return ref(x, _rep(sh, mod_repeat), _rep(sc, mod_repeat),
                    _rep(gate, mod_repeat), wqkv, bqkv, qg, kg, wo, bo,
-                   num_heads=num_heads, compute_dtype=compute_dtype)
+                   num_heads=num_heads, rms=rms, compute_dtype=compute_dtype)
     from .. import _ext
 
     _no_grad_inputs("fused_self_sublayer", x, sh, sc, gate, wqkv, bqkv, qg,
@@ -448,24 +497,27 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     B, L, C = x.shape
     Bm = _mod_rows(B, mod_repeat)
     _check_cuda(compute_dtype, num_heads, C, B, x, sh, sc, gate, wqkv, bqkv,
-                qg, kg, wo, bo)
+                wo, bo, *((qg, kg) if rms else ()))
     x = x.contiguous()
+    gq, gk = _gammas(qg, kg, C, rms)
     args = (_vec(sh, Bm * C), _vec(sc, Bm * C), _vec(gate, Bm * C),
-            _weight(wqkv, C, 3 * C), _vec(bqkv, 3 * C), _vec(qg, C),
-            _vec(kg, C), _weight(wo, C, C), _vec(bo, C))
+            _weight(wqkv, C, 3 * C), _vec(bqkv, 3 * C))
+    out_w = (_weight(wo, C, C), _vec(bo, C))
+    ptrs = (*map(_ptr, args), _ptr_or_null(gq), _ptr_or_null(gk),
+            *map(_ptr, out_w))
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
     qkv = torch.empty(B * L, 3 * C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
     if quant_qk:
         q8 = _qk8_scratch(B * L, B, C, num_heads, x.device)
-        _ext.call("gvf_self_sublayer_q8", _ptr(x), *map(_ptr, args), _ptr(y),
-                  _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, L, C,
-                  num_heads, mod_repeat)
+        _ext.call("gvf_self_sublayer_q8", _ptr(x), *ptrs, _ptr(y), _ptr(h),
+                  _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, L, C, num_heads,
+                  mod_repeat)
         launch_counts["self_q8"] += 1
         return y
-    _ext.call("gvf_self_sublayer", _ptr(x), *map(_ptr, args), _ptr(y),
-              _ptr(h), _ptr(qkv), _ptr(attn), B, L, C, num_heads, mod_repeat)
+    _ext.call("gvf_self_sublayer", _ptr(x), *ptrs, _ptr(y), _ptr(h),
+              _ptr(qkv), _ptr(attn), B, L, C, num_heads, mod_repeat)
     launch_counts["self"] += 1
     return y
 
@@ -478,34 +530,39 @@ def _qk8_scratch(rows: int, cells: int, C: int, H: int, device):
 
 
 def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
-                            num_heads: int, compute_dtype=torch.bfloat16,
+                            num_heads: int, rms: bool = True,
+                            compute_dtype=torch.bfloat16,
                             quant_qk: bool = False,
                             voxel_group: Optional[int] = None,
                             impl: Optional[str] = None):
     """Modulated self-attention over T on the native [B, T, N, C] layout;
-    sh/sc/gate [B, C]. quant_qk=True: int8 QK with scales per (batch row,
-    group of `voxel_group` voxels, head), the group defaulting to
-    temporal_voxel_group(N); see temporal_sublayer_qk8_reference."""
+    sh/sc/gate [B, C]; rms as fused_self_sublayer. quant_qk=True: int8 QK
+    with scales per (batch row, group of `voxel_group` voxels, head), the
+    group defaulting to temporal_voxel_group(N); see
+    temporal_sublayer_qk8_reference."""
     if not _use_kernel(x, impl):
         if quant_qk:
             return temporal_sublayer_qk8_reference(
                 x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                num_heads=num_heads, compute_dtype=compute_dtype,
+                num_heads=num_heads, rms=rms, compute_dtype=compute_dtype,
                 voxel_group=voxel_group)
         return temporal_sublayer_reference(
             x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads=num_heads,
-            compute_dtype=compute_dtype)
+            rms=rms, compute_dtype=compute_dtype)
     from .. import _ext
 
     _no_grad_inputs("fused_temporal_sublayer", x, sh, sc, gate, wqkv, bqkv,
                     qg, kg, wo, bo)
     B, T, N, C = x.shape
     _check_cuda(compute_dtype, num_heads, C, B * N, x, sh, sc, gate, wqkv,
-                bqkv, qg, kg, wo, bo)
+                bqkv, wo, bo, *((qg, kg) if rms else ()))
     x = x.contiguous()
+    gq, gk = _gammas(qg, kg, C, rms)
     args = (_vec(sh, B * C), _vec(sc, B * C), _vec(gate, B * C),
-            _weight(wqkv, C, 3 * C), _vec(bqkv, 3 * C), _vec(qg, C),
-            _vec(kg, C), _weight(wo, C, C), _vec(bo, C))
+            _weight(wqkv, C, 3 * C), _vec(bqkv, 3 * C))
+    out_w = (_weight(wo, C, C), _vec(bo, C))
+    ptrs = (*map(_ptr, args), _ptr_or_null(gq), _ptr_or_null(gk),
+            *map(_ptr, out_w))
     y = torch.empty_like(x)
     R = B * T * N
     h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
@@ -516,13 +573,13 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
         if N % nc:
             raise ValueError(f"voxel group {nc} does not divide {N} voxels")
         q8 = _qk8_scratch(R, B * (N // nc), C, num_heads, x.device)
-        _ext.call("gvf_temporal_sublayer_q8", _ptr(x), *map(_ptr, args),
-                  _ptr(y), _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B,
-                  T, N, C, num_heads, nc)
+        _ext.call("gvf_temporal_sublayer_q8", _ptr(x), *ptrs, _ptr(y),
+                  _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, T, N, C,
+                  num_heads, nc)
         launch_counts["temporal_q8"] += 1
         return y
-    _ext.call("gvf_temporal_sublayer", _ptr(x), *map(_ptr, args), _ptr(y),
-              _ptr(h), _ptr(qkv), _ptr(attn), B, T, N, C, num_heads)
+    _ext.call("gvf_temporal_sublayer", _ptr(x), *ptrs, _ptr(y), _ptr(h),
+              _ptr(qkv), _ptr(attn), B, T, N, C, num_heads)
     launch_counts["temporal"] += 1
     return y
 
@@ -533,13 +590,14 @@ CrossParams = Tuple[torch.Tensor, ...]
 def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
                          p2: Optional[CrossParams] = None,
                          kv2: Optional[Sequence[torch.Tensor]] = None, *,
-                         num_heads: int, compute_dtype=torch.bfloat16,
-                         quant: bool = False, q_block: int = 0,
-                         impl: Optional[str] = None):
+                         num_heads: int, rms: bool = False,
+                         compute_dtype=torch.bfloat16, quant: bool = False,
+                         q_block: int = 0, impl: Optional[str] = None):
     """Un-gated cross-attention sublayers with affine pre-norms against the
     cached KV: two chained (the DiT's image then static-GS conditioning,
-    heads of 32) or one (p2 = kv2 = None: the SLat torso's image
-    conditioning, heads of 64). x [B, L, C]; see cross_sublayer_reference.
+    heads of 32 or 64) or one (p2 = kv2 = None: the SLat torso's image
+    conditioning, heads of 64, no rms). x [B, L, C]; see
+    cross_sublayer_reference. rms=True: q RMS-normed with each p_i's qg.
     quant=True: the DiT's two contexts against an int8 cache, kv_i = (k,
     v, ks_t, vs) from quantize_kv with the k scales transposed to
     [B, H, Lk], q quantized per `q_block` rows (0: all L); see
@@ -547,33 +605,38 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
     if not _use_kernel(x, impl):
         if quant:
             return cross_sublayer_q8_reference(
-                x, p1, kv1, p2, kv2, num_heads=num_heads,
+                x, p1, kv1, p2, kv2, num_heads=num_heads, rms=rms,
                 compute_dtype=compute_dtype, q_block=q_block)
         return cross_sublayer_reference(
-            x, p1, kv1, p2, kv2, num_heads=num_heads,
+            x, p1, kv1, p2, kv2, num_heads=num_heads, rms=rms,
             compute_dtype=compute_dtype)
     _no_grad_inputs("fused_cross_sublayer", x, p1, kv1, p2, kv2)
     if quant:
-        return _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads,
+        return _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads, rms,
                                 compute_dtype, q_block)
     if p2 is None:
+        if rms:
+            raise NotImplementedError("the single-context cross kernel has "
+                                      "no q RMS norm: no caller needs one")
         return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype)
     from .. import _ext
 
     B, L, C = x.shape
-    groups = ((p1, kv1), (p2, kv2))
+    groups = [(_cross_params(p, rms), kv) for p, kv in ((p1, kv1),
+                                                          (p2, kv2))]
     _check_cuda(compute_dtype, num_heads, C, B, x,
-                *[t for p, kv in groups for t in (*p, *kv)])
+                *[t for p, kv in groups for t in (*p, *kv) if t is not None])
     x = x.contiguous()
     # the kernel reads the copies made here: keep them alive until it runs
     kept, ctx_args = [], []
-    for (ns, nb, wq, bq, wo, bo), (k, v) in groups:
+    for (ns, nb, wq, bq, qg, wo, bo), (k, v) in groups:
         lk = k.shape[1]
         ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-              _weight(wo, C, C), _vec(bo, C), k.reshape(B, lk, C).contiguous(),
+              None if qg is None else _vec(qg, C), _weight(wo, C, C),
+              _vec(bo, C), k.reshape(B, lk, C).contiguous(),
               v.reshape(B, lk, C).contiguous())
         kept += ts
-        ctx_args += [*map(_ptr, ts), lk]
+        ctx_args += [*map(_ptr_or_null, ts), lk]
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
     q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
@@ -598,7 +661,7 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
     if not x.is_cuda or not (x_f32 or x.dtype == torch.bfloat16):
         raise TypeError("the single-context cross kernel takes a bf16 or "
                         f"fp32 CUDA x; got {x.dtype} on {x.device}")
-    _check_cuda(compute_dtype, num_heads, C, B, *p, k, v, head_width=64)
+    _check_cuda(compute_dtype, num_heads, C, B, *p, k, v, head_widths=(64,))
     if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
             or v.stride(2) != 1:
         raise ValueError("k and v must share batch and row strides, with "
@@ -619,9 +682,10 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
     return y
 
 
-def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, compute_dtype,
-                     q_block: int):
-    """The int8 form on the card: the DiT's two contexts, heads of 32."""
+def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
+                     compute_dtype, q_block: int):
+    """The int8 form on the card: the DiT's two contexts, heads of 32 or
+    64."""
     from .. import _ext
 
     if p2 is None:
@@ -631,7 +695,10 @@ def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, compute_dtype,
     B, L, C = x.shape
     H = num_heads
     qb = q_block or L
-    _check_cuda(compute_dtype, num_heads, C, B, x, *p1, *p2)
+    groups = [(_cross_params(p, rms), kv) for p, kv in ((p1, kv1),
+                                                          (p2, kv2))]
+    _check_cuda(compute_dtype, num_heads, C, B, x,
+                *[t for p, _ in groups for t in p if t is not None])
     if L % qb:
         raise ValueError(f"q_block {qb} does not divide {L} rows")
     if C % 16:
@@ -639,8 +706,7 @@ def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, compute_dtype,
     x = x.contiguous()
     # the kernel reads the copies made here: keep them alive until it runs
     kept, ctx_args = [], []
-    for (ns, nb, wq, bq, wo, bo), (kq, vq, ks_t, vs) in ((p1, kv1),
-                                                         (p2, kv2)):
+    for (ns, nb, wq, bq, qg, wo, bo), (kq, vq, ks_t, vs) in groups:
         lk = kq.shape[1]
         for t, dtype, shape in ((kq, torch.int8, (B, lk, C)),
                                 (vq, torch.int8, (B, lk, C)),
@@ -651,10 +717,11 @@ def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, compute_dtype,
                                 f"{shape}; got {t.dtype} {tuple(t.shape)} "
                                 f"on {t.device}")
         ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-              _weight(wo, C, C), _vec(bo, C), kq.contiguous(),
-              vq.contiguous(), ks_t.contiguous(), vs.contiguous())
+              None if qg is None else _vec(qg, C), _weight(wo, C, C),
+              _vec(bo, C), kq.contiguous(), vq.contiguous(),
+              ks_t.contiguous(), vs.contiguous())
         kept += ts
-        ctx_args += [*map(_ptr, ts), lk]
+        ctx_args += [*map(_ptr_or_null, ts), lk]
     R = B * L
     y = torch.empty_like(x)
     h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
@@ -699,3 +766,34 @@ def fused_mlp_sublayer(x, sh, sc, gate, w1, b1, w2, b2, *,
               _ptr(h), _ptr(hid), B, L, C, M, mod_repeat)
     launch_counts["mlp"] += 1
     return y
+
+
+# -- the DiT block's gate to the fused path: JAX's shape rules less their
+# `vmem_est` terms (the TPU kernel's VMEM residency; none on Hopper)
+
+_LANES = 128
+
+
+def self_sublayer_supports(B, L, C, num_heads) -> bool:
+    """JAX `self_sublayer_supports` without its VMEM terms (vmem_est and
+    the score tile's L * L * 4 bytes)."""
+    return C % _LANES == 0 and _LANES % (C // num_heads) == 0 \
+        and L % _LANES == 0
+
+
+def temporal_sublayer_supports(B, T, N, C, num_heads) -> bool:
+    """JAX `temporal_sublayer_supports` (it has no VMEM term)."""
+    nc = temporal_voxel_group(N)
+    L = T * nc
+    return C % _LANES == 0 and _LANES % (C // num_heads) == 0 \
+        and L % 8 == 0 and 128 <= L <= 1024
+
+
+def cross_sublayer_supports(B, L, C, num_heads, lk1, lk2) -> bool:
+    """JAX `cross_sublayer_supports` without its vmem_est term."""
+    return C % _LANES == 0 and _LANES % (C // num_heads) == 0 and L % 8 == 0
+
+
+def mlp_sublayer_supports(B, L, C, M) -> bool:
+    """JAX `mlp_sublayer_supports` without its vmem_est term."""
+    return C % _LANES == 0 and M % _LANES == 0 and L % 8 == 0

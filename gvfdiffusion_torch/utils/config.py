@@ -254,6 +254,29 @@ def read_yaml(path: str) -> Dict[str, Any]:
     return out
 
 
+def write_yaml(data: Dict[str, Any], path: str) -> None:
+    """A mapping of at most two levels whose leaves are scalars (or flow
+    lists of them) as YAML that `read_yaml` reads back."""
+    def scalar(v: Any) -> str:
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if v is None:
+            return "null"
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(scalar(a) for a in v) + "]"
+        return json.dumps(v) if isinstance(v, str) else repr(v)
+
+    lines = []
+    for key, value in data.items():
+        if isinstance(value, dict):
+            lines.append(f"{key}:")
+            lines += [f"  {k}: {scalar(v)}" for k, v in value.items()]
+        else:
+            lines.append(f"{key}: {scalar(value)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def load_config(
     yaml_path: Optional[str] = None, cli_args: Optional[Sequence[str]] = None
 ) -> Config:

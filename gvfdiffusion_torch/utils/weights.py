@@ -41,7 +41,7 @@ def init_random_(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             r = 1.0 + 0.1 * r
         elif p.ndim == 1:
             r = 0.1 * r
-        elif name.endswith(("token", "tokens", "pos_embed")):
+        elif name.endswith(("token", "tokens", "pos_embed", "pos_embedder")):
             pass
         else:
             r = r / math.prod(p.shape[1:]) ** 0.5
@@ -94,7 +94,11 @@ def _params(params: Dict) -> Dict:
 def dit_state_dict_from_flax(params: Dict[str, Any],
                              num_blocks: int = 12) -> Dict[str, torch.Tensor]:
     """JAX DiT params ({'params': ...} or the bare tree) -> the port's DiT
-    state dict."""
+    state dict. The tree says the configuration: q/k RMS gammas where an
+    attention has them, a top-level `adaLN_modulation` under share_mod
+    (the blocks then have none), temporal modules unless
+    no_temporal_attn, and the learnable position embedding `pos_emb`
+    [1, N, C] as `pos_embedder`."""
     p = _params(params)
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, p, "input_layer", ["input_layer"])
@@ -102,16 +106,21 @@ def dit_state_dict_from_flax(params: Dict[str, Any],
     _linear(sd, p, "t_embedder.mlp.2", ["t_embedder", "mlp_2"])
     _linear(sd, p, "image_cond_proj", ["image_cond_proj"])
     _linear(sd, p, "static_cond_proj", ["static_cond_proj"])
+    if "adaLN_modulation" in p:
+        _linear(sd, p, "adaLN_modulation.1", ["adaLN_modulation"])
+    if "pos_emb" in p:
+        sd["pos_embedder"] = _tensor(p["pos_emb"])
     for i in range(num_blocks):
         b, fp = f"blocks.{i}", [f"blocks_{i}"]
-        _linear(sd, p, f"{b}.adaLN_modulation.1", fp + ["adaLN_modulation"])
-        _linear(sd, p, f"{b}.adaLN_modulation_temporal.1",
-                fp + ["adaLN_modulation_temporal"])
+        for n in ("adaLN_modulation", "adaLN_modulation_temporal"):
+            if n in p[fp[0]]:
+                _linear(sd, p, f"{b}.{n}.1", fp + [n])
         _layernorm(sd, p, f"{b}.norm3", fp + ["norm3"])
         _layernorm(sd, p, f"{b}.norm4", fp + ["norm4"])
         _mha(sd, p, f"{b}.spatial_self_attn", fp + ["spatial_self_attn"], True)
-        _mha(sd, p, f"{b}.temporal_self_attn", fp + ["temporal_self_attn"],
-             True)
+        if "temporal_self_attn" in p[fp[0]]:
+            _mha(sd, p, f"{b}.temporal_self_attn",
+                 fp + ["temporal_self_attn"], True)
         _mha(sd, p, f"{b}.image_cross_attn", fp + ["image_cross_attn"], False)
         _mha(sd, p, f"{b}.static_cross_attn", fp + ["static_cross_attn"],
              False)

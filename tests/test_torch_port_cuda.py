@@ -154,8 +154,8 @@ def test_launch_counts_and_dtype_check(dev):
     assert {k: n for k, n in pt.launch_counts.items() if n} == {"self": 1}
     with pytest.raises(TypeError):
         pt.fused_self_sublayer(x.float(), *args[1:], num_heads=4)
-    with pytest.raises(ValueError):  # heads of 64: not the DiT's width
-        pt.fused_self_sublayer(*args, num_heads=2)
+    with pytest.raises(ValueError):  # heads of 16: no kernel takes them
+        pt.fused_self_sublayer(*args, num_heads=8)
 
 
 def test_dit_kernels_match_plain(dev):
@@ -319,17 +319,23 @@ def test_dinov2_kernels_match_plain(dev):
 
 
 def test_attention_outside_the_kernels_raises(dev):
-    """On the card, attention outside K5's rule raises (the JAX package's
-    XLA attention there has no port) and does not fall back to another
-    path; full sparse attention over more than 4096 keys takes the flash
-    kernel K7, which raises for heads it does not take."""
+    """On the card, attention outside K5's rule takes the library call, as
+    the JAX package takes XLA's attention there (no K5 launch, the same
+    function); K6's outside its rule JAX's einsum form; full sparse
+    attention over more than 4096 keys takes the flash kernel K7, which
+    raises for heads it does not take."""
+    import torch.nn.functional as F
     from gvfdiffusion_torch.nn.attention import scaled_dot_product_attention
     from gvfdiffusion_torch.ops import flash_attention as fl
     from gvfdiffusion_torch.sparse.attention import full_sparse_attention
 
     q, k, v = _attend(dev, 100, "separate")
-    with pytest.raises(NotImplementedError):
-        scaled_dot_product_attention(q, k, v, torch.bfloat16)
+    fa.reset_launch_counts()
+    y = scaled_dot_product_attention(q, k, v, torch.bfloat16)
+    assert not any(fa.launch_counts.values())
+    ref = F.scaled_dot_product_attention(
+        *(a.transpose(1, 2) for a in (q, k, v))).transpose(1, 2)
+    assert torch.equal(y, ref)
     q, k, v = (torch.zeros(1, L, 1, 64, device=dev, dtype=torch.bfloat16)
                for L in (4096, 4100, 4100))
     valid = torch.ones(1, 4100, dtype=torch.bool, device=dev)
@@ -342,8 +348,14 @@ def test_attention_outside_the_kernels_raises(dev):
     from gvfdiffusion_torch.nn.attention import MultiHeadAttention
 
     attn = MultiHeadAttention(96, 3, qk_rms_norm=True).to(dev)  # 96 lanes
-    with pytest.raises(NotImplementedError):
-        attn.temporal(torch.zeros(1, 8, 16, 96, device=dev), torch.float32)
+    x = torch.randn(1, 8, 16, 96, device=dev)
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        y = attn.temporal(x, torch.float32)
+    assert not any(fa.launch_counts.values())
+    with torch.no_grad():
+        ref = attn.cpu().temporal(x.cpu(), torch.float32)
+    assert torch.allclose(y.cpu(), ref, rtol=1e-4, atol=1e-4)
 
 
 # -- the DiT's training path: K5 at heads of 32, K6, the composed DiT ---------
@@ -415,6 +427,37 @@ def test_attention_d32_gradients(dev):
     assert _rel(y, yp) <= ATTN_BOUND
     errs = [_rel(a, b) for a, b in zip(grads, grads_p)]
     print(f"attention d32 gradients rel_l2 {errs}")
+    assert max(errs) <= GRAD_BOUND, errs
+
+
+@pytest.mark.parametrize("Lq,Lk", [(512, 512), (512, 1374), (200, 70)])
+def test_attention_kernel_d64_fp32(dev, Lq, Lk):
+    """K5 at heads of 64 in fp32, as the 8-head DiT trains: q apart, k/v
+    the halves of a kv projection; the output, then the gradients through
+    the autograd Function against autograd of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn(3, Lq, 4, 64, generator=g, device=dev)
+    kv = torch.randn(3, Lk, 2, 4, 64, generator=g, device=dev)
+    go = torch.randn(3, Lq, 4, 64, generator=g, device=dev)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    scale = 64 ** -0.5
+    fa.reset_launch_counts()
+    y = fa.fused_attention(q, k, v, scale, cross=True)
+    assert fa.launch_counts["attention_cross"] == 1
+    ref = fa.fused_attention(q, k, v, scale, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == q.shape
+    assert bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    _, grads = _grads(lambda *a: fa.fused_attention(*a, scale), (q, k, v),
+                      go)
+    _, grads_p = _grads(lambda *a: fa.fused_attention(*a, scale,
+                                                      impl="plain"),
+                        (q, k, v), go)
+    errs = [_rel(a, b) for a, b in zip(grads, grads_p)]
+    print(f"attention d64 fp32 Lq={Lq} Lk={Lk}: rel_l2 {err:.3e}, "
+          f"gradients {errs}")
+    assert err <= ATTN_BOUND, err
     assert max(errs) <= GRAD_BOUND, errs
 
 
@@ -775,3 +818,151 @@ def test_temporal_q8_scales_span_the_voxel_group(dev, monkeypatch, N):
         top = i8.reshape(B, T, G, nc, H, D).abs().amax((1, 5)) == 127
         assert bool(top.any(2).all())  # every (row, group, head) reaches 127
         assert float(top.float().mean()) < 0.5
+
+
+# -- the DiT's other configurations: K1-K3 with the RMS norms off / on the
+# cross sublayer, at heads of 64, their int8 forms; K6 at heads of 64; the
+# configured DiTs
+
+# (rms, heads) at C = 128: heads 4 = width 32, 2 = width 64
+SELF_FORMS = [(False, 4), (True, 2), (False, 2)]
+CROSS_FORMS = [(True, 4), (True, 2), (False, 2)]
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("rms,heads", SELF_FORMS)
+def test_self_kernel_forms(dev, rms, heads, quant_qk):
+    d = _Draw(dev, 40, 128)
+    x = d(4, 100, 128)
+    _check("self", pt.fused_self_sublayer, x,
+           (x, *d.mods(2), *d.self_weights()),
+           dict(num_heads=heads, rms=rms, mod_repeat=2, quant_qk=quant_qk))
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("rms,heads", SELF_FORMS)
+def test_temporal_kernel_forms(dev, rms, heads, quant_qk):
+    """T = 32 over 48 voxels (groups of 16 for the int8 QK scales); the
+    float form also at T = 70 (two query tiles)."""
+    d = _Draw(dev, 41, 128)
+    for T in ((32,) if quant_qk else (32, 70)):
+        x = d(2, T, 48, 128)
+        _check("temporal", pt.fused_temporal_sublayer, x,
+               (x, *d.mods(2), *d.self_weights()),
+               dict(num_heads=heads, rms=rms, quant_qk=quant_qk))
+
+
+@pytest.mark.parametrize("quant,q_block", [(False, 0), (True, 0),
+                                           (True, 64)])
+@pytest.mark.parametrize("rms,heads", CROSS_FORMS)
+def test_cross_kernel_forms(dev, rms, heads, quant, q_block):
+    """Two contexts of 130 and 1374 keys (37 and 20 with q_block 64); with
+    rms a q gamma per context, k normed as the cache carries it."""
+    d = _Draw(dev, 42, 128)
+    L, lks = (128, (37, 20)) if q_block else (100, (130, 1374))
+    x = d(4, L, 128)
+    args = [x]
+    for lk in lks:
+        p, (k, v) = d.cross(4, lk)
+        if rms:
+            p = p[:4] + (d(128, shift=1.0, scale=0.1) * (128 // heads) ** 0.5,
+                         ) + p[4:]
+            kh = k.float().unflatten(-1, (heads, -1))
+            k = (kh * (kh.square().sum(-1, keepdim=True) + 1e-12).rsqrt()
+                 * (128 // heads) ** 0.5).flatten(-2).bfloat16()
+        if quant:
+            kq, ks = pt.quantize_kv(k, heads)
+            vq, vs = pt.quantize_kv(v, heads)
+            args += [p, (kq, vq, ks.transpose(1, 2).contiguous(), vs)]
+        else:
+            args += [p, (k, v)]
+    _check("cross", pt.fused_cross_sublayer, x, args,
+           dict(num_heads=heads, rms=rms, quant=quant, q_block=q_block))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [24, 32, 23, 70])
+def test_temporal_attention_kernel_d64(dev, T, dtype):
+    """K6 at heads of 64 on [2, T, 8, 2, 64]; q apart, k/v views of a qkv
+    projection."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(2, T, 8, 3, 2, 64, generator=g, device=dev).to(dt)
+    q = torch.randn(2, T, 8, 2, 64, generator=g, device=dev).to(dt)
+    k, v = qkv[..., 1, :, :], qkv[..., 2, :, :]
+    fa.reset_launch_counts()
+    y = fa.temporal_attention(q, k, v, 64 ** -0.5)
+    assert fa.launch_counts["temporal_attention"] == 1
+    ref = fa.temporal_attention(q, k, v, 64 ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == dt and y.shape == q.shape and y.is_contiguous()
+    err = _rel(y, ref)
+    print(f"temporal attention d64 {dtype} T={T}: rel_l2 {err:.3e}")
+    assert bool(torch.isfinite(y).all()) and err <= ATTN_BOUND, err
+
+
+def test_temporal_attention_gradients_d64(dev):
+    g = torch.Generator(device=dev).manual_seed(44)
+    q, k, v, go = (torch.randn(2, 24, 64, 2, 64, generator=g, device=dev)
+                   for _ in range(4))
+    scale = 64 ** -0.5
+    y, grads = _grads(lambda *a: fa.temporal_attention(*a, scale), (q, k, v),
+                      go)
+    yp, grads_p = _grads(lambda *a: fa.temporal_attention(*a, scale,
+                                                          impl="plain"),
+                         (q, k, v), go)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= ATTN_BOUND
+    errs = [_rel(a, b) for a, b in zip(grads, grads_p)]
+    print(f"temporal attention d64 gradients rel_l2 {errs}")
+    assert max(errs) <= GRAD_BOUND, errs
+
+
+DIT_CONFIGS = {
+    "dit-rms-cross": dict(num_heads=4, qk_rms_norm=False,
+                          qk_rms_norm_cross=True),
+    "dit-d64": dict(num_heads=2),
+    "dit-rope": dict(num_heads=4, pe_mode="rope", share_mod=True),
+    "dit-notemporal": dict(num_heads=4, no_temporal_attn=True,
+                           pe_mode="learnable", mlp_ratio=2.0),
+}
+
+
+@pytest.mark.parametrize("cfg", list(DIT_CONFIGS))
+def test_configured_dit_kernels_match_plain(dev, cfg):
+    """A 2-block DiT at each configuration on a hoisted float cache and on
+    an int8 cache with int8 QK, kernels vs impl="plain"; the launches say
+    which path each took (dit-rope composes on the cache: K5, whose cross
+    form takes the 128 static latents, the 20 image tokens and the
+    temporal attention over 8 frames lying outside its rule)."""
+    dit = init_random_(DiT(resolution=128, model_channels=128,
+                           image_cond_channels=64, num_blocks=2,
+                           dtype=torch.bfloat16, **DIT_CONFIGS[cfg]),
+                       seed=7).to(dev)
+    g = torch.Generator(device=dev).manual_seed(45)
+    x = torch.randn(1, 8, 128, 16, generator=g, device=dev)
+    t = torch.full((1,), 300.0, device=dev)
+    ci = torch.randn(1, 8, 20, 64, generator=g, device=dev)
+    st = torch.randn(1, 128, 14, generator=g, device=dev)
+    pos = torch.rand(1, 128, 3, generator=g, device=dev)
+    for quant in (None, "int8"):
+        pt.reset_launch_counts()
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            kv = dit.kv_cache(ci, st, kv_quant=quant)
+            y = dit(x, t, positions=pos, cross_kv=kv, self_quant=quant)
+            ref = dit(x, t, positions=pos, cross_kv=kv, impl="plain",
+                      self_quant=quant)
+        got = {k: n for k, n in {**pt.launch_counts,
+                                 **fa.launch_counts}.items() if n}
+        q8 = "_q8" if quant else ""
+        want = {"self" + q8: 2, "temporal" + q8: 2, "cross" + q8: 2,
+                "mlp": 2}
+        if cfg == "dit-rope":
+            want = {"attention_d32": 2, "attention_cross_d32": 2}
+        elif cfg == "dit-notemporal":
+            del want["temporal" + q8]
+        assert got == want, (cfg, quant, got)
+        err = _rel(y, ref)
+        print(f"{cfg} {quant}: rel_l2 {err:.3e}")
+        assert bool(torch.isfinite(y).all()) and err <= 3e-2, err
