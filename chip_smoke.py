@@ -43,7 +43,12 @@ Phases, each printed on its own lines:
      of 64 in fp32 (the 8-head DiT's training: self [48, 512, 8, 64],
      cross to 1374 and 512 keys; forward and gradients as at heads of
      32) and at heads of 32 in bf16 (dit-rope's composed inference: self
-     [32, 512, 16, 32], cross to 1374 and 512 keys);
+     [32, 512, 16, 32], cross to 1374 and 512 keys); then the forms of
+     TRELLIS as the registry builds it: K7 in fp32 at [1, 32768, 16, 64]
+     (3700 valid keys, prefix and scattered) and K3's single context in
+     fp32 at [1, 32768, 1024] x 1374 (library: F.layer_norm, cuBLAS fp32,
+     SDPA in fp32, the residual), and K7 in bf16 at the torso's other head
+     widths, [1, 32768, 32, 32] and [1, 32768, 8, 128];
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -95,6 +100,27 @@ Phases, each printed on its own lines:
      in it), one SLat forward with the kernels against impl="plain", and
      run()'s SLat against the compacted torso's (torso_capacity=4096, K5)
      on the same structure and noise;
+  5c. TRELLIS as the registry builds it ([trellis-fp32]): a pretrained
+     directory in the reference's layout (pipeline.json, per model a
+     release-style <key>.json with use_fp16 true and the flax-flat <key>.npz
+     of seeded weights, build_trellis's) written into a temporary
+     directory, every model built by registry.from_pretrained (fp32; the
+     SLat torso uncompacted at 32768 voxel slots), the occupancy calibrated
+     as in 5b; the stages one by one (timed, launches per stage), then
+     run() (timed; K5 from fp32 inputs, K7 and K3's single context in fp32,
+     launches checked), which must equal its stages;
+  5d. the drift of the shipped bf16 models from that fp32 run
+     ([trellis-drift]), on the same weights, image and noise, each stage on
+     the fp32 stage's output: DINOv2's tokens, the ss latent, the occupancy
+     flips, the SLat on the fp32 structure with the torso compacted to 4096
+     slots and uncompacted at 32768, and each Gaussian attribute (max abs,
+     PSNR as docs/PARITY.md), held to DRIFT_BOUNDS;
+  5e. the SLat flow at heads of 32 and 128 ([trellis-heads]): built by
+     registry.create_model from the release arguments with
+     num_head_channels 32 or 128 (fp32, and its bf16 twin), each through
+     sample_slat on that structure and conditioning at 32768 slots (2
+     steps, cut from 12), so K7 and K3's single context run at those
+     widths in both dtypes (launches checked), bf16 against fp32;
   6. the DiT's training at full width through cli/main_latent.main on
      configs/diffusion.yml (12 x 512, batch 2 x 24 frames, grad_accum 2,
      fp32) and a seeded synthetic dataset in LatentDataset's layout: 3
@@ -118,9 +144,11 @@ non-zero and no result line is printed. Without a CUDA device, or without
 the repository beside this script, it exits 1.
 
 Bounds (bound_ms) are the larger of the operations over the dense bf16
-tensor-core peak and the bytes (each input read once, each output written
-once) over the memory rate, at the H100 SXM datasheet's 989 TFLOP/s and
-3.35 TB/s: assumed peaks, not measured on the card.
+tensor-core peak (the fp32 peak outside the tensor cores for the fp32
+forms of K7 and K3) and the bytes (each input read once, each output
+written once) over the memory rate, at the H100 SXM datasheet's 989
+TFLOP/s, 67 TFLOP/s and 3.35 TB/s: assumed peaks, not measured on the
+card.
 """
 
 from __future__ import annotations
@@ -240,10 +268,67 @@ KERNELS = [
      "static 512]", "gvfdiffusion_tpu/ops/fused_attention.py:108",
      "gvfdiffusion_torch/csrc/fused_attention.cu",
      "train_attention_cross_d64"),
+    # TRELLIS as the registry builds it (fp32; [trellis-fp32]) and its SLat
+    # flow at the torso's other head widths, fp32 and bf16 ([trellis-heads])
+    ("flash_attention[fp32, uncompacted SLat torso]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_fp32"),
+    ("fused_cross_sublayer[single context, fp32]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_fp32"),
+    ("flash_attention[heads of 32, bf16]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_d32"),
+    ("flash_attention[heads of 128, bf16]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_d128"),
+    ("flash_attention[heads of 32, fp32]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_fp32_d32"),
+    ("flash_attention[heads of 128, fp32]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu",
+     "flash_attention_fp32_d128"),
+    ("fused_cross_sublayer[single context, heads of 32, bf16]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_d32"),
+    ("fused_cross_sublayer[single context, heads of 128, bf16]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_d128"),
+    ("fused_cross_sublayer[single context, heads of 32, fp32]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_fp32_d32"),
+    ("fused_cross_sublayer[single context, heads of 128, fp32]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_fp32_d128"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
-# K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3)
+# K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
+# heads of 32 and 128, prefix, 2.4e-3, 2.4e-3); in fp32, where the kernel
+# and its plain version differ by the order of their fp32 sums alone
+# (readings 8.5e-7, 9.3e-7)
 FLASH_REL_BOUND = 1e-2
+FLASH_F32_BOUND = 5e-6
+# K7's forms: key -> (dtype, heads, head width) at the torso's C = 1024
+FLASH_FORMS = {"flash_attention": ("bfloat16", 16, 64),
+               "flash_attention_fp32": ("float32", 16, 64),
+               "flash_attention_d32": ("bfloat16", 32, 32),
+               "flash_attention_d128": ("bfloat16", 8, 128),
+               "flash_attention_fp32_d32": ("float32", 32, 32),
+               "flash_attention_fp32_d128": ("float32", 8, 128)}
+# K3's single context at the uncompacted torso's [1, 32768, 1024] x 1374
+# image tokens: key -> (compute dtype, heads). Its bf16 form at heads of 64
+# is the "cross_single" sublayer case (the compacted torso's 4096 rows)
+SINGLE_FORMS = {"cross_single_fp32": ("float32", 16),
+                "cross_single_fp32_d32": ("float32", 32),
+                "cross_single_fp32_d128": ("float32", 8),
+                "cross_single_d32": ("bfloat16", 32),
+                "cross_single_d128": ("bfloat16", 8)}
+# K3's single context at compute_dtype=float32 vs its plain version: (rel
+# L2 of y, of the update y - x); readings 6.9e-8, 6.0e-7 at heads of 32, 64
+# and 128 alike (its bf16 forms take BOUNDS["cross_single"], read 1.4e-4,
+# 1.2e-3 at heads of 32 and 128 too)
+CROSS_F32_BOUNDS = (4e-7, 3e-6)
 # K3's int8 form vs its plain int8 version at the DiT's shapes: (rel L2 of
 # y, of the update y - x); readings 6.2e-4, 3.7e-3
 Q8_BOUNDS = (3e-3, 2e-2)
@@ -312,6 +397,7 @@ TRAIN_BOUNDS = {"loss": 1e-5, "grads": 1.5e-3, "params": 6e-8,
                 "update": 4e-2}  # readings 2.0e-6, 2.6e-4, 1.1e-8, 7.7e-3
 TRAIN_B, TRAIN_T = 2, 24   # configs/diffusion.yml: batch_size, sample_timesteps
 PEAK_FLOPS = 989e12        # dense bf16, H100 SXM datasheet (assumed)
+PEAK_FP32 = 67e12          # fp32 outside the tensor cores, the same
 PEAK_BYTES = 3.35e12       # HBM3, H100 SXM datasheet (assumed)
 
 B, T, N, C, H, M = 1, 32, 512, 512, 16, 2048   # the DiT at full width
@@ -470,9 +556,10 @@ def nbytes(*objs) -> int:
     return total
 
 
-def bound(flops: float, moved: int):
-    """(bound_ms, bound_by) at the assumed peaks."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+def bound(flops: float, moved: int, peak: float = PEAK_FLOPS):
+    """(bound_ms, bound_by) at the assumed peaks (`peak` the operations'
+    rate: bf16 tensor cores, or PEAK_FP32 for fp32 work)."""
+    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -705,8 +792,11 @@ def phase_kernels(dev):
         elif base == "cross_q8":
             results[key] = phase_cross_q8(dev, name, replaces, source,
                                           cases_of(variant)["cross"], key)
-        elif key == "flash_attention":
-            results[key] = phase_flash(dev, name, replaces, source)
+        elif key in FLASH_FORMS:
+            results[key] = phase_flash(dev, name, replaces, source, key)
+        elif key in SINGLE_FORMS:
+            results[key] = phase_cross_single(dev, name, replaces, source,
+                                              key)
         elif base in QK8:
             results[key] = phase_qk8(dev, name, replaces, source, key,
                                      base, cases_of(variant)[QK8[base]])
@@ -825,23 +915,32 @@ def phase_qk8(dev, name, replaces, source, key, base, case):
                 bound_by=b_by, library_ms=lib_ms)
 
 
-def phase_flash(dev, name, replaces, source):
-    """K7 at the uncompacted torso's [1, 32768, 16, 64] bf16 (q/k RMS-normed
-    apart, v the view of a [.., 3, 16, 64] projection) with 3700 valid
-    keys: as a prefix (the main path's layout: the downsample packs the
-    parents first), timed for the kernels line, and scattered; against the
-    plain version on every row, and SDPA with the boolean key mask."""
+def phase_flash(dev, name, replaces, source, key):
+    """K7 at the uncompacted torso's 32768 slots and C = 1024 in the form
+    `key` names (FLASH_FORMS: bf16 or fp32, 16 heads of 64, 32 of 32 or 8
+    of 128; q/k apart, v the view of a [.., 3, H, D] projection) with 3700
+    valid keys: as a prefix (the main path's layout: the downsample packs
+    the parents first), timed for the kernels line, and at heads of 64
+    scattered too; against the plain version on every row, and SDPA with
+    the boolean key mask."""
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import flash_attention as fl
 
+    dtype, heads, width = FLASH_FORMS[key]
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(14)
-    rnd = lambda *s_: torch.randn(*s_, generator=g, device=dev).bfloat16()
-    q, k = rnd(1, SLOTS, 16, 64), rnd(1, SLOTS, 16, 64)
-    v = rnd(1, SLOTS, 3, 16, 64)[:, :, 2]
-    scale = 64 ** -0.5
+    rnd = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(dt)
+    q, k = rnd(1, SLOTS, heads, width), rnd(1, SLOTS, heads, width)
+    v = rnd(1, SLOTS, 3, heads, width)[:, :, 2]
+    scale = width ** -0.5
+    rel_bound = FLASH_F32_BOUND if dt == torch.float32 else FLASH_REL_BOUND
+    peak = PEAK_FP32 if dt == torch.float32 else PEAK_FLOPS
     out = None
-    for layout in ("prefix", "scattered"):
+    # the torso's forms at both layouts; the other widths as the torso packs
+    # its parents (the kernel is the same template)
+    layouts = ("prefix", "scattered") if width == 64 else ("prefix",)
+    for layout in layouts:
         valid = torch.zeros(1, SLOTS, dtype=torch.bool, device=dev)
         if layout == "prefix":
             valid[:, :L_FLASH_VALID] = True
@@ -865,16 +964,16 @@ def phase_flash(dev, name, replaces, source):
             q, k, v, valid, scale, impl="plain"), iters=1)
         lib_ms = time_ms(sdpa, iters=iters)
         tiles = int((valid.view(1, -1, 64).any(-1)).sum())
-        flops = 4 * SLOTS * L_FLASH_VALID * 16 * 64  # the valid keys only
-        b_ms, b_by = bound(flops, nbytes(q, k, v, y, valid))
-        log(f"[kernel] {name} [{layout}]: q/k/v {tuple(q.shape)} bf16 (v a "
-            f"qkv view), {L_FLASH_VALID} of {SLOTS} keys valid, {tiles} of "
-            f"{SLOTS // 64} key tiles visited; max_abs_err {mae:.4g} rel_l2 "
-            f"{err:.3e} (bound {FLASH_REL_BOUND:g}) kernel {ms:.3f} ms "
+        flops = 4 * SLOTS * L_FLASH_VALID * heads * width  # valid keys only
+        b_ms, b_by = bound(flops, nbytes(q, k, v, y, valid), peak)
+        log(f"[kernel] {name} [{layout}]: q/k/v {tuple(q.shape)} {dtype} "
+            f"(v a qkv view), {L_FLASH_VALID} of {SLOTS} keys valid, {tiles} "
+            f"of {SLOTS // 64} key tiles visited; max_abs_err {mae:.4g} "
+            f"rel_l2 {err:.3e} (bound {rel_bound:g}) kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms sdpa "
             f"(boolean key mask) {lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) "
             f"bound {b_ms:.4f} ms ({b_by})")
-        if not (bool(torch.isfinite(y).all()) and err <= FLASH_REL_BOUND):
+        if not (bool(torch.isfinite(y).all()) and err <= rel_bound):
             raise AssertionError(f"{name} [{layout}] disagrees with its "
                                  "plain version")
         if out is None:
@@ -883,6 +982,76 @@ def phase_flash(dev, name, replaces, source):
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
     return out
+
+
+def library_cross_single_f32(x, p, kv, num_heads):
+    """K3's single context in fp32 as library calls: F.layer_norm, cuBLAS
+    fp32 products (TF32 off), SDPA in fp32, the residual."""
+    import torch.nn.functional as F
+
+    ns, nb, wq, bq, wo, bo = p
+    Bx, L, Cx = x.shape
+    h = F.layer_norm(x, (Cx,), ns, nb, eps=1e-6)
+    q = (h @ wq + bq).view(Bx, L, num_heads, -1).transpose(1, 2)
+    k, v = (a.reshape(Bx, a.shape[1], num_heads, -1).transpose(1, 2)
+            for a in kv)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return x + o.transpose(1, 2).reshape(Bx, L, Cx) @ wo + bo
+
+
+def phase_cross_single(dev, name, replaces, source, key):
+    """K3's single context in the form `key` names (SINGLE_FORMS: fp32 or
+    bf16 compute, 32, 16 or 8 heads) at the uncompacted torso's shape: x
+    [1, 32768, 1024] fp32 (the torso's residual stream in either dtype), k
+    and v the halves of the [1, 1374, 2048] projection of the image tokens,
+    parameters and k/v in the compute dtype; against its plain version and
+    the library composition."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    dtype, heads = SINGLE_FORMS[key]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(15)
+    r = lambda *s_, sc=1.0: torch.randn(*s_, generator=g, device=dev) * sc
+    Cx = 1024
+    x = r(1, SLOTS, Cx)
+    p = tuple(a.to(dt) for a in (
+        1 + 0.1 * r(Cx), 0.1 * r(Cx), r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx),
+        r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx)))
+    kvp = r(1, L_IMG, 2 * Cx).to(dt)
+    kv = (kvp[..., :Cx], kvp[..., Cx:])
+    kw = dict(num_heads=heads, compute_dtype=dt)
+    lib = library_cross_single_f32 if dt == torch.float32 else \
+        library_cross_single
+    with torch.no_grad():
+        y = fsl.fused_cross_sublayer(x, p, kv, **kw)
+        torch.cuda.synchronize()
+        ref = fsl.fused_cross_sublayer(x, p, kv, **kw, impl="plain")
+        err = rel_l2(y, ref)
+        upd = rel_l2(y - x, ref - x)
+        mae = float((y - ref).abs().max())
+        lib_upd = rel_l2(lib(x, p, kv, heads) - x, ref - x)
+        ms = time_ms(lambda: fsl.fused_cross_sublayer(x, p, kv, **kw))
+        plain_ms = time_ms(lambda: fsl.fused_cross_sublayer(
+            x, p, kv, **kw, impl="plain"), iters=3)
+        lib_ms = time_ms(lambda: lib(x, p, kv, heads))
+    flops = 2 * 2 * SLOTS * Cx * Cx + 4 * SLOTS * L_IMG * Cx
+    b_ms, b_by = bound(flops, nbytes(x, p, kvp, y),
+                       PEAK_FP32 if dt == torch.float32 else PEAK_FLOPS)
+    y_bound, upd_bound = CROSS_F32_BOUNDS if dt == torch.float32 else \
+        BOUNDS["cross_single"]
+    log(f"[kernel] {name}: x {tuple(x.shape)} fp32 x {L_IMG} image tokens, "
+        f"{dtype} compute, {heads} heads of {Cx // heads}; max_abs_err "
+        f"{mae:.4g} rel_l2 {err:.3e} (bound "
+        f"{y_bound:g}) update_rel_l2 {upd:.3e} (bound {upd_bound:g}) kernel "
+        f"{ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms (its "
+        f"update rel_l2 {lib_upd:.3e}) bound {b_ms:.4f} ms ({b_by})")
+    if not (bool(torch.isfinite(y).all()) and err <= y_bound
+            and upd <= upd_bound):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def attention_case(dev, key):
@@ -1948,6 +2117,14 @@ def phase_self_q8(dit, vae, gs, valid, ci, dev, card, float_out,
 # -- the TRELLIS front end ------------------------------------------------------
 
 
+def slat_stats():
+    """The SLat normalization of the TRELLIS phases (mean, std), seed 24."""
+    import torch
+
+    g = torch.Generator().manual_seed(24)
+    return torch.randn(8, generator=g) * 0.3, torch.rand(8, generator=g) + 0.5
+
+
 def build_trellis(dino, dev, torso=TORSO, voxels=VOXELS):
     """The TRELLIS-image-large configuration at full width with seeded
     random weights (bench.py:216-326, tests/test_fullsize_golden.py:214-240):
@@ -1969,7 +2146,7 @@ def build_trellis(dino, dev, torso=TORSO, voxels=VOXELS):
     from gvfdiffusion_torch.utils.weights import init_random_
 
     bf = torch.bfloat16
-    g = torch.Generator().manual_seed(24)
+    mean, std = slat_stats()
     return TrellisImageTo3DPipeline(
         dino,
         init_random_(SparseStructureFlowModel(qk_rms_norm=True, dtype=bf), 20),
@@ -1977,9 +2154,8 @@ def build_trellis(dino, dev, torso=TORSO, voxels=VOXELS):
         init_random_(SLatFlowModel(qk_rms_norm=True, torso_capacity=torso,
                                    dtype=bf), 22),
         init_random_(SLatGaussianDecoder(dtype=bf), 23),
-        TrellisConfig(voxel_capacity=voxels),
-        slat_mean=torch.randn(8, generator=g) * 0.3,
-        slat_std=torch.rand(8, generator=g) + 0.5, device=dev)
+        TrellisConfig(voxel_capacity=voxels), slat_mean=mean, slat_std=std,
+        device=dev)
 
 
 def seeded_image():
@@ -2029,9 +2205,10 @@ def _voxel_set(sv):
     return {tuple(c) for c in sv.coords[0][sv.valid[0]].tolist()}
 
 
-def trellis_stages(pipe, pre, seed, card, calibrate=False):
+def trellis_stages(pipe, pre, seed, card, calibrate=False, tag="[trellis]"):
     """TrellisImageTo3DPipeline's stages one by one, with the noise drawn
-    as run() draws it: timed, and the launches counted per stage."""
+    as run() draws it: timed, and the launches counted per stage; lines
+    printed under `tag`."""
     import torch
 
     g = torch.Generator(device=pipe.device).manual_seed(seed)
@@ -2051,7 +2228,7 @@ def trellis_stages(pipe, pre, seed, card, calibrate=False):
     out["z"] = stage("ss_flow", lambda: pipe.sample_ss_latent(out["cond"], g))
     if calibrate:
         k, gap, parents = calibrate_occupancy(pipe, out["z"])
-        log(f"[trellis] occupancy bias set at rank {k} (largest logit gap "
+        log(f"{tag} occupancy bias set at rank {k} (largest logit gap "
             f"{gap:.4g}): {parents} parents at 32^3 for a {TORSO}-slot torso")
     out["structure"] = stage("ss_decode",
                              lambda: pipe.decode_structure(out["z"]))
@@ -2059,7 +2236,7 @@ def trellis_stages(pipe, pre, seed, card, calibrate=False):
         out["structure"], out["cond"], g))
     out["gs"], out["valid"] = stage("gs_decode",
                                     lambda: pipe.decode_slat(out["slat"]))
-    log("[trellis] stages: " + ", ".join(f"{k} {v:.1f} ms"
+    log(f"{tag} stages: " + ", ".join(f"{k} {v:.1f} ms"
                                          for k, v in times.items())
         + f"; launches by stage {counts}; {card}")
     return out
@@ -2455,6 +2632,324 @@ def phase_trellis_defaults(dino, dev, card):
     return launches["flash_attention"]
 
 
+# TRELLIS-image-large as the registry builds it from a pretrained directory
+# in the reference's layout: per model key, its registry name, release-style
+# arguments (the released configs' keys, `use_fp16` included, which the
+# registry drops, so every model is fp32; the widths of the JAX classes'
+# defaults) and the init_random_ seed of build_trellis's (and DINOv2's
+# build_models) weights, so the bf16 runs of [trellis-drift] share them
+PRETRAINED = {
+    "image_cond_model": ("DinoV2", {}, 10),
+    "ss_flow": ("SparseStructureFlowModel", dict(
+        resolution=16, in_channels=8, out_channels=8, model_channels=1024,
+        cond_channels=1024, num_blocks=24, num_head_channels=64,
+        mlp_ratio=4, patch_size=2, pe_mode="ape", qk_rms_norm=True,
+        use_fp16=True), 20),
+    "ss_decoder": ("SparseStructureDecoder", dict(
+        out_channels=1, latent_channels=8, num_res_blocks=2,
+        num_res_blocks_middle=2, channels=[512, 128, 32], use_fp16=True), 21),
+    "slat_flow": ("SLatFlowModel", dict(
+        resolution=64, in_channels=8, out_channels=8, model_channels=1024,
+        cond_channels=1024, num_blocks=24, num_head_channels=64,
+        mlp_ratio=4, patch_size=2, num_io_res_blocks=2,
+        io_block_channels=[128], pe_mode="ape", qk_rms_norm=True,
+        use_fp16=True), 22),
+    "slat_decoder_gs": ("ElasticSLatGaussianDecoder", dict(
+        resolution=64, model_channels=768, latent_channels=8, num_blocks=12,
+        num_head_channels=64, mlp_ratio=4, attn_mode="swin", window_size=8,
+        use_fp16=True, representation_config={
+            "lr": {"_xyz": 1.0, "_features_dc": 1.0, "_opacity": 1.0,
+                   "_scaling": 1.0, "_rotation": 0.1},
+            "perturb_offset": True, "voxel_size": 1.5, "num_gaussians": 32,
+            "2d_filter_kernel_size": 0.1, "3d_filter_kernel_size": 9e-4,
+            "scaling_bias": 4e-3, "opacity_bias": 0.1,
+            "scaling_activation": "softplus"}), 23),
+}
+# the launches of one TrellisImageTo3DPipeline.run() of that TRELLIS: K5
+# (computing in bf16 from fp32 q/k/v) in DINOv2 (24) and the ss flow (576
+# self, 576 cross), K7 and K3's single context in fp32 (528 each)
+FP32_LAUNCHES = {"attention": 24 + 576, "attention_cross": 576,
+                 "flash_attention_fp32": 528, "cross_single_fp32": 528}
+# the shipped bf16 models against the fp32 run, each stage on the fp32
+# stage's output (the same weights, image and noise): rel L2 of the DINOv2
+# tokens, the ss latent and the SLat (valid voxels; the torso compacted to
+# 4096 slots and uncompacted at 32768), occupancy flips per occupied voxel,
+# and a floor in dB on each Gaussian attribute's PSNR (10 log10(range^2 /
+# mse) over the fp32 values, valid Gaussians). Bounds at 4-5x the readings
+# on an H100 80GB HBM3 (700 W) in the comments; the floor 12 dB under the
+# lowest attribute at the release's 32 Gaussians a voxel (62.7 dB; the
+# others 62.9-88.5)
+DRIFT_BOUNDS = {"cond": 3e-2,            # 6.1e-3
+                "ss_latent": 4e-2,       # 9.2e-3
+                "flips": 0.06,           # 50 of 4154, 1.2%
+                "slat_compacted": 2e-2,  # 4.6e-3
+                "slat_32k": 2e-2}        # 4.6e-3
+DRIFT_PSNR_FLOOR = 50.0
+
+
+def write_pretrained(root: str) -> None:
+    """A pretrained directory in the reference's layout (pipeline.json;
+    per model <key>.json with {"name", "args"} and <key>.npz, the flax-flat
+    parameters of the port's seeded weights through the class's weight
+    table, registry.flax_params)."""
+    from gvfdiffusion_torch.models import registry
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    for key, (name, args, seed) in PRETRAINED.items():
+        model = init_random_(registry.create_model(name, **args), seed)
+        registry.save_params_npz(registry.flax_params(name, args, model),
+                                 os.path.join(root, f"{key}.npz"))
+        with open(os.path.join(root, f"{key}.json"), "w") as f:
+            json.dump({"name": name, "args": args}, f)
+        del model
+    with open(os.path.join(root, "pipeline.json"), "w") as f:
+        json.dump({"name": "TrellisImageTo3DPipeline",
+                   "models": {k: k for k in PRETRAINED}}, f)
+
+
+def phase_trellis_fp32(dev, card):
+    """TRELLIS as the registry builds it: the pretrained directory written
+    into a temporary directory, every model from
+    `registry.from_pretrained` (fp32, the SLat torso uncompacted at 32768
+    voxel slots: TrellisConfig's defaults), the occupancy calibrated as in
+    [trellis32k]; the stages one by one (timed, launches per stage), then
+    run() (timed, its launches checked), which must give what the stages
+    gave. Returns (pipeline, the stages' outputs, preprocessed image, K7's
+    and K3's fp32 launches in run())."""
+    import tempfile
+
+    import torch
+    from gvfdiffusion_torch.models import registry
+    from gvfdiffusion_torch.pipelines.trellis_image_to_3d import (
+        TrellisConfig, TrellisImageTo3DPipeline)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_pretrained(root)
+        t1 = time.perf_counter()
+        spec = registry.load_pipeline_spec(root)
+        m = {k: registry.from_pretrained(root, rel, device=dev)
+             for k, rel in spec["models"].items()}
+        t2 = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for f in os.listdir(root)) / 2 ** 30
+    if not (all(p.dtype == torch.float32 for mod in m.values()
+                for p in mod.parameters())
+            and m["slat_flow"].torso_capacity is None
+            and m["slat_flow"].dtype == torch.float32):
+        raise AssertionError("the registry did not build fp32 TRELLIS with "
+                             "an uncompacted torso")
+    log(f"[trellis-fp32] pretrained directory ({size:.2f} GiB of .npz) "
+        f"written in {t1 - t0:.1f} s, {len(m)} models built by "
+        f"registry.from_pretrained in {t2 - t1:.1f} s, every parameter "
+        f"fp32; {card}")
+    mean, std = slat_stats()
+    pipe = TrellisImageTo3DPipeline(
+        m["image_cond_model"], m["ss_flow"], m["ss_decoder"], m["slat_flow"],
+        m["slat_decoder_gs"], TrellisConfig(), mean, std, device=dev)
+    image = seeded_image()
+    pre = torch.from_numpy(pipe.preprocess_image(image))[None]
+    staged = trellis_stages(pipe, pre, 31, card, calibrate=True,
+                            tag="[trellis-fp32]")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(image, torch.Generator(device=dev).manual_seed(31),
+                   formats=("gaussian",))
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: n for k, n in read_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st, gs, valid = out["structure"], out["gaussians"], out["valid"]
+    n_occ = int(st.valid.sum())
+    parents = _parents(st.to_dense()[0, ..., 0] != 0) if n_occ else 0
+    act = gs.to_activated_tensor()
+    per_voxel = PRETRAINED["slat_decoder_gs"][1]["representation_config"][
+        "num_gaussians"]
+    log(f"[trellis-fp32] run(): {run_ms:.1f} ms; n_occ {n_occ}, parents "
+        f"{parents}, dropped {max(n_occ - SLOTS, 0)}, valid Gaussians "
+        f"{int(valid.sum())} of {valid.shape[1]}; peak {peak:.2f} GiB; "
+        f"launches {launches}; {card}")
+    if launches != FP32_LAUNCHES:
+        raise AssertionError(f"fp32 TRELLIS launches {launches}, expected "
+                             f"{FP32_LAUNCHES}")
+    if not (0 < n_occ <= SLOTS
+            and tuple(act.shape) == (1, SLOTS * per_voxel, 14)
+            and bool(torch.isfinite(act).all())
+            and bool(torch.isfinite(out["slat"].feats).all())):
+        raise AssertionError("fp32 TRELLIS: empty or dropped structure, or "
+                             "non-finite outputs")
+    same = (_voxel_set(st) == _voxel_set(staged["structure"])
+            and rel_l2(out["slat"].feats, staged["slat"].feats)
+            <= RUN_REL_BOUND
+            and rel_l2(act, staged["gs"].to_activated_tensor())
+            <= RUN_REL_BOUND)
+    if not same:
+        raise AssertionError("fp32 TRELLIS run() disagrees with its stages")
+    return pipe, staged, pre, launches
+
+
+def _psnr(a, b) -> float:
+    """10 log10(range(b)^2 / mse) over b's values, as docs/PARITY.md."""
+    mse = float((a.double() - b.double()).square().mean())
+    rng = float(b.max() - b.min())
+    return 10 * math.log10(rng * rng / max(mse, 1e-300))
+
+
+def bf16_twin(key, fp32, dev, args=None, **kw):
+    """The shipped bf16 form of PRETRAINED's model `key` (its release
+    arguments, or `args`, and `kw`), built by registry.create_model with
+    dtype bf16 and loaded with the fp32 model's weights."""
+    import torch
+    from gvfdiffusion_torch.models import registry
+
+    name, release, _ = PRETRAINED[key]
+    model = registry.create_model(name, **(args or release), **kw,
+                                  dtype=torch.bfloat16)
+    model.load_state_dict(fp32.state_dict())
+    return model.to(dev).eval()
+
+
+def phase_trellis_drift(pipe32, staged, pre, dev, card):
+    """The shipped bf16 models (the same weights, image and noise) against
+    the fp32 run, stage by stage, each stage on the fp32 stage's output so
+    that occupancy flips do not hide the flows' drift: DINOv2's tokens, the
+    ss latent, the occupancy (flips), the SLat on the fp32 structure with
+    the torso compacted to 4096 slots and uncompacted at 32768, and each
+    Gaussian attribute of the decode of the fp32 SLat (max abs, PSNR)."""
+    import copy
+
+    import torch
+
+    bf = torch.bfloat16
+    pipe = copy.copy(pipe32)
+    pipe.dinov2 = bf16_twin("image_cond_model", pipe32.dinov2, dev)
+    pipe.ss_flow = bf16_twin("ss_flow", pipe32.ss_flow, dev)
+    pipe.ss_decoder = bf16_twin("ss_decoder", pipe32.ss_decoder, dev)
+    pipe.slat_decoder = bf16_twin("slat_decoder_gs", pipe32.slat_decoder,
+                                  dev)
+    torsos = {"slat_compacted": TORSO, "slat_32k": None}
+    st32, cond32 = staged["structure"], staged["cond"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    n1 = torch.randn(staged["z"].shape, generator=g, device=dev)
+    n2 = torch.randn((1, SLOTS, 8), generator=g, device=dev)
+    m = st32.valid[0]
+    n_occ = int(m.sum())
+    t0 = time.perf_counter()
+    errs = {"cond": rel_l2(pipe.encode_image(pre), cond32),
+            "ss_latent": rel_l2(pipe.sample_ss_latent(cond32, noise=n1),
+                                staged["z"])}
+    flipped = len(_voxel_set(pipe.decode_structure(staged["z"]))
+                  ^ _voxel_set(st32))
+    errs["flips"] = flipped / n_occ
+    times = {}
+    for k, torso in torsos.items():
+        pipe.slat_flow = bf16_twin("slat_flow", pipe32.slat_flow, dev,
+                                   torso_capacity=torso)
+        t1 = time.perf_counter()
+        slat = pipe.sample_slat(st32, cond32, noise_feats=n2)
+        torch.cuda.synchronize()
+        times[k] = (time.perf_counter() - t1) * 1e3
+        errs[k] = rel_l2(slat.feats[0][m], staged["slat"].feats[0][m])
+        pipe.slat_flow = None
+    gs, valid = pipe.decode_slat(staged["slat"])
+    gs32, vm = staged["gs"], staged["valid"][0]
+    attrs = {}
+    for a in ("_xyz", "_features_dc", "_scaling", "_rotation", "_opacity"):
+        x, ref = getattr(gs, a)[0][vm].float(), getattr(gs32, a)[0][vm]
+        attrs[a] = (float((x - ref).abs().max()), _psnr(x, ref))
+    log(f"[trellis-drift] bf16 vs fp32, each stage on the fp32 stage's "
+        f"output ({time.perf_counter() - t0:.1f} s; sample_slat compacted "
+        f"{times['slat_compacted']:.1f} ms, at {SLOTS} slots "
+        f"{times['slat_32k']:.1f} ms): DINOv2 tokens rel_l2 "
+        f"{errs['cond']:.3e}, ss latent {errs['ss_latent']:.3e}, occupancy "
+        f"flips {flipped} of {n_occ} ({100 * errs['flips']:.2f}%), SLat on "
+        f"the fp32 structure: torso compacted to {TORSO} "
+        f"{errs['slat_compacted']:.3e}, uncompacted at {SLOTS} "
+        f"{errs['slat_32k']:.3e} (bounds {DRIFT_BOUNDS}); {card}")
+    log("[trellis-drift] Gaussian decode of the fp32 SLat, per attribute "
+        "(bf16 vs fp32 on the valid Gaussians): " + ", ".join(
+            f"{a} max abs {mx:.3e}, {db:.1f} dB" for a, (mx, db)
+            in attrs.items()) + f" (floor {DRIFT_PSNR_FLOOR:g} dB)")
+    if any(errs[k] > b for k, b in DRIFT_BOUNDS.items()) or any(
+            not db >= DRIFT_PSNR_FLOOR for _, db in attrs.values()):
+        raise AssertionError("bf16 TRELLIS drifts past its bounds")
+    return errs, attrs
+
+
+HEADS_STEPS = 2  # the SLat flow's steps in [trellis-heads], cut from 12
+
+
+def phase_trellis_heads(pipe32, staged, dev, card):
+    """The SLat flow at the torso's other head widths: for heads of 32 and
+    128, the model built by registry.create_model from PRETRAINED's
+    release arguments with that `num_head_channels` (init_random_ weights;
+    fp32, as the registry builds it) and its shipped bf16 twin, each
+    through the pipeline's sample_slat on the fp32 run's structure and
+    conditioning, the torso uncompacted at 32768 slots, HEADS_STEPS steps.
+    So K7 and K3's single context run at those widths in both dtypes on a
+    model's path. Checks: finite; K7 and K3 launched the same number of
+    times, a multiple of the blocks, and nothing else; bf16 within
+    DRIFT_BOUNDS["slat_32k"] of fp32 on the valid voxels. Returns the
+    launches."""
+    import copy
+    import dataclasses
+
+    import torch
+    from gvfdiffusion_torch.models import registry
+    from gvfdiffusion_torch.ops import flash_attention as fl
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    pipe = copy.copy(pipe32)
+    pipe.cfg = dataclasses.replace(pipe32.cfg, slat_steps=HEADS_STEPS)
+    st, cond = staged["structure"], staged["cond"]
+    m = st.valid[0]
+    name, release, seed = PRETRAINED["slat_flow"]
+    g = torch.Generator(device=dev).manual_seed(35)
+    noise = torch.randn((1, SLOTS, 8), generator=g, device=dev)
+    launches = {}
+    for width in (32, 128):
+        args = dict(release, num_head_channels=width)
+        fp32 = init_random_(registry.create_model(name, **args), seed)
+        fp32 = fp32.to(dev).eval()
+        feats = {}
+        for dt in (torch.float32, torch.bfloat16):
+            pipe.slat_flow = fp32 if dt == torch.float32 else bf16_twin(
+                "slat_flow", fp32, dev, args=args)
+            keys = (fl.launch_key(dt, width), fsl.single_launch_key(dt, width))
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            slat = pipe.sample_slat(st, cond, noise_feats=noise)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: n for k, n in read_counts().items() if n}
+            feats[dt] = slat.feats[0][m]
+            n = got.get(keys[0], 0)
+            log(f"[trellis-heads] SLat flow at {1024 // width} heads of "
+                f"{width}, {str(dt)[6:]}, {SLOTS} slots ({int(m.sum())} "
+                f"valid), sample_slat {HEADS_STEPS} steps: {ms:.1f} ms, "
+                f"launches {got}; {card}")
+            if not (n > 0 and n % len(fp32.blocks) == 0
+                    and got == {k: n for k in keys}
+                    and bool(torch.isfinite(slat.feats).all())):
+                raise AssertionError(f"the SLat flow at heads of {width} "
+                                     f"({dt}) did not run its kernels")
+            launches.update(got)
+        pipe.slat_flow = None
+        del fp32
+        err = rel_l2(feats[torch.bfloat16], feats[torch.float32])
+        log(f"[trellis-heads] heads of {width}: bf16 vs fp32 SLat rel_l2 "
+            f"{err:.3e} (bound {DRIFT_BOUNDS['slat_32k']:g})")
+        if not err <= DRIFT_BOUNDS["slat_32k"]:
+            raise AssertionError(f"the SLat flow at heads of {width}: bf16 "
+                                 "drifts past its bound")
+    return launches
+
+
 def _kernel_group(name: str) -> str:
     for k in ("attn_kernel", "temporal_kernel", "gemm_kernel", "ln_kernel",
               "flash_kernel", "tile_count_kernel", "attn_q8_kernel<true>",
@@ -2648,8 +3143,6 @@ def main(argv) -> int:
     log(card)  # as nvidia-smi prints it: name, power limit
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
 
     t0 = time.perf_counter()
@@ -2676,9 +3169,19 @@ def main(argv) -> int:
     trellis["flash_attention"] = phase_trellis_defaults(dino, dev, card)
     del dino
     torch.cuda.empty_cache()
+    tpipe32, staged32, pre32, fp32 = phase_trellis_fp32(dev, card)
+    trellis.update({k: fp32[k] for k in ("flash_attention_fp32",
+                                         "cross_single_fp32")})
+    phase_trellis_drift(tpipe32, staged32, pre32, dev, card)
+    trellis.update(phase_trellis_heads(tpipe32, staged32, dev, card))
+    del tpipe32, staged32
+    torch.cuda.empty_cache()
     train = phase_training(dev, card)
     # each entry's count comes from one run: the TRELLIS forms from
-    # TrellisImageTo3DPipeline.run (K7 from the run at the defaults), the
+    # TrellisImageTo3DPipeline.run (K7 from the run at the defaults; K7 and
+    # K3's single context in fp32 from the run of the registry's fp32
+    # TRELLIS; both at heads of 32 and 128, in fp32 and bf16, from
+    # sample_slat of the SLat flow at those widths, [trellis-heads]), the
     # training forms (K5 at heads of 32, K6) from main_latent.main's first
     # run (K6 at heads of 64 from its dit-d64 run), K3's int8 form from
     # run() on the int8 cache, K1 and K2 with int8 QK from run() with

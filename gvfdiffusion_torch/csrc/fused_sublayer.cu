@@ -6,7 +6,8 @@
 //   gvf_cross_sublayer     <- _cross_sublayer_kernel    (fused_cross_sublayer,
 //                                                        two contexts: the DiT)
 //   gvf_cross_sublayer1    <- _cross_sublayer_kernel    (one context: the SLat
-//                                                        flow torso, heads of 64)
+//                                                        flow torso, heads of
+//                                                        32, 64 or 128)
 //   gvf_mlp_sublayer       <- _mlp_sublayer_kernel      (fused_mlp_sublayer)
 //   gvf_cross_sublayer_q8  <- _cross_sublayer_kernel    (quant=True: the DiT's
 //                                                        two contexts against an
@@ -33,7 +34,8 @@
 //                  straight in [B, T, N, C].
 //
 // Head widths: 32 (the DiT's 16 heads, as shipped) and 64 (its 8-head
-// configuration, and the SLat torso's single-context cross form). The q/k
+// configuration); the SLat torso's single-context cross form takes 32, 64
+// (the released 16 heads) and 128. The q/k
 // RMS norm is the JAX kernels' `rms` flag: K1/K2 norm q and k when their
 // gammas are given, K3 norms q alone (its cached k was normed when the
 // cache was built), and a null gamma means no norm.
@@ -54,6 +56,14 @@
 // (L = 4096, C = 1024, 16 heads of 64, Lk = 1374): 40.2 GFLOP against
 // 27 MB of traffic, so the tensor cores bound it too. The TPU's lq_block /
 // kv_buffers sized its VMEM residency and have no counterpart here.
+//
+// The single-context entry also has an fp32 form (gvf_cross_sublayer1_f32,
+// JAX's compute_dtype=float32: TRELLIS as the registry builds it), in which
+// nothing is rounded: the affine LN writes fp32 (ln_affine_f32_kernel), the
+// q and out projections are fp32 FFMA GEMMs (sgemm_kernel: 128x128x8 block
+// tiles, 8x8 outputs a thread, no TF32), and the attention is attention.cuh's
+// attn_f32_kernel. Bound at the torso's 32768 slots: 3.2e11 operations,
+// 4.8 ms at the datasheet's 67 TFLOP/s fp32; written to be right first.
 //
 // The int8 entries keep the TPU kernels' int8 arithmetic (_packed_attention's
 // k_int8 and quant_qk branches). q8_kernel quantizes fp32 rows per (cell,
@@ -226,6 +236,103 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
+// The fp32 forms: affine LayerNorm with fp32 out (one warp per row, two-pass
+// statistics in fp32, eps 1e-6) and an fp32 GEMM out[M, N] = A[M, K] @
+// W[N, K]^T + bias (+ res), every product an fp32 FFMA.
+
+__global__ void __launch_bounds__(256)
+ln_affine_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     long long rows, int C) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;  // uniform across the warp
+  const float* xr = x + row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = xr[c] - mu;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / C + 1e-6f);
+  float* orow = out + row * C;
+  for (int c = lane; c < C; c += 32) orow[c] = (xr[c] - mu) * rstd * w[c] + bias[c];
+}
+
+// 128x128 output tile per block of 256 threads, K in steps of 8 staged
+// transposed in shared memory ([8][128 + 4]: a thread's 4 rows or columns
+// are one 16-byte read). Thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// {4 ty, 64 + 4 ty} + 0..3 and columns {4 tx, 64 + 4 tx} + 0..3. K must be
+// a multiple of 8; rows of A and W 16-byte aligned.
+constexpr int SBM = 128, SBN = 128, SBK = 8, SLD = SBM + 4;
+
+template <bool RESID>
+__global__ void __launch_bounds__(256)
+sgemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+             const float* __restrict__ bias, const float* __restrict__ res,
+             float* __restrict__ out, long long M, int N, int K) {
+  __shared__ __align__(16) float sA[SBK * SLD];
+  __shared__ __align__(16) float sB[SBK * SLD];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long m0 = (long long)blockIdx.y * SBM;
+  const int n0 = blockIdx.x * SBN;
+  // this thread's copy: row lr of the tile, k lanes lk .. lk + 3
+  const int lr = tid >> 1, lk = (tid & 1) * 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += SBK) {
+    float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vb = va;
+    if (m0 + lr < M)
+      va = *reinterpret_cast<const float4*>(A + (m0 + lr) * K + k0 + lk);
+    if (n0 + lr < N)
+      vb = *reinterpret_cast<const float4*>(W + (long long)(n0 + lr) * K + k0 + lk);
+    sA[(lk + 0) * SLD + lr] = va.x; sA[(lk + 1) * SLD + lr] = va.y;
+    sA[(lk + 2) * SLD + lr] = va.z; sA[(lk + 3) * SLD + lr] = va.w;
+    sB[(lk + 0) * SLD + lr] = vb.x; sB[(lk + 1) * SLD + lr] = vb.y;
+    sB[(lk + 2) * SLD + lr] = vb.z; sB[(lk + 3) * SLD + lr] = vb.w;
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SBK; ++kk) {
+      float a[8], bv[8];
+      const float4 a0 = *reinterpret_cast<const float4*>(sA + kk * SLD + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(sA + kk * SLD + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(sB + kk * SLD + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(sB + kk * SLD + 64 + tx * 4);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (gn < N) {
+        float v = acc[i][j] + bias[gn];
+        if (RESID) v += res[gm * N + gn];
+        out[gm * N + gn] = v;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch helpers
 
 template <typename TIn, int MODE>
@@ -234,6 +341,17 @@ cudaError_t launch_ln(const TIn* x, const void* p0, const void* p1, void* out,
                       cudaStream_t s) {
   ln_kernel<TIn, MODE><<<cdiv(rows, 8), 256, 0, s>>>(
       x, (const bf16*)p0, (const bf16*)p1, (bf16*)out, rows, C, rows_per_mod);
+  return cudaGetLastError();
+}
+
+template <bool RESID>
+cudaError_t launch_sgemm(const void* A, const void* W, const void* bias,
+                         const void* res, void* out, long long M, int N, int K,
+                         cudaStream_t s) {
+  if (K % SBK) return cudaErrorInvalidValue;
+  sgemm_kernel<RESID><<<dim3(cdiv(N, SBN), cdiv(M, SBM)), 256, 0, s>>>(
+      (const float*)A, (const float*)W, (const float*)bias, (const float*)res,
+      (float*)out, M, N, K);
   return cudaGetLastError();
 }
 
@@ -757,7 +875,9 @@ int gvf_cross_sublayer(const void* x,
 // K3, one context (the SLat torso's image cross-attention). x, y [B, L, C],
 // both bf16 or, with x_f32, both fp32 (the SLat torso's residual stream is
 // fp32, as in the JAX package); affine LN (ns, nb [C]), wq [C, C], bq,
-// wo [C, C], bo; the cached k, v rows with heads of 64, element (b, j, c)
+// wo [C, C], bo; the cached k, v rows with heads of 32, 64 or 128 (the
+// torso at 32, 16 or 8 heads; attn_kernel<128> takes 88 KB of dynamic
+// shared memory), element (b, j, c)
 // at b * kv_sb + j * kv_sl + c (the k/v halves of one [B, Lk, 2C]
 // projection go in place); no RMS norm; the residual un-gated. Scratch:
 // h bf16, q fp32, attn bf16, each [B*L, C].
@@ -770,7 +890,7 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
   const int D = C / H;
-  if (D != 64) return (int)cudaErrorInvalidValue;
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   if (x_f32)
     GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
   else
@@ -785,13 +905,48 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
   p.qg = nullptr; p.kg = nullptr;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn_d<float, bf16>(p, H, B, D, s)));
+  GVF_CHECK((D == 128 ? launch_attn<128, float, bf16>(p, H, B, s)
+                      : launch_attn_d<float, bf16>(p, H, B, D, s)));
   if (x_f32)
     GVF_CHECK((launch_gemm<EPI_RESID, float, float>(attn, wo, bo, (const float*)x,
                                                     nullptr, (float*)y, R, C, C, 1, s)));
   else
     GVF_CHECK((launch_gemm<EPI_RESID, bf16, bf16>(attn, wo, bo, (const bf16*)x,
                                                   nullptr, (bf16*)y, R, C, C, 1, s)));
+  return 0;
+}
+
+// K3, one context, fp32 (compute_dtype=float32): as gvf_cross_sublayer1 with
+// every tensor fp32 (x, y, ns, nb, wq [C, C] as [out, in], bq, wo, bo, and
+// k, v, rows 16-byte aligned) and nothing rounded; heads of 32, 64 or 128.
+// Scratch: h, q, attn fp32, each [B*L, C].
+int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
+                            const void* wq, const void* bq, const void* wo,
+                            const void* bo, const void* k, const void* v,
+                            int lk, long long kv_sb, long long kv_sl, void* y,
+                            void* h, void* q, void* attn, int B, int L, int C,
+                            int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long R = (long long)B * L;
+  const int D = H < 1 ? 0 : C / H;
+  if (H < 1 || C % H || (D != 32 && D != 64 && D != 128) || C % 8 ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
+  ln_affine_f32_kernel<<<cdiv(R, 8), 256, 0, s>>>(
+      (const float*)x, (const float*)ns, (const float*)nb, (float*)h, R, C);
+  GVF_CHECK(cudaGetLastError());
+  GVF_CHECK(launch_sgemm<false>(h, wq, bq, nullptr, q, R, C, C, s));
+  F32AttnParams p;
+  p.q = (const float*)q; p.k = (const float*)k; p.v = (const float*)v;
+  p.o = (float*)attn;
+  p.q_sb = (long long)L * C; p.q_sl = C;
+  p.k_sb = kv_sb; p.k_sl = kv_sl; p.v_sb = kv_sb; p.v_sl = kv_sl;
+  p.o_sb = (long long)L * C; p.o_sl = C;
+  p.valid = nullptr; p.counts = nullptr;
+  p.Lq = L; p.Lk = lk; p.tiles = (int)cdiv(lk, 64); p.lk_pad = lk;
+  p.scale = (float)(1.0 / sqrt((double)D));
+  GVF_CHECK(launch_attn_f32(p, H, B, D, s));
+  GVF_CHECK(launch_sgemm<true>(attn, wo, bo, x, y, R, C, C, s));
   return 0;
 }
 

@@ -5,9 +5,10 @@ The t grid is host-side numpy, as in JAX, so a guidance interval splits
 the steps statically: steps inside it run the two-call CFG velocity, steps
 outside it the conditional call alone. A Python loop stands in for
 `lax.scan`; t and the step size are fp32 scalars, as the scan carries
-them. `cfg_batched` (one 2B-batched call, measured slower in the JAX
-package) and the x_0 prediction (the only reader of `sigma_min`) are not
-ported.
+them. `cfg_batched` runs the two CFG passes as one model call on the
+2B batch [x; x] with [cond; neg_cond] (off by default, as in JAX, which
+measured it slower); the model must take the doubled batch. The x_0
+prediction (the only reader of `sigma_min`) is not ported.
 """
 
 from __future__ import annotations
@@ -34,19 +35,26 @@ class FlowEulerSampler:
         return model(x_t, tb, cond)
 
     def predict_v(self, model, x_t, t: torch.Tensor, cond, neg_cond=None,
-                  cfg_strength: float = 0.0):
+                  cfg_strength: float = 0.0, cfg_batched: bool = False):
         """The conditional velocity, or with neg_cond the CFG velocity
-        (1 + s) v_cond - s v_neg from two model calls."""
-        pred = self._inference(model, x_t, t, cond)
+        (1 + s) v_cond - s v_neg from two model calls, or with cfg_batched
+        from one call on the 2B batch."""
         if neg_cond is None or cfg_strength == 0.0:
-            return pred
-        neg = self._inference(model, x_t, t, neg_cond)
+            return self._inference(model, x_t, t, cond)
+        if cfg_batched:
+            out = self._inference(model, torch.cat([x_t, x_t]), t,
+                                  torch.cat([cond, neg_cond]))
+            pred, neg = out.chunk(2)
+        else:
+            pred = self._inference(model, x_t, t, cond)
+            neg = self._inference(model, x_t, t, neg_cond)
         return (1 + cfg_strength) * pred - cfg_strength * neg
 
     @torch.no_grad()
     def sample(self, model: Callable, noise: torch.Tensor, cond: Any = None,
                neg_cond: Any = None, steps: int = 50, rescale_t: float = 1.0,
-               cfg_strength: float = 0.0, cfg_interval=None):
+               cfg_strength: float = 0.0, cfg_interval=None,
+               cfg_batched: bool = False):
         """Returns dict(samples=...)."""
         ts = t_schedule(steps, rescale_t)
         use_cfg = neg_cond is not None and cfg_strength != 0.0
@@ -59,7 +67,7 @@ class FlowEulerSampler:
             with_cfg = use_cfg and lo <= ts[i] <= hi
             v = self.predict_v(model, x, t32[i], cond,
                                neg_cond if with_cfg else None,
-                               cfg_strength if with_cfg else 0.0)
+                               cfg_strength if with_cfg else 0.0, cfg_batched)
             x = x - (t32[i] - t32[i + 1]) * v
         return {"samples": x}
 
@@ -68,16 +76,19 @@ class FlowEulerCfgSampler(FlowEulerSampler):
     """CFG over every step."""
 
     def sample(self, model, noise, cond, neg_cond, steps=50, rescale_t=1.0,
-               cfg_strength=3.0, **kw):
+               cfg_strength=3.0, cfg_batched=False, **kw):
         return super().sample(model, noise, cond, neg_cond, steps=steps,
-                              rescale_t=rescale_t, cfg_strength=cfg_strength)
+                              rescale_t=rescale_t, cfg_strength=cfg_strength,
+                              cfg_batched=cfg_batched)
 
 
 class FlowEulerGuidanceIntervalSampler(FlowEulerSampler):
     """CFG inside the interval of t, the conditional call alone outside."""
 
     def sample(self, model, noise, cond, neg_cond, steps=50, rescale_t=1.0,
-               cfg_strength=3.0, cfg_interval=(0.0, 1.0), **kw):
+               cfg_strength=3.0, cfg_interval=(0.0, 1.0), cfg_batched=False,
+               **kw):
         return super().sample(model, noise, cond, neg_cond, steps=steps,
                               rescale_t=rescale_t, cfg_strength=cfg_strength,
-                              cfg_interval=cfg_interval)
+                              cfg_interval=cfg_interval,
+                              cfg_batched=cfg_batched)

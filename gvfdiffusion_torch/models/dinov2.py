@@ -7,10 +7,11 @@ Parameters go by the torch hub's `dinov2_vitl14_reg` names
 loads the JAX package's parameters.
 
 `dtype` is the compute dtype (flax's `dtype`): the patch conv and every
-linear run in it, each attention goes through K5 (ops/fused_attention.py)
-in it, while the residual stream, the LayerNorms (flax's fast variance) and
-the layer scales stay fp32, as in the reference. GELU is the exact erf.
-On CUDA the attention kernel takes bf16 only, so `dtype` must be bf16.
+linear run in it, each attention goes through K5 (ops/fused_attention.py),
+computing in bf16 on the card (as JAX calls K5 on its chip, whatever the
+model's dtype) and in `dtype` on the CPU, while the residual stream, the
+LayerNorms (flax's fast variance) and the layer scales stay fp32, as in
+the reference. GELU is the exact erf.
 
 Only the 518^2 grid (37^2 patches, L = 1 + 4 + 1369 = 1374 tokens) runs:
 the position-embedding interpolation to another grid is not ported, and
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.attention import MultiHeadAttention
-from ..nn.misc import dense, layer_norm
+from ..nn.misc import conv, dense, layer_norm
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -45,9 +46,8 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """[B, H, W, 3] -> [B, H/p * W/p, C] in `dtype`."""
-        w = self.proj
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), w.weight.to(dtype),
-                     w.bias.to(dtype), stride=w.stride)
+        y = conv(F.conv2d, x.permute(0, 3, 1, 2), self.proj, dtype,
+                 stride=self.proj.stride)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -120,10 +120,6 @@ class DinoV2(nn.Module):
         """x [B, H, W, 3] normalized images -> (prenorm, normed) tokens
         [B, 1 + R + L, C] in fp32. `impl="plain"` runs K5's plain
         version."""
-        if x.is_cuda and self.dtype != torch.bfloat16:
-            raise TypeError("on CUDA DINOv2 runs the bf16 attention kernel: "
-                            f"build it with dtype=torch.bfloat16 "
-                            f"(got {self.dtype})")
         B = x.shape[0]
         h = self.patch_embed(x, self.dtype)
         pos = self.pos_embed.float()

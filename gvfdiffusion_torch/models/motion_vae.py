@@ -106,8 +106,14 @@ class MotionVAE(nn.Module):
 
     def __init__(self, depth: int = 12, dim: int = 768, queries_dim: int = 768,
                  input_dim: int = 3, gs_dim: int = 14, output_dim: int = 14,
-                 latent_dim: int = 16, heads: int = 12,
+                 num_inputs: int = 8192, num_latents: int = 512,
+                 latent_dim: int = 16, heads: int = 12, knn_k: int = 8,
+                 beta: float = 7.0, remat_decode: bool = False,
                  dtype: torch.dtype = torch.float32):
+        """The JAX class's fields in its order; `num_inputs`,
+        `num_latents`, `knn_k` and `beta` configure the encoder half and
+        `remat_decode` its training, none of them ported: they are
+        accepted, so that a JAX configuration builds, and unused."""
         super().__init__()
         if dim % 6:
             raise ValueError(f"MotionVAE dim must be divisible by 6, got {dim}")

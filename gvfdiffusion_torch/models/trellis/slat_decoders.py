@@ -6,8 +6,10 @@ voxel (models/sparse_vae.to_representation).
 
 Parameters go by the reference's names (`input_layer`, `blocks.N.attn`,
 `blocks.N.mlp.mlp.{0,2}`, `out_layer`; the JAX package nests the first
-two under `torso`). The encoder and the mesh and radiance-field decoders
-are not ported.
+two under `torso`). `pe_mode` other than "ape" adds no position
+embedding; `qk_rms_norm` is accepted as JAX accepts it and, as there
+(`SparseTransformerBase` does not hand it to its blocks), changes nothing.
+The encoder and the mesh and radiance-field decoders are not ported.
 """
 
 from __future__ import annotations
@@ -35,12 +37,14 @@ class SLatGaussianDecoder(nn.Module):
                  latent_channels: int = 8, num_blocks: int = 12,
                  num_heads: Optional[int] = None, mlp_ratio: float = 4.0,
                  attn_mode: str = "swin", window_size: int = 8,
+                 pe_mode: str = "ape", qk_rms_norm: bool = False,
                  rep_config: GSConfig = DECODER_GS_CONFIG,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         C = model_channels
         self.resolution, self.rep_config, self.dtype = (
             resolution, rep_config, dtype)
+        self.pe_mode, self.qk_rms_norm = pe_mode, qk_rms_norm
         heads = num_heads or C // 64
         self.input_layer = SparseLinear(latent_channels, C)
         self.pos_embedder = AbsolutePositionEmbedder(C)
@@ -53,7 +57,8 @@ class SLatGaussianDecoder(nn.Module):
 
     def forward(self, x: SparseVoxels, impl: Optional[str] = None):
         h = self.input_layer(x, self.dtype)
-        h = h + self.pos_embedder(x.coords.float()) * x.valid[..., None]
+        if self.pe_mode == "ape":
+            h = h + self.pos_embedder(x.coords.float()) * x.valid[..., None]
         for block in self.blocks:
             h = block(h, self.dtype, impl=impl)
         h = self.out_layer(self.out_norm(h), torch.float32)

@@ -13,11 +13,21 @@ In the torso the self-attention follows sparse/attention.
 full_sparse_attention's dispatch: K5 with the key validity as a -inf logit
 bias up to 4096 slots (a compacted torso), past that K7, the streaming
 flash kernel over key validity (the default `torso_capacity=None` at 32768
-voxel slots). The cross sublayer is always K3 in its single-context form
-(ops/fused_sublayer.py; on the card it takes heads of 64 and raises
-otherwise), at any slot count. The cross q/k RMS norm
-(`qk_rms_norm_cross`), which the released model leaves off, the
-measurement-only `ablate` fields and `share_mod` are not ported.
+voxel slots), in the model's dtype (bf16, or fp32 as the registry builds
+TRELLIS). The cross sublayer is K3 in its single-context form
+(ops/fused_sublayer.py; on the card it takes heads of 32, 64 or 128 and raises
+otherwise) at any slot count, computing in the model's dtype; with the
+cross q/k RMS norm (`qk_rms_norm_cross`, off in the released model) it
+composes as JAX does (its gate, slat_flow.py:221): an affine LayerNorm, a
+cross `SparseMultiHeadAttention` through `full_sparse_attention` with every
+key valid (K5's bias form) and the residual. `share_mod` computes one
+modulation at the top (`adaLN_modulation`) that every block splits;
+`pe_mode` other than "ape" adds no position embedding (JAX's SLat flow has
+no RoPE); `patch_size` is a configuration field that the forward does not
+read (as in JAX). The out blocks always take the paired skips, as the
+registry builds the model (it drops the release configs'
+`use_skip_connection`, as JAX's does). The measurement-only `ablate`
+fields are not ported.
 """
 
 from __future__ import annotations
@@ -109,22 +119,34 @@ class SparseResBlock3d(nn.Module):
 class ModulatedSparseCrossBlock(nn.Module):
     """Sparse self-attn + cross-attn + MLP with adaLN-Zero modulation;
     norm1/norm3 affine-free, norm2 affine. `cross_attn` holds the cross
-    sublayer's parameters, which K3 takes."""
+    sublayer's parameters, which K3 takes (with `qk_rms_norm_cross`, a
+    cross `SparseMultiHeadAttention` with its q/k norms). With `share_mod`
+    the block has no `adaLN_modulation`: it splits the model's [B, 6C]
+    modulation."""
 
     def __init__(self, channels: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qk_rms_norm: bool = False,
+                 qk_rms_norm: bool = False, qk_rms_norm_cross: bool = False,
+                 share_mod: bool = False,
                  ctx_channels: Optional[int] = None):
         super().__init__()
         C = channels
         self.channels, self.num_heads = C, num_heads
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(C, 6 * C))
+        self.qk_rms_norm_cross, self.share_mod = qk_rms_norm_cross, share_mod
+        if not share_mod:
+            self.adaLN_modulation = nn.Sequential(nn.SiLU(),
+                                                  nn.Linear(C, 6 * C))
         self.norm1 = SparseLayerNorm(C, affine=False)
         self.norm2 = SparseLayerNorm(C, affine=True)
         self.norm3 = SparseLayerNorm(C, affine=False)
         self.self_attn = SparseMultiHeadAttention(
             C, num_heads, attn_mode="full", qk_rms_norm=qk_rms_norm)
-        self.cross_attn = MultiHeadAttention(C, num_heads, "cross",
-                                             ctx_channels=ctx_channels)
+        if qk_rms_norm_cross:
+            self.cross_attn = SparseMultiHeadAttention(
+                C, num_heads, attn_type="cross", qk_rms_norm=True,
+                ctx_channels=ctx_channels)
+        else:
+            self.cross_attn = MultiHeadAttention(C, num_heads, "cross",
+                                                 ctx_channels=ctx_channels)
         self.mlp = SparseFeedForward(C, mlp_ratio)
 
     def _fused_cross(self, x: SparseVoxels, context: torch.Tensor, dtype,
@@ -147,12 +169,17 @@ class ModulatedSparseCrossBlock(nn.Module):
     def forward(self, x: SparseVoxels, mod: torch.Tensor,
                 context: torch.Tensor, dtype: torch.dtype,
                 impl: Optional[str] = None) -> SparseVoxels:
-        m = dense(F.silu(mod), self.adaLN_modulation[1], dtype)
+        m = mod if self.share_mod else dense(
+            F.silu(mod), self.adaLN_modulation[1], dtype)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = (a[:, None] for a in m.chunk(6, -1))
         h = self.norm1(x)
         h = h.replace_feats(h.feats * (1 + sc_a) + sh_a)
         x = x + self.self_attn(h, dtype, impl=impl).feats * g_a
-        x = self._fused_cross(x, context, dtype, impl)
+        if self.qk_rms_norm_cross:
+            h = self.cross_attn(self.norm2(x), dtype, context, impl=impl)
+            x = x + h.feats
+        else:
+            x = self._fused_cross(x, context, dtype, impl)
         h = self.norm3(x)
         h = h.replace_feats(h.feats * (1 + sc_m) + sh_m)
         return x + self.mlp(h, dtype).feats * g_m
@@ -166,20 +193,27 @@ class SLatFlowModel(nn.Module):
                  model_channels: int = 1024, cond_channels: int = 1024,
                  out_channels: int = 8, num_blocks: int = 24,
                  num_heads: int = 16, mlp_ratio: float = 4.0,
-                 num_io_res_blocks: int = 2,
+                 patch_size: int = 2, num_io_res_blocks: int = 2,
                  io_block_channels: Sequence[int] = (128,),
-                 qk_rms_norm: bool = False,
+                 pe_mode: str = "ape", share_mod: bool = False,
+                 qk_rms_norm: bool = False, qk_rms_norm_cross: bool = False,
                  torso_capacity: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         C = model_channels
         io = list(io_block_channels)
         self.in_channels = in_channels
+        self.patch_size = patch_size
         self.num_io_res_blocks = num_io_res_blocks
+        self.pe_mode = pe_mode
+        self.share_mod = share_mod
         self.torso_capacity = torso_capacity
         self.dtype = dtype
         self.input_layer = SparseLinear(in_channels, io[0])
         self.t_embedder = TimestepEmbedder(C)
+        if share_mod:
+            self.adaLN_modulation = nn.Sequential(nn.SiLU(),
+                                                  nn.Linear(C, 6 * C))
         self.pos_embedder = AbsolutePositionEmbedder(C)
         inp: List[nn.Module] = []
         for chs, next_chs in zip(io, io[1:] + [C]):
@@ -191,6 +225,7 @@ class SLatFlowModel(nn.Module):
         self.input_blocks = nn.ModuleList(inp)
         self.blocks = nn.ModuleList(
             ModulatedSparseCrossBlock(C, num_heads, mlp_ratio, qk_rms_norm,
+                                      qk_rms_norm_cross, share_mod,
                                       cond_channels)
             for _ in range(num_blocks))
         # every out block takes its input concatenated with the paired skip
@@ -220,9 +255,12 @@ class SLatFlowModel(nn.Module):
                 self.torso_capacity < h.capacity:
             torso_template = h
             h, torso_slots = sparse_compact(h, self.torso_capacity)
-        h = h + self.pos_embedder(h.coords.float()) * h.valid[..., None]
+        if self.pe_mode == "ape":
+            h = h + self.pos_embedder(h.coords.float()) * h.valid[..., None]
+        mod = t_emb if not self.share_mod else dense(
+            F.silu(t_emb), self.adaLN_modulation[1], dt)
         for block in self.blocks:
-            h = block(h, t_emb, cond, dt, impl=impl)
+            h = block(h, mod, cond, dt, impl=impl)
         if torso_template is not None:
             h = sparse_scatter_back(h, torso_slots, torso_template)
         rev_skips = list(reversed(skips))

@@ -9,7 +9,10 @@ each end). Parameters go by the reference's names and torch Conv3d
 layouts (`input_layer`, `middle_block.N`, `blocks.N`, `out_layer.{0,2}`),
 and the pixel shuffle keeps the reference's channel order (channel * 8 +
 offset; the JAX package keeps offsets major and permutes in
-`convert_ss_decoder`). The encoder is not ported.
+`convert_ss_decoder`). `norm_type` picks the channel LayerNorm ("layer")
+or a GroupNorm of 32 groups ("group", flax's `nn.GroupNorm`: statistics
+over each group's channels and every voxel, fast variance, fp32). The
+encoder is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...nn.misc import conv
 
 
 def pixel_shuffle_3d(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -43,20 +48,46 @@ class ChannelLayerNorm(nn.LayerNorm):
             * self.weight.float().view(shape) + self.bias.float().view(shape)
 
 
-def conv3d(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype):
-    """flax `nn.Conv(dtype=dtype, padding="SAME")`: input and parameters
-    cast to dtype, the output in dtype."""
-    return F.conv3d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    padding=conv.padding)
+class ChannelGroupNorm(nn.GroupNorm):
+    """flax `nn.GroupNorm(num_groups=32, epsilon=1e-5, dtype=float32)` on
+    [B, C, D, H, W]: mean and fast variance over each group's channels and
+    every voxel, in fp32, with weight and bias: fp32 out."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        xg = x.float().reshape(b, self.num_groups, -1)
+        mu = xg.mean(-1, keepdim=True)
+        var = torch.clamp((xg * xg).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        h = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, -1, 1, 1, 1)
+        return h * self.weight.float().view(shape) \
+            + self.bias.float().view(shape)
+
+
+def channel_norm(norm_type: str, channels: int) -> nn.Module:
+    """JAX's `_norm`: the channel LayerNorm or a 32-group GroupNorm."""
+    if norm_type == "layer":
+        return ChannelLayerNorm(channels, eps=1e-5)
+    if norm_type == "group":
+        return ChannelGroupNorm(32, channels, eps=1e-5)
+    raise ValueError(f"norm_type must be 'layer' or 'group', got "
+                     f"{norm_type!r}")
+
+
+def conv3d(x: torch.Tensor, layer: nn.Conv3d, dtype: torch.dtype):
+    """flax `nn.Conv(dtype=dtype, padding="SAME")` (nn/misc.conv: in fp32
+    with no TF32)."""
+    return conv(F.conv3d, x, layer, dtype, padding=layer.padding)
 
 
 class ResBlock3d(nn.Module):
-    def __init__(self, channels: int, out_channels: int = None):
+    def __init__(self, channels: int, out_channels: int = None,
+                 norm_type: str = "layer"):
         super().__init__()
         out = out_channels or channels
-        self.norm1 = ChannelLayerNorm(channels, eps=1e-5)
+        self.norm1 = channel_norm(norm_type, channels)
         self.conv1 = nn.Conv3d(channels, out, 3, padding=1)
-        self.norm2 = ChannelLayerNorm(out, eps=1e-5)
+        self.norm2 = channel_norm(norm_type, out)
         self.conv2 = nn.Conv3d(out, out, 3, padding=1)
         self.skip_connection = (nn.Conv3d(channels, out, 1)
                                 if out != channels else None)
@@ -86,22 +117,24 @@ class SparseStructureDecoder(nn.Module):
     def __init__(self, out_channels: int = 1, latent_channels: int = 8,
                  num_res_blocks: int = 2,
                  channels: Sequence[int] = (512, 128, 32),
-                 num_res_blocks_middle: int = 2,
+                 num_res_blocks_middle: int = 2, norm_type: str = "layer",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.input_layer = nn.Conv3d(latent_channels, channels[0], 3,
                                      padding=1)
         self.middle_block = nn.ModuleList(
-            ResBlock3d(channels[0]) for _ in range(num_res_blocks_middle))
+            ResBlock3d(channels[0], norm_type=norm_type)
+            for _ in range(num_res_blocks_middle))
         blocks = []
         for i, ch in enumerate(channels):
-            blocks += [ResBlock3d(ch) for _ in range(num_res_blocks)]
+            blocks += [ResBlock3d(ch, norm_type=norm_type)
+                       for _ in range(num_res_blocks)]
             if i < len(channels) - 1:
                 blocks.append(UpsampleBlock3d(ch, channels[i + 1]))
         self.blocks = nn.ModuleList(blocks)
         self.out_layer = nn.Sequential(
-            ChannelLayerNorm(channels[-1], eps=1e-5), nn.SiLU(),
+            channel_norm(norm_type, channels[-1]), nn.SiLU(),
             nn.Conv3d(channels[-1], out_channels, 3, padding=1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

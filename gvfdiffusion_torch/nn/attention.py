@@ -15,8 +15,13 @@ only the loop-invariant cross-attention K/V (`kv`); its composed path runs
 `scaled_dot_product_attention` takes the JAX package's dispatch: calls
 inside K5's rule (`ops/fused_attention.supports`: Lq >= 128, 128 <= Lk <=
 4096) and without a mask run K5; others take XLA's attention in JAX and
-`F.scaled_dot_product_attention` here, in q's dtype. `temporal` runs K6
-inside its rule (`temporal_supports`) and JAX's einsum form outside it.
+`F.scaled_dot_product_attention` here, in q's dtype. On the card K5
+computes in bf16 from inputs of any dtype, as JAX calls it on its chip
+(`fused_attention`'s default compute dtype, whatever the model's dtype);
+on the CPU it computes in the caller's dtype, as JAX's
+`jax.nn.dot_product_attention` runs off the chip in the inputs' dtype.
+`temporal` runs K6 inside its rule (`temporal_supports`) and JAX's einsum
+form outside it.
 Those two library calls are the counterparts of XLA code, not of a Pallas
 kernel. On the CPU, K5 and K6 run their plain versions.
 """
@@ -40,16 +45,26 @@ def scaled_dot_product_attention(q, k, v, dtype: torch.dtype,
                                  mask: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D] in q's dtype. Inside
-    K5's rule and without a mask, K5 computing in `dtype` (`cross` names
-    the form for its launch count); otherwise softmax attention in q's
-    dtype, `mask` [B, H, Lq, Lk] (or broadcastable; True attends)."""
+    K5's rule and without a mask, K5 computing in bf16 on the card and in
+    `dtype` on the CPU (`cross` names the form for its launch count);
+    otherwise softmax attention in q's dtype, `mask` [B, H, Lq, Lk] (or
+    broadcastable; True attends)."""
     if mask is None and supports(q.shape, k.shape):
-        return fused_attention(q, k, v, q.shape[-1] ** -0.5, dtype,
-                               cross=cross, impl=impl)
+        return fused_attention(q, k, v, q.shape[-1] ** -0.5,
+                               kernel_compute_dtype(q, dtype), cross=cross,
+                               impl=impl)
     o = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask)
     return o.transpose(1, 2).contiguous()
+
+
+def kernel_compute_dtype(q: torch.Tensor, dtype: torch.dtype) -> torch.dtype:
+    """K5's compute dtype for a call of a model computing in `dtype`: bf16
+    on the card (JAX calls K5 with its default bf16 there, whatever the
+    model's dtype), `dtype` on the CPU (JAX's attention off its chip runs in
+    the inputs' dtype)."""
+    return torch.bfloat16 if q.is_cuda else dtype
 
 
 def temporal_einsum_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -207,8 +222,9 @@ class MultiHeadAttention(nn.Module):
                 indices: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, L, C] (and for cross either context [B, Lk, C_ctx] or the
         hoisted context_kv, each [B, Lk, H, D]) -> [B, L, C] in `dtype`
-        (flax Dense semantics); K5 computes in `attn_dtype`, by default
-        `dtype`. `indices` [B, L, 3]: RoPE positions (default arange(L))."""
+        (flax Dense semantics); K5 computes in bf16 on the card and on the
+        CPU in `attn_dtype`, by default `dtype`. `indices` [B, L, 3]: RoPE
+        positions (default arange(L))."""
         B, L, C = x.shape
         q, k, v = self.project(x, dtype, context, context_kv, indices)
         o = scaled_dot_product_attention(q, k, v, attn_dtype or dtype,

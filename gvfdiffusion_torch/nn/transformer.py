@@ -21,7 +21,8 @@ the same function.
 `ModulatedCrossBlock` is the single-context composed block of the
 sparse-structure flow: its attentions go through
 `nn/attention.MultiHeadAttention` (K5), its LayerNorms run in fp32 as the
-JAX `_ln` does, and `share_mod` is not ported.
+JAX `_ln` does; `use_rope` rotates its self-attention's q/k over the token
+index, and with `share_mod` it splits the model's [B, 6C] modulation.
 """
 
 from __future__ import annotations
@@ -66,20 +67,26 @@ def affine_layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 class ModulatedCrossBlock(nn.Module):
     """Single-context block: self-attn + cross-attn + MLP with adaLN-Zero
-    modulation. x [B, L, C]; mod [B, C]; context [B, Lc, C_ctx]. norm1 and
-    norm3 are affine-free (no parameters), norm2 affine."""
+    modulation. x [B, L, C]; mod [B, C], or with `share_mod` the model's
+    pre-chunked [B, 6C]; context [B, Lc, C_ctx]. norm1 and norm3 are
+    affine-free (no parameters), norm2 affine."""
 
     def __init__(self, channels: int, num_heads: int, mlp_ratio: float = 4.0,
                  qk_rms_norm: bool = False, qk_rms_norm_cross: bool = False,
                  ctx_channels: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_rope: bool = False,
+                 share_mod: bool = False):
         super().__init__()
         C = channels
         self.dtype = dtype
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(C, 6 * C))
+        self.share_mod = share_mod
+        if not share_mod:
+            self.adaLN_modulation = nn.Sequential(nn.SiLU(),
+                                                  nn.Linear(C, 6 * C))
         self.norm2 = nn.LayerNorm(C, eps=1e-6)
         self.self_attn = MultiHeadAttention(C, num_heads, "self",
-                                            qk_rms_norm=qk_rms_norm)
+                                            qk_rms_norm=qk_rms_norm,
+                                            use_rope=use_rope)
         self.cross_attn = MultiHeadAttention(
             C, num_heads, "cross", qk_rms_norm=qk_rms_norm_cross,
             ctx_channels=ctx_channels)
@@ -89,7 +96,8 @@ class ModulatedCrossBlock(nn.Module):
                 context: torch.Tensor,
                 impl: Optional[str] = None) -> torch.Tensor:
         dt = self.dtype
-        m = dense(F.silu(mod), self.adaLN_modulation[1], dt)
+        m = mod if self.share_mod else dense(
+            F.silu(mod), self.adaLN_modulation[1], dt)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = (a[:, None] for a in m.chunk(6, -1))
         h = layer_norm(x, 1e-6) * (1.0 + sc_a) + sh_a
         x = x + self.self_attn(h, dt, impl=impl) * g_a

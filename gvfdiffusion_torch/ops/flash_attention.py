@@ -21,13 +21,17 @@ Two versions:
     SLat torso's [1, 16, 32768, 32768] fp32 scores would take 64 GiB);
   * `flash_attention`, the wrapper: on a CPU tensor, or with
     impl="plain", the plain version; on a CUDA tensor the kernel of
-    `csrc/flash_attention.cu` (bf16 q/k/v, heads of 64), which raises for
-    anything else and never falls back. The kernel has no backward pass
-    (the SLat flow runs it at inference), so on the card the wrapper
-    raises when grad mode is on and an input requires grad.
+    `csrc/flash_attention.cu`: q/k/v all bf16 (WMMA products, P rounded to
+    bf16) or all fp32 (fp32 FFMA, nothing rounded: the SLat flow as the
+    registry builds it), heads of 32, 64 or 128. It raises for anything
+    else and never falls back: an fp32 input is never cast to reach the
+    bf16 kernel. The kernel has no backward pass (the SLat flow runs it at
+    inference), so on the card the wrapper raises when grad mode is on and
+    an input requires grad.
 
-`launch_counts["flash_attention"]` counts kernel launches; the plain
-version never counts.
+`launch_counts` counts kernel launches by dtype and head width:
+"flash_attention" (bf16, heads of 64), "flash_attention_fp32", and either
+with "_d32" / "_d128" at the other widths; the plain version never counts.
 """
 
 from __future__ import annotations
@@ -44,12 +48,20 @@ BLOCK = 512
 # score elements per chunk of the plain version ([B, H, rows, Lk] fp32: 512 MB)
 _SCORES = 1 << 27
 
-launch_counts = {"flash_attention": 0}
+HEAD_WIDTHS = (32, 64, 128)
+launch_counts = {f"flash_attention{dt}{w}": 0 for dt in ("", "_fp32")
+                 for w in ("", "_d32", "_d128")}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def launch_key(dtype: torch.dtype, head_dim: int) -> str:
+    """The counter of a launch: its dtype and head width."""
+    return ("flash_attention" + ("_fp32" if dtype == torch.float32 else "")
+            + ("" if head_dim == 64 else f"_d{head_dim}"))
 
 
 def padded_keys(lk: int) -> int:
@@ -83,24 +95,27 @@ def flash_attention_reference(q, k, v, kv_valid, scale: float):
 
 
 def _check_cuda(q, k, v, kv_valid) -> None:
-    """What the kernel takes: CUDA bf16 q [B, Lq, H, 64] and k/v
-    [B, Lk, H, 64], each with its heads contiguous in a row and rows on
-    16-byte boundaries; kv_valid bool [B, Lk]."""
+    """What the kernel takes: CUDA q [B, Lq, H, D] and k/v [B, Lk, H, D],
+    all bf16 or all fp32, D = 32, 64 or 128, each with its heads contiguous
+    in a row and rows on 16-byte boundaries; kv_valid bool [B, Lk]."""
     for t in (q, k, v):
-        if not t.is_cuda or t.dtype != torch.bfloat16:
-            raise TypeError("the CUDA flash attention kernel takes bfloat16 "
-                            f"CUDA q/k/v; got {t.dtype} on {t.device}")
+        if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32) \
+                or t.dtype != q.dtype:
+            raise TypeError("the CUDA flash attention kernel takes q/k/v "
+                            "CUDA tensors, all bfloat16 or all float32; got "
+                            f"{t.dtype} on {t.device} (q {q.dtype})")
         if t.dim() != 4 or t.stride(3) != 1 or t.stride(2) != t.shape[3]:
             raise ValueError("q/k/v must be [B, L, H, D] with heads "
                              f"contiguous in a row; got {tuple(t.shape)}, "
                              f"strides {t.stride()}")
-        if t.data_ptr() % 16 or t.stride(1) % 8 or t.stride(0) % 8:
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or t.stride(1) % per16 or t.stride(0) % per16:
             raise ValueError("q/k/v rows must start on 16-byte boundaries; "
                              f"got strides {t.stride()}")
     B, _, H, D = q.shape
-    if D != 64:
-        raise ValueError(f"the flash attention kernel takes heads of 64, "
-                         f"got {D}")
+    if D not in HEAD_WIDTHS:
+        raise ValueError(f"the flash attention kernel takes heads of "
+                         f"{HEAD_WIDTHS}, got {D}")
     if tuple(k.shape) != tuple(v.shape) or (k.shape[0], k.shape[2],
                                             k.shape[3]) != (B, H, D):
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
@@ -140,6 +155,6 @@ def flash_attention(q, k, v, kv_valid, scale: float,
               v.data_ptr(), valid.data_ptr(), counts.data_ptr(), o.data_ptr(),
               B, Lq, Lk, H, D, q.stride(0), q.stride(1), k.stride(0),
               k.stride(1), v.stride(0), v.stride(1), float(scale),
-              padded_keys(Lk))
-    launch_counts["flash_attention"] += 1
+              padded_keys(Lk), int(q.dtype == torch.float32))
+    launch_counts[launch_key(q.dtype, D)] += 1
     return o

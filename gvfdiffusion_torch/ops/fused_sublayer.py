@@ -15,8 +15,11 @@ ported: heads of 32 or 64 for the self, temporal and two-context cross
 sublayers, and their `rms` flag with JAX's defaults (q/k RMS norms on the
 self and temporal sublayers unless `rms=False`; on the cross sublayer,
 `rms=True` norms q, the cached k having been normed when the cache was
-built); one cross context at heads of 64, without RMS norm, for the SLat
-flow torso. The JAX kernel's `kv_buffers` sized its VMEM residency on the
+built); one cross context at heads of 32, 64 or 128, without RMS norm,
+for the SLat flow torso, in bf16 or, at compute_dtype=float32 (the torso
+of TRELLIS as the registry builds it), in fp32 with nothing rounded: an
+fp32 LN, fp32 FFMA projections and attention (`gvf_cross_sublayer1_f32`;
+every tensor fp32). The JAX kernel's `kv_buffers` sized its VMEM residency on the
 TPU and has no counterpart here. Its int8 `quant` form (the DiT's two
 contexts against an int8 KV cache from `quantize_kv`) is ported with its
 arithmetic: `cross_sublayer_q8_reference` is its plain version, and
@@ -47,8 +50,10 @@ the TPU kernel's VMEM residency and have no counterpart on Hopper.
 chain; "cross" for the two-context form, "cross_single" for the single,
 "cross_q8" for the int8 form, "self_q8" and "temporal_q8" for the int8-QK
 self forms); the plain version never counts. A counter covers every head
-width and `rms` setting of its form: a run's configuration tells them
-apart.
+width and `rms` setting of its form, a run's configuration telling them
+apart, but for the single-context form, whose counter is keyed by dtype
+and head width as K7's (`single_launch_key`: "cross_single",
+"cross_single_fp32", "cross_single_d128", ...).
 
 The kernels have no backward pass yet (the JAX custom_vjps recompute
 through einsums or the oracle): on CUDA a wrapper raises when grad mode is
@@ -68,9 +73,19 @@ _RMS_EPS = 1e-12
 _LOG2E = 1.4426950408889634
 _SHIFT = 30.0  # the TPU kernels' fixed exp2 shift
 
+_SINGLE_WIDTHS = (32, 64, 128)
+
+
+def single_launch_key(dtype: torch.dtype, head_dim: int) -> str:
+    """The counter of a single-context launch: its dtype and head width."""
+    return ("cross_single" + ("_fp32" if dtype == torch.float32 else "")
+            + ("" if head_dim == 64 else f"_d{head_dim}"))
+
+
 launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
-                 "cross_single": 0, "cross_q8": 0, "self_q8": 0,
-                 "temporal_q8": 0}
+                 "cross_q8": 0, "self_q8": 0, "temporal_q8": 0,
+                 **{single_launch_key(dt, d): 0 for d in _SINGLE_WIDTHS
+                    for dt in (torch.bfloat16, torch.float32)}}
 # voxels per cell of the temporal sublayer (JAX `_TEMPORAL_NC`), halved
 # until it divides N
 _TEMPORAL_NC = 16
@@ -596,7 +611,8 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
     """Un-gated cross-attention sublayers with affine pre-norms against the
     cached KV: two chained (the DiT's image then static-GS conditioning,
     heads of 32 or 64) or one (p2 = kv2 = None: the SLat torso's image
-    conditioning, heads of 64, no rms). x [B, L, C]; see
+    conditioning, heads of 32, 64 or 128, no rms; on the card in bf16, or
+    in fp32 at compute_dtype=float32). x [B, L, C]; see
     cross_sublayer_reference. rms=True: q RMS-normed with each p_i's qg.
     quant=True: the DiT's two contexts against an int8 cache, kv_i = (k,
     v, ks_t, vs) from quantize_kv with the k scales transposed to
@@ -618,6 +634,8 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
         if rms:
             raise NotImplementedError("the single-context cross kernel has "
                                       "no q RMS norm: no caller needs one")
+        if compute_dtype == torch.float32:
+            return _cross_single_f32_kernel(x, p1, kv1, num_heads)
         return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype)
     from .. import _ext
 
@@ -661,7 +679,8 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
     if not x.is_cuda or not (x_f32 or x.dtype == torch.bfloat16):
         raise TypeError("the single-context cross kernel takes a bf16 or "
                         f"fp32 CUDA x; got {x.dtype} on {x.device}")
-    _check_cuda(compute_dtype, num_heads, C, B, *p, k, v, head_widths=(64,))
+    _check_cuda(compute_dtype, num_heads, C, B, *p, k, v,
+                head_widths=_SINGLE_WIDTHS)
     if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
             or v.stride(2) != 1:
         raise ValueError("k and v must share batch and row strides, with "
@@ -678,7 +697,46 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
     _ext.call("gvf_cross_sublayer1", _ptr(x), *map(_ptr, args), _ptr(k),
               _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
               _ptr(q), _ptr(attn), B, L, C, num_heads, int(x_f32))
-    launch_counts["cross_single"] += 1
+    launch_counts[single_launch_key(torch.bfloat16, C // num_heads)] += 1
+    return y
+
+
+def _cross_single_f32_kernel(x, p, kv, num_heads: int):
+    """The single-context chain at compute_dtype=float32 on the card: x,
+    every parameter and k/v fp32 CUDA tensors (nothing is cast to reach the
+    bf16 chain), heads of 32, 64 or 128; y fp32. k and v may be the halves of one
+    [B, Lk, 2C] projection, read in place."""
+    from .. import _ext
+
+    B, L, C = x.shape
+    k, v = (a.reshape(B, a.shape[1], C) for a in kv)
+    for t in (x, *p, k, v):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise TypeError("the fp32 single-context cross kernel takes fp32 "
+                            f"CUDA tensors; got {t.dtype} on {t.device}")
+    if C % 8 or C % num_heads or C // num_heads not in _SINGLE_WIDTHS:
+        raise ValueError(f"the fp32 single-context cross kernel takes heads "
+                         f"of {_SINGLE_WIDTHS} and C a multiple of 8; got "
+                         f"{C}/{num_heads}")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the grid's 65535")
+    if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
+            or v.stride(2) != 1 or k.stride(0) % 4 or k.stride(1) % 4 \
+            or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must share batch and row strides, with "
+                         "channels contiguous and rows on 16-byte "
+                         f"boundaries; got {k.stride()}, {v.stride()}")
+    ns, nb, wq, bq, wo, bo = p
+    x = x.contiguous()
+    args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
+            _weight(wo, C, C), _vec(bo, C))
+    y = torch.empty_like(x)
+    h, q, attn = (torch.empty(B * L, C, device=x.device, dtype=torch.float32)
+                  for _ in range(3))
+    _ext.call("gvf_cross_sublayer1_f32", _ptr(x), *map(_ptr, args), _ptr(k),
+              _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
+              _ptr(q), _ptr(attn), B, L, C, num_heads)
+    launch_counts[single_launch_key(torch.float32, C // num_heads)] += 1
     return y
 
 

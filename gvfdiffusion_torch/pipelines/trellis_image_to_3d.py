@@ -11,8 +11,10 @@ of gvfdiffusion_tpu/pipelines/trellis_image_to_3d.py:36-226).
 
 The pipeline runs on `device`, "cuda" unless the caller asks for the CPU,
 and moves its modules there; without a CUDA device it raises. Only the
-Gaussian format is decoded: the mesh and radiance-field decoders, matting
-of RGB images without alpha, and the in-the-wild pipeline are not ported.
+Gaussian format is decoded (`decode_slat_formats`, `run(formats=...)`):
+"mesh" and "radiance_field" raise, their decoders not being ported; nor
+is matting of RGB images without alpha. The models come from their
+constructors or from a pretrained directory (models/registry.py).
 """
 
 from __future__ import annotations
@@ -32,6 +34,20 @@ from ..models.trellis.ss_vae import SparseStructureDecoder
 from ..scripts.process_video import resize_bilinear
 from ..sparse.tensor import SparseVoxels, from_dense
 from ..utils.device import resolve_device
+
+
+def check_formats(formats) -> None:
+    """JAX's formats are "gaussian", "mesh" and "radiance_field"; the mesh
+    and radiance-field SLat decoders are not ported (ROADMAP queue 7), so
+    asking for them raises, as does an unknown name."""
+    unported = [f for f in formats if f in ("mesh", "radiance_field")]
+    if unported:
+        raise NotImplementedError(
+            f"{unported}: the mesh and radiance-field SLat decoders are not "
+            "ported (ROADMAP queue 7)")
+    unknown = [f for f in formats if f != "gaussian"]
+    if unknown:
+        raise ValueError(f"unknown formats {unknown}")
 
 
 @dataclasses.dataclass
@@ -165,15 +181,28 @@ class TrellisImageTo3DPipeline:
         """-> (GaussianSplat [B, L * 8], valid [B, L * 8])."""
         return self.slat_decoder(slat, impl=impl)
 
+    def decode_slat_formats(self, slat: SparseVoxels,
+                            formats=("gaussian",)) -> Dict[str, Any]:
+        """The decodes `formats` asks for, by name: "gaussian" ->
+        (GaussianSplat, valid)."""
+        check_formats(formats)
+        return {"gaussian": self.decode_slat(slat)} \
+            if "gaussian" in formats else {}
+
     @torch.no_grad()
     def run(self, image: np.ndarray,
-            generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """One image [H, W, 3|4] -> dict(structure, slat, cond, gaussians,
-        valid), on the pipeline's device."""
+            generator: Optional[torch.Generator] = None,
+            formats=("gaussian",)) -> Dict[str, Any]:
+        """One image [H, W, 3|4] -> dict(structure, slat, cond) and, with
+        "gaussian" in `formats`, gaussians and valid; on the pipeline's
+        device."""
+        check_formats(formats)  # before any work
         pre = torch.from_numpy(self.preprocess_image(image))[None]
         cond = self.encode_image(pre)
         structure = self.sample_sparse_structure(cond, generator)
         slat = self.sample_slat(structure, cond, generator)
-        gs, valid = self.decode_slat(slat)
-        return dict(structure=structure, slat=slat, cond=cond, gaussians=gs,
-                    valid=valid)
+        out = dict(structure=structure, slat=slat, cond=cond)
+        decoded = self.decode_slat_formats(slat, formats)
+        if "gaussian" in decoded:
+            out["gaussians"], out["valid"] = decoded["gaussian"]
+        return out

@@ -3,7 +3,9 @@ gvfdiffusion_tpu/sparse/attention.py:34-204, 237-305).
 
 `full_sparse_attention` keeps the JAX dispatch. Where the JAX package
 takes the fused kernel K5 (Lq * Lk >= 1M inside K5's rule, the compacted
-SLat torso), the port takes K5 with the key validity as a -inf logit bias.
+SLat torso), the port takes K5 with the key validity as a -inf logit bias,
+computing in bf16 on the card whatever the model's dtype, as JAX calls it
+there (on the CPU in the model's dtype).
 Where it takes the stock Pallas flash kernel K7 (Lq * Lk >= 4096^2 past
 K5's rule: full attention over more than 4096 keys, the uncompacted
 torso), the port takes K7 (ops/flash_attention.py), on the CPU its plain
@@ -25,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..nn.attention import MultiHeadAttention
+from ..nn.attention import MultiHeadAttention, kernel_compute_dtype
 from ..nn.misc import dense
 from ..ops import flash_attention as fl
 from ..ops import fused_attention as fa
@@ -55,7 +57,8 @@ def full_sparse_attention(q, k, v, q_valid, kv_valid, dtype: torch.dtype,
     lq, lk = q.shape[1], k.shape[1]
     if fa.supports(q.shape, k.shape) and lq * lk >= FUSED_SCORE_ELEMENTS:
         bias = torch.where(kv_valid, 0.0, float("-inf")).float()
-        return fa.fused_attention(q, k, v, q.shape[-1] ** -0.5, dtype,
+        return fa.fused_attention(q, k, v, q.shape[-1] ** -0.5,
+                                  kernel_compute_dtype(q, dtype),
                                   kv_bias=bias, impl=impl)
     if lq * lk >= FLASH_SCORE_ELEMENTS and q.shape[-1] % 8 == 0:
         return fl.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype),
@@ -128,27 +131,38 @@ def windowed_sparse_attention(q, k, v, x: SparseVoxels, window_size: int,
 
 
 class SparseMultiHeadAttention(MultiHeadAttention):
-    """Sparse multi-head self-attention over the voxel features ("full" or
-    "windowed"); parameters as `nn/attention.MultiHeadAttention`. The SLat
-    torso's cross-attention runs inside K3 (models/trellis/slat_flow.py)."""
+    """Sparse multi-head attention over the voxel features: self-attention
+    ("full" or "windowed"), or with attn_type="cross" the voxels' queries
+    against a dense context [B, Lk, C_ctx] whose keys are all valid (the
+    SLat torso's cross sublayer under `qk_rms_norm_cross`; without it that
+    sublayer runs inside K3, models/trellis/slat_flow.py); parameters as
+    `nn/attention.MultiHeadAttention`."""
 
     def __init__(self, channels: int, num_heads: int, attn_mode: str = "full",
                  window_size: Optional[int] = None,
                  shift_window: Tuple[int, int, int] = (0, 0, 0),
-                 qk_rms_norm: bool = False):
+                 qk_rms_norm: bool = False, attn_type: str = "self",
+                 ctx_channels: Optional[int] = None):
         if attn_mode not in ("full", "windowed"):
             raise NotImplementedError(
                 f"sparse attention mode {attn_mode!r} is not ported")
-        super().__init__(channels, num_heads, "self", qk_rms_norm)
+        super().__init__(channels, num_heads, attn_type, qk_rms_norm,
+                         ctx_channels)
         self.attn_mode = attn_mode
         self.window_size = window_size
         self.shift_window = tuple(shift_window)
 
     def forward(self, x: SparseVoxels, dtype: torch.dtype,
+                context: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None) -> SparseVoxels:
         b, l, _ = x.feats.shape
-        q, k, v = self.project(x.feats, dtype)
-        if self.attn_mode == "full":
+        q, k, v = self.project(x.feats, dtype, context)
+        if self.attn_type == "cross":
+            kv_valid = torch.ones(context.shape[:2], dtype=torch.bool,
+                                  device=context.device)
+            out = full_sparse_attention(q, k, v, x.valid, kv_valid, dtype,
+                                        impl)
+        elif self.attn_mode == "full":
             out = full_sparse_attention(q, k, v, x.valid, x.valid, dtype,
                                         impl)
         else:

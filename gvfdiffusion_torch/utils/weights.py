@@ -1,21 +1,30 @@
-"""Carry the JAX package's parameters over to the port.
+"""Carry parameters between the JAX package's flax trees and the port.
 
-The `*_state_dict_from_flax` functions are the inverses of the
-`convert_*` functions of gvfdiffusion_tpu/utils/weight_convert.py (DiT,
-motion VAE, DINOv2, and TRELLIS's sparse-structure flow and decoder, SLat
-flow and SLat Gaussian decoder): they take a flax parameter tree (numpy or
-any array convertible with np.asarray) and return the torch state dict
-under the reference's names (the torch hub's for DINOv2), which the port's
-modules use. A flax Dense kernel [in, out] becomes a Linear weight
-[out, in]; a Conv kernel [kh, kw, (kd,) in, out] a Conv weight
-[out, in, kh, kw, (kd)]; a sparse conv kernel [k^3, in, out] spconv's
-[out, k, k, k, in]; a LayerNorm scale becomes its weight.
+Each model has one table (`*_table`, from the configuration that fixes its
+parameter count) of (torch name, flax path, transform) rows, one per
+parameter, and both directions read it:
+  * `from_flax`: a flax tree -> the torch state dict under the reference's
+    names (the torch hub's for DINOv2), which the port's modules use; the
+    inverse of gvfdiffusion_tpu/utils/weight_convert.py's `convert_*`;
+  * `to_flax`: a state dict -> {"params": tree}, what `convert_*` gives
+    (models/registry.save_params_npz writes it as a pretrained
+    directory's `.npz`).
+A row applies where its source holds the parameter, so the tree (or the
+state dict) says the optional parts: q/k RMS gammas, share_mod's top-level
+`adaLN_modulation`, skip projections, the DiT's temporal modules. A flax
+Dense kernel [in, out] is a Linear weight [out, in]; a Conv kernel [kh, kw,
+(kd,) in, out] a Conv weight [out, in, kh, kw, (kd)]; a sparse conv kernel
+[k^3, in, out] spconv's [out, k, k, k, in]; a LayerNorm scale its weight;
+the sparse-structure flow's patch features and the decoder's pixel shuffle
+go between the reference's channel-major and the JAX package's
+offset-major order. `*_state_dict_from_flax` read a model's table flax ->
+torch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,293 +58,343 @@ def init_random_(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return module
 
 
-def _node(tree: Dict, path: List[str]):
-    for p in path:
-        tree = tree[p]
-    return tree
+# -- rows and transforms ------------------------------------------------------
 
 
-def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+class Transform(NamedTuple):
+    """A parameter's layout change, flax -> torch, and its inverse."""
+    to_torch: Callable[[np.ndarray], np.ndarray]
+    to_flax: Callable[[np.ndarray], np.ndarray]
 
 
-def _linear(sd, tree, torch_name: str, path: List[str]) -> None:
-    node = _node(tree, path)
-    sd[f"{torch_name}.weight"] = _tensor(np.asarray(node["kernel"]).T)
-    if "bias" in node:
-        sd[f"{torch_name}.bias"] = _tensor(node["bias"])
+Row = Tuple[str, Tuple[str, ...], Transform]
+
+SAME = Transform(lambda a: a, lambda a: a)
+DENSE = Transform(lambda a: a.T, lambda a: a.T)  # [in, out] <-> [out, in]
 
 
-def _layernorm(sd, tree, torch_name: str, path: List[str]) -> None:
-    node = _node(tree, path)
-    if "scale" in node:
-        sd[f"{torch_name}.weight"] = _tensor(node["scale"])
-    if "bias" in node:
-        sd[f"{torch_name}.bias"] = _tensor(node["bias"])
+def _axes(to_torch: Tuple[int, ...]) -> Transform:
+    inv = tuple(int(i) for i in np.argsort(to_torch))
+    return Transform(lambda a: np.transpose(a, to_torch),
+                     lambda a: np.transpose(a, inv))
 
 
-def _mha(sd, tree, tname: str, path: List[str], is_self: bool) -> None:
-    if is_self:
-        _linear(sd, tree, f"{tname}.to_qkv", path + ["to_qkv"])
-    else:
-        _linear(sd, tree, f"{tname}.to_q", path + ["to_q"])
-        _linear(sd, tree, f"{tname}.to_kv", path + ["to_kv"])
-    _linear(sd, tree, f"{tname}.to_out", path + ["to_out"])
-    node = _node(tree, path)
-    for n in ("q_rms_norm", "k_rms_norm"):
-        if n in node:
-            sd[f"{tname}.{n}.gamma"] = _tensor(node[n]["gamma"])
+CONV2D = _axes((3, 2, 0, 1))     # [kh, kw, I, O] <-> [O, I, kh, kw]
+CONV3D = _axes((4, 3, 0, 1, 2))  # [k, k, k, I, O] <-> [O, I, k, k, k]
 
 
-def _params(params: Dict) -> Dict:
-    return params["params"] if "params" in params else params
+def _spconv_to_torch(a: np.ndarray) -> np.ndarray:
+    k = round(a.shape[0] ** (1 / 3))
+    return np.transpose(a.reshape(k, k, k, *a.shape[1:]), (4, 0, 1, 2, 3))
 
 
-def dit_state_dict_from_flax(params: Dict[str, Any],
-                             num_blocks: int = 12) -> Dict[str, torch.Tensor]:
-    """JAX DiT params ({'params': ...} or the bare tree) -> the port's DiT
-    state dict. The tree says the configuration: q/k RMS gammas where an
-    attention has them, a top-level `adaLN_modulation` under share_mod
-    (the blocks then have none), temporal modules unless
-    no_temporal_attn, and the learnable position embedding `pos_emb`
-    [1, N, C] as `pos_embedder`."""
-    p = _params(params)
-    sd: Dict[str, torch.Tensor] = {}
-    _linear(sd, p, "input_layer", ["input_layer"])
-    _linear(sd, p, "t_embedder.mlp.0", ["t_embedder", "mlp_0"])
-    _linear(sd, p, "t_embedder.mlp.2", ["t_embedder", "mlp_2"])
-    _linear(sd, p, "image_cond_proj", ["image_cond_proj"])
-    _linear(sd, p, "static_cond_proj", ["static_cond_proj"])
-    if "adaLN_modulation" in p:
-        _linear(sd, p, "adaLN_modulation.1", ["adaLN_modulation"])
-    if "pos_emb" in p:
-        sd["pos_embedder"] = _tensor(p["pos_emb"])
-    for i in range(num_blocks):
-        b, fp = f"blocks.{i}", [f"blocks_{i}"]
-        for n in ("adaLN_modulation", "adaLN_modulation_temporal"):
-            if n in p[fp[0]]:
-                _linear(sd, p, f"{b}.{n}.1", fp + [n])
-        _layernorm(sd, p, f"{b}.norm3", fp + ["norm3"])
-        _layernorm(sd, p, f"{b}.norm4", fp + ["norm4"])
-        _mha(sd, p, f"{b}.spatial_self_attn", fp + ["spatial_self_attn"], True)
-        if "temporal_self_attn" in p[fp[0]]:
-            _mha(sd, p, f"{b}.temporal_self_attn",
-                 fp + ["temporal_self_attn"], True)
-        _mha(sd, p, f"{b}.image_cross_attn", fp + ["image_cross_attn"], False)
-        _mha(sd, p, f"{b}.static_cross_attn", fp + ["static_cross_attn"],
-             False)
-        _linear(sd, p, f"{b}.mlp.mlp.0", fp + ["mlp", "mlp_0"])
-        _linear(sd, p, f"{b}.mlp.mlp.2", fp + ["mlp", "mlp_2"])
-    _linear(sd, p, "final_layer.adaLN_modulation.1",
-            ["final_layer", "adaLN_modulation"])
-    _linear(sd, p, "final_layer.linear", ["final_layer", "linear"])
-    return sd
+def _spconv_to_flax(w: np.ndarray) -> np.ndarray:
+    o, k0, k1, k2, i = w.shape
+    return np.transpose(w, (1, 2, 3, 4, 0)).reshape(k0 * k1 * k2, i, o)
 
 
-def motion_vae_state_dict_from_flax(
-        params: Dict[str, Any], depth: int = 12) -> Dict[str, torch.Tensor]:
-    """JAX MotionVAE params -> the port's MotionVAE state dict (the
-    encoder's parameters included)."""
-    p = _params(params)
-    sd: Dict[str, torch.Tensor] = {}
-    _linear(sd, p, "input_embedding.0", ["input_embedding"])
-    _linear(sd, p, "gs_embedding.0", ["gs_embedding"])
-    for n in ("to_q", "to_kv", "to_out"):
-        _linear(sd, p, f"cross_attend_blocks.0.fn.{n}", ["enc_cross", n])
-    _linear(sd, p, "cross_attend_blocks.1.fn.net.0", ["enc_ff", "net_0"])
-    _linear(sd, p, "cross_attend_blocks.1.fn.net.2", ["enc_ff", "net_2"])
-    _linear(sd, p, "mean_fc", ["mean_fc"])
-    _linear(sd, p, "logvar_fc", ["logvar_fc"])
-    _linear(sd, p, "proj", ["proj"])
-    for i in range(depth):
-        for n in ("to_q", "to_kv", "to_out"):
-            _linear(sd, p, f"layers.{i}.0.fn.{n}", [f"latent_attn_{i}", n])
-        _linear(sd, p, f"layers.{i}.1.fn.net.0", [f"latent_ff_{i}", "net_0"])
-        _linear(sd, p, f"layers.{i}.1.fn.net.2", [f"latent_ff_{i}", "net_2"])
-    for n in ("to_q", "to_kv", "to_out"):
-        _linear(sd, p, f"decoder_cross_attn.fn.{n}", ["dec_cross", n])
-    _linear(sd, p, "to_outputs", ["to_outputs"])
-    return sd
-
-
-def dinov2_state_dict_from_flax(params: Dict[str, Any],
-                                depth: int = 24) -> Dict[str, torch.Tensor]:
-    """JAX DinoV2 params -> the port's DinoV2 state dict, under the torch
-    hub's `dinov2_vitl14_reg` names (`blocks.N.attn.qkv`,
-    `blocks.N.ls1.gamma`, `patch_embed.proj`, `register_tokens`, ...)."""
-    p = _params(params)
-    sd: Dict[str, torch.Tensor] = {}
-    for n in ("cls_token", "pos_embed", "register_tokens"):
-        if n in p:
-            sd[n] = _tensor(p[n])
-    proj = p["patch_embed"]["proj"]
-    sd["patch_embed.proj.weight"] = _tensor(
-        np.transpose(np.asarray(proj["kernel"]), (3, 2, 0, 1)))
-    sd["patch_embed.proj.bias"] = _tensor(proj["bias"])
-    for i in range(depth):
-        b, fp = f"blocks.{i}", [f"blocks_{i}"]
-        _layernorm(sd, p, f"{b}.norm1", fp + ["norm1"])
-        _layernorm(sd, p, f"{b}.norm2", fp + ["norm2"])
-        _linear(sd, p, f"{b}.attn.qkv", fp + ["attn", "to_qkv"])
-        _linear(sd, p, f"{b}.attn.proj", fp + ["attn", "to_out"])
-        sd[f"{b}.ls1.gamma"] = _tensor(_node(p, fp + ["ls1_gamma"]))
-        sd[f"{b}.ls2.gamma"] = _tensor(_node(p, fp + ["ls2_gamma"]))
-        _linear(sd, p, f"{b}.mlp.fc1", fp + ["mlp", "fc1"])
-        _linear(sd, p, f"{b}.mlp.fc2", fp + ["mlp", "fc2"])
-    _layernorm(sd, p, "norm", ["norm"])
-    return sd
-
-
-# -- TRELLIS ------------------------------------------------------------------
+SPCONV = Transform(_spconv_to_torch, _spconv_to_flax)  # [k^3, I, O]
 
 
 def _perm(p3: int, channels: int) -> np.ndarray:
-    """JAX patch feature offset * C + c -> the reference's c * p3 + offset."""
+    """The reference's feature c * p3 + offset at JAX's offset * C + c."""
     return np.asarray([c * p3 + off for off in range(p3)
                        for c in range(channels)])
 
 
-def ss_flow_state_dict_from_flax(params: Dict[str, Any], num_blocks: int = 24,
-                                 in_channels: int = 8, out_channels: int = 8,
-                                 patch_size: int = 2) -> Dict[str, torch.Tensor]:
-    """Inverse of `convert_ss_flow`: JAX SparseStructureFlowModel params ->
-    the reference's (and the port's) state dict; the patch features of the
-    two projections go back to the reference's channel-major order."""
-    p = _params(params)
+def _permuted(perm: np.ndarray, axis: int, base: Transform) -> Transform:
+    """`base`, the flax array's `axis` in JAX's order (`perm` of the
+    reference's)."""
+    inv = np.argsort(perm)
+    return Transform(lambda a: base.to_torch(np.take(a, inv, axis)),
+                     lambda w: np.take(base.to_flax(w), perm, axis))
+
+
+def _pair(t: str, f: Sequence[str], tf: Transform, w: str) -> List[Row]:
+    """A layer's weight (flax `w`, through tf) and bias."""
+    f = tuple(f)
+    return [(f"{t}.weight", f + (w,), tf), (f"{t}.bias", f + ("bias",), SAME)]
+
+
+def _dense(t: str, f: Sequence[str]) -> List[Row]:
+    return _pair(t, f, DENSE, "kernel")
+
+
+def _norm(t: str, f: Sequence[str]) -> List[Row]:
+    return _pair(t, f, SAME, "scale")
+
+
+def _conv(t: str, f: Sequence[str], tf: Transform = CONV3D) -> List[Row]:
+    return _pair(t, f, tf, "kernel")
+
+
+def _mha(t: str, f: Sequence[str], is_self: bool) -> List[Row]:
+    """An attention's projections and q/k RMS gammas."""
+    f = list(f)
+    rows = (_dense(f"{t}.to_qkv", f + ["to_qkv"]) if is_self else
+            _dense(f"{t}.to_q", f + ["to_q"])
+            + _dense(f"{t}.to_kv", f + ["to_kv"]))
+    rows += _dense(f"{t}.to_out", f + ["to_out"])
+    return rows + [(f"{t}.{n}.gamma", tuple(f + [n, "gamma"]), SAME)
+                   for n in ("q_rms_norm", "k_rms_norm")]
+
+
+# -- the two directions -------------------------------------------------------
+
+
+def _get(tree, path: Tuple[str, ...]):
+    for p in path:
+        if not isinstance(tree, dict) or p not in tree:
+            return None
+        tree = tree[p]
+    return tree
+
+
+def from_flax(table: List[Row], params: Dict[str, Any]
+              ) -> Dict[str, torch.Tensor]:
+    """A flax tree ({'params': ...} or the bare tree; numpy or any array
+    np.asarray takes) -> the torch state dict: the rows whose flax path
+    the tree holds."""
+    p = params["params"] if "params" in params else params
     sd: Dict[str, torch.Tensor] = {}
-    p3 = patch_size ** 3
-    k = np.asarray(p["input_layer"]["kernel"])
-    w = np.zeros_like(k)
-    w[_perm(p3, in_channels)] = k
-    sd["input_layer.weight"] = _tensor(w.T)
-    sd["input_layer.bias"] = _tensor(p["input_layer"]["bias"])
-    _linear(sd, p, "t_embedder.mlp.0", ["t_embedder", "mlp_0"])
-    _linear(sd, p, "t_embedder.mlp.2", ["t_embedder", "mlp_2"])
-    for i in range(num_blocks):
-        b, fp = f"blocks.{i}", [f"blocks_{i}"]
-        _linear(sd, p, f"{b}.adaLN_modulation.1", fp + ["adaLN_modulation"])
-        _layernorm(sd, p, f"{b}.norm2", fp + ["norm2"])
-        _mha(sd, p, f"{b}.self_attn", fp + ["self_attn"], True)
-        _mha(sd, p, f"{b}.cross_attn", fp + ["cross_attn"], False)
-        _linear(sd, p, f"{b}.mlp.mlp.0", fp + ["mlp", "mlp_0"])
-        _linear(sd, p, f"{b}.mlp.mlp.2", fp + ["mlp", "mlp_2"])
-    perm = _perm(p3, out_channels)
-    k = np.asarray(p["out_layer"]["kernel"])
-    w = np.zeros_like(k)
-    w[:, perm] = k
-    bias = np.zeros(k.shape[1], np.float32)
-    bias[perm] = np.asarray(p["out_layer"]["bias"])
-    sd["out_layer.weight"] = _tensor(w.T)
-    sd["out_layer.bias"] = _tensor(bias)
+    for name, path, tf in table:
+        a = _get(p, path)
+        if a is not None:
+            sd[name] = torch.from_numpy(np.array(
+                tf.to_torch(np.asarray(a, np.float32)), dtype=np.float32))
     return sd
 
 
-def _conv3d(sd, tree, torch_name: str, path: List[str], out_perm=None):
-    """flax Conv kernel [k, k, k, I, O] -> torch Conv3d weight [O, I, k, k, k]
-    (output channels moved back by out_perm, as convert_ss_decoder moved
-    them)."""
-    node = _node(tree, path)
-    w, b = np.asarray(node["kernel"]), np.asarray(node["bias"])
-    if out_perm is not None:
-        w2, b2 = np.zeros_like(w), np.zeros_like(b)
-        w2[..., out_perm], b2[out_perm] = w, b
-        w, b = w2, b2
-    sd[f"{torch_name}.weight"] = _tensor(np.transpose(w, (4, 3, 0, 1, 2)))
-    sd[f"{torch_name}.bias"] = _tensor(b)
+def to_flax(table: List[Row], state_dict: Dict[str, Any]) -> Dict:
+    """A state dict -> {"params": tree}: the rows whose torch name it
+    holds."""
+    tree: Dict = {}
+    for name, path, tf in table:
+        if name not in state_dict:
+            continue
+        v = state_dict[name]
+        a = np.asarray(v.detach().float().cpu() if hasattr(v, "detach")
+                       else v)
+        node = tree
+        for q in path[:-1]:
+            node = node.setdefault(q, {})
+        node[path[-1]] = tf.to_flax(a)
+    return {"params": tree}
 
 
-def ss_decoder_state_dict_from_flax(params: Dict[str, Any],
-                                    channels=(512, 128, 32),
-                                    num_res_blocks: int = 2,
-                                    num_res_blocks_middle: int = 2
-                                    ) -> Dict[str, torch.Tensor]:
-    """Inverse of `convert_ss_decoder`."""
-    p = _params(params)
-    sd: Dict[str, torch.Tensor] = {}
+# -- one table per model ------------------------------------------------------
 
-    def res(tname, fp):
-        _layernorm(sd, p, f"{tname}.norm1", fp + ["norm1"])
-        _layernorm(sd, p, f"{tname}.norm2", fp + ["norm2"])
-        _conv3d(sd, p, f"{tname}.conv1", fp + ["conv1"])
-        _conv3d(sd, p, f"{tname}.conv2", fp + ["conv2"])
-        if "skip_connection" in _node(p, fp):
-            _conv3d(sd, p, f"{tname}.skip_connection", fp + ["skip_connection"])
 
-    _conv3d(sd, p, "input_layer", ["input_layer"])
+def dit_table(num_blocks: int = 12) -> List[Row]:
+    """The DiT: a top-level `adaLN_modulation` under share_mod (the blocks
+    then have none), temporal modules unless no_temporal_attn, the
+    learnable position embedding `pos_emb` [1, N, C] as `pos_embedder`."""
+    rows = (_dense("input_layer", ["input_layer"])
+            + _dense("t_embedder.mlp.0", ["t_embedder", "mlp_0"])
+            + _dense("t_embedder.mlp.2", ["t_embedder", "mlp_2"])
+            + _dense("image_cond_proj", ["image_cond_proj"])
+            + _dense("static_cond_proj", ["static_cond_proj"])
+            + _dense("adaLN_modulation.1", ["adaLN_modulation"])
+            + [("pos_embedder", ("pos_emb",), SAME)])
+    for i in range(num_blocks):
+        b, f = f"blocks.{i}", [f"blocks_{i}"]
+        for n in ("adaLN_modulation", "adaLN_modulation_temporal"):
+            rows += _dense(f"{b}.{n}.1", f + [n])
+        rows += _norm(f"{b}.norm3", f + ["norm3"])
+        rows += _norm(f"{b}.norm4", f + ["norm4"])
+        for n, is_self in (("spatial_self_attn", True),
+                           ("temporal_self_attn", True),
+                           ("image_cross_attn", False),
+                           ("static_cross_attn", False)):
+            rows += _mha(f"{b}.{n}", f + [n], is_self)
+        rows += _dense(f"{b}.mlp.mlp.0", f + ["mlp", "mlp_0"])
+        rows += _dense(f"{b}.mlp.mlp.2", f + ["mlp", "mlp_2"])
+    return (rows + _dense("final_layer.adaLN_modulation.1",
+                          ["final_layer", "adaLN_modulation"])
+            + _dense("final_layer.linear", ["final_layer", "linear"]))
+
+
+def motion_vae_table(depth: int = 12) -> List[Row]:
+    """The motion VAE, the encoder's parameters included."""
+    qkvo = ("to_q", "to_kv", "to_out")
+    rows = (_dense("input_embedding.0", ["input_embedding"])
+            + _dense("gs_embedding.0", ["gs_embedding"]))
+    for n in qkvo:
+        rows += _dense(f"cross_attend_blocks.0.fn.{n}", ["enc_cross", n])
+    rows += (_dense("cross_attend_blocks.1.fn.net.0", ["enc_ff", "net_0"])
+             + _dense("cross_attend_blocks.1.fn.net.2", ["enc_ff", "net_2"])
+             + _dense("mean_fc", ["mean_fc"])
+             + _dense("logvar_fc", ["logvar_fc"]) + _dense("proj", ["proj"]))
+    for i in range(depth):
+        for n in qkvo:
+            rows += _dense(f"layers.{i}.0.fn.{n}", [f"latent_attn_{i}", n])
+        rows += _dense(f"layers.{i}.1.fn.net.0", [f"latent_ff_{i}", "net_0"])
+        rows += _dense(f"layers.{i}.1.fn.net.2", [f"latent_ff_{i}", "net_2"])
+    for n in qkvo:
+        rows += _dense(f"decoder_cross_attn.fn.{n}", ["dec_cross", n])
+    return rows + _dense("to_outputs", ["to_outputs"])
+
+
+def dinov2_table(depth: int = 24) -> List[Row]:
+    """DINOv2 under the torch hub's `dinov2_vitl14_reg` names."""
+    rows = [(n, (n,), SAME) for n in ("cls_token", "pos_embed",
+                                      "register_tokens")]
+    rows += _conv("patch_embed.proj", ["patch_embed", "proj"], CONV2D)
+    for i in range(depth):
+        b, f = f"blocks.{i}", [f"blocks_{i}"]
+        rows += (_norm(f"{b}.norm1", f + ["norm1"])
+                 + _norm(f"{b}.norm2", f + ["norm2"])
+                 + _dense(f"{b}.attn.qkv", f + ["attn", "to_qkv"])
+                 + _dense(f"{b}.attn.proj", f + ["attn", "to_out"])
+                 + [(f"{b}.ls{j}.gamma", (f[0], f"ls{j}_gamma"), SAME)
+                    for j in (1, 2)]
+                 + _dense(f"{b}.mlp.fc1", f + ["mlp", "fc1"])
+                 + _dense(f"{b}.mlp.fc2", f + ["mlp", "fc2"]))
+    return rows + _norm("norm", ["norm"])
+
+
+def ss_flow_table(num_blocks: int = 24, in_channels: int = 8,
+                  out_channels: int = 8, patch_size: int = 2) -> List[Row]:
+    """The sparse-structure flow (share_mod's top-level `adaLN_modulation`
+    where the source has one)."""
+    p3 = patch_size ** 3
+    pin, pout = _perm(p3, in_channels), _perm(p3, out_channels)
+    rows = [("input_layer.weight", ("input_layer", "kernel"),
+             _permuted(pin, 0, DENSE)),
+            ("input_layer.bias", ("input_layer", "bias"), SAME)]
+    rows += (_dense("t_embedder.mlp.0", ["t_embedder", "mlp_0"])
+             + _dense("t_embedder.mlp.2", ["t_embedder", "mlp_2"])
+             + _dense("adaLN_modulation.1", ["adaLN_modulation"]))
+    for i in range(num_blocks):
+        b, f = f"blocks.{i}", [f"blocks_{i}"]
+        rows += (_dense(f"{b}.adaLN_modulation.1", f + ["adaLN_modulation"])
+                 + _norm(f"{b}.norm2", f + ["norm2"])
+                 + _mha(f"{b}.self_attn", f + ["self_attn"], True)
+                 + _mha(f"{b}.cross_attn", f + ["cross_attn"], False)
+                 + _dense(f"{b}.mlp.mlp.0", f + ["mlp", "mlp_0"])
+                 + _dense(f"{b}.mlp.mlp.2", f + ["mlp", "mlp_2"]))
+    return rows + [("out_layer.weight", ("out_layer", "kernel"),
+                    _permuted(pout, 1, DENSE)),
+                   ("out_layer.bias", ("out_layer", "bias"),
+                    _permuted(pout, 0, SAME))]
+
+
+def ss_decoder_table(channels: Sequence[int] = (512, 128, 32),
+                     num_res_blocks: int = 2,
+                     num_res_blocks_middle: int = 2) -> List[Row]:
+    """The occupancy decoder (LayerNorm or GroupNorm weights alike), the
+    upsamples' output channels in the pixel shuffle's order."""
+
+    def res(t, f):
+        return (_norm(f"{t}.norm1", f + ["norm1"])
+                + _norm(f"{t}.norm2", f + ["norm2"])
+                + _conv(f"{t}.conv1", f + ["conv1"])
+                + _conv(f"{t}.conv2", f + ["conv2"])
+                + _conv(f"{t}.skip_connection", f + ["skip_connection"]))
+
+    rows = _conv("input_layer", ["input_layer"])
     for j in range(num_res_blocks_middle):
-        res(f"middle_block.{j}", [f"middle_{j}"])
+        rows += res(f"middle_block.{j}", [f"middle_{j}"])
     bi = 0
     for i, _ in enumerate(channels):
         for j in range(num_res_blocks):
-            res(f"blocks.{bi}", [f"block_{i}_{j}"])
+            rows += res(f"blocks.{bi}", [f"block_{i}_{j}"])
             bi += 1
         if i < len(channels) - 1:
-            _conv3d(sd, p, f"blocks.{bi}.conv", [f"up_{i}", "conv"],
-                    out_perm=_perm(8, channels[i + 1]))
+            perm = _perm(8, channels[i + 1])
+            rows += [(f"blocks.{bi}.conv.weight",
+                      (f"up_{i}", "conv", "kernel"),
+                      _permuted(perm, 4, CONV3D)),
+                     (f"blocks.{bi}.conv.bias", (f"up_{i}", "conv", "bias"),
+                      _permuted(perm, 0, SAME))]
             bi += 1
-    _layernorm(sd, p, "out_layer.0", ["out_norm"])
-    _conv3d(sd, p, "out_layer.2", ["out_layer"])
-    return sd
+    return (rows + _norm("out_layer.0", ["out_norm"])
+            + _conv("out_layer.2", ["out_layer"]))
 
 
 def _spconv(sd, tree, torch_name: str, path: List[str]) -> None:
-    """flax SparseConv3d kernel [K^3, I, O] -> spconv [O, k, k, k, I]."""
-    node = _node(tree, path)
-    w = np.asarray(node["kernel"])
-    k = round(w.shape[0] ** (1 / 3))
-    w = w.reshape(k, k, k, w.shape[1], w.shape[2])
-    sd[f"{torch_name}.weight"] = _tensor(np.transpose(w, (4, 0, 1, 2, 3)))
-    sd[f"{torch_name}.bias"] = _tensor(node["bias"])
+    """One sparse conv's flax parameters at `path` of `tree` into `sd`."""
+    sd.update(from_flax(_conv(torch_name, path, SPCONV), tree))
 
 
-def _slat_res_block(sd, p, b: str, fp: List[str]) -> None:
-    _layernorm(sd, p, f"{b}.norm1", fp + ["norm1", "LayerNorm_0"])
-    _spconv(sd, p, f"{b}.conv1.conv", fp + ["conv1"])
-    _spconv(sd, p, f"{b}.conv2.conv", fp + ["conv2"])
-    _linear(sd, p, f"{b}.emb_layers.1", fp + ["emb_layers"])
-    if "skip_connection" in _node(p, fp):
-        _linear(sd, p, f"{b}.skip_connection",
-                fp + ["skip_connection", "Dense_0"])
+def _slat_res_block(b: str, f: List[str]) -> List[Row]:
+    return (_norm(f"{b}.norm1", f + ["norm1", "LayerNorm_0"])
+            + _conv(f"{b}.conv1.conv", f + ["conv1"], SPCONV)
+            + _conv(f"{b}.conv2.conv", f + ["conv2"], SPCONV)
+            + _dense(f"{b}.emb_layers.1", f + ["emb_layers"])
+            + _dense(f"{b}.skip_connection",
+                     f + ["skip_connection", "Dense_0"]))
 
 
-def slat_flow_state_dict_from_flax(params: Dict[str, Any],
-                                   num_blocks: int = 24,
+def slat_flow_table(num_blocks: int = 24,
+                    io_block_channels: Sequence[int] = (128,),
+                    num_io_res_blocks: int = 2) -> List[Row]:
+    """The SLat flow (share_mod's top-level `adaLN_modulation` and the
+    cross q/k RMS gammas of qk_rms_norm_cross where the source has them)."""
+    rows = (_dense("input_layer", ["input_layer", "Dense_0"])
+            + _dense("t_embedder.mlp.0", ["t_embedder", "mlp_0"])
+            + _dense("t_embedder.mlp.2", ["t_embedder", "mlp_2"])
+            + _dense("adaLN_modulation.1", ["adaLN_modulation"]))
+    for i in range(len(io_block_channels) * num_io_res_blocks):
+        rows += _slat_res_block(f"input_blocks.{i}", [f"input_blocks_{i}"])
+        rows += _slat_res_block(f"out_blocks.{i}", [f"out_blocks_{i}"])
+    for i in range(num_blocks):
+        b, f = f"blocks.{i}", [f"blocks_{i}"]
+        rows += (_dense(f"{b}.adaLN_modulation.1", f + ["adaLN_modulation"])
+                 + _norm(f"{b}.norm2", f + ["norm2", "LayerNorm_0"])
+                 + _mha(f"{b}.self_attn", f + ["self_attn"], True)
+                 + _mha(f"{b}.cross_attn", f + ["cross_attn"], False)
+                 + _dense(f"{b}.mlp.mlp.0", f + ["mlp", "mlp_0", "Dense_0"])
+                 + _dense(f"{b}.mlp.mlp.2", f + ["mlp", "mlp_2", "Dense_0"]))
+    return rows + _dense("out_layer", ["out_layer", "Dense_0"])
+
+
+def slat_gs_decoder_table(num_blocks: int = 12) -> List[Row]:
+    """The SLat Gaussian decoder (its torso under JAX's `torso`)."""
+    rows = _dense("input_layer", ["torso", "input_layer", "Dense_0"])
+    for i in range(num_blocks):
+        b, f = f"blocks.{i}", ["torso", f"blocks_{i}"]
+        rows += (_mha(f"{b}.attn", f + ["attn"], True)
+                 + _dense(f"{b}.mlp.mlp.0", f + ["mlp", "mlp_0", "Dense_0"])
+                 + _dense(f"{b}.mlp.mlp.2", f + ["mlp", "mlp_2", "Dense_0"]))
+    return rows + _dense("out_layer", ["out_layer", "Dense_0"])
+
+
+# -- flax -> torch, by model ---------------------------------------------------
+
+
+def dit_state_dict_from_flax(params, num_blocks: int = 12):
+    return from_flax(dit_table(num_blocks), params)
+
+
+def motion_vae_state_dict_from_flax(params, depth: int = 12):
+    return from_flax(motion_vae_table(depth), params)
+
+
+def dinov2_state_dict_from_flax(params, depth: int = 24):
+    return from_flax(dinov2_table(depth), params)
+
+
+def ss_flow_state_dict_from_flax(params, num_blocks: int = 24,
+                                 in_channels: int = 8, out_channels: int = 8,
+                                 patch_size: int = 2):
+    return from_flax(ss_flow_table(num_blocks, in_channels, out_channels,
+                                   patch_size), params)
+
+
+def ss_decoder_state_dict_from_flax(params, channels=(512, 128, 32),
+                                    num_res_blocks: int = 2,
+                                    num_res_blocks_middle: int = 2):
+    return from_flax(ss_decoder_table(channels, num_res_blocks,
+                                      num_res_blocks_middle), params)
+
+
+def slat_flow_state_dict_from_flax(params, num_blocks: int = 24,
                                    io_block_channels=(128,),
-                                   num_io_res_blocks: int = 2
-                                   ) -> Dict[str, torch.Tensor]:
-    """Inverse of `convert_slat_flow`."""
-    p = _params(params)
-    sd: Dict[str, torch.Tensor] = {}
-    _linear(sd, p, "input_layer", ["input_layer", "Dense_0"])
-    _linear(sd, p, "t_embedder.mlp.0", ["t_embedder", "mlp_0"])
-    _linear(sd, p, "t_embedder.mlp.2", ["t_embedder", "mlp_2"])
-    n_io = len(io_block_channels) * num_io_res_blocks
-    for i in range(n_io):
-        _slat_res_block(sd, p, f"input_blocks.{i}", [f"input_blocks_{i}"])
-        _slat_res_block(sd, p, f"out_blocks.{i}", [f"out_blocks_{i}"])
-    for i in range(num_blocks):
-        b, fp = f"blocks.{i}", [f"blocks_{i}"]
-        _linear(sd, p, f"{b}.adaLN_modulation.1", fp + ["adaLN_modulation"])
-        _layernorm(sd, p, f"{b}.norm2", fp + ["norm2", "LayerNorm_0"])
-        _mha(sd, p, f"{b}.self_attn", fp + ["self_attn"], True)
-        _mha(sd, p, f"{b}.cross_attn", fp + ["cross_attn"], False)
-        _linear(sd, p, f"{b}.mlp.mlp.0", fp + ["mlp", "mlp_0", "Dense_0"])
-        _linear(sd, p, f"{b}.mlp.mlp.2", fp + ["mlp", "mlp_2", "Dense_0"])
-    _linear(sd, p, "out_layer", ["out_layer", "Dense_0"])
-    return sd
+                                   num_io_res_blocks: int = 2):
+    return from_flax(slat_flow_table(num_blocks, io_block_channels,
+                                     num_io_res_blocks), params)
 
 
-def slat_gs_decoder_state_dict_from_flax(params: Dict[str, Any],
-                                         num_blocks: int = 12
-                                         ) -> Dict[str, torch.Tensor]:
-    """Inverse of `convert_slat_gs_decoder` (the JAX `torso` prefix goes)."""
-    p = _params(params)
-    sd: Dict[str, torch.Tensor] = {}
-    _linear(sd, p, "input_layer", ["torso", "input_layer", "Dense_0"])
-    for i in range(num_blocks):
-        b, fp = f"blocks.{i}", ["torso", f"blocks_{i}"]
-        _mha(sd, p, f"{b}.attn", fp + ["attn"], True)
-        _linear(sd, p, f"{b}.mlp.mlp.0", fp + ["mlp", "mlp_0", "Dense_0"])
-        _linear(sd, p, f"{b}.mlp.mlp.2", fp + ["mlp", "mlp_2", "Dense_0"])
-    _linear(sd, p, "out_layer", ["out_layer", "Dense_0"])
-    return sd
+def slat_gs_decoder_state_dict_from_flax(params, num_blocks: int = 12):
+    return from_flax(slat_gs_decoder_table(num_blocks), params)

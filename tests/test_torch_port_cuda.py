@@ -14,7 +14,9 @@ without one; run them on the GPU with
     python -m pytest tests/test_torch_port_cuda.py -m cuda -q
 
 K7 (the flash attention over key validity, heads of 64) runs at key
-lengths 70, 4097 and 32768 with prefix, scattered and empty validity;
+lengths 70, 4097 and 32768 with prefix, scattered and empty validity, and
+in fp32 and at heads of 32 and 128 (both dtypes) over 4097 keys; K3's
+single context at compute_dtype=float32 at key lengths 37 and 1374;
 K3's int8 form at the DiT's heads of 32 with both q-scale domains; K1 and
 K2 with int8 QK (`quant_qk`) at several frames, N of 100, 128 and 512 and
 T of 24 and 32 over 24 and 48 voxels (voxel groups of 8 and 16); the
@@ -23,8 +25,11 @@ multi-round, early-exit tile blend on the card against the CPU.
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
 and of the update y - x, <= (3e-3, 3e-2) for the attention sublayers and
-(5e-4, 3e-3) for the MLP; 3e-2 for a 2-block DiT forward; ATTN_BOUND for
-K5's output and DINO_BOUND for a 2-block DINOv2's tokens; GRAD_BOUND for
+(5e-4, 3e-3) for the MLP; FLASH_F32_BOUND and CROSS_F32_BOUNDS for the
+fp32 forms of K7 and K3, whose kernels and plain versions differ by the
+order of their fp32 sums alone; 3e-2 for a 2-block DiT forward;
+ATTN_BOUND for K5's output and DINO_BOUND for a 2-block DINOv2's tokens
+(bf16 and fp32 models, K5 computing in bf16 from either); GRAD_BOUND for
 the gradients of K5 and K6 (the Functions' fp32 backward against autograd
 through the bf16-rounded plain forward), COMPOSED_BOUNDS for the composed
 DiT.
@@ -314,8 +319,15 @@ def test_dinov2_kernels_match_plain(dev):
     ref = encode_image(dino, x, impl="plain")
     assert y.shape == (3, 174, 128)
     assert _rel(y, ref) <= DINO_BOUND, _rel(y, ref)
-    with pytest.raises(TypeError):  # fp32 model on the card
-        DinoV2(img_size=182, embed_dim=128, depth=1, num_heads=2).to(dev)(x)
+    # an fp32 model on the card: K5 computes in bf16 from its fp32 q/k/v, as
+    # JAX calls it on its chip, and its plain version on the card likewise
+    dino32 = init_random_(DinoV2(img_size=182, embed_dim=128, depth=2,
+                                 num_heads=2), seed=8).to(dev)
+    fa.reset_launch_counts()
+    y32 = encode_image(dino32, x)
+    assert fa.launch_counts["attention"] == 2
+    ref32 = encode_image(dino32, x, impl="plain")
+    assert _rel(y32, ref32) <= DINO_BOUND, _rel(y32, ref32)
 
 
 def test_attention_outside_the_kernels_raises(dev):
@@ -323,7 +335,7 @@ def test_attention_outside_the_kernels_raises(dev):
     the JAX package takes XLA's attention there (no K5 launch, the same
     function); K6's outside its rule JAX's einsum form; full sparse
     attention over more than 4096 keys takes the flash kernel K7, which
-    raises for heads it does not take."""
+    raises for heads it does not take (32, 64 and 128 it takes)."""
     import torch.nn.functional as F
     from gvfdiffusion_torch.nn.attention import scaled_dot_product_attention
     from gvfdiffusion_torch.ops import flash_attention as fl
@@ -342,8 +354,8 @@ def test_attention_outside_the_kernels_raises(dev):
     fl.reset_launch_counts()
     full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)
     assert fl.launch_counts["flash_attention"] == 1
-    with pytest.raises(ValueError):  # heads of 32: K7 takes 64
-        full_sparse_attention(*(a[..., :32] for a in (q, k, v)),
+    with pytest.raises(ValueError, match="heads of"):  # K7: 32, 64, 128
+        full_sparse_attention(*(a[..., :16].contiguous() for a in (q, k, v)),
                               valid[:, :4096], valid, torch.bfloat16)
     from gvfdiffusion_torch.nn.attention import MultiHeadAttention
 
@@ -588,15 +600,165 @@ def test_flash_attention_counts_and_checks(dev):
     fl.reset_launch_counts()
     fl.flash_attention(q, k, v, valid, 0.125)
     fl.flash_attention(q, k, v, valid, 0.125, impl="plain")
-    assert fl.launch_counts == {"flash_attention": 1}
-    with pytest.raises(TypeError):  # fp32: the kernel takes bf16
-        fl.flash_attention(q.float(), k.float(), v.float(), valid, 0.125)
-    with pytest.raises(ValueError):  # heads of 32
-        fl.flash_attention(*(a[..., :32] for a in (q, k, v)), valid, 0.125)
+    fl.flash_attention(q.float(), k.float(), v.float(), valid, 0.125)
+    fl.flash_attention(*(a[..., :32].contiguous() for a in (q, k, v)),
+                       valid, 0.125)
+    assert {k_: n for k_, n in fl.launch_counts.items() if n} == {
+        "flash_attention": 1, "flash_attention_fp32": 1,
+        "flash_attention_d32": 1}
+    with pytest.raises(TypeError):  # fp32 q with bf16 k/v: never cast
+        fl.flash_attention(q.float(), k, v, valid, 0.125)
+    with pytest.raises(ValueError, match="heads of"):  # heads of 16
+        fl.flash_attention(*(a[..., :16].contiguous() for a in (q, k, v)),
+                           valid, 0.125)
     with pytest.raises(TypeError):  # a float validity
         fl.flash_attention(q, k, v, valid.float(), 0.125)
     with pytest.raises(RuntimeError):  # no backward: raises under grad
         fl.flash_attention(q.requires_grad_(), k, v, valid, 0.125)
+
+
+# K7 in fp32 against its plain version: both fp32 throughout (FFMA in the
+# kernel, fp32 einsums in the plain version), so they differ by the order
+# of the sums alone
+FLASH_F32_BOUND = 1e-5
+
+
+@pytest.mark.parametrize("kind", ["prefix", "scattered", "empty"])
+@pytest.mark.parametrize("dtype,D", [("float32", 64), ("float32", 32),
+                                     ("float32", 128), ("bfloat16", 32),
+                                     ("bfloat16", 128)])
+def test_flash_attention_kernel_forms(dev, dtype, D, kind):
+    """K7 in fp32 and at heads of 32 and 128 (both dtypes), Lq = 200 over
+    Lk = 4097 keys (a ragged last tile); v the view of a [B, Lk, 3, H, D]
+    projection; the launch counted under its dtype and width."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    dt = getattr(torch, dtype)
+    B, H, Lq, Lk = 2, 3, 200, 4097
+    q = torch.randn(B, Lq, H, D, generator=g, device=dev).to(dt)
+    k = torch.randn(B, Lk, H, D, generator=g, device=dev).to(dt)
+    v = torch.randn(B, Lk, 3, H, D, generator=g, device=dev).to(dt)[:, :, 2]
+    valid = _flash_validity(dev, kind, B, Lk, g)
+    fl.reset_launch_counts()
+    y = fl.flash_attention(q, k, v, valid, D ** -0.5)
+    ref = fl.flash_attention(q, k, v, valid, D ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert fl.launch_counts[fl.launch_key(dt, D)] == 1
+    assert y.shape == q.shape and y.dtype == dt
+    assert bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"flash {dtype} D={D} {kind}: rel_l2 {err:.3e}")
+    bound = FLASH_F32_BOUND if dt == torch.float32 else FLASH_BOUND
+    assert err <= bound
+    if kind == "empty":  # sum(V) / Lk padded to 512, in every row
+        want = v[0].float().sum(0) / fl.padded_keys(Lk)
+        assert _rel(y[0], want.expand_as(y[0])) <= bound
+
+
+# K3's single-context form at compute_dtype=float32 against its plain
+# version: fp32 throughout, as K7 in fp32
+CROSS_F32_BOUNDS = (1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("L,lk", [(100, 37), (128, 1374)])
+def test_cross_single_kernel_fp32(dev, L, lk):
+    """The fp32 chain (fp32 LN, FFMA projections and attention) at heads
+    of 64 (C = 128, 2 heads); k and v the halves of one [B, lk, 2C]
+    projection; a bf16 tensor is refused, never cast."""
+    d = _Draw(dev, 13, 128)
+    x = d(3, L, 128).float()
+    p, _ = d.cross(3, lk)
+    p = tuple(a.float() for a in p)
+    kv = d(3, lk, 256).float()
+    args = (x, p, (kv[..., :128], kv[..., 128:]))
+    pt.reset_launch_counts()
+    with torch.no_grad():
+        y = pt.fused_cross_sublayer(*args, num_heads=2,
+                                    compute_dtype=torch.float32)
+        ref = pt.fused_cross_sublayer(*args, num_heads=2,
+                                      compute_dtype=torch.float32,
+                                      impl="plain")
+        torch.cuda.synchronize()
+        assert pt.launch_counts["cross_single_fp32"] == 1
+        assert pt.launch_counts["cross_single"] == 0
+        with pytest.raises(TypeError):  # bf16 weights at compute fp32
+            pt.fused_cross_sublayer(
+                x, tuple(a.bfloat16() for a in p), args[2], num_heads=2,
+                compute_dtype=torch.float32)
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    upd = _rel(y - x, ref - x)
+    print(f"cross_single fp32 L={L} lk={lk}: rel_l2 {err:.3e} update_rel_l2 "
+          f"{upd:.3e}")
+    assert err <= CROSS_F32_BOUNDS[0] and upd <= CROSS_F32_BOUNDS[1], (err,
+                                                                       upd)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [32, 128])
+def test_cross_single_kernel_heads(dev, D, dtype):
+    """K3's single context at heads of 32 and 128 (C = 256: 8 heads or 2),
+    bf16 (fp32 x, as the SLat torso's residual stream) and fp32, against
+    the plain version; the launch goes to the counter of its dtype and
+    width."""
+    d = _Draw(dev, 14, 256)
+    tdt = getattr(torch, dtype)
+    x = d(2, 200, 256).float()
+    p, _ = d.cross(2, 300)
+    kv = d(2, 300, 512)
+    if tdt == torch.float32:
+        p, kv = tuple(a.float() for a in p), kv.float()
+    args = (x, p, (kv[..., :256], kv[..., 256:]))
+    key = pt.single_launch_key(tdt, D)
+    pt.reset_launch_counts()
+    with torch.no_grad():
+        y = pt.fused_cross_sublayer(*args, num_heads=256 // D,
+                                    compute_dtype=tdt)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in pt.launch_counts.items() if n} == {key: 1}
+        ref = pt.fused_cross_sublayer(*args, num_heads=256 // D,
+                                      compute_dtype=tdt, impl="plain")
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    err, upd = _rel(y, ref), _rel(y - x, ref - x)
+    print(f"{key}: rel_l2 {err:.3e} update_rel_l2 {upd:.3e}")
+    bounds = CROSS_F32_BOUNDS if tdt == torch.float32 else \
+        BOUNDS["cross_single"]
+    assert err <= bounds[0] and upd <= bounds[1], (err, upd)
+
+
+@pytest.mark.parametrize("model", ["ss_decoder", "dinov2"])
+def test_fp32_convolutions_take_no_tf32(dev, model):
+    """An fp32 model's convolutions (the occupancy decoder's, DINOv2's
+    patch embedding) compute in fp32 on the card with cuDNN's TF32 on, its
+    default, as a caller gets it: they agree with the same module on the
+    CPU at fp32 level (TF32 would read ~1e-3)."""
+    from gvfdiffusion_torch.models.trellis.ss_vae import (
+        SparseStructureDecoder)
+
+    g = torch.Generator().manual_seed(15)
+    if model == "ss_decoder":
+        m = SparseStructureDecoder(latent_channels=8, num_res_blocks=1,
+                                   channels=(128, 64), num_res_blocks_middle=1)
+        x = torch.randn(1, 8, 8, 8, 8, generator=g)
+        fn = lambda mod, a: mod(a)
+    else:
+        m = DinoV2(img_size=56, embed_dim=256, depth=1, num_heads=4)
+        x = torch.rand(1, 56, 56, 3, generator=g)
+        fn = lambda mod, a: mod.patch_embed(a, torch.float32)
+    m = init_random_(m, seed=16).eval()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            want = fn(m, x)
+            got = fn(m.to(dev), x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.backends.cudnn.allow_tf32 == prev
+    err = _rel(got, want)
+    print(f"{model} fp32 card vs CPU: rel_l2 {err:.3e}")
+    assert err <= 1e-5, err
 
 
 def _q8_case(dev, B, L, lks, seed):

@@ -56,6 +56,7 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.utils.checkpoint",
     "gvfdiffusion_torch.cli.main_latent",
     "gvfdiffusion_torch.ops.flash_attention",
+    "gvfdiffusion_torch.models.registry",
 ]
 
 
