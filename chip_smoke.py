@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
+    python3 chip_smoke.py --vae      # build + the VAE phases only
     python3 chip_smoke.py --profile  # build + profiled denoise (float,
                                      # int8 cache, int8 QK), encode,
                                      # TRELLIS flow forwards (also at the
@@ -48,7 +49,13 @@ Phases, each printed on its own lines:
      (3700 valid keys, prefix and scattered) and K3's single context in
      fp32 at [1, 32768, 1024] x 1374 (library: F.layer_norm, cuBLAS fp32,
      SDPA in fp32, the residual), and K7 in bf16 at the torso's other head
-     widths, [1, 32768, 32, 32] and [1, 32768, 8, 128];
+     widths, [1, 32768, 32, 32] and [1, 32768, 8, 128]; then the static
+     VAE's `full` attention ([vae-kernels]): K7's fp32 forward with its
+     logsumexp residual and the dkv and dq backward kernels at [2, 32768,
+     12, 64] fp32 (two seeded surface shells, 15721 and 12219 valid keys,
+     as prefixes), against the plain forward and backward on every row,
+     with SDPA under the boolean key mask (forward; its backward) as the
+     library call;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -118,8 +125,8 @@ Phases, each printed on its own lines:
   5e. the SLat flow at heads of 32 and 128 ([trellis-heads]): built by
      registry.create_model from the release arguments with
      num_head_channels 32 or 128 (fp32, and its bf16 twin), each through
-     sample_slat on that structure and conditioning at 32768 slots (2
-     steps, cut from 12), so K7 and K3's single context run at those
+     sample_slat on that structure and conditioning at 32768 slots (1
+     step, cut from 12), so K7 and K3's single context run at those
      widths in both dtypes (launches checked), bf16 against fp32;
   6. the DiT's training at full width through cli/main_latent.main on
      configs/diffusion.yml (12 x 512, batch 2 x 24 frames, grad_accum 2,
@@ -137,7 +144,20 @@ Phases, each printed on its own lines:
      launches (the launches of K5 and K6 at heads of 64 counted in the
      8-head run), and one micro-step of each on seeded random weights,
      kernels against impl="plain" (main()'s losses are the same at every
-     configuration: flax's zero final layer makes the output 0).
+     configuration: flax's zero final layer makes the output 0);
+  7. the VAE's training ([vae-train]) through `python -m
+     gvfdiffusion_torch.cli.main_vae --config configs/vae.yml` in a process
+     of its own, at full width (static VAE 768 channels, 12 + 12 blocks,
+     12 heads of 64, 32768 voxel slots, 8 Gaussians a voxel; motion VAE
+     depth 12, dim 768, 8192 points, 512 latents; 512^2 binned renders;
+     LPIPS on seeded weights) over a seeded dataset in VAEDataset's layout
+     (two objects, 2 frames x 2 views), static_vae.remat_blocks 12 and 2
+     frames a sample: in `full` attention 2 phase-A and 2 phase-B steps
+     (K7's residual forward, dkv and dq launches read from its log: 48,
+     24 and 24 a step), in the shipped `swin` 1 + 1 (none); step times,
+     peak memory and every loss term per step; then one phase-A step at 2
+     + 2 blocks on random weights, kernels against impl="plain" (loss and
+     gradients).
 Then one JSON line of per-kernel results and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without a CUDA device, or without
@@ -301,6 +321,20 @@ KERNELS = [
     ("fused_cross_sublayer[single context, heads of 128, fp32]",
      "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
      "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_fp32_d128"),
+    # the static VAE's training in `full` attention ([vae-kernels],
+    # [vae-train]): K7's fp32 forward with its residual and the stock
+    # kernel's two backward kernels (jax 0.9.0's site-packages file)
+    ("flash_attention[fp32 forward with residual, static VAE]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_fp32_res"),
+    ("flash_attention backward dkv",
+     "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+     "gvfdiffusion_torch/csrc/flash_attention_bwd.cu",
+     "flash_attention_bwd_dkv"),
+    ("flash_attention backward dq",
+     "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+     "gvfdiffusion_torch/csrc/flash_attention_bwd.cu",
+     "flash_attention_bwd_dq"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
@@ -526,11 +560,12 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def time_ms(fn, iters: int = 10) -> float:
+def time_ms(fn, iters: int = 10, warm: int = 2) -> float:
+    """Mean ms of `iters` calls after `warm` warm-up calls (CUDA events)."""
     import torch
 
-    fn()
-    fn()
+    for _ in range(warm):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -786,6 +821,8 @@ def phase_kernels(dev):
                             library_ms=lib_ms)
     for name, replaces, source, key in KERNELS:
         base, variant = FORMS.get(key, (key, shipped))
+        if key in VAE_FLASH:
+            continue
         if base in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
                                               key)
@@ -802,6 +839,7 @@ def phase_kernels(dev):
                                      base, cases_of(variant)[QK8[base]])
         elif base not in SUBLAYERS:
             results[key] = phase_attention(dev, name, replaces, source, key)
+    results.update(phase_vae_kernels(dev))
     return results
 
 
@@ -1601,6 +1639,378 @@ def train_configs(work, data, dev, card):
         del model, runs, gk, gp
         torch.cuda.empty_cache()
     return out
+
+
+# -- the VAE's training: K7's residual forward and backward, main_vae --------
+
+VAE_B, VAE_H, VAE_D = 2, 12, 64  # configs/vae.yml: batch 2, 12 heads of 64
+VAE_FLASH = ("flash_attention_fp32_res", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+# K7's backward kernels vs the plain backward: fp32 both, so they differ by
+# the order of their sums (and exp(s - lse) against exp(s - m) / l)
+VAE_FLASH_BOUND = 1e-5
+# the seeded training data: 2 frames of 8192 points, 2 views of 512^2 a
+# frame; main_vae takes 2 frames a sample (train.sample_timesteps, cut from
+# 24), so 4 renders a sample, and the motion VAE decodes 2 frames
+VAE_FRAMES, VAE_VIEWS = 2, 2
+# one phase-A step, kernels vs impl="plain", at 2 + 2 blocks (depth cut
+# from 12 + 12: the plain attention takes ~1 s a call at 32768 slots): rel
+# L2 of the loss and of the gradients
+VAE_GRAD_BOUNDS = {"loss": 1e-5, "grads": 1e-4}
+
+
+def surface_shell(seed: int, radius: float, thickness: float = 2.0):
+    """A seeded surface shell in a 64^3 grid (the voxel count of a trained
+    TRELLIS structure at 64^3): [N, 3] int32 coords in linear-index order,
+    a wobbly sphere around a random centre."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(64)] * 3, indexing="ij"), -1)
+    c = 31.5 + r.uniform(-2, 2, 3)
+    d = g - c
+    rad = np.linalg.norm(d, axis=-1)
+    wobble = 1.5 * np.sin(3 * np.arctan2(d[..., 1], d[..., 0]))
+    keep = np.abs(rad - radius - wobble) < thickness / 2
+    return np.argwhere(keep).astype(np.int32)
+
+
+def vae_valid(dev):
+    """[2, 32768] key validity of two shells, each a prefix of its row (the
+    dataset packs a sample's voxels first)."""
+    import torch
+
+    valid = torch.zeros(VAE_B, SLOTS, dtype=torch.bool, device=dev)
+    for b, radius in enumerate((25.0, 22.0)):
+        valid[b, :min(len(surface_shell(30 + b, radius)), SLOTS)] = True
+    return valid
+
+
+def phase_vae_kernels(dev):
+    """K7's fp32 forward with its residual and the dkv and dq kernels at the
+    static VAE's `full` attention: [2, 32768, 12, 64] fp32, q/k/v the views
+    of one [2, 32768, 3, 12, 64] projection as the VAE passes them, two
+    seeded surface shells as the valid keys; against the plain forward and
+    backward on every row, with SDPA (forward; its backward) under the
+    boolean key mask as the library call."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    qkv = torch.randn(VAE_B, SLOTS, 3, VAE_H, VAE_D, generator=g, device=dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(VAE_B, SLOTS, VAE_H, VAE_D, generator=g, device=dev)
+    valid = vae_valid(dev)
+    n_valid = [int(n) for n in valid.sum(1)]
+    scale = VAE_D ** -0.5
+    o, lse, counts, vld = fl.launch_forward(q, k, v, valid, scale,
+                                             residual=True)
+    ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, counts, lse, o, do)
+    dk, dv = fl.launch_dkv(ptrs, sizes, scale)
+    dq = fl.launch_dq(ptrs, sizes, scale)
+    torch.cuda.synchronize()
+    ref_o = fl.flash_attention_reference(q, k, v, valid, scale)
+    ref = fl.flash_attention_backward_reference(q, k, v, valid, scale,
+                                                ref_o, do)
+    errs = {"o": rel_l2(o, ref_o), "dq": rel_l2(dq, ref[0]),
+            "dk": rel_l2(dk, ref[1]), "dv": rel_l2(dv, ref[2])}
+    maes = {"o": (o - ref_o).abs().max(), "dq": (dq - ref[0]).abs().max(),
+            "dk": (dk - ref[1]).abs().max(), "dv": (dv - ref[2]).abs().max()}
+    maes = {k_: float(m) for k_, m in maes.items()}
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv))
+    del ref
+
+    ms_fwd = time_ms(lambda: fl.launch_forward(q, k, v, valid, scale,
+                                                residual=True), iters=3)
+    ms_dkv = time_ms(lambda: fl.launch_dkv(ptrs, sizes, scale), iters=2)
+    ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale), iters=2)
+    # the plain versions ran once above (their warm-up)
+    plain_fwd = time_ms(lambda: fl.flash_attention_reference(
+        q, k, v, valid, scale), iters=1, warm=0)
+    plain_bwd = time_ms(lambda: fl.flash_attention_backward_reference(
+        q, k, v, valid, scale, ref_o, do), iters=1, warm=0)
+    mask = valid[:, None, None, :]
+    t = [a.detach().transpose(1, 2).requires_grad_(True) for a in (q, k, v)]
+    try:
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *t, attn_mask=mask).detach(), iters=3)
+        lib_o = F.scaled_dot_product_attention(*t, attn_mask=mask)
+        lib_err = rel_l2(lib_o.detach().transpose(1, 2), ref_o)
+        gdo = do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_o, t, gdo, retain_graph=True), iters=2)
+        del lib_o
+        lib_note = f"sdpa fwd {lib_fwd:.3f} ms bwd {lib_bwd:.3f} ms"
+    except torch.OutOfMemoryError:
+        lib_fwd = lib_bwd = lib_err = None
+        lib_note = "sdpa does not fit"
+    del t
+    torch.cuda.empty_cache()
+
+    # bounds: operations over this run's valid keys at the fp32 peak
+    qk = sum(VAE_H * SLOTS * n * VAE_D for n in n_valid)
+    visited = int(counts.bool().sum())
+    b_fwd = bound(4 * qk, nbytes(q, k, v, valid, o, lse), PEAK_FP32)
+    b_dkv = bound(8 * qk, nbytes(q, k, v, valid, lse, do, dk, dv), PEAK_FP32)
+    b_dq = bound(6 * qk, nbytes(q, k, v, valid, lse, do, dq), PEAK_FP32)
+    b_all = bound(10 * qk, nbytes(q, k, v, valid, o, do, dq, dk, dv),
+                  PEAK_FP32)
+    log(f"[vae-kernels] K7 at the static VAE's full attention: q/k/v "
+        f"{tuple(q.shape)} fp32 (views of a qkv projection), valid keys "
+        f"{n_valid} of {SLOTS} (surface shells, prefixes), {visited} of "
+        f"{VAE_B * SLOTS // 64} key tiles visited; rel_l2 "
+        + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+        + f" (bound {VAE_FLASH_BOUND:g}); max_abs_err {maes}")
+    log(f"[vae-kernels] forward with residual {ms_fwd:.3f} ms (plain "
+        f"{plain_fwd:.3f} ms, bound {b_fwd[0]:.4f} ms, {b_fwd[1]}); dkv "
+        f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms), dq {ms_dq:.3f} ms "
+        f"(bound {b_dq[0]:.4f} ms), backward together "
+        f"{ms_dkv + ms_dq:.3f} ms against the whole gradient's bound "
+        f"{b_all[0]:.4f} ms (10 B H Lq Nv D at 67 TFLOP/s); plain backward "
+        f"{plain_bwd:.3f} ms; {lib_note}"
+        + (f" (its rel_l2 {lib_err:.3e})" if lib_err is not None else ""))
+    if not (finite and all(e <= VAE_FLASH_BOUND for e in errs.values())):
+        raise AssertionError(f"K7's residual forward or backward disagrees "
+                             f"with its plain version: {errs}")
+    del keep
+    rows = {"flash_attention_fp32_res": (maes["o"], ms_fwd, plain_fwd, b_fwd,
+                                         lib_fwd),
+            "flash_attention_bwd_dkv": (max(maes["dk"], maes["dv"]), ms_dkv,
+                                        plain_bwd, b_dkv, lib_bwd),
+            "flash_attention_bwd_dq": (maes["dq"], ms_dq, plain_bwd, b_dq,
+                                       lib_bwd)}
+    out = {}
+    for name, replaces, source, key in KERNELS:
+        if key in rows:
+            mae, ms, plain_ms, (b_ms, b_by), lib_ms = rows[key]
+            out[key] = dict(name=name, route="cuda", source=source,
+                            replaces=replaces, max_abs_err=mae, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms)
+    return out
+
+
+def write_vae_dataset(root: str, objects: int, seed: int) -> int:
+    """Seeded objects in VAEDataset's layout at vae.yml's sizes: 8192
+    points (static_frame_vertices.pt) moving over VAE_FRAMES frames
+    (moving_frame_deltas.pt), a surface shell of DINOv2-width features at
+    64^3 (voxel_features.npz: 1024 channels), VAE_VIEWS orbit views of
+    512^2 a frame (cameras.json, uint8 .npy images). Returns the voxel
+    count of the largest object."""
+    import numpy as np
+    import torch
+    from gvfdiffusion_torch.representations.camera import orbit_camera
+
+    r = np.random.default_rng(seed)
+    most = 0
+    for o in range(objects):
+        d = os.path.join(root, f"obj{o}")
+        os.makedirs(d)
+        coords = surface_shell(30 + o, (25.0, 22.0)[o % 2])
+        most = max(most, len(coords))
+        pts = (coords[r.choice(len(coords), 8192)] + r.uniform(0, 1, (8192, 3))
+               ) / 64.0 - 0.5
+        torch.save(torch.from_numpy(pts.astype(np.float32)),
+                   os.path.join(d, "static_frame_vertices.pt"))
+        deltas = 0.02 * r.standard_normal((VAE_FRAMES, 8192, 3))
+        torch.save(torch.from_numpy(deltas.astype(np.float32)),
+                   os.path.join(d, "moving_frame_deltas.pt"))
+        np.savez(os.path.join(d, "voxel_features.npz"), coords=coords,
+                 features=r.standard_normal((len(coords), 1024)).astype(
+                     np.float32), resolution=64)
+        cams = {}
+        for t in range(VAE_FRAMES):
+            views = []
+            for v in range(VAE_VIEWS):
+                name = f"img_{t}_{v}.npy"
+                np.save(os.path.join(d, name),
+                        r.integers(0, 256, (512, 512, 3), dtype=np.uint8))
+                # the dataset's OpenGL camera-to-world of an orbit view
+                cam = orbit_camera(360.0 * v / VAE_VIEWS + 30 * t, 20.0,
+                                   radius=1.2)
+                c2w = np.linalg.inv(cam.world_view.numpy().astype(np.float64))
+                c2w[:3, 1:3] *= -1
+                views.append({"image": name, "c2w": c2w.tolist(),
+                              "intrinsics": cam.intrinsics.tolist()})
+            cams[str(t)] = views
+        with open(os.path.join(d, "cameras.json"), "w") as f:
+            json.dump(cams, f)
+    return most
+
+
+def write_lpips_npz(path: str, seed: int) -> None:
+    """Seeded VGG16 + lin weights in the flat layout of JAX's
+    `ops/lpips.convert_torch_lpips` (vgg/conv{j}/kernel, lin{i}); the heads
+    non-negative, as the released ones are."""
+    import torch
+    from gvfdiffusion_torch.models.registry import save_params_npz
+    from gvfdiffusion_torch.ops.lpips import LPIPS
+    from gvfdiffusion_torch.utils.weights import (init_random_, lpips_table,
+                                                  to_flax)
+
+    model = init_random_(LPIPS(), seed=seed)
+    with torch.no_grad():
+        for i in range(5):
+            w = getattr(model, f"lin{i}").model["1"].weight
+            w.copy_(w.abs())
+    save_params_npz(to_flax(lpips_table(), model.state_dict())["params"], path)
+
+
+def _vae_steps(text):
+    """main_vae's logged steps: [(step, phase, {term: value}, launches)]."""
+    import re
+
+    out = []
+    for m in re.finditer(r"\[main_vae\] step (\d+) phase (\w) (.*) launches "
+                         r"(\{.*\})", text):
+        fields = m.group(3).replace(" s peak_gib", " peak_gib").split()
+        terms = {fields[i]: float(fields[i + 1])
+                 for i in range(0, len(fields) - 1, 2)}
+        out.append((int(m.group(1)), m.group(2), terms,
+                    json.loads(m.group(4))))
+    return out
+
+
+def run_main_vae(args, work: str, card: str):
+    """`python -m gvfdiffusion_torch.cli.main_vae args` in a process of its
+    own (its device memory is freed when it ends) -> (rc, log, wall ms)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "gvfdiffusion_torch.cli.main_vae",
+                        *args], cwd=REPO, capture_output=True, text=True)
+    wall = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(work, "main_vae.log"), "a") as f:
+        f.write(p.stdout + p.stderr)
+    if p.returncode != 0:
+        log(p.stdout[-4000:] + p.stderr[-4000:])
+    return p.returncode, p.stdout, wall
+
+
+def phase_vae_train(dev, card):
+    """The VAE's training main path: `python -m
+    gvfdiffusion_torch.cli.main_vae --config configs/vae.yml` at full width
+    (static VAE 768 channels, 12 + 12 blocks, 12 heads of 64, 32768 voxel
+    slots, 112 channels; motion VAE depth 12, dim 768, 8192 points, 512
+    latents; 512^2 binned renders, 256 per tile; LPIPS on) over a seeded
+    dataset in VAEDataset's layout, with `static_vae.remat_blocks=12` and
+    2 frames a sample (train.sample_timesteps): in `full` attention, 2
+    phase-A and 2 phase-B steps (K7's residual forward, dkv and dq
+    launches counted from this run's log), and in the shipped `swin`, 1 +
+    1 (no K7 launch). Then one phase-A step at 2 + 2 blocks (full
+    attention, random weights) with the kernels and with impl="plain":
+    loss and gradients. Returns the launches of the whole `full` run."""
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+    from gvfdiffusion_torch.cli.main_vae import build_static_vae, to_device
+    from gvfdiffusion_torch.data.dataset_vae import VAEDataset, load_data
+    from gvfdiffusion_torch.ops.lpips import load_lpips
+    from gvfdiffusion_torch.render.renderer import RenderOptions
+    from gvfdiffusion_torch.train.train_state import make_optimizer
+    from gvfdiffusion_torch.train.vae_trainer import make_static_vae_step
+    from gvfdiffusion_torch.utils.config import load_config
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    work = tempfile.mkdtemp(prefix="gvf_vae_smoke_")
+    try:
+        data, lpips = os.path.join(work, "data"), os.path.join(work, "lp.npz")
+        t0 = time.perf_counter()
+        voxels = write_vae_dataset(data, objects=2, seed=41)
+        write_lpips_npz(lpips, seed=42)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        config = os.path.join(REPO, "configs", "vae.yml")
+        common = ["--config", config, f"--data_dir={data}",
+                  f"--loss.lpips_weights={lpips}",
+                  "--static_vae.remat_blocks=12",
+                  f"--train.sample_timesteps={VAE_FRAMES}",
+                  "--train.log_interval=1", "--train.save_interval=1000000"]
+        runs = {}
+        for mode, a, b in (("full", 2, 2), ("swin", 1, 1)):
+            rc, text, wall = run_main_vae(
+                common + [f"--exp_dir={os.path.join(work, mode)}",
+                          f"--static_vae.attn_mode={mode}",
+                          f"--train.static_vae_steps={a}",
+                          f"--train.total_steps={a + b}"], work, card)
+            steps = _vae_steps(text)
+            runs[mode] = steps
+            per = {ph: [s[2]["step_time"] for s in steps if s[1] == ph]
+                   for ph in "AB"}
+            peaks = {ph: max(s[2]["peak_gib"] for s in steps if s[1] == ph)
+                     for ph in "AB" if per[ph]}
+            losses = [s[2]["loss"] for s in steps]
+            launches = [s[3] for s in steps]
+            log(f"[vae-train] main_vae {mode} (remat_blocks 12, batch 2 x "
+                f"{VAE_FRAMES * VAE_VIEWS} views of 512^2, {voxels} voxels "
+                f"of 32768 at most; data written in {write_ms:.0f} ms): rc "
+                f"{rc}, {wall:.1f} ms whole; step times (s) phase A "
+                f"{per['A']}, phase B {per['B']}; peak GiB {peaks}; losses "
+                f"{losses}; launches per step {launches}; {card}")
+            for s in steps:
+                log(f"[vae-train]   step {s[0]} phase {s[1]}: "
+                    + ", ".join(f"{k} {v:.6g}" for k, v in s[2].items()))
+            want = {"flash_attention_fp32_res": 48,
+                    "flash_attention_bwd_dkv": 24,
+                    "flash_attention_bwd_dq": 24} if mode == "full" else {}
+            done = re.search(r"\[main_vae\] done; launches (\{.*\})", text)
+            total = json.loads(done.group(1)) if done else None
+            if rc != 0 or len(steps) != a + b or any(
+                    not math.isfinite(x) for x in losses) or any(
+                    n != want for n in launches) or total != {
+                        k: n * (a + b) for k, n in want.items()}:
+                raise AssertionError(f"main_vae {mode}: rc {rc}, {len(steps)}"
+                                     f" steps, losses {losses}, launches "
+                                     f"{launches} (want {want} a step), "
+                                     f"in all {total}")
+            if mode == "full":
+                totals = {k: total.get(k, 0) for k in VAE_FLASH}
+
+        # one phase-A step at 2 + 2 blocks, kernels vs impl="plain"
+        cfg = load_config(config, ["--static_vae.num_blocks=2",
+                                   "--static_vae.attn_mode=full"])
+        sv = cfg.static_vae
+        vae = init_random_(build_static_vae(cfg), seed=43).to(dev)
+        dataset = VAEDataset(data, resolution=sv.resolution,
+                             num_points=cfg.motion_vae.num_inputs,
+                             num_timesteps=VAE_FRAMES,
+                             voxel_capacity=sv.voxel_capacity)
+        batch = to_device(next(load_data(dataset, cfg.train.batch_size)), dev)
+        r = cfg.render
+        step = make_static_vae_step(
+            vae, make_optimizer(), render_options=RenderOptions(
+                near=r.near, far=r.far, bg_color=tuple(r.bg_color),
+                use_mip=r.use_mip, kernel_size_2d=r.kernel_size_2d,
+                max_per_tile=r.max_per_tile),
+            lpips_fn=load_lpips(lpips, dev))
+        g = torch.Generator(device=dev).manual_seed(44)
+        noise = torch.randn(batch["feats"].feats.shape[:2]
+                            + (sv.latent_channels,), generator=g, device=dev)
+        res = {}
+        for impl in (None, "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            terms, _, grads = step.loss_and_grads(batch, noise=noise,
+                                                  impl=impl)
+            torch.cuda.synchronize()
+            res[impl] = (float(terms["loss"]),
+                         torch.cat([x.flatten() for x in grads.values()]),
+                         (time.perf_counter() - t0) * 1e3)
+        (lk, gk, mk), (lp, gp, mp) = res[None], res["plain"]
+        errs = {"loss": abs(lk - lp) / abs(lp), "grads": rel_l2(gk, gp)}
+        log(f"[vae-train] one phase-A step at 2 + 2 blocks (full attention, "
+            f"random weights, LPIPS on), kernels vs impl=\"plain\": loss "
+            f"{lk:.6g} vs {lp:.6g}, " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (bounds {VAE_GRAD_BOUNDS}); {mk:.1f} ms with the kernels, "
+            f"{mp:.1f} ms plain; {card}")
+        if not (math.isfinite(lk) and all(errs[k] <= b
+                                          for k, b in VAE_GRAD_BOUNDS.items())):
+            raise AssertionError("the VAE step disagrees with its plain "
+                                 "version")
+        return totals
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def build_models(dev):
@@ -2879,7 +3289,7 @@ def phase_trellis_drift(pipe32, staged, pre, dev, card):
     return errs, attrs
 
 
-HEADS_STEPS = 2  # the SLat flow's steps in [trellis-heads], cut from 12
+HEADS_STEPS = 1  # the SLat flow's steps in [trellis-heads], cut from 12
 
 
 def phase_trellis_heads(pipe32, staged, dev, card):
@@ -3153,6 +3563,10 @@ def main(argv) -> int:
     if "--profile" in argv:
         phase_profile(*build_models(dev), dev, card)
         return 0
+    if "--vae" in argv:
+        phase_vae_kernels(dev)
+        phase_vae_train(dev, card)
+        return 0
     results = phase_kernels(dev)
     if quick:
         return 0
@@ -3177,6 +3591,8 @@ def main(argv) -> int:
     del tpipe32, staged32
     torch.cuda.empty_cache()
     train = phase_training(dev, card)
+    torch.cuda.empty_cache()
+    vae = phase_vae_train(dev, card)
     # each entry's count comes from one run: the TRELLIS forms from
     # TrellisImageTo3DPipeline.run (K7 from the run at the defaults; K7 and
     # K3's single context in fp32 from the run of the registry's fp32
@@ -3185,10 +3601,13 @@ def main(argv) -> int:
     # training forms (K5 at heads of 32, K6) from main_latent.main's first
     # run (K6 at heads of 64 from its dit-d64 run), K3's int8 form from
     # run() on the int8 cache, K1 and K2 with int8 QK from run() with
-    # self_quant, the forms of the DiT's other configurations from the
+    # self_quant, K7's residual forward and backward kernels from
+    # main_vae's run in `full` attention ([vae-train]: its first step's
+    # log; every step launches the same), the forms of the DiT's other
+    # configurations from the
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path
-    counts = {**launches, **configs, **trellis, **train}
+    counts = {**launches, **configs, **trellis, **train, **vae}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")

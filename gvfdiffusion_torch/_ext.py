@@ -43,7 +43,11 @@ _SIGNATURES = {
     "gvf_temporal_attention": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
     "gvf_cross_sublayer_q8": [_P] + ([_P] * 11 + [_I]) * 2 + [_P] * 7
     + [_I] * 5 + [_P],
-    "gvf_flash_attention": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _I, _P],
+    "gvf_flash_attention": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_F, _I, _I, _P],
+    "gvf_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 6
+    + [_F, _I, _P],
+    "gvf_flash_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 6
+    + [_F, _I, _P],
     "gvf_cross_sublayer1_f32": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 4
     + [_I] * 4 + [_P],
     "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],

@@ -293,6 +293,12 @@ cudaError_t launch_attn(const AttnParams& p, int H, long long nb1,
 // every key and divides by lk_pad, the key count padded to the TPU kernel's
 // 512. Without validity every key below Lk is visible.
 //
+// With lse set (K7's forward under autograd, the residual its backward
+// reads; the TPU kernel saves its running max m and sum l instead), each
+// row's logsumexp m + log(l) over the scores with the mask added, in fp32;
+// a batch row with no valid key writes log(lk_pad), and the backward takes
+// P = 1 / lk_pad there itself.
+//
 // What bounds it on the H100: fp32 operations on the CUDA cores (67 TFLOP/s
 // on the datasheet), 4 * Lq * Lk_visited * D per head; per 4 lanes of the
 // head a thread issues 12 16-byte shared loads against 128 FFMAs. A first
@@ -309,6 +315,7 @@ struct F32AttnParams {
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;  // in floats
   const unsigned char* valid;  // [B, Lk] bool, or null: every key valid
   const int* counts;           // [B, tiles] valid keys per tile (with valid)
+  float* lse;                  // [B, H, Lq] row logsumexp out, or null
   int Lq, Lk, tiles, lk_pad;
   float scale;
 };
@@ -488,6 +495,9 @@ __global__ void __launch_bounds__(128) attn_f32_kernel(F32AttnParams p) {
       float* orow = p.o + b * p.o_sb + qi * p.o_sl + h * D + tx * DT;
 #pragma unroll
       for (int u = 0; u < DT; ++u) orow[u] = o_acc[i][u] * inv;
+      if (p.lse && tx == 0)
+        p.lse[((long long)b * gridDim.y + h) * p.Lq + qi] =
+            uniform ? logf((float)p.lk_pad) : m_run[i] + logf(l_run[i]);
     }
   }
 }

@@ -24,7 +24,8 @@
 // code order), so ~3700 valid keys of 32768 visit 58 of 512 tiles. A first
 // kernel counts the valid keys of each (batch row, tile) once per call; the
 // attention kernel reads those counts to skip tiles and to find a batch row
-// with none.
+// with none. In fp32 it can also write each row's logsumexp, the residual
+// of the backward kernels (flash_attention_bwd.cu).
 //
 // What bounds it on the H100: 4 * Lq * n_valid * H * D operations (0.50
 // TFLOP at 3700 valid keys) against ~13 MB (bf16) or ~26 MB (fp32) of
@@ -241,15 +242,18 @@ extern "C" {
 // and v with their own strides; all bf16 (f32 = 0) or all fp32 (f32 = 1),
 // rows 16-byte aligned; D = 32, 64 or 128; valid: bool [B, Lk]; counts:
 // int32 scratch [B, ceil(Lk / 64)]; o: [B, Lq, H, D] contiguous, in the
-// inputs' dtype; lk_pad: Lk padded to the TPU kernel's 512.
+// inputs' dtype; lse: null, or (fp32 only) the [B, H, Lq] fp32 row
+// logsumexp that the backward (flash_attention_bwd.cu) reads; lk_pad: Lk
+// padded to the TPU kernel's 512.
 int gvf_flash_attention(const void* q, const void* k, const void* v,
-                        const void* valid, void* counts, void* o, int B,
+                        const void* valid, void* counts, void* o, void* lse,
+                        int B,
                         int Lq, int Lk, int H, int D, long long q_sb,
                         long long q_sl, long long k_sb, long long k_sl,
                         long long v_sb, long long v_sl, float scale,
                         int lk_pad, int f32, void* stream) {
   if ((D != 32 && D != 64 && D != 128) || B < 1 || B > 65535 || Lq < 1 ||
-      Lk < 1 || H < 1 || H > 65535 || lk_pad < Lk)
+      Lk < 1 || H < 1 || H > 65535 || lk_pad < Lk || (lse && !f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = (int)cdiv(Lk, FK);
@@ -265,6 +269,7 @@ int gvf_flash_attention(const void* q, const void* k, const void* v,
     p.v_sb = v_sb; p.v_sl = v_sl;
     p.o_sb = (long long)Lq * H * D; p.o_sl = (long long)H * D;
     p.valid = (const unsigned char*)valid; p.counts = (const int*)counts;
+    p.lse = (float*)lse;
     p.Lq = Lq; p.Lk = Lk; p.tiles = tiles; p.lk_pad = lk_pad;
     p.scale = scale;
     return (int)launch_attn_f32(p, H, B, D, s);

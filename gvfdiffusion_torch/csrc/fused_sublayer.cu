@@ -942,7 +942,7 @@ int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
   p.q_sb = (long long)L * C; p.q_sl = C;
   p.k_sb = kv_sb; p.k_sl = kv_sl; p.v_sb = kv_sb; p.v_sl = kv_sl;
   p.o_sb = (long long)L * C; p.o_sl = C;
-  p.valid = nullptr; p.counts = nullptr;
+  p.valid = nullptr; p.counts = nullptr; p.lse = nullptr;
   p.Lq = L; p.Lk = lk; p.tiles = (int)cdiv(lk, 64); p.lk_pad = lk;
   p.scale = (float)(1.0 / sqrt((double)D));
   GVF_CHECK(launch_attn_f32(p, H, B, D, s));

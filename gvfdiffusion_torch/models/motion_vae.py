@@ -1,15 +1,17 @@
-"""Motion VAE decoder (port of the decode half of
-gvfdiffusion_tpu/models/motion_vae.py).
+"""Motion VAE (port of gvfdiffusion_tpu/models/motion_vae.py).
 
-decode: `depth` self-attention blocks over the latent set, then a cross-
-attention from the Gaussian queries (gs_embedding + PointEmbed) that gives
-an `output_dim`-channel delta per Gaussian per frame. The query cross-
-attention runs in chunks of Gaussians, which bounds the [B*T, chunk, dim]
-query embedding.
+encode: `num_latents` anchor Gaussians by farthest-point sampling of the
+canonical Gaussians, the point cloud's motion deltas KNN-interpolated
+onto them, a cross-attention from the anchors to the whole delta cloud,
+and a diagonal Gaussian posterior per frame. decode: `depth`
+self-attention blocks over the latent set, then a cross-attention from
+the Gaussian queries (gs_embedding + PointEmbed) that gives an
+`output_dim`-channel delta per Gaussian per frame; the query
+cross-attention can run in chunks of Gaussians, which bounds the [B*T,
+chunk, dim] query embedding. Random draws take an explicit
+torch.Generator (or the noise itself).
 
-Module and parameter names follow the reference's torch state dict. The
-encoder's parameters are held so a full checkpoint loads strictly; the
-encoder itself (and its KNN) is not ported yet.
+Module and parameter names follow the reference's torch state dict.
 """
 
 from __future__ import annotations
@@ -21,6 +23,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.misc import dense, layer_norm
+from ..ops.fps import fps_masked
+from ..ops.knn import interpolate_deltas
+
+# flax's truncated normal draws from N(0, 1) cut at +-2 and rescales by
+# this factor, so that the lecun-normal variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
 
 
 class PointEmbed(nn.Module):
@@ -110,15 +118,15 @@ class MotionVAE(nn.Module):
                  latent_dim: int = 16, heads: int = 12, knn_k: int = 8,
                  beta: float = 7.0, remat_decode: bool = False,
                  dtype: torch.dtype = torch.float32):
-        """The JAX class's fields in its order; `num_inputs`,
-        `num_latents`, `knn_k` and `beta` configure the encoder half and
-        `remat_decode` its training, none of them ported: they are
-        accepted, so that a JAX configuration builds, and unused."""
+        """The JAX class's fields in its order; `num_inputs` and
+        `remat_decode`, which the JAX module reads nowhere, are accepted so
+        that a JAX configuration builds, and unused."""
         super().__init__()
         if dim % 6:
             raise ValueError(f"MotionVAE dim must be divisible by 6, got {dim}")
         dim_head = dim // heads
         self.dim = dim
+        self.num_latents, self.knn_k, self.beta = num_latents, knn_k, beta
         self.dtype = dtype
         self.input_embedding = nn.Sequential(nn.Linear(input_dim, dim))
         self.gs_embedding = nn.Sequential(nn.Linear(gs_dim, dim))
@@ -137,6 +145,92 @@ class MotionVAE(nn.Module):
         self.decoder_cross_attn = PreNorm(
             PerceiverAttention(queries_dim, dim, heads, dim_head, dtype))
         self.to_outputs = nn.Linear(queries_dim, output_dim)
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator) -> "MotionVAE":
+        """Draw the initial parameters from the JAX module's flax
+        initializers, in place: normal(0.02) cut at +-2 sigma for the two
+        embeddings, mean_fc, logvar_fc and proj, lecun normal for the
+        attention and feed-forward layers, zeros for every bias and for
+        `to_outputs`. Drawn on the CPU from `generator`, in parameter
+        order."""
+        normal02 = ("input_embedding.", "gs_embedding.", "mean_fc.",
+                    "logvar_fc.", "proj.")
+        for name, p in self.named_parameters():
+            if name.endswith("bias") or name.startswith("to_outputs."):
+                p.zero_()
+                continue
+            r = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0, -2.0,
+                                      2.0, generator=generator)
+            p.copy_(r * (0.02 if name.startswith(normal02)
+                         else p.shape[1] ** -0.5 / _TRUNC_STD))
+        return self
+
+    def _embed_points(self, p: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self.point_embed(p), 1e-5)
+
+    def _embed_deltas(self, d: torch.Tensor) -> torch.Tensor:
+        return layer_norm(dense(d, self.input_embedding[0], self.dtype), 1e-5)
+
+    def sample_anchors(self, static_gs: torch.Tensor, valid: torch.Tensor):
+        """`num_latents` anchors of the padded static Gaussians [B, G, 14]
+        by farthest-point sampling of their positions -> (sampled [B, L,
+        14], idx [B, L]); the gather carries the gradient, the sampling
+        none."""
+        idx = fps_masked(static_gs[..., :3].detach(), valid,
+                         self.num_latents)
+        sampled = torch.gather(
+            static_gs, 1, idx[..., None].expand(-1, -1, static_gs.shape[-1]))
+        return sampled, idx
+
+    def encode(self, static_pc: torch.Tensor, delta_pc: torch.Tensor,
+               static_gs: torch.Tensor, gs_valid: torch.Tensor):
+        """static_pc [B, N, 3], delta_pc [B, T, N, 3], static_gs [B, G,
+        14], gs_valid [B, G] -> (kl [B*T], mean, logvar [B*T, L, latent],
+        sampled_gs [B, L, 14])."""
+        B, T = delta_pc.shape[:2]
+        L = self.num_latents
+        sampled_gs, _ = self.sample_anchors(static_gs, gs_valid)
+        anchors = sampled_gs[..., :3]
+        est = interpolate_deltas(anchors, static_pc, delta_pc, k=self.knn_k,
+                                 beta=self.beta)
+        q = (self._embed_deltas(est)
+             + self._embed_points(anchors)[:, None]).reshape(B * T, L, -1)
+        ctx = (self._embed_deltas(delta_pc)
+               + self._embed_points(static_pc)[:, None]).reshape(
+                   B * T, static_pc.shape[1], -1)
+        attn, ff = self.cross_attend_blocks
+        x = attn(q, context=ctx) + q
+        x = ff(x) + x
+        mean = dense(x, self.mean_fc, torch.float32)
+        logvar = torch.clamp(dense(x, self.logvar_fc, torch.float32),
+                             -30.0, 20.0)
+        kl = 0.5 * (mean ** 2 + torch.exp(logvar) - 1.0 - logvar).mean((1, 2))
+        return kl, mean, logvar, sampled_gs
+
+    @staticmethod
+    def reparameterize(mean: torch.Tensor, logvar: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + exp(logvar / 2) * noise, the noise given or drawn from
+        `generator`."""
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device, dtype=mean.dtype)
+        return mean + torch.exp(0.5 * logvar) * noise
+
+    def forward(self, static_gs: torch.Tensor, gs_valid: torch.Tensor,
+                static_pc: torch.Tensor, delta_pc: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """encode -> sample -> decode: dict(logits [B, T, G, output_dim],
+        kl [B*T], mean, logvar)."""
+        T = delta_pc.shape[1]
+        kl, mean, logvar, _ = self.encode(static_pc, delta_pc, static_gs,
+                                          gs_valid)
+        z = self.reparameterize(mean, logvar, generator, noise)
+        return {"logits": self.decode(z, static_gs, T), "kl": kl,
+                "mean": mean, "logvar": logvar}
 
     def decode(self, z: torch.Tensor, queries: torch.Tensor,
                num_timesteps: int,
@@ -166,3 +260,19 @@ class MotionVAE(nn.Module):
                 out = o.new_empty(B, T, Q, o.shape[-1])
             out[:, :, s:s + Qc] = o.reshape(B, T, Qc, -1)
         return out
+
+
+def pad_static_gs(gs_list, pad_to: Optional[int] = None):
+    """A list of [Gi, 14] arrays -> ([B, G, 14] fp32, valid [B, G] bool) on
+    the CPU; padding rows carry the rotation w = 1 (column 10), so they
+    stay unit quaternions."""
+    import numpy as np
+
+    max_len = pad_to or max(g.shape[0] for g in gs_list)
+    out = np.zeros((len(gs_list), max_len, gs_list[0].shape[1]), np.float32)
+    out[:, :, 10] = 1.0
+    valid = np.zeros((len(gs_list), max_len), bool)
+    for i, g in enumerate(gs_list):
+        out[i, :g.shape[0]] = np.asarray(g)
+        valid[i, :g.shape[0]] = True
+    return torch.from_numpy(out), torch.from_numpy(valid)

@@ -2,12 +2,12 @@
 gvfdiffusion_tpu/models/sparse_vae.py:26-127): 8 Gaussians per voxel, 112
 channels ({xyz offset, SH DC, scaling, rotation, opacity} x 8), placed at
 the voxel centre plus a tanh-bounded offset with a Hammersley
-perturbation. The VAE's losses and training are not ported.
+perturbation; and the VAE's KL and regularization losses (:130-152).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -104,3 +104,26 @@ def to_representation(x: SparseVoxels, cfg: GSConfig = GSConfig(),
         scaling_activation=cfg.scaling_activation,
         mininum_kernel_size=cfg.filter_3d_kernel_size)
     return gs, x.valid.repeat_interleave(g, dim=1)
+
+
+def regularization_losses(gs: GaussianSplat, valid: torch.Tensor,
+                          lambda_vol: float = 10000.0,
+                          lambda_opacity: float = 0.001
+                          ) -> Dict[str, torch.Tensor]:
+    """The volume and opacity regularizers averaged over the valid
+    Gaussians: dict(reg_vol, reg_opacity, loss = lambda_vol * reg_vol +
+    lambda_opacity * reg_opacity)."""
+    w = valid.float()
+    n = torch.clamp(w.sum(), min=1.0)
+    reg_vol = (torch.prod(gs.get_scaling, dim=-1) * w).sum() / n
+    reg_op = (((gs.get_opacity[..., 0] - 1.0) ** 2) * w).sum() / n
+    return {"reg_vol": reg_vol, "reg_opacity": reg_op,
+            "loss": lambda_vol * reg_vol + lambda_opacity * reg_op}
+
+
+def kl_loss(mean: torch.Tensor, logvar: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+    """KL of the diagonal Gaussian to N(0, I), averaged over valid voxels."""
+    per = 0.5 * (mean ** 2 + torch.exp(logvar) - 1.0 - logvar).sum(-1)
+    w = valid.float()
+    return (per * w).sum() / torch.clamp(w.sum(), min=1.0)

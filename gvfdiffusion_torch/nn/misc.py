@@ -17,19 +17,25 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
 def conv(fn, x: torch.Tensor, layer: nn.Module, dtype: torch.dtype,
          **kw) -> torch.Tensor:
     """flax `nn.Conv(dtype=dtype)` through `fn` (F.conv2d, F.conv3d):
-    input and parameters cast to `dtype`, the output in `dtype`. In fp32
-    the convolution runs with cuDNN's TF32 off, whatever the process set:
-    cuDNN's default would round its operands to TF32's 10-bit mantissa,
-    and flax computes it in fp32. (fp32 matmuls follow torch's default,
-    which takes no TF32.)"""
-    args = (x.to(dtype), layer.weight.to(dtype),
-            None if layer.bias is None else layer.bias.to(dtype))
-    if dtype != torch.float32 or not x.is_cuda:
-        return fn(*args, **kw)
+    input and parameters cast to `dtype`, the output in `dtype`; see
+    `conv_weights`."""
+    return conv_weights(fn, x.to(dtype), layer.weight.to(dtype),
+                        None if layer.bias is None else layer.bias.to(dtype),
+                        **kw)
+
+
+def conv_weights(fn, x: torch.Tensor, weight: torch.Tensor,
+                 bias, **kw) -> torch.Tensor:
+    """fn(x, weight, bias, **kw); in fp32 on the card with cuDNN's TF32
+    off, whatever the process set: cuDNN's default would round its
+    operands to TF32's 10-bit mantissa, and XLA computes it in fp32. (fp32
+    matmuls follow torch's default, which takes no TF32.)"""
+    if x.dtype != torch.float32 or not x.is_cuda:
+        return fn(x, weight, bias, **kw)
     flags = torch.backends.cudnn
     prev, flags.allow_tf32 = flags.allow_tf32, False
     try:
-        return fn(*args, **kw)
+        return fn(x, weight, bias, **kw)
     finally:
         flags.allow_tf32 = prev
 

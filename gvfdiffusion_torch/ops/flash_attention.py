@@ -25,13 +25,30 @@ Two versions:
     bf16) or all fp32 (fp32 FFMA, nothing rounded: the SLat flow as the
     registry builds it), heads of 32, 64 or 128. It raises for anything
     else and never falls back: an fp32 input is never cast to reach the
-    bf16 kernel. The kernel has no backward pass (the SLat flow runs it at
-    inference), so on the card the wrapper raises when grad mode is on and
-    an input requires grad.
+    bf16 kernel.
+
+The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
+`_flash_attention_bwd_dq`, which JAX runs when a trainer differentiates
+through `_flash_full_attention`: the static VAE's `full` mode): when grad
+mode is on and q, k or v requires grad, the wrapper runs `FlashAttention`,
+a `torch.autograd.Function`. On the card its forward is the fp32 kernel
+with the row logsumexp as a residual (the TPU kernel saves its running max
+and sum) and its backward takes di = rowsum(o * dO) in plain torch, as JAX
+does, then the dkv and dq kernels of `csrc/flash_attention_bwd.cu`; both
+exist for fp32 at heads of 64 only (the VAE's form), and the wrapper
+raises under grad for any other dtype or width. On the CPU, or with
+impl="plain", forward and backward are the plain versions
+(`flash_attention_backward_reference`, in chunks of query rows too), with
+the stock kernel's semantics: P = exp(s - m) / l on the -0.7 * FLT_MAX
+mask, every query row, and a batch row with no valid key spreading P = 1 /
+Lk-padded-to-512 over every key, so its keys get dV != 0.
 
 `launch_counts` counts kernel launches by dtype and head width:
 "flash_attention" (bf16, heads of 64), "flash_attention_fp32", and either
-with "_d32" / "_d128" at the other widths; the plain version never counts.
+with "_d32" / "_d128" at the other widths; "flash_attention_fp32_res" the
+fp32 forward with its residual, and "flash_attention_bwd_dkv" /
+"flash_attention_bwd_dq" the backward kernels. The plain versions never
+count.
 """
 
 from __future__ import annotations
@@ -51,6 +68,10 @@ _SCORES = 1 << 27
 HEAD_WIDTHS = (32, 64, 128)
 launch_counts = {f"flash_attention{dt}{w}": 0 for dt in ("", "_fp32")
                  for w in ("", "_d32", "_d128")}
+launch_counts.update(flash_attention_fp32_res=0, flash_attention_bwd_dkv=0,
+                     flash_attention_bwd_dq=0)
+# the one form with a backward kernel: fp32 at heads of 64
+GRAD_FORM = (torch.float32, 64)
 
 
 def reset_launch_counts() -> None:
@@ -69,11 +90,10 @@ def padded_keys(lk: int) -> int:
     return -(-lk // BLOCK) * BLOCK
 
 
-def flash_attention_reference(q, k, v, kv_valid, scale: float):
-    """q [B, Lq, H, D], k/v [B, Lk, H, D], kv_valid bool [B, Lk] ->
-    [B, Lq, H, D] in q's dtype."""
-    B, Lq, H, _ = q.shape
-    Lk = k.shape[1]
+def _padded(k, v, kv_valid):
+    """k, v as fp32 and kv_valid, padded with invalid keys to BLOCK; the
+    additive mask [B, 1, 1, Lk_pad]; the rows of queries per chunk."""
+    B, Lk, H, _ = k.shape
     pad = padded_keys(Lk) - Lk
     kf, vf = k.float(), v.float()
     if pad:
@@ -81,9 +101,15 @@ def flash_attention_reference(q, k, v, kv_valid, scale: float):
                   for a in (kf, vf))
         kv_valid = torch.nn.functional.pad(kv_valid, (0, pad))
     bias = torch.where(kv_valid, 0.0, MASK_VALUE).float()[:, None, None, :]
-    rows = max(1, _SCORES // (B * H * (Lk + pad)))
+    return kf, vf, bias, max(1, _SCORES // (B * H * (Lk + pad)))
+
+
+def flash_attention_reference(q, k, v, kv_valid, scale: float):
+    """q [B, Lq, H, D], k/v [B, Lk, H, D], kv_valid bool [B, Lk] ->
+    [B, Lq, H, D] in q's dtype."""
+    kf, vf, bias, rows = _padded(k, v, kv_valid)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    for i0 in range(0, Lq, rows):
+    for i0 in range(0, q.shape[1], rows):
         qc = q[:, i0:i0 + rows].float()
         s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale + bias
         p = torch.exp(s - s.amax(-1, keepdim=True))
@@ -92,6 +118,35 @@ def flash_attention_reference(q, k, v, kv_valid, scale: float):
         o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
         out[:, i0:i0 + rows] = (o / denom).to(q.dtype)
     return out
+
+
+def flash_attention_backward_reference(q, k, v, kv_valid, scale: float, o,
+                                       do):
+    """The gradient of `flash_attention_reference` as the stock kernel's
+    backward computes it: o [B, Lq, H, D] the forward's output, do its
+    gradient -> (dq, dk, dv) in q's, k's and v's dtypes. P = exp(s - m) /
+    l from the fp32 scores with the mask, di = rowsum(o * do) in fp32, dS =
+    P (dO . v - di) scale; P and dS are rounded to dO's dtype for dV and
+    dK and dS to k's for dQ, as the kernels cast them."""
+    Lk = k.shape[1]
+    kf, vf, bias, rows = _padded(k, v, kv_valid)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, H, Lq]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, q.shape[1], rows):
+        qc, doc = (a[:, i0:i0 + rows].float() for a in (q, do))
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale + bias
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        del s
+        p = p / p.sum(-1, keepdim=True)
+        dv += torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), doc)
+        dp = torch.einsum("bqhd,bkhd->bhqk", doc, vf)
+        ds = (dp - di[:, :, i0:i0 + rows, None]) * p * scale
+        del dp, p
+        dq[:, i0:i0 + rows] = torch.einsum(
+            "bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf).to(q.dtype)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds.to(do.dtype).float(), qc)
+    return dq, dk[:, :Lk].to(k.dtype), dv[:, :Lk].to(v.dtype)
 
 
 def _check_cuda(q, k, v, kv_valid) -> None:
@@ -129,32 +184,130 @@ def _check_cuda(q, k, v, kv_valid) -> None:
                         f"{tuple(kv_valid.shape)} on {kv_valid.device}")
 
 
+def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
+    """The forward kernel -> (o, and with `residual` the row logsumexp
+    [B, H, Lq] fp32 and the per-tile valid-key counts [B, tiles] the
+    backward reads). The caller has checked the inputs."""
+    from .. import _ext
+
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    valid = kv_valid.contiguous()
+    counts = torch.empty(B, -(-Lk // 64), dtype=torch.int32, device=q.device)
+    o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+           if residual else None)
+    _ext.call("gvf_flash_attention", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), valid.data_ptr(), counts.data_ptr(), o.data_ptr(),
+              0 if lse is None else lse.data_ptr(), B, Lq, Lk, H, D,
+              q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+              v.stride(1), float(scale), padded_keys(Lk),
+              int(q.dtype == torch.float32))
+    if residual:
+        launch_counts["flash_attention_fp32_res"] += 1
+        return o, lse, counts, valid
+    launch_counts[launch_key(q.dtype, D)] += 1
+    return o
+
+
+def backward_inputs(q, k, v, valid, counts, lse, o, do):
+    """The pointers and sizes both backward kernels take, with do
+    contiguous and di = rowsum(o * do) [B, H, Lq] (plain torch, as JAX
+    computes it outside the kernels); the tensors it makes are kept in the
+    returned tuple's last item until the launches."""
+    B, Lq, H, D = q.shape
+    do = do.contiguous()
+    if do.dtype != torch.float32 or tuple(do.shape) != tuple(o.shape):
+        raise TypeError(f"flash_attention backward: dO must be fp32 "
+                        f"{tuple(o.shape)}; got {do.dtype} "
+                        f"{tuple(do.shape)}")
+    di = (o * do).sum(-1).transpose(1, 2).contiguous()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            counts.data_ptr(), lse.data_ptr(), do.data_ptr(), di.data_ptr())
+    sizes = (B, Lq, k.shape[1], H, D, q.stride(0), q.stride(1), k.stride(0),
+             k.stride(1), v.stride(0), v.stride(1))
+    return ptrs, sizes, (do, di)
+
+
+def launch_dkv(ptrs, sizes, scale: float):
+    """The dkv kernel -> (dk, dv) fp32 [B, Lk, H, 64]."""
+    from .. import _ext
+
+    B, _, Lk, H, D = sizes[:5]
+    dk = torch.empty(B, Lk, H, D, dtype=torch.float32,
+                     device=torch.device("cuda", torch.cuda.current_device()))
+    dv = torch.empty_like(dk)
+    _ext.call("gvf_flash_attention_bwd_dkv", *ptrs, dk.data_ptr(),
+              dv.data_ptr(), *sizes, float(scale), padded_keys(Lk))
+    launch_counts["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def launch_dq(ptrs, sizes, scale: float):
+    """The dq kernel -> dq fp32 [B, Lq, H, 64]."""
+    from .. import _ext
+
+    B, Lq, Lk, H, D = sizes[:5]
+    dq = torch.empty(B, Lq, H, D, dtype=torch.float32,
+                     device=torch.device("cuda", torch.cuda.current_device()))
+    _ext.call("gvf_flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *sizes,
+              float(scale), padded_keys(Lk))
+    launch_counts["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """K7 under autograd: the kernels on the card (fp32, heads of 64), the
+    plain versions on the CPU or with impl="plain"."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, scale: float, plain: bool):
+        ctx.scale, ctx.plain = scale, plain
+        if plain:
+            o = flash_attention_reference(q, k, v, kv_valid, scale)
+            ctx.save_for_backward(q, k, v, kv_valid, o)
+        else:
+            o, lse, counts, valid = launch_forward(q, k, v, kv_valid, scale,
+                                                    residual=True)
+            ctx.save_for_backward(q, k, v, valid, counts, lse, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        if ctx.plain:
+            q, k, v, kv_valid, o = ctx.saved_tensors
+            grads = flash_attention_backward_reference(q, k, v, kv_valid,
+                                                       ctx.scale, o, do)
+        else:
+            saved = ctx.saved_tensors  # read once (checkpoint's rule)
+            with torch.cuda.device(saved[0].device):
+                ptrs, sizes, keep = backward_inputs(*saved, do)
+                dk, dv = launch_dkv(ptrs, sizes, ctx.scale)
+                grads = launch_dq(ptrs, sizes, ctx.scale), dk, dv
+            del keep
+        return (*grads, None, None, None)
+
+
 def flash_attention(q, k, v, kv_valid, scale: float,
                     impl: Optional[str] = None):
     """Softmax attention of q [B, Lq, H, D] over the valid keys of k/v
     [B, Lk, H, D] (kv_valid bool [B, Lk]) -> [B, Lq, H, D] in q's dtype,
-    contiguous."""
+    contiguous; differentiable in q, k and v."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
-    if impl == "plain" or not q.is_cuda:
+    plain = impl == "plain" or not q.is_cuda
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if not plain:
+        _check_cuda(q, k, v, kv_valid)
+        if grad and (q.dtype, q.shape[-1]) != GRAD_FORM:
+            raise RuntimeError(
+                "flash_attention: the CUDA kernel has a backward pass for "
+                f"fp32 at heads of 64 only; there is none for {q.dtype} at "
+                f"heads of {q.shape[-1]} (run it under torch.no_grad(), or "
+                "pass impl='plain' to differentiate the plain version)")
+    if grad:
+        return FlashAttention.apply(q, k, v, kv_valid, scale, plain)
+    if plain:
         return flash_attention_reference(q, k, v, kv_valid, scale)
-    from .. import _ext
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention: the CUDA kernel has no backward "
-                           "pass; run it under torch.no_grad() or pass "
-                           "impl='plain' to differentiate")
-    _check_cuda(q, k, v, kv_valid)
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
-    valid = kv_valid.contiguous()
-    tiles = -(-Lk // 64)
-    counts = torch.empty(B, tiles, dtype=torch.int32, device=q.device)
-    o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
-    _ext.call("gvf_flash_attention", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), valid.data_ptr(), counts.data_ptr(), o.data_ptr(),
-              B, Lq, Lk, H, D, q.stride(0), q.stride(1), k.stride(0),
-              k.stride(1), v.stride(0), v.stride(1), float(scale),
-              padded_keys(Lk), int(q.dtype == torch.float32))
-    launch_counts[launch_key(q.dtype, D)] += 1
-    return o
+    return launch_forward(q, k, v, kv_valid, scale, residual=False)

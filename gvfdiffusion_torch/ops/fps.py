@@ -1,5 +1,5 @@
-"""Farthest-point sampling over padded point sets (port of fps_masked,
-gvfdiffusion_tpu/ops/fps.py:49-72).
+"""Farthest-point sampling (port of gvfdiffusion_tpu/ops/fps.py: `fps`,
+`fps_batched` and `fps_masked`, over padded point sets).
 
 A loop of `num_samples - 1` batched tensor steps that stays on the device:
 no step reads a value back to the host.
@@ -29,4 +29,28 @@ def fps_masked(points: torch.Tensor, valid: torch.Tensor,
         d2 = ((points - last[:, None]) ** 2).sum(-1)
         min_d2 = torch.minimum(min_d2, d2)
         idxs[:, i] = torch.argmax(min_d2 + neg, dim=1)
+    return idxs
+
+
+def fps(points: torch.Tensor, num_samples: int,
+        start_idx: int = 0) -> torch.Tensor:
+    """points [N, 3] -> [num_samples] int64 indices, starting at
+    `start_idx`; ties go to the lowest index."""
+    return fps_batched(points[None], num_samples, start_idx)[0]
+
+
+def fps_batched(points: torch.Tensor, num_samples: int,
+                start_idx: int = 0) -> torch.Tensor:
+    """points [B, N, 3] -> [B, num_samples] int64 indices, each row from
+    `start_idx`."""
+    B, n = points.shape[:2]
+    points = points.float()
+    idxs = torch.zeros(B, num_samples, dtype=torch.long, device=points.device)
+    idxs[:, 0] = start_idx
+    min_d2 = torch.full((B, n), float("inf"), device=points.device)
+    rows = torch.arange(B, device=points.device)
+    for i in range(1, num_samples):
+        last = points[rows, idxs[:, i - 1]]
+        min_d2 = torch.minimum(min_d2, ((points - last[:, None]) ** 2).sum(-1))
+        idxs[:, i] = torch.argmax(min_d2, dim=1)
     return idxs

@@ -10,11 +10,18 @@ stops a tile once every pixel's transmittance is <= 1e-4 or its list is
 used up (the JAX while_loop keeps a finished tile's state under vmap, so
 its result is per tile too). Both take several views at once, their tiles
 blended as one list.
+
+Under autograd `blend_tiles` recomputes each chunk's per-pixel alphas in
+the backward pass (`torch.utils.checkpoint`) instead of keeping them: a
+512^2 view's [tiles, tile^2, K] intermediates are ~0.27 GB each, a dozen
+of them per view, and the VAE trainer renders 8-16 views a step. The
+gradients are the same.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .binning import (BinnedGaussians, as_views, intersect_tiles,
                       rank_window, sort_views, view_offsets)
@@ -75,8 +82,10 @@ def blend_tiles(binned: BinnedGaussians, height: int, width: int,
     bg = bg_color.to(oy)
     fields = (binned.mean2d, binned.conic, binned.color, binned.opacity,
               binned.depth, binned.mask, oy, ox)
-    outs = [_blend_chunk(*(a[s:s + tile_chunk] for a in fields), px_loc,
-                         py_loc, bg)
+    blend = _blend_chunk
+    if torch.is_grad_enabled() and any(a.requires_grad for a in fields):
+        blend = lambda *a: checkpoint(_blend_chunk, *a, use_reentrant=False)
+    outs = [blend(*(a[s:s + tile_chunk] for a in fields), px_loc, py_loc, bg)
             for s in range(0, V * n_ty * n_tx, tile_chunk)]
     rgb, dep, acc = (torch.cat(o) for o in zip(*outs))
     return _stitch_all(rgb, dep, acc, binned.views, n_ty, n_tx, tile, height,

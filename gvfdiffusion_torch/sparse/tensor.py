@@ -1,5 +1,5 @@
 """SparseVoxels: the padded sparse-voxel tensor (port of
-gvfdiffusion_tpu/sparse/tensor.py:28-141).
+gvfdiffusion_tpu/sparse/tensor.py:28-165).
 
     feats  [B, L, C]   voxel features (zeros where invalid)
     coords [B, L, 3]   int voxel coordinates in [0, resolution)
@@ -13,8 +13,9 @@ puts the occupied cells first in linear-index order, then the empty ones.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -110,3 +111,24 @@ def from_dense(dense: torch.Tensor, capacity: int,
     return SparseVoxels(feats=feats * valid[..., None].to(feats.dtype),
                         coords=coords.to(torch.int32), valid=valid,
                         resolution=r)
+
+
+def from_lists(coords_list: Sequence[np.ndarray],
+               feats_list: Sequence[np.ndarray], resolution: int,
+               capacity: Optional[int] = None) -> SparseVoxels:
+    """Per-sample [Ni, 3] coords and [Ni, C] feats (numpy) -> SparseVoxels
+    on the CPU: each sample's voxels first, in the given order, then
+    padding; a sample past `capacity` (default: the largest Ni) is cut."""
+    b = len(coords_list)
+    cap = capacity or max(len(c) for c in coords_list)
+    feats = np.zeros((b, cap, feats_list[0].shape[-1]), np.float32)
+    coords = np.zeros((b, cap, 3), np.int32)
+    valid = np.zeros((b, cap), bool)
+    for i, (co, fe) in enumerate(zip(coords_list, feats_list)):
+        n = min(len(co), cap)
+        coords[i, :n] = np.asarray(co)[:n]
+        feats[i, :n] = np.asarray(fe)[:n]
+        valid[i, :n] = True
+    return SparseVoxels(feats=torch.from_numpy(feats),
+                        coords=torch.from_numpy(coords),
+                        valid=torch.from_numpy(valid), resolution=resolution)

@@ -1,5 +1,5 @@
 """Train state: parameters, optimizer, EMA (port of
-gvfdiffusion_tpu/train/train_state.py:18-106).
+gvfdiffusion_tpu/train/train_state.py:18-106), and `freeze_subtrees`.
 
 The optimizer is the JAX package's optax chain, written out so that it
 matches optax number for number:
@@ -133,6 +133,39 @@ class Optimizer:
         return updates
 
 
+class FrozenOptimizer:
+    """`freeze_subtrees`' optimizer: `tx` over the parameters outside the
+    frozen prefixes (optax.multi_transform's "train" partition: the frozen
+    ones take no part in the clip's norm and hold no moments), no update
+    for the frozen ones (optax.set_to_zero)."""
+
+    def __init__(self, tx: Optimizer, prefixes: tuple):
+        self.tx, self.prefixes = tx, tuple(prefixes)
+
+    def trained(self, tree: Tensors) -> Tensors:
+        return {k: v for k, v in tree.items()
+                if not k.startswith(self.prefixes)}
+
+    def init(self, params: Tensors) -> OptState:
+        return self.tx.init(self.trained(params))
+
+    def update(self, grads: Tensors, state: OptState,
+               params: Tensors) -> Optional[Tensors]:
+        """The updates of the trained parameters (a frozen one's is 0 and
+        left out), or None."""
+        return self.tx.update(self.trained(grads), state,
+                              self.trained(params))
+
+
+def freeze_subtrees(tx: Optimizer, prefixes: tuple) -> FrozenOptimizer:
+    """`tx` with zero updates for the parameters whose name starts with any
+    of `prefixes` (the reference's requires_grad_(False) encoder freeze;
+    JAX's top-level `enc_{i}` subtrees are the port's `encoder.{i}.`
+    modules, and JAX's third argument, the tree it labels, is not needed:
+    the names decide)."""
+    return FrozenOptimizer(tx, prefixes)
+
+
 def make_optimizer(lr: float = 5e-5, warmup_steps: int = 1000,
                    weight_decay: float = 0.0, grad_clip: float = 1.0,
                    b1: float = 0.9, b2: float = 0.999,
@@ -165,7 +198,7 @@ class TrainState:
         self.step = int(sd["step"])
 
 
-def create_train_state(model: torch.nn.Module, tx: Optimizer) -> TrainState:
+def create_train_state(model: torch.nn.Module, tx) -> TrainState:
     params = dict(model.named_parameters())
     return TrainState(
         step=0, params=params, opt_state=tx.init(params),
@@ -173,14 +206,14 @@ def create_train_state(model: torch.nn.Module, tx: Optimizer) -> TrainState:
 
 
 @torch.no_grad()
-def apply_updates(state: TrainState, grads: Tensors, tx: Optimizer,
+def apply_updates(state: TrainState, grads: Tensors, tx,
                   ema_rate: float = 0.9999) -> TrainState:
     """One micro-step of the optimizer and the EMA, in place; returns
     `state`."""
     updates = tx.update(grads, state.opt_state, state.params)
     if updates is not None:
-        for k, p in state.params.items():
-            p.add_(updates[k].to(p.dtype))
+        for k, u in updates.items():
+            state.params[k].add_(u.to(state.params[k].dtype))
     for k, e in state.ema_params.items():
         e.copy_(e * ema_rate + state.params[k].float() * (1.0 - ema_rate))
     state.step += 1

@@ -1,5 +1,8 @@
-"""Checkpoints of the DiT trainer's state (port of gvfdiffusion_tpu/utils/
+"""Checkpoints of a trainer's state (port of gvfdiffusion_tpu/utils/
 checkpoint.py: `CheckpointManager` and `auto_resume`, there over orbax).
+One directory per state: the DiT trainer's `<exp>/checkpoints`, the VAE
+trainer's `<exp>/static_vae` and `<exp>/motion_vae`, each resumed on its
+own.
 
 One `torch.save` file per saved step, `<dir>/ckpt_<step:08d>.pt`, holding
 the micro-step count, the parameters, the optimizer state (moments,

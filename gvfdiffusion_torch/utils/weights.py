@@ -173,8 +173,9 @@ def to_flax(table: List[Row], state_dict: Dict[str, Any]) -> Dict:
         if name not in state_dict:
             continue
         v = state_dict[name]
-        a = np.asarray(v.detach().float().cpu() if hasattr(v, "detach")
-                       else v)
+        # a copy: the tree must not alias the module's parameters
+        a = np.array(v.detach().float().cpu() if hasattr(v, "detach")
+                     else v)
         node = tree
         for q in path[:-1]:
             node = node.setdefault(q, {})
@@ -233,6 +234,38 @@ def motion_vae_table(depth: int = 12) -> List[Row]:
     for n in qkvo:
         rows += _dense(f"decoder_cross_attn.fn.{n}", ["dec_cross", n])
     return rows + _dense("to_outputs", ["to_outputs"])
+
+
+def static_vae_table(num_blocks: int = 12) -> List[Row]:
+    """The static SparseTransformerVAE (flax SparseLinears wrap a Dense
+    named Dense_0; the encoder's and decoder's blocks are `enc_{i}` and
+    `dec_{i}`)."""
+    rows = []
+    for n in ("input_layer", "to_latent", "from_latent", "out_layer"):
+        rows += _dense(n, [n, "Dense_0"])
+    for prefix, f in (("encoder", "enc"), ("decoder", "dec")):
+        for i in range(num_blocks):
+            b, fp = f"{prefix}.{i}", [f"{f}_{i}"]
+            rows += (_mha(f"{b}.attn", fp + ["attn"], True)
+                     + _dense(f"{b}.mlp.mlp.0", fp + ["mlp", "mlp_0", "Dense_0"])
+                     + _dense(f"{b}.mlp.mlp.2", fp + ["mlp", "mlp_2", "Dense_0"]))
+    return rows
+
+
+def lpips_table() -> List[Row]:
+    """LPIPS: vgg16.features' 13 convolutions as flax `vgg/conv{j}`, the
+    five [1, C, 1, 1] linear heads as flat [C] vectors `lin{i}` (the
+    layout of JAX's `ops/lpips.convert_torch_lpips`)."""
+    from ..ops.lpips import CONV_INDEX, STAGES
+
+    rows = []
+    for j, i in enumerate(CONV_INDEX):
+        rows += _conv(f"features.{i}", ["vgg", f"conv{j}"], CONV2D)
+    for i, (ch, _) in enumerate(STAGES):
+        rows.append((f"lin{i}.model.1.weight", (f"lin{i}",), Transform(
+            lambda a, ch=ch: a.reshape(1, ch, 1, 1),
+            lambda w: w.reshape(-1))))
+    return rows
 
 
 def dinov2_table(depth: int = 24) -> List[Row]:
@@ -365,6 +398,10 @@ def slat_gs_decoder_table(num_blocks: int = 12) -> List[Row]:
 
 def dit_state_dict_from_flax(params, num_blocks: int = 12):
     return from_flax(dit_table(num_blocks), params)
+
+
+def static_vae_state_dict_from_flax(params, num_blocks: int = 12):
+    return from_flax(static_vae_table(num_blocks), params)
 
 
 def motion_vae_state_dict_from_flax(params, depth: int = 12):

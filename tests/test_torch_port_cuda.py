@@ -15,7 +15,9 @@ without one; run them on the GPU with
 
 K7 (the flash attention over key validity, heads of 64) runs at key
 lengths 70, 4097 and 32768 with prefix, scattered and empty validity, and
-in fp32 and at heads of 32 and 128 (both dtypes) over 4097 keys; K3's
+in fp32 and at heads of 32 and 128 (both dtypes) over 4097 keys; its
+backward (fp32, heads of 64: the residual forward, the dkv and dq kernels)
+at 70 and 4097 keys with the same validities (FLASH_BWD_BOUND); K3's
 single context at compute_dtype=float32 at key lengths 37 and 1374;
 K3's int8 form at the DiT's heads of 32 with both q-scale domains; K1 and
 K2 with int8 QK (`quant_qk`) at several frames, N of 100, 128 and 512 and
@@ -654,6 +656,108 @@ def test_flash_attention_kernel_forms(dev, dtype, D, kind):
     if kind == "empty":  # sum(V) / Lk padded to 512, in every row
         want = v[0].float().sum(0) / fl.padded_keys(Lk)
         assert _rel(y[0], want.expand_as(y[0])) <= bound
+
+
+# K7's backward (fp32, heads of 64) against the plain backward: both fp32
+# throughout, so they differ by the order of their sums (and the kernel's
+# exp(s - lse) against the plain exp(s - m) / l)
+FLASH_BWD_BOUND = 1e-5
+
+
+@pytest.mark.parametrize("kind", ["prefix", "scattered", "empty"])
+@pytest.mark.parametrize("Lq,Lk", [(130, 70), (200, 4097)])
+def test_flash_attention_backward_kernels(dev, Lq, Lk, kind):
+    """K7's residual forward, dkv and dq kernels (`FlashAttention` under
+    grad) against the plain forward and backward on every query row, Lq
+    != Lk (the static VAE's are equal; the kernels take both), a ragged
+    last tile, q/k/v the views of one [B, L, 3, H, 64] projection as the
+    VAE passes them; batch row 0 has no valid key in "empty", where every
+    key gets dV = sum(dO) / Lk-padded-to-512."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, H, D = 2, 3, 64
+    L = max(Lq, Lk)
+    qkv = torch.randn(B, L, 3, H, D, generator=g, device=dev)
+    valid = _flash_validity(dev, kind, B, Lk, g)
+    do = torch.randn(B, Lq, H, D, generator=g, device=dev)
+    outs = {}
+    for impl in (None, "plain"):
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = leaf[:, :Lq, 0], leaf[:, :Lk, 1], leaf[:, :Lk, 2]
+        fl.reset_launch_counts()
+        o = fl.flash_attention(q, k, v, valid, D ** -0.5, impl=impl)
+        o.backward(do)
+        outs[impl] = (o.detach(), leaf.grad[:, :Lq, 0], leaf.grad[:, :Lk, 1],
+                      leaf.grad[:, :Lk, 2])
+        if impl is None:
+            torch.cuda.synchronize()
+            assert {n: c for n, c in fl.launch_counts.items() if c} == {
+                "flash_attention_fp32_res": 1, "flash_attention_bwd_dkv": 1,
+                "flash_attention_bwd_dq": 1}
+    for name, a, b in zip(("o", "dq", "dk", "dv"), outs[None], outs["plain"]):
+        assert bool(torch.isfinite(a).all()), name
+        err = _rel(a, b)
+        print(f"flash bwd Lq={Lq} Lk={Lk} {kind} {name}: rel_l2 {err:.3e}")
+        assert err <= FLASH_BWD_BOUND, (name, err)
+    if kind == "empty":
+        want = do[0].sum(0) / fl.padded_keys(Lk)
+        assert _rel(outs[None][3][0], want.expand(Lk, H, D)) <= FLASH_BWD_BOUND
+
+
+def test_static_vae_full_attention_kernels_under_remat(dev, monkeypatch):
+    """A 2 + 2-block static VAE in `full` attention with every block
+    recomputed in the backward pass (remat_blocks): K7's Function runs
+    under torch.utils.checkpoint (its forward twice, its backward once a
+    block) and the gradients equal the plain version's."""
+    from gvfdiffusion_torch.models.static_vae import SparseTransformerVAE
+    from gvfdiffusion_torch.ops import flash_attention as fl
+    from gvfdiffusion_torch.sparse import attention as psa
+    from gvfdiffusion_torch.sparse.tensor import from_lists
+
+    monkeypatch.setattr(psa, "FLASH_SCORE_ELEMENTS", 1)
+    r = np.random.default_rng(24)
+    coords = [np.stack(np.unravel_index(r.choice(16 ** 3, n, replace=False),
+                                        (16,) * 3), -1) for n in (150, 90)]
+    feats = [r.standard_normal((len(c), 8)).astype(np.float32)
+             for c in coords]
+    x = from_lists(coords, feats, 16, capacity=200)
+    x = x.replace(feats=x.feats.to(dev), coords=x.coords.to(dev),
+                  valid=x.valid.to(dev))
+    model = init_random_(SparseTransformerVAE(
+        resolution=16, in_channels=8, model_channels=128, out_channels=14,
+        latent_channels=4, num_blocks=2, num_heads=2, attn_mode="full",
+        remat_blocks=2), seed=5).to(dev)
+    w = torch.from_numpy(r.standard_normal((2, 200, 14)).astype(
+        np.float32)).to(dev)
+    grads = {}
+    for impl in (None, "plain"):
+        model.zero_grad()
+        fl.reset_launch_counts()
+        out, _, _ = model(x, False, impl=impl)
+        (out.feats * w).sum().backward()
+        torch.cuda.synchronize()
+        grads[impl] = torch.cat([p.grad.flatten()
+                                 for p in model.parameters()])
+        if impl is None:
+            assert {n: c for n, c in fl.launch_counts.items() if c} == {
+                "flash_attention_fp32_res": 8, "flash_attention_bwd_dkv": 4,
+                "flash_attention_bwd_dq": 4}
+    assert _rel(grads[None], grads["plain"]) <= FLASH_BWD_BOUND
+
+
+def test_flash_attention_backward_forms_raise(dev):
+    """Under grad the wrapper raises for every form without a backward
+    kernel (bf16, heads of 32 or 128) and never falls back."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    valid = torch.ones(1, 70, dtype=torch.bool, device=dev)
+    for dt, D in ((torch.bfloat16, 64), (torch.float32, 32),
+                  (torch.float32, 128)):
+        q = torch.randn(1, 70, 2, D, device=dev, dtype=dt,
+                        requires_grad=True)
+        with pytest.raises(RuntimeError, match="backward pass"):
+            fl.flash_attention(q, q.detach(), q.detach(), valid, D ** -0.5)
 
 
 # K3's single-context form at compute_dtype=float32 against its plain

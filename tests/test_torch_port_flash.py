@@ -16,6 +16,7 @@ maximum in the plain version); the SLat models rel L2 <= 1e-4 on the valid
 rows, as the other TRELLIS chains (tests/test_torch_port_trellis.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,11 +78,15 @@ def _inputs(lq, lk, seed):
 
 def _jax_flash(q, k, v, kv_valid, dtype):
     qv = jnp.ones(q.shape[:2], bool)
+    # jitted and waited on: an eager op dispatched while the interpret-mode
+    # kernel's callbacks still run can deadlock JAX's CPU client
     with pltpu.force_tpu_interpret_mode():
-        out = jsa._flash_full_attention(
-            *(jnp.asarray(a).astype(dtype) for a in (q, k, v)), qv,
-            jnp.asarray(kv_valid))
-    return np.asarray(out.astype(jnp.float32))
+        out = jax.block_until_ready(jax.jit(
+            lambda a, b, c, kv: jsa._flash_full_attention(
+                a, b, c, qv, kv).astype(jnp.float32))(
+            *(jnp.asarray(a).astype(dtype) for a in (q, k, v)),
+            jnp.asarray(kv_valid)))
+    return np.asarray(out)
 
 
 @pytest.mark.parametrize("kind", ["prefix", "scattered", "empty"])
@@ -199,9 +204,9 @@ def test_slat_flow_uncompacted_torso_matches_jax_flash(monkeypatch):
         got = port(p, torch.from_numpy(t), torch.from_numpy(cond))
     assert len(calls) == 2  # one per torso block
     monkeypatch.setattr(jsa, "_FORCE_FLASH", True)
-    with pltpu.force_tpu_interpret_mode():
-        want = jsf.SLatFlowModel(**SLF_KW).apply(
-            tree, j, jnp.asarray(t), jnp.asarray(cond))
+    with pltpu.force_tpu_interpret_mode():  # jitted, as _jax_flash
+        want = jax.block_until_ready(jax.jit(jsf.SLatFlowModel(**SLF_KW).apply)(
+            tree, j, jnp.asarray(t), jnp.asarray(cond)))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     m = got.valid.numpy()
     err = _rel(got.feats.numpy()[m], np.asarray(want.feats)[m])

@@ -97,8 +97,10 @@ def test_slat_flow_fields_uncompacted_fp32_match_jax(monkeypatch):
         got = port.eval()(p, torch.from_numpy(tt), torch.from_numpy(cond))
     assert len(calls) == 2  # the torso's self-attention, one per block
     monkeypatch.setattr(jsa, "_FORCE_FLASH", True)
+    # jitted and waited on: an eager op dispatched while the interpret-mode
+    # kernel's callbacks still run can deadlock JAX's CPU client
     with pltpu.force_tpu_interpret_mode():
-        want = jm.apply(params, *args)
+        want = jax.block_until_ready(jax.jit(jm.apply)(params, *args))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     m = got.valid.numpy()
     err = _rel(got.feats.numpy()[m], np.asarray(want.feats)[m])

@@ -20,6 +20,7 @@ tests/test_torch_port_trellis_fields.py, and the tiny pipeline built from a
 pretrained directory in tests/test_torch_port_trellis_pretrained.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,11 +81,15 @@ def test_flash_forms_match_jax_pallas(dtype, D, kind):
     if kind == "prefix":
         valid[0, :233] = True
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    # jitted and waited on: an eager op dispatched while the interpret-mode
+    # kernel's callbacks still run can deadlock JAX's CPU client
     with pltpu.force_tpu_interpret_mode():
-        want = jsa._flash_full_attention(
+        want = jax.block_until_ready(jax.jit(
+            lambda a, b, c, kv: jsa._flash_full_attention(
+                a, b, c, jnp.ones((2, 130), bool), kv).astype(jnp.float32))(
             *(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
-            jnp.ones((2, 130), bool), jnp.asarray(valid))
-    want = np.asarray(want.astype(jnp.float32))
+            jnp.asarray(valid)))
+    want = np.asarray(want)
     got = fl.flash_attention(*(torch.from_numpy(a).to(tdt)
                                for a in (q, k, v)),
                              torch.from_numpy(valid), D ** -0.5)
