@@ -4,11 +4,12 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
     python3 chip_smoke.py --vae      # build + the VAE phases only
-    python3 chip_smoke.py --profile  # build + profiled denoise (float,
-                                     # int8 cache, int8 QK), encode,
-                                     # TRELLIS flow forwards (also at the
-                                     # defaults) and decode, one training
-                                     # micro-step
+    python3 chip_smoke.py --profile  # build + K3's and K5's device time
+                                     # by kernel name, then profiled
+                                     # denoise (float, int8 cache, int8
+                                     # QK), encode, TRELLIS flow forwards
+                                     # (also at the defaults) and decode,
+                                     # one training micro-step
 
 Phases, each printed on its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -352,8 +353,11 @@ FLASH_FORMS = {"flash_attention": ("bfloat16", 16, 64),
                "flash_attention_fp32_d128": ("float32", 8, 128)}
 # K3's single context at the uncompacted torso's [1, 32768, 1024] x 1374
 # image tokens: key -> (compute dtype, heads). Its bf16 form at heads of 64
-# is the "cross_single" sublayer case (the compacted torso's 4096 rows)
-SINGLE_FORMS = {"cross_single_fp32": ("float32", 16),
+# is the "cross_single" sublayer case (the compacted torso's 4096 rows) in
+# the kernels line; at 32768 rows ("cross_single_32k", TRELLIS at its
+# defaults) it is checked and printed beside it
+SINGLE_FORMS = {"cross_single_32k": ("bfloat16", 16),
+                "cross_single_fp32": ("float32", 16),
                 "cross_single_fp32_d32": ("float32", 32),
                 "cross_single_fp32_d128": ("float32", 8),
                 "cross_single_d32": ("bfloat16", 32),
@@ -839,6 +843,8 @@ def phase_kernels(dev):
                                      base, cases_of(variant)[QK8[base]])
         elif base not in SUBLAYERS:
             results[key] = phase_attention(dev, name, replaces, source, key)
+    phase_cross_single(dev, "fused_cross_sublayer[single context, 32768 "
+                       "rows, bf16]", "", "", "cross_single_32k")
     results.update(phase_vae_kernels(dev))
     return results
 
@@ -3361,7 +3367,8 @@ def phase_trellis_heads(pipe32, staged, dev, card):
 
 
 def _kernel_group(name: str) -> str:
-    for k in ("attn_kernel", "temporal_kernel", "gemm_kernel", "ln_kernel",
+    for k in ("attn_sm90_kernel", "gemm_sm90_kernel", "attn_kernel",
+              "temporal_kernel", "gemm_kernel", "ln_kernel",
               "flash_kernel", "tile_count_kernel", "attn_q8_kernel<true>",
               "attn_q8_kernel<false>", "q8_kernel"):
         if k in name:
@@ -3414,6 +3421,54 @@ def _profile(fn, what: str, trace: str, card: str) -> None:
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, trace))
+
+
+def phase_profile_split(dev, card):
+    """Device time by kernel name inside K3's chain (ln_kernel, gemm_kernel
+    and the attention kernel) and K5, three calls each: K3 at the shipped
+    DiT's shape (two contexts, 16 heads of 32), K3's single context at the
+    compacted torso's 4096 rows and at the defaults' 32768 (bf16, 16 heads
+    of 64, 1374 image tokens), and K5 at DINOv2's [32, 1374, 16, 64]
+    (traces split_*_trace.json)."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_attention as fa
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = sublayer_cases(dev, g)
+    r = lambda *s_, sc=1.0: torch.randn(*s_, generator=g, device=dev) * sc
+    Cx = 1024
+    x32k = r(1, SLOTS, Cx)
+    p32k = tuple(a.bfloat16() for a in (
+        1 + 0.1 * r(Cx), 0.1 * r(Cx), r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx),
+        r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx)))
+    kv32k = r(1, L_IMG, 2 * Cx).bfloat16()
+    q, k, v, _, _ = attention_case(dev, "attention")
+
+    def three(fn):
+        def run():
+            with torch.no_grad():
+                for _ in range(3):
+                    fn()
+        return run
+
+    for what, trace, fn in (
+            ("K3 x3 (DiT, two contexts, 16 heads of 32)", "split_k3",
+             lambda: fsl.fused_cross_sublayer(*cases["cross"][1]["args"],
+                                              **cases["cross"][1]["kw"])),
+            (f"K3 single x3 ([1, {TORSO}, 1024] x {L_IMG}, 16 heads of 64)",
+             "split_k3_single",
+             lambda: fsl.fused_cross_sublayer(
+                 *cases["cross_single"][1]["args"],
+                 **cases["cross_single"][1]["kw"])),
+            (f"K3 single x3 ([1, {SLOTS}, 1024] x {L_IMG}, 16 heads of 64)",
+             "split_k3_single_32k",
+             lambda: fsl.fused_cross_sublayer(
+                 x32k, p32k, (kv32k[..., :Cx], kv32k[..., Cx:]),
+                 num_heads=16)),
+            (f"K5 x3 (DINOv2 [{T}, {L_IMG}, 16, 64])", "split_k5",
+             lambda: fa.fused_attention(q, k, v, 0.125))):
+        _profile(three(fn), what, f"{trace}_trace.json", card)
 
 
 def phase_profile(dino, dit, vae, dev, card):
@@ -3561,6 +3616,7 @@ def main(argv) -> int:
         f"({_ext.library_path().name})")
 
     if "--profile" in argv:
+        phase_profile_split(dev, card)
         phase_profile(*build_models(dev), dev, card)
         return 0
     if "--vae" in argv:

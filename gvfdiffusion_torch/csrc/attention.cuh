@@ -1,6 +1,9 @@
-// Softmax attention tile kernel for Hopper (sm_90a), shared by the fused DiT
-// sublayers (fused_sublayer.cu, heads of 32 and 64, and 128 for K3's single
-// context) and K5 (fused_attention.cu, heads of 32 and 64).
+// Softmax attention tile kernels for Hopper (sm_90a).
+//
+// attn_kernel serves K1 and K2 alone (fused_sublayer.cu's self and temporal
+// sublayers, heads of 32 and 64): K5 and K3's bf16 forms run
+// attention_sm90.cuh's core, which shares AttnParams below. It is the
+// first version, written to be right first.
 //
 // attn_kernel: one CTA (4 warps) per (64-query tile, head, row block z).
 // Per 64-key tile staged in shared memory: S = Q K^T on tensor cores (WMMA
@@ -66,7 +69,8 @@ struct AttnParams {
   const float* bias = nullptr;  // [row block z1][Lk] logit bias, or null
   long long bias_s1 = 0;
   float scale;
-  float scale_log2 = 0.f;  // FIXED only: scale * log2(e), rounded once
+  float scale_log2 = 0.f;  // scale * log2(e), rounded once: attn_kernel's
+                           // FIXED form and attention_sm90.cuh
 };
 
 constexpr int ABQ = 64, ABK = 64;
@@ -94,13 +98,12 @@ __device__ __forceinline__ void load_row_half(const T* src, bool valid,
   }
 }
 
-// per warp: the scores [16][64] fp32, then the P V tile [16][D]
+// per warp: the scores [16][64] fp32, then the P V tile [16][D <= 64]
 template <int D>
-__host__ __device__ constexpr int attn_s_floats() { return 16 * (D > ABK ? D : ABK); }
+__host__ __device__ constexpr int attn_s_floats() { return 16 * ABK; }
 
 // Dynamic shared memory: Q, K, V [64][D] bf16, per warp the score / P V
-// area and P [16][64] bf16: 36 KB at D = 32, 48 KB at 64, 88 KB at 128
-// (heads of 128: K3's single context only).
+// area and P [16][64] bf16: 36 KB at D = 32, 48 KB at 64.
 template <int D>
 __host__ __device__ constexpr int attn_smem_bytes() {
   return 3 * 64 * D * 2 + 4 * attn_s_floats<D>() * 4 + 4 * 16 * ABK * 2;
@@ -258,19 +261,15 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   }
 }
 
-// grid: (query tiles, heads, row blocks)
+// grid: (query tiles, heads, row blocks); heads of 32 or 64 (at most 48 KB
+// of dynamic shared memory, the default limit)
 template <int D, typename TQ, typename TKV, typename TO = bf16,
           bool FIXED = false>
 cudaError_t launch_attn(const AttnParams& p, int H, long long nb1,
                         cudaStream_t s) {
+  static_assert(D == 32 || D == 64, "attn_kernel takes heads of 32 or 64");
   dim3 grid(cdiv(p.Lq, ABQ), H, (unsigned)(nb1 * p.nb2));
   constexpr int bytes = attn_smem_bytes<D>();
-  if (bytes > 48 * 1024) {  // past the default limit: opt in
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_kernel<D, TQ, TKV, TO, FIXED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
   attn_kernel<D, TQ, TKV, TO, FIXED><<<grid, 128, bytes, s>>>(p);
   return cudaGetLastError();
 }

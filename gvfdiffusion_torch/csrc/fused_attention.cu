@@ -18,40 +18,35 @@
 // (for self-attention the q/k/v views of one [B, L, 3, H, D] qkv
 // projection, for cross-attention the k/v views of a [B, Lk, 2, H, D] kv
 // projection), each with its batch and row strides (no copies); the output
-// is written as [B, Lq, H * D], the layout the output projection reads. The
-// body is attn_kernel of attention.cuh: one CTA per (64-query tile, head,
-// batch row), 64-key tiles in shared memory, WMMA bf16 products with fp32
-// accumulation, P rounded to bf16 before P V and the row sum taken from the
-// fp32 P, as the TPU kernel's dense branch does, and the ragged key tail
-// masked (Lk = 1374 = 21 * 64 + 30 at 518^2). Heads of 64 take an online
-// softmax with a true running maximum (the TPU kernel's fixed exp2 shift of
-// 30 holds only while every scaled logit stays within about +-90, which
-// nothing guarantees for a ViT's un-normed q.k); heads of 32 take the TPU
-// kernel's fixed shift (`fixed`), so that the DiT's training path rounds P
-// where the reference does. The bias row is read per key by the softmax step
-// (the 48 KB of static shared memory are taken at D = 64); a row whose keys
-// are all masked gives 0, as the TPU kernel's clamped denominator does.
+// is written as [B, Lq, H * D], the layout the output projection reads.
+// Every form runs attention_sm90.cuh's core (wgmma, a producer filling a
+// ring of 128-key K/V tiles by TMA, or from fp32 with conversion, the
+// softmax in registers): P
+// rounded to bf16 before P V and the row sum taken from the fp32 P, as the
+// TPU kernel's dense branch does, and the ragged key tail masked (Lk = 1374
+// = 10 * 128 + 94 at 518^2). Heads of 64 take an online softmax with a true
+// running maximum (the TPU kernel's fixed exp2 shift of 30 holds only while
+// every scaled logit stays within about +-90, which nothing guarantees for
+// a ViT's un-normed q.k); heads of 32 take the TPU kernel's fixed shift
+// (`fixed`), so that the DiT's training path rounds P where the reference
+// does. The bias row travels with its K/V tile; a row whose keys are all
+// masked gives 0, as the TPU kernel's clamped denominator does.
 //
 // What bounds it on the H100: the tensor cores at DINOv2's [32, 1374, 16,
 // 64] (0.247 TFLOP against 360 MB) and the SLat torso's [1, 4096, 16, 64];
 // the bytes at the sparse-structure flow's [1, 512, 16, 64] and at every
 // fp32 form of the DiT (self: 25.8 GFLOP against 201 MB, 0.060 ms at 3.35
-// TB/s). This first version is far from either bound: it runs WMMA through
-// shared-memory round trips for S and for P V, does the softmax on CUDA
-// cores one row half per thread, and uses no wgmma, TMA or cp.async
-// pipelining. It is written to be right first.
+// TB/s). attention_sm90.cuh says what its design does about each.
 
-#include "attention.cuh"
+#include "attention_sm90.cuh"
 
 using namespace gvf;
 
 namespace {
 
-template <int D, typename T>
-cudaError_t launch(const AttnParams& p, int H, int B, int fixed,
-                   cudaStream_t s) {
-  return fixed ? launch_attn<D, T, T, T, true>(p, H, B, s)
-               : launch_attn<D, T, T, T, false>(p, H, B, s);
+template <int D, typename T, bool FIXED>
+cudaError_t launch(const AttnParams& p, int H, int B, cudaStream_t s) {
+  return sm90::launch_attn_sm90<D, T, T, T, FIXED>(p, H, B, s);
 }
 
 }  // namespace
@@ -60,17 +55,19 @@ extern "C" {
 
 // q: element (b, i, h, d) at b * q_sb + i * q_sl + h * D + d;
 // k, v: element (b, j, h, d) at b * kv_sb + j * kv_sl + h * D + d;
-// q, k, v and o all bf16, or all fp32 (io_f32); D = 32 or 64;
+// q, k, v and o all bf16, or all fp32 (io_f32), 16-byte aligned with row
+// and batch strides a multiple of 16 bytes; D = 32 or 64;
 // bias: fp32 [B, Lk] contiguous, or null; o: [B, Lq, H * D] contiguous.
-// fixed: the fixed exp2 shift with scale_log2 = scale * log2(e), else the
-// running maximum with scale.
+// fixed: the fixed exp2 shift, which heads of 32 take, or (heads of 64) the
+// running maximum; either way the exponent is S * scale_log2 (= scale *
+// log2(e)) plus the bias times log2(e).
 int gvf_attention(const void* q, const void* k, const void* v,
                   const void* bias, void* o, int B, int Lq, int Lk, int H,
                   int D, long long q_sb, long long q_sl, long long kv_sb,
                   long long kv_sl, float scale, float scale_log2, int io_f32,
                   int fixed, void* stream) {
-  if ((D != 32 && D != 64) || B < 1 || B > 65535 || Lq < 1 || Lk < 1 ||
-      H < 1 || H > 65535)
+  if ((D != 32 && D != 64) || (fixed != 0) != (D == 32) || B < 1 ||
+      B > 65535 || Lq < 1 || Lk < 1 || H < 1 || H > 65535)
     return (int)cudaErrorInvalidValue;
   AttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -84,10 +81,10 @@ int gvf_attention(const void* q, const void* k, const void* v,
   p.scale_log2 = scale_log2;
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 32)
-    return (int)(io_f32 ? launch<32, float>(p, H, B, fixed, s)
-                        : launch<32, bf16>(p, H, B, fixed, s));
-  return (int)(io_f32 ? launch<64, float>(p, H, B, fixed, s)
-                      : launch<64, bf16>(p, H, B, fixed, s));
+    return (int)(io_f32 ? launch<32, float, true>(p, H, B, s)
+                        : launch<32, bf16, true>(p, H, B, s));
+  return (int)(io_f32 ? launch<64, float, false>(p, H, B, s)
+                      : launch<64, bf16, false>(p, H, B, s));
 }
 
 }  // extern "C"

@@ -25,13 +25,20 @@
 //   gemm_kernel    bf16 x bf16 -> fp32 on tensor cores (WMMA 16x16x16), with
 //                  fused epilogues: +bias, +bias -> gelu_tanh,
 //                  x + gate * (acc + bias), x + (acc + bias).
-//   attn_kernel    (attention.cuh) softmax attention for one (query tile,
-//                  head, row block):
+//   attn_kernel    (attention.cuh; K1, K2) softmax attention for one
+//                  (query tile, head, row block):
 //                  per-head RMS norm of q/k in the prologue (a null gamma
 //                  skips it), online softmax with a true running maximum,
 //                  fp32 accumulation, masking of keys past Lk, and strided
 //                  addressing so the temporal sublayer attends over T
 //                  straight in [B, T, N, C].
+//   attn_sm90_kernel (attention_sm90.cuh; K3's bf16 forms) the Hopper
+//                  attention core: wgmma, K/V by TMA into a ring of
+//                  swizzled tiles, the online softmax in registers; the q
+//                  RMS norm in its prologue.
+//   gemm_sm90_kernel (gemm_sm90.cuh; K3's bf16 forms) the q and out
+//                  projections: wgmma over a TMA ring, +bias and
+//                  x + (acc + bias) epilogues.
 //
 // Head widths: 32 (the DiT's 16 heads, as shipped) and 64 (its 8-head
 // configuration); the SLat torso's single-context cross form takes 32, 64
@@ -44,11 +51,13 @@
 // tensor-core work (~2 TFLOP per 12-block forward at B*T = 32) and the
 // attention ~1 TFLOP, yet the attention kernel holds about three quarters of
 // the denoise's device time (profiled on an H100 80GB HBM3 at a 700 W
-// limit) and the GEMMs most of the rest; which of its score, online-softmax
-// (CUDA cores, per key) and PV steps bounds it is not measured yet. This first
-// version keeps every intermediate (q/k/v, attention output, MLP hidden) in
-// device memory between the kernels of a chain and uses no wgmma, TMA or
-// cp.async pipelining: it is written to be right first.
+// limit) and the GEMMs most of the rest. K1, K2, K4 and the int8 forms are
+// the first version, written to be right first: they keep every
+// intermediate (q/k/v, attention output, MLP hidden) in device memory
+// between the kernels of a chain and use no wgmma, TMA or cp.async
+// pipelining. K3's bf16 forms (two contexts, and one at heads of 32, 64 and
+// 128) run the Hopper attention core and GEMM above; their chain still
+// passes q and the attention output through device memory.
 // The TPU kernel's lane-packing of narrow heads onto 128-lane tiles has no
 // counterpart here; a 32- or 64-wide head maps straight onto 16x16
 // tensor-core tiles.
@@ -85,7 +94,7 @@
 // datasheet). K2's attention spans T = 32 keys, half a 64-key tile: the
 // simple form leaves the rest masked.
 
-#include "attention.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -374,6 +383,18 @@ cudaError_t launch_attn_d(const AttnParams& p, int H, long long nb1, int D,
                           cudaStream_t s) {
   if (D == 32) return launch_attn<32, TQ, TKV>(p, H, nb1, s);
   if (D == 64) return launch_attn<64, TQ, TKV>(p, H, nb1, s);
+  return cudaErrorInvalidValue;
+}
+
+// K3's attention (fp32 q, bf16 cache, bf16 out, running maximum) on the
+// Hopper core of attention_sm90.cuh: heads of 32 or 64, and 128 for the
+// single context
+cudaError_t launch_cross_attn(AttnParams p, int H, long long nb1, int D,
+                              cudaStream_t s) {
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  if (D == 32) return sm90::launch_attn_sm90<32, float, bf16, bf16, false>(p, H, nb1, s);
+  if (D == 64) return sm90::launch_attn_sm90<64, float, bf16, bf16, false>(p, H, nb1, s);
+  if (D == 128) return sm90::launch_attn_sm90<128, float, bf16, bf16, false>(p, H, nb1, s);
   return cudaErrorInvalidValue;
 }
 
@@ -854,21 +875,20 @@ int gvf_cross_sublayer(const void* x,
     p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
     p.nb2 = 1; p.Lq = L; p.Lk = lk;
     p.qg = (const bf16*)qg; p.kg = nullptr;
-    p.scale = (float)(1.0 / sqrt((double)D));
-    return launch_attn_d<float, bf16>(p, H, B, D, s);
+    return launch_cross_attn(p, H, B, D, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,
-                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wq1, bq1, nullptr, (float*)q, R, C, C, s)));
   GVF_CHECK(attend(k1, v1, lk1, qg1));
-  GVF_CHECK((launch_gemm<EPI_RESID, bf16, float>(attn, wo1, bo1, (const bf16*)x,
-                                                 nullptr, (float*)mid, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, float>(
+      attn, wo1, bo1, (const bf16*)x, (float*)mid, R, C, C, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq2, bq2, nullptr, nullptr,
-                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wq2, bq2, nullptr, (float*)q, R, C, C, s)));
   GVF_CHECK(attend(k2, v2, lk2, qg2));
-  GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
-                                                 nullptr, (bf16*)y, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<true, float, bf16>(
+      attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, C, s)));
   return 0;
 }
 
@@ -876,8 +896,7 @@ int gvf_cross_sublayer(const void* x,
 // both bf16 or, with x_f32, both fp32 (the SLat torso's residual stream is
 // fp32, as in the JAX package); affine LN (ns, nb [C]), wq [C, C], bq,
 // wo [C, C], bo; the cached k, v rows with heads of 32, 64 or 128 (the
-// torso at 32, 16 or 8 heads; attn_kernel<128> takes 88 KB of dynamic
-// shared memory), element (b, j, c)
+// torso at 32, 16 or 8 heads), element (b, j, c)
 // at b * kv_sb + j * kv_sl + c (the k/v halves of one [B, Lk, 2C]
 // projection go in place); no RMS norm; the residual un-gated. Scratch:
 // h bf16, q fp32, attn bf16, each [B*L, C].
@@ -895,8 +914,8 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
     GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
   else
     GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns, nb, h, R, C, 1, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq, bq, nullptr, nullptr,
-                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wq, bq, nullptr, (float*)q, R, C, C, s)));
   AttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = (bf16*)attn;
   p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
@@ -904,15 +923,13 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
   p.qg = nullptr; p.kg = nullptr;
-  p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((D == 128 ? launch_attn<128, float, bf16>(p, H, B, s)
-                      : launch_attn_d<float, bf16>(p, H, B, D, s)));
+  GVF_CHECK(launch_cross_attn(p, H, B, D, s));
   if (x_f32)
-    GVF_CHECK((launch_gemm<EPI_RESID, float, float>(attn, wo, bo, (const float*)x,
-                                                    nullptr, (float*)y, R, C, C, 1, s)));
+    GVF_CHECK((sm90::launch_gemm_sm90<true, float, float>(
+        attn, wo, bo, (const float*)x, (float*)y, R, C, C, s)));
   else
-    GVF_CHECK((launch_gemm<EPI_RESID, bf16, bf16>(attn, wo, bo, (const bf16*)x,
-                                                  nullptr, (bf16*)y, R, C, C, 1, s)));
+    GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, bf16>(
+        attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, C, s)));
   return 0;
 }
 

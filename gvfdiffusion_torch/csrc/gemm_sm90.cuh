@@ -1,0 +1,183 @@
+// The Hopper projection GEMM of K3's chain (fused_sublayer.cu: the q and
+// out projections of gvf_cross_sublayer and gvf_cross_sublayer1):
+// out[M, N] = A[M, K] W[N, K]^T + bias (+ res), A and W bf16, fp32
+// accumulation, the epilogue's sum in fp32 as gemm_kernel's (acc + bias,
+// then res + that), out fp32 or bf16.
+//
+// Replaces, on the card, the q and out projections inside the Pallas TPU
+// kernel gvfdiffusion_tpu/ops/fused_sublayer.py:839 fused_cross_sublayer
+// (_cross_sublayer_kernel :589). gemm_kernel (WMMA, the first version)
+// stays for K1, K2 and K4.
+//
+// Design: one CTA per 128 x 128 output tile; one producer warp keeps a ring
+// of STAGES (A, W) tiles of 64 K-columns in flight with TMA (128-byte
+// swizzle, zero fill past M, N and K); two consumer warpgroups, 64 rows
+// each, accumulate with wgmma.mma_async m64n128k16 from shared memory and
+// release a stage once its products have landed; the epilogue adds bias and
+// residual straight from the accumulator registers.
+//
+// What bounds it on the H100: at the DiT's K3 shape each projection is
+// [16384, 512] x [512, 512]^T, 8.6 GFLOP (8.7 us at 989 TFLOP/s) against
+// 34-50 MB of traffic (its fp32 q or residual stream: 10-15 us at 3.35
+// TB/s), so the bytes bound it; at the SLat torso's [32768, 1024] x
+// [1024, 1024]^T the operations (69 GFLOP, 70 us) and the bytes (~270 MB,
+// 80 us) come close.
+
+#pragma once
+
+#include "attention_sm90.cuh"
+
+namespace gvf {
+namespace sm90 {
+
+constexpr int GM = 128, GN = 128, GK = 64, GSTAGES = 4;
+
+struct GemmSmem {
+  static constexpr int A = 0;                           // [GM][GK] bf16
+  static constexpr int B = A + GSTAGES * GM * GK * 2;   // [GN][GK] bf16
+  static constexpr int BAR = B + GSTAGES * GN * GK * 2;
+  static constexpr int BYTES = BAR + 2 * GSTAGES * 8 + 1024;  // + alignment
+};
+
+template <bool RESID, typename TRes, typename TOut>
+__global__ void __launch_bounds__(288, 1)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tw,
+                     const bf16* __restrict__ bias,
+                     const TRes* __restrict__ res, TOut* __restrict__ out,
+                     long long M, int N, int K) {
+  using S = Sw<64>;
+  extern __shared__ __align__(1024) unsigned char gsmem_raw[];
+  unsigned char* smem =
+      gsmem_raw + ((1024 - (smem_u32(gsmem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GemmSmem::BAR);
+  uint64_t* empty = full + GSTAGES;
+  const int tid = threadIdx.x;
+  const long long m0 = (long long)blockIdx.y * GM;
+  const int n0 = blockIdx.x * GN;
+  const int ktiles = (K + GK - 1) / GK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---- producer warp: lane 0 issues the TMA copies
+    if ((tid & 31) == 0) {
+      for (int t = 0; t < ktiles; ++t) {
+        const int s = t % GSTAGES;
+        if (t >= GSTAGES) mbar_wait(&empty[s], ((t / GSTAGES) - 1) & 1);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                smem_u32(&full[s])),
+            "r"((GM + GN) * GK * 2)
+            : "memory");
+        tma_load_2d(smem_u32(smem + GemmSmem::A + s * GM * GK * 2), &ta,
+                    t * GK, (int)m0, &full[s]);
+        tma_load_2d(smem_u32(smem + GemmSmem::B + s * GN * GK * 2), &tw,
+                    t * GK, n0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: rows m0 + 64 wg .. + 63
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float acc[GN / 2];
+#pragma unroll
+  for (int i = 0; i < GN / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < ktiles; ++t) {
+    const int s = t % GSTAGES;
+    mbar_wait(&full[s], (t / GSTAGES) & 1);
+    const uint32_t a = smem_u32(smem + GemmSmem::A + s * GM * GK * 2) +
+                       wg * 64 * S::RB;
+    const uint32_t b = smem_u32(smem + GemmSmem::B + s * GN * GK * 2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)
+      wgmma_ss<GN>(acc, S::kmajor(a, kk, 64), S::kmajor(b, kk, GN), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<GN / 2>(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: acc[4 i + 2 hr + e] is row 16 warp + lane / 4 + 8 hr of the
+  // warpgroup's 64, column 8 i + 2 (lane % 4) + e
+  const int quad = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const long long gm = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hr;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int i = 0; i < GN / 8; ++i) {
+      const int gn = n0 + 8 * i + 2 * quad;
+      if (gn >= N) continue;  // N is even: both columns or neither
+      const long long o = gm * N + gn;
+      float v0 = acc[4 * i + 2 * hr] + to_f(bias[gn]);
+      float v1 = acc[4 * i + 2 * hr + 1] + to_f(bias[gn + 1]);
+      if (RESID) {
+        v0 = to_f(res[o]) + v0;
+        v1 = to_f(res[o + 1]) + v1;
+      }
+      if constexpr (sizeof(TOut) == 4)
+        *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v0, v1);
+    }
+  }
+}
+
+// The TMA map of a row-major bf16 matrix [rows, cols]: boxes of 64 columns
+// x 128 rows, 128-byte swizzle
+inline cudaError_t matrix_map(CUtensorMap* map, const void* base,
+                              long long rows, int cols) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)GK, (cuuint32_t)GM};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(base), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// out[M, N] = A[M, K] W[N, K]^T + bias (+ res [M, N]); A, W 16-byte aligned,
+// K and N multiples of 8
+template <bool RESID, typename TRes, typename TOut>
+cudaError_t launch_gemm_sm90(const void* A, const void* W, const void* bias,
+                             const TRes* res, TOut* out, long long M, int N,
+                             int K, cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 1 || N % 8 || K % 8 || (uintptr_t)A % 16 ||
+      (uintptr_t)W % 16 || cdiv(M, GM) > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tw;
+  cudaError_t err = matrix_map(&ta, A, M, K);
+  if (err == cudaSuccess) err = matrix_map(&tw, W, N, K);
+  if (err != cudaSuccess) return err;
+  auto kern = gemm_sm90_kernel<RESID, TRes, TOut>;
+  static bool opted = false;  // the shared-memory opt-in, once
+  if (!opted) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmSmem::BYTES);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  kern<<<dim3(cdiv(N, GN), cdiv(M, GM)), 288, GemmSmem::BYTES, s>>>(
+      ta, tw, (const bf16*)bias, res, out, M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace gvf

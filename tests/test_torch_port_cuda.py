@@ -22,7 +22,13 @@ single context at compute_dtype=float32 at key lengths 37 and 1374;
 K3's int8 form at the DiT's heads of 32 with both q-scale domains; K1 and
 K2 with int8 QK (`quant_qk`) at several frames, N of 100, 128 and 512 and
 T of 24 and 32 over 24 and 48 voxels (voxel groups of 8 and 16); the
-multi-round, early-exit tile blend on the card against the CPU.
+multi-round, early-exit tile blend on the card against the CPU; the
+Hopper attention core under K5 and K3's bf16 forms (`test_core_*`) at query
+counts 128, 129, 1374 and 4097 against key counts 1, 63, 64, 65, 1374 and
+4096 (its 128-row query tiles and 128-key tiles, 64-key at heads of 128),
+heads of 32 and 64 in strided views, a fully masked bias row, fp32 in and
+out, K3's two contexts at unequal key counts with and without the q RMS
+norm, and K3's single context at heads of 32, 64 and 128.
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
@@ -1232,3 +1238,128 @@ def test_configured_dit_kernels_match_plain(dev, cfg):
         err = _rel(y, ref)
         print(f"{cfg} {quant}: rel_l2 {err:.3e}")
         assert bool(torch.isfinite(y).all()) and err <= 3e-2, err
+
+
+# -- the Hopper attention core (attention_sm90.cuh) under K5 and K3's bf16
+# forms, and K3's projection GEMM (gemm_sm90.cuh): tile edges of the 128-row
+# query tiles (64 where the grid has fewer tiles than SMs) and of the
+# 128-key tiles (64 at heads of 128)
+
+CORE_LQ = [128, 129, 1374, 4097]
+CORE_LK = [1, 63, 64, 65, 1374, 4096]
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Lk", CORE_LK)
+@pytest.mark.parametrize("Lq", CORE_LQ)
+def test_core_attention_edges(dev, Lq, Lk, D):
+    """K5 in bf16 at heads of 32 (fixed shift) and 64 (running maximum):
+    q/k/v the strided views of one qkv projection where Lq = Lk, else q
+    apart and k/v the halves of a kv projection."""
+    g = torch.Generator(device=dev).manual_seed(Lq * 7 + Lk)
+    H = 128 // D
+    if Lq == Lk:
+        qkv = torch.randn(2, Lq, 3, H, D, generator=g, device=dev).bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = torch.randn(2, Lq, H, D, generator=g, device=dev).bfloat16()
+        kv = torch.randn(2, Lk, 2, H, D, generator=g,
+                         device=dev).bfloat16()
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    y = fa.fused_attention(q, k, v, D ** -0.5, cross=Lq != Lk)
+    ref = fa.fused_attention(q, k, v, D ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert y.shape == q.shape and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"core D={D} Lq={Lq} Lk={Lk}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Lk", [63, 129, 4096])
+def test_core_kv_bias_all_masked_row(dev, Lk, D):
+    """A key bias whose batch row 0 masks every key (exactly 0 out, no
+    NaN); row 1 keeps a random half off the key tiles, with a finite bias."""
+    g = torch.Generator(device=dev).manual_seed(Lk + D)
+    H = 128 // D
+    q, k, v = (torch.randn(2, L, H, D, generator=g, device=dev).bfloat16()
+               for L in (129, Lk, Lk))
+    keep = torch.rand(2, Lk, generator=g, device=dev) < 0.5
+    keep[0] = False
+    keep[1, 0] = True
+    bias = torch.where(keep, 0.5 * torch.randn(2, Lk, generator=g,
+                                               device=dev), float("-inf"))
+    y = fa.fused_attention(q, k, v, D ** -0.5, kv_bias=bias)
+    ref = fa.fused_attention(q, k, v, D ** -0.5, kv_bias=bias, impl="plain")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and not bool(y[0].any())
+    err = _rel(y, ref)
+    print(f"core kv_bias D={D} Lk={Lk}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Lq,Lk", [(129, 65), (1374, 1374), (4097, 63)])
+def test_core_fp32_in_and_out(dev, Lq, Lk, D):
+    """fp32 q/k/v and output (the DiT's training forms): k/v converted to
+    bf16 on the way into shared memory."""
+    g = torch.Generator(device=dev).manual_seed(Lq + Lk + D)
+    H = 128 // D
+    q = torch.randn(2, Lq, H, D, generator=g, device=dev)
+    kv = torch.randn(2, Lk, 2, H, D, generator=g, device=dev)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    y = fa.fused_attention(q, k, v, D ** -0.5, cross=True)
+    ref = fa.fused_attention(q, k, v, D ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"core fp32 D={D} Lq={Lq} Lk={Lk}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("lks", [(1, 65), (63, 1374)])
+@pytest.mark.parametrize("rms", [False, True])
+def test_core_cross_two_contexts(dev, rms, lks, heads):
+    """K3's two contexts at unequal key counts on the tile edges, 129 rows
+    (a ragged GEMM and query tile), heads of 32 and 64, with and without
+    the q RMS norm (k normed as the cache carries it)."""
+    d = _Draw(dev, 50 + sum(lks), 128)
+    x = d(3, 129, 128)
+    args = [x]
+    for lk in lks:
+        p, (k, v) = d.cross(3, lk)
+        if rms:
+            p = p[:4] + (d(128, shift=1.0, scale=0.1) * (128 // heads) ** 0.5,
+                         ) + p[4:]
+            kh = k.float().unflatten(-1, (heads, -1))
+            k = (kh * (kh.square().sum(-1, keepdim=True) + 1e-12).rsqrt()
+                 * (128 // heads) ** 0.5).flatten(-2).bfloat16()
+        args += [p, (k, v)]
+    _check("cross", pt.fused_cross_sublayer, x, args,
+           dict(num_heads=heads, rms=rms))
+
+
+@pytest.mark.parametrize("lk", [1, 63, 64, 65, 129])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_core_cross_single_edges(dev, D, lk):
+    """K3's single context in bf16 at heads of 32, 64 and 128 (C = 256),
+    fp32 x as the SLat torso's residual stream, k/v the halves of one
+    [B, lk, 2C] projection, 129 rows."""
+    d = _Draw(dev, 60 + lk, 256)
+    x = d(2, 129, 256).float()
+    p, _ = d.cross(2, lk)
+    kv = d(2, lk, 512)
+    args = (x, p, (kv[..., :256], kv[..., 256:]))
+    with torch.no_grad():
+        y = pt.fused_cross_sublayer(*args, num_heads=256 // D)
+        ref = pt.fused_cross_sublayer(*args, num_heads=256 // D,
+                                      impl="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    err, upd = _rel(y, ref), _rel(y - x, ref - x)
+    print(f"core cross_single D={D} lk={lk}: rel_l2 {err:.3e} "
+          f"update_rel_l2 {upd:.3e}")
+    y_bound, upd_bound = BOUNDS["cross_single"]
+    assert err <= y_bound and upd <= upd_bound, (err, upd)
