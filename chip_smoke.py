@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
     python3 chip_smoke.py --vae      # build + the VAE phases only
-    python3 chip_smoke.py --profile  # build + K3's and K5's device time
-                                     # by kernel name, then profiled
+    python3 chip_smoke.py --split    # build + K1's, K3's and K5's device
+                                     # time by kernel name
+    python3 chip_smoke.py --profile  # the same, then profiled
                                      # denoise (float, int8 cache, int8
                                      # QK), encode, TRELLIS flow forwards
                                      # (also at the defaults) and decode,
@@ -57,6 +58,10 @@ Phases, each printed on its own lines:
      as prefixes), against the plain forward and backward on every row,
      with SDPA under the boolean key mask (forward; its backward) as the
      library call;
+  2a. device time by kernel name (torch.profiler, three calls each) inside
+     K1 (float and int8 QK) and K3 (on the float and the int8 cache) at
+     the DiT's shape, K3's single context at 4096 and 32768 rows and K5 at
+     DINOv2's shape: the --split phase, without its traces;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -862,12 +867,7 @@ def phase_cross_q8(dev, name, replaces, source, case, key):
     _, p1, kv1, p2, kv2 = c["args"]
     heads = c["kw"]["num_heads"]
 
-    def q8(kv):
-        kq, ks = fsl.quantize_kv(kv[0], heads)
-        vq, vs = fsl.quantize_kv(kv[1], heads)
-        return kq, vq, ks.transpose(1, 2).contiguous(), vs
-
-    c1, c2 = q8(kv1), q8(kv2)
+    c1, c2 = int8_cache(kv1, heads), int8_cache(kv2, heads)
     args = (x, p1, c1, p2, c2)
     kw = dict(c["kw"], quant=True)
     deq = lambda c_: tuple(fsl.dequantize_kv(a, s_).bfloat16() for a, s_ in
@@ -3367,10 +3367,10 @@ def phase_trellis_heads(pipe32, staged, dev, card):
 
 
 def _kernel_group(name: str) -> str:
-    for k in ("attn_sm90_kernel", "gemm_sm90_kernel", "attn_kernel",
-              "temporal_kernel", "gemm_kernel", "ln_kernel",
-              "flash_kernel", "tile_count_kernel", "attn_q8_kernel<true>",
-              "attn_q8_kernel<false>", "q8_kernel"):
+    for k in ("attn_sm90_q8_kernel", "attn_sm90_kernel", "gemm_sm90_kernel",
+              "attn_q8_kernel", "attn_kernel", "temporal_kernel",
+              "gemm_kernel", "ln_kernel", "flash_kernel",
+              "tile_count_kernel", "q8_kernel"):
         if k in name:
             return k
     if any(k in name for k in ("fmha", "flash", "attention")):
@@ -3384,10 +3384,11 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profile(fn, what: str, trace: str, card: str) -> None:
+def _profile(fn, what: str, trace, card: str) -> None:
     """torch.profiler over one call of fn (after a warm-up): device time by
     kernel group and the device's busy share of the wall time; the Chrome
-    trace is written to the file `trace` of the output directory below."""
+    trace is written to the file `trace` of the output directory below
+    (none when trace is None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3418,18 +3419,31 @@ def _profile(fn, what: str, trace: str, card: str) -> None:
         log(f"[profile]   {k}: {ms:.1f} ms ({100 * ms / busy:.1f}% of device)")
     for ms, n, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile]   {ms:9.2f} ms  x{n:<5d} {name[:110]}")
-    out = os.path.join(REPO, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, trace))
+    if trace is not None:
+        out = os.path.join(REPO, "chiprun_out")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, trace))
 
 
-def phase_profile_split(dev, card):
-    """Device time by kernel name inside K3's chain (ln_kernel, gemm_kernel
-    and the attention kernel) and K5, three calls each: K3 at the shipped
-    DiT's shape (two contexts, 16 heads of 32), K3's single context at the
+def int8_cache(kv, heads):
+    """An int8 cache of float (k, v) as the DiT builds it: quantize_kv, the
+    k scales transposed to [B, H, Lk]."""
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    kq, ks = fsl.quantize_kv(kv[0], heads)
+    vq, vs = fsl.quantize_kv(kv[1], heads)
+    return kq, vq, ks.transpose(1, 2).contiguous(), vs
+
+
+def phase_profile_split(dev, card, traces=True):
+    """Device time by kernel name inside K1's, K3's and K5's chains
+    (ln_kernel, the GEMMs, q8_kernel and the attention kernel), three calls
+    each: K1 at the shipped DiT's shape ([32, 512, 512], 16 heads of 32),
+    float and with int8 QK; K3 there (two contexts: image KV 1374, static
+    512), on the float and on the int8 cache; K3's single context at the
     compacted torso's 4096 rows and at the defaults' 32768 (bf16, 16 heads
-    of 64, 1374 image tokens), and K5 at DINOv2's [32, 1374, 16, 64]
-    (traces split_*_trace.json)."""
+    of 64, 1374 image tokens); and K5 at DINOv2's [32, 1374, 16, 64]
+    (traces split_*_trace.json, with `traces`)."""
     import torch
     from gvfdiffusion_torch.ops import fused_attention as fa
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
@@ -3444,6 +3458,9 @@ def phase_profile_split(dev, card):
         r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx)))
     kv32k = r(1, L_IMG, 2 * Cx).bfloat16()
     q, k, v, _, _ = attention_case(dev, "attention")
+    self_args, self_kw = cases["self"][1]["args"], cases["self"][1]["kw"]
+    x3, p1, kv1, p2, kv2 = cases["cross"][1]["args"]
+    c1, c2 = int8_cache(kv1, H), int8_cache(kv2, H)
 
     def three(fn):
         def run():
@@ -3453,9 +3470,19 @@ def phase_profile_split(dev, card):
         return run
 
     for what, trace, fn in (
+            (f"K1 x3 (DiT [{B * T}, {N}, {C}], 16 heads of 32)", "split_k1",
+             lambda: fsl.fused_self_sublayer(*self_args, **self_kw)),
+            (f"K1 q8 x3 (DiT [{B * T}, {N}, {C}], 16 heads of 32, int8 QK)",
+             "split_k1_q8",
+             lambda: fsl.fused_self_sublayer(*self_args, **self_kw,
+                                             quant_qk=True)),
             ("K3 x3 (DiT, two contexts, 16 heads of 32)", "split_k3",
              lambda: fsl.fused_cross_sublayer(*cases["cross"][1]["args"],
                                               **cases["cross"][1]["kw"])),
+            ("K3 int8 x3 (DiT, two contexts on the int8 cache, 16 heads of "
+             "32)", "split_k3_q8",
+             lambda: fsl.fused_cross_sublayer(x3, p1, c1, p2, c2,
+                                              num_heads=H, quant=True)),
             (f"K3 single x3 ([1, {TORSO}, 1024] x {L_IMG}, 16 heads of 64)",
              "split_k3_single",
              lambda: fsl.fused_cross_sublayer(
@@ -3468,7 +3495,8 @@ def phase_profile_split(dev, card):
                  num_heads=16)),
             (f"K5 x3 (DINOv2 [{T}, {L_IMG}, 16, 64])", "split_k5",
              lambda: fa.fused_attention(q, k, v, 0.125))):
-        _profile(three(fn), what, f"{trace}_trace.json", card)
+        _profile(three(fn), what, f"{trace}_trace.json" if traces else None,
+                 card)
 
 
 def phase_profile(dino, dit, vae, dev, card):
@@ -3615,9 +3643,10 @@ def main(argv) -> int:
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"({_ext.library_path().name})")
 
-    if "--profile" in argv:
+    if "--profile" in argv or "--split" in argv:
         phase_profile_split(dev, card)
-        phase_profile(*build_models(dev), dev, card)
+        if "--profile" in argv:
+            phase_profile(*build_models(dev), dev, card)
         return 0
     if "--vae" in argv:
         phase_vae_kernels(dev)
@@ -3626,6 +3655,7 @@ def main(argv) -> int:
     results = phase_kernels(dev)
     if quick:
         return 0
+    phase_profile_split(dev, card, traces=False)
     dino, dit, vae = build_models(dev)
     phase_dinov2(dino, dev, card)
     phase_dit(dit, dev)

@@ -1,9 +1,9 @@
 // Softmax attention tile kernels for Hopper (sm_90a).
 //
-// attn_kernel serves K1 and K2 alone (fused_sublayer.cu's self and temporal
-// sublayers, heads of 32 and 64): K5 and K3's bf16 forms run
-// attention_sm90.cuh's core, which shares AttnParams below. It is the
-// first version, written to be right first.
+// attn_kernel serves K2 alone (fused_sublayer.cu's temporal sublayer, heads
+// of 32 and 64): K1, K5 and K3's bf16 forms run attention_sm90.cuh's core,
+// which shares AttnParams below. It is the first version, written to be
+// right first.
 //
 // attn_kernel: one CTA (4 warps) per (64-query tile, head, row block z).
 // Per 64-key tile staged in shared memory: S = Q K^T on tensor cores (WMMA
@@ -65,7 +65,7 @@ struct AttnParams {
   long long o_s1, o_s2, o_si;
   int nb2, Lq, Lk;
   const bf16* qg;  // [C] gamma * sqrt(D), or null: no RMS norm on q
-  const bf16* kg;  // likewise for k
+  const bf16* kg;  // likewise for k (attention_sm90.cuh takes none)
   const float* bias = nullptr;  // [row block z1][Lk] logit bias, or null
   long long bias_s1 = 0;
   float scale;

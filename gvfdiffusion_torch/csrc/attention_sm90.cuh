@@ -1,18 +1,23 @@
-// The Hopper attention core (sm_90a) under K5 (fused_attention.cu) and the
+// The Hopper attention core (sm_90a) under K5 (fused_attention.cu), the
 // bf16 forms of K3 (fused_sublayer.cu: two contexts, and the single context
-// at heads of 32, 64 and 128).
+// at heads of 32, 64 and 128) and K1's float forms (fused_sublayer.cu's
+// self sublayer). attention_sm90_q8.cuh builds the int8-QK path of K1 and
+// K3's int8 form on its ring, barriers and tiles.
 //
 // Replaces, on the card, the attention of these Pallas TPU kernels:
 //   gvfdiffusion_tpu/ops/fused_attention.py:370 fused_attention, bodies
 //     _attn_kernel_dense :108 and _attn_kernel :154 (K5);
 //   gvfdiffusion_tpu/ops/fused_sublayer.py:839 fused_cross_sublayer, body
-//     _cross_sublayer_kernel :589 (K3's attention step).
-// attention.cuh's attn_kernel (WMMA, the first version) stays for K1 and K2.
+//     _cross_sublayer_kernel :589 (K3's attention step);
+//   gvfdiffusion_tpu/ops/fused_sublayer.py:344 fused_self_sublayer, body
+//     _self_sublayer_kernel :170 (K1's attention step, float).
+// attention.cuh's attn_kernel (WMMA, the first version) stays for K2.
 //
 // What it computes: O = softmax(Q K^T * scale + bias) V per (query row,
 // head, row block), q read as bf16 or fp32 on its own strides (optionally
 // RMS-normed per head in fp32 with gamma qg, then rounded to bf16), k and v
-// as bf16 or fp32 on theirs and rounded to bf16, the products in bf16 with
+// as bf16 or fp32 on theirs and rounded to bf16 (K1's k arrives normed:
+// gemm_sm90.cuh's qkv epilogue norms q and k), the products in bf16 with
 // fp32 accumulation, P rounded to bf16 for P V and the row sum taken from
 // the fp32 P, the output normalised once and written as bf16 or fp32. The
 // softmax is online with a true running maximum, or (FIXED) the TPU
@@ -748,8 +753,9 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int H, int Lk,
 template <int D, typename TQ, typename TKV, typename TO, bool FIXED>
 cudaError_t launch_attn_sm90(const AttnParams& p, int H, long long nb1,
                              cudaStream_t s) {
+  // no k RMS norm here (kg): K1 norms k in its projection's epilogue
   if (nb1 < 1 || nb1 > 65535 || p.nb2 != 1 || H < 1 || H > 65535 ||
-      p.Lq < 1 || p.Lk < 1 || (nb1 > 1 && p.k_s1 <= 0))
+      p.Lq < 1 || p.Lk < 1 || (nb1 > 1 && p.k_s1 <= 0) || p.kg)
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr, long long stride, int elem) {
     return ((uintptr_t)ptr % 16) != 0 || (stride * elem) % 16 != 0;

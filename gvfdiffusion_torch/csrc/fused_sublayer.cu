@@ -22,23 +22,27 @@
 //   ln_kernel      LayerNorm (fp32 statistics, eps 1e-6) + adaLN modulate
 //                  (row i reads modulation row i / rows_per_mod) or affine LN,
 //                  rounded to bf16 — the GEMM operand, as in the reference.
-//   gemm_kernel    bf16 x bf16 -> fp32 on tensor cores (WMMA 16x16x16), with
-//                  fused epilogues: +bias, +bias -> gelu_tanh,
-//                  x + gate * (acc + bias), x + (acc + bias).
-//   attn_kernel    (attention.cuh; K1, K2) softmax attention for one
+//   gemm_kernel    (K2, K4) bf16 x bf16 -> fp32 on tensor cores (WMMA
+//                  16x16x16), with fused epilogues: +bias, +bias ->
+//                  gelu_tanh, x + gate * (acc + bias), x + (acc + bias).
+//   attn_kernel    (attention.cuh; K2) softmax attention for one
 //                  (query tile, head, row block):
 //                  per-head RMS norm of q/k in the prologue (a null gamma
 //                  skips it), online softmax with a true running maximum,
 //                  fp32 accumulation, masking of keys past Lk, and strided
 //                  addressing so the temporal sublayer attends over T
 //                  straight in [B, T, N, C].
-//   attn_sm90_kernel (attention_sm90.cuh; K3's bf16 forms) the Hopper
-//                  attention core: wgmma, K/V by TMA into a ring of
-//                  swizzled tiles, the online softmax in registers; the q
-//                  RMS norm in its prologue.
-//   gemm_sm90_kernel (gemm_sm90.cuh; K3's bf16 forms) the q and out
-//                  projections: wgmma over a TMA ring, +bias and
-//                  x + (acc + bias) epilogues.
+//   attn_sm90_kernel (attention_sm90.cuh; K1's float forms, K3's bf16
+//                  forms) the Hopper attention core: wgmma, K/V by TMA
+//                  into a ring of swizzled tiles, the online softmax in
+//                  registers; K3's q RMS norm in its prologue.
+//   attn_sm90_q8_kernel (attention_sm90_q8.cuh; K1's int8-QK forms, K3's
+//                  int8 form) the core's int8-QK path: s8 wgmma for the
+//                  scores, int8 K by TMA, V converted by the producer.
+//   gemm_sm90_kernel (gemm_sm90.cuh; K1 and K3, every form) the
+//                  projections: wgmma over a TMA ring, +bias,
+//                  x + (acc + bias) and x + gate * (acc + bias) epilogues,
+//                  and K1's float qkv epilogue (q/k RMS norms, bf16 out).
 //
 // Head widths: 32 (the DiT's 16 heads, as shipped) and 64 (its 8-head
 // configuration); the SLat torso's single-context cross form takes 32, 64
@@ -51,13 +55,14 @@
 // tensor-core work (~2 TFLOP per 12-block forward at B*T = 32) and the
 // attention ~1 TFLOP, yet the attention kernel holds about three quarters of
 // the denoise's device time (profiled on an H100 80GB HBM3 at a 700 W
-// limit) and the GEMMs most of the rest. K1, K2, K4 and the int8 forms are
+// limit) and the GEMMs most of the rest. K2, K4 and K2's int8 form are
 // the first version, written to be right first: they keep every
 // intermediate (q/k/v, attention output, MLP hidden) in device memory
 // between the kernels of a chain and use no wgmma, TMA or cp.async
-// pipelining. K3's bf16 forms (two contexts, and one at heads of 32, 64 and
-// 128) run the Hopper attention core and GEMM above; their chain still
-// passes q and the attention output through device memory.
+// pipelining. K1 (float and int8 QK) and K3 (bf16 and int8; two contexts,
+// and one at heads of 32, 64 and 128) run the Hopper attention core and
+// GEMM above; their chains still pass q (K1: the fp32 qkv) and the
+// attention output through device memory.
 // The TPU kernel's lane-packing of narrow heads onto 128-lane tiles has no
 // counterpart here; a 32- or 64-wide head maps straight onto 16x16
 // tensor-core tiles.
@@ -82,8 +87,9 @@
 // grids at the 3-way CFG batch; for K1, one frame; for K2, one batch row x
 // 16 voxels x all T frames. Given a gamma it first RMS-normalizes the rows
 // in place (the TPU kernel quantizes the normalized fp32 values): q and k
-// for K1/K2, q alone for K3. attn_q8_kernel takes the scores int8 x int8 ->
-// int32 on the tensor cores (WMMA 16x16x16 s8, D / 16 steps) and P =
+// for K1/K2, q alone for K3. The attention (attn_sm90_q8_kernel for K1 and
+// K3, s8 wgmma; attn_q8_kernel for K2, WMMA 16x16x16 s8) takes the scores
+// int8 x int8 -> int32 on the tensor cores and P =
 // exp2(s - 30) with the fixed shift (no running maximum): for K3 s = si *
 // (ks_j * (qs * scale * log2 e / 127)) with a per-key k scale and V
 // dequantized to bf16 as bf16(v * vs); for K1/K2 s = si * (qs * ks * scale *
@@ -94,6 +100,7 @@
 // datasheet). K2's attention spans T = 32 keys, half a 64-key tile: the
 // simple form leaves the rest masked.
 
+#include "attention_sm90_q8.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -410,15 +417,16 @@ __device__ __forceinline__ float warp_max(float v) {
 // cell's rows and the head's D lanes, qi = round(q * (127 / qs)) (half to
 // even). q is fp32 with a row stride (read in place from the [rows, 3C]
 // qkv buffer of the self sublayers); with a gamma it is first RMS-normalized
-// per (row, head) in place, q * rsqrt(sum q^2 + 1e-12) * gamma, as the TPU
-// kernel does before it quantizes. Cell c covers the rows
+// per (row, head), q * rsqrt(sum q^2 + 1e-12) * gamma, as the TPU kernel
+// does before it quantizes (both passes below norm the row the same way, so
+// nothing is written back). Cell c covers the rows
 //   (c / cells2) * s1 + (c % cells2) * s2 + t * s_outer + i,
 //   t < n_outer, i < n_inner:
 // one frame of L rows (K1), 16 voxels x T frames of [B, T, N] (K2), or
 // q_block consecutive rows (K3's int8 form). grid.z picks the tensor: q, or
 // k with its own gamma, output and scales.
 struct QuantParams {
-  float* src[2];           // fp32 rows, src_stride apart
+  const float* src[2];     // fp32 rows, src_stride apart
   const bf16* gamma[2];    // [C] gamma * sqrt(D), or null: no RMS norm
   signed char* dst[2];     // int8 rows, dst_stride apart
   float* scale[2];         // [cells, H]
@@ -426,47 +434,69 @@ struct QuantParams {
   int cells2, n_outer, n_inner, H;
 };
 
-// One warp per (row, head); lane l holds the head's lanes l, l + 32, ...
+// D / 4 lanes hold a row's head lanes, 4 each (16-byte loads), so a warp
+// step covers 128 / D rows; U steps' loads are in flight at once. The
+// bytes bound it: the cell's fp32 rows read twice (the second time mostly
+// from L2), its int8 rows written once.
 template <int D>
 __global__ void __launch_bounds__(256) q8_kernel(QuantParams p) {
-  constexpr int E = D / 32;
+  constexpr int LPR = D / 4, RPW = 32 / LPR, U = 4, STEP = 8 * RPW;
   __shared__ float red[8];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane / LPR, c4 = (lane % LPR) * 4;
   const int cell = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
   const long long base = (long long)(cell / p.cells2) * p.s1 +
                          (long long)(cell % p.cells2) * p.s2;
   const int rows = p.n_outer * p.n_inner;
-  float* src = p.src[z] + h * D + lane;
-  const bf16* gamma = p.gamma[z];
-  float g[E];
+  const float* src = (z ? p.src[1] : p.src[0]) + h * D + c4;
+  const bf16* gamma = z ? p.gamma[1] : p.gamma[0];
+  float g[4] = {1.f, 1.f, 1.f, 1.f};
+  if (gamma) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) g[e] = gamma ? to_f(gamma[h * D + lane + 32 * e]) : 1.f;
+    for (int e = 0; e < 4; ++e) g[e] = to_f(gamma[h * D + c4 + e]);
+  }
   auto row_of = [&](int r) {
     return base + (long long)(r / p.n_inner) * p.s_outer + r % p.n_inner;
   };
-  float mx = 0.f;
-  for (int r = warp; r < rows; r += 8) {
-    float* row = src + row_of(r) * p.src_stride;
-    float v[E];
+  // rows r0 + u STEP + sub, u < U: loaded together, then RMS-normed (the
+  // row's LPR lanes reduce by shuffles; every lane of the warp takes part)
+  auto load = [&](int r0, float (&v)[U][4]) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) v[e] = row[32 * e];
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * STEP + sub;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows)
+        a = *reinterpret_cast<const float4*>(src + row_of(r) * p.src_stride);
+      v[u][0] = a.x; v[u][1] = a.y; v[u][2] = a.z; v[u][3] = a.w;
+    }
     if (gamma) {
-      float ss = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) ss += __fmul_rn(v[e], v[e]);
-      const float f = rsqrtf(warp_sum(ss) + 1e-12f);
+      for (int u = 0; u < U; ++u) {
+        float ss = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        v[e] = __fmul_rn(__fmul_rn(v[e], f), g[e]);
-        row[32 * e] = v[e];
+        for (int e = 0; e < 4; ++e) ss += __fmul_rn(v[u][e], v[u][e]);
+#pragma unroll
+        for (int o = 1; o < LPR; o <<= 1)
+          ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        const float f = rsqrtf(ss + 1e-12f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[u][e] = __fmul_rn(__fmul_rn(v[u][e], f), g[e]);
       }
     }
+  };
+  float mx = 0.f;
+  for (int r0 = warp * RPW; r0 < rows; r0 += STEP * U) {
+    float v[U][4];
+    load(r0, v);
 #pragma unroll
-    for (int e = 0; e < E; ++e) mx = fmaxf(mx, fabsf(v[e]));
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx = fmaxf(mx, fabsf(v[u][e]));
   }
   mx = warp_max(mx);
   if (lane == 0) red[warp] = mx;
-  __syncthreads();  // also orders the normalized rows before their re-read
+  __syncthreads();
   if (warp == 0) {
     float v = lane < 8 ? red[lane] : 0.f;
     v = warp_max(v);
@@ -475,15 +505,24 @@ __global__ void __launch_bounds__(256) q8_kernel(QuantParams p) {
   __syncthreads();
   const float s = fmaxf(red[0], 1e-8f);
   const float rcp = __fdiv_rn(127.f, s);
-  signed char* dst = p.dst[z] + h * D + lane;
-  for (int r = warp; r < rows; r += 8) {
-    const long long row = row_of(r);
+  signed char* dst = (z ? p.dst[1] : p.dst[0]) + h * D + c4;
+  for (int r0 = warp * RPW; r0 < rows; r0 += STEP * U) {
+    float v[U][4];
+    load(r0, v);
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      dst[row * p.dst_stride + 32 * e] = (signed char)__float2int_rn(
-          __fmul_rn(src[row * p.src_stride + 32 * e], rcp));
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * STEP + sub;
+      if (r >= rows) continue;
+      char4 q;
+      q.x = (signed char)__float2int_rn(__fmul_rn(v[u][0], rcp));
+      q.y = (signed char)__float2int_rn(__fmul_rn(v[u][1], rcp));
+      q.z = (signed char)__float2int_rn(__fmul_rn(v[u][2], rcp));
+      q.w = (signed char)__float2int_rn(__fmul_rn(v[u][3], rcp));
+      *reinterpret_cast<char4*>(dst + row_of(r) * p.dst_stride) = q;
+    }
   }
-  if (threadIdx.x == 0) p.scale[z][(long long)cell * p.H + h] = s;
+  if (threadIdx.x == 0)
+    (z ? p.scale[1] : p.scale[0])[(long long)cell * p.H + h] = s;
 }
 
 cudaError_t launch_q8(const QuantParams& p, int cells, int tensors, int D,
@@ -505,10 +544,8 @@ struct Q8Params {
   const signed char* qi;  // int8 q rows
   const float* qs;        // [cells, H] q scales
   const signed char* k;   // int8 k rows
-  const void* v;          // int8 v rows (cross) or fp32 (self)
-  const bf16* ks_t;       // cross: [B, H, Lk] per-key k scales
-  const bf16* vs;         // cross: [B, Lk, H] per-key v scales
-  const float* ks;        // self: [cells, H] k scales, per cell as qs
+  const float* v;         // fp32 v rows
+  const float* ks;        // [cells, H] k scales, per cell as qs
   bf16* o;
   long long q_s1, q_s2, q_si, k_s1, k_s2, k_sj, v_s1, v_s2, v_sj;
   long long o_s1, o_s2, o_si;
@@ -516,16 +553,15 @@ struct Q8Params {
   float scale;
 };
 
-// One CTA (4 warps) per (64-query tile, head, row block), 64-key tiles. The
-// int8 tiles sit in shared memory as D / 16 panels of 16 lanes, so that
-// every WMMA s8 fragment starts on a 32-byte boundary. Static shared memory
-// ~33 KB at D = 32, ~40 KB at D = 64.
-// SELF = false: K3's int8 form, s = si * (ks_j * (qs * scale * log2 e /
-// 127)) - 30 with a per-key k scale, V = bf16(v * vs). SELF = true: K1/K2's
-// int8 QK, s = si * (qs * ks * scale * log2 e / 127^2) - 30 with one k scale
-// per (cell, head), V the fp32 projection rounded to bf16. The scalar
-// products keep the TPU kernel's order and roundings.
-template <bool SELF, int D>
+// K2's int8 QK (the first version; K1's and K3's int8 forms run
+// attention_sm90_q8.cuh). One CTA (4 warps) per (64-query tile, head, row
+// block), 64-key tiles. The int8 tiles sit in shared memory as D / 16
+// panels of 16 lanes, so that every WMMA s8 fragment starts on a 32-byte
+// boundary. Static shared memory ~33 KB at D = 32, ~40 KB at D = 64.
+// s = si * (qs * ks * scale * log2 e / 127^2) - 30 with one k scale per
+// (cell, head), V the fp32 projection rounded to bf16. The scalar products
+// keep the TPU kernel's order and roundings.
+template <int D>
 __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   constexpr int NP = D / 16;  // 16-lane panels of a row
   __shared__ __align__(128) signed char sQ[NP][64 * 16];
@@ -533,7 +569,6 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   __shared__ __align__(128) bf16 sV[64 * D];
   __shared__ __align__(128) int sS[4][16 * 64];  // int scores, then fp32 P V
   __shared__ __align__(128) bf16 sP[4][16 * 64];
-  __shared__ float sKs[64];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.y;
@@ -556,9 +591,8 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   float f = 0.f;
   if (qrow < p.L) {
     const long long c = ((z * p.L + qrow) / p.q_block) * p.H + h;
-    f = SELF ? __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(p.qs[c], p.ks[c]), p.scale),
-                                   LOG2E), 16129.f)
-             : __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[c], p.scale), LOG2E), 127.f);
+    f = __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(p.qs[c], p.ks[c]), p.scale),
+                            LOG2E), 16129.f);
   }
   float l_run = 0.f;
   float o_acc[D / 2];
@@ -569,8 +603,6 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   bf16* sPw = sP[warp];
   const signed char* kb = p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
   const long long v_off = z1 * p.v_s1 + z2 * p.v_s2 + h * D;
-  const bf16* ksb = SELF ? nullptr : p.ks_t + (z1 * p.H + h) * p.Lk;
-  const bf16* vsb = SELF ? nullptr : p.vs + z1 * p.Lk * p.H + h;
 
   for (int j0 = 0; j0 < p.Lk; j0 += 64) {
     __syncthreads();  // the previous tile is no longer read
@@ -581,30 +613,17 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
       if (ok) kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.k_sj + pn * 16);
       *reinterpret_cast<uint4*>(sK[pn] + lr * 16) = kv;
       bf16* dv = sV + lr * D + pn * 16;
-      if (SELF) {
-        const float4* vr = reinterpret_cast<const float4*>(
-            (const float*)p.v + v_off + (long long)kj * p.v_sj + pn * 16);
+      const float4* vr = reinterpret_cast<const float4*>(
+          p.v + v_off + (long long)kj * p.v_sj + pn * 16);
 #pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          const float4 a = ok ? vr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-          dv[4 * d] = __float2bfloat16(a.x);
-          dv[4 * d + 1] = __float2bfloat16(a.y);
-          dv[4 * d + 2] = __float2bfloat16(a.z);
-          dv[4 * d + 3] = __float2bfloat16(a.w);
-        }
-      } else {
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        if (ok)
-          vv = *reinterpret_cast<const uint4*>((const signed char*)p.v + v_off +
-                                               (long long)kj * p.v_sj + pn * 16);
-        const float vsc = ok ? to_f(vsb[(long long)kj * p.H]) : 0.f;
-        const signed char* vc = reinterpret_cast<const signed char*>(&vv);
-#pragma unroll
-        for (int d = 0; d < 16; ++d)
-          dv[d] = __float2bfloat16(__fmul_rn((float)vc[d], vsc));
+      for (int d = 0; d < 4; ++d) {
+        const float4 a = ok ? vr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
+        dv[4 * d] = __float2bfloat16(a.x);
+        dv[4 * d + 1] = __float2bfloat16(a.y);
+        dv[4 * d + 2] = __float2bfloat16(a.z);
+        dv[4 * d + 3] = __float2bfloat16(a.w);
       }
     }
-    if (!SELF && tid < 64) sKs[tid] = j0 + tid < p.Lk ? to_f(ksb[j0 + tid]) : 0.f;
     __syncthreads();
 
     // S = Qi Ki^T in int32 for this warp's 16 query rows
@@ -624,17 +643,15 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
     }
     __syncwarp();
 
-    // P = exp2(si * factor - 30); keys past Lk get P = 0
+    // P = exp2(si * f - 30); keys past Lk get P = 0
     float sv[32];
     float psum = 0.f;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int jj = half * 32 + c;
       float e = 0.f;
-      if (j0 + jj < p.Lk) {
-        const float cf = SELF ? f : __fmul_rn(sKs[jj], f);
-        e = exp2f(__fsub_rn(__fmul_rn((float)sSw[r * 64 + jj], cf), EXP2_SHIFT));
-      }
+      if (j0 + jj < p.Lk)
+        e = exp2f(__fsub_rn(__fmul_rn((float)sSw[r * 64 + jj], f), EXP2_SHIFT));
       sv[c] = e;
       psum += e;
     }
@@ -675,14 +692,13 @@ __global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
   }
 }
 
-template <bool SELF>
 cudaError_t launch_attn_q8(const Q8Params& p, long long blocks, int D,
                            cudaStream_t s) {
   const dim3 grid(cdiv(p.L, 64), p.H, (unsigned)blocks);
   if (D == 32)
-    attn_q8_kernel<SELF, 32><<<grid, 128, 0, s>>>(p);
+    attn_q8_kernel<32><<<grid, 128, 0, s>>>(p);
   else if (D == 64)
-    attn_q8_kernel<SELF, 64><<<grid, 128, 0, s>>>(p);
+    attn_q8_kernel<64><<<grid, 128, 0, s>>>(p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -699,39 +715,32 @@ inline bool q8_heads_ok(int C, int H) {
     if (err_ != cudaSuccess) return err_; \
   } while (0)
 
-// K1 and K2 with int8 QK (quant_qk): the self chains below, with q and k
-// (RMS-normalized first when qg / kg are given) quantized in place of the
-// attention prologue's norm: one scale per (cell, head) each, q8_kernel over
-// the cells of `qp`, then attn_q8_kernel<true> with V read from the fp32
-// qkv. Scratch as K1/K2, plus qi, ki int8 [rows, C] and qs, ks fp32
-// [cells, H].
-int self_q8_chain(const void* x, const void* sh, const void* sc,
-                  const void* gate, const void* wqkv, const void* bqkv,
-                  const void* qg, const void* kg, const void* wo,
-                  const void* bo, void* y, void* h, void* qkv, void* qi,
-                  void* ki, void* qs, void* ks, void* attn, long long R, int C,
-                  int H, long long rpm, QuantParams qp, int cells, Q8Params p,
-                  long long blocks, cudaStream_t s) {
-  if (!q8_heads_ok(C, H) || blocks > 65535) return (int)cudaErrorInvalidValue;
-  const int D = C / H;
-  GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
-                                                 (float*)qkv, R, 3 * C, C, 1, s)));
-  float* q = (float*)qkv;
-  qp.src[0] = q; qp.src[1] = q + C;
+// q and k of an fp32 [rows, 3C] qkv projection (RMS-normalized first, in
+// place, when qg / kg are given, as the TPU kernels quantize the normed
+// fp32 values) quantized per (cell of `qp`, head) by q8_kernel: qi, ki int8
+// [rows, C], qs, ks fp32 [cells, H]. K1's and K2's int8 QK.
+cudaError_t quantize_qk(float* qkv, const void* qg, const void* kg, void* qi,
+                        void* ki, void* qs, void* ks, int C, int H,
+                        QuantParams qp, int cells, cudaStream_t s) {
+  qp.src[0] = qkv; qp.src[1] = qkv + C;
   qp.gamma[0] = (const bf16*)qg; qp.gamma[1] = (const bf16*)kg;
   qp.dst[0] = (signed char*)qi; qp.dst[1] = (signed char*)ki;
   qp.scale[0] = (float*)qs; qp.scale[1] = (float*)ks;
   qp.src_stride = 3 * C; qp.dst_stride = C; qp.H = H;
-  GVF_CHECK(launch_q8(qp, cells, 2, D, s));
-  p.qi = (const signed char*)qi; p.qs = (const float*)qs;
-  p.k = (const signed char*)ki; p.ks = (const float*)ks;
-  p.v = q + 2 * C; p.o = (bf16*)attn; p.H = H;
-  p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK(launch_attn_q8<true>(p, blocks, D, s));
-  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
-                                                (bf16*)y, R, C, C, rpm, s)));
-  return 0;
+  return launch_q8(qp, cells, 2, C / H, s);
+}
+
+// K1's out projection on the Hopper GEMM, float and int8 QK, with the gated
+// residual: y = x + gate[row / rpm] * (attn wo^T + bo).
+
+cudaError_t self_out(const void* x, const void* gate, const void* wo,
+                     const void* bo, const void* attn, void* y, long long R,
+                     int C, long long rpm, cudaStream_t s) {
+  sm90::GemmEpi epi;
+  epi.gate = (const bf16*)gate;
+  epi.rpm = rpm;
+  return sm90::launch_gemm_sm90<true, bf16, bf16, true>(
+      attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, C, s, epi);
 }
 
 }  // namespace
@@ -744,8 +753,11 @@ const char* gvf_error_string(int err) {
 
 // K1. x, y [B, L, C]; sh/sc/gate [B / mod_repeat, C]; wqkv [3C, C];
 // wo [C, C]; qg/kg [C], the q/k RMS-norm gammas, or both null (rms=False);
-// heads of 32 or 64. Scratch: h [B*L, C] bf16, qkv [B*L, 3C] fp32, attn
-// [B*L, C] bf16.
+// heads of 32 or 64. Scratch: h [B*L, C] bf16, qkv [B*L, 3C] bf16, attn
+// [B*L, C] bf16. The qkv projection's epilogue norms q and k in fp32 and
+// rounds q, k and v to bf16; the attention is the Hopper core's (K/V by
+// TMA, the online softmax with a running maximum); the out projection's
+// epilogue adds the gated residual.
 int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
                       const void* gate, const void* wqkv, const void* bqkv,
                       const void* qg, const void* kg, const void* wo,
@@ -754,23 +766,35 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L, rpm = (long long)L * mod_repeat;
+  if (H < 1 || C % H || (C / H != 32 && C / H != 64) || C % 8)
+    return (int)cudaErrorInvalidValue;
   const int D = C / H;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
-                                                 (float*)qkv, R, 3 * C, C, 1, s)));
+  sm90::GemmEpi epi;
+  epi.qg = (const bf16*)qg;
+  epi.kg = (const bf16*)kg;
+  epi.cq = C;
+  if (D == 32)
+    GVF_CHECK((sm90::launch_gemm_sm90<false, float, bf16, false, 32>(
+        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi)));
+  else
+    GVF_CHECK((sm90::launch_gemm_sm90<false, float, bf16, false, 64>(
+        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi)));
   AttnParams p;
-  const float* q = (const float*)qkv;
+  const bf16* q = (const bf16*)qkv;
   p.q = q; p.k = q + C; p.v = q + 2 * C; p.o = (bf16*)attn;
   p.q_s1 = p.k_s1 = (long long)L * 3 * C; p.q_s2 = p.k_s2 = 0;
   p.q_si = p.k_sj = 3 * C;
   p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
   p.nb2 = 1; p.Lq = p.Lk = L;
-  p.qg = (const bf16*)qg;
-  p.kg = (const bf16*)kg;
+  p.qg = nullptr; p.kg = nullptr;  // normed in the projection's epilogue
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn_d<float, float>(p, H, B, D, s)));
-  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
-                                                (bf16*)y, R, C, C, rpm, s)));
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  if (D == 32)
+    GVF_CHECK((sm90::launch_attn_sm90<32, bf16, bf16, bf16, false>(p, H, B, s)));
+  else
+    GVF_CHECK((sm90::launch_attn_sm90<64, bf16, bf16, bf16, false>(p, H, B, s)));
+  GVF_CHECK(self_out(x, gate, wo, bo, attn, y, R, C, rpm, s));
   return 0;
 }
 
@@ -804,28 +828,47 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
   return 0;
 }
 
-// K1 quant_qk: as gvf_self_sublayer; the cell is one row block (frame) of L.
+// K1 quant_qk: as gvf_self_sublayer, with q and k (normed first when qg /
+// kg are given) quantized per (frame, head) by q8_kernel and the attention
+// on the core's int8-QK path (attention_sm90_q8.cuh), V read from the fp32
+// qkv. Extra scratch: qi, ki int8 [B*L, C], qs, ks fp32 [B, H].
 int gvf_self_sublayer_q8(const void* x, const void* sh, const void* sc,
                          const void* gate, const void* wqkv, const void* bqkv,
                          const void* qg, const void* kg, const void* wo,
                          const void* bo, void* y, void* h, void* qkv, void* qi,
                          void* ki, void* qs, void* ks, void* attn, int B, int L,
                          int C, int H, int mod_repeat, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long R = (long long)B * L, rpm = (long long)L * mod_repeat;
+  if (!q8_heads_ok(C, H) || B > 65535) return (int)cudaErrorInvalidValue;
+  const int D = C / H;
+  GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wqkv, bqkv, nullptr, (float*)qkv, R, 3 * C, C, s)));
   QuantParams qp = {};
   qp.s1 = L; qp.s_outer = 1; qp.cells2 = 1; qp.n_outer = L; qp.n_inner = 1;
-  Q8Params p = {};
+  GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, C, H, qp, B, s));
+  sm90::Q8AttnParams p = {};
+  p.q = (const signed char*)qi; p.qs = (const float*)qs;
+  p.k = (const signed char*)ki; p.ks = (const float*)ks;
+  p.v = (const float*)qkv + 2 * C; p.o = (bf16*)attn;
   p.q_s1 = p.k_s1 = p.o_s1 = (long long)L * C; p.q_si = p.k_sj = p.o_si = C;
   p.v_s1 = (long long)L * 3 * C; p.v_sj = 3 * C;
-  p.nb2 = 1; p.L = p.Lk = L; p.q_block = L;
-  return self_q8_chain(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, y, h, qkv,
-                       qi, ki, qs, ks, attn, (long long)B * L, C, H,
-                       (long long)L * mod_repeat, qp, B, p, B,
-                       (cudaStream_t)stream);
+  p.Lq = p.Lk = L; p.H = H; p.q_block = L;
+  p.scale = (float)(1.0 / sqrt((double)D));
+  if (D == 32)
+    GVF_CHECK((sm90::launch_attn_sm90_q8<32, true>(p, B, s)));
+  else
+    GVF_CHECK((sm90::launch_attn_sm90_q8<64, true>(p, B, s)));
+  GVF_CHECK(self_out(x, gate, wo, bo, attn, y, R, C, rpm, s));
+  return 0;
 }
 
 // K2 quant_qk: as gvf_temporal_sublayer; a cell is one batch row x `nc`
 // voxels x all T frames (the TPU grid instance), while attention couples
-// only the T rows of one voxel.
+// only the T rows of one voxel: q8_kernel, then attn_q8_kernel with V read
+// from the fp32 qkv. Extra scratch: qi, ki int8 [B*T*N, C], qs, ks fp32
+// [B * N / nc, H].
 int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
                              const void* gate, const void* wqkv,
                              const void* bqkv, const void* qg, const void* kg,
@@ -833,20 +876,33 @@ int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
                              void* qkv, void* qi, void* ki, void* qs, void* ks,
                              void* attn, int B, int T, int N, int C, int H,
                              int nc, void* stream) {
-  if (nc < 1 || N % nc) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long R = (long long)B * T * N, rpm = (long long)T * N;
+  if (nc < 1 || N % nc || !q8_heads_ok(C, H) || (long long)B * N > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int D = C / H;
+  GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
+  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
+                                                 (float*)qkv, R, 3 * C, C, 1, s)));
   QuantParams qp = {};
   qp.s1 = (long long)T * N; qp.s2 = nc; qp.s_outer = N;
   qp.cells2 = N / nc; qp.n_outer = T; qp.n_inner = nc;
+  GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, C, H, qp,
+                        B * (N / nc), s));
   Q8Params p = {};
+  p.qi = (const signed char*)qi; p.qs = (const float*)qs;
+  p.k = (const signed char*)ki; p.ks = (const float*)ks;
+  p.v = (const float*)qkv + 2 * C; p.o = (bf16*)attn; p.H = H;
   p.q_s1 = p.k_s1 = p.o_s1 = (long long)T * N * C;
   p.q_s2 = p.k_s2 = p.o_s2 = C;
   p.q_si = p.k_sj = p.o_si = (long long)N * C;
   p.v_s1 = (long long)T * N * 3 * C; p.v_s2 = 3 * C; p.v_sj = (long long)N * 3 * C;
   p.nb2 = N; p.L = p.Lk = T; p.q_block = nc * T;
-  return self_q8_chain(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, y, h, qkv,
-                       qi, ki, qs, ks, attn, (long long)B * T * N, C, H,
-                       (long long)T * N, qp, B * (N / nc), p, (long long)B * N,
-                       (cudaStream_t)stream);
+  p.scale = (float)(1.0 / sqrt((double)D));
+  GVF_CHECK(launch_attn_q8(p, (long long)B * N, D, s));
+  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
+                                                (bf16*)y, R, C, C, rpm, s)));
+  return 0;
 }
 
 // K3. x, y [B, L, C]; per context i (image, then static): affine LN
@@ -970,7 +1026,9 @@ int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
 // K3, int8 form (quant=True). As gvf_cross_sublayer, with per context the
 // int8 cache: k, v [B, Lk_i, C] int8, ks_t [B, H, Lk_i] and vs [B, Lk_i, H]
 // bf16 scales; heads of 32 or 64; q RMS-normalized with qg (or not, null)
-// and then quantized per (cell of q_block rows, head). Scratch: h bf16, q
+// and then quantized per (cell of q_block rows, head) by q8_kernel, the
+// attention on the core's int8-QK path (attention_sm90_q8.cuh), the
+// projections on the Hopper GEMM as the float form's. Scratch: h bf16, q
 // fp32, qi int8, attn bf16, mid fp32, each [B*L, C], and qs fp32
 // [B*L / q_block, H].
 int gvf_cross_sublayer_q8(const void* x,
@@ -1000,28 +1058,29 @@ int gvf_cross_sublayer_q8(const void* x,
     qp.cells2 = 1; qp.n_outer = q_block; qp.n_inner = 1; qp.H = H;
     cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, D, s);
     if (err != cudaSuccess) return err;
-    Q8Params p = {};
-    p.qi = (const signed char*)qi; p.qs = (const float*)qs;
+    sm90::Q8AttnParams p = {};
+    p.q = (const signed char*)qi; p.qs = (const float*)qs;
     p.k = (const signed char*)k; p.v = v;
     p.ks_t = (const bf16*)ks; p.vs = (const bf16*)vs; p.o = (bf16*)attn;
     p.q_s1 = p.o_s1 = (long long)L * C; p.q_si = p.o_si = C;
     p.k_s1 = p.v_s1 = (long long)lk * C; p.k_sj = p.v_sj = C;
-    p.nb2 = 1; p.L = L; p.Lk = lk; p.H = H; p.q_block = q_block;
+    p.Lq = L; p.Lk = lk; p.H = H; p.q_block = q_block;
     p.scale = (float)(1.0 / sqrt((double)D));
-    return launch_attn_q8<false>(p, B, D, s);
+    return D == 32 ? sm90::launch_attn_sm90_q8<32, false>(p, B, s)
+                   : sm90::launch_attn_sm90_q8<64, false>(p, B, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq1, bq1, nullptr, nullptr,
-                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wq1, bq1, nullptr, (float*)q, R, C, C, s)));
   GVF_CHECK(attend(k1, v1, ks1, vs1, lk1, qg1));
-  GVF_CHECK((launch_gemm<EPI_RESID, bf16, float>(attn, wo1, bo1, (const bf16*)x,
-                                                 nullptr, (float*)mid, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, float>(
+      attn, wo1, bo1, (const bf16*)x, (float*)mid, R, C, C, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wq2, bq2, nullptr, nullptr,
-                                                 (float*)q, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wq2, bq2, nullptr, (float*)q, R, C, C, s)));
   GVF_CHECK(attend(k2, v2, ks2, vs2, lk2, qg2));
-  GVF_CHECK((launch_gemm<EPI_RESID, float, bf16>(attn, wo2, bo2, (const float*)mid,
-                                                 nullptr, (bf16*)y, R, C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<true, float, bf16>(
+      attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, C, s)));
   return 0;
 }
 

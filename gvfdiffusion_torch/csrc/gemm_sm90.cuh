@@ -1,27 +1,40 @@
-// The Hopper projection GEMM of K3's chain (fused_sublayer.cu: the q and
-// out projections of gvf_cross_sublayer and gvf_cross_sublayer1):
-// out[M, N] = A[M, K] W[N, K]^T + bias (+ res), A and W bf16, fp32
-// accumulation, the epilogue's sum in fp32 as gemm_kernel's (acc + bias,
-// then res + that), out fp32 or bf16.
+// The Hopper projection GEMM of K1's and K3's chains (fused_sublayer.cu:
+// K1's qkv and gated out projections, float and int8-QK; the q and out
+// projections of K3, bf16 and int8, two contexts and one):
+// out[M, N] = A[M, K] W[N, K]^T + bias, then + res (RESID) or, GATED,
+// res + gate[row / rpm] * (acc + bias); A and W bf16, fp32 accumulation,
+// the epilogue's sums in fp32 in gemm_kernel's order (acc + bias, then the
+// residual), out fp32 or bf16. K1's float qkv projection (QKD) RMS-norms
+// q and k per head in fp32 in the epilogue and writes bf16, the operands
+// the attention core reads by TMA.
 //
-// Replaces, on the card, the q and out projections inside the Pallas TPU
-// kernel gvfdiffusion_tpu/ops/fused_sublayer.py:839 fused_cross_sublayer
-// (_cross_sublayer_kernel :589). gemm_kernel (WMMA, the first version)
-// stays for K1, K2 and K4.
+// Replaces, on the card, the projections inside the Pallas TPU kernels
+// gvfdiffusion_tpu/ops/fused_sublayer.py:344 fused_self_sublayer
+// (_self_sublayer_kernel :170: the qkv projection and the gated output)
+// and :839 fused_cross_sublayer (_cross_sublayer_kernel :589: q and out).
+// gemm_kernel (WMMA, the first version) stays for K2 and K4.
 //
-// Design: one CTA per 128 x 128 output tile; one producer warp keeps a ring
-// of STAGES (A, W) tiles of 64 K-columns in flight with TMA (128-byte
-// swizzle, zero fill past M, N and K); two consumer warpgroups, 64 rows
-// each, accumulate with wgmma.mma_async m64n128k16 from shared memory and
-// release a stage once its products have landed; the epilogue adds bias and
-// residual straight from the accumulator registers.
+// Design: one CTA per 128 x 128 output tile, two CTAs an SM (3 stages,
+// 97 KB of shared memory each, at most 113 registers a thread), so that one
+// CTA's epilogue overlaps the other's loads (4 stages at one CTA an SM were
+// 10-25% slower at the DiT's shapes, H100 ablation); one producer warp
+// keeps the ring of (A, W) tiles of 64 K-columns in flight with TMA
+// (128-byte swizzle, zero fill past M, N and K); two consumer warpgroups,
+// 64 rows each, accumulate with wgmma.mma_async m64n128k16 from shared
+// memory and release a stage once its products have landed; the epilogue
+// adds bias, residual and gate straight from the accumulator registers. The
+// gated epilogue reads the modulation row of each output row (row / rpm,
+// rpm = rows per modulation row: a frame's rows x mod_repeat for K1), so a
+// 128-row tile that straddles frames takes each row's own gate.
 //
 // What bounds it on the H100: at the DiT's K3 shape each projection is
 // [16384, 512] x [512, 512]^T, 8.6 GFLOP (8.7 us at 989 TFLOP/s) against
 // 34-50 MB of traffic (its fp32 q or residual stream: 10-15 us at 3.35
-// TB/s), so the bytes bound it; at the SLat torso's [32768, 1024] x
-// [1024, 1024]^T the operations (69 GFLOP, 70 us) and the bytes (~270 MB,
-// 80 us) come close.
+// TB/s), so the bytes bound it; K1's qkv projection [16384, 512] x
+// [1536, 512]^T does 26 GFLOP (26 us) and writes 50 MB of bf16 q/k/v (15
+// us; the int8-QK form 100 MB of fp32, 30 us); at
+// the SLat torso's [32768, 1024] x [1024, 1024]^T the operations (69
+// GFLOP, 70 us) and the bytes (~270 MB, 80 us) come close.
 
 #pragma once
 
@@ -30,7 +43,7 @@
 namespace gvf {
 namespace sm90 {
 
-constexpr int GM = 128, GN = 128, GK = 64, GSTAGES = 4;
+constexpr int GM = 128, GN = 128, GK = 64, GSTAGES = 3;
 
 struct GemmSmem {
   static constexpr int A = 0;                           // [GM][GK] bf16
@@ -39,13 +52,24 @@ struct GemmSmem {
   static constexpr int BYTES = BAR + 2 * GSTAGES * 8 + 1024;  // + alignment
 };
 
-template <bool RESID, typename TRes, typename TOut>
-__global__ void __launch_bounds__(288, 1)
+// The epilogue's extra operands: GATED's gate rows (row r reads gate row
+// r / rpm), QKD's RMS-norm gammas of the q columns [0, cq) and the k
+// columns [cq, 2 cq) (null: no norm), as K1's qkv projection lays them out
+struct GemmEpi {
+  const bf16* gate = nullptr;
+  long long rpm = 1;
+  const bf16* qg = nullptr;
+  const bf16* kg = nullptr;
+  int cq = 0;
+};
+
+template <bool RESID, typename TRes, typename TOut, bool GATED, int QKD>
+__global__ void __launch_bounds__(288, 2)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tw,
                      const bf16* __restrict__ bias,
                      const TRes* __restrict__ res, TOut* __restrict__ out,
-                     long long M, int N, int K) {
+                     const GemmEpi epi, long long M, int N, int K) {
   using S = Sw<64>;
   extern __shared__ __align__(1024) unsigned char gsmem_raw[];
   unsigned char* smem =
@@ -111,10 +135,61 @@ __global__ void __launch_bounds__(288, 1)
   // epilogue: acc[4 i + 2 hr + e] is row 16 warp + lane / 4 + 8 hr of the
   // warpgroup's 64, column 8 i + 2 (lane % 4) + e
   const int quad = lane & 3;
+  if constexpr (QKD > 0) {
+    // K1's qkv: acc + bias, each q or k head (QKD columns: QKD / 8 column
+    // groups of the row's quad) RMS-normed in fp32, everything rounded to
+    // bf16. A head never straddles the q / k / v boundaries (multiples of
+    // cq, itself a multiple of QKD), so a head's gamma is uniform across
+    // the warp, and so are the shuffles.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const long long gm = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hr;
+      float v[GN / 4];
+#pragma unroll
+      for (int i = 0; i < GN / 8; ++i) {
+        const int gn = n0 + 8 * i + 2 * quad;
+        const bool in = gn < N;
+        v[2 * i] = acc[4 * i + 2 * hr] + (in ? to_f(bias[gn]) : 0.f);
+        v[2 * i + 1] = acc[4 * i + 2 * hr + 1] + (in ? to_f(bias[gn + 1]) : 0.f);
+      }
+#pragma unroll
+      for (int hd = 0; hd < GN / QKD; ++hd) {
+        const int col0 = n0 + hd * QKD, part = col0 / epi.cq;
+        const bf16* g = part == 0 ? epi.qg : part == 1 ? epi.kg : nullptr;
+        if (!g || col0 >= N) continue;
+        constexpr int NI = QKD / 8;
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          ss += v[2 * (hd * NI + i)] * v[2 * (hd * NI + i)] +
+                v[2 * (hd * NI + i) + 1] * v[2 * (hd * NI + i) + 1];
+        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+        const float f = rsqrtf(ss + 1e-12f);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int j = hd * NI + i;
+          const int gc = n0 + 8 * j + 2 * quad - part * epi.cq;
+          v[2 * j] = v[2 * j] * f * to_f(g[gc]);
+          v[2 * j + 1] = v[2 * j + 1] * f * to_f(g[gc + 1]);
+        }
+      }
+      if (gm >= M) continue;
+#pragma unroll
+      for (int i = 0; i < GN / 8; ++i) {
+        const int gn = n0 + 8 * i + 2 * quad;
+        if (gn < N)
+          *reinterpret_cast<uint32_t*>(out + gm * N + gn) =
+              pack_bf16(v[2 * i], v[2 * i + 1]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const long long gm = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hr;
     if (gm >= M) continue;
+    const bf16* grow = GATED ? epi.gate + (gm / epi.rpm) * N : nullptr;
 #pragma unroll
     for (int i = 0; i < GN / 8; ++i) {
       const int gn = n0 + 8 * i + 2 * quad;
@@ -122,7 +197,10 @@ __global__ void __launch_bounds__(288, 1)
       const long long o = gm * N + gn;
       float v0 = acc[4 * i + 2 * hr] + to_f(bias[gn]);
       float v1 = acc[4 * i + 2 * hr + 1] + to_f(bias[gn + 1]);
-      if (RESID) {
+      if (GATED) {
+        v0 = to_f(res[o]) + v0 * to_f(grow[gn]);
+        v1 = to_f(res[o + 1]) + v1 * to_f(grow[gn + 1]);
+      } else if (RESID) {
         v0 = to_f(res[o]) + v0;
         v1 = to_f(res[o + 1]) + v1;
       }
@@ -153,20 +231,26 @@ inline cudaError_t matrix_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// out[M, N] = A[M, K] W[N, K]^T + bias (+ res [M, N]); A, W 16-byte aligned,
-// K and N multiples of 8
-template <bool RESID, typename TRes, typename TOut>
+// out[M, N] = A[M, K] W[N, K]^T + bias (+ res [M, N]; GATED: res + gate
+// [M / rpm, N] * (...); QKD: K1's qkv, q and k normed per head of QKD
+// columns, bf16 out); A, W 16-byte aligned, K and N multiples of 8
+template <bool RESID, typename TRes, typename TOut, bool GATED = false,
+          int QKD = 0>
 cudaError_t launch_gemm_sm90(const void* A, const void* W, const void* bias,
                              const TRes* res, TOut* out, long long M, int N,
-                             int K, cudaStream_t s) {
+                             int K, cudaStream_t s, GemmEpi epi = {}) {
+  static_assert(QKD == 0 || (sizeof(TOut) == 2 && !RESID && !GATED),
+                "the qkv epilogue writes bf16 and adds no residual");
   if (M < 1 || N < 1 || K < 1 || N % 8 || K % 8 || (uintptr_t)A % 16 ||
-      (uintptr_t)W % 16 || cdiv(M, GM) > 65535)
+      (uintptr_t)W % 16 || cdiv(M, GM) > 65535 || epi.rpm < 1 ||
+      (GATED && (!epi.gate || !RESID)) ||
+      (QKD > 0 && (epi.cq < QKD || epi.cq % QKD)))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tw;
   cudaError_t err = matrix_map(&ta, A, M, K);
   if (err == cudaSuccess) err = matrix_map(&tw, W, N, K);
   if (err != cudaSuccess) return err;
-  auto kern = gemm_sm90_kernel<RESID, TRes, TOut>;
+  auto kern = gemm_sm90_kernel<RESID, TRes, TOut, GATED, QKD>;
   static bool opted = false;  // the shared-memory opt-in, once
   if (!opted) {
     err = cudaFuncSetAttribute(
@@ -175,7 +259,7 @@ cudaError_t launch_gemm_sm90(const void* A, const void* W, const void* bias,
     opted = true;
   }
   kern<<<dim3(cdiv(N, GN), cdiv(M, GM)), 288, GemmSmem::BYTES, s>>>(
-      ta, tw, (const bf16*)bias, res, out, M, N, K);
+      ta, tw, (const bf16*)bias, res, out, epi, M, N, K);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,7 @@ are dropped, `num_head_channels` becomes `num_heads`, and a Gaussian
 decoder's `representation_config` becomes a `GSConfig`. Every model is
 therefore built at its class's default dtype, fp32, as the JAX package
 builds it. `remat_blocks`, a training memory knob, is dropped too for every
-class but the DiT, the one model the port trains. `from_pretrained` builds
+class but the two the port trains, the DiT and the static VAE. `from_pretrained` builds
 the model of `<key>.json`, reads its weights with `load_params` and carries
 the flax tree into the module through the class's weight table
 (`WEIGHT_TABLES`, utils/weights.py; a strict load), then moves it to
@@ -46,7 +46,7 @@ MODEL_REGISTRY: Dict[str, Callable] = {}
 # arguments that its own parameters name
 WEIGHT_TABLES: Dict[type, Callable] = {}
 # the JAX registry's names whose class the port lacks
-NOT_PORTED = ("SparseTransformerVAE", "SparseStructureEncoder", "SLatEncoder",
+NOT_PORTED = ("SparseStructureEncoder", "SLatEncoder",
               "SLatRadianceFieldDecoder", "SLatMeshDecoder",
               "ElasticSLatMeshDecoder", "TpuSLatMeshDecoder")
 _TODO = "not ported yet (ROADMAP queue 1, item 5)"
@@ -64,6 +64,7 @@ def _populate() -> None:
     from .dinov2 import DinoV2
     from .dit import DiT
     from .motion_vae import MotionVAE
+    from .static_vae import SparseTransformerVAE
     from .trellis.slat_decoders import SLatGaussianDecoder
     from .trellis.slat_flow import SLatFlowModel
     from .trellis.ss_flow import SparseStructureFlowModel
@@ -71,6 +72,7 @@ def _populate() -> None:
 
     WEIGHT_TABLES.update({
         DiT: weights.dit_table, MotionVAE: weights.motion_vae_table,
+        SparseTransformerVAE: weights.static_vae_table,
         SparseStructureDecoder: weights.ss_decoder_table,
         SparseStructureFlowModel: weights.ss_flow_table,
         SLatFlowModel: weights.slat_flow_table,
@@ -81,6 +83,7 @@ def _populate() -> None:
         "DiT": DiT,
         "GSKLTemporalVariationalAutoEncoder": MotionVAE,  # reference name
         "MotionVAE": MotionVAE,
+        "SparseTransformerVAE": SparseTransformerVAE,
         "SparseStructureDecoder": SparseStructureDecoder,
         "SparseStructureFlowModel": SparseStructureFlowModel,
         "SLatFlowModel": SLatFlowModel,
@@ -97,8 +100,8 @@ def _adapt_kwargs(name: str, kwargs: Dict) -> Dict:
     kw.pop("use_fp16", None)
     kw.pop("use_checkpoint", None)
     kw.pop("use_skip_connection", None)  # slat flow: always on (ref default)
-    if name != "DiT":
-        kw.pop("remat_blocks", None)  # only the DiT trains in the port
+    if name not in ("DiT", "SparseTransformerVAE"):
+        kw.pop("remat_blocks", None)  # the port trains only these two
     if "num_head_channels" in kw:
         nhc = kw.pop("num_head_channels")
         if kw.get("num_heads") is None and kw.get("model_channels") and nhc:

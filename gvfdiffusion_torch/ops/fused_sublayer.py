@@ -522,7 +522,10 @@ def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
             *map(_ptr, out_w))
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
-    qkv = torch.empty(B * L, 3 * C, device=x.device, dtype=torch.float32)
+    # the int8-QK form quantizes the fp32 projection; the float form's
+    # projection writes q/k (normed) and v in bf16
+    qkv = torch.empty(B * L, 3 * C, device=x.device,
+                      dtype=torch.float32 if quant_qk else torch.bfloat16)
     attn = torch.empty_like(h)
     if quant_qk:
         q8 = _qk8_scratch(B * L, B, C, num_heads, x.device)

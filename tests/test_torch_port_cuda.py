@@ -28,7 +28,14 @@ counts 128, 129, 1374 and 4097 against key counts 1, 63, 64, 65, 1374 and
 4096 (its 128-row query tiles and 128-key tiles, 64-key at heads of 128),
 heads of 32 and 64 in strided views, a fully masked bias row, fp32 in and
 out, K3's two contexts at unequal key counts with and without the q RMS
-norm, and K3's single context at heads of 32, 64 and 128.
+norm, and K3's single context at heads of 32, 64 and 128; K1 on that core
+(float, k's RMS norm in its fp32 producer) and on its int8-QK path
+(attention_sm90_q8.cuh, s8 wgmma), and K3's int8 form on that path, at 1,
+63, 64, 65, 127, 128, 129 and 257 rows (K1) or image keys (K3): every
+K1 form (q/k RMS norms on and off, heads of 32 and 64, float and int8 QK)
+and K3 int8's (shipped, q RMS norm, heads of 64) in both q-scale domains;
+K1's gated out projection with GEMM tiles across frames and modulation
+groups.
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
@@ -1363,3 +1370,73 @@ def test_core_cross_single_edges(dev, D, lk):
           f"update_rel_l2 {upd:.3e}")
     y_bound, upd_bound = BOUNDS["cross_single"]
     assert err <= y_bound and upd <= upd_bound, (err, upd)
+
+
+# -- K1 on the Hopper core (float: attention_sm90.cuh with k's RMS norm in
+# its fp32 producer; int8 QK: attention_sm90_q8.cuh's s8 path) and K3's int8
+# form on the s8 path, both with their projections on gemm_sm90.cuh (K1's
+# out projection through its gated epilogue): the 64-row query tiles and
+# 128-key tiles' edges
+
+CORE_EDGES = [1, 63, 64, 65, 127, 128, 129, 257]
+# (rms, heads) at C = 128: every K1 form with its int8-QK twin
+K1_FORMS = [(True, 4), (False, 4), (True, 2), (False, 2)]
+# (rms, heads): K3 int8's shipped form, its q RMS norm, heads of 64
+K3_Q8_FORMS = [(False, 4), (True, 4), (False, 2), (True, 2)]
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("rms,heads", K1_FORMS)
+@pytest.mark.parametrize("L", CORE_EDGES)
+def test_core_self_edges(dev, L, rms, heads, quant_qk):
+    """K1 at L rows and keys around the core's tiles, 4 frames sharing 2
+    modulation rows (mod_repeat 2)."""
+    d = _Draw(dev, 70 + L, 128)
+    x = d(4, L, 128)
+    _check("self", pt.fused_self_sublayer, x,
+           (x, *d.mods(2), *d.self_weights()),
+           dict(num_heads=heads, rms=rms, mod_repeat=2, quant_qk=quant_qk))
+
+
+@pytest.mark.parametrize("L,q_block", [(129, 0), (128, 64)])
+@pytest.mark.parametrize("rms,heads", K3_Q8_FORMS)
+@pytest.mark.parametrize("lk", CORE_EDGES)
+def test_core_cross_q8_edges(dev, lk, rms, heads, L, q_block):
+    """K3's int8 form with an image context of lk keys around the key tile
+    and a static one of 20, both q-scale domains (all L rows; q_block 64,
+    cells that split a 128-row query tile), with and without the q RMS
+    norm (k normed as the cache carries it), heads of 32 and 64."""
+    d = _Draw(dev, 80 + lk, 128)
+    x = d(3, L, 128)
+    args = [x]
+    for n in (lk, 20):
+        p, (k, v) = d.cross(3, n)
+        if rms:
+            p = p[:4] + (d(128, shift=1.0, scale=0.1) * (128 // heads) ** 0.5,
+                         ) + p[4:]
+            kh = k.float().unflatten(-1, (heads, -1))
+            k = (kh * (kh.square().sum(-1, keepdim=True) + 1e-12).rsqrt()
+                 * (128 // heads) ** 0.5).flatten(-2).bfloat16()
+        kq, ks = pt.quantize_kv(k, heads)
+        vq, vs = pt.quantize_kv(v, heads)
+        args += [p, (kq, vq, ks.transpose(1, 2).contiguous(), vs)]
+    _check("cross", pt.fused_cross_sublayer, x, args,
+           dict(num_heads=heads, rms=rms, quant=True, q_block=q_block))
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("L,mod_repeat", [(100, 1), (100, 3), (192, 3)])
+def test_gated_epilogue_across_frames(dev, L, mod_repeat, quant_qk):
+    """K1's gated out projection: 6 frames of L rows, so the GEMM's 128-row
+    tiles straddle frames and modulation groups; each modulation row's gate
+    has its own sign and size, so a row that read its neighbour's gate
+    would show in y."""
+    d = _Draw(dev, 90 + L + mod_repeat, 128)
+    x = d(6, L, 128)
+    sh, sc, _ = d.mods(6 // mod_repeat)
+    rows = torch.arange(6 // mod_repeat, device=dev, dtype=torch.float32)
+    gate = (d(6 // mod_repeat, 128, scale=0.1).float() + (rows[:, None] - 0.7)
+            * 2.0).bfloat16()
+    _check("self", pt.fused_self_sublayer, x,
+           (x, sh, sc, gate, *d.self_weights()),
+           dict(num_heads=4, mod_repeat=mod_repeat, quant_qk=quant_qk))

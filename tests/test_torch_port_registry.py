@@ -157,9 +157,8 @@ def test_not_ported_names_and_formats_raise(tmp_path):
     checkpoint NotImplementedError (utils/weight_convert.py is not
     ported)."""
     assert pr.NOT_PORTED == (
-        "SparseTransformerVAE", "SparseStructureEncoder", "SLatEncoder",
-        "SLatRadianceFieldDecoder", "SLatMeshDecoder",
-        "ElasticSLatMeshDecoder", "TpuSLatMeshDecoder")
+        "SparseStructureEncoder", "SLatEncoder", "SLatRadianceFieldDecoder",
+        "SLatMeshDecoder", "ElasticSLatMeshDecoder", "TpuSLatMeshDecoder")
     jr._populate()
     assert set(pr.NOT_PORTED) < set(jr.MODEL_REGISTRY)
     pr._populate()

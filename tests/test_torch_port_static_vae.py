@@ -150,3 +150,44 @@ def test_static_vae_remat_and_serialized_modes():
     for mode in ("shift_window", "shift_sequence", "shift_order"):
         with pytest.raises(NotImplementedError):
             SparseTransformerVAE(**CFG, attn_mode=mode)
+
+
+def test_registry_builds_the_static_vae(tmp_path):
+    """`create_model("SparseTransformerVAE", ...)` and `from_pretrained` of
+    a directory written by `save_params_npz` build the port's static VAE,
+    `remat_blocks` reaching the class as in JAX; both forwards agree with
+    JAX's `create_model` / `from_pretrained` on the same numpy parameters
+    (fp32, rel L2 <= BOUND)."""
+    import json
+    import os
+
+    from gvfdiffusion_torch.models import registry as pr
+    from gvfdiffusion_tpu.models import registry as jr
+
+    args = dict(CFG, attn_mode="swin", use_fp16=True, use_checkpoint=False,
+                remat_blocks=1)
+    built = pr.create_model("SparseTransformerVAE", **args)
+    assert isinstance(built, SparseTransformerVAE) and built.remat_blocks == 1
+    assert jr.create_model("SparseTransformerVAE", **args).remat_blocks == 1
+    pw.init_random_(built, seed=6)
+    pr.save_params_npz(pr.flax_params("SparseTransformerVAE", args, built),
+                       os.path.join(tmp_path, "vae.npz"))
+    with open(os.path.join(tmp_path, "vae.json"), "w") as f:
+        json.dump({"name": "SparseTransformerVAE", "args": args}, f)
+    tm = pr.from_pretrained(str(tmp_path), "vae", device="cpu")
+    assert tm.remat_blocks == 1 and not tm.training
+    jm, params = jr.from_pretrained(str(tmp_path), "vae")
+    params = jax.tree.map(jnp.asarray, params)
+
+    coords, feats = _voxels(2)
+    tx = from_lists(coords, feats, CFG["resolution"], capacity=L)
+    jx = jst.from_lists(coords, feats, CFG["resolution"], capacity=L)
+    valid = tx.valid.numpy()
+    jout, jmean, _ = jax.block_until_ready(jax.jit(
+        lambda p, x: jm.apply(p, x, None, False))(params, jx))
+    with torch.no_grad():
+        out, mean, _ = tm(tx, False)
+        out_built, _, _ = built(tx, False)
+    _check("from_pretrained mean", mean, jmean, valid)
+    _check("from_pretrained forward", out.feats, jout.feats, valid)
+    _check("create_model forward", out_built.feats, jout.feats, valid)
