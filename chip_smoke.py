@@ -349,6 +349,10 @@ QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # (readings 8.5e-7, 9.3e-7)
 FLASH_REL_BOUND = 1e-2
 FLASH_F32_BOUND = 5e-6
+# the fp32 forms of K7 and K3's single context (3xTF32 products on the
+# tensor cores) and their plain fp32 versions are also printed against an
+# fp64 reference on this many query rows: what the split costs beside fp32
+F64_ROWS = 2048
 # K7's forms: key -> (dtype, heads, head width) at the torso's C = 1024
 FLASH_FORMS = {"flash_attention": ("bfloat16", 16, 64),
                "flash_attention_fp32": ("float32", 16, 64),
@@ -441,6 +445,10 @@ TRAIN_BOUNDS = {"loss": 1e-5, "grads": 1.5e-3, "params": 6e-8,
 TRAIN_B, TRAIN_T = 2, 24   # configs/diffusion.yml: batch_size, sample_timesteps
 PEAK_FLOPS = 989e12        # dense bf16, H100 SXM datasheet (assumed)
 PEAK_FP32 = 67e12          # fp32 outside the tensor cores, the same
+# dense tf32 on the tensor cores, the same: the fp32 forms of K7 and K3's
+# single context do each fp32 product as three tf32 products (3xTF32), so
+# their bound is three times their fp32 operations at this rate
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12       # HBM3, H100 SXM datasheet (assumed)
 
 B, T, N, C, H, M = 1, 32, 512, 512, 16, 2048   # the DiT at full width
@@ -569,6 +577,11 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def rel_l2_64(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
 def time_ms(fn, iters: int = 10, warm: int = 2) -> float:
     """Mean ms of `iters` calls after `warm` warm-up calls (CUDA events)."""
     import torch
@@ -602,7 +615,8 @@ def nbytes(*objs) -> int:
 
 def bound(flops: float, moved: int, peak: float = PEAK_FLOPS):
     """(bound_ms, bound_by) at the assumed peaks (`peak` the operations'
-    rate: bf16 tensor cores, or PEAK_FP32 for fp32 work)."""
+    rate: bf16 tensor cores, PEAK_FP32 for fp32 work on the CUDA cores,
+    PEAK_TF32 for tf32 products)."""
     t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -979,7 +993,8 @@ def phase_flash(dev, name, replaces, source, key):
     v = rnd(1, SLOTS, 3, heads, width)[:, :, 2]
     scale = width ** -0.5
     rel_bound = FLASH_F32_BOUND if dt == torch.float32 else FLASH_REL_BOUND
-    peak = PEAK_FP32 if dt == torch.float32 else PEAK_FLOPS
+    # fp32: three tf32 products for each fp32 one
+    ops, peak = (3, PEAK_TF32) if dt == torch.float32 else (1, PEAK_FLOPS)
     out = None
     # the torso's forms at both layouts; the other widths as the torso packs
     # its parents (the kernel is the same template)
@@ -1001,18 +1016,32 @@ def phase_flash(dev, name, replaces, source, key):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask)
         lib_err = rel_l2(sdpa().transpose(1, 2), ref)
+        if dt == torch.float32:
+            idx = valid[0].nonzero()[:, 0]
+            s64 = torch.einsum("bqhd,bkhd->bhqk", q[:, :F64_ROWS].double(),
+                               k[:, idx].double()) * scale
+            o64 = torch.einsum("bhqk,bkhd->bqhd", s64.softmax(-1),
+                               v[:, idx].double())
+            del s64
+            log(f"[kernel] {name} [{layout}]: against fp64 on the first "
+                f"{F64_ROWS} query rows: kernel rel_l2 "
+                f"{rel_l2_64(y[:, :F64_ROWS], o64):.3e}, plain fp32 "
+                f"{rel_l2_64(ref[:, :F64_ROWS], o64):.3e}")
         iters = 10 if layout == "prefix" else 3
         ms = time_ms(lambda: fl.flash_attention(q, k, v, valid, scale),
                      iters=iters)
         plain_ms = time_ms(lambda: fl.flash_attention(
             q, k, v, valid, scale, impl="plain"), iters=1)
         lib_ms = time_ms(sdpa, iters=iters)
-        tiles = int((valid.view(1, -1, 64).any(-1)).sum())
+        # the key tiles visited, in the kernel's own tile
+        tile = fl.key_tile(dt, width)
+        tiles = int((valid.view(1, -1, tile).any(-1)).sum())
         flops = 4 * SLOTS * L_FLASH_VALID * heads * width  # valid keys only
-        b_ms, b_by = bound(flops, nbytes(q, k, v, y, valid), peak)
+        b_ms, b_by = bound(ops * flops, nbytes(q, k, v, y, valid), peak)
         log(f"[kernel] {name} [{layout}]: q/k/v {tuple(q.shape)} {dtype} "
             f"(v a qkv view), {L_FLASH_VALID} of {SLOTS} keys valid, {tiles} "
-            f"of {SLOTS // 64} key tiles visited; max_abs_err {mae:.4g} "
+            f"of {SLOTS // tile} {tile}-key tiles visited; max_abs_err "
+            f"{mae:.4g} "
             f"rel_l2 {err:.3e} (bound {rel_bound:g}) kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms sdpa "
             f"(boolean key mask) {lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) "
@@ -1080,10 +1109,27 @@ def phase_cross_single(dev, name, replaces, source, key):
             x, p, kv, **kw, impl="plain"), iters=3)
         lib_ms = time_ms(lambda: lib(x, p, kv, heads))
     flops = 2 * 2 * SLOTS * Cx * Cx + 4 * SLOTS * L_IMG * Cx
-    b_ms, b_by = bound(flops, nbytes(x, p, kvp, y),
-                       PEAK_FP32 if dt == torch.float32 else PEAK_FLOPS)
+    # fp32: three tf32 products for each fp32 one
+    b_ms, b_by = bound(flops * 3, nbytes(x, p, kvp, y), PEAK_TF32) \
+        if dt == torch.float32 else bound(flops, nbytes(x, p, kvp, y))
     y_bound, upd_bound = CROSS_F32_BOUNDS if dt == torch.float32 else \
         BOUNDS["cross_single"]
+    if dt == torch.float32:
+        import torch.nn.functional as F
+
+        x64, (ns, nb, wq, bq, wo, bo) = (x[:, :F64_ROWS].double(),
+                                         (a.double() for a in p))
+        q64 = F.layer_norm(x64, (Cx,), ns, nb, eps=1e-6) @ wq + bq
+        k64, v64 = (a.double().view(1, L_IMG, heads, -1)
+                    for a in (kvp[..., :Cx], kvp[..., Cx:]))
+        s64 = torch.einsum("bqhd,bkhd->bhqk", q64.view(1, F64_ROWS, heads, -1),
+                           k64) * (Cx // heads) ** -0.5
+        o64 = torch.einsum("bhqk,bkhd->bqhd", s64.softmax(-1), v64)
+        u64 = o64.reshape(1, F64_ROWS, Cx) @ wo + bo
+        log(f"[kernel] {name}: update against fp64 on the first {F64_ROWS} "
+            f"rows: kernel rel_l2 "
+            f"{rel_l2_64(y[:, :F64_ROWS].double() - x64, u64):.3e}, plain "
+            f"fp32 {rel_l2_64(ref[:, :F64_ROWS].double() - x64, u64):.3e}")
     log(f"[kernel] {name}: x {tuple(x.shape)} fp32 x {L_IMG} image tokens, "
         f"{dtype} compute, {heads} heads of {Cx // heads}; max_abs_err "
         f"{mae:.4g} rel_l2 {err:.3e} (bound "
@@ -1754,10 +1800,11 @@ def phase_vae_kernels(dev):
     del t
     torch.cuda.empty_cache()
 
-    # bounds: operations over this run's valid keys at the fp32 peak
+    # bounds: operations over this run's valid keys, the forward's as three
+    # tf32 products each (3xTF32), the backward's at the fp32 peak
     qk = sum(VAE_H * SLOTS * n * VAE_D for n in n_valid)
     visited = int(counts.bool().sum())
-    b_fwd = bound(4 * qk, nbytes(q, k, v, valid, o, lse), PEAK_FP32)
+    b_fwd = bound(3 * 4 * qk, nbytes(q, k, v, valid, o, lse), PEAK_TF32)
     b_dkv = bound(8 * qk, nbytes(q, k, v, valid, lse, do, dk, dv), PEAK_FP32)
     b_dq = bound(6 * qk, nbytes(q, k, v, valid, lse, do, dq), PEAK_FP32)
     b_all = bound(10 * qk, nbytes(q, k, v, valid, o, do, dq, dk, dv),
@@ -3368,9 +3415,11 @@ def phase_trellis_heads(pipe32, staged, dev, card):
 
 def _kernel_group(name: str) -> str:
     for k in ("attn_sm90_q8_kernel", "attn_sm90_kernel", "gemm_sm90_kernel",
-              "attn_q8_kernel", "attn_kernel", "temporal_kernel",
-              "gemm_kernel", "ln_kernel", "flash_kernel",
-              "tile_count_kernel", "q8_kernel"):
+              "attn_q8_kernel", "attn_tf32_kernel", "attn_kernel",
+              "temporal_kernel", "gemm_tf32_kernel", "gemm_kernel",
+              "ln_affine_f32_kernel", "ln_kernel", "split_tf32_kernel",
+              "tile_count_kernel", "tile_list_kernel", "empty_rows_kernel",
+              "q8_kernel"):
         if k in name:
             return k
     if any(k in name for k in ("fmha", "flash", "attention")):
@@ -3442,9 +3491,12 @@ def phase_profile_split(dev, card, traces=True):
     float and with int8 QK; K3 there (two contexts: image KV 1374, static
     512), on the float and on the int8 cache; K3's single context at the
     compacted torso's 4096 rows and at the defaults' 32768 (bf16, 16 heads
-    of 64, 1374 image tokens); and K5 at DINOv2's [32, 1374, 16, 64]
-    (traces split_*_trace.json, with `traces`)."""
+    of 64, 1374 image tokens) and in fp32 at 32768 rows (the registry's
+    fp32 TRELLIS); K5 at DINOv2's [32, 1374, 16, 64]; and K7 at the
+    defaults' torso, [1, 32768, 16, 64] with 3700 valid keys as a prefix,
+    in bf16 and in fp32 (traces split_*_trace.json, with `traces`)."""
     import torch
+    from gvfdiffusion_torch.ops import flash_attention as fl
     from gvfdiffusion_torch.ops import fused_attention as fa
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
 
@@ -3457,6 +3509,12 @@ def phase_profile_split(dev, card, traces=True):
         1 + 0.1 * r(Cx), 0.1 * r(Cx), r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx),
         r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx)))
     kv32k = r(1, L_IMG, 2 * Cx).bfloat16()
+    p32f, kv32f = tuple(a.float() for a in p32k), kv32k.float()
+    fq, fk = r(1, SLOTS, 16, 64), r(1, SLOTS, 16, 64)
+    fv = r(1, SLOTS, 3, 16, 64)[:, :, 2]
+    fvalid = torch.zeros(1, SLOTS, dtype=torch.bool, device=dev)
+    fvalid[:, :L_FLASH_VALID] = True
+    fq16, fk16, fv16 = fq.bfloat16(), fk.bfloat16(), fv.bfloat16()
     q, k, v, _, _ = attention_case(dev, "attention")
     self_args, self_kw = cases["self"][1]["args"], cases["self"][1]["kw"]
     x3, p1, kv1, p2, kv2 = cases["cross"][1]["args"]
@@ -3493,8 +3551,19 @@ def phase_profile_split(dev, card, traces=True):
              lambda: fsl.fused_cross_sublayer(
                  x32k, p32k, (kv32k[..., :Cx], kv32k[..., Cx:]),
                  num_heads=16)),
+            (f"K3 single fp32 x3 ([1, {SLOTS}, 1024] x {L_IMG}, 16 heads "
+             "of 64)", "split_k3_single_fp32",
+             lambda: fsl.fused_cross_sublayer(
+                 x32k, p32f, (kv32f[..., :Cx], kv32f[..., Cx:]),
+                 num_heads=16, compute_dtype=torch.float32)),
             (f"K5 x3 (DINOv2 [{T}, {L_IMG}, 16, 64])", "split_k5",
-             lambda: fa.fused_attention(q, k, v, 0.125))):
+             lambda: fa.fused_attention(q, k, v, 0.125)),
+            (f"K7 x3 ([1, {SLOTS}, 16, 64] bf16, {L_FLASH_VALID} valid keys "
+             "as a prefix)", "split_k7",
+             lambda: fl.flash_attention(fq16, fk16, fv16, fvalid, 0.125)),
+            (f"K7 fp32 x3 ([1, {SLOTS}, 16, 64], {L_FLASH_VALID} valid keys "
+             "as a prefix)", "split_k7_fp32",
+             lambda: fl.flash_attention(fq, fk, fv, fvalid, 0.125))):
         _profile(three(fn), what, f"{trace}_trace.json" if traces else None,
                  card)
 

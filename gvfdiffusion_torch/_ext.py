@@ -48,7 +48,7 @@ _SIGNATURES = {
     + [_F, _I, _P],
     "gvf_flash_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 6
     + [_F, _I, _P],
-    "gvf_cross_sublayer1_f32": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 4
+    "gvf_cross_sublayer1_f32": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],
     "gvf_temporal_sublayer_q8": [_P] * 18 + [_I] * 6 + [_P],

@@ -18,12 +18,6 @@
 // per-head RMS norm of q/k in the load (the DiT's self/temporal sublayers).
 // q/k/v are read as bf16 or fp32 and rounded to bf16; the output is written
 // as TO (bf16 or fp32).
-//
-// attn_f32_kernel: the same softmax attention with no rounding anywhere, for
-// K7 in fp32 (flash_attention.cu) and the attention of K3's single-context
-// form at compute_dtype=float32 (fused_sublayer.cu): fp32 operands, fp32
-// FFMA products and sums on the CUDA cores, P kept in fp32 for P V. See
-// its own comment below.
 
 #pragma once
 
@@ -61,7 +55,7 @@ struct AttnParams {
   const void* v;
   void* o;  // TO
   long long q_s1, q_s2, q_si;
-  long long k_s1, k_s2, k_sj;  // shared by k and v
+  long long k_s1, k_s2, k_sj;  // and v's, unless v_sj is set
   long long o_s1, o_s2, o_si;
   int nb2, Lq, Lk;
   const bf16* qg;  // [C] gamma * sqrt(D), or null: no RMS norm on q
@@ -71,6 +65,21 @@ struct AttnParams {
   float scale;
   float scale_log2 = 0.f;  // scale * log2(e), rounded once: attn_kernel's
                            // FIXED form and attention_sm90.cuh
+  // the Hopper core only (attention_sm90.cuh, attention_sm90_tf32.cuh; K7):
+  // v on strides of its own (v_sj = 0: k's), the key validity bytes of row
+  // block z1 at valid + z1 * valid_s1 (0 masks the key), and the key tiles
+  // to visit, at tiles + z1 * tiles_s1: their count, then their indices in
+  // ascending order (null: every tile)
+  long long v_s1 = 0, v_sj = 0;
+  const unsigned char* valid = nullptr;
+  long long valid_s1 = 0;
+  const int* tiles = nullptr;
+  long long tiles_s1 = 0;
+  // attention_sm90_tf32.cuh only: the [z1][H][Lq] row logsumexp out, or
+  // null; o_lo: null, or o is written split, tf32(o) there and tf32(o -
+  // tf32(o)) at o_lo (the operand of K3's 3xTF32 out projection)
+  float* lse = nullptr;
+  void* o_lo = nullptr;
 };
 
 constexpr int ABQ = 64, ABK = 64;
@@ -275,54 +284,10 @@ cudaError_t launch_attn(const AttnParams& p, int H, long long nb1,
 }
 
 // ---------------------------------------------------------------------------
-// attn_f32_kernel: one CTA (128 threads) per (64-query tile, head, batch
-// row). Q, each 64-key tile of K and V, and P sit in shared memory as fp32
-// rows padded to D + 4 floats (so 16-byte reads of neighbouring rows fall in
-// other banks); every product is an fp32 FFMA, so no operand is rounded.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns query rows 8 ty .. 8 ty + 7:
-// for S it takes keys tx + 16 j (j < 4), each q . k read 4 lanes at a time;
-// for P V it takes output lanes tx * D/16 .. The softmax is online, with a
-// true running maximum per row reduced across the 16 threads of the half
-// warp that owns it; the row sum comes from the fp32 P.
-//
-// Key validity (valid != null, K7): an invalid key gets the additive mask
-// value -0.7 * FLT_MAX (the TPU kernel's, not -inf), a 64-key tile with no
-// valid key (counts) is skipped, which is exact (it would add exp(mask - m)
-// = 0 to every row), and a batch row with no valid key at all takes P = 1 on
-// every key and divides by lk_pad, the key count padded to the TPU kernel's
-// 512. Without validity every key below Lk is visible.
-//
-// With lse set (K7's forward under autograd, the residual its backward
-// reads; the TPU kernel saves its running max m and sum l instead), each
-// row's logsumexp m + log(l) over the scores with the mask added, in fp32;
-// a batch row with no valid key writes log(lk_pad), and the backward takes
-// P = 1 / lk_pad there itself.
-//
-// What bounds it on the H100: fp32 operations on the CUDA cores (67 TFLOP/s
-// on the datasheet), 4 * Lq * Lk_visited * D per head; per 4 lanes of the
-// head a thread issues 12 16-byte shared loads against 128 FFMAs. A first
-// version, written to be right: no tensor cores (a 3xTF32 split would be the
-// next step), no cp.async pipelining of the K/V tiles.
+// For K7's backward (flash_attention_bwd.cu): the TPU kernel's additive mask
+// value on an invalid key, and short fp32 reads from shared memory.
 
 constexpr float F32_MASK_VALUE = -0.7f * FLT_MAX;
-
-struct F32AttnParams {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;  // in floats
-  const unsigned char* valid;  // [B, Lk] bool, or null: every key valid
-  const int* counts;           // [B, tiles] valid keys per tile (with valid)
-  float* lse;                  // [B, H, Lq] row logsumexp out, or null
-  int Lq, Lk, tiles, lk_pad;
-  float scale;
-};
-
-template <int D>
-__host__ __device__ constexpr int attn_f32_smem_bytes() {
-  return (3 * 64 * (D + 4) + 64 * (64 + 4)) * (int)sizeof(float);
-}
 
 // n consecutive floats (n = 2, 4 or 8) from 8-byte-aligned shared memory
 template <int N>
@@ -340,189 +305,6 @@ __device__ __forceinline__ void lds_f32(const float* src, float* dst) {
       dst[u] = t.x; dst[u + 1] = t.y;
     }
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) attn_f32_kernel(F32AttnParams p) {
-  extern __shared__ __align__(16) float f32_smem[];
-  constexpr int LD = D + 4, LP = 64 + 4, DT = D / 16, CH = D / 4;
-  float* sQ = f32_smem;
-  float* sK = sQ + 64 * LD;
-  float* sV = sK + 64 * LD;
-  float* sP = sV + 64 * LD;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * 64;
-  const float* qb = p.q + b * p.q_sb + h * D;
-  const float* kb = p.k + b * p.k_sb + h * D;
-  const float* vb = p.v + b * p.v_sb + h * D;
-  const unsigned char* vld = p.valid ? p.valid + (long long)b * p.Lk : nullptr;
-  const int* cnt = p.counts ? p.counts + (long long)b * p.tiles : nullptr;
-
-  // a batch row with no valid key takes every key, each with P = 1
-  bool uniform = false;
-  if (cnt) {
-    int any = 0;
-    for (int t = tid; t < p.tiles; t += 128) any |= cnt[t];
-    uniform = !__syncthreads_or(any);
-  }
-
-  // 64 rows of D floats, strided by sl, into [64][LD]; rows past n are zero
-  auto load = [&](const float* src, long long sl, int n, float* dst) {
-    for (int idx = tid; idx < 64 * CH; idx += 128) {
-      const int r = idx / CH, c = (idx % CH) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < n) val = *reinterpret_cast<const float4*>(src + r * sl + c);
-      *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-    }
-  };
-  load(qb + (long long)q0 * p.q_sl, p.q_sl, p.Lq - q0, sQ);
-
-  float m_run[8], l_run[8], o_acc[8][DT];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m_run[i] = neg_inf();
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int u = 0; u < DT; ++u) o_acc[i][u] = 0.f;
-  }
-
-  for (int t = 0; t < p.tiles; ++t) {
-    if (cnt && !uniform && cnt[t] == 0) continue;  // uniform across the CTA
-    const int j0 = t * 64;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    load(kb + (long long)j0 * p.k_sl, p.k_sl, p.Lk - j0, sK);
-    load(vb + (long long)j0 * p.v_sl, p.v_sl, p.Lk - j0, sV);
-    __syncthreads();
-
-    // S = Q K^T: rows 8 ty + i, keys tx + 16 j
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(sQ + (ty * 8 + i) * LD + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv.x, kv[j].x, a);
-          a = fmaf(qv.y, kv[j].y, a);
-          a = fmaf(qv.z, kv[j].z, a);
-          s[i][j] = fmaf(qv.w, kv[j].w, a);
-        }
-      }
-    }
-
-    // online softmax per row; every visited tile holds a key below Lk, whose
-    // score is finite, so the running maximum is finite from the first tile
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float mx = neg_inf();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = j0 + tx + 16 * j;
-        float v = neg_inf();
-        if (key < p.Lk) {
-          if (uniform) {
-            v = 0.f;
-          } else {
-            v = s[i][j] * p.scale;
-            if (vld && !vld[key]) v += F32_MASK_VALUE;
-          }
-        }
-        s[i][j] = v;
-        mx = fmaxf(mx, v);
-      }
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        psum += e;
-        sP[(ty * 8 + i) * LP + tx + 16 * j] = e;
-      }
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l_run[i] = l_run[i] * alpha + psum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < DT; ++u) o_acc[i][u] *= alpha;
-    }
-    __syncwarp();  // a row's P is written and read by one half warp
-
-    // O += P V: rows 8 ty + i, lanes tx * DT .. tx * DT + DT - 1
-#pragma unroll 2
-    for (int kk = 0; kk < 64; kk += 4) {
-      float4 pv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(sP + (ty * 8 + i) * LP + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float vv[DT];
-        lds_f32<DT>(sV + (kk + e) * LD + tx * DT, vv);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float pk = e == 0 ? pv[i].x : e == 1 ? pv[i].y
-                         : e == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-          for (int u = 0; u < DT; ++u) o_acc[i][u] = fmaf(pk, vv[u], o_acc[i][u]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int qi = q0 + ty * 8 + i;
-    if (qi < p.Lq) {
-      const float inv = 1.f / (uniform ? (float)p.lk_pad : l_run[i]);
-      float* orow = p.o + b * p.o_sb + qi * p.o_sl + h * D + tx * DT;
-#pragma unroll
-      for (int u = 0; u < DT; ++u) orow[u] = o_acc[i][u] * inv;
-      if (p.lse && tx == 0)
-        p.lse[((long long)b * gridDim.y + h) * p.Lq + qi] =
-            uniform ? logf((float)p.lk_pad) : m_run[i] + logf(l_run[i]);
-    }
-  }
-}
-
-// grid: (query tiles, heads, batch rows); heads of 32, 64 or 128
-inline cudaError_t launch_attn_f32(const F32AttnParams& p, int H, int B, int D,
-                                   cudaStream_t s) {
-  const dim3 grid(cdiv(p.Lq, 64), H, B);
-  cudaError_t err;
-#define GVF_LAUNCH_F32(DV)                                                   \
-  err = cudaFuncSetAttribute(attn_f32_kernel<DV>,                            \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                             attn_f32_smem_bytes<DV>());                     \
-  if (err != cudaSuccess) return err;                                        \
-  attn_f32_kernel<DV><<<grid, 128, attn_f32_smem_bytes<DV>(), s>>>(p);
-  if (D == 32) {
-    GVF_LAUNCH_F32(32)
-  } else if (D == 64) {
-    GVF_LAUNCH_F32(64)
-  } else if (D == 128) {
-    GVF_LAUNCH_F32(128)
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef GVF_LAUNCH_F32
-  return cudaGetLastError();
 }
 
 }  // namespace gvf

@@ -271,6 +271,169 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
 }
 
 
+// The 3xTF32 path (attention_sm90_tf32.cuh, gemm_sm90.cuh's fp32 GEMM): x
+// = hi + lo with hi = tf32(x) rounded to nearest (ties away) and lo =
+// tf32(x - hi); a product a.b is taken as lo.hi' + hi.lo' + hi.hi' (lo.lo'
+// dropped) at the tensor cores' tf32 rate. The tensor cores' fp32
+// accumulation loses more than an fp32 add over a long chain of
+// products, so the callers keep each chain short and add its result into
+// an fp32 sum of their own.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// S = A B^T in tf32, both K-major in shared memory: d[N / 2] per thread
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t da,
+                                              uint64_t db, int scale_d);
+// D = A B (+ D with scale_d) in tf32, A from registers (4 values: rows g
+// and g + 8 of the warp's 16, k-columns t and t + 4, g = lane / 4, t =
+// lane % 4), B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<128>(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float* d, const uint32_t* a,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float* d, const uint32_t* a,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float* d, const uint32_t* a,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+
 // 2^x on the SFU (denormal results flush to 0; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -488,7 +651,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
   const int h = blockIdx.y;
   const long long z1 = blockIdx.z / p.nb2, z2 = blockIdx.z % p.nb2;
   const int q0 = blockIdx.x * (64 * NWG);
-  const int tiles = (p.Lk + BK - 1) / BK;
+  // the key tiles: every one, or (K7) the row block's list
+  const int* tl = p.tiles ? p.tiles + z1 * p.tiles_s1 : nullptr;
+  const int tiles = tl ? tl[0] : (p.Lk + BK - 1) / BK;
 
   if (tid == 0) {
 #pragma unroll
@@ -507,10 +672,11 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
     const int lane = tid & 31, pw = (tid >> 5) - NWG * 4;
     const int pt = tid - NWG * 128;
     const float* bb = p.bias ? p.bias + z1 * p.bias_s1 : nullptr;
+    const unsigned char* vl = p.valid ? p.valid + z1 * p.valid_s1 : nullptr;
     for (int t = 0; t < tiles; ++t) {
       const int s = t % STAGES;
       if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
-      const int j0 = t * BK;
+      const int j0 = (tl ? tl[1 + t] : t) * BK;
       const uint32_t dk = smem_u32(sK + s * BK * D * 2);
       const uint32_t dv = smem_u32(sV + s * BK * D * 2);
       if constexpr (sizeof(TKV) == 2) {
@@ -536,7 +702,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
         // global memory), round them and store them swizzled (distinct
         // banks)
         const TKV* kb = (const TKV*)p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
-        const TKV* vb = (const TKV*)p.v + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
+        const TKV* vb = (const TKV*)p.v + z1 * p.v_s1 + z2 * p.k_s2 + h * D;
         constexpr int CH = BK * D / 8;
 #pragma unroll 4
         for (int idx = pw * 32 + lane; idx < CH; idx += 32 * NPROD) {
@@ -545,7 +711,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
           float a[8], b[8];
           if (j < p.Lk) {
             load8(kb + (long long)j * p.k_sj + c * 8, a);
-            load8(vb + (long long)j * p.k_sj + c * 8, b);
+            load8(vb + (long long)j * p.v_sj + c * 8, b);
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e) a[e] = b[e] = 0.f;
@@ -558,7 +724,10 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
       for (int i = pt; i < BK; i += 32 * NPROD) {
         const int j = j0 + i;
         float b = neg_inf();
-        if (j < p.Lk) b = bb ? bb[j] * LOG2E : 0.f;
+        // an invalid key (K7) takes the TPU kernel's mask value -0.7 FLT_MAX,
+        // which times log2 e is -inf in fp32: exact, since every visited tile
+        // holds a valid key, so a row's maximum is a real score
+        if (j < p.Lk) b = bb ? bb[j] * LOG2E : (vl && !vl[j]) ? neg_inf() : 0.f;
         if (FIXED) b -= EXP2_SHIFT;
         sB[s * BK + i] = b;
       }
@@ -751,11 +920,17 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int H, int Lk,
 // 16-byte aligned, with row strides (and head offsets) a multiple of 16
 // bytes; one row block level (nb2 = 1).
 template <int D, typename TQ, typename TKV, typename TO, bool FIXED>
-cudaError_t launch_attn_sm90(const AttnParams& p, int H, long long nb1,
+cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
                              cudaStream_t s) {
+  AttnParams p = pa;
+  if (!p.v_sj) {
+    p.v_s1 = p.k_s1;
+    p.v_sj = p.k_sj;
+  }
   // no k RMS norm here (kg): K1 norms k in its projection's epilogue
   if (nb1 < 1 || nb1 > 65535 || p.nb2 != 1 || H < 1 || H > 65535 ||
-      p.Lq < 1 || p.Lk < 1 || (nb1 > 1 && p.k_s1 <= 0) || p.kg)
+      p.Lq < 1 || p.Lk < 1 || (nb1 > 1 && (p.k_s1 <= 0 || p.v_s1 <= 0)) ||
+      p.kg)
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr, long long stride, int elem) {
     return ((uintptr_t)ptr % 16) != 0 || (stride * elem) % 16 != 0;
@@ -764,7 +939,8 @@ cudaError_t launch_attn_sm90(const AttnParams& p, int H, long long nb1,
       misaligned(p.q, p.q_s1, sizeof(TQ)) ||
       misaligned(p.k, p.k_sj, sizeof(TKV)) ||
       misaligned(p.k, p.k_s1, sizeof(TKV)) ||
-      misaligned(p.v, p.k_sj, sizeof(TKV)) ||
+      misaligned(p.v, p.v_sj, sizeof(TKV)) ||
+      misaligned(p.v, p.v_s1, sizeof(TKV)) ||
       misaligned(p.o, p.o_si, sizeof(TO)) ||
       misaligned(p.o, p.o_s1, sizeof(TO)))
     return cudaErrorMisalignedAddress;
@@ -773,7 +949,7 @@ cudaError_t launch_attn_sm90(const AttnParams& p, int H, long long nb1,
   memset(&tv, 0, sizeof(tv));
   if constexpr (sizeof(TKV) == 2) {
     cudaError_t e = kv_map<D>(&tk, p.k, H, p.Lk, nb1, p.k_sj, p.k_s1);
-    if (e == cudaSuccess) e = kv_map<D>(&tv, p.v, H, p.Lk, nb1, p.k_sj, p.k_s1);
+    if (e == cudaSuccess) e = kv_map<D>(&tv, p.v, H, p.Lk, nb1, p.v_sj, p.v_s1);
     if (e != cudaSuccess) return e;
   }
   const long long tiles128 = (long long)cdiv(p.Lq, 128) * H * nb1;

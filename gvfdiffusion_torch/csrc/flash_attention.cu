@@ -9,45 +9,55 @@
 // with the key validity as segment ids (every query in segment 1). Its
 // arithmetic, kept here: scores q . k in fp32 from the inputs' values, times
 // the scale, plus -0.7 * FLT_MAX on an invalid key (not -inf); an online
-// softmax over key blocks with the row sum from the fp32 P and P rounded
-// to the inputs' dtype for P V (bf16; in fp32 nothing is rounded); every
-// query row computed, valid or not. A batch row with no valid key gives, on
-// the TPU, the mean of V over the key count padded to 512 (every score
-// equals the mask value, so P is 1 on every padded key, and the padding's V
-// is 0): here the same, sum(V) / lk_pad.
+// softmax over key blocks with a true running maximum, the row sum from the
+// fp32 P and P rounded to the inputs' dtype for P V (bf16; in fp32 nothing
+// is rounded); every query row computed, valid or not. A batch row with no
+// valid key gives, on the TPU, the mean of V over the key count padded to
+// 512 (every score equals the mask value, so P is 1 on every padded key,
+// and the padding's V is 0): here the same, sum(V) / lk_pad.
 //
-// The kernels skip every 64-key tile that holds no valid key. That is exact:
-// such a tile adds exp(-0.7 * FLT_MAX - m) = 0 to a row that has a valid key,
-// and a tile with a valid key sets every row's running maximum to a real
-// score before any rounding matters. It is also what makes the torso
-// affordable: its valid slots are a prefix (the downsample packs parents in
-// code order), so ~3700 valid keys of 32768 visit 58 of 512 tiles. A first
-// kernel counts the valid keys of each (batch row, tile) once per call; the
-// attention kernel reads those counts to skip tiles and to find a batch row
-// with none. In fp32 it can also write each row's logsumexp, the residual
-// of the backward kernels (flash_attention_bwd.cu).
+// Every form skips the key tiles that hold no valid key. That is exact: such
+// a tile adds exp(-0.7 * FLT_MAX - m) = 0 to a row that has a valid key, and
+// a tile with a valid key sets every row's running maximum to a real score
+// before any rounding matters. It is also what makes the torso affordable:
+// its valid slots are a prefix (the downsample packs parents in code order),
+// so ~3700 valid keys of 32768 visit 29 of 256 128-key tiles.
+//
+// Both dtypes run the Hopper attention core over a list of tiles.
+// tile_list_kernel builds, per batch row on the device, the indices of the
+// core's key tiles that hold a valid key, with their count; the core's
+// producer and consumers loop over that list, and the producer writes each
+// key's mask into the tile's bias row from the validity bytes (the mask
+// value times log2 e is -inf in fp32). A batch row with no valid key visits
+// no tile; the core writes 0 there and empty_rows_kernel then writes sum(V)
+// / lk_pad on its every query row (and log(lk_pad) as its logsumexp).
+//   bf16: attention_sm90.cuh's core (wgmma, a 3-stage TMA ring of K/V
+//   tiles, the softmax in registers, 128 query rows a CTA; 128-key tiles,
+//   64 at heads of 128).
+//   fp32: attention_sm90_tf32.cuh's path of the core, the products by the
+//   3xTF32 split on the tensor cores (64-key tiles, 32 at heads of 128); it
+//   can also write each row's logsumexp, the residual of the backward
+//   kernels (flash_attention_bwd.cu), which read the valid keys of each
+//   64-key tile that tile_count_kernel counts beside the list.
 //
 // What bounds it on the H100: 4 * Lq * n_valid * H * D operations (0.50
-// TFLOP at 3700 valid keys) against ~13 MB (bf16) or ~26 MB (fp32) of
-// traffic: in bf16 the tensor cores (0.50 ms at the datasheet's 989
-// TFLOP/s), in fp32 the CUDA cores (7.4 ms at 67 TFLOP/s). These first
-// versions are far from those bounds. bf16: one CTA (4 warps) per (64-query
-// tile, head, batch row), K/V tiles staged through shared memory with
-// 16-byte loads, WMMA 16x16x16 bf16 products whose S and P V results
-// round-trip through shared memory, the softmax on CUDA cores, no wgmma,
-// TMA or cp.async pipelining. fp32: attention.cuh's attn_f32_kernel, fp32
-// FFMA on the CUDA cores (no TF32, which would round the operands). Both
-// are written to be right first.
+// TFLOP at 3700 valid keys; every query row counts) against ~13 MB (bf16)
+// or ~26 MB (fp32) of traffic: in bf16 the tensor cores (0.50 ms at the
+// datasheet's 989 TFLOP/s; the visited tiles' masked keys add ~3%), under
+// them the SFU's exp2 per visited score, as in every form of the core; in
+// fp32 the same work in fp32 (7.4 ms at the 67 TFLOP/s of fp32 FFMA), done
+// as three tf32 products on the tensor cores (4.5 ms of them at 495
+// TFLOP/s).
 
-#include "attention.cuh"
+#include "attention_sm90_tf32.cuh"
 
 namespace {
 
 using namespace gvf;
 
-constexpr int FQ = 64, FK = 64;
+constexpr int FK = 64;  // the backward's key tile
 
-// counts[b * tiles + t] = valid keys in key tile t of batch row b
+// counts[b * tiles + t] = valid keys in 64-key tile t of batch row b
 __global__ void __launch_bounds__(FK)
 tile_count_kernel(const unsigned char* __restrict__ valid, int* __restrict__ counts,
                   int Lk, int tiles) {
@@ -58,179 +68,139 @@ tile_count_kernel(const unsigned char* __restrict__ valid, int* __restrict__ cou
   if (threadIdx.x == 0) counts[(long long)b * tiles + t] = n;
 }
 
-struct FlashParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const unsigned char* valid;  // [B, Lk]
-  const int* counts;           // [B, tiles]
-  bf16* o;                     // [B, Lq, H, D] contiguous
+// One CTA per batch row b: list[b * list_s1] = the number n of BK-key tiles
+// that hold a valid key, list[b * list_s1 + 1 ..] their indices ascending.
+// A warp tests a tile (BK / 32 bytes a lane, coalesced) into a flag in
+// shared memory ([tiles] bytes, dynamic); then chunks of 1024 flags are
+// compacted in order by warp ballots and a scan of the 32 warp counts.
+template <int BK>
+__global__ void __launch_bounds__(1024)
+tile_list_kernel(const unsigned char* __restrict__ valid,
+                 int* __restrict__ list, int Lk, long long list_s1) {
+  extern __shared__ unsigned char flag[];
+  __shared__ int warp_n[32];
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned char* vb = valid + (long long)b * Lk;
+  const int tiles = (Lk + BK - 1) / BK;
+  for (int t = warp; t < tiles; t += 32) {
+    int any = 0;
+#pragma unroll
+    for (int e = 0; e < BK / 32; ++e) {
+      const int j = t * BK + e * 32 + lane;
+      any |= j < Lk && vb[j];
+    }
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) flag[t] = (unsigned char)any;
+  }
+  __syncthreads();
+  int* out = list + (long long)b * list_s1;
+  int base = 0;
+  for (int t0 = 0; t0 < tiles; t0 += 1024) {
+    const int t = t0 + tid;
+    const bool f = t < tiles && flag[t];
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_n[warp] = __popc(m);
+    __syncthreads();
+    int before = base, total = 0;
+#pragma unroll
+    for (int w = 0; w < 32; ++w) {
+      if (w < warp) before += warp_n[w];
+      total += warp_n[w];
+    }
+    if (f) out[1 + before + __popc(m & ((1u << lane) - 1u))] = t;
+    base += total;
+    __syncthreads();  // warp_n is rewritten by the next chunk
+  }
+  if (tid == 0) out[0] = base;
+}
+
+// A batch row with no valid key (list count 0): every query row of head h
+// gets sum(V) / lk_pad, the sum in fp32 over the real keys, and with lse
+// the logsumexp log(lk_pad) (the backward takes P = 1 / lk_pad there
+// itself). 256 threads: 256 / D key groups of D lanes each.
+template <int D, typename T>
+__global__ void __launch_bounds__(256)
+empty_rows_kernel(const T* __restrict__ v, long long v_sb, long long v_sl,
+                  const int* __restrict__ list, long long list_s1,
+                  T* __restrict__ o, float* __restrict__ lse, int Lq, int Lk,
+                  int H, int lk_pad) {
+  constexpr int G = 256 / D;
+  const int h = blockIdx.x, b = blockIdx.y;
+  if (list[(long long)b * list_s1] != 0) return;
+  __shared__ float part[256];
+  const int d = threadIdx.x % D, g = threadIdx.x / D;
+  const T* vb = v + b * v_sb + h * D + d;
+  float sum = 0.f;
+  for (int j = g; j < Lk; j += G) sum += to_f(vb[(long long)j * v_sl]);
+  part[threadIdx.x] = sum;
+  __syncthreads();
+  float mean = 0.f;
+#pragma unroll
+  for (int i = 0; i < G; ++i) mean += part[i * D + d];
+  const T m = from_f<T>(mean * (1.f / (float)lk_pad));
+  T* ob = o + (long long)b * Lq * H * D + h * D + d;
+  for (int i = g; i < Lq; i += G) ob[(long long)i * H * D] = m;
+  if (lse)
+    for (int i = threadIdx.x; i < Lq; i += 256)
+      lse[((long long)b * H + h) * Lq + i] = logf((float)lk_pad);
+}
+
+// One call's operands: q/k/v on their strides, the validity bytes, the
+// scratch (fp32: the backward's per-64-key-tile counts; the tile lists),
+// o, the logsumexp (fp32, or null)
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const unsigned char* valid;
+  int* counts;
+  int* list;
+  void* o;
+  float* lse;
+  int B, Lq, Lk, H, lk_pad;
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
-  int Lq, Lk, H, tiles, lk_pad;
   float scale;
 };
 
-// 64 rows of D bf16 from src rows strided by `sl` elements into dst
-// [64][D]; rows past n are zero
-template <int D>
-__device__ __forceinline__ void load_tile(const bf16* src, long long sl, int n,
-                                          bf16* dst) {
-#pragma unroll
-  for (int it = 0; it < D / 16; ++it) {
-    const int idx = threadIdx.x + it * 128;  // 8 D chunks of 8 bf16
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n) val = *reinterpret_cast<const uint4*>(src + r * sl + c);
-    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
+// K7 at heads of D in T: bf16 on the core (attention_sm90.cuh), fp32 on its
+// 3xTF32 path (attention_sm90_tf32.cuh), each over its own key tiles
+template <int D, typename T>
+cudaError_t launch_flash(const FlashArgs& a, cudaStream_t s) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int BK = F32 ? sm90::Tf32Cfg<D>::BK : sm90::Cfg<D, bf16>::BK;
+  const int tiles = (int)cdiv(a.Lk, BK);
+  if (tiles > 48 * 1024) return cudaErrorInvalidValue;  // the flags' bytes
+  const long long list_s1 = 1 + tiles;
+  if (F32) {
+    const int tiles64 = (int)cdiv(a.Lk, FK);
+    tile_count_kernel<<<dim3(tiles64, a.B), FK, 0, s>>>(a.valid, a.counts,
+                                                        a.Lk, tiles64);
   }
-}
-
-// per warp: S [16][64] fp32, then the P V tile [16][D]
-template <int D>
-__host__ __device__ constexpr int flash_s_floats() { return 16 * (D > FK ? D : FK); }
-
-// Dynamic shared memory: Q, K, V [64][D] bf16, per warp S / P V fp32 and P
-// [16][64] bf16: 48 KB at D = 64, 30 KB at 32, 88 KB at 128.
-template <int D>
-__host__ __device__ constexpr int flash_smem_bytes() {
-  return 3 * 64 * D * 2 + 4 * flash_s_floats<D>() * 4 + 4 * 16 * FK * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) flash_kernel(FlashParams p) {
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(flash_smem);
-  bf16* sK = sQ + FQ * D;
-  bf16* sV = sK + FK * D;
-  float* sS = reinterpret_cast<float*>(sV + FK * D);
-  bf16* sP = reinterpret_cast<bf16*>(sS + 4 * flash_s_floats<D>());
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * FQ;
-  const int* cnt = p.counts + (long long)b * p.tiles;
-  const unsigned char* vb = p.valid + (long long)b * p.Lk;
-
-  // a batch row with no valid key takes every key, each with P = 1
-  int any = 0;
-  for (int t = tid; t < p.tiles; t += 128) any |= cnt[t];
-  const bool uniform = !__syncthreads_or(any);
-
-  load_tile<D>(p.q + b * p.q_sb + (long long)q0 * p.q_sl + h * D, p.q_sl,
-               p.Lq - q0, sQ);
-
-  // lanes (2r, 2r+1) of a warp own query row r of its 16, 32 keys each
-  const int r = lane >> 1, half = lane & 1;
-  float m_run = neg_inf(), l_run = 0.f;
-  float o_acc[D / 2];
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) o_acc[d] = 0.f;
-  float* sSw = sS + warp * flash_s_floats<D>();
-  bf16* sPw = sP + warp * 16 * FK;
-
-  for (int t = 0; t < p.tiles; ++t) {
-    if (!uniform && cnt[t] == 0) continue;  // uniform across the CTA
-    const int j0 = t * FK;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<D>(p.k + b * p.k_sb + (long long)j0 * p.k_sl + h * D, p.k_sl,
-                 p.Lk - j0, sK);
-    load_tile<D>(p.v + b * p.v_sb + (long long)j0 * p.v_sl + h * D, p.v_sl,
-                 p.Lk - j0, sV);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 query rows
-#pragma unroll
-    for (int j = 0; j < FK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * D + kk, D);
-        wmma::load_matrix_sync(fb, sK + j * 16 * D + kk, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sSw + j * 16, acc, FK, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: s = q.k * scale (+ the mask value on an invalid key);
-    // keys past Lk get P = 0
-    float sv[32];
-    float mx = neg_inf();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int j = j0 + half * 32 + c;
-      float s = neg_inf();
-      if (j < p.Lk) {
-        if (uniform) {
-          s = 0.f;
-        } else {
-          s = sSw[r * FK + half * 32 + c] * p.scale;
-          if (!vb[j]) s += F32_MASK_VALUE;
-        }
-      }
-      sv[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    // every visited tile holds a key below Lk, so m_new is finite
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      sv[c] = expf(sv[c] - m_new);
-      psum += sv[c];
-    }
-    m_run = m_new;
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * alpha + psum;
-#pragma unroll
-    for (int c = 0; c < 32; ++c)
-      sPw[r * FK + half * 32 + c] = __float2bfloat16(sv[c]);
-    __syncwarp();
-
-    // P V into the (now free) score area as [16, D]
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < FK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sPw + kk, FK);
-        wmma::load_matrix_sync(fb, sV + kk * D + dj * 16, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sSw + dj * 16, acc, D, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d)
-      o_acc[d] = o_acc[d] * alpha + sSw[r * D + half * (D / 2) + d];
-    __syncwarp();
-  }
-
-  const int qi = q0 + warp * 16 + r;
-  if (qi < p.Lq) {
-    const float inv = 1.f / (uniform ? (float)p.lk_pad : l_run);
-    bf16* orow = p.o + ((long long)b * p.Lq + qi) * p.H * D + h * D +
-                 half * (D / 2);
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] * inv);
-  }
-}
-
-template <int D>
-cudaError_t launch_flash(const FlashParams& p, int B, cudaStream_t s) {
-  const int bytes = flash_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  tile_list_kernel<BK><<<a.B, 1024, tiles, s>>>(a.valid, a.list, a.Lk,
+                                                list_s1);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_kernel<D><<<dim3(cdiv(p.Lq, FQ), p.H, B), 128, bytes, s>>>(p);
+  AttnParams p;
+  p.q = a.q; p.k = a.k; p.v = a.v; p.o = a.o;
+  p.q_s1 = a.q_sb; p.q_s2 = 0; p.q_si = a.q_sl;
+  p.k_s1 = a.k_sb; p.k_s2 = 0; p.k_sj = a.k_sl;
+  p.v_s1 = a.v_sb; p.v_sj = a.v_sl;
+  p.o_s1 = (long long)a.Lq * a.H * D; p.o_s2 = 0; p.o_si = (long long)a.H * D;
+  p.nb2 = 1; p.Lq = a.Lq; p.Lk = a.Lk;
+  p.qg = nullptr; p.kg = nullptr;
+  p.valid = a.valid; p.valid_s1 = a.Lk;
+  p.tiles = a.list; p.tiles_s1 = list_s1;
+  p.lse = a.lse;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * LOG2E;
+  if constexpr (F32)
+    err = sm90::launch_attn_tf32<D>(p, a.H, a.B, s);
+  else
+    err = sm90::launch_attn_sm90<D, bf16, bf16, bf16, false>(p, a.H, a.B, s);
+  if (err != cudaSuccess) return err;
+  empty_rows_kernel<D, T><<<dim3(a.H, a.B), 256, 0, s>>>(
+      (const T*)a.v, a.v_sb, a.v_sl, a.list, list_s1, (T*)a.o, a.lse, a.Lq,
+      a.Lk, a.H, a.lk_pad);
   return cudaGetLastError();
 }
 
@@ -240,13 +210,16 @@ extern "C" {
 
 // q: element (b, i, h, d) at b * q_sb + i * q_sl + h * D + d, likewise k
 // and v with their own strides; all bf16 (f32 = 0) or all fp32 (f32 = 1),
-// rows 16-byte aligned; D = 32, 64 or 128; valid: bool [B, Lk]; counts:
-// int32 scratch [B, ceil(Lk / 64)]; o: [B, Lq, H, D] contiguous, in the
-// inputs' dtype; lse: null, or (fp32 only) the [B, H, Lq] fp32 row
-// logsumexp that the backward (flash_attention_bwd.cu) reads; lk_pad: Lk
-// padded to the TPU kernel's 512.
+// rows and batch strides 16-byte aligned; D = 32, 64 or 128; valid: bool
+// [B, Lk]; scratch: int32, the tile lists [B, 1 + ceil(Lk / BK)] (bf16: BK
+// = 64 at D = 128, else 128; fp32: 32 at D = 128, else 64), in fp32 after
+// the per-64-key-tile counts [B, ceil(Lk / 64)] that the backward reads;
+// o: [B, Lq, H, D] contiguous, in the inputs' dtype; lse: null, or (fp32
+// only) the [B, H, Lq] fp32 row logsumexp that the backward
+// (flash_attention_bwd.cu) reads; lk_pad: Lk padded to the TPU kernel's
+// 512.
 int gvf_flash_attention(const void* q, const void* k, const void* v,
-                        const void* valid, void* counts, void* o, void* lse,
+                        const void* valid, void* scratch, void* o, void* lse,
                         int B,
                         int Lq, int Lk, int H, int D, long long q_sb,
                         long long q_sl, long long k_sb, long long k_sl,
@@ -255,36 +228,24 @@ int gvf_flash_attention(const void* q, const void* k, const void* v,
   if ((D != 32 && D != 64 && D != 128) || B < 1 || B > 65535 || Lq < 1 ||
       Lk < 1 || H < 1 || H > 65535 || lk_pad < Lk || (lse && !f32))
     return (int)cudaErrorInvalidValue;
+  FlashArgs a;
+  a.q = q; a.k = k; a.v = v; a.valid = (const unsigned char*)valid;
+  // fp32: the counts [B, ceil(Lk / 64)], then the lists
+  a.counts = (int*)scratch;
+  a.list = f32 ? a.counts + (long long)B * cdiv(Lk, FK) : a.counts;
+  a.o = o; a.lse = (float*)lse;
+  a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H; a.lk_pad = lk_pad;
+  a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
+  a.v_sb = v_sb; a.v_sl = v_sl;
+  a.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = (int)cdiv(Lk, FK);
-  tile_count_kernel<<<dim3(tiles, B), FK, 0, s>>>(
-      (const unsigned char*)valid, (int*)counts, Lk, tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (f32) {
-    F32AttnParams p;
-    p.q = (const float*)q; p.k = (const float*)k; p.v = (const float*)v;
-    p.o = (float*)o;
-    p.q_sb = q_sb; p.q_sl = q_sl; p.k_sb = k_sb; p.k_sl = k_sl;
-    p.v_sb = v_sb; p.v_sl = v_sl;
-    p.o_sb = (long long)Lq * H * D; p.o_sl = (long long)H * D;
-    p.valid = (const unsigned char*)valid; p.counts = (const int*)counts;
-    p.lse = (float*)lse;
-    p.Lq = Lq; p.Lk = Lk; p.tiles = tiles; p.lk_pad = lk_pad;
-    p.scale = scale;
-    return (int)launch_attn_f32(p, H, B, D, s);
-  }
-  FlashParams p;
-  p.q = (const bf16*)q; p.k = (const bf16*)k; p.v = (const bf16*)v;
-  p.valid = (const unsigned char*)valid; p.counts = (const int*)counts;
-  p.o = (bf16*)o;
-  p.q_sb = q_sb; p.q_sl = q_sl; p.k_sb = k_sb; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sl = v_sl;
-  p.Lq = Lq; p.Lk = Lk; p.H = H; p.tiles = tiles; p.lk_pad = lk_pad;
-  p.scale = scale;
-  if (D == 32) return (int)launch_flash<32>(p, B, s);
-  if (D == 64) return (int)launch_flash<64>(p, B, s);
-  return (int)launch_flash<128>(p, B, s);
+#define GVF_FLASH(DV)                                       \
+  return (int)(f32 ? launch_flash<DV, float>(a, s)          \
+                   : launch_flash<DV, bf16>(a, s));
+  if (D == 32) GVF_FLASH(32)
+  if (D == 64) GVF_FLASH(64)
+  GVF_FLASH(128)
+#undef GVF_FLASH
 }
 
 }  // extern "C"

@@ -35,8 +35,8 @@
 // tx * 4 + 3); written once at the end, no atomics. dq: one CTA per
 // (64-query tile, head, batch row); Q and dO stay, the loop visits the key
 // tiles, dS goes through shared memory into a register dQ. Rows sit in
-// shared memory padded to D + 4 floats, as in attention.cuh's
-// attn_f32_kernel.
+// shared memory padded to D + 4 floats (16-byte reads of neighbouring rows
+// fall in other banks).
 //
 // What bounds it on the H100: fp32 operations on the CUDA cores (67 TFLOP/s
 // on the datasheet, no TF32, which would round the operands to ~1e-3): the

@@ -73,11 +73,16 @@
 //
 // The single-context entry also has an fp32 form (gvf_cross_sublayer1_f32,
 // JAX's compute_dtype=float32: TRELLIS as the registry builds it), in which
-// nothing is rounded: the affine LN writes fp32 (ln_affine_f32_kernel), the
-// q and out projections are fp32 FFMA GEMMs (sgemm_kernel: 128x128x8 block
-// tiles, 8x8 outputs a thread, no TF32), and the attention is attention.cuh's
-// attn_f32_kernel. Bound at the torso's 32768 slots: 3.2e11 operations,
-// 4.8 ms at the datasheet's 67 TFLOP/s fp32; written to be right first.
+// no operand is rounded to bf16: the q and out projections are
+// gemm_sm90.cuh's fp32 GEMM and the attention attention_sm90_tf32.cuh's
+// path of the core, their products by the 3xTF32 split on the tensor cores
+// (three tf32 products into short fp32 accumulations, about fp32's
+// precision); the affine LN (ln_affine_f32_kernel) and the attention write
+// their fp32 results split into the halves the GEMMs read, and
+// split_tf32_kernel splits the two weights once a call. Bound at the
+// torso's 32768 slots: 3.2e11 fp32 operations, 4.8 ms at the datasheet's 67
+// TFLOP/s of fp32 FFMA; as three tf32 products 9.7e11 at 495 TFLOP/s, 2.0
+// ms.
 //
 // The int8 entries keep the TPU kernels' int8 arithmetic (_packed_attention's
 // k_int8 and quant_qk branches). q8_kernel quantizes fp32 rows per (cell,
@@ -101,6 +106,7 @@
 // simple form leaves the rest masked.
 
 #include "attention_sm90_q8.cuh"
+#include "attention_sm90_tf32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -252,14 +258,14 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 forms: affine LayerNorm with fp32 out (one warp per row, two-pass
-// statistics in fp32, eps 1e-6) and an fp32 GEMM out[M, N] = A[M, K] @
-// W[N, K]^T + bias (+ res), every product an fp32 FFMA.
+// The fp32 form's affine LayerNorm (one warp per row, two-pass statistics in
+// fp32, eps 1e-6), its fp32 result written split into tf32 halves, hi and
+// lo: the A operand of the 3xTF32 q projection.
 
 __global__ void __launch_bounds__(256)
 ln_affine_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     long long rows, int C) {
+                     const float* __restrict__ bias, float* __restrict__ hi,
+                     float* __restrict__ lo, long long rows, int C) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;  // uniform across the warp
@@ -273,78 +279,11 @@ ln_affine_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     v += d * d;
   }
   const float rstd = rsqrtf(warp_sum(v) / C + 1e-6f);
-  float* orow = out + row * C;
-  for (int c = lane; c < C; c += 32) orow[c] = (xr[c] - mu) * rstd * w[c] + bias[c];
-}
-
-// 128x128 output tile per block of 256 threads, K in steps of 8 staged
-// transposed in shared memory ([8][128 + 4]: a thread's 4 rows or columns
-// are one 16-byte read). Thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// {4 ty, 64 + 4 ty} + 0..3 and columns {4 tx, 64 + 4 tx} + 0..3. K must be
-// a multiple of 8; rows of A and W 16-byte aligned.
-constexpr int SBM = 128, SBN = 128, SBK = 8, SLD = SBM + 4;
-
-template <bool RESID>
-__global__ void __launch_bounds__(256)
-sgemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-             const float* __restrict__ bias, const float* __restrict__ res,
-             float* __restrict__ out, long long M, int N, int K) {
-  __shared__ __align__(16) float sA[SBK * SLD];
-  __shared__ __align__(16) float sB[SBK * SLD];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long m0 = (long long)blockIdx.y * SBM;
-  const int n0 = blockIdx.x * SBN;
-  // this thread's copy: row lr of the tile, k lanes lk .. lk + 3
-  const int lr = tid >> 1, lk = (tid & 1) * 4;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += SBK) {
-    float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vb = va;
-    if (m0 + lr < M)
-      va = *reinterpret_cast<const float4*>(A + (m0 + lr) * K + k0 + lk);
-    if (n0 + lr < N)
-      vb = *reinterpret_cast<const float4*>(W + (long long)(n0 + lr) * K + k0 + lk);
-    sA[(lk + 0) * SLD + lr] = va.x; sA[(lk + 1) * SLD + lr] = va.y;
-    sA[(lk + 2) * SLD + lr] = va.z; sA[(lk + 3) * SLD + lr] = va.w;
-    sB[(lk + 0) * SLD + lr] = vb.x; sB[(lk + 1) * SLD + lr] = vb.y;
-    sB[(lk + 2) * SLD + lr] = vb.z; sB[(lk + 3) * SLD + lr] = vb.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      float a[8], bv[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(sA + kk * SLD + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(sA + kk * SLD + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(sB + kk * SLD + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(sB + kk * SLD + 64 + tx * 4);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (gn < N) {
-        float v = acc[i][j] + bias[gn];
-        if (RESID) v += res[gm * N + gn];
-        out[gm * N + gn] = v;
-      }
-    }
+  for (int c = lane; c < C; c += 32) {
+    uint32_t h, l;
+    sm90::split_tf32((xr[c] - mu) * rstd * w[c] + bias[c], h, l);
+    hi[row * C + c] = __uint_as_float(h);
+    lo[row * C + c] = __uint_as_float(l);
   }
 }
 
@@ -357,17 +296,6 @@ cudaError_t launch_ln(const TIn* x, const void* p0, const void* p1, void* out,
                       cudaStream_t s) {
   ln_kernel<TIn, MODE><<<cdiv(rows, 8), 256, 0, s>>>(
       x, (const bf16*)p0, (const bf16*)p1, (bf16*)out, rows, C, rows_per_mod);
-  return cudaGetLastError();
-}
-
-template <bool RESID>
-cudaError_t launch_sgemm(const void* A, const void* W, const void* bias,
-                         const void* res, void* out, long long M, int N, int K,
-                         cudaStream_t s) {
-  if (K % SBK) return cudaErrorInvalidValue;
-  sgemm_kernel<RESID><<<dim3(cdiv(N, SBN), cdiv(M, SBM)), 256, 0, s>>>(
-      (const float*)A, (const float*)W, (const float*)bias, (const float*)res,
-      (float*)out, M, N, K);
   return cudaGetLastError();
 }
 
@@ -991,35 +919,53 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
 
 // K3, one context, fp32 (compute_dtype=float32): as gvf_cross_sublayer1 with
 // every tensor fp32 (x, y, ns, nb, wq [C, C] as [out, in], bq, wo, bo, and
-// k, v, rows 16-byte aligned) and nothing rounded; heads of 32, 64 or 128.
-// Scratch: h, q, attn fp32, each [B*L, C].
+// k, v, rows 16-byte aligned), no operand rounded to bf16, the products by
+// the 3xTF32 split; heads of 32, 64 or 128. Scratch, fp32: h and attn [2,
+// B*L, C] (the split halves of the LN output and of the attention output),
+// q [B*L, C], wsplit [4, C, C] (wq's halves, then wo's).
 int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
                             const void* wq, const void* bq, const void* wo,
                             const void* bo, const void* k, const void* v,
                             int lk, long long kv_sb, long long kv_sl, void* y,
-                            void* h, void* q, void* attn, int B, int L, int C,
-                            int H, void* stream) {
+                            void* h, void* q, void* attn, void* wsplit, int B,
+                            int L, int C, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long R = (long long)B * L;
+  const long long R = (long long)B * L, RC = R * C, CC = (long long)C * C;
   const int D = H < 1 ? 0 : C / H;
   if (H < 1 || C % H || (D != 32 && D != 64 && D != 128) || C % 8 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
+  float* hs = (float*)h;
+  float* as = (float*)attn;
+  float* ws = (float*)wsplit;
+  GVF_CHECK(sm90::split_tf32_launch((const float*)wq, ws, ws + CC, CC, s));
+  GVF_CHECK(sm90::split_tf32_launch((const float*)wo, ws + 2 * CC,
+                                    ws + 3 * CC, CC, s));
   ln_affine_f32_kernel<<<cdiv(R, 8), 256, 0, s>>>(
-      (const float*)x, (const float*)ns, (const float*)nb, (float*)h, R, C);
+      (const float*)x, (const float*)ns, (const float*)nb, hs, hs + RC, R, C);
   GVF_CHECK(cudaGetLastError());
-  GVF_CHECK(launch_sgemm<false>(h, wq, bq, nullptr, q, R, C, C, s));
-  F32AttnParams p;
-  p.q = (const float*)q; p.k = (const float*)k; p.v = (const float*)v;
-  p.o = (float*)attn;
-  p.q_sb = (long long)L * C; p.q_sl = C;
-  p.k_sb = kv_sb; p.k_sl = kv_sl; p.v_sb = kv_sb; p.v_sl = kv_sl;
-  p.o_sb = (long long)L * C; p.o_sl = C;
-  p.valid = nullptr; p.counts = nullptr; p.lse = nullptr;
-  p.Lq = L; p.Lk = lk; p.tiles = (int)cdiv(lk, 64); p.lk_pad = lk;
+  GVF_CHECK(sm90::launch_gemm_tf32<false>(hs, hs + RC, ws, ws + CC,
+                                          (const float*)bq, nullptr,
+                                          (float*)q, R, C, C, s));
+  AttnParams p;
+  p.q = q; p.k = k; p.v = v; p.o = as; p.o_lo = as + RC;
+  p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
+  p.k_s1 = kv_sb; p.k_s2 = 0; p.k_sj = kv_sl;
+  p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
+  p.nb2 = 1; p.Lq = L; p.Lk = lk;
+  p.qg = nullptr; p.kg = nullptr;
   p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK(launch_attn_f32(p, H, B, D, s));
-  GVF_CHECK(launch_sgemm<true>(attn, wo, bo, x, y, R, C, C, s));
+  p.scale_log2 = p.scale * LOG2E;
+  if (D == 32)
+    GVF_CHECK(sm90::launch_attn_tf32<32>(p, H, B, s));
+  else if (D == 64)
+    GVF_CHECK(sm90::launch_attn_tf32<64>(p, H, B, s));
+  else
+    GVF_CHECK(sm90::launch_attn_tf32<128>(p, H, B, s));
+  GVF_CHECK(sm90::launch_gemm_tf32<true>(as, as + RC, ws + 2 * CC,
+                                         ws + 3 * CC, (const float*)bo,
+                                         (const float*)x, (float*)y, R, C, C,
+                                         s));
   return 0;
 }
 

@@ -21,11 +21,13 @@ Two versions:
     SLat torso's [1, 16, 32768, 32768] fp32 scores would take 64 GiB);
   * `flash_attention`, the wrapper: on a CPU tensor, or with
     impl="plain", the plain version; on a CUDA tensor the kernel of
-    `csrc/flash_attention.cu`: q/k/v all bf16 (WMMA products, P rounded to
-    bf16) or all fp32 (fp32 FFMA, nothing rounded: the SLat flow as the
-    registry builds it), heads of 32, 64 or 128. It raises for anything
-    else and never falls back: an fp32 input is never cast to reach the
-    bf16 kernel.
+    `csrc/flash_attention.cu`: q/k/v all bf16 (the Hopper attention core
+    over the list of key tiles that hold a valid key, P rounded to bf16)
+    or all fp32 (the same core's 3xTF32 path: no operand rounded to bf16,
+    each product split into three tf32 products with fp32 sums; the SLat
+    flow as the registry builds it), heads of 32, 64 or 128. It raises for
+    anything else and never falls back: an fp32 input is never cast to
+    reach the bf16 kernel.
 
 The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
 `_flash_attention_bwd_dq`, which JAX runs when a trainer differentiates
@@ -83,6 +85,14 @@ def launch_key(dtype: torch.dtype, head_dim: int) -> str:
     """The counter of a launch: its dtype and head width."""
     return ("flash_attention" + ("_fp32" if dtype == torch.float32 else "")
             + ("" if head_dim == 64 else f"_d{head_dim}"))
+
+
+def key_tile(dtype: torch.dtype, head_dim: int) -> int:
+    """The kernel's key tile, the unit of its list of visited tiles: in
+    bf16 128 keys at heads of 32 and 64, 64 at 128 (the Hopper core's); in
+    fp32 64, 32 at 128 (its 3xTF32 path's)."""
+    return (64 if dtype == torch.float32 else 128) // (
+        2 if head_dim == 128 else 1)
 
 
 def padded_keys(lk: int) -> int:
@@ -193,19 +203,24 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     valid = kv_valid.contiguous()
-    counts = torch.empty(B, -(-Lk // 64), dtype=torch.int32, device=q.device)
+    f32 = q.dtype == torch.float32
+    # each row's count of visited key tiles, then their indices; in fp32
+    # after the valid keys of each 64-key tile (the backward reads them)
+    n64 = B * -(-Lk // 64) if f32 else 0
+    scratch = torch.empty(n64 + B * (1 + -(-Lk // key_tile(q.dtype, D))),
+                          dtype=torch.int32, device=q.device)
     o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
     lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
            if residual else None)
     _ext.call("gvf_flash_attention", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), valid.data_ptr(), counts.data_ptr(), o.data_ptr(),
-              0 if lse is None else lse.data_ptr(), B, Lq, Lk, H, D,
+              v.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+              o.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Lq, Lk,
+              H, D,
               q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-              v.stride(1), float(scale), padded_keys(Lk),
-              int(q.dtype == torch.float32))
+              v.stride(1), float(scale), padded_keys(Lk), int(f32))
     if residual:
         launch_counts["flash_attention_fp32_res"] += 1
-        return o, lse, counts, valid
+        return o, lse, scratch[:n64].view(B, -1), valid
     launch_counts[launch_key(q.dtype, D)] += 1
     return o
 

@@ -17,9 +17,10 @@ self and temporal sublayers unless `rms=False`; on the cross sublayer,
 `rms=True` norms q, the cached k having been normed when the cache was
 built); one cross context at heads of 32, 64 or 128, without RMS norm,
 for the SLat flow torso, in bf16 or, at compute_dtype=float32 (the torso
-of TRELLIS as the registry builds it), in fp32 with nothing rounded: an
-fp32 LN, fp32 FFMA projections and attention (`gvf_cross_sublayer1_f32`;
-every tensor fp32). The JAX kernel's `kv_buffers` sized its VMEM residency on the
+of TRELLIS as the registry builds it), in fp32 with no operand rounded to
+bf16: an fp32 LN, the projections and the attention by the 3xTF32 split
+on the tensor cores (`gvf_cross_sublayer1_f32`; every tensor fp32). The
+JAX kernel's `kv_buffers` sized its VMEM residency on the
 TPU and has no counterpart here. Its int8 `quant` form (the DiT's two
 contexts against an int8 KV cache from `quantize_kv`) is ported with its
 arithmetic: `cross_sublayer_q8_reference` is its plain version, and
@@ -734,11 +735,15 @@ def _cross_single_f32_kernel(x, p, kv, num_heads: int):
     args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
             _weight(wo, C, C), _vec(bo, C))
     y = torch.empty_like(x)
-    h, q, attn = (torch.empty(B * L, C, device=x.device, dtype=torch.float32)
-                  for _ in range(3))
+    # the LN and attention outputs as their two tf32 halves, the weights'
+    # halves, q (the 3xTF32 GEMMs' operands)
+    h, attn = (torch.empty(2, B * L, C, device=x.device, dtype=torch.float32)
+               for _ in range(2))
+    q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
+    wsplit = torch.empty(4, C, C, device=x.device, dtype=torch.float32)
     _ext.call("gvf_cross_sublayer1_f32", _ptr(x), *map(_ptr, args), _ptr(k),
               _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
-              _ptr(q), _ptr(attn), B, L, C, num_heads)
+              _ptr(q), _ptr(attn), _ptr(wsplit), B, L, C, num_heads)
     launch_counts[single_launch_key(torch.float32, C // num_heads)] += 1
     return y
 

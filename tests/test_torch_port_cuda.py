@@ -35,7 +35,12 @@ norm, and K3's single context at heads of 32, 64 and 128; K1 on that core
 K1 form (q/k RMS norms on and off, heads of 32 and 64, float and int8 QK)
 and K3 int8's (shipped, q RMS norm, heads of 64) in both q-scale domains;
 K1's gated out projection with GEMM tiles across frames and modulation
-groups.
+groups; K7 in bf16 on the core over its list of visited key tiles (a row
+with no valid key, one tile, the last partial tile, two runs, every tile;
+heads of 32, 64 and 128; every tile equal bit for bit to the list-free
+core; more than 1024 tiles), and the fp32 forms on the core's 3xTF32 path
+at 1-257 keys (K7 with its logsumexp and a row with no valid key, K3's
+single context at heads of 32, 64 and 128).
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
@@ -632,6 +637,103 @@ def test_flash_attention_counts_and_checks(dev):
         fl.flash_attention(q.requires_grad_(), k, v, valid, 0.125)
 
 
+# K7 in bf16 runs the Hopper core over each batch row's list of the key
+# tiles that hold a valid key (128 keys at heads of 32 and 64, 64 at 128)
+
+
+def _tile_validity(dev, layout, Lk):
+    """Two batch rows whose lists differ: an empty row, one tile, the last
+    (partial) tile alone, two runs more than two tiles apart, every tile."""
+    valid = torch.zeros(2, Lk, dtype=torch.bool, device=dev)
+    if layout == "empty_row":  # row 0 none; row 1 two runs
+        valid[1, 10:90] = valid[1, 700:760] = True
+    elif layout == "one_tile":  # a few keys inside one tile; one key
+        valid[0, 300:310] = True
+        valid[1, 5] = True
+    elif layout == "last_partial":  # the ragged last tile only
+        valid[0, Lk - 1] = True
+        valid[1, Lk - 20:] = True
+    elif layout == "two_runs":
+        valid[0, :100] = valid[0, 700:800] = True
+        valid[1, 1:2] = valid[1, Lk - 300:Lk - 290] = True
+    else:  # "every_tile": one valid key in each 64-key stretch
+        valid[:, ::64] = True
+    return valid
+
+
+@pytest.mark.parametrize("layout", ["empty_row", "one_tile", "last_partial",
+                                    "two_runs", "every_tile"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_core_tile_lists(dev, D, layout):
+    """K7 bf16 against its plain version at Lk = 1100 (ragged at 64 and
+    128 keys), 129 query rows (a ragged 128-row query tile), v a qkv view;
+    a row with no valid key gives sum(V) / lk_pad on every query row."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, H, Lq, Lk = 2, 3, 129, 1100
+    q = torch.randn(B, Lq, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, Lk, H, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Lk, 3, H, D, generator=g,
+                    device=dev).bfloat16()[:, :, 2]
+    valid = _tile_validity(dev, layout, Lk)
+    fl.reset_launch_counts()
+    y = fl.flash_attention(q, k, v, valid, D ** -0.5)
+    ref = fl.flash_attention(q, k, v, valid, D ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    assert fl.launch_counts[fl.launch_key(torch.bfloat16, D)] == 1
+    assert y.shape == q.shape and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"flash tiles D={D} {layout}: rel_l2 {err:.3e}")
+    assert err <= FLASH_BOUND, err
+    if layout == "empty_row":
+        want = v[0].float().sum(0) / fl.padded_keys(Lk)
+        assert _rel(y[0], want.expand_as(y[0])) <= FLASH_BOUND
+
+
+@pytest.mark.parametrize("Lk", [1, 100, 1100, 4097])
+def test_flash_core_every_tile_is_the_core(dev, Lk):
+    """With every key valid, K7's list names every tile and its bias row is
+    0: the output equals, bit for bit, the list-free core's (K5 at heads of
+    64, the same running-maximum instantiation)."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    B, H, Lq = 2, 3, 300
+    q = torch.randn(B, Lq, H, 64, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Lk, H, 64, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    valid = torch.ones(B, Lk, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        y = fl.flash_attention(q, k, v, valid, 0.125)
+        want = fa.fused_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(y.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_core_long_key_list(dev, D):
+    """More than 1024 key tiles (the list's compaction runs in chunks of
+    1024 tiles): 140000 keys, valid in four runs and one lone key."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    B, H, Lq, Lk = 1, 2, 64, 140000
+    q = torch.randn(B, Lq, H, D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Lk, H, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    valid = torch.zeros(B, Lk, dtype=torch.bool, device=dev)
+    for a in (0, 65600, 70000, 131000):
+        valid[0, a:a + 200] = True
+    valid[0, Lk - 1] = True
+    y = fl.flash_attention(q, k, v, valid, D ** -0.5)
+    ref = fl.flash_attention(q, k, v, valid, D ** -0.5, impl="plain")
+    torch.cuda.synchronize()
+    err = _rel(y, ref)
+    print(f"flash long list D={D}: rel_l2 {err:.3e}")
+    assert err <= FLASH_BOUND, err
+
+
 # K7 in fp32 against its plain version: both fp32 throughout (FFMA in the
 # kernel, fp32 einsums in the plain version), so they differ by the order
 # of the sums alone
@@ -842,6 +944,75 @@ def test_cross_single_kernel_heads(dev, D, dtype):
     bounds = CROSS_F32_BOUNDS if tdt == torch.float32 else \
         BOUNDS["cross_single"]
     assert err <= bounds[0] and upd <= bounds[1], (err, upd)
+
+
+# The fp32 forms of K7 and K3's single context on the core's 3xTF32 path
+# (attention_sm90_tf32.cuh: 64-key tiles, 32 at heads of 128) and K3's
+# 3xTF32 GEMM, at key counts around those tiles
+
+
+@pytest.mark.parametrize("Lk", [1, 31, 32, 33, 63, 64, 65, 127, 129, 257])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_f32_core_edges(dev, D, Lk):
+    """K7 in fp32 with its logsumexp residual at 1-257 keys, 129 query rows
+    (a ragged 128-row tile), batch row 0 with no valid key (sum(V) / lk_pad
+    on every row, lse log(lk_pad)), row 1 valid on a scattered half with
+    its last key; against the plain forward and the plain logsumexp."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    B, H, Lq = 2, 2, 129
+    q = torch.randn(B, Lq, H, D, generator=g, device=dev)
+    k = torch.randn(B, Lk, H, D, generator=g, device=dev)
+    v = torch.randn(B, Lk, 3, H, D, generator=g, device=dev)[:, :, 2]
+    valid = torch.zeros(B, Lk, dtype=torch.bool, device=dev)
+    valid[1] = torch.rand(Lk, generator=g, device=dev) < 0.5
+    valid[1, -1] = True
+    scale = D ** -0.5
+    with torch.no_grad():
+        o, lse, _, _ = fl.launch_forward(q, k, v, valid, scale, residual=True)
+        y = fl.flash_attention(q, k, v, valid, scale)
+        ref = fl.flash_attention(q, k, v, valid, scale, impl="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(o, y) and bool(torch.isfinite(y).all())
+    err = _rel(y, ref)
+    print(f"flash fp32 D={D} Lk={Lk}: rel_l2 {err:.3e}")
+    assert err <= FLASH_F32_BOUND, err
+    want = v[0].sum(0) / fl.padded_keys(Lk)
+    assert _rel(y[0], want.expand_as(y[0])) <= FLASH_F32_BOUND
+    s = torch.einsum("qhd,khd->hqk", q[1].double(),
+                     k[1, valid[1]].double()) * scale
+    assert torch.allclose(lse[1].double(), torch.logsumexp(s, -1),
+                          rtol=0, atol=2e-5)
+    assert torch.allclose(lse[0], torch.full_like(
+        lse[0], float(np.log(fl.padded_keys(Lk)))))
+
+
+@pytest.mark.parametrize("lk", [1, 63, 64, 65, 257])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_cross_single_fp32_edges(dev, D, lk):
+    """K3's single context at compute_dtype=float32 (3xTF32 GEMMs and
+    attention) at 1-257 keys, 129 rows (ragged 128-row GEMM and query
+    tiles), C = 256, against the plain version."""
+    d = _Draw(dev, 27, 256)
+    x = d(2, 129, 256).float()
+    p, _ = d.cross(2, lk)
+    p = tuple(a.float() for a in p)
+    kv = d(2, lk, 512).float()
+    args = (x, p, (kv[..., :256], kv[..., 256:]))
+    with torch.no_grad():
+        y = pt.fused_cross_sublayer(*args, num_heads=256 // D,
+                                    compute_dtype=torch.float32)
+        ref = pt.fused_cross_sublayer(*args, num_heads=256 // D,
+                                      compute_dtype=torch.float32,
+                                      impl="plain")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    err, upd = _rel(y, ref), _rel(y - x, ref - x)
+    print(f"cross_single fp32 D={D} lk={lk}: rel_l2 {err:.3e} "
+          f"update_rel_l2 {upd:.3e}")
+    assert err <= CROSS_F32_BOUNDS[0] and upd <= CROSS_F32_BOUNDS[1], (err,
+                                                                       upd)
 
 
 @pytest.mark.parametrize("model", ["ss_decoder", "dinov2"])
