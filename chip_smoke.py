@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
     python3 chip_smoke.py --vae      # build + the VAE phases only
-    python3 chip_smoke.py --split    # build + K1's, K3's and K5's device
+    python3 chip_smoke.py --split    # build + K1's-K5's and K7's device
                                      # time by kernel name
     python3 chip_smoke.py --profile  # the same, then profiled
                                      # denoise (float, int8 cache, int8
@@ -59,9 +59,10 @@ Phases, each printed on its own lines:
      with SDPA under the boolean key mask (forward; its backward) as the
      library call;
   2a. device time by kernel name (torch.profiler, three calls each) inside
-     K1 (float and int8 QK) and K3 (on the float and the int8 cache) at
-     the DiT's shape, K3's single context at 4096 and 32768 rows and K5 at
-     DINOv2's shape: the --split phase, without its traces;
+     K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
+     the float and the int8 cache) at the DiT's shape, K3's single
+     context at 4096 and 32768 rows and K5 at DINOv2's shape: the --split
+     phase, without its traces;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -516,6 +517,12 @@ FORM_BOUNDS = {
     "train_attention_cross_d64": (6e-3, 2e-2),  # 1.5e-3 / 1.3e-3, 4.8e-3
 }
 SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
+# K2's and K4's forms before their Hopper redesign: kernel ms of the
+# parent's run on an H100 80GB HBM3 (700 W), printed beside the new time
+WAS_MS = {"temporal": 0.956, "temporal_norms_off": 0.956,
+          "temporal_d64": 1.088, "temporal_q8": 0.987,
+          "temporal_q8_norms_off": 0.950, "temporal_q8_d64": 0.941,
+          "mlp": 0.936, "mlp_m1024": 0.545}
 # The DiT's other configurations (configs/diffusion.yml at full width with
 # these fields changed), the steps of their run() (the two that reach new
 # kernel forms run the main path's 32; the others 4), and the int8 run
@@ -788,6 +795,10 @@ def library_mlp(x, sh, sc, gate, w1, b1, w2, b2, mod_repeat=1):
     return (x.float() + (hid @ w2 + b2).float() * g.float()).bfloat16()
 
 
+def _was(key: str) -> str:
+    return f" (was {WAS_MS[key]:.3f} ms)" if key in WAS_MS else ""
+
+
 def phase_kernels(dev):
     import torch
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
@@ -833,7 +844,7 @@ def phase_kernels(dev):
         y_bound, upd_bound = FORM_BOUNDS.get(key) or BOUNDS[key]
         log(f"[kernel] {name}: shape {tuple(x.shape)} {kw} max_abs_err "
             f"{mae:.4g} rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 "
-            f"{upd:.3e} (bound {upd_bound:g}) kernel {ms:.3f} ms "
+            f"{upd:.3e} (bound {upd_bound:g}) kernel {ms:.3f} ms{_was(key)} "
             f"plain {plain_ms:.3f} ms library {lib_ms:.3f} ms (its update "
             f"rel_l2 {lib_upd:.3e}) bound {b_ms:.4f} ms ({b_by})")
         if not (finite and err <= y_bound and upd <= upd_bound):
@@ -962,9 +973,9 @@ def phase_qk8(dev, name, replaces, source, key, base, case):
         f"max_abs_err {mae:.4g} "
         f"rel_l2 {err:.3e} (bound {y_bound:g}) update_rel_l2 {upd:.3e} "
         f"(bound {upd_bound:g}); update vs the float kernel rel_l2 "
-        f"{f_upd:.3e} (bound {QK8_FLOAT_BOUND:g}); kernel {ms:.3f} ms "
-        f"(float kernel {float_ms:.3f} ms) plain {plain_ms:.3f} ms library "
-        f"{lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+        f"{f_upd:.3e} (bound {QK8_FLOAT_BOUND:g}); kernel {ms:.3f} ms"
+        f"{_was(key)} (float kernel {float_ms:.3f} ms) plain {plain_ms:.3f} "
+        f"ms library {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
     if not (bool(torch.isfinite(y).all()) and err <= y_bound
             and upd <= upd_bound and f_upd <= QK8_FLOAT_BOUND):
         raise AssertionError(f"{name} disagrees with its plain version")
@@ -3415,9 +3426,9 @@ def phase_trellis_heads(pipe32, staged, dev, card):
 
 def _kernel_group(name: str) -> str:
     for k in ("attn_sm90_q8_kernel", "attn_sm90_kernel", "gemm_sm90_kernel",
-              "attn_q8_kernel", "attn_tf32_kernel", "attn_kernel",
-              "temporal_kernel", "gemm_tf32_kernel", "gemm_kernel",
-              "ln_affine_f32_kernel", "ln_kernel", "split_tf32_kernel",
+              "temporal_sm90_kernel", "attn_tf32_kernel", "temporal_kernel",
+              "gemm_tf32_kernel", "ln_affine_f32_kernel", "ln_kernel",
+              "split_tf32_kernel",
               "tile_count_kernel", "tile_list_kernel", "empty_rows_kernel",
               "q8_kernel"):
         if k in name:
@@ -3485,11 +3496,13 @@ def int8_cache(kv, heads):
 
 
 def phase_profile_split(dev, card, traces=True):
-    """Device time by kernel name inside K1's, K3's and K5's chains
-    (ln_kernel, the GEMMs, q8_kernel and the attention kernel), three calls
-    each: K1 at the shipped DiT's shape ([32, 512, 512], 16 heads of 32),
-    float and with int8 QK; K3 there (two contexts: image KV 1374, static
-    512), on the float and on the int8 cache; K3's single context at the
+    """Device time by kernel name inside K1's-K5's chains (ln_kernel, the
+    GEMMs, q8_kernel and the attention kernel), three calls each: K1 at
+    the shipped DiT's shape ([32, 512, 512], 16 heads of 32), float and
+    with int8 QK; K2 there ([1, 32, 512, 512]), float and with int8 QK; K4
+    there at M = 2048 and at dit-notemporal's M = 1024; K3 there (two
+    contexts: image KV 1374, static 512), on the float and on the int8
+    cache; K3's single context at the
     compacted torso's 4096 rows and at the defaults' 32768 (bf16, 16 heads
     of 64, 1374 image tokens) and in fp32 at 32768 rows (the registry's
     fp32 TRELLIS); K5 at DINOv2's [32, 1374, 16, 64]; and K7 at the
@@ -3519,6 +3532,11 @@ def phase_profile_split(dev, card, traces=True):
     self_args, self_kw = cases["self"][1]["args"], cases["self"][1]["kw"]
     x3, p1, kv1, p2, kv2 = cases["cross"][1]["args"]
     c1, c2 = int8_cache(kv1, H), int8_cache(kv2, H)
+    tmp_args, tmp_kw = (cases["temporal"][1]["args"],
+                        cases["temporal"][1]["kw"])
+    mlp_args, mlp_kw = cases["mlp"][1]["args"], cases["mlp"][1]["kw"]
+    m1024 = sublayer_cases(dev, torch.Generator(device=dev).manual_seed(1),
+                           mlp=1024)["mlp"][1]
 
     def three(fn):
         def run():
@@ -3534,6 +3552,17 @@ def phase_profile_split(dev, card, traces=True):
              "split_k1_q8",
              lambda: fsl.fused_self_sublayer(*self_args, **self_kw,
                                              quant_qk=True)),
+            (f"K2 x3 (DiT [{B}, {T}, {N}, {C}], 16 heads of 32)",
+             "split_k2",
+             lambda: fsl.fused_temporal_sublayer(*tmp_args, **tmp_kw)),
+            (f"K2 q8 x3 (DiT [{B}, {T}, {N}, {C}], 16 heads of 32, int8 "
+             "QK)", "split_k2_q8",
+             lambda: fsl.fused_temporal_sublayer(*tmp_args, **tmp_kw,
+                                                 quant_qk=True)),
+            (f"K4 x3 (DiT [{B * T}, {N}, {C}], M = {M})", "split_k4",
+             lambda: fsl.fused_mlp_sublayer(*mlp_args, **mlp_kw)),
+            (f"K4 x3 (DiT [{B * T}, {N}, {C}], M = 1024)", "split_k4_m1024",
+             lambda: fsl.fused_mlp_sublayer(*m1024["args"], **m1024["kw"])),
             ("K3 x3 (DiT, two contexts, 16 heads of 32)", "split_k3",
              lambda: fsl.fused_cross_sublayer(*cases["cross"][1]["args"],
                                               **cases["cross"][1]["kw"])),

@@ -52,6 +52,7 @@ _SIGNATURES = {
     + [_I] * 4 + [_P],
     "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],
     "gvf_temporal_sublayer_q8": [_P] * 18 + [_I] * 6 + [_P],
+    "gvf_temporal_attention_sm90": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -11,7 +11,7 @@
 //     _cross_sublayer_kernel :589 (K3's attention step);
 //   gvfdiffusion_tpu/ops/fused_sublayer.py:344 fused_self_sublayer, body
 //     _self_sublayer_kernel :170 (K1's attention step, float).
-// attention.cuh's attn_kernel (WMMA, the first version) stays for K2.
+// K2 runs temporal_sm90.cuh instead: its T x T problems are too small.
 //
 // What it computes: O = softmax(Q K^T * scale + bias) V per (query row,
 // head, row block), q read as bf16 or fp32 on its own strides (optionally

@@ -22,16 +22,11 @@
 //   ln_kernel      LayerNorm (fp32 statistics, eps 1e-6) + adaLN modulate
 //                  (row i reads modulation row i / rows_per_mod) or affine LN,
 //                  rounded to bf16 — the GEMM operand, as in the reference.
-//   gemm_kernel    (K2, K4) bf16 x bf16 -> fp32 on tensor cores (WMMA
-//                  16x16x16), with fused epilogues: +bias, +bias ->
-//                  gelu_tanh, x + gate * (acc + bias), x + (acc + bias).
-//   attn_kernel    (attention.cuh; K2) softmax attention for one
-//                  (query tile, head, row block):
-//                  per-head RMS norm of q/k in the prologue (a null gamma
-//                  skips it), online softmax with a true running maximum,
-//                  fp32 accumulation, masking of keys past Lk, and strided
-//                  addressing so the temporal sublayer attends over T
-//                  straight in [B, T, N, C].
+//   gemm_sm90_kernel (gemm_sm90.cuh; every projection of K1-K4, every
+//                  form) wgmma over a TMA ring, with the epilogues +bias,
+//                  x + (acc + bias), x + gate * (acc + bias), gelu_tanh(acc
+//                  + bias) (K4's fc1) and the float qkv epilogue of K1 and
+//                  K2 (q/k RMS norms, bf16 out).
 //   attn_sm90_kernel (attention_sm90.cuh; K1's float forms, K3's bf16
 //                  forms) the Hopper attention core: wgmma, K/V by TMA
 //                  into a ring of swizzled tiles, the online softmax in
@@ -39,33 +34,32 @@
 //   attn_sm90_q8_kernel (attention_sm90_q8.cuh; K1's int8-QK forms, K3's
 //                  int8 form) the core's int8-QK path: s8 wgmma for the
 //                  scores, int8 K by TMA, V converted by the producer.
-//   gemm_sm90_kernel (gemm_sm90.cuh; K1 and K3, every form) the
-//                  projections: wgmma over a TMA ring, +bias,
-//                  x + (acc + bias) and x + gate * (acc + bias) epilogues,
-//                  and K1's float qkv epilogue (q/k RMS norms, bf16 out).
+//   temporal_sm90_kernel (temporal_sm90.cuh; K2, float and int8 QK) the
+//                  attention over T for many (voxel, head) problems a CTA:
+//                  one warp a problem, mma.sync on ldmatrix fragments,
+//                  cp.async double-buffered, a persistent grid.
+//   q8_kernel      the int8 forms' quantization of q (and k), below.
 //
 // Head widths: 32 (the DiT's 16 heads, as shipped) and 64 (its 8-head
 // configuration); the SLat torso's single-context cross form takes 32, 64
-// (the released 16 heads) and 128. The q/k
-// RMS norm is the JAX kernels' `rms` flag: K1/K2 norm q and k when their
-// gammas are given, K3 norms q alone (its cached k was normed when the
-// cache was built), and a null gamma means no norm.
+// (the released 16 heads) and 128. The q/k RMS norm is the JAX kernels'
+// `rms` flag: K1/K2 norm q and k when their gammas are given, K3 norms q
+// alone (its cached k was normed when the cache was built), and a null
+// gamma means no norm.
 //
-// What bounds it on the H100: at the DiT's shapes the projections are
-// tensor-core work (~2 TFLOP per 12-block forward at B*T = 32) and the
-// attention ~1 TFLOP, yet the attention kernel holds about three quarters of
-// the denoise's device time (profiled on an H100 80GB HBM3 at a 700 W
-// limit) and the GEMMs most of the rest. K2, K4 and K2's int8 form are
-// the first version, written to be right first: they keep every
-// intermediate (q/k/v, attention output, MLP hidden) in device memory
-// between the kernels of a chain and use no wgmma, TMA or cp.async
-// pipelining. K1 (float and int8 QK) and K3 (bf16 and int8; two contexts,
-// and one at heads of 32, 64 and 128) run the Hopper attention core and
-// GEMM above; their chains still pass q (K1: the fp32 qkv) and the
-// attention output through device memory.
+// What bounds it on the H100: at the DiT's shapes ([1, 32, 512, 512], MLP
+// 2048) every chain is a handful of GEMMs bound by the tensor cores or by
+// their bytes, and an attention: K1's is 16x heavier than K2's (512 keys
+// against T = 32 frames), K4 has none. Each chain passes its
+// intermediates through device memory: the modulated LN output (16 MB),
+// the qkv projection (50 MB in bf16, 100 MB in fp32 for the int8-QK forms),
+// the attention output (16 MB) and K4's hidden (67 MB of bf16, 20 us each
+// way at 3.35 TB/s). Fusing K4's two GEMMs would keep a [128, 2048] hidden
+// tile of 512 KB on chip, more than an SM's 227 KB of shared memory.
 // The TPU kernel's lane-packing of narrow heads onto 128-lane tiles has no
-// counterpart here; a 32- or 64-wide head maps straight onto 16x16
-// tensor-core tiles.
+// counterpart here; a 32- or 64-wide head maps straight onto the tensor
+// cores' tiles, and K2's 16 voxels x T frames packed into one masked
+// [16 T, 16 T] tile become 16 problems of T x T.
 // The single-context entry runs the same chain at the SLat torso's shape
 // (L = 4096, C = 1024, 16 heads of 64, Lk = 1374): 40.2 GFLOP against
 // 27 MB of traffic, so the tensor cores bound it too. The TPU's lq_block /
@@ -93,8 +87,8 @@
 // 16 voxels x all T frames. Given a gamma it first RMS-normalizes the rows
 // in place (the TPU kernel quantizes the normalized fp32 values): q and k
 // for K1/K2, q alone for K3. The attention (attn_sm90_q8_kernel for K1 and
-// K3, s8 wgmma; attn_q8_kernel for K2, WMMA 16x16x16 s8) takes the scores
-// int8 x int8 -> int32 on the tensor cores and P =
+// K3, s8 wgmma; temporal_sm90_kernel for K2, mma.sync m16n8k32 s8) takes
+// the scores int8 x int8 -> int32 on the tensor cores and P =
 // exp2(s - 30) with the fixed shift (no running maximum): for K3 s = si *
 // (ks_j * (qs * scale * log2 e / 127)) with a per-key k scale and V
 // dequantized to bf16 as bf16(v * vs); for K1/K2 s = si * (qs * ks * scale *
@@ -102,12 +96,12 @@
 // rounded to bf16. P is rounded to bf16 for P V and the output divided by the
 // fp32 row sum. K3's int8 form reads half the cache's bytes of the float
 // form; all QK products run at the int8 rate (1,979 TOP/s on the
-// datasheet). K2's attention spans T = 32 keys, half a 64-key tile: the
-// simple form leaves the rest masked.
+// datasheet).
 
 #include "attention_sm90_q8.cuh"
 #include "attention_sm90_tf32.cuh"
 #include "gemm_sm90.cuh"
+#include "temporal_sm90.cuh"
 
 namespace {
 
@@ -162,102 +156,6 @@ ln_kernel(const TIn* __restrict__ x, const bf16* __restrict__ p0,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM: out[M, N] = epi(A[M, K] @ W[N, K]^T). W is an nn.Linear weight
-// ([out, in], K contiguous). 128x128x32 block tile, 8 warps of 32x64.
-
-enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_GATED = 2, EPI_RESID = 3 };
-
-constexpr int GBM = 128, GBN = 128, GBK = 32, GLD = GBK + 8;
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  return 0.5f * v *
-         (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-}
-
-template <int EPI, typename TRes, typename TOut>
-__global__ void __launch_bounds__(256)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const bf16* __restrict__ bias, const TRes* __restrict__ res,
-            const bf16* __restrict__ gate, TOut* __restrict__ out, long long M,
-            int N, int K, long long rows_per_mod) {
-  __shared__ __align__(128) bf16 sA[GBM * GLD];
-  __shared__ __align__(128) bf16 sB[GBN * GLD];
-  __shared__ __align__(128) float sE[8][16 * 16];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long long m0 = (long long)blockIdx.y * GBM;
-  const int n0 = blockIdx.x * GBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * 256;  // 512 chunks of 8 bf16 per operand
-      const int r = idx >> 2, kc = (idx & 3) * 8;
-      const int gk = k0 + kc;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-      const long long gm = m0 + r;
-      const int gn = n0 + r;
-      if (gm < M && gk < K)
-        va = *reinterpret_cast<const uint4*>(A + gm * K + gk);
-      if (gn < N && gk < K)
-        vb = *reinterpret_cast<const uint4*>(W + (long long)gn * K + gk);
-      *reinterpret_cast<uint4*>(sA + r * GLD + kc) = va;
-      *reinterpret_cast<uint4*>(sB + r * GLD + kc) = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sA + (wm * 32 + i * 16) * GLD + kk, GLD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], sB + (wn * 64 + j * 16) * GLD + kk, GLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* e = sE[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(e, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int el = lane * 8 + t;
-        const long long gm = m0 + wm * 32 + i * 16 + (el >> 4);
-        const int gn = n0 + wn * 64 + j * 16 + (el & 15);
-        if (gm < M && gn < N) {
-          float v = e[el] + to_f(bias[gn]);
-          const long long o = gm * N + gn;
-          if (EPI == EPI_GELU) v = gelu_tanh(v);
-          if (EPI == EPI_GATED)
-            v = to_f(res[o]) + v * to_f(gate[(gm / rows_per_mod) * N + gn]);
-          if (EPI == EPI_RESID) v = to_f(res[o]) + v;
-          out[o] = from_f<TOut>(v);
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The fp32 form's affine LayerNorm (one warp per row, two-pass statistics in
 // fp32, eps 1e-6), its fp32 result written split into tf32 halves, hi and
 // lo: the A operand of the 3xTF32 q projection.
@@ -297,28 +195,6 @@ cudaError_t launch_ln(const TIn* x, const void* p0, const void* p1, void* out,
   ln_kernel<TIn, MODE><<<cdiv(rows, 8), 256, 0, s>>>(
       x, (const bf16*)p0, (const bf16*)p1, (bf16*)out, rows, C, rows_per_mod);
   return cudaGetLastError();
-}
-
-template <int EPI, typename TRes, typename TOut>
-cudaError_t launch_gemm(const void* A, const void* W, const void* bias,
-                        const TRes* res, const void* gate, TOut* out,
-                        long long M, int N, int K, long long rows_per_mod,
-                        cudaStream_t s) {
-  dim3 grid(cdiv(N, GBN), cdiv(M, GBM));
-  gemm_kernel<EPI, TRes, TOut><<<grid, 256, 0, s>>>(
-      (const bf16*)A, (const bf16*)W, (const bf16*)bias, res,
-      (const bf16*)gate, out, M, N, K, rows_per_mod);
-  return cudaGetLastError();
-}
-
-// heads of 32 (the DiT as shipped) or 64 (its 8-head configuration, the SLat
-// torso)
-template <typename TQ, typename TKV>
-cudaError_t launch_attn_d(const AttnParams& p, int H, long long nb1, int D,
-                          cudaStream_t s) {
-  if (D == 32) return launch_attn<32, TQ, TKV>(p, H, nb1, s);
-  if (D == 64) return launch_attn<64, TQ, TKV>(p, H, nb1, s);
-  return cudaErrorInvalidValue;
 }
 
 // K3's attention (fp32 q, bf16 cache, bf16 out, running maximum) on the
@@ -465,173 +341,6 @@ cudaError_t launch_q8(const QuantParams& p, int cells, int tensors, int D,
   return cudaGetLastError();
 }
 
-// Row block z (grid.z) splits as (z / nb2, z % nb2) with strides s1 / s2;
-// rows within it step by si (queries) or sj (keys / values), in elements.
-// Query row i of block z lies in the scale cell (z * L + i) / q_block.
-struct Q8Params {
-  const signed char* qi;  // int8 q rows
-  const float* qs;        // [cells, H] q scales
-  const signed char* k;   // int8 k rows
-  const float* v;         // fp32 v rows
-  const float* ks;        // [cells, H] k scales, per cell as qs
-  bf16* o;
-  long long q_s1, q_s2, q_si, k_s1, k_s2, k_sj, v_s1, v_s2, v_sj;
-  long long o_s1, o_s2, o_si;
-  int nb2, L, Lk, H, q_block;
-  float scale;
-};
-
-// K2's int8 QK (the first version; K1's and K3's int8 forms run
-// attention_sm90_q8.cuh). One CTA (4 warps) per (64-query tile, head, row
-// block), 64-key tiles. The int8 tiles sit in shared memory as D / 16
-// panels of 16 lanes, so that every WMMA s8 fragment starts on a 32-byte
-// boundary. Static shared memory ~33 KB at D = 32, ~40 KB at D = 64.
-// s = si * (qs * ks * scale * log2 e / 127^2) - 30 with one k scale per
-// (cell, head), V the fp32 projection rounded to bf16. The scalar products
-// keep the TPU kernel's order and roundings.
-template <int D>
-__global__ void __launch_bounds__(128) attn_q8_kernel(Q8Params p) {
-  constexpr int NP = D / 16;  // 16-lane panels of a row
-  __shared__ __align__(128) signed char sQ[NP][64 * 16];
-  __shared__ __align__(128) signed char sK[NP][64 * 16];
-  __shared__ __align__(128) bf16 sV[64 * D];
-  __shared__ __align__(128) int sS[4][16 * 64];  // int scores, then fp32 P V
-  __shared__ __align__(128) bf16 sP[4][16 * 64];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y;
-  const long long z = blockIdx.z, z1 = z / p.nb2, z2 = z % p.nb2;
-  const int q0 = blockIdx.x * 64;
-  const signed char* qb = p.qi + z1 * p.q_s1 + z2 * p.q_s2 + h * D;
-  // loader: element i of 64 * NP is (row i / NP, panel i % NP)
-  for (int i = tid; i < 64 * NP; i += 128) {
-    const int lr = i / NP, pn = i % NP, qi = q0 + lr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (qi < p.L)
-      val = *reinterpret_cast<const uint4*>(qb + (long long)qi * p.q_si + pn * 16);
-    *reinterpret_cast<uint4*>(sQ[pn] + lr * 16) = val;
-  }
-
-  // lanes (2r, 2r+1) of a warp own query row r of its 16, 32 keys each;
-  // f: the row's scalar score factor, rounded as the TPU's
-  const int r = lane >> 1, half = lane & 1;
-  const int qrow = q0 + warp * 16 + r;
-  float f = 0.f;
-  if (qrow < p.L) {
-    const long long c = ((z * p.L + qrow) / p.q_block) * p.H + h;
-    f = __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(p.qs[c], p.ks[c]), p.scale),
-                            LOG2E), 16129.f);
-  }
-  float l_run = 0.f;
-  float o_acc[D / 2];
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) o_acc[d] = 0.f;
-  int* sSw = sS[warp];
-  float* sOw = reinterpret_cast<float*>(sS[warp]);
-  bf16* sPw = sP[warp];
-  const signed char* kb = p.k + z1 * p.k_s1 + z2 * p.k_s2 + h * D;
-  const long long v_off = z1 * p.v_s1 + z2 * p.v_s2 + h * D;
-
-  for (int j0 = 0; j0 < p.Lk; j0 += 64) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < 64 * NP; i += 128) {
-      const int lr = i / NP, pn = i % NP, kj = j0 + lr;
-      const bool ok = kj < p.Lk;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) kv = *reinterpret_cast<const uint4*>(kb + (long long)kj * p.k_sj + pn * 16);
-      *reinterpret_cast<uint4*>(sK[pn] + lr * 16) = kv;
-      bf16* dv = sV + lr * D + pn * 16;
-      const float4* vr = reinterpret_cast<const float4*>(
-          p.v + v_off + (long long)kj * p.v_sj + pn * 16);
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        const float4 a = ok ? vr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-        dv[4 * d] = __float2bfloat16(a.x);
-        dv[4 * d + 1] = __float2bfloat16(a.y);
-        dv[4 * d + 2] = __float2bfloat16(a.z);
-        dv[4 * d + 3] = __float2bfloat16(a.w);
-      }
-    }
-    __syncthreads();
-
-    // S = Qi Ki^T in int32 for this warp's 16 query rows
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-      wmma::fill_fragment(acc, 0);
-#pragma unroll
-      for (int kh = 0; kh < NP; ++kh) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ[kh] + warp * 16 * 16, 16);
-        wmma::load_matrix_sync(fb, sK[kh] + j * 16 * 16, 16);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sSw + j * 16, acc, 64, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // P = exp2(si * f - 30); keys past Lk get P = 0
-    float sv[32];
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int jj = half * 32 + c;
-      float e = 0.f;
-      if (j0 + jj < p.Lk)
-        e = exp2f(__fsub_rn(__fmul_rn((float)sSw[r * 64 + jj], f), EXP2_SHIFT));
-      sv[c] = e;
-      psum += e;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run += psum;
-#pragma unroll
-    for (int c = 0; c < 32; ++c)
-      sPw[r * 64 + half * 32 + c] = __float2bfloat16(sv[c]);
-    __syncwarp();
-
-    // P V into the (now free) score area as fp32 [16, D]
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < 64; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sPw + kk, 64);
-        wmma::load_matrix_sync(fb, sV + kk * D + dj * 16, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sOw + dj * 16, acc, D, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) o_acc[d] += sOw[r * D + half * (D / 2) + d];
-    __syncwarp();
-  }
-
-  if (qrow < p.L) {
-    const float den = fmaxf(l_run, 1e-30f);
-    bf16* orow = p.o + z1 * p.o_s1 + z2 * p.o_s2 + (long long)qrow * p.o_si + h * D +
-                 half * (D / 2);
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) orow[d] = __float2bfloat16(o_acc[d] / den);
-  }
-}
-
-cudaError_t launch_attn_q8(const Q8Params& p, long long blocks, int D,
-                           cudaStream_t s) {
-  const dim3 grid(cdiv(p.L, 64), p.H, (unsigned)blocks);
-  if (D == 32)
-    attn_q8_kernel<32><<<grid, 128, 0, s>>>(p);
-  else if (D == 64)
-    attn_q8_kernel<64><<<grid, 128, 0, s>>>(p);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
-}
-
 // heads of 32 or 64, C a multiple of 16 (the int8 rows' 16-byte panels)
 inline bool q8_heads_ok(int C, int H) {
   return H >= 1 && C % H == 0 && (C / H == 32 || C / H == 64) && C % 16 == 0;
@@ -658,17 +367,63 @@ cudaError_t quantize_qk(float* qkv, const void* qg, const void* kg, void* qi,
   return launch_q8(qp, cells, 2, C / H, s);
 }
 
-// K1's out projection on the Hopper GEMM, float and int8 QK, with the gated
-// residual: y = x + gate[row / rpm] * (attn wo^T + bo).
-
-cudaError_t self_out(const void* x, const void* gate, const void* wo,
-                     const void* bo, const void* attn, void* y, long long R,
-                     int C, long long rpm, cudaStream_t s) {
+// The gated out projection of K1, K2 and K4 (fc2) on the Hopper GEMM:
+// y = x + gate[row / rpm] * (a w^T + b), a [R, K], w [C, K].
+cudaError_t gated_out(const void* x, const void* gate, const void* w,
+                      const void* b, const void* a, void* y, long long R,
+                      int C, int K, long long rpm, cudaStream_t s) {
   sm90::GemmEpi epi;
   epi.gate = (const bf16*)gate;
   epi.rpm = rpm;
   return sm90::launch_gemm_sm90<true, bf16, bf16, true>(
-      attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, C, s, epi);
+      a, w, b, (const bf16*)x, (bf16*)y, R, C, K, s, epi);
+}
+
+// The float qkv projection of K1 and K2: [R, 3C] bf16, q and k RMS-normed
+// per head of D in fp32 in the epilogue (null gammas: no norm).
+cudaError_t self_qkv(const void* h, const void* wqkv, const void* bqkv,
+                     const void* qg, const void* kg, void* qkv, long long R,
+                     int C, int D, cudaStream_t s) {
+  sm90::GemmEpi epi;
+  epi.qg = (const bf16*)qg;
+  epi.kg = (const bf16*)kg;
+  epi.cq = C;
+  if (D == 32)
+    return sm90::launch_gemm_sm90<false, float, bf16, false, 32>(
+        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi);
+  return sm90::launch_gemm_sm90<false, float, bf16, false, 64>(
+      h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi);
+}
+
+// K2's attention over T (temporal_sm90.cuh), heads of 32 or 64, into o
+// [B, T, N, C] bf16: the float form (qi null) on the bf16 qkv [B*T*N, 3C]
+// (q and k normed), or the int8-QK form on int8 qi, ki [B*T*N, C] with
+// their scales qs, ks [B * N / nc, H] and v at column 2C of the fp32 qkv
+cudaError_t temporal_core(const void* qkv, const void* qi, const void* ki,
+                          const void* qs, const void* ks, void* o, int B,
+                          int T, int N, int C, int H, int nc,
+                          cudaStream_t s) {
+  if (H < 1 || C % H || (C / H != 32 && C / H != 64) || C % 8 ||
+      (qi && !q8_heads_ok(C, H)))
+    return cudaErrorInvalidValue;
+  const int D = C / H;
+  sm90::TemporalParams p;
+  p.o = (bf16*)o;
+  p.B = B; p.T = T; p.N = N; p.H = H; p.nc = nc;
+  p.scale = (float)(1.0 / sqrt((double)D));
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  if (qi) {
+    p.q = qi; p.k = ki; p.v = (const float*)qkv + 2 * C;
+    p.q_rs = p.k_rs = C; p.v_rs = 3 * C;
+    p.qs = (const float*)qs; p.ks = (const float*)ks;
+    return D == 32 ? sm90::launch_temporal<32, true>(p, s)
+                   : sm90::launch_temporal<64, true>(p, s);
+  }
+  const bf16* q = (const bf16*)qkv;
+  p.q = q; p.k = q + C; p.v = q + 2 * C;
+  p.q_rs = p.k_rs = p.v_rs = 3 * C;
+  return D == 32 ? sm90::launch_temporal<32, false>(p, s)
+                 : sm90::launch_temporal<64, false>(p, s);
 }
 
 }  // namespace
@@ -698,16 +453,7 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
     return (int)cudaErrorInvalidValue;
   const int D = C / H;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  sm90::GemmEpi epi;
-  epi.qg = (const bf16*)qg;
-  epi.kg = (const bf16*)kg;
-  epi.cq = C;
-  if (D == 32)
-    GVF_CHECK((sm90::launch_gemm_sm90<false, float, bf16, false, 32>(
-        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi)));
-  else
-    GVF_CHECK((sm90::launch_gemm_sm90<false, float, bf16, false, 64>(
-        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi)));
+  GVF_CHECK(self_qkv(h, wqkv, bqkv, qg, kg, qkv, R, C, D, s));
   AttnParams p;
   const bf16* q = (const bf16*)qkv;
   p.q = q; p.k = q + C; p.v = q + 2 * C; p.o = (bf16*)attn;
@@ -722,12 +468,16 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
     GVF_CHECK((sm90::launch_attn_sm90<32, bf16, bf16, bf16, false>(p, H, B, s)));
   else
     GVF_CHECK((sm90::launch_attn_sm90<64, bf16, bf16, bf16, false>(p, H, B, s)));
-  GVF_CHECK(self_out(x, gate, wo, bo, attn, y, R, C, rpm, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
   return 0;
 }
 
-// K2. x, y [B, T, N, C]; sh/sc/gate [B, C]; attention over T for each (b, n),
-// read and written in place in the [B, T, N, C] layout; gammas as K1.
+// K2. x, y [B, T, N, C]; sh/sc/gate [B, C]; qg/kg as K1's; heads of 32 or
+// 64. Scratch: h [B*T*N, C] bf16, qkv [B*T*N, 3C] bf16, attn [B*T*N, C]
+// bf16. The qkv projection is K1's (q and k normed in its epilogue, bf16
+// out); the attention over T for each (b, n, h) is temporal_sm90.cuh's,
+// read and written in place in the [B, T, N, .] rows; the out projection
+// is K1's gated one with one modulation row a batch row (rpm = T N).
 int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
                           const void* gate, const void* wqkv, const void* bqkv,
                           const void* qg, const void* kg, const void* wo,
@@ -736,23 +486,14 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * T * N, rpm = (long long)T * N;
+  if (H < 1 || C % H || (C / H != 32 && C / H != 64) || C % 8)
+    return (int)cudaErrorInvalidValue;
   const int D = C / H;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
-                                                 (float*)qkv, R, 3 * C, C, 1, s)));
-  AttnParams p;
-  const float* q = (const float*)qkv;
-  p.q = q; p.k = q + C; p.v = q + 2 * C; p.o = (bf16*)attn;
-  p.q_s1 = p.k_s1 = (long long)T * N * 3 * C; p.q_s2 = p.k_s2 = 3 * C;
-  p.q_si = p.k_sj = (long long)N * 3 * C;
-  p.o_s1 = (long long)T * N * C; p.o_s2 = C; p.o_si = (long long)N * C;
-  p.nb2 = N; p.Lq = p.Lk = T;
-  p.qg = (const bf16*)qg;
-  p.kg = (const bf16*)kg;
-  p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK((launch_attn_d<float, float>(p, H, B, D, s)));
-  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
-                                                (bf16*)y, R, C, C, rpm, s)));
+  GVF_CHECK(self_qkv(h, wqkv, bqkv, qg, kg, qkv, R, C, D, s));
+  GVF_CHECK(temporal_core(qkv, nullptr, nullptr, nullptr, nullptr, attn, B,
+                          T, N, C, H, 1, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
   return 0;
 }
 
@@ -788,15 +529,15 @@ int gvf_self_sublayer_q8(const void* x, const void* sh, const void* sc,
     GVF_CHECK((sm90::launch_attn_sm90_q8<32, true>(p, B, s)));
   else
     GVF_CHECK((sm90::launch_attn_sm90_q8<64, true>(p, B, s)));
-  GVF_CHECK(self_out(x, gate, wo, bo, attn, y, R, C, rpm, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
   return 0;
 }
 
 // K2 quant_qk: as gvf_temporal_sublayer; a cell is one batch row x `nc`
 // voxels x all T frames (the TPU grid instance), while attention couples
-// only the T rows of one voxel: q8_kernel, then attn_q8_kernel with V read
-// from the fp32 qkv. Extra scratch: qi, ki int8 [B*T*N, C], qs, ks fp32
-// [B * N / nc, H].
+// only the T rows of one voxel: the fp32 qkv projection, q8_kernel, then
+// temporal_sm90.cuh's int8-QK path with V read from the fp32 qkv. Extra
+// scratch: qi, ki int8 [B*T*N, C], qs, ks fp32 [B * N / nc, H].
 int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
                              const void* gate, const void* wqkv,
                              const void* bqkv, const void* qg, const void* kg,
@@ -806,31 +547,29 @@ int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
                              int nc, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * T * N, rpm = (long long)T * N;
-  if (nc < 1 || N % nc || !q8_heads_ok(C, H) || (long long)B * N > 65535)
+  if (nc < 1 || N % nc || !q8_heads_ok(C, H))
     return (int)cudaErrorInvalidValue;
-  const int D = C / H;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK((launch_gemm<EPI_BIAS, float, float>(h, wqkv, bqkv, nullptr, nullptr,
-                                                 (float*)qkv, R, 3 * C, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wqkv, bqkv, nullptr, (float*)qkv, R, 3 * C, C, s)));
   QuantParams qp = {};
   qp.s1 = (long long)T * N; qp.s2 = nc; qp.s_outer = N;
   qp.cells2 = N / nc; qp.n_outer = T; qp.n_inner = nc;
   GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, C, H, qp,
                         B * (N / nc), s));
-  Q8Params p = {};
-  p.qi = (const signed char*)qi; p.qs = (const float*)qs;
-  p.k = (const signed char*)ki; p.ks = (const float*)ks;
-  p.v = (const float*)qkv + 2 * C; p.o = (bf16*)attn; p.H = H;
-  p.q_s1 = p.k_s1 = p.o_s1 = (long long)T * N * C;
-  p.q_s2 = p.k_s2 = p.o_s2 = C;
-  p.q_si = p.k_sj = p.o_si = (long long)N * C;
-  p.v_s1 = (long long)T * N * 3 * C; p.v_s2 = 3 * C; p.v_sj = (long long)N * 3 * C;
-  p.nb2 = N; p.L = p.Lk = T; p.q_block = nc * T;
-  p.scale = (float)(1.0 / sqrt((double)D));
-  GVF_CHECK(launch_attn_q8(p, (long long)B * N, D, s));
-  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(attn, wo, bo, (const bf16*)x, gate,
-                                                (bf16*)y, R, C, C, rpm, s)));
+  GVF_CHECK(temporal_core(qkv, qi, ki, qs, ks, attn, B, T, N, C, H, nc, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
   return 0;
+}
+
+// K2's attention step alone, for the card tests (temporal_core's
+// arguments; qi null: the float form).
+int gvf_temporal_attention_sm90(const void* qkv, const void* qi,
+                                const void* ki, const void* qs,
+                                const void* ks, void* o, int B, int T, int N,
+                                int C, int H, int nc, void* stream) {
+  return (int)temporal_core(qkv, qi, ki, qs, ks, o, B, T, N, C, H, nc,
+                            (cudaStream_t)stream);
 }
 
 // K3. x, y [B, L, C]; per context i (image, then static): affine LN
@@ -1031,7 +770,8 @@ int gvf_cross_sublayer_q8(const void* x,
 }
 
 // K4. x, y [B, L, C]; sh/sc/gate [B / mod_repeat, C]; w1 [M, C]; w2 [C, M].
-// Scratch: h [B*L, C] bf16, hid [B*L, M] bf16.
+// Scratch: h [B*L, C] bf16, hid [B*L, M] bf16. fc1 on the Hopper GEMM with
+// the GELU epilogue (bf16 hidden), fc2 with the gated residual.
 int gvf_mlp_sublayer(const void* x, const void* sh, const void* sc,
                      const void* gate, const void* w1, const void* b1,
                      const void* w2, const void* b2, void* y, void* h,
@@ -1040,10 +780,9 @@ int gvf_mlp_sublayer(const void* x, const void* sh, const void* sc,
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L, rpm = (long long)L * mod_repeat;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK((launch_gemm<EPI_GELU, float, bf16>(h, w1, b1, nullptr, nullptr,
-                                                (bf16*)hid, R, M, C, 1, s)));
-  GVF_CHECK((launch_gemm<EPI_GATED, bf16, bf16>(hid, w2, b2, (const bf16*)x, gate,
-                                                (bf16*)y, R, C, M, rpm, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, bf16, false, 0, true>(
+      h, w1, b1, nullptr, (bf16*)hid, R, M, C, s)));
+  GVF_CHECK(gated_out(x, gate, w2, b2, hid, y, R, C, M, rpm, s));
   return 0;
 }
 

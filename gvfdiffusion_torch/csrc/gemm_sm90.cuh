@@ -1,18 +1,22 @@
-// The Hopper projection GEMM of K1's and K3's chains (fused_sublayer.cu:
-// K1's qkv and gated out projections, float and int8-QK; the q and out
-// projections of K3, bf16 and int8, two contexts and one):
+// The Hopper projection GEMM of the DiT block's chains (fused_sublayer.cu:
+// the qkv and gated out projections of K1 and K2, float and int8-QK; the
+// q and out projections of K3, bf16 and int8, two contexts and one; K4's
+// fc1 and gated fc2):
 // out[M, N] = A[M, K] W[N, K]^T + bias, then + res (RESID) or, GATED,
-// res + gate[row / rpm] * (acc + bias); A and W bf16, fp32 accumulation,
-// the epilogue's sums in fp32 in gemm_kernel's order (acc + bias, then the
-// residual), out fp32 or bf16. K1's float qkv projection (QKD) RMS-norms
-// q and k per head in fp32 in the epilogue and writes bf16, the operands
-// the attention core reads by TMA.
+// res + gate[row / rpm] * (acc + bias), or (GELU) gelu_tanh(acc + bias);
+// A and W bf16, fp32 accumulation, the epilogue's sums in fp32 in the plain
+// versions' order (acc + bias, then the activation or the residual), out
+// fp32 or bf16. The float qkv projection of K1 and K2 (QKD) RMS-norms q
+// and k per head in fp32 in the epilogue and writes bf16, the operands
+// their attention kernels read.
 //
 // Replaces, on the card, the projections inside the Pallas TPU kernels
 // gvfdiffusion_tpu/ops/fused_sublayer.py:344 fused_self_sublayer
-// (_self_sublayer_kernel :170: the qkv projection and the gated output)
-// and :839 fused_cross_sublayer (_cross_sublayer_kernel :589: q and out).
-// gemm_kernel (WMMA, the first version) stays for K2 and K4.
+// (_self_sublayer_kernel :170: the qkv projection and the gated output),
+// :526 fused_temporal_sublayer (_temporal_sublayer_kernel :373: the same
+// two), :839 fused_cross_sublayer (_cross_sublayer_kernel :589: q and out)
+// and :983 fused_mlp_sublayer (_mlp_sublayer_kernel :881: fc1 with its
+// gelu, fc2 with the gated residual).
 //
 // Design: one CTA per 128 x 128 output tile, two CTAs an SM (3 stages,
 // 97 KB of shared memory each, at most 113 registers a thread), so that one
@@ -30,9 +34,12 @@
 // What bounds it on the H100: at the DiT's K3 shape each projection is
 // [16384, 512] x [512, 512]^T, 8.6 GFLOP (8.7 us at 989 TFLOP/s) against
 // 34-50 MB of traffic (its fp32 q or residual stream: 10-15 us at 3.35
-// TB/s), so the bytes bound it; K1's qkv projection [16384, 512] x
-// [1536, 512]^T does 26 GFLOP (26 us) and writes 50 MB of bf16 q/k/v (15
-// us; the int8-QK form 100 MB of fp32, 30 us); at
+// TB/s), so the bytes bound it; the qkv projection of K1 and K2 [16384,
+// 512] x [1536, 512]^T does 26 GFLOP (26 us) and writes 50 MB of bf16
+// q/k/v (15 us; the int8-QK forms 100 MB of fp32, 30 us); K4's fc1 [16384,
+// 512] x [2048, 512]^T and fc2 [16384, 2048] x [512, 2048]^T do 34 GFLOP
+// each (35 us) against 84 MB (fc1: 67 MB of bf16 hidden out) and 101 MB
+// (fc2: the hidden in, the residual in and out), 25-30 us; at
 // the SLat torso's [32768, 1024] x [1024, 1024]^T the operations (69
 // GFLOP, 70 us) and the bytes (~270 MB, 80 us) come close.
 
@@ -52,9 +59,16 @@ struct GemmSmem {
   static constexpr int BYTES = BAR + 2 * GSTAGES * 8 + 1024;  // + alignment
 };
 
+// the MLP's activation: gelu with the tanh approximation, in fp32
+__device__ __forceinline__ float gelu_tanh(float v) {
+  return 0.5f * v *
+         (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+}
+
 // The epilogue's extra operands: GATED's gate rows (row r reads gate row
 // r / rpm), QKD's RMS-norm gammas of the q columns [0, cq) and the k
-// columns [cq, 2 cq) (null: no norm), as K1's qkv projection lays them out
+// columns [cq, 2 cq) (null: no norm), as the qkv projection of K1 and K2
+// lays them out
 struct GemmEpi {
   const bf16* gate = nullptr;
   long long rpm = 1;
@@ -63,7 +77,8 @@ struct GemmEpi {
   int cq = 0;
 };
 
-template <bool RESID, typename TRes, typename TOut, bool GATED, int QKD>
+template <bool RESID, typename TRes, typename TOut, bool GATED, int QKD,
+          bool GELU>
 __global__ void __launch_bounds__(288, 2)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tw,
@@ -197,7 +212,10 @@ __global__ void __launch_bounds__(288, 2)
       const long long o = gm * N + gn;
       float v0 = acc[4 * i + 2 * hr] + to_f(bias[gn]);
       float v1 = acc[4 * i + 2 * hr + 1] + to_f(bias[gn + 1]);
-      if (GATED) {
+      if (GELU) {
+        v0 = gelu_tanh(v0);
+        v1 = gelu_tanh(v1);
+      } else if (GATED) {
         v0 = to_f(res[o]) + v0 * to_f(grow[gn]);
         v1 = to_f(res[o + 1]) + v1 * to_f(grow[gn + 1]);
       } else if (RESID) {
@@ -232,15 +250,18 @@ inline cudaError_t matrix_map(CUtensorMap* map, const void* base,
 }
 
 // out[M, N] = A[M, K] W[N, K]^T + bias (+ res [M, N]; GATED: res + gate
-// [M / rpm, N] * (...); QKD: K1's qkv, q and k normed per head of QKD
-// columns, bf16 out); A, W 16-byte aligned, K and N multiples of 8
+// [M / rpm, N] * (...); QKD: the self sublayers' qkv, q and k normed per
+// head of QKD columns, bf16 out; GELU: gelu_tanh(...), bf16 out); A, W
+// 16-byte aligned, K and N multiples of 8
 template <bool RESID, typename TRes, typename TOut, bool GATED = false,
-          int QKD = 0>
+          int QKD = 0, bool GELU = false>
 cudaError_t launch_gemm_sm90(const void* A, const void* W, const void* bias,
                              const TRes* res, TOut* out, long long M, int N,
                              int K, cudaStream_t s, GemmEpi epi = {}) {
   static_assert(QKD == 0 || (sizeof(TOut) == 2 && !RESID && !GATED),
                 "the qkv epilogue writes bf16 and adds no residual");
+  static_assert(!GELU || (sizeof(TOut) == 2 && !RESID && !GATED && !QKD),
+                "the GELU epilogue writes bf16 and adds no residual");
   if (M < 1 || N < 1 || K < 1 || N % 8 || K % 8 || (uintptr_t)A % 16 ||
       (uintptr_t)W % 16 || cdiv(M, GM) > 65535 || epi.rpm < 1 ||
       (GATED && (!epi.gate || !RESID)) ||
@@ -250,7 +271,7 @@ cudaError_t launch_gemm_sm90(const void* A, const void* W, const void* bias,
   cudaError_t err = matrix_map(&ta, A, M, K);
   if (err == cudaSuccess) err = matrix_map(&tw, W, N, K);
   if (err != cudaSuccess) return err;
-  auto kern = gemm_sm90_kernel<RESID, TRes, TOut, GATED, QKD>;
+  auto kern = gemm_sm90_kernel<RESID, TRes, TOut, GATED, QKD, GELU>;
   static bool opted = false;  // the shared-memory opt-in, once
   if (!opted) {
     err = cudaFuncSetAttribute(

@@ -50,11 +50,12 @@ the TPU kernel's VMEM residency and have no counterpart on Hopper.
 `launch_counts` counts kernel launches per sublayer (one per launched
 chain; "cross" for the two-context form, "cross_single" for the single,
 "cross_q8" for the int8 form, "self_q8" and "temporal_q8" for the int8-QK
-self forms); the plain version never counts. A counter covers every head
-width and `rms` setting of its form, a run's configuration telling them
-apart, but for the single-context form, whose counter is keyed by dtype
-and head width as K7's (`single_launch_key`: "cross_single",
-"cross_single_fp32", "cross_single_d128", ...).
+self forms, "temporal_core" for temporal_sublayer_attention, the temporal
+sublayer's attention step called alone); the plain version never counts.
+A counter covers every head width and `rms` setting of its form, a run's
+configuration telling them apart, but for the single-context form, whose
+counter is keyed by dtype and head width as K7's (`single_launch_key`:
+"cross_single", "cross_single_fp32", "cross_single_d128", ...).
 
 The kernels have no backward pass yet (the JAX custom_vjps recompute
 through einsums or the oracle): on CUDA a wrapper raises when grad mode is
@@ -85,6 +86,7 @@ def single_launch_key(dtype: torch.dtype, head_dim: int) -> str:
 
 launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
                  "cross_q8": 0, "self_q8": 0, "temporal_q8": 0,
+                 "temporal_core": 0,
                  **{single_launch_key(dt, d): 0 for d in _SINGLE_WIDTHS
                     for dt in (torch.bfloat16, torch.float32)}}
 # voxels per cell of the temporal sublayer (JAX `_TEMPORAL_NC`), halved
@@ -192,10 +194,16 @@ def _qk8_attention(q, qs, k, ks, v, dt, scale):
     (exact in fp32), s = si * (qs * ks * scale * log2 e / 127^2) - 30,
     P = exp2(s); the row sum from the fp32 P, P V with P and V rounded to
     dt. -> [..., Lq, H, D]."""
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
-    n127 = f32(127.0)
+    n127 = torch.tensor(127.0, dtype=torch.float32)
     qi = torch.round(q * (n127 / qs)[..., None, :, None])
     ki = torch.round(k * (n127 / ks)[..., None, :, None])
+    return _qk8_int_attention(qi, qs, ki, ks, v, dt, scale)
+
+
+def _qk8_int_attention(qi, qs, ki, ks, v, dt, scale):
+    """_qk8_attention from the int8 values qi, ki [..., Lq | Lk, H, D]
+    (held as floats) and their scales."""
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
     si = torch.einsum("...qhd,...khd->...hqk", qi, ki)
     f = qs * ks * f32(scale) * f32(_LOG2E) / f32(127.0 * 127.0)
     p_ = torch.exp2(si * f[..., None, None] - _SHIFT)
@@ -254,6 +262,67 @@ def temporal_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo,
     attn = attn.transpose(1, 2).reshape(B, T, N, C)
     out = _rd(attn, dt) @ _rd(wo, dt) + _f(bo)
     return (xf + out * _f(gate)[:, None, None]).to(x.dtype)
+
+
+def temporal_sublayer_attention(qkv, num_heads: int, *, quant=None,
+                                voxel_group: Optional[int] = None,
+                                impl: Optional[str] = None):
+    """The temporal sublayer's attention step alone: for each (b, n, h) of a
+    [B, T, N, 3C] projection, attention over its T frames -> [B, T, N, C]
+    bf16, the kernel (`csrc/temporal_sm90.cuh`) that fused_temporal_sublayer
+    runs inside its chain. Float form (quant=None): qkv bf16, q and k
+    already RMS-normed; temporal_sublayer_reference's softmax, P rounded to
+    bf16 for P V. int8 QK: quant = (qi, ki, qs, ks), int8 q and k
+    [B, T, N, C] with fp32 scales [B * N // nc, H], one per (batch row,
+    group of nc = voxel_group or temporal_voxel_group(N) voxels, head); qkv
+    fp32, v read from its last C columns; _qk8_attention's arithmetic."""
+    B, T, N, C3 = qkv.shape
+    C, H = C3 // 3, num_heads
+    D = C // H
+    nc = voxel_group or temporal_voxel_group(N)
+    if N % nc:
+        raise ValueError(f"voxel group {nc} does not divide {N} voxels")
+    if not _use_kernel(qkv, impl):
+        heads = lambda a: a.float().reshape(B, T, N, H, D)
+        if quant is None:
+            q, k, v = (heads(qkv[..., i * C:(i + 1) * C]) for i in range(3))
+            s = torch.einsum("btnhd,bsnhd->bnhts", q, k) * D ** -0.5
+            p = torch.softmax(s, dim=-1)
+            attn = torch.einsum("bnhts,bsnhd->btnhd", _rd(p, torch.bfloat16),
+                                v)
+        else:
+            qi, ki, qs, ks = quant
+            voxels = lambda a: heads(a).transpose(1, 2)  # [B, N, T, H, D]
+            cells = lambda a: a.reshape(B, N // nc, H).repeat_interleave(
+                nc, 1)
+            attn = _qk8_int_attention(
+                voxels(qi), cells(qs), voxels(ki), cells(ks),
+                voxels(qkv[..., 2 * C:]), torch.bfloat16,
+                D ** -0.5).transpose(1, 2)
+        return attn.reshape(B, T, N, C).to(torch.bfloat16)
+    from .. import _ext
+
+    _no_grad_inputs("temporal_sublayer_attention", qkv, quant or ())
+    if C % H or D not in (32, 64) or C % 16:
+        raise ValueError(f"head width must be 32 or 64 over C a multiple "
+                         f"of 16, got {C}/{H}")
+    want = torch.bfloat16 if quant is None else torch.float32
+    if qkv.dtype != want or not qkv.is_contiguous():
+        raise TypeError(f"qkv must be a contiguous {want} tensor")
+    q8 = (None,) * 4
+    if quant is not None:
+        q8 = tuple(a.contiguous() for a in quant)
+        if any(a.dtype != torch.int8 or a.shape != (B, T, N, C)
+               for a in q8[:2]) or any(
+                a.dtype != torch.float32 or a.shape != (B * N // nc, H)
+                for a in q8[2:]) or any(a.device != qkv.device for a in q8):
+            raise TypeError("quant takes int8 qi, ki [B, T, N, C] and fp32 "
+                            "qs, ks [B * N // nc, H] on qkv's device")
+    o = torch.empty(B, T, N, C, device=qkv.device, dtype=torch.bfloat16)
+    _ext.call("gvf_temporal_attention_sm90", _ptr(qkv),
+              *map(_ptr_or_null, q8), _ptr(o), B, T, N, C, H, nc)
+    launch_counts["temporal_core"] += 1
+    return o
 
 
 def quantize_kv(k: torch.Tensor, num_heads: int):
@@ -585,7 +654,10 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     y = torch.empty_like(x)
     R = B * T * N
     h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
-    qkv = torch.empty(R, 3 * C, device=x.device, dtype=torch.float32)
+    # as the self sublayer's: fp32 for the int8-QK form, bf16 q/k (normed)
+    # and v for the float form
+    qkv = torch.empty(R, 3 * C, device=x.device,
+                      dtype=torch.float32 if quant_qk else torch.bfloat16)
     attn = torch.empty_like(h)
     if quant_qk:
         nc = voxel_group or temporal_voxel_group(N)

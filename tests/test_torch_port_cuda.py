@@ -40,7 +40,12 @@ with no valid key, one tile, the last partial tile, two runs, every tile;
 heads of 32, 64 and 128; every tile equal bit for bit to the list-free
 core; more than 1024 tiles), and the fp32 forms on the core's 3xTF32 path
 at 1-257 keys (K7 with its logsumexp and a row with no valid key, K3's
-single context at heads of 32, 64 and 128).
+single context at heads of 32, 64 and 128); K2's attention over T alone
+(csrc/temporal_sm90.cuh, through `temporal_sublayer_attention`), float
+and int8 QK, at T of 1 to 128 around its 32-frame tiles and at 257 and
+1024, heads of 32 and 64, voxel groups of 16, 8 and 1, one and three
+batch rows (ATTN_BOUND); K4 at MLP widths 264, 1024 and 2048 over 400
+rows, mod_repeat 1 and 2.
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
@@ -1611,3 +1616,105 @@ def test_gated_epilogue_across_frames(dev, L, mod_repeat, quant_qk):
     _check("self", pt.fused_self_sublayer, x,
            (x, sh, sc, gate, *d.self_weights()),
            dict(num_heads=4, mod_repeat=mod_repeat, quant_qk=quant_qk))
+
+
+# -- K2's attention over T alone (csrc/temporal_sm90.cuh: query blocks of 32
+# frames x key tiles of 32 keys, one warp a (batch row, voxel, head)) and
+# K4 on the Hopper GEMM with its GELU epilogue
+
+TEMPORAL_TS = [1, 8, 31, 32, 33, 64, 65, 70, 128]
+# N -> JAX's voxel group: 16, 8 and 1 (N = 7: no power of two divides it)
+TEMPORAL_NS = {32: 16, 24: 8, 7: 1}
+
+
+def _temporal_core_case(dev, seed, B, T, N, heads, q8):
+    """A [B, T, N, 3C] projection, C = 128: bf16 with q and k RMS-normed
+    per head (the float form), or fp32 with int8 q and k quantized per
+    (batch row, voxel group, head) as q8_kernel does (the int8-QK form)."""
+    C, D = 128, 128 // heads
+    r = np.random.default_rng(seed)
+    qkv = torch.tensor(r.standard_normal((B, T, N, 3 * C)),
+                       dtype=torch.float32, device=dev)
+    qk = qkv[..., :2 * C].unflatten(-1, (2, heads, D))
+    g = torch.tensor(1.0 + 0.3 * np.abs(r.standard_normal((2, heads, D))),
+                     dtype=torch.float32, device=dev)
+    qk = qk * (qk.square().sum(-1, keepdim=True) + 1e-12).rsqrt() * g \
+        * D ** 0.5
+    qkv = torch.cat((qk.flatten(-3), qkv[..., 2 * C:]), -1)
+    if not q8:
+        return qkv.bfloat16(), None
+    nc = pt.temporal_voxel_group(N)
+    cells = lambda a: a.reshape(B, T, N // nc, nc, heads, D)
+    scales = [cells(qkv[..., i * C:(i + 1) * C]).abs().amax((1, 3, 5))
+              .clamp_min(1e-8) for i in range(2)]
+    qi, ki = (torch.round(cells(qkv[..., i * C:(i + 1) * C])
+                          * (127.0 / s)[:, None, :, None, :, None])
+              .reshape(B, T, N, C).to(torch.int8)
+              for i, s in enumerate(scales))
+    return qkv, (qi, ki, *(s.reshape(-1, heads) for s in scales))
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", list(TEMPORAL_NS))
+@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("T", TEMPORAL_TS)
+def test_temporal_core(dev, T, heads, N, B, q8):
+    """The attention alone against its plain version: T below, on and past
+    the 32-frame tiles, heads of 32 and 64, voxel groups of 16, 8 and 1,
+    one and three batch rows; float and int8 QK (s8 mma.sync)."""
+    assert pt.temporal_voxel_group(N) == TEMPORAL_NS[N]
+    qkv, quant = _temporal_core_case(dev, 1000 * T + 10 * N + B + heads,
+                                     B, T, N, heads, q8)
+    pt.reset_launch_counts()
+    with torch.no_grad():
+        got = pt.temporal_sublayer_attention(qkv, heads, quant=quant)
+        want = pt.temporal_sublayer_attention(qkv, heads, quant=quant,
+                                              impl="plain")
+    torch.cuda.synchronize()
+    assert pt.launch_counts["temporal_core"] == 1
+    assert got.shape == want.shape == (B, T, N, 128)
+    assert bool(torch.isfinite(got).all())
+    err = _rel(got, want)
+    print(f"temporal core T={T} heads={heads} N={N} B={B} q8={q8}: "
+          f"rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("T", [257, 1024])
+def test_temporal_core_long(dev, T, q8):
+    """T past the DiT's gate (up to 1024 frames where the voxel group is 1):
+    many key tiles under the running maximum (float) or the fixed shift
+    (int8 QK), 9 and 32 query blocks a problem, heads of 64."""
+    qkv, quant = _temporal_core_case(dev, T, 1, T, 3, 2, q8)
+    with torch.no_grad():
+        got = pt.temporal_sublayer_attention(qkv, 2, quant=quant)
+        want = pt.temporal_sublayer_attention(qkv, 2, quant=quant,
+                                              impl="plain")
+    torch.cuda.synchronize()
+    err = _rel(got, want)
+    print(f"temporal core T={T} q8={q8}: rel_l2 {err:.3e}")
+    assert bool(torch.isfinite(got).all()) and err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("mod_repeat", [1, 2])
+@pytest.mark.parametrize("M", [264, 1024, 2048])
+def test_mlp_kernel_widths(dev, M, mod_repeat):
+    """K4 on the Hopper GEMM: fc1 with the GELU epilogue at M = 264 (not a
+    multiple of the 128-column tile), 1024 and 2048, 400 rows (not a
+    multiple of the 128-row tile) whose tiles straddle the modulation rows
+    of mod_repeat 2; fc2's gated epilogue reads each row's own gate."""
+    d = _Draw(dev, 60 + M + mod_repeat, 128)
+    x = d(4, 100, 128)
+    rows = torch.arange(4 // mod_repeat, device=dev, dtype=torch.float32)
+    sh, sc, _ = d.mods(4 // mod_repeat)
+    gate = (d(4 // mod_repeat, 128, scale=0.1).float()
+            + (rows[:, None] - 0.7) * 2.0).bfloat16()
+    pt.reset_launch_counts()
+    _check("mlp", pt.fused_mlp_sublayer, x,
+           (x, sh, sc, gate, d(128, M, scale=128 ** -0.5), d(M, scale=0.1),
+            d(M, 128, scale=M ** -0.5), d(128, scale=0.1)),
+           dict(mod_repeat=mod_repeat))
+    assert pt.launch_counts["mlp"] == 1
+
