@@ -1749,6 +1749,41 @@ def vae_valid(dev):
     return valid
 
 
+def flash_backward_fp64(q, k, v, valid, scale, do, rows, keys):
+    """K7's gradient in fp64 on a slice: dq on the first `rows` query rows,
+    dk and dv at key indices keys[b] of each batch row over every query
+    row; over each row's valid keys alone (an invalid key's P is 0), in
+    chunks of `rows` query rows."""
+    import torch
+
+    dq = []
+    dk = [torch.zeros(len(kb), *k.shape[2:], dtype=torch.float64,
+                      device=k.device) for kb in keys]
+    dv = [torch.zeros_like(a) for a in dk]
+    for b in range(q.shape[0]):
+        idx = valid[b].nonzero()[:, 0]
+        pos = torch.full((k.shape[1],), -1, dtype=torch.long, device=k.device)
+        pos[idx] = torch.arange(len(idx), device=k.device)
+        ok = pos[keys[b]] >= 0  # an invalid key's gradients are 0
+        sel = pos[keys[b]][ok]
+        kh, vh = (a[b, idx].double().transpose(0, 1) for a in (k, v))
+        for i0 in range(0, q.shape[1], rows):
+            qh, doh = (a[b, i0:i0 + rows].double().transpose(0, 1)
+                       for a in (q, do))
+            p = torch.softmax(qh @ kh.transpose(1, 2) * scale, -1)
+            di = ((p @ vh) * doh).sum(-1, keepdim=True)
+            if i0 == 0:
+                ds = p * (doh @ vh.transpose(1, 2) - di) * scale
+                dq.append((ds @ kh).transpose(0, 1))
+                del ds
+            p = p[..., sel]
+            ds = p * (doh @ vh[:, sel].transpose(1, 2) - di) * scale
+            dv[b][ok] += (p.transpose(1, 2) @ doh).transpose(0, 1)
+            dk[b][ok] += (ds.transpose(1, 2) @ qh).transpose(0, 1)
+            del p, ds
+    return torch.stack(dq), dk, dv
+
+
 def phase_vae_kernels(dev):
     """K7's fp32 forward with its residual and the dkv and dq kernels at the
     static VAE's `full` attention: [2, 32768, 12, 64] fp32, q/k/v the views
@@ -1767,9 +1802,9 @@ def phase_vae_kernels(dev):
     valid = vae_valid(dev)
     n_valid = [int(n) for n in valid.sum(1)]
     scale = VAE_D ** -0.5
-    o, lse, counts, vld = fl.launch_forward(q, k, v, valid, scale,
-                                             residual=True)
-    ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, counts, lse, o, do)
+    o, lse, tiles, vld = fl.launch_forward(q, k, v, valid, scale,
+                                            residual=True)
+    ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, tiles, lse, o, do)
     dk, dv = fl.launch_dkv(ptrs, sizes, scale)
     dq = fl.launch_dq(ptrs, sizes, scale)
     torch.cuda.synchronize()
@@ -1782,7 +1817,24 @@ def phase_vae_kernels(dev):
             "dk": (dk - ref[1]).abs().max(), "dv": (dv - ref[2]).abs().max()}
     maes = {k_: float(m) for k_, m in maes.items()}
     finite = all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv))
-    del ref
+    # against fp64: dq on F64_ROWS query rows, dk and dv on the first two
+    # listed key tiles of each batch row over every query row
+    keys = [torch.cat([torch.arange(64 * int(t_), 64 * int(t_) + 64,
+                                    device=dev) for t_ in tiles[b, 1:3]])
+            for b in range(VAE_B)]
+    dq64, dk64, dv64 = flash_backward_fp64(q, k, v, valid, scale, do,
+                                           F64_ROWS, keys)
+    def flat(ts):
+        return torch.cat([t_.flatten() for t_ in ts])
+
+    f64 = {"dq": (dq[:, :F64_ROWS], ref[0][:, :F64_ROWS], dq64)}
+    for name, got, ref_, want in (("dk", dk, ref[1], dk64),
+                                  ("dv", dv, ref[2], dv64)):
+        f64[name] = tuple(flat([a[b, keys[b]] for b in range(VAE_B)])
+                          for a in (got, ref_)) + (flat(want),)
+    f64 = {name: (rel_l2_64(got, want), rel_l2_64(ref_, want))
+           for name, (got, ref_, want) in f64.items()}
+    del ref, dq64, dk64, dv64
 
     ms_fwd = time_ms(lambda: fl.launch_forward(q, k, v, valid, scale,
                                                 residual=True), iters=3)
@@ -1811,28 +1863,40 @@ def phase_vae_kernels(dev):
     del t
     torch.cuda.empty_cache()
 
-    # bounds: operations over this run's valid keys, the forward's as three
-    # tf32 products each (3xTF32), the backward's at the fp32 peak
+    # bounds: operations over this run's valid keys, each fp32 product as
+    # three tf32 products (3xTF32, as the kernels compute it); the
+    # backward's also at the fp32 FFMA peak, printed beside
     qk = sum(VAE_H * SLOTS * n * VAE_D for n in n_valid)
-    visited = int(counts.bool().sum())
+    visited = int(tiles[:, 0].sum())
     b_fwd = bound(3 * 4 * qk, nbytes(q, k, v, valid, o, lse), PEAK_TF32)
-    b_dkv = bound(8 * qk, nbytes(q, k, v, valid, lse, do, dk, dv), PEAK_FP32)
-    b_dq = bound(6 * qk, nbytes(q, k, v, valid, lse, do, dq), PEAK_FP32)
-    b_all = bound(10 * qk, nbytes(q, k, v, valid, o, do, dq, dk, dv),
-                  PEAK_FP32)
+    moved_dkv = nbytes(q, k, v, valid, lse, do, dk, dv)
+    moved_dq = nbytes(q, k, v, valid, lse, do, dq)
+    b_dkv = bound(3 * 8 * qk, moved_dkv, PEAK_TF32)
+    b_dq = bound(3 * 6 * qk, moved_dq, PEAK_TF32)
+    f_dkv = bound(8 * qk, moved_dkv, PEAK_FP32)
+    f_dq = bound(6 * qk, moved_dq, PEAK_FP32)
+    b_all = bound(3 * 10 * qk, nbytes(q, k, v, valid, o, do, dq, dk, dv),
+                  PEAK_TF32)
     log(f"[vae-kernels] K7 at the static VAE's full attention: q/k/v "
         f"{tuple(q.shape)} fp32 (views of a qkv projection), valid keys "
         f"{n_valid} of {SLOTS} (surface shells, prefixes), {visited} of "
         f"{VAE_B * SLOTS // 64} key tiles visited; rel_l2 "
         + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
         + f" (bound {VAE_FLASH_BOUND:g}); max_abs_err {maes}")
+    log(f"[vae-kernels] backward against fp64 (dq on the first {F64_ROWS} "
+        "query rows, dk and dv on each batch row's first two listed key "
+        "tiles over every query row): kernels "
+        + ", ".join(f"{k_} {a:.3e}" for k_, (a, _) in f64.items())
+        + "; plain fp32 "
+        + ", ".join(f"{k_} {b_:.3e}" for k_, (_, b_) in f64.items()))
     log(f"[vae-kernels] forward with residual {ms_fwd:.3f} ms (plain "
         f"{plain_fwd:.3f} ms, bound {b_fwd[0]:.4f} ms, {b_fwd[1]}); dkv "
-        f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms), dq {ms_dq:.3f} ms "
-        f"(bound {b_dq[0]:.4f} ms), backward together "
-        f"{ms_dkv + ms_dq:.3f} ms against the whole gradient's bound "
-        f"{b_all[0]:.4f} ms (10 B H Lq Nv D at 67 TFLOP/s); plain backward "
-        f"{plain_bwd:.3f} ms; {lib_note}"
+        f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms 3xTF32, "
+        f"{f_dkv[0]:.4f} fp32 FFMA), dq {ms_dq:.3f} ms (bound "
+        f"{b_dq[0]:.4f} ms 3xTF32, {f_dq[0]:.4f} fp32 FFMA), backward "
+        f"together {ms_dkv + ms_dq:.3f} ms against the whole gradient's "
+        f"bound {b_all[0]:.4f} ms (10 B H Lq Nv D, 3xTF32 at 495 TFLOP/s); "
+        f"plain backward {plain_bwd:.3f} ms; {lib_note}"
         + (f" (its rel_l2 {lib_err:.3e})" if lib_err is not None else ""))
     if not (finite and all(e <= VAE_FLASH_BOUND for e in errs.values())):
         raise AssertionError(f"K7's residual forward or backward disagrees "
@@ -3429,7 +3493,8 @@ def _kernel_group(name: str) -> str:
               "temporal_sm90_kernel", "attn_tf32_kernel", "temporal_kernel",
               "gemm_tf32_kernel", "ln_affine_f32_kernel", "ln_kernel",
               "split_tf32_kernel",
-              "tile_count_kernel", "tile_list_kernel", "empty_rows_kernel",
+              "flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+              "tile_list_kernel", "empty_rows_kernel",
               "q8_kernel"):
         if k in name:
             return k
@@ -3507,7 +3572,9 @@ def phase_profile_split(dev, card, traces=True):
     of 64, 1374 image tokens) and in fp32 at 32768 rows (the registry's
     fp32 TRELLIS); K5 at DINOv2's [32, 1374, 16, 64]; and K7 at the
     defaults' torso, [1, 32768, 16, 64] with 3700 valid keys as a prefix,
-    in bf16 and in fp32 (traces split_*_trace.json, with `traces`)."""
+    in bf16 and in fp32; K7's backward kernels, dkv (with the zeroing of
+    dK and dV) and dq, at the static VAE's [2, 32768, 12, 64] fp32 over
+    its two surface shells (traces split_*_trace.json, with `traces`)."""
     import torch
     from gvfdiffusion_torch.ops import flash_attention as fl
     from gvfdiffusion_torch.ops import fused_attention as fa
@@ -3537,6 +3604,12 @@ def phase_profile_split(dev, card, traces=True):
     mlp_args, mlp_kw = cases["mlp"][1]["args"], cases["mlp"][1]["kw"]
     m1024 = sublayer_cases(dev, torch.Generator(device=dev).manual_seed(1),
                            mlp=1024)["mlp"][1]
+    vqkv = r(VAE_B, SLOTS, 3, VAE_H, VAE_D)
+    vq, vk, vv = vqkv[:, :, 0], vqkv[:, :, 1], vqkv[:, :, 2]
+    vo, vlse, vtiles, vvalid = fl.launch_forward(
+        vq, vk, vv, vae_valid(dev), VAE_D ** -0.5, residual=True)
+    bwd_ptrs, bwd_sizes, bwd_keep = fl.backward_inputs(
+        vq, vk, vv, vvalid, vtiles, vlse, vo, r(VAE_B, SLOTS, VAE_H, VAE_D))
 
     def three(fn):
         def run():
@@ -3592,9 +3665,16 @@ def phase_profile_split(dev, card, traces=True):
              lambda: fl.flash_attention(fq16, fk16, fv16, fvalid, 0.125)),
             (f"K7 fp32 x3 ([1, {SLOTS}, 16, 64], {L_FLASH_VALID} valid keys "
              "as a prefix)", "split_k7_fp32",
-             lambda: fl.flash_attention(fq, fk, fv, fvalid, 0.125))):
+             lambda: fl.flash_attention(fq, fk, fv, fvalid, 0.125)),
+            (f"K7 backward dkv x3 ([{VAE_B}, {SLOTS}, {VAE_H}, {VAE_D}] fp32, "
+             "the static VAE's shells)", "split_k7_dkv",
+             lambda: fl.launch_dkv(bwd_ptrs, bwd_sizes, VAE_D ** -0.5)),
+            (f"K7 backward dq x3 ([{VAE_B}, {SLOTS}, {VAE_H}, {VAE_D}] fp32, "
+             "the static VAE's shells)", "split_k7_dq",
+             lambda: fl.launch_dq(bwd_ptrs, bwd_sizes, VAE_D ** -0.5))):
         _profile(three(fn), what, f"{trace}_trace.json" if traces else None,
                  card)
+    del bwd_keep
 
 
 def phase_profile(dino, dit, vae, dev, card):

@@ -1,12 +1,10 @@
 // Shared definitions of the port's attention kernels for Hopper (sm_90a):
 // the element conversions, AttnParams (the row-block addressing, gammas,
 // bias and key validity that attention_sm90.cuh's core, its int8-QK and
-// tf32 paths and K7 read), the TPU kernels' fixed exp2 shift, and the
-// helpers of K7's backward (flash_attention_bwd.cu).
+// tf32 paths and K7 read), and the TPU kernels' fixed exp2 shift.
 
 #pragma once
 
-#include <float.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,29 +64,5 @@ struct AttnParams {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float EXP2_SHIFT = 30.f;  // the TPU kernels' fixed exp2 shift
-
-// ---------------------------------------------------------------------------
-// For K7's backward (flash_attention_bwd.cu): the TPU kernel's additive mask
-// value on an invalid key, and short fp32 reads from shared memory.
-
-constexpr float F32_MASK_VALUE = -0.7f * FLT_MAX;
-
-// n consecutive floats (n = 2, 4 or 8) from 8-byte-aligned shared memory
-template <int N>
-__device__ __forceinline__ void lds_f32(const float* src, float* dst) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int u = 0; u < N; u += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src + u);
-      dst[u] = t.x; dst[u + 1] = t.y; dst[u + 2] = t.z; dst[u + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < N; u += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(src + u);
-      dst[u] = t.x; dst[u + 1] = t.y;
-    }
-  }
-}
 
 }  // namespace gvf

@@ -37,8 +37,8 @@
 //   fp32: attention_sm90_tf32.cuh's path of the core, the products by the
 //   3xTF32 split on the tensor cores (64-key tiles, 32 at heads of 128); it
 //   can also write each row's logsumexp, the residual of the backward
-//   kernels (flash_attention_bwd.cu), which read the valid keys of each
-//   64-key tile that tile_count_kernel counts beside the list.
+//   kernels (flash_attention_bwd.cu), which visit the same list of 64-key
+//   tiles.
 //
 // What bounds it on the H100: 4 * Lq * n_valid * H * D operations (0.50
 // TFLOP at 3700 valid keys; every query row counts) against ~13 MB (bf16)
@@ -54,19 +54,6 @@
 namespace {
 
 using namespace gvf;
-
-constexpr int FK = 64;  // the backward's key tile
-
-// counts[b * tiles + t] = valid keys in 64-key tile t of batch row b
-__global__ void __launch_bounds__(FK)
-tile_count_kernel(const unsigned char* __restrict__ valid, int* __restrict__ counts,
-                  int Lk, int tiles) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int j = t * FK + threadIdx.x;
-  const int ok = j < Lk && valid[(long long)b * Lk + j];
-  const int n = __syncthreads_count(ok);
-  if (threadIdx.x == 0) counts[(long long)b * tiles + t] = n;
-}
 
 // One CTA per batch row b: list[b * list_s1] = the number n of BK-key tiles
 // that hold a valid key, list[b * list_s1 + 1 ..] their indices ascending.
@@ -146,14 +133,12 @@ empty_rows_kernel(const T* __restrict__ v, long long v_sb, long long v_sl,
 }
 
 // One call's operands: q/k/v on their strides, the validity bytes, the
-// scratch (fp32: the backward's per-64-key-tile counts; the tile lists),
-// o, the logsumexp (fp32, or null)
+// tile lists (scratch), o, the logsumexp (fp32, or null)
 struct FlashArgs {
   const void* q;
   const void* k;
   const void* v;
   const unsigned char* valid;
-  int* counts;
   int* list;
   void* o;
   float* lse;
@@ -171,11 +156,6 @@ cudaError_t launch_flash(const FlashArgs& a, cudaStream_t s) {
   const int tiles = (int)cdiv(a.Lk, BK);
   if (tiles > 48 * 1024) return cudaErrorInvalidValue;  // the flags' bytes
   const long long list_s1 = 1 + tiles;
-  if (F32) {
-    const int tiles64 = (int)cdiv(a.Lk, FK);
-    tile_count_kernel<<<dim3(tiles64, a.B), FK, 0, s>>>(a.valid, a.counts,
-                                                        a.Lk, tiles64);
-  }
   tile_list_kernel<BK><<<a.B, 1024, tiles, s>>>(a.valid, a.list, a.Lk,
                                                 list_s1);
   cudaError_t err = cudaGetLastError();
@@ -212,12 +192,11 @@ extern "C" {
 // and v with their own strides; all bf16 (f32 = 0) or all fp32 (f32 = 1),
 // rows and batch strides 16-byte aligned; D = 32, 64 or 128; valid: bool
 // [B, Lk]; scratch: int32, the tile lists [B, 1 + ceil(Lk / BK)] (bf16: BK
-// = 64 at D = 128, else 128; fp32: 32 at D = 128, else 64), in fp32 after
-// the per-64-key-tile counts [B, ceil(Lk / 64)] that the backward reads;
-// o: [B, Lq, H, D] contiguous, in the inputs' dtype; lse: null, or (fp32
-// only) the [B, H, Lq] fp32 row logsumexp that the backward
-// (flash_attention_bwd.cu) reads; lk_pad: Lk padded to the TPU kernel's
-// 512.
+// = 64 at D = 128, else 128; fp32: 32 at D = 128, else 64; at fp32 and
+// heads of 64 the backward visits the same list); o: [B, Lq, H, D]
+// contiguous, in the inputs' dtype; lse: null, or (fp32 only) the [B, H,
+// Lq] fp32 row logsumexp that the backward (flash_attention_bwd.cu) reads;
+// lk_pad: Lk padded to the TPU kernel's 512.
 int gvf_flash_attention(const void* q, const void* k, const void* v,
                         const void* valid, void* scratch, void* o, void* lse,
                         int B,
@@ -230,9 +209,7 @@ int gvf_flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.valid = (const unsigned char*)valid;
-  // fp32: the counts [B, ceil(Lk / 64)], then the lists
-  a.counts = (int*)scratch;
-  a.list = f32 ? a.counts + (long long)B * cdiv(Lk, FK) : a.counts;
+  a.list = (int*)scratch;
   a.o = o; a.lse = (float*)lse;
   a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H; a.lk_pad = lk_pad;
   a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;

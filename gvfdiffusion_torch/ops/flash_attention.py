@@ -34,11 +34,16 @@ The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
 through `_flash_full_attention`: the static VAE's `full` mode): when grad
 mode is on and q, k or v requires grad, the wrapper runs `FlashAttention`,
 a `torch.autograd.Function`. On the card its forward is the fp32 kernel
-with the row logsumexp as a residual (the TPU kernel saves its running max
-and sum) and its backward takes di = rowsum(o * dO) in plain torch, as JAX
-does, then the dkv and dq kernels of `csrc/flash_attention_bwd.cu`; both
-exist for fp32 at heads of 64 only (the VAE's form), and the wrapper
-raises under grad for any other dtype or width. On the CPU, or with
+with the row logsumexp and its list of 64-key tiles that hold a valid key
+as residuals (the TPU kernel saves its running max and sum) and its
+backward takes di = rowsum(o * dO) in plain torch, as JAX does, then the
+two kernels of `csrc/flash_attention_bwd.cu`, which visit the listed tiles
+alone (exact: an unlisted tile's P is 0) and compute each of their five
+products on the tensor cores by the same 3xTF32 split as the forward, in
+chains of at most 32 rows or keys summed in fp32: dkv (dK, dV; zeroed
+here first, so an unlisted tile's stay 0) and dq. Both exist for fp32 at
+heads of 64 only (the VAE's form), and the wrapper raises under grad for
+any other dtype or width. On the CPU, or with
 impl="plain", forward and backward are the plain versions
 (`flash_attention_backward_reference`, in chunks of query rows too), with
 the stock kernel's semantics: P = exp(s - m) / l on the -0.7 * FLT_MAX
@@ -196,18 +201,18 @@ def _check_cuda(q, k, v, kv_valid) -> None:
 
 def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
     """The forward kernel -> (o, and with `residual` the row logsumexp
-    [B, H, Lq] fp32 and the per-tile valid-key counts [B, tiles] the
-    backward reads). The caller has checked the inputs."""
+    [B, H, Lq] fp32, the list of 64-key tiles that hold a valid key [B, 1 +
+    tiles] (per row their count, then their indices) and the contiguous
+    validity, which the backward reads). The caller has checked the
+    inputs."""
     from .. import _ext
 
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     valid = kv_valid.contiguous()
     f32 = q.dtype == torch.float32
-    # each row's count of visited key tiles, then their indices; in fp32
-    # after the valid keys of each 64-key tile (the backward reads them)
-    n64 = B * -(-Lk // 64) if f32 else 0
-    scratch = torch.empty(n64 + B * (1 + -(-Lk // key_tile(q.dtype, D))),
+    # each row's count of visited key tiles, then their indices
+    scratch = torch.empty(B, 1 + -(-Lk // key_tile(q.dtype, D)),
                           dtype=torch.int32, device=q.device)
     o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
     lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
@@ -220,12 +225,12 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
               v.stride(1), float(scale), padded_keys(Lk), int(f32))
     if residual:
         launch_counts["flash_attention_fp32_res"] += 1
-        return o, lse, scratch[:n64].view(B, -1), valid
+        return o, lse, scratch, valid
     launch_counts[launch_key(q.dtype, D)] += 1
     return o
 
 
-def backward_inputs(q, k, v, valid, counts, lse, o, do):
+def backward_inputs(q, k, v, valid, tiles, lse, o, do):
     """The pointers and sizes both backward kernels take, with do
     contiguous and di = rowsum(o * do) [B, H, Lq] (plain torch, as JAX
     computes it outside the kernels); the tensors it makes are kept in the
@@ -238,20 +243,21 @@ def backward_inputs(q, k, v, valid, counts, lse, o, do):
                         f"{tuple(do.shape)}")
     di = (o * do).sum(-1).transpose(1, 2).contiguous()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            counts.data_ptr(), lse.data_ptr(), do.data_ptr(), di.data_ptr())
+            tiles.data_ptr(), lse.data_ptr(), do.data_ptr(), di.data_ptr())
     sizes = (B, Lq, k.shape[1], H, D, q.stride(0), q.stride(1), k.stride(0),
              k.stride(1), v.stride(0), v.stride(1))
     return ptrs, sizes, (do, di)
 
 
 def launch_dkv(ptrs, sizes, scale: float):
-    """The dkv kernel -> (dk, dv) fp32 [B, Lk, H, 64]."""
+    """The dkv kernel -> (dk, dv) fp32 [B, Lk, H, 64], zeroed first: the
+    kernel writes the listed key tiles alone."""
     from .. import _ext
 
     B, _, Lk, H, D = sizes[:5]
-    dk = torch.empty(B, Lk, H, D, dtype=torch.float32,
+    dk = torch.zeros(B, Lk, H, D, dtype=torch.float32,
                      device=torch.device("cuda", torch.cuda.current_device()))
-    dv = torch.empty_like(dk)
+    dv = torch.zeros_like(dk)
     _ext.call("gvf_flash_attention_bwd_dkv", *ptrs, dk.data_ptr(),
               dv.data_ptr(), *sizes, float(scale), padded_keys(Lk))
     launch_counts["flash_attention_bwd_dkv"] += 1
@@ -282,9 +288,9 @@ class FlashAttention(torch.autograd.Function):
             o = flash_attention_reference(q, k, v, kv_valid, scale)
             ctx.save_for_backward(q, k, v, kv_valid, o)
         else:
-            o, lse, counts, valid = launch_forward(q, k, v, kv_valid, scale,
-                                                    residual=True)
-            ctx.save_for_backward(q, k, v, valid, counts, lse, o)
+            o, lse, tiles, valid = launch_forward(q, k, v, kv_valid, scale,
+                                                   residual=True)
+            ctx.save_for_backward(q, k, v, valid, tiles, lse, o)
         return o
 
     @staticmethod

@@ -1,6 +1,7 @@
 """A plain torch emulation of the 3xTF32 split, for the fp32 forms of K3's
-single context and K7: a = hi + lo with hi = tf32(a) (round to nearest,
-ties away from zero: cvt.rna.tf32.f32) and lo = tf32(a - hi), a product a.b
+single context and K7 (forward and backward): a = hi + lo with hi =
+tf32(a) (round to nearest, ties away from zero: cvt.rna.tf32.f32) and lo
+= tf32(a - hi), a product a.b
 taken as hi.hi' + hi.lo' + lo.hi' (lo.lo' dropped) with fp32 sums, as a
 tensor core takes three tf32 products into one fp32 accumulator. The
 softmax, the LayerNorm, the biases and the residual stay fp32.
@@ -39,6 +40,45 @@ def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ah, al = split(a)
     bh, bl = split(b)
     return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from the tf32 halves alone (hi . hi'): plain TF32."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+def chained(a: torch.Tensor, b: torch.Tensor, mm=mm3,
+            chain: int = 32) -> torch.Tensor:
+    """a @ b summed over `chain` columns of a (rows of b) at a time, each
+    chunk's product a fresh accumulator added into an fp32 sum: the chain
+    of the backward kernels' tensor-core products."""
+    out = None
+    for c0 in range(0, a.shape[-1], chain):
+        part = mm(a[..., c0:c0 + chain], b[..., c0:c0 + chain, :])
+        out = part if out is None else out + part
+    return out
+
+
+def backward_3xtf32(q, k, v, valid, scale: float, o, do, mm=mm3):
+    """K7's backward as its card kernels (csrc/flash_attention_bwd.cu)
+    compute it, for batch rows that hold a valid key: q/o/do [B, Lq, H,
+    D], k/v [B, Lk, H, D], valid bool [B, Lk] -> (dq, dk, dv) fp32. S and
+    dP by the split (mm), the row logsumexp from those scores (the forward
+    kernel's residual), P = exp(s - lse) with an invalid key's mask as
+    -inf, di = rowsum(o * do) in fp32, dS = P (dP - di) scale, and dV =
+    P^T dO, dK = dS^T Q summed 32 query rows a chain, dQ = dS K 32 keys a
+    chain."""
+    qh, kh, vh, oh, doh = (a.float().transpose(1, 2)
+                           for a in (q, k, v, o, do))
+    mask = torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
+    s = mm(qh, kh.transpose(-1, -2)) * scale + mask
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    di = (oh * doh).sum(-1, keepdim=True)
+    ds = p * (mm(doh, vh.transpose(-1, -2)) - di) * scale
+    dv = chained(p.transpose(-1, -2), doh, mm)
+    dk = chained(ds.transpose(-1, -2), qh, mm)
+    dq = chained(ds, kh, mm)
+    return tuple(a.transpose(1, 2) for a in (dq, dk, dv))
 
 
 def attention_3xtf32(q, k, v, scale: float, lse: bool = False):
