@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
     python3 chip_smoke.py --vae      # build + the VAE phases only
-    python3 chip_smoke.py --split    # build + K1's-K5's and K7's device
-                                     # time by kernel name
+    python3 chip_smoke.py --split    # build + K1's-K7's device time by
+                                     # kernel name
     python3 chip_smoke.py --profile  # the same, then profiled
                                      # denoise (float, int8 cache, int8
                                      # QK), encode, TRELLIS flow forwards
@@ -61,8 +61,8 @@ Phases, each printed on its own lines:
   2a. device time by kernel name (torch.profiler, three calls each) inside
      K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
      the float and the int8 cache) at the DiT's shape, K3's single
-     context at 4096 and 32768 rows and K5 at DINOv2's shape: the --split
-     phase, without its traces;
+     context at 4096 and 32768 rows, K5 at DINOv2's shape and K6 at the
+     training shapes: the --split phase, without its traces;
   3. one full DINOv2 ViT-L/14-reg forward (518^2, 32 frames) and one full
      12x512 DiT forward, kernels against impl="plain";
   4. the main path through the entry points, with seeded random weights:
@@ -517,12 +517,13 @@ FORM_BOUNDS = {
     "train_attention_cross_d64": (6e-3, 2e-2),  # 1.5e-3 / 1.3e-3, 4.8e-3
 }
 SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
-# K2's and K4's forms before their Hopper redesign: kernel ms of the
+# K2's, K4's and K6's forms before their Hopper redesign: kernel ms of the
 # parent's run on an H100 80GB HBM3 (700 W), printed beside the new time
 WAS_MS = {"temporal": 0.956, "temporal_norms_off": 0.956,
           "temporal_d64": 1.088, "temporal_q8": 0.987,
           "temporal_q8_norms_off": 0.950, "temporal_q8_d64": 0.941,
-          "mlp": 0.936, "mlp_m1024": 0.545}
+          "mlp": 0.936, "mlp_m1024": 0.545,
+          "temporal_attention": 0.169, "temporal_attention_d64": 0.244}
 # The DiT's other configurations (configs/diffusion.yml at full width with
 # these fields changed), the steps of their run() (the two that reach new
 # kernel forms run the main path's 32; the others 4), and the int8 run
@@ -1319,7 +1320,7 @@ def phase_train_kernel(dev, name, replaces, source, key):
     if key == "temporal_attention_d64":  # registers and spills, per kernel
         report = _ext.ptxas_report("temporal_attention.cu")
         for line in report.splitlines():
-            if "temporal_kernel" in line or "registers" in line \
+            if "temporal_sm90_kernel" in line or "registers" in line \
                     or "spill" in line:
                 log(f"[ptxas] {line.strip()}")
     attn_bound, grad_bound = FORM_BOUNDS.get(
@@ -1348,9 +1349,10 @@ def phase_train_kernel(dev, name, replaces, source, key):
             f"{tuple(ins[1].shape)} fp32 ({what}) max_abs_err {mae:.4g} "
             f"rel_l2 {err:.3e} (bound {attn_bound:g}) gradients vs "
             f"autograd of plain rel_l2 {gerr:.3e} (bound "
-            f"{grad_bound:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} "
-            f"ms sdpa {lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) forward + "
-            f"backward {fb_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+            f"{grad_bound:g}) kernel {ms:.3f} ms{_was(k)} plain "
+            f"{plain_ms:.3f} ms sdpa {lib_ms:.3f} ms (its rel_l2 "
+            f"{lib_err:.3e}) forward + backward {fb_ms:.3f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}; the kernel at {b_ms / ms:.0%} of it)")
         if not (bool(torch.isfinite(y).all()) and err <= attn_bound
                 and gerr <= grad_bound):
             raise AssertionError(f"{name} [{k}] disagrees with its plain "
@@ -3490,7 +3492,7 @@ def phase_trellis_heads(pipe32, staged, dev, card):
 
 def _kernel_group(name: str) -> str:
     for k in ("attn_sm90_q8_kernel", "attn_sm90_kernel", "gemm_sm90_kernel",
-              "temporal_sm90_kernel", "attn_tf32_kernel", "temporal_kernel",
+              "temporal_sm90_kernel", "attn_tf32_kernel",
               "gemm_tf32_kernel", "ln_affine_f32_kernel", "ln_kernel",
               "split_tf32_kernel",
               "flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
@@ -3570,7 +3572,9 @@ def phase_profile_split(dev, card, traces=True):
     cache; K3's single context at the
     compacted torso's 4096 rows and at the defaults' 32768 (bf16, 16 heads
     of 64, 1374 image tokens) and in fp32 at 32768 rows (the registry's
-    fp32 TRELLIS); K5 at DINOv2's [32, 1374, 16, 64]; and K7 at the
+    fp32 TRELLIS); K5 at DINOv2's [32, 1374, 16, 64]; K6 at the DiT's
+    training shapes, [2, 24, 512, 16, 32] and [2, 24, 512, 8, 64] fp32
+    (q / k apart, v a view of a qkv); and K7 at the
     defaults' torso, [1, 32768, 16, 64] with 3700 valid keys as a prefix,
     in bf16 and in fp32; K7's backward kernels, dkv (with the zeroing of
     dK and dV) and dq, at the static VAE's [2, 32768, 12, 64] fp32 over
@@ -3604,6 +3608,11 @@ def phase_profile_split(dev, card, traces=True):
     mlp_args, mlp_kw = cases["mlp"][1]["args"], cases["mlp"][1]["kw"]
     m1024 = sublayer_cases(dev, torch.Generator(device=dev).manual_seed(1),
                            mlp=1024)["mlp"][1]
+    k6 = {}
+    for Hh in (H, 8):
+        k6[Hh] = (r(TRAIN_B, TRAIN_T, N, Hh, C // Hh),
+                  r(TRAIN_B, TRAIN_T, N, Hh, C // Hh),
+                  r(TRAIN_B, TRAIN_T, N, 3, Hh, C // Hh)[..., 2, :, :])
     vqkv = r(VAE_B, SLOTS, 3, VAE_H, VAE_D)
     vq, vk, vv = vqkv[:, :, 0], vqkv[:, :, 1], vqkv[:, :, 2]
     vo, vlse, vtiles, vvalid = fl.launch_forward(
@@ -3660,6 +3669,12 @@ def phase_profile_split(dev, card, traces=True):
                  num_heads=16, compute_dtype=torch.float32)),
             (f"K5 x3 (DINOv2 [{T}, {L_IMG}, 16, 64])", "split_k5",
              lambda: fa.fused_attention(q, k, v, 0.125)),
+            (f"K6 x3 ([{TRAIN_B}, {TRAIN_T}, {N}, {H}, {C // H}] fp32)",
+             "split_k6",
+             lambda: fa.temporal_attention(*k6[H], (C // H) ** -0.5)),
+            (f"K6 d64 x3 ([{TRAIN_B}, {TRAIN_T}, {N}, 8, {C // 8}] fp32)",
+             "split_k6_d64",
+             lambda: fa.temporal_attention(*k6[8], (C // 8) ** -0.5)),
             (f"K7 x3 ([1, {SLOTS}, 16, 64] bf16, {L_FLASH_VALID} valid keys "
              "as a prefix)", "split_k7",
              lambda: fl.flash_attention(fq16, fk16, fv16, fvalid, 0.125)),

@@ -34,7 +34,8 @@
 //   attn_sm90_q8_kernel (attention_sm90_q8.cuh; K1's int8-QK forms, K3's
 //                  int8 form) the core's int8-QK path: s8 wgmma for the
 //                  scores, int8 K by TMA, V converted by the producer.
-//   temporal_sm90_kernel (temporal_sm90.cuh; K2, float and int8 QK) the
+//   temporal_sm90_kernel (temporal_sm90.cuh; K2, float and int8 QK; K6's
+//                  bf16 and fp32 forms from temporal_attention.cu) the
 //                  attention over T for many (voxel, head) problems a CTA:
 //                  one warp a problem, mma.sync on ldmatrix fragments,
 //                  cp.async double-buffered, a persistent grid.
@@ -408,7 +409,7 @@ cudaError_t temporal_core(const void* qkv, const void* qi, const void* ki,
     return cudaErrorInvalidValue;
   const int D = C / H;
   sm90::TemporalParams p;
-  p.o = (bf16*)o;
+  p.o = o;
   p.B = B; p.T = T; p.N = N; p.H = H; p.nc = nc;
   p.scale = (float)(1.0 / sqrt((double)D));
   p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
@@ -416,14 +417,14 @@ cudaError_t temporal_core(const void* qkv, const void* qi, const void* ki,
     p.q = qi; p.k = ki; p.v = (const float*)qkv + 2 * C;
     p.q_rs = p.k_rs = C; p.v_rs = 3 * C;
     p.qs = (const float*)qs; p.ks = (const float*)ks;
-    return D == 32 ? sm90::launch_temporal<32, true>(p, s)
-                   : sm90::launch_temporal<64, true>(p, s);
+    return D == 32 ? sm90::launch_temporal<32, sm90::TForm::Q8>(p, s)
+                   : sm90::launch_temporal<64, sm90::TForm::Q8>(p, s);
   }
   const bf16* q = (const bf16*)qkv;
   p.q = q; p.k = q + C; p.v = q + 2 * C;
   p.q_rs = p.k_rs = p.v_rs = 3 * C;
-  return D == 32 ? sm90::launch_temporal<32, false>(p, s)
-                 : sm90::launch_temporal<64, false>(p, s);
+  return D == 32 ? sm90::launch_temporal<32, sm90::TForm::Float>(p, s)
+                 : sm90::launch_temporal<64, sm90::TForm::Float>(p, s);
 }
 
 }  // namespace

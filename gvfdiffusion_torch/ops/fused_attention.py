@@ -275,7 +275,8 @@ def fused_attention(q, k, v, scale: float, compute_dtype=torch.bfloat16, *,
 
 def _check_temporal_cuda(q, k, v, compute_dtype) -> None:
     """What K6 takes: CUDA [B, T, N, H, D], D = 32 or 64, all bf16 or all
-    fp32, heads contiguous in a row, the (b, t, n) rows evenly strided."""
+    fp32, heads contiguous in a row, the (b, t, n) rows evenly strided, each
+    base and row stride a multiple of 16 bytes (the kernel's cp.async)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA temporal attention kernel computes in "
                         f"bfloat16 only; got compute_dtype={compute_dtype}")
@@ -295,6 +296,10 @@ def _check_temporal_cuda(q, k, v, compute_dtype) -> None:
             raise ValueError("q/k/v must have heads contiguous in a row and "
                              "evenly strided (b, t, n) rows; got strides "
                              f"{t.stride()}")
+        if t.data_ptr() % 16 or rs * t.element_size() % 16:
+            raise ValueError("q/k/v must start at a 16-byte boundary with "
+                             "rows a multiple of 16 bytes apart; got offset "
+                             f"{t.data_ptr() % 16}, row stride {rs}")
     if q.shape[-1] not in (32, 64):
         raise ValueError(f"head width must be 32 or 64, got {q.shape[-1]}")
 

@@ -45,7 +45,10 @@ single context at heads of 32, 64 and 128); K2's attention over T alone
 and int8 QK, at T of 1 to 128 around its 32-frame tiles and at 257 and
 1024, heads of 32 and 64, voxel groups of 16, 8 and 1, one and three
 batch rows (ATTN_BOUND); K4 at MLP widths 264, 1024 and 2048 over 400
-rows, mod_repeat 1 and 2.
+rows, mod_repeat 1 and 2; K6 on the same kernel's fixed-shift forms
+(`test_temporal_attention_core*`: T of 1 to 257 and 1024, heads of 32 and
+64, fp32 and bf16 io, mixed row strides, a row whose P all underflow,
+NaN in the same places as the plain version).
 
 Tolerance, per kernel, the same bounds as chip_smoke.py (each a few times
 the error measured on an H100 at the full shapes): rel L2 of the output y
@@ -1696,6 +1699,104 @@ def test_temporal_core_long(dev, T, q8):
     err = _rel(got, want)
     print(f"temporal core T={T} q8={q8}: rel_l2 {err:.3e}")
     assert bool(torch.isfinite(got).all()) and err <= ATTN_BOUND, err
+
+
+# -- K6 on temporal_sm90.cuh's fixed-shift forms (bf16 io: TForm::Shift; fp32
+# io: TForm::ShiftF32, its fp32 q / k tiles rounded per lane): T around the
+# 32-frame tiles, the N of JAX's voxel groups 16, 8 and 1, q / k / v each on
+# its own row stride
+
+K6_TS = [1, 8, 23, 24, 31, 32, 33, 70, 257]
+
+
+def _k6_case(dev, seed, B, T, N, heads, dtype, q_view):
+    """q, k, v [B, T, N, heads, D], C = 128, from a [B, T, N, 3, heads, D]
+    qkv and one tensor apart: q apart with k and v views of the qkv, or
+    (q_view) q and v views with k apart."""
+    r = np.random.default_rng(seed)
+    draw = lambda *s: torch.tensor(r.standard_normal(s), dtype=torch.float32,
+                                   device=dev).to(dtype)
+    qkv, lone = draw(B, T, N, 3, heads, 128 // heads), draw(
+        B, T, N, heads, 128 // heads)
+    if q_view:
+        return qkv[..., 0, :, :], lone, qkv[..., 2, :, :]
+    return lone, qkv[..., 1, :, :], qkv[..., 2, :, :]
+
+
+def _k6_run(q, k, v):
+    """(the kernel's output, the plain version's); the kernel launched
+    once, its output contiguous in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        y = fa.temporal_attention(q, k, v, scale)
+        assert fa.launch_counts["temporal_attention"] == 1
+        ref = fa.temporal_attention(q, k, v, scale, impl="plain")
+    torch.cuda.synchronize()
+    assert fa.launch_counts["temporal_attention"] == 1
+    assert y.dtype == q.dtype and y.shape == q.shape and y.is_contiguous()
+    return y, ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", list(TEMPORAL_NS))
+@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("T", K6_TS)
+def test_temporal_attention_core(dev, T, heads, N, B, dtype):
+    """K6 against its plain version: T below, on and past the 32-frame
+    tiles, heads of 32 and 64, voxel groups of 16, 8 and 1, one and three
+    batch rows, fp32 and bf16 io; mixed row strides (3 H D and H D)."""
+    q, k, v = _k6_case(dev, 1000 * T + 10 * N + B + heads, B, T, N, heads,
+                       getattr(torch, dtype), B == 3)
+    y, ref = _k6_run(q, k, v)
+    err = _rel(y, ref)
+    print(f"K6 T={T} heads={heads} N={N} B={B} {dtype}: rel_l2 {err:.3e}")
+    assert bool(torch.isfinite(y).all()) and err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [4, 2])
+def test_temporal_attention_core_long(dev, heads, dtype):
+    """K6 at T = 1024 where the voxel group is 1 (N = 1, B = 1): 32 query
+    blocks x 32 key tiles a problem, the fixed shift's sums over them."""
+    q, k, v = _k6_case(dev, 1024 + heads, 1, 1024, 1, heads,
+                       getattr(torch, dtype), False)
+    y, ref = _k6_run(q, k, v)
+    err = _rel(y, ref)
+    print(f"K6 T=1024 heads={heads} {dtype}: rel_l2 {err:.3e}")
+    assert bool(torch.isfinite(y).all()) and err <= ATTN_BOUND, err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [4, 2])
+def test_temporal_attention_core_underflow_row(dev, heads, dtype):
+    """One query row whose every P underflows (its k rows all ones, its q
+    -40: logits ~330 below the shift) is 0/0 = NaN in the kernel as in the
+    plain version (and JAX's kernel); the other rows agree."""
+    q, k, v = _k6_case(dev, 77 + heads, 2, 24, 8, heads,
+                       getattr(torch, dtype), False)
+    k[1, :, 3, 1] = 1.0
+    q[1, 5, 3, 1] = -40.0
+    y, ref = _k6_run(q, k, v)
+    nan = torch.isnan(y)
+    assert torch.equal(nan, torch.isnan(ref))
+    assert bool(nan[1, 5, 3, 1].all()) and int(nan.sum()) == 128 // heads
+    err = _rel(y[~nan], ref[~nan])
+    print(f"K6 underflow row heads={heads} {dtype}: rel_l2 {err:.3e}")
+    assert err <= ATTN_BOUND, err
+
+
+def test_temporal_attention_misaligned_raises(dev):
+    """The kernel's cp.async reads 16-byte chunks: a q that starts 4 bytes
+    off a 16-byte boundary is refused before any launch."""
+    buf = torch.randn(2 * 8 * 4 * 4 * 32 + 1, device=dev)
+    q = buf[1:].view(2, 8, 4, 4, 32)
+    k = v = torch.randn(2, 8, 4, 4, 32, device=dev)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.temporal_attention(q, k, v, 32 ** -0.5)
+    assert fa.launch_counts["temporal_attention"] == 0
 
 
 @pytest.mark.parametrize("mod_repeat", [1, 2])
