@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # build + per-kernel checks only
     python3 chip_smoke.py --vae      # build + the VAE phases only
+    python3 chip_smoke.py --infer    # build + the infer CLI's kernel forms
+                                     # and its phase only
     python3 chip_smoke.py --split    # build + K1's-K7's device time by
                                      # kernel name
     python3 chip_smoke.py --profile  # the same, then profiled
@@ -342,6 +344,19 @@ KERNELS = [
      "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
      "gvfdiffusion_torch/csrc/flash_attention_bwd.cu",
      "flash_attention_bwd_dq"),
+    # the infer CLI's fp32 DiT on the composed path ([infer]): K5 and K6 at
+    # the inference shapes (B*T = 32, T = 32)
+    ("fused_attention[DiT inference self, heads of 32, fp32]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "infer_attention_d32"),
+    ("fused_attention[DiT inference cross, heads of 32, fp32: image 1374 + "
+     "static 512]", "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu",
+     "infer_attention_cross_d32"),
+    ("temporal_attention[DiT inference, T = 32]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:427",
+     "gvfdiffusion_torch/csrc/temporal_attention.cu",
+     "infer_temporal_attention"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
@@ -487,6 +502,10 @@ FORMS = {
     "temporal_attention_d64": ("temporal_attention", None),
     "train_attention_d64": ("attention_d32", None),
     "train_attention_cross_d64": ("attention_cross_d32", None),
+    # the infer CLI's forms: forward only, the training forms' bounds
+    "infer_attention_d32": ("attention_d32", None),
+    "infer_attention_cross_d32": ("attention_cross_d32", None),
+    "infer_temporal_attention": ("temporal_attention", None),
 }
 # each new form's bounds: (rel L2 of y, of the update), 3-6x the readings
 # on an H100 80GB HBM3 (700 W), in the comments; K5 and K6 at heads of 64
@@ -1255,7 +1274,8 @@ def train_attention_case(dev, key):
     """(fn(impl) -> output, inputs, what, flops, library fn) for a form of
     the training path at configs/diffusion.yml's shapes: batch 2 x 24
     frames of 512 latents, 16 heads of 32, or 8 heads of 64 (dit-d64) for
-    the keys with "d64". Self: RMS-normed q/k and a contiguous v, [48, 512,
+    the keys with "d64"; for the keys with "infer_", the infer CLI's
+    batch 1 x 32 frames. Self: RMS-normed q/k and a contiguous v, [48, 512,
     16, 32]; cross: q apart, k/v the halves of the [48, Lk, 2, 16, 32] kv
     projection (image Lk 1374, the "_static" key 512); K6: q/k [2, 24,
     512, 16, 32] and v the view of the [.., 3, 16, 32] qkv."""
@@ -1265,14 +1285,16 @@ def train_attention_case(dev, key):
 
     g = torch.Generator(device=dev).manual_seed(19)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
-    BT, Hh = TRAIN_B * TRAIN_T, 8 if "_d64" in key else H
+    # the "infer_" keys: the infer CLI's shapes, batch 1 x 32 frames
+    Bk, Tk = (B, T) if key.startswith("infer_") else (TRAIN_B, TRAIN_T)
+    BT, Hh = Bk * Tk, 8 if "_d64" in key else H
     D = C // Hh
     scale = D ** -0.5
-    if key in ("temporal_attention", "temporal_attention_d64"):
-        qkv = rnd(TRAIN_B, TRAIN_T, N, 3, Hh, D)
-        q, k, v = rnd(TRAIN_B, TRAIN_T, N, Hh, D), rnd(
-            TRAIN_B, TRAIN_T, N, Hh, D), qkv[..., 2, :, :]
-        flops = 4 * TRAIN_B * N * TRAIN_T * TRAIN_T * C
+    if key.endswith(("temporal_attention", "temporal_attention_d64")):
+        qkv = rnd(Bk, Tk, N, 3, Hh, D)
+        q, k, v = rnd(Bk, Tk, N, Hh, D), rnd(Bk, Tk, N, Hh, D), \
+            qkv[..., 2, :, :]
+        flops = 4 * Bk * N * Tk * Tk * C
 
         def lib():
             o = F.scaled_dot_product_attention(
@@ -1325,6 +1347,7 @@ def phase_train_kernel(dev, name, replaces, source, key):
                 log(f"[ptxas] {line.strip()}")
     attn_bound, grad_bound = FORM_BOUNDS.get(
         key, (TRAIN_ATTN_BOUND, TRAIN_GRAD_BOUND))
+    grads_too = not key.startswith("infer_")  # inference: no backward
     out = None
     for k in (key, key + "_static") if "cross" in key else (key,):
         fn, ins, what, flops, lib = train_attention_case(dev, k)
@@ -1338,21 +1361,25 @@ def phase_train_kernel(dev, name, replaces, source, key):
             ms = time_ms(lambda: fn(ins))
             plain_ms = time_ms(lambda: fn(ins, "plain"), iters=3)
             lib_ms = time_ms(lib)
-        go = torch.randn(y.shape, generator=torch.Generator(
-            device=dev).manual_seed(20), device=dev)
-        _, grads = _with_grads(fn, ins, go)
-        _, grads_p = _with_grads(fn, ins, go, "plain")
-        gerr = max(rel_l2(a, b) for a, b in zip(grads, grads_p))
-        fb_ms = time_ms(lambda: _with_grads(fn, ins, go), iters=3)
+        gerr, grad_text = 0.0, ""
+        if grads_too:
+            go = torch.randn(y.shape, generator=torch.Generator(
+                device=dev).manual_seed(20), device=dev)
+            _, grads = _with_grads(fn, ins, go)
+            _, grads_p = _with_grads(fn, ins, go, "plain")
+            gerr = max(rel_l2(a, b) for a, b in zip(grads, grads_p))
+            fb_ms = time_ms(lambda: _with_grads(fn, ins, go), iters=3)
+            grad_text = (f" gradients vs autograd of plain rel_l2 "
+                         f"{gerr:.3e} (bound {grad_bound:g})")
         b_ms, b_by = bound(flops, nbytes(*ins, y))
         log(f"[kernel] {name} [{k}]: q {tuple(ins[0].shape)} k/v "
             f"{tuple(ins[1].shape)} fp32 ({what}) max_abs_err {mae:.4g} "
-            f"rel_l2 {err:.3e} (bound {attn_bound:g}) gradients vs "
-            f"autograd of plain rel_l2 {gerr:.3e} (bound "
-            f"{grad_bound:g}) kernel {ms:.3f} ms{_was(k)} plain "
-            f"{plain_ms:.3f} ms sdpa {lib_ms:.3f} ms (its rel_l2 "
-            f"{lib_err:.3e}) forward + backward {fb_ms:.3f} ms bound "
-            f"{b_ms:.4f} ms ({b_by}; the kernel at {b_ms / ms:.0%} of it)")
+            f"rel_l2 {err:.3e} (bound {attn_bound:g}){grad_text} kernel "
+            f"{ms:.3f} ms{_was(k)} plain {plain_ms:.3f} ms sdpa "
+            f"{lib_ms:.3f} ms (its rel_l2 {lib_err:.3e})"
+            + (f" forward + backward {fb_ms:.3f} ms" if grads_too else "")
+            + f" bound {b_ms:.4f} ms ({b_by}; the kernel at "
+            f"{b_ms / ms:.0%} of it)")
         if not (bool(torch.isfinite(y).all()) and err <= attn_bound
                 and gerr <= grad_bound):
             raise AssertionError(f"{name} [{k}] disagrees with its plain "
@@ -1409,7 +1436,8 @@ class _Tee:
 
 
 def run_main_latent(args):
-    """cli/main_latent.main(args) with its log kept: (rc, log, wall ms)."""
+    """cli/main_latent.main(args) with its log (stdout and stderr) kept:
+    (rc, log, wall ms)."""
     import contextlib
 
     import torch
@@ -1418,7 +1446,8 @@ def run_main_latent(args):
     tee = _Tee()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
+    # the logger's table goes to stdout, its messages to stderr
+    with contextlib.redirect_stdout(tee), contextlib.redirect_stderr(tee):
         rc = main_latent.main(args)
     torch.cuda.synchronize()
     return rc, tee.text(), (time.perf_counter() - t0) * 1e3
@@ -2013,7 +2042,8 @@ def run_main_vae(args, work: str, card: str):
         f.write(p.stdout + p.stderr)
     if p.returncode != 0:
         log(p.stdout[-4000:] + p.stderr[-4000:])
-    return p.returncode, p.stdout, wall
+    # the logger's messages, each step's line among them, are on stderr
+    return p.returncode, p.stderr, wall
 
 
 def phase_vae_train(dev, card):
@@ -2514,6 +2544,190 @@ def phase_pipeline(dino, dit, vae, dev, card):
     launches.update(phase_self_q8(dit, vae, gs, valid, ci, dev, card,
                                   main_out, out, int8_out))
     return launches, ci
+
+
+# the infer CLI ([infer]): its seed, the launches each model call of the
+# fp32 DiT on the composed path makes (12 blocks: K5 self, K5 image and
+# static cross, K6), and the CLI against the pipeline on the same weights
+# and generator (the same program: equal up to nondeterminism, which none
+# of its kernels has)
+INFER_SEED = 7
+INFER_PER_NFE = {"attention_d32": 12, "attention_cross_d32": 24,
+                 "temporal_attention": 12}
+INFER_REL_BOUND = 1e-6
+INFER_CFG_STEPS = 4
+
+
+def _infer_counts(nfe):
+    """The launches `nfe` model calls of the fp32 DiT make: K5 and K6 in
+    INFER_PER_NFE's numbers, and no other kernel."""
+    want = {k: 0 for k in read_counts()}
+    want.update({k: n * nfe for k, n in INFER_PER_NFE.items()})
+    return want
+
+
+def run_infer(args, out_dir):
+    """cli/infer.main(args) with its log (stdout and stderr) kept, the
+    launches of this call alone and its progress.csv row: (rc, log,
+    launches, row, wall s)."""
+    import contextlib
+    import csv
+
+    import torch
+    from gvfdiffusion_torch.cli import infer
+
+    tee = _Tee()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee), contextlib.redirect_stderr(tee):
+        rc = infer.main(args + ["--output_dir", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    with open(os.path.join(out_dir, "progress.csv")) as f:
+        row = next(csv.DictReader(f))
+    return rc, tee.text(), launches, row, wall
+
+
+def check_infer_outputs(out_dir, what):
+    """deformation.npz's latent [1, 32, 512, 16] and deltas [1, 32, G, 14]
+    finite; frames.npy [32, 2, 512, 512, 3] finite and moving from frame
+    to frame. Returns the latent (a CPU tensor)."""
+    import numpy as np
+    import torch
+
+    d = np.load(os.path.join(out_dir, "deformation.npz"))
+    latent, deltas = d["latent"], d["deltas"]
+    frames = np.load(os.path.join(out_dir, "frames.npy"))
+    motion = np.abs(frames[1:] - frames[:-1]).max(axis=(1, 2, 3, 4))
+    ok = (latent.shape == (B, T, N, 16) and deltas.shape == (B, T, G, 14)
+          and frames.shape == (T, 2, 512, 512, 3)
+          and all(np.isfinite(a).all() for a in (latent, deltas, frames))
+          and float(np.abs(deltas).mean()) > 0 and bool((motion > 0).all()))
+    log(f"[infer] {what}: latent {latent.shape}, deltas {deltas.shape}, "
+        f"frames {frames.shape}: finite and moving {ok}; frame-to-frame max "
+        f"abs change min {float(motion.min()):.4g} / max "
+        f"{float(motion.max()):.4g}")
+    if not ok:
+        raise AssertionError(f"[infer] {what}: bad outputs")
+    return torch.from_numpy(latent)
+
+
+def phase_infer(ci, gs, valid, dev, card):
+    """The reference launch through the entry point users call,
+    cli/infer.main, at full width: the frames phase's tokens and splat
+    written as its input npz, a fp32 DiT and a fp32 motion VAE of the
+    default Config on seeded weights written as trainer checkpoints, then
+    `--adaptive --use_fp16 --num_timesteps 32` (the fp32 DiT at guidance
+    1.0/1.0: the composed path, K5 and K6); its outputs checked, its
+    launches against its NFE, its latent against VideoTo4DPipeline.run on
+    the same weights and generator; then one call at guidance 2.0/5.0 x 4
+    steps (the fp32 DiT composing on its hoisted cache). Returns the
+    launches of the adaptive call under the kernels line's infer keys."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gvfdiffusion_torch.cli.main_latent import build_model
+    from gvfdiffusion_torch.cli.main_vae import build_motion_vae
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+    from gvfdiffusion_torch.train.train_state import (create_train_state,
+                                                      make_optimizer)
+    from gvfdiffusion_torch.utils.checkpoint import CheckpointManager
+    from gvfdiffusion_torch.utils.config import Config
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="gvf_infer_smoke_")
+    try:
+        # the CLI's input has no validity mask: the splat's padding rows
+        # become copies of its first rows, so that all G rows are Gaussians
+        canon = gs[0].clone()
+        n_pad = int((~valid[0]).sum())
+        canon[~valid[0]] = gs[0, :n_pad]
+        npz = os.path.join(work, "cond.npz")
+        np.savez(npz, canonical_gs=canon.cpu().numpy(),
+                 cond_images=ci[0].float().cpu().numpy())
+        cfg = Config()
+        dit = init_random_(build_model(cfg), seed=21).eval()
+        vae = init_random_(build_motion_vae(cfg), seed=22).eval()
+        for model, name in ((dit, "dit"), (vae, "vae")):
+            state = create_train_state(model, make_optimizer(lr=0.0))
+            CheckpointManager(os.path.join(work, name)).save(state, 0)
+            del state
+        t_write = time.perf_counter() - t_phase
+        common = ["--input", npz, "--dit_ckpt", os.path.join(work, "dit"),
+                  "--vae_ckpt", os.path.join(work, "vae"), "--num_views",
+                  "2", "--seed", str(INFER_SEED)]
+
+        out = os.path.join(work, "out")
+        rc, text, launches, row, wall = run_infer(
+            common + ["--adaptive", "--use_fp16", "--num_timesteps", str(T)],
+            out)
+        if rc != 0:
+            raise AssertionError(f"[infer] rc {rc}")
+        cli_latent = check_infer_outputs(out, "the reference launch")
+        info = {k: int(row[k]) for k in ("nfe", "iters", "accepted",
+                                          "rejected", "syncs")}
+        secs = {k: float(row[f"{k}_s"]) for k in ("fps", "sample", "decode",
+                                                  "render")}
+        want = _infer_counts(info["nfe"])
+        got = {k: n for k, n in launches.items() if n}
+        log(f"[infer] cli/infer.main --adaptive --use_fp16 --num_timesteps "
+            f"{T} (fp32 DiT 12x512 at guidance 1.0/1.0, composed path; "
+            f"G={G}, 2 views at 512^2): NFE {info['nfe']}, iterations "
+            f"{info['iters']} ({info['accepted']} accepted, "
+            f"{info['rejected']} rejected), host syncs {info['syncs']}; "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in secs.items())
+            + f"; main() {wall * 1e3:.1f} ms; launches {got}; input and "
+            f"checkpoints written in {t_write:.1f} s; {card}")
+        if launches != want:
+            raise AssertionError(f"[infer] launches {got}, expected "
+                                 f"{ {k: n for k, n in want.items() if n} }")
+
+        # the pipeline on the same weights and generator
+        pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+            method="adaptive", num_frames=T, num_latents=N, latent_dim=16))
+        g = torch.Generator(device=dev).manual_seed(INFER_SEED)
+        ref = pipe.run(canon[None], torch.ones_like(valid), ci.float(),
+                       generator=g)
+        err = rel_l2(cli_latent.to(dev), ref["latent"])
+        log(f"[infer] the CLI's latent vs VideoTo4DPipeline(method="
+            f"'adaptive').run on the same weights and generator: rel_l2 "
+            f"{err:.3e} (bound {INFER_REL_BOUND:g}); the pipeline's sampler "
+            f"{pipe.sample_info}")
+        if not err <= INFER_REL_BOUND:
+            raise AssertionError("[infer] the CLI disagrees with the "
+                                 "pipeline")
+        del pipe, ref
+        torch.cuda.empty_cache()
+
+        out_cfg = os.path.join(work, "out_cfg")
+        rc, text, launches, row, wall = run_infer(
+            common + ["--guidance_scale", "2.0", "--guidance_scale2", "5.0",
+                      "--steps", str(INFER_CFG_STEPS)], out_cfg)
+        if rc != 0:
+            raise AssertionError(f"[infer] CFG call rc {rc}")
+        check_infer_outputs(out_cfg, "guidance 2.0/5.0")
+        cfg_want = _infer_counts(int(row["nfe"]))
+        got = {k: n for k, n in launches.items() if n}
+        log(f"[infer] cli/infer.main --guidance_scale 2.0 --guidance_scale2 "
+            f"5.0 --steps {INFER_CFG_STEPS} (the fp32 DiT composing on its "
+            f"hoisted cache, B*T = 96): NFE {row['nfe']}, "
+            + ", ".join(f"{k} {float(row[f'{k}_s']) * 1e3:.1f} ms"
+                        for k in ("fps", "sample", "decode", "render"))
+            + f"; main() {wall * 1e3:.1f} ms; launches {got}; {card}")
+        if int(row["nfe"]) != INFER_CFG_STEPS or launches != cfg_want:
+            raise AssertionError(f"[infer] CFG call: NFE {row['nfe']}, "
+                                 f"launches {got}")
+        log(f"[infer] phase in {time.perf_counter() - t_phase:.1f} s")
+        counts = _infer_counts(info["nfe"])
+        return {f"infer_{k}": counts[k] for k in INFER_PER_NFE}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_int8_cache(dit, vae, gs, valid, ci, dev, card, float_out,
@@ -3845,6 +4059,18 @@ def main(argv) -> int:
         phase_vae_kernels(dev)
         phase_vae_train(dev, card)
         return 0
+    if "--infer" in argv:
+        for name, replaces, source, key in KERNELS:
+            if key.startswith("infer_"):
+                phase_train_kernel(dev, name, replaces, source, key)
+        dino, dit, vae = build_models(dev)
+        from gvfdiffusion_torch.scripts.process_video import encode_video
+
+        ci = encode_video(seeded_frames(), dino, device="cuda")[None]
+        del dino, dit, vae
+        torch.cuda.empty_cache()
+        phase_infer(ci, *canonical_splat(dev), dev, card)
+        return 0
     results = phase_kernels(dev)
     if quick:
         return 0
@@ -3853,6 +4079,7 @@ def main(argv) -> int:
     phase_dinov2(dino, dev, card)
     phase_dit(dit, dev)
     launches, ci = phase_pipeline(dino, dit, vae, dev, card)
+    launches.update(phase_infer(ci, *canonical_splat(dev), dev, card))
     configs = phase_dit_configs(vae, ci, dev, card)
     trellis, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
     phase_wild(tpipe, dit, vae, ci, dev, card)

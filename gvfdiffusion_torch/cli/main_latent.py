@@ -2,7 +2,11 @@
 builds the DiT from the config at full width with flax's initializers, the
 diffusion process, the uniform timestep sampler and the latent dataset,
 then trains on one device with the warm-up / clip / AdamW / EMA step,
-logs to stdout, saves checkpoints and resumes from the newest one.
+saves checkpoints and resumes from the newest one. It logs through
+utils/logger.py into `exp_dir`, as JAX's trainer does: each logged step's
+step, loss, mse, grad_norm and step_time go to stdout, `log.txt` and
+`progress.csv` there, and its messages (with a one-line summary of each
+logged step) to stderr.
 
 Usage:
   python -m gvfdiffusion_torch.cli.main_latent --config configs/diffusion.yml \
@@ -29,13 +33,14 @@ from ..diffusion.gaussian_diffusion import create_diffusion
 from ..models.dit import DiT
 from ..train.diffusion_trainer import make_train_step
 from ..train.train_state import create_train_state, make_optimizer
+from ..utils import logger
 from ..utils.checkpoint import CheckpointManager, auto_resume
 from ..utils.config import Config, load_config
 from ..utils.device import resolve_device
 
 
 def log(msg: str) -> None:
-    print(f"[main_latent] {msg}", flush=True)
+    logger.log(f"[main_latent] {msg}")
 
 
 def build_model(cfg: Config) -> DiT:
@@ -74,6 +79,7 @@ def main(argv=None) -> int:
     args, overrides = p.parse_known_args(argv)
     cfg = load_config(args.config, overrides)
     dev = resolve_device(args.device)
+    logger.configure(cfg.exp_dir)
     log(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                             if dev.type == "cuda" else ""))
 
@@ -119,14 +125,20 @@ def main(argv=None) -> int:
         state, metrics = step_fn(state, batch, g)
         if step % cfg.train.log_interval == 0:
             now = time.perf_counter()
-            log(f"step {step} loss {float(metrics['loss']):.6g} mse "
-                f"{float(metrics['mse']):.6g} grad_norm "
-                f"{float(metrics['grad_norm']):.6g} step_time "
-                f"{(now - t_last) / max(cfg.train.log_interval, 1):.4g} s")
+            step_time = (now - t_last) / max(cfg.train.log_interval, 1)
             t_last = now
+            terms = {k: float(metrics[k]) for k in ("loss", "mse",
+                                                     "grad_norm")}
+            logger.logkv("step", step)
+            logger.logkvs(terms)
+            logger.logkv_mean("step_time", step_time)
+            logger.dumpkvs()
+            log(f"step {step} " + " ".join(f"{k} {v:.6g}"
+                                           for k, v in terms.items())
+                + f" step_time {step_time:.4g} s")
         if step > 0 and step % cfg.train.save_interval == 0:
             ckpt.save(state, step)
-    ckpt.save(state, cfg.train.total_steps)
+    ckpt.save(state, cfg.train.total_steps, force=True)
     return 0
 
 

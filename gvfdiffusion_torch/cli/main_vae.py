@@ -13,10 +13,13 @@ Usage:
 
 It runs on the card unless `--device=cpu` is given, on one device: JAX's
 mesh, `replicate` and `shard_batch` are identities at world size 1, and
-data parallelism (the JAX package's parallel/) is not ported. Each logged
-step prints its terms, its wall time, the peak device memory of its phase
-and the step's launches of K7 (the flash attention of the `full` mode)
-and its backward kernels.
+data parallelism (the JAX package's parallel/) is not ported. It logs
+through utils/logger.py into `exp_dir`, as JAX's trainer does: each logged
+step's step, terms and step_time go to stdout, `log.txt` and
+`progress.csv` there; its messages go to stderr, among them a line for
+each logged step with its terms, its wall time, the peak device memory of
+its phase and the step's launches of K7 (the flash attention of the
+`full` mode) and its backward kernels.
 """
 
 from __future__ import annotations
@@ -39,13 +42,14 @@ from ..render.renderer import RenderOptions
 from ..train.train_state import (create_train_state, freeze_subtrees,
                                  make_optimizer)
 from ..train.vae_trainer import make_joint_vae_step, make_static_vae_step
+from ..utils import logger
 from ..utils.checkpoint import CheckpointManager, auto_resume
 from ..utils.config import Config, load_config
 from ..utils.device import resolve_device
 
 
 def log(msg: str) -> None:
-    print(f"[main_vae] {msg}", flush=True)
+    logger.log(f"[main_vae] {msg}")
 
 
 def build_static_vae(cfg: Config) -> SparseTransformerVAE:
@@ -83,7 +87,7 @@ def init_static_from_torch(model: SparseTransformerVAE, ckpt_path: str
         raise NotImplementedError(
             f"{ckpt_path}: only a torch .pt state dict under the reference's "
             "names is read here; other formats need utils/weight_convert.py "
-            "(ROADMAP queue 5)")
+            "(ROADMAP queue 1, item 4)")
     sd = torch.load(ckpt_path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -128,6 +132,7 @@ def main(argv=None) -> int:
     args, overrides = p.parse_known_args(argv)
     cfg = load_config(args.config, overrides)
     dev = resolve_device(args.device)
+    logger.configure(cfg.exp_dir)
     log(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                             if dev.type == "cuda" else ""))
 
@@ -240,11 +245,17 @@ def main(argv=None) -> int:
                     if dev.type == "cuda" else float("nan"))
             launches = {k: n - before.get(k, 0) for k, n in after.items()
                         if n - before.get(k, 0)}
+            step_time = (now - t_last) / max(tr.log_interval, 1)
+            t_last = now
+            logger.logkv("step", step)
+            for k, v in terms.items():
+                logger.logkv(k, float(v))
+            logger.logkv_mean("step_time", step_time)
+            logger.dumpkvs()
             log(f"step {step} phase {phase} "
                 + " ".join(f"{k} {float(v):.6g}" for k, v in terms.items())
-                + f" step_time {(now - t_last) / max(tr.log_interval, 1):.4f}"
-                f" s peak_gib {peak:.3f} launches {json.dumps(launches)}")
-            t_last = now
+                + f" step_time {step_time:.4f} s peak_gib {peak:.3f} "
+                f"launches {json.dumps(launches)}")
         if step > 0 and step % tr.save_interval == 0:
             static_ckpt.save(static_state, step)
             if motion_state is not None:

@@ -1,23 +1,28 @@
-"""Gaussian diffusion for training (port of gvfdiffusion_tpu/diffusion/
-gaussian_diffusion.py: the beta schedules :37-72, the `GaussianDiffusion`
-tables with `q_sample`, `get_v`, `scaled_model_t` and `training_losses`
-:83-190, :419-466, `create_diffusion` and `diffusion_from_betas`
-:483-557).
+"""Gaussian diffusion (port of gvfdiffusion_tpu/diffusion/
+gaussian_diffusion.py): the beta schedules, the `GaussianDiffusion` tables
+with the forward process (`q_*`), the parameterization conversions
+(`predict_*`), one reverse step (`p_mean_variance`, every variance type,
+the dynamic-threshold clip), the ancestral and DDIM sampling loops, the
+bits-per-dim evaluation (`calc_bpd_loop`), the training losses with the
+learned-variance bound terms (`_vb_terms`), `create_diffusion` and
+`diffusion_from_betas`.
 
 Coefficients are precomputed in float64 numpy, as the reference does, and
-stored as fp32 tensors. Channels last. The learned-variance training terms
-(`_vb_terms`) and the sampling loops are not ported: the port samples with
-DPM-Solver++ (diffusion/dpm_solver.py).
+stored as fp32 tensors. Channels last. The JAX `lax.scan` loops are Python
+loops here, and randomness comes from an explicit `torch.Generator` where
+JAX takes a PRNG key.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from .losses import discretized_gaussian_log_likelihood, normal_kl
 
 
 def _cosine_window(t, start=0.0, end=1.0, tau=1.0):
@@ -119,29 +124,249 @@ class GaussianDiffusion:
             mt = mt * (1000.0 / self.original_num_steps)
         return mt
 
+    def _randn(self, shape, generator: Optional[torch.Generator]):
+        device = self.betas.device if generator is None else generator.device
+        return torch.randn(shape, generator=generator, device=device)
+
+    # -- q (forward) ---------------------------------------------------------
+
+    def q_mean_variance(self, x_start, t):
+        mean = _bcast(self.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+        variance = _bcast(1.0 - self.alphas_cumprod, t, x_start.ndim)
+        log_variance = _bcast(self.log_one_minus_alphas_cumprod, t,
+                              x_start.ndim)
+        return mean, variance, log_variance
+
     def q_sample(self, x_start, t, noise):
         return (_bcast(self.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
                 + _bcast(self.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
                 * noise)
 
-    def q_posterior_mean(self, x_start, x_t, t):
-        return (_bcast(self.posterior_mean_coef1, t, x_t.ndim) * x_start
+    def q_posterior_mean_variance(self, x_start, x_t, t):
+        mean = (_bcast(self.posterior_mean_coef1, t, x_t.ndim) * x_start
                 + _bcast(self.posterior_mean_coef2, t, x_t.ndim) * x_t)
+        variance = _bcast(self.posterior_variance, t, x_t.ndim)
+        log_variance = _bcast(self.posterior_log_variance_clipped, t,
+                              x_t.ndim)
+        return mean, variance, log_variance
 
     def get_v(self, x_start, noise, t):
         return (_bcast(self.sqrt_alphas_cumprod, t, x_start.ndim) * noise
                 - _bcast(self.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
                 * x_start)
 
-    def training_losses(self, model: Callable, x_start: torch.Tensor,
-                        t: torch.Tensor, noise: torch.Tensor):
-        """The MSE training loss against the configured target, with the
-        min-SNR-5 weight when `min_snr`. `model(x_t, t_scaled)` returns
-        channels-last output; the caller draws the noise. Returns (terms
-        with 'loss' and 'mse' [B], aux with x_t and model_output)."""
+    # -- parameterization conversions --------------------------------------
+
+    def predict_xstart_from_eps(self, x_t, t, eps):
+        return (_bcast(self.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+                - _bcast(self.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps)
+
+    def predict_xstart_from_v(self, x_t, t, v):
+        return (_bcast(self.sqrt_alphas_cumprod, t, x_t.ndim) * x_t
+                - _bcast(self.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
+
+    def predict_xstart_from_xprev(self, x_t, t, xprev):
+        c1 = _bcast(1.0 / self.posterior_mean_coef1, t, x_t.ndim)
+        c2 = _bcast(self.posterior_mean_coef2 / self.posterior_mean_coef1, t,
+                    x_t.ndim)
+        return c1 * xprev - c2 * x_t
+
+    def predict_eps_from_xstart(self, x_t, t, x_start):
+        return ((_bcast(self.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+                 - x_start)
+                / _bcast(self.sqrt_recipm1_alphas_cumprod, t, x_t.ndim))
+
+    # -- p (reverse) ---------------------------------------------------------
+
+    def p_mean_variance(self, model: Callable, x: torch.Tensor,
+                        t: torch.Tensor, clip_denoised: bool = True,
+                        denoised_fn: Optional[Callable] = None,
+                        dynamic_threshold: Optional[float] = 0.99,
+                        model_kwargs: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """One reverse-step distribution p(x_{t-1} | x_t): mean, variance,
+        log_variance and pred_xstart. `model(x, t_scaled, **kwargs)` returns
+        channels-last output; for the learned variance types its last axis
+        is 2C (mean values, then variance values). With clip_denoised the
+        predicted x0 is clipped to its per-sample |x0| quantile
+        `dynamic_threshold` (not rescaled), or with dynamic_threshold=None
+        to [-1, 1]."""
+        model_output = model(x, self.scaled_model_t(t), **(model_kwargs or {}))
+
         if self.var_type in ("learned", "learned_range"):
-            raise NotImplementedError(
-                "the learned-variance terms (_vb_terms) are not ported")
+            model_output, model_var_values = model_output.chunk(2, dim=-1)
+            if self.var_type == "learned":
+                model_log_variance = model_var_values
+            else:
+                min_log = _bcast(self.posterior_log_variance_clipped, t,
+                                 x.ndim)
+                max_log = _bcast(torch.log(self.betas), t, x.ndim)
+                frac = (model_var_values + 1.0) / 2.0
+                model_log_variance = frac * max_log + (1.0 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        elif self.var_type == "fixed_large":
+            # the betas, with posterior_variance[1] at t = 0
+            var = torch.cat([self.posterior_variance[1:2], self.betas[1:]])
+            model_variance = _bcast(var, t, x.ndim)
+            model_log_variance = _bcast(torch.log(var), t, x.ndim)
+        else:  # fixed_small
+            model_variance = _bcast(self.posterior_variance, t, x.ndim)
+            model_log_variance = _bcast(self.posterior_log_variance_clipped,
+                                        t, x.ndim)
+
+        def process_xstart(x0):
+            if denoised_fn is not None:
+                x0 = denoised_fn(x0)
+            if not clip_denoised:
+                return x0
+            if dynamic_threshold is None:
+                return torch.clamp(x0, -1.0, 1.0)
+            flat = x0.reshape(x0.shape[0], -1).abs()
+            # torch.quantile reduces at most 2^24 values a row
+            if flat.shape[1] > 1 << 24:
+                raise ValueError(f"dynamic threshold over {flat.shape[1]} "
+                                 "values a sample: more than 2^24")
+            s = torch.quantile(flat, dynamic_threshold, dim=1)
+            s = s.reshape((-1,) + (1,) * (x0.ndim - 1))
+            return torch.clamp(x0, -s, s)
+
+        if self.mean_type == "xprev":
+            pred_xstart = process_xstart(
+                self.predict_xstart_from_xprev(x, t, model_output))
+            model_mean = model_output
+        else:
+            if self.mean_type == "x0":
+                pred_xstart = process_xstart(model_output)
+            elif self.mean_type == "eps":
+                pred_xstart = process_xstart(
+                    self.predict_xstart_from_eps(x, t, model_output))
+            else:  # v
+                pred_xstart = process_xstart(
+                    self.predict_xstart_from_v(x, t, model_output))
+            model_mean = self.q_posterior_mean_variance(pred_xstart, x, t)[0]
+        return {"mean": model_mean, "variance": model_variance,
+                "log_variance": model_log_variance,
+                "pred_xstart": pred_xstart}
+
+    # -- sampling loops --------------------------------------------------------
+
+    def _sample_loop(self, step: Callable, shape, generator, noise,
+                     inpainting_mask):
+        """x_T -> x_0 over t = num_timesteps - 1 .. 0: x_{t-1} = step(x, t
+        as [B], fresh noise z); with inpainting_mask (broadcastable to x; 1
+        resamples, 0 keeps the current value) blended at every step."""
+        x = self._randn(shape, generator) if noise is None else noise
+        for t in range(self.num_timesteps - 1, -1, -1):
+            tb = torch.full((shape[0],), t, dtype=torch.long, device=x.device)
+            x_next = step(x, tb, t, self._randn(x.shape, generator))
+            if inpainting_mask is not None:
+                x_next = (1 - inpainting_mask) * x + inpainting_mask * x_next
+            x = x_next
+        return x
+
+    @torch.no_grad()
+    def p_sample_loop(self, model: Callable, shape,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      clip_denoised: bool = True,
+                      denoised_fn: Optional[Callable] = None,
+                      dynamic_threshold: Optional[float] = None,
+                      model_kwargs: Optional[Dict[str, Any]] = None,
+                      inpainting_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Ancestral sampling x_T -> x_0, the initial noise `noise` or drawn
+        from `generator`, as is each step's."""
+        def step(x, tb, t, z):
+            out = self.p_mean_variance(model, x, tb, clip_denoised,
+                                       denoised_fn, dynamic_threshold,
+                                       model_kwargs)
+            return out["mean"] + float(t != 0) * torch.exp(
+                0.5 * out["log_variance"]) * z
+
+        return self._sample_loop(step, shape, generator, noise,
+                                 inpainting_mask)
+
+    @torch.no_grad()
+    def ddim_sample_loop(self, model: Callable, shape,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None,
+                         clip_denoised: bool = True,
+                         denoised_fn: Optional[Callable] = None,
+                         dynamic_threshold: Optional[float] = None,
+                         model_kwargs: Optional[Dict[str, Any]] = None,
+                         eta: float = 0.0,
+                         inpainting_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """DDIM sampling x_T -> x_0; at eta = 0 deterministic given the
+        initial noise."""
+        def step(x, tb, t, z):
+            out = self.p_mean_variance(model, x, tb, clip_denoised,
+                                       denoised_fn, dynamic_threshold,
+                                       model_kwargs)
+            eps = self.predict_eps_from_xstart(x, tb, out["pred_xstart"])
+            acp = _bcast(self.alphas_cumprod, tb, x.ndim)
+            acp_prev = _bcast(self.alphas_cumprod_prev, tb, x.ndim)
+            sigma = (eta * torch.sqrt((1 - acp_prev) / (1 - acp))
+                     * torch.sqrt(1 - acp / acp_prev))
+            mean = (out["pred_xstart"] * torch.sqrt(acp_prev)
+                    + torch.sqrt(1 - acp_prev - sigma ** 2) * eps)
+            return mean + float(t != 0) * sigma * z
+
+        return self._sample_loop(step, shape, generator, noise,
+                                 inpainting_mask)
+
+    # -- likelihood evaluation -------------------------------------------------
+
+    @torch.no_grad()
+    def calc_bpd_loop(self, model: Callable, x_start: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      clip_denoised: bool = True,
+                      model_kwargs: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The full variational bound in bits per dim: total_bpd and
+        prior_bpd [B], and vb, xstart_mse and mse [B, T] with t descending
+        along axis 1. Each step's noise is drawn from `generator`."""
+        B = x_start.shape[0]
+        vb, xstart_mse, mse = [], [], []
+        for t in range(self.num_timesteps - 1, -1, -1):
+            tb = torch.full((B,), t, dtype=torch.long, device=x_start.device)
+            noise = self._randn(x_start.shape, generator).to(x_start.dtype)
+            x_t = self.q_sample(x_start, tb, noise)
+            out = self._vb_terms(model, x_start, x_t, tb, clip_denoised,
+                                 model_kwargs=model_kwargs)
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            eps = self.predict_eps_from_xstart(x_t, tb, out["pred_xstart"])
+            mse.append(mean_flat((eps - noise) ** 2))
+        vb, xstart_mse, mse = (torch.stack(a, 1)
+                               for a in (vb, xstart_mse, mse))
+        prior_bpd = self.prior_bpd(x_start)
+        return {"total_bpd": vb.sum(dim=1) + prior_bpd,
+                "prior_bpd": prior_bpd, "vb": vb, "xstart_mse": xstart_mse,
+                "mse": mse}
+
+    def prior_bpd(self, x_start: torch.Tensor) -> torch.Tensor:
+        """KL(q(x_T | x_0) || N(0, I)) in bits per dim, [B]."""
+        tb = torch.full((x_start.shape[0],), self.num_timesteps - 1,
+                        dtype=torch.long, device=x_start.device)
+        qt_mean, _, qt_log_var = self.q_mean_variance(x_start, tb)
+        zeros = torch.zeros_like(x_start)
+        prior = normal_kl(qt_mean, qt_log_var.expand(x_start.shape), zeros,
+                          zeros)
+        return mean_flat(prior) / math.log(2.0)
+
+    # -- training ------------------------------------------------------------
+
+    def training_losses(self, model: Callable, x_start: torch.Tensor,
+                        t: torch.Tensor, noise: torch.Tensor,
+                        model_kwargs: Optional[Dict[str, Any]] = None):
+        """The MSE training loss against the configured target, with the
+        min-SNR-5 weight when `min_snr`, plus the variational-bound term
+        "vb" for the learned variance types (the mean half detached, as in
+        JAX). `model(x_t, t_scaled, **model_kwargs)` returns channels-last
+        output; the caller draws the noise. Returns (terms with 'loss' and
+        'mse' [B], and 'vb' where learned; aux with x_t and
+        model_output)."""
         x_t = self.q_sample(x_start, t, noise)
         if self.min_snr:
             snr = (self.sqrt_alphas_cumprod[t]
@@ -150,16 +375,41 @@ class GaussianDiffusion:
         else:
             mse_weight = torch.ones(t.shape, dtype=x_start.dtype,
                                     device=x_start.device)
-        model_output = model(x_t, self.scaled_model_t(t))
+        model_output = model(x_t, self.scaled_model_t(t),
+                             **(model_kwargs or {}))
+        terms = {}
+        if self.var_type in ("learned", "learned_range"):
+            model_output, model_var_values = model_output.chunk(2, dim=-1)
+            frozen = torch.cat([model_output.detach(), model_var_values], -1)
+            terms["vb"] = self._vb_terms(lambda *a, **k: frozen, x_start,
+                                         x_t, t, clip_denoised=False)["output"]
         target = {
-            "xprev": lambda: self.q_posterior_mean(x_start, x_t, t),
+            "xprev": lambda: self.q_posterior_mean_variance(x_start, x_t,
+                                                            t)[0],
             "x0": lambda: x_start,
             "eps": lambda: noise,
             "v": lambda: self.get_v(x_start, noise, t),
         }[self.mean_type]()
-        mse = mean_flat((target - model_output) ** 2)
-        terms = {"mse": mse, "loss": mse * mse_weight}
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] * mse_weight + terms.get("vb", 0.0)
         return terms, {"x_t": x_t, "model_output": model_output}
+
+    def _vb_terms(self, model, x_start, x_t, t, clip_denoised=True,
+                  model_kwargs=None):
+        """The bound's term at t in bits per dim, [B]: the KL of the
+        posterior against p, or at t = 0 the discretized decoder NLL."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(
+            x_start, x_t, t)
+        out = self.p_mean_variance(model, x_t, t, clip_denoised,
+                                   model_kwargs=model_kwargs)
+        kl = normal_kl(true_mean, true_log_var, out["mean"],
+                       out["log_variance"])
+        kl = mean_flat(kl) / math.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl),
+                "pred_xstart": out["pred_xstart"]}
 
 
 def create_diffusion(*, schedule: str = "cosine", steps: int = 1000,

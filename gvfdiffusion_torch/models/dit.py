@@ -14,10 +14,12 @@ Inputs (reference shapes):
 
 Two paths, as in JAX: with a hoisted cross-attention KV cache (`cross_kv`,
 the sampler's) each block runs the fused sublayer kernels K1-K4, in bf16 on
-CUDA, unless its gate closes (RoPE, or a shape outside a kernel's rule;
-see nn/transformer.py) and it composes on the cache; without one (the
-trainer's) the DiT projects the conditioning itself and each block runs the
-composed path (K5, K6, torch elsewhere), in any dtype, under autograd.
+CUDA, unless its gate closes (RoPE, a shape outside a kernel's rule, or on
+CUDA a compute dtype other than bf16; see nn/transformer.py) and it
+composes on the cache; without one (the trainer's, and the fp32 DiT's of
+the infer CLI at guidance 1.0/1.0) the DiT projects the conditioning itself
+and each block runs the composed path (K5, K6, torch elsewhere), in any
+dtype, under autograd.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ def check_quant(name: str, mode: Optional[str]) -> None:
 class DiT(nn.Module):
     """`dtype` is the compute dtype (flax's `dtype`): parameters stay as
     stored and are cast at use. The timestep embedder computes in fp32. On
-    CUDA the fused path runs the bf16 sublayer kernels, so a block that
-    takes it needs `dtype` bf16. `remat_blocks` leading blocks are
+    CUDA the fused path runs the bf16 sublayer kernels, so only a DiT whose
+    `dtype` is bf16 takes it there; another composes on its cache. `remat_blocks` leading blocks are
     recomputed in the backward pass (`torch.utils.checkpoint`, JAX's
     `nn.remat`)."""
 

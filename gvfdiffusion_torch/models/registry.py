@@ -22,7 +22,7 @@ the flax tree into the module through the class's weight table
 model's state dict the other way through the same table, for
 `save_params_npz`.
 
-Not ported (ROADMAP queue 1, item 5), each raising NotImplementedError:
+Not ported (ROADMAP queue 1, item 4), each raising NotImplementedError:
 torch checkpoints (`.pt`, `.safetensors`: utils/weight_convert.py), and
 the registry names whose class the port lacks (`NOT_PORTED`). A name the
 registry does not know raises KeyError, as in JAX.
@@ -49,7 +49,7 @@ WEIGHT_TABLES: Dict[type, Callable] = {}
 NOT_PORTED = ("SparseStructureEncoder", "SLatEncoder",
               "SLatRadianceFieldDecoder", "SLatMeshDecoder",
               "ElasticSLatMeshDecoder", "TpuSLatMeshDecoder")
-_TODO = "not ported yet (ROADMAP queue 1, item 5)"
+_TODO = "not ported yet (ROADMAP queue 1, item 4)"
 
 
 def register(name: str):

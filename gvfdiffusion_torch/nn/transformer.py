@@ -12,12 +12,16 @@ cross-attentions where their shapes fit its rule, K6 for the temporal one
 in the native layout, the library attention elsewhere) and the gated MLP,
 all under torch's autograd; a hoisted cache there serves as the
 cross-attentions' K/V, an int8 one dequantized first as JAX's
-`_maybe_dequant` does. The one deliberate difference in the gate: JAX's
+`_maybe_dequant` does. The gate has two deliberate differences from JAX's,
+and under both the two paths compute the same function. First, JAX's
 `*_supports` rules also bound the TPU kernels' VMEM residency
 (`vmem_est`), which has no counterpart on Hopper, so the port's rules
 (`fsl.*_sublayer_supports`) leave those terms out and a shape past them
-stays on the fused path here where JAX would compose; both paths compute
-the same function.
+stays on the fused path here where JAX would compose. Second, on CUDA the
+fused sublayer kernels compute in bf16 only, so a block whose compute
+dtype is not bf16 (an fp32 DiT, as the infer CLI builds it) composes on
+its cache there, where JAX would fuse in fp32; on the CPU the fused
+path's plain versions take any dtype.
 `ModulatedCrossBlock` is the single-context composed block of the
 sparse-structure flow: its attentions go through
 `nn/attention.MultiHeadAttention` (K5), its LayerNorms run in fp32 as the
@@ -204,9 +208,11 @@ class ModulatedTransformerCrossBlock(nn.Module):
 
     def fused_supported(self, x: torch.Tensor, cross_kv) -> bool:
         """JAX's gate to the fused path (:277-290): a hoisted cache, no
-        RoPE, and each fused kernel's shape rule, less the TPU's VMEM terms
-        (see the module docstring)."""
+        RoPE, and each fused kernel's shape rule, less the TPU's VMEM terms;
+        on CUDA also the compute dtype bf16 (see the module docstring)."""
         if cross_kv is None or self.use_rope:
+            return False
+        if x.is_cuda and self.dtype != torch.bfloat16:
             return False
         B, T, N, C = x.shape
         H = self.num_heads
@@ -291,10 +297,6 @@ class ModulatedTransformerCrossBlock(nn.Module):
 
     def _fused(self, x, chunks, cross_kv, impl, quant_qk: bool):
         C, H, dt = self.channels, self.num_heads, self.dtype
-        if x.is_cuda and dt != torch.bfloat16:
-            raise TypeError(
-                "on CUDA the fused path runs the bf16 sublayer kernels: "
-                f"build the DiT with dtype=torch.bfloat16 (got {dt})")
         B, T, N, _ = x.shape
         sh_s, sc_s, g_s, sh_t, sc_t, g_t, sh_m, sc_m, g_m = chunks
         rms, rms_cross = self.qk_rms_norm, self.qk_rms_norm_cross

@@ -38,13 +38,13 @@ from ..utils.device import resolve_device
 
 def check_formats(formats) -> None:
     """JAX's formats are "gaussian", "mesh" and "radiance_field"; the mesh
-    and radiance-field SLat decoders are not ported (ROADMAP queue 7), so
-    asking for them raises, as does an unknown name."""
+    and radiance-field SLat decoders are not ported (ROADMAP queue 1, item
+    6), so asking for them raises, as does an unknown name."""
     unported = [f for f in formats if f in ("mesh", "radiance_field")]
     if unported:
         raise NotImplementedError(
             f"{unported}: the mesh and radiance-field SLat decoders are not "
-            "ported (ROADMAP queue 7)")
+            "ported (ROADMAP queue 1, item 6)")
     unknown = [f for f in formats if f != "gaussian"]
     if unknown:
         raise ValueError(f"unknown formats {unknown}")

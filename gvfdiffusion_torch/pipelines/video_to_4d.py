@@ -2,14 +2,17 @@
 
 Given DINOv2 video tokens and a canonical static GS, FPS-sample the DiT's
 anchors, sample the Gaussian-Variation-Field latent with a CFG-wrapped
-DPM-Solver++ (multistep), decode per-frame per-Gaussian deltas with the
-motion VAE (`run`), and render orbit sweeps of the animated splat
-(`render_4d`).
+DPM-Solver++ (`VideoTo4DConfig.method`: multistep, or the adaptive solver of
+the reference launch), decode per-frame per-Gaussian deltas with the motion
+VAE (`run`), and render orbit sweeps of the animated splat (`render_4d`).
 
-The cross-attention KV is always hoisted out of the sampling loop, in both
-guidance modes, so the DiT has one structure: the four fused sublayers. At
-guidance 1.0/1.0 this computes the same function as the JAX pipeline, which
-there projects the conditioning inside every step. With
+The cross-attention KV is hoisted out of the sampling loop (`hoists_kv`)
+under guidance other than 1.0/1.0, as JAX does, and always for a DiT that
+computes in bf16 or with an int8 setting: at 1.0/1.0 the hoisted cache
+computes the same function as JAX's composed path, which projects the
+conditioning inside every step, and lets a bf16 DiT take the four fused
+sublayers. An fp32 DiT at 1.0/1.0 (the infer CLI's, as JAX's CLI builds it)
+takes no cache and runs JAX's composed path: K5 and K6 on the card. With
 `VideoTo4DConfig(kv_quant="int8")` the cache is stored int8 and the cross
 sublayer runs its int8 form; with `self_quant="int8"` the self and
 temporal sublayers take their QK products in int8.
@@ -21,6 +24,7 @@ and moves its modules there; without a CUDA device it raises.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Optional
 
 import torch
@@ -40,8 +44,10 @@ DECODE_CHUNK = 8192
 
 @dataclasses.dataclass
 class VideoTo4DConfig:
-    """The JAX config's fields, less those the multistep-only port does not
-    read (method, num_frames, fps_anchor_points). `kv_quant` is the storage
+    """The JAX config's fields. `method` is the sampler's ("multistep",
+    "adaptive", "singlestep" or "singlestep_fixed"); `num_frames` and
+    `fps_anchor_points` are carried as in JAX, which reads neither (the
+    frame count comes from the conditioning). `kv_quant` is the storage
     of the DiT's hoisted cross-attention KV: None (float, the JAX default
     with GVF_KV_QUANT unset) or "int8" (JAX's GVF_KV_QUANT=int8, which
     bench.py sets). `self_quant` is the DiT's self and temporal QK: None
@@ -49,13 +55,16 @@ class VideoTo4DConfig:
     here, not environment variables."""
     steps: int = 100
     order: int = 2
+    method: str = "multistep"
     # 1.0/1.0 selects the single-conditional-pass CFG branch
     guidance_scale: float = 1.0
     guidance_scale2: float = 1.0
     noise_schedule: str = "cosine"
     diffusion_steps: int = 1000
+    num_frames: int = 32
     num_latents: int = 512
     latent_dim: int = 16
+    fps_anchor_points: int = 4096
     kv_quant: Optional[str] = None
     self_quant: Optional[str] = None
 
@@ -66,7 +75,9 @@ class VideoTo4DConfig:
 
 class VideoTo4DPipeline:
     """Holds the DiT and the motion VAE (with their weights loaded), moved
-    to `device`, and the renderer."""
+    to `device`, and the renderer. `sample_info` holds the last sampling's
+    counts: nfe, and for the adaptive solver iters, accepted, rejected and
+    syncs."""
 
     def __init__(self, dit: DiT, motion_vae: MotionVAE,
                  config: Optional[VideoTo4DConfig] = None,
@@ -85,6 +96,16 @@ class VideoTo4DPipeline:
         betas = get_named_beta_schedule(self.cfg.noise_schedule,
                                         self.cfg.diffusion_steps)
         self.ns = NoiseScheduleVP.from_betas(betas)
+        self.sample_info: Dict[str, int] = {}
+
+    def hoists_kv(self) -> bool:
+        """Whether sampling hoists the cross-attention KV: under guidance
+        other than 1.0/1.0 (as JAX), for a DiT computing in bf16 (its fused
+        path), or with an int8 setting (a setting of the cached path)."""
+        cfg = self.cfg
+        return (cfg.guidance_scale != 1.0 or cfg.guidance_scale2 != 1.0
+                or self.dit.dtype == torch.bfloat16
+                or cfg.kv_quant is not None or cfg.self_quant is not None)
 
     @torch.no_grad()
     def prepare_static_conditioning(self, static_gs_activated: torch.Tensor,
@@ -116,28 +137,45 @@ class VideoTo4DPipeline:
                                   cross_kv=None) -> torch.Tensor:
         """cond_images [B, T, L, 1024], static_latent [B, N, 14], positions
         [B, N, 3] -> the denormalized deformation latent [B, T, N, C].
-        The initial noise is `noise`, or drawn from `generator`."""
+        The initial noise is `noise`, or drawn from `generator`. A given
+        `cross_kv` is used where the pipeline hoists the KV (`hoists_kv`);
+        there it is otherwise built here."""
         cfg = self.cfg
         B, T = cond_images.shape[:2]
-        if cross_kv is None:
-            cross_kv = self.cross_kv(cond_images, static_latent)
-        # with the KV hoisted the DiT reads only positions from the conditions
-        cond = dict(positions=positions)
+        # with the KV hoisted the DiT reads only positions, the same in every
+        # CFG branch; without it guidance is 1.0/1.0, one conditional pass
+        if self.hoists_kv():
+            if cross_kv is None:
+                cross_kv = self.cross_kv(cond_images, static_latent)
+            cond = dict(positions=positions)
+        else:
+            cross_kv = None
+            cond = dict(cond_images=cond_images, static_latent=static_latent,
+                        positions=positions)
 
-        def raw_model(x, t, positions, cross_kv):
-            return self.dit(x, t, positions=positions, cross_kv=cross_kv,
+        def raw_model(x, t, positions, cross_kv=None, cond_images=None,
+                      static_latent=None):
+            return self.dit(x, t, cond_images, static_latent,
+                            positions=positions, cross_kv=cross_kv,
                             self_quant=cfg.self_quant)
 
         model_fn = model_wrapper(
-            raw_model, self.ns, condition=cond, unconditional_condition=cond,
+            raw_model, self.ns, model_type="v",
+            guidance_type="classifier-free", condition=cond,
+            unconditional_condition=cond,
             guidance_scale=cfg.guidance_scale,
             guidance_scale2=cfg.guidance_scale2, cross_kv=cross_kv)
-        solver = DPMSolver(model_fn, self.ns)
+        solver = DPMSolver(model_fn, self.ns, algorithm_type="dpmsolver++")
         if noise is None:
             noise = torch.randn(
                 (B, T, cfg.num_latents, cfg.latent_dim),
                 generator=generator, device=cond_images.device)
-        x = solver.sample(noise.float(), steps=cfg.steps, order=cfg.order)
+        x = solver.sample(noise.float(), steps=cfg.steps, order=cfg.order,
+                          method=cfg.method,
+                          return_info=cfg.method == "adaptive")
+        self.sample_info = {"nfe": solver.nfe}
+        if cfg.method == "adaptive":
+            x, self.sample_info = x
         if self.latent_std is not None:
             x = x * self.latent_std
         if self.latent_mean is not None:
@@ -156,21 +194,28 @@ class VideoTo4DPipeline:
     def run(self, canonical_gs_activated: torch.Tensor,
             gs_valid: torch.Tensor, cond_images: torch.Tensor,
             generator: Optional[torch.Generator] = None,
-            noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+            noise: Optional[torch.Tensor] = None,
+            timings: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
         """canonical_gs_activated [B, G, 14] padded, gs_valid [B, G],
         cond_images [B, T, L, 1024] -> latent, deltas [B, T, G, 14], anchors,
-        on the pipeline's device (the inputs move there)."""
+        on the pipeline's device (the inputs move there). A `timings` dict
+        gets each stage's wall seconds (fps, sample, decode), the device
+        synchronized after each."""
         canonical_gs_activated, gs_valid, cond_images = (
             a.to(self.device)
             for a in (canonical_gs_activated, gs_valid, cond_images))
         if noise is not None:
             noise = noise.to(self.device)
+        clock = _StageClock(self.device, timings)
         anchors = self.prepare_static_conditioning(canonical_gs_activated,
                                                    gs_valid)
+        clock.stop("fps")
         latent = self.sample_deformation_latent(
             cond_images, anchors, anchors[..., :3], generator=generator,
             noise=noise)
+        clock.stop("sample")
         deltas = self.decode_deltas(latent, canonical_gs_activated)
+        clock.stop("decode")
         return {"latent": latent, "deltas": deltas, "anchors": anchors}
 
     @torch.no_grad()
@@ -185,3 +230,21 @@ class VideoTo4DPipeline:
         return torch.stack(list(orbit_renders(
             self.renderer, gs, deltas, valid, num_views, resolution,
             pitch_deg, radius)))
+
+
+class _StageClock:
+    """Wall seconds per stage into `timings` (nothing without one), the
+    device synchronized at each stop."""
+
+    def __init__(self, device: torch.device, timings):
+        self.device, self.timings = device, timings
+        self.t = time.perf_counter()
+
+    def stop(self, stage: str) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[stage] = now - self.t
+        self.t = now

@@ -292,3 +292,13 @@ def load_config(
                 kv[k] = v
         cfg = apply_overrides(cfg, kv)
     return cfg
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    """JAX's `load_yaml`: the YAML file as a dict ({} when empty), read by
+    `read_yaml`."""
+    return read_yaml(path) or {}
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)

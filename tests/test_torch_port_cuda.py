@@ -206,9 +206,18 @@ def test_dit_kernels_match_plain(dev):
         y = dit(x, t, positions=pos, cross_kv=kv)
         ref = dit(x, t, positions=pos, cross_kv=kv, impl="plain")
     assert _rel(y, ref) <= 3e-2, _rel(y, ref)
-    with pytest.raises(TypeError):  # the fused path of an fp32 DiT
-        DiT(num_blocks=1, model_channels=128, num_heads=4).to(dev)(
-            x, t, positions=pos, cross_kv=kv[:1])
+    # an fp32 DiT on its cache: the fused sublayers compute in bf16 only,
+    # so on the card it composes on the cache, the function it computes
+    # without one (K5 and K6 on the same fp32 K/V either way)
+    dit32 = init_random_(DiT(model_channels=128, image_cond_channels=64,
+                             num_blocks=2, num_heads=4), seed=5).to(dev)
+    with torch.no_grad():
+        kv32 = dit32(x, t, ci, st, pos, kv_only=True)
+        pt.reset_launch_counts()
+        y32 = dit32(x, t, positions=pos, cross_kv=kv32)
+        assert not any(pt.launch_counts.values()), pt.launch_counts
+        ref32 = dit32(x, t, ci, st, pos)
+    assert _rel(y32, ref32) <= 1e-5, _rel(y32, ref32)
 
 
 def _attend(dev, L, layout, B=2, H=3, scale=1.0, seed=7):

@@ -1,6 +1,7 @@
 """The port imports torch and never jax: importing every module of
 gvfdiffusion_torch, and chip_smoke.py, in a fresh interpreter leaves jax
-(and flax, and the JAX package) out of sys.modules, and builds no kernel."""
+(and flax, optax, orbax, and the JAX package) out of sys.modules, and
+builds no kernel."""
 
 import os
 import pkgutil
@@ -57,6 +58,12 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.cli.main_latent",
     "gvfdiffusion_torch.ops.flash_attention",
     "gvfdiffusion_torch.models.registry",
+    "gvfdiffusion_torch.cli.infer",
+    "gvfdiffusion_torch.cli.main_vae",
+    "gvfdiffusion_torch.diffusion.losses",
+    "gvfdiffusion_torch.diffusion.respace",
+    "gvfdiffusion_torch.utils.logger",
+    "gvfdiffusion_torch.utils.script_util",
 ]
 
 
@@ -75,7 +82,8 @@ def test_port_never_imports_jax():
         f"for m in {_all_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'gvfdiffusion_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "              'gvfdiffusion_tpu'))\n"
         "assert not bad, bad\n"
         "from gvfdiffusion_torch import _ext\n"
         "assert _ext._lib is None  # no build at import time\n"

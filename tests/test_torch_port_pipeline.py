@@ -144,8 +144,9 @@ def test_model_wrapper(scales, t):
     jfn = jdpm.model_wrapper(jm, jns, model_type="v",
                              guidance_type="classifier-free", condition=jc,
                              unconditional_condition=ju, **scale)
-    pfn = pdpm.model_wrapper(tm, pns, condition=tc, unconditional_condition=tu,
-                             **scale)
+    pfn = pdpm.model_wrapper(tm, pns, model_type="v",
+                             guidance_type="classifier-free", condition=tc,
+                             unconditional_condition=tu, **scale)
     x = np.random.default_rng(2).standard_normal((2, 3, 5, 4)).astype(
         np.float32)
     got = pfn(torch.from_numpy(x), torch.tensor(t)).numpy()
@@ -162,7 +163,7 @@ def test_multistep_sampler(order, steps):
     jm, tm = _toy_models(3)
     (jc, _), (tc, _) = _conds(4)
     jfn = jdpm.model_wrapper(jm, jns, model_type="v", condition=jc)
-    pfn = pdpm.model_wrapper(tm, pns, condition=tc)
+    pfn = pdpm.model_wrapper(tm, pns, model_type="v", condition=tc)
     x = np.random.default_rng(5).standard_normal((2, 3, 5, 4)).astype(
         np.float32)
     want = jdpm.DPMSolver(jfn, jns, "dpmsolver++").sample(

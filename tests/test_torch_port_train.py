@@ -705,7 +705,7 @@ def test_main_latent_trains_and_resumes_on_the_cpu(tmp_path, capsys):
             "--train.warmup_steps=2", "--train.log_interval=1",
             "--train.save_interval=100"]
     assert main_latent.main(args + ["--train.total_steps=2"]) == 0
-    out = capsys.readouterr().out
+    out = capsys.readouterr().err  # the logger's messages
     assert "step 1 loss" in out and "device: cpu" in out
     ck = CheckpointManager(str(exp / "checkpoints"))
     assert ck.all_steps() == [2]
@@ -718,7 +718,7 @@ def test_main_latent_trains_and_resumes_on_the_cpu(tmp_path, capsys):
     for k, p in init.named_parameters():  # the first update runs at lr 0
         assert torch.equal(first["params"][k], p.detach()), k
     assert main_latent.main(args + ["--train.total_steps=4"]) == 0
-    out = capsys.readouterr().out
+    out = capsys.readouterr().err  # the logger's messages
     assert "auto-resumed from step 2" in out and "step 3 loss" in out
     assert ck.all_steps() == [2, 4]
     second = torch.load(os.path.join(ck.ckpt_dir, "ckpt_00000004.pt"),

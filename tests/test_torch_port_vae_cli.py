@@ -91,7 +91,7 @@ def test_main_vae_two_phases_and_resume(tmp_path, mode, capsys):
               f"--static_vae.attn_mode={mode}", "--train.static_vae_steps=2",
               "--train.save_interval=1", *TINY]
     assert pcli.main(["--train.total_steps=4", *common]) == 0
-    out = capsys.readouterr().out
+    out = capsys.readouterr().err  # the logger's messages
     for step, phase in ((0, "A"), (1, "A"), (2, "B"), (3, "B")):
         assert f"step {step} phase {phase} " in out
     losses = [float(line.split(" loss ")[1].split()[0])
@@ -100,9 +100,14 @@ def test_main_vae_two_phases_and_resume(tmp_path, mode, capsys):
     for d in ("static_vae", "motion_vae"):
         steps = pcli.CheckpointManager(str(tmp_path / "exp" / d)).all_steps()
         assert steps and steps[-1] == 3, (d, steps)
+    # the logger's files in exp_dir, with JAX's keys
+    with open(tmp_path / "exp" / "progress.csv") as f:
+        header = f.readline().strip().split(",")
+    assert {"step", "loss", "step_time"} <= set(header), header
+    assert "| loss " in (tmp_path / "exp" / "log.txt").read_text()
     # a second run resumes both states from step 3
     assert pcli.main(["--train.total_steps=5", *common]) == 0
-    out = capsys.readouterr().out
+    out = capsys.readouterr().err  # the logger's messages
     assert "auto-resumed the static VAE from step 3" in out
     assert "auto-resumed the motion VAE from step 3" in out
     assert "step 3 phase B" in out and "step 2 phase" not in out
