@@ -6,6 +6,8 @@
     python3 chip_smoke.py --vae      # build + the VAE phases only
     python3 chip_smoke.py --infer    # build + the infer CLI's kernel forms
                                      # and its phase only
+    python3 chip_smoke.py --wild-files  # build + K5 at DINOv2's 224^2, the
+                                     # TRELLIS phase and [wild-files] only
     python3 chip_smoke.py --split    # build + K1's-K7's device time by
                                      # kernel name
     python3 chip_smoke.py --profile  # the same, then profiled
@@ -109,6 +111,15 @@ Phases, each printed on its own lines:
      bench.py's stage keys; the alignment's recovery of a known azimuth
      from the splat's own render; the 24-frame sweep at 512^2 against the
      scan form and one round of K = 256;
+  5a'. the in-the-wild chain from files ([wild-files], phase_wild_files):
+     a release mirror in the reference's layout loaded through utils/hub
+     onto the card, DINOv2 through a .safetensors file, the 32 frames
+     through a video file, extract_frames, a full-width MODNet's mattes
+     and encode_video_features, DINOv2 at 224^2 (K5 at [32, 261, 16, 64],
+     its launches counted, against impl="plain"), InTheWildPipeline.run
+     on the image's RGB with MODNet's alpha and a full-width CLIP
+     ViT-B/32's score, and render_outputs to the spiral video and
+     frames.npy (16 views), timed stage by stage;
   5b. TRELLIS at its defaults (path A): SLatFlowModel(torso_capacity=None)
      and TrellisConfig() (32768 voxel slots), so the torso's full
      self-attention runs K7 over 32768 slots: the same calibration, one
@@ -357,6 +368,11 @@ KERNELS = [
      "gvfdiffusion_tpu/ops/fused_attention.py:427",
      "gvfdiffusion_torch/csrc/temporal_attention.cu",
      "infer_temporal_attention"),
+    # DINOv2 at 224^2 ([wild-files]): its position embedding resized to a
+    # 16^2 patch grid, 261 tokens
+    ("fused_attention[DINOv2 self at 224^2]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_dino224"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
@@ -469,6 +485,7 @@ PEAK_BYTES = 3.35e12       # HBM3, H100 SXM datasheet (assumed)
 
 B, T, N, C, H, M = 1, 32, 512, 512, 16, 2048   # the DiT at full width
 L_IMG = 1374               # DINOv2 tokens at 518^2: 1 + 4 registers + 37^2
+L_IMG224 = 261             # DINOv2 tokens at 224^2: 1 + 4 + 16^2
 G = 131072                 # Gaussians: 16384 voxels x 8
 VOXELS = 16384             # TRELLIS voxel slots (bench.py's L_VOX)
 TORSO = 4096               # the SLat torso's compacted capacity
@@ -1196,8 +1213,8 @@ def attention_case(dev, key):
         lk = N if key.endswith("_static") else L_IMG
         return (rnd(T, N, H, C // H), rnd(T, lk, H, C // H),
                 rnd(T, lk, H, C // H), None, "the cache's contiguous k/v")
-    if key == "attention":
-        qkv = rnd(T, L_IMG, 3, 16, 64)
+    if key in ("attention", "attention_dino224"):
+        qkv = rnd(T, L_IMG if key == "attention" else L_IMG224, 3, 16, 64)
         return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None,
                 f"views of qkv {tuple(qkv.shape)}")
     if key == "attention_cross":
@@ -3244,6 +3261,311 @@ def phase_wild(tpipe, dit, vae, ci, dev, card):
     return stages, run_ms
 
 
+def write_safetensors(state_dict, path: str) -> None:
+    """An fp32 state dict as a `.safetensors` file: the 8-byte
+    little-endian header length, the JSON header, the raw buffers."""
+    import struct
+
+    header, blobs, offset = {}, [], 0
+    for k, v in state_dict.items():
+        raw = v.detach().float().contiguous().cpu().numpy()
+        header[k] = {"dtype": "F32", "shape": list(v.shape),
+                     "data_offsets": [offset, offset + raw.nbytes]}
+        blobs.append(raw)
+        offset += raw.nbytes
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for raw in blobs:
+            f.write(raw.tobytes())
+
+
+def write_release(root: str, models, stats) -> None:
+    """The GVF release in MODEL_REPOS's layout under root: each model's
+    state dict as a `.pt` with DDP's `module.` prefix, the stats as bare
+    tensors."""
+    import torch
+    from gvfdiffusion_torch.utils.hub import MODEL_REPOS
+
+    info = MODEL_REPOS["GVFDiffusion_v1.0"]
+    repo = os.path.join(root, info["repo_id"])
+    os.makedirs(repo)
+    for key, m in models.items():
+        torch.save({"module." + k: v.cpu() for k, v in
+                    m.state_dict().items()}, os.path.join(repo, info[key]))
+    for key, t in stats.items():
+        torch.save(t.cpu(), os.path.join(repo, info[key + "_path"]))
+
+
+def phase_wild_files(dino, tpipe, dit, vae, dev, card):
+    """The in-the-wild chain from files on disk to an mp4 on disk, at full
+    width with seeded weights:
+      * a release mirror in MODEL_REPOS's layout in a temporary directory
+        (the seeded DiT and motion VAE of the main path, a seeded static
+        VAE at its defaults, as `.pt` with a `module.` prefix; the stats as
+        bare tensors), resolved by hub.download_model_files(local_hub=)
+        and loaded by hub.load_gvf_release onto the card: every tensor
+        equal to the seeded one;
+      * the seeded DINOv2 through a `.safetensors` file written here and
+        read by the port's reader (weight_convert.load_torch_checkpoint,
+        convert_dinov2) into a fresh DINOv2: every tensor equal;
+      * the 32 seeded frames written as a video through
+        StreamingVideoWriter (cv2's mp4v), extract_frames (cv2's reader
+        where ffmpeg is absent), encode_video_features with a full-width
+        seeded MODNet matting_fn (hr_channels 32, width 1.0), held against
+        encode_video on the extracted frames and the hook's alphas; where
+        no video is written or read (no cv2), the frames in memory;
+      * DINOv2 at image_size 224 (its position embedding resized to 16^2
+        patches): K5 at [32, 261, 16, 64], launches counted, against
+        impl="plain";
+      * InTheWildPipeline.run on the seeded image's RGB (no alpha: MODNet's
+        matte through TRELLIS's matting_fn; the occupancy calibrated again
+        on this image's latent) with the extracted frames' tokens and a
+        seeded full-width CLIP ViT-B/32's clip_score_fn;
+      * render_outputs at render_views 16 (32 frames x 16 views at 512^2,
+        the deltas scaled as bench.py scales random-weight deltas): the
+        spiral written as an mp4 or `.npy`, frames.npy.
+    Prints the stage times and one JSON line; returns the 224 encode's K5
+    launches for the kernels line."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gvfdiffusion_torch.models.clip import (CLIPImageEncoder,
+                                                make_clip_score_fn)
+    from gvfdiffusion_torch.models.dinov2 import DinoV2, encode_image
+    from gvfdiffusion_torch.models.modnet import MODNet, make_matting_fn
+    from gvfdiffusion_torch.models.static_vae import SparseTransformerVAE
+    from gvfdiffusion_torch.pipelines.in_the_wild import (InTheWildConfig,
+                                                          InTheWildPipeline)
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+    from gvfdiffusion_torch.scripts.process_video import (
+        encode_video, encode_video_features, extract_frames, normalize_frame)
+    from gvfdiffusion_torch.utils import hub
+    from gvfdiffusion_torch.utils import weight_convert as wc
+    from gvfdiffusion_torch.utils.image import read_image, resize_bilinear
+    from gvfdiffusion_torch.utils.inference_utils import StreamingVideoWriter
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    # the routes, decided by what is installed
+    t_phase = time.perf_counter()
+    routes = {"ffmpeg": shutil.which("ffmpeg") is not None,
+              **{m: importlib.util.find_spec(m) is not None
+                 for m in ("cv2", "imageio", "PIL")}}
+    res, times = {"routes": routes}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key] = round((time.perf_counter() - t0) * 1e3, 1)
+        return out
+
+    work = tempfile.mkdtemp(prefix="gvf_wild_files_")
+    try:
+        # the release, from a mirror
+        svae = init_random_(SparseTransformerVAE(), seed=42).to(dev).eval()
+        g = torch.Generator().manual_seed(43)
+        stats = {"static_mean": torch.randn(14, generator=g),
+                 "static_std": torch.rand(14, generator=g) + 0.5,
+                 "deformation_mean": torch.randn(16, generator=g),
+                 "deformation_std": torch.rand(16, generator=g) + 0.5}
+        models = {"model_path": dit, "vae_path": vae,
+                  "static_vae_path": svae}
+        timed("release_write", lambda: write_release(work, models, stats))
+        files = hub.download_model_files("GVFDiffusion_v1.0", local_hub=work)
+        rel = timed("release_load", lambda: hub.load_gvf_release(
+            files, dit_kwargs=dict(num_blocks=12),
+            vae_kwargs=dict(depth=12),
+            static_vae_kwargs=dict(num_blocks=12, num_heads=12),
+            device="cuda"))
+        n_equal = 0
+        for key, m in (("dit", dit), ("motion_vae", vae),
+                       ("static_vae", svae)):
+            own = m.state_dict()
+            if sorted(rel[key]) != sorted(own) or not all(
+                    rel[key][k].is_cuda and torch.equal(rel[key][k], v)
+                    for k, v in own.items()):
+                raise AssertionError(f"the release's {key} differs from the "
+                                     "seeded model")
+            n_equal += len(own)
+        for key, t in stats.items():
+            if not torch.equal(rel[key].cpu(), t):
+                raise AssertionError(f"the release's {key} differs")
+        res["release_tensors_equal"] = n_equal + len(stats)
+        del rel, svae
+        torch.cuda.empty_cache()
+
+        # DINOv2 through a .safetensors file and the port's reader
+        st = os.path.join(work, "dinov2.safetensors")
+        timed("safetensors_write", lambda: write_safetensors(
+            dino.state_dict(), st))
+        sd = timed("safetensors_read", lambda: wc.convert_dinov2(
+            wc.load_torch_checkpoint(st)))
+        dino2 = DinoV2(dtype=torch.bfloat16)
+        dino2.load_state_dict(sd)
+        dino2 = dino2.to(dev).eval()
+        if not all(torch.equal(dino2.state_dict()[k], v)
+                   for k, v in dino.state_dict().items()):
+            raise AssertionError("DINOv2 changed through .safetensors")
+        res["safetensors_bytes"] = os.path.getsize(st)
+        os.remove(st)
+        del sd
+
+        # the video file -> frames -> mattes -> tokens
+        modnet = init_random_(MODNet(), seed=40).to(dev).eval()
+        matting_fn = make_matting_fn(modnet)
+        frames = seeded_frames()
+        video = os.path.join(work, "video.mp4")
+        frames_dir = os.path.join(work, "frames")
+        res["video"] = "none"
+        if routes["cv2"]:
+            def write_video():
+                w = StreamingVideoWriter(video, fps=8)
+                for f in frames:
+                    w.append(f)
+                return w.close()
+            res["video"] = "mp4" if timed("video_write",
+                                          write_video) else ".npy"
+        if res["video"] == "mp4":
+            n = timed("extract_frames", lambda: extract_frames(
+                video, frames_dir))
+            res["frames_from"] = "ffmpeg" if routes["ffmpeg"] else "cv2"
+            if n != T:
+                raise AssertionError(f"extract_frames gave {n} of {T}")
+            reset_counts()
+            feats = timed("encode_video_features", lambda: (
+                encode_video_features(frames_dir, os.path.join(
+                    work, "dinov2_features.npz"), dino,
+                    matting_fn=matting_fn, device="cuda")))
+            launches = read_counts()
+            decoded = [read_image(os.path.join(frames_dir,
+                                               f"frame_{i:04d}.png"))
+                       for i in range(T)]
+            res["decoded_psnr"] = round(float(10 * np.log10(255.0 ** 2 / max(
+                np.mean((np.stack(decoded).astype(np.float64)
+                         - frames) ** 2), 1e-12))), 2)
+        else:
+            log(f"[wild-files] no video written ({res['video']}): the "
+                "frames in memory stand for the extracted ones")
+            res["frames_from"] = "memory"
+            decoded = list(frames)
+            feats = None
+        alphas = timed("matting_32", lambda: [matting_fn(f)
+                                              for f in decoded])
+        a = np.stack(alphas)
+        if not (a.shape == (T, 518, 518) and np.isfinite(a).all()
+                and a.min() >= 0.0 and a.max() <= 1.0):
+            raise AssertionError(f"mattes: shape {a.shape}, range "
+                                 f"[{a.min()}, {a.max()}]")
+        res["matte_mean"] = round(float(a.mean()), 4)
+        if feats is None:
+            reset_counts()
+            feats = timed("encode_video", lambda: encode_video(
+                decoded, dino, alphas=alphas).cpu().numpy())
+            launches = read_counts()
+        tokens = torch.from_numpy(feats).to(dev)
+        mem = encode_video(decoded, dino, alphas=alphas)
+        res["features_vs_encode_video"] = rel_l2(tokens, mem)
+        if tuple(tokens.shape) != (T, L_IMG, 1024) or not (
+                bool(torch.isfinite(tokens).all())
+                and res["features_vs_encode_video"] <= RUN_REL_BOUND):
+            raise AssertionError("encode_video_features disagrees with "
+                                 "encode_video")
+        if launches["attention"] != 24:
+            raise AssertionError(f"{launches['attention']} K5 launches in "
+                                 "the features' encode, not 24")
+        del mem
+
+        # DINOv2 at 224^2: K5 at [32, 261, 16, 64]
+        reset_counts()
+        t224 = timed("encode_224", lambda: encode_video(
+            decoded, dino2, image_size=224, alphas=alphas))
+        n224 = read_counts()["attention"]
+        batch = resize_bilinear(torch.from_numpy(np.stack(
+            [normalize_frame(f, a) for f, a in zip(decoded, alphas)])).to(
+                dev), (224, 224))
+        res["dino224_vs_plain"] = rel_l2(t224, encode_image(
+            dino2, batch, impl="plain"))
+        if tuple(t224.shape) != (T, L_IMG224, 1024) or n224 != 24 or not (
+                bool(torch.isfinite(t224).all())
+                and res["dino224_vs_plain"] <= DINO_REL_BOUND):
+            raise AssertionError(f"DINOv2 at 224^2: {tuple(t224.shape)}, "
+                                 f"{n224} launches, rel_l2 "
+                                 f"{res['dino224_vs_plain']:.3e}")
+        del dino2, t224, batch
+        torch.cuda.empty_cache()
+
+        # RGB in, MODNet's alpha, CLIP's score, the whole chain
+        rgb = seeded_image()[..., :3]
+        tpipe.matting_fn = matting_fn
+        g = torch.Generator(device=dev).manual_seed(33)
+        pre = torch.from_numpy(tpipe.preprocess_image(rgb))[None]
+        z = tpipe.sample_ss_latent(tpipe.encode_image(pre), g)
+        k, gap, parents = calibrate_occupancy(tpipe, z)
+        res["occupancy"] = {"rank": k, "parents": parents}
+        clip = init_random_(CLIPImageEncoder(), seed=41).to(dev).eval()
+        clip_fn = make_clip_score_fn(clip, tpipe.preprocess_image(rgb))
+        opts = bench_render_options()
+        v4d = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+            steps=32, order=2, kv_quant="int8", self_quant="int8"))
+        wild = InTheWildPipeline(tpipe, v4d, InTheWildConfig(
+            align_n_angles=360, render_views=16), clip_score_fn=clip_fn,
+            render_options=opts)
+        out = timed("wild_run", lambda: wild.run(
+            rgb, tokens, generator=torch.Generator(device=dev).manual_seed(
+                33)))
+        check_outputs(out, B, T, G)
+        res["align_angle_deg"] = round(math.degrees(out["align_angle"]), 2)
+        res["valid_gaussians"] = int(out["valid"].sum())
+        if res["valid_gaussians"] == 0 or parents > TORSO:
+            raise AssertionError(f"{res['valid_gaussians']} Gaussians, "
+                                 f"{parents} parents for {TORSO} slots")
+
+        # stage 6: the orbit sweep to the spiral video and frames.npy
+        out_dir = os.path.join(work, "out")
+        frames_out = timed("render_outputs", lambda: wild.render_outputs(
+            dict(out, deltas=out["deltas"] * RENDER_DELTA_SCALE), out_dir))
+        spiral = os.path.join(out_dir, "spiral.mp4")
+        res["spiral"] = "mp4" if os.path.exists(spiral) else ".npy"
+        if res["spiral"] == "mp4":
+            res["spiral_bytes"] = os.path.getsize(spiral)
+        else:
+            res["spiral_frames"] = list(np.load(spiral + ".npy",
+                                                mmap_mode="r").shape)
+        on_disk = np.load(os.path.join(out_dir, "frames.npy"), mmap_mode="r")
+        cover = float((frames_out < 1.0 - 1e-3).any(-1).mean())
+        res["frames_npy"] = list(on_disk.shape)
+        res["coverage"] = round(cover, 4)
+        if not (on_disk.shape == (T, 16, 512, 512, 3)
+                and np.isfinite(frames_out).all() and cover > 0
+                and (res["spiral"] == ".npy" or res["spiral_bytes"] > 0)):
+            raise AssertionError("render_outputs wrote no frames")
+    finally:
+        tpipe.matting_fn = None
+        shutil.rmtree(work, ignore_errors=True)
+    res["times_ms"] = times
+    res["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[wild-files] the phase in {res['phase_s']} s; release "
+        f"{times['release_write']:.1f} ms written, "
+        f"{times['release_load']:.1f} ms loaded ({res['release_tensors_equal']}"
+        f" tensors equal); DINOv2 .safetensors {res['safetensors_bytes']} "
+        f"bytes; video {res['video']}, frames from {res['frames_from']}; "
+        f"features vs encode_video rel_l2 "
+        f"{res['features_vs_encode_video']:.3e} (bound {RUN_REL_BOUND:g}); "
+        f"DINOv2 224^2 vs plain rel_l2 {res['dino224_vs_plain']:.3e} (bound "
+        f"{DINO_REL_BOUND:g}), K5 launches {n224}; wild run "
+        f"{times['wild_run']:.1f} ms, angle {res['align_angle_deg']} deg; "
+        f"render_outputs {times['render_outputs']:.1f} ms, spiral "
+        f"{res['spiral']}; {card}")
+    log("[wild-files] " + json.dumps(res))
+    return {"attention_dino224": n224}
+
+
 def phase_early_exit(dev, card):
     """Early exit where tiles saturate, which the random-weight TRELLIS
     splat's tiles do not: the seeded canonical splat with its opacity
@@ -4071,6 +4393,16 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         phase_infer(ci, *canonical_splat(dev), dev, card)
         return 0
+    if "--wild-files" in argv:
+        name, replaces, source, key = KERNELS[-1]
+        phase_attention(dev, name, replaces, source, key)
+        dino, dit, vae = build_models(dev)
+        from gvfdiffusion_torch.scripts.process_video import encode_video
+
+        ci = encode_video(seeded_frames(), dino, device="cuda")[None]
+        _, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
+        phase_wild_files(dino, tpipe, dit, vae, dev, card)
+        return 0
     results = phase_kernels(dev)
     if quick:
         return 0
@@ -4083,6 +4415,7 @@ def main(argv) -> int:
     configs = phase_dit_configs(vae, ci, dev, card)
     trellis, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
     phase_wild(tpipe, dit, vae, ci, dev, card)
+    launches.update(phase_wild_files(dino, tpipe, dit, vae, dev, card))
     phase_early_exit(dev, card)
     del dit, vae, ci, tpipe
     torch.cuda.empty_cache()

@@ -46,6 +46,7 @@ from ..utils import logger
 from ..utils.checkpoint import CheckpointManager, auto_resume
 from ..utils.config import Config, load_config
 from ..utils.device import resolve_device
+from ..utils.weight_convert import load_torch_checkpoint
 
 
 def log(msg: str) -> None:
@@ -73,26 +74,17 @@ def build_motion_vae(cfg: Config) -> MotionVAE:
 
 def init_static_from_torch(model: SparseTransformerVAE, ckpt_path: str
                            ) -> bool:
-    """Load a torch `.pt` state dict under the reference's names into
-    `model`, in place, with the reference's out-layer surgery: where the
-    checkpoint's `out_layer` shape differs from the model's (TRELLIS ships
-    a latent head, GVF trains the Gaussian head) the model keeps its fresh
-    `out_layer`; every other parameter must be in the checkpoint (keys it
-    holds beyond the model's are ignored, as JAX's converter ignores
-    them). A `module.` prefix is stripped and a {"state_dict": ...}
-    wrapper opened. Returns whether the out layer was kept fresh. Other
-    formats, and a checkpoint in another layout, raise; the converter of
-    other layouts is not ported."""
-    if not ckpt_path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{ckpt_path}: only a torch .pt state dict under the reference's "
-            "names is read here; other formats need utils/weight_convert.py "
-            "(ROADMAP queue 1, item 4)")
-    sd = torch.load(ckpt_path, map_location="cpu", weights_only=False)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in sd.items()}
+    """Load a torch `.pt` or `.safetensors` state dict under the reference's
+    names into `model`, in place, with the reference's out-layer surgery:
+    where the checkpoint's `out_layer` shape differs from the model's
+    (TRELLIS ships a latent head, GVF trains the Gaussian head) the model
+    keeps its fresh `out_layer`; every other parameter must be in the
+    checkpoint (keys it holds beyond the model's are ignored, as JAX's
+    converter ignores them). utils/weight_convert.load_torch_checkpoint
+    reads it (a `module.` prefix stripped, a {"state_dict": ...} wrapper
+    opened). Returns whether the out layer was kept fresh. A checkpoint
+    in another layout raises."""
+    sd = load_torch_checkpoint(ckpt_path)
     own = model.state_dict()
     missing = [k for k in own if k not in sd]
     if missing:

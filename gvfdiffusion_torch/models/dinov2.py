@@ -13,9 +13,11 @@ model's dtype) and in `dtype` on the CPU, while the residual stream, the
 LayerNorms (flax's fast variance) and the layer scales stay fp32, as in
 the reference. GELU is the exact erf.
 
-Only the 518^2 grid (37^2 patches, L = 1 + 4 + 1369 = 1374 tokens) runs:
-the position-embedding interpolation to another grid is not ported, and
-another input size raises.
+At 518^2 (37^2 patches, L = 1 + 4 + 1369 = 1374 tokens) the position
+embedding is added as stored; on another square patch grid its 37^2 grid is
+resized bilinearly to the patch grid (`jax.image.resize`'s arithmetic,
+antialiased when shrinking: utils/image.py), as JAX does. JAX assumes a
+square grid (`int(n ** 0.5)`); here a grid that is not square raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from ..nn.attention import MultiHeadAttention
 from ..nn.misc import conv, dense, layer_norm
+from ..utils.image import resize_bilinear
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -106,6 +109,7 @@ class DinoV2(nn.Module):
         super().__init__()
         C = embed_dim
         self.dtype = dtype
+        self.patch_size = patch_size
         self.patch_embed = PatchEmbed(patch_size, C)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
         self.pos_embed = nn.Parameter(
@@ -120,14 +124,12 @@ class DinoV2(nn.Module):
         """x [B, H, W, 3] normalized images -> (prenorm, normed) tokens
         [B, 1 + R + L, C] in fp32. `impl="plain"` runs K5's plain
         version."""
-        B = x.shape[0]
+        B, H, W = x.shape[:3]
         h = self.patch_embed(x, self.dtype)
         pos = self.pos_embed.float()
         if h.shape[1] != pos.shape[1] - 1:
-            raise ValueError(
-                f"{h.shape[1]} patches, but the position embedding holds "
-                f"{pos.shape[1] - 1}: its interpolation to another grid is "
-                "not ported")
+            pos = torch.cat([pos[:, :1], self._grid_pos(
+                pos[:, 1:], H // self.patch_size, W // self.patch_size)], 1)
         C = h.shape[2]
         h = h.float() + pos[:, 1:]
         cls = (self.cls_token.float() + pos[:, :1]).expand(B, 1, C)
@@ -136,6 +138,20 @@ class DinoV2(nn.Module):
         for block in self.blocks:
             h = block(h, self.dtype, impl=impl)
         return h, _affine_ln(self.norm, h)
+
+    @staticmethod
+    def _grid_pos(grid: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+        """The patch position embedding [1, g0^2, C] resized bilinearly to
+        a gh x gw patch grid -> [1, gh * gw, C] (JAX models/dinov2.py:
+        115-125)."""
+        n, C = grid.shape[1:]
+        g0 = int(n ** 0.5)
+        if g0 * g0 != n or gh != gw:
+            raise ValueError(
+                f"the position embedding's {n} patches and the image's "
+                f"{gh} x {gw} patch grid: only square grids are resized")
+        return resize_bilinear(grid.reshape(1, g0, g0, C),
+                               (gh, gw)).reshape(1, gh * gw, C)
 
 
 def preprocess(images: torch.Tensor) -> torch.Tensor:

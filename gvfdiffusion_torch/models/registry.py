@@ -5,7 +5,10 @@ A pretrained directory is the reference's layout:
 
     <root>/pipeline.json     {"name": ..., "models": {key: relpath}}
     <root>/<key>.json        {"name": registry name, "args": kwargs}
-    <root>/<key>.npz         flax-flat parameters ('a/b/c' keys)
+    <root>/<key>.npz         flax-flat parameters ('a/b/c' keys), or a
+                             torch `.pt` / `.safetensors` state dict
+                             under the reference's names (`weights` in
+                             `<key>.json` names the file)
 
 `create_model` builds the port's class of a registry name from a release
 config's kwargs, translated as JAX's `_adapt_kwargs` translates them: the
@@ -18,14 +21,17 @@ class but the two the port trains, the DiT and the static VAE. `from_pretrained`
 the model of `<key>.json`, reads its weights with `load_params` and carries
 the flax tree into the module through the class's weight table
 (`WEIGHT_TABLES`, utils/weights.py; a strict load), then moves it to
-`device`, "cuda" unless the caller asks for the CPU. `flax_params` takes a
-model's state dict the other way through the same table, for
+`device`, "cuda" unless the caller asks for the CPU. A torch checkpoint
+goes through the class's converter (utils/weight_convert.py; JAX's
+`_converters`: the DiT, the motion VAE and the static VAE), called with the
+structural arguments of the model's configuration; the classes JAX has no
+converter for raise ValueError there, as in JAX. `flax_params` takes a
+model's state dict the other way through the weight table, for
 `save_params_npz`.
 
-Not ported (ROADMAP queue 1, item 4), each raising NotImplementedError:
-torch checkpoints (`.pt`, `.safetensors`: utils/weight_convert.py), and
-the registry names whose class the port lacks (`NOT_PORTED`). A name the
-registry does not know raises KeyError, as in JAX.
+Not ported (ROADMAP queue 1, items 4 and 6): the registry names whose
+class the port lacks (`NOT_PORTED`), each raising NotImplementedError. A
+name the registry does not know raises KeyError, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from __future__ import annotations
 import inspect
 import json
 import os
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +55,7 @@ WEIGHT_TABLES: Dict[type, Callable] = {}
 NOT_PORTED = ("SparseStructureEncoder", "SLatEncoder",
               "SLatRadianceFieldDecoder", "SLatMeshDecoder",
               "ElasticSLatMeshDecoder", "TpuSLatMeshDecoder")
-_TODO = "not ported yet (ROADMAP queue 1, item 4)"
+_TODO = "not ported yet (ROADMAP queue 1, items 4 and 6)"
 
 
 def register(name: str):
@@ -169,15 +175,31 @@ def save_params_npz(params: Dict, path: str) -> None:
     np.savez(path, **flatten_tree(params))
 
 
-def load_params(path: str) -> Dict:
-    """The flax parameter tree of a `.npz` checkpoint (flax-flat keys)."""
+def load_params(path: str, converter: Optional[Callable] = None) -> Dict:
+    """The flax parameter tree of a `.npz` checkpoint (flax-flat keys), or
+    converter(state dict) of a torch `.pt` / `.safetensors` checkpoint
+    (utils/weight_convert.py: the port's state dict)."""
     if path.endswith(".npz"):
         with np.load(path) as data:
             return _unflatten({k: data[k] for k in data.files})
-    if path.endswith((".pt", ".safetensors")):
-        raise NotImplementedError(
-            f"{path}: torch checkpoints need utils/weight_convert.py, {_TODO}")
-    raise ValueError(f"{path}: unknown checkpoint format")
+    if not path.endswith((".pt", ".safetensors")):
+        raise ValueError(f"{path}: unknown checkpoint format")
+    from ..utils.weight_convert import load_torch_checkpoint
+
+    sd = load_torch_checkpoint(path)
+    if converter is None:
+        raise ValueError(f"torch checkpoint {path} needs an explicit "
+                         "converter")
+    return converter(sd)
+
+
+def _converters() -> Dict[str, Callable]:
+    """JAX's `_converters`: registry name -> utils/weight_convert.py."""
+    from ..utils import weight_convert as wc
+
+    return {"DiT": wc.convert_dit, "MotionVAE": wc.convert_motion_vae,
+            "GSKLTemporalVariationalAutoEncoder": wc.convert_motion_vae,
+            "SparseTransformerVAE": wc.convert_static_vae}
 
 
 def _config(name: str, args: Dict) -> Tuple[type, Dict[str, Any]]:
@@ -217,11 +239,25 @@ def from_pretrained(root: str, key: str, device="cuda") -> torch.nn.Module:
         spec = json.load(f)
     name, args = spec["name"], spec.get("args", {})
     model = create_model(name, **args)
-    params = load_params(os.path.join(root, spec.get("weights",
-                                                     f"{key}.npz")))
-    model.load_state_dict(weights.from_flax(weight_table(name, args),
-                                            params))
+    path = os.path.join(root, spec.get("weights", f"{key}.npz"))
+    if path.endswith(".npz"):
+        sd = weights.from_flax(weight_table(name, args), load_params(path))
+    else:
+        sd = load_params(path, _converter(name, args))
+    model.load_state_dict(sd)
     return model.to(dev).eval()
+
+
+def _converter(name: str, args: Dict) -> Optional[Callable]:
+    """The class's converter with the structural arguments of the model
+    that `create_model(name, **args)` builds (None where JAX has none)."""
+    conv = _converters().get(name)
+    if conv is None:
+        return None
+    _, cfg = _config(name, args)
+    kw = {k: cfg[k] for k in inspect.signature(conv).parameters
+          if cfg.get(k) is not None}
+    return lambda sd: conv(sd, **kw)
 
 
 def load_pipeline_spec(root: str) -> Dict:

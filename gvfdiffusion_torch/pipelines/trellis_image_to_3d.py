@@ -2,6 +2,8 @@
 of gvfdiffusion_tpu/pipelines/trellis_image_to_3d.py:36-226).
 
   1. preprocess (host): alpha crop with a 1.2x bbox margin, 518^2 resize;
+     an RGB image's alpha comes from `matting_fn` (models/modnet.py's
+     make_matting_fn) where one is given, else the whole image is kept;
   2. DINOv2 tokens of the image (models/dinov2.py);
   3. the sparse-structure flow (12 Euler steps, CFG 7.5) -> 16^3 x 8
      latent -> the occupancy decoder -> occupied 64^3 voxels (logits > 0);
@@ -12,15 +14,15 @@ of gvfdiffusion_tpu/pipelines/trellis_image_to_3d.py:36-226).
 The pipeline runs on `device`, "cuda" unless the caller asks for the CPU,
 and moves its modules there; without a CUDA device it raises. Only the
 Gaussian format is decoded (`decode_slat_formats`, `run(formats=...)`):
-"mesh" and "radiance_field" raise, their decoders not being ported; nor
-is matting of RGB images without alpha. The models come from their
-constructors or from a pretrained directory (models/registry.py).
+"mesh" and "radiance_field" raise, their decoders not being ported. The
+models come from their constructors or from a pretrained directory
+(models/registry.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,7 +33,7 @@ from ..models.trellis.slat_decoders import SLatGaussianDecoder
 from ..models.trellis.slat_flow import SLatFlowModel
 from ..models.trellis.ss_flow import SparseStructureFlowModel
 from ..models.trellis.ss_vae import SparseStructureDecoder
-from ..scripts.process_video import resize_bilinear
+from ..utils.image import resize_bilinear
 from ..sparse.tensor import SparseVoxels, from_dense
 from ..utils.device import resolve_device
 
@@ -71,8 +73,10 @@ class TrellisImageTo3DPipeline:
                  slat_flow: SLatFlowModel, slat_decoder: SLatGaussianDecoder,
                  config: Optional[TrellisConfig] = None,
                  slat_mean: Optional[torch.Tensor] = None,
-                 slat_std: Optional[torch.Tensor] = None, device="cuda"):
+                 slat_std: Optional[torch.Tensor] = None, device="cuda",
+                 matting_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
+        self.matting_fn = matting_fn
         self.dinov2, self.ss_flow, self.ss_decoder, self.slat_flow, \
             self.slat_decoder = (m.to(self.device) for m in (
                 dinov2, ss_flow, ss_decoder, slat_flow, slat_decoder))
@@ -81,16 +85,18 @@ class TrellisImageTo3DPipeline:
             None if a is None else a.to(self.device)
             for a in (slat_mean, slat_std))
 
-    @staticmethod
-    def preprocess_image(image: np.ndarray) -> np.ndarray:
+    def preprocess_image(self, image: np.ndarray) -> np.ndarray:
         """[H, W, 3|4] uint8 or float -> [518, 518, 3] float32 in [0, 1]:
-        the object (alpha > 0.5, or the whole image without alpha) centred
-        with a 1.2x bbox margin, RGB times alpha."""
+        the object (alpha > 0.5: the fourth channel, else matting_fn's
+        matte, else the whole image) centred with a 1.2x bbox margin, RGB
+        times alpha."""
         img = np.asarray(image).astype(np.float32)
         if img.max() > 1.5:
             img = img / 255.0
         if img.shape[-1] == 4:
             alpha, rgb = img[..., 3], img[..., :3]
+        elif self.matting_fn is not None:
+            alpha, rgb = np.asarray(self.matting_fn(img)), img
         else:
             alpha, rgb = np.ones(img.shape[:2], np.float32), img
         ys, xs = np.where(alpha > 0.5)

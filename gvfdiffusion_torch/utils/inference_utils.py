@@ -1,5 +1,5 @@
 """Inference utilities: azimuth alignment, FPS sampling, render sweeps (port
-of gvfdiffusion_tpu/utils/inference_utils.py:30-252, 325-330).
+of gvfdiffusion_tpu/utils/inference_utils.py).
 
 `align_gaussian_to_canonical` finds the azimuth (and an alpha-bbox scale)
 that aligns a generated splat with a video's canonical frame: rotating
@@ -11,9 +11,15 @@ the most opaque `coarse_subset` Gaussians, the 1-degree neighbourhood of
 its best, then +-`refine` angles at the target's resolution on the whole
 splat. JAX's per-shape jit cache of the score program has no counterpart.
 
-The mp4 writers (`StreamingVideoWriter`, `create_spiral_timeline_video`)
-are not ported; `render_sweep` hands each timestep's frames to a
-callback instead. `orbit_renders` is the sweep on the device, which
+`render_sweep` hands each timestep's frames to a callback as they land,
+where `StreamingVideoWriter` takes them: its thread encodes an mp4 (cv2's
+`mp4v` writer, imported in the thread) while the device renders the next
+timestep, or, without cv2 or where its writer does not open, keeps the
+frames for JAX's `<path>.npy` fallback. JAX's writer deadlocks when its
+thread dies (it raises in cv2, and `append` then blocks once the queue of
+64 fills); here `append` and `close` raise the thread's error instead.
+`create_spiral_timeline_video` writes the spiral schedule of a [T, V]
+sweep through one. `orbit_renders` is the sweep on the device, which
 VideoTo4DPipeline.render_4d stacks.
 """
 
@@ -21,6 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import queue
+import threading
 from typing import Callable, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -31,7 +39,7 @@ from ..ops.quaternion import quat_multiply
 from ..render.renderer import GaussianRenderer, RenderOptions
 from ..representations.camera import orbit_camera, orbit_cameras
 from ..representations.gaussians import GaussianSplat
-from ..scripts.process_video import resize_bilinear
+from .image import resize_bilinear
 
 
 def rotate_gaussians_z(gs: GaussianSplat,
@@ -207,3 +215,101 @@ def spiral_frame_indices(T: int, V: int, loops: int = 2):
     view index sweeps the orbit while time advances, `loops` passes."""
     n = T * loops
     return [(t % T, (t * V // max(n, 1)) % V) for t in range(n)]
+
+
+class StreamingVideoWriter:
+    """An mp4 written on a background thread as frames arrive (float [H,
+    W, 3] in [0, 1], or uint8), or their `<path>.npy` where cv2 is missing
+    or its writer does not open. A frame the thread fails on (the encoder
+    raising) ends it: the next `append`, or `close`, raises that error."""
+
+    def __init__(self, path: str, fps: int = 15):
+        self.path = path
+        self.fps = fps
+        self._q: "queue.Queue" = queue.Queue(maxsize=64)
+        self._fallback: Optional[BaseException] = None  # why no mp4
+        self._died: Optional[BaseException] = None
+        self._frames: list = []
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _to_u8(frame) -> np.ndarray:
+        frame = np.asarray(frame)
+        if frame.dtype == np.uint8:
+            return frame
+        return (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
+
+    def _run(self) -> None:
+        vw = None
+        try:
+            try:
+                import cv2
+            except ImportError as e:
+                cv2, self._fallback = None, e
+            while True:
+                frame = self._q.get()
+                if frame is None:
+                    break
+                frame = self._to_u8(frame)
+                if cv2 is not None and vw is None and self._fallback is None:
+                    h, w = frame.shape[:2]
+                    vw = cv2.VideoWriter(self.path,
+                                         cv2.VideoWriter_fourcc(*"mp4v"),
+                                         self.fps, (w, h))
+                    if not vw.isOpened():
+                        self._fallback = RuntimeError(
+                            "cv2.VideoWriter failed to open")
+                        vw = None
+                if vw is not None:
+                    vw.write(np.ascontiguousarray(frame[:, :, ::-1]))
+                else:
+                    self._frames.append(frame)
+        except BaseException as e:  # the caller sees it: append, close
+            self._died = e
+        finally:
+            if vw is not None:
+                vw.release()
+
+    def _put(self, item) -> None:
+        """Queue item, raising the thread's error, never blocking on a
+        thread that has ended."""
+        while True:
+            if self._died is not None or not self._thread.is_alive():
+                raise RuntimeError(
+                    f"the video writer's thread ended ({self._died!r})"
+                ) from self._died
+            try:
+                self._q.put(item, timeout=0.05)
+                return
+            except queue.Full:
+                continue
+
+    def append(self, frame) -> None:
+        self._put(frame)
+
+    def close(self) -> bool:
+        """Flush and join; returns True if an mp4 was written, False if the
+        frames went to `<path>.npy`."""
+        self._put(None)
+        self._thread.join()
+        if self._died is not None:
+            raise RuntimeError("the video writer's thread failed") \
+                from self._died
+        if self._fallback is not None or self._frames:
+            if self._frames:
+                np.save(self.path + ".npy", np.stack(self._frames))
+            return False
+        return True
+
+
+def create_spiral_timeline_video(frames, path: str, fps: int = 15,
+                                 loops: int = 2) -> bool:
+    """frames [T, V, H, W, 3] along the spiral schedule (the view index
+    sweeps the orbit while time advances, reference :308-381) -> an mp4
+    at `path`; True if an mp4 was written, else False and `<path>.npy`."""
+    T, V = frames.shape[:2]
+    w = StreamingVideoWriter(path, fps=fps)
+    for t, v in spiral_frame_indices(T, V, loops):
+        w.append(frames[t, v])
+    return w.close()

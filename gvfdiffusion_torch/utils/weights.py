@@ -393,6 +393,54 @@ def slat_gs_decoder_table(num_blocks: int = 12) -> List[Row]:
     return rows + _dense("out_layer", ["out_layer", "Dense_0"])
 
 
+
+def clip_table(depth: int = 12) -> List[Row]:
+    """CLIP's visual tower under OpenAI's names (`visual.` stripped): the
+    packed in_proj [3C, C] is flax's `attn/to_qkv` Dense, `proj` [width,
+    embed] stays as stored."""
+    rows = [("conv1.weight", ("conv1", "kernel"), CONV2D)]
+    rows += [(n, (n,), SAME) for n in ("class_embedding",
+                                       "positional_embedding", "proj")]
+    rows += _norm("ln_pre", ["ln_pre"]) + _norm("ln_post", ["ln_post"])
+    for i in range(depth):
+        b, f = f"transformer.resblocks.{i}", [f"resblocks_{i}"]
+        qkv = tuple(f + ["attn", "to_qkv"])
+        rows += (_norm(f"{b}.ln_1", f + ["ln_1"])
+                 + [(f"{b}.attn.in_proj_weight", qkv + ("kernel",), DENSE),
+                    (f"{b}.attn.in_proj_bias", qkv + ("bias",), SAME)]
+                 + _dense(f"{b}.attn.out_proj", f + ["attn", "to_out"])
+                 + _norm(f"{b}.ln_2", f + ["ln_2"])
+                 + _dense(f"{b}.mlp.c_fc", f + ["c_fc"])
+                 + _dense(f"{b}.mlp.c_proj", f + ["c_proj"]))
+    return rows
+
+
+def modnet_table(hr_channels: int = 32,
+                 backbone_width: float = 1.0) -> List[Row]:
+    """MODNet under flax's variable paths, collection first: each
+    parameter under `params` (a Conv's kernel, a Dense's, a BatchNorm's
+    scale, their biases), each BatchNorm's running mean and variance under
+    `batch_stats` (`mean`, `var`). The modules carry flax's names
+    (models/modnet.py)."""
+    from ..models.modnet import BatchNorm, MODNet
+
+    with torch.device("meta"):
+        model = MODNet(hr_channels, backbone_width)
+    rows: List[Row] = []
+    for name, m in model.named_modules():
+        f = ["params"] + name.split(".")
+        if isinstance(m, torch.nn.Conv2d):
+            rows += _conv(name, f, CONV2D)
+        elif isinstance(m, torch.nn.Linear):
+            rows += _dense(name, f)
+        elif isinstance(m, BatchNorm):
+            stats = ["batch_stats"] + f[1:]
+            rows += _norm(name, f) + [
+                (f"{name}.running_mean", tuple(stats + ["mean"]), SAME),
+                (f"{name}.running_var", tuple(stats + ["var"]), SAME)]
+    return rows
+
+
 # -- flax -> torch, by model ---------------------------------------------------
 
 
@@ -435,3 +483,18 @@ def slat_flow_state_dict_from_flax(params, num_blocks: int = 24,
 
 def slat_gs_decoder_state_dict_from_flax(params, num_blocks: int = 12):
     return from_flax(slat_gs_decoder_table(num_blocks), params)
+
+
+def modnet_state_dict_from_flax(variables, hr_channels: int = 32,
+                                backbone_width: float = 1.0):
+    """flax's MODNet variables ({"params": ..., "batch_stats": ...}) -> the
+    state dict."""
+    return from_flax(modnet_table(hr_channels, backbone_width),
+                     {"params": variables})
+
+
+def modnet_variables(state_dict, hr_channels: int = 32,
+                     backbone_width: float = 1.0) -> Dict:
+    """The state dict -> flax's variables {"params", "batch_stats"}."""
+    return to_flax(modnet_table(hr_channels, backbone_width),
+                   state_dict)["params"]

@@ -133,8 +133,11 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_other_grid_raises(pair):
-    with pytest.raises(ValueError):
-        pair[2](torch.zeros(1, 70, 70, 3))
+    """Another square grid resizes the position embedding (held against
+    JAX in tests/test_torch_port_wild_io.py); a grid that is not square
+    raises."""
+    with pytest.raises(ValueError, match="square"):
+        pair[2](torch.zeros(1, 70, 56, 3))
 
 
 def test_init_random_fan_in():

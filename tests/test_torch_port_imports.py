@@ -1,7 +1,8 @@
 """The port imports torch and never jax: importing every module of
 gvfdiffusion_torch, and chip_smoke.py, in a fresh interpreter leaves jax
 (and flax, optax, orbax, and the JAX package) out of sys.modules, and
-builds no kernel."""
+builds no kernel; nor does it import cv2, imageio, PIL or safetensors,
+which the port reads and writes files with where they are installed."""
 
 import os
 import pkgutil
@@ -64,7 +65,16 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.diffusion.respace",
     "gvfdiffusion_torch.utils.logger",
     "gvfdiffusion_torch.utils.script_util",
+    "gvfdiffusion_torch.utils.weight_convert",
+    "gvfdiffusion_torch.utils.hub",
+    "gvfdiffusion_torch.utils.image",
+    "gvfdiffusion_torch.models.clip",
+    "gvfdiffusion_torch.models.modnet",
+    "gvfdiffusion_torch.scripts.matting",
 ]
+# image, video and checkpoint packages the card may lack: imported inside
+# the functions that need them, never by importing a module
+OPTIONAL = ("cv2", "imageio", "PIL", "safetensors")
 
 
 def _all_modules():
@@ -85,6 +95,9 @@ def test_port_never_imports_jax():
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "              'gvfdiffusion_tpu'))\n"
         "assert not bad, bad\n"
+        "opt = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        f"             {OPTIONAL!r})\n"
+        "assert not opt, opt\n"
         "from gvfdiffusion_torch import _ext\n"
         "assert _ext._lib is None  # no build at import time\n"
         "print('ok')\n")

@@ -8,7 +8,8 @@ parameters from `init`'s shapes drawn from a numpy seed, saved with
 `save_params_npz`); the port's `from_pretrained` builds each model from it
 and must give JAX's forward on the same inputs, at fp32, rel L2 <= 1e-5.
 Also: `_adapt_kwargs` against JAX's on release-style dicts, and the names
-and checkpoint formats the port does not build yet raising as pinned.
+the port does not build yet, and the torch checkpoints JAX has no
+converter for, raising as pinned.
 """
 
 import json
@@ -154,8 +155,9 @@ def test_from_pretrained_matches_jax(kind, tmp_path):
 def test_not_ported_names_and_formats_raise(tmp_path):
     """The JAX registry's names whose class the port lacks raise
     NotImplementedError; an unknown name KeyError, as in JAX; a torch
-    checkpoint NotImplementedError (utils/weight_convert.py is not
-    ported)."""
+    checkpoint of a class JAX has no converter for ValueError, as in JAX
+    (utils/weight_convert.py reads it; `_converters` has the DiT and the
+    two VAEs)."""
     assert pr.NOT_PORTED == (
         "SparseStructureEncoder", "SLatEncoder", "SLatRadianceFieldDecoder",
         "SLatMeshDecoder", "ElasticSLatMeshDecoder", "TpuSLatMeshDecoder")
@@ -171,13 +173,22 @@ def test_not_ported_names_and_formats_raise(tmp_path):
         pr.create_model("NoSuchModel")
     with pytest.raises(KeyError):
         jr.create_model("NoSuchModel")
+    from safetensors.torch import save_file
+
+    sd = pr.create_model("SparseStructureDecoder", **SS_DEC).state_dict()
     for ext in (".pt", ".safetensors"):
-        with pytest.raises(NotImplementedError, match="weight_convert"):
-            pr.load_params(str(tmp_path / f"m{ext}"))
+        path = str(tmp_path / f"m{ext}")
+        if ext == ".pt":
+            torch.save(sd, path)
+        else:
+            save_file({k: v.contiguous() for k, v in sd.items()}, path)
+        for load in (pr.load_params, jr.load_params):
+            with pytest.raises(ValueError, match="converter"):
+                load(path)
         with open(tmp_path / f"m{ext[1:]}.json", "w") as f:
             json.dump({"name": "SparseStructureDecoder", "args": SS_DEC,
                        "weights": f"m{ext}"}, f)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="converter"):
             pr.from_pretrained(str(tmp_path), f"m{ext[1:]}", device="cpu")
 
 

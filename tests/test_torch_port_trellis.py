@@ -478,7 +478,7 @@ def test_preprocess_image_matches_jax():
     img[60:200, 40:190, :3] = np.random.default_rng(24).integers(
         0, 255, (140, 150, 3))
     img[60:200, 40:190, 3] = 255
-    got = TrellisImageTo3DPipeline.preprocess_image(img)
+    got = TrellisImageTo3DPipeline.preprocess_image(None, img)
     want = jpipe.TrellisImageTo3DPipeline.preprocess_image(None, img)
     assert got.shape == (518, 518, 3)
     np.testing.assert_allclose(got, want, atol=1e-5)

@@ -12,8 +12,8 @@
   reference's names: with a Gaussian head of another width the out layer
   stays fresh (shape surgery) and everything else loads, as JAX's
   `init_static_from_torch` loads it (exactly); with the CLI the encoder
-  stays frozen through phase A; a checkpoint in another layout or format
-  raises.
+  stays frozen through phase A; a checkpoint in another layout, `.pt` or
+  `.safetensors`, raises.
 """
 
 import sys
@@ -157,7 +157,11 @@ def test_init_static_other_layouts_raise(tmp_path):
                flax_named)
     with pytest.raises(KeyError, match="reference's names"):
         pcli.init_static_from_torch(mine, flax_named)
-    with pytest.raises(NotImplementedError, match="weight_convert"):
+    from safetensors.torch import save_file
+
+    save_file({"input_layer/Dense_0/kernel": torch.zeros(8, 128)},
+              str(tmp_path / "x.safetensors"))
+    with pytest.raises(KeyError, match="reference's names"):
         pcli.init_static_from_torch(mine, str(tmp_path / "x.safetensors"))
 
 
