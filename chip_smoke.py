@@ -8,6 +8,7 @@
                                      # and its phase only
     python3 chip_smoke.py --wild-files  # build + K5 at DINOv2's 224^2, the
                                      # TRELLIS phase and [wild-files] only
+    python3 chip_smoke.py --encode-latent  # build + [encode-latent] only
     python3 chip_smoke.py --split    # build + K1's-K7's device time by
                                      # kernel name
     python3 chip_smoke.py --profile  # the same, then profiled
@@ -177,7 +178,17 @@ Phases, each printed on its own lines:
      24 and 24 a step), in the shipped `swin` 1 + 1 (none); step times,
      peak memory and every loss term per step; then one phase-A step at 2
      + 2 blocks on random weights, kernels against impl="plain" (loss and
-     gradients).
+     gradients);
+  8. the step between the two trainers ([encode-latent]): K7's fp32
+     forward without the residual at [1, 32768, 12, 64] (the static VAE
+     one object at a time) against its plain version, with SDPA as the
+     library call; then a seeded dataset in VAEDataset's layout, vae.yml's
+     static VAE at attn_mode=full and motion VAE at full width on seeded
+     weights saved as trainer checkpoints, cli/encode_latent.main over the
+     two objects (stage times an object, K7's launches counted in this run:
+     24 an object) and again with --debug (the same files), the written
+     deformation_latent.pt checked, and cli/main_latent.main for 2
+     micro-steps on those latents through the prefetcher.
 Then one JSON line of per-kernel results and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without a CUDA device, or without
@@ -373,6 +384,11 @@ KERNELS = [
     ("fused_attention[DINOv2 self at 224^2]",
      "gvfdiffusion_tpu/ops/fused_attention.py:108",
      "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_dino224"),
+    # the static VAE's full attention one object at a time, as
+    # cli/encode_latent runs it ([encode-latent]): fp32, no residual
+    ("flash_attention[fp32, static VAE encode, batch 1, 12 heads]",
+     "gvfdiffusion_tpu/sparse/attention.py:57",
+     "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_encode"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
@@ -892,7 +908,7 @@ def phase_kernels(dev):
                             library_ms=lib_ms)
     for name, replaces, source, key in KERNELS:
         base, variant = FORMS.get(key, (key, shipped))
-        if key in VAE_FLASH:
+        if key in VAE_FLASH or key == ENCODE_FLASH:
             continue
         if base in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
@@ -1452,22 +1468,32 @@ class _Tee:
         return "".join(self.parts)
 
 
-def run_main_latent(args):
-    """cli/main_latent.main(args) with its log (stdout and stderr) kept:
-    (rc, log, wall ms)."""
+def run_cli(main, args):
+    """main(args) of a CLI with its log (stdout and stderr) kept and the
+    launches of this call alone: (rc, log, launches, wall ms)."""
     import contextlib
 
     import torch
-    from gvfdiffusion_torch.cli import main_latent
 
     tee = _Tee()
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     # the logger's table goes to stdout, its messages to stderr
     with contextlib.redirect_stdout(tee), contextlib.redirect_stderr(tee):
-        rc = main_latent.main(args)
+        rc = main(args)
     torch.cuda.synchronize()
-    return rc, tee.text(), (time.perf_counter() - t0) * 1e3
+    wall = (time.perf_counter() - t0) * 1e3
+    return rc, tee.text(), {k: n for k, n in read_counts().items() if n}, \
+        wall
+
+
+def run_main_latent(args):
+    """cli/main_latent.main(args) with its log kept: (rc, log, wall ms)."""
+    from gvfdiffusion_torch.cli import main_latent
+
+    rc, text, _, wall = run_cli(main_latent.main, args)
+    return rc, text, wall
 
 
 def _losses(text):
@@ -1662,7 +1688,6 @@ def train_inputs(cfg, data, dev):
     micro-step: the config's diffusion, one batch of the synthetic dataset
     at `data`, two timesteps and noise from seeds."""
     import torch
-    from gvfdiffusion_torch.cli.main_latent import to_device
     from gvfdiffusion_torch.data.dataset_latent import (LatentDataset,
                                                         load_data)
     from gvfdiffusion_torch.diffusion.gaussian_diffusion import (
@@ -1674,7 +1699,8 @@ def train_inputs(cfg, data, dev):
         rescale_timesteps=cfg.diffusion.rescale_timesteps).to(dev)
     dataset = LatentDataset(data, num_frames=cfg.train.sample_timesteps,
                             uncond_p=0.0, seed=22)
-    batch = to_device(next(load_data(dataset, cfg.train.batch_size)), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        load_data(dataset, cfg.train.batch_size)).items()}
     g = torch.Generator(device=dev).manual_seed(23)
     t = torch.tensor([437, 12], device=dev)
     noise = torch.randn(batch["latent"].shape, generator=g, device=dev)
@@ -2186,6 +2212,238 @@ def phase_vae_train(dev, card):
             raise AssertionError("the VAE step disagrees with its plain "
                                  "version")
         return totals
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# -- the latent encoding between the two trainers: cli/encode_latent ---------
+
+ENCODE_FLASH = "flash_attention_encode"
+ENCODE_ITEMS = 2
+# K7's launches a item: the static VAE's 12 encoder and 12 decoder blocks
+ENCODE_K7_PER_ITEM = 24
+ENCODE_LATENT_SHAPE = (VAE_FRAMES, N, 16)   # [T, num_latents, latent_dim]
+
+
+def encode_flash_check(dev, name, replaces, source):
+    """K7's fp32 forward without the residual at the shape the static VAE
+    gives it when cli/encode_latent runs it one object at a time in `full`
+    attention: [1, 32768, 12, 64], q/k/v the views of one [1, 32768, 3, 12,
+    64] projection, one seeded surface shell's keys valid as a prefix;
+    against the plain version on every row, with SDPA under the boolean key
+    mask as the library call. Returns the kernels line's entry."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    g = torch.Generator(device=dev).manual_seed(55)
+    qkv = torch.randn(1, SLOTS, 3, VAE_H, VAE_D, generator=g, device=dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    valid = vae_valid(dev)[:1]
+    n_valid = int(valid.sum())
+    scale = VAE_D ** -0.5
+    y = fl.flash_attention(q, k, v, valid, scale)
+    torch.cuda.synchronize()
+    ref = fl.flash_attention(q, k, v, valid, scale, impl="plain")
+    err = rel_l2(y, ref)
+    mae = float((y - ref).abs().max())
+    mask = valid[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask)
+    lib_err = rel_l2(sdpa().transpose(1, 2), ref)
+    ms = time_ms(lambda: fl.flash_attention(q, k, v, valid, scale))
+    plain_ms = time_ms(lambda: fl.flash_attention(q, k, v, valid, scale,
+                                                  impl="plain"), iters=1)
+    lib_ms = time_ms(sdpa, iters=3)
+    tile = fl.key_tile(torch.float32, VAE_D)
+    tiles = int(valid.view(1, -1, tile).any(-1).sum())
+    flops = 4 * SLOTS * n_valid * VAE_H * VAE_D  # valid keys only
+    # three tf32 products for each fp32 one (3xTF32)
+    b_ms, b_by = bound(3 * flops, nbytes(q, k, v, valid, y), PEAK_TF32)
+    log(f"[encode-latent] {name}: q/k/v {tuple(q.shape)} fp32 (views of a "
+        f"qkv projection), {n_valid} of {SLOTS} keys valid (a surface "
+        f"shell, prefix), {tiles} of {SLOTS // tile} {tile}-key tiles "
+        f"visited; max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+        f"{FLASH_F32_BOUND:g}) kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s) plain {plain_ms:.3f} ms sdpa (boolean key mask) "
+        f"{lib_ms:.3f} ms (its rel_l2 {lib_err:.3e}) bound {b_ms:.4f} ms "
+        f"({b_by}, 3xTF32)")
+    if not (bool(torch.isfinite(y).all()) and err <= FLASH_F32_BOUND):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def _encoded_items(text):
+    """encode_latent's item lines: [(name, {stage: ms}, launches)]."""
+    import re
+
+    out = []
+    for m in re.finditer(r"\[encode_latent\] (\S+): latent .*?; (.*?); "
+                         r"launches (\{.*\})", text):
+        ms = {k: float(v) for k, v in re.findall(r"(\w+) ([\d.]+) ms",
+                                                 m.group(2))}
+        out.append((m.group(1), ms, json.loads(m.group(3))))
+    return out
+
+
+def check_encoded(out_dir, names):
+    """Every object's deformation_latent.pt: the six arrays at their
+    shapes, finite, std > 0. Returns {name: {key: tensor}}."""
+    import torch
+
+    want = {"latent_mean": ENCODE_LATENT_SHAPE,
+            "latent_std": ENCODE_LATENT_SHAPE,
+            "fps_sampled_gs_1024": (1024, 14),
+            "fps_sampled_gs_4096": (4096, 14),
+            "static_gs_feats": (SLOTS, 1024), "static_gs_coords": (SLOTS, 3)}
+    got = {}
+    for name in names:
+        d = torch.load(os.path.join(out_dir, name, "deformation_latent.pt"),
+                       weights_only=True)
+        shapes = {k: tuple(t_.shape) for k, t_ in d.items()}
+        ok = (shapes == want
+              and all(bool(torch.isfinite(t_.float()).all())
+                      for t_ in d.values())
+              and bool((d["latent_std"] > 0).all())
+              and float(d["latent_mean"].std()) > 0)
+        if not ok:
+            raise AssertionError(f"[encode-latent] {name}: written {shapes}"
+                                 f", want {want}, finite and std > 0")
+        got[name] = d
+    return got
+
+
+def phase_encode_latent(dev, card):
+    """The step between the two trainers, through the entry points users
+    call: a seeded dataset in VAEDataset's layout (write_vae_dataset);
+    configs/vae.yml's static VAE at `attn_mode=full` and motion VAE at full
+    width on seeded weights (init_random_), built by main_vae's builders and
+    saved as trainer checkpoints; cli/encode_latent.main over the objects
+    (the static VAE's encode and decode one object at a time: K7 fp32 at
+    [1, 32768, 12, 64], 24 launches an object; its launches counted in this
+    run), and again with --debug (the latents equal); then
+    cli/main_latent.main for 2 micro-steps on the written latents (with
+    seeded DINOv2 features beside them) through the prefetcher, losses
+    finite. K7 at that shape against its plain version first. Returns
+    (the kernels line's entry, its launches in the encode run)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gvfdiffusion_torch.cli import encode_latent, main_latent
+    from gvfdiffusion_torch.cli.main_vae import (build_motion_vae,
+                                                 build_static_vae)
+    from gvfdiffusion_torch.train.train_state import (create_train_state,
+                                                      make_optimizer)
+    from gvfdiffusion_torch.utils.checkpoint import CheckpointManager
+    from gvfdiffusion_torch.utils.config import load_config
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    t_phase = time.perf_counter()
+    name, replaces, source, _ = next(e for e in KERNELS
+                                     if e[3] == ENCODE_FLASH)
+    entry = encode_flash_check(dev, name, replaces, source)
+    work = tempfile.mkdtemp(prefix="gvf_encode_smoke_")
+    try:
+        data = os.path.join(work, "data")
+        t0 = time.perf_counter()
+        voxels = write_vae_dataset(data, objects=ENCODE_ITEMS, seed=51)
+        data_ms = (time.perf_counter() - t0) * 1e3
+        config = os.path.join(REPO, "configs", "vae.yml")
+        cfg = load_config(config, ["--static_vae.attn_mode=full"])
+        t0 = time.perf_counter()
+        for model, what, seed in ((build_static_vae(cfg), "static", 52),
+                                  (build_motion_vae(cfg), "motion", 53)):
+            state = create_train_state(init_random_(model, seed=seed),
+                                       make_optimizer(lr=0.0))
+            CheckpointManager(os.path.join(work, what)).save(state, 0)
+            del state, model
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        names = sorted(os.listdir(data))
+        common = ["--config", config, f"--data_dir={data}",
+                  "--static_vae.attn_mode=full",
+                  f"--static_ckpt={os.path.join(work, 'static')}",
+                  f"--motion_ckpt={os.path.join(work, 'motion')}"]
+        runs = {}
+        for debug in (False, True):
+            out = os.path.join(work, "debug" if debug else "latents")
+            torch.cuda.reset_peak_memory_stats()
+            rc, text, launches, wall = run_cli(
+                encode_latent.main,
+                common + [f"--output_dir={out}"] + ["--debug"] * debug)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            items = _encoded_items(text)
+            tag = "--debug" if debug else "main path"
+            log(f"[encode-latent] encode_latent.main ({tag}; static VAE "
+                f"12 + 12 blocks of 768 at attn_mode=full, motion VAE 12 x "
+                f"768; {voxels} voxels of {SLOTS} at most, data written in "
+                f"{data_ms:.0f} ms, checkpoints in {ckpt_ms:.0f} ms): rc "
+                f"{rc}, {wall:.1f} ms whole (models restored, "
+                f"{len(items)} objects), peak {peak:.2f} GiB, launches "
+                f"{launches}; {card}")
+            for item, ms, n in items:
+                log(f"[encode-latent]   {item}: "
+                    + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+                    + f"; K7 launches {n}")
+            if debug:
+                for line in text.splitlines():
+                    if "delta-xyz" in line:
+                        log(f"[encode-latent]   {line.strip()}")
+            want = {"flash_attention_fp32": ENCODE_K7_PER_ITEM}
+            if rc != 0 or [i[0] for i in items] != names or any(
+                    n != want for *_, n in items) or launches != {
+                        "flash_attention_fp32":
+                            ENCODE_K7_PER_ITEM * len(names)}:
+                raise AssertionError(f"[encode-latent] rc {rc}, objects "
+                                     f"{[i[0] for i in items]} (want {names})"
+                                     f", launches {launches} (want {want} "
+                                     "an object)")
+            if debug and text.count("delta-xyz ms") != len(names):
+                raise AssertionError("[encode-latent] --debug logged no "
+                                     "delta-xyz line")
+            runs[debug] = check_encoded(out, names)
+            if not debug:
+                main_launches = launches["flash_attention_fp32"]
+        d0 = runs[False][names[0]]
+        same = all(torch.equal(runs[False][n][k], runs[True][n][k])
+                   for n in names for k in runs[False][n])
+        log(f"[encode-latent] written per object: "
+            + ", ".join(f"{k} {list(t_.shape)}" for k, t_ in d0.items())
+            + f"; latent_mean std {float(d0['latent_mean'].std()):.4g}, "
+            f"latent_std mean {float(d0['latent_std'].mean()):.4g}; the "
+            f"--debug run's files equal the main path's: {same}")
+        if not same:
+            raise AssertionError("[encode-latent] the two runs disagree")
+
+        # the DiT's trainer on the written latents
+        r = np.random.default_rng(54)
+        latents = os.path.join(work, "latents")
+        for n in names:
+            np.savez(os.path.join(latents, n, "dinov2_features.npz"),
+                     features=r.standard_normal((VAE_FRAMES, L_IMG, 1024),
+                                                dtype=np.float32))
+        exp = os.path.join(work, "dit")
+        rc, text, launches, wall = run_cli(main_latent.main, [
+            "--config", os.path.join(REPO, "configs", "diffusion.yml"),
+            f"--data_dir={latents}", f"--exp_dir={exp}",
+            "--train.total_steps=2", "--train.log_interval=1",
+            "--train.save_interval=1000000"])
+        losses = _losses(text)
+        log(f"[encode-latent] main_latent.main on the written latents (12 x "
+            f"512 DiT, batch 2 x {VAE_FRAMES} frames, the prefetcher's side "
+            f"stream), 2 micro-steps: rc {rc}, {wall:.1f} ms whole, losses "
+            f"{losses}, step times {_step_times(text)} s, launches "
+            f"{launches}; {card}")
+        if rc != 0 or len(losses) != 2 or not all(math.isfinite(x)
+                                                   for x in losses):
+            raise AssertionError(f"[encode-latent] main_latent rc {rc}, "
+                                 f"losses {losses}")
+        log(f"[encode-latent] phase in {time.perf_counter() - t_phase:.1f} s")
+        return entry, main_launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4381,6 +4639,9 @@ def main(argv) -> int:
         phase_vae_kernels(dev)
         phase_vae_train(dev, card)
         return 0
+    if "--encode-latent" in argv:
+        phase_encode_latent(dev, card)
+        return 0
     if "--infer" in argv:
         for name, replaces, source, key in KERNELS:
             if key.startswith("infer_"):
@@ -4394,7 +4655,8 @@ def main(argv) -> int:
         phase_infer(ci, *canonical_splat(dev), dev, card)
         return 0
     if "--wild-files" in argv:
-        name, replaces, source, key = KERNELS[-1]
+        name, replaces, source, key = next(e for e in KERNELS
+                                           if e[3] == "attention_dino224")
         phase_attention(dev, name, replaces, source, key)
         dino, dit, vae = build_models(dev)
         from gvfdiffusion_torch.scripts.process_video import encode_video
@@ -4432,6 +4694,8 @@ def main(argv) -> int:
     train = phase_training(dev, card)
     torch.cuda.empty_cache()
     vae = phase_vae_train(dev, card)
+    torch.cuda.empty_cache()
+    results[ENCODE_FLASH], vae[ENCODE_FLASH] = phase_encode_latent(dev, card)
     # each entry's count comes from one run: the TRELLIS forms from
     # TrellisImageTo3DPipeline.run (K7 from the run at the defaults; K7 and
     # K3's single context in fp32 from the run of the registry's fp32
@@ -4442,7 +4706,8 @@ def main(argv) -> int:
     # run() on the int8 cache, K1 and K2 with int8 QK from run() with
     # self_quant, K7's residual forward and backward kernels from
     # main_vae's run in `full` attention ([vae-train]: its first step's
-    # log; every step launches the same), the forms of the DiT's other
+    # log; every step launches the same), K7 at the static VAE's batch of 1
+    # from encode_latent's run ([encode-latent]), the forms of the DiT's other
     # configurations from the
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path

@@ -13,9 +13,11 @@ Usage:
       --data_dir=/path/to/latents --exp_dir=/path/to/run \
       [--train.total_steps=500000] [--device=cuda]
 
-It runs on the card unless `--device=cpu` is given; data parallelism and
-host prefetch (the JAX package's parallel/ and data/prefetch.py) are not
-ported.
+It runs on the card unless `--device=cpu` is given. Host loading and the
+copy to the card run one batch ahead of the step in a background thread
+(data/prefetch.py, as JAX's loop runs, its cli/main_latent.py:107-129),
+the copy pinned and on a side CUDA stream; data parallelism (the JAX
+package's parallel/) is not ported.
 """
 
 from __future__ import annotations
@@ -23,12 +25,11 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import Dict
 
-import numpy as np
 import torch
 
 from ..data.dataset_latent import LatentDataset, load_data
+from ..data.prefetch import DevicePlacer, Prefetcher
 from ..diffusion.gaussian_diffusion import create_diffusion
 from ..models.dit import DiT
 from ..train.diffusion_trainer import make_train_step
@@ -65,11 +66,6 @@ def build_model(cfg: Config) -> DiT:
         model.remat_blocks = model.mem_ratio_to_remat_blocks(
             cfg.train.mem_ratio)
     return model
-
-
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device, non_blocking=True)
-            for k, v in batch.items()}
 
 
 def main(argv=None) -> int:
@@ -117,27 +113,29 @@ def main(argv=None) -> int:
         log(f"auto-resumed from step {start_step} (micro-step {state.step})")
     step_fn = make_train_step(model, diffusion, tx, ema_rate=ema_rate)
 
-    t_last = time.perf_counter()
-    for step in range(state.step, cfg.train.total_steps):
-        batch = to_device(next(data), dev)
-        # a generator per step, seeded by the step, as JAX keys each step
-        g = torch.Generator(device=dev).manual_seed(step)
-        state, metrics = step_fn(state, batch, g)
-        if step % cfg.train.log_interval == 0:
-            now = time.perf_counter()
-            step_time = (now - t_last) / max(cfg.train.log_interval, 1)
-            t_last = now
-            terms = {k: float(metrics[k]) for k in ("loss", "mse",
-                                                     "grad_norm")}
-            logger.logkv("step", step)
-            logger.logkvs(terms)
-            logger.logkv_mean("step_time", step_time)
-            logger.dumpkvs()
-            log(f"step {step} " + " ".join(f"{k} {v:.6g}"
-                                           for k, v in terms.items())
-                + f" step_time {step_time:.4g} s")
-        if step > 0 and step % cfg.train.save_interval == 0:
-            ckpt.save(state, step)
+    # host IO and the copy to the device run one batch ahead of the step
+    with Prefetcher(data, place_fn=DevicePlacer(dev)) as prefetch:
+        t_last = time.perf_counter()
+        for step in range(state.step, cfg.train.total_steps):
+            batch = next(prefetch)
+            # a generator per step, seeded by the step, as JAX keys each step
+            g = torch.Generator(device=dev).manual_seed(step)
+            state, metrics = step_fn(state, batch, g)
+            if step % cfg.train.log_interval == 0:
+                now = time.perf_counter()
+                step_time = (now - t_last) / max(cfg.train.log_interval, 1)
+                t_last = now
+                terms = {k: float(metrics[k]) for k in ("loss", "mse",
+                                                         "grad_norm")}
+                logger.logkv("step", step)
+                logger.logkvs(terms)
+                logger.logkv_mean("step_time", step_time)
+                logger.dumpkvs()
+                log(f"step {step} " + " ".join(f"{k} {v:.6g}"
+                                               for k, v in terms.items())
+                    + f" step_time {step_time:.4g} s")
+            if step > 0 and step % cfg.train.save_interval == 0:
+                ckpt.save(state, step)
     ckpt.save(state, cfg.train.total_steps, force=True)
     return 0
 

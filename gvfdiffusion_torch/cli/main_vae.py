@@ -185,7 +185,7 @@ def main(argv=None) -> int:
                 f"loss.lambda_lpips={cfg.loss.lambda_lpips} but no LPIPS "
                 f"weights at loss.lpips_weights={cfg.loss.lpips_weights!r}. "
                 "Write the torch vgg16+lin checkpoint as the .npz of "
-                "gvfdiffusion_tpu.ops.lpips.convert_torch_lpips and point "
+                "gvfdiffusion_torch.ops.lpips.convert_torch_lpips and point "
                 "loss.lpips_weights at it, or set loss.lambda_lpips=0 to "
                 "train without the perceptual term.")
     loss_kw = dict(lambda_ssim=cfg.loss.lambda_ssim,

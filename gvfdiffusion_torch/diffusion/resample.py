@@ -1,7 +1,9 @@
-"""Training-timestep sampler (port of gvfdiffusion_tpu/diffusion/
-resample.py:9 `uniform_sampler`)."""
+"""Training-timestep samplers (port of gvfdiffusion_tpu/diffusion/
+resample.py: `uniform_sampler` and `static_sampler`)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -14,3 +16,15 @@ def uniform_sampler(generator: torch.Generator, batch: int,
     t = torch.randint(0, num_timesteps, (batch,), generator=generator,
                       device=generator.device)
     return t.to(device), torch.ones(batch, dtype=torch.float32, device=device)
+
+
+def static_sampler(generator: torch.Generator, batch: int,
+                   num_timesteps: int, value: int = 0,
+                   device: Optional[torch.device] = None):
+    """The fixed timestep `value` [batch] (int64) and unit importance
+    weights (fp32) on `device` (the generator's by default), which draws
+    nothing (the reference's StaticSampler, model/resample.py:51)."""
+    del num_timesteps
+    device = generator.device if device is None else device
+    t = torch.full((batch,), value, dtype=torch.long, device=device)
+    return t, torch.ones(batch, dtype=torch.float32, device=device)

@@ -11,6 +11,7 @@ ported: building them raises.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -156,6 +157,16 @@ class SparseTransformerVAE(nn.Module):
                 r = r * (p.shape[1] ** -0.5 / _TRUNC_STD)
             p.copy_(r)
         return self
+
+    def mem_ratio_to_remat_blocks(self, mem_ratio: float) -> int:
+        """The DiT's mapping from the reference's memory ratio (its
+        model/dit.py:429-442) over this VAE's blocks: recompute the first
+        ceil((1 - r) * n) + 1 blocks of the encoder and of the decoder,
+        for utils/elastic.LinearMemoryController."""
+        n = len(self.encoder)
+        if mem_ratio >= 1.0:
+            return 0
+        return min(math.ceil((1 - mem_ratio) * n) + 1, n)
 
     def _ape(self, x: SparseVoxels) -> torch.Tensor:
         return self.pos_embedder(x.coords.float()) * x.valid[..., None]

@@ -6,8 +6,10 @@ space and summed over the five layers.
 
 Parameters carry the torchvision / reference names (`features.{i}` for
 vgg16.features' convolutions, `lin{i}.model.1.weight` [1, C, 1, 1]);
-`load_lpips` reads the flat `.npz` that JAX's `convert_torch_lpips` writes
-(`vgg/conv{j}/kernel`, `vgg/conv{j}/bias`, `lin{i}`) through
+`convert_torch_lpips` turns torchvision's `vgg16.features` and LPIPS's
+heads into the flat `.npz` dict (`vgg/conv{j}/kernel` in HWIO,
+`vgg/conv{j}/bias`, `lin{i}`), the same keys and arrays as JAX's
+converter; `load_lpips` reads that `.npz` through
 `utils/weights.lpips_table`. Without a weights file it returns None, and
 the VAE trainer refuses to run with a non-zero LPIPS weight.
 """
@@ -15,8 +17,9 @@ the VAE trainer refuses to run with a non-zero LPIPS weight.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -98,3 +101,16 @@ def load_lpips(weights_path: Optional[str],
     model = LPIPS()
     model.load_state_dict(from_flax(lpips_table(), load_params(weights_path)))
     return model.to(device).requires_grad_(False)
+
+
+def convert_torch_lpips(vgg_state: Dict[str, Any],
+                        lin_state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """torchvision's vgg16.features state dict (`features.{i}.weight` /
+    `.bias` at CONV_INDEX) and the LPIPS heads (`lin{i}.model.1.weight` [1,
+    C, 1, 1]), tensors or arrays -> the flat dict that JAX's
+    `convert_torch_lpips` returns (np.savez it for `load_lpips`)."""
+    from ..models.registry import flatten_tree
+    from ..utils.weights import lpips_table, to_flax
+
+    return flatten_tree(to_flax(lpips_table(), {**vgg_state,
+                                                **lin_state})["params"])

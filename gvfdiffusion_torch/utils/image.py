@@ -41,8 +41,10 @@ def has_cv2() -> bool:
     return importlib.util.find_spec("cv2") is not None
 
 
-def read_image(path: str) -> np.ndarray:
-    """An image file -> uint8 [H, W, 3] RGB or [H, W, 4] RGBA."""
+def read_image(path: str, keep_gray: bool = False) -> np.ndarray:
+    """An image file -> uint8 [H, W, 3] RGB or [H, W, 4] RGBA; a grayscale
+    file [H, W] with `keep_gray` (as imageio reads it), else its value in
+    three channels."""
     if has_cv2():
         import cv2
 
@@ -50,11 +52,13 @@ def read_image(path: str) -> np.ndarray:
         if img is None:
             raise FileNotFoundError(f"cv2 could not read {path}")
         if img.ndim == 2:
-            return np.repeat(img[..., None], 3, -1)
+            return img if keep_gray else np.repeat(img[..., None], 3, -1)
         code = cv2.COLOR_BGRA2RGBA if img.shape[-1] == 4 else \
             cv2.COLOR_BGR2RGB
         return cv2.cvtColor(img, code)
     import imageio
 
-    return np.asarray(imageio.imread(path))
+    img = np.asarray(imageio.imread(path))
+    return img if img.ndim == 3 or keep_gray else np.repeat(img[..., None],
+                                                            3, -1)
 

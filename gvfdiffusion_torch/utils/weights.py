@@ -79,6 +79,7 @@ def _axes(to_torch: Tuple[int, ...]) -> Transform:
                      lambda a: np.transpose(a, inv))
 
 
+CONV1D = _axes((2, 1, 0))        # [k, I, O] <-> [O, I, k]
 CONV2D = _axes((3, 2, 0, 1))     # [kh, kw, I, O] <-> [O, I, kh, kw]
 CONV3D = _axes((4, 3, 0, 1, 2))  # [k, k, k, I, O] <-> [O, I, k, k, k]
 
@@ -266,6 +267,17 @@ def lpips_table() -> List[Row]:
             lambda a, ch=ch: a.reshape(1, ch, 1, 1),
             lambda w: w.reshape(-1))))
     return rows
+
+
+def conv4d_table() -> List[Row]:
+    """nn/misc.Conv4d: the spatial Conv3d and the temporal Conv1d."""
+    return (_conv("spatial_conv", ["spatial_conv"])
+            + _conv("temporal_conv", ["temporal_conv"], CONV1D))
+
+
+def attention_pooling_table() -> List[Row]:
+    """nn/misc.AttentionPooling: its q, k and v projections."""
+    return [r for n in ("q_proj", "k_proj", "v_proj") for r in _dense(n, [n])]
 
 
 def dinov2_table(depth: int = 24) -> List[Row]:

@@ -71,6 +71,14 @@ SLICE_MODULES = [
     "gvfdiffusion_torch.models.clip",
     "gvfdiffusion_torch.models.modnet",
     "gvfdiffusion_torch.scripts.matting",
+    "gvfdiffusion_torch.cli.encode_latent",
+    "gvfdiffusion_torch.data.prefetch",
+    "gvfdiffusion_torch.data.dataset_inference",
+    "gvfdiffusion_torch.train.eval_utils",
+    "gvfdiffusion_torch.utils.profiling",
+    "gvfdiffusion_torch.utils.elastic",
+    "gvfdiffusion_torch.nn.misc",
+    "gvfdiffusion_torch.ops.lpips",
 ]
 # image, video and checkpoint packages the card may lack: imported inside
 # the functions that need them, never by importing a module
