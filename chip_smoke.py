@@ -9,6 +9,9 @@
     python3 chip_smoke.py --wild-files  # build + K5 at DINOv2's 224^2, the
                                      # TRELLIS phase and [wild-files] only
     python3 chip_smoke.py --encode-latent  # build + [encode-latent] only
+    python3 chip_smoke.py --forms    # build + [forms] only
+    python3 chip_smoke.py --pipeline  # build + the video main path and
+                                     # its int8 phases ([main] .. [selfq8])
     python3 chip_smoke.py --split    # build + K1's-K7's device time by
                                      # kernel name
     python3 chip_smoke.py --profile  # the same, then profiled
@@ -63,7 +66,25 @@ Phases, each printed on its own lines:
      as prefixes), against the plain forward and backward on every row,
      with SDPA under the boolean key mask (forward; its backward) as the
      library call;
-  2a. device time by kernel name (torch.profiler, three calls each) inside
+  2a. [forms]: the kernel forms that no path reaches, each at its full
+     width against its plain version and a library call, driven once
+     through its wrapper for its launch count: K5 with segment_size 32 at
+     the packed temporal shape [32, 512, 16, 32] (K6's [1, 32, 512, 16,
+     32] voxel-major; also against K6 on the unpacked data, SDPA with the
+     block-diagonal mask), K5's int8 forms (quant "qk" and "qk+av") at the
+     DiT's self [32, 512, 16, 32] and DINOv2's [32, 1374, 16, 64] at
+     DINOv2-like logit scales, "qk" at the torso's [1, 4096, 16, 64] with
+     its -inf key bias, K1 with seg 16 on K2's chain at K2's inference x
+     viewed as [32, 32 x 16, 512] (float and int8 QK; against K2 on the
+     same data), K3's single context at [1, 32768, 1024] x 1374 with the q
+     RMS norm (bf16, fp32) and on an int8 cache (q_block 128); the
+     backward of K1-K4 at the training shapes (2 x 24 frames) and of K5
+     with a key bias, against torch's autograd through the plain
+     function; and the 12-block DiT in bf16 with a hoisted bf16 and int8
+     cache under autograd (loss sum(output * a seeded tensor), backward()
+     for every parameter and the input), against the same DiT's
+     impl="plain" run, with the step's time;
+  2b. device time by kernel name (torch.profiler, three calls each) inside
      K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
      the float and the int8 cache) at the DiT's shape, K3's single
      context at 4096 and 32768 rows, K5 at DINOv2's shape and K6 at the
@@ -389,6 +410,43 @@ KERNELS = [
     ("flash_attention[fp32, static VAE encode, batch 1, 12 heads]",
      "gvfdiffusion_tpu/sparse/attention.py:57",
      "gvfdiffusion_torch/csrc/flash_attention.cu", "flash_attention_encode"),
+    # the forms no path reaches ([forms]): K5's segment_size at the packed
+    # temporal shape and its int8 forms (the TPU kernel's quant body), K1's
+    # seg on K2's chain, K3's single context with the q RMS norm or on an
+    # int8 cache, at the uncompacted torso's shape
+    ("fused_attention[segment_size 32, packed temporal, heads of 32, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:108",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_seg_d32"),
+    ("fused_attention[int8 qk, DiT self, heads of 32, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:154",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_qk_d32"),
+    ("fused_attention[int8 qk, DINOv2, heads of 64, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:154",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_qk"),
+    ("fused_attention[int8 qk, torso kv_bias, heads of 64, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:154",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_qk_bias"),
+    ("fused_attention[int8 qk+av, DiT self, heads of 32, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:154",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_qkav_d32"),
+    ("fused_attention[int8 qk+av, DINOv2, heads of 64, bf16]",
+     "gvfdiffusion_tpu/ops/fused_attention.py:154",
+     "gvfdiffusion_torch/csrc/fused_attention.cu", "attention_qkav"),
+    ("fused_self_sublayer[seg 16, on K2's chain]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_seg"),
+    ("fused_self_sublayer[seg 16, int8 QK, on K2's chain]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:170",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "self_seg_q8"),
+    ("fused_cross_sublayer[single context, q RMS norm, bf16]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_rms"),
+    ("fused_cross_sublayer[single context, q RMS norm, fp32]",
+     "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_rms_fp32"),
+    ("fused_cross_sublayer[single context, int8 KV, q RMS norm, q_block "
+     "128]", "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
+     "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_q8"),
 ]
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
@@ -677,7 +735,14 @@ def bound(flops: float, moved: int, peak: float = PEAK_FLOPS):
     """(bound_ms, bound_by) at the assumed peaks (`peak` the operations'
     rate: bf16 tensor cores, PEAK_FP32 for fp32 work on the CUDA cores,
     PEAK_TF32 for tf32 products)."""
-    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
+    return _bound_mixed([(flops, peak)], moved)
+
+
+def _bound_mixed(ops, moved: int):
+    """bound() for work of several operand types: ops is [(operations,
+    peak rate)], their times added."""
+    t_ops = sum(n / peak for n, peak in ops) * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -908,7 +973,7 @@ def phase_kernels(dev):
                             library_ms=lib_ms)
     for name, replaces, source, key in KERNELS:
         base, variant = FORMS.get(key, (key, shipped))
-        if key in VAE_FLASH or key == ENCODE_FLASH:
+        if key in VAE_FLASH or key == ENCODE_FLASH or key in FORM_KEYS:
             continue
         if base in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
@@ -967,11 +1032,8 @@ def phase_cross_q8(dev, name, replaces, source, case, key):
     lib_ms = time_ms(lib)
     # the QK products at the int8 rate, the projections and P V at bf16's
     qk = 2 * B * T * N * (L_IMG + N) * C
-    t_ops = (sublayer_flops("cross") - qk) / PEAK_FLOPS * 1e3 \
-        + qk / PEAK_INT8 * 1e3
-    t_bytes = nbytes(args, y) / PEAK_BYTES * 1e3
-    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
-                                                                 "bytes")
+    b_ms, b_by = _bound_mixed([(sublayer_flops("cross") - qk, PEAK_FLOPS),
+                               (qk, PEAK_INT8)], nbytes(args, y))
     y_bound, upd_bound = FORM_BOUNDS.get(key, Q8_BOUNDS)
     log(f"[kernel] {name}: x {tuple(x.shape)} bf16 {c['kw']}, int8 image KV "
         f"{tuple(c1[0].shape)} + static {tuple(c2[0].shape)} (from the float "
@@ -1016,11 +1078,8 @@ def phase_qk8(dev, name, replaces, source, key, base, case):
     plain_ms = time_ms(lambda: fn(*args, **kw, impl="plain"))
     lib_ms = time_ms(lambda: lib(*args, **c["kw"]))
     qk = 2 * B * T * N * (N if base == "self_q8" else T) * C
-    t_ops = (sublayer_flops(QK8[base]) - qk) / PEAK_FLOPS * 1e3 \
-        + qk / PEAK_INT8 * 1e3
-    t_bytes = nbytes(args, y) / PEAK_BYTES * 1e3
-    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
-                                                                 "bytes")
+    b_ms, b_by = _bound_mixed([(sublayer_flops(QK8[base]) - qk, PEAK_FLOPS),
+                               (qk, PEAK_INT8)], nbytes(args, y))
     y_bound, upd_bound = FORM_BOUNDS.get(key, QK8_BOUNDS)
     log(f"[kernel] {name}: shape {tuple(x.shape)} bf16 {c['kw']} "
         f"max_abs_err {mae:.4g} "
@@ -4596,6 +4655,552 @@ def phase_profile_training(dev, card):
              f"{TRAIN_T} frames, fp32)", "train_step_trace.json", card)
 
 
+# -- [forms]: the kernel forms no main path reaches (K5's segment_size and
+# int8 forms, K1's seg, K3's single context with the q RMS norm or an int8
+# cache) and the fused DiT block under autograd -----------------------------
+
+# the entries of KERNELS that phase_forms checks, times and counts, each
+# driven once through its public wrapper with the counters at 0: its
+# launches are that drive's
+FORM_KEYS = ("attention_seg_d32", "attention_qk_d32", "attention_qk",
+             "attention_qk_bias", "attention_qkav_d32", "attention_qkav",
+             "self_seg", "self_seg_q8", "cross_single_rms",
+             "cross_single_rms_fp32", "cross_single_q8")
+SEG_T = 32                 # K5's segment_size: the infer CLI's T = 32 frames
+SEG_VOXELS = 16            # voxels a packed sequence: 16 x 32 = 512 rows
+DINO_LOGIT_STD = 3.0       # q, k std at DINOv2's shape: scaled logits ~9 std
+# kernel vs plain version, rel L2, at 3-6x the readings measured on an
+# H100 80GB HBM3 (700 W) with these seeds: K5's segments (3.7e-5) and against K6 on
+# the unpacked data (3.5e-5); int8 QK (4.9e-5, 6.8e-5, 1.4e-4); int8 P V
+# (0 at both shapes: where exp2's two implementations straddle a midpoint
+# one P step moves a row by at most vm / 127), and against the float form
+# (2.9e-2, 4.8e-2; the TPU notes report 14-32% at random inputs); K1 seg
+# against K2 on the same data (the same chain: 0); K3 single on an int8
+# cache (y 1.2e-5, update 1.2e-4)
+SEG_REL_BOUND = 2e-4
+SEG_K6_BOUND = 2e-4
+QK_REL_BOUND = 6e-4
+QKAV_REL_BOUND = 1e-3
+QKAV_FLOAT_BOUND = 0.2
+SEG_K2_BOUND = 1e-6
+SINGLE_Q8_BOUNDS = (6e-5, 6e-4)
+# the backward of K1-K4 (and K5 with a key bias) against torch's autograd
+# through the same plain function, rel L2 of each gradient: the kernels'
+# Function recomputes that function in chunks of batch rows, its shared
+# gradients rounded to bf16 per chunk (readings: K1 3.1e-3, K3 3.0e-3, K2
+# and K4 in one chunk 0); K5 fp32 throughout (2.0e-7)
+SUBLAYER_GRAD_BOUND = 1e-2
+K5_GRAD_BOUND = 1e-6
+# the 12-block DiT under autograd, kernels against impl="plain": rel of the
+# loss (readings 9.9e-3 bf16 cache, 1.7e-2 int8), rel L2 of the worst
+# parameter gradient (2.0e-2, 2.6e-2) and of the input's (1.2e-2, 1.3e-2)
+DIT_GRAD_BOUNDS = {"loss": 5e-2, "params": 0.1, "x": 5e-2}
+
+
+def _form_result(name, replaces, source, mae, ms, plain_ms, lib_ms, b):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=mae, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib_ms)
+
+
+def _drive(counts, key, fn):
+    """fn() once with every counter at 0; the launches of `key`."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    n = counts()[key]
+    if n != 1:
+        raise AssertionError(f"{key}: {n} launches in its drive, not 1")
+    return out, n
+
+
+def forms_k5(dev, entries, card):
+    """K5's segment_size at the packed temporal shape, against its plain
+    version and K6 on the unpacked data; its int8 forms at the DiT's self
+    shape and DINOv2's (at DINOv2-like logit scales), qk with a -inf key
+    bias at the torso's; SDPA (with the block-diagonal or key mask) as the
+    library call."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import fused_attention as fa
+
+    counts = lambda: fa.launch_counts
+    res, launches = {}, {}
+    g = torch.Generator(device=dev).manual_seed(31)
+    rnd = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device=dev)
+                              * sc).bfloat16()
+    D = C // H
+    scale = D ** -0.5
+    # segments: K6's [1, 32, 512, 16, 32] packed voxel-major, 16 voxels of
+    # 32 frames a sequence
+    q6, k6, v6 = (rnd(B, T, N, H, D) for _ in range(3))
+    pack = lambda a: a.permute(0, 2, 1, 3, 4).reshape(
+        B * N // SEG_VOXELS, SEG_VOXELS * T, H, D).contiguous()
+    qp, kp, vp = map(pack, (q6, k6, v6))
+    name, replaces, source = entries["attention_seg_d32"]
+    y, launches["attention_seg_d32"] = _drive(
+        counts, "attention_seg_d32",
+        lambda: fa.fused_attention(qp, kp, vp, scale, segment_size=SEG_T))
+    ref = fa.fused_attention(qp, kp, vp, scale, segment_size=SEG_T,
+                             impl="plain")
+    k6_out = pack(fa.temporal_attention(q6, k6, v6, scale))
+    err, k6_err = rel_l2(y, ref), rel_l2(y, k6_out)
+    mae = float((y.float() - ref.float()).abs().max())
+    rows = torch.arange(SEG_VOXELS * T, device=dev) // SEG_T
+    mask = rows[:, None] == rows[None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        *(a.transpose(1, 2) for a in (qp, kp, vp)), attn_mask=mask)
+    ms = time_ms(lambda: fa.fused_attention(qp, kp, vp, scale,
+                                            segment_size=SEG_T))
+    plain_ms = time_ms(lambda: fa.fused_attention(
+        qp, kp, vp, scale, segment_size=SEG_T, impl="plain"), iters=3)
+    k6_ms = time_ms(lambda: fa.temporal_attention(q6, k6, v6, scale))
+    lib_ms = time_ms(sdpa)
+    flops = 4 * qp.shape[0] * H * qp.shape[1] * SEG_T * D  # in-segment keys
+    b = bound(flops, nbytes(qp, kp, vp, y))
+    log(f"[forms] {name}: q/k/v {tuple(qp.shape)} bf16, segment_size "
+        f"{SEG_T}: max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+        f"{SEG_REL_BOUND:g}); against K6 on the unpacked {tuple(q6.shape)} "
+        f"rel_l2 {k6_err:.3e} (bound {SEG_K6_BOUND:g}); kernel {ms:.4f} ms "
+        f"plain {plain_ms:.3f} ms K6 {k6_ms:.4f} ms sdpa (block-diagonal "
+        f"mask) {lib_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}); launches "
+        f"{launches['attention_seg_d32']}; {card}")
+    if not (bool(torch.isfinite(y).all()) and err <= SEG_REL_BOUND
+            and k6_err <= SEG_K6_BOUND):
+        raise AssertionError(f"{name} disagrees")
+    res["attention_seg_d32"] = _form_result(name, replaces, source, mae, ms,
+                                            plain_ms, lib_ms, b)
+
+    def q8_case(key):
+        if key.endswith("_d32"):
+            return (rnd(T, N, H, D), rnd(T, N, H, D), rnd(T, N, H, D), None,
+                    "DiT self")
+        if key == "attention_qk_bias":
+            bias = torch.zeros(1, TORSO, device=dev)
+            bias[:, L_TORSO_VALID:] = float("-inf")
+            return (rnd(1, TORSO, 16, 64), rnd(1, TORSO, 16, 64),
+                    rnd(1, TORSO, 16, 64), bias,
+                    f"torso, {L_TORSO_VALID} of {TORSO} keys valid")
+        s = DINO_LOGIT_STD
+        return (rnd(T, L_IMG, 16, 64, sc=s), rnd(T, L_IMG, 16, 64, sc=s),
+                rnd(T, L_IMG, 16, 64), None, "DINOv2")
+
+    for key in ("attention_qk_d32", "attention_qk", "attention_qk_bias",
+                "attention_qkav_d32", "attention_qkav"):
+        name, replaces, source = entries[key]
+        quant = "qk+av" if "qkav" in key else "qk"
+        count_key = fa.launch_key(64 if key in ("attention_qk",
+                                                "attention_qkav",
+                                                "attention_qk_bias") else 32,
+                                  False, False, quant=quant)
+        q, k, v, bias, what = q8_case(key)
+        sc_ = q.shape[-1] ** -0.5
+        kw = dict(kv_bias=bias, quant=quant)
+        y, launches[key] = _drive(
+            counts, count_key, lambda: fa.fused_attention(q, k, v, sc_, **kw))
+        ref = fa.fused_attention(q, k, v, sc_, **kw, impl="plain")
+        flt = fa.fused_attention(q, k, v, sc_, kv_bias=bias, impl="plain")
+        err, f_err = rel_l2(y, ref), rel_l2(y, flt)
+        mae = float((y.float() - ref.float()).abs().max())
+        logit = float((torch.einsum("bqhd,bkhd->bhqk", q[:1].float(),
+                                    k[:1].float()) * sc_).abs().max())
+        mask = None if bias is None else bias[:, None, None, :].bfloat16()
+        sdpa = lambda: F.scaled_dot_product_attention(
+            *(a.transpose(1, 2) for a in (q, k, v)), attn_mask=mask)
+        ms = time_ms(lambda: fa.fused_attention(q, k, v, sc_, **kw))
+        plain_ms = time_ms(lambda: fa.fused_attention(q, k, v, sc_, **kw,
+                                                      impl="plain"), iters=2)
+        float_ms = time_ms(lambda: fa.fused_attention(q, k, v, sc_,
+                                                      kv_bias=bias))
+        lib_ms = time_ms(sdpa)
+        Bq, Lq, Hq, Dq = q.shape
+        lk = k.shape[1] if bias is None else L_TORSO_VALID
+        prod = 2 * Bq * Hq * Lq * lk * Dq
+        b = _bound_mixed([(prod, PEAK_INT8), (prod, PEAK_INT8 if quant ==
+                                              "qk+av" else PEAK_FLOPS)],
+                         nbytes(q, k, v, y, bias))
+        rel_bound = QKAV_REL_BOUND if quant == "qk+av" else QK_REL_BOUND
+        log(f"[forms] {name}: q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+            f"({what}; largest |scaled logit| of batch row 0 {logit:.1f}): "
+            f"max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound {rel_bound:g}); "
+            f"against the float form rel_l2 {f_err:.3e}"
+            + (f" (bound {QKAV_FLOAT_BOUND:g})" if quant == "qk+av" else "")
+            + f"; kernel {ms:.4f} ms (float K5 {float_ms:.4f} ms) plain "
+            f"{plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {b[0]:.4f} ms "
+            f"({b[1]}); launches {launches[key]}; {card}")
+        if not (bool(torch.isfinite(y).all()) and err <= rel_bound
+                and (quant == "qk" or f_err <= QKAV_FLOAT_BOUND)):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        res[key] = _form_result(name, replaces, source, mae, ms, plain_ms,
+                                lib_ms, b)
+    return res, launches
+
+
+def forms_sublayers(dev, entries, card):
+    """K1 with seg = 16 on the x K2 runs at the inference shape, viewed as
+    [32, 32 x 16, 512] (mod_repeat 32), float and int8 QK, against its
+    plain version and K2 on the same data; K3's single context with the q
+    RMS norm (bf16 and fp32) and on an int8 cache (q_block 128) at the
+    uncompacted torso's [1, 32768, 1024] x 1374, 16 heads of 64."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    counts = lambda: fsl.launch_counts
+    res, launches = {}, {}
+    g = torch.Generator(device=dev).manual_seed(32)
+    x4, case = sublayer_cases(dev, g)["temporal"]
+    args = case["args"][1:]
+    view = lambda a: a.reshape(B, T, N // SEG_VOXELS, SEG_VOXELS, C).permute(
+        0, 2, 1, 3, 4).reshape(B * N // SEG_VOXELS, T * SEG_VOXELS,
+                               C).contiguous()
+    x1 = view(x4)
+    for key in ("self_seg", "self_seg_q8"):
+        name, replaces, source = entries[key]
+        q8 = key.endswith("q8")
+        kw = dict(num_heads=H, rms=True, seg=SEG_VOXELS,
+                  mod_repeat=x1.shape[0], quant_qk=q8)
+        y, launches[key] = _drive(
+            counts, key, lambda: fsl.fused_self_sublayer(x1, *args, **kw))
+        ref = fsl.fused_self_sublayer(x1, *args, **kw, impl="plain")
+        k2 = view(fsl.fused_temporal_sublayer(x4, *args, num_heads=H,
+                                              quant_qk=q8))
+        err, k2_err = rel_l2(y, ref), rel_l2(y, k2)
+        upd = rel_l2(y.float() - x1.float(), ref.float() - x1.float())
+        mae = float((y.float() - ref.float()).abs().max())
+        ms = time_ms(lambda: fsl.fused_self_sublayer(x1, *args, **kw))
+        plain_ms = time_ms(lambda: fsl.fused_self_sublayer(
+            x1, *args, **kw, impl="plain"), iters=3)
+        k2_ms = time_ms(lambda: fsl.fused_temporal_sublayer(
+            x4, *args, num_heads=H, quant_qk=q8))
+        lib_ms = time_ms(lambda: library_temporal(x4, *args, num_heads=H))
+        qk = 2 * B * T * N * T * C
+        b = _bound_mixed([(sublayer_flops("temporal") - qk, PEAK_FLOPS),
+                          (qk, PEAK_INT8 if q8 else PEAK_FLOPS)],
+                         nbytes(x1, args, y))
+        y_bound, upd_bound = QK8_BOUNDS if q8 else BOUNDS["temporal"]
+        log(f"[forms] {name}: x {tuple(x1.shape)} bf16 (K2's {tuple(x4.shape)}"
+            f" viewed voxel-major), seg {SEG_VOXELS}, mod_repeat "
+            f"{x1.shape[0]}: max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+            f"{y_bound:g}) update_rel_l2 {upd:.3e} (bound {upd_bound:g}); "
+            f"against K2 on the same data rel_l2 {k2_err:.3e} (bound "
+            f"{SEG_K2_BOUND:g}); kernel {ms:.3f} ms (K2 {k2_ms:.3f} ms) "
+            f"plain {plain_ms:.3f} ms library {lib_ms:.3f} ms bound "
+            f"{b[0]:.4f} ms ({b[1]}); launches {launches[key]}; {card}")
+        if not (bool(torch.isfinite(y).all()) and err <= y_bound
+                and upd <= upd_bound and k2_err <= SEG_K2_BOUND):
+            raise AssertionError(f"{name} disagrees")
+        res[key] = _form_result(name, replaces, source, mae, ms, plain_ms,
+                                lib_ms, b)
+
+    Cx, heads = 1024, 16
+    gt = torch.Generator(device=dev).manual_seed(33)
+    r = lambda *s_, sc=1.0: torch.randn(*s_, generator=gt, device=dev) * sc
+    x = r(1, SLOTS, Cx)
+    gamma = (1.0 + 0.1 * r(Cx)) * (Cx // heads) ** 0.5
+    p32 = (1 + 0.1 * r(Cx), 0.1 * r(Cx), r(Cx, Cx, sc=Cx ** -0.5),
+           0.1 * r(Cx), gamma, r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx))
+    kvp32 = r(1, L_IMG, 2 * Cx)
+    flops = 2 * 2 * SLOTS * Cx * Cx + 4 * SLOTS * L_IMG * Cx
+    for key in ("cross_single_rms", "cross_single_rms_fp32",
+                "cross_single_q8"):
+        name, replaces, source = entries[key]
+        f32 = key.endswith("fp32")
+        dt = torch.float32 if f32 else torch.bfloat16
+        p = tuple(a.to(dt) for a in p32)
+        kvp = kvp32.to(dt)
+        kv = (kvp[..., :Cx], kvp[..., Cx:])
+        kw = dict(num_heads=heads, rms=True, compute_dtype=dt)
+        q8 = key.endswith("q8")
+        if q8:
+            kv = int8_cache(tuple(a.contiguous() for a in kv), heads)
+            kw.update(quant=True, q_block=128)
+        count_key = fsl.single_launch_key(dt, Cx // heads, rms=not q8,
+                                          quant=q8)
+        with torch.no_grad():
+            y, launches[key] = _drive(
+                counts, count_key,
+                lambda: fsl.fused_cross_sublayer(x, p, kv, **kw))
+            ref = fsl.fused_cross_sublayer(x, p, kv, **kw, impl="plain")
+            err, upd = rel_l2(y, ref), rel_l2(y - x, ref - x)
+            mae = float((y - ref).abs().max())
+            ms = time_ms(lambda: fsl.fused_cross_sublayer(x, p, kv, **kw))
+            plain_ms = time_ms(lambda: fsl.fused_cross_sublayer(
+                x, p, kv, **kw, impl="plain"), iters=2)
+            kvf = (kvp[..., :Cx], kvp[..., Cx:])
+            lib = lambda: library_cross_single_rms(x, p, kvf, heads)
+            lib_upd = rel_l2(lib() - x, ref - x)
+            lib_ms = time_ms(lib)
+        if f32:
+            b = bound(flops * 3, nbytes(x, p, kvp, y), PEAK_TF32)
+            y_bound, upd_bound = CROSS_F32_BOUNDS
+        elif q8:
+            qk = 2 * SLOTS * L_IMG * Cx
+            b = _bound_mixed([(flops - qk, PEAK_FLOPS), (qk, PEAK_INT8)],
+                             nbytes(x, p, kv, y))
+            y_bound, upd_bound = SINGLE_Q8_BOUNDS
+        else:
+            b = bound(flops, nbytes(x, p, kvp, y))
+            y_bound, upd_bound = BOUNDS["cross_single"]
+        log(f"[forms] {name}: x {tuple(x.shape)} fp32, "
+            f"{'fp32' if f32 else 'bf16'} compute, {heads} heads of "
+            f"{Cx // heads}, q RMS norm" + (", int8 cache, q_block 128"
+                                            if q8 else "")
+            + f": max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+            f"{y_bound:g}) update_rel_l2 {upd:.3e} (bound {upd_bound:g}); "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
+            f"{lib_ms:.3f} ms (its update rel_l2 {lib_upd:.3e}) bound "
+            f"{b[0]:.4f} ms ({b[1]}); launches {launches[key]}; {card}")
+        if not (bool(torch.isfinite(y).all()) and err <= y_bound
+                and upd <= upd_bound):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        res[key] = _form_result(name, replaces, source, mae, ms, plain_ms,
+                                lib_ms, b)
+    return res, launches
+
+
+def library_cross_single_rms(x, p, kv, num_heads):
+    """K3's single context with the q RMS norm as library calls
+    (F.layer_norm, cuBLAS products, the norm's elementwise ops, SDPA, the
+    residual), in the parameters' dtype."""
+    import torch.nn.functional as F
+
+    ns, nb, wq, bq, qg, wo, bo = p
+    Bx, L, Cx = x.shape
+    dt = wq.dtype
+    h = F.layer_norm(x.float(), (Cx,), ns.float(), nb.float(), eps=1e-6)
+    q = (h.to(dt) @ wq + bq).float().view(Bx, L, num_heads, -1)
+    q = (q * (q.square().sum(-1, keepdim=True) + 1e-12).rsqrt()).view(
+        Bx, L, Cx) * qg.float()
+    q = q.to(dt).view(Bx, L, num_heads, -1).transpose(1, 2)
+    k, v = (a.reshape(Bx, a.shape[1], num_heads, -1).transpose(1, 2)
+            for a in kv)
+    o = F.scaled_dot_product_attention(q, k, v)
+    out = o.transpose(1, 2).reshape(Bx, L, Cx) @ wo + bo
+    return x + out.to(x.dtype)
+
+
+def _input_grads(fn, inputs, gy):
+    """The gradients of fn at `inputs` for the cotangent gy (forward and
+    backward)."""
+    import torch
+
+    ins = [a.detach().requires_grad_(a.is_floating_point()) for a in inputs]
+    return torch.autograd.grad(fn(*ins), ins, gy, allow_unused=True)
+
+
+def _grad_rel(fn, ref_fn, inputs, gy):
+    """The worst rel L2 over the inputs' gradients of fn against ref_fn
+    (torch's autograd through the plain function) for the cotangent gy,
+    and the time of fn's forward + backward."""
+    got = _input_grads(fn, inputs, gy)
+    want = _input_grads(ref_fn, inputs, gy)
+    worst = max(rel_l2(a, b_) for a, b_ in zip(got, want)
+                if b_ is not None)
+    fb_ms = time_ms(lambda: _input_grads(fn, inputs, gy), iters=3, warm=1)
+    return worst, fb_ms
+
+
+def forms_backward(dev, card):
+    """The backward of K1-K4 at the DiT training shapes (B x T = 48 frames
+    of 512, 16 heads of 32, bf16), through their autograd Function, against
+    torch's autograd through the same plain function; K5's key-bias
+    gradient at the torso's [1, 4096, 16, 64] with its -inf padding keys
+    (fp32, against autograd of fp32 softmax attention)."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_attention as fa
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    g = torch.Generator(device=dev).manual_seed(34)
+    bt = TRAIN_B * TRAIN_T
+    rnd = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device=dev)
+                              * sc).bfloat16()
+    cases = sublayer_cases(dev, g)
+    mr = TRAIN_T
+    for key, fn, ref in (
+            ("self", fsl.fused_self_sublayer, fsl.self_sublayer_reference),
+            ("temporal", fsl.fused_temporal_sublayer,
+             fsl.temporal_sublayer_reference),
+            ("cross", fsl.fused_cross_sublayer,
+             fsl.cross_sublayer_reference),
+            ("mlp", fsl.fused_mlp_sublayer, fsl.mlp_sublayer_reference)):
+        _, c = cases[key]
+        args, kw = list(c["args"]), dict(c["kw"])
+        if key == "temporal":
+            args[0] = rnd(TRAIN_B, TRAIN_T, N, C)
+            args[1:4] = [rnd(TRAIN_B, C, sc=0.3) for _ in range(3)]
+        else:
+            args[0] = rnd(bt, N, C)
+        if key in ("self", "mlp"):
+            args[1:4] = [rnd(TRAIN_B, C, sc=0.3) for _ in range(3)]
+            kw["mod_repeat"] = mr
+        if key == "cross":
+            args[2] = tuple(rnd(bt, L_IMG, C) for _ in range(2))
+            args[4] = tuple(rnd(bt, N, C) for _ in range(2))
+        flat = [args[0], *[t for a in args[1:] for t in
+                           (a if isinstance(a, tuple) else (a,))]]
+        sizes = [len(a) if isinstance(a, tuple) else None for a in args[1:]]
+
+        def unflat(ts):
+            out, i = [ts[0]], 1
+            for n in sizes:
+                out.append(ts[i] if n is None else tuple(ts[i:i + n]))
+                i += 1 if n is None else n
+            return out
+
+        if key in ("self", "mlp"):
+            rep = lambda a: a.repeat_interleave(mr, 0)  # noqa: E731
+
+            def ref_fn(*ts, ref=ref):
+                a = unflat(ts)
+                return ref(a[0], *map(rep, a[1:4]), *a[4:], **{
+                    k_: v_ for k_, v_ in kw.items() if k_ != "mod_repeat"})
+        else:
+            def ref_fn(*ts, ref=ref):
+                return ref(*unflat(ts), **kw)
+
+        def fn_k(*ts, fn=fn):
+            return fn(*unflat(ts), **kw)
+
+        gy = rnd(*args[0].shape)
+        worst, fb_ms = _grad_rel(fn_k, ref_fn, flat, gy)
+        fb_plain = time_ms(lambda: _input_grads(ref_fn, flat, gy), iters=2,
+                           warm=1)
+        log(f"[forms] backward of {key} at x {tuple(args[0].shape)} bf16 "
+            f"{kw}: gradients vs autograd of the plain function worst rel_l2 "
+            f"{worst:.3e} (bound {SUBLAYER_GRAD_BOUND:g}); forward + "
+            f"backward kernel {fb_ms:.3f} ms, plain {fb_plain:.3f} ms; {card}")
+        if not worst <= SUBLAYER_GRAD_BOUND:
+            raise AssertionError(f"the backward of {key} disagrees")
+    gk = torch.Generator(device=dev).manual_seed(35)
+    r = lambda *s: torch.randn(*s, generator=gk, device=dev)
+    q, k, v = (r(1, TORSO, 16, 64) for _ in range(3))
+    bias = 0.5 * r(1, TORSO)
+    bias[:, L_TORSO_VALID:] = float("-inf")
+    scale = 64 ** -0.5
+
+    def plain_fp32(q, k, v, b):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + b[:, None, None]
+        return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+
+    gy = r(1, TORSO, 16, 64)
+    worst, fb_ms = _grad_rel(
+        lambda q, k, v, b: fa.fused_attention(q, k, v, scale, kv_bias=b),
+        plain_fp32, (q, k, v, bias), gy)
+    log(f"[forms] backward of K5 with a key bias at q/k/v {tuple(q.shape)} "
+        f"fp32, {L_TORSO_VALID} of {TORSO} keys valid: dq, dk, dv, dbias vs "
+        f"autograd of fp32 softmax attention worst rel_l2 {worst:.3e} "
+        f"(bound {K5_GRAD_BOUND:g}); forward + backward {fb_ms:.3f} ms; "
+        f"{card}")
+    if not worst <= K5_GRAD_BOUND:
+        raise AssertionError("K5's backward disagrees")
+
+
+def forms_dit_grad(dev, card):
+    """The fused DiT under autograd: the 12-block, 512-wide DiT in bf16 as
+    VideoTo4DPipeline builds it, at the trainer's shape (batch 2 x 24
+    frames of 512 voxels), its cache hoisted by dit.kv_cache from seeded
+    DINOv2-shaped tokens and the static latent (bf16, then int8), under
+    autograd: the loss sum(output * a seeded tensor), backward() for every
+    parameter and the input latent; the kernels' run against the same
+    DiT's impl="plain" run. Returns the K1-K4 launches of the bf16-cache
+    kernel run."""
+    import torch
+    from gvfdiffusion_torch.models.dit import DiT
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    dit = init_random_(DiT(dtype=torch.bfloat16), seed=0).to(dev)
+    g = torch.Generator(device=dev).manual_seed(36)
+    x = torch.randn(TRAIN_B, TRAIN_T, N, 16, generator=g, device=dev)
+    t = 500.0 - 250.0 * torch.arange(TRAIN_B, device=dev)  # one a sample
+    ci = torch.randn(TRAIN_B, TRAIN_T, L_IMG, 1024, generator=g, device=dev)
+    st = torch.randn(TRAIN_B, N, 14, generator=g, device=dev)
+    pos = torch.rand(TRAIN_B, N, 3, generator=g, device=dev) - 0.5
+    w = torch.randn(TRAIN_B, TRAIN_T, N, 16, generator=g, device=dev)
+    params = [p for p in dit.parameters()]
+    launches = None
+
+    def step(kv_quant, impl):
+        dit.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_(True)
+        kv = dit.kv_cache(ci, st, kv_quant)
+        out = dit(xg, t, positions=pos, cross_kv=kv, impl=impl)
+        loss = (out.float() * w).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                 for p in params]
+        return float(loss.detach()), grads, xg.grad
+
+    for kv_quant in (None, "int8"):
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads, gx = step(kv_quant, None)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: n for k, n in fsl.launch_counts.items() if n}
+        if kv_quant is None:
+            launches = counts
+        want = {"self", "temporal", "mlp",
+                "cross" if kv_quant is None else "cross_q8"}
+        if set(counts) != want or any(n != 12 for n in counts.values()):
+            raise AssertionError(f"the DiT's fused path launched {counts}")
+        t0 = time.perf_counter()
+        step(kv_quant, None)
+        step_ms2 = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loss_p, grads_p, gx_p = step(kv_quant, "plain")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [rel_l2(a, b_) for a, b_ in zip(grads, grads_p)
+                if float(b_.abs().max()) > 0]
+        none = sum(1 for b_ in grads_p if float(b_.abs().max()) == 0)
+        loss_err = abs(loss - loss_p) / abs(loss_p)
+        x_err = rel_l2(gx, gx_p)
+        finite = all(bool(torch.isfinite(a).all()) for a in grads) and \
+            bool(torch.isfinite(gx).all())
+        log(f"[forms] DiT 12x512 bf16 under autograd, cache "
+            f"{kv_quant or 'bf16'}, x {tuple(x.shape)}: loss {loss:.6g} "
+            f"(plain {loss_p:.6g}, rel {loss_err:.3e}, bound "
+            f"{DIT_GRAD_BOUNDS['loss']:g}); parameter gradients vs "
+            f"impl=\"plain\" worst rel_l2 {max(errs):.3e}, median "
+            f"{sorted(errs)[len(errs) // 2]:.3e} (bound "
+            f"{DIT_GRAD_BOUNDS['params']:g}; {len(errs)} tensors, {none} "
+            f"with no gradient in both); input gradient rel_l2 {x_err:.3e} "
+            f"(bound {DIT_GRAD_BOUNDS['x']:g}); step (kv_cache, forward, "
+            f"backward) {step_ms:.1f} ms first, {step_ms2:.1f} ms second, "
+            f"plain {plain_ms:.1f} ms; launches {counts}; {card}")
+        if not (finite and loss_err <= DIT_GRAD_BOUNDS["loss"]
+                and max(errs) <= DIT_GRAD_BOUNDS["params"]
+                and x_err <= DIT_GRAD_BOUNDS["x"]):
+            raise AssertionError("the DiT's gradients disagree")
+    del dit
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_forms(dev, card):
+    """The [forms] phase: each new kernel form against its plain version
+    at full width (its kernels-line entry, its launches from its own
+    drive), the backward, and the DiT under autograd."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries = {key: (name, replaces, source)
+               for name, replaces, source, key in KERNELS
+               if key in FORM_KEYS}
+    res, launches = forms_k5(dev, entries, card)
+    r2, l2 = forms_sublayers(dev, entries, card)
+    res.update(r2)
+    launches.update(l2)
+    torch.cuda.empty_cache()
+    forms_backward(dev, card)
+    torch.cuda.empty_cache()
+    forms_dit_grad(dev, card)
+    log(f"[forms] phase in {time.perf_counter() - t0:.1f} s")
+    return res, launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -4642,6 +5247,12 @@ def main(argv) -> int:
     if "--encode-latent" in argv:
         phase_encode_latent(dev, card)
         return 0
+    if "--forms" in argv:
+        phase_forms(dev, card)
+        return 0
+    if "--pipeline" in argv:
+        phase_pipeline(*build_models(dev), dev, card)
+        return 0
     if "--infer" in argv:
         for name, replaces, source, key in KERNELS:
             if key.startswith("infer_"):
@@ -4668,6 +5279,8 @@ def main(argv) -> int:
     results = phase_kernels(dev)
     if quick:
         return 0
+    forms, form_launches = phase_forms(dev, card)
+    results.update(forms)
     phase_profile_split(dev, card, traces=False)
     dino, dit, vae = build_models(dev)
     phase_dinov2(dino, dev, card)
@@ -4707,11 +5320,13 @@ def main(argv) -> int:
     # self_quant, K7's residual forward and backward kernels from
     # main_vae's run in `full` attention ([vae-train]: its first step's
     # log; every step launches the same), K7 at the static VAE's batch of 1
-    # from encode_latent's run ([encode-latent]), the forms of the DiT's other
+    # from encode_latent's run ([encode-latent]), the forms no path reaches
+    # from their own drive in [forms], the forms of the DiT's other
     # configurations from the
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path
-    counts = {**launches, **configs, **trellis, **train, **vae}
+    counts = {**launches, **configs, **trellis, **train, **vae,
+              **form_launches}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")

@@ -37,9 +37,13 @@ _SIGNATURES = {
     "gvf_cross_sublayer": [_P] + ([_P] * 9 + [_I]) * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_mlp_sublayer": [_P] * 11 + [_I] * 5 + [_P],
-    "gvf_cross_sublayer1": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 4 + [_I] * 5
+    "gvf_cross_sublayer1": [_P] * 10 + [_I] + [_L] * 2 + [_P] * 4 + [_I] * 5
     + [_P],
-    "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _F, _I, _I, _P],
+    "gvf_cross_sublayer1_q8": [_P] * 12 + [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "gvf_attention": [_P] * 5 + [_I] * 5 + [_L] * 4
+    + [_F, _F, _I, _I, _I, _P],
+    "gvf_attention_q8": [_P] * 10 + [_I] * 5 + [_L] * 4 + [_I] * 3
+    + [_F, _P],
     "gvf_temporal_attention": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
     "gvf_cross_sublayer_q8": [_P] + ([_P] * 11 + [_I]) * 2 + [_P] * 7
     + [_I] * 5 + [_P],
@@ -48,7 +52,7 @@ _SIGNATURES = {
     + [_F, _I, _P],
     "gvf_flash_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 6
     + [_F, _I, _P],
-    "gvf_cross_sublayer1_f32": [_P] * 9 + [_I] + [_L] * 2 + [_P] * 5
+    "gvf_cross_sublayer1_f32": [_P] * 10 + [_I] + [_L] * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],
     "gvf_temporal_sublayer_q8": [_P] * 18 + [_I] * 6 + [_P],

@@ -60,6 +60,13 @@ struct AttnParams {
   // tf32(o)) at o_lo (the operand of K3's 3xTF32 out projection)
   float* lse = nullptr;
   void* o_lo = nullptr;
+  // attention_sm90.cuh only (K5's segment_size): seg > 0 makes the
+  // attention block-diagonal, query row i seeing key j only where i / seg
+  // == j / seg (Lq == Lk); a CTA visits only the key tiles of its rows'
+  // segments. attention_sm90_tf32.cuh only (K3's single context in fp32 with
+  // rms): qg_f32 [C], the fp32 q RMS-norm gamma, or null
+  int seg = 0;
+  const float* qg_f32 = nullptr;
 };
 
 constexpr float LOG2E = 1.4426950408889634f;

@@ -25,7 +25,13 @@
 // with no maximum and no rescale. Keys past Lk are masked; an optional fp32
 // per-key logit bias (-inf masks the key) is added; a row with no visible
 // key gives exactly 0, never NaN (the maximum is taken as 0 while it is
-// -inf, so exp2(-inf - -inf) is never formed).
+// -inf, so exp2(-inf - -inf) is never formed). With segments (K5's
+// segment_size s, Lq == Lk a multiple of s) query row i sees only the keys
+// of its segment, i / s == j / s: a CTA visits the run of key tiles that
+// holds its rows' segments (two tiles at most at the DiT's packed temporal
+// shape, s = 32 against 128-key tiles) and sets S to -inf on the keys of
+// another segment inside them, so that P is exactly 0 there; a segment
+// need not line up with a tile (at s = 32 a 128-key tile holds four).
 //
 // Design (the hopper-kernels guide, section 1): one CTA per (query tile of
 // 64 * NWG rows, head, batch row); NWG consumer warpgroups of 64 query rows
@@ -628,7 +634,8 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-template <int D, int NWG, typename TQ, typename TKV, typename TO, bool FIXED>
+template <int D, int NWG, typename TQ, typename TKV, typename TO, bool FIXED,
+          bool SEG>
 __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
     attn_sm90_kernel(const AttnParams p, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv) {
@@ -651,9 +658,18 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
   const int h = blockIdx.y;
   const long long z1 = blockIdx.z / p.nb2, z2 = blockIdx.z % p.nb2;
   const int q0 = blockIdx.x * (64 * NWG);
-  // the key tiles: every one, or (K7) the row block's list
+  // the key tiles: every one, (K7) the row block's list, or (K5's
+  // segment_size) the run of tiles first .. first + tiles - 1 that holds
+  // the keys of the segments of this CTA's query rows
   const int* tl = p.tiles ? p.tiles + z1 * p.tiles_s1 : nullptr;
-  const int tiles = tl ? tl[0] : (p.Lk + BK - 1) / BK;
+  int tiles = tl ? tl[0] : (p.Lk + BK - 1) / BK, first = 0;
+  if constexpr (SEG) {
+    const int qend = min(q0 + 64 * NWG, p.Lq);
+    const int klo = (q0 / p.seg) * p.seg;
+    const int khi = min(p.Lk, ((qend - 1) / p.seg + 1) * p.seg);
+    first = klo / BK;
+    tiles = (khi - 1) / BK - first + 1;
+  }
 
   if (tid == 0) {
 #pragma unroll
@@ -676,7 +692,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
     for (int t = 0; t < tiles; ++t) {
       const int s = t % STAGES;
       if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
-      const int j0 = (tl ? tl[1 + t] : t) * BK;
+      const int j0 = (tl ? tl[1 + t] : first + t) * BK;
       const uint32_t dk = smem_u32(sK + s * BK * D * 2);
       const uint32_t dv = smem_u32(sV + s * BK * D * 2);
       if constexpr (sizeof(TKV) == 2) {
@@ -782,6 +798,17 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
   float sc[BK / 2], alpha[2];
   uint32_t pa[BK / 16][4];
   const int quad = lane & 3;
+  // with segments: the keys [seg_lo, seg_hi) of each of the thread's two
+  // rows (16 warp + lane / 4 + 8 hr)
+  int seg_lo[2] = {0, 0}, seg_hi[2] = {0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qi = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hr;
+      seg_lo[hr] = (qi / p.seg) * p.seg;
+      seg_hi[hr] = seg_lo[hr] + p.seg;
+    }
+  }
 
   for (int t = 0; t < tiles; ++t) {
     const int s = t % STAGES;
@@ -797,6 +824,23 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<BK / 2>(sc);
+    if constexpr (SEG) {
+      // a key outside the row's segment: S = -inf, so that its exponent
+      // (S times the positive scale plus the bias) is -inf and P exactly 0,
+      // where the TPU kernel masks (after the scale and the bias, before
+      // exp2)
+      const int j0 = (first + t) * BK;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 8 * i + 2 * quad + e;
+            if (j < seg_lo[hr] || j >= seg_hi[hr])
+              sc[4 * i + 2 * hr + e] = neg_inf();
+          }
+    }
     softmax_tile<BK, FIXED>(sc, sB + s * BK, p.scale_log2, quad, m_run,
                             l_run, alpha, pa);
     if (!FIXED) {
@@ -918,8 +962,11 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int H, int Lk,
 // grid: (query tiles, heads, row blocks). 128-row query tiles when there
 // is at least one for each of the 132 SMs, else 64. q, k, v and o must be
 // 16-byte aligned, with row strides (and head offsets) a multiple of 16
-// bytes; one row block level (nb2 = 1).
-template <int D, typename TQ, typename TKV, typename TO, bool FIXED>
+// bytes; one row block level (nb2 = 1). SEG: the segments' instantiation
+// (p.seg > 0), kept apart so that the forms without segments carry none of
+// their code.
+template <int D, typename TQ, typename TKV, typename TO, bool FIXED,
+          bool SEG = false>
 cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
                              cudaStream_t s) {
   AttnParams p = pa;
@@ -930,7 +977,9 @@ cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
   // no k RMS norm here (kg): K1 norms k in its projection's epilogue
   if (nb1 < 1 || nb1 > 65535 || p.nb2 != 1 || H < 1 || H > 65535 ||
       p.Lq < 1 || p.Lk < 1 || (nb1 > 1 && (p.k_s1 <= 0 || p.v_s1 <= 0)) ||
-      p.kg)
+      p.kg || p.qg_f32 ||
+      (SEG != (p.seg != 0)) ||
+      (SEG && (p.seg < 0 || p.tiles || p.Lq != p.Lk || p.Lq % p.seg)))
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr, long long stride, int elem) {
     return ((uintptr_t)ptr % 16) != 0 || (stride * elem) % 16 != 0;
@@ -957,7 +1006,7 @@ cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
 #define GVF_LAUNCH_SM90(NWG)                                                  \
   {                                                                           \
     constexpr int bytes = Smem<D, NWG, TO>::BYTES;                            \
-    auto kern = attn_sm90_kernel<D, NWG, TQ, TKV, TO, FIXED>;                 \
+    auto kern = attn_sm90_kernel<D, NWG, TQ, TKV, TO, FIXED, SEG>;            \
     static bool opted = false; /* the shared-memory opt-in, once */          \
     if (!opted) {                                                             \
       err = cudaFuncSetAttribute(                                             \

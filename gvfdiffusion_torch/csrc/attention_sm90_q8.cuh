@@ -132,21 +132,40 @@ struct Sw8 {
   }
 };
 
-// Query row i of batch row z lies in the scale cell (z * Lq + i) / q_block;
-// the cells' scales are [cells, H] fp32. Offsets in elements (bytes for the
-// int8 tensors); rows within a batch row step by *_si / *_sj.
+// The forms of the path (the template's MODE):
+//   Q8_CACHE  K3's int8 cache: per-key k scales, int8 V dequantized;
+//   Q8_SELF   K1's int8 QK: one k scale per (cell, head), fp32 V rows;
+//   Q8_QK     K5's quant="qk": one k scale per (batch row, head), V rows of
+//             type TV, a per-key logit bias and segments, the row sum of
+//             the bf16-rounded P;
+//   Q8_QKAV   K5's quant="qk+av": as Q8_QK with int8 P V in two passes over
+//             the keys (below).
+enum { Q8_CACHE = 0, Q8_SELF = 1, Q8_QK = 2, Q8_QKAV = 3 };
+
+// Query row i of batch row z lies in the scale cell (z * Lq + i) / q_block,
+// or with q_cells > 0 (K5: cells of q_block rows within each batch row) in
+// z * q_cells + i / q_block; the cells' scales are [cells, H] fp32. Offsets
+// in elements (bytes for the int8 tensors); rows within a batch row step by
+// *_si / *_sj.
 struct Q8AttnParams {
   const signed char* q;  // int8 q rows
   const float* qs;       // [cells, H] q scales
   const signed char* k;  // int8 k rows (read by TMA)
-  const void* v;         // K1: fp32 rows; K3: int8 rows
-  const float* ks;       // K1: [cells, H] k scales, celled as qs
+  const void* v;         // K1: fp32 rows; K3: int8 rows; K5: TV rows
+  const float* ks;       // K1: [cells, H] k scales, celled as qs; K5: [B, H]
   const bf16* ks_t;      // K3: [B, H, Lk] per-key k scales
   const bf16* vs;        // K3: [B, Lk, H] per-key v scales
   bf16* o;
   long long q_s1, q_si, k_s1, k_sj, v_s1, v_sj, o_s1, o_si;
   int Lq, Lk, H, q_block;
   float scale;
+  // K5 only: the fp32 [B, Lk] logit bias (bias_s1 apart) or null; segments
+  // (seg > 0: row i sees key j only where i / seg == j / seg); the cells of
+  // a batch row; Q8_QKAV's v scales [B, H]
+  const float* bias = nullptr;
+  long long bias_s1 = 0;
+  int seg = 0, q_cells = 0;
+  const float* vsc = nullptr;
 };
 
 constexpr int Q8_BK = 128, Q8_STAGES = 3, Q8_NPROD = 4;
@@ -171,12 +190,18 @@ struct Q8Smem {
   static constexpr int BYTES = BAR + 3 * STAGES * 8 + 1024;  // + alignment
 };
 
-template <int D, int NWG, bool SELF>
+template <int D, int NWG, int MODE, typename TV>
 __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
     attn_sm90_q8_kernel(const Q8AttnParams p,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv) {
   constexpr int BK = Q8_BK, STAGES = Q8_STAGES, NPROD = Q8_NPROD;
+  constexpr bool SELF = MODE == Q8_SELF, K5 = MODE >= Q8_QK;
+  constexpr bool AV = MODE == Q8_QKAV;
+  // V rows read by the producer (fp32 for K1, TV for K5); K3 stages int8
+  constexpr bool VROWS = MODE != Q8_CACHE;
+  // Q8_QKAV walks the keys twice: the row maximum, then P and P V
+  constexpr int NPASS = AV ? 2 : 1;
   using L = Q8Smem<D, NWG>;
   using S8 = Sw8<D>;
   using S = Sw<D>;
@@ -198,7 +223,20 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
   const int h = blockIdx.y;
   const long long z = blockIdx.z;
   const int q0 = blockIdx.x * (64 * NWG);
-  const int tiles = (p.Lk + BK - 1) / BK;
+  // the key tiles first .. first + tiles - 1: every one, or with segments
+  // the run that holds the keys of this CTA's rows' segments
+  int tiles = (p.Lk + BK - 1) / BK, first = 0;
+  if constexpr (K5) {
+    if (p.seg > 0) {
+      const int qend = min(q0 + 64 * NWG, p.Lq);
+      const int klo = (q0 / p.seg) * p.seg;
+      const int khi = min(p.Lk, ((qend - 1) / p.seg + 1) * p.seg);
+      first = klo / BK;
+      tiles = (khi - 1) / BK - first + 1;
+    }
+  }
+  // the key tile of step t (Q8_QKAV's second pass walks them again)
+  auto tile_key = [&](int t) { return (first + (AV ? t % tiles : t)) * BK; };
 
   if (tid == 0) {
 #pragma unroll
@@ -223,7 +261,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
     // their latency overlaps this tile's work (V loaded by the threads
     // themselves held the ring back: 0.29 ms a context against 0.18 with
     // no V loads, H100 ablation)
-    constexpr int CPT = SELF ? 1 : BK * D / 16 / (32 * NPROD);
+    constexpr int CPT = VROWS ? 1 : BK * D / 16 / (32 * NPROD);
     float vsc[CPT], ksc = 0.f;
     auto fetch_scales = [&](int t) {
       const bf16* vsb = p.vs + z * p.Lk * p.H + h;
@@ -246,15 +284,18 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
       tma_load_4d(smem_u32(sStg + s * BK * D), &tv, 0, h, t * BK, (int)z,
                   &staged[s]);
     };
-    if constexpr (!SELF) {
+    if constexpr (!VROWS) {
       if (pt == 0)
         for (int t = 0; t < STAGES && t < tiles; ++t) stage_v(t);
       fetch_scales(0);
     }
-    for (int t = 0; t < tiles; ++t) {
+    // K5: the bias row's source and Q8_QKAV's v quantization, 127 / vm
+    const float* bb = K5 && p.bias ? p.bias + z * p.bias_s1 : nullptr;
+    const float v_rcp = AV ? __fdiv_rn(127.f, p.vsc[z * p.H + h]) : 0.f;
+    for (int t = 0; t < NPASS * tiles; ++t) {
       const int s = t % STAGES;
       if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
-      const int j0 = t * BK;
+      const int j0 = tile_key(t);
       if (pt == 0) {
         asm volatile(
             "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
@@ -265,22 +306,33 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
                     &full[s]);
       }
       unsigned char* dv = sV + s * BK * D * 2;
-      if constexpr (SELF) {
-        // fp32 V rows: 8 lanes load a row's 8-value chunks, round, store
-        const float* vb = (const float*)p.v + z * p.v_s1 + h * D;
+      if constexpr (VROWS) {
+        // fp32 (K1) or TV (K5) V rows: 8 lanes load a row's 8-value chunks,
+        // round, store; Q8_QKAV quantizes them, vi = round(bf16(v) * 127 /
+        // vm) (half to even), held exactly as bf16 integers, and loads V on
+        // its second pass only
+        const TV* vb = (const TV*)p.v + z * p.v_s1 + h * D;
         constexpr int CH = BK * D / 8;
+        if (!AV || t >= tiles) {
 #pragma unroll 4
-        for (int idx = pt; idx < CH; idx += 32 * NPROD) {
-          const int r = idx / (D / 8), c = idx % (D / 8);
-          const int j = j0 + r;
-          float b[8];
-          if (j < p.Lk) {
-            load8(vb + (long long)j * p.v_sj + c * 8, b);
-          } else {
+          for (int idx = pt; idx < CH; idx += 32 * NPROD) {
+            const int r = idx / (D / 8), c = idx % (D / 8);
+            const int j = j0 + r;
+            float b[8];
+            if (j < p.Lk) {
+              load8(vb + (long long)j * p.v_sj + c * 8, b);
+            } else {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) b[e] = 0.f;
+              for (int e = 0; e < 8; ++e) b[e] = 0.f;
+            }
+            if (AV) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                b[e] = (float)__float2int_rn(__fmul_rn(
+                    __bfloat162float(__float2bfloat16(b[e])), v_rcp));
+            }
+            *reinterpret_cast<uint4*>(dv + S::off(r, c, BK)) = pack8(b);
           }
-          *reinterpret_cast<uint4*>(dv + S::off(r, c, BK)) = pack8(b);
         }
       } else {
         // int8 V rows: 16 values a chunk, dequantized as bf16(v * vs)
@@ -311,7 +363,18 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
         asm volatile("bar.sync 3, %0;\n" ::"n"(32 * NPROD) : "memory");
         if (pt == 0 && t + STAGES < tiles) stage_v(t + STAGES);
       }
-      sShift[s * BK + pt] = j0 + pt < p.Lk ? -EXP2_SHIFT : neg_inf();
+      // the per-key shift: -30, or for K5 with a bias -(30 - bias log2 e),
+      // the TPU kernel's bias row negated (-inf for a bias of -inf); -inf
+      // past Lk
+      if constexpr (K5) {
+        float sh = neg_inf();
+        if (j0 + pt < p.Lk)
+          sh = bb ? -__fsub_rn(EXP2_SHIFT, __fmul_rn(bb[j0 + pt], LOG2E))
+                  : -EXP2_SHIFT;
+        sShift[s * BK + pt] = sh;
+      } else {
+        sShift[s * BK + pt] = j0 + pt < p.Lk ? -EXP2_SHIFT : neg_inf();
+      }
       // releases V and the per-key rows (plain stores, made visible to
       // wgmma's reads)
       fence_async();
@@ -340,34 +403,55 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
   }
 
   // each thread's two rows (16 warp + lane / 4 + 8 hr): their score factor
-  // f, rounded as the TPU kernel rounds it
+  // f, rounded as the TPU kernel rounds it, and with segments the keys
+  // [seg_lo, seg_hi) they see
   const int quad = lane & 3, r0 = lane >> 2;
   float f[2];
+  int seg_lo[2] = {0, 0}, seg_hi[2] = {0, 0};
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int qi = q0 + wg * 64 + warp * 16 + r0 + 8 * hr;
     f[hr] = 0.f;
+    if (K5 && p.seg > 0) {
+      seg_lo[hr] = (qi / p.seg) * p.seg;
+      seg_hi[hr] = seg_lo[hr] + p.seg;
+    }
     if (qi < p.Lq) {
-      const long long c = ((z * p.Lq + qi) / p.q_block) * p.H + h;
-      f[hr] = SELF ? __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(p.qs[c], p.ks[c]),
-                                                   p.scale),
-                                         LOG2E),
-                               16129.f)
-                   : __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[c], p.scale), LOG2E),
-                               127.f);
+      const long long c =
+          (K5 ? z * p.q_cells + qi / p.q_block
+              : (z * p.Lq + qi) / p.q_block) * p.H + h;
+      if (K5)  // (qm km / 127^2) scale log2 e
+        f[hr] = __fmul_rn(
+            __fmul_rn(__fdiv_rn(__fmul_rn(p.qs[c], p.ks[z * p.H + h]),
+                                16129.f),
+                      p.scale),
+            LOG2E);
+      else
+        f[hr] = SELF ? __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(p.qs[c],
+                                                               p.ks[c]),
+                                                     p.scale),
+                                           LOG2E),
+                                 16129.f)
+                     : __fdiv_rn(__fmul_rn(__fmul_rn(p.qs[c], p.scale),
+                                           LOG2E),
+                                 127.f);
     }
   }
+  auto outside = [&](int j, int hr) {
+    return K5 && p.seg > 0 && (j < seg_lo[hr] || j >= seg_hi[hr]);
+  };
 
   const uint32_t q_base = smem_u32(sQw);
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float l_run[2] = {0.f, 0.f};
+  float l_run[2] = {0.f, 0.f}, m_row[2] = {neg_inf(), neg_inf()};
   int si[BK / 2];
   uint32_t pa[BK / 16][4];
 
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = 0; t < NPASS * tiles; ++t) {
     const int s = t % STAGES;
+    const int j0 = tile_key(t);
     mbar_wait(&full[s], (t / STAGES) & 1);
     fence_async();  // the producer's plain stores of V
     // S = Qi Ki^T in int32
@@ -380,11 +464,46 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs_i<BK / 2>(si);
-    // P = exp2(si * f - 30) on the accumulator layout: si[4 i + 2 hr + e]
-    // is row r0 + 8 hr, key 8 i + 2 quad + e; P goes straight to bf16 as
-    // the A operand of P V (k-step kk covers key groups 2 kk and 2 kk + 1)
+    // the scores s = si * f (* the key's scale for K3) + shift on the
+    // accumulator layout: si[4 i + 2 hr + e] is row r0 + 8 hr, key 8 i + 2
+    // quad + e (K5: -inf outside the row's segment)
     const float* shift = sShift + s * BK;
     const float* kst = sKs + s * BK;
+    auto score = [&](int i, int hr, int e, float b) {
+      if (outside(j0 + 8 * i + 2 * quad + e, hr)) return neg_inf();
+      return __fadd_rn(__fmul_rn((float)si[4 * i + 2 * hr + e], f[hr]), b);
+    };
+    if (AV && t < tiles) {
+      // Q8_QKAV's first pass: the row maximum of s over every key
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(shift + 8 * i + 2 * quad);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          m_row[hr] = fmaxf(m_row[hr],
+                            fmaxf(score(i, hr, 0, b.x), score(i, hr, 1, b.y)));
+      }
+      if (t == tiles - 1) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          m_row[hr] = fmaxf(m_row[hr],
+                            __shfl_xor_sync(0xffffffffu, m_row[hr], 1));
+          m_row[hr] = fmaxf(m_row[hr],
+                            __shfl_xor_sync(0xffffffffu, m_row[hr], 2));
+        }
+      }
+      mbar_arrive(&empty[s]);
+      continue;
+    }
+    // P on the accumulator layout, straight to bf16 as the A operand of
+    // P V (k-step kk covers key groups 2 kk and 2 kk + 1):
+    //   K1, K3: P = exp2(s), the fp32 P summed;
+    //   Q8_QK: P = exp2(s), the bf16-rounded P summed (the TPU kernel's
+    //     ones column of V);
+    //   Q8_QKAV: P = round(exp2(max(s - m, -126)) * 127) (half to even),
+    //     an integer 0 .. 127, exact in bf16 and in the sums; a row whose
+    //     keys are all masked (m = -inf) takes P = 0
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i) {
       const float2 b = *reinterpret_cast<const float2*>(shift + 8 * i + 2 * quad);
@@ -392,13 +511,34 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
       if (!SELF) kj = *reinterpret_cast<const float2*>(kst + 8 * i + 2 * quad);
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const float c0 = SELF ? f[hr] : __fmul_rn(kj.x, f[hr]);
-        const float c1 = SELF ? f[hr] : __fmul_rn(kj.y, f[hr]);
-        const float x0 = ex2_sub(
-            __fadd_rn(__fmul_rn((float)si[4 * i + 2 * hr], c0), b.x));
-        const float x1 = ex2_sub(
-            __fadd_rn(__fmul_rn((float)si[4 * i + 2 * hr + 1], c1), b.y));
-        l_run[hr] += x0 + x1;
+        float x0, x1;
+        if constexpr (!K5) {
+          const float c0 = SELF ? f[hr] : __fmul_rn(kj.x, f[hr]);
+          const float c1 = SELF ? f[hr] : __fmul_rn(kj.y, f[hr]);
+          x0 = ex2_sub(
+              __fadd_rn(__fmul_rn((float)si[4 * i + 2 * hr], c0), b.x));
+          x1 = ex2_sub(
+              __fadd_rn(__fmul_rn((float)si[4 * i + 2 * hr + 1], c1), b.y));
+          l_run[hr] += x0 + x1;
+        } else if constexpr (AV) {
+          x0 = score(i, hr, 0, b.x);
+          x1 = score(i, hr, 1, b.y);
+          const bool dead = m_row[hr] == neg_inf();
+          x0 = dead ? 0.f : (float)__float2int_rn(__fmul_rn(
+                                ex2_sub(fmaxf(__fsub_rn(x0, m_row[hr]),
+                                              -126.f)),
+                                127.f));
+          x1 = dead ? 0.f : (float)__float2int_rn(__fmul_rn(
+                                ex2_sub(fmaxf(__fsub_rn(x1, m_row[hr]),
+                                              -126.f)),
+                                127.f));
+          l_run[hr] += x0 + x1;
+        } else {
+          x0 = ex2_sub(score(i, hr, 0, b.x));
+          x1 = ex2_sub(score(i, hr, 1, b.y));
+          l_run[hr] += __bfloat162float(__float2bfloat16(x0)) +
+                       __bfloat162float(__float2bfloat16(x1));
+        }
         pa[i / 2][2 * (i % 2) + hr] = pack_bf16(x0, x1);
       }
     }
@@ -415,16 +555,27 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
     mbar_arrive(&empty[s]);
   }
 
-  // normalise by the fp32 row sum, stage the warp's 16 rows, write them
-  // with 16-byte stores
-  float inv[2];
+  // normalise by the row sum, stage the warp's 16 rows, write them with
+  // 16-byte stores. K1, K3: O times den = 1 / l (0 for a row with l = 0);
+  // Q8_QK: O / den, den = max(l, 1e-30); Q8_QKAV: (O / den) vm, den =
+  // max(127 l, 1), O and 127 l the int32 sums of the TPU kernel held
+  // exactly in fp32 (the ones column of 127)
+  float den[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float l = l_run[hr];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[hr] = l > 0.f ? 1.f / l : 0.f;
+    den[hr] = AV   ? fmaxf(__fmul_rn(l, 127.f), 1.f)
+              : K5 ? fmaxf(l, 1e-30f)
+                   : (l > 0.f ? 1.f / l : 0.f);
   }
+  const float vm = AV ? p.vsc[z * p.H + h] : 1.f;
+  auto norm = [&](float a, int hr) {
+    if (AV) return __fmul_rn(__fdiv_rn(a, den[hr]), vm);
+    if (K5) return __fdiv_rn(a, den[hr]);
+    return a * den[hr];
+  };
   bf16* sOw = sO + (wg * 64 + warp * 16) * L::OLD;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
@@ -432,8 +583,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Q8_NPROD, 1)
     for (int hr = 0; hr < 2; ++hr)
       *reinterpret_cast<uint32_t*>(sOw + (r0 + 8 * hr) * L::OLD + 8 * i +
                                    2 * quad) =
-          pack_bf16(o[4 * i + 2 * hr] * inv[hr],
-                    o[4 * i + 2 * hr + 1] * inv[hr]);
+          pack_bf16(norm(o[4 * i + 2 * hr], hr),
+                    norm(o[4 * i + 2 * hr + 1], hr));
   __syncwarp();
   constexpr int CPR = D * 2 / 16;  // 16-byte chunks a row
   bf16* ob = p.o + z * p.o_s1 + h * D;
@@ -477,18 +628,23 @@ cudaError_t kv8_map(CUtensorMap* map, const void* base, int H, int Lk,
 
 // grid: (query tiles, heads, batch rows). 128-row query tiles when there is
 // at least one for each of the 132 SMs, else 64. q and k rows (and head
-// offsets) 16-byte aligned; v rows too (fp32 for K1, int8 for K3); o rows
-// 16-byte aligned.
-template <int D, bool SELF>
+// offsets) 16-byte aligned; v rows too (fp32 for K1, int8 for K3, TV for
+// K5); o rows 16-byte aligned.
+template <int D, int MODE, typename TV = float>
 cudaError_t launch_attn_sm90_q8(const Q8AttnParams& p, long long B,
                                 cudaStream_t s) {
+  constexpr bool K5 = MODE >= Q8_QK;
   if (B < 1 || B > 65535 || p.H < 1 || p.H > 65535 || p.Lq < 1 ||
-      p.Lk < 1 || p.q_block < 1 || (B > 1 && p.k_s1 <= 0))
+      p.Lk < 1 || p.q_block < 1 || (B > 1 && p.k_s1 <= 0) ||
+      (K5 && p.q_cells < 1) || (!K5 && (p.bias || p.seg)) ||
+      (MODE == Q8_QKAV && !p.vsc) ||
+      (p.seg && (p.seg < 0 || p.Lq != p.Lk || p.Lq % p.seg)))
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr, long long stride, int elem) {
     return ((uintptr_t)ptr % 16) != 0 || (stride * elem) % 16 != 0;
   };
-  const int v_elem = SELF ? 4 : 1;
+  const int v_elem = MODE == Q8_CACHE ? 1 : MODE == Q8_SELF ? 4
+                                                            : (int)sizeof(TV);
   if (misaligned(p.q, p.q_si, 1) || misaligned(p.q, p.q_s1, 1) ||
       misaligned(p.k, p.k_sj, 1) || misaligned(p.k, p.k_s1, 1) ||
       misaligned(p.v, p.v_sj, v_elem) || misaligned(p.v, p.v_s1, v_elem) ||
@@ -498,14 +654,14 @@ cudaError_t launch_attn_sm90_q8(const Q8AttnParams& p, long long B,
   memset(&tk, 0, sizeof(tk));
   memset(&tv, 0, sizeof(tv));
   cudaError_t err = kv8_map<D>(&tk, p.k, p.H, p.Lk, B, p.k_sj, p.k_s1, true);
-  if (err == cudaSuccess && !SELF)
+  if (err == cudaSuccess && MODE == Q8_CACHE)
     err = kv8_map<D>(&tv, p.v, p.H, p.Lk, B, p.v_sj, p.v_s1, false);
   if (err != cudaSuccess) return err;
   const long long tiles128 = (long long)cdiv(p.Lq, 128) * p.H * B;
 #define GVF_LAUNCH_SM90_Q8(NWG)                                               \
   {                                                                           \
     constexpr int bytes = Q8Smem<D, NWG>::BYTES;                              \
-    auto kern = attn_sm90_q8_kernel<D, NWG, SELF>;                            \
+    auto kern = attn_sm90_q8_kernel<D, NWG, MODE, TV>;                        \
     static bool opted = false; /* the shared-memory opt-in, once */          \
     if (!opted) {                                                             \
       err = cudaFuncSetAttribute(                                             \

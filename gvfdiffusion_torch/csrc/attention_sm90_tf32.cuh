@@ -14,7 +14,8 @@
 //     context).
 //
 // What it computes: O = softmax(Q K^T * scale) V per (query row, head,
-// batch row), q/k/v/o fp32 on their own strides; the softmax online with a
+// batch row), q/k/v/o fp32 on their own strides (q optionally RMS-normed
+// per head in fp32 with the gamma qg_f32: K3's rms); the softmax online with a
 // true running maximum in fp32 (exp2 with the scale's log2 e folded in, the
 // accurate exp2f), the row sum from the fp32 P, P split (not rounded) for P
 // V, the output normalised once. Keys past Lk are masked; with key validity
@@ -84,7 +85,8 @@ __device__ __forceinline__ int key_col(int e) {
   return (e & 1) ? 4 + (e >> 1) : e >> 1;
 }
 
-template <int D>
+// QN: q RMS-normed with p.qg_f32 (K3's single context with rms)
+template <int D, bool QN>
 __global__ void __launch_bounds__(Tf32Cfg<D>::NWG * 128 + 128, 1)
     attn_tf32_kernel(const AttnParams p) {
   using C = Tf32Cfg<D>;
@@ -183,15 +185,13 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NWG * 128 + 128, 1)
   const int wg = tid >> 7, tw = tid & 127, warp = tw >> 5, lane = tid & 31;
   unsigned char* sQw = smem + C::Q + wg * 2 * C::QT;
   {
-    // two threads per row, D / 2 values each: load, split
+    // two threads per row, D / 2 values each: load, RMS norm (QN:
+    // q * rsqrt(sum q^2 + 1e-12) * gamma per head, in fp32), split
     const int r = tw >> 1, hf = tw & 1;
     const int qi = q0 + wg * 64 + r;
     const float* src = (const float*)p.q + z1 * p.q_s1 + h * D +
                        (long long)(qi < p.Lq ? qi : 0) * p.q_si + hf * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (qi < p.Lq) a = *reinterpret_cast<const float4*>(src + c * 4);
+    auto put = [&](int c, const float4 a) {
       uint4 hi, lo;
       split_tf32(a.x, hi.x, lo.x);
       split_tf32(a.y, hi.y, lo.y);
@@ -200,6 +200,37 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NWG * 128 + 128, 1)
       const int o = SQ::off(r, hf * (D / 8) + c, 64);
       *reinterpret_cast<uint4*>(sQw + o) = hi;
       *reinterpret_cast<uint4*>(sQw + C::QT + o) = lo;
+    };
+    if constexpr (QN) {
+      float4 qv[D / 8];
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        qv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (qi < p.Lq) qv[c] = *reinterpret_cast<const float4*>(src + c * 4);
+      }
+      float ss = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        ss += qv[c].x * qv[c].x + qv[c].y * qv[c].y + qv[c].z * qv[c].z +
+              qv[c].w * qv[c].w;
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      const float f = rsqrtf(ss + 1e-12f);
+      const float* g = p.qg_f32 + h * D + hf * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        qv[c].x = qv[c].x * f * g[4 * c];
+        qv[c].y = qv[c].y * f * g[4 * c + 1];
+        qv[c].z = qv[c].z * f * g[4 * c + 2];
+        qv[c].w = qv[c].w * f * g[4 * c + 3];
+        put(c, qv[c]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (qi < p.Lq) a = *reinterpret_cast<const float4*>(src + c * 4);
+        put(c, a);
+      }
     }
     fence_async();
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -363,7 +394,7 @@ cudaError_t launch_attn_tf32(const AttnParams& pa, int H, long long nb1,
     p.v_sj = p.k_sj;
   }
   if (nb1 < 1 || nb1 > 65535 || p.nb2 != 1 || H < 1 || H > 65535 ||
-      p.Lq < 1 || p.Lk < 1 || p.qg || p.kg || p.bias)
+      p.Lq < 1 || p.Lk < 1 || p.qg || p.kg || p.bias || p.seg)
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr, long long stride) {
     return ((uintptr_t)ptr % 16) != 0 || stride % 4 != 0;
@@ -374,13 +405,14 @@ cudaError_t launch_attn_tf32(const AttnParams& pa, int H, long long nb1,
       misaligned(p.o, p.o_si) || misaligned(p.o, p.o_s1) ||
       (uintptr_t)p.o_lo % 16)
     return cudaErrorMisalignedAddress;
-  auto kern = attn_tf32_kernel<D>;
-  static bool opted = false;  // the shared-memory opt-in, once
-  if (!opted) {
+  const bool qn = p.qg_f32 != nullptr;
+  auto kern = qn ? attn_tf32_kernel<D, true> : attn_tf32_kernel<D, false>;
+  static bool opted[2] = {false, false};  // the shared-memory opt-in, once
+  if (!opted[qn]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
     if (err != cudaSuccess) return err;
-    opted = true;
+    opted[qn] = true;
   }
   kern<<<dim3(cdiv(p.Lq, 64 * C::NWG), H, (unsigned)nb1), C::NWG * 128 + 128,
          C::BYTES, s>>>(p);

@@ -12,6 +12,8 @@
 //   gvf_cross_sublayer_q8  <- _cross_sublayer_kernel    (quant=True: the DiT's
 //                                                        two contexts against an
 //                                                        int8 KV cache)
+//   gvf_cross_sublayer1_q8 <- _cross_sublayer_kernel    (quant=True, one
+//                                                        context)
 //   gvf_self_sublayer_q8   <- _self_sublayer_kernel     (quant_qk=True)
 //   gvf_temporal_sublayer_q8 <- _temporal_sublayer_kernel (quant_qk=True)
 //
@@ -396,6 +398,38 @@ cudaError_t self_qkv(const void* h, const void* wqkv, const void* bqkv,
       h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi);
 }
 
+// K3's int8 attention step for one context: q (fp32 [B*L, C], RMS-normed
+// in place first with qg, or not) quantized per (cell of q_block rows,
+// head) by q8_kernel into qi / qs, then the core's int8-QK path against the
+// int8 cache k, v [B, lk, C] with its scales ks [B, H, lk] and vs [B, lk,
+// H], into attn [B*L, C] bf16.
+cudaError_t cross_attend_q8(void* q, void* qi, void* qs, void* attn,
+                            const void* k, const void* v, const void* ks,
+                            const void* vs, int lk, const void* qg, int B,
+                            int L, int C, int H, int q_block,
+                            cudaStream_t s) {
+  const long long R = (long long)B * L;
+  const int D = C / H;
+  QuantParams qp = {};
+  qp.src[0] = (float*)q; qp.dst[0] = (signed char*)qi; qp.scale[0] = (float*)qs;
+  qp.gamma[0] = (const bf16*)qg;
+  qp.src_stride = qp.dst_stride = C;
+  qp.s1 = q_block; qp.s_outer = 1;
+  qp.cells2 = 1; qp.n_outer = q_block; qp.n_inner = 1; qp.H = H;
+  cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, D, s);
+  if (err != cudaSuccess) return err;
+  sm90::Q8AttnParams p = {};
+  p.q = (const signed char*)qi; p.qs = (const float*)qs;
+  p.k = (const signed char*)k; p.v = v;
+  p.ks_t = (const bf16*)ks; p.vs = (const bf16*)vs; p.o = (bf16*)attn;
+  p.q_s1 = p.o_s1 = (long long)L * C; p.q_si = p.o_si = C;
+  p.k_s1 = p.v_s1 = (long long)lk * C; p.k_sj = p.v_sj = C;
+  p.Lq = L; p.Lk = lk; p.H = H; p.q_block = q_block;
+  p.scale = (float)(1.0 / sqrt((double)D));
+  return D == 32 ? sm90::launch_attn_sm90_q8<32, sm90::Q8_CACHE>(p, B, s)
+                 : sm90::launch_attn_sm90_q8<64, sm90::Q8_CACHE>(p, B, s);
+}
+
 // K2's attention over T (temporal_sm90.cuh), heads of 32 or 64, into o
 // [B, T, N, C] bf16: the float form (qi null) on the bf16 qkv [B*T*N, 3C]
 // (q and k normed), or the int8-QK form on int8 qi, ki [B*T*N, C] with
@@ -527,9 +561,9 @@ int gvf_self_sublayer_q8(const void* x, const void* sh, const void* sc,
   p.Lq = p.Lk = L; p.H = H; p.q_block = L;
   p.scale = (float)(1.0 / sqrt((double)D));
   if (D == 32)
-    GVF_CHECK((sm90::launch_attn_sm90_q8<32, true>(p, B, s)));
+    GVF_CHECK((sm90::launch_attn_sm90_q8<32, sm90::Q8_SELF>(p, B, s)));
   else
-    GVF_CHECK((sm90::launch_attn_sm90_q8<64, true>(p, B, s)));
+    GVF_CHECK((sm90::launch_attn_sm90_q8<64, sm90::Q8_SELF>(p, B, s)));
   GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
   return 0;
 }
@@ -622,14 +656,16 @@ int gvf_cross_sublayer(const void* x,
 // wo [C, C], bo; the cached k, v rows with heads of 32, 64 or 128 (the
 // torso at 32, 16 or 8 heads), element (b, j, c)
 // at b * kv_sb + j * kv_sl + c (the k/v halves of one [B, Lk, 2C]
-// projection go in place); no RMS norm; the residual un-gated. Scratch:
-// h bf16, q fp32, attn bf16, each [B*L, C].
+// projection go in place); qg [C] bf16, the q RMS-norm gamma (rms=True,
+// normed in the attention core's prologue), or null; the residual
+// un-gated. Scratch: h bf16, q fp32, attn bf16, each [B*L, C].
 int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
-                        const void* wq, const void* bq, const void* wo,
-                        const void* bo, const void* k, const void* v, int lk,
-                        long long kv_sb, long long kv_sl, void* y, void* h,
-                        void* q, void* attn, int B, int L, int C, int H,
-                        int x_f32, void* stream) {
+                        const void* wq, const void* bq, const void* qg,
+                        const void* wo, const void* bo, const void* k,
+                        const void* v, int lk, long long kv_sb,
+                        long long kv_sl, void* y, void* h, void* q,
+                        void* attn, int B, int L, int C, int H, int x_f32,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
   const int D = C / H;
@@ -646,7 +682,7 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
   p.k_s1 = kv_sb; p.k_s2 = 0; p.k_sj = kv_sl;
   p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
-  p.qg = nullptr; p.kg = nullptr;
+  p.qg = (const bf16*)qg; p.kg = nullptr;
   GVF_CHECK(launch_cross_attn(p, H, B, D, s));
   if (x_f32)
     GVF_CHECK((sm90::launch_gemm_sm90<true, float, float>(
@@ -658,14 +694,16 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
 }
 
 // K3, one context, fp32 (compute_dtype=float32): as gvf_cross_sublayer1 with
-// every tensor fp32 (x, y, ns, nb, wq [C, C] as [out, in], bq, wo, bo, and
-// k, v, rows 16-byte aligned), no operand rounded to bf16, the products by
-// the 3xTF32 split; heads of 32, 64 or 128. Scratch, fp32: h and attn [2,
+// every tensor fp32 (x, y, ns, nb, wq [C, C] as [out, in], bq, qg [C] the
+// q RMS-norm gamma or null, wo, bo, and k, v, rows 16-byte aligned), no
+// operand rounded to bf16, the products by the 3xTF32 split, q normed in
+// fp32 in the attention's prologue; heads of 32, 64 or 128. Scratch, fp32: h and attn [2,
 // B*L, C] (the split halves of the LN output and of the attention output),
 // q [B*L, C], wsplit [4, C, C] (wq's halves, then wo's).
 int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
-                            const void* wq, const void* bq, const void* wo,
-                            const void* bo, const void* k, const void* v,
+                            const void* wq, const void* bq, const void* qg,
+                            const void* wo, const void* bo, const void* k,
+                            const void* v,
                             int lk, long long kv_sb, long long kv_sl, void* y,
                             void* h, void* q, void* attn, void* wsplit, int B,
                             int L, int C, int H, void* stream) {
@@ -693,7 +731,7 @@ int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
   p.k_s1 = kv_sb; p.k_s2 = 0; p.k_sj = kv_sl;
   p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
-  p.qg = nullptr; p.kg = nullptr;
+  p.qg = nullptr; p.kg = nullptr; p.qg_f32 = (const float*)qg;
   p.scale = (float)(1.0 / sqrt((double)D));
   p.scale_log2 = p.scale * LOG2E;
   if (D == 32)
@@ -733,27 +771,10 @@ int gvf_cross_sublayer_q8(const void* x,
   const long long R = (long long)B * L;
   if (!q8_heads_ok(C, H) || q_block < 1 || L % q_block || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int D = C / H;
   auto attend = [&](const void* k, const void* v, const void* ks,
                     const void* vs, int lk, const void* qg) -> cudaError_t {
-    QuantParams qp = {};
-    qp.src[0] = (float*)q; qp.dst[0] = (signed char*)qi; qp.scale[0] = (float*)qs;
-    qp.gamma[0] = (const bf16*)qg;
-    qp.src_stride = qp.dst_stride = C;
-    qp.s1 = q_block; qp.s_outer = 1;
-    qp.cells2 = 1; qp.n_outer = q_block; qp.n_inner = 1; qp.H = H;
-    cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, D, s);
-    if (err != cudaSuccess) return err;
-    sm90::Q8AttnParams p = {};
-    p.q = (const signed char*)qi; p.qs = (const float*)qs;
-    p.k = (const signed char*)k; p.v = v;
-    p.ks_t = (const bf16*)ks; p.vs = (const bf16*)vs; p.o = (bf16*)attn;
-    p.q_s1 = p.o_s1 = (long long)L * C; p.q_si = p.o_si = C;
-    p.k_s1 = p.v_s1 = (long long)lk * C; p.k_sj = p.v_sj = C;
-    p.Lq = L; p.Lk = lk; p.H = H; p.q_block = q_block;
-    p.scale = (float)(1.0 / sqrt((double)D));
-    return D == 32 ? sm90::launch_attn_sm90_q8<32, false>(p, B, s)
-                   : sm90::launch_attn_sm90_q8<64, false>(p, B, s);
+    return cross_attend_q8(q, qi, qs, attn, k, v, ks, vs, lk, qg, B, L, C, H,
+                           q_block, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
@@ -767,6 +788,41 @@ int gvf_cross_sublayer_q8(const void* x,
   GVF_CHECK(attend(k2, v2, ks2, vs2, lk2, qg2));
   GVF_CHECK((sm90::launch_gemm_sm90<true, float, bf16>(
       attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, C, s)));
+  return 0;
+}
+
+// K3, one context, int8 cache (quant=True with p2 = None): x, y [B, L, C],
+// both bf16 or, with x_f32, both fp32; affine LN (ns, nb [C] bf16), wq, bq,
+// qg (or null), wo, bo as gvf_cross_sublayer1's; the int8 cache k, v
+// [B, lk, C] with ks [B, H, lk] and vs [B, lk, H] bf16 scales; heads of 32
+// or 64; q quantized per (cell of q_block rows, head) as the two-context
+// form's. Scratch: h bf16, q fp32, qi int8, attn bf16, each [B*L, C], and
+// qs fp32 [B*L / q_block, H].
+int gvf_cross_sublayer1_q8(const void* x, const void* ns, const void* nb,
+                           const void* wq, const void* bq, const void* qg,
+                           const void* wo, const void* bo, const void* k,
+                           const void* v, const void* ks, const void* vs,
+                           int lk, void* y, void* h, void* q, void* qi,
+                           void* qs, void* attn, int B, int L, int C, int H,
+                           int q_block, int x_f32, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long R = (long long)B * L;
+  if (!q8_heads_ok(C, H) || q_block < 1 || L % q_block || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (x_f32)
+    GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
+  else
+    GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns, nb, h, R, C, 1, s)));
+  GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
+      h, wq, bq, nullptr, (float*)q, R, C, C, s)));
+  GVF_CHECK(cross_attend_q8(q, qi, qs, attn, k, v, ks, vs, lk, qg, B, L, C,
+                            H, q_block, s));
+  if (x_f32)
+    GVF_CHECK((sm90::launch_gemm_sm90<true, float, float>(
+        attn, wo, bo, (const float*)x, (float*)y, R, C, C, s)));
+  else
+    GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, bf16>(
+        attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, C, s)));
   return 0;
 }
 

@@ -13,30 +13,41 @@ Each has two versions:
     K5 at heads of 32 take the TPU kernels' fixed shift, P = exp2(S * scale
     * log2(e) - 30); K5 at heads of 64 takes exp(S - the row maximum)
     instead, as its CUDA kernel keeps a running maximum (DINOv2's un-normed
-    logits may pass the fixed shift's range of about +-90).
+    logits may pass the fixed shift's range of about +-90). K5's
+    `segment_size` masks a score outside the query row's segment to -inf
+    after the scale and the bias, as the TPU kernel does. K5's int8 forms
+    (`attention_q8_reference`) copy the TPU kernel's int8 body
+    (`_attn_kernel`) with its fixed shift at every head width.
   * the wrapper (`fused_attention`, `temporal_attention`): dispatches on the
     device of `q`. A CUDA tensor runs the hand-written kernel
     (`csrc/fused_attention.cu`, `csrc/temporal_attention.cu`); a CPU tensor
     runs the plain version. It is a `torch.autograd.Function` whose
     backward is the JAX custom_vjp's (`_bwd` :345, `_temporal_bwd` :505):
     the plain softmax-attention gradient in fp32 from the saved, unrounded
-    q/k/v (neither TPU kernel has a backward kernel). `impl="plain"` runs
-    the plain version instead, with torch's own autograd through it, for
-    comparing the two on the card.
+    q/k/v, with the segment mask, and K5's key-bias gradient, the sum of
+    dS over heads and query rows (neither TPU kernel has a backward kernel;
+    an int8 form differentiates as the float one, as JAX's backward
+    ignores `quant`). `impl="plain"` runs the plain version instead, with
+    torch's own autograd through it, for comparing the two on the card.
 
 K5 serves heads of 64 in bf16 (DINOv2, the TRELLIS flows: self, cross with
 Lq != Lk, and self with a [B, Lk] fp32 `kv_bias` whose -inf entries mask
 keys) and heads of 32 in fp32 or bf16 (the DiT's composed path: spatial
 self and the image and static cross-attentions; heads of 64 in fp32 in the
-DiT's 8-head configuration). `kv_bias` gets no gradient. K6 serves heads
-of 32 or 64 in fp32 or bf16. `segment_size` and `quant` are not ported.
-The kernels read q and k/v with their own strides, so the views of a qkv
-or kv projection go in without copies.
+DiT's 8-head configuration), and `segment_size` (block-diagonal
+attention over packed segments, Lq == Lk a multiple of it) in either.
+`quant="qk"` (int8 QK) and `quant="qk+av"` (int8 P V as well) run on the
+card in bf16 at heads of 32 or 64, with `kv_bias` and `segment_size`. K6
+serves heads of 32 or 64 in fp32 or bf16. The kernels read q and k/v with
+their own strides, so the views of a qkv or kv projection go in without
+copies.
 
 `launch_counts` counts kernel launches by the form the caller runs and the
-head width: "attention", "attention_cross" and "attention_bias" at heads
-of 64, the same names with "_d32" at heads of 32, and
-"temporal_attention"; the plain version never counts.
+head width: "attention", "attention_cross", "attention_bias",
+"attention_seg", "attention_qk" and "attention_qkav" at heads of 64, the
+same names with "_d32" at heads of 32 (the int8 forms count as their
+quant form whatever their bias or segments), and "temporal_attention";
+the plain version never counts.
 """
 
 from __future__ import annotations
@@ -53,10 +64,14 @@ _SHIFT = 30.0  # the TPU kernels' fixed exp2 shift
 _TEMPORAL_NC = 16  # voxels per TPU grid cell; only `temporal_supports` reads it
 # scores per chunk of the plain backward ([rows, H, Lq, Lk] fp32: 512 MB)
 _BWD_SCORES = 1 << 27
+# the TPU kernel's VMEM budget for a row block's score tiles (JAX
+# `_SCORE_BYTES`): it sets the rows of an int8 q scale cell (`lq_block`)
+_SCORE_BYTES = 8 * 1024 * 1024
+QUANT_FORMS = ("", "qk", "qk+av")
 
 launch_counts = {f"attention{form}{width}": 0
                  for width in ("", "_d32")
-                 for form in ("", "_cross", "_bias")}
+                 for form in ("", "_cross", "_bias", "_seg", "_qk", "_qkav")}
 launch_counts["temporal_attention"] = 0
 
 
@@ -65,11 +80,28 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def launch_key(head_dim: int, cross: bool, bias: bool) -> str:
-    """The counter of a K5 launch: its form (self, cross, or with a key
-    bias) as the caller runs it, and its head width."""
-    form = "_bias" if bias else "_cross" if cross else ""
+def launch_key(head_dim: int, cross: bool, bias: bool, seg: bool = False,
+               quant: str = "") -> str:
+    """The counter of a K5 launch: its form (an int8 form, segments, a key
+    bias, cross or self) as the caller runs it, and its head width."""
+    form = ("_qkav" if quant == "qk+av" else "_qk" if quant else
+            "_seg" if seg else "_bias" if bias else "_cross" if cross else "")
     return f"attention{form}{'_d32' if head_dim == 32 else ''}"
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def lq_block(lq: int, lk_pad: int) -> int:
+    """The TPU kernel's query rows per grid instance (JAX `_lq_block`): the
+    largest power of two <= 1024 whose score tiles (6 bytes a score) fit
+    the VMEM budget, at least 8, and not above Lq unless that is 8. The
+    int8 forms take q's scale over such a block of rows."""
+    blk = 1024
+    while blk > 8 and (blk * lk_pad * 6 > _SCORE_BYTES or blk > lq):
+        blk //= 2
+    return blk
 
 
 def supports(q_shape, k_shape) -> bool:
@@ -95,24 +127,44 @@ def temporal_supports(q_shape) -> bool:
 # -- plain versions -------------------------------------------------------------
 
 
+def _segment_mask(lq: int, lk: int, segment_size: int, device):
+    """[Lq, Lk] True where row // s == col // s, or None without segments."""
+    if not segment_size:
+        return None
+    r = torch.arange(lq, device=device)[:, None] // segment_size
+    c = torch.arange(lk, device=device)[None, :] // segment_size
+    return r == c
+
+
 def attention_reference(q, k, v, scale: float, compute_dtype=torch.bfloat16,
-                        kv_bias: Optional[torch.Tensor] = None):
+                        kv_bias: Optional[torch.Tensor] = None,
+                        segment_size: int = 0, quant: str = ""):
     """q [B, Lq, H, D]; k, v [B, Lk, H, D]; kv_bias [B, Lk] or None ->
     [B, Lq, H, D] in q's dtype. Heads of 32 take P = exp2(S * scale *
     log2(e) - 30 + bias * log2(e)), heads of 64 exp of S minus the row
-    maximum."""
+    maximum; segment_size > 0 masks the scores outside a row's segment
+    (row // s != col // s) to -inf. quant: see attention_q8_reference."""
+    if quant:
+        return attention_q8_reference(q, k, v, scale, compute_dtype, kv_bias,
+                                      segment_size, quant)
     dt = compute_dtype
     qh, kh, vh = (a.to(dt).float() for a in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+    mask = _segment_mask(q.shape[1], k.shape[1], segment_size, q.device)
     if q.shape[-1] == 32:
         shift = _SHIFT
         if kv_bias is not None:
             shift = _SHIFT - kv_bias.float()[:, None, None, :] * _LOG2E
-        p = torch.exp2(s * (scale * _LOG2E) - shift)
+        s = s * (scale * _LOG2E) - shift
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        p = torch.exp2(s)
     else:
         s = s * scale
         if kv_bias is not None:
             s = s + kv_bias.float()[:, None, None, :]
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
         m = s.amax(-1, keepdim=True)
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         p = torch.exp(s - m)
@@ -121,30 +173,110 @@ def attention_reference(q, k, v, scale: float, compute_dtype=torch.bfloat16,
     return (o / denom.clamp_min(1e-30)).to(q.dtype)
 
 
-def attention_backward(q, k, v, kv_bias, g, scale: float):
+def attention_q8_reference(q, k, v, scale: float,
+                           compute_dtype=torch.bfloat16,
+                           kv_bias: Optional[torch.Tensor] = None,
+                           segment_size: int = 0, quant: str = "qk"):
+    """K5's int8 forms in the TPU kernel's arithmetic (`_attn_kernel` with
+    quant): q, k, v rounded to compute_dtype; q's max-abs scale qm per
+    (batch row, head, block of lq_block(Lq, Lk rounded up to 128) rows), k's
+    km per (batch row, head) over all keys, both floored at 1e-6; qi =
+    round(q * (127 / qm)), ki likewise (half to even); s = (qi . ki) *
+    ((qm * km / 127^2) * scale * log2 e) - (30 - bias * log2 e), -inf outside
+    a row's segment. quant="qk": P = exp2(s) rounded to compute_dtype, O =
+    P V / max(sum of the rounded P, 1e-30). quant="qk+av": m = the row
+    maximum of s, P = round(exp2(max(s - m, -126)) * 127) (0 for a row whose
+    keys are all masked, as the TPU kernel's int8 conversion of its NaN
+    gives), V quantized as k with vm, O = (P . vi) / max(127 sum P, 1) *
+    vm. In chunks of batch rows."""
+    if quant not in QUANT_FORMS[1:]:
+        raise ValueError(f"quant must be one of {QUANT_FORMS}, got {quant!r}")
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    blk = lq_block(Lq, _round_up(Lk, 128))
+    cells = -(-Lq // blk)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=q.device)
+    n127, lg = f32(127.0), f32(_LOG2E)
+    mask = _segment_mask(Lq, Lk, segment_size, q.device)
+    out = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
+    rows = max(1, _BWD_SCORES // (H * Lq * Lk))
+    for b0 in range(0, B, rows):
+        sl = slice(b0, b0 + rows)
+        qf, kf, vf = (a[sl].to(compute_dtype).float() for a in (q, k, v))
+        nb = qf.shape[0]
+        qp = torch.nn.functional.pad(qf, (0, 0, 0, 0, 0, cells * blk - Lq))
+        qp = qp.reshape(nb, cells, blk, H, D)
+        qm = qp.abs().amax((2, 4)).clamp_min(1e-6)  # [nb, cells, H]
+        km = kf.abs().amax((1, 3)).clamp_min(1e-6)  # [nb, H]
+        qi = torch.round(qp * (n127 / qm)[:, :, None, :, None])
+        qi = qi.reshape(nb, cells * blk, H, D)[:, :Lq]
+        ki = torch.round(kf * (n127 / km)[:, None, :, None])
+        si = torch.einsum("bqhd,bkhd->bhqk", qi, ki)
+        fac = qm[:, :, None, :] * km[:, None, None, :] / f32(127.0 * 127.0)
+        fac = (fac * f32(scale) * lg).expand(nb, cells, blk, H).reshape(
+            nb, cells * blk, H)[:, :Lq].transpose(1, 2)  # [nb, H, Lq]
+        bias = torch.full((nb, Lk), _SHIFT, device=q.device)
+        if kv_bias is not None:
+            bias = bias - kv_bias[sl].float() * lg
+        s = si * fac[..., None] - bias[:, None, None, :]
+        del si
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        if quant == "qk":
+            p = torch.exp2(s).to(compute_dtype).float()
+            del s
+            denom = p.sum(-1).transpose(1, 2)[..., None]  # [nb, Lq, H, 1]
+            o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+            out[sl] = (o / denom.clamp_min(1e-30)).to(q.dtype)
+            continue
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(torch.maximum(s - m, f32(-126.0)))
+        del s
+        pi = torch.round(p * n127).nan_to_num(0.0)
+        del p
+        vm = vf.abs().amax((1, 3)).clamp_min(1e-6)  # [nb, H]
+        vi = torch.round(vf * (n127 / vm)[:, None, :, None])
+        o = torch.einsum("bhqk,bkhd->bqhd", pi, vi)
+        denom = (pi.sum(-1) * n127).transpose(1, 2)[..., None]
+        out[sl] = (o / denom.clamp_min(1.0) * vm[:, None, :, None]).to(
+            q.dtype)
+    return out
+
+
+def attention_backward(q, k, v, kv_bias, g, scale: float,
+                       segment_size: int = 0, bias_grad: bool = False):
     """The JAX custom_vjp's `_bwd`: the gradient of softmax(q k^T * scale +
-    bias) v with respect to q, k, v, in fp32 from the unrounded inputs, in
-    chunks of batch rows (the [B, H, Lq, Lk] scores of the DiT's image
+    bias) v (masked outside each row's segment) with respect to q, k, v
+    and, with bias_grad, kv_bias (the sum of dS over heads and query rows,
+    before the scale), in fp32 from the unrounded inputs, in chunks of
+    batch rows (the [B, H, Lq, Lk] scores of the DiT's image
     cross-attention would take 2.2 GB each at once)."""
     B, Lq, H, _ = q.shape
     Lk = k.shape[1]
     rows = max(1, _BWD_SCORES // (H * Lq * Lk))
     dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
+    dbias = torch.empty_like(kv_bias) if bias_grad else None
+    mask = _segment_mask(Lq, Lk, segment_size, q.device)
     for b0 in range(0, B, rows):
         sl = slice(b0, b0 + rows)
         qf, kf, vf, gf = (a[sl].float() for a in (q, k, v, g))
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
         if kv_bias is not None:
             s = s + kv_bias[sl].float()[:, None, None, :]
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
         p = torch.softmax(s, dim=-1)
         del s
         dv[sl] = torch.einsum("bhqk,bqhd->bkhd", p, gf)
         dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-        ds = dp.sub_((dp * p).sum(-1, keepdim=True)).mul_(p).mul_(scale)
+        ds = dp.sub_((dp * p).sum(-1, keepdim=True)).mul_(p)
         del dp, p
+        if bias_grad:
+            dbias[sl] = ds.sum((1, 2))
+        ds.mul_(scale)
         dq[sl] = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
         dk[sl] = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    return dq, dk, dv
+    return dq, dk, dv, dbias
 
 
 def temporal_attention_reference(q, k, v, scale: float,
@@ -221,56 +353,94 @@ def _check_cuda(q, k, v, kv_bias, compute_dtype) -> None:
                         f"{kv_bias.device}")
 
 
-def _attention_forward(q, k, v, kv_bias, scale, compute_dtype, cross):
+def _check_segments(q, k, segment_size: int) -> None:
+    """What segment_size takes on the card: Lq == Lk, a multiple of it."""
+    if segment_size < 0 or (segment_size and (
+            q.shape[1] != k.shape[1] or q.shape[1] % segment_size)):
+        raise ValueError(f"segment_size {segment_size} needs Lq == Lk, a "
+                         f"multiple of it; got {q.shape[1]}, {k.shape[1]}")
+
+
+def _attention_forward(q, k, v, kv_bias, scale, compute_dtype, cross,
+                       segment_size=0, quant=""):
     if not q.is_cuda:
-        return attention_reference(q, k, v, scale, compute_dtype, kv_bias)
+        return attention_reference(q, k, v, scale, compute_dtype, kv_bias,
+                                   segment_size, quant)
     from .. import _ext
 
     _check_cuda(q, k, v, kv_bias, compute_dtype)
+    _check_segments(q, k, segment_size)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     bias = None if kv_bias is None else kv_bias.contiguous()
     o = torch.empty(B, Lq, H, D, device=q.device, dtype=q.dtype)
-    _ext.call("gvf_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              None if bias is None else bias.data_ptr(), o.data_ptr(), B, Lq,
-              Lk, H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-              float(scale), float(scale * _LOG2E),
-              int(q.dtype == torch.float32), int(D == 32))
-    launch_counts[launch_key(D, cross, bias is not None)] += 1
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if quant:
+        if q.dtype != torch.bfloat16:
+            raise TypeError("the int8 attention forms take bfloat16 q/k/v; "
+                            f"got {q.dtype}")
+        blk = lq_block(Lq, _round_up(Lk, 128))
+        dev = q.device
+        qi = torch.empty(B, Lq, H * D, device=dev, dtype=torch.int8)
+        ki = torch.empty(B, Lk, H * D, device=dev, dtype=torch.int8)
+        qs = torch.empty(B, -(-Lq // blk), H, device=dev)
+        ks, vs = (torch.empty(B, H, device=dev) for _ in range(2))
+        _ext.call("gvf_attention_q8", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), bias_ptr, o.data_ptr(), qi.data_ptr(),
+                  ki.data_ptr(), qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                  B, Lq, Lk, H, D, q.stride(0), q.stride(1), k.stride(0),
+                  k.stride(1), blk, segment_size, int(quant == "qk+av"),
+                  float(scale))
+    else:
+        _ext.call("gvf_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  bias_ptr, o.data_ptr(), B, Lq, Lk, H, D, q.stride(0),
+                  q.stride(1), k.stride(0), k.stride(1), float(scale),
+                  float(scale * _LOG2E), int(q.dtype == torch.float32),
+                  int(D == 32), segment_size)
+    launch_counts[launch_key(D, cross, bias is not None, segment_size > 0,
+                             quant)] += 1
     return o
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_bias, scale, compute_dtype, cross):
+    def forward(ctx, q, k, v, kv_bias, scale, compute_dtype, cross,
+                segment_size, quant):
         ctx.save_for_backward(q, k, v, kv_bias)
-        ctx.scale = scale
+        ctx.scale, ctx.segment_size = scale, segment_size
         return _attention_forward(q, k, v, kv_bias, scale, compute_dtype,
-                                  cross)
+                                  cross, segment_size, quant)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_bias = ctx.saved_tensors
-        return (*attention_backward(q, k, v, kv_bias, g, ctx.scale), None,
-                None, None, None)
+        dq, dk, dv, dbias = attention_backward(
+            q, k, v, kv_bias, g, ctx.scale, ctx.segment_size,
+            bias_grad=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def fused_attention(q, k, v, scale: float, compute_dtype=torch.bfloat16, *,
                     kv_bias: Optional[torch.Tensor] = None,
-                    cross: bool = False, impl: Optional[str] = None):
+                    cross: bool = False, segment_size: int = 0,
+                    quant: str = "", impl: Optional[str] = None):
     """Softmax attention, q [B, Lq, H, D], k/v [B, Lk, H, D] -> [B, Lq, H, D]
     in q's dtype (a contiguous tensor, i.e. [B, Lq, H * D] as the output
     projection reads it). kv_bias [B, Lk]: an additive logit bias per key;
-    -inf masks the key, and a row with no key left gives 0. `cross` names
-    the form for the launch count (the caller's cross-attention, whatever
-    its lengths)."""
+    -inf masks the key, and a row with no key left gives 0; it gets the
+    gradient JAX's backward gives it. segment_size > 0: q and k are packed
+    segments of that length (Lq == Lk, a multiple of it), attention
+    block-diagonal. quant: "" | "qk" | "qk+av", the TPU kernel's int8
+    forms (see attention_q8_reference); the backward is the float form's.
+    `cross` names the form for the launch count (the caller's
+    cross-attention, whatever its lengths)."""
+    if quant not in QUANT_FORMS:
+        raise ValueError(f"quant must be one of {QUANT_FORMS}, got {quant!r}")
     if _plain(impl):
-        return attention_reference(q, k, v, scale, compute_dtype, kv_bias)
-    if kv_bias is not None and kv_bias.requires_grad \
-            and torch.is_grad_enabled():
-        raise NotImplementedError("kv_bias gets no gradient: the JAX "
-                                  "backward's bias gradient is not ported")
-    return _Attention.apply(q, k, v, kv_bias, scale, compute_dtype, cross)
+        return attention_reference(q, k, v, scale, compute_dtype, kv_bias,
+                                   segment_size, quant)
+    return _Attention.apply(q, k, v, kv_bias, scale, compute_dtype, cross,
+                            segment_size, quant)
 
 
 def _check_temporal_cuda(q, k, v, compute_dtype) -> None:

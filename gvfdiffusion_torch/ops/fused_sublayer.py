@@ -6,23 +6,26 @@ Each sublayer has two versions:
     rounding to `compute_dtype` at the same points (matmul operands and the
     softmax weights are rounded; every product accumulates in fp32).
   * `fused_*_sublayer`: dispatches on the device of `x`. A CUDA tensor runs
-    the hand-written kernel chain of `csrc/fused_sublayer.cu` (bf16 only);
-    a CPU tensor runs the plain version. `impl="plain"` forces the plain
-    version on any device, for comparing the two on the card.
+    the hand-written kernel chain of `csrc/fused_sublayer.cu` (bf16, and
+    fp32 for one cross context); a CPU tensor runs the plain version.
+    `impl="plain"` forces the plain version on any device, for comparing
+    the two on the card.
 
 The JAX kernels' configurations that a path of the system reaches are
 ported: heads of 32 or 64 for the self, temporal and two-context cross
 sublayers, and their `rms` flag with JAX's defaults (q/k RMS norms on the
 self and temporal sublayers unless `rms=False`; on the cross sublayer,
 `rms=True` norms q, the cached k having been normed when the cache was
-built); one cross context at heads of 32, 64 or 128, without RMS norm,
-for the SLat flow torso, in bf16 or, at compute_dtype=float32 (the torso
-of TRELLIS as the registry builds it), in fp32 with no operand rounded to
-bf16: an fp32 LN, the projections and the attention by the 3xTF32 split
-on the tensor cores (`gvf_cross_sublayer1_f32`; every tensor fp32). The
+built); one cross context at heads of 32, 64 or 128, with or without the
+q RMS norm, for the SLat flow torso, in bf16 or, at
+compute_dtype=float32 (the torso of TRELLIS as the registry builds it), in
+fp32 with no operand rounded to bf16: an fp32 LN, the projections and the
+attention by the 3xTF32 split on the tensor cores
+(`gvf_cross_sublayer1_f32`; every tensor fp32, the q norm in fp32). The
 JAX kernel's `kv_buffers` sized its VMEM residency on the
 TPU and has no counterpart here. Its int8 `quant` form (the DiT's two
-contexts against an int8 KV cache from `quantize_kv`) is ported with its
+contexts against an int8 KV cache from `quantize_kv`, and one context at
+heads of 32 or 64, with or without `rms`) is ported with its
 arithmetic: `cross_sublayer_q8_reference` is its plain version, and
 `cross_sublayer_reference(quant=True)` the JAX package's oracle on the
 dequantized cache. That form quantizes q (after its RMS norm, with `rms`)
@@ -36,7 +39,10 @@ sublayer and one batch row x `voxel_group` voxels x all T frames for the
 temporal one (the TPU grid instance; attention still couples only the T
 rows of one voxel). JAX has no oracle for it:
 `self_sublayer_qk8_reference` and `temporal_sublayer_qk8_reference` are
-its plain versions. K1's `seg` is not ported.
+its plain versions. K1's `seg` (rows of `seg` interleaved streams, row r
+attending the rows of its stream r % seg) is K2's function on the
+[B, L / seg, seg, C] view: on the card it runs K2's chain there, float or
+int8 QK (one scale cell a batch row: a voxel group of seg).
 
 Cross parameters p_i are (norm_scale, norm_bias, wq, bq, wo, bo), or with
 `rms=True` (norm_scale, norm_bias, wq, bq, qg, wo, bo), JAX's order, where
@@ -50,17 +56,24 @@ the TPU kernel's VMEM residency and have no counterpart on Hopper.
 `launch_counts` counts kernel launches per sublayer (one per launched
 chain; "cross" for the two-context form, "cross_single" for the single,
 "cross_q8" for the int8 form, "self_q8" and "temporal_q8" for the int8-QK
-self forms, "temporal_core" for temporal_sublayer_attention, the temporal
-sublayer's attention step called alone); the plain version never counts.
-A counter covers every head width and `rms` setting of its form, a run's
-configuration telling them apart, but for the single-context form, whose
-counter is keyed by dtype and head width as K7's (`single_launch_key`:
-"cross_single", "cross_single_fp32", "cross_single_d128", ...).
+self forms, "self_seg" and "self_seg_q8" for K1 with seg, "temporal_core"
+for temporal_sublayer_attention, the temporal sublayer's attention step
+called alone); the plain version never counts. A counter covers every
+head width and `rms` setting of its form, a run's configuration telling
+them apart, but for the single-context form, whose counter is keyed by
+form, dtype and head width as K7's (`single_launch_key`: "cross_single",
+"cross_single_fp32", "cross_single_d128", "cross_single_rms",
+"cross_single_rms_fp32", "cross_single_q8", ...).
 
-The kernels have no backward pass yet (the JAX custom_vjps recompute
-through einsums or the oracle): on CUDA a wrapper raises when grad mode is
-on and any tensor input requires grad, rather than return an output with
-no gradient. The plain versions differentiate as any torch code does.
+The backward of every sublayer wrapper, on every device and with
+impl="plain" too, is the JAX custom_vjp's (`_self_bwd`, `_temporal_bwd`,
+`_cross_bwd`, `_mlp_bwd`): a `torch.autograd.Function` (`_Fused`) saves
+the inputs and differentiates the float oracle, recomputed under torch's
+autograd in chunks of batch rows; the int8 forms differentiate the float
+oracle too (through the dequantized cache, which gets no gradient), as JAX
+does. `temporal_sublayer_attention`, the attention step alone (no JAX
+counterpart; the tests' entry to the kernel), has no backward on the card:
+it raises under grad there.
 """
 
 from __future__ import annotations
@@ -78,17 +91,24 @@ _SHIFT = 30.0  # the TPU kernels' fixed exp2 shift
 _SINGLE_WIDTHS = (32, 64, 128)
 
 
-def single_launch_key(dtype: torch.dtype, head_dim: int) -> str:
-    """The counter of a single-context launch: its dtype and head width."""
-    return ("cross_single" + ("_fp32" if dtype == torch.float32 else "")
+def single_launch_key(dtype: torch.dtype, head_dim: int, rms: bool = False,
+                      quant: bool = False) -> str:
+    """The counter of a single-context launch: its form (int8 cache, q RMS
+    norm, or neither), its dtype and its head width."""
+    form = "_q8" if quant else "_rms" if rms else ""
+    return ("cross_single" + form
+            + ("_fp32" if dtype == torch.float32 else "")
             + ("" if head_dim == 64 else f"_d{head_dim}"))
 
 
 launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
                  "cross_q8": 0, "self_q8": 0, "temporal_q8": 0,
-                 "temporal_core": 0,
-                 **{single_launch_key(dt, d): 0 for d in _SINGLE_WIDTHS
-                    for dt in (torch.bfloat16, torch.float32)}}
+                 "temporal_core": 0, "self_seg": 0, "self_seg_q8": 0,
+                 **{single_launch_key(dt, d, rms): 0 for d in _SINGLE_WIDTHS
+                    for dt in (torch.bfloat16, torch.float32)
+                    for rms in (False, True)},
+                 **{single_launch_key(torch.bfloat16, d, quant=True): 0
+                    for d in (32, 64)}}
 # voxels per cell of the temporal sublayer (JAX `_TEMPORAL_NC`), halved
 # until it divides N
 _TEMPORAL_NC = 16
@@ -135,11 +155,21 @@ def _qkv(qkv, qg, kg, num_heads: int, rms: bool):
     return q, k, v
 
 
+def _seg_mask(L: int, seg: int, device):
+    """[L, L] True where row % seg == col % seg (K1's `seg` interleaved
+    streams), or None for seg <= 1."""
+    if seg <= 1:
+        return None
+    r = torch.arange(L, device=device)
+    return r[:, None] % seg == r[None, :] % seg
+
+
 def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
                             num_heads: int, rms: bool = True,
-                            compute_dtype=torch.bfloat16):
+                            compute_dtype=torch.bfloat16, seg: int = 0):
     """x [B, L, C]; sh/sc/gate [B, C]; wqkv [C, 3C]; wo [C, C]; qg/kg [C]
-    (read with rms=True)."""
+    (read with rms=True). seg > 1: row i attends only the rows j with
+    i % seg == j % seg (JAX's oracle's mask)."""
     B, L, C = x.shape
     D = C // num_heads
     dt = compute_dtype
@@ -149,6 +179,9 @@ def self_sublayer_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     q, k, v = _qkv(qkv, qg, kg, num_heads, rms)
     qh, kh, vh = (_rd(a, dt).reshape(B, L, num_heads, D) for a in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * D ** -0.5
+    mask = _seg_mask(L, seg, x.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     attn = torch.einsum("bhqk,bkhd->bqhd", _rd(p, dt), vh).reshape(B, L, C)
     out = _rd(attn, dt) @ _rd(wo, dt) + _f(bo)
@@ -185,7 +218,7 @@ def temporal_voxel_group(n: int) -> int:
     return nc
 
 
-def _qk8_attention(q, qs, k, ks, v, dt, scale):
+def _qk8_attention(q, qs, k, ks, v, dt, scale, mask=None):
     """The int8-QK attention of one row block per leading index, in the
     kernels' arithmetic (JAX `_packed_attention`, quant_qk): q, k [..., Lq |
     Lk, H, D] fp32 after the RMS norms, their max-abs scales qs, ks
@@ -193,21 +226,25 @@ def _qk8_attention(q, qs, k, ks, v, dt, scale):
     qi = round(q * (127 / qs)) (half to even), si the int8 x int8 sums
     (exact in fp32), s = si * (qs * ks * scale * log2 e / 127^2) - 30,
     P = exp2(s); the row sum from the fp32 P, P V with P and V rounded to
-    dt. -> [..., Lq, H, D]."""
+    dt; mask [Lq, Lk] (False: P = 0, the score -inf) or None. -> [..., Lq,
+    H, D]."""
     n127 = torch.tensor(127.0, dtype=torch.float32)
     qi = torch.round(q * (n127 / qs)[..., None, :, None])
     ki = torch.round(k * (n127 / ks)[..., None, :, None])
-    return _qk8_int_attention(qi, qs, ki, ks, v, dt, scale)
+    return _qk8_int_attention(qi, qs, ki, ks, v, dt, scale, mask)
 
 
-def _qk8_int_attention(qi, qs, ki, ks, v, dt, scale):
+def _qk8_int_attention(qi, qs, ki, ks, v, dt, scale, mask=None):
     """_qk8_attention from the int8 values qi, ki [..., Lq | Lk, H, D]
     (held as floats) and their scales."""
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)
     si = torch.einsum("...qhd,...khd->...hqk", qi, ki)
     f = qs * ks * f32(scale) * f32(_LOG2E) / f32(127.0 * 127.0)
-    p_ = torch.exp2(si * f[..., None, None] - _SHIFT)
-    del si
+    s = si * f[..., None, None] - _SHIFT
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    p_ = torch.exp2(s)
+    del si, s
     denom = p_.sum(-1).transpose(-1, -2)[..., None]  # [..., Lq, H, 1]
     o = torch.einsum("...hqk,...khd->...qhd", _rd(p_, dt), _rd(v, dt))
     return o / denom.clamp_min(1e-30)
@@ -215,11 +252,12 @@ def _qk8_int_attention(qi, qs, ki, ks, v, dt, scale):
 
 def self_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
                                 num_heads: int, rms: bool = True,
-                                compute_dtype=torch.bfloat16):
+                                compute_dtype=torch.bfloat16, seg: int = 0):
     """The int8-QK self sublayer's own arithmetic (JAX
     `_self_sublayer_kernel` with quant_qk=True): as
     self_sublayer_reference, with q and k (fp32, RMS-normalized with `rms`)
-    quantized per (frame, head); see _qk8_attention."""
+    quantized per (frame, head), a frame being one batch row of L rows
+    (with seg: all its interleaved streams); see _qk8_attention."""
     B, L, C = x.shape
     H, D = num_heads, C // num_heads
     dt = compute_dtype
@@ -228,7 +266,8 @@ def self_sublayer_qk8_reference(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
     qkv = _rd(h, dt) @ _rd(wqkv, dt) + _f(bqkv)
     q, k, v = (a.reshape(B, L, H, D) for a in _qkv(qkv, qg, kg, H, rms))
     qs, ks = (a.abs().amax((1, 3)).clamp_min(1e-8) for a in (q, k))  # [B, H]
-    attn = _qk8_attention(q, qs, k, ks, v, dt, D ** -0.5).reshape(B, L, C)
+    attn = _qk8_attention(q, qs, k, ks, v, dt, D ** -0.5,
+                          _seg_mask(L, seg, x.device)).reshape(B, L, C)
     out = _rd(attn, dt) @ _rd(wo, dt) + _f(bo)
     return (xf + out * _f(gate)[:, None]).to(x.dtype)
 
@@ -302,7 +341,11 @@ def temporal_sublayer_attention(qkv, num_heads: int, *, quant=None,
         return attn.reshape(B, T, N, C).to(torch.bfloat16)
     from .. import _ext
 
-    _no_grad_inputs("temporal_sublayer_attention", qkv, quant or ())
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qkv, *(quant or ()))):
+        raise RuntimeError("temporal_sublayer_attention's kernel has no "
+                           "backward pass; call it under torch.no_grad() "
+                           "(fused_temporal_sublayer differentiates)")
     if C % H or D not in (32, 64) or C % 16:
         raise ValueError(f"head width must be 32 or 64 over C a multiple "
                          f"of 16, got {C}/{H}")
@@ -481,17 +524,81 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     return x.is_cuda
 
 
-def _no_grad_inputs(name: str, *tensors) -> None:
-    """Raise if autograd would need a gradient through the kernel `name`:
-    its output comes from raw pointers and has no grad_fn."""
-    flat = []
-    for t in tensors:
-        flat.extend(t if isinstance(t, (tuple, list)) else (t,))
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward pass; run it under "
-            "torch.no_grad() or pass impl='plain' to differentiate")
+# scores per chunk of the backward's recomputation ([rows, H, Lq, Lk] fp32:
+# 512 MB, as fused_attention.attention_backward's)
+_BWD_SCORES = 1 << 27
+
+
+class _Fused(torch.autograd.Function):
+    """A sublayer's forward (its kernel chain on CUDA, its plain version on
+    the CPU) with the JAX custom_vjp's backward: the vjp of the float
+    oracle (`oracle`, the JAX package's `*_reference` at the rounding points
+    of compute_dtype) recomputed under torch's autograd from the saved
+    inputs. `divs[i]` says how tensor i follows the batch rows of x: 0, a
+    parameter shared by every row; d, one row of it for every d rows of x
+    (1: x itself, a KV cache; mod_repeat: the modulation). The
+    recomputation runs in chunks of `rows` rows of x (a multiple of every
+    d), the shared gradients summed in fp32 over the chunks; a tensor that
+    needs no gradient (int8 caches, None) gets none."""
+
+    @staticmethod
+    def forward(ctx, run, oracle, divs, rows, *tensors):
+        ctx.oracle, ctx.divs, ctx.rows = oracle, divs, rows
+        ctx.save_for_backward(*tensors)
+        with torch.no_grad():
+            return run(*tensors)
+
+    @staticmethod
+    def backward(ctx, gy):
+        tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[4:]
+        wrt = [i for i, n in enumerate(need) if n]
+        grads = [None] * len(tensors)
+        for i in wrt:
+            t = tensors[i]
+            grads[i] = (torch.zeros_like(t) if ctx.divs[i] else
+                        torch.zeros(t.shape, device=t.device))
+        total = gy.shape[0]
+        for r0 in range(0, total, ctx.rows):
+            r1 = min(total, r0 + ctx.rows)
+            ins = []
+            for t, d, n in zip(tensors, ctx.divs, need):
+                if t is not None:
+                    t = (t[r0 // d:r1 // d] if d else t).detach()
+                    t.requires_grad_(n)
+                ins.append(t)
+            with torch.enable_grad():
+                y = ctx.oracle(*ins)
+                gs = torch.autograd.grad(y, [ins[i] for i in wrt], gy[r0:r1],
+                                         allow_unused=True)
+            for i, g in zip(wrt, gs):
+                if g is None:
+                    continue
+                d = ctx.divs[i]
+                if d:
+                    grads[i][r0 // d:r1 // d] = g
+                else:
+                    grads[i] += g.float()
+        for i in wrt:
+            grads[i] = grads[i].to(tensors[i].dtype)
+        return (None, None, None, None, *grads)
+
+
+def _chunk_rows(total: int, unit: int, per_row: int) -> int:
+    """Rows of x a backward chunk takes: as many as keep `per_row` scores a
+    row under _BWD_SCORES, a multiple of `unit`, at least one unit."""
+    n = max(1, _BWD_SCORES // max(per_row, 1)) // unit * unit
+    return min(total, max(unit, n))
+
+
+def _fused(run, oracle, tensors, divs, rows):
+    """y = run(*tensors) with oracle's vjp as its gradient (see _Fused);
+    straight to `run` when no tensor needs a gradient."""
+    if not (torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors)):
+        return run(*tensors)
+    return _Fused.apply(run, oracle, divs, rows, *tensors)
 
 
 def _ptr(t: torch.Tensor):
@@ -561,28 +668,73 @@ def _ptr_or_null(t: Optional[torch.Tensor]):
 
 def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
                         num_heads: int, rms: bool = True,
-                        compute_dtype=torch.bfloat16, mod_repeat: int = 1,
-                        quant_qk: bool = False, impl: Optional[str] = None):
+                        compute_dtype=torch.bfloat16, seg: int = 0,
+                        mod_repeat: int = 1, quant_qk: bool = False,
+                        impl: Optional[str] = None):
     """Modulated self-attention sublayer over L. x [B, L, C];
     sh/sc/gate [B // mod_repeat, C]: row block i reads modulation row
     i // mod_repeat (the frames of one sample share a timestep). rms: the
     q/k RMS norms with the lane gammas qg/kg (unread without it).
+    seg > 1: the rows are `seg` interleaved streams, row r = t * seg + n
+    attending only the rows of its n (L a multiple of seg on the card,
+    where it runs K2's chain on the [B, L / seg, seg, C] view).
     quant_qk=True: int8 QK with per-(frame, head) scales; see
-    self_sublayer_qk8_reference."""
+    self_sublayer_qk8_reference. Under autograd the backward is JAX's:
+    the float oracle's vjp, the modulation's gradient summed over the rows
+    that share it."""
+    B, L, C = x.shape
+    mr = mod_repeat
+    kw = dict(num_heads=num_heads, rms=rms, compute_dtype=compute_dtype,
+              seg=seg)
+
+    def oracle(x, sh, sc, gate, *w):
+        return self_sublayer_reference(x, _rep(sh, mr), _rep(sc, mr),
+                                       _rep(gate, mr), *w, **kw)
+
     if not _use_kernel(x, impl):
         ref = self_sublayer_qk8_reference if quant_qk else \
             self_sublayer_reference
-        return ref(x, _rep(sh, mod_repeat), _rep(sc, mod_repeat),
-                   _rep(gate, mod_repeat), wqkv, bqkv, qg, kg, wo, bo,
-                   num_heads=num_heads, rms=rms, compute_dtype=compute_dtype)
+
+        def run(x, sh, sc, gate, *w):
+            return ref(x, _rep(sh, mr), _rep(sc, mr), _rep(gate, mr), *w,
+                       **kw)
+
+    else:
+        _mod_rows(B, mr)
+
+        def run(*ts):
+            return _self_kernel(*ts, num_heads=num_heads, rms=rms,
+                                compute_dtype=compute_dtype, seg=seg,
+                                mod_repeat=mr, quant_qk=quant_qk)
+
+    rows = _chunk_rows(B, mr, num_heads * L * L)
+    return _fused(run, oracle, (x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo),
+                  (1, mr, mr, mr, 0, 0, 0, 0, 0, 0), rows)
+
+
+def _self_kernel(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
+                 num_heads: int, rms: bool, compute_dtype, seg: int,
+                 mod_repeat: int, quant_qk: bool):
+    """K1's chain on the card; with seg > 1, K2's on the [B, L / seg, seg,
+    C] view (the same function: attention over the L / seg rows of each
+    stream), the modulation expanded to one row a batch row and, for
+    quant_qk, one scale cell a batch row (a voxel group of seg)."""
     from .. import _ext
 
-    _no_grad_inputs("fused_self_sublayer", x, sh, sc, gate, wqkv, bqkv, qg,
-                    kg, wo, bo)
     B, L, C = x.shape
     Bm = _mod_rows(B, mod_repeat)
     _check_cuda(compute_dtype, num_heads, C, B, x, sh, sc, gate, wqkv, bqkv,
                 wo, bo, *((qg, kg) if rms else ()))
+    if seg > 1:
+        if L % seg:
+            raise ValueError(f"seg {seg} does not divide {L} rows")
+        y = _temporal_kernel(
+            x.reshape(B, L // seg, seg, C), _rep(sh, mod_repeat),
+            _rep(sc, mod_repeat), _rep(gate, mod_repeat), wqkv, bqkv, qg, kg,
+            wo, bo, num_heads=num_heads, rms=rms, quant_qk=quant_qk,
+            voxel_group=seg)
+        launch_counts["self_seg_q8" if quant_qk else "self_seg"] += 1
+        return y.reshape(B, L, C)
     x = x.contiguous()
     gq, gk = _gammas(qg, kg, C, rms)
     args = (_vec(sh, Bm * C), _vec(sc, Bm * C), _vec(gate, Bm * C),
@@ -627,23 +779,43 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
     sh/sc/gate [B, C]; rms as fused_self_sublayer. quant_qk=True: int8 QK
     with scales per (batch row, group of `voxel_group` voxels, head), the
     group defaulting to temporal_voxel_group(N); see
-    temporal_sublayer_qk8_reference."""
+    temporal_sublayer_qk8_reference. Under autograd the backward is JAX's
+    (the float oracle's vjp)."""
+    B, T, N, C = x.shape
+    kw = dict(num_heads=num_heads, rms=rms, compute_dtype=compute_dtype)
+
+    def oracle(*ts):
+        return temporal_sublayer_reference(*ts, **kw)
+
     if not _use_kernel(x, impl):
-        if quant_qk:
-            return temporal_sublayer_qk8_reference(
-                x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo,
-                num_heads=num_heads, rms=rms, compute_dtype=compute_dtype,
-                voxel_group=voxel_group)
-        return temporal_sublayer_reference(
-            x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads=num_heads,
-            rms=rms, compute_dtype=compute_dtype)
+        def run(*ts):
+            if quant_qk:
+                return temporal_sublayer_qk8_reference(
+                    *ts, **kw, voxel_group=voxel_group)
+            return oracle(*ts)
+
+    else:
+        def run(*ts):
+            _check_cuda(compute_dtype, num_heads, C, B * N, *ts[:6],
+                        *ts[8:], *(ts[6:8] if rms else ()))
+            y = _temporal_kernel(*ts, num_heads=num_heads, rms=rms,
+                                 quant_qk=quant_qk, voxel_group=voxel_group)
+            launch_counts["temporal_q8" if quant_qk else "temporal"] += 1
+            return y
+
+    rows = _chunk_rows(B, 1, num_heads * N * T * T)
+    return _fused(run, oracle, (x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo),
+                  (1, 1, 1, 1, 0, 0, 0, 0, 0, 0), rows)
+
+
+def _temporal_kernel(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
+                     num_heads: int, rms: bool, quant_qk: bool,
+                     voxel_group: Optional[int]):
+    """K2's chain on the card (x [B, T, N, C], sh/sc/gate [B, C]; the
+    caller checks the tensors and counts the launch)."""
     from .. import _ext
 
-    _no_grad_inputs("fused_temporal_sublayer", x, sh, sc, gate, wqkv, bqkv,
-                    qg, kg, wo, bo)
     B, T, N, C = x.shape
-    _check_cuda(compute_dtype, num_heads, C, B * N, x, sh, sc, gate, wqkv,
-                bqkv, wo, bo, *((qg, kg) if rms else ()))
     x = x.contiguous()
     gq, gk = _gammas(qg, kg, C, rms)
     args = (_vec(sh, B * C), _vec(sc, B * C), _vec(gate, B * C),
@@ -667,11 +839,9 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
         _ext.call("gvf_temporal_sublayer_q8", _ptr(x), *ptrs, _ptr(y),
                   _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, T, N, C,
                   num_heads, nc)
-        launch_counts["temporal_q8"] += 1
         return y
     _ext.call("gvf_temporal_sublayer", _ptr(x), *ptrs, _ptr(y), _ptr(h),
               _ptr(qkv), _ptr(attn), B, T, N, C, num_heads)
-    launch_counts["temporal"] += 1
     return y
 
 
@@ -687,32 +857,66 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
     """Un-gated cross-attention sublayers with affine pre-norms against the
     cached KV: two chained (the DiT's image then static-GS conditioning,
     heads of 32 or 64) or one (p2 = kv2 = None: the SLat torso's image
-    conditioning, heads of 32, 64 or 128, no rms; on the card in bf16, or
-    in fp32 at compute_dtype=float32). x [B, L, C]; see
-    cross_sublayer_reference. rms=True: q RMS-normed with each p_i's qg.
-    quant=True: the DiT's two contexts against an int8 cache, kv_i = (k,
-    v, ks_t, vs) from quantize_kv with the k scales transposed to
-    [B, H, Lk], q quantized per `q_block` rows (0: all L); see
-    cross_sublayer_q8_reference."""
+    conditioning, heads of 32, 64 or 128; on the card in bf16, or in fp32
+    at compute_dtype=float32). x [B, L, C]; see cross_sublayer_reference.
+    rms=True: q RMS-normed with each p_i's qg. quant=True: an int8 cache,
+    kv_i = (k, v, ks_t, vs) from quantize_kv with the k scales transposed to
+    [B, H, Lk], q quantized per `q_block` rows (0: all L), heads of 32 or 64;
+    see cross_sublayer_q8_reference. Under autograd the backward is JAX's:
+    the float oracle's vjp, through the dequantized cache for an int8 one,
+    which gets no gradient."""
+    if quant:  # the int8 cache gets no gradient, its scales none either
+        kv1 = tuple(t.detach() for t in kv1)
+        kv2 = None if kv2 is None else tuple(t.detach() for t in kv2)
+    ctxs = ((p1, kv1),) if p2 is None else ((p1, kv1), (p2, kv2))
+    sizes = [(len(p), len(kv)) for p, kv in ctxs]
+    flat = (x, *[t for p, kv in ctxs for t in (*p, *kv)])
+
+    def unflat(ts):
+        out, i = [], 1
+        for n_p, n_kv in sizes:
+            out += [tuple(ts[i:i + n_p]), tuple(ts[i + n_p:i + n_p + n_kv])]
+            i += n_p + n_kv
+        return ts[0], out + [None] * (4 - len(out))
+
+    kw = dict(num_heads=num_heads, rms=rms, compute_dtype=compute_dtype)
+
+    def oracle(*ts):
+        x, (p1, kv1, p2, kv2) = unflat(ts)
+        return cross_sublayer_reference(x, p1, kv1, p2, kv2, **kw,
+                                        quant=quant)
+
     if not _use_kernel(x, impl):
-        if quant:
-            return cross_sublayer_q8_reference(
-                x, p1, kv1, p2, kv2, num_heads=num_heads, rms=rms,
-                compute_dtype=compute_dtype, q_block=q_block)
-        return cross_sublayer_reference(
-            x, p1, kv1, p2, kv2, num_heads=num_heads, rms=rms,
-            compute_dtype=compute_dtype)
-    _no_grad_inputs("fused_cross_sublayer", x, p1, kv1, p2, kv2)
+        def run(*ts):
+            x, args = unflat(ts)
+            if quant:
+                return cross_sublayer_q8_reference(x, *args, **kw,
+                                                   q_block=q_block)
+            return oracle(*ts)
+    else:
+        def run(*ts):
+            x, (p1, kv1, p2, kv2) = unflat(ts)
+            return _cross_kernel(x, p1, kv1, p2, kv2, num_heads, rms,
+                                 compute_dtype, quant, q_block)
+
+    # every x row and cache row shares nothing with another batch row
+    divs = (1, *[d for n_p, n_kv in sizes for d in (0,) * n_p + (1,) * n_kv])
+    lk = sum(kv[0].shape[1] for _, kv in ctxs)
+    rows = _chunk_rows(x.shape[0], 1, num_heads * x.shape[1] * lk)
+    return _fused(run, oracle, flat, divs, rows)
+
+
+def _cross_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
+                  compute_dtype, quant: bool, q_block: int):
+    """The chains of K3's forms on the card."""
     if quant:
         return _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads, rms,
                                 compute_dtype, q_block)
     if p2 is None:
-        if rms:
-            raise NotImplementedError("the single-context cross kernel has "
-                                      "no q RMS norm: no caller needs one")
         if compute_dtype == torch.float32:
-            return _cross_single_f32_kernel(x, p1, kv1, num_heads)
-        return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype)
+            return _cross_single_f32_kernel(x, p1, kv1, num_heads, rms)
+        return _cross_single_kernel(x, p1, kv1, num_heads, compute_dtype,
+                                    rms)
     from .. import _ext
 
     B, L, C = x.shape
@@ -742,11 +946,13 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
     return y
 
 
-def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
+def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype,
+                         rms: bool):
     """The single-context chain on the card. x is bf16 or fp32 (the SLat
     torso's residual stream is fp32) and y comes back in x's dtype; k and v
     may be the halves of one [B, Lk, 2C] projection: they are read in
-    place, with their shared batch and row strides."""
+    place, with their shared batch and row strides. rms: q RMS-normed with
+    p's qg in the attention's prologue."""
     from .. import _ext
 
     B, L, C = x.shape
@@ -755,38 +961,43 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype):
     if not x.is_cuda or not (x_f32 or x.dtype == torch.bfloat16):
         raise TypeError("the single-context cross kernel takes a bf16 or "
                         f"fp32 CUDA x; got {x.dtype} on {x.device}")
-    _check_cuda(compute_dtype, num_heads, C, B, *p, k, v,
-                head_widths=_SINGLE_WIDTHS)
+    ns, nb, wq, bq, qg, wo, bo = _cross_params(p, rms)
+    _check_cuda(compute_dtype, num_heads, C, B,
+                *[t for t in (ns, nb, wq, bq, qg, wo, bo) if t is not None],
+                k, v, head_widths=_SINGLE_WIDTHS)
     if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
             or v.stride(2) != 1:
         raise ValueError("k and v must share batch and row strides, with "
                          f"channels contiguous; got {k.stride()}, "
                          f"{v.stride()}")
-    ns, nb, wq, bq, wo, bo = p
     x = x.contiguous()
     args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-            _weight(wo, C, C), _vec(bo, C))
+            None if qg is None else _vec(qg, C), _weight(wo, C, C),
+            _vec(bo, C))
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
     q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
-    _ext.call("gvf_cross_sublayer1", _ptr(x), *map(_ptr, args), _ptr(k),
-              _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
-              _ptr(q), _ptr(attn), B, L, C, num_heads, int(x_f32))
-    launch_counts[single_launch_key(torch.bfloat16, C // num_heads)] += 1
+    _ext.call("gvf_cross_sublayer1", _ptr(x), *map(_ptr_or_null, args),
+              _ptr(k), _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y),
+              _ptr(h), _ptr(q), _ptr(attn), B, L, C, num_heads, int(x_f32))
+    launch_counts[single_launch_key(torch.bfloat16, C // num_heads,
+                                    rms=rms)] += 1
     return y
 
 
-def _cross_single_f32_kernel(x, p, kv, num_heads: int):
+def _cross_single_f32_kernel(x, p, kv, num_heads: int, rms: bool):
     """The single-context chain at compute_dtype=float32 on the card: x,
     every parameter and k/v fp32 CUDA tensors (nothing is cast to reach the
-    bf16 chain), heads of 32, 64 or 128; y fp32. k and v may be the halves of one
-    [B, Lk, 2C] projection, read in place."""
+    bf16 chain), heads of 32, 64 or 128; y fp32. k and v may be the halves
+    of one [B, Lk, 2C] projection, read in place. rms: q RMS-normed in fp32
+    with p's qg."""
     from .. import _ext
 
     B, L, C = x.shape
     k, v = (a.reshape(B, a.shape[1], C) for a in kv)
-    for t in (x, *p, k, v):
+    ns, nb, wq, bq, qg, wo, bo = _cross_params(p, rms)
+    for t in (x, ns, nb, wq, bq, wo, bo, k, v, *((qg,) if rms else ())):
         if not t.is_cuda or t.dtype != torch.float32:
             raise TypeError("the fp32 single-context cross kernel takes fp32 "
                             f"CUDA tensors; got {t.dtype} on {t.device}")
@@ -802,10 +1013,10 @@ def _cross_single_f32_kernel(x, p, kv, num_heads: int):
         raise ValueError("k and v must share batch and row strides, with "
                          "channels contiguous and rows on 16-byte "
                          f"boundaries; got {k.stride()}, {v.stride()}")
-    ns, nb, wq, bq, wo, bo = p
     x = x.contiguous()
     args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-            _weight(wo, C, C), _vec(bo, C))
+            None if qg is None else _vec(qg, C), _weight(wo, C, C),
+            _vec(bo, C))
     y = torch.empty_like(x)
     # the LN and attention outputs as their two tf32 halves, the weights'
     # halves, q (the 3xTF32 GEMMs' operands)
@@ -813,30 +1024,31 @@ def _cross_single_f32_kernel(x, p, kv, num_heads: int):
                for _ in range(2))
     q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
     wsplit = torch.empty(4, C, C, device=x.device, dtype=torch.float32)
-    _ext.call("gvf_cross_sublayer1_f32", _ptr(x), *map(_ptr, args), _ptr(k),
-              _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y), _ptr(h),
-              _ptr(q), _ptr(attn), _ptr(wsplit), B, L, C, num_heads)
-    launch_counts[single_launch_key(torch.float32, C // num_heads)] += 1
+    _ext.call("gvf_cross_sublayer1_f32", _ptr(x), *map(_ptr_or_null, args),
+              _ptr(k), _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y),
+              _ptr(h), _ptr(q), _ptr(attn), _ptr(wsplit), B, L, C, num_heads)
+    launch_counts[single_launch_key(torch.float32, C // num_heads,
+                                    rms=rms)] += 1
     return y
 
 
 def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
                      compute_dtype, q_block: int):
-    """The int8 form on the card: the DiT's two contexts, heads of 32 or
-    64."""
+    """The int8 form on the card, heads of 32 or 64: the DiT's two contexts
+    (x bf16), or one (p2 = None; x bf16 or fp32, y in x's dtype)."""
     from .. import _ext
 
-    if p2 is None:
-        raise NotImplementedError("the int8 cross kernel takes the DiT's two "
-                                  "contexts; the single-context int8 form "
-                                  "has no caller")
     B, L, C = x.shape
     H = num_heads
     qb = q_block or L
-    groups = [(_cross_params(p, rms), kv) for p, kv in ((p1, kv1),
-                                                          (p2, kv2))]
-    _check_cuda(compute_dtype, num_heads, C, B, x,
+    single = p2 is None
+    groups = [(_cross_params(p, rms), kv)
+              for p, kv in ((p1, kv1),) + (() if single else ((p2, kv2),))]
+    x_f32 = single and x.dtype == torch.float32
+    _check_cuda(compute_dtype, num_heads, C, B, *(() if x_f32 else (x,)),
                 *[t for p, _ in groups for t in p if t is not None])
+    if x_f32 and not x.is_cuda:
+        raise TypeError(f"x must be a CUDA tensor; got {x.device}")
     if L % qb:
         raise ValueError(f"q_block {qb} does not divide {L} rows")
     if C % 16:
@@ -867,6 +1079,13 @@ def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
     qi = torch.empty(R, C, device=x.device, dtype=torch.int8)
     qs = torch.empty(R // qb, H, device=x.device, dtype=torch.float32)
     attn = torch.empty_like(h)
+    if single:
+        _ext.call("gvf_cross_sublayer1_q8", _ptr(x), *ctx_args, _ptr(y),
+                  _ptr(h), _ptr(q), _ptr(qi), _ptr(qs), _ptr(attn), B, L, C,
+                  H, qb, int(x_f32))
+        launch_counts[single_launch_key(torch.bfloat16, C // H,
+                                        quant=True)] += 1
+        return y
     mid = torch.empty_like(q)
     _ext.call("gvf_cross_sublayer_q8", _ptr(x), *ctx_args, _ptr(y), _ptr(h),
               _ptr(q), _ptr(qi), _ptr(qs), _ptr(attn), _ptr(mid), B, L, C, H,
@@ -879,15 +1098,34 @@ def fused_mlp_sublayer(x, sh, sc, gate, w1, b1, w2, b2, *,
                        compute_dtype=torch.bfloat16, mod_repeat: int = 1,
                        impl: Optional[str] = None):
     """Modulated MLP sublayer: x + gate * (W2 gelu_tanh(W1 mod(LN x) + b1)
-    + b2). x [B, L, C]; sh/sc/gate [B // mod_repeat, C]."""
+    + b2). x [B, L, C]; sh/sc/gate [B // mod_repeat, C]. Under autograd the
+    backward is JAX's (the oracle's vjp, the modulation's gradient summed
+    over the rows that share it)."""
+    mr = mod_repeat
+
+    def oracle(x, sh, sc, gate, *w):
+        return mlp_sublayer_reference(x, _rep(sh, mr), _rep(sc, mr),
+                                      _rep(gate, mr), *w,
+                                      compute_dtype=compute_dtype)
+
     if not _use_kernel(x, impl):
-        return mlp_sublayer_reference(
-            x, _rep(sh, mod_repeat), _rep(sc, mod_repeat),
-            _rep(gate, mod_repeat), w1, b1, w2, b2,
-            compute_dtype=compute_dtype)
+        run = oracle
+    else:
+        _mod_rows(x.shape[0], mr)
+
+        def run(*ts):
+            return _mlp_kernel(*ts, compute_dtype=compute_dtype,
+                               mod_repeat=mr)
+
+    return _fused(run, oracle, (x, sh, sc, gate, w1, b1, w2, b2),
+                  (1, mr, mr, mr, 0, 0, 0, 0), x.shape[0])
+
+
+def _mlp_kernel(x, sh, sc, gate, w1, b1, w2, b2, *, compute_dtype,
+                mod_repeat: int):
+    """K4's chain on the card."""
     from .. import _ext
 
-    _no_grad_inputs("fused_mlp_sublayer", x, sh, sc, gate, w1, b1, w2, b2)
     B, L, C = x.shape
     M = w1.shape[1]
     Bm = _mod_rows(B, mod_repeat)

@@ -1105,8 +1105,12 @@ def test_cross_q8_counts_and_checks(dev):
         with pytest.raises(ValueError):  # q_block does not divide L
             pt.fused_cross_sublayer(*args, num_heads=4, quant=True,
                                     q_block=48)
-        with pytest.raises(NotImplementedError):  # one context
-            pt.fused_cross_sublayer(*args[:3], num_heads=4, quant=True)
+        # one context: its own chain, counted apart
+        y1 = pt.fused_cross_sublayer(*args[:3], num_heads=4, quant=True)
+        ref1 = pt.fused_cross_sublayer(*args[:3], num_heads=4, quant=True,
+                                       impl="plain")
+        assert pt.launch_counts["cross_single_q8_d32"] == 1
+        assert _rel(y1, ref1) <= 3e-2, _rel(y1, ref1)
 
 
 def test_dit_int8_cache_kernels_match_plain(dev):
@@ -1172,9 +1176,12 @@ def test_qk8_counts_and_checks(dev):
         pt.fused_temporal_sublayer(d(1, 8, 24, 128), *d.mods(1),
                                    *d.self_weights(), num_heads=4,
                                    quant_qk=True, voxel_group=16)
-    with pytest.raises(RuntimeError):  # no backward: raises under grad
-        pt.fused_self_sublayer(x[0].detach().requires_grad_(), *args[1:],
-                               num_heads=4, quant_qk=True, mod_repeat=4)
+    # under grad: the float oracle's vjp, as JAX's custom_vjp
+    xg = x[0].detach().requires_grad_()
+    y = pt.fused_self_sublayer(xg, *args[1:], num_heads=4, quant_qk=True,
+                               mod_repeat=4)
+    (gx,) = torch.autograd.grad(y.float().sum(), xg)
+    assert bool(torch.isfinite(gx).all()) and gx.abs().sum() > 0
 
 
 def test_dit_self_quant_kernels_match_plain(dev):

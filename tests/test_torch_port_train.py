@@ -526,21 +526,34 @@ def _sublayer_args():
 
 @pytest.mark.parametrize("key", ["self", "temporal", "cross", "mlp"])
 def test_sublayer_kernels_raise_under_grad(key, monkeypatch):
-    """K1-K4 read raw pointers, so their output has no gradient: where the
-    kernel would launch, a weight that requires grad under grad mode
-    raises (before anything reaches the card) instead of training on zero
-    gradients. Under no_grad the check passes (and the CPU tensors then
-    fail the kernel's device check). The CPU path differentiates."""
+    """K1-K4 read raw pointers, so their wrappers are autograd Functions
+    whose backward is JAX's custom_vjp (the float oracle's vjp, recomputed):
+    on the CPU the Function's gradient equals torch's autograd through the
+    plain version; where the kernel would launch, grad mode no longer
+    raises for want of a backward, and the CPU tensors fail the kernel's
+    device check, with or without grad."""
     fn, args, kw = _sublayer_args()[key]
     weight = args[-1]
     flat = lambda a: a[-1] if isinstance(a, tuple) else a
     w = flat(weight)
     w.requires_grad_(True)
-    y = fn(*args, **kw)  # the CPU: the plain version, with a gradient
-    y.float().sum().backward()
-    assert w.grad is not None and w.grad.abs().sum() > 0
+    x = args[0].detach().requires_grad_(True)
+    args = (x, *args[1:])
+    g = torch.tensor(np.random.default_rng(8).standard_normal(
+        tuple(x.shape)).astype(np.float32))
+    y = fn(*args, **kw)  # the CPU: the plain forward, JAX's backward
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, (x, w), g)
+    ref = {"self": pfsl.self_sublayer_reference,
+           "temporal": pfsl.temporal_sublayer_reference,
+           "cross": pfsl.cross_sublayer_reference,
+           "mlp": pfsl.mlp_sublayer_reference}[key]
+    want = torch.autograd.grad(ref(*args, **kw), (x, w), g)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+        assert b.abs().sum() > 0
     monkeypatch.setattr(pfsl, "_use_kernel", lambda x, impl: True)
-    with pytest.raises(RuntimeError, match="no backward pass"):
+    with pytest.raises(TypeError):
         fn(*args, **kw)
     with torch.no_grad(), pytest.raises(TypeError):
         fn(*args, **kw)
@@ -548,7 +561,10 @@ def test_sublayer_kernels_raise_under_grad(key, monkeypatch):
 
 def test_k5_has_a_gradient_and_refuses_one_for_kv_bias():
     """K5's wrapper is an autograd Function: its output carries grad_fn
-    and a gradient reaches q; a kv_bias that requires grad raises."""
+    and a gradient reaches q; a kv_bias that requires grad gets the
+    gradient JAX's backward gives it (the sum of dS over heads and query
+    rows), equal to torch's autograd through the plain version, with
+    segments too."""
     r = np.random.default_rng(6)
     q, k, v = (torch.tensor(r.standard_normal((1, 130, 2, 64)).astype(
         np.float32), requires_grad=True) for _ in range(3))
@@ -556,9 +572,17 @@ def test_k5_has_a_gradient_and_refuses_one_for_kv_bias():
     assert y.grad_fn is not None
     y.sum().backward()
     assert q.grad.abs().sum() > 0
-    bias = torch.zeros(1, 130, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        pfa.fused_attention(q, k, v, 0.125, kv_bias=bias)
+    bias = torch.tensor(r.standard_normal((1, 130)).astype(np.float32),
+                        requires_grad=True)
+    g = torch.tensor(r.standard_normal((1, 130, 2, 64)).astype(np.float32))
+    for seg in (0, 26):
+        kw = dict(kv_bias=bias, segment_size=seg)
+        got = torch.autograd.grad(pfa.fused_attention(
+            q, k, v, 0.125, torch.float32, **kw), (q, bias), g)
+        want = torch.autograd.grad(pfa.fused_attention(
+            q, k, v, 0.125, torch.float32, impl="plain", **kw), (q, bias), g)
+        for a, b in zip(got, want):
+            assert float((a - b).norm() / b.norm()) <= 1e-5
 
 
 def test_k5_launch_counter_keys_by_form_and_head_width(monkeypatch):
@@ -570,9 +594,15 @@ def test_k5_launch_counter_keys_by_form_and_head_width(monkeypatch):
     assert pfa.launch_key(64, False, True) == "attention_bias"
     assert pfa.launch_key(32, False, False) == "attention_d32"
     assert pfa.launch_key(32, True, False) == "attention_cross_d32"
+    assert pfa.launch_key(32, False, True, seg=True) == "attention_seg_d32"
+    assert pfa.launch_key(64, False, True, quant="qk") == "attention_qk"
+    assert pfa.launch_key(32, False, False, True, "qk+av") == \
+        "attention_qkav_d32"
     assert set(pfa.launch_counts) == {
         "attention", "attention_cross", "attention_bias", "attention_d32",
-        "attention_cross_d32", "attention_bias_d32", "temporal_attention"}
+        "attention_cross_d32", "attention_bias_d32", "attention_seg",
+        "attention_seg_d32", "attention_qk", "attention_qk_d32",
+        "attention_qkav", "attention_qkav_d32", "temporal_attention"}
     seen = []
     real = p_attention.fused_attention
 
