@@ -65,7 +65,14 @@ Phases, each printed on its own lines:
      12, 64] fp32 (two seeded surface shells, 15721 and 12219 valid keys,
      as prefixes), against the plain forward and backward on every row,
      with SDPA under the boolean key mask (forward; its backward) as the
-     library call;
+     library call; then [vae-forms], K7's other forms at the static VAE's
+     768 channels on the same shells: the forward with its residual, dkv
+     and dq in bf16 at [2, 32768, 24, 32], [2, 32768, 12, 64] and [2,
+     32768, 6, 128] and in fp32 at [2, 32768, 24, 32] and [2, 32768, 6,
+     128], each driven once through flash_attention under grad (the bf16
+     forms' launch counts), then against the plain forward and backward
+     on every row (fp32 also against fp64 on a slice), timed beside the
+     plain versions and SDPA's forward and backward;
   2a. [forms]: the kernel forms that no path reaches, each at its full
      width against its plain version and a library call, driven once
      through its wrapper for its launch count: K5 with segment_size 32 at
@@ -199,7 +206,14 @@ Phases, each printed on its own lines:
      24 and 24 a step), in the shipped `swin` 1 + 1 (none); step times,
      peak memory and every loss term per step; then one phase-A step at 2
      + 2 blocks on random weights, kernels against impl="plain" (loss and
-     gradients);
+     gradients); then main_vae in `full` with --static_vae.num_heads=24
+     and =6 (fp32 K7 at heads of 32 and 128), 2 phase-A steps each, the
+     launches a step checked against the 12-head run's 48 / 24 / 24 (the
+     kernels line's counts of those forms); then the static VAE built in
+     bf16 (SparseTransformerVAE(dtype=bfloat16), `full`, 768 channels,
+     32768 slots) under autograd, one step at 12 + 12 blocks with the
+     kernels (K7's bf16 backward at heads of 64, 48 / 24 / 24 launches),
+     and at 2 + 2 blocks kernels against impl="plain" (loss, gradients);
   8. the step between the two trainers ([encode-latent]): K7's fp32
      forward without the residual at [1, 32768, 12, 64] (the static VAE
      one object at a time) against its plain version, with SDPA as the
@@ -448,6 +462,48 @@ KERNELS = [
      "128]", "gvfdiffusion_tpu/ops/fused_sublayer.py:589",
      "gvfdiffusion_torch/csrc/fused_sublayer.cu", "cross_single_q8"),
 ]
+# K7's backward in the other forms of its forward ([vae-forms]): the static
+# VAE's full attention at its 768 channels in bf16 at heads of 32, 64 and
+# 128 (the module built with dtype=bfloat16) and in fp32 at heads of 32 and
+# 128 (main_vae --static_vae.num_heads=24 / 6); per form the forward with
+# its residual, dkv and dq, under flash_attention.grad_key's names
+VAE_C = 768
+VAE_FORMS = (("bfloat16", 32), ("bfloat16", 64), ("bfloat16", 128),
+             ("float32", 32), ("float32", 128))
+
+
+def vae_form_keys(dt_name: str, d: int):
+    """The (residual forward, dkv, dq) counters of a form."""
+    w = "" if d == 64 else f"_d{d}"
+    if dt_name == "float32":
+        return (f"flash_attention_fp32_res{w}", f"flash_attention_bwd_dkv{w}",
+                f"flash_attention_bwd_dq{w}")
+    return (f"flash_attention_res{w}", f"flash_attention_bwd_dkv_bf16{w}",
+            f"flash_attention_bwd_dq_bf16{w}")
+
+
+def _vae_form_kernels():
+    out = []
+    for dt, d in VAE_FORMS:
+        what = (f"{'bf16' if dt == 'bfloat16' else 'fp32'}, static VAE, "
+                f"{VAE_C // d} heads of {d}")
+        src = ("gvfdiffusion_torch/csrc/flash_attention_bwd"
+               + ("_bf16" if dt == "bfloat16" else "") + ".cu")
+        res, dkv, dq = vae_form_keys(dt, d)
+        out += [(f"flash_attention[{what}: forward with residual]",
+                 "gvfdiffusion_tpu/sparse/attention.py:57",
+                 "gvfdiffusion_torch/csrc/flash_attention.cu", res),
+                (f"flash_attention backward dkv[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+                 src, dkv),
+                (f"flash_attention backward dq[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+                 src, dq)]
+    return out
+
+
+KERNELS += _vae_form_kernels()
+VAE_FORM_KEYS = tuple(k for dt, d in VAE_FORMS for k in vae_form_keys(dt, d))
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
 # heads of 32 and 128, prefix, 2.4e-3, 2.4e-3); in fp32, where the kernel
@@ -973,7 +1029,8 @@ def phase_kernels(dev):
                             library_ms=lib_ms)
     for name, replaces, source, key in KERNELS:
         base, variant = FORMS.get(key, (key, shipped))
-        if key in VAE_FLASH or key == ENCODE_FLASH or key in FORM_KEYS:
+        if key in VAE_FLASH or key == ENCODE_FLASH or key in FORM_KEYS \
+                or key in VAE_FORM_KEYS:
             continue
         if base in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
@@ -1853,6 +1910,15 @@ VAE_FRAMES, VAE_VIEWS = 2, 2
 # from 12 + 12: the plain attention takes ~1 s a call at 32768 slots): rel
 # L2 of the loss and of the gradients
 VAE_GRAD_BOUNDS = {"loss": 1e-5, "grads": 1e-4}
+# main_vae in `full` attention at the static VAE's other head widths
+# (--static_vae.num_heads: 24 heads of 32, 6 of 128; fp32 K7), 2 phase-A
+# steps each
+VAE_HEADS = (24, 6)
+# the static VAE in bf16 under autograd (dtype=bfloat16, `full`): one step
+# at 2 + 2 blocks, kernels vs impl="plain", rel L2 of the loss and of the
+# gradients (bf16 forward and backward on both sides, rounded at other
+# places)
+VAE_BF16_GRAD_BOUNDS = {"loss": 2e-4, "grads": 1e-2}  # 4.6e-5, 1.8e-3
 
 
 def surface_shell(seed: int, radius: float, thickness: float = 2.0):
@@ -1938,8 +2004,8 @@ def phase_vae_kernels(dev):
     o, lse, tiles, vld = fl.launch_forward(q, k, v, valid, scale,
                                             residual=True)
     ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, tiles, lse, o, do)
-    dk, dv = fl.launch_dkv(ptrs, sizes, scale)
-    dq = fl.launch_dq(ptrs, sizes, scale)
+    dk, dv = fl.launch_dkv(ptrs, sizes, scale, torch.float32)
+    dq = fl.launch_dq(ptrs, sizes, scale, torch.float32)
     torch.cuda.synchronize()
     ref_o = fl.flash_attention_reference(q, k, v, valid, scale)
     ref = fl.flash_attention_backward_reference(q, k, v, valid, scale,
@@ -1971,8 +2037,10 @@ def phase_vae_kernels(dev):
 
     ms_fwd = time_ms(lambda: fl.launch_forward(q, k, v, valid, scale,
                                                 residual=True), iters=3)
-    ms_dkv = time_ms(lambda: fl.launch_dkv(ptrs, sizes, scale), iters=2)
-    ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale), iters=2)
+    ms_dkv = time_ms(lambda: fl.launch_dkv(ptrs, sizes, scale,
+                                           torch.float32), iters=2)
+    ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale, torch.float32),
+                    iters=2)
     # the plain versions ran once above (their warm-up)
     plain_fwd = time_ms(lambda: fl.flash_attention_reference(
         q, k, v, valid, scale), iters=1, warm=0)
@@ -2050,6 +2118,184 @@ def phase_vae_kernels(dev):
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms)
     return out
+
+
+# [vae-forms]: each new form's kernels vs the plain forward and backward,
+# rel L2 of o, dq, dk and dv: fp32 as at heads of 64 (VAE_FLASH_BOUND;
+# readings 9.6e-7-3.0e-6); bf16, where both round P and dS to bf16 from
+# fp32 values that differ in their last bits, VAE_BF16_BOUND (readings
+# 4.9e-4-2.5e-3, the output's the largest)
+VAE_BF16_BOUND = 1e-2
+
+
+def phase_vae_forms(dev, card):
+    """[vae-forms]: K7's forward with its residual and the dkv and dq
+    kernels in each form of VAE_FORMS at the static VAE's full attention,
+    [2, 32768, 768 / D, D], q/k/v the views of one projection, the two
+    surface shells of vae_valid as the valid keys; against the plain
+    forward and backward on every row (fp32 also against fp64 on F64_ROWS
+    query rows and the first two listed key tiles of each batch row), with
+    SDPA under the boolean key mask (forward; its backward) as the library
+    call. Each form is first driven once through flash_attention under
+    grad with the counts at 0, read just after. Returns (the kernels-line
+    rows of the forms, the bf16 forms' launches from that drive: no path
+    of the system builds the static VAE in bf16; the fp32 forms' count
+    comes from main_vae's runs in [vae-train])."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    t0 = time.perf_counter()
+    valid = vae_valid(dev)
+    n_valid = [int(n) for n in valid.sum(1)]
+    qk_units = sum(SLOTS * n * VAE_C for n in n_valid)  # B H Lq Nv D
+    entries = {e[3]: e for e in KERNELS}
+    rows, drive = {}, {}
+    for dt_name, D in VAE_FORMS:
+        dtype, H, scale = getattr(torch, dt_name), VAE_C // D, D ** -0.5
+        f32 = dtype == torch.float32
+        keys = vae_form_keys(dt_name, D)
+        if keys != tuple(fl.grad_key(kind, dtype, D)
+                         for kind in fl.GRAD_KINDS):
+            raise AssertionError(f"the counters of {dt_name} d{D}: {keys}")
+        g = torch.Generator(device=dev).manual_seed(31 + D)
+        qkv = torch.randn(VAE_B, SLOTS, 3, H, D, generator=g,
+                          device=dev).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(VAE_B, SLOTS, H, D, generator=g,
+                         device=dev).to(dtype)
+        tag = f"[vae-forms] {dt_name} {H} heads of {D}"
+        # the drive: once through the wrapper under grad
+        leaf = qkv.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        fl.flash_attention(leaf[:, :, 0], leaf[:, :, 1], leaf[:, :, 2],
+                           valid, scale).backward(do)
+        torch.cuda.synchronize()
+        counts = {k_: n for k_, n in fl.launch_counts.items() if n}
+        if counts != {k_: 1 for k_ in keys}:
+            raise AssertionError(f"{tag}: launches {counts}")
+        if not f32:
+            drive.update(counts)
+        del leaf
+        # the kernels, then the plain versions, on the same inputs
+        o, lse, tiles, vld = fl.launch_forward(q, k, v, valid, scale,
+                                                residual=True)
+        ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, tiles, lse, o,
+                                               do)
+        dk, dv = fl.launch_dkv(ptrs, sizes, scale, dtype)
+        dq = fl.launch_dq(ptrs, sizes, scale, dtype)
+        torch.cuda.synchronize()
+        # the plain versions, timed in this one call each (CUDA events)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ref_o = fl.flash_attention_reference(q, k, v, valid, scale)
+        ev[1].record()
+        ref = fl.flash_attention_backward_reference(q, k, v, valid, scale,
+                                                    ref_o, do)
+        ev[2].record()
+        torch.cuda.synchronize()
+        plain_fwd, plain_bwd = (ev[0].elapsed_time(ev[1]),
+                                ev[1].elapsed_time(ev[2]))
+        got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+        want = {"o": ref_o, "dq": ref[0], "dk": ref[1], "dv": ref[2]}
+        errs = {n: rel_l2(got[n], want[n]) for n in got}
+        maes = {n: float((got[n].float() - want[n].float()).abs().max())
+                for n in got}
+        finite = all(bool(torch.isfinite(t_).all()) for t_ in got.values())
+        f64_note = ""
+        if f32:
+            # against fp64: dq on F64_ROWS query rows, dk and dv on the
+            # first two listed key tiles of each batch row
+            lt = fl.key_tile(dtype, D)
+            kidx = [torch.cat([torch.arange(lt * int(t_), lt * int(t_) + lt,
+                                            device=dev)
+                               for t_ in tiles[b, 1:3]])
+                    for b in range(VAE_B)]
+            dq64, dk64, dv64 = flash_backward_fp64(q, k, v, valid, scale, do,
+                                                   F64_ROWS, kidx)
+
+            def flat(ts):
+                return torch.cat([t_.flatten() for t_ in ts])
+
+            f64 = {"dq": (dq[:, :F64_ROWS], ref[0][:, :F64_ROWS], dq64)}
+            for n, a_, r_, w_ in (("dk", dk, ref[1], dk64),
+                                  ("dv", dv, ref[2], dv64)):
+                f64[n] = tuple(flat([x_[b, kidx[b]] for b in range(VAE_B)])
+                               for x_ in (a_, r_)) + (flat(w_),)
+            f64_note = ("; against fp64 (dq on the first "
+                        f"{F64_ROWS} query rows, dk and dv on two listed "
+                        f"{lt}-key tiles a batch row): kernels " + ", ".join(
+                            f"{n} {rel_l2_64(a_, w_):.3e}"
+                            for n, (a_, _, w_) in f64.items())
+                        + ", plain fp32 " + ", ".join(
+                            f"{n} {rel_l2_64(r_, w_):.3e}"
+                            for n, (_, r_, w_) in f64.items()))
+            del dq64, dk64, dv64, f64
+        del ref
+        ms_fwd = time_ms(lambda: fl.launch_forward(q, k, v, valid, scale,
+                                                    residual=True), iters=3)
+        ms_dkv = time_ms(lambda: fl.launch_dkv(ptrs, sizes, scale, dtype),
+                         iters=2)
+        ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale, dtype),
+                        iters=2)
+        mask = valid[:, None, None, :]
+        t = [a.detach().transpose(1, 2).requires_grad_(True)
+             for a in (q, k, v)]
+        try:
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                *t, attn_mask=mask).detach(), iters=2, warm=1)
+            lib_o = F.scaled_dot_product_attention(*t, attn_mask=mask)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lib_o, t, do.transpose(1, 2), retain_graph=True), iters=2,
+                warm=1)
+            del lib_o
+            lib_note = f"sdpa fwd {lib_fwd:.3f} ms bwd {lib_bwd:.3f} ms"
+        except torch.OutOfMemoryError:
+            lib_fwd = lib_bwd = None
+            lib_note = "sdpa does not fit"
+        del t
+        # bounds over this run's valid keys: bf16 at the tensor cores' bf16
+        # peak, fp32 as three tf32 products (3xTF32, as the kernels run it)
+        ops, peak = (3, PEAK_TF32) if f32 else (1, PEAK_FLOPS)
+        b_fwd = bound(ops * 4 * qk_units, nbytes(q, k, v, valid, o, lse),
+                      peak)
+        b_dkv = bound(ops * 8 * qk_units,
+                      nbytes(q, k, v, valid, lse, do, dk, dv), peak)
+        b_dq = bound(ops * 6 * qk_units, nbytes(q, k, v, valid, lse, do, dq),
+                     peak)
+        lim = VAE_FLASH_BOUND if f32 else VAE_BF16_BOUND
+        visited = int(tiles[:, 0].sum())
+        log(f"{tag}: q/k/v {tuple(q.shape)} (views of a qkv projection), "
+            f"valid keys {n_valid}, {visited} of "
+            f"{VAE_B * -(-SLOTS // fl.key_tile(dtype, D))} "
+            f"{fl.key_tile(dtype, D)}-key tiles listed; kernels vs plain "
+            "rel_l2 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (bound {lim:g}); max_abs_err "
+            + ", ".join(f"{n} {m:.3g}" for n, m in maes.items()) + f64_note)
+        log(f"{tag}: forward with residual {ms_fwd:.3f} ms (plain "
+            f"{plain_fwd:.3f} ms, bound {b_fwd[0]:.4f} ms, {b_fwd[1]}); dkv "
+            f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms), dq {ms_dq:.3f} ms "
+            f"(bound {b_dq[0]:.4f} ms); plain backward {plain_bwd:.3f} ms; "
+            f"{lib_note}; {card}")
+        if not (finite and all(e <= lim for e in errs.values())):
+            raise AssertionError(f"{tag}: the kernels disagree with their "
+                                 f"plain versions: {errs}")
+        del keep, got, want
+        for key, mae, ms, plain_ms, (b_ms, b_by), lib_ms in (
+                (keys[0], maes["o"], ms_fwd, plain_fwd, b_fwd, lib_fwd),
+                (keys[1], max(maes["dk"], maes["dv"]), ms_dkv, plain_bwd,
+                 b_dkv, lib_bwd),
+                (keys[2], maes["dq"], ms_dq, plain_bwd, b_dq, lib_bwd)):
+            name, replaces, source, _ = entries[key]
+            rows[key] = dict(name=name, route="cuda", source=source,
+                             replaces=replaces, max_abs_err=mae, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms)
+        del q, k, v, qkv, do, o, lse, tiles, vld, dq, dk, dv, ref_o
+        torch.cuda.empty_cache()
+    log(f"[vae-forms] phase in {time.perf_counter() - t0:.1f} s")
+    return rows, drive
 
 
 def write_vae_dataset(root: str, objects: int, seed: int) -> int:
@@ -2160,7 +2406,14 @@ def phase_vae_train(dev, card):
     launches counted from this run's log), and in the shipped `swin`, 1 +
     1 (no K7 launch). Then one phase-A step at 2 + 2 blocks (full
     attention, random weights) with the kernels and with impl="plain":
-    loss and gradients. Returns the launches of the whole `full` run."""
+    loss and gradients. Then main_vae in `full` attention with
+    --static_vae.num_heads at 24 and 6 (fp32 K7 at heads of 32 and 128), 2
+    phase-A steps each, its launches a step checked against the heads-of-64
+    run's; and the static VAE built in bf16 (SparseTransformerVAE(dtype=
+    bfloat16), `full`, 768 channels) under autograd: one step at 12 + 12
+    blocks with the kernels (K7's bf16 backward, launches counted), then at
+    2 + 2 blocks kernels vs impl="plain". Returns the launches of the whole
+    `full` run and of the runs at 24 and 6 heads."""
     import re
     import shutil
     import tempfile
@@ -2168,6 +2421,7 @@ def phase_vae_train(dev, card):
     import torch
     from gvfdiffusion_torch.cli.main_vae import build_static_vae, to_device
     from gvfdiffusion_torch.data.dataset_vae import VAEDataset, load_data
+    from gvfdiffusion_torch.models.static_vae import SparseTransformerVAE
     from gvfdiffusion_torch.ops.lpips import load_lpips
     from gvfdiffusion_torch.render.renderer import RenderOptions
     from gvfdiffusion_torch.train.train_state import make_optimizer
@@ -2228,6 +2482,42 @@ def phase_vae_train(dev, card):
             if mode == "full":
                 totals = {k: total.get(k, 0) for k in VAE_FLASH}
 
+        # `full` at 24 heads of 32 and 6 of 128: fp32 K7's other forms,
+        # the launches a step as at 12 heads (48 residual forwards, 24 dkv,
+        # 24 dq with remat_blocks 12)
+        for heads in VAE_HEADS:
+            keys = vae_form_keys("float32", VAE_C // heads)
+            rc, text, wall = run_main_vae(
+                common + [f"--exp_dir={os.path.join(work, f'h{heads}')}",
+                          "--static_vae.attn_mode=full",
+                          f"--static_vae.num_heads={heads}",
+                          "--train.static_vae_steps=2",
+                          "--train.total_steps=2"], work, card)
+            steps = _vae_steps(text)
+            times = [s_[2]["step_time"] for s_ in steps]
+            peak = max((s_[2]["peak_gib"] for s_ in steps), default=None)
+            losses = [s_[2]["loss"] for s_ in steps]
+            launches = [s_[3] for s_ in steps]
+            want = dict(zip(keys, (48, 24, 24)))
+            done = re.search(r"\[main_vae\] done; launches (\{.*\})", text)
+            total = json.loads(done.group(1)) if done else None
+            log(f"[vae-train] main_vae full at {heads} heads of "
+                f"{VAE_C // heads} (fp32, remat_blocks 12): rc {rc}, "
+                f"{wall:.1f} ms whole; phase-A step times (s) {times}; peak "
+                f"GiB {peak}; losses {losses}; launches per step {launches}; "
+                f"{card}")
+            for s_ in steps:
+                log(f"[vae-train]   step {s_[0]} phase {s_[1]}: "
+                    + ", ".join(f"{k} {v:.6g}" for k, v in s_[2].items()))
+            if rc != 0 or [s_[1] for s_ in steps] != ["A", "A"] or any(
+                    not math.isfinite(x) for x in losses) or any(
+                    n != want for n in launches) or total != {
+                        k: 2 * n for k, n in want.items()}:
+                raise AssertionError(f"main_vae at {heads} heads: rc {rc}, "
+                                     f"steps {steps}, launches {launches} "
+                                     f"(want {want} a step), in all {total}")
+            totals.update(total)
+
         # one phase-A step at 2 + 2 blocks, kernels vs impl="plain"
         cfg = load_config(config, ["--static_vae.num_blocks=2",
                                    "--static_vae.attn_mode=full"])
@@ -2269,6 +2559,75 @@ def phase_vae_train(dev, card):
         if not (math.isfinite(lk) and all(errs[k] <= b
                                           for k, b in VAE_GRAD_BOUNDS.items())):
             raise AssertionError("the VAE step disagrees with its plain "
+                                 "version")
+        del vae, step, res, gk, gp
+        torch.cuda.empty_cache()
+
+        # the static VAE in bf16 under autograd: 12 + 12 blocks with the
+        # kernels, then 2 + 2 blocks kernels vs impl="plain"
+        from gvfdiffusion_torch.ops import flash_attention as fl
+
+        def bf16_step(blocks, seed):
+            model = init_random_(SparseTransformerVAE(
+                resolution=sv.resolution, in_channels=sv.in_channels,
+                model_channels=sv.model_channels,
+                out_channels=sv.out_channels,
+                latent_channels=sv.latent_channels, num_blocks=blocks,
+                num_heads=sv.num_heads, window_size=sv.window_size,
+                attn_mode="full", norm_output=sv.norm_output,
+                remat_blocks=12, dtype=torch.bfloat16), seed=seed).to(dev)
+            return make_static_vae_step(
+                model, make_optimizer(), render_options=RenderOptions(
+                    near=r.near, far=r.far, bg_color=tuple(r.bg_color),
+                    use_mip=r.use_mip, kernel_size_2d=r.kernel_size_2d,
+                    max_per_tile=r.max_per_tile),
+                lpips_fn=load_lpips(lpips, dev))
+
+        step = bf16_step(12, 46)
+        keys = vae_form_keys("bfloat16", VAE_D)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        terms, _, grads = step.loss_and_grads(batch, noise=noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: n for k, n in fl.launch_counts.items() if n}
+        loss = float(terms["loss"])
+        finite = math.isfinite(loss) and all(
+            bool(torch.isfinite(x).all()) for x in grads.values())
+        log(f"[vae-train] static VAE in bf16 under autograd (full, 768 "
+            f"channels, 12 + 12 blocks, remat_blocks 12, random weights): "
+            f"one step {ms:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
+            f"{loss:.6g}, gradients finite {finite}, launches {counts}; "
+            f"{card}")
+        if not finite or counts != dict(zip(keys, (48, 24, 24))):
+            raise AssertionError(f"the bf16 static VAE's step: loss {loss}, "
+                                 f"finite {finite}, launches {counts}")
+        del step, terms, grads
+        torch.cuda.empty_cache()
+        step = bf16_step(2, 47)
+        res = {}
+        for impl in (None, "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            terms, _, grads = step.loss_and_grads(batch, noise=noise,
+                                                  impl=impl)
+            torch.cuda.synchronize()
+            res[impl] = (float(terms["loss"]),
+                         torch.cat([x.flatten() for x in grads.values()]),
+                         (time.perf_counter() - t0) * 1e3)
+        (lk, gk, mk), (lp, gp, mp) = res[None], res["plain"]
+        errs = {"loss": abs(lk - lp) / abs(lp), "grads": rel_l2(gk, gp)}
+        log(f"[vae-train] bf16 static VAE, one phase-A step at 2 + 2 blocks, "
+            f"kernels vs impl=\"plain\": loss {lk:.6g} vs {lp:.6g}, "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (bounds {VAE_BF16_GRAD_BOUNDS}); {mk:.1f} ms with the "
+            f"kernels, {mp:.1f} ms plain; {card}")
+        if not (math.isfinite(lk) and all(
+                errs[k] <= b for k, b in VAE_BF16_GRAD_BOUNDS.items())):
+            raise AssertionError("the bf16 VAE step disagrees with its plain "
                                  "version")
         return totals
     finally:
@@ -4536,10 +4895,12 @@ def phase_profile_split(dev, card, traces=True):
              lambda: fl.flash_attention(fq, fk, fv, fvalid, 0.125)),
             (f"K7 backward dkv x3 ([{VAE_B}, {SLOTS}, {VAE_H}, {VAE_D}] fp32, "
              "the static VAE's shells)", "split_k7_dkv",
-             lambda: fl.launch_dkv(bwd_ptrs, bwd_sizes, VAE_D ** -0.5)),
+             lambda: fl.launch_dkv(bwd_ptrs, bwd_sizes, VAE_D ** -0.5,
+                                   torch.float32)),
             (f"K7 backward dq x3 ([{VAE_B}, {SLOTS}, {VAE_H}, {VAE_D}] fp32, "
              "the static VAE's shells)", "split_k7_dq",
-             lambda: fl.launch_dq(bwd_ptrs, bwd_sizes, VAE_D ** -0.5))):
+             lambda: fl.launch_dq(bwd_ptrs, bwd_sizes, VAE_D ** -0.5,
+                                  torch.float32))):
         _profile(three(fn), what, f"{trace}_trace.json" if traces else None,
                  card)
     del bwd_keep
@@ -5242,6 +5603,7 @@ def main(argv) -> int:
         return 0
     if "--vae" in argv:
         phase_vae_kernels(dev)
+        phase_vae_forms(dev, card)
         phase_vae_train(dev, card)
         return 0
     if "--encode-latent" in argv:
@@ -5277,6 +5639,8 @@ def main(argv) -> int:
         phase_wild_files(dino, tpipe, dit, vae, dev, card)
         return 0
     results = phase_kernels(dev)
+    vae_forms, vae_form_launches = phase_vae_forms(dev, card)
+    results.update(vae_forms)
     if quick:
         return 0
     forms, form_launches = phase_forms(dev, card)
@@ -5319,14 +5683,16 @@ def main(argv) -> int:
     # run() on the int8 cache, K1 and K2 with int8 QK from run() with
     # self_quant, K7's residual forward and backward kernels from
     # main_vae's run in `full` attention ([vae-train]: its first step's
-    # log; every step launches the same), K7 at the static VAE's batch of 1
+    # log; every step launches the same), K7's backward forms in fp32 at
+    # heads of 32 and 128 from main_vae's runs at 24 and 6 heads, in bf16
+    # from their own drive in [vae-forms], K7 at the static VAE's batch of 1
     # from encode_latent's run ([encode-latent]), the forms no path reaches
     # from their own drive in [forms], the forms of the DiT's other
     # configurations from the
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path
     counts = {**launches, **configs, **trellis, **train, **vae,
-              **form_launches}
+              **form_launches, **vae_form_launches}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")

@@ -55,8 +55,9 @@ struct AttnParams {
   long long valid_s1 = 0;
   const int* tiles = nullptr;
   long long tiles_s1 = 0;
-  // attention_sm90_tf32.cuh only: the [z1][H][Lq] row logsumexp out, or
-  // null; o_lo: null, or o is written split, tf32(o) there and tf32(o -
+  // the [z1][H][Lq] row logsumexp out (attention_sm90_tf32.cuh, and
+  // attention_sm90.cuh's LSE instantiation), or null; attention_sm90_tf32.cuh
+  // only: o_lo: null, or o is written split, tf32(o) there and tf32(o -
   // tf32(o)) at o_lo (the operand of K3's 3xTF32 out projection)
   float* lse = nullptr;
   void* o_lo = nullptr;

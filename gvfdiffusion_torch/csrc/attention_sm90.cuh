@@ -635,7 +635,7 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 }
 
 template <int D, int NWG, typename TQ, typename TKV, typename TO, bool FIXED,
-          bool SEG>
+          bool SEG, bool LSE = false>
 __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
     attn_sm90_kernel(const AttnParams p, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv) {
@@ -866,7 +866,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
   }
 
   // normalise (a row with no visible key has l = 0 and gives 0), stage the
-  // warp's 16 rows in shared memory, write them with 16-byte stores
+  // warp's 16 rows in shared memory, write them with 16-byte stores; with
+  // LSE the quad's lane 0 writes the row's natural logsumexp m ln 2 + ln l
+  // (K7's bf16 residual, which its backward reads)
   float inv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -874,6 +876,12 @@ __global__ void __launch_bounds__(NWG * 128 + 32 * Cfg<D, TKV>::NPROD, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[hr] = l > 0.f ? 1.f / l : 0.f;
+    if constexpr (LSE) {
+      const int qi = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hr;
+      if (quad == 0 && qi < p.Lq)
+        p.lse[(z1 * gridDim.y + h) * p.Lq + qi] =
+            m_run[hr] * 0.69314718055994531f + logf(l);
+    }
   }
   TO* sOw = sO + (wg * 64 + warp * 16) * L::OLD;
   const int r0 = lane >> 2;
@@ -964,9 +972,10 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int H, int Lk,
 // 16-byte aligned, with row strides (and head offsets) a multiple of 16
 // bytes; one row block level (nb2 = 1). SEG: the segments' instantiation
 // (p.seg > 0), kept apart so that the forms without segments carry none of
-// their code.
+// their code; LSE likewise: the [z1][H][Lq] row logsumexp written to p.lse
+// (K7's bf16 forward with its residual).
 template <int D, typename TQ, typename TKV, typename TO, bool FIXED,
-          bool SEG = false>
+          bool SEG = false, bool LSE = false>
 cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
                              cudaStream_t s) {
   AttnParams p = pa;
@@ -978,7 +987,7 @@ cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
   if (nb1 < 1 || nb1 > 65535 || p.nb2 != 1 || H < 1 || H > 65535 ||
       p.Lq < 1 || p.Lk < 1 || (nb1 > 1 && (p.k_s1 <= 0 || p.v_s1 <= 0)) ||
       p.kg || p.qg_f32 ||
-      (SEG != (p.seg != 0)) ||
+      (SEG != (p.seg != 0)) || (LSE && (!p.lse || FIXED)) ||
       (SEG && (p.seg < 0 || p.tiles || p.Lq != p.Lk || p.Lq % p.seg)))
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr, long long stride, int elem) {
@@ -1006,7 +1015,7 @@ cudaError_t launch_attn_sm90(const AttnParams& pa, int H, long long nb1,
 #define GVF_LAUNCH_SM90(NWG)                                                  \
   {                                                                           \
     constexpr int bytes = Smem<D, NWG, TO>::BYTES;                            \
-    auto kern = attn_sm90_kernel<D, NWG, TQ, TKV, TO, FIXED, SEG>;            \
+    auto kern = attn_sm90_kernel<D, NWG, TQ, TKV, TO, FIXED, SEG, LSE>;       \
     static bool opted = false; /* the shared-memory opt-in, once */          \
     if (!opted) {                                                             \
       err = cudaFuncSetAttribute(                                             \

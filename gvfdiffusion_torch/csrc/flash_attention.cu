@@ -35,10 +35,11 @@
 //   tiles, the softmax in registers, 128 query rows a CTA; 128-key tiles,
 //   64 at heads of 128).
 //   fp32: attention_sm90_tf32.cuh's path of the core, the products by the
-//   3xTF32 split on the tensor cores (64-key tiles, 32 at heads of 128); it
-//   can also write each row's logsumexp, the residual of the backward
-//   kernels (flash_attention_bwd.cu), which visit the same list of 64-key
-//   tiles.
+//   3xTF32 split on the tensor cores (64-key tiles, 32 at heads of 128).
+// Either can also write each row's logsumexp (the bf16 core as its own
+// instantiation, LSE), the residual of the backward kernels
+// (flash_attention_bwd.cu in fp32, flash_attention_bwd_bf16.cu in bf16),
+// which walk the same list of tiles.
 //
 // What bounds it on the H100: 4 * Lq * n_valid * H * D operations (0.50
 // TFLOP at 3700 valid keys; every query row counts) against ~13 MB (bf16)
@@ -175,6 +176,9 @@ cudaError_t launch_flash(const FlashArgs& a, cudaStream_t s) {
   p.scale_log2 = a.scale * LOG2E;
   if constexpr (F32)
     err = sm90::launch_attn_tf32<D>(p, a.H, a.B, s);
+  else if (a.lse)
+    err = sm90::launch_attn_sm90<D, bf16, bf16, bf16, false, false, true>(
+        p, a.H, a.B, s);
   else
     err = sm90::launch_attn_sm90<D, bf16, bf16, bf16, false>(p, a.H, a.B, s);
   if (err != cudaSuccess) return err;
@@ -192,11 +196,11 @@ extern "C" {
 // and v with their own strides; all bf16 (f32 = 0) or all fp32 (f32 = 1),
 // rows and batch strides 16-byte aligned; D = 32, 64 or 128; valid: bool
 // [B, Lk]; scratch: int32, the tile lists [B, 1 + ceil(Lk / BK)] (bf16: BK
-// = 64 at D = 128, else 128; fp32: 32 at D = 128, else 64; at fp32 and
-// heads of 64 the backward visits the same list); o: [B, Lq, H, D]
-// contiguous, in the inputs' dtype; lse: null, or (fp32 only) the [B, H,
-// Lq] fp32 row logsumexp that the backward (flash_attention_bwd.cu) reads;
-// lk_pad: Lk padded to the TPU kernel's 512.
+// = 64 at D = 128, else 128; fp32: 32 at D = 128, else 64; the backward
+// walks the same list); o: [B, Lq, H, D] contiguous, in the inputs' dtype;
+// lse: null, or the [B, H, Lq] fp32 row logsumexp that the backward
+// (flash_attention_bwd.cu, flash_attention_bwd_bf16.cu) reads; lk_pad: Lk
+// padded to the TPU kernel's 512.
 int gvf_flash_attention(const void* q, const void* k, const void* v,
                         const void* valid, void* scratch, void* o, void* lse,
                         int B,
@@ -205,7 +209,7 @@ int gvf_flash_attention(const void* q, const void* k, const void* v,
                         long long v_sb, long long v_sl, float scale,
                         int lk_pad, int f32, void* stream) {
   if ((D != 32 && D != 64 && D != 128) || B < 1 || B > 65535 || Lq < 1 ||
-      Lk < 1 || H < 1 || H > 65535 || lk_pad < Lk || (lse && !f32))
+      Lk < 1 || H < 1 || H > 65535 || lk_pad < Lk)
     return (int)cudaErrorInvalidValue;
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.valid = (const unsigned char*)valid;

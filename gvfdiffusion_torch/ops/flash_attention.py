@@ -31,31 +31,36 @@ Two versions:
 
 The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
 `_flash_attention_bwd_dq`, which JAX runs when a trainer differentiates
-through `_flash_full_attention`: the static VAE's `full` mode): when grad
-mode is on and q, k or v requires grad, the wrapper runs `FlashAttention`,
-a `torch.autograd.Function`. On the card its forward is the fp32 kernel
-with the row logsumexp and its list of 64-key tiles that hold a valid key
-as residuals (the TPU kernel saves its running max and sum) and its
-backward takes di = rowsum(o * dO) in plain torch, as JAX does, then the
-two kernels of `csrc/flash_attention_bwd.cu`, which visit the listed tiles
-alone (exact: an unlisted tile's P is 0) and compute each of their five
-products on the tensor cores by the same 3xTF32 split as the forward, in
-chains of at most 32 rows or keys summed in fp32: dkv (dK, dV; zeroed
-here first, so an unlisted tile's stay 0) and dq. Both exist for fp32 at
-heads of 64 only (the VAE's form), and the wrapper raises under grad for
-any other dtype or width. On the CPU, or with
-impl="plain", forward and backward are the plain versions
+through `_flash_full_attention`: the static VAE's `full` mode, at any head
+width and in bf16 too): when grad mode is on and q, k or v requires grad,
+the wrapper runs `FlashAttention`, a `torch.autograd.Function`, in every
+form the forward has (bf16 or fp32, heads of 32, 64 or 128). On the card
+its forward is the kernel with the row logsumexp and its list of the key
+tiles that hold a valid key as residuals (the TPU kernel saves its running
+max and sum) and its backward takes di = rowsum(o * dO) in fp32 plain
+torch, as JAX does, then two kernels that walk the listed tiles alone
+(exact: an unlisted tile's P is 0): dkv (dK, dV; zeroed here first, so an
+unlisted tile's stay 0) and dq. In fp32 (`csrc/flash_attention_bwd.cu`)
+each of their five products runs on the tensor cores by the forward's
+3xTF32 split, in chains of at most 32 rows or keys summed in fp32; in
+bf16 (`csrc/flash_attention_bwd_bf16.cu`) on bf16 wgmma from bf16
+operands into fp32, P and dS rounded to bf16 before the products that
+take them, each gradient rounded to bf16 once. A kernel that does not
+build or launch raises; nothing falls back to the plain version. On the
+CPU, or with impl="plain", forward and backward are the plain versions
 (`flash_attention_backward_reference`, in chunks of query rows too), with
 the stock kernel's semantics: P = exp(s - m) / l on the -0.7 * FLT_MAX
 mask, every query row, and a batch row with no valid key spreading P = 1 /
 Lk-padded-to-512 over every key, so its keys get dV != 0.
 
-`launch_counts` counts kernel launches by dtype and head width:
-"flash_attention" (bf16, heads of 64), "flash_attention_fp32", and either
-with "_d32" / "_d128" at the other widths; "flash_attention_fp32_res" the
-fp32 forward with its residual, and "flash_attention_bwd_dkv" /
-"flash_attention_bwd_dq" the backward kernels. The plain versions never
-count.
+`launch_counts` counts kernel launches by form: the forward by dtype and
+head width, "flash_attention" (bf16, heads of 64), "flash_attention_fp32",
+and either with "_d32" / "_d128" at the other widths (`launch_key`); under
+grad, per form, the forward with its residual and the two backward kernels
+(`grad_key`: "flash_attention_fp32_res", "flash_attention_bwd_dkv",
+"flash_attention_bwd_dq" at fp32 and heads of 64, "flash_attention_res",
+"flash_attention_bwd_dkv_bf16", ... in bf16, "_d32" / "_d128" at the other
+widths). The plain versions never count.
 """
 
 from __future__ import annotations
@@ -73,23 +78,40 @@ BLOCK = 512
 _SCORES = 1 << 27
 
 HEAD_WIDTHS = (32, 64, 128)
-launch_counts = {f"flash_attention{dt}{w}": 0 for dt in ("", "_fp32")
-                 for w in ("", "_d32", "_d128")}
-launch_counts.update(flash_attention_fp32_res=0, flash_attention_bwd_dkv=0,
-                     flash_attention_bwd_dq=0)
-# the one form with a backward kernel: fp32 at heads of 64
-GRAD_FORM = (torch.float32, 64)
+DTYPES = (torch.bfloat16, torch.float32)
+GRAD_KINDS = ("res", "bwd_dkv", "bwd_dq")
+
+
+def _width(head_dim: int) -> str:
+    return "" if head_dim == 64 else f"_d{head_dim}"
+
+
+def launch_key(dtype: torch.dtype, head_dim: int) -> str:
+    """The counter of a forward launch: its dtype and head width."""
+    return ("flash_attention" + ("_fp32" if dtype == torch.float32 else "")
+            + _width(head_dim))
+
+
+def grad_key(kind: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The counter of a launch under grad: `kind` "res" (the forward with
+    its residual), "bwd_dkv" or "bwd_dq", at a dtype and head width (fp32
+    at heads of 64 keeps the names it had as the only such form)."""
+    f32 = dtype == torch.float32
+    if kind == "res":
+        return ("flash_attention" + ("_fp32" if f32 else "") + "_res"
+                + _width(head_dim))
+    return f"flash_attention_{kind}" + ("" if f32 else "_bf16") + _width(
+        head_dim)
+
+
+launch_counts = {launch_key(dt, w): 0 for dt in DTYPES for w in HEAD_WIDTHS}
+launch_counts.update({grad_key(kind, dt, w): 0 for kind in GRAD_KINDS
+                      for dt in DTYPES for w in HEAD_WIDTHS})
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-def launch_key(dtype: torch.dtype, head_dim: int) -> str:
-    """The counter of a launch: its dtype and head width."""
-    return ("flash_attention" + ("_fp32" if dtype == torch.float32 else "")
-            + ("" if head_dim == 64 else f"_d{head_dim}"))
 
 
 def key_tile(dtype: torch.dtype, head_dim: int) -> int:
@@ -201,10 +223,10 @@ def _check_cuda(q, k, v, kv_valid) -> None:
 
 def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
     """The forward kernel -> (o, and with `residual` the row logsumexp
-    [B, H, Lq] fp32, the list of 64-key tiles that hold a valid key [B, 1 +
-    tiles] (per row their count, then their indices) and the contiguous
-    validity, which the backward reads). The caller has checked the
-    inputs."""
+    [B, H, Lq] fp32, the list of the key tiles (`key_tile` keys each) that
+    hold a valid key [B, 1 + tiles] (per row their count, then their
+    indices) and the contiguous validity, which the backward reads). The
+    caller has checked the inputs."""
     from .. import _ext
 
     B, Lq, H, D = q.shape
@@ -224,7 +246,7 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
               q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
               v.stride(1), float(scale), padded_keys(Lk), int(f32))
     if residual:
-        launch_counts["flash_attention_fp32_res"] += 1
+        launch_counts[grad_key("res", q.dtype, D)] += 1
         return o, lse, scratch, valid
     launch_counts[launch_key(q.dtype, D)] += 1
     return o
@@ -232,16 +254,16 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
 
 def backward_inputs(q, k, v, valid, tiles, lse, o, do):
     """The pointers and sizes both backward kernels take, with do
-    contiguous and di = rowsum(o * do) [B, H, Lq] (plain torch, as JAX
-    computes it outside the kernels); the tensors it makes are kept in the
-    returned tuple's last item until the launches."""
+    contiguous and di = rowsum(o * do) [B, H, Lq] in fp32 (plain torch, as
+    JAX computes it outside the kernels); the tensors it makes are kept in
+    the returned tuple's last item until the launches."""
     B, Lq, H, D = q.shape
     do = do.contiguous()
-    if do.dtype != torch.float32 or tuple(do.shape) != tuple(o.shape):
-        raise TypeError(f"flash_attention backward: dO must be fp32 "
+    if do.dtype != q.dtype or tuple(do.shape) != tuple(o.shape):
+        raise TypeError(f"flash_attention backward: dO must be {q.dtype} "
                         f"{tuple(o.shape)}; got {do.dtype} "
                         f"{tuple(do.shape)}")
-    di = (o * do).sum(-1).transpose(1, 2).contiguous()
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
             tiles.data_ptr(), lse.data_ptr(), do.data_ptr(), di.data_ptr())
     sizes = (B, Lq, k.shape[1], H, D, q.stride(0), q.stride(1), k.stride(0),
@@ -249,37 +271,45 @@ def backward_inputs(q, k, v, valid, tiles, lse, o, do):
     return ptrs, sizes, (do, di)
 
 
-def launch_dkv(ptrs, sizes, scale: float):
-    """The dkv kernel -> (dk, dv) fp32 [B, Lk, H, 64], zeroed first: the
-    kernel writes the listed key tiles alone."""
+def _entry(kind: str, dtype: torch.dtype) -> str:
+    """The C entry of a backward kernel: fp32 in flash_attention_bwd.cu,
+    bf16 in flash_attention_bwd_bf16.cu."""
+    return f"gvf_flash_attention_{kind}" + (
+        "" if dtype == torch.float32 else "_bf16")
+
+
+def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype):
+    """The dkv kernel -> (dk, dv) [B, Lk, H, D] in `dtype` (q/k/v's),
+    zeroed first: the kernel writes the listed key tiles alone."""
     from .. import _ext
 
     B, _, Lk, H, D = sizes[:5]
-    dk = torch.zeros(B, Lk, H, D, dtype=torch.float32,
+    dk = torch.zeros(B, Lk, H, D, dtype=dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
     dv = torch.zeros_like(dk)
-    _ext.call("gvf_flash_attention_bwd_dkv", *ptrs, dk.data_ptr(),
-              dv.data_ptr(), *sizes, float(scale), padded_keys(Lk))
-    launch_counts["flash_attention_bwd_dkv"] += 1
+    _ext.call(_entry("bwd_dkv", dtype), *ptrs, dk.data_ptr(), dv.data_ptr(),
+              *sizes, float(scale), padded_keys(Lk))
+    launch_counts[grad_key("bwd_dkv", dtype, D)] += 1
     return dk, dv
 
 
-def launch_dq(ptrs, sizes, scale: float):
-    """The dq kernel -> dq fp32 [B, Lq, H, 64]."""
+def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype):
+    """The dq kernel -> dq [B, Lq, H, D] in `dtype`."""
     from .. import _ext
 
     B, Lq, Lk, H, D = sizes[:5]
-    dq = torch.empty(B, Lq, H, D, dtype=torch.float32,
+    dq = torch.empty(B, Lq, H, D, dtype=dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
-    _ext.call("gvf_flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *sizes,
+    _ext.call(_entry("bwd_dq", dtype), *ptrs, dq.data_ptr(), *sizes,
               float(scale), padded_keys(Lk))
-    launch_counts["flash_attention_bwd_dq"] += 1
+    launch_counts[grad_key("bwd_dq", dtype, D)] += 1
     return dq
 
 
 class FlashAttention(torch.autograd.Function):
-    """K7 under autograd: the kernels on the card (fp32, heads of 64), the
-    plain versions on the CPU or with impl="plain"."""
+    """K7 under autograd: the kernels on the card (every dtype and head
+    width of the forward), the plain versions on the CPU or with
+    impl="plain"."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, scale: float, plain: bool):
@@ -301,10 +331,11 @@ class FlashAttention(torch.autograd.Function):
                                                        ctx.scale, o, do)
         else:
             saved = ctx.saved_tensors  # read once (checkpoint's rule)
+            dtype = saved[0].dtype
             with torch.cuda.device(saved[0].device):
                 ptrs, sizes, keep = backward_inputs(*saved, do)
-                dk, dv = launch_dkv(ptrs, sizes, ctx.scale)
-                grads = launch_dq(ptrs, sizes, ctx.scale), dk, dv
+                dk, dv = launch_dkv(ptrs, sizes, ctx.scale, dtype)
+                grads = launch_dq(ptrs, sizes, ctx.scale, dtype), dk, dv
             del keep
         return (*grads, None, None, None)
 
@@ -321,12 +352,6 @@ def flash_attention(q, k, v, kv_valid, scale: float,
                                            for t in (q, k, v))
     if not plain:
         _check_cuda(q, k, v, kv_valid)
-        if grad and (q.dtype, q.shape[-1]) != GRAD_FORM:
-            raise RuntimeError(
-                "flash_attention: the CUDA kernel has a backward pass for "
-                f"fp32 at heads of 64 only; there is none for {q.dtype} at "
-                f"heads of {q.shape[-1]} (run it under torch.no_grad(), or "
-                "pass impl='plain' to differentiate the plain version)")
     if grad:
         return FlashAttention.apply(q, k, v, kv_valid, scale, plain)
     if plain:

@@ -650,8 +650,10 @@ def test_flash_attention_counts_and_checks(dev):
                            valid, 0.125)
     with pytest.raises(TypeError):  # a float validity
         fl.flash_attention(q, k, v, valid.float(), 0.125)
-    with pytest.raises(RuntimeError):  # no backward: raises under grad
-        fl.flash_attention(q.requires_grad_(), k, v, valid, 0.125)
+    fl.reset_launch_counts()  # under grad: the forward with its residual
+    fl.flash_attention(q.requires_grad_(), k, v, valid, 0.125)
+    assert {k_: n for k_, n in fl.launch_counts.items() if n} == {
+        "flash_attention_res": 1}
 
 
 # K7 in bf16 runs the Hopper core over each batch row's list of the key
@@ -879,17 +881,31 @@ def test_static_vae_full_attention_kernels_under_remat(dev, monkeypatch):
 
 
 def test_flash_attention_backward_forms_raise(dev):
-    """Under grad the wrapper raises for every form without a backward
-    kernel (bf16, heads of 32 or 128) and never falls back."""
+    """Under grad every form of the forward (bf16 and fp32, heads of 32, 64
+    and 128) runs its residual forward, dkv and dq kernels; what the
+    kernels do not take (heads of 16, mixed dtypes) raises and never falls
+    back to the plain version."""
     from gvfdiffusion_torch.ops import flash_attention as fl
 
     valid = torch.ones(1, 70, dtype=torch.bool, device=dev)
-    for dt, D in ((torch.bfloat16, 64), (torch.float32, 32),
-                  (torch.float32, 128)):
-        q = torch.randn(1, 70, 2, D, device=dev, dtype=dt,
-                        requires_grad=True)
-        with pytest.raises(RuntimeError, match="backward pass"):
-            fl.flash_attention(q, q.detach(), q.detach(), valid, D ** -0.5)
+    for dt in fl.DTYPES:
+        for D in fl.HEAD_WIDTHS:
+            q = torch.randn(1, 70, 2, D, device=dev, dtype=dt,
+                            requires_grad=True)
+            fl.reset_launch_counts()
+            fl.flash_attention(q, q.detach(), q.detach(), valid,
+                               D ** -0.5).sum().backward()
+            torch.cuda.synchronize()
+            assert {n: c for n, c in fl.launch_counts.items() if c} == {
+                fl.grad_key(kind, dt, D): 1 for kind in fl.GRAD_KINDS}
+            assert q.grad.dtype == dt and bool(torch.isfinite(q.grad).all())
+    q = torch.randn(1, 70, 2, 16, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="heads of"):
+        fl.flash_attention(q, q.detach(), q.detach(), valid, 0.25)
+    q = torch.randn(1, 70, 2, 64, device=dev, requires_grad=True)
+    with pytest.raises(TypeError):
+        fl.flash_attention(q, q.detach().bfloat16(), q.detach().bfloat16(),
+                           valid, 0.125)
 
 
 # K3's single-context form at compute_dtype=float32 against its plain
