@@ -10,6 +10,7 @@
                                      # TRELLIS phase and [wild-files] only
     python3 chip_smoke.py --encode-latent  # build + [encode-latent] only
     python3 chip_smoke.py --forms    # build + [forms] only
+    python3 chip_smoke.py --widths   # build + [widths] only
     python3 chip_smoke.py --pipeline  # build + the video main path and
                                      # its int8 phases ([main] .. [selfq8])
     python3 chip_smoke.py --split    # build + K1's-K7's device time by
@@ -91,6 +92,16 @@ Phases, each printed on its own lines:
      cache under autograd (loss sum(output * a seeded tensor), backward()
      for every parameter and the input), against the same DiT's
      impl="plain" run, with the step's time;
+  2c. [widths]: K5, K6 and K7 at the head widths their kernels reach by
+     zero-padding to 32, 64 or 128 (ops/_widths.py) and K5 / K6 at 128,
+     each at full width against its plain version and SDPA: K5's key-bias
+     form at [1, 4096, 768 / D, D] for D = 16, 48, 128 (bf16 and fp32
+     io), its int8 forms at the DiT's self shape at 16 and 128, its
+     segments at 16, K5 and K6 at the DiT's training shapes at 16 and 128
+     (fp32 with the gradients; K6 also bf16), K7's residual forward, dkv
+     and dq at [2, 32768, 768 / D, D] for D = 48, 96 in both dtypes; then
+     cli/main_latent.main one micro-step at --model.num_heads=32 and =4
+     (K5 / K6 launches at heads of 16 and 128 checked);
   2b. device time by kernel name (torch.profiler, three calls each) inside
      K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
      the float and the int8 cache) at the DiT's shape, K3's single
@@ -201,15 +212,16 @@ Phases, each printed on its own lines:
      depth 12, dim 768, 8192 points, 512 latents; 512^2 binned renders;
      LPIPS on seeded weights) over a seeded dataset in VAEDataset's layout
      (two objects, 2 frames x 2 views), static_vae.remat_blocks 12 and 2
-     frames a sample: in `full` attention 2 phase-A and 2 phase-B steps
+     frames a sample: in `full` attention 2 phase-A and 1 phase-B steps
      (K7's residual forward, dkv and dq launches read from its log: 48,
      24 and 24 a step), in the shipped `swin` 1 + 1 (none); step times,
      peak memory and every loss term per step; then one phase-A step at 2
      + 2 blocks on random weights, kernels against impl="plain" (loss and
      gradients); then main_vae in `full` with --static_vae.num_heads=24
-     and =6 (fp32 K7 at heads of 32 and 128), 2 phase-A steps each, the
-     launches a step checked against the 12-head run's 48 / 24 / 24 (the
-     kernels line's counts of those forms); then the static VAE built in
+     and =6 (fp32 K7 at heads of 32 and 128), 2 phase-A steps each, and
+     =8 (heads of 96, padded to 128), 1 step, the launches a step checked
+     against the 12-head run's 48 / 24 / 24 (the kernels line's counts of
+     those forms); then the static VAE built in
      bf16 (SparseTransformerVAE(dtype=bfloat16), `full`, 768 channels,
      32768 slots) under autograd, one step at 12 + 12 blocks with the
      kernels (K7's bf16 backward at heads of 64, 48 / 24 / 24 launches),
@@ -504,6 +516,79 @@ def _vae_form_kernels():
 
 KERNELS += _vae_form_kernels()
 VAE_FORM_KEYS = tuple(k for dt, d in VAE_FORMS for k in vae_form_keys(dt, d))
+
+# [widths]: K5, K6 and K7 at the head widths their kernels reach by
+# zero-padding to 32, 64 or 128 (ops/_widths.py), and K5 / K6 at 128 (new
+# instantiations). The DiT at 512 channels with main_latent
+# --model.num_heads=32 (heads of 16) and =4 (128) trains its composed path
+# through K5 and K6 at those widths; the static VAE at 768 with main_vae
+# --static_vae.num_heads=8 (96) and 16 (48) through K7's forward and
+# backward
+WIDTH_K5 = (16, 48, 128)           # K5's key-bias form, bf16 and fp32 io
+WIDTH_DIT = (16, 128)              # main_latent's widths: K5 and K6
+WIDTH_VAE_FORMS = (("bfloat16", 48), ("bfloat16", 96), ("float32", 48),
+                   ("float32", 96))
+WIDTH_VAE_HEADS = 8                # main_vae's heads of 96 ([vae-train])
+WIDTH_C = 768                      # the key-bias form's lanes: 768 / D heads
+K5_SRC = ("gvfdiffusion_tpu/ops/fused_attention.py:108",
+          "gvfdiffusion_torch/csrc/fused_attention.cu")
+K5_Q8_SRC = ("gvfdiffusion_tpu/ops/fused_attention.py:154",
+             "gvfdiffusion_torch/csrc/fused_attention.cu")
+K6_SRC = ("gvfdiffusion_tpu/ops/fused_attention.py:427",
+          "gvfdiffusion_torch/csrc/temporal_attention.cu")
+
+
+def _padded(d: int) -> str:
+    """The kernels-line name's note of a padded width (ops/_widths.py's
+    card_width; the table is built before the package can be imported)."""
+    w = 32 if d <= 32 else 64 if d <= 64 else 128
+    return "" if w == d else f", padded to {w}"
+
+
+def _width_kernels():
+    out = []
+    for d in WIDTH_K5:
+        for dt in ("bf16", "fp32"):
+            out.append((f"fused_attention[key bias, heads of {d}, {dt} io"
+                        f"{_padded(d)}]", *K5_SRC,
+                        f"width_attention_bias_{dt}_d{d}"))
+    for d in WIDTH_DIT:
+        out += [(f"fused_attention[DiT training self, heads of {d}, fp32"
+                 f"{_padded(d)}]", *K5_SRC, f"train_attention_d{d}"),
+                (f"fused_attention[DiT training cross, heads of {d}, fp32"
+                 f"{_padded(d)}: image 1374 + static 512]", *K5_SRC,
+                 f"train_attention_cross_d{d}"),
+                (f"temporal_attention[heads of {d}, fp32{_padded(d)}]",
+                 *K6_SRC, f"temporal_attention_d{d}"),
+                (f"temporal_attention[heads of {d}, bf16{_padded(d)}]",
+                 *K6_SRC, f"temporal_attention_bf16_d{d}")]
+        for q in ("qk", "qkav"):
+            out.append((f"fused_attention[int8 {'qk+av' if q == 'qkav' else q}"
+                        f", DiT self, heads of {d}, bf16{_padded(d)}]",
+                        *K5_Q8_SRC, f"attention_{q}_d{d}"))
+    out.append(("fused_attention[segment_size 32, packed temporal, heads of "
+                f"16, bf16{_padded(16)}]", *K5_SRC, "attention_seg_d16"))
+    for dt, d in WIDTH_VAE_FORMS:
+        what = (f"{'bf16' if dt == 'bfloat16' else 'fp32'}, static VAE, "
+                f"{VAE_C // d} heads of {d}{_padded(d)}")
+        src = ("gvfdiffusion_torch/csrc/flash_attention_bwd"
+               + ("_bf16" if dt == "bfloat16" else "") + ".cu")
+        res, dkv, dq = vae_form_keys(dt, d)
+        out += [(f"flash_attention[{what}: forward with residual]",
+                 "gvfdiffusion_tpu/sparse/attention.py:57",
+                 "gvfdiffusion_torch/csrc/flash_attention.cu", res),
+                (f"flash_attention backward dkv[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+                 src, dkv),
+                (f"flash_attention backward dq[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+                 src, dq)]
+    return out
+
+
+WIDTH_KERNELS = _width_kernels()
+WIDTH_KEYS = tuple(k for *_, k in WIDTH_KERNELS)  # checked in [widths]
+KERNELS += WIDTH_KERNELS
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
 # heads of 32 and 128, prefix, 2.4e-3, 2.4e-3); in fp32, where the kernel
@@ -681,6 +766,14 @@ FORM_BOUNDS = {
     "rope_attention_cross_d32": (4e-4,),        # 8.5e-5 / 7.1e-5
     "train_attention_d64": (6e-3, 2e-2),        # 1.3e-3, 4.7e-3
     "train_attention_cross_d64": (6e-3, 2e-2),  # 1.5e-3 / 1.3e-3, 4.8e-3
+    # [widths]: heads of 128 take the running maximum as heads of 64 do,
+    # heads of 16 the fixed shift as heads of 32 (their defaults); K6's
+    # bf16 io the output's rounding on top (tests/test_torch_port_k6_edges
+    # .py's 1e-3), forward only
+    "train_attention_d128": (6e-3, 2e-2),
+    "train_attention_cross_d128": (6e-3, 2e-2),
+    "temporal_attention_bf16_d16": (1e-3, None),
+    "temporal_attention_bf16_d128": (1e-3, None),
 }
 SUBLAYERS = ("self", "temporal", "cross", "mlp", "cross_single")
 # K2's, K4's and K6's forms before their Hopper redesign: kernel ms of the
@@ -1030,7 +1123,7 @@ def phase_kernels(dev):
     for name, replaces, source, key in KERNELS:
         base, variant = FORMS.get(key, (key, shipped))
         if key in VAE_FLASH or key == ENCODE_FLASH or key in FORM_KEYS \
-                or key in VAE_FORM_KEYS:
+                or key in VAE_FORM_KEYS or key in WIDTH_KEYS:
             continue
         if base in TRAIN_KERNELS:
             results[key] = phase_train_kernel(dev, name, replaces, source,
@@ -1422,24 +1515,29 @@ def _attention_entry(dev, name, key, rel_bound):
 def train_attention_case(dev, key):
     """(fn(impl) -> output, inputs, what, flops, library fn) for a form of
     the training path at configs/diffusion.yml's shapes: batch 2 x 24
-    frames of 512 latents, 16 heads of 32, or 8 heads of 64 (dit-d64) for
-    the keys with "d64"; for the keys with "infer_", the infer CLI's
-    batch 1 x 32 frames. Self: RMS-normed q/k and a contiguous v, [48, 512,
+    frames of 512 latents, 16 heads of 32, or 512 / D heads of D for the
+    keys with "_dD" (8 of 64: dit-d64; 32 of 16 and 4 of 128: main_latent
+    --model.num_heads=32 / 4), bf16 for the keys with "_bf16", else fp32;
+    for the keys with "infer_", the infer CLI's batch 1 x 32 frames. Self: RMS-normed q/k and a contiguous v, [48, 512,
     16, 32]; cross: q apart, k/v the halves of the [48, Lk, 2, 16, 32] kv
     projection (image Lk 1374, the "_static" key 512); K6: q/k [2, 24,
     512, 16, 32] and v the view of the [.., 3, 16, 32] qkv."""
+    import re
+
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import fused_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(19)
-    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    dt = torch.bfloat16 if "_bf16" in key else torch.float32
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
     # the "infer_" keys: the infer CLI's shapes, batch 1 x 32 frames
     Bk, Tk = (B, T) if key.startswith("infer_") else (TRAIN_B, TRAIN_T)
-    BT, Hh = Bk * Tk, 8 if "_d64" in key else H
-    D = C // Hh
+    width = re.search(r"_d(\d+)", key)
+    D = int(width.group(1)) if width else C // H
+    BT, Hh = Bk * Tk, C // D
     scale = D ** -0.5
-    if key.endswith(("temporal_attention", "temporal_attention_d64")):
+    if "temporal_attention" in key:
         qkv = rnd(Bk, Tk, N, 3, Hh, D)
         q, k, v = rnd(Bk, Tk, N, Hh, D), rnd(Bk, Tk, N, Hh, D), \
             qkv[..., 2, :, :]
@@ -1496,7 +1594,8 @@ def phase_train_kernel(dev, name, replaces, source, key):
                 log(f"[ptxas] {line.strip()}")
     attn_bound, grad_bound = FORM_BOUNDS.get(
         key, (TRAIN_ATTN_BOUND, TRAIN_GRAD_BOUND))
-    grads_too = not key.startswith("infer_")  # inference: no backward
+    # inference and the bf16 forms: no backward
+    grads_too = not key.startswith("infer_") and "_bf16" not in key
     out = None
     for k in (key, key + "_static") if "cross" in key else (key,):
         fn, ins, what, flops, lib = train_attention_case(dev, k)
@@ -1505,7 +1604,7 @@ def phase_train_kernel(dev, name, replaces, source, key):
             torch.cuda.synchronize()
             ref = fn(ins, "plain")
             err = rel_l2(y, ref)
-            mae = float((y - ref).abs().max())
+            mae = float((y.float() - ref.float()).abs().max())
             lib_err = rel_l2(lib(), ref)
             ms = time_ms(lambda: fn(ins))
             plain_ms = time_ms(lambda: fn(ins, "plain"), iters=3)
@@ -1521,8 +1620,9 @@ def phase_train_kernel(dev, name, replaces, source, key):
             grad_text = (f" gradients vs autograd of plain rel_l2 "
                          f"{gerr:.3e} (bound {grad_bound:g})")
         b_ms, b_by = bound(flops, nbytes(*ins, y))
+        dt = "bf16" if ins[0].dtype == torch.bfloat16 else "fp32"
         log(f"[kernel] {name} [{k}]: q {tuple(ins[0].shape)} k/v "
-            f"{tuple(ins[1].shape)} fp32 ({what}) max_abs_err {mae:.4g} "
+            f"{tuple(ins[1].shape)} {dt} ({what}) max_abs_err {mae:.4g} "
             f"rel_l2 {err:.3e} (bound {attn_bound:g}){grad_text} kernel "
             f"{ms:.3f} ms{_was(k)} plain {plain_ms:.3f} ms sdpa "
             f"{lib_ms:.3f} ms (its rel_l2 {lib_err:.3e})"
@@ -1530,7 +1630,7 @@ def phase_train_kernel(dev, name, replaces, source, key):
             + f" bound {b_ms:.4f} ms ({b_by}; the kernel at "
             f"{b_ms / ms:.0%} of it)")
         if not (bool(torch.isfinite(y).all()) and err <= attn_bound
-                and gerr <= grad_bound):
+                and (not grads_too or gerr <= grad_bound)):
             raise AssertionError(f"{name} [{k}] disagrees with its plain "
                                  "version")
         if out is None:
@@ -2130,29 +2230,46 @@ VAE_BF16_BOUND = 1e-2
 
 def phase_vae_forms(dev, card):
     """[vae-forms]: K7's forward with its residual and the dkv and dq
-    kernels in each form of VAE_FORMS at the static VAE's full attention,
-    [2, 32768, 768 / D, D], q/k/v the views of one projection, the two
-    surface shells of vae_valid as the valid keys; against the plain
-    forward and backward on every row (fp32 also against fp64 on F64_ROWS
-    query rows and the first two listed key tiles of each batch row), with
-    SDPA under the boolean key mask (forward; its backward) as the library
-    call. Each form is first driven once through flash_attention under
-    grad with the counts at 0, read just after. Returns (the kernels-line
-    rows of the forms, the bf16 forms' launches from that drive: no path
-    of the system builds the static VAE in bf16; the fp32 forms' count
-    comes from main_vae's runs in [vae-train])."""
+    kernels in each form of VAE_FORMS (vae_form_rows). Returns (the
+    kernels-line rows of the forms, the bf16 forms' launches from their
+    drive: no path of the system builds the static VAE in bf16; the fp32
+    forms' count comes from main_vae's runs in [vae-train])."""
+    t0 = time.perf_counter()
+    rows, drive = vae_form_rows(dev, card, VAE_FORMS, "[vae-forms]")
+    log(f"[vae-forms] phase in {time.perf_counter() - t0:.1f} s")
+    bf16 = {k for dt, d in VAE_FORMS if dt == "bfloat16"
+            for k in vae_form_keys(dt, d)}
+    return rows, {k: n for k, n in drive.items() if k in bf16}
+
+
+def vae_form_rows(dev, card, forms, tag):
+    """K7's forward with its residual and the dkv and dq kernels in each
+    (dtype, head width) of `forms` at the static VAE's full attention, [2,
+    32768, 768 / D, D], q/k/v the views of one projection, the two surface
+    shells of vae_valid as the valid keys; against the plain forward and
+    backward on every row (fp32 also against fp64 on F64_ROWS query rows
+    and the first two listed key tiles of each batch row), with SDPA under
+    the boolean key mask (forward; its backward) as the library call. Each
+    form is first driven once through flash_attention under grad with the
+    counts at 0, read just after. A head width the kernels are not built
+    at runs as the wrapper runs it: q, k, v and dO zero-padded to the card
+    width (ops/_widths.py), the pads inside the timed calls, o and the
+    gradients cut back to D; its bound counts the true D. Returns (the
+    kernels-line rows, every form's launches from its drive)."""
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import flash_attention as fl
+    from gvfdiffusion_torch.ops._widths import card_width, pad_heads
 
-    t0 = time.perf_counter()
     valid = vae_valid(dev)
     n_valid = [int(n) for n in valid.sum(1)]
     qk_units = sum(SLOTS * n * VAE_C for n in n_valid)  # B H Lq Nv D
     entries = {e[3]: e for e in KERNELS}
     rows, drive = {}, {}
-    for dt_name, D in VAE_FORMS:
+    for dt_name, D in forms:
         dtype, H, scale = getattr(torch, dt_name), VAE_C // D, D ** -0.5
+        W = card_width(D)
+        pad = lambda *ts: [pad_heads(t_, W) for t_ in ts]  # noqa: E731
         f32 = dtype == torch.float32
         keys = vae_form_keys(dt_name, D)
         if keys != tuple(fl.grad_key(kind, dtype, D)
@@ -2164,7 +2281,8 @@ def phase_vae_forms(dev, card):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         do = torch.randn(VAE_B, SLOTS, H, D, generator=g,
                          device=dev).to(dtype)
-        tag = f"[vae-forms] {dt_name} {H} heads of {D}"
+        what = f"{tag} {dt_name} {H} heads of {D}" + (
+            "" if W == D else f" (padded to {W})")
         # the drive: once through the wrapper under grad
         leaf = qkv.detach().clone().requires_grad_(True)
         torch.cuda.synchronize()
@@ -2174,18 +2292,19 @@ def phase_vae_forms(dev, card):
         torch.cuda.synchronize()
         counts = {k_: n for k_, n in fl.launch_counts.items() if n}
         if counts != {k_: 1 for k_ in keys}:
-            raise AssertionError(f"{tag}: launches {counts}")
-        if not f32:
-            drive.update(counts)
+            raise AssertionError(f"{what}: launches {counts}")
+        drive.update(counts)
         del leaf
         # the kernels, then the plain versions, on the same inputs
-        o, lse, tiles, vld = fl.launch_forward(q, k, v, valid, scale,
-                                                residual=True)
-        ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, tiles, lse, o,
-                                               do)
-        dk, dv = fl.launch_dkv(ptrs, sizes, scale, dtype)
-        dq = fl.launch_dq(ptrs, sizes, scale, dtype)
+        qp, kp, vp, dop = pad(q, k, v, do)
+        o, lse, tiles, vld = fl.launch_forward(qp, kp, vp, valid, scale,
+                                                residual=True, width=D)
+        ptrs, sizes, keep = fl.backward_inputs(qp, kp, vp, vld, tiles, lse,
+                                               o, dop)
+        dk, dv = fl.launch_dkv(ptrs, sizes, scale, dtype, D)
+        dq = fl.launch_dq(ptrs, sizes, scale, dtype, D)
         torch.cuda.synchronize()
+        o, dq, dk, dv = (t_[..., :D] for t_ in (o, dq, dk, dv))
         # the plain versions, timed in this one call each (CUDA events)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
@@ -2233,12 +2352,12 @@ def phase_vae_forms(dev, card):
                             for n, (_, r_, w_) in f64.items()))
             del dq64, dk64, dv64, f64
         del ref
-        ms_fwd = time_ms(lambda: fl.launch_forward(q, k, v, valid, scale,
-                                                    residual=True), iters=3)
-        ms_dkv = time_ms(lambda: fl.launch_dkv(ptrs, sizes, scale, dtype),
-                         iters=2)
-        ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale, dtype),
-                        iters=2)
+        ms_fwd = time_ms(lambda: fl.launch_forward(
+            *pad(q, k, v), valid, scale, residual=True, width=D), iters=3)
+        ms_dkv = time_ms(lambda: (pad(do), fl.launch_dkv(
+            ptrs, sizes, scale, dtype, D)), iters=2)
+        ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale, dtype, D)[
+            ..., :D].contiguous(), iters=2)
         mask = valid[:, None, None, :]
         t = [a.detach().transpose(1, 2).requires_grad_(True)
              for a in (q, k, v)]
@@ -2266,20 +2385,20 @@ def phase_vae_forms(dev, card):
                      peak)
         lim = VAE_FLASH_BOUND if f32 else VAE_BF16_BOUND
         visited = int(tiles[:, 0].sum())
-        log(f"{tag}: q/k/v {tuple(q.shape)} (views of a qkv projection), "
+        log(f"{what}: q/k/v {tuple(q.shape)} (views of a qkv projection), "
             f"valid keys {n_valid}, {visited} of "
             f"{VAE_B * -(-SLOTS // fl.key_tile(dtype, D))} "
             f"{fl.key_tile(dtype, D)}-key tiles listed; kernels vs plain "
             "rel_l2 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
             + f" (bound {lim:g}); max_abs_err "
             + ", ".join(f"{n} {m:.3g}" for n, m in maes.items()) + f64_note)
-        log(f"{tag}: forward with residual {ms_fwd:.3f} ms (plain "
+        log(f"{what}: forward with residual {ms_fwd:.3f} ms (plain "
             f"{plain_fwd:.3f} ms, bound {b_fwd[0]:.4f} ms, {b_fwd[1]}); dkv "
             f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms), dq {ms_dq:.3f} ms "
             f"(bound {b_dq[0]:.4f} ms); plain backward {plain_bwd:.3f} ms; "
             f"{lib_note}; {card}")
         if not (finite and all(e <= lim for e in errs.values())):
-            raise AssertionError(f"{tag}: the kernels disagree with their "
+            raise AssertionError(f"{what}: the kernels disagree with their "
                                  f"plain versions: {errs}")
         del keep, got, want
         for key, mae, ms, plain_ms, (b_ms, b_by), lib_ms in (
@@ -2293,8 +2412,8 @@ def phase_vae_forms(dev, card):
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms)
         del q, k, v, qkv, do, o, lse, tiles, vld, dq, dk, dv, ref_o
+        del qp, kp, vp, dop
         torch.cuda.empty_cache()
-    log(f"[vae-forms] phase in {time.perf_counter() - t0:.1f} s")
     return rows, drive
 
 
@@ -2402,18 +2521,19 @@ def phase_vae_train(dev, card):
     latents; 512^2 binned renders, 256 per tile; LPIPS on) over a seeded
     dataset in VAEDataset's layout, with `static_vae.remat_blocks=12` and
     2 frames a sample (train.sample_timesteps): in `full` attention, 2
-    phase-A and 2 phase-B steps (K7's residual forward, dkv and dq
+    phase-A and 1 phase-B steps (K7's residual forward, dkv and dq
     launches counted from this run's log), and in the shipped `swin`, 1 +
     1 (no K7 launch). Then one phase-A step at 2 + 2 blocks (full
     attention, random weights) with the kernels and with impl="plain":
     loss and gradients. Then main_vae in `full` attention with
     --static_vae.num_heads at 24 and 6 (fp32 K7 at heads of 32 and 128), 2
-    phase-A steps each, its launches a step checked against the heads-of-64
-    run's; and the static VAE built in bf16 (SparseTransformerVAE(dtype=
+    phase-A steps each, and at 8 (heads of 96, padded to 128), 1 step, its
+    launches a step checked against the heads-of-64 run's; and the static
+    VAE built in bf16 (SparseTransformerVAE(dtype=
     bfloat16), `full`, 768 channels) under autograd: one step at 12 + 12
     blocks with the kernels (K7's bf16 backward, launches counted), then at
     2 + 2 blocks kernels vs impl="plain". Returns the launches of the whole
-    `full` run and of the runs at 24 and 6 heads."""
+    `full` run and of the runs at 24, 6 and 8 heads."""
     import re
     import shutil
     import tempfile
@@ -2443,7 +2563,8 @@ def phase_vae_train(dev, card):
                   f"--train.sample_timesteps={VAE_FRAMES}",
                   "--train.log_interval=1", "--train.save_interval=1000000"]
         runs = {}
-        for mode, a, b in (("full", 2, 2), ("swin", 1, 1)):
+        # `full`'s phase B cut from 2 steps to 1 (PR 22: [widths]'s time)
+        for mode, a, b in (("full", 2, 1), ("swin", 1, 1)):
             rc, text, wall = run_main_vae(
                 common + [f"--exp_dir={os.path.join(work, mode)}",
                           f"--static_vae.attn_mode={mode}",
@@ -2483,16 +2604,18 @@ def phase_vae_train(dev, card):
                 totals = {k: total.get(k, 0) for k in VAE_FLASH}
 
         # `full` at 24 heads of 32 and 6 of 128: fp32 K7's other forms,
-        # the launches a step as at 12 heads (48 residual forwards, 24 dkv,
-        # 24 dq with remat_blocks 12)
-        for heads in VAE_HEADS:
+        # and at 8 heads of 96 ([widths]: K7 padded to 128), the launches a
+        # step as at 12 heads (48 residual forwards, 24 dkv, 24 dq with
+        # remat_blocks 12)
+        for heads, n_steps in [(h, 2) for h in VAE_HEADS] + [
+                (WIDTH_VAE_HEADS, 1)]:
             keys = vae_form_keys("float32", VAE_C // heads)
             rc, text, wall = run_main_vae(
                 common + [f"--exp_dir={os.path.join(work, f'h{heads}')}",
                           "--static_vae.attn_mode=full",
                           f"--static_vae.num_heads={heads}",
-                          "--train.static_vae_steps=2",
-                          "--train.total_steps=2"], work, card)
+                          f"--train.static_vae_steps={n_steps}",
+                          f"--train.total_steps={n_steps}"], work, card)
             steps = _vae_steps(text)
             times = [s_[2]["step_time"] for s_ in steps]
             peak = max((s_[2]["peak_gib"] for s_ in steps), default=None)
@@ -2509,10 +2632,10 @@ def phase_vae_train(dev, card):
             for s_ in steps:
                 log(f"[vae-train]   step {s_[0]} phase {s_[1]}: "
                     + ", ".join(f"{k} {v:.6g}" for k, v in s_[2].items()))
-            if rc != 0 or [s_[1] for s_ in steps] != ["A", "A"] or any(
+            if rc != 0 or [s_[1] for s_ in steps] != ["A"] * n_steps or any(
                     not math.isfinite(x) for x in losses) or any(
                     n != want for n in launches) or total != {
-                        k: 2 * n for k, n in want.items()}:
+                        k: n_steps * n for k, n in want.items()}:
                 raise AssertionError(f"main_vae at {heads} heads: rc {rc}, "
                                      f"steps {steps}, launches {launches} "
                                      f"(want {want} a step), in all {total}")
@@ -5562,6 +5685,223 @@ def phase_forms(dev, card):
     return res, launches
 
 
+# -- [widths]: K5, K6 and K7 at the head widths they reach by padding ---------
+
+
+def phase_widths(dev, card):
+    """[widths]: each form of WIDTH_KERNELS at full width against its plain
+    version, timed beside it and a library call (SDPA): K5's key-bias form
+    at [1, 4096, 768 / D, D] (L_TORSO_VALID keys valid) in bf16 and fp32 io
+    at heads of 16, 48 and 128; its int8 forms at the DiT's self shape
+    [32, 512, 512 / D, D] and its segments at 16 (against K6 on the
+    unpacked data too); K5 and K6 at the DiT's training shapes at heads of
+    16 and 128 (phase_train_kernel, with the gradients in fp32; K6 also in
+    bf16); K7's residual forward, dkv and dq at heads of 48 and 96 in both
+    dtypes (vae_form_rows). The forms no entry point runs are driven once
+    through their wrappers with the counters at 0. Then the DiT's trainer,
+    cli/main_latent.main on configs/diffusion.yml at full width (12 x 512)
+    with --model.num_heads=32 and =4, one micro-step each on a seeded
+    dataset: finite losses, and K5's self and cross and K6's launches at
+    heads of 16 and 128 (12, 24, 12), the kernels line's counts of those
+    forms. (main_vae at --static_vae.num_heads=8 runs in [vae-train], with
+    the other head counts: K7 fp32 at heads of 96.) Returns (the rows, the
+    launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import fused_attention as fa
+
+    t0 = time.perf_counter()
+    entries = {e[3]: e[:3] for e in WIDTH_KERNELS}
+    rows, launches = {}, {}
+    counts = lambda: fa.launch_counts  # noqa: E731
+    g = torch.Generator(device=dev).manual_seed(51)
+
+    def rnd(*s_, dt=torch.bfloat16):
+        return torch.randn(*s_, generator=g, device=dev).to(dt)
+
+    bias = torch.zeros(1, TORSO, device=dev)
+    bias[:, L_TORSO_VALID:] = float("-inf")
+    for D in WIDTH_K5:
+        for dt_name, dt in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+            key = f"width_attention_bias_{dt_name}_d{D}"
+            name, replaces, source = entries[key]
+            Hh, scale = WIDTH_C // D, D ** -0.5
+            q, k, v = (rnd(1, TORSO, Hh, D, dt=dt) for _ in range(3))
+
+            def call(impl=None):
+                return fa.fused_attention(q, k, v, scale, kv_bias=bias,
+                                          impl=impl)
+
+            y, launches[key] = _drive(counts, fa.launch_key(D, False, True),
+                                      call)
+            ref = call("plain")
+            err = rel_l2(y, ref)
+            mae = float((y.float() - ref.float()).abs().max())
+            mask = bias[:, None, None, :].to(dt)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *(a.transpose(1, 2) for a in (q, k, v)), attn_mask=mask)
+            ms, lib_ms = time_ms(call), time_ms(sdpa)
+            plain_ms = time_ms(lambda: call("plain"), iters=3)
+            b = bound(4 * Hh * TORSO * L_TORSO_VALID * D,
+                      nbytes(q, k, v, y, bias))
+            log(f"[widths] {name}: q/k/v {tuple(q.shape)} {dt_name}, "
+                f"{L_TORSO_VALID} of {TORSO} keys valid: max_abs_err "
+                f"{mae:.4g} rel_l2 {err:.3e} (bound {ATTN_REL_BOUND:g}); "
+                f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms sdpa "
+                f"{lib_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}, at D = {D}; "
+                f"the kernel at {b[0] / ms:.0%} of it); launches "
+                f"{launches[key]}; {card}")
+            if not (bool(torch.isfinite(y).all()) and err <= ATTN_REL_BOUND):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+            rows[key] = _form_result(name, replaces, source, mae, ms,
+                                     plain_ms, lib_ms, b)
+            del q, k, v, y, ref
+
+    for D in WIDTH_DIT:
+        # K5's int8 forms at the DiT's self shape
+        Hh, scale = C // D, D ** -0.5
+        q, k, v = (rnd(T, N, Hh, D) for _ in range(3))
+        flt = fa.fused_attention(q, k, v, scale, impl="plain")
+        for quant in ("qk", "qk+av"):
+            key = f"attention_{'qkav' if quant == 'qk+av' else 'qk'}_d{D}"
+            name, replaces, source = entries[key]
+
+            def call(impl=None):
+                return fa.fused_attention(q, k, v, scale, quant=quant,
+                                          impl=impl)
+
+            y, launches[key] = _drive(counts, key, call)
+            ref = call("plain")
+            err, f_err = rel_l2(y, ref), rel_l2(y, flt)
+            mae = float((y.float() - ref.float()).abs().max())
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *(a.transpose(1, 2) for a in (q, k, v)))
+            ms, lib_ms = time_ms(call), time_ms(sdpa)
+            plain_ms = time_ms(lambda: call("plain"), iters=2)
+            prod = 2 * T * Hh * N * N * D
+            b = _bound_mixed([(prod, PEAK_INT8), (prod, PEAK_INT8 if quant
+                                                  == "qk+av" else PEAK_FLOPS)],
+                             nbytes(q, k, v, y))
+            lim = QKAV_REL_BOUND if quant == "qk+av" else QK_REL_BOUND
+            log(f"[widths] {name}: q/k/v {tuple(q.shape)} bf16: max_abs_err "
+                f"{mae:.4g} rel_l2 {err:.3e} (bound {lim:g}); against the "
+                f"float form rel_l2 {f_err:.3e}"
+                + (f" (bound {QKAV_FLOAT_BOUND:g})" if quant == "qk+av"
+                   else "")
+                + f"; kernel {ms:.4f} ms plain {plain_ms:.3f} ms sdpa "
+                f"{lib_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}, at D = {D}); "
+                f"launches {launches[key]}; {card}")
+            if not (bool(torch.isfinite(y).all()) and err <= lim
+                    and (quant == "qk" or f_err <= QKAV_FLOAT_BOUND)):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+            rows[key] = _form_result(name, replaces, source, mae, ms,
+                                     plain_ms, lib_ms, b)
+        del q, k, v, flt
+
+    # K5's segments at 16: K6's [1, 32, 512, 32, 16] packed voxel-major
+    key, D = "attention_seg_d16", 16
+    name, replaces, source = entries[key]
+    Hh, scale = C // D, D ** -0.5
+    q6, k6, v6 = (rnd(B, T, N, Hh, D) for _ in range(3))
+    pack = lambda a: a.permute(0, 2, 1, 3, 4).reshape(  # noqa: E731
+        B * N // SEG_VOXELS, SEG_VOXELS * T, Hh, D).contiguous()
+    qp, kp, vp = map(pack, (q6, k6, v6))
+
+    def call(impl=None):
+        return fa.fused_attention(qp, kp, vp, scale, segment_size=SEG_T,
+                                  impl=impl)
+
+    y, launches[key] = _drive(counts, key, call)
+    ref = call("plain")
+    err = rel_l2(y, ref)
+    k6_err = rel_l2(y, pack(fa.temporal_attention(q6, k6, v6, scale)))
+    mae = float((y.float() - ref.float()).abs().max())
+    seg_rows = torch.arange(SEG_VOXELS * T, device=dev) // SEG_T
+    mask = seg_rows[:, None] == seg_rows[None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        *(a.transpose(1, 2) for a in (qp, kp, vp)), attn_mask=mask)
+    ms, lib_ms = time_ms(call), time_ms(sdpa)
+    plain_ms = time_ms(lambda: call("plain"), iters=3)
+    b = bound(4 * qp.shape[0] * Hh * qp.shape[1] * SEG_T * D,
+              nbytes(qp, kp, vp, y))
+    log(f"[widths] {name}: q/k/v {tuple(qp.shape)} bf16, segment_size "
+        f"{SEG_T}: max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
+        f"{SEG_REL_BOUND:g}); against K6 on the unpacked {tuple(q6.shape)} "
+        f"rel_l2 {k6_err:.3e} (bound {SEG_K6_BOUND:g}); kernel {ms:.4f} ms "
+        f"plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {b[0]:.4f} ms "
+        f"({b[1]}); launches {launches[key]}; {card}")
+    if not (bool(torch.isfinite(y).all()) and err <= SEG_REL_BOUND
+            and k6_err <= SEG_K6_BOUND):
+        raise AssertionError(f"{name} disagrees")
+    rows[key] = _form_result(name, replaces, source, mae, ms, plain_ms,
+                             lib_ms, b)
+    del q6, k6, v6, qp, kp, vp, y, ref
+
+    # K5 and K6 at the DiT's training shapes; K6's bf16 io driven once
+    for D in WIDTH_DIT:
+        for key in (f"train_attention_d{D}", f"train_attention_cross_d{D}",
+                    f"temporal_attention_d{D}",
+                    f"temporal_attention_bf16_d{D}"):
+            rows[key] = phase_train_kernel(dev, *entries[key], key)
+        key = f"temporal_attention_bf16_d{D}"
+        fn, ins, *_ = train_attention_case(dev, key)
+        _, launches[key] = _drive(counts, fa.temporal_launch_key(D),
+                                  lambda: fn(ins))
+    torch.cuda.empty_cache()
+
+    # K7 at heads of 48 and 96; fp32 at 96 counts main_vae's launches
+    r, drive = vae_form_rows(dev, card, WIDTH_VAE_FORMS, "[widths]")
+    rows.update(r)
+    launches.update({k_: n for k_, n in drive.items()
+                     if k_ not in vae_form_keys("float32",
+                                                VAE_C // WIDTH_VAE_HEADS)})
+    torch.cuda.empty_cache()
+
+    # the DiT's trainer at heads of 16 and 128
+    work = tempfile.mkdtemp(prefix="gvf_widths_smoke_")
+    try:
+        data = os.path.join(work, "data")
+        write_latent_dataset(data, items=2, seed=52)
+        config = os.path.join(REPO, "configs", "diffusion.yml")
+        for D in WIDTH_DIT:
+            keys = (fa.launch_key(D, False, False),
+                    fa.launch_key(D, True, False), fa.temporal_launch_key(D))
+            want = dict(zip(keys, (12, 24, 12)))
+            torch.cuda.reset_peak_memory_stats()
+            rc, text, wall = run_main_latent([
+                "--config", config, f"--data_dir={data}",
+                f"--exp_dir={os.path.join(work, f'exp_d{D}')}",
+                f"--model.num_heads={C // D}", "--train.log_interval=1",
+                "--train.save_interval=1000000", "--train.total_steps=1"])
+            got = {k_: n for k_, n in read_counts().items() if n}
+            losses = _losses(text)
+            log(f"[widths] main_latent.main --model.num_heads={C // D} "
+                f"(heads of {D}{_padded(D)}), 1 micro-step: rc {rc}, "
+                f"{wall:.1f} ms whole, losses {losses}, step times "
+                f"{_step_times(text)} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"launches {got}; {card}")
+            if rc != 0 or got != want or len(losses) != 1 or not all(
+                    math.isfinite(x) for x in losses):
+                raise AssertionError(f"main_latent at heads of {D}: rc {rc},"
+                                     f" launches {got} (want {want}), losses"
+                                     f" {losses}")
+            launches.update(zip((f"train_attention_d{D}",
+                                 f"train_attention_cross_d{D}",
+                                 f"temporal_attention_d{D}"),
+                                (got[k_] for k_ in keys)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[widths] phase in {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5612,6 +5952,9 @@ def main(argv) -> int:
     if "--forms" in argv:
         phase_forms(dev, card)
         return 0
+    if "--widths" in argv:
+        phase_widths(dev, card)
+        return 0
     if "--pipeline" in argv:
         phase_pipeline(*build_models(dev), dev, card)
         return 0
@@ -5645,6 +5988,8 @@ def main(argv) -> int:
         return 0
     forms, form_launches = phase_forms(dev, card)
     results.update(forms)
+    widths, width_launches = phase_widths(dev, card)
+    results.update(widths)
     phase_profile_split(dev, card, traces=False)
     dino, dit, vae = build_models(dev)
     phase_dinov2(dino, dev, card)
@@ -5692,7 +6037,7 @@ def main(argv) -> int:
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path
     counts = {**launches, **configs, **trellis, **train, **vae,
-              **form_launches, **vae_form_launches}
+              **form_launches, **vae_form_launches, **width_launches}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")

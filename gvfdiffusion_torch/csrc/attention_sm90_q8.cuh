@@ -29,7 +29,8 @@
 // row), NWG consumer warpgroups of 64 rows, then four producer warps.
 //  - The producer fills a ring of 3 stages. Lane 0 of its first warp copies
 //    the int8 K tile of BK keys by TMA (a 4-d map of [batch row, key, head,
-//    lane] bytes; rows of 32 or 64 bytes in wgmma's 32- or 64-byte swizzle,
+//    lane] bytes; rows of 32, 64 or 128 bytes (K5 at heads of 128) in
+//    wgmma's 32-, 64- or 128-byte swizzle,
 //    Sw8<D>; rows past Lk zero-filled). All four warps write V as an
 //    MN-major bf16 tile (Sw<D>, as the core's fp32 producer does), reading
 //    fp32 rows (K1) or int8 rows with their scale (K3: the int8 tiles land
@@ -111,18 +112,22 @@ __device__ __forceinline__ float ex2_sub(float x) {
   return y;
 }
 
-// An int8 tile of `rows` rows x D bytes (D = 32 or 64) in wgmma's swizzled
-// canonical layout, the one TMA writes: rows of RB = D bytes, 8-row atoms
-// whose 16-byte chunks are XOR-permuted by the row (64-byte swizzle: by
-// row / 2 mod 4, as Sw<32>'s bf16 rows; 32-byte swizzle: by row / 4 mod 2).
-// A k-step of wgmma's s8 shapes is 32 bytes: one at D = 32, two at 64.
+// An int8 tile of `rows` rows x D bytes (D = 32, 64 or 128) in wgmma's
+// swizzled canonical layout, the one TMA writes: rows of RB = D bytes,
+// 8-row atoms whose 16-byte chunks are XOR-permuted by the row (128-byte
+// swizzle: by row mod 8, as Sw<64>'s bf16 rows; 64-byte swizzle: by row /
+// 2 mod 4, as Sw<32>'s; 32-byte swizzle: by row / 4 mod 2). A k-step of
+// wgmma's s8 shapes is 32 bytes: one at D = 32, two at 64, four at 128.
 template <int D>
 struct Sw8 {
-  static_assert(D == 32 || D == 64, "int8 rows of 32 or 64 bytes");
+  static_assert(D == 32 || D == 64 || D == 128,
+                "int8 rows of 32, 64 or 128 bytes");
   static constexpr int RB = D;
-  static constexpr uint64_t MODE = RB == 64 ? 2 : 3;  // 64B / 32B swizzle
+  // 128B / 64B / 32B swizzle
+  static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   __device__ static __forceinline__ int off(int r, int c) {
-    const int x = RB == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+    const int x = RB == 128 ? (r & 7)
+                  : RB == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
     return r * RB + ((c ^ x) << 4);
   }
   // K-major operand: SBO = one 8-row atom; k-step kk moves 32 bytes along
@@ -619,15 +624,17 @@ cudaError_t kv8_map(CUtensorMap* map, const void* base, int H, int Lk,
   const CUresult r = enc(
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      !swizzle  ? CU_TENSOR_MAP_SWIZZLE_NONE
-      : D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                : CU_TENSOR_MAP_SWIZZLE_32B,
+      !swizzle   ? CU_TENSOR_MAP_SWIZZLE_NONE
+      : D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : D == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                 : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // grid: (query tiles, heads, batch rows). 128-row query tiles when there is
-// at least one for each of the 132 SMs, else 64. q and k rows (and head
+// at least one for each of the 132 SMs, else 64; at D = 128 always 64 (two
+// warpgroups' tiles pass the 227 KB of shared memory). q and k rows (and head
 // offsets) 16-byte aligned; v rows too (fp32 for K1, int8 for K3, TV for
 // K5); o rows 16-byte aligned.
 template <int D, int MODE, typename TV = float>
@@ -672,7 +679,9 @@ cudaError_t launch_attn_sm90_q8(const Q8AttnParams& p, long long B,
     kern<<<dim3(cdiv(p.Lq, 64 * NWG), p.H, (unsigned)B),                      \
            NWG * 128 + 32 * Q8_NPROD, bytes, s>>>(p, tk, tv);                 \
   }
-  if (tiles128 >= 132) {
+  if constexpr (D == 128) {
+    GVF_LAUNCH_SM90_Q8(1)
+  } else if (tiles128 >= 132) {
     GVF_LAUNCH_SM90_Q8(2)
   } else {
     GVF_LAUNCH_SM90_Q8(1)

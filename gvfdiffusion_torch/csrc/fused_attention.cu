@@ -5,15 +5,18 @@
 // validity is a per-key logit bias (-inf on the padding slots); at heads of
 // 32 (fp32 in and out), the DiT's composed training path: spatial self-
 // attention [48, 512, 16, 32] and the image [48, 512] x [48, 1374] and
-// static [48, 512] x [48, 512] cross-attentions.
+// static [48, 512] x [48, 512] cross-attentions; at heads of 128 (fp32),
+// the DiT's 4-head configuration.
 //
 // Replaces the Pallas TPU kernel of gvfdiffusion_tpu/ops/fused_attention.py
 // `fused_attention` (bodies `_attn_kernel_dense` / `_attn_kernel`) for heads
-// of 32 and 64, bf16 or fp32 q/k/v and output (the output in q's type, as the
-// TPU kernel's), bf16 products with fp32 accumulation, an optional fp32
-// kv_bias, and segment_size (block-diagonal attention over packed
-// segments: the core visits only the key tiles of a query tile's segments
-// and masks the rest inside them). The backward pass is plain torch (the
+// of 32, 64 and 128 (the wrapper zero-pads a head of any other width up to
+// 128 to the next of them, which changes neither the scores nor the row
+// sums: ops/fused_attention.py), bf16 or fp32 q/k/v and output (the output
+// in q's type, as the TPU kernel's), bf16 products with fp32 accumulation,
+// an optional fp32 kv_bias, and segment_size (block-diagonal attention over
+// packed segments: the core visits only the key tiles of a query tile's
+// segments and masks the rest inside them). The backward pass is plain torch (the
 // TPU kernel's custom_vjp is XLA einsums, not a kernel).
 //
 // gvf_attention_q8 is the TPU kernel's int8 body (`_attn_kernel`,
@@ -45,10 +48,11 @@
 // = 10 * 128 + 94 at 518^2). Heads of 64 take an online softmax with a true
 // running maximum (the TPU kernel's fixed exp2 shift of 30 holds only while
 // every scaled logit stays within about +-90, which nothing guarantees for
-// a ViT's un-normed q.k); heads of 32 take the TPU kernel's fixed shift
-// (`fixed`), so that the DiT's training path rounds P where the reference
-// does. The bias row travels with its K/V tile; a row whose keys are all
-// masked gives 0, as the TPU kernel's clamped denominator does.
+// a ViT's un-normed q.k; heads of 128 likewise); heads of 32 take the TPU
+// kernel's fixed shift (`fixed`), so that the DiT's training path rounds P
+// where the reference does. The bias row travels with its K/V tile; a row
+// whose keys are all masked gives 0, as the TPU kernel's clamped
+// denominator does.
 //
 // What bounds it on the H100: the tensor cores at DINOv2's [32, 1374, 16,
 // 64] (0.247 TFLOP against 360 MB) and the SLat torso's [1, 4096, 16, 64];
@@ -139,10 +143,14 @@ cudaError_t launch_quant(const void* x, long long sb, long long sl,
     quant_kernel<32><<<grid, 256, 0, s>>>((const bf16*)x, sb, sl,
                                           (signed char*)dst, (float*)scale,
                                           L, H, rows, cells);
-  else
+  else if (D == 64)
     quant_kernel<64><<<grid, 256, 0, s>>>((const bf16*)x, sb, sl,
                                           (signed char*)dst, (float*)scale,
                                           L, H, rows, cells);
+  else
+    quant_kernel<128><<<grid, 256, 0, s>>>((const bf16*)x, sb, sl,
+                                           (signed char*)dst, (float*)scale,
+                                           L, H, rows, cells);
   return cudaGetLastError();
 }
 
@@ -153,19 +161,21 @@ extern "C" {
 // q: element (b, i, h, d) at b * q_sb + i * q_sl + h * D + d;
 // k, v: element (b, j, h, d) at b * kv_sb + j * kv_sl + h * D + d;
 // q, k, v and o all bf16, or all fp32 (io_f32), 16-byte aligned with row
-// and batch strides a multiple of 16 bytes; D = 32 or 64;
-// bias: fp32 [B, Lk] contiguous, or null; o: [B, Lq, H * D] contiguous.
-// fixed: the fixed exp2 shift, which heads of 32 take, or (heads of 64) the
-// running maximum; either way the exponent is S * scale_log2 (= scale *
-// log2(e)) plus the bias times log2(e). seg: segment_size, or 0 (Lq == Lk,
-// a multiple of seg).
+// and batch strides a multiple of 16 bytes; D = 32, 64 or 128 (a head of
+// another width arrives zero-padded to one of these, with the scale of its
+// own width); bias: fp32 [B, Lk] contiguous, or null; o: [B, Lq, H * D]
+// contiguous. fixed: the fixed exp2 shift, which heads of 32 take, or
+// (heads of 64 and 128) the running maximum; either way the exponent is S *
+// scale_log2 (= scale * log2(e)) plus the bias times log2(e). seg:
+// segment_size, or 0 (Lq == Lk, a multiple of seg).
 int gvf_attention(const void* q, const void* k, const void* v,
                   const void* bias, void* o, int B, int Lq, int Lk, int H,
                   int D, long long q_sb, long long q_sl, long long kv_sb,
                   long long kv_sl, float scale, float scale_log2, int io_f32,
                   int fixed, int seg, void* stream) {
-  if ((D != 32 && D != 64) || (fixed != 0) != (D == 32) || B < 1 ||
-      B > 65535 || Lq < 1 || Lk < 1 || H < 1 || H > 65535 || seg < 0)
+  if ((D != 32 && D != 64 && D != 128) || (fixed != 0) != (D == 32) ||
+      B < 1 || B > 65535 || Lq < 1 || Lk < 1 || H < 1 || H > 65535 ||
+      seg < 0)
     return (int)cudaErrorInvalidValue;
   AttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -182,8 +192,11 @@ int gvf_attention(const void* q, const void* k, const void* v,
   if (D == 32)
     return (int)(io_f32 ? launch<32, float, true>(p, H, B, s)
                         : launch<32, bf16, true>(p, H, B, s));
-  return (int)(io_f32 ? launch<64, float, false>(p, H, B, s)
-                      : launch<64, bf16, false>(p, H, B, s));
+  if (D == 64)
+    return (int)(io_f32 ? launch<64, float, false>(p, H, B, s)
+                        : launch<64, bf16, false>(p, H, B, s));
+  return (int)(io_f32 ? launch<128, float, false>(p, H, B, s)
+                      : launch<128, bf16, false>(p, H, B, s));
 }
 
 // K5's int8 forms, bf16 q/k/v and o on gvf_attention's strides; bias as
@@ -197,8 +210,8 @@ int gvf_attention_q8(const void* q, const void* k, const void* v,
                      long long q_sb, long long q_sl, long long kv_sb,
                      long long kv_sl, int q_block, int seg, int av,
                      float scale, void* stream) {
-  if ((D != 32 && D != 64) || B < 1 || B > 65535 || Lq < 1 || Lk < 1 ||
-      H < 1 || H > 65535 || q_block < 1 || (H * D) % 16)
+  if ((D != 32 && D != 64 && D != 128) || B < 1 || B > 65535 || Lq < 1 ||
+      Lk < 1 || H < 1 || H > 65535 || q_block < 1 || (H * D) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int q_cells = (int)cdiv(Lq, q_block);
@@ -225,9 +238,12 @@ int gvf_attention_q8(const void* q, const void* k, const void* v,
   if (D == 32)
     err = av ? launch_attn_sm90_q8<32, Q8_QKAV, bf16>(p, B, s)
              : launch_attn_sm90_q8<32, Q8_QK, bf16>(p, B, s);
-  else
+  else if (D == 64)
     err = av ? launch_attn_sm90_q8<64, Q8_QKAV, bf16>(p, B, s)
              : launch_attn_sm90_q8<64, Q8_QK, bf16>(p, B, s);
+  else
+    err = av ? launch_attn_sm90_q8<128, Q8_QKAV, bf16>(p, B, s)
+             : launch_attn_sm90_q8<128, Q8_QK, bf16>(p, B, s);
   return (int)err;
 }
 

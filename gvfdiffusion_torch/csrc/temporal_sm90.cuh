@@ -75,6 +75,13 @@
 //    stages at 25 KB at heads of 32 (two CTAs an SM) and 49 KB at heads of
 //    64 (one). The output goes back through the finished stage as 16-byte
 //    stores (fp32 rows padded by 8 floats, conflict-free float2 writes).
+//  - Heads of 128 (K6 only; a head of another width arrives zero-padded to
+//    32, 64 or 128 by its wrapper): O's accumulators take 128 registers a
+//    thread, twice those at 64, and Q's fragments held across the key
+//    tiles would take 64 more. So at 128 the warp reads Q's fragments from
+//    the stage at each k-step of S instead of holding them, and loads Q's
+//    rows with every item (the same rows again when T > 32). The fp32
+//    stages take 97 KB a warp there: a CTA holds 2 warps (4 elsewhere).
 
 #pragma once
 
@@ -113,6 +120,11 @@ struct TemporalParams {
 template <int D, TForm F>
 struct TLayout {
   static constexpr bool Q8 = F == TForm::Q8, F32 = F == TForm::ShiftF32;
+  // warps a CTA: 2 for fp32 heads of 128, whose stages take 97 KB a warp
+  static constexpr int NW = F32 && D == 128 ? 2 : TWARPS;
+  // Q's A fragments held across a query block's key tiles (at 128 they are
+  // read from the stage at each k-step: O's accumulators fill the registers)
+  static constexpr bool QHELD = D < 128;
   static constexpr int ES = Q8 ? 1 : F32 ? 4 : 2;  // bytes of a q / k element
   static constexpr int VS = Q8 || F32 ? 4 : 2;     // of a v element
   static constexpr int OS = F32 ? 4 : 2;           // of an o element
@@ -122,7 +134,7 @@ struct TLayout {
   static constexpr int Q = 0, K = TQB * QRB, V = K + TKB * QRB;
   static constexpr int STAGE = V + TKB * VRB;
   static constexpr int WARP = 2 * STAGE;
-  static constexpr int BYTES = TWARPS * WARP;
+  static constexpr int BYTES = NW * WARP;
   // CTAs an SM: 228 KB of shared memory, 1 KB of it reserved a CTA
   static constexpr int CTAS = 233472 / (BYTES + 1024);
   static_assert(TQB * ORB <= STAGE, "the output tile fits a stage");
@@ -208,10 +220,12 @@ __device__ __forceinline__ float4 f32_quad(const unsigned char* tile, int r,
 }
 
 template <int D, TForm F>
-__global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
+__global__ void
+__launch_bounds__(TLayout<D, F>::NW * 32, TLayout<D, F>::CTAS)
     temporal_sm90_kernel(const TemporalParams p) {
   using L = TLayout<D, F>;
   constexpr bool Q8 = L::Q8, F32 = L::F32;
+  static_assert(L::QHELD || !Q8, "heads of 128 in the shift forms only");
   constexpr bool SHIFT = F != TForm::Float;  // the fixed exp2 shift
   constexpr int ES = L::ES, VS = L::VS, OS = L::OS;
   constexpr int KS = Q8 ? D / 32 : D / 16;  // k-steps of S = Q K^T
@@ -225,7 +239,7 @@ __global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
   const long long G = (long long)p.B * N * H;
   const int nqb = (T + TQB - 1) / TQB, nkt = (T + TKB - 1) / TKB;
   const int per = nqb * nkt;
-  const long long W = (long long)gridDim.x * TWARPS;
+  const long long W = (long long)gridDim.x * L::NW;
 
   // the rows of problem g: row (b, t, n) = b T N + t N + n
   auto row0_of = [&](long long g, int& h) {
@@ -241,7 +255,7 @@ __global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
     const auto* qsrc = (const unsigned char*)p.q + (r0 * p.q_rs + h * D) * ES;
     const auto* ksrc = (const unsigned char*)p.k + (r0 * p.k_rs + h * D) * ES;
     const auto* vsrc = (const unsigned char*)p.v + (r0 * p.v_rs + h * D) * VS;
-    if (kt == 0)
+    if (kt == 0 || !L::QHELD)
       load_rows<D * ES / 16, F32>(sb + L::Q, L::QRB, qsrc, N * p.q_rs * ES,
                                   qb * TQB, T, lane);
     load_rows<D * ES / 16, F32>(sb + L::K, L::QRB, ksrc, N * p.k_rs * ES,
@@ -254,12 +268,12 @@ __global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
   // [k-step]), O's accumulators (o[m16 tile][n8 tile], the layout of
   // mma's C: rows gq and gq + 8, columns 2 tig, 2 tig + 1), the running
   // maximum and the per-thread partial row sums of rows gq + 8 hr
-  uint32_t qf[2][KS][4];
+  uint32_t qf[2][L::QHELD ? KS : 1][4];
   float o[2][DN][4];
   float m_run[2][2], l_run[2][2];
   float f8 = 0.f;  // the int8 form's score factor of the problem
 
-  long long g = (long long)blockIdx.x * TWARPS + warp;
+  long long g = (long long)blockIdx.x * L::NW + warp;
   int j = 0, st = 0;
   if (g < G) issue(g, 0, 0);
   cp_async_commit();
@@ -283,7 +297,7 @@ __global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
+        for (int ks = 0; ks < (L::QHELD ? KS : 0); ++ks) {
           if constexpr (F32) {
             const float4 a = f32_quad<D>(ssm + L::Q, mt * 16 + gq, ks, tig);
             const float4 c =
@@ -323,36 +337,83 @@ __global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
     // kt TKB + 8 nt + 2 tig + e
     float s[2][4][4] = {};
     int si[2][4][4] = {};
+    if constexpr (L::QHELD) {
 #pragma unroll
-    for (int jp = 0; jp < 2; ++jp)
+      for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b[4];  // the B fragments of the n8 tiles 2 jp, 2 jp + 1
+          if constexpr (F32) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float4 x =
+                  f32_quad<D>(ssm + L::K, (2 * jp + u) * 8 + gq, ks, tig);
+              b[2 * u] = pack_bf16(x.x, x.y);
+              b[2 * u + 1] = pack_bf16(x.z, x.w);
+            }
+          } else {
+            ldsm_x4(sb + L::K +
+                        (jp * 16 + (lane & 7) + (lane >> 4) * 8) * L::QRB +
+                        ks * 32 + ((lane >> 3) & 1) * 16,
+                    b);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if constexpr (Q8) {
+              mma_s8(si[mt][2 * jp], qf[mt][ks], b[0], b[1]);
+              mma_s8(si[mt][2 * jp + 1], qf[mt][ks], b[2], b[3]);
+            } else {
+              mma_bf16(s[mt][2 * jp], qf[mt][ks], b[0], b[1]);
+              mma_bf16(s[mt][2 * jp + 1], qf[mt][ks], b[2], b[3]);
+            }
+          }
+        }
+    } else {
+      // heads of 128: Q's fragments from the stage at each k-step
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        uint32_t b[4];  // the B fragments of the n8 tiles 2 jp, 2 jp + 1
-        if constexpr (F32) {
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const float4 x =
-                f32_quad<D>(ssm + L::K, (2 * jp + u) * 8 + gq, ks, tig);
-            b[2 * u] = pack_bf16(x.x, x.y);
-            b[2 * u + 1] = pack_bf16(x.z, x.w);
-          }
-        } else {
-          ldsm_x4(sb + L::K +
-                      (jp * 16 + (lane & 7) + (lane >> 4) * 8) * L::QRB +
-                      ks * 32 + ((lane >> 3) & 1) * 16,
-                  b);
-        }
+        uint32_t a[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          if constexpr (Q8) {
-            mma_s8(si[mt][2 * jp], qf[mt][ks], b[0], b[1]);
-            mma_s8(si[mt][2 * jp + 1], qf[mt][ks], b[2], b[3]);
+          if constexpr (F32) {
+            const float4 x = f32_quad<D>(ssm + L::Q, mt * 16 + gq, ks, tig);
+            const float4 c =
+                f32_quad<D>(ssm + L::Q, mt * 16 + gq + 8, ks, tig);
+            a[mt][0] = pack_bf16(x.x, x.y);
+            a[mt][1] = pack_bf16(c.x, c.y);
+            a[mt][2] = pack_bf16(x.z, x.w);
+            a[mt][3] = pack_bf16(c.z, c.w);
           } else {
-            mma_bf16(s[mt][2 * jp], qf[mt][ks], b[0], b[1]);
-            mma_bf16(s[mt][2 * jp + 1], qf[mt][ks], b[2], b[3]);
+            ldsm_x4(sb + L::Q + (mt * 16 + (lane & 15)) * L::QRB + ks * 32 +
+                        (lane >> 4) * 16,
+                    a[mt]);
+          }
+        }
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t b[4];
+          if constexpr (F32) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float4 x =
+                  f32_quad<D>(ssm + L::K, (2 * jp + u) * 8 + gq, ks, tig);
+              b[2 * u] = pack_bf16(x.x, x.y);
+              b[2 * u + 1] = pack_bf16(x.z, x.w);
+            }
+          } else {
+            ldsm_x4(sb + L::K +
+                        (jp * 16 + (lane & 7) + (lane >> 4) * 8) * L::QRB +
+                        ks * 32 + ((lane >> 3) & 1) * 16,
+                    b);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(s[mt][2 * jp], a[mt], b[0], b[1]);
+            mma_bf16(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
           }
         }
       }
+    }
     if constexpr (SHIFT) {
       // P = exp2(x - 30), the fixed shift: no maximum, no rescale; x = si
       // f8 (int8 QK) or S (scale log2 e), each product rounded once
@@ -502,7 +563,8 @@ __global__ void __launch_bounds__(TWARPS * 32, TLayout<D, F>::CTAS)
   cp_async_wait<0>();
 }
 
-// heads of 32 or 64; q/k/v rows and their bases 16-byte aligned
+// heads of 32 or 64 (K6's shift forms also 128); q/k/v rows and their
+// bases 16-byte aligned
 template <int D, TForm F>
 cudaError_t launch_temporal(const TemporalParams& p, cudaStream_t s) {
   using L = TLayout<D, F>;
@@ -519,13 +581,13 @@ cudaError_t launch_temporal(const TemporalParams& p, cudaStream_t s) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kern, TWARPS * 32, L::BYTES);
+          &per_sm, kern, L::NW * 32, L::BYTES);
     if (err != cudaSuccess) return err;
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
   const long long problems = (long long)p.B * p.N * p.H;
-  const long long ctas = (problems + TWARPS - 1) / TWARPS;
-  kern<<<(unsigned)(ctas < resident ? ctas : resident), TWARPS * 32,
+  const long long ctas = (problems + L::NW - 1) / L::NW;
+  kern<<<(unsigned)(ctas < resident ? ctas : resident), L::NW * 32,
          L::BYTES, s>>>(p);
   return cudaGetLastError();
 }

@@ -25,17 +25,25 @@ Two versions:
     over the list of key tiles that hold a valid key, P rounded to bf16)
     or all fp32 (the same core's 3xTF32 path: no operand rounded to bf16,
     each product split into three tf32 products with fp32 sums; the SLat
-    flow as the registry builds it), heads of 32, 64 or 128. It raises for
-    anything else and never falls back: an fp32 input is never cast to
-    reach the bf16 kernel.
+    flow as the registry builds it). The kernels run natively at heads of
+    32, 64 and 128; a head of any other multiple of 8 up to 128 (the widths
+    `sparse/attention.full_sparse_attention` sends here) is zero-padded to
+    the next of them (`_widths.card_width`, `pad_heads`), run with the true
+    width's scale, and its output cut back to its D columns: zero columns
+    change no score and no logsumexp, so the padding is the design, not a
+    departure from JAX's function. It raises for anything else (D above
+    128 among them: no card kernel has a 256 form yet) and never falls
+    back: an fp32 input is never cast to reach the bf16 kernel.
 
 The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
 `_flash_attention_bwd_dq`, which JAX runs when a trainer differentiates
 through `_flash_full_attention`: the static VAE's `full` mode, at any head
 width and in bf16 too): when grad mode is on and q, k or v requires grad,
 the wrapper runs `FlashAttention`, a `torch.autograd.Function`, in every
-form the forward has (bf16 or fp32, heads of 32, 64 or 128). On the card
-its forward is the kernel with the row logsumexp and its list of the key
+form the forward has (bf16 or fp32, every head width, padded as the
+forward pads: q, k, v and dO go in padded, the padded o is saved with its
+logsumexp, and o, dq, dk and dv come back cut to D). On the card its
+forward is the kernel with the row logsumexp and its list of the key
 tiles that hold a valid key as residuals (the TPU kernel saves its running
 max and sum) and its backward takes di = rowsum(o * dO) in fp32 plain
 torch, as JAX does, then two kernels that walk the listed tiles alone
@@ -54,13 +62,14 @@ mask, every query row, and a batch row with no valid key spreading P = 1 /
 Lk-padded-to-512 over every key, so its keys get dV != 0.
 
 `launch_counts` counts kernel launches by form: the forward by dtype and
-head width, "flash_attention" (bf16, heads of 64), "flash_attention_fp32",
-and either with "_d32" / "_d128" at the other widths (`launch_key`); under
-grad, per form, the forward with its residual and the two backward kernels
+the caller's head width (the true one, not the padded one),
+"flash_attention" (bf16, heads of 64), "flash_attention_fp32", and either
+with "_d32", "_d96", ... at the other widths (`launch_key`); under grad,
+per form, the forward with its residual and the two backward kernels
 (`grad_key`: "flash_attention_fp32_res", "flash_attention_bwd_dkv",
 "flash_attention_bwd_dq" at fp32 and heads of 64, "flash_attention_res",
-"flash_attention_bwd_dkv_bf16", ... in bf16, "_d32" / "_d128" at the other
-widths). The plain versions never count.
+"flash_attention_bwd_dkv_bf16", ... in bf16, "_d32", "_d96", ... at the
+other widths). The plain versions never count.
 """
 
 from __future__ import annotations
@@ -68,6 +77,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ._widths import (CARD_WIDTHS, WIDTHS, card_width, pad_heads,
+                      width_suffix)
 
 # the Pallas kernel's additive mask value (jax.experimental.pallas.ops.tpu.
 # flash_attention.DEFAULT_MASK_VALUE)
@@ -77,19 +89,16 @@ BLOCK = 512
 # score elements per chunk of the plain version ([B, H, rows, Lk] fp32: 512 MB)
 _SCORES = 1 << 27
 
-HEAD_WIDTHS = (32, 64, 128)
+# the widths the kernels are built at (a head of another width is padded)
+HEAD_WIDTHS = CARD_WIDTHS
 DTYPES = (torch.bfloat16, torch.float32)
 GRAD_KINDS = ("res", "bwd_dkv", "bwd_dq")
-
-
-def _width(head_dim: int) -> str:
-    return "" if head_dim == 64 else f"_d{head_dim}"
 
 
 def launch_key(dtype: torch.dtype, head_dim: int) -> str:
     """The counter of a forward launch: its dtype and head width."""
     return ("flash_attention" + ("_fp32" if dtype == torch.float32 else "")
-            + _width(head_dim))
+            + width_suffix(head_dim))
 
 
 def grad_key(kind: str, dtype: torch.dtype, head_dim: int) -> str:
@@ -99,14 +108,14 @@ def grad_key(kind: str, dtype: torch.dtype, head_dim: int) -> str:
     f32 = dtype == torch.float32
     if kind == "res":
         return ("flash_attention" + ("_fp32" if f32 else "") + "_res"
-                + _width(head_dim))
-    return f"flash_attention_{kind}" + ("" if f32 else "_bf16") + _width(
-        head_dim)
+                + width_suffix(head_dim))
+    return (f"flash_attention_{kind}" + ("" if f32 else "_bf16")
+            + width_suffix(head_dim))
 
 
-launch_counts = {launch_key(dt, w): 0 for dt in DTYPES for w in HEAD_WIDTHS}
+launch_counts = {launch_key(dt, w): 0 for dt in DTYPES for w in WIDTHS}
 launch_counts.update({grad_key(kind, dt, w): 0 for kind in GRAD_KINDS
-                      for dt in DTYPES for w in HEAD_WIDTHS})
+                      for dt in DTYPES for w in WIDTHS})
 
 
 def reset_launch_counts() -> None:
@@ -117,9 +126,10 @@ def reset_launch_counts() -> None:
 def key_tile(dtype: torch.dtype, head_dim: int) -> int:
     """The kernel's key tile, the unit of its list of visited tiles: in
     bf16 128 keys at heads of 32 and 64, 64 at 128 (the Hopper core's); in
-    fp32 64, 32 at 128 (its 3xTF32 path's)."""
+    fp32 64, 32 at 128 (its 3xTF32 path's); a padded head takes its card
+    width's."""
     return (64 if dtype == torch.float32 else 128) // (
-        2 if head_dim == 128 else 1)
+        2 if card_width(head_dim) == 128 else 1)
 
 
 def padded_keys(lk: int) -> int:
@@ -186,10 +196,11 @@ def flash_attention_backward_reference(q, k, v, kv_valid, scale: float, o,
     return dq, dk[:, :Lk].to(k.dtype), dv[:, :Lk].to(v.dtype)
 
 
-def _check_cuda(q, k, v, kv_valid) -> None:
+def _check_cuda(q, k, v, kv_valid) -> int:
     """What the kernel takes: CUDA q [B, Lq, H, D] and k/v [B, Lk, H, D],
-    all bf16 or all fp32, D = 32, 64 or 128, each with its heads contiguous
-    in a row and rows on 16-byte boundaries; kv_valid bool [B, Lk]."""
+    all bf16 or all fp32, D a multiple of 8 up to 128, each with its heads
+    contiguous in a row and rows on 16-byte boundaries; kv_valid bool [B,
+    Lk]. Returns the width the kernels run at (`card_width(D)`)."""
     for t in (q, k, v):
         if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32) \
                 or t.dtype != q.dtype:
@@ -205,9 +216,10 @@ def _check_cuda(q, k, v, kv_valid) -> None:
             raise ValueError("q/k/v rows must start on 16-byte boundaries; "
                              f"got strides {t.stride()}")
     B, _, H, D = q.shape
-    if D not in HEAD_WIDTHS:
-        raise ValueError(f"the flash attention kernel takes heads of "
-                         f"{HEAD_WIDTHS}, got {D}")
+    if D not in WIDTHS:
+        raise ValueError(f"the flash attention kernel takes heads of a "
+                         f"multiple of 8 up to 128 (run at {HEAD_WIDTHS}), "
+                         f"got {D}")
     if tuple(k.shape) != tuple(v.shape) or (k.shape[0], k.shape[2],
                                             k.shape[3]) != (B, H, D):
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
@@ -219,14 +231,18 @@ def _check_cuda(q, k, v, kv_valid) -> None:
         raise TypeError(f"kv_valid must be a bool CUDA [B, Lk] = "
                         f"{(B, k.shape[1])}; got {kv_valid.dtype} "
                         f"{tuple(kv_valid.shape)} on {kv_valid.device}")
+    return card_width(D)
 
 
-def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
+def launch_forward(q, k, v, kv_valid, scale: float, residual: bool,
+                   width: Optional[int] = None):
     """The forward kernel -> (o, and with `residual` the row logsumexp
     [B, H, Lq] fp32, the list of the key tiles (`key_tile` keys each) that
     hold a valid key [B, 1 + tiles] (per row their count, then their
     indices) and the contiguous validity, which the backward reads). The
-    caller has checked the inputs."""
+    caller has checked the inputs, and q, k and v are at a card width
+    (padded by the caller); `width` is the caller's head width before the
+    padding, the one its counter names (default: q's)."""
     from .. import _ext
 
     B, Lq, H, D = q.shape
@@ -246,9 +262,9 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool):
               q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
               v.stride(1), float(scale), padded_keys(Lk), int(f32))
     if residual:
-        launch_counts[grad_key("res", q.dtype, D)] += 1
+        launch_counts[grad_key("res", q.dtype, width or D)] += 1
         return o, lse, scratch, valid
-    launch_counts[launch_key(q.dtype, D)] += 1
+    launch_counts[launch_key(q.dtype, width or D)] += 1
     return o
 
 
@@ -278,9 +294,11 @@ def _entry(kind: str, dtype: torch.dtype) -> str:
         "" if dtype == torch.float32 else "_bf16")
 
 
-def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype):
+def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
+               width: Optional[int] = None):
     """The dkv kernel -> (dk, dv) [B, Lk, H, D] in `dtype` (q/k/v's),
-    zeroed first: the kernel writes the listed key tiles alone."""
+    zeroed first: the kernel writes the listed key tiles alone. D is the
+    card width of `sizes`; `width` the caller's, as `launch_forward`."""
     from .. import _ext
 
     B, _, Lk, H, D = sizes[:5]
@@ -289,12 +307,14 @@ def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype):
     dv = torch.zeros_like(dk)
     _ext.call(_entry("bwd_dkv", dtype), *ptrs, dk.data_ptr(), dv.data_ptr(),
               *sizes, float(scale), padded_keys(Lk))
-    launch_counts[grad_key("bwd_dkv", dtype, D)] += 1
+    launch_counts[grad_key("bwd_dkv", dtype, width or D)] += 1
     return dk, dv
 
 
-def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype):
-    """The dq kernel -> dq [B, Lq, H, D] in `dtype`."""
+def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype,
+              width: Optional[int] = None):
+    """The dq kernel -> dq [B, Lq, H, D] in `dtype` (D and `width` as
+    `launch_dkv`'s)."""
     from .. import _ext
 
     B, Lq, Lk, H, D = sizes[:5]
@@ -302,14 +322,15 @@ def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype):
                      device=torch.device("cuda", torch.cuda.current_device()))
     _ext.call(_entry("bwd_dq", dtype), *ptrs, dq.data_ptr(), *sizes,
               float(scale), padded_keys(Lk))
-    launch_counts[grad_key("bwd_dq", dtype, D)] += 1
+    launch_counts[grad_key("bwd_dq", dtype, width or D)] += 1
     return dq
 
 
 class FlashAttention(torch.autograd.Function):
     """K7 under autograd: the kernels on the card (every dtype and head
-    width of the forward), the plain versions on the CPU or with
-    impl="plain"."""
+    width of the forward; q, k, v and dO padded to the card width, the
+    padded o saved, o and the gradients cut back), the plain versions on
+    the CPU or with impl="plain"."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, scale: float, plain: bool):
@@ -317,11 +338,14 @@ class FlashAttention(torch.autograd.Function):
         if plain:
             o = flash_attention_reference(q, k, v, kv_valid, scale)
             ctx.save_for_backward(q, k, v, kv_valid, o)
-        else:
-            o, lse, tiles, valid = launch_forward(q, k, v, kv_valid, scale,
-                                                   residual=True)
-            ctx.save_for_backward(q, k, v, valid, tiles, lse, o)
-        return o
+            return o
+        D = q.shape[-1]
+        q, k, v = (pad_heads(t, card_width(D)) for t in (q, k, v))
+        o, lse, tiles, valid = launch_forward(q, k, v, kv_valid, scale,
+                                               residual=True, width=D)
+        ctx.save_for_backward(q, k, v, valid, tiles, lse, o)
+        ctx.width = D
+        return o if o.shape[-1] == D else o[..., :D].contiguous()
 
     @staticmethod
     def backward(ctx, do):
@@ -331,12 +355,14 @@ class FlashAttention(torch.autograd.Function):
                                                        ctx.scale, o, do)
         else:
             saved = ctx.saved_tensors  # read once (checkpoint's rule)
-            dtype = saved[0].dtype
+            dtype, D = saved[0].dtype, ctx.width
+            do = pad_heads(do, saved[0].shape[-1])
             with torch.cuda.device(saved[0].device):
                 ptrs, sizes, keep = backward_inputs(*saved, do)
-                dk, dv = launch_dkv(ptrs, sizes, ctx.scale, dtype)
-                grads = launch_dq(ptrs, sizes, ctx.scale, dtype), dk, dv
+                dk, dv = launch_dkv(ptrs, sizes, ctx.scale, dtype, D)
+                grads = launch_dq(ptrs, sizes, ctx.scale, dtype, D), dk, dv
             del keep
+            grads = tuple(g[..., :D] for g in grads)
         return (*grads, None, None, None)
 
 
@@ -351,9 +377,12 @@ def flash_attention(q, k, v, kv_valid, scale: float,
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
     if not plain:
-        _check_cuda(q, k, v, kv_valid)
+        width = _check_cuda(q, k, v, kv_valid)
     if grad:
         return FlashAttention.apply(q, k, v, kv_valid, scale, plain)
     if plain:
         return flash_attention_reference(q, k, v, kv_valid, scale)
-    return launch_forward(q, k, v, kv_valid, scale, residual=False)
+    D = q.shape[-1]
+    o = launch_forward(*(pad_heads(t, width) for t in (q, k, v)), kv_valid,
+                       scale, residual=False, width=D)
+    return o if width == D else o[..., :D].contiguous()

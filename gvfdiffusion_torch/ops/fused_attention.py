@@ -10,10 +10,12 @@ Each has two versions:
     product and divides by the row sum of the fp32 P, clamped at 1e-30 in
     K5 so that a row whose keys are all masked gives 0: the rounding points
     of the TPU kernels (`_attn_kernel_dense`, `_temporal_kernel`). K6 and
-    K5 at heads of 32 take the TPU kernels' fixed shift, P = exp2(S * scale
-    * log2(e) - 30); K5 at heads of 64 takes exp(S - the row maximum)
-    instead, as its CUDA kernel keeps a running maximum (DINOv2's un-normed
-    logits may pass the fixed shift's range of about +-90). K5's
+    K5 at heads of 32 or less take the TPU kernels' fixed shift, P =
+    exp2(S * scale * log2(e) - 30); K5 at heads wider than 32 takes exp(S -
+    the row maximum) instead, as its CUDA kernel keeps a running maximum at
+    the card widths 64 and 128 (DINOv2's un-normed logits may pass the
+    fixed shift's range of about +-90). The rule follows the width the card
+    runs a head at (`_widths.card_width`: 32 for heads of 8 to 32). K5's
     `segment_size` masks a score outside the query row's segment to -inf
     after the scale and the bias, as the TPU kernel does. K5's int8 forms
     (`attention_q8_reference`) copy the TPU kernel's int8 body
@@ -34,20 +36,29 @@ K5 serves heads of 64 in bf16 (DINOv2, the TRELLIS flows: self, cross with
 Lq != Lk, and self with a [B, Lk] fp32 `kv_bias` whose -inf entries mask
 keys) and heads of 32 in fp32 or bf16 (the DiT's composed path: spatial
 self and the image and static cross-attentions; heads of 64 in fp32 in the
-DiT's 8-head configuration), and `segment_size` (block-diagonal
-attention over packed segments, Lq == Lk a multiple of it) in either.
-`quant="qk"` (int8 QK) and `quant="qk+av"` (int8 P V as well) run on the
-card in bf16 at heads of 32 or 64, with `kv_bias` and `segment_size`. K6
-serves heads of 32 or 64 in fp32 or bf16. The kernels read q and k/v with
-their own strides, so the views of a qkv or kv projection go in without
-copies.
+DiT's 8-head configuration, 128 in its 4-head one), and `segment_size`
+(block-diagonal attention over packed segments, Lq == Lk a multiple of it)
+in either. `quant="qk"` (int8 QK) and `quant="qk+av"` (int8 P V as well)
+run on the card in bf16, with `kv_bias` and `segment_size`. K6 serves
+fp32 or bf16. Both take every head width their rules admit, a multiple of
+8 up to 128: the kernels run natively at heads of 32, 64 and 128, and a
+head of another width is zero-padded to the next of those
+(`_widths.card_width`, `pad_heads`: the kernel gets the true width's
+scale, and the output keeps the first D columns). The padding is the
+design, not a departure from JAX's function: zero columns change no score,
+row maximum, row sum or int8 scale. At the native widths the kernels read
+q and k/v with their own strides, so the views of a qkv or kv projection
+go in without copies; at a padded width the wrapper copies them into
+contiguous padded buffers.
 
 `launch_counts` counts kernel launches by the form the caller runs and the
-head width: "attention", "attention_cross", "attention_bias",
-"attention_seg", "attention_qk" and "attention_qkav" at heads of 64, the
-same names with "_d32" at heads of 32 (the int8 forms count as their
-quant form whatever their bias or segments), and "temporal_attention";
-the plain version never counts.
+caller's head width (the true one, not the padded one): "attention",
+"attention_cross", "attention_bias", "attention_seg", "attention_qk" and
+"attention_qkav" at heads of 64, the same names with "_d32", "_d16", ...
+at the other widths (the int8 forms count as their quant form whatever
+their bias or segments), and "temporal_attention" at heads of 32 and 64,
+"temporal_attention_d16", ... at the others (`temporal_launch_key`); the
+plain version never counts.
 """
 
 from __future__ import annotations
@@ -55,6 +66,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ._widths import WIDTHS, card_width, pad_heads, width_suffix
 
 # the TPU kernel holds the whole key extent in VMEM: its longest key count
 MAX_LK = 4096
@@ -69,10 +82,17 @@ _BWD_SCORES = 1 << 27
 _SCORE_BYTES = 8 * 1024 * 1024
 QUANT_FORMS = ("", "qk", "qk+av")
 
-launch_counts = {f"attention{form}{width}": 0
-                 for width in ("", "_d32")
+
+def temporal_launch_key(head_dim: int) -> str:
+    """The counter of a K6 launch at the caller's head width (heads of 32
+    and 64 keep the name they had as K6's only widths)."""
+    return "temporal_attention" + (
+        "" if head_dim in (32, 64) else f"_d{head_dim}")
+
+
+launch_counts = {f"attention{form}{width_suffix(w)}": 0 for w in WIDTHS
                  for form in ("", "_cross", "_bias", "_seg", "_qk", "_qkav")}
-launch_counts["temporal_attention"] = 0
+launch_counts.update({temporal_launch_key(w): 0 for w in WIDTHS})
 
 
 def reset_launch_counts() -> None:
@@ -83,10 +103,11 @@ def reset_launch_counts() -> None:
 def launch_key(head_dim: int, cross: bool, bias: bool, seg: bool = False,
                quant: str = "") -> str:
     """The counter of a K5 launch: its form (an int8 form, segments, a key
-    bias, cross or self) as the caller runs it, and its head width."""
+    bias, cross or self) as the caller runs it, and the caller's head
+    width."""
     form = ("_qkav" if quant == "qk+av" else "_qk" if quant else
             "_seg" if seg else "_bias" if bias else "_cross" if cross else "")
-    return f"attention{form}{'_d32' if head_dim == 32 else ''}"
+    return f"attention{form}{width_suffix(head_dim)}"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -140,9 +161,9 @@ def attention_reference(q, k, v, scale: float, compute_dtype=torch.bfloat16,
                         kv_bias: Optional[torch.Tensor] = None,
                         segment_size: int = 0, quant: str = ""):
     """q [B, Lq, H, D]; k, v [B, Lk, H, D]; kv_bias [B, Lk] or None ->
-    [B, Lq, H, D] in q's dtype. Heads of 32 take P = exp2(S * scale *
-    log2(e) - 30 + bias * log2(e)), heads of 64 exp of S minus the row
-    maximum; segment_size > 0 masks the scores outside a row's segment
+    [B, Lq, H, D] in q's dtype. Heads of 32 or less take P = exp2(S *
+    scale * log2(e) - 30 + bias * log2(e)), wider heads exp of S minus the
+    row maximum; segment_size > 0 masks the scores outside a row's segment
     (row // s != col // s) to -inf. quant: see attention_q8_reference."""
     if quant:
         return attention_q8_reference(q, k, v, scale, compute_dtype, kv_bias,
@@ -151,7 +172,7 @@ def attention_reference(q, k, v, scale: float, compute_dtype=torch.bfloat16,
     qh, kh, vh = (a.to(dt).float() for a in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
     mask = _segment_mask(q.shape[1], k.shape[1], segment_size, q.device)
-    if q.shape[-1] == 32:
+    if q.shape[-1] <= 32:
         shift = _SHIFT
         if kv_bias is not None:
             shift = _SHIFT - kv_bias.float()[:, None, None, :] * _LOG2E
@@ -317,10 +338,11 @@ def _plain(impl: Optional[str]) -> bool:
     return impl == "plain"
 
 
-def _check_cuda(q, k, v, kv_bias, compute_dtype) -> None:
+def _check_cuda(q, k, v, kv_bias, compute_dtype) -> int:
     """What K5 takes: CUDA q [B, Lq, H, D] and k/v [B, Lk, H, D], all bf16
-    or all fp32, D = 32 or 64, each with its heads contiguous in a row, k
-    and v on the same strides; kv_bias fp32 [B, Lk]."""
+    or all fp32, D a multiple of 8 up to 128, each with its heads
+    contiguous in a row, k and v on the same strides; kv_bias fp32 [B, Lk].
+    Returns the width the kernel runs at (`card_width(D)`)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA attention kernel computes in bfloat16 only; "
                         f"got compute_dtype={compute_dtype}")
@@ -339,8 +361,7 @@ def _check_cuda(q, k, v, kv_bias, compute_dtype) -> None:
                                             k.shape[3]) != (B, H, D):
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match")
-    if D not in (32, 64):
-        raise ValueError(f"head width must be 32 or 64, got {D}")
+    width = card_width(D)
     if k.stride()[:2] != v.stride()[:2]:
         raise ValueError("k and v must share their batch and row strides")
     if not 1 <= B <= 65535:
@@ -351,6 +372,7 @@ def _check_cuda(q, k, v, kv_bias, compute_dtype) -> None:
         raise TypeError(f"kv_bias must be fp32 CUDA [B, Lk] = {(B, k.shape[1])};"
                         f" got {kv_bias.dtype} {tuple(kv_bias.shape)} on "
                         f"{kv_bias.device}")
+    return width
 
 
 def _check_segments(q, k, segment_size: int) -> None:
@@ -368,12 +390,14 @@ def _attention_forward(q, k, v, kv_bias, scale, compute_dtype, cross,
                                    segment_size, quant)
     from .. import _ext
 
-    _check_cuda(q, k, v, kv_bias, compute_dtype)
+    width = _check_cuda(q, k, v, kv_bias, compute_dtype)
     _check_segments(q, k, segment_size)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
+    # a padded width: contiguous zero-padded copies, the true scale
+    q, k, v = (pad_heads(t, width) for t in (q, k, v))
     bias = None if kv_bias is None else kv_bias.contiguous()
-    o = torch.empty(B, Lq, H, D, device=q.device, dtype=q.dtype)
+    o = torch.empty(B, Lq, H, width, device=q.device, dtype=q.dtype)
     bias_ptr = None if bias is None else bias.data_ptr()
     if quant:
         if q.dtype != torch.bfloat16:
@@ -381,25 +405,25 @@ def _attention_forward(q, k, v, kv_bias, scale, compute_dtype, cross,
                             f"got {q.dtype}")
         blk = lq_block(Lq, _round_up(Lk, 128))
         dev = q.device
-        qi = torch.empty(B, Lq, H * D, device=dev, dtype=torch.int8)
-        ki = torch.empty(B, Lk, H * D, device=dev, dtype=torch.int8)
+        qi = torch.empty(B, Lq, H * width, device=dev, dtype=torch.int8)
+        ki = torch.empty(B, Lk, H * width, device=dev, dtype=torch.int8)
         qs = torch.empty(B, -(-Lq // blk), H, device=dev)
         ks, vs = (torch.empty(B, H, device=dev) for _ in range(2))
         _ext.call("gvf_attention_q8", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), bias_ptr, o.data_ptr(), qi.data_ptr(),
                   ki.data_ptr(), qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                  B, Lq, Lk, H, D, q.stride(0), q.stride(1), k.stride(0),
+                  B, Lq, Lk, H, width, q.stride(0), q.stride(1), k.stride(0),
                   k.stride(1), blk, segment_size, int(quant == "qk+av"),
                   float(scale))
     else:
         _ext.call("gvf_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  bias_ptr, o.data_ptr(), B, Lq, Lk, H, D, q.stride(0),
+                  bias_ptr, o.data_ptr(), B, Lq, Lk, H, width, q.stride(0),
                   q.stride(1), k.stride(0), k.stride(1), float(scale),
                   float(scale * _LOG2E), int(q.dtype == torch.float32),
-                  int(D == 32), segment_size)
+                  int(width == 32), segment_size)
     launch_counts[launch_key(D, cross, bias is not None, segment_size > 0,
                              quant)] += 1
-    return o
+    return o if width == D else o[..., :D].contiguous()
 
 
 class _Attention(torch.autograd.Function):
@@ -444,9 +468,11 @@ def fused_attention(q, k, v, scale: float, compute_dtype=torch.bfloat16, *,
 
 
 def _check_temporal_cuda(q, k, v, compute_dtype) -> None:
-    """What K6 takes: CUDA [B, T, N, H, D], D = 32 or 64, all bf16 or all
-    fp32, heads contiguous in a row, the (b, t, n) rows evenly strided, each
-    base and row stride a multiple of 16 bytes (the kernel's cp.async)."""
+    """What K6 takes: CUDA [B, T, N, H, D], D a multiple of 8 up to 128,
+    all bf16 or all fp32, heads contiguous in a row, the (b, t, n) rows
+    evenly strided, each base and row stride a multiple of 16 bytes (the
+    kernel's cp.async). Returns the width the kernel runs at
+    (`card_width(D)`)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA temporal attention kernel computes in "
                         f"bfloat16 only; got compute_dtype={compute_dtype}")
@@ -470,8 +496,7 @@ def _check_temporal_cuda(q, k, v, compute_dtype) -> None:
             raise ValueError("q/k/v must start at a 16-byte boundary with "
                              "rows a multiple of 16 bytes apart; got offset "
                              f"{t.data_ptr() % 16}, row stride {rs}")
-    if q.shape[-1] not in (32, 64):
-        raise ValueError(f"head width must be 32 or 64, got {q.shape[-1]}")
+    return card_width(q.shape[-1])
 
 
 def _temporal_forward(q, k, v, scale, compute_dtype):
@@ -479,15 +504,17 @@ def _temporal_forward(q, k, v, scale, compute_dtype):
         return temporal_attention_reference(q, k, v, scale, compute_dtype)
     from .. import _ext
 
-    _check_temporal_cuda(q, k, v, compute_dtype)
+    width = _check_temporal_cuda(q, k, v, compute_dtype)
     B, T, N, H, D = q.shape
-    o = torch.empty(B, T, N, H, D, device=q.device, dtype=q.dtype)
+    # a padded width: contiguous zero-padded copies, the true scale
+    q, k, v = (pad_heads(t, width) for t in (q, k, v))
+    o = torch.empty(B, T, N, H, width, device=q.device, dtype=q.dtype)
     _ext.call("gvf_temporal_attention", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), o.data_ptr(), B, T, N, H, D, q.stride(2),
+              v.data_ptr(), o.data_ptr(), B, T, N, H, width, q.stride(2),
               k.stride(2), v.stride(2), float(scale * _LOG2E),
               int(q.dtype == torch.float32))
-    launch_counts["temporal_attention"] += 1
-    return o
+    launch_counts[temporal_launch_key(D)] += 1
+    return o if width == D else o[..., :D].contiguous()
 
 
 class _TemporalAttention(torch.autograd.Function):

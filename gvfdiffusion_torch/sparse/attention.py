@@ -53,7 +53,11 @@ def _masked_attention(q, k, v, mask):
 def full_sparse_attention(q, k, v, q_valid, kv_valid, dtype: torch.dtype,
                           impl: Optional[str] = None):
     """q [B, Lq, H, D], k/v [B, Lk, H, D]; per-sample full attention over
-    the valid keys; [B, Lq, H, D] in `dtype`."""
+    the valid keys; [B, Lq, H, D] in `dtype`. On the card K5 and K7 run
+    heads of 32, 64 and 128 natively and zero-pad a head of any other
+    multiple of 8 up to 128 to the next of those (`ops/_widths.py`: the
+    same function). K7's branch also takes D > 128, as JAX's stock kernel
+    does, where the card has no kernel yet: it raises there."""
     lq, lk = q.shape[1], k.shape[1]
     if fa.supports(q.shape, k.shape) and lq * lk >= FUSED_SCORE_ELEMENTS:
         bias = torch.where(kv_valid, 0.0, float("-inf")).float()

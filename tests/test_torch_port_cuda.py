@@ -271,8 +271,9 @@ def test_attention_launch_counts_and_checks(dev):
         "attention_d32": 1}
     with pytest.raises(TypeError):  # q fp32, k/v bf16
         fa.fused_attention(q.float(), k, v, 0.125)
-    with pytest.raises(ValueError):  # heads of 16
-        fa.fused_attention(*(a[..., :16] for a in (q, k, v)), 0.125)
+    with pytest.raises(ValueError):  # heads of 12: no rule admits them
+        fa.fused_attention(*(a[..., :12].contiguous() for a in (q, k, v)),
+                           0.125)
     with pytest.raises(ValueError):  # k's batch is not q's
         fa.fused_attention(q[:1], k, v, 0.125)
     with pytest.raises(TypeError):  # a bf16 bias
@@ -391,8 +392,12 @@ def test_attention_outside_the_kernels_raises(dev):
     fl.reset_launch_counts()
     full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)
     assert fl.launch_counts["flash_attention"] == 1
-    with pytest.raises(ValueError, match="heads of"):  # K7: 32, 64, 128
-        full_sparse_attention(*(a[..., :16].contiguous() for a in (q, k, v)),
+    # K7 runs heads of 16 padded to 32; above 128 it has no kernel yet
+    full_sparse_attention(*(a[..., :16].contiguous() for a in (q, k, v)),
+                          valid[:, :4096], valid, torch.bfloat16)
+    assert fl.launch_counts["flash_attention_d16"] == 1
+    with pytest.raises(ValueError, match="heads of"):
+        full_sparse_attention(*(torch.cat([a] * 4, -1) for a in (q, k, v)),
                               valid[:, :4096], valid, torch.bfloat16)
     from gvfdiffusion_torch.nn.attention import MultiHeadAttention
 
@@ -645,9 +650,9 @@ def test_flash_attention_counts_and_checks(dev):
         "flash_attention_d32": 1}
     with pytest.raises(TypeError):  # fp32 q with bf16 k/v: never cast
         fl.flash_attention(q.float(), k, v, valid, 0.125)
-    with pytest.raises(ValueError, match="heads of"):  # heads of 16
-        fl.flash_attention(*(a[..., :16].contiguous() for a in (q, k, v)),
-                           valid, 0.125)
+    with pytest.raises(ValueError, match="heads of"):  # heads of 136
+        fl.flash_attention(*(torch.cat([a, a, a[..., :8]], -1)
+                             for a in (q, k, v)), valid, 0.125)
     with pytest.raises(TypeError):  # a float validity
         fl.flash_attention(q, k, v, valid.float(), 0.125)
     fl.reset_launch_counts()  # under grad: the forward with its residual
@@ -883,8 +888,8 @@ def test_static_vae_full_attention_kernels_under_remat(dev, monkeypatch):
 def test_flash_attention_backward_forms_raise(dev):
     """Under grad every form of the forward (bf16 and fp32, heads of 32, 64
     and 128) runs its residual forward, dkv and dq kernels; what the
-    kernels do not take (heads of 16, mixed dtypes) raises and never falls
-    back to the plain version."""
+    kernels do not take (heads of 136, past 128; mixed dtypes) raises and
+    never falls back to the plain version."""
     from gvfdiffusion_torch.ops import flash_attention as fl
 
     valid = torch.ones(1, 70, dtype=torch.bool, device=dev)
@@ -899,7 +904,7 @@ def test_flash_attention_backward_forms_raise(dev):
             assert {n: c for n, c in fl.launch_counts.items() if c} == {
                 fl.grad_key(kind, dt, D): 1 for kind in fl.GRAD_KINDS}
             assert q.grad.dtype == dt and bool(torch.isfinite(q.grad).all())
-    q = torch.randn(1, 70, 2, 16, device=dev, requires_grad=True)
+    q = torch.randn(1, 70, 2, 136, device=dev, requires_grad=True)
     with pytest.raises(ValueError, match="heads of"):
         fl.flash_attention(q, q.detach(), q.detach(), valid, 0.25)
     q = torch.randn(1, 70, 2, 64, device=dev, requires_grad=True)

@@ -598,11 +598,17 @@ def test_k5_launch_counter_keys_by_form_and_head_width(monkeypatch):
     assert pfa.launch_key(64, False, True, quant="qk") == "attention_qk"
     assert pfa.launch_key(32, False, False, True, "qk+av") == \
         "attention_qkav_d32"
+    assert pfa.launch_key(16, True, False) == "attention_cross_d16"
+    assert pfa.launch_key(128, False, False, quant="qk") == "attention_qk_d128"
+    assert pfa.temporal_launch_key(32) == pfa.temporal_launch_key(64) == \
+        "temporal_attention"
+    assert pfa.temporal_launch_key(128) == "temporal_attention_d128"
+    widths = [""] + [f"_d{w}" for w in range(8, 129, 8) if w != 64]
     assert set(pfa.launch_counts) == {
-        "attention", "attention_cross", "attention_bias", "attention_d32",
-        "attention_cross_d32", "attention_bias_d32", "attention_seg",
-        "attention_seg_d32", "attention_qk", "attention_qk_d32",
-        "attention_qkav", "attention_qkav_d32", "temporal_attention"}
+        f"attention{form}{w}" for w in widths for form in (
+            "", "_cross", "_bias", "_seg", "_qk", "_qkav")} | {
+        "temporal_attention"} | {f"temporal_attention_d{w}"
+                                 for w in range(8, 129, 8) if w not in (32, 64)}
     seen = []
     real = p_attention.fused_attention
 
