@@ -11,6 +11,9 @@
     python3 chip_smoke.py --encode-latent  # build + [encode-latent] only
     python3 chip_smoke.py --forms    # build + [forms] only
     python3 chip_smoke.py --widths   # build + [widths] only
+    python3 chip_smoke.py --sublayer-widths  # build + [sublayer-widths]
+                                     # only (the models and the frames'
+                                     # tokens built for it)
     python3 chip_smoke.py --pipeline  # build + the video main path and
                                      # its int8 phases ([main] .. [selfq8])
     python3 chip_smoke.py --split    # build + K1's-K7's device time by
@@ -133,6 +136,27 @@ Phases, each printed on its own lines:
      that reach new kernel forms, 4 for the others), timed, its launches
      counted and checked, its stages one by one, and the int8 run against
      the float run;
+  4b. [sublayer-widths]: K1, K2 and K3 at the head widths their rules
+     admit beyond 32 and 64 (a head of 1-16 lanes runs at 32, zero-padded
+     in its projections' weights and K3's cache; 128 natively): every form
+     at heads of 8, 16 and 128 (K1 float with and without the q/k RMS
+     norms, int8 QK, seg 16 float and int8 QK; K2 float with and without
+     the norms, int8 QK; K3's two contexts without and with the q norm, on
+     the int8 cache without and with it, at the DiT's [1, 32, 512, 512]
+     with 512 / D heads; K3's single context in bf16 and fp32, with the q
+     norm, and on an int8 cache, at [1, 4096, 1024] x 1374 with 1024 / D
+     heads) and the float K1, K2 and K3 at heads of 1, 2 and 4 ([8, 512,
+     128], [1, 32, 512, 128]), each against its plain version (fp32 also
+     against fp64), timed beside it and the library composition with its
+     bound at the true width, driven once for its launch count; then
+     VideoTo4DPipeline.run with the 12 x 512 bf16 DiT at 32 heads (of 16)
+     and at 4 (of 128), 32 steps under the dual CFG (2.0/5.0) on the float
+     cache, the int8 cache and the int8 cache with int8 QK, each with
+     render_4d, 384 launches of each sublayer under its width's counter,
+     the int8 runs against the float run; the DiT under autograd on a
+     hoisted cache at both widths against impl="plain"; K3's single
+     context at heads of 16 through one ModulatedSparseCrossBlock (C =
+     1024, 64 heads, 4096 slots) in bf16 and fp32, against impl="plain";
   5. the TRELLIS image -> 3D front end at full width (DINOv2, the 24x1024
      sparse-structure flow, the occupancy decoder, the 24x1024 SLat flow
      with its torso compacted to 4096 slots, the 12x768 Gaussian decoder;
@@ -211,17 +235,20 @@ Phases, each printed on its own lines:
      12 heads of 64, 32768 voxel slots, 8 Gaussians a voxel; motion VAE
      depth 12, dim 768, 8192 points, 512 latents; 512^2 binned renders;
      LPIPS on seeded weights) over a seeded dataset in VAEDataset's layout
-     (two objects, 2 frames x 2 views), static_vae.remat_blocks 12 and 2
-     frames a sample: in `full` attention 2 phase-A and 1 phase-B steps
-     (K7's residual forward, dkv and dq launches read from its log: 48,
-     24 and 24 a step), in the shipped `swin` 1 + 1 (none); step times,
-     peak memory and every loss term per step; then one phase-A step at 2
-     + 2 blocks on random weights, kernels against impl="plain" (loss and
-     gradients); then main_vae in `full` with --static_vae.num_heads=24
-     and =6 (fp32 K7 at heads of 32 and 128), 2 phase-A steps each, and
-     =8 (heads of 96, padded to 128), 1 step, the launches a step checked
-     against the 12-head run's 48 / 24 / 24 (the kernels line's counts of
-     those forms); then the static VAE built in
+     (two objects, 2 frames x 2 views), every block rematerialized and 2
+     frames a sample: in the shipped `swin` 1 phase-A and 1 phase-B step
+     (no K7 launch), in `full` attention the same at 6 + 6 blocks (K7's
+     residual forward, dkv and dq launches read from its log: 24, 12 and
+     12 a step); step times, peak memory and every loss term per step;
+     then one phase-A
+     step at 2 + 2 blocks on random weights, kernels against
+     impl="plain" (loss and gradients); then main_vae in `full` with
+     --static_vae.num_heads=24 and =6 (fp32 K7 at heads of 32 and 128)
+     and =8 (heads of 96, padded to 128), at 2 + 2 blocks, 1 step each,
+     the three at once (their step times, on a shared card, not printed),
+     the launches a step (8 / 4 / 4) checked against the 12-head run's 4
+     / 2 / 2 per block (the kernels line's counts of those forms); then
+     the static VAE built in
      bf16 (SparseTransformerVAE(dtype=bfloat16), `full`, 768 channels,
      32768 slots) under autograd, one step at 12 + 12 blocks with the
      kernels (K7's bf16 backward at heads of 64, 48 / 24 / 24 launches),
@@ -589,6 +616,68 @@ def _width_kernels():
 WIDTH_KERNELS = _width_kernels()
 WIDTH_KEYS = tuple(k for *_, k in WIDTH_KERNELS)  # checked in [widths]
 KERNELS += WIDTH_KERNELS
+# [sublayer-widths]: K1, K2 and K3 at the head widths their rules admit
+# beyond 32 and 64 (ops/_widths.py: 1, 2, 4, 8, 16 and 128; a head below
+# 32 runs zero-padded to 32 in the projections' weights). Every form at
+# heads of 8, 16 and 128 at full width (the DiT's [1, 32, 512, 512] with
+# 512 / D heads, K3's single context at the compacted torso's [1, 4096,
+# 1024] with 1024 / D heads), the float K1, K2 and K3 at heads of 1, 2
+# and 4 at one shape each (C = 128, 128 / D heads). Each form's key
+# "sw_<form>_d<D>"; K3's single context at 128 in bf16 and fp32 without
+# the q norm has its entries already (cross_single_d128,
+# cross_single_fp32_d128).
+SW_WIDTHS = (8, 16, 128)
+SW_NARROW = (1, 2, 4)
+SW_NARROW_FORMS = ("self", "temporal", "cross")
+SW_DIT_HEADS = (32, 4)      # VideoTo4DPipeline.run's DiT: heads of 16, 128
+SW_NARROW_C = 128           # the narrow widths' channels
+SW_NARROW_FRAMES = 8        # and frames (K1, K3: [8, 512, 128])
+SW_FORMS = {
+    # form: (TPU kernel body, the kernels-line name's form, its counter)
+    "self": (170, "", "self"),
+    "self_norms_off": (170, "rms=False, ", "self"),
+    "self_q8": (170, "int8 QK, ", "self_q8"),
+    "self_seg": (170, "seg 16, on K2's chain, ", "self_seg"),
+    "self_seg_q8": (170, "seg 16, int8 QK, on K2's chain, ", "self_seg_q8"),
+    "temporal": (373, "", "temporal"),
+    "temporal_norms_off": (373, "rms=False, ", "temporal"),
+    "temporal_q8": (373, "int8 QK, ", "temporal_q8"),
+    "cross": (589, "", "cross"),
+    "cross_rms": (589, "q RMS norm, ", "cross"),
+    "cross_q8": (589, "int8 KV, ", "cross_q8"),
+    "cross_q8_rms": (589, "int8 KV, q RMS norm, ", "cross_q8"),
+    "cross_single": (589, "single context, bf16, ", None),
+    "cross_single_rms": (589, "single context, q RMS norm, bf16, ", None),
+    "cross_single_fp32": (589, "single context, fp32, ", None),
+    "cross_single_rms_fp32": (589, "single context, q RMS norm, fp32, ",
+                              None),
+    "cross_single_q8": (589, "single context, int8 KV, q RMS norm, ", None),
+}
+SW_FUNCS = {170: "fused_self_sublayer", 373: "fused_temporal_sublayer",
+            589: "fused_cross_sublayer"}
+
+
+def _sw_forms(d: int):
+    if d in SW_NARROW:
+        return SW_NARROW_FORMS
+    return tuple(f for f in SW_FORMS if not (
+        d == 128 and f in ("cross_single", "cross_single_fp32")))
+
+
+def _sublayer_width_kernels():
+    out = []
+    for d in SW_NARROW + SW_WIDTHS:
+        for form in _sw_forms(d):
+            line, what, _ = SW_FORMS[form]
+            out.append((f"{SW_FUNCS[line]}[{what}heads of {d}]",
+                        f"gvfdiffusion_tpu/ops/fused_sublayer.py:{line}",
+                        "gvfdiffusion_torch/csrc/fused_sublayer.cu",
+                        f"sw_{form}_d{d}"))
+    return out
+
+
+SW_KERNELS = _sublayer_width_kernels()
+KERNELS += SW_KERNELS
 QK8 = {"self_q8": "self", "temporal_q8": "temporal"}  # int8 QK -> float form
 # K7 output rel L2 vs plain, both layouts (readings 2.4e-3, 2.4e-3; at
 # heads of 32 and 128, prefix, 2.4e-3, 2.4e-3); in fp32, where the kernel
@@ -895,11 +984,13 @@ def _bound_mixed(ops, moved: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sublayer_cases(dev, g, heads=H, rms=True, rms_cross=False, mlp=M):
+def sublayer_cases(dev, g, heads=H, rms=True, rms_cross=False, mlp=M, c=C,
+                   rows=B * T):
     """Inputs at the DiT's full shapes: B*T = 32 frames of N = 512 tokens,
     C = 512, `heads` heads (16 of 32 as shipped), MLP `mlp` (2048), image
     KV 1374, static KV 512; `rms` the self sublayers' q/k norms, `rms_cross`
-    the cross sublayer's q norm (its gamma joins the parameters)."""
+    the cross sublayer's q norm (its gamma joins the parameters). `c` and
+    `rows` change the channels and K1's and K3's frames (K2 keeps B x T)."""
     import torch
 
     bf = torch.bfloat16
@@ -910,25 +1001,25 @@ def sublayer_cases(dev, g, heads=H, rms=True, rms_cross=False, mlp=M):
     def w(i, o):
         return rnd(i, o, scale=i ** -0.5)
 
-    def mod(rows):
-        return rnd(rows, C, scale=0.3)
+    def mod(n):
+        return rnd(n, c, scale=0.3)
 
     def gam():
-        return (1.0 + 0.1 * torch.randn(C, generator=g, device=dev)).to(bf) \
-            * (C // heads) ** 0.5
+        return (1.0 + 0.1 * torch.randn(c, generator=g, device=dev)).to(bf) \
+            * (c // heads) ** 0.5
 
-    self_w = lambda: (w(C, 3 * C), rnd(3 * C, scale=0.1), gam(), gam(),
-                      w(C, C), rnd(C, scale=0.1))
-    x3 = rnd(B * T, N, C)
-    x4 = rnd(B, T, N, C)
+    self_w = lambda: (w(c, 3 * c), rnd(3 * c, scale=0.1), gam(), gam(),
+                      w(c, c), rnd(c, scale=0.1))
+    x3 = rnd(rows, N, c)
+    x4 = rnd(B, T, N, c)
 
     def cross_p():
         qg = (gam(),) if rms_cross else ()
-        return ((1.0 + 0.1 * rnd(C)).to(bf), rnd(C, scale=0.1), w(C, C),
-                rnd(C, scale=0.1), *qg, w(C, C), rnd(C, scale=0.1))
+        return ((1.0 + 0.1 * rnd(c)).to(bf), rnd(c, scale=0.1), w(c, c),
+                rnd(c, scale=0.1), *qg, w(c, c), rnd(c, scale=0.1))
 
-    kv_img = (rnd(B * T, L_IMG, C), rnd(B * T, L_IMG, C))
-    kv_st = (rnd(B * T, N, C), rnd(B * T, N, C))
+    kv_img = (rnd(rows, L_IMG, c), rnd(rows, L_IMG, c))
+    kv_st = (rnd(rows, N, c), rnd(rows, N, c))
     # the SLat torso: fp32 residual [1, 4096, 1024], 16 heads of 64, k/v the
     # halves of the [1, 1374, 2048] projection of the image tokens
     Ct = 1024
@@ -941,15 +1032,16 @@ def sublayer_cases(dev, g, heads=H, rms=True, rms_cross=False, mlp=M):
         "cross_single": (xt, dict(args=(xt, pt, (kvt[..., :Ct], kvt[..., Ct:])),
                                   kw=dict(num_heads=16))),
         "self": (x3, dict(args=(x3, mod(B), mod(B), mod(B), *self_w()),
-                          kw=dict(num_heads=heads, rms=rms, mod_repeat=T))),
+                          kw=dict(num_heads=heads, rms=rms,
+                                  mod_repeat=rows // B))),
         "temporal": (x4, dict(args=(x4, mod(B), mod(B), mod(B), *self_w()),
                               kw=dict(num_heads=heads, rms=rms))),
         "cross": (x3, dict(args=(x3, cross_p(), kv_img, cross_p(), kv_st),
                            kw=dict(num_heads=heads, rms=rms_cross))),
-        "mlp": (x3, dict(args=(x3, mod(B), mod(B), mod(B), w(C, mlp),
-                               rnd(mlp, scale=0.1), w(mlp, C),
-                               rnd(C, scale=0.1)),
-                         kw=dict(mod_repeat=T))),
+        "mlp": (x3, dict(args=(x3, mod(B), mod(B), mod(B), w(c, mlp),
+                               rnd(mlp, scale=0.1), w(mlp, c),
+                               rnd(c, scale=0.1)),
+                         kw=dict(mod_repeat=rows // B))),
     }
 
 
@@ -1000,7 +1092,7 @@ def library_self(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads,
         q, k = _rms(q, qg), _rms(k, kg)
     o = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), qkv[:, :, 2].transpose(1, 2))
-    out = o.transpose(1, 2).reshape(Bx, L, C) @ wo + bo
+    out = o.transpose(1, 2).reshape(Bx, L, -1) @ wo + bo
     g = gate.repeat_interleave(mod_repeat, 0)[:, None]
     return (x.float() + out.float() * g.float()).bfloat16()
 
@@ -1017,7 +1109,7 @@ def library_temporal(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, num_heads,
         q, k = _rms(q, qg), _rms(k, kg)
     o = F.scaled_dot_product_attention(  # [B, N, H, T, D]
         *(a.permute(0, 2, 3, 1, 4) for a in (q, k, v)))
-    out = o.permute(0, 3, 1, 2, 4).reshape(Bx, Tx, Nx, C) @ wo + bo
+    out = o.permute(0, 3, 1, 2, 4).reshape(Bx, Tx, Nx, -1) @ wo + bo
     return (x.float() + out.float() * gate.float()[:, None, None]).bfloat16()
 
 
@@ -1028,14 +1120,16 @@ def library_cross(x, p1, kv1, p2, kv2, num_heads, rms=False):
 
     def one(xf, p, kv):
         ns, nb, wq, bq, *qg, wo, bo = p
-        h = F.layer_norm(xf, (C,), ns.float(), nb.float(), eps=1e-6)
+        h = F.layer_norm(xf, (x.shape[-1],), ns.float(), nb.float(),
+                         eps=1e-6)
         q = (h.bfloat16() @ wq + bq).view(Bx, L, num_heads, -1)
         if rms:
             q = _rms(q, qg[0])
         k, v = (a.view(Bx, a.shape[1], num_heads, -1).transpose(1, 2)
                 for a in kv)
         o = F.scaled_dot_product_attention(q.transpose(1, 2), k, v)
-        return xf + (o.transpose(1, 2).reshape(Bx, L, C) @ wo + bo).float()
+        return xf + (o.transpose(1, 2).reshape(Bx, L, -1) @ wo
+                     + bo).float()
 
     return one(one(x.float(), p1, kv1), p2, kv2).bfloat16()
 
@@ -1388,17 +1482,9 @@ def phase_cross_single(dev, name, replaces, source, key):
     y_bound, upd_bound = CROSS_F32_BOUNDS if dt == torch.float32 else \
         BOUNDS["cross_single"]
     if dt == torch.float32:
-        import torch.nn.functional as F
-
-        x64, (ns, nb, wq, bq, wo, bo) = (x[:, :F64_ROWS].double(),
-                                         (a.double() for a in p))
-        q64 = F.layer_norm(x64, (Cx,), ns, nb, eps=1e-6) @ wq + bq
-        k64, v64 = (a.double().view(1, L_IMG, heads, -1)
-                    for a in (kvp[..., :Cx], kvp[..., Cx:]))
-        s64 = torch.einsum("bqhd,bkhd->bhqk", q64.view(1, F64_ROWS, heads, -1),
-                           k64) * (Cx // heads) ** -0.5
-        o64 = torch.einsum("bhqk,bkhd->bqhd", s64.softmax(-1), v64)
-        u64 = o64.reshape(1, F64_ROWS, Cx) @ wo + bo
+        x64 = x[:, :F64_ROWS].double()
+        u64 = single_update_f64(x, p[:4] + (None,) + p[4:], kvp, heads,
+                                False)
         log(f"[kernel] {name}: update against fp64 on the first {F64_ROWS} "
             f"rows: kernel rel_l2 "
             f"{rel_l2_64(y[:, :F64_ROWS].double() - x64, u64):.3e}, plain "
@@ -2011,9 +2097,15 @@ VAE_FRAMES, VAE_VIEWS = 2, 2
 # L2 of the loss and of the gradients
 VAE_GRAD_BOUNDS = {"loss": 1e-5, "grads": 1e-4}
 # main_vae in `full` attention at the static VAE's other head widths
-# (--static_vae.num_heads: 24 heads of 32, 6 of 128; fp32 K7), 2 phase-A
-# steps each
+# (--static_vae.num_heads: 24 heads of 32, 6 of 128; fp32 K7), 1 phase-A
+# step each
 VAE_HEADS = (24, 6)
+# the encoder's and decoder's blocks of the main_vae runs at those heads
+# and at WIDTH_VAE_HEADS (the shipped 12 + 12 run in `swin`)
+VAE_HEAD_BLOCKS = 2
+# ... and of the run in `full` attention at 12 heads, all rematerialized
+# (the smoke's time limit; 4, 2 and 2 K7 launches a block)
+VAE_FULL_BLOCKS = 6
 # the static VAE in bf16 under autograd (dtype=bfloat16, `full`): one step
 # at 2 + 2 blocks, kernels vs impl="plain", rel L2 of the loss and of the
 # gradients (bf16 forward and backward on both sides, rounded at other
@@ -2498,19 +2590,38 @@ def _vae_steps(text):
     return out
 
 
-def run_main_vae(args, work: str, card: str):
-    """`python -m gvfdiffusion_torch.cli.main_vae args` in a process of its
-    own (its device memory is freed when it ends) -> (rc, log, wall ms)."""
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "gvfdiffusion_torch.cli.main_vae",
-                        *args], cwd=REPO, capture_output=True, text=True)
+def start_main_vae(args, work: str, tag: str):
+    """`python -m gvfdiffusion_torch.cli.main_vae args` started in a process
+    of its own (its device memory is freed when it ends), its stdout and
+    stderr into files of `work` named by `tag`; finish_main_vae waits."""
+    outs = [open(os.path.join(work, f"main_vae_{tag}.{k}"), "w")
+            for k in ("out", "err")]
+    p = subprocess.Popen([sys.executable, "-m",
+                          "gvfdiffusion_torch.cli.main_vae", *args],
+                         cwd=REPO, stdout=outs[0], stderr=outs[1], text=True)
+    return p, outs, time.perf_counter()
+
+
+def finish_main_vae(started):
+    """Wait for a start_main_vae process -> (rc, its stderr, wall ms)."""
+    p, outs, t0 = started
+    rc = p.wait()
     wall = (time.perf_counter() - t0) * 1e3
-    with open(os.path.join(work, "main_vae.log"), "a") as f:
-        f.write(p.stdout + p.stderr)
-    if p.returncode != 0:
-        log(p.stdout[-4000:] + p.stderr[-4000:])
+    text = []
+    for f in outs:
+        f.close()
+        with open(f.name) as r:
+            text.append(r.read())
+    if rc != 0:
+        log(text[0][-4000:] + text[1][-4000:])
     # the logger's messages, each step's line among them, are on stderr
-    return p.returncode, p.stderr, wall
+    return rc, text[1], wall
+
+
+def run_main_vae(args, work: str, card: str):
+    """main_vae in a process of its own, waited for -> (rc, log, wall
+    ms)."""
+    return finish_main_vae(start_main_vae(args, work, "run"))
 
 
 def phase_vae_train(dev, card):
@@ -2519,16 +2630,20 @@ def phase_vae_train(dev, card):
     (static VAE 768 channels, 12 + 12 blocks, 12 heads of 64, 32768 voxel
     slots, 112 channels; motion VAE depth 12, dim 768, 8192 points, 512
     latents; 512^2 binned renders, 256 per tile; LPIPS on) over a seeded
-    dataset in VAEDataset's layout, with `static_vae.remat_blocks=12` and
-    2 frames a sample (train.sample_timesteps): in `full` attention, 2
-    phase-A and 1 phase-B steps (K7's residual forward, dkv and dq
-    launches counted from this run's log), and in the shipped `swin`, 1 +
-    1 (no K7 launch). Then one phase-A step at 2 + 2 blocks (full
-    attention, random weights) with the kernels and with impl="plain":
-    loss and gradients. Then main_vae in `full` attention with
-    --static_vae.num_heads at 24 and 6 (fp32 K7 at heads of 32 and 128), 2
-    phase-A steps each, and at 8 (heads of 96, padded to 128), 1 step, its
-    launches a step checked against the heads-of-64 run's; and the static
+    dataset in VAEDataset's layout, every block rematerialized and 2
+    frames a sample (train.sample_timesteps): in the shipped `swin`, 1
+    phase-A and 1 phase-B step (no K7 launch), and in `full` attention at
+    VAE_FULL_BLOCKS + VAE_FULL_BLOCKS blocks, the same (K7's residual
+    forward, dkv and dq launches counted from this run's log). Then one
+    phase-A step at 2 + 2 blocks
+    (full attention, random weights) with the kernels and with
+    impl="plain": loss and gradients. Then main_vae in `full` attention
+    with --static_vae.num_heads at 24 and 6 (fp32 K7 at heads of 32 and
+    128) and at 8 (heads of 96, padded to 128), at VAE_HEAD_BLOCKS +
+    VAE_HEAD_BLOCKS blocks, 1 phase-A step each, the three processes at
+    once (their step times, taken on a shared card, not printed), its
+    launches a step checked against the heads-of-64 run's per block; and
+    the static
     VAE built in bf16 (SparseTransformerVAE(dtype=
     bfloat16), `full`, 768 channels) under autograd: one step at 12 + 12
     blocks with the kernels (K7's bf16 backward, launches counted), then at
@@ -2563,10 +2678,17 @@ def phase_vae_train(dev, card):
                   f"--train.sample_timesteps={VAE_FRAMES}",
                   "--train.log_interval=1", "--train.save_interval=1000000"]
         runs = {}
-        # `full`'s phase B cut from 2 steps to 1 (PR 22: [widths]'s time)
-        for mode, a, b in (("full", 2, 1), ("swin", 1, 1)):
+        # `full` at VAE_FULL_BLOCKS + VAE_FULL_BLOCKS blocks and both at
+        # 1 + 1 steps, so that the whole smoke keeps to its time limit;
+        # every step launches the same
+        nf = VAE_FULL_BLOCKS
+        depth = {"full": [a for a in common if "remat_blocks" not in a] + [
+            f"--static_vae.num_blocks={nf}",
+            f"--static_vae.remat_blocks={nf}"], "swin": common}
+        for mode, a, b in (("full", 1, 1), ("swin", 1, 1)):
+            blocks = nf if mode == "full" else 12
             rc, text, wall = run_main_vae(
-                common + [f"--exp_dir={os.path.join(work, mode)}",
+                depth[mode] + [f"--exp_dir={os.path.join(work, mode)}",
                           f"--static_vae.attn_mode={mode}",
                           f"--train.static_vae_steps={a}",
                           f"--train.total_steps={a + b}"], work, card)
@@ -2578,7 +2700,8 @@ def phase_vae_train(dev, card):
                      for ph in "AB" if per[ph]}
             losses = [s[2]["loss"] for s in steps]
             launches = [s[3] for s in steps]
-            log(f"[vae-train] main_vae {mode} (remat_blocks 12, batch 2 x "
+            log(f"[vae-train] main_vae {mode} ({blocks} + {blocks} blocks, "
+                f"remat_blocks {blocks}, batch 2 x "
                 f"{VAE_FRAMES * VAE_VIEWS} views of 512^2, {voxels} voxels "
                 f"of 32768 at most; data written in {write_ms:.0f} ms): rc "
                 f"{rc}, {wall:.1f} ms whole; step times (s) phase A "
@@ -2587,9 +2710,10 @@ def phase_vae_train(dev, card):
             for s in steps:
                 log(f"[vae-train]   step {s[0]} phase {s[1]}: "
                     + ", ".join(f"{k} {v:.6g}" for k, v in s[2].items()))
-            want = {"flash_attention_fp32_res": 48,
-                    "flash_attention_bwd_dkv": 24,
-                    "flash_attention_bwd_dq": 24} if mode == "full" else {}
+            want = {"flash_attention_fp32_res": 4 * nf,
+                    "flash_attention_bwd_dkv": 2 * nf,
+                    "flash_attention_bwd_dq": 2 * nf} if mode == "full" \
+                else {}
             done = re.search(r"\[main_vae\] done; launches (\{.*\})", text)
             total = json.loads(done.group(1)) if done else None
             if rc != 0 or len(steps) != a + b or any(
@@ -2605,33 +2729,38 @@ def phase_vae_train(dev, card):
 
         # `full` at 24 heads of 32 and 6 of 128: fp32 K7's other forms,
         # and at 8 heads of 96 ([widths]: K7 padded to 128), the launches a
-        # step as at 12 heads (48 residual forwards, 24 dkv, 24 dq with
-        # remat_blocks 12)
-        for heads, n_steps in [(h, 2) for h in VAE_HEADS] + [
-                (WIDTH_VAE_HEADS, 1)]:
+        # block as at 12 heads (4 residual forwards, 2 dkv, 2 dq, every
+        # block rematerialized), at VAE_HEAD_BLOCKS + VAE_HEAD_BLOCKS
+        # blocks (the smoke's time limit)
+        nb = VAE_HEAD_BLOCKS
+        shallow = [a for a in common if "remat_blocks" not in a] + [
+            f"--static_vae.num_blocks={nb}", f"--static_vae.remat_blocks={nb}"]
+        # the three runs at once, each in its own process: they share the
+        # card and the host, so their step times are not those of a run
+        # alone and are not printed (each peak is its own process's)
+        n_steps = 1
+        started = {heads: start_main_vae(
+            shallow + [f"--exp_dir={os.path.join(work, f'h{heads}')}",
+                       "--static_vae.attn_mode=full",
+                       f"--static_vae.num_heads={heads}",
+                       f"--train.static_vae_steps={n_steps}",
+                       f"--train.total_steps={n_steps}"], work, f"h{heads}")
+            for heads in VAE_HEADS + (WIDTH_VAE_HEADS,)}
+        for heads, run in started.items():
             keys = vae_form_keys("float32", VAE_C // heads)
-            rc, text, wall = run_main_vae(
-                common + [f"--exp_dir={os.path.join(work, f'h{heads}')}",
-                          "--static_vae.attn_mode=full",
-                          f"--static_vae.num_heads={heads}",
-                          f"--train.static_vae_steps={n_steps}",
-                          f"--train.total_steps={n_steps}"], work, card)
+            rc, text, wall = finish_main_vae(run)
             steps = _vae_steps(text)
-            times = [s_[2]["step_time"] for s_ in steps]
             peak = max((s_[2]["peak_gib"] for s_ in steps), default=None)
             losses = [s_[2]["loss"] for s_ in steps]
             launches = [s_[3] for s_ in steps]
-            want = dict(zip(keys, (48, 24, 24)))
+            want = dict(zip(keys, (4 * nb, 2 * nb, 2 * nb)))
             done = re.search(r"\[main_vae\] done; launches (\{.*\})", text)
             total = json.loads(done.group(1)) if done else None
             log(f"[vae-train] main_vae full at {heads} heads of "
-                f"{VAE_C // heads} (fp32, remat_blocks 12): rc {rc}, "
-                f"{wall:.1f} ms whole; phase-A step times (s) {times}; peak "
-                f"GiB {peak}; losses {losses}; launches per step {launches}; "
-                f"{card}")
-            for s_ in steps:
-                log(f"[vae-train]   step {s_[0]} phase {s_[1]}: "
-                    + ", ".join(f"{k} {v:.6g}" for k, v in s_[2].items()))
+                f"{VAE_C // heads} (fp32, {nb} + {nb} blocks, remat_blocks "
+                f"{nb}; the three head counts run at once, so no time is "
+                f"printed): rc {rc}; peak GiB {peak}; losses {losses}; "
+                f"launches per step {launches}; {card}")
             if rc != 0 or [s_[1] for s_ in steps] != ["A"] * n_steps or any(
                     not math.isfinite(x) for x in losses) or any(
                     n != want for n in launches) or total != {
@@ -5180,6 +5309,93 @@ K5_GRAD_BOUND = 1e-6
 # parameter gradient (2.0e-2, 2.6e-2) and of the input's (1.2e-2, 1.3e-2)
 DIT_GRAD_BOUNDS = {"loss": 5e-2, "params": 0.1, "x": 5e-2}
 
+# [sublayer-widths]'s bounds, 4.5x the readings on an H100 80GB HBM3
+# (700 W) in the comments: each form's kernel against its plain version,
+# (rel L2 of y, of the update y - x)
+SW_BOUNDS = {
+    "sw_self_d1": (0.0038, 0.04),  # 8.471e-04, 8.878e-03
+    "sw_temporal_d1": (0.0047, 0.032),  # 1.041e-03, 7.008e-03
+    "sw_cross_d1": (0.0055, 0.029),  # 1.232e-03, 6.529e-03
+    "sw_self_d2": (0.0026, 0.025),  # 5.854e-04, 5.575e-03
+    "sw_temporal_d2": (0.0043, 0.028),  # 9.532e-04, 6.201e-03
+    "sw_cross_d2": (0.0051, 0.028),  # 1.127e-03, 6.193e-03
+    "sw_self_d4": (0.0026, 0.026),  # 5.730e-04, 5.745e-03
+    "sw_temporal_d4": (0.004, 0.036),  # 8.902e-04, 7.933e-03
+    "sw_cross_d4": (0.0048, 0.026),  # 1.068e-03, 5.745e-03
+    "sw_self_d8": (0.0028, 0.03),  # 6.209e-04, 6.579e-03
+    "sw_self_norms_off_d8": (0.003, 0.031),  # 6.663e-04, 6.826e-03
+    "sw_self_q8_d8": (0.00079, 0.0083),  # 1.745e-04, 1.849e-03
+    "sw_self_seg_d8": (0.004, 0.033),  # 8.989e-04, 7.337e-03
+    "sw_self_seg_q8_d8": (0.00068, 0.0055),  # 1.507e-04, 1.230e-03
+    "sw_temporal_d8": (0.004, 0.033),  # 8.989e-04, 7.337e-03
+    "sw_temporal_norms_off_d8": (0.0043, 0.033),  # 9.531e-04, 7.226e-03
+    "sw_temporal_q8_d8": (0.00068, 0.0055),  # 1.508e-04, 1.231e-03
+    "sw_cross_d8": (0.0047, 0.029),  # 1.050e-03, 6.377e-03
+    "sw_cross_rms_d8": (0.0046, 0.028),  # 1.015e-03, 6.277e-03
+    "sw_cross_q8_d8": (0.003, 0.018),  # 6.699e-04, 4.070e-03
+    "sw_cross_q8_rms_d8": (0.0018, 0.011),  # 4.099e-04, 2.534e-03
+    "sw_cross_single_d8": (0.00065, 0.0062),  # 1.451e-04, 1.369e-03
+    "sw_cross_single_rms_d8": (0.00061, 0.0059),  # 1.360e-04, 1.301e-03
+    "sw_cross_single_fp32_d8": (3.4e-07, 3.2e-06),  # 7.642e-08, 7.213e-07
+    "sw_cross_single_rms_fp32_d8": (3e-07, 2.9e-06),  # 6.659e-08, 6.372e-07
+    "sw_cross_single_q8_d8": (4.8e-05, 0.00046),  # 1.058e-05, 1.012e-04
+    "sw_self_d16": (0.0028, 0.027),  # 6.187e-04, 5.944e-03
+    "sw_self_norms_off_d16": (0.003, 0.028),  # 6.569e-04, 6.186e-03
+    "sw_self_q8_d16": (0.0008, 0.0077),  # 1.782e-04, 1.712e-03
+    "sw_self_seg_d16": (0.0041, 0.035),  # 9.145e-04, 7.725e-03
+    "sw_self_seg_q8_d16": (0.00075, 0.0063),  # 1.669e-04, 1.410e-03
+    "sw_temporal_d16": (0.0041, 0.035),  # 9.145e-04, 7.725e-03
+    "sw_temporal_norms_off_d16": (0.0043, 0.034),  # 9.560e-04, 7.545e-03
+    "sw_temporal_q8_d16": (0.00075, 0.0063),  # 1.668e-04, 1.409e-03
+    "sw_cross_d16": (0.0046, 0.028),  # 1.033e-03, 6.216e-03
+    "sw_cross_rms_d16": (0.0045, 0.028),  # 1.007e-03, 6.137e-03
+    "sw_cross_q8_d16": (0.0029, 0.017),  # 6.406e-04, 3.855e-03
+    "sw_cross_q8_rms_d16": (0.0021, 0.013),  # 4.730e-04, 2.882e-03
+    "sw_cross_single_d16": (0.00064, 0.0057),  # 1.422e-04, 1.267e-03
+    "sw_cross_single_rms_d16": (0.00061, 0.0055),  # 1.364e-04, 1.224e-03
+    "sw_cross_single_fp32_d16": (3.4e-07, 3.1e-06),  # 7.648e-08, 6.814e-07
+    "sw_cross_single_rms_fp32_d16": (3.1e-07, 2.8e-06),  # 6.835e-08, 6.138e-07
+    "sw_cross_single_q8_d16": (5.2e-05, 0.00046),  # 1.146e-05, 1.029e-04
+    "sw_self_d128": (0.0029, 0.028),  # 6.358e-04, 6.161e-03
+    "sw_self_norms_off_d128": (0.003, 0.029),  # 6.653e-04, 6.348e-03
+    "sw_self_q8_d128": (0.001, 0.0099),  # 2.279e-04, 2.209e-03
+    "sw_self_seg_d128": (0.0043, 0.033),  # 9.460e-04, 7.363e-03
+    "sw_self_seg_q8_d128": (0.00093, 0.0072),  # 2.062e-04, 1.604e-03
+    "sw_temporal_d128": (0.0043, 0.033),  # 9.460e-04, 7.363e-03
+    "sw_temporal_norms_off_d128": (0.0045, 0.033),  # 9.961e-04, 7.233e-03
+    "sw_temporal_q8_d128": (0.00093, 0.0072),  # 2.060e-04, 1.604e-03
+    "sw_cross_d128": (0.0046, 0.028),  # 1.014e-03, 6.243e-03
+    "sw_cross_rms_d128": (0.0045, 0.028),  # 1.007e-03, 6.219e-03
+    "sw_cross_q8_d128": (0.0026, 0.016),  # 5.668e-04, 3.490e-03
+    "sw_cross_q8_rms_d128": (0.0016, 0.01),  # 3.641e-04, 2.248e-03
+    "sw_cross_single_rms_d128": (0.00061, 0.0055),  # 1.349e-04, 1.222e-03
+    "sw_cross_single_rms_fp32_d128": (4.1e-07, 3.7e-06),  # 9.1e-08, 8.2e-07
+    "sw_cross_single_q8_d128": (6.7e-05, 0.00061),  # 1.490e-05, 1.350e-04
+}
+# the fp32 single context's update against fp64 on F64_ROWS rows (the
+# plain fp32 version's own reads 5.3e-7-6.2e-7)
+SW_F64_BOUNDS = {
+    "sw_cross_single_fp32_d8": 1.7e-06,  # 3.847e-07
+    "sw_cross_single_rms_fp32_d8": 1.4e-06,  # 3.159e-07
+    "sw_cross_single_fp32_d16": 1.8e-06,  # 3.899e-07
+    "sw_cross_single_rms_fp32_d16": 1.4e-06,  # 3.162e-07
+    "sw_cross_single_rms_fp32_d128": 2.8e-06,  # 6.207e-07
+}
+# VideoTo4DPipeline.run's steps, and its int8 runs against its float run
+# (rel L2 of the latent and the deltas, the larger of the two int8 runs'
+# readings in the comments) at heads of 16 and 128
+SW_RUN_STEPS = 32
+SW_RUN_BOUNDS = {16: {"latent": 1.2e-2, "deltas": 1.2e-2},  # 2.68e-3, 2.64e-3
+                 128: {"latent": 1.4e-2, "deltas": 1.4e-2}}  # 3.01e-3, 3.02e-3
+# the torso block at heads of 16, kernels vs plain on the valid slots
+SW_BLOCK_BOUNDS = {"cross_single": 6.3e-3,  # 1.39e-3
+                   "cross_single_fp32": 1.6e-5}  # 3.59e-6
+# the DiT under autograd at heads of 16 and 128 (forms_dit_grad's checks:
+# the loss, the worst parameter gradient, the input's); readings 2.45e-2,
+# 2.14e-2, 1.27e-2 at 16 and 8.87e-3, 1.97e-2, 1.27e-2 at 128
+SW_GRAD_BOUNDS = {16: {"loss": 0.11, "params": 9.6e-2, "x": 5.7e-2},
+                  128: {"loss": 4e-2, "params": 8.9e-2, "x": 5.7e-2}}
+
 
 def _form_result(name, replaces, source, mae, ms, plain_ms, lib_ms, b):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -5581,21 +5797,24 @@ def forms_backward(dev, card):
         raise AssertionError("K5's backward disagrees")
 
 
-def forms_dit_grad(dev, card):
+def forms_dit_grad(dev, card, num_heads=H, kv_quants=(None, "int8"),
+                   tag="[forms]", bounds=DIT_GRAD_BOUNDS):
     """The fused DiT under autograd: the 12-block, 512-wide DiT in bf16 as
-    VideoTo4DPipeline builds it, at the trainer's shape (batch 2 x 24
-    frames of 512 voxels), its cache hoisted by dit.kv_cache from seeded
-    DINOv2-shaped tokens and the static latent (bf16, then int8), under
-    autograd: the loss sum(output * a seeded tensor), backward() for every
-    parameter and the input latent; the kernels' run against the same
-    DiT's impl="plain" run. Returns the K1-K4 launches of the bf16-cache
-    kernel run."""
+    VideoTo4DPipeline builds it (at `num_heads` heads), at the trainer's
+    shape (batch 2 x 24 frames of 512 voxels), its cache hoisted by
+    dit.kv_cache from seeded DINOv2-shaped tokens and the static latent (in
+    each of `kv_quants`: bf16, int8), under autograd: the loss sum(output *
+    a seeded tensor), backward() for every parameter and the input latent;
+    the kernels' run against the same DiT's impl="plain" run, within
+    `bounds`. Returns the K1-K4 launches of the bf16-cache kernel run."""
     import torch
     from gvfdiffusion_torch.models.dit import DiT
     from gvfdiffusion_torch.ops import fused_sublayer as fsl
     from gvfdiffusion_torch.utils.weights import init_random_
 
-    dit = init_random_(DiT(dtype=torch.bfloat16), seed=0).to(dev)
+    d = C // num_heads
+    dit = init_random_(DiT(dtype=torch.bfloat16, num_heads=num_heads),
+                       seed=0).to(dev)
     g = torch.Generator(device=dev).manual_seed(36)
     x = torch.randn(TRAIN_B, TRAIN_T, N, 16, generator=g, device=dev)
     t = 500.0 - 250.0 * torch.arange(TRAIN_B, device=dev)  # one a sample
@@ -5618,7 +5837,7 @@ def forms_dit_grad(dev, card):
                  for p in params]
         return float(loss.detach()), grads, xg.grad
 
-    for kv_quant in (None, "int8"):
+    for kv_quant in kv_quants:
         reset_counts()
         t0 = time.perf_counter()
         loss, grads, gx = step(kv_quant, None)
@@ -5626,8 +5845,9 @@ def forms_dit_grad(dev, card):
         counts = {k: n for k, n in fsl.launch_counts.items() if n}
         if kv_quant is None:
             launches = counts
-        want = {"self", "temporal", "mlp",
-                "cross" if kv_quant is None else "cross_q8"}
+        want = {fsl.launch_key("self", d), fsl.launch_key("temporal", d),
+                "mlp", fsl.launch_key("cross" if kv_quant is None else
+                                      "cross_q8", d)}
         if set(counts) != want or any(n != 12 for n in counts.values()):
             raise AssertionError(f"the DiT's fused path launched {counts}")
         t0 = time.perf_counter()
@@ -5643,20 +5863,21 @@ def forms_dit_grad(dev, card):
         x_err = rel_l2(gx, gx_p)
         finite = all(bool(torch.isfinite(a).all()) for a in grads) and \
             bool(torch.isfinite(gx).all())
-        log(f"[forms] DiT 12x512 bf16 under autograd, cache "
-            f"{kv_quant or 'bf16'}, x {tuple(x.shape)}: loss {loss:.6g} "
+        log(f"{tag} DiT 12x512 bf16 at {num_heads} heads of {d} under "
+            f"autograd, cache {kv_quant or 'bf16'}, x {tuple(x.shape)}: loss "
+            f"{loss:.6g} "
             f"(plain {loss_p:.6g}, rel {loss_err:.3e}, bound "
-            f"{DIT_GRAD_BOUNDS['loss']:g}); parameter gradients vs "
+            f"{bounds['loss']:g}); parameter gradients vs "
             f"impl=\"plain\" worst rel_l2 {max(errs):.3e}, median "
             f"{sorted(errs)[len(errs) // 2]:.3e} (bound "
-            f"{DIT_GRAD_BOUNDS['params']:g}; {len(errs)} tensors, {none} "
+            f"{bounds['params']:g}; {len(errs)} tensors, {none} "
             f"with no gradient in both); input gradient rel_l2 {x_err:.3e} "
-            f"(bound {DIT_GRAD_BOUNDS['x']:g}); step (kv_cache, forward, "
+            f"(bound {bounds['x']:g}); step (kv_cache, forward, "
             f"backward) {step_ms:.1f} ms first, {step_ms2:.1f} ms second, "
             f"plain {plain_ms:.1f} ms; launches {counts}; {card}")
-        if not (finite and loss_err <= DIT_GRAD_BOUNDS["loss"]
-                and max(errs) <= DIT_GRAD_BOUNDS["params"]
-                and x_err <= DIT_GRAD_BOUNDS["x"]):
+        if not (finite and loss_err <= bounds["loss"]
+                and max(errs) <= bounds["params"]
+                and x_err <= bounds["x"]):
             raise AssertionError("the DiT's gradients disagree")
     del dit
     torch.cuda.empty_cache()
@@ -5902,6 +6123,394 @@ def phase_widths(dev, card):
     return rows, launches
 
 
+# -- [sublayer-widths]: K1, K2 and K3 at every head width their rules admit --
+
+
+def _sw_seg_view(a):
+    """K2's [B, T, N, C] as K1's seg rows: [B N / 16, T x 16, C], 16
+    voxels of T frames interleaved (the DiT's packed temporal layout)."""
+    return a.reshape(B, T, N // SEG_VOXELS, SEG_VOXELS, a.shape[-1]).permute(
+        0, 2, 1, 3, 4).reshape(B * N // SEG_VOXELS, T * SEG_VOXELS,
+                               a.shape[-1]).contiguous()
+
+
+def _sw_single_inputs(dev, d):
+    """K3's single context at the compacted torso's [1, 4096, 1024] fp32
+    residual, 1024 / d heads, k and v the halves of the [1, 1374, 2048]
+    projection of the image tokens; the parameters with the q gamma."""
+    import torch
+
+    Cx = 1024
+    g = torch.Generator(device=dev).manual_seed(53 + d)
+    r = lambda *s_, sc=1.0: torch.randn(*s_, generator=g, device=dev) * sc
+    gamma = (1.0 + 0.1 * r(Cx)) * d ** 0.5
+    p = (1 + 0.1 * r(Cx), 0.1 * r(Cx), r(Cx, Cx, sc=Cx ** -0.5),
+         0.1 * r(Cx), gamma, r(Cx, Cx, sc=Cx ** -0.5), 0.1 * r(Cx))
+    return r(1, TORSO, Cx), p, r(1, L_IMG, 2 * Cx)
+
+
+def single_update_f64(x, p, kvp, heads, rms):
+    """K3's single context's update y - x in fp64 on the first F64_ROWS
+    rows: affine LN, q (RMS-normed with p's qg when rms), softmax attention
+    at D ** -0.5, the out projection; p = (ns, nb, wq, bq, qg, wo, bo), k
+    and v the halves of kvp."""
+    import torch
+    import torch.nn.functional as F
+
+    ns, nb, wq, bq, qg, wo, bo = (None if a is None else a.double()
+                                  for a in p)
+    Cx = x.shape[-1]
+    x64 = x[:, :F64_ROWS].double()
+    rows = x64.shape[1]
+    q = (F.layer_norm(x64, (Cx,), ns, nb, eps=1e-6) @ wq + bq).view(
+        1, rows, heads, -1)
+    if rms:
+        q = (q * (q.square().sum(-1, keepdim=True) + 1e-12).rsqrt()).view(
+            1, rows, Cx) * qg
+        q = q.view(1, rows, heads, -1)
+    k, v = (a.double().view(1, L_IMG, heads, -1)
+            for a in (kvp[..., :Cx], kvp[..., Cx:]))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (Cx // heads) ** -0.5
+    o = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+    return o.reshape(1, rows, Cx) @ wo + bo
+
+
+def _sw_case(dev, form, d, cases, single):
+    """One form at width d: (x, the call (impl=None: the card), the
+    library composition, [(operations, peak)], the tensors moved, what
+    it runs on, the counter of its launch)."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    q8 = form.endswith("q8") or form == "cross_q8_rms"
+    if form.startswith("cross_single"):
+        x, p, kvp = single
+        f32 = form.endswith("fp32")
+        rms = "rms" in form or q8
+        dt = torch.float32 if f32 else torch.bfloat16
+        heads = x.shape[-1] // d
+        p = tuple(a.to(dt) for a in p)
+        kvp = kvp.to(dt)
+        kv = (kvp[..., :x.shape[-1]], kvp[..., x.shape[-1]:])
+        kw = dict(num_heads=heads, rms=rms, compute_dtype=dt)
+        if q8:
+            kv = int8_cache(tuple(a.contiguous() for a in kv), heads)
+            kw.update(quant=True, q_block=128)
+        p6 = p[:4] + p[5:]
+        lib = (lambda: library_cross_single_rms(x, p, (kvp[..., :1024],
+                                                       kvp[..., 1024:]),
+                                                heads)) if rms else \
+            (lambda: (library_cross_single_f32 if f32 else
+                      library_cross_single)(x, p6, (kvp[..., :1024],
+                                                    kvp[..., 1024:]), heads))
+        Cx = x.shape[-1]
+        flops = 2 * 2 * TORSO * Cx * Cx + 4 * TORSO * L_IMG * Cx
+        qk = 2 * TORSO * L_IMG * Cx
+        ops = ([(3 * flops, PEAK_TF32)] if f32 else
+               [(flops - qk, PEAK_FLOPS), (qk, PEAK_INT8)] if q8 else
+               [(flops, PEAK_FLOPS)])
+        return dict(x=x, call=lambda impl=None: fsl.fused_cross_sublayer(
+            x, p, kv, **kw, impl=impl), lib=lib, ops=ops,
+            moved=(x, p, kv, x), what=f"x {tuple(x.shape)} fp32, "
+            f"{'fp32' if f32 else 'bf16'} compute, {heads} heads",
+            key=fsl.single_launch_key(dt, d, rms=rms and not q8, quant=q8),
+            f64=(p, kvp, heads, rms) if f32 else None)
+    rms = not form.endswith("norms_off")
+    if form.startswith("self_seg"):
+        x4, c = cases["temporal"]
+        heads = c["kw"]["num_heads"]
+        args = c["args"][1:]
+        x = _sw_seg_view(x4)
+        kw = dict(num_heads=heads, rms=True, seg=SEG_VOXELS,
+                  mod_repeat=x.shape[0], quant_qk=q8)
+        Cx = x.shape[-1]
+        flops, qk = (4 * B * N * T * T * Cx, 2 * B * N * T * T * Cx)
+        flops += 2 * B * T * N * Cx * 4 * Cx
+        return dict(x=x, call=lambda impl=None: fsl.fused_self_sublayer(
+            x, *args, **kw, impl=impl),
+            lib=lambda: library_temporal(x4, *args, num_heads=heads),
+            ops=[(flops - qk, PEAK_FLOPS),
+                 (qk, PEAK_INT8 if q8 else PEAK_FLOPS)],
+            moved=(x, args, x), what=f"x {tuple(x.shape)} bf16 (K2's "
+            f"{tuple(x4.shape)} voxel-major), {heads} heads",
+            key=fsl.launch_key(SW_FORMS[form][2], d))
+    base = form.split("_")[0]
+    x, c = cases[base]
+    heads = c["kw"]["num_heads"]
+    L_, Cx = x.shape[-2], x.shape[-1]
+    if base == "cross":
+        _, p1, kv1, p2, kv2 = c["args"]
+        args = (x, p1, kv1, p2, kv2)
+        if q8:
+            args = (x, p1, int8_cache(kv1, heads), p2, int8_cache(kv2, heads))
+        kw = dict(num_heads=heads, rms=form.endswith("rms"), quant=q8)
+        lk = kv1[0].shape[1] + kv2[0].shape[1]
+        R = x.shape[0] * L_
+        flops = 2 * 2 * (2 * R * Cx * Cx) + 4 * R * lk * Cx
+        qk = 2 * R * lk * Cx
+        lib = lambda: library_cross(x, p1, kv1, p2, kv2, heads,
+                                    rms=kw["rms"])
+        fn = fsl.fused_cross_sublayer
+    else:
+        args = c["args"]
+        kw = dict(c["kw"], rms=rms, quant_qk=q8)
+        R = x.numel() // Cx
+        keys = L_ if base == "self" else x.shape[1]  # N, or T frames
+        flops = 2 * R * Cx * 4 * Cx + 4 * R * keys * Cx
+        qk = 2 * R * keys * Cx
+        libf = library_self if base == "self" else library_temporal
+        lib = lambda: libf(*args, **dict(c["kw"], rms=rms))
+        fn = fsl.fused_self_sublayer if base == "self" else \
+            fsl.fused_temporal_sublayer
+    return dict(x=x, call=lambda impl=None: fn(*args, **kw, impl=impl),
+                lib=lib, ops=[(flops - qk, PEAK_FLOPS),
+                              (qk, PEAK_INT8 if q8 else PEAK_FLOPS)],
+                moved=(args, x), what=f"x {tuple(x.shape)} bf16, {heads} "
+                f"heads", key=fsl.launch_key(SW_FORMS[form][2], d))
+
+
+def sw_forms(dev, card, entries, failures):
+    """Each form of SW_KERNELS against its plain version (fp32 K3 single
+    also against fp64), timed beside it and the library composition,
+    driven once through its wrapper with the counters at 0. Returns (the
+    rows, the launches of the drives)."""
+    import torch
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+
+    counts = lambda: fsl.launch_counts  # noqa: E731
+    rows, launches = {}, {}
+    for d in SW_NARROW + SW_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(50 + d)
+        if d in SW_NARROW:
+            cases = sublayer_cases(dev, g, heads=SW_NARROW_C // d,
+                                   rms_cross=True, c=SW_NARROW_C,
+                                   rows=SW_NARROW_FRAMES)
+        else:
+            cases = sublayer_cases(dev, g, heads=C // d, rms_cross=True)
+        single = _sw_single_inputs(dev, d) if d in SW_WIDTHS else None
+        for form in _sw_forms(d):
+            key = f"sw_{form}_d{d}"
+            name, replaces, source = entries[key]
+            cs = _sw_case(dev, form, d, cases, single)
+            x = cs["x"]
+            with torch.no_grad():
+                y, launches[key] = _drive(counts, cs["key"], cs["call"])
+                ref = cs["call"]("plain")
+                err = rel_l2(y, ref)
+                upd = rel_l2(y.float() - x.float(), ref.float() - x.float())
+                mae = float((y.float() - ref.float()).abs().max())
+                ms = time_ms(cs["call"])
+                plain_ms = time_ms(lambda: cs["call"]("plain"), iters=2,
+                                   warm=1)
+                lib_ms = time_ms(cs["lib"], iters=5)
+                f64 = ""
+                f64_ok = True
+                if cs.get("f64"):
+                    u64 = single_update_f64(x, *cs["f64"])
+                    x64 = x[:, :F64_ROWS].double()
+                    e_k = rel_l2_64(y[:, :F64_ROWS].double() - x64, u64)
+                    e_p = rel_l2_64(ref[:, :F64_ROWS].double() - x64, u64)
+                    f64 = (f"; update against fp64 on the first {F64_ROWS} "
+                           f"rows: kernel {e_k:.3e} (bound "
+                           f"{SW_F64_BOUNDS[key]:g}), plain fp32 {e_p:.3e}")
+                    f64_ok = e_k <= SW_F64_BOUNDS[key]
+            b = _bound_mixed(cs["ops"], nbytes(*cs["moved"]))
+            y_bound, upd_bound = SW_BOUNDS[key]
+            log(f"[sublayer-widths] {name}: {cs['what']}: max_abs_err "
+                f"{mae:.4g} rel_l2 {err:.3e} (bound {y_bound:g}) "
+                f"update_rel_l2 {upd:.3e} (bound {upd_bound:g}){f64}; "
+                f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms library "
+                f"{lib_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}, at D = {d});"
+                f" launches {launches[key]}; {card}")
+            if not (bool(torch.isfinite(y).all()) and err <= y_bound
+                    and upd <= upd_bound and f64_ok):
+                failures.append(name)
+            rows[key] = _form_result(name, replaces, source, mae, ms,
+                                     plain_ms, lib_ms, b)
+            del y, ref, cs
+        del cases, single
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def sw_runs(vae, ci, dev, card, failures):
+    """VideoTo4DPipeline.run with the 12 x 512 bf16 DiT at 32 and 4 heads
+    (seeded init_random_ weights) on the frames' tokens and the canonical
+    splat: 32 DPM-Solver++ steps under the dual CFG (2.0 / 5.0, the cache
+    hoisted), on the float cache, on the int8 cache, and on the int8 cache
+    with int8 QK, each followed by render_4d of its deltas; each run's
+    launches (384 of each sublayer under its width's counter) and the int8
+    runs against the float run. Returns the launches of the kernels-line
+    entries these runs drive."""
+    import torch
+    from gvfdiffusion_torch.models.dit import DiT
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+    from gvfdiffusion_torch.ops._widths import sublayer_card_width
+    from gvfdiffusion_torch.pipelines.video_to_4d import (
+        VideoTo4DConfig, VideoTo4DPipeline)
+    from gvfdiffusion_torch.representations.gaussians import from_activated
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    gs, valid = canonical_splat(dev)
+    counts = {}
+    modes = ((None, None), ("int8", None), ("int8", "int8"))
+    n = 12 * SW_RUN_STEPS
+    for heads in SW_DIT_HEADS:
+        d = C // heads
+        dit = init_random_(DiT(dtype=torch.bfloat16, num_heads=heads),
+                           seed=30).to(dev).eval()
+        cfg = dict(order=2, guidance_scale=2.0, guidance_scale2=5.0)
+        VideoTo4DPipeline(dit, vae, VideoTo4DConfig(steps=2, **cfg)).run(
+            gs, valid, ci, generator=torch.Generator(device=dev).manual_seed(
+                4))  # warm-up
+        outs = {}
+        for kv_quant, self_quant in modes:
+            pipe = VideoTo4DPipeline(dit, vae, VideoTo4DConfig(
+                steps=SW_RUN_STEPS, kv_quant=kv_quant,
+                self_quant=self_quant, **cfg))
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            g = torch.Generator(device=dev).manual_seed(5)
+            out = pipe.run(gs, valid, ci, generator=g)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = {k: v for k, v in read_counts().items() if v}
+            video = pipe.render_4d(from_activated(gs[0]),
+                                   out["deltas"][0] * RENDER_DELTA_SCALE,
+                                   valid[0], num_views=1, resolution=512)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_outputs(out, B, T, G)
+            if tuple(video.shape) != (T, 1, 512, 512, 3) or not bool(
+                    torch.isfinite(video).all()):
+                raise AssertionError(f"render_4d: {tuple(video.shape)}")
+            sq = "_q8" if self_quant else ""
+            want = {fsl.launch_key("self" + sq, d): n,
+                    fsl.launch_key("temporal" + sq, d): n,
+                    fsl.launch_key("cross_q8" if kv_quant else "cross", d): n,
+                    "mlp": n}
+            mode = {None: "float cache", "int8": "int8 cache"}[kv_quant] + (
+                " + int8 QK" if self_quant else "")
+            log(f"[sublayer-widths] VideoTo4DPipeline.run, DiT 12 x 512 bf16 "
+                f"at {heads} heads of {d} (run at {sublayer_card_width(d)}; "
+                f"{mode}, guidance "
+                f"2.0/5.0, {SW_RUN_STEPS} steps, G={G}): run() "
+                f"{(t1 - t0) * 1e3:.1f} ms, render_4d ({T} frames, 512^2) "
+                f"{(t2 - t1) * 1e3:.1f} ms; peak {peak:.2f} GiB; launches "
+                f"{got}; {card}")
+            if got != want:
+                raise AssertionError(f"run() at heads of {d} ({mode}): "
+                                     f"launches {got}, expected {want}")
+            outs[mode] = out
+            if kv_quant is None:
+                for form in ("self", "temporal", "cross"):
+                    counts[f"sw_{form}_d{d}"] = got[fsl.launch_key(form, d)]
+            elif self_quant is None:
+                counts[f"sw_cross_q8_d{d}"] = got[fsl.launch_key("cross_q8",
+                                                                 d)]
+            else:
+                for form in ("self_q8", "temporal_q8"):
+                    counts[f"sw_{form}_d{d}"] = got[fsl.launch_key(form, d)]
+        for mode in list(outs)[1:]:
+            errs = {k: rel_l2(outs[mode][k], outs["float cache"][k])
+                    for k in ("latent", "deltas")}
+            bounds = SW_RUN_BOUNDS[d]
+            log(f"[sublayer-widths] heads of {d}, {mode} vs the float cache "
+                "(same noise) rel_l2 " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (bounds {bounds})")
+            if any(errs[k] > b_ for k, b_ in bounds.items()):
+                failures.append(f"run() at heads of {d}, {mode}")
+        del dit, outs
+        torch.cuda.empty_cache()
+    return counts
+
+
+def sw_block(dev, card, failures):
+    """K3's single context at heads of 16 on a model's path: one
+    ModulatedSparseCrossBlock of the SLat torso (C = 1024, 64 heads,
+    init_random_ weights) at the compacted torso's 4096 slots
+    (L_TORSO_VALID valid) against 1374 image tokens, computing in bf16 and
+    in fp32, kernels against impl="plain" on the valid slots. Returns the
+    launches of K3's single context in each."""
+    import torch
+    from gvfdiffusion_torch.models.trellis.slat_flow import (
+        ModulatedSparseCrossBlock)
+    from gvfdiffusion_torch.ops import fused_sublayer as fsl
+    from gvfdiffusion_torch.sparse.tensor import SparseVoxels
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    Cx, heads = 1024, 64
+    blk = init_random_(ModulatedSparseCrossBlock(Cx, heads, ctx_channels=Cx),
+                       seed=37).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(38)
+    valid = torch.zeros(1, TORSO, dtype=torch.bool, device=dev)
+    valid[:, :L_TORSO_VALID] = True
+    feats = torch.randn(1, TORSO, Cx, generator=g, device=dev) * valid[
+        ..., None]
+    coords = torch.zeros(1, TORSO, 3, dtype=torch.int32, device=dev)
+    x = SparseVoxels(feats=feats, coords=coords, valid=valid, resolution=32)
+    mod = torch.randn(1, Cx, generator=g, device=dev)
+    ctx = torch.randn(1, L_IMG, Cx, generator=g, device=dev)
+    counts = {}
+    for dt, form in ((torch.bfloat16, "cross_single"),
+                     (torch.float32, "cross_single_fp32")):
+        key = fsl.single_launch_key(dt, Cx // heads)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            y = blk(x, mod, ctx, dt).feats
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: v for k, v in read_counts().items() if v}
+            ref = blk(x, mod, ctx, dt, impl="plain").feats
+        err = rel_l2(y[valid], ref[valid])
+        bound_ = SW_BLOCK_BOUNDS[form]
+        log(f"[sublayer-widths] ModulatedSparseCrossBlock C {Cx}, {heads} "
+            f"heads of {Cx // heads}, {str(dt)[6:]}, x {tuple(feats.shape)} "
+            f"({L_TORSO_VALID} valid) x {L_IMG} tokens: kernels vs plain "
+            f"rel_l2 {err:.3e} (bound {bound_:g}), forward {ms:.1f} ms, "
+            f"launches {got}; {card}")
+        if got.get(key) != 1 or not bool(torch.isfinite(y).all()) \
+                or err > bound_:
+            failures.append(f"the block at heads of 16, {dt}")
+        counts[f"sw_{form}_d16"] = got.get(key, 0)
+    del blk
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sublayer_widths(vae, ci, dev, card):
+    """[sublayer-widths]: every form of SW_KERNELS at full width against its
+    plain version (sw_forms); VideoTo4DPipeline.run with the DiT at 32 and
+    4 heads in its three cache / QK modes (sw_runs); the fused DiT block
+    under autograd at both (forms_dit_grad); K3's single context at heads
+    of 16 through a ModulatedSparseCrossBlock (sw_block). Every check runs;
+    the phase fails at its end if any did. Returns (the rows, the
+    launches)."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries = {e[3]: e[:3] for e in SW_KERNELS}
+    failures = []
+    rows, launches = sw_forms(dev, card, entries, failures)
+    launches.update(sw_runs(vae, ci, dev, card, failures))
+    for heads in SW_DIT_HEADS:
+        forms_dit_grad(dev, card, num_heads=heads, kv_quants=(None,),
+                       tag="[sublayer-widths]",
+                       bounds=SW_GRAD_BOUNDS[C // heads])
+    torch.cuda.empty_cache()
+    launches.update(sw_block(dev, card, failures))
+    log(f"[sublayer-widths] phase in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError(f"[sublayer-widths] disagree: {failures}")
+    return rows, launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5955,6 +6564,15 @@ def main(argv) -> int:
     if "--widths" in argv:
         phase_widths(dev, card)
         return 0
+    if "--sublayer-widths" in argv:
+        from gvfdiffusion_torch.scripts.process_video import encode_video
+
+        dino, dit, vae = build_models(dev)
+        ci = encode_video(seeded_frames(), dino, device="cuda")[None]
+        del dino, dit
+        torch.cuda.empty_cache()
+        phase_sublayer_widths(vae, ci, dev, card)
+        return 0
     if "--pipeline" in argv:
         phase_pipeline(*build_models(dev), dev, card)
         return 0
@@ -5981,43 +6599,72 @@ def main(argv) -> int:
         _, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
         phase_wild_files(dino, tpipe, dit, vae, dev, card)
         return 0
+    # each phase's wall time, printed at the end ([smoke] phase seconds)
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
+
     results = phase_kernels(dev)
+    mark("kernel")
     vae_forms, vae_form_launches = phase_vae_forms(dev, card)
     results.update(vae_forms)
+    mark("vae-forms")
     if quick:
         return 0
     forms, form_launches = phase_forms(dev, card)
     results.update(forms)
+    mark("forms")
     widths, width_launches = phase_widths(dev, card)
     results.update(widths)
+    mark("widths")
     phase_profile_split(dev, card, traces=False)
+    mark("split")
     dino, dit, vae = build_models(dev)
     phase_dinov2(dino, dev, card)
     phase_dit(dit, dev)
+    mark("dinov2, dit")
     launches, ci = phase_pipeline(dino, dit, vae, dev, card)
+    mark("main .. selfq8")
     launches.update(phase_infer(ci, *canonical_splat(dev), dev, card))
+    mark("infer")
     configs = phase_dit_configs(vae, ci, dev, card)
+    mark("dit-config")
+    sw_rows, sw_launches = phase_sublayer_widths(vae, ci, dev, card)
+    results.update(sw_rows)
+    mark("sublayer-widths")
     trellis, tpipe = phase_trellis(dino, dit, vae, ci, dev, card)
+    mark("trellis")
     phase_wild(tpipe, dit, vae, ci, dev, card)
+    mark("wild")
     launches.update(phase_wild_files(dino, tpipe, dit, vae, dev, card))
+    mark("wild-files")
     phase_early_exit(dev, card)
     del dit, vae, ci, tpipe
     torch.cuda.empty_cache()
     trellis["flash_attention"] = phase_trellis_defaults(dino, dev, card)
     del dino
     torch.cuda.empty_cache()
+    mark("early-exit, trellis32k")
     tpipe32, staged32, pre32, fp32 = phase_trellis_fp32(dev, card)
     trellis.update({k: fp32[k] for k in ("flash_attention_fp32",
                                          "cross_single_fp32")})
+    mark("trellis-fp32")
     phase_trellis_drift(tpipe32, staged32, pre32, dev, card)
     trellis.update(phase_trellis_heads(tpipe32, staged32, dev, card))
     del tpipe32, staged32
     torch.cuda.empty_cache()
+    mark("trellis-drift, trellis-heads")
     train = phase_training(dev, card)
     torch.cuda.empty_cache()
+    mark("train")
     vae = phase_vae_train(dev, card)
     torch.cuda.empty_cache()
+    mark("vae-train")
     results[ENCODE_FLASH], vae[ENCODE_FLASH] = phase_encode_latent(dev, card)
+    mark("encode-latent")
     # each entry's count comes from one run: the TRELLIS forms from
     # TrellisImageTo3DPipeline.run (K7 from the run at the defaults; K7 and
     # K3's single context in fp32 from the run of the registry's fp32
@@ -6037,9 +6684,11 @@ def main(argv) -> int:
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path
     counts = {**launches, **configs, **trellis, **train, **vae,
-              **form_launches, **vae_form_launches, **width_launches}
+              **form_launches, **vae_form_launches, **width_launches,
+              **sw_launches}
     for key, r in results.items():
         r["launches"] = counts[key]
+    log(f"[smoke] phase seconds: {seconds}")
     log(f"[smoke] every phase in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [results[k] for *_, k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {

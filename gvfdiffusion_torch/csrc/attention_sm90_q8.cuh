@@ -29,7 +29,7 @@
 // row), NWG consumer warpgroups of 64 rows, then four producer warps.
 //  - The producer fills a ring of 3 stages. Lane 0 of its first warp copies
 //    the int8 K tile of BK keys by TMA (a 4-d map of [batch row, key, head,
-//    lane] bytes; rows of 32, 64 or 128 bytes (K5 at heads of 128) in
+//    lane] bytes; rows of 32, 64 or 128 bytes (heads of 128) in
 //    wgmma's 32-, 64- or 128-byte swizzle,
 //    Sw8<D>; rows past Lk zero-filled). All four warps write V as an
 //    MN-major bf16 tile (Sw<D>, as the core's fp32 producer does), reading

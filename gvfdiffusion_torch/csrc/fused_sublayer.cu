@@ -6,8 +6,7 @@
 //   gvf_cross_sublayer     <- _cross_sublayer_kernel    (fused_cross_sublayer,
 //                                                        two contexts: the DiT)
 //   gvf_cross_sublayer1    <- _cross_sublayer_kernel    (one context: the SLat
-//                                                        flow torso, heads of
-//                                                        32, 64 or 128)
+//                                                        flow torso)
 //   gvf_mlp_sublayer       <- _mlp_sublayer_kernel      (fused_mlp_sublayer)
 //   gvf_cross_sublayer_q8  <- _cross_sublayer_kernel    (quant=True: the DiT's
 //                                                        two contexts against an
@@ -43,10 +42,24 @@
 //                  cp.async double-buffered, a persistent grid.
 //   q8_kernel      the int8 forms' quantization of q (and k), below.
 //
-// Head widths: 32 (the DiT's 16 heads, as shipped) and 64 (its 8-head
-// configuration); the SLat torso's single-context cross form takes 32, 64
-// (the released 16 heads) and 128. The q/k RMS norm is the JAX kernels'
-// `rms` flag: K1/K2 norm q and k when their gammas are given, K3 norms q
+// Head widths: every D that divides 128, the JAX dispatch rules'
+// `_LANES % D == 0` (1, 2, 4, 8, 16, 32, 64 and 128), over C a multiple of 8.
+// The attention cores and q8_kernel are instantiated at the card widths
+// W = 32, 64 and 128: a head of 32 or more runs at its own width, a
+// narrower one at 32 (sublayer_width). Such a head arrives zero-padded by
+// the Python wrapper in the projections' weights: wqkv's and wq's output
+// columns, their biases and the q/k gammas per head, wo's input rows. So
+// every buffer that holds heads (the qkv projection, q, the int8 q and k,
+// the attention output, K3's caches) is Cp = H W wide, while x, y, h and
+// mid stay C wide, and the scale is the true width's, D^-1/2. The zero
+// lanes change no RMS norm (the norm divides by no D, and their gammas are
+// zero), no score, maximum, row sum or int8 max-abs scale, and the zero
+// rows of wo drop the attention's zero lanes: the function is the one at
+// width D. Padding in the weights, rather than copying a native
+// projection's output into padded buffers, keeps each chain the launches it
+// has at 32 with no pad kernel; it costs the head-holding projections W / D
+// times their work and bytes (2x at heads of 16, 32x at heads of 1). The
+// q/k RMS norm is the JAX kernels' `rms` flag: K1/K2 norm q and k when their gammas are given, K3 norms q
 // alone (its cached k was normed when the cache was built), and a null
 // gamma means no norm.
 //
@@ -200,20 +213,31 @@ cudaError_t launch_ln(const TIn* x, const void* p0, const void* p1, void* out,
   return cudaGetLastError();
 }
 
+// K1-K3's card width for C channels in H heads: the width W the kernels
+// run a head of D = C / H at (D from 32 up, 32 below), or 0 for a width
+// no dispatch rule admits (D not dividing 128)
+inline int sublayer_width(int C, int H) {
+  if (H < 1 || C % H) return 0;
+  const int D = C / H;
+  if (D > 128 || 128 % D) return 0;
+  return D < 32 ? 32 : D;
+}
+
 // K3's attention (fp32 q, bf16 cache, bf16 out, running maximum) on the
-// Hopper core of attention_sm90.cuh: heads of 32 or 64, and 128 for the
-// single context
+// Hopper core of attention_sm90.cuh at the card width of heads of D,
+// with the scale of D
 cudaError_t launch_cross_attn(AttnParams p, int H, long long nb1, int D,
                               cudaStream_t s) {
   p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  if (D == 32) return sm90::launch_attn_sm90<32, float, bf16, bf16, false>(p, H, nb1, s);
-  if (D == 64) return sm90::launch_attn_sm90<64, float, bf16, bf16, false>(p, H, nb1, s);
-  if (D == 128) return sm90::launch_attn_sm90<128, float, bf16, bf16, false>(p, H, nb1, s);
+  const int W = sublayer_width(D * H, H);
+  if (W == 32) return sm90::launch_attn_sm90<32, float, bf16, bf16, false>(p, H, nb1, s);
+  if (W == 64) return sm90::launch_attn_sm90<64, float, bf16, bf16, false>(p, H, nb1, s);
+  if (W == 128) return sm90::launch_attn_sm90<128, float, bf16, bf16, false>(p, H, nb1, s);
   return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// The int8 forms: K3's int8 cache and K1/K2's int8 QK (heads of 32 or 64).
+// The int8 forms: K3's int8 cache and K1/K2's int8 QK (at the card widths).
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -242,7 +266,8 @@ struct QuantParams {
 };
 
 // D / 4 lanes hold a row's head lanes, 4 each (16-byte loads), so a warp
-// step covers 128 / D rows; U steps' loads are in flight at once. The
+// step covers 128 / D rows (one at D = 128, whose row spans the warp); U
+// steps' loads are in flight at once. The
 // bytes bound it: the cell's fp32 rows read twice (the second time mostly
 // from L2), its int8 rows written once.
 template <int D>
@@ -339,14 +364,11 @@ cudaError_t launch_q8(const QuantParams& p, int cells, int tensors, int D,
     q8_kernel<32><<<grid, 256, 0, s>>>(p);
   else if (D == 64)
     q8_kernel<64><<<grid, 256, 0, s>>>(p);
+  else if (D == 128)
+    q8_kernel<128><<<grid, 256, 0, s>>>(p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
-}
-
-// heads of 32 or 64, C a multiple of 16 (the int8 rows' 16-byte panels)
-inline bool q8_heads_ok(int C, int H) {
-  return H >= 1 && C % H == 0 && (C / H == 32 || C / H == 64) && C % 16 == 0;
 }
 
 #define GVF_CHECK(call)                  \
@@ -358,7 +380,8 @@ inline bool q8_heads_ok(int C, int H) {
 // q and k of an fp32 [rows, 3C] qkv projection (RMS-normalized first, in
 // place, when qg / kg are given, as the TPU kernels quantize the normed
 // fp32 values) quantized per (cell of `qp`, head) by q8_kernel: qi, ki int8
-// [rows, C], qs, ks fp32 [cells, H]. K1's and K2's int8 QK.
+// [rows, C], qs, ks fp32 [cells, H]. K1's and K2's int8 QK; C is the
+// heads' card width Cp here, C / H a card width.
 cudaError_t quantize_qk(float* qkv, const void* qg, const void* kg, void* qi,
                         void* ki, void* qs, void* ks, int C, int H,
                         QuantParams qp, int cells, cudaStream_t s) {
@@ -382,83 +405,99 @@ cudaError_t gated_out(const void* x, const void* gate, const void* w,
       a, w, b, (const bf16*)x, (bf16*)y, R, C, K, s, epi);
 }
 
-// The float qkv projection of K1 and K2: [R, 3C] bf16, q and k RMS-normed
-// per head of D in fp32 in the epilogue (null gammas: no norm).
+// The float qkv projection of K1 and K2: h [R, C] x wqkv [3 Cp, C]^T ->
+// [R, 3 Cp] bf16, q and k RMS-normed per head of W (the card width, Cp =
+// H W) in fp32 in the epilogue (null gammas: no norm).
 cudaError_t self_qkv(const void* h, const void* wqkv, const void* bqkv,
                      const void* qg, const void* kg, void* qkv, long long R,
-                     int C, int D, cudaStream_t s) {
+                     int C, int Cp, int W, cudaStream_t s) {
   sm90::GemmEpi epi;
   epi.qg = (const bf16*)qg;
   epi.kg = (const bf16*)kg;
-  epi.cq = C;
-  if (D == 32)
+  epi.cq = Cp;
+  if (W == 32)
     return sm90::launch_gemm_sm90<false, float, bf16, false, 32>(
-        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi);
-  return sm90::launch_gemm_sm90<false, float, bf16, false, 64>(
-      h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * C, C, s, epi);
+        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * Cp, C, s, epi);
+  if (W == 64)
+    return sm90::launch_gemm_sm90<false, float, bf16, false, 64>(
+        h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * Cp, C, s, epi);
+  return sm90::launch_gemm_sm90<false, float, bf16, false, 128>(
+      h, wqkv, bqkv, nullptr, (bf16*)qkv, R, 3 * Cp, C, s, epi);
 }
 
-// K3's int8 attention step for one context: q (fp32 [B*L, C], RMS-normed
+// K1's float attention at the card width W (bf16 q, k, v and out)
+cudaError_t self_attn(const AttnParams& p, int H, long long B, int W,
+                      cudaStream_t s) {
+  if (W == 32) return sm90::launch_attn_sm90<32, bf16, bf16, bf16, false>(p, H, B, s);
+  if (W == 64) return sm90::launch_attn_sm90<64, bf16, bf16, bf16, false>(p, H, B, s);
+  return sm90::launch_attn_sm90<128, bf16, bf16, bf16, false>(p, H, B, s);
+}
+
+// K3's int8 attention step for one context: q (fp32 [B*L, Cp], RMS-normed
 // in place first with qg, or not) quantized per (cell of q_block rows,
 // head) by q8_kernel into qi / qs, then the core's int8-QK path against the
-// int8 cache k, v [B, lk, C] with its scales ks [B, H, lk] and vs [B, lk,
-// H], into attn [B*L, C] bf16.
+// int8 cache k, v [B, lk, Cp] with its scales ks [B, H, lk] and vs [B, lk,
+// H], into attn [B*L, Cp] bf16 (Cp = H W: heads of D = C / H at their card
+// width W, the scale D^-1/2).
 cudaError_t cross_attend_q8(void* q, void* qi, void* qs, void* attn,
                             const void* k, const void* v, const void* ks,
                             const void* vs, int lk, const void* qg, int B,
                             int L, int C, int H, int q_block,
                             cudaStream_t s) {
   const long long R = (long long)B * L;
-  const int D = C / H;
+  const int D = C / H, W = sublayer_width(C, H), Cp = H * W;
   QuantParams qp = {};
   qp.src[0] = (float*)q; qp.dst[0] = (signed char*)qi; qp.scale[0] = (float*)qs;
   qp.gamma[0] = (const bf16*)qg;
-  qp.src_stride = qp.dst_stride = C;
+  qp.src_stride = qp.dst_stride = Cp;
   qp.s1 = q_block; qp.s_outer = 1;
   qp.cells2 = 1; qp.n_outer = q_block; qp.n_inner = 1; qp.H = H;
-  cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, D, s);
+  cudaError_t err = launch_q8(qp, (int)(R / q_block), 1, W, s);
   if (err != cudaSuccess) return err;
   sm90::Q8AttnParams p = {};
   p.q = (const signed char*)qi; p.qs = (const float*)qs;
   p.k = (const signed char*)k; p.v = v;
   p.ks_t = (const bf16*)ks; p.vs = (const bf16*)vs; p.o = (bf16*)attn;
-  p.q_s1 = p.o_s1 = (long long)L * C; p.q_si = p.o_si = C;
-  p.k_s1 = p.v_s1 = (long long)lk * C; p.k_sj = p.v_sj = C;
+  p.q_s1 = p.o_s1 = (long long)L * Cp; p.q_si = p.o_si = Cp;
+  p.k_s1 = p.v_s1 = (long long)lk * Cp; p.k_sj = p.v_sj = Cp;
   p.Lq = L; p.Lk = lk; p.H = H; p.q_block = q_block;
   p.scale = (float)(1.0 / sqrt((double)D));
-  return D == 32 ? sm90::launch_attn_sm90_q8<32, sm90::Q8_CACHE>(p, B, s)
-                 : sm90::launch_attn_sm90_q8<64, sm90::Q8_CACHE>(p, B, s);
+  if (W == 32) return sm90::launch_attn_sm90_q8<32, sm90::Q8_CACHE>(p, B, s);
+  if (W == 64) return sm90::launch_attn_sm90_q8<64, sm90::Q8_CACHE>(p, B, s);
+  return sm90::launch_attn_sm90_q8<128, sm90::Q8_CACHE>(p, B, s);
 }
 
-// K2's attention over T (temporal_sm90.cuh), heads of 32 or 64, into o
-// [B, T, N, C] bf16: the float form (qi null) on the bf16 qkv [B*T*N, 3C]
-// (q and k normed), or the int8-QK form on int8 qi, ki [B*T*N, C] with
-// their scales qs, ks [B * N / nc, H] and v at column 2C of the fp32 qkv
+// K2's attention over T (temporal_sm90.cuh) for heads of D = C / H at
+// their card width W (Cp = H W), into o [B, T, N, Cp] bf16: the float form
+// (qi null) on the bf16 qkv [B*T*N, 3 Cp] (q and k normed), or the int8-QK
+// form on int8 qi, ki [B*T*N, Cp] with their scales qs, ks [B * N / nc, H]
+// and v at column 2 Cp of the fp32 qkv
 cudaError_t temporal_core(const void* qkv, const void* qi, const void* ki,
                           const void* qs, const void* ks, void* o, int B,
                           int T, int N, int C, int H, int nc,
                           cudaStream_t s) {
-  if (H < 1 || C % H || (C / H != 32 && C / H != 64) || C % 8 ||
-      (qi && !q8_heads_ok(C, H)))
-    return cudaErrorInvalidValue;
-  const int D = C / H;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8) return cudaErrorInvalidValue;
+  const int D = C / H, Cp = H * W;
   sm90::TemporalParams p;
   p.o = o;
   p.B = B; p.T = T; p.N = N; p.H = H; p.nc = nc;
   p.scale = (float)(1.0 / sqrt((double)D));
   p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   if (qi) {
-    p.q = qi; p.k = ki; p.v = (const float*)qkv + 2 * C;
-    p.q_rs = p.k_rs = C; p.v_rs = 3 * C;
+    p.q = qi; p.k = ki; p.v = (const float*)qkv + 2 * Cp;
+    p.q_rs = p.k_rs = Cp; p.v_rs = 3 * Cp;
     p.qs = (const float*)qs; p.ks = (const float*)ks;
-    return D == 32 ? sm90::launch_temporal<32, sm90::TForm::Q8>(p, s)
-                   : sm90::launch_temporal<64, sm90::TForm::Q8>(p, s);
+    if (W == 32) return sm90::launch_temporal<32, sm90::TForm::Q8>(p, s);
+    if (W == 64) return sm90::launch_temporal<64, sm90::TForm::Q8>(p, s);
+    return sm90::launch_temporal<128, sm90::TForm::Q8>(p, s);
   }
   const bf16* q = (const bf16*)qkv;
-  p.q = q; p.k = q + C; p.v = q + 2 * C;
-  p.q_rs = p.k_rs = p.v_rs = 3 * C;
-  return D == 32 ? sm90::launch_temporal<32, sm90::TForm::Float>(p, s)
-                 : sm90::launch_temporal<64, sm90::TForm::Float>(p, s);
+  p.q = q; p.k = q + Cp; p.v = q + 2 * Cp;
+  p.q_rs = p.k_rs = p.v_rs = 3 * Cp;
+  if (W == 32) return sm90::launch_temporal<32, sm90::TForm::Float>(p, s);
+  if (W == 64) return sm90::launch_temporal<64, sm90::TForm::Float>(p, s);
+  return sm90::launch_temporal<128, sm90::TForm::Float>(p, s);
 }
 
 }  // namespace
@@ -469,13 +508,15 @@ const char* gvf_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1. x, y [B, L, C]; sh/sc/gate [B / mod_repeat, C]; wqkv [3C, C];
-// wo [C, C]; qg/kg [C], the q/k RMS-norm gammas, or both null (rms=False);
-// heads of 32 or 64. Scratch: h [B*L, C] bf16, qkv [B*L, 3C] bf16, attn
-// [B*L, C] bf16. The qkv projection's epilogue norms q and k in fp32 and
+// K1. x, y [B, L, C]; sh/sc/gate [B / mod_repeat, C]; heads of D = C / H
+// dividing 128, run at their card width W (Cp = H W; sublayer_width, the
+// weights of a head below 32 zero-padded by the caller); wqkv [3 Cp, C];
+// wo [C, Cp]; qg/kg [Cp], the q/k RMS-norm gammas, or both null
+// (rms=False). Scratch: h [B*L, C] bf16, qkv [B*L, 3 Cp] bf16, attn
+// [B*L, Cp] bf16. The qkv projection's epilogue norms q and k in fp32 and
 // rounds q, k and v to bf16; the attention is the Hopper core's (K/V by
-// TMA, the online softmax with a running maximum); the out projection's
-// epilogue adds the gated residual.
+// TMA, the online softmax with a running maximum) with the scale D^-1/2;
+// the out projection's epilogue adds the gated residual.
 int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
                       const void* gate, const void* wqkv, const void* bqkv,
                       const void* qg, const void* kg, const void* wo,
@@ -484,32 +525,29 @@ int gvf_self_sublayer(const void* x, const void* sh, const void* sc,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L, rpm = (long long)L * mod_repeat;
-  if (H < 1 || C % H || (C / H != 32 && C / H != 64) || C % 8)
-    return (int)cudaErrorInvalidValue;
-  const int D = C / H;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8) return (int)cudaErrorInvalidValue;
+  const int D = C / H, Cp = H * W;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK(self_qkv(h, wqkv, bqkv, qg, kg, qkv, R, C, D, s));
+  GVF_CHECK(self_qkv(h, wqkv, bqkv, qg, kg, qkv, R, C, Cp, W, s));
   AttnParams p;
   const bf16* q = (const bf16*)qkv;
-  p.q = q; p.k = q + C; p.v = q + 2 * C; p.o = (bf16*)attn;
-  p.q_s1 = p.k_s1 = (long long)L * 3 * C; p.q_s2 = p.k_s2 = 0;
-  p.q_si = p.k_sj = 3 * C;
-  p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
+  p.q = q; p.k = q + Cp; p.v = q + 2 * Cp; p.o = (bf16*)attn;
+  p.q_s1 = p.k_s1 = (long long)L * 3 * Cp; p.q_s2 = p.k_s2 = 0;
+  p.q_si = p.k_sj = 3 * Cp;
+  p.o_s1 = (long long)L * Cp; p.o_s2 = 0; p.o_si = Cp;
   p.nb2 = 1; p.Lq = p.Lk = L;
   p.qg = nullptr; p.kg = nullptr;  // normed in the projection's epilogue
   p.scale = (float)(1.0 / sqrt((double)D));
   p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  if (D == 32)
-    GVF_CHECK((sm90::launch_attn_sm90<32, bf16, bf16, bf16, false>(p, H, B, s)));
-  else
-    GVF_CHECK((sm90::launch_attn_sm90<64, bf16, bf16, bf16, false>(p, H, B, s)));
-  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
+  GVF_CHECK(self_attn(p, H, B, W, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, Cp, rpm, s));
   return 0;
 }
 
-// K2. x, y [B, T, N, C]; sh/sc/gate [B, C]; qg/kg as K1's; heads of 32 or
-// 64. Scratch: h [B*T*N, C] bf16, qkv [B*T*N, 3C] bf16, attn [B*T*N, C]
-// bf16. The qkv projection is K1's (q and k normed in its epilogue, bf16
+// K2. x, y [B, T, N, C]; sh/sc/gate [B, C]; heads, wqkv, wo and qg/kg as
+// K1's. Scratch: h [B*T*N, C] bf16, qkv [B*T*N, 3 Cp] bf16, attn
+// [B*T*N, Cp] bf16. The qkv projection is K1's (q and k normed in its epilogue, bf16
 // out); the attention over T for each (b, n, h) is temporal_sm90.cuh's,
 // read and written in place in the [B, T, N, .] rows; the out projection
 // is K1's gated one with one modulation row a batch row (rpm = T N).
@@ -521,21 +559,22 @@ int gvf_temporal_sublayer(const void* x, const void* sh, const void* sc,
                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * T * N, rpm = (long long)T * N;
-  if (H < 1 || C % H || (C / H != 32 && C / H != 64) || C % 8)
-    return (int)cudaErrorInvalidValue;
-  const int D = C / H;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8) return (int)cudaErrorInvalidValue;
+  const int Cp = H * W;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
-  GVF_CHECK(self_qkv(h, wqkv, bqkv, qg, kg, qkv, R, C, D, s));
+  GVF_CHECK(self_qkv(h, wqkv, bqkv, qg, kg, qkv, R, C, Cp, W, s));
   GVF_CHECK(temporal_core(qkv, nullptr, nullptr, nullptr, nullptr, attn, B,
                           T, N, C, H, 1, s));
-  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, Cp, rpm, s));
   return 0;
 }
 
 // K1 quant_qk: as gvf_self_sublayer, with q and k (normed first when qg /
 // kg are given) quantized per (frame, head) by q8_kernel and the attention
 // on the core's int8-QK path (attention_sm90_q8.cuh), V read from the fp32
-// qkv. Extra scratch: qi, ki int8 [B*L, C], qs, ks fp32 [B, H].
+// qkv [B*L, 3 Cp] fp32. Extra scratch: qi, ki int8 [B*L, Cp], qs, ks fp32
+// [B, H].
 int gvf_self_sublayer_q8(const void* x, const void* sh, const void* sc,
                          const void* gate, const void* wqkv, const void* bqkv,
                          const void* qg, const void* kg, const void* wo,
@@ -544,35 +583,40 @@ int gvf_self_sublayer_q8(const void* x, const void* sh, const void* sc,
                          int C, int H, int mod_repeat, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L, rpm = (long long)L * mod_repeat;
-  if (!q8_heads_ok(C, H) || B > 65535) return (int)cudaErrorInvalidValue;
-  const int D = C / H;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int D = C / H, Cp = H * W;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wqkv, bqkv, nullptr, (float*)qkv, R, 3 * C, C, s)));
+      h, wqkv, bqkv, nullptr, (float*)qkv, R, 3 * Cp, C, s)));
   QuantParams qp = {};
   qp.s1 = L; qp.s_outer = 1; qp.cells2 = 1; qp.n_outer = L; qp.n_inner = 1;
-  GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, C, H, qp, B, s));
+  GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, Cp, H, qp, B, s));
   sm90::Q8AttnParams p = {};
   p.q = (const signed char*)qi; p.qs = (const float*)qs;
   p.k = (const signed char*)ki; p.ks = (const float*)ks;
-  p.v = (const float*)qkv + 2 * C; p.o = (bf16*)attn;
-  p.q_s1 = p.k_s1 = p.o_s1 = (long long)L * C; p.q_si = p.k_sj = p.o_si = C;
-  p.v_s1 = (long long)L * 3 * C; p.v_sj = 3 * C;
+  p.v = (const float*)qkv + 2 * Cp; p.o = (bf16*)attn;
+  p.q_s1 = p.k_s1 = p.o_s1 = (long long)L * Cp;
+  p.q_si = p.k_sj = p.o_si = Cp;
+  p.v_s1 = (long long)L * 3 * Cp; p.v_sj = 3 * Cp;
   p.Lq = p.Lk = L; p.H = H; p.q_block = L;
   p.scale = (float)(1.0 / sqrt((double)D));
-  if (D == 32)
+  if (W == 32)
     GVF_CHECK((sm90::launch_attn_sm90_q8<32, sm90::Q8_SELF>(p, B, s)));
-  else
+  else if (W == 64)
     GVF_CHECK((sm90::launch_attn_sm90_q8<64, sm90::Q8_SELF>(p, B, s)));
-  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
+  else
+    GVF_CHECK((sm90::launch_attn_sm90_q8<128, sm90::Q8_SELF>(p, B, s)));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, Cp, rpm, s));
   return 0;
 }
 
 // K2 quant_qk: as gvf_temporal_sublayer; a cell is one batch row x `nc`
 // voxels x all T frames (the TPU grid instance), while attention couples
 // only the T rows of one voxel: the fp32 qkv projection, q8_kernel, then
-// temporal_sm90.cuh's int8-QK path with V read from the fp32 qkv. Extra
-// scratch: qi, ki int8 [B*T*N, C], qs, ks fp32 [B * N / nc, H].
+// temporal_sm90.cuh's int8-QK path with V read from the fp32 qkv [B*T*N,
+// 3 Cp]. Extra scratch: qi, ki int8 [B*T*N, Cp], qs, ks fp32 [B * N / nc,
+// H].
 int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
                              const void* gate, const void* wqkv,
                              const void* bqkv, const void* qg, const void* kg,
@@ -582,23 +626,25 @@ int gvf_temporal_sublayer_q8(const void* x, const void* sh, const void* sc,
                              int nc, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * T * N, rpm = (long long)T * N;
-  if (nc < 1 || N % nc || !q8_heads_ok(C, H))
-    return (int)cudaErrorInvalidValue;
+  const int W = sublayer_width(C, H);
+  if (nc < 1 || N % nc || !W || C % 8) return (int)cudaErrorInvalidValue;
+  const int Cp = H * W;
   GVF_CHECK((launch_ln<bf16, NORM_MOD>((const bf16*)x, sh, sc, h, R, C, rpm, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wqkv, bqkv, nullptr, (float*)qkv, R, 3 * C, C, s)));
+      h, wqkv, bqkv, nullptr, (float*)qkv, R, 3 * Cp, C, s)));
   QuantParams qp = {};
   qp.s1 = (long long)T * N; qp.s2 = nc; qp.s_outer = N;
   qp.cells2 = N / nc; qp.n_outer = T; qp.n_inner = nc;
-  GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, C, H, qp,
+  GVF_CHECK(quantize_qk((float*)qkv, qg, kg, qi, ki, qs, ks, Cp, H, qp,
                         B * (N / nc), s));
   GVF_CHECK(temporal_core(qkv, qi, ki, qs, ks, attn, B, T, N, C, H, nc, s));
-  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, C, rpm, s));
+  GVF_CHECK(gated_out(x, gate, wo, bo, attn, y, R, C, Cp, rpm, s));
   return 0;
 }
 
 // K2's attention step alone, for the card tests (temporal_core's
-// arguments; qi null: the float form).
+// arguments: C and H give the heads' width, the buffers are at its card
+// width; qi null: the float form).
 int gvf_temporal_attention_sm90(const void* qkv, const void* qi,
                                 const void* ki, const void* qs,
                                 const void* ks, void* o, int B, int T, int N,
@@ -607,11 +653,12 @@ int gvf_temporal_attention_sm90(const void* qkv, const void* qi,
                             (cudaStream_t)stream);
 }
 
-// K3. x, y [B, L, C]; per context i (image, then static): affine LN
-// (ns, nb [C]), wq [C, C], bq, qg [C] the q RMS-norm gamma or null (no
-// norm; the cached k carries its own), wo [C, C], bo, and the cached k, v
-// [B, Lk_i, C]; heads of 32 or 64. Scratch: h bf16, q fp32, attn bf16, mid
-// fp32 (the fp32 residual between the two contexts), each [B*L, C].
+// K3. x, y [B, L, C]; heads as K1's (Cp = H W); per context i (image,
+// then static): affine LN (ns, nb [C]), wq [Cp, C], bq [Cp], qg [Cp] the q
+// RMS-norm gamma or null (no norm; the cached k carries its own), wo
+// [C, Cp], bo [C], and the cached k, v [B, Lk_i, Cp]. Scratch: h bf16 and
+// mid fp32 (the fp32 residual between the two contexts), each [B*L, C]; q
+// fp32 and attn bf16, each [B*L, Cp].
 int gvf_cross_sublayer(const void* x,
                        const void* ns1, const void* nb1, const void* wq1,
                        const void* bq1, const void* qg1, const void* wo1,
@@ -623,42 +670,44 @@ int gvf_cross_sublayer(const void* x,
                        int L, int C, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
-  const int D = C / H;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8) return (int)cudaErrorInvalidValue;
+  const int D = C / H, Cp = H * W;
   auto attend = [&](const void* k, const void* v, int lk,
                     const void* qg) -> cudaError_t {
     AttnParams p;
     p.q = q; p.k = k; p.v = v; p.o = (bf16*)attn;
-    p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
-    p.k_s1 = (long long)lk * C; p.k_s2 = 0; p.k_sj = C;
-    p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
+    p.q_s1 = (long long)L * Cp; p.q_s2 = 0; p.q_si = Cp;
+    p.k_s1 = (long long)lk * Cp; p.k_s2 = 0; p.k_sj = Cp;
+    p.o_s1 = (long long)L * Cp; p.o_s2 = 0; p.o_si = Cp;
     p.nb2 = 1; p.Lq = L; p.Lk = lk;
     p.qg = (const bf16*)qg; p.kg = nullptr;
     return launch_cross_attn(p, H, B, D, s);
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wq1, bq1, nullptr, (float*)q, R, C, C, s)));
+      h, wq1, bq1, nullptr, (float*)q, R, Cp, C, s)));
   GVF_CHECK(attend(k1, v1, lk1, qg1));
   GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, float>(
-      attn, wo1, bo1, (const bf16*)x, (float*)mid, R, C, C, s)));
+      attn, wo1, bo1, (const bf16*)x, (float*)mid, R, C, Cp, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wq2, bq2, nullptr, (float*)q, R, C, C, s)));
+      h, wq2, bq2, nullptr, (float*)q, R, Cp, C, s)));
   GVF_CHECK(attend(k2, v2, lk2, qg2));
   GVF_CHECK((sm90::launch_gemm_sm90<true, float, bf16>(
-      attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, C, s)));
+      attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, Cp, s)));
   return 0;
 }
 
 // K3, one context (the SLat torso's image cross-attention). x, y [B, L, C],
 // both bf16 or, with x_f32, both fp32 (the SLat torso's residual stream is
-// fp32, as in the JAX package); affine LN (ns, nb [C]), wq [C, C], bq,
-// wo [C, C], bo; the cached k, v rows with heads of 32, 64 or 128 (the
-// torso at 32, 16 or 8 heads), element (b, j, c)
-// at b * kv_sb + j * kv_sl + c (the k/v halves of one [B, Lk, 2C]
-// projection go in place); qg [C] bf16, the q RMS-norm gamma (rms=True,
-// normed in the attention core's prologue), or null; the residual
-// un-gated. Scratch: h bf16, q fp32, attn bf16, each [B*L, C].
+// fp32, as in the JAX package); heads as K1's (Cp = H W); affine LN (ns,
+// nb [C]), wq [Cp, C], bq [Cp], wo [C, Cp], bo [C]; the cached k, v rows
+// of Cp channels, element (b, j, c) at b * kv_sb + j * kv_sl + c (the k/v
+// halves of one [B, Lk, 2C] projection go in place); qg [Cp] bf16, the q
+// RMS-norm gamma (rms=True, normed in the attention core's prologue), or
+// null; the residual un-gated. Scratch: h bf16 [B*L, C], q fp32 and attn
+// bf16 [B*L, Cp].
 int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
                         const void* wq, const void* bq, const void* qg,
                         const void* wo, const void* bo, const void* k,
@@ -668,38 +717,40 @@ int gvf_cross_sublayer1(const void* x, const void* ns, const void* nb,
                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
-  const int D = C / H;
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8) return (int)cudaErrorInvalidValue;
+  const int D = C / H, Cp = H * W;
   if (x_f32)
     GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
   else
     GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns, nb, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wq, bq, nullptr, (float*)q, R, C, C, s)));
+      h, wq, bq, nullptr, (float*)q, R, Cp, C, s)));
   AttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = (bf16*)attn;
-  p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
+  p.q_s1 = (long long)L * Cp; p.q_s2 = 0; p.q_si = Cp;
   p.k_s1 = kv_sb; p.k_s2 = 0; p.k_sj = kv_sl;
-  p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
+  p.o_s1 = (long long)L * Cp; p.o_s2 = 0; p.o_si = Cp;
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
   p.qg = (const bf16*)qg; p.kg = nullptr;
   GVF_CHECK(launch_cross_attn(p, H, B, D, s));
   if (x_f32)
     GVF_CHECK((sm90::launch_gemm_sm90<true, float, float>(
-        attn, wo, bo, (const float*)x, (float*)y, R, C, C, s)));
+        attn, wo, bo, (const float*)x, (float*)y, R, C, Cp, s)));
   else
     GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, bf16>(
-        attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, C, s)));
+        attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, Cp, s)));
   return 0;
 }
 
 // K3, one context, fp32 (compute_dtype=float32): as gvf_cross_sublayer1 with
-// every tensor fp32 (x, y, ns, nb, wq [C, C] as [out, in], bq, qg [C] the
-// q RMS-norm gamma or null, wo, bo, and k, v, rows 16-byte aligned), no
-// operand rounded to bf16, the products by the 3xTF32 split, q normed in
-// fp32 in the attention's prologue; heads of 32, 64 or 128. Scratch, fp32: h and attn [2,
-// B*L, C] (the split halves of the LN output and of the attention output),
-// q [B*L, C], wsplit [4, C, C] (wq's halves, then wo's).
+// every tensor fp32 (x, y, ns, nb, wq [Cp, C] as [out, in], bq, qg [Cp]
+// the q RMS-norm gamma or null, wo [C, Cp], bo, and k, v, rows 16-byte
+// aligned), no operand rounded to bf16, the products by the 3xTF32 split,
+// q normed in fp32 in the attention's prologue; heads as K1's (Cp = H W).
+// Scratch, fp32: h [2, B*L, C] and attn [2, B*L, Cp] (the split halves of
+// the LN output and of the attention output), q [B*L, Cp], wsplit
+// [4, Cp * C] (wq's halves, then wo's).
 int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
                             const void* wq, const void* bq, const void* qg,
                             const void* wo, const void* bo, const void* k,
@@ -708,11 +759,11 @@ int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
                             void* h, void* q, void* attn, void* wsplit, int B,
                             int L, int C, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long R = (long long)B * L, RC = R * C, CC = (long long)C * C;
-  const int D = H < 1 ? 0 : C / H;
-  if (H < 1 || C % H || (D != 32 && D != 64 && D != 128) || C % 8 ||
-      B > 65535)
-    return (int)cudaErrorInvalidValue;
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int D = C / H, Cp = H * W;
+  const long long R = (long long)B * L, RC = R * C, RCp = R * Cp,
+                  CC = (long long)Cp * C;
   float* hs = (float*)h;
   float* as = (float*)attn;
   float* ws = (float*)wsplit;
@@ -724,37 +775,37 @@ int gvf_cross_sublayer1_f32(const void* x, const void* ns, const void* nb,
   GVF_CHECK(cudaGetLastError());
   GVF_CHECK(sm90::launch_gemm_tf32<false>(hs, hs + RC, ws, ws + CC,
                                           (const float*)bq, nullptr,
-                                          (float*)q, R, C, C, s));
+                                          (float*)q, R, Cp, C, s));
   AttnParams p;
-  p.q = q; p.k = k; p.v = v; p.o = as; p.o_lo = as + RC;
-  p.q_s1 = (long long)L * C; p.q_s2 = 0; p.q_si = C;
+  p.q = q; p.k = k; p.v = v; p.o = as; p.o_lo = as + RCp;
+  p.q_s1 = (long long)L * Cp; p.q_s2 = 0; p.q_si = Cp;
   p.k_s1 = kv_sb; p.k_s2 = 0; p.k_sj = kv_sl;
-  p.o_s1 = (long long)L * C; p.o_s2 = 0; p.o_si = C;
+  p.o_s1 = (long long)L * Cp; p.o_s2 = 0; p.o_si = Cp;
   p.nb2 = 1; p.Lq = L; p.Lk = lk;
   p.qg = nullptr; p.kg = nullptr; p.qg_f32 = (const float*)qg;
   p.scale = (float)(1.0 / sqrt((double)D));
   p.scale_log2 = p.scale * LOG2E;
-  if (D == 32)
+  if (W == 32)
     GVF_CHECK(sm90::launch_attn_tf32<32>(p, H, B, s));
-  else if (D == 64)
+  else if (W == 64)
     GVF_CHECK(sm90::launch_attn_tf32<64>(p, H, B, s));
   else
     GVF_CHECK(sm90::launch_attn_tf32<128>(p, H, B, s));
-  GVF_CHECK(sm90::launch_gemm_tf32<true>(as, as + RC, ws + 2 * CC,
+  GVF_CHECK(sm90::launch_gemm_tf32<true>(as, as + RCp, ws + 2 * CC,
                                          ws + 3 * CC, (const float*)bo,
-                                         (const float*)x, (float*)y, R, C, C,
+                                         (const float*)x, (float*)y, R, C, Cp,
                                          s));
   return 0;
 }
 
-// K3, int8 form (quant=True). As gvf_cross_sublayer, with per context the
-// int8 cache: k, v [B, Lk_i, C] int8, ks_t [B, H, Lk_i] and vs [B, Lk_i, H]
-// bf16 scales; heads of 32 or 64; q RMS-normalized with qg (or not, null)
-// and then quantized per (cell of q_block rows, head) by q8_kernel, the
-// attention on the core's int8-QK path (attention_sm90_q8.cuh), the
-// projections on the Hopper GEMM as the float form's. Scratch: h bf16, q
-// fp32, qi int8, attn bf16, mid fp32, each [B*L, C], and qs fp32
-// [B*L / q_block, H].
+// K3, int8 form (quant=True). As gvf_cross_sublayer (heads, weights and
+// gammas as its), with per context the int8 cache: k, v [B, Lk_i, Cp]
+// int8, ks_t [B, H, Lk_i] and vs [B, Lk_i, H] bf16 scales; q
+// RMS-normalized with qg (or not, null) and then quantized per (cell of
+// q_block rows, head) by q8_kernel, the attention on the core's int8-QK
+// path (attention_sm90_q8.cuh), the projections on the Hopper GEMM as the
+// float form's. Scratch: h bf16 and mid fp32, each [B*L, C]; q fp32, qi
+// int8 and attn bf16, each [B*L, Cp]; qs fp32 [B*L / q_block, H].
 int gvf_cross_sublayer_q8(const void* x,
                           const void* ns1, const void* nb1, const void* wq1,
                           const void* bq1, const void* qg1, const void* wo1,
@@ -769,8 +820,10 @@ int gvf_cross_sublayer_q8(const void* x,
                           int q_block, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
-  if (!q8_heads_ok(C, H) || q_block < 1 || L % q_block || B > 65535)
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8 || q_block < 1 || L % q_block || B > 65535)
     return (int)cudaErrorInvalidValue;
+  const int Cp = H * W;
   auto attend = [&](const void* k, const void* v, const void* ks,
                     const void* vs, int lk, const void* qg) -> cudaError_t {
     return cross_attend_q8(q, qi, qs, attn, k, v, ks, vs, lk, qg, B, L, C, H,
@@ -778,26 +831,26 @@ int gvf_cross_sublayer_q8(const void* x,
   };
   GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns1, nb1, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wq1, bq1, nullptr, (float*)q, R, C, C, s)));
+      h, wq1, bq1, nullptr, (float*)q, R, Cp, C, s)));
   GVF_CHECK(attend(k1, v1, ks1, vs1, lk1, qg1));
   GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, float>(
-      attn, wo1, bo1, (const bf16*)x, (float*)mid, R, C, C, s)));
+      attn, wo1, bo1, (const bf16*)x, (float*)mid, R, C, Cp, s)));
   GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)mid, ns2, nb2, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wq2, bq2, nullptr, (float*)q, R, C, C, s)));
+      h, wq2, bq2, nullptr, (float*)q, R, Cp, C, s)));
   GVF_CHECK(attend(k2, v2, ks2, vs2, lk2, qg2));
   GVF_CHECK((sm90::launch_gemm_sm90<true, float, bf16>(
-      attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, C, s)));
+      attn, wo2, bo2, (const float*)mid, (bf16*)y, R, C, Cp, s)));
   return 0;
 }
 
 // K3, one context, int8 cache (quant=True with p2 = None): x, y [B, L, C],
 // both bf16 or, with x_f32, both fp32; affine LN (ns, nb [C] bf16), wq, bq,
-// qg (or null), wo, bo as gvf_cross_sublayer1's; the int8 cache k, v
-// [B, lk, C] with ks [B, H, lk] and vs [B, lk, H] bf16 scales; heads of 32
-// or 64; q quantized per (cell of q_block rows, head) as the two-context
-// form's. Scratch: h bf16, q fp32, qi int8, attn bf16, each [B*L, C], and
-// qs fp32 [B*L / q_block, H].
+// qg (or null), wo, bo and the heads as gvf_cross_sublayer1's; the int8
+// cache k, v [B, lk, Cp] with ks [B, H, lk] and vs [B, lk, H] bf16 scales;
+// q quantized per (cell of q_block rows, head) as the two-context form's.
+// Scratch: h bf16 [B*L, C]; q fp32, qi int8 and attn bf16, each
+// [B*L, Cp]; qs fp32 [B*L / q_block, H].
 int gvf_cross_sublayer1_q8(const void* x, const void* ns, const void* nb,
                            const void* wq, const void* bq, const void* qg,
                            const void* wo, const void* bo, const void* k,
@@ -807,22 +860,24 @@ int gvf_cross_sublayer1_q8(const void* x, const void* ns, const void* nb,
                            int q_block, int x_f32, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long R = (long long)B * L;
-  if (!q8_heads_ok(C, H) || q_block < 1 || L % q_block || B > 65535)
+  const int W = sublayer_width(C, H);
+  if (!W || C % 8 || q_block < 1 || L % q_block || B > 65535)
     return (int)cudaErrorInvalidValue;
+  const int Cp = H * W;
   if (x_f32)
     GVF_CHECK((launch_ln<float, NORM_AFFINE>((const float*)x, ns, nb, h, R, C, 1, s)));
   else
     GVF_CHECK((launch_ln<bf16, NORM_AFFINE>((const bf16*)x, ns, nb, h, R, C, 1, s)));
   GVF_CHECK((sm90::launch_gemm_sm90<false, float, float>(
-      h, wq, bq, nullptr, (float*)q, R, C, C, s)));
+      h, wq, bq, nullptr, (float*)q, R, Cp, C, s)));
   GVF_CHECK(cross_attend_q8(q, qi, qs, attn, k, v, ks, vs, lk, qg, B, L, C,
                             H, q_block, s));
   if (x_f32)
     GVF_CHECK((sm90::launch_gemm_sm90<true, float, float>(
-        attn, wo, bo, (const float*)x, (float*)y, R, C, C, s)));
+        attn, wo, bo, (const float*)x, (float*)y, R, C, Cp, s)));
   else
     GVF_CHECK((sm90::launch_gemm_sm90<true, bf16, bf16>(
-        attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, C, s)));
+        attn, wo, bo, (const bf16*)x, (bf16*)y, R, C, Cp, s)));
   return 0;
 }
 

@@ -75,13 +75,15 @@
 //    stages at 25 KB at heads of 32 (two CTAs an SM) and 49 KB at heads of
 //    64 (one). The output goes back through the finished stage as 16-byte
 //    stores (fp32 rows padded by 8 floats, conflict-free float2 writes).
-//  - Heads of 128 (K6 only; a head of another width arrives zero-padded to
-//    32, 64 or 128 by its wrapper): O's accumulators take 128 registers a
-//    thread, twice those at 64, and Q's fragments held across the key
-//    tiles would take 64 more. So at 128 the warp reads Q's fragments from
-//    the stage at each k-step of S instead of holding them, and loads Q's
-//    rows with every item (the same rows again when T > 32). The fp32
-//    stages take 97 KB a warp there: a CTA holds 2 warps (4 elsewhere).
+//  - Heads of 128 (K6, and K2 in both forms; a head of another width
+//    arrives zero-padded to 32, 64 or 128 by its wrapper): O's accumulators
+//    take 128 registers a thread, twice those at 64, and Q's fragments held
+//    across the key tiles would take 64 more (32 as int8). So at 128 the
+//    warp reads Q's fragments from the stage at each k-step of S instead of
+//    holding them, and loads Q's rows with every item (the same rows again
+//    when T > 32); the int8 form takes its s8 products there as it does
+//    below 128. The fp32 stages take 97 KB a warp there: a CTA holds 2
+//    warps (4 elsewhere).
 
 #pragma once
 
@@ -225,7 +227,6 @@ __launch_bounds__(TLayout<D, F>::NW * 32, TLayout<D, F>::CTAS)
     temporal_sm90_kernel(const TemporalParams p) {
   using L = TLayout<D, F>;
   constexpr bool Q8 = L::Q8, F32 = L::F32;
-  static_assert(L::QHELD || !Q8, "heads of 128 in the shift forms only");
   constexpr bool SHIFT = F != TForm::Float;  // the fixed exp2 shift
   constexpr int ES = L::ES, VS = L::VS, OS = L::OS;
   constexpr int KS = Q8 ? D / 32 : D / 16;  // k-steps of S = Q K^T
@@ -408,8 +409,13 @@ __launch_bounds__(TLayout<D, F>::NW * 32, TLayout<D, F>::CTAS)
           }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(s[mt][2 * jp], a[mt], b[0], b[1]);
-            mma_bf16(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
+            if constexpr (Q8) {
+              mma_s8(si[mt][2 * jp], a[mt], b[0], b[1]);
+              mma_s8(si[mt][2 * jp + 1], a[mt], b[2], b[3]);
+            } else {
+              mma_bf16(s[mt][2 * jp], a[mt], b[0], b[1]);
+              mma_bf16(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
+            }
           }
         }
       }
@@ -563,8 +569,7 @@ __launch_bounds__(TLayout<D, F>::NW * 32, TLayout<D, F>::CTAS)
   cp_async_wait<0>();
 }
 
-// heads of 32 or 64 (K6's shift forms also 128); q/k/v rows and their
-// bases 16-byte aligned
+// heads of 32, 64 or 128; q/k/v rows and their bases 16-byte aligned
 template <int D, TForm F>
 cudaError_t launch_temporal(const TemporalParams& p, cudaStream_t s) {
   using L = TLayout<D, F>;

@@ -15,8 +15,9 @@ bias up to 4096 slots (a compacted torso), past that K7, the streaming
 flash kernel over key validity (the default `torso_capacity=None` at 32768
 voxel slots), in the model's dtype (bf16, or fp32 as the registry builds
 TRELLIS). The cross sublayer is K3 in its single-context form
-(ops/fused_sublayer.py; on the card it takes heads of 32, 64 or 128 and raises
-otherwise) at any slot count, computing in the model's dtype; with the
+(ops/fused_sublayer.py; on the card it takes every head width that
+divides 128 and raises otherwise) at any slot count, computing in the
+model's dtype; with the
 cross q/k RMS norm (`qk_rms_norm_cross`, off in the released model) it
 composes as JAX does (its gate, slat_flow.py:221): an affine LayerNorm, a
 cross `SparseMultiHeadAttention` through `full_sparse_attention` with every

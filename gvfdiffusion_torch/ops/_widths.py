@@ -1,15 +1,26 @@
-"""The head widths the card's attention kernels run (K5, K6, K7).
+"""The head widths the card's attention kernels run, and where.
 
-The JAX dispatch rules admit any head width D that is a multiple of 8 up
-to 128 (`fused_attention.supports`, `temporal_supports`; K7 through
+K5, K6 and K7 (`fused_attention`, `flash_attention`): the JAX dispatch
+rules admit any head width D that is a multiple of 8 up to 128
+(`fused_attention.supports`, `temporal_supports`; K7 through
 `sparse/attention.full_sparse_attention`). The CUDA kernels are built at
 three widths, 32, 64 and 128. A head of another width runs at the next of
 them (`card_width`): its wrapper copies q, k and v into zero-padded
 buffers (`pad_heads`), launches the kernel with the scale of the true
 width, D ** -0.5, and keeps the first D columns of the output (and of dq,
-dk and dv). The zero columns change neither q . k nor any row's maximum,
-sum or logsumexp, nor an int8 form's max-abs scales, and they give zero in
-the dropped columns: the function is the one at width D.
+dk and dv).
+
+K1, K2 and K3 (`fused_sublayer`): their rules admit every head width that
+divides 128 (`_LANES % D == 0`: 1, 2, 4, 8, 16, 32, 64 and 128,
+`SUBLAYER_WIDTHS`). A head of 32, 64 or 128 runs at its own width; a
+narrower one at 32 (`sublayer_card_width`), padded in the projections'
+weights (`fused_sublayer.widen_self_weights`, `widen_cross_params`) and in
+K3's cache, with the scale of the true width.
+
+Either way the zero columns change neither q . k nor any row's maximum,
+sum or logsumexp, nor an int8 form's max-abs scales, nor a per-head RMS
+norm (whose padded gammas are zero), and they give zero in the dropped
+columns: the function is the one at width D.
 """
 
 from __future__ import annotations
@@ -18,8 +29,10 @@ import torch
 
 # the widths the kernels are instantiated at
 CARD_WIDTHS = (32, 64, 128)
-# every head width a dispatch rule admits: multiples of 8 up to 128
+# every head width K5's, K6's and K7's rules admit: multiples of 8 up to 128
 WIDTHS = tuple(range(8, 129, 8))
+# every head width K1's, K2's and K3's rules admit: the divisors of 128
+SUBLAYER_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def card_width(d: int) -> int:
@@ -30,6 +43,16 @@ def card_width(d: int) -> int:
         raise ValueError(f"the attention kernels take heads of a multiple of "
                          f"8 up to 128 (run at {CARD_WIDTHS}), got {d}")
     return next(w for w in CARD_WIDTHS if d <= w)
+
+
+def sublayer_card_width(d: int) -> int:
+    """The width K1-K3's kernels run a head of width d at: d itself from 32
+    up, 32 below. Raises for a width their rules refuse (not dividing
+    128)."""
+    if d not in SUBLAYER_WIDTHS:
+        raise ValueError(f"the sublayer kernels take heads of a width that "
+                         f"divides 128, {SUBLAYER_WIDTHS}, got {d}")
+    return max(d, 32)
 
 
 def width_suffix(d: int) -> str:

@@ -11,21 +11,27 @@ Each sublayer has two versions:
     `impl="plain"` forces the plain version on any device, for comparing
     the two on the card.
 
-The JAX kernels' configurations that a path of the system reaches are
-ported: heads of 32 or 64 for the self, temporal and two-context cross
-sublayers, and their `rms` flag with JAX's defaults (q/k RMS norms on the
-self and temporal sublayers unless `rms=False`; on the cross sublayer,
-`rms=True` norms q, the cached k having been normed when the cache was
-built); one cross context at heads of 32, 64 or 128, with or without the
-q RMS norm, for the SLat flow torso, in bf16 or, at
+The JAX kernels' configurations are ported at every head width D that
+their rules admit (`*_sublayer_supports`: D divides 128), in every form:
+the self, temporal and two-context cross sublayers with their `rms` flag
+at JAX's defaults (q/k RMS norms on the self and temporal sublayers unless
+`rms=False`; on the cross sublayer, `rms=True` norms q, the cached k
+having been normed when the cache was built); one cross context, with or
+without the q RMS norm, for the SLat flow torso, in bf16 or, at
 compute_dtype=float32 (the torso of TRELLIS as the registry builds it), in
 fp32 with no operand rounded to bf16: an fp32 LN, the projections and the
 attention by the 3xTF32 split on the tensor cores
 (`gvf_cross_sublayer1_f32`; every tensor fp32, the q norm in fp32). The
+kernels run a head at its card width (`_widths.sublayer_card_width`: D
+from 32 up, 32 below); a narrower head is zero-padded in the projections'
+weights (`widen_self_weights`, `widen_cross_params`) and K3's cache
+(`widen_heads`) by the wrappers, the scale staying D ** -0.5: zero lanes
+change no score, maximum, row sum, RMS norm or int8 max-abs scale, so the
+function is the one at width D. The
 JAX kernel's `kv_buffers` sized its VMEM residency on the
 TPU and has no counterpart here. Its int8 `quant` form (the DiT's two
-contexts against an int8 KV cache from `quantize_kv`, and one context at
-heads of 32 or 64, with or without `rms`) is ported with its
+contexts against an int8 KV cache from `quantize_kv`, and one context,
+with or without `rms`) is ported with its
 arithmetic: `cross_sublayer_q8_reference` is its plain version, and
 `cross_sublayer_reference(quant=True)` the JAX package's oracle on the
 dequantized cache. That form quantizes q (after its RMS norm, with `rms`)
@@ -54,16 +60,18 @@ block's gate to the fused path, less their `vmem_est` terms: those size
 the TPU kernel's VMEM residency and have no counterpart on Hopper.
 
 `launch_counts` counts kernel launches per sublayer (one per launched
-chain; "cross" for the two-context form, "cross_single" for the single,
-"cross_q8" for the int8 form, "self_q8" and "temporal_q8" for the int8-QK
-self forms, "self_seg" and "self_seg_q8" for K1 with seg, "temporal_core"
-for temporal_sublayer_attention, the temporal sublayer's attention step
-called alone); the plain version never counts. A counter covers every
-head width and `rms` setting of its form, a run's configuration telling
-them apart, but for the single-context form, whose counter is keyed by
-form, dtype and head width as K7's (`single_launch_key`: "cross_single",
-"cross_single_fp32", "cross_single_d128", "cross_single_rms",
-"cross_single_rms_fp32", "cross_single_q8", ...).
+chain; "cross" for the two-context form, "cross_q8" for its int8 form,
+"self_q8" and "temporal_q8" for the int8-QK self forms, "self_seg" and
+"self_seg_q8" for K1 with seg, "temporal_core" for
+temporal_sublayer_attention, the temporal sublayer's attention step called
+alone); the plain version never counts. A form's counter covers heads of
+32 and 64 and every `rms` setting, a run's configuration telling them
+apart; at every other width it has a counter of its own named by the true
+width (`launch_key`: "self_d16", "cross_q8_d128", ...). The single-context
+form's counter is keyed by form, dtype and head width as K7's
+(`single_launch_key`: "cross_single", "cross_single_fp32",
+"cross_single_d128", "cross_single_rms", "cross_single_rms_fp32",
+"cross_single_q8", "cross_single_d16", ...).
 
 The backward of every sublayer wrapper, on every device and with
 impl="plain" too, is the JAX custom_vjp's (`_self_bwd`, `_temporal_bwd`,
@@ -82,13 +90,21 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ._widths import SUBLAYER_WIDTHS, sublayer_card_width
+
 _LN_EPS = 1e-6
 _RMS_EPS = 1e-12
 
 _LOG2E = 1.4426950408889634
 _SHIFT = 30.0  # the TPU kernels' fixed exp2 shift
 
-_SINGLE_WIDTHS = (32, 64, 128)
+def launch_key(form: str, head_dim: int) -> str:
+    """The counter of a launch of `form` ("self", "temporal", "cross",
+    "self_q8", "temporal_q8", "cross_q8", "self_seg", "self_seg_q8",
+    "temporal_core") at heads of head_dim: the form's own name at 32 and 64
+    (the widths its kernels served first), "<form>_d<head_dim>" at the
+    others."""
+    return form if head_dim in (32, 64) else f"{form}_d{head_dim}"
 
 
 def single_launch_key(dtype: torch.dtype, head_dim: int, rms: bool = False,
@@ -101,14 +117,16 @@ def single_launch_key(dtype: torch.dtype, head_dim: int, rms: bool = False,
             + ("" if head_dim == 64 else f"_d{head_dim}"))
 
 
+_FORMS = ("self", "temporal", "cross", "self_q8", "temporal_q8",
+          "cross_q8", "self_seg", "self_seg_q8", "temporal_core")
 launch_counts = {"self": 0, "temporal": 0, "cross": 0, "mlp": 0,
-                 "cross_q8": 0, "self_q8": 0, "temporal_q8": 0,
-                 "temporal_core": 0, "self_seg": 0, "self_seg_q8": 0,
-                 **{single_launch_key(dt, d, rms): 0 for d in _SINGLE_WIDTHS
+                 **{launch_key(f, d): 0 for d in SUBLAYER_WIDTHS
+                    for f in _FORMS},
+                 **{single_launch_key(dt, d, rms): 0 for d in SUBLAYER_WIDTHS
                     for dt in (torch.bfloat16, torch.float32)
                     for rms in (False, True)},
                  **{single_launch_key(torch.bfloat16, d, quant=True): 0
-                    for d in (32, 64)}}
+                    for d in SUBLAYER_WIDTHS}}
 # voxels per cell of the temporal sublayer (JAX `_TEMPORAL_NC`), halved
 # until it divides N
 _TEMPORAL_NC = 16
@@ -314,7 +332,9 @@ def temporal_sublayer_attention(qkv, num_heads: int, *, quant=None,
     bf16 for P V. int8 QK: quant = (qi, ki, qs, ks), int8 q and k
     [B, T, N, C] with fp32 scales [B * N // nc, H], one per (batch row,
     group of nc = voxel_group or temporal_voxel_group(N) voxels, head); qkv
-    fp32, v read from its last C columns; _qk8_attention's arithmetic."""
+    fp32, v read from its last C columns; _qk8_attention's arithmetic. On
+    the card a head narrower than 32 runs zero-padded (widen_heads), its
+    output cut back."""
     B, T, N, C3 = qkv.shape
     C, H = C3 // 3, num_heads
     D = C // H
@@ -346,9 +366,9 @@ def temporal_sublayer_attention(qkv, num_heads: int, *, quant=None,
         raise RuntimeError("temporal_sublayer_attention's kernel has no "
                            "backward pass; call it under torch.no_grad() "
                            "(fused_temporal_sublayer differentiates)")
-    if C % H or D not in (32, 64) or C % 16:
-        raise ValueError(f"head width must be 32 or 64 over C a multiple "
-                         f"of 16, got {C}/{H}")
+    if C % H or D not in SUBLAYER_WIDTHS or C % 8:
+        raise ValueError(f"head width must divide 128, over C a multiple "
+                         f"of 8, got {C}/{H}")
     want = torch.bfloat16 if quant is None else torch.float32
     if qkv.dtype != want or not qkv.is_contiguous():
         raise TypeError(f"qkv must be a contiguous {want} tensor")
@@ -361,11 +381,14 @@ def temporal_sublayer_attention(qkv, num_heads: int, *, quant=None,
                 for a in q8[2:]) or any(a.device != qkv.device for a in q8):
             raise TypeError("quant takes int8 qi, ki [B, T, N, C] and fp32 "
                             "qs, ks [B * N // nc, H] on qkv's device")
-    o = torch.empty(B, T, N, C, device=qkv.device, dtype=torch.bfloat16)
+        q8 = (widen_heads(q8[0], D), widen_heads(q8[1], D), *q8[2:])
+    qkv = widen_heads(qkv, D)
+    o = torch.empty(B, T, N, H * sublayer_card_width(D), device=qkv.device,
+                    dtype=torch.bfloat16)
     _ext.call("gvf_temporal_attention_sm90", _ptr(qkv),
               *map(_ptr_or_null, q8), _ptr(o), B, T, N, C, H, nc)
-    launch_counts["temporal_core"] += 1
-    return o
+    launch_counts[launch_key("temporal_core", D)] += 1
+    return _narrow_heads(o, H, D)
 
 
 def quantize_kv(k: torch.Tensor, num_heads: int):
@@ -630,11 +653,11 @@ def _mod_rows(B: int, mod_repeat: int) -> int:
 
 
 def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
-                row_blocks: int, *tensors: torch.Tensor,
-                head_widths: Tuple[int, ...] = (32, 64)) -> None:
+                row_blocks: int, *tensors: torch.Tensor) -> int:
     """What the kernels take: bf16 CUDA tensors, C a multiple of 8, heads
-    of a width in `head_widths`, at most 65535 attention row blocks (a grid
-    limit)."""
+    of a width that divides 128 (the rules' widths), at most 65535
+    attention row blocks (a grid limit). Returns the heads' card width
+    (sublayer_card_width; 0 without heads)."""
     if compute_dtype != torch.bfloat16:
         raise TypeError("the CUDA sublayer kernels compute in bfloat16 only; "
                         f"got compute_dtype={compute_dtype}")
@@ -644,26 +667,103 @@ def _check_cuda(compute_dtype, num_heads: Optional[int], C: int,
                             f"tensors; got {t.dtype} on {t.device}")
     if C % 8:
         raise ValueError(f"channels must be a multiple of 8, got {C}")
-    if num_heads is not None and (C % num_heads
-                                  or C // num_heads not in head_widths):
-        raise ValueError(f"head width must be one of {head_widths}, got "
-                         f"{C}/{num_heads}")
     if row_blocks > 65535:
         raise ValueError(f"{row_blocks} attention row blocks exceed 65535")
+    return 0 if num_heads is None else _card_width(C, num_heads)
+
+
+def _card_width(C: int, num_heads: int) -> int:
+    if C % num_heads or C // num_heads not in SUBLAYER_WIDTHS:
+        raise ValueError(f"head width must divide 128, one of "
+                         f"{SUBLAYER_WIDTHS}; got {C}/{num_heads}")
+    return sublayer_card_width(C // num_heads)
 
 
 def _rep(a: torch.Tensor, mod_repeat: int) -> torch.Tensor:
     return a.repeat_interleave(mod_repeat, 0) if mod_repeat > 1 else a
 
 
-def _gammas(qg, kg, C: int, rms: bool):
-    """The kernels' q/k gamma arguments: the [C] lane gammas, or with
-    rms=False none (a null pointer skips the norm)."""
-    return (_vec(qg, C), _vec(kg, C)) if rms else (None, None)
-
-
 def _ptr_or_null(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+# -- heads narrower than the kernels' 32 lanes: zero-padded in the weights ----
+
+
+def _widen(t: Optional[torch.Tensor], dim: int, d: int,
+           w: int) -> Optional[torch.Tensor]:
+    """t with each run of d entries along dim (one head's; the heads in
+    order) zero-padded to w entries: a new contiguous tensor; t itself
+    (or None) at d == w."""
+    if t is None or d == w:
+        return t
+    dim %= t.dim()
+    t = t.unflatten(dim, (-1, d))
+    out = t.new_zeros(*t.shape[:dim + 1], w, *t.shape[dim + 2:])
+    out.narrow(dim + 1, 0, d).copy_(t)
+    return out.flatten(dim, dim + 1)
+
+
+def widen_heads(t: torch.Tensor, head_dim: int, dim: int = -1):
+    """t with each head's head_dim entries along dim zero-padded to the
+    kernels' card width (sublayer_card_width): K3's caches [B, Lk, C] ->
+    [B, Lk, Cp] (Cp = H * card width), a qkv projection [..., 3C] ->
+    [..., 3 Cp]; t itself from 32 lanes up."""
+    return _widen(t, dim, head_dim, sublayer_card_width(head_dim))
+
+
+def widen_self_weights(wqkv, bqkv, qg, kg, wo, num_heads: int):
+    """The self and temporal sublayers' head-holding parameters with each
+    head zero-padded to its card width (Cp = H * card width): wqkv
+    [C, 3C] -> [C, 3 Cp], bqkv [3 Cp], the lane gammas qg, kg [Cp] (None
+    stays None), wo [C, C] -> [Cp, C]. The weights are transposed views of
+    contiguous [out, in] tensors, as the kernels read them. With the scale
+    D ** -0.5 the sublayer computes the same function (module docstring);
+    unchanged from 32 lanes up."""
+    d = wo.shape[0] // num_heads
+    w = sublayer_card_width(d)
+    if d == w:
+        return wqkv, bqkv, qg, kg, wo
+    return (_widen(wqkv.t(), 0, d, w).t(), _widen(bqkv, 0, d, w),
+            _widen(qg, 0, d, w), _widen(kg, 0, d, w),
+            _widen(wo.t(), 1, d, w).t())
+
+
+def widen_cross_params(p, num_heads: int, rms: bool):
+    """A cross context's parameters (ns, nb, wq, bq, [qg,] wo, bo) as
+    (ns, nb, wq [C, Cp], bq [Cp], qg [Cp] or None without rms, wo [Cp, C],
+    bo): each head zero-padded as widen_self_weights pads them."""
+    ns, nb, wq, bq, qg, wo, bo = params = _cross_params(p, rms)
+    d = wo.shape[0] // num_heads
+    w = sublayer_card_width(d)
+    if d == w:
+        return params
+    return (ns, nb, _widen(wq.t(), 0, d, w).t(), _widen(bq, 0, d, w),
+            _widen(qg, 0, d, w), _widen(wo.t(), 1, d, w).t(), bo)
+
+
+def _narrow_heads(o: torch.Tensor, num_heads: int, d: int) -> torch.Tensor:
+    """[..., H W] -> the first d lanes of each head, [..., H d]."""
+    w = o.shape[-1] // num_heads
+    return o if w == d else o.unflatten(-1, (num_heads, w))[..., :d] \
+        .flatten(-2)
+
+
+def _self_args(sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, rows: int,
+               num_heads: int, rms: bool):
+    """The self sublayers' parameters as their C entries take them: the
+    modulation [rows, C] each, wqkv [3 Cp, C], bqkv [3 Cp], the gammas
+    [Cp] (None without rms), wo [C, Cp], bo [C]; each head at its card
+    width (widen_self_weights). The caller keeps the tuple alive until its
+    launch."""
+    C = wo.shape[1]
+    wqkv, bqkv, qg, kg, wo = widen_self_weights(
+        wqkv, bqkv, qg if rms else None, kg if rms else None, wo, num_heads)
+    Cp = wo.shape[0]
+    return (_vec(sh, rows * C), _vec(sc, rows * C), _vec(gate, rows * C),
+            _weight(wqkv, C, 3 * Cp), _vec(bqkv, 3 * Cp),
+            *(None if g is None else _vec(g, Cp) for g in (qg, kg)),
+            _weight(wo, Cp, C), _vec(bo, C))
 
 
 def fused_self_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
@@ -723,8 +823,9 @@ def _self_kernel(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
 
     B, L, C = x.shape
     Bm = _mod_rows(B, mod_repeat)
-    _check_cuda(compute_dtype, num_heads, C, B, x, sh, sc, gate, wqkv, bqkv,
-                wo, bo, *((qg, kg) if rms else ()))
+    W = _check_cuda(compute_dtype, num_heads, C, B, x, sh, sc, gate, wqkv,
+                    bqkv, wo, bo, *((qg, kg) if rms else ()))
+    D = C // num_heads
     if seg > 1:
         if L % seg:
             raise ValueError(f"seg {seg} does not divide {L} rows")
@@ -733,32 +834,31 @@ def _self_kernel(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
             _rep(sc, mod_repeat), _rep(gate, mod_repeat), wqkv, bqkv, qg, kg,
             wo, bo, num_heads=num_heads, rms=rms, quant_qk=quant_qk,
             voxel_group=seg)
-        launch_counts["self_seg_q8" if quant_qk else "self_seg"] += 1
+        launch_counts[launch_key("self_seg_q8" if quant_qk else "self_seg",
+                                 D)] += 1
         return y.reshape(B, L, C)
     x = x.contiguous()
-    gq, gk = _gammas(qg, kg, C, rms)
-    args = (_vec(sh, Bm * C), _vec(sc, Bm * C), _vec(gate, Bm * C),
-            _weight(wqkv, C, 3 * C), _vec(bqkv, 3 * C))
-    out_w = (_weight(wo, C, C), _vec(bo, C))
-    ptrs = (*map(_ptr, args), _ptr_or_null(gq), _ptr_or_null(gk),
-            *map(_ptr, out_w))
+    args = _self_args(sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, Bm,
+                      num_heads, rms)
+    Cp = num_heads * W
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
     # the int8-QK form quantizes the fp32 projection; the float form's
     # projection writes q/k (normed) and v in bf16
-    qkv = torch.empty(B * L, 3 * C, device=x.device,
+    qkv = torch.empty(B * L, 3 * Cp, device=x.device,
                       dtype=torch.float32 if quant_qk else torch.bfloat16)
-    attn = torch.empty_like(h)
+    attn = torch.empty(B * L, Cp, device=x.device, dtype=torch.bfloat16)
     if quant_qk:
-        q8 = _qk8_scratch(B * L, B, C, num_heads, x.device)
-        _ext.call("gvf_self_sublayer_q8", _ptr(x), *ptrs, _ptr(y), _ptr(h),
-                  _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, L, C, num_heads,
-                  mod_repeat)
-        launch_counts["self_q8"] += 1
+        q8 = _qk8_scratch(B * L, B, Cp, num_heads, x.device)
+        _ext.call("gvf_self_sublayer_q8", _ptr(x), *map(_ptr_or_null, args),
+                  _ptr(y), _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B,
+                  L, C, num_heads, mod_repeat)
+        launch_counts[launch_key("self_q8", D)] += 1
         return y
-    _ext.call("gvf_self_sublayer", _ptr(x), *ptrs, _ptr(y), _ptr(h),
-              _ptr(qkv), _ptr(attn), B, L, C, num_heads, mod_repeat)
-    launch_counts["self"] += 1
+    _ext.call("gvf_self_sublayer", _ptr(x), *map(_ptr_or_null, args),
+              _ptr(y), _ptr(h), _ptr(qkv), _ptr(attn), B, L, C, num_heads,
+              mod_repeat)
+    launch_counts[launch_key("self", D)] += 1
     return y
 
 
@@ -800,7 +900,8 @@ def fused_temporal_sublayer(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
                         *ts[8:], *(ts[6:8] if rms else ()))
             y = _temporal_kernel(*ts, num_heads=num_heads, rms=rms,
                                  quant_qk=quant_qk, voxel_group=voxel_group)
-            launch_counts["temporal_q8" if quant_qk else "temporal"] += 1
+            launch_counts[launch_key("temporal_q8" if quant_qk else
+                                     "temporal", C // num_heads)] += 1
             return y
 
     rows = _chunk_rows(B, 1, num_heads * N * T * T)
@@ -817,25 +918,23 @@ def _temporal_kernel(x, sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, *,
 
     B, T, N, C = x.shape
     x = x.contiguous()
-    gq, gk = _gammas(qg, kg, C, rms)
-    args = (_vec(sh, B * C), _vec(sc, B * C), _vec(gate, B * C),
-            _weight(wqkv, C, 3 * C), _vec(bqkv, 3 * C))
-    out_w = (_weight(wo, C, C), _vec(bo, C))
-    ptrs = (*map(_ptr, args), _ptr_or_null(gq), _ptr_or_null(gk),
-            *map(_ptr, out_w))
+    args = _self_args(sh, sc, gate, wqkv, bqkv, qg, kg, wo, bo, B,
+                      num_heads, rms)
+    Cp = num_heads * _card_width(C, num_heads)
     y = torch.empty_like(x)
     R = B * T * N
     h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
     # as the self sublayer's: fp32 for the int8-QK form, bf16 q/k (normed)
     # and v for the float form
-    qkv = torch.empty(R, 3 * C, device=x.device,
+    qkv = torch.empty(R, 3 * Cp, device=x.device,
                       dtype=torch.float32 if quant_qk else torch.bfloat16)
-    attn = torch.empty_like(h)
+    attn = torch.empty(R, Cp, device=x.device, dtype=torch.bfloat16)
+    ptrs = tuple(map(_ptr_or_null, args))
     if quant_qk:
         nc = voxel_group or temporal_voxel_group(N)
         if N % nc:
             raise ValueError(f"voxel group {nc} does not divide {N} voxels")
-        q8 = _qk8_scratch(R, B * (N // nc), C, num_heads, x.device)
+        q8 = _qk8_scratch(R, B * (N // nc), Cp, num_heads, x.device)
         _ext.call("gvf_temporal_sublayer_q8", _ptr(x), *ptrs, _ptr(y),
                   _ptr(h), _ptr(qkv), *map(_ptr, q8), _ptr(attn), B, T, N, C,
                   num_heads, nc)
@@ -855,14 +954,13 @@ def fused_cross_sublayer(x, p1: CrossParams, kv1: Sequence[torch.Tensor],
                          compute_dtype=torch.bfloat16, quant: bool = False,
                          q_block: int = 0, impl: Optional[str] = None):
     """Un-gated cross-attention sublayers with affine pre-norms against the
-    cached KV: two chained (the DiT's image then static-GS conditioning,
-    heads of 32 or 64) or one (p2 = kv2 = None: the SLat torso's image
-    conditioning, heads of 32, 64 or 128; on the card in bf16, or in fp32
-    at compute_dtype=float32). x [B, L, C]; see cross_sublayer_reference.
-    rms=True: q RMS-normed with each p_i's qg. quant=True: an int8 cache,
+    cached KV: two chained (the DiT's image then static-GS conditioning)
+    or one (p2 = kv2 = None: the SLat torso's image conditioning; on the
+    card in bf16, or in fp32 at compute_dtype=float32). x [B, L, C]; see
+    cross_sublayer_reference. rms=True: q RMS-normed with each p_i's qg. quant=True: an int8 cache,
     kv_i = (k, v, ks_t, vs) from quantize_kv with the k scales transposed to
-    [B, H, Lk], q quantized per `q_block` rows (0: all L), heads of 32 or 64;
-    see cross_sublayer_q8_reference. Under autograd the backward is JAX's:
+    [B, H, Lk], q quantized per `q_block` rows (0: all L); see
+    cross_sublayer_q8_reference. Under autograd the backward is JAX's:
     the float oracle's vjp, through the dequantized cache for an int8 one,
     which gets no gradient."""
     if quant:  # the int8 cache gets no gradient, its scales none either
@@ -922,28 +1020,42 @@ def _cross_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
     B, L, C = x.shape
     groups = [(_cross_params(p, rms), kv) for p, kv in ((p1, kv1),
                                                           (p2, kv2))]
-    _check_cuda(compute_dtype, num_heads, C, B, x,
-                *[t for p, kv in groups for t in (*p, *kv) if t is not None])
+    W = _check_cuda(compute_dtype, num_heads, C, B, x,
+                    *[t for p, kv in groups for t in (*p, *kv)
+                      if t is not None])
+    D, Cp = C // num_heads, num_heads * W
     x = x.contiguous()
     # the kernel reads the copies made here: keep them alive until it runs
     kept, ctx_args = [], []
-    for (ns, nb, wq, bq, qg, wo, bo), (k, v) in groups:
+    for params, (k, v) in groups:
         lk = k.shape[1]
-        ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-              None if qg is None else _vec(qg, C), _weight(wo, C, C),
-              _vec(bo, C), k.reshape(B, lk, C).contiguous(),
-              v.reshape(B, lk, C).contiguous())
+        ts = (*_cross_args(params, num_heads),
+              *(widen_heads(a.reshape(B, lk, C), D).contiguous()
+                for a in (k, v)))
         kept += ts
         ctx_args += [*map(_ptr_or_null, ts), lk]
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
-    q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
-    attn = torch.empty_like(h)
-    mid = torch.empty_like(q)
+    q = torch.empty(B * L, Cp, device=x.device, dtype=torch.float32)
+    attn = torch.empty(B * L, Cp, device=x.device, dtype=torch.bfloat16)
+    mid = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
     _ext.call("gvf_cross_sublayer", _ptr(x), *ctx_args, _ptr(y), _ptr(h),
               _ptr(q), _ptr(attn), _ptr(mid), B, L, C, num_heads)
-    launch_counts["cross"] += 1
+    launch_counts[launch_key("cross", D)] += 1
     return y
+
+
+def _cross_args(params, num_heads: int):
+    """_cross_params' (ns, nb, wq, bq, qg, wo, bo) as the C entries take
+    them: ns, nb [C], wq [Cp, C], bq [Cp], qg [Cp] or None, wo [C, Cp], bo
+    [C], each head at its card width. The caller keeps the tuple alive
+    until its launch."""
+    ns, nb, wq, bq, qg, wo, bo = widen_cross_params(params, num_heads,
+                                                    params[4] is not None)
+    Cp, C = wo.shape
+    return (_vec(ns, C), _vec(nb, C), _weight(wq, C, Cp), _vec(bq, Cp),
+            None if qg is None else _vec(qg, Cp), _weight(wo, Cp, C),
+            _vec(bo, C))
 
 
 def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype,
@@ -951,8 +1063,9 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype,
     """The single-context chain on the card. x is bf16 or fp32 (the SLat
     torso's residual stream is fp32) and y comes back in x's dtype; k and v
     may be the halves of one [B, Lk, 2C] projection: they are read in
-    place, with their shared batch and row strides. rms: q RMS-normed with
-    p's qg in the attention's prologue."""
+    place, with their shared batch and row strides (from 32 lanes a head;
+    narrower heads are read from widen_heads' copies). rms: q RMS-normed
+    with p's qg in the attention's prologue."""
     from .. import _ext
 
     B, L, C = x.shape
@@ -961,52 +1074,60 @@ def _cross_single_kernel(x, p, kv, num_heads: int, compute_dtype,
     if not x.is_cuda or not (x_f32 or x.dtype == torch.bfloat16):
         raise TypeError("the single-context cross kernel takes a bf16 or "
                         f"fp32 CUDA x; got {x.dtype} on {x.device}")
-    ns, nb, wq, bq, qg, wo, bo = _cross_params(p, rms)
-    _check_cuda(compute_dtype, num_heads, C, B,
-                *[t for t in (ns, nb, wq, bq, qg, wo, bo) if t is not None],
-                k, v, head_widths=_SINGLE_WIDTHS)
+    params = _cross_params(p, rms)
+    W = _check_cuda(compute_dtype, num_heads, C, B,
+                    *[t for t in params if t is not None], k, v)
+    D = C // num_heads
+    k, v = widen_heads(k, D), widen_heads(v, D)
     if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
             or v.stride(2) != 1:
         raise ValueError("k and v must share batch and row strides, with "
                          f"channels contiguous; got {k.stride()}, "
                          f"{v.stride()}")
     x = x.contiguous()
-    args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-            None if qg is None else _vec(qg, C), _weight(wo, C, C),
-            _vec(bo, C))
+    args = _cross_args(params, num_heads)
+    Cp = num_heads * W
     y = torch.empty_like(x)
     h = torch.empty(B * L, C, device=x.device, dtype=torch.bfloat16)
-    q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
-    attn = torch.empty_like(h)
+    q = torch.empty(B * L, Cp, device=x.device, dtype=torch.float32)
+    attn = torch.empty(B * L, Cp, device=x.device, dtype=torch.bfloat16)
     _ext.call("gvf_cross_sublayer1", _ptr(x), *map(_ptr_or_null, args),
               _ptr(k), _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y),
               _ptr(h), _ptr(q), _ptr(attn), B, L, C, num_heads, int(x_f32))
-    launch_counts[single_launch_key(torch.bfloat16, C // num_heads,
-                                    rms=rms)] += 1
+    launch_counts[single_launch_key(torch.bfloat16, D, rms=rms)] += 1
     return y
+
+
+def _check_f32(num_heads: int, C: int, B: int, *tensors) -> int:
+    """What the fp32 single-context chain takes: fp32 CUDA tensors, C a
+    multiple of 8, heads of a width that divides 128, at most 65535 batch
+    rows. Returns the heads' card width."""
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise TypeError("the fp32 single-context cross kernel takes fp32 "
+                            f"CUDA tensors; got {t.dtype} on {t.device}")
+    if C % 8:
+        raise ValueError(f"channels must be a multiple of 8, got {C}")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the grid's 65535")
+    return _card_width(C, num_heads)
 
 
 def _cross_single_f32_kernel(x, p, kv, num_heads: int, rms: bool):
     """The single-context chain at compute_dtype=float32 on the card: x,
     every parameter and k/v fp32 CUDA tensors (nothing is cast to reach the
-    bf16 chain), heads of 32, 64 or 128; y fp32. k and v may be the halves
-    of one [B, Lk, 2C] projection, read in place. rms: q RMS-normed in fp32
-    with p's qg."""
+    bf16 chain); y fp32. k and v may be the halves of one [B, Lk, 2C]
+    projection, read in place (from 32 lanes a head). rms: q RMS-normed in
+    fp32 with p's qg."""
     from .. import _ext
 
     B, L, C = x.shape
     k, v = (a.reshape(B, a.shape[1], C) for a in kv)
-    ns, nb, wq, bq, qg, wo, bo = _cross_params(p, rms)
-    for t in (x, ns, nb, wq, bq, wo, bo, k, v, *((qg,) if rms else ())):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError("the fp32 single-context cross kernel takes fp32 "
-                            f"CUDA tensors; got {t.dtype} on {t.device}")
-    if C % 8 or C % num_heads or C // num_heads not in _SINGLE_WIDTHS:
-        raise ValueError(f"the fp32 single-context cross kernel takes heads "
-                         f"of {_SINGLE_WIDTHS} and C a multiple of 8; got "
-                         f"{C}/{num_heads}")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the grid's 65535")
+    params = _cross_params(p, rms)
+    W = _check_f32(num_heads, C, B, x, k, v,
+                   *[t for t in params if t is not None])
+    D, Cp = C // num_heads, num_heads * W
+    k, v = widen_heads(k, D), widen_heads(v, D)
     if k.stride()[:2] != v.stride()[:2] or k.stride(2) != 1 \
             or v.stride(2) != 1 or k.stride(0) % 4 or k.stride(1) % 4 \
             or k.data_ptr() % 16 or v.data_ptr() % 16:
@@ -1014,28 +1135,25 @@ def _cross_single_f32_kernel(x, p, kv, num_heads: int, rms: bool):
                          "channels contiguous and rows on 16-byte "
                          f"boundaries; got {k.stride()}, {v.stride()}")
     x = x.contiguous()
-    args = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-            None if qg is None else _vec(qg, C), _weight(wo, C, C),
-            _vec(bo, C))
+    args = _cross_args(params, num_heads)
     y = torch.empty_like(x)
     # the LN and attention outputs as their two tf32 halves, the weights'
     # halves, q (the 3xTF32 GEMMs' operands)
-    h, attn = (torch.empty(2, B * L, C, device=x.device, dtype=torch.float32)
-               for _ in range(2))
-    q = torch.empty(B * L, C, device=x.device, dtype=torch.float32)
-    wsplit = torch.empty(4, C, C, device=x.device, dtype=torch.float32)
+    h = torch.empty(2, B * L, C, device=x.device, dtype=torch.float32)
+    attn = torch.empty(2, B * L, Cp, device=x.device, dtype=torch.float32)
+    q = torch.empty(B * L, Cp, device=x.device, dtype=torch.float32)
+    wsplit = torch.empty(4, Cp * C, device=x.device, dtype=torch.float32)
     _ext.call("gvf_cross_sublayer1_f32", _ptr(x), *map(_ptr_or_null, args),
               _ptr(k), _ptr(v), k.shape[1], k.stride(0), k.stride(1), _ptr(y),
               _ptr(h), _ptr(q), _ptr(attn), _ptr(wsplit), B, L, C, num_heads)
-    launch_counts[single_launch_key(torch.float32, C // num_heads,
-                                    rms=rms)] += 1
+    launch_counts[single_launch_key(torch.float32, D, rms=rms)] += 1
     return y
 
 
 def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
                      compute_dtype, q_block: int):
-    """The int8 form on the card, heads of 32 or 64: the DiT's two contexts
-    (x bf16), or one (p2 = None; x bf16 or fp32, y in x's dtype)."""
+    """The int8 form on the card: the DiT's two contexts (x bf16), or one
+    (p2 = None; x bf16 or fp32, y in x's dtype)."""
     from .. import _ext
 
     B, L, C = x.shape
@@ -1045,18 +1163,17 @@ def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
     groups = [(_cross_params(p, rms), kv)
               for p, kv in ((p1, kv1),) + (() if single else ((p2, kv2),))]
     x_f32 = single and x.dtype == torch.float32
-    _check_cuda(compute_dtype, num_heads, C, B, *(() if x_f32 else (x,)),
-                *[t for p, _ in groups for t in p if t is not None])
+    W = _check_cuda(compute_dtype, num_heads, C, B, *(() if x_f32 else (x,)),
+                    *[t for p, _ in groups for t in p if t is not None])
+    D, Cp = C // H, H * W
     if x_f32 and not x.is_cuda:
         raise TypeError(f"x must be a CUDA tensor; got {x.device}")
     if L % qb:
         raise ValueError(f"q_block {qb} does not divide {L} rows")
-    if C % 16:
-        raise ValueError(f"channels must be a multiple of 16, got {C}")
     x = x.contiguous()
     # the kernel reads the copies made here: keep them alive until it runs
     kept, ctx_args = [], []
-    for (ns, nb, wq, bq, qg, wo, bo), (kq, vq, ks_t, vs) in groups:
+    for params, (kq, vq, ks_t, vs) in groups:
         lk = kq.shape[1]
         for t, dtype, shape in ((kq, torch.int8, (B, lk, C)),
                                 (vq, torch.int8, (B, lk, C)),
@@ -1066,31 +1183,29 @@ def _cross_q8_kernel(x, p1, kv1, p2, kv2, num_heads: int, rms: bool,
                 raise TypeError(f"int8 cache entry must be {dtype} CUDA "
                                 f"{shape}; got {t.dtype} {tuple(t.shape)} "
                                 f"on {t.device}")
-        ts = (_vec(ns, C), _vec(nb, C), _weight(wq, C, C), _vec(bq, C),
-              None if qg is None else _vec(qg, C), _weight(wo, C, C),
-              _vec(bo, C), kq.contiguous(), vq.contiguous(),
+        ts = (*_cross_args(params, H),
+              *(widen_heads(a, D).contiguous() for a in (kq, vq)),
               ks_t.contiguous(), vs.contiguous())
         kept += ts
         ctx_args += [*map(_ptr_or_null, ts), lk]
     R = B * L
     y = torch.empty_like(x)
     h = torch.empty(R, C, device=x.device, dtype=torch.bfloat16)
-    q = torch.empty(R, C, device=x.device, dtype=torch.float32)
-    qi = torch.empty(R, C, device=x.device, dtype=torch.int8)
+    q = torch.empty(R, Cp, device=x.device, dtype=torch.float32)
+    qi = torch.empty(R, Cp, device=x.device, dtype=torch.int8)
     qs = torch.empty(R // qb, H, device=x.device, dtype=torch.float32)
-    attn = torch.empty_like(h)
+    attn = torch.empty(R, Cp, device=x.device, dtype=torch.bfloat16)
     if single:
         _ext.call("gvf_cross_sublayer1_q8", _ptr(x), *ctx_args, _ptr(y),
                   _ptr(h), _ptr(q), _ptr(qi), _ptr(qs), _ptr(attn), B, L, C,
                   H, qb, int(x_f32))
-        launch_counts[single_launch_key(torch.bfloat16, C // H,
-                                        quant=True)] += 1
+        launch_counts[single_launch_key(torch.bfloat16, D, quant=True)] += 1
         return y
-    mid = torch.empty_like(q)
+    mid = torch.empty(R, C, device=x.device, dtype=torch.float32)
     _ext.call("gvf_cross_sublayer_q8", _ptr(x), *ctx_args, _ptr(y), _ptr(h),
               _ptr(q), _ptr(qi), _ptr(qs), _ptr(attn), _ptr(mid), B, L, C, H,
               qb)
-    launch_counts["cross_q8"] += 1
+    launch_counts[launch_key("cross_q8", D)] += 1
     return y
 
 

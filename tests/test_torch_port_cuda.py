@@ -187,8 +187,11 @@ def test_launch_counts_and_dtype_check(dev):
     assert {k: n for k, n in pt.launch_counts.items() if n} == {"self": 1}
     with pytest.raises(TypeError):
         pt.fused_self_sublayer(x.float(), *args[1:], num_heads=4)
-    with pytest.raises(ValueError):  # heads of 16: no kernel takes them
-        pt.fused_self_sublayer(*args, num_heads=8)
+    d48 = _Draw(dev, 4, 96)
+    x48 = d48(2, 64, 96)
+    with pytest.raises(ValueError):  # heads of 48: no rule admits them
+        pt.fused_self_sublayer(x48, *d48.mods(2), *d48.self_weights(),
+                               num_heads=2)
 
 
 def test_dit_kernels_match_plain(dev):
