@@ -11,6 +11,7 @@
     python3 chip_smoke.py --encode-latent  # build + [encode-latent] only
     python3 chip_smoke.py --forms    # build + [forms] only
     python3 chip_smoke.py --widths   # build + [widths] only
+    python3 chip_smoke.py --wide-heads  # build + [wide-heads] only
     python3 chip_smoke.py --sublayer-widths  # build + [sublayer-widths]
                                      # only (the models and the frames'
                                      # tokens built for it)
@@ -105,6 +106,14 @@ Phases, each printed on its own lines:
      and dq at [2, 32768, 768 / D, D] for D = 48, 96 in both dtypes; then
      cli/main_latent.main one micro-step at --model.num_heads=32 and =4
      (K5 / K6 launches at heads of 16 and 128 checked);
+  2d. [wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu):
+     the residual forward, dkv and dq in bf16 and fp32 at [2, 32768, 768 /
+     D, D] for D = 192 and 768 on the static VAE's two shells, against the
+     plain forward and backward (fp32 also against fp64), timed beside
+     SDPA; the fp32 forward without its residual at one object's [1, 32768,
+     768 / D, D], then through the static VAE's encode and decode at 4 and
+     1 heads (its launches counted); main_vae at those heads runs in
+     [vae-train];
   2b. device time by kernel name (torch.profiler, three calls each) inside
      K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
      the float and the int8 cache) at the DiT's shape, K3's single
@@ -194,9 +203,10 @@ Phases, each printed on its own lines:
   5c. TRELLIS as the registry builds it ([trellis-fp32]): a pretrained
      directory in the reference's layout (pipeline.json, per model a
      release-style <key>.json with use_fp16 true and the flax-flat <key>.npz
-     of seeded weights, build_trellis's) written into a temporary
-     directory, every model built by registry.from_pretrained (fp32; the
-     SLat torso uncompacted at 32768 voxel slots), the occupancy calibrated
+     of seeded weights, build_trellis's; the two flows at 12 blocks, cut
+     from 24) written into a temporary directory, every model built by
+     registry.from_pretrained (fp32; the SLat torso uncompacted at 32768
+     voxel slots), the occupancy calibrated
      as in 5b; the stages one by one (timed, launches per stage), then
      run() (timed; K5 from fp32 inputs, K7 and K3's single context in fp32,
      launches checked), which must equal its stages;
@@ -237,9 +247,9 @@ Phases, each printed on its own lines:
      LPIPS on seeded weights) over a seeded dataset in VAEDataset's layout
      (two objects, 2 frames x 2 views), every block rematerialized and 2
      frames a sample: in the shipped `swin` 1 phase-A and 1 phase-B step
-     (no K7 launch), in `full` attention the same at 6 + 6 blocks (K7's
-     residual forward, dkv and dq launches read from its log: 24, 12 and
-     12 a step); step times, peak memory and every loss term per step;
+     (no K7 launch), in `full` attention the same at 2 + 2 blocks (K7's
+     residual forward, dkv and dq launches read from its log: 8, 4 and 4
+     a step); step times, peak memory and every loss term per step;
      then one phase-A
      step at 2 + 2 blocks on random weights, kernels against
      impl="plain" (loss and gradients); then main_vae in `full` with
@@ -253,6 +263,11 @@ Phases, each printed on its own lines:
      32768 slots) under autograd, one step at 12 + 12 blocks with the
      kernels (K7's bf16 backward at heads of 64, 48 / 24 / 24 launches),
      and at 2 + 2 blocks kernels against impl="plain" (loss, gradients);
+     then K7 above 128 lanes: main_vae in `full` with
+     --static_vae.num_heads=4 and =1 (fp32, heads of 192 and 768) at 2 + 2
+     blocks, 1 step each, the five head counts at once, launches 8 / 4 /
+     4 a step, and the bf16 static VAE at those heads, one step each at
+     2 + 2 blocks with the kernels (launches counted, gradients finite);
   8. the step between the two trainers ([encode-latent]): K7's fp32
      forward without the residual at [1, 32768, 12, 64] (the static VAE
      one object at a time) against its plain version, with SDPA as the
@@ -2080,6 +2095,53 @@ def train_configs(work, data, dev, card):
     return out
 
 
+
+# [wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu: the
+# output's columns in 64-lane chunks over the grid, the scores formed at
+# full width by each chunk's CTA) at the static VAE's full attention, 768
+# channels in 4 heads of 192 and 1 of 768 (main_vae
+# --static_vae.num_heads=4 / 1): per dtype and width the forward with its
+# residual, dkv and dq (vae_form_rows), and in fp32 the forward without
+# its residual at one object's [1, 32768, 768 / D, D] (cli/encode_latent's
+# form, encode_flash_check). The fp32 forms' launches come from main_vae's
+# runs at those heads in [vae-train], the bf16 forms' from the static VAE
+# built in bf16 there, the forward without its residual from the static
+# VAE's encode in [wide-heads]
+WIDE_FORMS = (("bfloat16", 192), ("bfloat16", 768), ("float32", 192),
+              ("float32", 768))
+WIDE_HEADS = (4, 1)        # main_vae --static_vae.num_heads: heads of 192, 768
+WIDE_SRC = "gvfdiffusion_torch/csrc/flash_attention_wide.cu"
+# the wide kernels' lane chunk: a CTA per chunk of the output, each
+# forming S (and dP) again, D / WIDE_CHUNK times
+WIDE_CHUNK = 64
+
+
+def _wide_kernels():
+    out = []
+    for dt, d in WIDE_FORMS:
+        what = (f"{'bf16' if dt == 'bfloat16' else 'fp32'}, static VAE, "
+                f"{VAE_C // d} heads of {d}")
+        res, dkv, dq = vae_form_keys(dt, d)
+        out += [(f"flash_attention[{what}: forward with residual]",
+                 "gvfdiffusion_tpu/sparse/attention.py:57", WIDE_SRC, res),
+                (f"flash_attention backward dkv[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+                 WIDE_SRC, dkv),
+                (f"flash_attention backward dq[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+                 WIDE_SRC, dq)]
+    for h in WIDE_HEADS:
+        d = VAE_C // h
+        out.append((f"flash_attention[fp32, static VAE encode, one object, "
+                    f"{h} heads of {d}]",
+                    "gvfdiffusion_tpu/sparse/attention.py:57", WIDE_SRC,
+                    f"flash_attention_fp32_d{d}"))
+    return out
+
+
+WIDE_KERNELS = _wide_kernels()
+KERNELS += WIDE_KERNELS
+
 # -- the VAE's training: K7's residual forward and backward, main_vae --------
 
 VAE_B, VAE_H, VAE_D = 2, 12, 64  # configs/vae.yml: batch 2, 12 heads of 64
@@ -2105,7 +2167,7 @@ VAE_HEADS = (24, 6)
 VAE_HEAD_BLOCKS = 2
 # ... and of the run in `full` attention at 12 heads, all rematerialized
 # (the smoke's time limit; 4, 2 and 2 K7 launches a block)
-VAE_FULL_BLOCKS = 6
+VAE_FULL_BLOCKS = 2
 # the static VAE in bf16 under autograd (dtype=bfloat16, `full`): one step
 # at 2 + 2 blocks, kernels vs impl="plain", rel L2 of the loss and of the
 # gradients (bf16 forward and backward on both sides, rounded at other
@@ -2334,7 +2396,7 @@ def phase_vae_forms(dev, card):
     return rows, {k: n for k, n in drive.items() if k in bf16}
 
 
-def vae_form_rows(dev, card, forms, tag):
+def vae_form_rows(dev, card, forms, tag, iters=(3, 2)):
     """K7's forward with its residual and the dkv and dq kernels in each
     (dtype, head width) of `forms` at the static VAE's full attention, [2,
     32768, 768 / D, D], q/k/v the views of one projection, the two surface
@@ -2346,12 +2408,14 @@ def vae_form_rows(dev, card, forms, tag):
     counts at 0, read just after. A head width the kernels are not built
     at runs as the wrapper runs it: q, k, v and dO zero-padded to the card
     width (ops/_widths.py), the pads inside the timed calls, o and the
-    gradients cut back to D; its bound counts the true D. Returns (the
-    kernels-line rows, every form's launches from its drive)."""
+    gradients cut back to D; its bound counts the true D. `iters`: the
+    timed calls of the forward and of each backward kernel (after 2
+    warm-ups). Returns (the kernels-line rows, every form's launches from
+    its drive)."""
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import flash_attention as fl
-    from gvfdiffusion_torch.ops._widths import card_width, pad_heads
+    from gvfdiffusion_torch.ops._widths import flash_card_width, pad_heads
 
     valid = vae_valid(dev)
     n_valid = [int(n) for n in valid.sum(1)]
@@ -2360,7 +2424,7 @@ def vae_form_rows(dev, card, forms, tag):
     rows, drive = {}, {}
     for dt_name, D in forms:
         dtype, H, scale = getattr(torch, dt_name), VAE_C // D, D ** -0.5
-        W = card_width(D)
+        W = flash_card_width(D)
         pad = lambda *ts: [pad_heads(t_, W) for t_ in ts]  # noqa: E731
         f32 = dtype == torch.float32
         keys = vae_form_keys(dt_name, D)
@@ -2445,11 +2509,12 @@ def vae_form_rows(dev, card, forms, tag):
             del dq64, dk64, dv64, f64
         del ref
         ms_fwd = time_ms(lambda: fl.launch_forward(
-            *pad(q, k, v), valid, scale, residual=True, width=D), iters=3)
+            *pad(q, k, v), valid, scale, residual=True, width=D),
+            iters=iters[0])
         ms_dkv = time_ms(lambda: (pad(do), fl.launch_dkv(
-            ptrs, sizes, scale, dtype, D)), iters=2)
+            ptrs, sizes, scale, dtype, D)), iters=iters[1])
         ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale, dtype, D)[
-            ..., :D].contiguous(), iters=2)
+            ..., :D].contiguous(), iters=iters[1])
         mask = valid[:, None, None, :]
         t = [a.detach().transpose(1, 2).requires_grad_(True)
              for a in (q, k, v)]
@@ -2488,7 +2553,9 @@ def vae_form_rows(dev, card, forms, tag):
             f"{plain_fwd:.3f} ms, bound {b_fwd[0]:.4f} ms, {b_fwd[1]}); dkv "
             f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms), dq {ms_dq:.3f} ms "
             f"(bound {b_dq[0]:.4f} ms); plain backward {plain_bwd:.3f} ms; "
-            f"{lib_note}; {card}")
+            f"{lib_note}" + (f"; S and dP recomputed {W // WIDE_CHUNK} "
+                             f"times (a CTA per {WIDE_CHUNK}-lane chunk)"
+                             if W > 128 else "") + f"; {card}")
         if not (finite and all(e <= lim for e in errs.values())):
             raise AssertionError(f"{what}: the kernels disagree with their "
                                  f"plain versions: {errs}")
@@ -2639,16 +2706,20 @@ def phase_vae_train(dev, card):
     (full attention, random weights) with the kernels and with
     impl="plain": loss and gradients. Then main_vae in `full` attention
     with --static_vae.num_heads at 24 and 6 (fp32 K7 at heads of 32 and
-    128) and at 8 (heads of 96, padded to 128), at VAE_HEAD_BLOCKS +
-    VAE_HEAD_BLOCKS blocks, 1 phase-A step each, the three processes at
+    128), at 8 (heads of 96, padded to 128) and at 4 and 1 (WIDE_HEADS:
+    heads of 192 and 768, K7 above 128 lanes), at VAE_HEAD_BLOCKS +
+    VAE_HEAD_BLOCKS blocks, 1 phase-A step each, the five processes at
     once (their step times, taken on a shared card, not printed), its
     launches a step checked against the heads-of-64 run's per block; and
     the static
     VAE built in bf16 (SparseTransformerVAE(dtype=
     bfloat16), `full`, 768 channels) under autograd: one step at 12 + 12
     blocks with the kernels (K7's bf16 backward, launches counted), then at
-    2 + 2 blocks kernels vs impl="plain". Returns the launches of the whole
-    `full` run and of the runs at 24, 6 and 8 heads."""
+    2 + 2 blocks kernels vs impl="plain"; then the bf16 static VAE at
+    WIDE_HEADS heads, one step each at VAE_HEAD_BLOCKS + VAE_HEAD_BLOCKS
+    blocks with the kernels, launches counted, gradients finite. Returns
+    the launches of the whole `full` run, of the runs at 24, 6, 8, 4 and 1
+    heads and of the bf16 steps at 4 and 1 heads."""
     import re
     import shutil
     import tempfile
@@ -2728,24 +2799,27 @@ def phase_vae_train(dev, card):
                 totals = {k: total.get(k, 0) for k in VAE_FLASH}
 
         # `full` at 24 heads of 32 and 6 of 128: fp32 K7's other forms,
-        # and at 8 heads of 96 ([widths]: K7 padded to 128), the launches a
+        # at 8 heads of 96 ([widths]: K7 padded to 128) and at 4 and 1
+        # ([wide-heads]: heads of 192 and 768), the launches a
         # block as at 12 heads (4 residual forwards, 2 dkv, 2 dq, every
         # block rematerialized), at VAE_HEAD_BLOCKS + VAE_HEAD_BLOCKS
         # blocks (the smoke's time limit)
         nb = VAE_HEAD_BLOCKS
         shallow = [a for a in common if "remat_blocks" not in a] + [
             f"--static_vae.num_blocks={nb}", f"--static_vae.remat_blocks={nb}"]
-        # the three runs at once, each in its own process: they share the
-        # card and the host, so their step times are not those of a run
-        # alone and are not printed (each peak is its own process's)
+        # the five runs at once (with the two above 128 lanes, WIDE_HEADS),
+        # each in its own process (~10 GiB each): they share the card and
+        # the host, so their step times are not those of a run alone and
+        # are not printed (each peak is its own process's)
         n_steps = 1
+        heads_runs = VAE_HEADS + (WIDTH_VAE_HEADS,) + WIDE_HEADS
         started = {heads: start_main_vae(
             shallow + [f"--exp_dir={os.path.join(work, f'h{heads}')}",
                        "--static_vae.attn_mode=full",
                        f"--static_vae.num_heads={heads}",
                        f"--train.static_vae_steps={n_steps}",
                        f"--train.total_steps={n_steps}"], work, f"h{heads}")
-            for heads in VAE_HEADS + (WIDTH_VAE_HEADS,)}
+            for heads in heads_runs}
         for heads, run in started.items():
             keys = vae_form_keys("float32", VAE_C // heads)
             rc, text, wall = finish_main_vae(run)
@@ -2757,10 +2831,11 @@ def phase_vae_train(dev, card):
             done = re.search(r"\[main_vae\] done; launches (\{.*\})", text)
             total = json.loads(done.group(1)) if done else None
             log(f"[vae-train] main_vae full at {heads} heads of "
-                f"{VAE_C // heads} (fp32, {nb} + {nb} blocks, remat_blocks "
-                f"{nb}; the three head counts run at once, so no time is "
-                f"printed): rc {rc}; peak GiB {peak}; losses {losses}; "
-                f"launches per step {launches}; {card}")
+                f"{VAE_C // heads} (fp32, {nb} + {nb} blocks, "
+                f"remat_blocks {nb}; run at once with heads "
+                f"{list(heads_runs)}, so no time is printed): rc {rc}; "
+                f"peak GiB {peak}; losses {losses}; launches per step "
+                f"{launches}; {card}")
             if rc != 0 or [s_[1] for s_ in steps] != ["A"] * n_steps or any(
                     not math.isfinite(x) for x in losses) or any(
                     n != want for n in launches) or total != {
@@ -2819,13 +2894,13 @@ def phase_vae_train(dev, card):
         # kernels, then 2 + 2 blocks kernels vs impl="plain"
         from gvfdiffusion_torch.ops import flash_attention as fl
 
-        def bf16_step(blocks, seed):
+        def bf16_step(blocks, seed, heads=sv.num_heads):
             model = init_random_(SparseTransformerVAE(
                 resolution=sv.resolution, in_channels=sv.in_channels,
                 model_channels=sv.model_channels,
                 out_channels=sv.out_channels,
                 latent_channels=sv.latent_channels, num_blocks=blocks,
-                num_heads=sv.num_heads, window_size=sv.window_size,
+                num_heads=heads, window_size=sv.window_size,
                 attn_mode="full", norm_output=sv.norm_output,
                 remat_blocks=12, dtype=torch.bfloat16), seed=seed).to(dev)
             return make_static_vae_step(
@@ -2881,9 +2956,130 @@ def phase_vae_train(dev, card):
                 errs[k] <= b for k, b in VAE_BF16_GRAD_BOUNDS.items())):
             raise AssertionError("the bf16 VAE step disagrees with its plain "
                                  "version")
+        del step, res, gk, gp
+        torch.cuda.empty_cache()
+
+        # K7 above 128 lanes in bf16: the static VAE built in bf16 at
+        # WIDE_HEADS heads (heads of 192 and 768), one step each at nb + nb
+        # blocks with the kernels
+        for heads in WIDE_HEADS:
+            step = bf16_step(nb, 48 + heads, heads)
+            keys = vae_form_keys("bfloat16", VAE_C // heads)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fl.reset_launch_counts()
+            t0 = time.perf_counter()
+            terms, _, grads = step.loss_and_grads(batch, noise=noise)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: n for k, n in fl.launch_counts.items() if n}
+            loss = float(terms["loss"])
+            finite = math.isfinite(loss) and all(
+                bool(torch.isfinite(x).all()) for x in grads.values())
+            log(f"[vae-train] static VAE in bf16 under autograd at {heads} "
+                f"heads of {VAE_C // heads} (full, 768 channels, {nb} + {nb} "
+                f"blocks, remat_blocks 12, random weights): one step "
+                f"{ms:.1f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
+                f"{loss:.6g}, gradients finite {finite}, launches {counts}; "
+                f"{card}")
+            if not finite or counts != dict(zip(keys, (4 * nb, 2 * nb,
+                                                       2 * nb))):
+                raise AssertionError(f"the bf16 static VAE's step at {heads} "
+                                     f"heads: loss {loss}, finite {finite}, "
+                                     f"launches {counts}")
+            totals.update(counts)
+            del step, terms, grads
+            torch.cuda.empty_cache()
         return totals
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# -- [wide-heads]: K7 above 128 lanes ----------------------------------------
+
+# the drive of the fp32 forward without its residual: the static VAE of
+# configs/vae.yml at WIDE_HEADS heads, fp32, `full`, at WIDE_ENCODE_BLOCKS
+# + WIDE_ENCODE_BLOCKS blocks (depth cut from 12 + 12), encode and decode of
+# one object (cli/encode_latent's calls): one launch a block
+WIDE_ENCODE_BLOCKS = 2
+
+
+def wide_encode_drive(dev, card):
+    """The static VAE's encode and decode of one seeded object (a surface
+    shell of vae_valid's first row, 1024-channel features) under no_grad,
+    as cli/encode_latent calls them, at WIDE_HEADS heads: K7's fp32 forward
+    without its residual at heads of 192 and 768, counted with the
+    counters at 0; the output finite. Returns its launches."""
+    import numpy as np
+    import torch
+    from gvfdiffusion_torch.cli.main_vae import build_static_vae
+    from gvfdiffusion_torch.ops import flash_attention as fl
+    from gvfdiffusion_torch.sparse.tensor import from_lists
+    from gvfdiffusion_torch.utils.config import load_config
+    from gvfdiffusion_torch.utils.weights import init_random_
+
+    coords = surface_shell(30, 25.0)[:SLOTS]
+    feats = np.random.default_rng(57).standard_normal(
+        (len(coords), 1024)).astype(np.float32)
+    sv = from_lists([coords], [feats], 64, capacity=SLOTS)
+    x = sv.replace(feats=sv.feats.to(dev), coords=sv.coords.to(dev),
+                   valid=sv.valid.to(dev))
+    nb = WIDE_ENCODE_BLOCKS
+    launches = {}
+    for heads in WIDE_HEADS:
+        cfg = load_config(os.path.join(REPO, "configs", "vae.yml"), [
+            f"--static_vae.num_blocks={nb}", f"--static_vae.num_heads={heads}",
+            "--static_vae.attn_mode=full"])
+        vae = init_random_(build_static_vae(cfg), seed=58).to(dev)
+        key = f"flash_attention_fp32_d{VAE_C // heads}"
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            z, _, _ = vae.encode(x)
+            out = vae.decode(z)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: n for k, n in fl.launch_counts.items() if n}
+        finite = bool(torch.isfinite(out.feats[out.valid]).all())
+        log(f"[wide-heads] static VAE encode + decode of one object ({nb} + "
+            f"{nb} blocks, {heads} heads of {VAE_C // heads}, fp32, full, "
+            f"{len(coords)} voxels of {SLOTS}, random weights): {ms:.1f} ms, "
+            f"output finite {finite}, launches {counts}; {card}")
+        if not finite or counts != {key: 2 * nb}:
+            raise AssertionError(f"the static VAE's encode at {heads} heads: "
+                                 f"finite {finite}, launches {counts}")
+        launches.update(counts)
+        del vae, z, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wide_heads(dev, card):
+    """[wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu). Each
+    form of WIDE_FORMS, the forward with its residual, dkv and dq in bf16
+    and fp32 at heads of 192 and 768, at the static VAE's [2, 32768, 768 /
+    D, D] on vae_valid's shells, driven once under grad with the counters
+    at 0, then against the plain forward and backward (fp32 also against
+    fp64), timed (10 calls after 2 warm-ups) beside SDPA's forward and
+    backward under the boolean key mask (vae_form_rows); the fp32 forward
+    without its residual at one object's [1, 32768, 768 / D, D] against
+    its plain version (encode_flash_check), then driven through the static
+    VAE's encode and decode (wide_encode_drive). main_vae at those heads
+    runs in [vae-train]. Returns (the kernels-line rows, the launches of
+    the forward without its residual)."""
+    t0 = time.perf_counter()
+    rows, _ = vae_form_rows(dev, card, WIDE_FORMS, "[wide-heads]",
+                            iters=(10, 10))
+    entries = {e[3]: e[:3] for e in WIDE_KERNELS}
+    for heads in WIDE_HEADS:
+        key = f"flash_attention_fp32_d{VAE_C // heads}"
+        rows[key] = encode_flash_check(dev, *entries[key], heads=heads,
+                                       d=VAE_C // heads, tag="[wide-heads]")
+    launches = wide_encode_drive(dev, card)
+    log(f"[wide-heads] phase in {time.perf_counter() - t0:.1f} s")
+    return rows, launches
 
 
 # -- the latent encoding between the two trainers: cli/encode_latent ---------
@@ -2895,23 +3091,25 @@ ENCODE_K7_PER_ITEM = 24
 ENCODE_LATENT_SHAPE = (VAE_FRAMES, N, 16)   # [T, num_latents, latent_dim]
 
 
-def encode_flash_check(dev, name, replaces, source):
+def encode_flash_check(dev, name, replaces, source, heads=VAE_H, d=VAE_D,
+                       tag="[encode-latent]"):
     """K7's fp32 forward without the residual at the shape the static VAE
     gives it when cli/encode_latent runs it one object at a time in `full`
-    attention: [1, 32768, 12, 64], q/k/v the views of one [1, 32768, 3, 12,
-    64] projection, one seeded surface shell's keys valid as a prefix;
-    against the plain version on every row, with SDPA under the boolean key
-    mask as the library call. Returns the kernels line's entry."""
+    attention: [1, 32768, 12, 64] (or `heads` of `d`), q/k/v the views of
+    one [1, 32768, 3, heads, d] projection, one seeded surface shell's keys
+    valid as a prefix; against the plain version on every row, with SDPA
+    under the boolean key mask as the library call. Returns the kernels
+    line's entry."""
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import flash_attention as fl
 
     g = torch.Generator(device=dev).manual_seed(55)
-    qkv = torch.randn(1, SLOTS, 3, VAE_H, VAE_D, generator=g, device=dev)
+    qkv = torch.randn(1, SLOTS, 3, heads, d, generator=g, device=dev)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     valid = vae_valid(dev)[:1]
     n_valid = int(valid.sum())
-    scale = VAE_D ** -0.5
+    scale = d ** -0.5
     y = fl.flash_attention(q, k, v, valid, scale)
     torch.cuda.synchronize()
     ref = fl.flash_attention(q, k, v, valid, scale, impl="plain")
@@ -2926,12 +3124,12 @@ def encode_flash_check(dev, name, replaces, source):
     plain_ms = time_ms(lambda: fl.flash_attention(q, k, v, valid, scale,
                                                   impl="plain"), iters=1)
     lib_ms = time_ms(sdpa, iters=3)
-    tile = fl.key_tile(torch.float32, VAE_D)
+    tile = fl.key_tile(torch.float32, d)
     tiles = int(valid.view(1, -1, tile).any(-1).sum())
-    flops = 4 * SLOTS * n_valid * VAE_H * VAE_D  # valid keys only
+    flops = 4 * SLOTS * n_valid * heads * d  # valid keys only
     # three tf32 products for each fp32 one (3xTF32)
     b_ms, b_by = bound(3 * flops, nbytes(q, k, v, valid, y), PEAK_TF32)
-    log(f"[encode-latent] {name}: q/k/v {tuple(q.shape)} fp32 (views of a "
+    log(f"{tag} {name}: q/k/v {tuple(q.shape)} fp32 (views of a "
         f"qkv projection), {n_valid} of {SLOTS} keys valid (a surface "
         f"shell, prefix), {tiles} of {SLOTS // tile} {tile}-key tiles "
         f"visited; max_abs_err {mae:.4g} rel_l2 {err:.3e} (bound "
@@ -4641,12 +4839,17 @@ def phase_trellis_defaults(dino, dev, card):
 # arguments (the released configs' keys, `use_fp16` included, which the
 # registry drops, so every model is fp32; the widths of the JAX classes'
 # defaults) and the init_random_ seed of build_trellis's (and DINOv2's
-# build_models) weights, so the bf16 runs of [trellis-drift] share them
+# build_models) weights, so the bf16 runs of [trellis-drift] share them;
+# the two flows at FP32_FLOW_BLOCKS blocks, cut from the release's 24 (the
+# smoke's time limit: the pretrained directory's size, the build and the
+# SLat flow's steps halve)
+FP32_FLOW_BLOCKS = 12
 PRETRAINED = {
     "image_cond_model": ("DinoV2", {}, 10),
     "ss_flow": ("SparseStructureFlowModel", dict(
         resolution=16, in_channels=8, out_channels=8, model_channels=1024,
-        cond_channels=1024, num_blocks=24, num_head_channels=64,
+        cond_channels=1024, num_blocks=FP32_FLOW_BLOCKS,
+        num_head_channels=64,
         mlp_ratio=4, patch_size=2, pe_mode="ape", qk_rms_norm=True,
         use_fp16=True), 20),
     "ss_decoder": ("SparseStructureDecoder", dict(
@@ -4654,7 +4857,8 @@ PRETRAINED = {
         num_res_blocks_middle=2, channels=[512, 128, 32], use_fp16=True), 21),
     "slat_flow": ("SLatFlowModel", dict(
         resolution=64, in_channels=8, out_channels=8, model_channels=1024,
-        cond_channels=1024, num_blocks=24, num_head_channels=64,
+        cond_channels=1024, num_blocks=FP32_FLOW_BLOCKS,
+        num_head_channels=64,
         mlp_ratio=4, patch_size=2, num_io_res_blocks=2,
         io_block_channels=[128], pe_mode="ape", qk_rms_norm=True,
         use_fp16=True), 22),
@@ -4670,10 +4874,13 @@ PRETRAINED = {
             "scaling_activation": "softplus"}), 23),
 }
 # the launches of one TrellisImageTo3DPipeline.run() of that TRELLIS: K5
-# (computing in bf16 from fp32 q/k/v) in DINOv2 (24) and the ss flow (576
-# self, 576 cross), K7 and K3's single context in fp32 (528 each)
-FP32_LAUNCHES = {"attention": 24 + 576, "attention_cross": 576,
-                 "flash_attention_fp32": 528, "cross_single_fp32": 528}
+# (computing in bf16 from fp32 q/k/v) in DINOv2 (24) and the ss flow (24
+# model calls a block, self and cross: 12 steps with CFG), K7 and K3's
+# single context in fp32 (22 a block: the SLat flow's CFG interval)
+FP32_LAUNCHES = {"attention": 24 + 24 * FP32_FLOW_BLOCKS,
+                 "attention_cross": 24 * FP32_FLOW_BLOCKS,
+                 "flash_attention_fp32": 22 * FP32_FLOW_BLOCKS,
+                 "cross_single_fp32": 22 * FP32_FLOW_BLOCKS}
 # the shipped bf16 models against the fp32 run, each stage on the fp32
 # stage's output (the same weights, image and noise): rel L2 of the DINOv2
 # tokens, the ss latent and the SLat (valid voxels; the torso compacted to
@@ -6564,6 +6771,9 @@ def main(argv) -> int:
     if "--widths" in argv:
         phase_widths(dev, card)
         return 0
+    if "--wide-heads" in argv:
+        phase_wide_heads(dev, card)
+        return 0
     if "--sublayer-widths" in argv:
         from gvfdiffusion_torch.scripts.process_video import encode_video
 
@@ -6620,6 +6830,9 @@ def main(argv) -> int:
     widths, width_launches = phase_widths(dev, card)
     results.update(widths)
     mark("widths")
+    wide, wide_launches = phase_wide_heads(dev, card)
+    results.update(wide)
+    mark("wide-heads")
     phase_profile_split(dev, card, traces=False)
     mark("split")
     dino, dit, vae = build_models(dev)
@@ -6678,14 +6891,17 @@ def main(argv) -> int:
     # log; every step launches the same), K7's backward forms in fp32 at
     # heads of 32 and 128 from main_vae's runs at 24 and 6 heads, in bf16
     # from their own drive in [vae-forms], K7 at the static VAE's batch of 1
-    # from encode_latent's run ([encode-latent]), the forms no path reaches
+    # from encode_latent's run ([encode-latent]), K7 above 128 lanes from
+    # main_vae's runs at 4 and 1 heads (fp32) and the bf16 static VAE's steps
+    # at those heads ([vae-train]) and, without its residual, from the static
+    # VAE's encode in [wide-heads], the forms no path reaches
     # from their own drive in [forms], the forms of the DiT's other
     # configurations from the
     # run() of the configuration that sends them (FORM_RUNS), the others
     # (K1-K4, K5 in DINOv2's video encode) from the video main path
     counts = {**launches, **configs, **trellis, **train, **vae,
               **form_launches, **vae_form_launches, **width_launches,
-              **sw_launches}
+              **sw_launches, **wide_launches}
     for key, r in results.items():
         r["launches"] = counts[key]
     log(f"[smoke] phase seconds: {seconds}")

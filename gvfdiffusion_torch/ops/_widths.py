@@ -10,6 +10,15 @@ buffers (`pad_heads`), launches the kernel with the scale of the true
 width, D ** -0.5, and keeps the first D columns of the output (and of dq,
 dk and dv).
 
+K7 above 128 lanes: JAX's rule sends any multiple of 8 to the stock flash
+kernel, which has no cap on D (the static VAE's 768 channels in 4, 3, 2
+or 1 heads: D = 192, 256, 384, 768). The wide kernels
+(`csrc/flash_attention_wide.cu`) take every multiple of WIDE_LANES (64)
+from 192 to WIDE_MAX (1024); a head of another multiple of 8 above 128 is
+padded the same way to the next of them (`flash_card_width`: 136 runs at
+192). FLASH_WIDTHS is K7's whole rule, every multiple of 8 up to
+WIDE_MAX; a wider head raises.
+
 K1, K2 and K3 (`fused_sublayer`): their rules admit every head width that
 divides 128 (`_LANES % D == 0`: 1, 2, 4, 8, 16, 32, 64 and 128,
 `SUBLAYER_WIDTHS`). A head of 32, 64 or 128 runs at its own width; a
@@ -31,6 +40,11 @@ import torch
 CARD_WIDTHS = (32, 64, 128)
 # every head width K5's, K6's and K7's rules admit: multiples of 8 up to 128
 WIDTHS = tuple(range(8, 129, 8))
+# K7's wide kernels: heads of a multiple of WIDE_LANES above 128, up to
+# WIDE_MAX; every width K7 takes, padded or not
+WIDE_LANES = 64
+WIDE_MAX = 1024
+FLASH_WIDTHS = WIDTHS + tuple(range(136, WIDE_MAX + 1, 8))
 # every head width K1's, K2's and K3's rules admit: the divisors of 128
 SUBLAYER_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -43,6 +57,21 @@ def card_width(d: int) -> int:
         raise ValueError(f"the attention kernels take heads of a multiple of "
                          f"8 up to 128 (run at {CARD_WIDTHS}), got {d}")
     return next(w for w in CARD_WIDTHS if d <= w)
+
+
+def flash_card_width(d: int) -> int:
+    """The width K7's kernels run a head of width d at: `card_width(d)` up
+    to 128, above it the next multiple of WIDE_LANES (the wide kernels').
+    Raises for a width K7 does not take (not a multiple of 8, or above
+    WIDE_MAX)."""
+    if d not in FLASH_WIDTHS:
+        raise ValueError(f"the flash attention kernels take heads of a "
+                         f"multiple of 8 up to {WIDE_MAX} (run at "
+                         f"{CARD_WIDTHS} up to 128, at multiples of "
+                         f"{WIDE_LANES} above), got {d}")
+    if d <= 128:
+        return card_width(d)
+    return -(-d // WIDE_LANES) * WIDE_LANES
 
 
 def sublayer_card_width(d: int) -> int:

@@ -26,14 +26,18 @@ Two versions:
     or all fp32 (the same core's 3xTF32 path: no operand rounded to bf16,
     each product split into three tf32 products with fp32 sums; the SLat
     flow as the registry builds it). The kernels run natively at heads of
-    32, 64 and 128; a head of any other multiple of 8 up to 128 (the widths
-    `sparse/attention.full_sparse_attention` sends here) is zero-padded to
-    the next of them (`_widths.card_width`, `pad_heads`), run with the true
-    width's scale, and its output cut back to its D columns: zero columns
-    change no score and no logsumexp, so the padding is the design, not a
-    departure from JAX's function. It raises for anything else (D above
-    128 among them: no card kernel has a 256 form yet) and never falls
-    back: an fp32 input is never cast to reach the bf16 kernel.
+    32, 64 and 128; above 128 lanes `csrc/flash_attention_wide.cu`'s
+    kernels (the output's columns split in 64-lane chunks over the grid,
+    the scores formed at full width by each chunk's CTA; mma.sync, bf16 or
+    3xTF32) run every multiple of 64 up to 1024. A head of any other
+    multiple of 8 (the widths `sparse/attention.full_sparse_attention`
+    sends here) is zero-padded to the next width the kernels run
+    (`_widths.flash_card_width`, `pad_heads`), run with the true width's
+    scale, and its output cut back to its D columns: zero columns change no
+    score and no logsumexp, so the padding is the design, not a departure
+    from JAX's function. It raises for anything else (not a multiple of 8,
+    or above 1024) and never falls back: an fp32 input is never cast to
+    reach the bf16 kernel.
 
 The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
 `_flash_attention_bwd_dq`, which JAX runs when a trainer differentiates
@@ -53,9 +57,11 @@ each of their five products runs on the tensor cores by the forward's
 3xTF32 split, in chains of at most 32 rows or keys summed in fp32; in
 bf16 (`csrc/flash_attention_bwd_bf16.cu`) on bf16 wgmma from bf16
 operands into fp32, P and dS rounded to bf16 before the products that
-take them, each gradient rounded to bf16 once. A kernel that does not
-build or launch raises; nothing falls back to the plain version. On the
-CPU, or with impl="plain", forward and backward are the plain versions
+take them, each gradient rounded to bf16 once. Above 128 lanes both are
+`csrc/flash_attention_wide.cu`'s, the same arithmetic on mma.sync. A
+kernel that does not build or launch raises; nothing falls back to the
+plain version. On the CPU, or with impl="plain", forward and backward are
+the plain versions
 (`flash_attention_backward_reference`, in chunks of query rows too), with
 the stock kernel's semantics: P = exp(s - m) / l on the -0.7 * FLT_MAX
 mask, every query row, and a batch row with no valid key spreading P = 1 /
@@ -64,12 +70,14 @@ Lk-padded-to-512 over every key, so its keys get dV != 0.
 `launch_counts` counts kernel launches by form: the forward by dtype and
 the caller's head width (the true one, not the padded one),
 "flash_attention" (bf16, heads of 64), "flash_attention_fp32", and either
-with "_d32", "_d96", ... at the other widths (`launch_key`); under grad,
-per form, the forward with its residual and the two backward kernels
+with "_d32", "_d96", "_d768", ... at the other widths (`launch_key`);
+under grad, per form, the forward with its residual and the two backward
+kernels
 (`grad_key`: "flash_attention_fp32_res", "flash_attention_bwd_dkv",
 "flash_attention_bwd_dq" at fp32 and heads of 64, "flash_attention_res",
 "flash_attention_bwd_dkv_bf16", ... in bf16, "_d32", "_d96", ... at the
-other widths). The plain versions never count.
+other widths). The counters are made at import for every width K7 takes
+(`_widths.FLASH_WIDTHS`, up to 1024). The plain versions never count.
 """
 
 from __future__ import annotations
@@ -78,8 +86,8 @@ from typing import Optional
 
 import torch
 
-from ._widths import (CARD_WIDTHS, WIDTHS, card_width, pad_heads,
-                      width_suffix)
+from ._widths import (CARD_WIDTHS, FLASH_WIDTHS, flash_card_width,
+                      pad_heads, width_suffix)
 
 # the Pallas kernel's additive mask value (jax.experimental.pallas.ops.tpu.
 # flash_attention.DEFAULT_MASK_VALUE)
@@ -113,9 +121,10 @@ def grad_key(kind: str, dtype: torch.dtype, head_dim: int) -> str:
             + width_suffix(head_dim))
 
 
-launch_counts = {launch_key(dt, w): 0 for dt in DTYPES for w in WIDTHS}
+launch_counts = {launch_key(dt, w): 0 for dt in DTYPES
+                 for w in FLASH_WIDTHS}
 launch_counts.update({grad_key(kind, dt, w): 0 for kind in GRAD_KINDS
-                      for dt in DTYPES for w in WIDTHS})
+                      for dt in DTYPES for w in FLASH_WIDTHS})
 
 
 def reset_launch_counts() -> None:
@@ -126,10 +135,12 @@ def reset_launch_counts() -> None:
 def key_tile(dtype: torch.dtype, head_dim: int) -> int:
     """The kernel's key tile, the unit of its list of visited tiles: in
     bf16 128 keys at heads of 32 and 64, 64 at 128 (the Hopper core's); in
-    fp32 64, 32 at 128 (its 3xTF32 path's); a padded head takes its card
-    width's."""
-    return (64 if dtype == torch.float32 else 128) // (
-        2 if card_width(head_dim) == 128 else 1)
+    fp32 64, 32 at 128 (its 3xTF32 path's); 64 in both above 128 (the wide
+    kernels'); a padded head takes its card width's."""
+    w = flash_card_width(head_dim)
+    if w > 128:
+        return 64
+    return (64 if dtype == torch.float32 else 128) // (2 if w == 128 else 1)
 
 
 def padded_keys(lk: int) -> int:
@@ -198,9 +209,9 @@ def flash_attention_backward_reference(q, k, v, kv_valid, scale: float, o,
 
 def _check_cuda(q, k, v, kv_valid) -> int:
     """What the kernel takes: CUDA q [B, Lq, H, D] and k/v [B, Lk, H, D],
-    all bf16 or all fp32, D a multiple of 8 up to 128, each with its heads
+    all bf16 or all fp32, D a multiple of 8 up to 1024, each with its heads
     contiguous in a row and rows on 16-byte boundaries; kv_valid bool [B,
-    Lk]. Returns the width the kernels run at (`card_width(D)`)."""
+    Lk]. Returns the width the kernels run at (`flash_card_width(D)`)."""
     for t in (q, k, v):
         if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32) \
                 or t.dtype != q.dtype:
@@ -216,10 +227,7 @@ def _check_cuda(q, k, v, kv_valid) -> int:
             raise ValueError("q/k/v rows must start on 16-byte boundaries; "
                              f"got strides {t.stride()}")
     B, _, H, D = q.shape
-    if D not in WIDTHS:
-        raise ValueError(f"the flash attention kernel takes heads of a "
-                         f"multiple of 8 up to 128 (run at {HEAD_WIDTHS}), "
-                         f"got {D}")
+    width = flash_card_width(D)  # raises for a width K7 does not take
     if tuple(k.shape) != tuple(v.shape) or (k.shape[0], k.shape[2],
                                             k.shape[3]) != (B, H, D):
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
@@ -231,7 +239,7 @@ def _check_cuda(q, k, v, kv_valid) -> int:
         raise TypeError(f"kv_valid must be a bool CUDA [B, Lk] = "
                         f"{(B, k.shape[1])}; got {kv_valid.dtype} "
                         f"{tuple(kv_valid.shape)} on {kv_valid.device}")
-    return card_width(D)
+    return width
 
 
 def launch_forward(q, k, v, kv_valid, scale: float, residual: bool,
@@ -255,7 +263,8 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool,
     o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
     lse = (torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
            if residual else None)
-    _ext.call("gvf_flash_attention", q.data_ptr(), k.data_ptr(),
+    entry = "gvf_flash_attention" + ("_wide" if D > 128 else "")
+    _ext.call(entry, q.data_ptr(), k.data_ptr(),
               v.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
               o.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Lq, Lk,
               H, D,
@@ -287,11 +296,12 @@ def backward_inputs(q, k, v, valid, tiles, lse, o, do):
     return ptrs, sizes, (do, di)
 
 
-def _entry(kind: str, dtype: torch.dtype) -> str:
-    """The C entry of a backward kernel: fp32 in flash_attention_bwd.cu,
-    bf16 in flash_attention_bwd_bf16.cu."""
-    return f"gvf_flash_attention_{kind}" + (
-        "" if dtype == torch.float32 else "_bf16")
+def _entry(kind: str, dtype: torch.dtype, width: int) -> str:
+    """The C entry of a backward kernel at a card width: fp32 in
+    flash_attention_bwd.cu, bf16 in flash_attention_bwd_bf16.cu, above 128
+    lanes both in flash_attention_wide.cu ("_wide")."""
+    return ("gvf_flash_attention_" + ("wide_" if width > 128 else "") + kind
+            + ("" if dtype == torch.float32 else "_bf16"))
 
 
 def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
@@ -305,7 +315,7 @@ def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
     dk = torch.zeros(B, Lk, H, D, dtype=dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
     dv = torch.zeros_like(dk)
-    _ext.call(_entry("bwd_dkv", dtype), *ptrs, dk.data_ptr(), dv.data_ptr(),
+    _ext.call(_entry("bwd_dkv", dtype, D), *ptrs, dk.data_ptr(), dv.data_ptr(),
               *sizes, float(scale), padded_keys(Lk))
     launch_counts[grad_key("bwd_dkv", dtype, width or D)] += 1
     return dk, dv
@@ -320,7 +330,7 @@ def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype,
     B, Lq, Lk, H, D = sizes[:5]
     dq = torch.empty(B, Lq, H, D, dtype=dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
-    _ext.call(_entry("bwd_dq", dtype), *ptrs, dq.data_ptr(), *sizes,
+    _ext.call(_entry("bwd_dq", dtype, D), *ptrs, dq.data_ptr(), *sizes,
               float(scale), padded_keys(Lk))
     launch_counts[grad_key("bwd_dq", dtype, width or D)] += 1
     return dq
@@ -340,7 +350,7 @@ class FlashAttention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v, kv_valid, o)
             return o
         D = q.shape[-1]
-        q, k, v = (pad_heads(t, card_width(D)) for t in (q, k, v))
+        q, k, v = (pad_heads(t, flash_card_width(D)) for t in (q, k, v))
         o, lse, tiles, valid = launch_forward(q, k, v, kv_valid, scale,
                                                residual=True, width=D)
         ctx.save_for_backward(q, k, v, valid, tiles, lse, o)

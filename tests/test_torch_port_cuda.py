@@ -376,7 +376,8 @@ def test_attention_outside_the_kernels_raises(dev):
     the JAX package takes XLA's attention there (no K5 launch, the same
     function); K6's outside its rule JAX's einsum form; full sparse
     attention over more than 4096 keys takes the flash kernel K7, which
-    raises for heads it does not take (32, 64 and 128 it takes)."""
+    raises for heads it does not take (every multiple of 8 up to 1024 it
+    takes)."""
     import torch.nn.functional as F
     from gvfdiffusion_torch.nn.attention import scaled_dot_product_attention
     from gvfdiffusion_torch.ops import flash_attention as fl
@@ -395,12 +396,16 @@ def test_attention_outside_the_kernels_raises(dev):
     fl.reset_launch_counts()
     full_sparse_attention(q, k, v, valid[:, :4096], valid, torch.bfloat16)
     assert fl.launch_counts["flash_attention"] == 1
-    # K7 runs heads of 16 padded to 32; above 128 it has no kernel yet
+    # K7 runs heads of 16 padded to 32, and of 256 on its wide kernels;
+    # above 1024 it has none
     full_sparse_attention(*(a[..., :16].contiguous() for a in (q, k, v)),
                           valid[:, :4096], valid, torch.bfloat16)
     assert fl.launch_counts["flash_attention_d16"] == 1
+    full_sparse_attention(*(torch.cat([a] * 4, -1) for a in (q, k, v)),
+                          valid[:, :4096], valid, torch.bfloat16)
+    assert fl.launch_counts["flash_attention_d256"] == 1
     with pytest.raises(ValueError, match="heads of"):
-        full_sparse_attention(*(torch.cat([a] * 4, -1) for a in (q, k, v)),
+        full_sparse_attention(*(torch.cat([a] * 17, -1) for a in (q, k, v)),
                               valid[:, :4096], valid, torch.bfloat16)
     from gvfdiffusion_torch.nn.attention import MultiHeadAttention
 
@@ -648,13 +653,15 @@ def test_flash_attention_counts_and_checks(dev):
     fl.flash_attention(q.float(), k.float(), v.float(), valid, 0.125)
     fl.flash_attention(*(a[..., :32].contiguous() for a in (q, k, v)),
                        valid, 0.125)
+    fl.flash_attention(*(torch.cat([a, a, a[..., :8]], -1)
+                         for a in (q, k, v)), valid, 0.125)  # 136: wide
     assert {k_: n for k_, n in fl.launch_counts.items() if n} == {
         "flash_attention": 1, "flash_attention_fp32": 1,
-        "flash_attention_d32": 1}
+        "flash_attention_d32": 1, "flash_attention_d136": 1}
     with pytest.raises(TypeError):  # fp32 q with bf16 k/v: never cast
         fl.flash_attention(q.float(), k, v, valid, 0.125)
-    with pytest.raises(ValueError, match="heads of"):  # heads of 136
-        fl.flash_attention(*(torch.cat([a, a, a[..., :8]], -1)
+    with pytest.raises(ValueError, match="heads of"):  # heads of 1088
+        fl.flash_attention(*(torch.cat([a] * 17, -1)
                              for a in (q, k, v)), valid, 0.125)
     with pytest.raises(TypeError):  # a float validity
         fl.flash_attention(q, k, v, valid.float(), 0.125)
@@ -891,8 +898,8 @@ def test_static_vae_full_attention_kernels_under_remat(dev, monkeypatch):
 def test_flash_attention_backward_forms_raise(dev):
     """Under grad every form of the forward (bf16 and fp32, heads of 32, 64
     and 128) runs its residual forward, dkv and dq kernels; what the
-    kernels do not take (heads of 136, past 128; mixed dtypes) raises and
-    never falls back to the plain version."""
+    kernels do not take (heads of 1088, past K7's 1024; mixed dtypes)
+    raises and never falls back to the plain version."""
     from gvfdiffusion_torch.ops import flash_attention as fl
 
     valid = torch.ones(1, 70, dtype=torch.bool, device=dev)
@@ -907,7 +914,7 @@ def test_flash_attention_backward_forms_raise(dev):
             assert {n: c for n, c in fl.launch_counts.items() if c} == {
                 fl.grad_key(kind, dt, D): 1 for kind in fl.GRAD_KINDS}
             assert q.grad.dtype == dt and bool(torch.isfinite(q.grad).all())
-    q = torch.randn(1, 70, 2, 136, device=dev, requires_grad=True)
+    q = torch.randn(1, 70, 2, 1088, device=dev, requires_grad=True)
     with pytest.raises(ValueError, match="heads of"):
         fl.flash_attention(q, q.detach(), q.detach(), valid, 0.25)
     q = torch.randn(1, 70, 2, 64, device=dev, requires_grad=True)

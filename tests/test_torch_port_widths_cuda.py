@@ -17,7 +17,8 @@ and none raises:
     query tiles) and K6 at heads of 128 (Q's fragments read per k-step,
     fp32 at 2 warps a CTA), around their tiles;
   * K5's padded forms, int8 at 16 and segments at 16;
-  * a width no rule admits (12; 136 for K7) raising.
+  * a width no rule admits (12; 1032 for K7, whose wide kernels take
+    every multiple of 8 up to 1024) raising.
 Every test needs a CUDA device and skips without one; run them on the GPU
 with
 
@@ -238,7 +239,7 @@ def test_unadmitted_widths_raise(dev):
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.temporal_attention(*(_t(r, 1, 8, 4, 2, 12, dev=dev)
                                 for _ in range(3)), 0.25)
-    q = _t(r, 1, 200, 1, 136, dev=dev)
+    q = _t(r, 1, 200, 1, 1032, dev=dev)
     with pytest.raises(ValueError, match="heads of"):
         fl.flash_attention(q, q, q, torch.ones(1, 200, dtype=torch.bool,
                                                device=dev), 0.1)
