@@ -110,10 +110,11 @@ Phases, each printed on its own lines:
      the residual forward, dkv and dq in bf16 and fp32 at [2, 32768, 768 /
      D, D] for D = 192 and 768 on the static VAE's two shells, against the
      plain forward and backward (fp32 also against fp64), timed beside
-     SDPA; the fp32 forward without its residual at one object's [1, 32768,
-     768 / D, D], then through the static VAE's encode and decode at 4 and
-     1 heads (its launches counted); main_vae at those heads runs in
-     [vae-train];
+     their bounds and SDPA's forward and backward (dkv + dq against
+     SDPA's backward); the fp32 forward without its residual at one
+     object's [1, 32768, 768 / D, D], then through the static VAE's encode
+     and decode at 4 and 1 heads (its launches counted); main_vae at those
+     heads runs in [vae-train];
   2b. device time by kernel name (torch.profiler, three calls each) inside
      K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
      the float and the int8 cache) at the DiT's shape, K3's single
@@ -2097,8 +2098,11 @@ def train_configs(work, data, dev, card):
 
 
 # [wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu: the
-# output's columns in 64-lane chunks over the grid, the scores formed at
-# full width by each chunk's CTA) at the static VAE's full attention, 768
+# forward's output columns in 64-lane chunks over the grid, the scores
+# formed at full width by each chunk's CTA; the backward's lanes split over
+# a cluster of CTAs, ops/_widths.py `wide_split`, each tile pair's S and
+# dP formed once and summed through the cluster's shared memory) at the
+# static VAE's full attention, 768
 # channels in 4 heads of 192 and 1 of 768 (main_vae
 # --static_vae.num_heads=4 / 1): per dtype and width the forward with its
 # residual, dkv and dq (vae_form_rows), and in fp32 the forward without
@@ -2111,9 +2115,6 @@ WIDE_FORMS = (("bfloat16", 192), ("bfloat16", 768), ("float32", 192),
               ("float32", 768))
 WIDE_HEADS = (4, 1)        # main_vae --static_vae.num_heads: heads of 192, 768
 WIDE_SRC = "gvfdiffusion_torch/csrc/flash_attention_wide.cu"
-# the wide kernels' lane chunk: a CTA per chunk of the output, each
-# forming S (and dP) again, D / WIDE_CHUNK times
-WIDE_CHUNK = 64
 
 
 def _wide_kernels():
@@ -2415,7 +2416,8 @@ def vae_form_rows(dev, card, forms, tag, iters=(3, 2)):
     import torch
     import torch.nn.functional as F
     from gvfdiffusion_torch.ops import flash_attention as fl
-    from gvfdiffusion_torch.ops._widths import flash_card_width, pad_heads
+    from gvfdiffusion_torch.ops._widths import (flash_card_width, pad_heads,
+                                                wide_split)
 
     valid = vae_valid(dev)
     n_valid = [int(n) for n in valid.sum(1)]
@@ -2549,13 +2551,19 @@ def vae_form_rows(dev, card, forms, tag, iters=(3, 2)):
             "rel_l2 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
             + f" (bound {lim:g}); max_abs_err "
             + ", ".join(f"{n} {m:.3g}" for n, m in maes.items()) + f64_note)
+        split = ""
+        if W > 128:
+            lanes, n_cta = wide_split(W)
+            split = (f"; backward clusters of {n_cta} CTA(s) of {lanes} "
+                     "lanes, S and dP formed once a tile pair; dkv + dq "
+                     f"{ms_dkv + ms_dq:.3f} ms against SDPA's backward "
+                     + (f"{lib_bwd:.3f} ms" if lib_bwd is not None
+                        else "(does not fit)"))
         log(f"{what}: forward with residual {ms_fwd:.3f} ms (plain "
             f"{plain_fwd:.3f} ms, bound {b_fwd[0]:.4f} ms, {b_fwd[1]}); dkv "
             f"{ms_dkv:.3f} ms (bound {b_dkv[0]:.4f} ms), dq {ms_dq:.3f} ms "
             f"(bound {b_dq[0]:.4f} ms); plain backward {plain_bwd:.3f} ms; "
-            f"{lib_note}" + (f"; S and dP recomputed {W // WIDE_CHUNK} "
-                             f"times (a CTA per {WIDE_CHUNK}-lane chunk)"
-                             if W > 128 else "") + f"; {card}")
+            f"{lib_note}{split}; {card}")
         if not (finite and all(e <= lim for e in errs.values())):
             raise AssertionError(f"{what}: the kernels disagree with their "
                                  f"plain versions: {errs}")

@@ -34,40 +34,119 @@
 // nothing (P = 0), so its dK and dV stay the wrapper's zeros. A batch row
 // with no listed tile visits every tile.
 //
-// Design: the simple one. At D = 768 a 64-row Q tile in bf16 is 96 KB and a
-// 64 x 768 fp32 accumulator is 192 KB, past a CTA's shared memory and one
-// warpgroup's registers, so the output columns are split over the grid: a
-// CTA owns one 64-lane chunk c of the output (O, or dK and dV, or dQ) of a
-// tile of 64 rows (query rows, or in dkv the keys of one visit). It forms
-// the full-width scores S = sum over chunks of Q_dc K_dc^T (and in the
-// backward dP = dO V^T) by streaming 64-lane chunks of both operands through
-// a 2-stage cp.async ring in shared memory, then accumulates only its own
-// chunk of the output from its own chunk of V (dO and Q, K). So S (and dP)
-// is recomputed D / 64 times, once by each chunk's CTA; every CTA of a row
-// tile forms S in the same order, so their row maxima and sums agree bit for
-// bit, and chunk 0 alone writes the logsumexp. 4 warps a CTA, each 16 rows;
-// the products on the tensor cores by mma.sync from shared memory (rows
-// padded to 144 / 272 bytes: no bank conflict), the score accumulator as it
-// stands the A operand of the product that sums over its columns:
+// The forward's design: the simple one. At D = 768 a 64-row Q tile in bf16
+// is 96 KB and a 64 x 768 fp32 accumulator is 192 KB, past a CTA's shared
+// memory and one warpgroup's registers, so the output columns are split
+// over the grid: a CTA owns one 64-lane chunk c of O for a tile of 64 query
+// rows. It forms the full-width scores S = sum over chunks of Q_dc K_dc^T
+// by streaming 64-lane chunks of both operands through a 2-stage cp.async
+// ring in shared memory, then accumulates only its own chunk of the output
+// from its own chunk of V. So S is recomputed D / 64 times, once by each
+// chunk's CTA; every CTA of a row tile forms S in the same order, so their
+// row maxima and sums agree bit for bit, and chunk 0 alone writes the
+// logsumexp. 4 warps a CTA, each 16 rows; the products on the tensor cores
+// by mma.sync from shared memory (rows padded to 144 / 272 bytes: no bank
+// conflict), the score accumulator as it stands the A operand of the
+// product that sums over its columns:
 //   bf16: m16n8k16 bf16 -> fp32;
 //   fp32: m16n8k8 tf32 by the 3xTF32 split (x = hi + lo, a.b = lo.hi' +
 //   hi.lo' + hi.hi'), in chains of 32 lanes or keys summed in fp32 (the
 //   tensor cores' accumulation over a long chain loses more than fp32 adds;
 //   attention_sm90_tf32.cuh), about fp32's precision.
 //
+// The backward's design: a cluster of CTAs along D, the scores formed once.
+// The head's lanes are split over n = D / CL CTAs of CL lanes each (192
+// where it divides D, else 128, else 64: ops/_widths.py `wide_split`; 1 CTA
+// at 192, 4 at 768, 13 at 832, above 8 a non-portable cluster). The n CTAs
+// of one tile of 64 rows (dkv: the keys of a visit; dq: query rows) form a
+// cluster; all share the tile and its list of visits, so a cluster whose
+// visit is past its row's count leaves whole, before any barrier. For each
+// tile pair (query tile, key visit) each CTA forms the partial S and dP
+// over its own CL lanes only into shared memory: warps 0-3 S, warps 4-7 dP
+// (bf16: one warpgroup's wgmma m64n64k16 each, both tiles in shared
+// memory; fp32: mma.sync m16n8k8 by the forward's 3xTF32 split, 16 rows a
+// warp, chains of 32 lanes summed in fp32). After a cluster barrier, CTA r
+// sums the r-th share of the [64][64] tiles over the n partials, read from
+// every CTA's shared memory in rank order (distributed shared memory, fp32
+// adds: one order, so the sums are the same bits in every CTA), forms P =
+// exp2(s scale log2 e - lse log2 e) and dS = P (dP - di) scale there, and
+// stores them into the same place in every CTA (a reduce-scatter, then an
+// all-gather by stores). After a second barrier each CTA accumulates only
+// its own lanes of the output: dkv dV_c += P^T dO_c (warps 0-3) and dK_c
+// += dS^T Q_c (warps 4-7), dq dQ_c += dS K_c; in bf16 one warpgroup's
+// wgmma m64nCLk16 each (dq's by warpgroup 0), P^T or dS^T rounded to bf16
+// pairs as the register A operand and the tile MN-major; in fp32 mma.sync,
+// 16 rows a warp (dq: and half the lanes), 3xTF32 in chains of 32 rows of
+// B. Each lane of Q, K, V and dO is read once a tile pair, by the CTA that
+// owns it: K_c and V_c (dkv) or Q_c and dO_c (dq) stay in shared memory,
+// the others stream through a 2-stage cp.async ring (1 stage in fp32 at 192
+// lanes: 227 KB), the tile's lse and di (dkv) or key mask (dq) read a tile
+// ahead. bf16 tiles sit in wgmma's 128-byte swizzle; fp32 tiles without
+// padding, their 16-byte chunks permuted by the row (`at`), so that both
+// fragment walks hit 32 banks. At n = 1 (D = 192) the barriers are the
+// CTA's. No atomics: every output element has one owner.
+//
 // What bounds it on the H100: the products over the valid keys Nv, per head
 // 4 Lq Nv D operations forward, 8 dkv and 6 dq, at the dense bf16 rate (989
 // TFLOP/s) in bf16 and three tf32 products each at 495 in fp32; at the static
 // VAE's 768 channels and two shells (15721 + 12219 valid keys) the forward
-// 2.84 ms in bf16, 17.0 in fp32. The recomputation multiplies the score
-// products: forward (D / 64 + 1) / 2 times the bound's operations, dkv and dq
-// (D / 64 + 1) / 2 and (2 D / 64 + 1) / 3 (at D = 768: 6.5, 6.5 and 8.3);
-// with mma.sync in place of wgmma and every operand chunk read from L2 once
-// per CTA, these kernels sit far above the bound. Making them fast (wgmma,
-// TMA, S formed once per row tile) is later work.
+// 2.84 ms in bf16, 17.0 in fp32, dkv 5.69 / 34.09 and dq 4.27 / 25.57. The
+// forward's recomputation multiplies its score products: (D / 64 + 1) / 2
+// times the bound's operations (6.5 at D = 768). The backward does the
+// bound's products and no more: S and dP once per tile pair, 8 Lq Nv D
+// operations a head in dkv (S, dP, dV, dK) and 6 in dq (S, dP, dQ). What
+// keeps it above the bound: one CTA of 8 warps an SM, whose tensor cores
+// wait through the two barriers and the sum of each tile pair; in fp32
+// mma.sync and the 3xTF32 split of every operand as it is read (tf32 wgmma
+// reads both operands K-major only: the products that sum over a tile's
+// rows would need transposed copies, past 227 KB at 192 lanes).
 
-#include "attention.cuh"
+#include "attention_sm90.cuh"
 #include "flash_tiles.cuh"
+
+namespace gvf {
+namespace sm90 {
+
+// dV and dK over 192 lanes (the wide backward in bf16): m64n192k16
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},"
+      " {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+}  // namespace sm90
+}  // namespace gvf
 
 namespace {
 
@@ -470,211 +549,569 @@ wide_fwd_kernel(const WideArgs a) {
   }
 }
 
-// dkv. CTA (visit vi of 64 keys and chunk c, head, batch row): per query
-// tile, 2 NC items, (K_dc, Q_dc) into S^T and (V_dc, dO_dc) into dP^T, the
-// last with the tile's Q_c and dO_c and its lse log2 e and di; then P^T and
-// dS^T on the accumulators, dV_c += P^T dO_c and dK_c += dS^T Q_c.
+// ---- the backward: a cluster of CTAs along D --------------------------------
+
+constexpr int BT = 256;          // threads of a backward CTA: 8 warps
+constexpr int PE = WR * WR;      // elements of a [64][64] fp32 score tile
+constexpr int CLUSTER_MAX = 16;  // the card's largest cluster (above 8:
+                                 // non-portable, asked for at the launch)
+
+// A backward CTA's shared memory at CL lanes: two resident [64][CL] tiles
+// (K_c and V_c in dkv, Q_c and dO_c in dq), STAGES stages of two streamed
+// ones (Q_c and dO_c of a query tile, or K_c and V_c of a visit), the two
+// fp32 score tiles [64][64] (S and dP, then P and dS), then 5 x 64 floats
+// of row and column statistics; in bf16 from a 1024-byte aligned base
+// (wgmma's swizzle atoms). fp32 at 192 lanes keeps one stage: two would
+// pass 227 KB.
+template <typename T, int CL>
+struct Bw {
+  static constexpr int STAGES = sizeof(T) == 4 && CL == 192 ? 1 : 2;
+  static constexpr int TE = WR * CL;
+  static constexpr int PART = (2 + 2 * STAGES) * TE * (int)sizeof(T);
+  static constexpr int ALIGN = sizeof(T) == 2 ? 1024 : 0;
+  static constexpr int BYTES = PART + 2 * PE * 4 + 5 * WR * 4 + ALIGN;
+  static constexpr int MIN_BLOCKS = BYTES <= 100 * 1024 ? 2 : 1;
+};
+
+// fp32: element (r, c) of a row-major tile of W columns sits at r W + (c ^
+// swz(r)), a row's 16-byte chunks permuted by the row, so that the warps'
+// fragment reads (rows g at columns t, and rows t, t + 4 at columns g) hit
+// 32 banks. bf16: wgmma's 128-byte swizzle in 64-lane regions
+// (sm90::Sw<W>), 1024-byte aligned.
+__device__ __forceinline__ int swz(int r) {
+  return ((r & 3) << 3) | (r & 4);
+}
+
+template <int W>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * W + (c ^ swz(r));
+}
+
+template <typename T, int W>
+__device__ __forceinline__ int tile_at(int r, int c) {
+  if constexpr (sizeof(T) == 2)
+    return sm90::Sw<W>::off(r, c >> 3, WR) / 2 + (c & 7);
+  else
+    return at<W>(r, c);
+}
+
+// rows [0, rows) of a [64][W] tile from g (row r at g + r * sl), the
+// others zero; by the CTA's BT threads, 16 bytes each
+template <typename T, int W>
+__device__ __forceinline__ void load_rows(T* s, const T* g, long long sl,
+                                          int rows, int tid) {
+  constexpr int PER = 16 / sizeof(T), ROW = W / PER;
+#pragma unroll 4
+  for (int p = tid; p < WR * ROW; p += BT) {
+    const int r = p / ROW, e = (p % ROW) * PER;
+    const bool ok = r < rows;
+    cp_async16(s + tile_at<T, W>(r, e), ok ? g + r * sl + e : g, ok);
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// A warp's two products in the backward (a thread holds rows g and g + 8
+// of the warp's 16, columns 8 j + 2 t and + 1 of n-tile j):
+//   rows_by_rows: acc[8][4] += A B^T over the W lanes of two [64][W]
+//   tiles, A the warp's 16 rows from ar0 of tile a, B the 64 rows of b;
+//   regs_by_tile: acc[NT][4] += X B, X the warp's 16 rows from xr0 of a
+//   [64][64] fp32 score tile (P or dS), B columns n0 .. n0 + 8 NT of a
+//   [64][W] tile whose rows are the sum's.
 template <typename T>
-__global__ void __launch_bounds__(WT)
+struct Bk;
+
+// bf16: one warpgroup's wgmma (warps 0-3 or 4-7; a warp's accumulator
+// rows are its 16 of the warpgroup's 64, the fragment layout of mma.sync's
+// m16n8): rows_by_rows m64n64k16 with both tiles K-major in shared memory;
+// regs_by_tile m64nWk16 with X rounded to bf16 pairs as the register A
+// operand (the stock kernels' casts of P and dS) and the tile MN-major,
+// every lane of it (n0 = 0, 8 NT = W).
+template <>
+struct Bk<bf16> {
+  template <int W>
+  __device__ static void rows_by_rows(float (*acc)[4], const bf16* a, int,
+                                      const bf16* b, int) {
+    using S = sm90::Sw<W>;
+    const uint32_t ab = sm90::smem_u32(a), bb = sm90::smem_u32(b);
+    float* d = &acc[0][0];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk)
+      sm90::wgmma_ss<64>(d, S::kmajor(ab, kk, WR), S::kmajor(bb, kk, WR), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs<32>(d);
+  }
+
+  template <int W, int NT>
+  __device__ static void regs_by_tile(float (*acc)[4], const float* x,
+                                      int xr0, const bf16* b, int n0,
+                                      int lane) {
+    static_assert(8 * NT == W, "every lane of the tile");
+    const int g = lane >> 2, t = lane & 3;
+    uint32_t af[WR / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WR / 16; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      const float2 x0 = ld2(x + at<WR>(xr0 + g, c));
+      const float2 x1 = ld2(x + at<WR>(xr0 + g + 8, c));
+      const float2 x2 = ld2(x + at<WR>(xr0 + g, c + 8));
+      const float2 x3 = ld2(x + at<WR>(xr0 + g + 8, c + 8));
+      af[kk][0] = pack_f(x0.x, x0.y);
+      af[kk][1] = pack_f(x1.x, x1.y);
+      af[kk][2] = pack_f(x2.x, x2.y);
+      af[kk][3] = pack_f(x3.x, x3.y);
+    }
+    using S = sm90::Sw<W>;
+    const uint32_t bb = sm90::smem_u32(b);
+    float* d = &acc[0][0];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WR / 16; ++kk)
+      sm90::wgmma_rs<W>(d, af[kk], S::mnmajor(bb, kk, WR));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs<4 * NT>(d);
+    sm90::fence_regs_u<4 * WR / 16>(&af[0][0]);
+  }
+};
+
+// fp32: every product by the 3xTF32 split, in chains of 32 lanes (or rows
+// of B) summed in fp32
+template <>
+struct Bk<float> {
+  template <int W>
+  __device__ static void rows_by_rows(float (*acc)[4], const float* a,
+                                      int ar0, const float* b, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+    for (int ch = 0; ch < W / 32; ++ch) {
+      float part[8][4] = {};
+#pragma unroll
+      for (int kk = 4 * ch; kk < 4 * ch + 4; ++kk) {
+        const int c = 8 * kk + t;
+        uint32_t ah[4], al[4];
+        split(a[at<W>(ar0 + g, c)], ah[0], al[0]);
+        split(a[at<W>(ar0 + g + 8, c)], ah[1], al[1]);
+        split(a[at<W>(ar0 + g, c + 4)], ah[2], al[2]);
+        split(a[at<W>(ar0 + g + 8, c + 4)], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t bh[2], bl[2];
+          split(b[at<W>(8 * j + g, c)], bh[0], bl[0]);
+          split(b[at<W>(8 * j + g, c + 4)], bh[1], bl[1]);
+          mma3(part[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    }
+  }
+
+  template <int W, int NT>
+  __device__ static void regs_by_tile(float (*acc)[4], const float* x,
+                                      int xr0, const float* b, int n0,
+                                      int lane) {
+    constexpr int NB = NT % 8 == 0 ? 8 : 4;  // n-tiles a pass
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nb = 0; nb < NT / NB; ++nb)
+#pragma unroll 1
+      for (int ch = 0; ch < 2; ++ch) {
+        float part[NB][4] = {};
+#pragma unroll
+        for (int kk = 4 * ch; kk < 4 * ch + 4; ++kk) {
+          const int c = 8 * kk + t;
+          uint32_t ah[4], al[4];
+          split(x[at<WR>(xr0 + g, c)], ah[0], al[0]);
+          split(x[at<WR>(xr0 + g + 8, c)], ah[1], al[1]);
+          split(x[at<WR>(xr0 + g, c + 4)], ah[2], al[2]);
+          split(x[at<WR>(xr0 + g + 8, c + 4)], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            const int col = n0 + 8 * (nb * NB + j) + g;
+            uint32_t bh[2], bl[2];
+            split(b[at<W>(c, col)], bh[0], bl[0]);
+            split(b[at<W>(c + 4, col)], bh[1], bl[1]);
+            mma3(part[j], ah, al, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nb * NB + j][e] += part[j][e];
+      }
+  }
+};
+
+// a warp's [16][64] accumulator into rows r0 + g, r0 + g + 8 of a score tile
+__device__ __forceinline__ void store_scores(float* x, int r0,
+                                             const float (*acc)[4], int g,
+                                             int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(x + at<WR>(r0 + g, c)) =
+        make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(x + at<WR>(r0 + g + 8, c)) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// a warp's [16][8 NT] accumulator into rows r0 + g, r0 + g + 8 (below rows)
+// of out (row stride rs)
+template <int NT, typename T>
+__device__ __forceinline__ void store_out(T* out, long long rs, int r0,
+                                          int rows, const float (*acc)[4],
+                                          int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= rows) continue;
+    T* p = out + r * rs + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      store2(p + 8 * n, acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// the shared-memory address addr of this CTA at the same place in CTA
+// `rank` of the cluster
+__device__ __forceinline__ unsigned peer(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_peer(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_peer(unsigned addr, const float* v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// every thread of the cluster: what any wrote before, to its own shared
+// memory or a peer's, is seen by all after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ float pos_inf() { return -neg_inf(); }
+
+// the barrier between the phases of a tile pair: the cluster's, or the
+// CTA's (which costs less) where one CTA holds the whole head (n = 1: D =
+// 192)
+__device__ __forceinline__ void pair_sync(int n) {
+  if (n == 1)
+    __syncthreads();
+  else
+    cluster_sync();
+}
+
+// The scores of one tile pair summed over the cluster: this CTA's slice of
+// the [64][64] tiles (a 1 / n share of their 16-byte chunks, by rank), the
+// n partial S and dP read from every CTA in rank order and added in fp32,
+// then `finish` (r: the tile's row, c0: the first of its 4 columns, s and
+// dp the sums) writes P and dS and returns true, or dS alone and false;
+// they are stored to every CTA at the same place. So each CTA ends with
+// the same bits.
+template <typename F>
+__device__ __forceinline__ void reduce_scores(unsigned part_s, int n, int rank,
+                                              int tid, F finish) {
+  const int lo = rank * (PE / 4) / n, hi = (rank + 1) * (PE / 4) / n;
+  for (int i = lo + tid; i < hi; i += BT) {
+    const int r = i >> 4, e0 = (i & 15) * 4;
+    const unsigned off = part_s + (unsigned)(r * WR + e0) * 4u;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < n; ++j) {
+      const unsigned pa = peer(off, j);
+      const float4 x = ld_peer(pa), y = ld_peer(pa + PE * 4);
+      s[0] += x.x; s[1] += x.y; s[2] += x.z; s[3] += x.w;
+      dp[0] += y.x; dp[1] += y.y; dp[2] += y.z; dp[3] += y.w;
+    }
+    float p[4], ds[4];
+    const bool with_p = finish(r, e0 ^ swz(r), s, dp, p, ds);
+    for (int j = 0; j < n; ++j) {
+      const unsigned pa = peer(off, j);
+      if (with_p) st_peer(pa, p);
+      st_peer(pa + PE * 4, ds);
+    }
+  }
+}
+
+// dkv. A cluster of n = D / CL CTAs per (visit vi of 64 keys, head, batch
+// row), CTA c (its rank) owning lanes [c CL, (c + 1) CL): K_c and V_c
+// resident; per query tile Q_c and dO_c through the ring, the tile's lse
+// log2 e and di read a tile ahead. Warps 0-3 form the partial S^T = K_c
+// Q_c^T over the CTA's lanes, warps 4-7 dP^T = V_c dO_c^T (16 keys a
+// warp); the cluster sums them (reduce_scores) into P^T and dS^T; then
+// warps 0-3 accumulate dV_c += P^T dO_c and warps 4-7 dK_c += dS^T Q_c.
+template <typename T, int CL>
+__global__ void __launch_bounds__(BT, (Bw<T, CL>::MIN_BLOCKS))
 wide_dkv_kernel(const WideArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = Tile<T>::P, TB = Tile<T>::BYTES, TE = TB / sizeof(T);
-  T* ring = reinterpret_cast<T*>(smem);  // [2 stages][A, B]
-  T* qc = reinterpret_cast<T*>(smem + 4 * TB);
-  T* doc = reinterpret_cast<T*>(smem + 5 * TB);
-  float* lse2 = reinterpret_cast<float*>(smem + 6 * TB);  // [WR]
-  float* dis = lse2 + WR;                                   // [WR]
-  const int nc = a.D / WL, vi = blockIdx.x / nc, c = blockIdx.x % nc;
+  using L = Bw<T, CL>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if constexpr (L::ALIGN > 0)
+    smem += (L::ALIGN - (smem_addr(smem_raw) & (L::ALIGN - 1))) &
+            (L::ALIGN - 1);
+  T* kt = reinterpret_cast<T*>(smem);
+  T* vt = kt + L::TE;
+  T* ring = vt + L::TE;  // [STAGES][Q_c, dO_c]
+  float* part = reinterpret_cast<float*>(smem + L::PART);  // S^T, dP^T
+  float* kok = part + 2 * PE;  // [64]: 1 on a key that counts, else 0
+  float* qst = kok + WR;       // [2][lse log2 e [64], di [64]] by parity
+  const int n = a.D / CL, vi = blockIdx.x / n, c = cluster_rank();
   const int h = blockIdx.y, b = blockIdx.z;
   const int* lst = a.list + b * a.list_s1;
   const bool uniform = lst[0] == 0;
+  // the cluster's CTAs share the visit: they leave here together, before
+  // any cluster barrier
   if (vi >= (uniform ? (a.Lk + WR - 1) / WR : lst[0])) return;
-  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wr = 16 * (w & 3), mat = w >> 2;
   const int key0 = first_key(lst, uniform, vi);
-  const long long hd = (long long)h * a.D, rs = (long long)a.H * a.D;
-  const T* k = (const T*)a.k + b * a.k_sb + hd + key0 * a.k_sl;
-  const T* v = (const T*)a.v + b * a.v_sb + hd + key0 * a.v_sl;
+  const long long hd = (long long)h * a.D + c * CL, rs = (long long)a.H * a.D;
   const T* q = (const T*)a.q + b * a.q_sb + hd;
   const T* dout = (const T*)a.dout + (long long)b * a.Lq * rs + hd;
   const float* lse = a.lse + ((long long)b * a.H + h) * a.Lq;
   const float* di = a.di + ((long long)b * a.H + h) * a.Lq;
-  const unsigned char* vld = a.valid + (long long)b * a.Lk;
-  // this thread's two keys (rows g and g + 8 of the warp's 16)
-  bool key_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 16 * w + g + 8 * r;
-    key_ok[r] = key < a.Lk && (uniform || vld[key]);
-  }
-
-  auto load_item = [&](int it) {
-    const int qt = it / (2 * nc), dc = (it >> 1) % nc, half = it & 1;
-    const int q0 = qt * WR, qrows = min(WR, a.Lq - q0);
-    T* st = ring + (it & 1) * 2 * TE;
-    if (half == 0) {
-      load_tile(st, k + dc * WL, a.k_sl, a.Lk - key0);
-      load_tile(st + TE, q + q0 * a.q_sl + dc * WL, a.q_sl, qrows);
-    } else {
-      load_tile(st, v + dc * WL, a.v_sl, a.Lk - key0);
-      load_tile(st + TE, dout + q0 * rs + dc * WL, rs, qrows);
-    }
-    if (half == 1 && dc == nc - 1) {
-      load_tile(qc, q + q0 * a.q_sl + c * WL, a.q_sl, qrows);
-      load_tile(doc, dout + q0 * rs + c * WL, rs, qrows);
-      if (tid < WR) {
-        const int i = q0 + tid;
-        lse2[tid] = i < a.Lq ? lse[i] * LOG2E : -neg_inf();
-        dis[tid] = i < a.Lq ? di[i] : 0.f;
-      }
-    }
+  load_rows<T, CL>(kt, (const T*)a.k + b * a.k_sb + hd + key0 * a.k_sl,
+                   a.k_sl, a.Lk - key0, tid);
+  load_rows<T, CL>(vt, (const T*)a.v + b * a.v_sb + hd + key0 * a.v_sl,
+                   a.v_sl, a.Lk - key0, tid);
+  auto load_queries = [&](int qt) {
+    T* st = ring + (qt % L::STAGES) * 2 * L::TE;
+    const int q0 = qt * WR;
+    load_rows<T, CL>(st, q + q0 * a.q_sl, a.q_sl, a.Lq - q0, tid);
+    load_rows<T, CL>(st + L::TE, dout + q0 * rs, rs, a.Lq - q0, tid);
     cp_async_commit();
   };
-
-  float dk[8][4], dv[8][4], st_[8][4], dp[8][4];
-  zero(dk);
-  zero(dv);
-  const float inv_pad = 1.f / (float)a.lk_pad;
-  const int items = ((a.Lq + WR - 1) / WR) * 2 * nc;
-  load_item(0);
-  for (int it = 0; it < items; ++it) {
-    const int dc = (it >> 1) % nc, half = it & 1;
-    if (it + 1 < items) {
-      load_item(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* st = ring + (it & 1) * 2 * TE;
-    if (half == 0) {
-      if (dc == 0) zero(st_);
-      Mma<T>::rows_by_rows(st_, st + 16 * w * P, st + TE, g, t);
-    } else {
-      if (dc == 0) zero(dp);
-      Mma<T>::rows_by_rows(dp, st + 16 * w * P, st + TE, g, t);
-    }
-    if (half == 1 && dc == nc - 1) {
-      const int q0 = it / (2 * nc) * WR;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          float p;
-          if (uniform)
-            p = key_ok[e >> 1] && q0 + col < a.Lq ? inv_pad : 0.f;
-          else
-            p = key_ok[e >> 1]
-                    ? exp2f(fmaf(st_[j][e], a.scale_log2, -lse2[col]))
-                    : 0.f;
-          st_[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dis[col]) * a.scale;
-        }
-      Mma<T>::regs_by_tile(dv, st_, doc, g, t);
-      Mma<T>::regs_by_tile(dk, dp, qc, g, t);
-    }
-    __syncthreads();
+  load_queries(0);
+  // query row qt WR + tid's lse log2 e (+inf past Lq) and di (0 past Lq)
+  auto query_stats = [&](int qt, float& l2, float& d) {
+    const int i = qt * WR + tid;
+    l2 = i < a.Lq ? lse[i] * LOG2E : pos_inf();
+    d = i < a.Lq ? di[i] : 0.f;
+  };
+  if (tid < WR) {
+    const int key = key0 + tid;
+    kok[tid] =
+        key < a.Lk && (uniform || a.valid[(long long)b * a.Lk + key]) ? 1.f
+                                                                      : 0.f;
+    query_stats(0, qst[tid], qst[WR + tid]);
   }
-  const long long off = (long long)b * a.Lk * rs + hd + c * WL;
-  store_acc((T*)a.dk + off, rs, key0 + 16 * w, a.Lk, 0, dk, 1.f, 1.f, g, t);
-  store_acc((T*)a.dv + off, rs, key0 + 16 * w, a.Lk, 0, dv, 1.f, 1.f, g, t);
+
+  const float inv_pad = 1.f / (float)a.lk_pad;
+  const unsigned part_s = smem_addr(part);
+  float acc[CL / 8][4];  // dV_c (warps 0-3) or dK_c (4-7): 16 keys a warp
+#pragma unroll
+  for (int j = 0; j < CL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int nq = (a.Lq + WR - 1) / WR;
+  for (int qt = 0; qt < nq; ++qt) {
+    if (L::STAGES == 1 && qt > 0) {
+      __syncthreads();  // the last tile's products are done with the stage
+      load_queries(qt);
+    }
+    cp_async_wait<0>();
+    if constexpr (sizeof(T) == 2) sm90::fence_async();  // for wgmma's reads
+    __syncthreads();
+    const T* st = ring + (qt % L::STAGES) * 2 * L::TE;
+    {
+      float s[8][4];
+      zero(s);
+      Bk<T>::template rows_by_rows<CL>(s, mat ? vt : kt, wr,
+                                       mat ? st + L::TE : st, lane);
+      store_scores(part + mat * PE, wr, s, g, t);
+    }
+    pair_sync(n);  // every CTA's partial S^T and dP^T are in place
+    const bool more = qt + 1 < nq;
+    float next_l2 = 0.f, next_d = 0.f;
+    if (more) {
+      if (L::STAGES == 2) load_queries(qt + 1);
+      if (tid < WR) query_stats(qt + 1, next_l2, next_d);
+    }
+    const float* qs = qst + (qt & 1) * 2 * WR;
+    reduce_scores(part_s, n, c, tid,
+                  [&](int r, int c0, const float* s, const float* dp,
+                      float* p, float* ds) {
+                    const bool ok = kok[r] != 0.f;
+                    const float4 l4 = *reinterpret_cast<const float4*>(qs + c0);
+                    const float4 d4 =
+                        *reinterpret_cast<const float4*>(qs + WR + c0);
+                    const float l2[4] = {l4.x, l4.y, l4.z, l4.w};
+                    const float d[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      float pe;
+                      if (uniform)
+                        pe = ok && l2[e] != pos_inf() ? inv_pad : 0.f;
+                      else
+                        pe = ok ? exp2f(fmaf(s[e], a.scale_log2, -l2[e]))
+                                : 0.f;
+                      p[e] = pe;
+                      ds[e] = pe * (dp[e] - d[e]) * a.scale;
+                    }
+                    return true;
+                  });
+    pair_sync(n);  // P^T and dS^T are in every CTA
+    Bk<T>::template regs_by_tile<CL, CL / 8>(acc, part + mat * PE, wr,
+                                             mat ? st : st + L::TE, 0, lane);
+    if (more && tid < WR) {
+      float* ns = qst + ((qt + 1) & 1) * 2 * WR;
+      ns[tid] = next_l2;
+      ns[WR + tid] = next_d;
+    }
+  }
+  // no CTA reads a peer's shared memory past the last cluster barrier
+  T* out = (T*)(mat ? a.dk : a.dv) + (long long)b * a.Lk * rs + hd;
+  store_out<CL / 8>(out, rs, key0 + wr, a.Lk, acc, g, t);
 }
 
-// dq. CTA (query tile qt and chunk c, head, batch row): per visit, 2 NC
-// items, (Q_dc, K_dc) into S and (dO_dc, V_dc) into dP, the last with the
-// visit's K_c and key mask; then P and dS, dQ_c += dS K_c.
-template <typename T>
-__global__ void __launch_bounds__(WT)
+// dq. A cluster of n = D / CL CTAs per (query tile of 64 rows, head, batch
+// row), CTA c owning lanes [c CL, (c + 1) CL): Q_c and dO_c resident; per
+// visit K_c and V_c through the ring, the visit's key mask read a visit
+// ahead. Warps 0-3 form the partial S = Q_c K_c^T, warps 4-7 dP = dO_c
+// V_c^T; the cluster sums them into dS; then dQ_c += dS K_c (bf16: warps
+// 0-3's wgmma over every lane; fp32: every warp, 16 rows and half the
+// lanes).
+template <typename T, int CL>
+__global__ void __launch_bounds__(BT, (Bw<T, CL>::MIN_BLOCKS))
 wide_dq_kernel(const WideArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = Tile<T>::P, TB = Tile<T>::BYTES, TE = TB / sizeof(T);
-  T* ring = reinterpret_cast<T*>(smem);  // [2 stages][A, B]
-  T* kc = reinterpret_cast<T*>(smem + 4 * TB);
-  float* bias = reinterpret_cast<float*>(smem + 5 * TB);  // [WR]
-  const int nc = a.D / WL, qt = blockIdx.x / nc, c = blockIdx.x % nc;
+  using L = Bw<T, CL>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if constexpr (L::ALIGN > 0)
+    smem += (L::ALIGN - (smem_addr(smem_raw) & (L::ALIGN - 1))) &
+            (L::ALIGN - 1);
+  T* qt_ = reinterpret_cast<T*>(smem);
+  T* ot = qt_ + L::TE;
+  T* ring = ot + L::TE;  // [STAGES][K_c, V_c]
+  float* part = reinterpret_cast<float*>(smem + L::PART);  // S, dP
+  float* rst = part + 2 * PE;  // the rows' lse log2 e [64], di [64]
+  float* kbias = rst + 2 * WR;  // [2][64]: 0 on a key that counts, or -inf
+  const int n = a.D / CL, qt = blockIdx.x / n, c = cluster_rank();
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wr = 16 * (w & 3), mat = w >> 2;
   const int* lst = a.list + b * a.list_s1;
   const bool uniform = lst[0] == 0;
   const int visits = uniform ? (a.Lk + WR - 1) / WR : lst[0];
-  const int q0 = qt * WR, qrows = min(WR, a.Lq - q0);
-  const long long hd = (long long)h * a.D, rs = (long long)a.H * a.D;
-  const T* q = (const T*)a.q + b * a.q_sb + hd + q0 * a.q_sl;
-  const T* dout = (const T*)a.dout + ((long long)b * a.Lq + q0) * rs + hd;
+  const int q0 = qt * WR;
+  const long long hd = (long long)h * a.D + c * CL, rs = (long long)a.H * a.D;
   const T* k = (const T*)a.k + b * a.k_sb + hd;
   const T* v = (const T*)a.v + b * a.v_sb + hd;
   const unsigned char* vld = a.valid + (long long)b * a.Lk;
-  // this thread's two query rows: lse log2 e (+inf past Lq) and di
-  float lse2[2], di[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = q0 + 16 * w + g + 8 * r;
-    const long long at = ((long long)b * a.H + h) * a.Lq + i;
-    lse2[r] = i < a.Lq ? a.lse[at] * LOG2E : -neg_inf();
-    di[r] = i < a.Lq ? a.di[at] : 0.f;
-  }
-
-  auto load_item = [&](int it) {
-    const int vi = it / (2 * nc), dc = (it >> 1) % nc, half = it & 1;
+  load_rows<T, CL>(qt_, (const T*)a.q + b * a.q_sb + hd + q0 * a.q_sl,
+                   a.q_sl, a.Lq - q0, tid);
+  load_rows<T, CL>(ot, (const T*)a.dout + ((long long)b * a.Lq + q0) * rs + hd,
+                   rs, a.Lq - q0, tid);
+  auto load_keys = [&](int vi) {
+    T* st = ring + (vi % L::STAGES) * 2 * L::TE;
     const int key0 = first_key(lst, uniform, vi);
-    T* st = ring + (it & 1) * 2 * TE;
-    if (half == 0) {
-      load_tile(st, q + dc * WL, a.q_sl, qrows);
-      load_tile(st + TE, k + key0 * a.k_sl + dc * WL, a.k_sl, a.Lk - key0);
-    } else {
-      load_tile(st, dout + dc * WL, rs, qrows);
-      load_tile(st + TE, v + key0 * a.v_sl + dc * WL, a.v_sl, a.Lk - key0);
-    }
-    if (half == 1 && dc == nc - 1) {
-      load_tile(kc, k + key0 * a.k_sl + c * WL, a.k_sl, a.Lk - key0);
-      if (tid < WR) {
-        const int key = key0 + tid;
-        bias[tid] = key < a.Lk && (uniform || vld[key]) ? 0.f : neg_inf();
-      }
-    }
+    load_rows<T, CL>(st, k + key0 * a.k_sl, a.k_sl, a.Lk - key0, tid);
+    load_rows<T, CL>(st + L::TE, v + key0 * a.v_sl, a.v_sl, a.Lk - key0, tid);
     cp_async_commit();
   };
-
-  float dq[8][4], s[8][4], dp[8][4];
-  zero(dq);
-  const float inv_pad = 1.f / (float)a.lk_pad;
-  const int items = visits * 2 * nc;
-  load_item(0);
-  for (int it = 0; it < items; ++it) {
-    const int dc = (it >> 1) % nc, half = it & 1;
-    if (it + 1 < items) {
-      load_item(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* st = ring + (it & 1) * 2 * TE;
-    if (half == 0) {
-      if (dc == 0) zero(s);
-      Mma<T>::rows_by_rows(s, st + 16 * w * P, st + TE, g, t);
-    } else {
-      if (dc == 0) zero(dp);
-      Mma<T>::rows_by_rows(dp, st + 16 * w * P, st + TE, g, t);
-    }
-    if (half == 1 && dc == nc - 1) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float bk = bias[8 * j + 2 * t + (e & 1)];
-          const int r = e >> 1;
-          const float p =
-              uniform ? (bk == 0.f ? inv_pad : 0.f)
-                      : exp2f(fmaf(s[j][e], a.scale_log2, bk) - lse2[r]);
-          dp[j][e] = p * (dp[j][e] - di[r]) * a.scale;
-        }
-      Mma<T>::regs_by_tile(dq, dp, kc, g, t);
-    }
-    __syncthreads();
+  load_keys(0);
+  // the mask of key tid of visit vi
+  auto key_bias = [&](int vi) {
+    const int key = first_key(lst, uniform, vi) + tid;
+    return key < a.Lk && (uniform || vld[key]) ? 0.f : neg_inf();
+  };
+  if (tid < WR) {
+    const int i = q0 + tid;
+    const long long at = ((long long)b * a.H + h) * a.Lq + i;
+    rst[tid] = i < a.Lq ? a.lse[at] * LOG2E : pos_inf();
+    rst[WR + tid] = i < a.Lq ? a.di[at] : 0.f;
+    kbias[tid] = key_bias(0);
   }
-  T* out = (T*)a.dq + (long long)b * a.Lq * rs + hd + c * WL;
-  store_acc(out, rs, q0 + 16 * w, a.Lq, 0, dq, 1.f, 1.f, g, t);
+
+  const float inv_pad = 1.f / (float)a.lk_pad;
+  const unsigned part_s = smem_addr(part);
+  // dQ_c's n-tiles a warp: bf16, warpgroup 0's wgmma over every lane (16
+  // rows a warp); fp32, 16 rows and half the lanes a warp
+  constexpr int NQ = sizeof(T) == 2 ? CL / 8 : CL / 16;
+  float acc[NQ][4];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int vi = 0; vi < visits; ++vi) {
+    if (L::STAGES == 1 && vi > 0) {
+      __syncthreads();  // the last visit's products are done with the stage
+      load_keys(vi);
+    }
+    cp_async_wait<0>();
+    if constexpr (sizeof(T) == 2) sm90::fence_async();  // for wgmma's reads
+    __syncthreads();
+    const T* st = ring + (vi % L::STAGES) * 2 * L::TE;
+    {
+      float s[8][4];
+      zero(s);
+      Bk<T>::template rows_by_rows<CL>(s, mat ? ot : qt_, wr,
+                                       mat ? st + L::TE : st, lane);
+      store_scores(part + mat * PE, wr, s, g, t);
+    }
+    pair_sync(n);  // every CTA's partial S and dP are in place
+    const bool more = vi + 1 < visits;
+    float next_bias = 0.f;
+    if (more) {
+      if (L::STAGES == 2) load_keys(vi + 1);
+      if (tid < WR) next_bias = key_bias(vi + 1);
+    }
+    const float* kb = kbias + (vi & 1) * WR;
+    reduce_scores(part_s, n, c, tid,
+                  [&](int r, int c0, const float* s, const float* dp,
+                      float* p, float* ds) {
+                    const float l2 = rst[r], d = rst[WR + r];
+                    const float4 b4 = *reinterpret_cast<const float4*>(kb + c0);
+                    const float bk[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      const float pe =
+                          uniform ? (bk[e] == 0.f ? inv_pad : 0.f)
+                                  : exp2f(fmaf(s[e], a.scale_log2, bk[e]) - l2);
+                      ds[e] = pe * (dp[e] - d) * a.scale;
+                    }
+                    return false;
+                  });
+    pair_sync(n);  // dS is in every CTA
+    if (sizeof(T) == 4 || mat == 0)
+      Bk<T>::template regs_by_tile<CL, NQ>(acc, part + PE, wr, st,
+                                           mat * (CL / 2), lane);
+    if (more && tid < WR) kbias[((vi + 1) & 1) * WR + tid] = next_bias;
+  }
+  T* out = (T*)a.dq + (long long)b * a.Lq * rs + hd + mat * (CL / 2);
+  if (sizeof(T) == 4 || mat == 0)
+    store_out<NQ>(out, rs, q0 + wr, a.Lq, acc, g, t);
 }
 
 template <typename T>
@@ -731,6 +1168,55 @@ cudaError_t launch_fwd(const WideArgs& a, cudaStream_t s) {
   return run<T>(wide_fwd_kernel<T>, 5, cdiv(a.Lq, WR) * (a.D / WL), a, s);
 }
 
+// One backward kernel at CL lanes a CTA: a cluster of D / CL CTAs along x
+// per tile of 64 rows (keys of a visit in dkv, query rows in dq), launched
+// with the cluster's dimension. A launch the card refuses (a cluster it
+// cannot place) returns its error.
+template <typename T, int CL>
+cudaError_t run_bwd(bool dkv, const WideArgs& a, cudaStream_t s) {
+  void (*kernel)(WideArgs) =
+      dkv ? wide_dkv_kernel<T, CL> : wide_dq_kernel<T, CL>;
+  const int n = a.D / CL, bytes = Bw<T, CL>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && n > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cdiv(dkv ? a.Lk : a.Lq, WR) * n, a.H, a.B);
+  cfg.blockDim = dim3(BT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(bool dkv, const WideArgs& a, int lanes,
+                       cudaStream_t s) {
+  switch (lanes) {
+    case 64: return run_bwd<T, 64>(dkv, a, s);
+    case 128: return run_bwd<T, 128>(dkv, a, s);
+    case 192: return run_bwd<T, 192>(dkv, a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the split the backward takes: 64, 128 or 192 lanes a CTA, dividing D, at
+// most CLUSTER_MAX CTAs a cluster
+bool bad_split(const WideArgs& a, int lanes) {
+  return (lanes != 64 && lanes != 128 && lanes != 192) || a.D % lanes != 0 ||
+         a.D / lanes > CLUSTER_MAX;
+}
+
 }  // namespace
 
 extern "C" {
@@ -755,38 +1241,39 @@ int gvf_flash_attention_wide(const void* q, const void* k, const void* v,
   return (int)(f32 ? launch_fwd<float>(a, s) : launch_fwd<bf16>(a, s));
 }
 
-// The backward, as flash_attention_bwd.cu's entries (the same arguments):
-// list and lse the wide forward's, dout [B, Lq, H, D] contiguous, di [B, H,
-// Lq] fp32; dkv writes the listed tiles' dk and dv [B, Lk, H, D] (zeroed by
-// the caller), dq every row of dq [B, Lq, H, D]. fp32 here, bf16 in the
-// _bf16 entries.
+// The backward, as flash_attention_bwd.cu's entries (the same arguments)
+// and lanes, the lanes of D a CTA owns (ops/_widths.py `wide_split`): list
+// and lse the wide forward's, dout [B, Lq, H, D] contiguous, di [B, H, Lq]
+// fp32; dkv writes the listed tiles' dk and dv [B, Lk, H, D] (zeroed by the
+// caller), dq every row of dq [B, Lq, H, D]. fp32 here, bf16 in the _bf16
+// entries.
 #define GVF_WIDE_BWD(SUFFIX, T)                                                \
   int gvf_flash_attention_wide_bwd_dkv##SUFFIX(                                \
       const void* q, const void* k, const void* v, const void* valid,          \
       const void* list, const void* lse, const void* dout, const void* di,     \
       void* dk, void* dv, int B, int Lq, int Lk, int H, int D, long long q_sb, \
       long long q_sl, long long k_sb, long long k_sl, long long v_sb,          \
-      long long v_sl, float scale, int lk_pad, void* stream) {                 \
+      long long v_sl, float scale, int lk_pad, int lanes, void* stream) {      \
     WideArgs a = make_args(q, k, v, valid, list, B, Lq, Lk, H, D, q_sb, q_sl,  \
                            k_sb, k_sl, v_sb, v_sl, scale, lk_pad);             \
     a.lse = (float*)lse; a.dout = dout; a.di = (const float*)di;               \
     a.dk = dk; a.dv = dv;                                                      \
-    if (bad_args(a, 16 / (int)sizeof(T))) return (int)cudaErrorInvalidValue;  \
-    return (int)run<T>(wide_dkv_kernel<T>, 6, cdiv(Lk, WR) * (D / WL), a,      \
-                       (cudaStream_t)stream);                                  \
+    if (bad_args(a, 16 / (int)sizeof(T)) || bad_split(a, lanes))              \
+      return (int)cudaErrorInvalidValue;                                       \
+    return (int)launch_bwd<T>(true, a, lanes, (cudaStream_t)stream);          \
   }                                                                            \
   int gvf_flash_attention_wide_bwd_dq##SUFFIX(                                 \
       const void* q, const void* k, const void* v, const void* valid,          \
       const void* list, const void* lse, const void* dout, const void* di,     \
       void* dq, int B, int Lq, int Lk, int H, int D, long long q_sb,           \
       long long q_sl, long long k_sb, long long k_sl, long long v_sb,          \
-      long long v_sl, float scale, int lk_pad, void* stream) {                 \
+      long long v_sl, float scale, int lk_pad, int lanes, void* stream) {      \
     WideArgs a = make_args(q, k, v, valid, list, B, Lq, Lk, H, D, q_sb, q_sl,  \
                            k_sb, k_sl, v_sb, v_sl, scale, lk_pad);             \
     a.lse = (float*)lse; a.dout = dout; a.di = (const float*)di; a.dq = dq;    \
-    if (bad_args(a, 16 / (int)sizeof(T))) return (int)cudaErrorInvalidValue;  \
-    return (int)run<T>(wide_dq_kernel<T>, 5, cdiv(Lq, WR) * (D / WL), a,       \
-                       (cudaStream_t)stream);                                  \
+    if (bad_args(a, 16 / (int)sizeof(T)) || bad_split(a, lanes))              \
+      return (int)cudaErrorInvalidValue;                                       \
+    return (int)launch_bwd<T>(false, a, lanes, (cudaStream_t)stream);         \
   }
 
 GVF_WIDE_BWD(, float)

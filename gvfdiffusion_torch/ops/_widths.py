@@ -17,7 +17,12 @@ or 1 heads: D = 192, 256, 384, 768). The wide kernels
 from 192 to WIDE_MAX (1024); a head of another multiple of 8 above 128 is
 padded the same way to the next of them (`flash_card_width`: 136 runs at
 192). FLASH_WIDTHS is K7's whole rule, every multiple of 8 up to
-WIDE_MAX; a wider head raises.
+WIDE_MAX; a wider head raises. The wide backward splits a head's lanes
+over a cluster of CTAs (`wide_split`): each CTA owns WIDE_SPLITS' first
+that divides the card width (192, else 128, else 64 lanes: a tile pair's
+barriers and sum cost each CTA the same, so the widest CTAs are the
+fastest), so a cluster holds 1 to 13 CTAs, within the 16 the entries
+ask the card for.
 
 K1, K2 and K3 (`fused_sublayer`): their rules admit every head width that
 divides 128 (`_LANES % D == 0`: 1, 2, 4, 8, 16, 32, 64 and 128,
@@ -45,6 +50,8 @@ WIDTHS = tuple(range(8, 129, 8))
 WIDE_LANES = 64
 WIDE_MAX = 1024
 FLASH_WIDTHS = WIDTHS + tuple(range(136, WIDE_MAX + 1, 8))
+# the wide backward's lanes a CTA, in the order tried
+WIDE_SPLITS = (192, 128, 64)
 # every head width K1's, K2's and K3's rules admit: the divisors of 128
 SUBLAYER_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -72,6 +79,17 @@ def flash_card_width(d: int) -> int:
     if d <= 128:
         return card_width(d)
     return -(-d // WIDE_LANES) * WIDE_LANES
+
+
+def wide_split(width: int) -> tuple:
+    """(lanes a CTA, CTAs a cluster) of K7's wide backward at a card width
+    above 128 (`flash_card_width`'s): the first of WIDE_SPLITS that divides
+    it. Raises for a width the wide kernels do not take."""
+    if width % WIDE_LANES or not 128 < width <= WIDE_MAX:
+        raise ValueError(f"the wide kernels take multiples of {WIDE_LANES} "
+                         f"from 192 to {WIDE_MAX}, got {width}")
+    lanes = next(n for n in WIDE_SPLITS if width % n == 0)
+    return lanes, width // lanes
 
 
 def sublayer_card_width(d: int) -> int:

@@ -27,11 +27,10 @@ Two versions:
     each product split into three tf32 products with fp32 sums; the SLat
     flow as the registry builds it). The kernels run natively at heads of
     32, 64 and 128; above 128 lanes `csrc/flash_attention_wide.cu`'s
-    kernels (the output's columns split in 64-lane chunks over the grid,
-    the scores formed at full width by each chunk's CTA; mma.sync, bf16 or
-    3xTF32) run every multiple of 64 up to 1024. A head of any other
-    multiple of 8 (the widths `sparse/attention.full_sparse_attention`
-    sends here) is zero-padded to the next width the kernels run
+    kernels (mma.sync, bf16 or 3xTF32) run every multiple of 64 up to
+    1024. A head of any other multiple of 8 (the widths
+    `sparse/attention.full_sparse_attention` sends here) is zero-padded
+    to the next width the kernels run
     (`_widths.flash_card_width`, `pad_heads`), run with the true width's
     scale, and its output cut back to its D columns: zero columns change no
     score and no logsumexp, so the padding is the design, not a departure
@@ -58,7 +57,10 @@ each of their five products runs on the tensor cores by the forward's
 bf16 (`csrc/flash_attention_bwd_bf16.cu`) on bf16 wgmma from bf16
 operands into fp32, P and dS rounded to bf16 before the products that
 take them, each gradient rounded to bf16 once. Above 128 lanes both are
-`csrc/flash_attention_wide.cu`'s, the same arithmetic on mma.sync. A
+`csrc/flash_attention_wide.cu`'s, the same arithmetic (bf16 on wgmma,
+fp32 on mma.sync): a cluster of CTAs along the head's lanes
+(`_widths.wide_split`) forms each tile pair's scores once, summed through
+the cluster's shared memory. A
 kernel that does not build or launch raises; nothing falls back to the
 plain version. On the CPU, or with impl="plain", forward and backward are
 the plain versions
@@ -87,7 +89,7 @@ from typing import Optional
 import torch
 
 from ._widths import (CARD_WIDTHS, FLASH_WIDTHS, flash_card_width,
-                      pad_heads, width_suffix)
+                      pad_heads, wide_split, width_suffix)
 
 # the Pallas kernel's additive mask value (jax.experimental.pallas.ops.tpu.
 # flash_attention.DEFAULT_MASK_VALUE)
@@ -304,6 +306,12 @@ def _entry(kind: str, dtype: torch.dtype, width: int) -> str:
             + ("" if dtype == torch.float32 else "_bf16"))
 
 
+def _split(width: int) -> tuple:
+    """The wide entries' last argument, the lanes a CTA owns
+    (`wide_split`); nothing for the entries of heads up to 128."""
+    return (wide_split(width)[0],) if width > 128 else ()
+
+
 def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
                width: Optional[int] = None):
     """The dkv kernel -> (dk, dv) [B, Lk, H, D] in `dtype` (q/k/v's),
@@ -316,7 +324,7 @@ def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
     dv = torch.zeros_like(dk)
     _ext.call(_entry("bwd_dkv", dtype, D), *ptrs, dk.data_ptr(), dv.data_ptr(),
-              *sizes, float(scale), padded_keys(Lk))
+              *sizes, float(scale), padded_keys(Lk), *_split(D))
     launch_counts[grad_key("bwd_dkv", dtype, width or D)] += 1
     return dk, dv
 
@@ -331,7 +339,7 @@ def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype,
     dq = torch.empty(B, Lq, H, D, dtype=dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
     _ext.call(_entry("bwd_dq", dtype, D), *ptrs, dq.data_ptr(), *sizes,
-              float(scale), padded_keys(Lk))
+              float(scale), padded_keys(Lk), *_split(D))
     launch_counts[grad_key("bwd_dq", dtype, width or D)] += 1
     return dq
 

@@ -26,7 +26,11 @@ This file holds:
   (e) K7's rule: every multiple of 8 from 136 to 1024 maps to a width the
       wide source takes (its lane chunk and cap read from the source), the
       card check passes on stand-ins of the caller's views at that width,
-      and a width off the rule raises.
+      and a width off the rule raises;
+  (f) the wide backward's split (`wide_split`) at every card width: CTAs
+      of 192, 128 or 64 lanes tiling D exactly, a cluster within the cap
+      the source asks the card for, every padded width on its card
+      width's split.
 Tolerances, those of tests/test_torch_port_flash_bwd_forms.py: fp32 atol
 2e-5 on o, dq, dk and dv; bf16 rel L2 1e-2 and max abs 3.2e-2 (both sides
 round P and dS to bf16 from fp32 values that differ in their last bits). The
@@ -46,8 +50,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from gvfdiffusion_torch.ops import flash_attention as fl
 from gvfdiffusion_torch.ops._widths import (FLASH_WIDTHS, WIDE_LANES,
-                                            WIDE_MAX, card_width,
-                                            flash_card_width, pad_heads)
+                                            WIDE_MAX, WIDE_SPLITS, card_width,
+                                            flash_card_width, pad_heads,
+                                            wide_split)
 from gvfdiffusion_torch.sparse import attention as psa
 from gvfdiffusion_tpu.sparse import attention as jsa
 
@@ -281,3 +286,29 @@ def test_widths_off_the_rule_raise(d):
         fl._check_cuda(q, q, q, _OnCard(torch.ones(1, 8, dtype=torch.bool)))
     with pytest.raises(ValueError):
         card_width(d)
+
+
+@pytest.mark.parametrize("width", range(192, WIDE_MAX + 1, 64))
+def test_wide_backward_split(width):
+    """The split of the wide backward at each card width: the first of
+    192, 128 and 64 lanes that divides it, its CTAs tiling D exactly, the
+    cluster within the cap the source's launch asks for (non-portable
+    above 8); each multiple of 8 padded up to this width takes its split,
+    and the wrapper hands the entries its lanes."""
+    lanes, n = wide_split(width)
+    assert lanes == next(c for c in (192, 128, 64) if width % c == 0)
+    assert WIDE_SPLITS == (192, 128, 64) and lanes * n == width
+    assert 1 <= n <= _source_constant("CLUSTER_MAX") == 16
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" \
+        in WIDE_SRC.read_text()
+    for d in range(max(136, width - 56), width + 1, 8):
+        assert flash_card_width(d) == width, d
+        assert wide_split(flash_card_width(d)) == (lanes, n), d
+    assert fl._split(width) == (lanes,)
+    assert fl._split(128) == ()
+
+
+@pytest.mark.parametrize("width", [128, 200, 1088])
+def test_wide_split_off_the_rule_raises(width):
+    with pytest.raises(ValueError, match="wide kernels take"):
+        wide_split(width)

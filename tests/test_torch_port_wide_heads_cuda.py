@@ -1,9 +1,14 @@
 """K7 above 128 lanes on the card: the wide kernels
 (csrc/flash_attention_wide.cu) in each of their six forms, the forward
 with and without its logsumexp residual, dkv and dq, in bf16 and in fp32,
-at heads of 136 (padded to 192), 192, 256, 384 and 768, against their plain
-torch versions (chip_smoke.py's `[wide-heads]` holds them at the static
-VAE's full width and drives main_vae through them).
+at heads of 136 (padded to 192), 192, 256, 320, 384, 576, 640, 768, 832
+and 1024, against their plain torch versions (chip_smoke.py's
+`[wide-heads]` holds them at the static VAE's full width and drives
+main_vae through them). The widths cover every split the backward takes
+(`_widths.wide_split`: lanes a CTA x CTAs a cluster): 192 x 1 (136, 192),
+128 x 2 (256), 64 x 5 (320), 192 x 2 (384), 192 x 3 (576), 128 x 5 (640),
+192 x 4 (768), 64 x 13 (832, the largest cluster, past the portable 8)
+and 128 x 8 (1024, the widest head).
 
 The cases: three batch rows, a prefix of valid keys, scattered keys and no
 valid key at all (every 64-key tile visited, P = 1 / Lk-padded-to-512, so
@@ -11,7 +16,10 @@ its keys get dV != 0), at Lq 130 against Lk 300 (off the 64-row tiles and
 the 512-key padding), q, k and v the views of one projection at Lq = Lk =
 1000, and a tile whose only valid key is its last; the forward's logsumexp
 against the plain scores'; two launches giving the same bits; each launch
-counted under the caller's width; and the wrapper raising, not falling
+counted under the caller's width; the fp32 gradients also against a
+dense fp64 gradient; batch rows whose lists differ in length (one tile
+against all of them: the clusters of the short row's missing visits
+leave at once, the others run on); and the wrapper raising, not falling
 back, where the library lacks the wide entries. Every test needs a CUDA
 device and skips without one; run them on the GPU with
 
@@ -36,8 +44,9 @@ pytestmark = pytest.mark.cuda
 FLASH_BWD_BOUND = 1e-5
 BF16_BOUND = 1e-2
 LSE_ATOL = 1e-4
-WIDTHS = (136, 192, 256, 384, 768)
-HEADS = {136: 2, 192: 2, 256: 1, 384: 2, 768: 1}
+WIDTHS = (136, 192, 256, 320, 384, 576, 640, 768, 832, 1024)
+HEADS = {136: 2, 192: 2, 256: 1, 320: 1, 384: 2, 576: 1, 640: 1, 768: 1,
+         832: 1, 1024: 1}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
@@ -92,18 +101,45 @@ def _grads(q, k, v, valid, do, impl):
     return (o.detach(), *(a.grad for a in args))
 
 
+def _grads_fp64(q, k, v, valid, do):
+    """(o, dq, dk, dv) in fp64, dense: P the softmax over each row's valid
+    keys, or 1 / Lk-padded-to-512 on every key of a row with none."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, -1)
+    empty = ~valid.any(1)
+    p[empty] = 1.0 / fl.padded_keys(k.shape[1])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    di = (o * do).sum(-1).transpose(1, 2)[..., None]  # [B, H, Lq, 1]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - di) * scale
+    return (o, torch.einsum("bhqk,bkhd->bqhd", ds, k),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
 def _check(q, k, v, valid, do, what):
     from gvfdiffusion_torch.ops import flash_attention as fl
 
     bound = FLASH_BWD_BOUND if q.dtype == torch.float32 else BF16_BOUND
     got = _grads(q, k, v, valid, do, None)
     want = _grads(q, k, v, valid, do, "plain")
-    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+    exact = (_grads_fp64(q, k, v, valid, do) if q.dtype == torch.float32
+             else (None,) * 4)
+    for name, a, b, c in zip(("o", "dq", "dk", "dv"), got, want, exact):
         assert a.dtype == q.dtype and a.shape == b.shape, (what, name)
         assert bool(torch.isfinite(a).all()), (what, name)
         err = _rel(a, b)
         print(f"wide {what} {name}: rel_l2 {err:.3e}")
         assert err <= bound, (what, name, err)
+        if c is not None:
+            err = _rel(a, c)
+            print(f"wide {what} {name}: rel_l2 against fp64 {err:.3e}")
+            assert err <= bound, (what, name, "fp64", err)
     # the forward without its residual
     D = q.shape[-1]
     fl.reset_launch_counts()
@@ -186,11 +222,25 @@ def test_wide_logsumexp_and_list(dev, dt):
         assert tiles[b, 1:1 + len(listed)].tolist() == listed, b
 
 
-@pytest.mark.parametrize("D", (136, 768))
+@pytest.mark.parametrize("D", (576, 832))
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_wide_uneven_lists(dev, dt, D):
+    """Batch row 0 lists one 64-key tile (one valid key), row 1 all
+    sixteen (every key valid), row 2 none: the backward's clusters of row
+    0's missing visits leave before any cluster barrier while row 1's run
+    every visit; Lq 1000 against Lk 1000."""
+    q, k, v, do, _ = _inputs(dev, DTYPES[dt], 3, D, 1, 1000, 1000, 29 + D)
+    valid = torch.zeros(3, 1000, dtype=torch.bool, device=dev)
+    valid[0, 517] = True
+    valid[1] = True
+    _check(q, k, v, valid, do, f"{dt} d{D} uneven lists")
+
+
+@pytest.mark.parametrize("D", (136, 768, 832))
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_wide_deterministic(dev, dt, D):
     """Two launches of each kernel on the same inputs give the same bits
-    (no atomics; every chunk's CTA forms the scores in one order)."""
+    (no atomics; a cluster sums its partial scores in rank order)."""
     q, k, v, do, g = _inputs(dev, DTYPES[dt], 3, D, 1, 130, 300, 23 + D)
     valid = _validity(dev, 300, g)
     first = _grads(q, k, v, valid, do, None)
