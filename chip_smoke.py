@@ -108,13 +108,17 @@ Phases, each printed on its own lines:
      (K5 / K6 launches at heads of 16 and 128 checked);
   2d. [wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu):
      the residual forward, dkv and dq in bf16 and fp32 at [2, 32768, 768 /
-     D, D] for D = 192 and 768 on the static VAE's two shells, against the
-     plain forward and backward (fp32 also against fp64), timed beside
-     their bounds and SDPA's forward and backward (dkv + dq against
-     SDPA's backward); the fp32 forward without its residual at one
-     object's [1, 32768, 768 / D, D], then through the static VAE's encode
-     and decode at 4 and 1 heads (its launches counted); main_vae at those
-     heads runs in [vae-train];
+     D, D] for D = 192 and 768 and at [2, 32768, 1, 1152] (1152 channels
+     in one head) on the static VAE's two shells, against the plain
+     forward and backward (fp32 also against fp64), timed beside their
+     bounds and SDPA's forward and backward (dkv + dq against SDPA's
+     backward); the fp32 forward without its residual at one object's [1,
+     32768, 768 / D, D], then through the static VAE's encode and decode
+     at 4 and 1 heads (its launches counted); a head of 3136 (4 passes of
+     clusters) at [2, 1000, 1, 3136] in both dtypes against the plain
+     versions, driven once under grad and timed beside SDPA and the
+     bound; main_vae at those heads and at 1152 channels runs in
+     [vae-train];
   2b. device time by kernel name (torch.profiler, three calls each) inside
      K1 and K2 (float and int8 QK), K4 (M = 2048 and 1024) and K3 (on
      the float and the int8 cache) at the DiT's shape, K3's single
@@ -265,10 +269,12 @@ Phases, each printed on its own lines:
      kernels (K7's bf16 backward at heads of 64, 48 / 24 / 24 launches),
      and at 2 + 2 blocks kernels against impl="plain" (loss, gradients);
      then K7 above 128 lanes: main_vae in `full` with
-     --static_vae.num_heads=4 and =1 (fp32, heads of 192 and 768) at 2 + 2
-     blocks, 1 step each, the five head counts at once, launches 8 / 4 /
-     4 a step, and the bf16 static VAE at those heads, one step each at
-     2 + 2 blocks with the kernels (launches counted, gradients finite);
+     --static_vae.num_heads=4 and =1 (fp32, heads of 192 and 768) and
+     with --static_vae.model_channels=1152 --static_vae.num_heads=1 (a
+     head of 1152) at 2 + 2 blocks, 1 step each, the six runs at once,
+     launches 8 / 4 / 4 a step, and the bf16 static VAE at those heads,
+     one step each at 2 + 2 blocks with the kernels (launches counted,
+     gradients finite);
   8. the step between the two trainers ([encode-latent]): K7's fp32
      forward without the residual at [1, 32768, 12, 64] (the static VAE
      one object at a time) against its plain version, with SDPA as the
@@ -2097,31 +2103,47 @@ def train_configs(work, data, dev, card):
 
 
 
-# [wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu: the
-# forward's output columns in 64-lane chunks over the grid, the scores
-# formed at full width by each chunk's CTA; the backward's lanes split over
-# a cluster of CTAs, ops/_widths.py `wide_split`, each tile pair's S and
-# dP formed once and summed through the cluster's shared memory) at the
-# static VAE's full attention, 768
+# [wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu: every
+# kernel's lanes split over a cluster of CTAs, ops/_widths.py
+# `wide_split`, each tile pair's scores formed once and summed through the
+# cluster's shared memory) at the static VAE's full attention, 768
 # channels in 4 heads of 192 and 1 of 768 (main_vae
-# --static_vae.num_heads=4 / 1): per dtype and width the forward with its
-# residual, dkv and dq (vae_form_rows), and in fp32 the forward without
-# its residual at one object's [1, 32768, 768 / D, D] (cli/encode_latent's
-# form, encode_flash_check). The fp32 forms' launches come from main_vae's
-# runs at those heads in [vae-train], the bf16 forms' from the static VAE
-# built in bf16 there, the forward without its residual from the static
-# VAE's encode in [wide-heads]
+# --static_vae.num_heads=4 / 1), and 1152 channels in 1 head of 1152
+# (--static_vae.model_channels=1152 --static_vae.num_heads=1, past the old
+# cap of 1024 lanes: 6 CTAs of 192): per dtype and width the forward with
+# its residual, dkv and dq (vae_form_rows), and in fp32 the forward
+# without its residual at one object's [1, 32768, 768 / D, D]
+# (cli/encode_latent's form, encode_flash_check). The fp32 forms' launches
+# come from main_vae's runs at those heads in [vae-train], the bf16 forms'
+# from the static VAE built in bf16 there, the forward without its
+# residual from the static VAE's encode in [wide-heads]
 WIDE_FORMS = (("bfloat16", 192), ("bfloat16", 768), ("float32", 192),
-              ("float32", 768))
+              ("float32", 768), ("bfloat16", 1152), ("float32", 1152))
 WIDE_HEADS = (4, 1)        # main_vae --static_vae.num_heads: heads of 192, 768
+WIDE_CHANNELS = 1152       # --static_vae.model_channels in one head
 WIDE_SRC = "gvfdiffusion_torch/csrc/flash_attention_wide.cu"
+# the short check above one cluster's 3072 lanes: a head of 3136 (padded
+# to 3328: 4 passes of clusters of 13 CTAs of 64 lanes) at [2, 1000, 1,
+# 3136] against [2, 1000] keys, no path's shape
+WIDE_PASSES_D, WIDE_PASSES_L = 3136, 1000
+
+
+def form_heads(d: int) -> int:
+    """The heads of width d at the static VAE's 768 channels, or 1 above
+    them (--static_vae.model_channels=d --static_vae.num_heads=1)."""
+    return max(1, VAE_C // d)
+
+
+def _form_what(dt: str, d: int) -> str:
+    return (f"{'bf16' if dt == 'bfloat16' else 'fp32'}, static VAE"
+            + ("" if d <= VAE_C else f" at {d} channels")
+            + f", {form_heads(d)} heads of {d}")
 
 
 def _wide_kernels():
     out = []
     for dt, d in WIDE_FORMS:
-        what = (f"{'bf16' if dt == 'bfloat16' else 'fp32'}, static VAE, "
-                f"{VAE_C // d} heads of {d}")
+        what = _form_what(dt, d)
         res, dkv, dq = vae_form_keys(dt, d)
         out += [(f"flash_attention[{what}: forward with residual]",
                  "gvfdiffusion_tpu/sparse/attention.py:57", WIDE_SRC, res),
@@ -2137,6 +2159,18 @@ def _wide_kernels():
                     f"{h} heads of {d}]",
                     "gvfdiffusion_tpu/sparse/attention.py:57", WIDE_SRC,
                     f"flash_attention_fp32_d{d}"))
+    for dt in ("bfloat16", "float32"):
+        what = (f"{'bf16' if dt == 'bfloat16' else 'fp32'}, one head of "
+                f"{WIDE_PASSES_D} in passes, [2, {WIDE_PASSES_L}] keys")
+        res, dkv, dq = vae_form_keys(dt, WIDE_PASSES_D)
+        out += [(f"flash_attention[{what}: forward with residual]",
+                 "gvfdiffusion_tpu/sparse/attention.py:57", WIDE_SRC, res),
+                (f"flash_attention backward dkv[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+                 WIDE_SRC, dkv),
+                (f"flash_attention backward dq[{what}]",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+                 WIDE_SRC, dq)]
     return out
 
 
@@ -2421,11 +2455,11 @@ def vae_form_rows(dev, card, forms, tag, iters=(3, 2)):
 
     valid = vae_valid(dev)
     n_valid = [int(n) for n in valid.sum(1)]
-    qk_units = sum(SLOTS * n * VAE_C for n in n_valid)  # B H Lq Nv D
     entries = {e[3]: e for e in KERNELS}
     rows, drive = {}, {}
     for dt_name, D in forms:
-        dtype, H, scale = getattr(torch, dt_name), VAE_C // D, D ** -0.5
+        dtype, H, scale = getattr(torch, dt_name), form_heads(D), D ** -0.5
+        qk_units = sum(SLOTS * n * H * D for n in n_valid)  # B H Lq Nv D
         W = flash_card_width(D)
         pad = lambda *ts: [pad_heads(t_, W) for t_ in ts]  # noqa: E731
         f32 = dtype == torch.float32
@@ -2554,8 +2588,11 @@ def vae_form_rows(dev, card, forms, tag, iters=(3, 2)):
         split = ""
         if W > 128:
             lanes, n_cta = wide_split(W)
-            split = (f"; backward clusters of {n_cta} CTA(s) of {lanes} "
-                     "lanes, S and dP formed once a tile pair; dkv + dq "
+            split = (f"; forward and backward in clusters of {n_cta} CTA(s) "
+                     f"of {lanes} lanes, S (and dP) formed once a tile "
+                     f"pair; forward against SDPA's "
+                     + (f"{lib_fwd:.3f} ms" if lib_fwd is not None
+                        else "(does not fit)") + "; dkv + dq "
                      f"{ms_dkv + ms_dq:.3f} ms against SDPA's backward "
                      + (f"{lib_bwd:.3f} ms" if lib_bwd is not None
                         else "(does not fit)"))
@@ -2714,20 +2751,23 @@ def phase_vae_train(dev, card):
     (full attention, random weights) with the kernels and with
     impl="plain": loss and gradients. Then main_vae in `full` attention
     with --static_vae.num_heads at 24 and 6 (fp32 K7 at heads of 32 and
-    128), at 8 (heads of 96, padded to 128) and at 4 and 1 (WIDE_HEADS:
-    heads of 192 and 768, K7 above 128 lanes), at VAE_HEAD_BLOCKS +
-    VAE_HEAD_BLOCKS blocks, 1 phase-A step each, the five processes at
-    once (their step times, taken on a shared card, not printed), its
+    128), at 8 (heads of 96, padded to 128), at 4 and 1 (WIDE_HEADS:
+    heads of 192 and 768, K7 above 128 lanes) and with
+    --static_vae.model_channels=1152 in one head (WIDE_CHANNELS: 1152
+    lanes, past the old cap of 1024), at VAE_HEAD_BLOCKS + VAE_HEAD_BLOCKS
+    blocks, 1 phase-A step each, the six processes at once (their step
+    times, taken on a shared card, not printed), its
     launches a step checked against the heads-of-64 run's per block; and
     the static
     VAE built in bf16 (SparseTransformerVAE(dtype=
     bfloat16), `full`, 768 channels) under autograd: one step at 12 + 12
     blocks with the kernels (K7's bf16 backward, launches counted), then at
     2 + 2 blocks kernels vs impl="plain"; then the bf16 static VAE at
-    WIDE_HEADS heads, one step each at VAE_HEAD_BLOCKS + VAE_HEAD_BLOCKS
-    blocks with the kernels, launches counted, gradients finite. Returns
-    the launches of the whole `full` run, of the runs at 24, 6, 8, 4 and 1
-    heads and of the bf16 steps at 4 and 1 heads."""
+    WIDE_HEADS heads and at 1152 channels in one head, one step each at
+    VAE_HEAD_BLOCKS + VAE_HEAD_BLOCKS blocks with the kernels, launches
+    counted, gradients finite. Returns the launches of the whole `full`
+    run, of the runs at 24, 6, 8, 4 and 1 heads and at 1152 channels and
+    of the bf16 steps at 4 and 1 heads and at 1152 channels."""
     import re
     import shutil
     import tempfile
@@ -2815,21 +2855,25 @@ def phase_vae_train(dev, card):
         nb = VAE_HEAD_BLOCKS
         shallow = [a for a in common if "remat_blocks" not in a] + [
             f"--static_vae.num_blocks={nb}", f"--static_vae.remat_blocks={nb}"]
-        # the five runs at once (with the two above 128 lanes, WIDE_HEADS),
-        # each in its own process (~10 GiB each): they share the card and
-        # the host, so their step times are not those of a run alone and
-        # are not printed (each peak is its own process's)
+        # the six runs at once (with the three above 128 lanes, WIDE_HEADS
+        # and one head at WIDE_CHANNELS channels), each in its own process
+        # (~10 GiB each): they share the card and the host, so their step
+        # times are not those of a run alone and are not printed (each
+        # peak is its own process's)
         n_steps = 1
-        heads_runs = VAE_HEADS + (WIDTH_VAE_HEADS,) + WIDE_HEADS
-        started = {heads: start_main_vae(
-            shallow + [f"--exp_dir={os.path.join(work, f'h{heads}')}",
+        heads_runs = [(VAE_C, h) for h in VAE_HEADS + (WIDTH_VAE_HEADS,)
+                      + WIDE_HEADS] + [(WIDE_CHANNELS, 1)]
+        started = {(ch, heads): start_main_vae(
+            shallow + [f"--exp_dir={os.path.join(work, f'c{ch}h{heads}')}",
                        "--static_vae.attn_mode=full",
+                       f"--static_vae.model_channels={ch}",
                        f"--static_vae.num_heads={heads}",
                        f"--train.static_vae_steps={n_steps}",
-                       f"--train.total_steps={n_steps}"], work, f"h{heads}")
-            for heads in heads_runs}
-        for heads, run in started.items():
-            keys = vae_form_keys("float32", VAE_C // heads)
+                       f"--train.total_steps={n_steps}"], work,
+            f"c{ch}h{heads}")
+            for ch, heads in heads_runs}
+        for (ch, heads), run in started.items():
+            keys = vae_form_keys("float32", ch // heads)
             rc, text, wall = finish_main_vae(run)
             steps = _vae_steps(text)
             peak = max((s_[2]["peak_gib"] for s_ in steps), default=None)
@@ -2838,19 +2882,20 @@ def phase_vae_train(dev, card):
             want = dict(zip(keys, (4 * nb, 2 * nb, 2 * nb)))
             done = re.search(r"\[main_vae\] done; launches (\{.*\})", text)
             total = json.loads(done.group(1)) if done else None
-            log(f"[vae-train] main_vae full at {heads} heads of "
-                f"{VAE_C // heads} (fp32, {nb} + {nb} blocks, "
-                f"remat_blocks {nb}; run at once with heads "
-                f"{list(heads_runs)}, so no time is printed): rc {rc}; "
+            log(f"[vae-train] main_vae full at {ch} channels in {heads} "
+                f"heads of {ch // heads} (fp32, {nb} + {nb} blocks, "
+                f"remat_blocks {nb}; run at once with (channels, heads) "
+                f"{heads_runs}, so no time is printed): rc {rc}; "
                 f"peak GiB {peak}; losses {losses}; launches per step "
                 f"{launches}; {card}")
             if rc != 0 or [s_[1] for s_ in steps] != ["A"] * n_steps or any(
                     not math.isfinite(x) for x in losses) or any(
                     n != want for n in launches) or total != {
                         k: n_steps * n for k, n in want.items()}:
-                raise AssertionError(f"main_vae at {heads} heads: rc {rc}, "
-                                     f"steps {steps}, launches {launches} "
-                                     f"(want {want} a step), in all {total}")
+                raise AssertionError(f"main_vae at {ch} channels, {heads} "
+                                     f"heads: rc {rc}, steps {steps}, "
+                                     f"launches {launches} (want {want} a "
+                                     f"step), in all {total}")
             totals.update(total)
 
         # one phase-A step at 2 + 2 blocks, kernels vs impl="plain"
@@ -2902,10 +2947,11 @@ def phase_vae_train(dev, card):
         # kernels, then 2 + 2 blocks kernels vs impl="plain"
         from gvfdiffusion_torch.ops import flash_attention as fl
 
-        def bf16_step(blocks, seed, heads=sv.num_heads):
+        def bf16_step(blocks, seed, heads=sv.num_heads,
+                      channels=sv.model_channels):
             model = init_random_(SparseTransformerVAE(
                 resolution=sv.resolution, in_channels=sv.in_channels,
-                model_channels=sv.model_channels,
+                model_channels=channels,
                 out_channels=sv.out_channels,
                 latent_channels=sv.latent_channels, num_blocks=blocks,
                 num_heads=heads, window_size=sv.window_size,
@@ -2968,11 +3014,13 @@ def phase_vae_train(dev, card):
         torch.cuda.empty_cache()
 
         # K7 above 128 lanes in bf16: the static VAE built in bf16 at
-        # WIDE_HEADS heads (heads of 192 and 768), one step each at nb + nb
-        # blocks with the kernels
-        for heads in WIDE_HEADS:
-            step = bf16_step(nb, 48 + heads, heads)
-            keys = vae_form_keys("bfloat16", VAE_C // heads)
+        # WIDE_HEADS heads (heads of 192 and 768) and at WIDE_CHANNELS
+        # channels in one head, one step each at nb + nb blocks with the
+        # kernels
+        for ch, heads in [(VAE_C, h) for h in WIDE_HEADS] + [
+                (WIDE_CHANNELS, 1)]:
+            step = bf16_step(nb, 48 + heads, heads, ch)
+            keys = vae_form_keys("bfloat16", ch // heads)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fl.reset_launch_counts()
@@ -2985,7 +3033,7 @@ def phase_vae_train(dev, card):
             finite = math.isfinite(loss) and all(
                 bool(torch.isfinite(x).all()) for x in grads.values())
             log(f"[vae-train] static VAE in bf16 under autograd at {heads} "
-                f"heads of {VAE_C // heads} (full, 768 channels, {nb} + {nb} "
+                f"heads of {ch // heads} (full, {ch} channels, {nb} + {nb} "
                 f"blocks, remat_blocks 12, random weights): one step "
                 f"{ms:.1f} ms, peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
@@ -2993,9 +3041,9 @@ def phase_vae_train(dev, card):
                 f"{card}")
             if not finite or counts != dict(zip(keys, (4 * nb, 2 * nb,
                                                        2 * nb))):
-                raise AssertionError(f"the bf16 static VAE's step at {heads} "
-                                     f"heads: loss {loss}, finite {finite}, "
-                                     f"launches {counts}")
+                raise AssertionError(f"the bf16 static VAE's step at {ch} "
+                                     f"channels, {heads} heads: loss {loss}, "
+                                     f"finite {finite}, launches {counts}")
             totals.update(counts)
             del step, terms, grads
             torch.cuda.empty_cache()
@@ -3064,19 +3112,139 @@ def wide_encode_drive(dev, card):
     return launches
 
 
+def wide_passes_check(dev, card):
+    """K7 above one cluster's 3072 lanes: a head of WIDE_PASSES_D (padded
+    to 3328, 4 passes of clusters of 13 CTAs of 64 lanes), [2, 1000, 1, D]
+    against 1000 keys (a prefix of 613, scattered keys at 0.2), in bf16
+    and fp32: the residual forward, dkv and dq driven once through the
+    wrapper under grad with the counters at 0 (one launch each), then the
+    forward without its residual; against the plain forward and backward
+    (VAE_FLASH_BOUND, VAE_BF16_BOUND); then each kernel timed (10 calls
+    after 2 warm-ups) beside its plain version, SDPA and the bound over
+    the valid keys. Returns (the kernels-line rows, the drive's
+    launches)."""
+    import torch
+    import torch.nn.functional as F
+    from gvfdiffusion_torch.ops import flash_attention as fl
+    from gvfdiffusion_torch.ops._widths import (flash_card_width, pad_heads,
+                                                wide_passes, wide_split)
+
+    D, L = WIDE_PASSES_D, WIDE_PASSES_L
+    W, scale = flash_card_width(D), D ** -0.5
+    (lanes, n), passes = wide_split(W), wide_passes(W)
+    entries = {e[3]: e[:3] for e in WIDE_KERNELS}
+    g = torch.Generator(device=dev).manual_seed(61)
+    valid = torch.zeros(2, L, dtype=torch.bool, device=dev)
+    valid[0, :613] = True
+    valid[1] = torch.rand(L, generator=g, device=dev) < 0.2
+    qk_units = sum(L * int(x) * D for x in valid.sum(1))  # B H Lq Nv D
+    rows, drive = {}, {}
+    for dt_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt_name)
+        f32 = dtype == torch.float32
+        q, k, v, do = (torch.randn(2, L, 1, D, generator=g,
+                                   device=dev).to(dtype) for _ in range(4))
+        leaves = [t_.clone().requires_grad_(True) for t_ in (q, k, v)]
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        o = fl.flash_attention(*leaves, valid, scale)
+        o.backward(do)
+        torch.cuda.synchronize()
+        counts = {k_: c for k_, c in fl.launch_counts.items() if c}
+        keys = tuple(fl.grad_key(kind, dtype, D) for kind in fl.GRAD_KINDS)
+        drive.update(counts)
+        y = fl.flash_attention(q, k, v, valid, scale)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ref_o = fl.flash_attention_reference(q, k, v, valid, scale)
+        ev[1].record()
+        ref = fl.flash_attention_backward_reference(q, k, v, valid, scale,
+                                                    ref_o, do)
+        ev[2].record()
+        torch.cuda.synchronize()
+        plain_fwd, plain_bwd = (ev[0].elapsed_time(ev[1]),
+                                ev[1].elapsed_time(ev[2]))
+        got = {"o": o.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+               "dv": leaves[2].grad, "o without residual": y}
+        want = {"o": ref_o, "dq": ref[0], "dk": ref[1], "dv": ref[2],
+                "o without residual": ref_o}
+        errs = {k_: rel_l2(got[k_], want[k_]) for k_ in got}
+        maes = {k_: float((got[k_].float() - want[k_].float()).abs().max())
+                for k_ in got}
+        finite = all(bool(torch.isfinite(t_).all()) for t_ in got.values())
+        lim = VAE_FLASH_BOUND if f32 else VAE_BF16_BOUND
+        # the kernels alone at the card width, as the wrapper calls them
+        qp, kp, vp, dop = (pad_heads(t_, W) for t_ in (q, k, v, do))
+        o_, lse, tiles, vld = fl.launch_forward(qp, kp, vp, valid, scale,
+                                                residual=True, width=D)
+        ptrs, sizes, keep = fl.backward_inputs(qp, kp, vp, vld, tiles, lse,
+                                               o_, dop)
+        ms_fwd = time_ms(lambda: fl.launch_forward(
+            qp, kp, vp, valid, scale, residual=True, width=D))
+        ms_dkv = time_ms(lambda: fl.launch_dkv(ptrs, sizes, scale, dtype, D))
+        ms_dq = time_ms(lambda: fl.launch_dq(ptrs, sizes, scale, dtype, D))
+        t = [a.detach().transpose(1, 2).requires_grad_(True)
+             for a in (q, k, v)]
+        mask = valid[:, None, None, :]
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *t, attn_mask=mask).detach(), iters=2, warm=1)
+        lib_o = F.scaled_dot_product_attention(*t, attn_mask=mask)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_o, t, do.transpose(1, 2), retain_graph=True), iters=2,
+            warm=1)
+        ops, peak = (3, PEAK_TF32) if f32 else (1, PEAK_FLOPS)
+        b_fwd = bound(ops * 4 * qk_units, nbytes(q, k, v, valid, y, lse),
+                      peak)
+        b_dkv = bound(ops * 8 * qk_units, nbytes(q, k, v, valid, lse, do,
+                                                 ref[1], ref[2]), peak)
+        b_dq = bound(ops * 6 * qk_units, nbytes(q, k, v, valid, lse, do,
+                                                ref[0]), peak)
+        log(f"[wide-heads] {dt_name} one head of {D} (padded to {W}: "
+            f"{passes} passes of clusters of {n} CTAs of {lanes} lanes), "
+            f"[2, {L}, 1, {D}] against {[int(x) for x in valid.sum(1)]} "
+            f"valid keys: launches under grad {counts}; kernels vs plain "
+            "rel_l2 " + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+            + f" (bound {lim:g}); forward with residual {ms_fwd:.3f} ms "
+            f"(plain {plain_fwd:.3f}, SDPA {lib_fwd:.3f}, bound "
+            f"{b_fwd[0]:.4f}), dkv {ms_dkv:.3f} ms (bound {b_dkv[0]:.4f}), "
+            f"dq {ms_dq:.3f} ms (bound {b_dq[0]:.4f}); plain backward "
+            f"{plain_bwd:.3f} ms, SDPA's {lib_bwd:.3f}; {card}")
+        if counts != dict.fromkeys(keys, 1) or not finite or any(
+                e > lim for e in errs.values()):
+            raise AssertionError(f"K7 at a head of {D}: launches {counts}, "
+                                 f"finite {finite}, errors {errs}")
+        for key, mae, ms, plain_ms, (b_ms, b_by), lib_ms in (
+                (keys[0], maes["o"], ms_fwd, plain_fwd, b_fwd, lib_fwd),
+                (keys[1], max(maes["dk"], maes["dv"]), ms_dkv, plain_bwd,
+                 b_dkv, lib_bwd),
+                (keys[2], maes["dq"], ms_dq, plain_bwd, b_dq, lib_bwd)):
+            name, replaces, source = entries[key]
+            rows[key] = dict(name=name, route="cuda", source=source,
+                             replaces=replaces, max_abs_err=mae, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms)
+        del q, k, v, do, leaves, o, y, ref_o, ref, got, want, lib_o, t
+        del qp, kp, vp, dop, o_, lse, tiles, vld, keep
+        torch.cuda.empty_cache()
+    return rows, drive
+
+
 def phase_wide_heads(dev, card):
     """[wide-heads]: K7 above 128 lanes (csrc/flash_attention_wide.cu). Each
     form of WIDE_FORMS, the forward with its residual, dkv and dq in bf16
-    and fp32 at heads of 192 and 768, at the static VAE's [2, 32768, 768 /
-    D, D] on vae_valid's shells, driven once under grad with the counters
+    and fp32 at heads of 192, 768 and 1152, at the static VAE's [2, 32768,
+    768 / D, D] ([2, 32768, 1, 1152] at 1152 channels) on vae_valid's
+    shells, driven once under grad with the counters
     at 0, then against the plain forward and backward (fp32 also against
     fp64), timed (10 calls after 2 warm-ups) beside SDPA's forward and
     backward under the boolean key mask (vae_form_rows); the fp32 forward
     without its residual at one object's [1, 32768, 768 / D, D] against
     its plain version (encode_flash_check), then driven through the static
-    VAE's encode and decode (wide_encode_drive). main_vae at those heads
-    runs in [vae-train]. Returns (the kernels-line rows, the launches of
-    the forward without its residual)."""
+    VAE's encode and decode (wide_encode_drive); then the short check above
+    3072 lanes (wide_passes_check). main_vae at those heads (and at 1152
+    channels) runs in [vae-train]. Returns (the kernels-line rows, the
+    launches of the forward without its residual and of the check above
+    3072 lanes)."""
     t0 = time.perf_counter()
     rows, _ = vae_form_rows(dev, card, WIDE_FORMS, "[wide-heads]",
                             iters=(10, 10))
@@ -3086,6 +3254,9 @@ def phase_wide_heads(dev, card):
         rows[key] = encode_flash_check(dev, *entries[key], heads=heads,
                                        d=VAE_C // heads, tag="[wide-heads]")
     launches = wide_encode_drive(dev, card)
+    passes_rows, passes_launches = wide_passes_check(dev, card)
+    rows.update(passes_rows)
+    launches.update(passes_launches)
     log(f"[wide-heads] phase in {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
@@ -6900,9 +7071,10 @@ def main(argv) -> int:
     # heads of 32 and 128 from main_vae's runs at 24 and 6 heads, in bf16
     # from their own drive in [vae-forms], K7 at the static VAE's batch of 1
     # from encode_latent's run ([encode-latent]), K7 above 128 lanes from
-    # main_vae's runs at 4 and 1 heads (fp32) and the bf16 static VAE's steps
-    # at those heads ([vae-train]) and, without its residual, from the static
-    # VAE's encode in [wide-heads], the forms no path reaches
+    # main_vae's runs at 4 and 1 heads and at 1152 channels (fp32) and the
+    # bf16 static VAE's steps at those heads ([vae-train]) and, without its
+    # residual, from the static VAE's encode in [wide-heads] (at a head of
+    # 3136 from its drive there), the forms no path reaches
     # from their own drive in [forms], the forms of the DiT's other
     # configurations from the
     # run() of the configuration that sends them (FORM_RUNS), the others

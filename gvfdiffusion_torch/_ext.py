@@ -57,15 +57,15 @@ _SIGNATURES = {
     "gvf_flash_attention_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_L] * 6
     + [_F, _I, _P],
     "gvf_flash_attention_wide": [_P] * 7 + [_I] * 5 + [_L] * 6
-    + [_F, _I, _I, _P],
+    + [_F] + [_I] * 4 + [_P],
     "gvf_flash_attention_wide_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 6
-    + [_F, _I, _I, _P],
+    + [_F] + [_I] * 3 + [_P],
     "gvf_flash_attention_wide_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 6
-    + [_F, _I, _I, _P],
+    + [_F] + [_I] * 3 + [_P],
     "gvf_flash_attention_wide_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_L] * 6
-    + [_F, _I, _I, _P],
+    + [_F] + [_I] * 3 + [_P],
     "gvf_flash_attention_wide_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_L] * 6
-    + [_F, _I, _I, _P],
+    + [_F] + [_I] * 3 + [_P],
     "gvf_cross_sublayer1_f32": [_P] * 10 + [_I] + [_L] * 2 + [_P] * 5
     + [_I] * 4 + [_P],
     "gvf_self_sublayer_q8": [_P] * 18 + [_I] * 5 + [_P],

@@ -181,8 +181,9 @@ def main(argv=None) -> int:
             deltas = motion_vae.decode(mean, static_tensor, T)
             err = float(torch.mean(deltas[..., :3] ** 2))
             log(f"{name}: delta-xyz ms {err:.6f}")
-        launches = {k: n - before[k] for k, n in fl.launch_counts.items()
-                    if n - before[k]}
+        launches = {k: n - before.get(k, 0)
+                    for k, n in fl.launch_counts.items()
+                    if n - before.get(k, 0)}
         log(f"{name}: latent {list(shape)}, {G} Gaussians; "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
             + f"; launches {json.dumps(launches)}")

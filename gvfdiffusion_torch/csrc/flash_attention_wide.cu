@@ -1,11 +1,13 @@
 // K7 at heads wider than 128 lanes for Hopper (sm_90a): the forward (with or
 // without its logsumexp residual) and the two backward kernels, dkv and dq,
-// in bf16 and fp32, at any head width D that is a multiple of 64 from 192 to
-// 1024 (the wrapper zero-pads a head of another multiple of 8 above 128 to
-// the next of them: ops/_widths.py `flash_card_width`). The static VAE's
+// in bf16 and fp32, at every head width D that is a multiple of 64 above
+// 128 and that ops/_widths.py `wide_split` splits over a cluster (the
+// wrapper zero-pads a head of another multiple of 8 above 128 to the next
+// such width: `flash_card_width`; there is no cap on D). The static VAE's
 // full attention at its 768 channels in 4, 3, 2 or 1 heads (main_vae
 // --static_vae.num_heads=4 ... 1: D = 192 ... 768; encode_latent with such
-// a VAE).
+// a VAE), and at any other channel count (--static_vae.model_channels=1152
+// --static_vae.num_heads=1: D = 1152).
 //
 // Replaces, above 128 lanes, the stock Pallas TPU flash attention that
 // gvfdiffusion_tpu/sparse/attention.py:57 `_flash_full_attention` calls
@@ -34,72 +36,84 @@
 // nothing (P = 0), so its dK and dV stay the wrapper's zeros. A batch row
 // with no listed tile visits every tile.
 //
-// The forward's design: the simple one. At D = 768 a 64-row Q tile in bf16
-// is 96 KB and a 64 x 768 fp32 accumulator is 192 KB, past a CTA's shared
-// memory and one warpgroup's registers, so the output columns are split
-// over the grid: a CTA owns one 64-lane chunk c of O for a tile of 64 query
-// rows. It forms the full-width scores S = sum over chunks of Q_dc K_dc^T
-// by streaming 64-lane chunks of both operands through a 2-stage cp.async
-// ring in shared memory, then accumulates only its own chunk of the output
-// from its own chunk of V. So S is recomputed D / 64 times, once by each
-// chunk's CTA; every CTA of a row tile forms S in the same order, so their
-// row maxima and sums agree bit for bit, and chunk 0 alone writes the
-// logsumexp. 4 warps a CTA, each 16 rows; the products on the tensor cores
-// by mma.sync from shared memory (rows padded to 144 / 272 bytes: no bank
-// conflict), the score accumulator as it stands the A operand of the
-// product that sums over its columns:
-//   bf16: m16n8k16 bf16 -> fp32;
-//   fp32: m16n8k8 tf32 by the 3xTF32 split (x = hi + lo, a.b = lo.hi' +
-//   hi.lo' + hi.hi'), in chains of 32 lanes or keys summed in fp32 (the
-//   tensor cores' accumulation over a long chain loses more than fp32 adds;
-//   attention_sm90_tf32.cuh), about fp32's precision.
+// The design: a cluster of CTAs along D, the scores formed once per tile
+// pair, in all three kernels. The head's lanes are split over n CTAs of CL
+// lanes each (192 where it divides D, else 128, else 64: ops/_widths.py
+// `wide_split`; 1 CTA at 192, 4 at 768, 6 at 1152, 13 at 832, above 8 a
+// non-portable cluster, at most CLUSTER_MAX = 16, so one cluster covers up
+// to 3072 lanes; a head whose split would take more than 16 CTAs is padded
+// to a multiple of 192: 1088 runs at 1152). Above 3072 lanes the grid
+// holds P passes of a cluster of n CTAs of 64 lanes (D = P n 64, n <= 16):
+// CTA r of pass p owns the output lanes of chunk r + p n, and sums into the
+// partial scores its share of the lanes, the P chunks r + j n (j = 0 ..
+// P - 1, in that order in every pass); a chunk other than its own is read
+// into three or four more tiles before its product, without overlap (no
+// model of the repo runs such a head). So each pass forms the scores once.
 //
-// The backward's design: a cluster of CTAs along D, the scores formed once.
-// The head's lanes are split over n = D / CL CTAs of CL lanes each (192
-// where it divides D, else 128, else 64: ops/_widths.py `wide_split`; 1 CTA
-// at 192, 4 at 768, 13 at 832, above 8 a non-portable cluster). The n CTAs
-// of one tile of 64 rows (dkv: the keys of a visit; dq: query rows) form a
-// cluster; all share the tile and its list of visits, so a cluster whose
-// visit is past its row's count leaves whole, before any barrier. For each
-// tile pair (query tile, key visit) each CTA forms the partial S and dP
-// over its own CL lanes only into shared memory: warps 0-3 S, warps 4-7 dP
-// (bf16: one warpgroup's wgmma m64n64k16 each, both tiles in shared
-// memory; fp32: mma.sync m16n8k8 by the forward's 3xTF32 split, 16 rows a
-// warp, chains of 32 lanes summed in fp32). After a cluster barrier, CTA r
-// sums the r-th share of the [64][64] tiles over the n partials, read from
-// every CTA's shared memory in rank order (distributed shared memory, fp32
-// adds: one order, so the sums are the same bits in every CTA), forms P =
-// exp2(s scale log2 e - lse log2 e) and dS = P (dP - di) scale there, and
-// stores them into the same place in every CTA (a reduce-scatter, then an
-// all-gather by stores). After a second barrier each CTA accumulates only
-// its own lanes of the output: dkv dV_c += P^T dO_c (warps 0-3) and dK_c
-// += dS^T Q_c (warps 4-7), dq dQ_c += dS K_c; in bf16 one warpgroup's
-// wgmma m64nCLk16 each (dq's by warpgroup 0), P^T or dS^T rounded to bf16
-// pairs as the register A operand and the tile MN-major; in fp32 mma.sync,
-// 16 rows a warp (dq: and half the lanes), 3xTF32 in chains of 32 rows of
-// B. Each lane of Q, K, V and dO is read once a tile pair, by the CTA that
-// owns it: K_c and V_c (dkv) or Q_c and dO_c (dq) stay in shared memory,
-// the others stream through a 2-stage cp.async ring (1 stage in fp32 at 192
-// lanes: 227 KB), the tile's lse and di (dkv) or key mask (dq) read a tile
-// ahead. bf16 tiles sit in wgmma's 128-byte swizzle; fp32 tiles without
-// padding, their 16-byte chunks permuted by the row (`at`), so that both
-// fragment walks hit 32 banks. At n = 1 (D = 192) the barriers are the
-// CTA's. No atomics: every output element has one owner.
+// The forward: a cluster per (128 query rows, pass, head, batch row), 8
+// warps a CTA, warpgroup m owning query rows [64 m, 64 m + 64) of them. Q_c
+// of both 64-row tiles stays in shared memory; K_c and V_c of each listed
+// visit stream through a 2-stage cp.async ring (1 stage in fp32 at 192
+// lanes: 227 KB), the visit's key mask read a visit ahead. For each tile
+// pair each warpgroup forms the partial S = Q_c K_c^T over the CTA's CL
+// lanes (bf16: wgmma m64n64k16, both tiles in shared memory; fp32: mma.sync
+// m16n8k8 by the 3xTF32 split, 16 rows a warp, chains of 32 lanes summed
+// in fp32). After a cluster barrier CTA r sums the r-th share of the two
+// [64][64] tiles over the n partials, read from every CTA's shared memory
+// in rank order (distributed shared memory, fp32 adds), and stores the
+// sums to every CTA at the same place, so that each holds the same bits.
+// After a second barrier each warp runs the online softmax on its 16 rows
+// of the summed S (a true running maximum, the row sum from the fp32 P, P
+// rounded to the inputs' dtype for P V): every CTA keeps the same
+// statistics, and rank 0 alone writes the logsumexp. Each CTA accumulates
+// only its own lanes, O_c += P V_c (bf16: wgmma m64nCLk16, P as the
+// register A operand, V_c MN-major; fp32: mma.sync 3xTF32 in chains of 32
+// keys). At n = 1 (D = 192) the scores stay in registers and no barrier is
+// crossed. A batch row with no valid key forms no scores: P is 1 on every
+// key below Lk.
+//
+// The backward: the n CTAs of one tile of 64 rows (dkv: the keys of a
+// visit; dq: query rows) form a cluster; all share the tile and its list of
+// visits, so a cluster whose visit is past its row's count leaves whole,
+// before any barrier. For each tile pair (query tile, key visit) each CTA
+// forms the partial S and dP over its own CL lanes only into shared memory:
+// warps 0-3 S, warps 4-7 dP (bf16: one warpgroup's wgmma m64n64k16 each,
+// both tiles in shared memory; fp32: mma.sync m16n8k8 by the 3xTF32 split,
+// 16 rows a warp, chains of 32 lanes summed in fp32). After a cluster
+// barrier, CTA r sums the r-th share of the [64][64] tiles over the n
+// partials in rank order, as the forward does, forms P = exp2(s scale
+// log2 e - lse log2 e) and dS = P (dP - di) scale there, and stores them
+// into the same place in every CTA (a reduce-scatter, then an all-gather by
+// stores). After a second barrier each CTA accumulates only its own lanes
+// of the output: dkv dV_c += P^T dO_c (warps 0-3) and dK_c += dS^T Q_c
+// (warps 4-7), dq dQ_c += dS K_c; in bf16 one warpgroup's wgmma m64nCLk16
+// each (dq's by warpgroup 0), P^T or dS^T rounded to bf16 pairs as the
+// register A operand and the tile MN-major; in fp32 mma.sync, 16 rows a
+// warp (dq: and half the lanes), 3xTF32 in chains of 32 rows of B. Each
+// lane of Q, K, V and dO is read once a tile pair, by the CTA that owns it:
+// K_c and V_c (dkv) or Q_c and dO_c (dq) stay in shared memory, the others
+// stream through a 2-stage cp.async ring (1 stage in fp32 at 192 lanes:
+// 227 KB), the tile's lse and di (dkv) or key mask (dq) read a tile ahead.
+// bf16 tiles sit in wgmma's 128-byte swizzle; fp32 tiles without padding,
+// their 16-byte chunks permuted by the row (`at`), so that both fragment
+// walks hit 32 banks. At n = 1 (D = 192) the barriers are the CTA's. No
+// atomics: every output element has one owner.
 //
 // What bounds it on the H100: the products over the valid keys Nv, per head
 // 4 Lq Nv D operations forward, 8 dkv and 6 dq, at the dense bf16 rate (989
 // TFLOP/s) in bf16 and three tf32 products each at 495 in fp32; at the static
 // VAE's 768 channels and two shells (15721 + 12219 valid keys) the forward
-// 2.84 ms in bf16, 17.0 in fp32, dkv 5.69 / 34.09 and dq 4.27 / 25.57. The
-// forward's recomputation multiplies its score products: (D / 64 + 1) / 2
-// times the bound's operations (6.5 at D = 768). The backward does the
-// bound's products and no more: S and dP once per tile pair, 8 Lq Nv D
-// operations a head in dkv (S, dP, dV, dK) and 6 in dq (S, dP, dQ). What
-// keeps it above the bound: one CTA of 8 warps an SM, whose tensor cores
-// wait through the two barriers and the sum of each tile pair; in fp32
-// mma.sync and the 3xTF32 split of every operand as it is read (tf32 wgmma
-// reads both operands K-major only: the products that sum over a tile's
-// rows would need transposed copies, past 227 KB at 192 lanes).
+// 2.84 ms in bf16, 17.0 in fp32, dkv 5.69 / 34.09 and dq 4.27 / 25.57. Every
+// kernel does the bound's products and no more, 1x (above 3072 lanes the
+// score products P times): S once per tile pair forward, 4 Lq Nv D
+// operations a head (S, P V), S and dP once in the backward, 8 in dkv (S,
+// dP, dV, dK) and 6 in dq (S, dP, dQ). What keeps them above the bound:
+// one CTA of 8 warps an SM (two where the shared memory allows), whose
+// tensor cores wait through the two cluster barriers and the sum of each
+// tile pair; in fp32 mma.sync and the 3xTF32 split of every operand as it
+// is read (tf32 wgmma reads both operands K-major only: the products that
+// sum over a tile's rows would need transposed copies, past 227 KB at 192
+// lanes).
 
 #include "attention_sm90.cuh"
 #include "flash_tiles.cuh"
@@ -107,7 +121,7 @@
 namespace gvf {
 namespace sm90 {
 
-// dV and dK over 192 lanes (the wide backward in bf16): m64n192k16
+// O, dV and dK over 192 lanes (the wide kernels in bf16): m64n192k16
 template <>
 __device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a,
                                               uint64_t db) {
@@ -152,18 +166,14 @@ namespace {
 
 using namespace gvf;
 
-constexpr int WL = 64;     // lanes of a chunk
-constexpr int WR = 64;     // rows of a tile: query rows, or keys of a visit
-constexpr int WT = 128;    // threads: 4 warps of 16 rows
-constexpr int WIDE_MAX = 1024;
+constexpr int WL = 64;           // D's unit: the lanes of a chunk
+constexpr int WR = 64;           // rows of a tile: query rows, or keys of a visit
+constexpr int BT = 256;          // threads of a CTA: 8 warps, 2 warpgroups
+constexpr int PE = WR * WR;      // elements of a [64][64] fp32 score tile
+constexpr int CLUSTER_MAX = 16;  // the card's largest cluster (above 8:
+                                 // non-portable, asked for at the launch)
 
-// a [WR][WL] tile in shared memory, rows padded (144 bytes in bf16, 272 in
-// fp32) so that the fragment loads below hit 32 banks
-template <typename T>
-struct Tile {
-  static constexpr int P = sizeof(T) == 2 ? 72 : 68;  // the pitch, elements
-  static constexpr int BYTES = WR * P * (int)sizeof(T);
-};
+constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -184,30 +194,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [0, rows) of the tile from g (row r at g + r * sl, WL lanes), the
-// others zero
-template <typename T>
-__device__ __forceinline__ void load_tile(T* s, const T* g, long long sl,
-                                          int rows) {
-  constexpr int PER = 16 / sizeof(T);  // elements in 16 bytes
-  constexpr int ROW = WL / PER;        // 16-byte pieces a row
-#pragma unroll
-  for (int p = threadIdx.x; p < WR * ROW; p += WT) {
-    const int r = p / ROW, e = (p % ROW) * PER;
-    const bool ok = r < rows;
-    cp_async16(s + r * Tile<T>::P + e, ok ? g + r * sl + e : g, ok);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
-      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
                                          const uint32_t* b) {
   asm volatile(
@@ -215,10 +201,6 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // two bf16 in one register, lo at the lower k index
@@ -246,119 +228,6 @@ __device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
   mma_tf32(c, ah, bh);
 }
 
-// A warp's two products on [16][64] accumulators (8 n-tiles of m16n8: a
-// thread holds rows g and g + 8, columns 8 j + 2 t and + 1):
-//   rows_by_rows: acc += A B^T, A the warp's 16 rows of a tile, B a tile's
-//   64 rows, summed over the tile's WL lanes;
-//   regs_by_tile: acc += X B, X a [16][64] accumulator (over B's rows), B a
-//   tile [64 rows][WL lanes].
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<bf16> {
-  static constexpr int P = Tile<bf16>::P;
-
-  __device__ static void rows_by_rows(float (*acc)[4], const bf16* a,
-                                      const bf16* b, int g, int t) {
-#pragma unroll
-    for (int kk = 0; kk < WL / 16; ++kk) {
-      const bf16* ap = a + g * P + 16 * kk + 2 * t;
-      const uint32_t af[4] = {lds32(ap), lds32(ap + 8 * P), lds32(ap + 8),
-                              lds32(ap + 8 * P + 8)};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* bp = b + (8 * j + g) * P + 16 * kk + 2 * t;
-        mma_bf16(acc[j], af, lds32(bp), lds32(bp + 8));
-      }
-    }
-  }
-
-  // X rounded to bf16 (the stock kernels' casts of P and dS)
-  __device__ static void regs_by_tile(float (*acc)[4], const float (*x)[4],
-                                      const bf16* b, int g, int t) {
-#pragma unroll
-    for (int kk = 0; kk < WR / 16; ++kk) {
-      const uint32_t af[4] = {
-          pack_f(x[2 * kk][0], x[2 * kk][1]),
-          pack_f(x[2 * kk][2], x[2 * kk][3]),
-          pack_f(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-          pack_f(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-      const bf16* bp = b + (16 * kk + 2 * t) * P + g;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* c = bp + 8 * n;
-        mma_bf16(acc[n], af, pack(c[0], c[P]), pack(c[8 * P], c[9 * P]));
-      }
-    }
-  }
-};
-
-template <>
-struct Mma<float> {
-  static constexpr int P = Tile<float>::P;
-
-  __device__ static void rows_by_rows(float (*acc)[4], const float* a,
-                                      const float* b, int g, int t) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float part[8][4] = {};
-#pragma unroll
-      for (int kk = 4 * half; kk < 4 * half + 4; ++kk) {
-        const float* ap = a + g * P + 8 * kk + t;
-        uint32_t ah[4], al[4];
-        split(ap[0], ah[0], al[0]);
-        split(ap[8 * P], ah[1], al[1]);
-        split(ap[4], ah[2], al[2]);
-        split(ap[8 * P + 4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float* bp = b + (8 * j + g) * P + 8 * kk + t;
-          uint32_t bh[2], bl[2];
-          split(bp[0], bh[0], bl[0]);
-          split(bp[4], bh[1], bl[1]);
-          mma3(part[j], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-    }
-  }
-
-  // k-slot t of a k8 step is X's column 2 t, slot t + 4 column 2 t + 1:
-  // the accumulator's registers are the A operand as they stand, and B's
-  // rows are read in the same order
-  __device__ static void regs_by_tile(float (*acc)[4], const float (*x)[4],
-                                      const float* b, int g, int t) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float part[8][4] = {};
-#pragma unroll
-      for (int j = 4 * half; j < 4 * half + 4; ++j) {
-        uint32_t ah[4], al[4];
-        split(x[j][0], ah[0], al[0]);
-        split(x[j][2], ah[1], al[1]);
-        split(x[j][1], ah[2], al[2]);
-        split(x[j][3], ah[3], al[3]);
-        const float* bp = b + (8 * j + 2 * t) * P + g;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t bh[2], bl[2];
-          split(bp[8 * n], bh[0], bl[0]);
-          split(bp[P + 8 * n], bh[1], bl[1]);
-          mma3(part[n], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-    }
-  }
-};
-
 __device__ __forceinline__ void zero(float (*acc)[4]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -384,28 +253,10 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// a warp's [16][64] accumulator into rows r0 + g, r0 + g + 8 (below rows)
-// of out (row stride rs), columns from col
-template <typename T>
-__device__ __forceinline__ void store_acc(T* out, long long rs, int r0,
-                                          int rows, int col,
-                                          const float (*acc)[4], float s0,
-                                          float s1, int g, int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    if (r >= rows) continue;
-    T* p = out + r * rs + col + 2 * t;
-    const float s = half ? s1 : s0;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      store2(p + 8 * n, acc[n][2 * half] * s, acc[n][2 * half + 1] * s);
-  }
-}
-
 // One call's operands. q / k / v: element (b, i, h, d) at b * sb + i * sl +
 // h * D + d; o, dO, dq [B, Lq, H, D] and dk, dv [B, Lk, H, D] contiguous;
-// the list [B][list_s1]; lse, di [B, H, Lq] fp32
+// the list [B][list_s1]; lse, di [B, H, Lq] fp32; cluster: the CTAs of a
+// cluster (n), D / (n lanes) the passes
 struct WideArgs {
   const void* q;
   const void* k;
@@ -421,7 +272,7 @@ struct WideArgs {
   void* dk;
   void* dv;
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
-  int B, Lq, Lk, H, D, lk_pad;
+  int B, Lq, Lk, H, D, lk_pad, cluster;
   float scale, scale_log2;
 };
 
@@ -431,147 +282,6 @@ __device__ __forceinline__ int first_key(const int* lst, bool uniform,
                                          int vi) {
   return (uniform ? vi : lst[1 + vi]) * WR;
 }
-
-// The forward. CTA (query tile qt and chunk c, head, batch row); per visit
-// of a listed key tile, NC items of (Q_dc, K_dc) in the ring, the last
-// with the chunk's V_c and the keys' mask; then the softmax and O_c += P
-// V_c.
-template <typename T>
-__global__ void __launch_bounds__(WT)
-wide_fwd_kernel(const WideArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = Tile<T>::P, TB = Tile<T>::BYTES;
-  T* ring = reinterpret_cast<T*>(smem);  // [2 stages][Q, K]
-  T* vt = reinterpret_cast<T*>(smem + 4 * TB);
-  float* bias = reinterpret_cast<float*>(smem + 5 * TB);  // [WR] 0 or -inf
-  const int nc = a.D / WL, qt = blockIdx.x / nc, c = blockIdx.x % nc;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-  const int* lst = a.list + b * a.list_s1;
-  const bool uniform = lst[0] == 0;
-  const int visits = uniform ? (a.Lk + WR - 1) / WR : lst[0];
-  const int q0 = qt * WR, qrows = min(WR, a.Lq - q0);
-  const T* q = (const T*)a.q + b * a.q_sb + (long long)h * a.D + q0 * a.q_sl;
-  const T* k = (const T*)a.k + b * a.k_sb + (long long)h * a.D;
-  const T* v = (const T*)a.v + b * a.v_sb + (long long)h * a.D + c * WL;
-  const unsigned char* vld = a.valid + (long long)b * a.Lk;
-
-  auto load_item = [&](int it) {
-    const int vi = it / nc, dc = it % nc, key0 = first_key(lst, uniform, vi);
-    T* st = ring + (it & 1) * 2 * (TB / (int)sizeof(T));
-    load_tile(st, q + dc * WL, a.q_sl, qrows);
-    load_tile(st + TB / sizeof(T), k + key0 * a.k_sl + dc * WL, a.k_sl,
-              a.Lk - key0);
-    if (dc == nc - 1) {
-      load_tile(vt, v + key0 * a.v_sl, a.v_sl, a.Lk - key0);
-      if (tid < WR) {
-        const int key = key0 + tid;
-        bias[tid] = key < a.Lk && (uniform || vld[key]) ? 0.f : neg_inf();
-      }
-    }
-    cp_async_commit();
-  };
-
-  float o[8][4], s[8][4];
-  zero(o);
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
-  const int items = visits * nc;
-  load_item(0);
-  for (int it = 0; it < items; ++it) {
-    const int dc = it % nc;
-    if (it + 1 < items) {
-      load_item(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* st = ring + (it & 1) * 2 * (TB / (int)sizeof(T));
-    if (dc == 0) zero(s);
-    Mma<T>::rows_by_rows(s, st + 16 * w * P, st + TB / sizeof(T), g, t);
-    if (dc == nc - 1) {
-      if (uniform) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[j][e] = bias[8 * j + 2 * t + (e & 1)] == 0.f ? 1.f : 0.f;
-      } else {
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] = fmaf(s[j][e], a.scale_log2,
-                           bias[8 * j + 2 * t + (e & 1)]);
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-          }
-        float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = group_max(mx[r]);
-          alpha[r] = exp2f(m[r] - mx[r]);
-          m[r] = mx[r];
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] = exp2f(s[j][e] - m[e >> 1]);
-            sum[e >> 1] += s[j][e];
-            o[j][e] *= alpha[e >> 1];
-          }
-        l[0] = l[0] * alpha[0] + sum[0];
-        l[1] = l[1] * alpha[1] + sum[1];
-      }
-      Mma<T>::regs_by_tile(o, s, vt, g, t);
-    }
-    __syncthreads();
-  }
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = uniform ? (float)a.lk_pad : group_sum(l[r]);
-    inv[r] = 1.f / l[r];
-  }
-  const long long rs = (long long)a.H * a.D;
-  T* out = (T*)a.o + (long long)b * a.Lq * rs + (long long)h * a.D + c * WL;
-  store_acc(out, rs, q0 + 16 * w, a.Lq, 0, o, inv[0], inv[1], g, t);
-  if (a.lse && c == 0 && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = q0 + 16 * w + g + 8 * r;
-      if (i < a.Lq)
-        a.lse[((long long)b * a.H + h) * a.Lq + i] =
-            uniform ? logf((float)a.lk_pad)
-                    : (m[r] + log2f(l[r])) * 0.6931471805599453f;
-    }
-  }
-}
-
-// ---- the backward: a cluster of CTAs along D --------------------------------
-
-constexpr int BT = 256;          // threads of a backward CTA: 8 warps
-constexpr int PE = WR * WR;      // elements of a [64][64] fp32 score tile
-constexpr int CLUSTER_MAX = 16;  // the card's largest cluster (above 8:
-                                 // non-portable, asked for at the launch)
-
-// A backward CTA's shared memory at CL lanes: two resident [64][CL] tiles
-// (K_c and V_c in dkv, Q_c and dO_c in dq), STAGES stages of two streamed
-// ones (Q_c and dO_c of a query tile, or K_c and V_c of a visit), the two
-// fp32 score tiles [64][64] (S and dP, then P and dS), then 5 x 64 floats
-// of row and column statistics; in bf16 from a 1024-byte aligned base
-// (wgmma's swizzle atoms). fp32 at 192 lanes keeps one stage: two would
-// pass 227 KB.
-template <typename T, int CL>
-struct Bw {
-  static constexpr int STAGES = sizeof(T) == 4 && CL == 192 ? 1 : 2;
-  static constexpr int TE = WR * CL;
-  static constexpr int PART = (2 + 2 * STAGES) * TE * (int)sizeof(T);
-  static constexpr int ALIGN = sizeof(T) == 2 ? 1024 : 0;
-  static constexpr int BYTES = PART + 2 * PE * 4 + 5 * WR * 4 + ALIGN;
-  static constexpr int MIN_BLOCKS = BYTES <= 100 * 1024 ? 2 : 1;
-};
 
 // fp32: element (r, c) of a row-major tile of W columns sits at r W + (c ^
 // swz(r)), a row's 16-byte chunks permuted by the row, so that the warps'
@@ -613,8 +323,8 @@ __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// A warp's two products in the backward (a thread holds rows g and g + 8
-// of the warp's 16, columns 8 j + 2 t and + 1 of n-tile j):
+// A warp's two products (a thread holds rows g and g + 8 of the warp's 16,
+// columns 8 j + 2 t and + 1 of n-tile j):
 //   rows_by_rows: acc[8][4] += A B^T over the W lanes of two [64][W]
 //   tiles, A the warp's 16 rows from ar0 of tile a, B the 64 rows of b;
 //   regs_by_tile: acc[NT][4] += X B, X the warp's 16 rows from xr0 of a
@@ -665,6 +375,28 @@ struct Bk<bf16> {
       af[kk][2] = pack_f(x2.x, x2.y);
       af[kk][3] = pack_f(x3.x, x3.y);
     }
+    by_tile<W, NT>(acc, af, b);
+  }
+
+  // the same with X the warp's own [16][64] accumulator (the forward's P):
+  // its m16n8 layout is the A operand's k16 one, so no shared memory
+  template <int W, int NT>
+  __device__ static void acc_by_tile(float (*acc)[4], const float (*x)[4],
+                                     const bf16* b) {
+    uint32_t af[WR / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WR / 16; ++kk) {
+      af[kk][0] = pack_f(x[2 * kk][0], x[2 * kk][1]);
+      af[kk][1] = pack_f(x[2 * kk][2], x[2 * kk][3]);
+      af[kk][2] = pack_f(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+      af[kk][3] = pack_f(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    }
+    by_tile<W, NT>(acc, af, b);
+  }
+
+  template <int W, int NT>
+  __device__ static void by_tile(float (*acc)[4], uint32_t (*af)[4],
+                                 const bf16* b) {
     using S = sm90::Sw<W>;
     const uint32_t bb = sm90::smem_u32(b);
     float* d = &acc[0][0];
@@ -763,6 +495,21 @@ __device__ __forceinline__ void store_scores(float* x, int r0,
   }
 }
 
+// the same rows of a score tile back into a warp's accumulator
+__device__ __forceinline__ void load_scores(float (*acc)[4], const float* x,
+                                            int r0, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 a = ld2(x + at<WR>(r0 + g, c));
+    const float2 b = ld2(x + at<WR>(r0 + g + 8, c));
+    acc[j][0] = a.x;
+    acc[j][1] = a.y;
+    acc[j][2] = b.x;
+    acc[j][3] = b.y;
+  }
+}
+
 // a warp's [16][8 NT] accumulator into rows r0 + g, r0 + g + 8 (below rows)
 // of out (row stride rs)
 template <int NT, typename T>
@@ -823,6 +570,278 @@ __device__ __forceinline__ void cluster_sync() {
 
 __device__ __forceinline__ float pos_inf() { return -neg_inf(); }
 
+// The forward's sum of the cluster's partial scores: the two [64][64] fp32
+// tiles at part_s in every CTA, this CTA's 1 / n share of their 16-byte
+// chunks (by rank) read from every CTA in rank order (four reads in flight)
+// and added in fp32, the sums stored back to every CTA at the same place.
+// So each CTA ends with the same bits.
+__device__ __forceinline__ void reduce_sum(unsigned part_s, int n, int rank,
+                                           int tid) {
+  constexpr int CH = 2 * PE / 4;
+  const int lo = rank * CH / n, hi = (rank + 1) * CH / n;
+  for (int i = lo + tid; i < hi; i += BT) {
+    const unsigned off = part_s + (unsigned)i * 16u;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j0 = 0; j0 < n; j0 += 4) {
+      float4 x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + u < n) x[u] = ld_peer(peer(off, j0 + u));
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + u < n) {
+          s[0] += x[u].x;
+          s[1] += x[u].y;
+          s[2] += x[u].z;
+          s[3] += x[u].w;
+        }
+    }
+    for (int j = 0; j < n; ++j) st_peer(peer(off, j), s);
+  }
+}
+
+// ---- the forward --------------------------------------------------------------
+
+// The forward's shared memory at CL lanes: Q_c of the cluster's two 64-row
+// query tiles (resident), STAGES stages of K_c and V_c, the two [64][64]
+// fp32 score tiles (a warpgroup's partial S, then the cluster's sum; in
+// fp32 then its P), the visits' key mask [2][64] by parity; in bf16 from
+// a 1024-byte aligned base. With passes (64 lanes a CTA) three more tiles
+// from XOFF: Q_j of both query tiles and K_j of another chunk of the
+// CTA's share. fp32 at 192 lanes keeps one stage: two would pass 227 KB.
+template <typename T, int CL>
+struct Fw {
+  static constexpr int STAGES = sizeof(T) == 4 && CL == 192 ? 1 : 2;
+  static constexpr int TE = WR * CL;
+  static constexpr int PART = (2 + 2 * STAGES) * TE * (int)sizeof(T);
+  static constexpr int ALIGN = sizeof(T) == 2 ? 1024 : 0;
+  static constexpr int END = PART + 2 * PE * 4 + 2 * WR * 4;
+  static constexpr int BYTES = END + ALIGN;
+  static constexpr int XOFF = round_up(END, 1024);
+  static constexpr int XBYTES = XOFF + 3 * TE * (int)sizeof(T) + ALIGN;
+  static constexpr int MIN_BLOCKS = BYTES <= 100 * 1024 ? 2 : 1;
+};
+
+// A cluster of n CTAs per (128 query rows, pass, head, batch row), CTA c
+// (its rank) owning lanes [(c + pass n) CL, + CL): Q_c of both 64-row
+// tiles resident, per visit of a listed key tile K_c and V_c through the
+// ring. Warpgroup m forms the partial S = Q_c K_c^T of rows [64 m, 64 m +
+// 64) over the CTA's lanes (and, with passes, the other chunks of its
+// share); the cluster sums them (reduce_sum); each warp runs the online
+// softmax on its 16 rows and accumulates O_c += P V_c.
+template <typename T, int CL, bool PASSES>
+__global__ void __launch_bounds__(BT, (Fw<T, CL>::MIN_BLOCKS))
+wide_fwd_kernel(const WideArgs a) {
+  using L = Fw<T, CL>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if constexpr (L::ALIGN > 0)
+    smem += (L::ALIGN - (smem_addr(smem_raw) & (L::ALIGN - 1))) &
+            (L::ALIGN - 1);
+  T* qs = reinterpret_cast<T*>(smem);  // [2][Q_c]
+  T* ring = qs + 2 * L::TE;            // [STAGES][K_c, V_c]
+  float* part = reinterpret_cast<float*>(smem + L::PART);  // [2][64][64]
+  float* kbias = part + 2 * PE;  // [2][64]: 0 on a key that counts, or -inf
+  T* xt = reinterpret_cast<T*>(smem + L::XOFF);  // passes: [2][Q_j], K_j
+  const int n = a.cluster, c = cluster_rank();
+  const int passes = PASSES ? a.D / (n * CL) : 1;
+  const int cl = blockIdx.x / n;
+  const int qt = PASSES ? cl / passes : cl, pass = PASSES ? cl % passes : 0;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wr = 16 * (w & 3), m = w >> 2;
+  const int* lst = a.list + b * a.list_s1;
+  const bool uniform = lst[0] == 0;
+  const int visits = uniform ? (a.Lk + WR - 1) / WR : lst[0];
+  const int q0 = qt * 2 * WR;
+  const long long hd = (long long)h * a.D + (long long)(c + pass * n) * CL;
+  const long long step = (long long)n * CL;  // to the share's next chunk
+  const T* q = (const T*)a.q + b * a.q_sb + hd + q0 * a.q_sl;
+  const T* k = (const T*)a.k + b * a.k_sb + hd;
+  const T* v = (const T*)a.v + b * a.v_sb + hd;
+  const unsigned char* vld = a.valid + (long long)b * a.Lk;
+  // both query tiles' rows of the chunk d0 lanes from the CTA's own
+  auto load_queries = [&](T* dst, long long d0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      load_rows<T, CL>(dst + i * L::TE, q + d0 + i * WR * a.q_sl, a.q_sl,
+                       a.Lq - q0 - i * WR, tid);
+  };
+  load_queries(qs, 0);
+  auto load_keys = [&](int vi) {
+    T* st = ring + (vi % L::STAGES) * 2 * L::TE;
+    const int key0 = first_key(lst, uniform, vi);
+    if (!uniform)  // a row with no valid key forms no scores
+      load_rows<T, CL>(st, k + key0 * a.k_sl, a.k_sl, a.Lk - key0, tid);
+    load_rows<T, CL>(st + L::TE, v + key0 * a.v_sl, a.v_sl, a.Lk - key0,
+                     tid);
+    cp_async_commit();
+  };
+  load_keys(0);
+  // the mask of key tid of visit vi
+  auto key_bias = [&](int vi) {
+    const int key = first_key(lst, uniform, vi) + tid;
+    return key < a.Lk && (uniform || vld[key]) ? 0.f : neg_inf();
+  };
+  if (tid < WR) kbias[tid] = key_bias(0);
+
+  const unsigned part_s = smem_addr(part);
+  float* mine = part + m * PE;  // the warpgroup's score tile
+  float acc[CL / 8][4];         // O_c: the warp's 16 rows, the CTA's lanes
+#pragma unroll
+  for (int j = 0; j < CL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float mrow[2] = {neg_inf(), neg_inf()}, lrow[2] = {0.f, 0.f};
+  for (int vi = 0; vi < visits; ++vi) {
+    if (L::STAGES == 1 && vi > 0) {
+      __syncthreads();  // the last visit's products are done with the stage
+      load_keys(vi);
+    }
+    cp_async_wait<0>();
+    if constexpr (sizeof(T) == 2) sm90::fence_async();  // for wgmma's reads
+    __syncthreads();
+    const T* st = ring + (vi % L::STAGES) * 2 * L::TE;
+    const bool more = vi + 1 < visits;
+    float next_bias = 0.f;
+    if (more) {
+      if (L::STAGES == 2) load_keys(vi + 1);
+      if (tid < WR) next_bias = key_bias(vi + 1);
+    }
+    const float* kb = kbias + (vi & 1) * WR;
+    float s[8][4];
+    if (uniform) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = kb[8 * j + 2 * t + (e & 1)] == 0.f ? 1.f : 0.f;
+    } else {
+      zero(s);
+      if constexpr (!PASSES) {
+        Bk<T>::template rows_by_rows<CL>(s, qs + m * L::TE, wr, st, lane);
+      } else {
+        for (int j = 0; j < passes; ++j) {
+          if (j == pass) {
+            Bk<T>::template rows_by_rows<CL>(s, qs + m * L::TE, wr, st,
+                                             lane);
+            continue;
+          }
+          // another chunk of the share: its Q_j and K_j, read here
+          const long long dj = (j - pass) * step;
+          const int key0 = first_key(lst, uniform, vi);
+          __syncthreads();  // the last chunk's products are done with xt
+          load_queries(xt, dj);
+          load_rows<T, CL>(xt + 2 * L::TE, k + dj + key0 * a.k_sl, a.k_sl,
+                           a.Lk - key0, tid);
+          cp_async_commit();
+          cp_async_wait<0>();
+          if constexpr (sizeof(T) == 2) sm90::fence_async();
+          __syncthreads();
+          Bk<T>::template rows_by_rows<CL>(s, xt + m * L::TE, wr,
+                                           xt + 2 * L::TE, lane);
+        }
+      }
+      if (n > 1) {
+        store_scores(mine, wr, s, g, t);
+        cluster_sync();  // every CTA's partial S is in place
+        reduce_sum(part_s, n, c, tid);
+        cluster_sync();  // the sums are in every CTA
+        load_scores(s, mine, wr, g, t);
+      }
+      // the online softmax in the log2 domain, on the summed S
+      float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = fmaf(s[j][e], a.scale_log2, kb[8 * j + 2 * t + (e & 1)]);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = group_max(mx[r]);
+        alpha[r] = exp2f(mrow[r] - mx[r]);
+        mrow[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - mrow[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int j = 0; j < CL / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      lrow[0] = lrow[0] * alpha[0] + sum[0];
+      lrow[1] = lrow[1] * alpha[1] + sum[1];
+    }
+    // O_c += P V_c: in bf16 P from the registers, in fp32 through the
+    // warp's own rows of its warpgroup's tile
+    if constexpr (sizeof(T) == 2) {
+      Bk<T>::template acc_by_tile<CL, CL / 8>(acc, s, st + L::TE);
+    } else {
+      store_scores(mine, wr, s, g, t);
+      __syncwarp();
+      Bk<T>::template regs_by_tile<CL, CL / 8>(acc, mine, wr, st + L::TE, 0,
+                                               lane);
+    }
+    if (more && tid < WR) kbias[((vi + 1) & 1) * WR + tid] = next_bias;
+  }
+  // no CTA reads a peer's shared memory past the last cluster barrier
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] = uniform ? (float)a.lk_pad : group_sum(lrow[r]);
+    inv[r] = 1.f / lrow[r];
+  }
+#pragma unroll
+  for (int j = 0; j < CL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= inv[e >> 1];
+  const long long rs = (long long)a.H * a.D;
+  const int r0 = q0 + m * WR + wr;
+  store_out<CL / 8>((T*)a.o + (long long)b * a.Lq * rs + hd, rs, r0, a.Lq,
+                    acc, g, t);
+  if (a.lse && c == 0 && pass == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + g + 8 * r;
+      if (i < a.Lq)
+        a.lse[((long long)b * a.H + h) * a.Lq + i] =
+            uniform ? logf((float)a.lk_pad)
+                    : (mrow[r] + log2f(lrow[r])) * 0.6931471805599453f;
+    }
+  }
+}
+
+// ---- the backward -------------------------------------------------------------
+
+// A backward CTA's shared memory at CL lanes: two resident [64][CL] tiles
+// (K_c and V_c in dkv, Q_c and dO_c in dq), STAGES stages of two streamed
+// ones (Q_c and dO_c of a query tile, or K_c and V_c of a visit), the two
+// fp32 score tiles [64][64] (S and dP, then P and dS), then 5 x 64 floats
+// of row and column statistics; in bf16 from a 1024-byte aligned base
+// (wgmma's swizzle atoms). With passes (64 lanes a CTA) four more tiles
+// from XOFF: another chunk of the share's K_j, V_j, Q_j and dO_j (dkv) or
+// Q_j, dO_j, K_j and V_j (dq). fp32 at 192 lanes keeps one stage: two
+// would pass 227 KB.
+template <typename T, int CL>
+struct Bw {
+  static constexpr int STAGES = sizeof(T) == 4 && CL == 192 ? 1 : 2;
+  static constexpr int TE = WR * CL;
+  static constexpr int PART = (2 + 2 * STAGES) * TE * (int)sizeof(T);
+  static constexpr int ALIGN = sizeof(T) == 2 ? 1024 : 0;
+  static constexpr int END = PART + 2 * PE * 4 + 5 * WR * 4;
+  static constexpr int BYTES = END + ALIGN;
+  static constexpr int XOFF = round_up(END, 1024);
+  static constexpr int XBYTES = XOFF + 4 * TE * (int)sizeof(T) + ALIGN;
+  static constexpr int MIN_BLOCKS = BYTES <= 100 * 1024 ? 2 : 1;
+};
+
 // the barrier between the phases of a tile pair: the cluster's, or the
 // CTA's (which costs less) where one CTA holds the whole head (n = 1: D =
 // 192)
@@ -864,14 +883,15 @@ __device__ __forceinline__ void reduce_scores(unsigned part_s, int n, int rank,
   }
 }
 
-// dkv. A cluster of n = D / CL CTAs per (visit vi of 64 keys, head, batch
-// row), CTA c (its rank) owning lanes [c CL, (c + 1) CL): K_c and V_c
+// dkv. A cluster of n CTAs per (visit vi of 64 keys, pass, head, batch
+// row), CTA c (its rank) owning lanes [(c + pass n) CL, + CL): K_c and V_c
 // resident; per query tile Q_c and dO_c through the ring, the tile's lse
 // log2 e and di read a tile ahead. Warps 0-3 form the partial S^T = K_c
 // Q_c^T over the CTA's lanes, warps 4-7 dP^T = V_c dO_c^T (16 keys a
-// warp); the cluster sums them (reduce_scores) into P^T and dS^T; then
-// warps 0-3 accumulate dV_c += P^T dO_c and warps 4-7 dK_c += dS^T Q_c.
-template <typename T, int CL>
+// warp; with passes, over every chunk of the share); the cluster sums them
+// (reduce_scores) into P^T and dS^T; then warps 0-3 accumulate dV_c += P^T
+// dO_c and warps 4-7 dK_c += dS^T Q_c.
+template <typename T, int CL, bool PASSES>
 __global__ void __launch_bounds__(BT, (Bw<T, CL>::MIN_BLOCKS))
 wide_dkv_kernel(const WideArgs a) {
   using L = Bw<T, CL>;
@@ -886,7 +906,11 @@ wide_dkv_kernel(const WideArgs a) {
   float* part = reinterpret_cast<float*>(smem + L::PART);  // S^T, dP^T
   float* kok = part + 2 * PE;  // [64]: 1 on a key that counts, else 0
   float* qst = kok + WR;       // [2][lse log2 e [64], di [64]] by parity
-  const int n = a.D / CL, vi = blockIdx.x / n, c = cluster_rank();
+  T* xt = reinterpret_cast<T*>(smem + L::XOFF);  // passes: K_j V_j Q_j dO_j
+  const int n = PASSES ? a.cluster : a.D / CL, c = cluster_rank();
+  const int passes = PASSES ? a.D / (n * CL) : 1;
+  const int cl = blockIdx.x / n;
+  const int vi = PASSES ? cl / passes : cl, pass = PASSES ? cl % passes : 0;
   const int h = blockIdx.y, b = blockIdx.z;
   const int* lst = a.list + b * a.list_s1;
   const bool uniform = lst[0] == 0;
@@ -896,15 +920,16 @@ wide_dkv_kernel(const WideArgs a) {
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = 16 * (w & 3), mat = w >> 2;
   const int key0 = first_key(lst, uniform, vi);
-  const long long hd = (long long)h * a.D + c * CL, rs = (long long)a.H * a.D;
+  const long long hd = (long long)h * a.D + (long long)(c + pass * n) * CL;
+  const long long rs = (long long)a.H * a.D, step = (long long)n * CL;
   const T* q = (const T*)a.q + b * a.q_sb + hd;
   const T* dout = (const T*)a.dout + (long long)b * a.Lq * rs + hd;
+  const T* kc = (const T*)a.k + b * a.k_sb + hd + key0 * a.k_sl;
+  const T* vc = (const T*)a.v + b * a.v_sb + hd + key0 * a.v_sl;
   const float* lse = a.lse + ((long long)b * a.H + h) * a.Lq;
   const float* di = a.di + ((long long)b * a.H + h) * a.Lq;
-  load_rows<T, CL>(kt, (const T*)a.k + b * a.k_sb + hd + key0 * a.k_sl,
-                   a.k_sl, a.Lk - key0, tid);
-  load_rows<T, CL>(vt, (const T*)a.v + b * a.v_sb + hd + key0 * a.v_sl,
-                   a.v_sl, a.Lk - key0, tid);
+  load_rows<T, CL>(kt, kc, a.k_sl, a.Lk - key0, tid);
+  load_rows<T, CL>(vt, vc, a.v_sl, a.Lk - key0, tid);
   auto load_queries = [&](int qt) {
     T* st = ring + (qt % L::STAGES) * 2 * L::TE;
     const int q0 = qt * WR;
@@ -947,8 +972,34 @@ wide_dkv_kernel(const WideArgs a) {
     {
       float s[8][4];
       zero(s);
-      Bk<T>::template rows_by_rows<CL>(s, mat ? vt : kt, wr,
-                                       mat ? st + L::TE : st, lane);
+      if constexpr (!PASSES) {
+        Bk<T>::template rows_by_rows<CL>(s, mat ? vt : kt, wr,
+                                         mat ? st + L::TE : st, lane);
+      } else {
+        for (int j = 0; j < passes; ++j) {
+          if (j == pass) {
+            Bk<T>::template rows_by_rows<CL>(s, mat ? vt : kt, wr,
+                                             mat ? st + L::TE : st, lane);
+            continue;
+          }
+          // another chunk of the share: its K_j, V_j, Q_j, dO_j
+          const long long dj = (j - pass) * step;
+          const int q0 = qt * WR;
+          __syncthreads();  // the last chunk's products are done with xt
+          load_rows<T, CL>(xt, kc + dj, a.k_sl, a.Lk - key0, tid);
+          load_rows<T, CL>(xt + L::TE, vc + dj, a.v_sl, a.Lk - key0, tid);
+          load_rows<T, CL>(xt + 2 * L::TE, q + dj + q0 * a.q_sl, a.q_sl,
+                           a.Lq - q0, tid);
+          load_rows<T, CL>(xt + 3 * L::TE, dout + dj + q0 * rs, rs,
+                           a.Lq - q0, tid);
+          cp_async_commit();
+          cp_async_wait<0>();
+          if constexpr (sizeof(T) == 2) sm90::fence_async();
+          __syncthreads();
+          Bk<T>::template rows_by_rows<CL>(s, xt + mat * L::TE, wr,
+                                           xt + (2 + mat) * L::TE, lane);
+        }
+      }
       store_scores(part + mat * PE, wr, s, g, t);
     }
     pair_sync(n);  // every CTA's partial S^T and dP^T are in place
@@ -995,14 +1046,14 @@ wide_dkv_kernel(const WideArgs a) {
   store_out<CL / 8>(out, rs, key0 + wr, a.Lk, acc, g, t);
 }
 
-// dq. A cluster of n = D / CL CTAs per (query tile of 64 rows, head, batch
-// row), CTA c owning lanes [c CL, (c + 1) CL): Q_c and dO_c resident; per
-// visit K_c and V_c through the ring, the visit's key mask read a visit
+// dq. A cluster of n CTAs per (query tile of 64 rows, pass, head, batch
+// row), CTA c owning lanes [(c + pass n) CL, + CL): Q_c and dO_c resident;
+// per visit K_c and V_c through the ring, the visit's key mask read a visit
 // ahead. Warps 0-3 form the partial S = Q_c K_c^T, warps 4-7 dP = dO_c
-// V_c^T; the cluster sums them into dS; then dQ_c += dS K_c (bf16: warps
-// 0-3's wgmma over every lane; fp32: every warp, 16 rows and half the
-// lanes).
-template <typename T, int CL>
+// V_c^T (with passes, over every chunk of the share); the cluster sums them
+// into dS; then dQ_c += dS K_c (bf16: warps 0-3's wgmma over every lane;
+// fp32: every warp, 16 rows and half the lanes).
+template <typename T, int CL, bool PASSES>
 __global__ void __launch_bounds__(BT, (Bw<T, CL>::MIN_BLOCKS))
 wide_dq_kernel(const WideArgs a) {
   using L = Bw<T, CL>;
@@ -1017,7 +1068,11 @@ wide_dq_kernel(const WideArgs a) {
   float* part = reinterpret_cast<float*>(smem + L::PART);  // S, dP
   float* rst = part + 2 * PE;  // the rows' lse log2 e [64], di [64]
   float* kbias = rst + 2 * WR;  // [2][64]: 0 on a key that counts, or -inf
-  const int n = a.D / CL, qt = blockIdx.x / n, c = cluster_rank();
+  T* xt = reinterpret_cast<T*>(smem + L::XOFF);  // passes: Q_j dO_j K_j V_j
+  const int n = PASSES ? a.cluster : a.D / CL, c = cluster_rank();
+  const int passes = PASSES ? a.D / (n * CL) : 1;
+  const int cl = blockIdx.x / n;
+  const int qt = PASSES ? cl / passes : cl, pass = PASSES ? cl % passes : 0;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = 16 * (w & 3), mat = w >> 2;
@@ -1025,14 +1080,15 @@ wide_dq_kernel(const WideArgs a) {
   const bool uniform = lst[0] == 0;
   const int visits = uniform ? (a.Lk + WR - 1) / WR : lst[0];
   const int q0 = qt * WR;
-  const long long hd = (long long)h * a.D + c * CL, rs = (long long)a.H * a.D;
+  const long long hd = (long long)h * a.D + (long long)(c + pass * n) * CL;
+  const long long rs = (long long)a.H * a.D, step = (long long)n * CL;
+  const T* qc = (const T*)a.q + b * a.q_sb + hd + q0 * a.q_sl;
+  const T* oc = (const T*)a.dout + ((long long)b * a.Lq + q0) * rs + hd;
   const T* k = (const T*)a.k + b * a.k_sb + hd;
   const T* v = (const T*)a.v + b * a.v_sb + hd;
   const unsigned char* vld = a.valid + (long long)b * a.Lk;
-  load_rows<T, CL>(qt_, (const T*)a.q + b * a.q_sb + hd + q0 * a.q_sl,
-                   a.q_sl, a.Lq - q0, tid);
-  load_rows<T, CL>(ot, (const T*)a.dout + ((long long)b * a.Lq + q0) * rs + hd,
-                   rs, a.Lq - q0, tid);
+  load_rows<T, CL>(qt_, qc, a.q_sl, a.Lq - q0, tid);
+  load_rows<T, CL>(ot, oc, rs, a.Lq - q0, tid);
   auto load_keys = [&](int vi) {
     T* st = ring + (vi % L::STAGES) * 2 * L::TE;
     const int key0 = first_key(lst, uniform, vi);
@@ -1076,8 +1132,34 @@ wide_dq_kernel(const WideArgs a) {
     {
       float s[8][4];
       zero(s);
-      Bk<T>::template rows_by_rows<CL>(s, mat ? ot : qt_, wr,
-                                       mat ? st + L::TE : st, lane);
+      if constexpr (!PASSES) {
+        Bk<T>::template rows_by_rows<CL>(s, mat ? ot : qt_, wr,
+                                         mat ? st + L::TE : st, lane);
+      } else {
+        for (int j = 0; j < passes; ++j) {
+          if (j == pass) {
+            Bk<T>::template rows_by_rows<CL>(s, mat ? ot : qt_, wr,
+                                             mat ? st + L::TE : st, lane);
+            continue;
+          }
+          // another chunk of the share: its Q_j, dO_j, K_j, V_j
+          const long long dj = (j - pass) * step;
+          const int key0 = first_key(lst, uniform, vi);
+          __syncthreads();  // the last chunk's products are done with xt
+          load_rows<T, CL>(xt, qc + dj, a.q_sl, a.Lq - q0, tid);
+          load_rows<T, CL>(xt + L::TE, oc + dj, rs, a.Lq - q0, tid);
+          load_rows<T, CL>(xt + 2 * L::TE, k + dj + key0 * a.k_sl, a.k_sl,
+                           a.Lk - key0, tid);
+          load_rows<T, CL>(xt + 3 * L::TE, v + dj + key0 * a.v_sl, a.v_sl,
+                           a.Lk - key0, tid);
+          cp_async_commit();
+          cp_async_wait<0>();
+          if constexpr (sizeof(T) == 2) sm90::fence_async();
+          __syncthreads();
+          Bk<T>::template rows_by_rows<CL>(s, xt + mat * L::TE, wr,
+                                           xt + (2 + mat) * L::TE, lane);
+        }
+      }
       store_scores(part + mat * PE, wr, s, g, t);
     }
     pair_sync(n);  // every CTA's partial S and dP are in place
@@ -1114,38 +1196,32 @@ wide_dq_kernel(const WideArgs a) {
     store_out<NQ>(out, rs, q0 + wr, a.Lq, acc, g, t);
 }
 
-template <typename T>
-inline int smem_bytes(int tiles) {
-  return tiles * Tile<T>::BYTES + 2 * WR * 4;
-}
-
-// one kernel at its grid, with its dynamic shared memory (tiles of it)
-template <typename T, typename K>
-cudaError_t run(K kernel, int tiles, unsigned grid_x, const WideArgs& a,
-                cudaStream_t s) {
-  const int bytes = smem_bytes<T>(tiles);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(grid_x, a.H, a.B), WT, bytes, s>>>(a);
-  return cudaGetLastError();
-}
-
 // the checks every entry makes; per16: elements in 16 bytes
 bool bad_args(const WideArgs& a, int per16) {
-  return a.D % WL != 0 || a.D <= 128 || a.D > WIDE_MAX || a.B < 1 ||
-         a.B > 65535 || a.Lq < 1 || a.Lk < 1 || a.H < 1 || a.H > 65535 ||
-         a.lk_pad < a.Lk || cdiv(a.Lk, WR) > 48 * 1024 ||
-         (uintptr_t)a.q % 16 || (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 ||
-         a.q_sb % per16 || a.q_sl % per16 || a.k_sb % per16 ||
-         a.k_sl % per16 || a.v_sb % per16 || a.v_sl % per16;
+  return a.D % WL != 0 || a.D <= 128 || a.B < 1 || a.B > 65535 || a.Lq < 1 ||
+         a.Lk < 1 || a.H < 1 || a.H > 65535 || a.lk_pad < a.Lk ||
+         cdiv(a.Lk, WR) > 48 * 1024 || (uintptr_t)a.q % 16 ||
+         (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 || a.q_sb % per16 ||
+         a.q_sl % per16 || a.k_sb % per16 || a.k_sl % per16 ||
+         a.v_sb % per16 || a.v_sl % per16;
+}
+
+// the split every kernel takes (ops/_widths.py `wide_split`): 64, 128 or
+// 192 lanes a CTA and 1 to CLUSTER_MAX CTAs a cluster, their product
+// dividing D; more than one pass at 64 lanes only (the extra tiles' room)
+bool bad_split(const WideArgs& a, int lanes) {
+  if ((lanes != 64 && lanes != 128 && lanes != 192) || a.cluster < 1 ||
+      a.cluster > CLUSTER_MAX)
+    return true;
+  const int span = lanes * a.cluster;
+  return a.D % span != 0 || (a.D / span > 1 && lanes != 64);
 }
 
 WideArgs make_args(const void* q, const void* k, const void* v,
                    const void* valid, const void* list, int B, int Lq,
                    int Lk, int H, int D, long long q_sb, long long q_sl,
                    long long k_sb, long long k_sl, long long v_sb,
-                   long long v_sl, float scale, int lk_pad) {
+                   long long v_sl, float scale, int lk_pad, int ctas) {
   WideArgs a = {};
   a.q = q; a.k = k; a.v = v;
   a.valid = (const unsigned char*)valid;
@@ -1154,42 +1230,31 @@ WideArgs make_args(const void* q, const void* k, const void* v,
   a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
   a.v_sb = v_sb; a.v_sl = v_sl;
   a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H; a.D = D; a.lk_pad = lk_pad;
+  a.cluster = ctas;
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
   return a;
 }
 
-template <typename T>
-cudaError_t launch_fwd(const WideArgs& a, cudaStream_t s) {
-  tile_list_kernel<WR><<<a.B, 1024, cdiv(a.Lk, WR), s>>>(a.valid, a.list,
-                                                         a.Lk, a.list_s1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return run<T>(wide_fwd_kernel<T>, 5, cdiv(a.Lq, WR) * (a.D / WL), a, s);
-}
-
-// One backward kernel at CL lanes a CTA: a cluster of D / CL CTAs along x
-// per tile of 64 rows (keys of a visit in dkv, query rows in dq), launched
-// with the cluster's dimension. A launch the card refuses (a cluster it
-// cannot place) returns its error.
-template <typename T, int CL>
-cudaError_t run_bwd(bool dkv, const WideArgs& a, cudaStream_t s) {
-  void (*kernel)(WideArgs) =
-      dkv ? wide_dkv_kernel<T, CL> : wide_dq_kernel<T, CL>;
-  const int n = a.D / CL, bytes = Bw<T, CL>::BYTES;
+// One kernel over grid_x CTAs along x (a cluster of a.cluster of them per
+// tile of rows and pass) by heads and batch rows, with `bytes` of dynamic
+// shared memory, launched with the cluster's dimension. A launch the card
+// refuses (a cluster it cannot place) returns its error.
+cudaError_t run_cluster(void (*kernel)(WideArgs), int bytes, unsigned grid_x,
+                        const WideArgs& a, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && n > 8)
+  if (err == cudaSuccess && a.cluster > 8)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.x = a.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(dkv ? a.Lk : a.Lq, WR) * n, a.H, a.B);
+  cfg.gridDim = dim3(grid_x, a.H, a.B);
   cfg.blockDim = dim3(BT);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -1197,6 +1262,52 @@ cudaError_t run_bwd(bool dkv, const WideArgs& a, cudaStream_t s) {
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the forward at CL lanes a CTA: clusters per 128 query rows and pass
+// (passes at 64 lanes only: bad_split)
+template <typename T, int CL>
+cudaError_t run_fwd(const WideArgs& a, cudaStream_t s) {
+  using L = Fw<T, CL>;
+  const int passes = a.D / (a.cluster * CL);
+  const unsigned grid_x = cdiv(a.Lq, 2 * WR) * passes * a.cluster;
+  if constexpr (CL == 64)
+    if (passes > 1)
+      return run_cluster(wide_fwd_kernel<T, CL, true>, L::XBYTES, grid_x, a,
+                         s);
+  return run_cluster(wide_fwd_kernel<T, CL, false>, L::BYTES, grid_x, a, s);
+}
+
+template <typename T>
+cudaError_t launch_fwd(const WideArgs& a, int lanes, cudaStream_t s) {
+  tile_list_kernel<WR><<<a.B, 1024, cdiv(a.Lk, WR), s>>>(a.valid, a.list,
+                                                         a.Lk, a.list_s1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (lanes) {
+    case 64: return run_fwd<T, 64>(a, s);
+    case 128: return run_fwd<T, 128>(a, s);
+    case 192: return run_fwd<T, 192>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// one backward kernel at CL lanes a CTA: clusters per tile of 64 rows (keys
+// of a visit in dkv, query rows in dq) and pass
+template <typename T, int CL>
+cudaError_t run_bwd(bool dkv, const WideArgs& a, cudaStream_t s) {
+  using L = Bw<T, CL>;
+  const int passes = a.D / (a.cluster * CL);
+  const unsigned grid_x = cdiv(dkv ? a.Lk : a.Lq, WR) * passes * a.cluster;
+  if constexpr (CL == 64)
+    if (passes > 1) {
+      void (*kernel)(WideArgs) =
+          dkv ? wide_dkv_kernel<T, CL, true> : wide_dq_kernel<T, CL, true>;
+      return run_cluster(kernel, L::XBYTES, grid_x, a, s);
+    }
+  void (*kernel)(WideArgs) =
+      dkv ? wide_dkv_kernel<T, CL, false> : wide_dq_kernel<T, CL, false>;
+  return run_cluster(kernel, L::BYTES, grid_x, a, s);
 }
 
 template <typename T>
@@ -1210,19 +1321,13 @@ cudaError_t launch_bwd(bool dkv, const WideArgs& a, int lanes,
   return cudaErrorInvalidValue;
 }
 
-// the split the backward takes: 64, 128 or 192 lanes a CTA, dividing D, at
-// most CLUSTER_MAX CTAs a cluster
-bool bad_split(const WideArgs& a, int lanes) {
-  return (lanes != 64 && lanes != 128 && lanes != 192) || a.D % lanes != 0 ||
-         a.D / lanes > CLUSTER_MAX;
-}
-
 }  // namespace
 
 extern "C" {
 
 // The forward. As flash_attention.cu's gvf_flash_attention (the same
-// arguments), at D a multiple of 64 from 192 to 1024: q/k/v all bf16 (f32
+// arguments), at D a multiple of 64 above 128, with the split last (lanes a
+// CTA and CTAs a cluster: ops/_widths.py `wide_split`): q/k/v all bf16 (f32
 // = 0) or all fp32 (f32 = 1), rows and batch strides 16-byte aligned;
 // scratch: int32, the tile list [B, 1 + ceil(Lk / 64)] (the backward walks
 // it); o [B, Lq, H, D] contiguous; lse: null or [B, H, Lq] fp32.
@@ -1231,31 +1336,34 @@ int gvf_flash_attention_wide(const void* q, const void* k, const void* v,
                              void* lse, int B, int Lq, int Lk, int H, int D,
                              long long q_sb, long long q_sl, long long k_sb,
                              long long k_sl, long long v_sb, long long v_sl,
-                             float scale, int lk_pad, int f32, void* stream) {
+                             float scale, int lk_pad, int f32, int lanes,
+                             int ctas, void* stream) {
   WideArgs a = make_args(q, k, v, valid, scratch, B, Lq, Lk, H, D, q_sb, q_sl,
-                         k_sb, k_sl, v_sb, v_sl, scale, lk_pad);
+                         k_sb, k_sl, v_sb, v_sl, scale, lk_pad, ctas);
   a.o = o;
   a.lse = (float*)lse;
-  if (bad_args(a, f32 ? 4 : 8)) return (int)cudaErrorInvalidValue;
+  if (bad_args(a, f32 ? 4 : 8) || bad_split(a, lanes))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(f32 ? launch_fwd<float>(a, s) : launch_fwd<bf16>(a, s));
+  return (int)(f32 ? launch_fwd<float>(a, lanes, s)
+                   : launch_fwd<bf16>(a, lanes, s));
 }
 
 // The backward, as flash_attention_bwd.cu's entries (the same arguments)
-// and lanes, the lanes of D a CTA owns (ops/_widths.py `wide_split`): list
-// and lse the wide forward's, dout [B, Lq, H, D] contiguous, di [B, H, Lq]
-// fp32; dkv writes the listed tiles' dk and dv [B, Lk, H, D] (zeroed by the
-// caller), dq every row of dq [B, Lq, H, D]. fp32 here, bf16 in the _bf16
-// entries.
+// and the forward's split, lanes and ctas: list and lse the wide forward's,
+// dout [B, Lq, H, D] contiguous, di [B, H, Lq] fp32; dkv writes the listed
+// tiles' dk and dv [B, Lk, H, D] (zeroed by the caller), dq every row of dq
+// [B, Lq, H, D]. fp32 here, bf16 in the _bf16 entries.
 #define GVF_WIDE_BWD(SUFFIX, T)                                                \
   int gvf_flash_attention_wide_bwd_dkv##SUFFIX(                                \
       const void* q, const void* k, const void* v, const void* valid,          \
       const void* list, const void* lse, const void* dout, const void* di,     \
       void* dk, void* dv, int B, int Lq, int Lk, int H, int D, long long q_sb, \
       long long q_sl, long long k_sb, long long k_sl, long long v_sb,          \
-      long long v_sl, float scale, int lk_pad, int lanes, void* stream) {      \
+      long long v_sl, float scale, int lk_pad, int lanes, int ctas,            \
+      void* stream) {                                                          \
     WideArgs a = make_args(q, k, v, valid, list, B, Lq, Lk, H, D, q_sb, q_sl,  \
-                           k_sb, k_sl, v_sb, v_sl, scale, lk_pad);             \
+                           k_sb, k_sl, v_sb, v_sl, scale, lk_pad, ctas);       \
     a.lse = (float*)lse; a.dout = dout; a.di = (const float*)di;               \
     a.dk = dk; a.dv = dv;                                                      \
     if (bad_args(a, 16 / (int)sizeof(T)) || bad_split(a, lanes))              \
@@ -1267,9 +1375,10 @@ int gvf_flash_attention_wide(const void* q, const void* k, const void* v,
       const void* list, const void* lse, const void* dout, const void* di,     \
       void* dq, int B, int Lq, int Lk, int H, int D, long long q_sb,           \
       long long q_sl, long long k_sb, long long k_sl, long long v_sb,          \
-      long long v_sl, float scale, int lk_pad, int lanes, void* stream) {      \
+      long long v_sl, float scale, int lk_pad, int lanes, int ctas,            \
+      void* stream) {                                                          \
     WideArgs a = make_args(q, k, v, valid, list, B, Lq, Lk, H, D, q_sb, q_sl,  \
-                           k_sb, k_sl, v_sb, v_sl, scale, lk_pad);             \
+                           k_sb, k_sl, v_sb, v_sl, scale, lk_pad, ctas);       \
     a.lse = (float*)lse; a.dout = dout; a.di = (const float*)di; a.dq = dq;    \
     if (bad_args(a, 16 / (int)sizeof(T)) || bad_split(a, lanes))              \
       return (int)cudaErrorInvalidValue;                                       \

@@ -27,16 +27,18 @@ Two versions:
     each product split into three tf32 products with fp32 sums; the SLat
     flow as the registry builds it). The kernels run natively at heads of
     32, 64 and 128; above 128 lanes `csrc/flash_attention_wide.cu`'s
-    kernels (mma.sync, bf16 or 3xTF32) run every multiple of 64 up to
-    1024. A head of any other multiple of 8 (the widths
+    kernels (a cluster of CTAs along the head's lanes forming each tile
+    pair's scores once: bf16 on wgmma, fp32 on mma.sync 3xTF32) run every
+    multiple of 64 that `_widths.wide_split` splits, with no cap on D. A
+    head of any other multiple of 8 (the widths
     `sparse/attention.full_sparse_attention` sends here) is zero-padded
     to the next width the kernels run
     (`_widths.flash_card_width`, `pad_heads`), run with the true width's
     scale, and its output cut back to its D columns: zero columns change no
     score and no logsumexp, so the padding is the design, not a departure
-    from JAX's function. It raises for anything else (not a multiple of 8,
-    or above 1024) and never falls back: an fp32 input is never cast to
-    reach the bf16 kernel.
+    from JAX's function. It raises for anything else (not a multiple of 8)
+    and never falls back: an fp32 input is never cast to reach the bf16
+    kernel.
 
 The gradient (port of the stock kernel's `_flash_attention_bwd_dkv` and
 `_flash_attention_bwd_dq`, which JAX runs when a trainer differentiates
@@ -59,8 +61,8 @@ operands into fp32, P and dS rounded to bf16 before the products that
 take them, each gradient rounded to bf16 once. Above 128 lanes both are
 `csrc/flash_attention_wide.cu`'s, the same arithmetic (bf16 on wgmma,
 fp32 on mma.sync): a cluster of CTAs along the head's lanes
-(`_widths.wide_split`) forms each tile pair's scores once, summed through
-the cluster's shared memory. A
+(`_widths.wide_split`; passes of clusters above 3072 lanes) forms each
+tile pair's scores once, summed through the cluster's shared memory. A
 kernel that does not build or launch raises; nothing falls back to the
 plain version. On the CPU, or with impl="plain", forward and backward are
 the plain versions
@@ -78,8 +80,9 @@ kernels
 (`grad_key`: "flash_attention_fp32_res", "flash_attention_bwd_dkv",
 "flash_attention_bwd_dq" at fp32 and heads of 64, "flash_attention_res",
 "flash_attention_bwd_dkv_bf16", ... in bf16, "_d32", "_d96", ... at the
-other widths). The counters are made at import for every width K7 takes
-(`_widths.FLASH_WIDTHS`, up to 1024). The plain versions never count.
+other widths). The counters are made at import for every multiple of 8
+up to 4096 (`_widths.FLASH_WIDTHS`), a wider head's at its first launch.
+The plain versions never count.
 """
 
 from __future__ import annotations
@@ -132,6 +135,11 @@ launch_counts.update({grad_key(kind, dt, w): 0 for kind in GRAD_KINDS
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _count(key: str) -> None:
+    """One launch under `key`, its counter made at the first."""
+    launch_counts[key] = launch_counts.get(key, 0) + 1
 
 
 def key_tile(dtype: torch.dtype, head_dim: int) -> int:
@@ -211,7 +219,7 @@ def flash_attention_backward_reference(q, k, v, kv_valid, scale: float, o,
 
 def _check_cuda(q, k, v, kv_valid) -> int:
     """What the kernel takes: CUDA q [B, Lq, H, D] and k/v [B, Lk, H, D],
-    all bf16 or all fp32, D a multiple of 8 up to 1024, each with its heads
+    all bf16 or all fp32, D a multiple of 8, each with its heads
     contiguous in a row and rows on 16-byte boundaries; kv_valid bool [B,
     Lk]. Returns the width the kernels run at (`flash_card_width(D)`)."""
     for t in (q, k, v):
@@ -271,11 +279,12 @@ def launch_forward(q, k, v, kv_valid, scale: float, residual: bool,
               o.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Lq, Lk,
               H, D,
               q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-              v.stride(1), float(scale), padded_keys(Lk), int(f32))
+              v.stride(1), float(scale), padded_keys(Lk), int(f32),
+              *_split(D))
     if residual:
-        launch_counts[grad_key("res", q.dtype, width or D)] += 1
+        _count(grad_key("res", q.dtype, width or D))
         return o, lse, scratch, valid
-    launch_counts[launch_key(q.dtype, width or D)] += 1
+    _count(launch_key(q.dtype, width or D))
     return o
 
 
@@ -307,9 +316,10 @@ def _entry(kind: str, dtype: torch.dtype, width: int) -> str:
 
 
 def _split(width: int) -> tuple:
-    """The wide entries' last argument, the lanes a CTA owns
-    (`wide_split`); nothing for the entries of heads up to 128."""
-    return (wide_split(width)[0],) if width > 128 else ()
+    """The wide entries' last arguments, the lanes a CTA owns and the
+    CTAs a cluster (`wide_split`; the kernels take the passes as D over
+    their product); nothing for the entries of heads up to 128."""
+    return wide_split(width) if width > 128 else ()
 
 
 def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
@@ -325,7 +335,7 @@ def launch_dkv(ptrs, sizes, scale: float, dtype: torch.dtype,
     dv = torch.zeros_like(dk)
     _ext.call(_entry("bwd_dkv", dtype, D), *ptrs, dk.data_ptr(), dv.data_ptr(),
               *sizes, float(scale), padded_keys(Lk), *_split(D))
-    launch_counts[grad_key("bwd_dkv", dtype, width or D)] += 1
+    _count(grad_key("bwd_dkv", dtype, width or D))
     return dk, dv
 
 
@@ -340,7 +350,7 @@ def launch_dq(ptrs, sizes, scale: float, dtype: torch.dtype,
                      device=torch.device("cuda", torch.cuda.current_device()))
     _ext.call(_entry("bwd_dq", dtype, D), *ptrs, dq.data_ptr(), *sizes,
               float(scale), padded_keys(Lk), *_split(D))
-    launch_counts[grad_key("bwd_dq", dtype, width or D)] += 1
+    _count(grad_key("bwd_dq", dtype, width or D))
     return dq
 
 

@@ -57,10 +57,9 @@ def full_sparse_attention(q, k, v, q_valid, kv_valid, dtype: torch.dtype,
     heads of 32, 64 and 128 natively and zero-pad a head of any other
     multiple of 8 up to 128 to the next of those (`ops/_widths.py`: the
     same function). K7's branch also takes D > 128, as JAX's stock kernel
-    does: its wide kernels run every multiple of 64 up to 1024 and pad a
-    head of another multiple of 8 to the next of them
-    (`_widths.flash_card_width`); a head wider than 1024 raises on the
-    card."""
+    does, at every multiple of 8 with no cap: its wide kernels pad a head
+    to the next width they split over a cluster of CTAs
+    (`_widths.flash_card_width`, `wide_split`)."""
     lq, lk = q.shape[1], k.shape[1]
     if fa.supports(q.shape, k.shape) and lq * lk >= FUSED_SCORE_ELEMENTS:
         bias = torch.where(kv_valid, 0.0, float("-inf")).float()

@@ -6,31 +6,36 @@ the wide kernels' width, the dispatch under grad and K7's width rule.
 JAX sends any head width that is a multiple of 8 to the stock Pallas flash
 kernel (`gvfdiffusion_tpu/sparse/attention.py:114`), which has no cap on
 D: the static VAE's 768 channels in 4, 3, 2 or 1 heads train at D = 192,
-256, 384 and 768. The port's wide kernels run every multiple of 64 from
-192 to 1024 and the wrapper zero-pads a head of another multiple of 8 above
-128 to the next of them (`_widths.flash_card_width`: 136 runs at 192).
+256, 384 and 768, and 1152 channels in one head at 1152. The port's wide
+kernels have no cap either: they split a head over a cluster of at most
+16 CTAs of 192, 128 or 64 lanes (`_widths.wide_split`), in passes of such
+clusters above 3072 lanes, and the wrapper zero-pads a head of another
+multiple of 8 above 128 to the next width they split
+(`_widths.flash_card_width`: 136 runs at 192, 1088 at 1152, 3136 at 3328).
 This file holds:
   (a) the plain forward and `FlashAttention`'s plain backward against
       `jax.vjp` of `_flash_full_attention` (its kernels in interpret mode,
-      jitted and blocked on) at D = 136, 192, 256, 384 and 768 in fp32 and
-      bf16, one call holding three validities as batch rows (a prefix,
-      scattered keys, no valid key), Lq = 130 against Lk = 300, every query
-      row compared;
-  (b) the padding identity: a head of 136 zero-padded to 192 through the
-      plain versions, with the true width's scale and cut back, against the
-      unpadded run; rel L2 <= 1e-6 (the same function: only the order of
-      fp32 sums may differ);
+      jitted and blocked on) at D = 136, 192, 256, 384, 768, 1088 and 1152
+      in fp32 and bf16, one call holding three validities as batch rows (a
+      prefix, scattered keys, no valid key), Lq = 130 against Lk = 300,
+      every query row compared;
+  (b) the padding identity: heads of 136, 1088 and 3136 zero-padded to
+      192, 1152 and 3328 through the plain versions, with the true width's
+      scale and cut back, against the unpadded run; rel L2 <= 1e-6 (the
+      same function: only the order of fp32 sums may differ);
   (c) under grad, `full_sparse_attention` takes the flash branch at D >
       128 on both sides (JAX's rule read as it reads it on a TPU), the two
-      results and gradients equal within fp32's tolerance;
-  (e) K7's rule: every multiple of 8 from 136 to 1024 maps to a width the
-      wide source takes (its lane chunk and cap read from the source), the
-      card check passes on stand-ins of the caller's views at that width,
-      and a width off the rule raises;
-  (f) the wide backward's split (`wide_split`) at every card width: CTAs
-      of 192, 128 or 64 lanes tiling D exactly, a cluster within the cap
-      the source asks the card for, every padded width on its card
-      width's split.
+      results and gradients equal within fp32's tolerance, at D = 192, 768
+      and 1152 (past the old cap);
+  (e) K7's rule: every multiple of 8 from 136 to 4096 maps to a width the
+      wide source takes (its lane chunk read from the source, which checks
+      no cap), the card check passes on stand-ins of the caller's views at
+      that width, and a width off the rule raises;
+  (f) the wide kernels' split (`wide_split`) at every card width up to
+      4096: CTAs of 192, 128 or 64 lanes, a cluster within the cap the
+      source asks the card for, passes (above 3072, of 64-lane CTAs only)
+      tiling D exactly, and every multiple of 8 above the card width
+      before it padded to this one.
 Tolerances, those of tests/test_torch_port_flash_bwd_forms.py: fp32 atol
 2e-5 on o, dq, dk and dv; bf16 rel L2 1e-2 and max abs 3.2e-2 (both sides
 round P and dS to bf16 from fp32 values that differ in their last bits). The
@@ -49,10 +54,11 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from gvfdiffusion_torch.ops import flash_attention as fl
-from gvfdiffusion_torch.ops._widths import (FLASH_WIDTHS, WIDE_LANES,
-                                            WIDE_MAX, WIDE_SPLITS, card_width,
+from gvfdiffusion_torch.ops._widths import (COUNTED_MAX, FLASH_WIDTHS,
+                                            WIDE_CLUSTER, WIDE_LANES,
+                                            WIDE_SPAN, WIDE_SPLITS, card_width,
                                             flash_card_width, pad_heads,
-                                            wide_split)
+                                            wide_passes, wide_split)
 from gvfdiffusion_torch.sparse import attention as psa
 from gvfdiffusion_tpu.sparse import attention as jsa
 
@@ -62,7 +68,7 @@ ATOL = 2e-5
 BF16_REL, BF16_ATOL = 1e-2, 3.2e-2
 PAD_REL = 1e-6
 B, H, LQ, LK = 3, 1, 130, 300
-WIDTHS = (136, 192, 256, 384, 768)
+WIDTHS = (136, 192, 256, 384, 768, 1088, 1152)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -160,11 +166,13 @@ def test_wide_heads_match_jax_pallas(dtype_name, D):
 # -- (b) the padding identity -------------------------------------------------
 
 
-def test_wide_padding_identity():
-    """136 -> 192: zero columns change no score and no row sum, and give
-    zero in the dropped columns of o, dq, dk and dv."""
-    D, W = 136, flash_card_width(136)
-    assert W == 192
+@pytest.mark.parametrize("D,W", [(136, 192), (1088, 1152), (3136, 3328)])
+def test_wide_padding_identity(D, W):
+    """136 -> 192, 1088 -> 1152 (its 64-lane split would take 17 CTAs) and
+    3136 -> 3328 (4 passes of 13 CTAs of 64 lanes): zero columns change no
+    score and no row sum, and give zero in the dropped columns of o, dq, dk
+    and dv."""
+    assert flash_card_width(D) == W
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(D, seed=5))
     valid = torch.from_numpy(_validity(LK, seed=5))
     scale = D ** -0.5
@@ -178,14 +186,14 @@ def test_wide_padding_identity():
     for name, a, b in zip(("o", "dq", "dk", "dv"), (op, *gp), (o, *grads)):
         assert float(a[..., D:].abs().max()) == 0, name
         err = float((a[..., :D] - b).norm() / b.norm())
-        print(f"padding 136 -> 192 {name}: rel_l2 {err:.3e}")
+        print(f"padding {D} -> {W} {name}: rel_l2 {err:.3e}")
         assert err <= PAD_REL, (name, err)
 
 
 # -- (c) the dispatch under grad on both sides --------------------------------
 
 
-@pytest.mark.parametrize("D", (192, 768))
+@pytest.mark.parametrize("D", (192, 768, 1152))
 def test_full_sparse_attention_takes_the_flash_branch(monkeypatch, D):
     """Both packages' `full_sparse_attention` under grad, the flash
     threshold lowered to the shape: the port's goes through K7's Function
@@ -250,20 +258,36 @@ class _OnCard:
         return getattr(self._t, name)
 
 
+def _card_widths():
+    """Every card width above 128 up to COUNTED_MAX, ascending."""
+    return sorted({flash_card_width(d) for d in range(136, COUNTED_MAX + 1, 8)})
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_every_multiple_of_8_maps_to_a_wide_width(dtype):
-    """136 .. 1024 step 8 -> the next multiple of the source's lane chunk
-    within its cap (the kernels' check: D % WL == 0, 128 < D <=
-    WIDE_MAX), the card check passing on the views of a qkv projection;
-    the counters exist for every width."""
-    lanes, cap = _source_constant("WL"), _source_constant("WIDE_MAX")
-    assert (lanes, cap) == (WIDE_LANES, WIDE_MAX) == (64, 1024)
-    assert "a.D % WL != 0 || a.D <= 128 || a.D > WIDE_MAX" \
-        in WIDE_SRC.read_text()
+    """136 .. 4096 step 8 -> a multiple of the source's lane chunk (the
+    kernels' check: D % WL == 0, D > 128, no cap) whose split fits a
+    cluster: up to 3072 the next multiple of 64 that splits into at most
+    16 CTAs, within 191 lanes of the head;
+    the card check passing on the views of a qkv projection; the counters
+    exist for every width, and a head past them gets its own at its first
+    launch."""
+    lanes = _source_constant("WL")
+    assert lanes == WIDE_LANES == 64 and WIDE_SPAN == 3072
+    src = WIDE_SRC.read_text()
+    assert "a.D % WL != 0 || a.D <= 128 || a.B < 1" in src
+    assert "WIDE_MAX" not in src
     valid = _OnCard(torch.ones(1, 8, dtype=torch.bool))
-    for d in range(136, 1025, 8):
+    for d in range(136, COUNTED_MAX + 1, 8):
         w = flash_card_width(d)
-        assert w % lanes == 0 and 128 < w <= cap and 0 <= w - d < lanes, d
+        assert w % lanes == 0 and 128 < w and w >= d, d
+        n = wide_split(w)[1]
+        assert n <= WIDE_CLUSTER, d
+        if w <= WIDE_SPAN:  # the next multiple of 64 whose split fits
+            assert w - d < 192, d
+            for x in range(-(-d // 64) * 64, w, 64):
+                split = next(c for c in (192, 128, 64) if x % c == 0)
+                assert x // split > WIDE_CLUSTER, (d, x)
         assert fl.key_tile(dtype, d) == 64
         qkv = torch.zeros(1, 8, 3, 1, d, dtype=dtype)
         q, k, v = (_OnCard(qkv[:, :, i]) for i in range(3))
@@ -271,14 +295,24 @@ def test_every_multiple_of_8_maps_to_a_wide_width(dtype):
         for kind in fl.GRAD_KINDS:
             assert fl.grad_key(kind, dtype, d) in fl.launch_counts
         assert fl.launch_key(dtype, d) in fl.launch_counts
-    assert FLASH_WIDTHS == tuple(range(8, 1025, 8))
+    assert FLASH_WIDTHS == tuple(range(8, COUNTED_MAX + 1, 8))
     # up to 128 the rule is K5's and K6's, as before
     assert [flash_card_width(d) for d in range(8, 129, 8)] == [
         card_width(d) for d in range(8, 129, 8)]
+    # past the counters made at import, a launch makes its own
+    key = fl.launch_key(dtype, 8192)
+    assert key not in fl.launch_counts
+    try:
+        fl._count(key)
+        assert fl.launch_counts[key] == 1
+    finally:
+        del fl.launch_counts[key]
 
 
-@pytest.mark.parametrize("d", [0, 4, 132, 196, 770, 1032, 2048])
+@pytest.mark.parametrize("d", [0, 4, 132, 196, 770, 1036, 4100])
 def test_widths_off_the_rule_raise(d):
+    """Not a positive multiple of 8: K7's rule refuses it (a multiple of 8
+    of any size is on it: 1032 and 2048, off the old cap, run)."""
     with pytest.raises(ValueError, match="heads of"):
         flash_card_width(d)
     q = _OnCard(torch.zeros(1, 8, 1, d))
@@ -288,27 +322,39 @@ def test_widths_off_the_rule_raise(d):
         card_width(d)
 
 
-@pytest.mark.parametrize("width", range(192, WIDE_MAX + 1, 64))
+@pytest.mark.parametrize("width", _card_widths())
 def test_wide_backward_split(width):
-    """The split of the wide backward at each card width: the first of
-    192, 128 and 64 lanes that divides it, its CTAs tiling D exactly, the
-    cluster within the cap the source's launch asks for (non-portable
-    above 8); each multiple of 8 padded up to this width takes its split,
-    and the wrapper hands the entries its lanes."""
+    """The split of the wide kernels at each card width: up to 3072 the
+    first of 192, 128 and 64 lanes that divides it, one pass; above, 64
+    lanes and the fewest passes of at most 16 CTAs; the passes times the
+    cluster times the lanes tiling D exactly, the cluster within the cap
+    the source's launch asks for (non-portable above 8); every multiple of
+    8 above the card width before it padded to this width; the wrapper
+    hands the entries the lanes and the cluster."""
     lanes, n = wide_split(width)
-    assert lanes == next(c for c in (192, 128, 64) if width % c == 0)
-    assert WIDE_SPLITS == (192, 128, 64) and lanes * n == width
-    assert 1 <= n <= _source_constant("CLUSTER_MAX") == 16
-    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" \
-        in WIDE_SRC.read_text()
-    for d in range(max(136, width - 56), width + 1, 8):
+    passes = wide_passes(width)
+    assert WIDE_SPLITS == (192, 128, 64) and lanes * n * passes == width
+    assert 1 <= n <= _source_constant("CLUSTER_MAX") == WIDE_CLUSTER == 16
+    if width <= WIDE_SPAN:
+        assert passes == 1
+        assert lanes == next(c for c in (192, 128, 64) if width % c == 0)
+    else:
+        assert lanes == 64 and passes == -(-width // 64 // 16) > 1
+    src = WIDE_SRC.read_text()
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in src
+    assert "(a.D / span > 1 && lanes != 64)" in src
+    widths = _card_widths()
+    before = widths[widths.index(width) - 1] if width != widths[0] else 128
+    for d in range(before + 8, width + 1, 8):
         assert flash_card_width(d) == width, d
-        assert wide_split(flash_card_width(d)) == (lanes, n), d
-    assert fl._split(width) == (lanes,)
+    assert fl._split(width) == (lanes, n)
     assert fl._split(128) == ()
 
 
-@pytest.mark.parametrize("width", [128, 200, 1088])
+@pytest.mark.parametrize("width", [128, 200, 1088, 3200])
 def test_wide_split_off_the_rule_raises(width):
+    """Not a card width: 128 and below, not a multiple of 64, a split past
+    16 CTAs (1088: 17 of 64 lanes; it runs at 1152), or above 3072 no
+    whole passes of 64-lane clusters (3200: 50 chunks in 4 passes)."""
     with pytest.raises(ValueError, match="wide kernels take"):
         wide_split(width)

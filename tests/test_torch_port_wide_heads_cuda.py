@@ -1,14 +1,16 @@
 """K7 above 128 lanes on the card: the wide kernels
 (csrc/flash_attention_wide.cu) in each of their six forms, the forward
 with and without its logsumexp residual, dkv and dq, in bf16 and in fp32,
-at heads of 136 (padded to 192), 192, 256, 320, 384, 576, 640, 768, 832
-and 1024, against their plain torch versions (chip_smoke.py's
-`[wide-heads]` holds them at the static VAE's full width and drives
-main_vae through them). The widths cover every split the backward takes
-(`_widths.wide_split`: lanes a CTA x CTAs a cluster): 192 x 1 (136, 192),
+at heads of 136 (padded to 192), 192, 256, 320, 384, 576, 640, 768, 832,
+1024, 1088 (padded to 1152), 1152, 1536 and 3136 (padded to 3328),
+against their plain torch versions (chip_smoke.py's `[wide-heads]` holds
+them at the static VAE's full width and drives main_vae through them).
+The widths cover every split the kernels take (`_widths.wide_split`:
+lanes a CTA x CTAs a cluster, all three kernels): 192 x 1 (136, 192),
 128 x 2 (256), 64 x 5 (320), 192 x 2 (384), 192 x 3 (576), 128 x 5 (640),
-192 x 4 (768), 64 x 13 (832, the largest cluster, past the portable 8)
-and 128 x 8 (1024, the widest head).
+192 x 4 (768), 64 x 13 (832, past the portable 8), 128 x 8 (1024),
+192 x 6 (1088, whose 64-lane split would take 17 CTAs, and 1152), 192 x 8
+(1536) and, above one cluster's 3072 lanes, 4 passes of 64 x 13 (3136).
 
 The cases: three batch rows, a prefix of valid keys, scattered keys and no
 valid key at all (every 64-key tile visited, P = 1 / Lk-padded-to-512, so
@@ -19,8 +21,10 @@ against the plain scores'; two launches giving the same bits; each launch
 counted under the caller's width; the fp32 gradients also against a
 dense fp64 gradient; batch rows whose lists differ in length (one tile
 against all of them: the clusters of the short row's missing visits
-leave at once, the others run on); and the wrapper raising, not falling
-back, where the library lacks the wide entries. Every test needs a CUDA
+leave at once, the others run on); the residual forward's o and
+logsumexp the same bits in two calls; the wrapper raising, not falling
+back, where the library lacks the wide entries; and a head that is not a
+multiple of 8 raising. Every test needs a CUDA
 device and skips without one; run them on the GPU with
 
     python -m pytest tests/test_torch_port_wide_heads_cuda.py -m cuda -q
@@ -44,9 +48,10 @@ pytestmark = pytest.mark.cuda
 FLASH_BWD_BOUND = 1e-5
 BF16_BOUND = 1e-2
 LSE_ATOL = 1e-4
-WIDTHS = (136, 192, 256, 320, 384, 576, 640, 768, 832, 1024)
+WIDTHS = (136, 192, 256, 320, 384, 576, 640, 768, 832, 1024, 1088, 1152,
+          1536, 3136)
 HEADS = {136: 2, 192: 2, 256: 1, 320: 1, 384: 2, 576: 1, 640: 1, 768: 1,
-         832: 1, 1024: 1}
+         832: 1, 1024: 1, 1088: 1, 1152: 1, 1536: 1, 3136: 1}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
@@ -236,7 +241,7 @@ def test_wide_uneven_lists(dev, dt, D):
     _check(q, k, v, valid, do, f"{dt} d{D} uneven lists")
 
 
-@pytest.mark.parametrize("D", (136, 768, 832))
+@pytest.mark.parametrize("D", (136, 768, 832, 1152, 3136))
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_wide_deterministic(dev, dt, D):
     """Two launches of each kernel on the same inputs give the same bits
@@ -279,12 +284,44 @@ def test_wide_entries_missing_raise(dev, monkeypatch):
     assert fl.launch_counts["flash_attention_fp32"] == 1
 
 
+@pytest.mark.parametrize("D", (192, 768, 1152, 3136))
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_wide_forward_same_bits(dev, dt, D):
+    """The residual forward twice on the same inputs: o and the row
+    logsumexp the same bits (every CTA of a cluster sums the partial
+    scores in rank order and runs the softmax on the same sums; rank 0 of
+    the first pass writes the logsumexp)."""
+    from gvfdiffusion_torch.ops import flash_attention as fl
+    from gvfdiffusion_torch.ops._widths import flash_card_width, pad_heads
+
+    q, k, v, _, g = _inputs(dev, DTYPES[dt], 3, D, 1, 130, 300, 41 + D)
+    valid = _validity(dev, 300, g)
+    W = flash_card_width(D)
+    q, k, v = (pad_heads(t, W) for t in (q, k, v))
+    runs = [fl.launch_forward(q, k, v, valid, D ** -0.5, residual=True,
+                              width=D)[:2] for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse"), *runs):
+        assert torch.equal(a, b), (dt, D, name)
+
+
 def test_wider_than_the_rule_raises(dev):
-    """K7's rule ends at 1024 lanes, and takes multiples of 8 only."""
+    """K7's rule takes every multiple of 8, with no cap (1032 and 4096, past
+    the old cap of 1024, run); a head of another width raises and nothing
+    is launched."""
     from gvfdiffusion_torch.ops import flash_attention as fl
 
     valid = torch.ones(1, 64, dtype=torch.bool, device=dev)
-    for D in (1032, 196, 132):
+    fl.reset_launch_counts()
+    for D in (196, 132, 1036, 3140):
         q = torch.zeros(1, 64, 1, D, device=dev)
         with pytest.raises(ValueError, match="heads of"):
             fl.flash_attention(q, q, q, valid, 0.1)
+    assert not any(fl.launch_counts.values())
+    for D in (1032, 4096):
+        q = torch.zeros(1, 64, 1, D, device=dev)
+        o = fl.flash_attention(q, q, q, valid, 0.1)
+        torch.cuda.synchronize()
+        assert tuple(o.shape) == (1, 64, 1, D) and float(o.abs().max()) == 0
+    assert fl.launch_counts["flash_attention_fp32_d1032"] == 1
+    assert fl.launch_counts["flash_attention_fp32_d4096"] == 1

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times K7's wide backward kernels, dkv and dq, on one CUDA card, for one
-or several checkouts of the package in turn, beside SDPA's backward and
-the bound.
+"""Times K7's wide kernels, the forward (with its residual, and without it
+as encode_latent calls it) and the backward's dkv and dq, on one CUDA
+card, for one or several checkouts of the package in turn, beside SDPA's
+forward and backward and the bounds.
 
     python3 wide_bwd_timing.py [--root DIR ...] [--form bfloat16:192 ...]
                                [--iters 10]
@@ -9,16 +10,19 @@ the bound.
 The inputs are chip_smoke.py's `[wide-heads]` ones: the static VAE's full
 attention at [2, 32768, 768 / D, D], q, k and v the views of one seeded
 projection, the two surface shells of `vae_valid` (15721 + 12219 valid
-keys), dO seeded; by default the forms (bf16, fp32) x (192, 768). Each
-root (a checkout holding gvfdiffusion_torch, e.g. a parent commit unpacked
-beside this one; default: this checkout) runs in a process of its own,
-one after the other, so that one call times several versions on the same
-card: per form its forward with the residual once, then `launch_dkv` and
-`launch_dq` (the wrapper's calls, zeroed outputs included) `iters` times
-each after 2 warm-ups (CUDA events), and SDPA's backward under the
-boolean key mask (2 calls after 1 warm-up). The bounds count the valid
-keys' products (dkv 8, dq 6 B H Lq Nv D operations; in fp32 three tf32
-products each) at the datasheet's peaks, as chip_smoke.py does.
+keys), dO seeded; the encode form one object's [1, 32768, 768 / D, D]
+(batch row 0: 15721 valid keys); by default the forms (bf16, fp32) x
+(192, 768). Each root (a checkout holding gvfdiffusion_torch, e.g. a
+parent commit unpacked beside this one; default: this checkout) runs in a
+process of its own, one after the other, so that one call times several
+versions on the same card: per form `launch_forward` with the residual
+and without it on the one object, `launch_dkv` and `launch_dq` (the
+wrapper's calls, zeroed outputs included), each `iters` times after 2
+warm-ups (CUDA events), and SDPA's forward (both shapes) and backward
+under the boolean key mask (2 calls after 1 warm-up). The bounds count
+the valid keys' products (forward 4, dkv 8, dq 6 B H Lq Nv D operations;
+in fp32 three tf32 products each) at the datasheet's peaks, as
+chip_smoke.py does.
 
 Prints the card's name and power limit, one JSON line per root, then a
 table of the times. Needs a CUDA device; exits 1 without one.
@@ -37,8 +41,9 @@ FORMS = ("bfloat16:192", "bfloat16:768", "float32:192", "float32:768")
 
 
 def measure(root: str, forms, iters: int) -> dict:
-    """{form: {dkv, dq, sdpa_bwd, bound_dkv, bound_dq, lanes, cluster}} for
-    the package under `root` (ms)."""
+    """{form: {fwd, enc, dkv, dq, sdpa_fwd, sdpa_enc, sdpa_bwd, bound_fwd,
+    bound_enc, bound_dkv, bound_dq, lanes, cluster}} for the package under
+    `root` (ms)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import torch.nn.functional as F
@@ -50,6 +55,7 @@ def measure(root: str, forms, iters: int) -> dict:
     dev = torch.device("cuda:0")
     valid = cs.vae_valid(dev)
     qk_units = sum(cs.SLOTS * int(n) * cs.VAE_C for n in valid.sum(1))
+    enc_units = cs.SLOTS * int(valid[0].sum()) * cs.VAE_C
     out = {}
     for form in forms:
         dt_name, D = form.split(":")
@@ -61,6 +67,11 @@ def measure(root: str, forms, iters: int) -> dict:
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         do = torch.randn(cs.VAE_B, cs.SLOTS, H, D, generator=g,
                          device=dev).to(dtype)
+        fwd = cs.time_ms(lambda: fl.launch_forward(
+            q, k, v, valid, scale, residual=True, width=D), iters=iters)
+        one = [t_[:1] for t_ in (q, k, v, valid)]
+        enc = cs.time_ms(lambda: fl.launch_forward(
+            *one[:3], one[3], scale, residual=False, width=D), iters=iters)
         o, lse, tiles, vld = fl.launch_forward(q, k, v, valid, scale,
                                                 residual=True, width=D)
         ptrs, sizes, keep = fl.backward_inputs(q, k, v, vld, tiles, lse, o,
@@ -71,22 +82,35 @@ def measure(root: str, forms, iters: int) -> dict:
                         iters=iters)
         t = [a.detach().transpose(1, 2).requires_grad_(True)
              for a in (q, k, v)]
-        lib_o = F.scaled_dot_product_attention(
-            *t, attn_mask=valid[:, None, None, :])
+        mask = valid[:, None, None, :]
+        sdpa_fwd = cs.time_ms(lambda: F.scaled_dot_product_attention(
+            *t, attn_mask=mask).detach(), iters=2, warm=1)
+        sdpa_enc = cs.time_ms(lambda: F.scaled_dot_product_attention(
+            *(a[:1] for a in t), attn_mask=mask[:1]).detach(), iters=2,
+            warm=1)
+        lib_o = F.scaled_dot_product_attention(*t, attn_mask=mask)
         sdpa = cs.time_ms(lambda: torch.autograd.grad(
             lib_o, t, do.transpose(1, 2), retain_graph=True), iters=2,
             warm=1)
         ops, peak = (3, cs.PEAK_TF32) if f32 else (1, cs.PEAK_FLOPS)
+        b_fwd = cs.bound(ops * 4 * qk_units, cs.nbytes(q, k, v, valid, o,
+                                                       lse), peak)[0]
+        b_enc = cs.bound(ops * 4 * enc_units, cs.nbytes(*one, o[:1]),
+                         peak)[0]
         b_dkv = cs.bound(ops * 8 * qk_units, cs.nbytes(
             q, k, v, valid, lse, do, q, q), peak)[0]
         b_dq = cs.bound(ops * 6 * qk_units, cs.nbytes(q, k, v, valid, lse,
                                                       do, q), peak)[0]
-        # a checkout before the clusters: a CTA per 64-lane chunk
+        # a checkout before the backward's clusters: a CTA per 64-lane
+        # chunk
         split = getattr(fl, "wide_split", None)
         lanes, cluster = split(D) if split else (64, None)
-        out[form] = dict(dkv=dkv, dq=dq, sdpa_bwd=sdpa, bound_dkv=b_dkv,
-                         bound_dq=b_dq, lanes=lanes, cluster=cluster)
-        del qkv, q, k, v, do, o, lse, tiles, vld, keep, t, lib_o
+        out[form] = dict(fwd=fwd, enc=enc, dkv=dkv, dq=dq,
+                         sdpa_fwd=sdpa_fwd, sdpa_enc=sdpa_enc,
+                         sdpa_bwd=sdpa, bound_fwd=b_fwd, bound_enc=b_enc,
+                         bound_dkv=b_dkv, bound_dq=b_dq, lanes=lanes,
+                         cluster=cluster)
+        del qkv, q, k, v, do, o, lse, tiles, vld, keep, t, lib_o, one
         torch.cuda.empty_cache()
     return out
 
@@ -135,6 +159,10 @@ def main(argv=None) -> int:
         print(f"{form}:")
         for root, r in runs:
             x = r[form]
+            print(f"  {root}: forward with residual {x['fwd']:.3f} ms "
+                  f"(bound {x['bound_fwd']:.4f}; SDPA's forward "
+                  f"{x['sdpa_fwd']:.3f}), encode {x['enc']:.3f} ms (bound "
+                  f"{x['bound_enc']:.4f}; SDPA's {x['sdpa_enc']:.3f})")
             print(f"  {root}: dkv {x['dkv']:.3f} ms (bound "
                   f"{x['bound_dkv']:.4f}), dq {x['dq']:.3f} ms (bound "
                   f"{x['bound_dq']:.4f}), dkv + dq "
